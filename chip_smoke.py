@@ -2,8 +2,10 @@
 
     python3 chip_smoke.py
 
-1. Build: compile petals_tpu_torch/csrc/paged_attention.cu with nvcc
-   (sm_90a) into build/kernels/, and print the card's name and power limit.
+1. Build: compile every CUDA source of the port (csrc/paged_attention.cu,
+   csrc/quant_matmul.cu) with nvcc (sm_90a) into build/kernels/, one nvcc
+   each, all started together, and print each one's build seconds; print
+   the card's name and power limit.
 2. Kernels: at Mistral-7B-v0.1 widths (32 query heads, 8 KV heads, head_dim
    128, page 64, bf16) hold each CUDA kernel against its plain PyTorch
    version on the same inputs, and time the kernel, the plain version and a
@@ -42,16 +44,37 @@
    synchronize), and from torch.profiler over PROFILE_CALLS further calls
    the device busy time, the kernel launches and the top operations, with
    the idle share 1 - busy / wall of those same calls.
+5. Dequant-matmul kernels (K5: nf4, nf4a, int4; K6: int8) at Mistral-7B's
+   fused shapes, gate+up [4096, 28672] and down [14336, 4096], at 8 rows
+   (the decode kernel) and 512 rows (the prefill kernel), seeded bf16
+   weights quantized on the card: each against its plain version (x rounded
+   to bf16 against dequantize(w, bf16), summed in float32) within
+   QUANT_REL_TOL of the output's largest magnitude, with the kernel's, the
+   plain version's and a dense bf16 torch.matmul's time (the product the
+   quantized kernel replaces, timed here only) and the bound. (This phase
+   runs right after phase 2.)
+6. Quantized server: the same 8-block span served with --quant_type nf4a
+   (quantized on the card at load, qkv and gate+up fused) to the traffic of
+   phase 3, checked as phase 3 checks, against dense references over the
+   dequantized weights in bf16 and float32; the decode kernel must have run
+   for every projection of every block of every step and the prefill
+   kernel for every chunk's. Then phase 4's profile of the nf4a span.
+7. Other kinds, short: int8, nf4, int4 and nf4a+o served at 2 blocks, one
+   session each (a 300-token prompt, 8 decode steps), checked the same way,
+   so every arm of K5 and K6 runs on the served path.
 
 float32 matmuls run in full float32: TF32 is switched off for matmuls and
 convolutions. Exits non-zero on any failure. The last line is the JSON
 object ``{"ok": true, "device": {...}}``; the line before it lists the
-kernels with their times, bounds and main-path launch counts.
+kernels with their times, bounds and main-path launch counts (K1/K2 from
+the bf16 run, K5's nf4a arm from the nf4a run, its nf4 and int4 arms and K6
+from their short runs).
 """
 
 from __future__ import annotations
 
 import asyncio
+import gc
 import json
 import os
 import statistics
@@ -94,6 +117,24 @@ KERNEL_TOL = 2e-2
 REPLY_NOISE_FACTOR = 2.0
 REPLY_BF16_MEAN_REL = 5e-2  # beyond this the bf16 network is too unstable to judge
 WARMUP_PROMPTS = (64, 300)  # first-call costs (cuBLAS plans, page faults) off the clock
+
+KERNEL_SOURCES = ("paged_attention", "quant_matmul")
+
+# K5/K6 at Mistral-7B's fused projections: gate+up [4096, 2 x 14336] and
+# down [14336, 4096], at a decode batch (8 rows) and a prefill chunk (512)
+QUANT_SHAPES = {"wgu": (4096, 2 * 14336), "wd": (14336, 4096)}
+QUANT_ROWS = (8, 512)
+QUANT_KINDS = ("nf4", "nf4a", "int4", "int8")
+# kernel vs plain, as a share of the output's largest magnitude: the kernel
+# rounds its float32 sum once to bf16 (2**-9 relative); nf4a's kernel decodes
+# by the f32 cubic where the plain version reads the float32 table (an
+# occasional bf16 ulp on a weight); int8's kernel scales the sum where the
+# plain version rounds each scaled weight to bf16 (2**-9 per product)
+QUANT_REL_TOL = 1e-2
+SHORT_KINDS = ("int8", "nf4", "int4", "nf4a+o")  # served at 2 blocks, one session each
+SHORT_SPAN = 2
+SHORT_PROMPT = 300
+SHORT_STEPS = 8
 
 PROFILE_LANES = 4
 PROFILE_REPS = 20  # unprofiled calls for the median host wall
@@ -138,6 +179,15 @@ def bound_ms(nbytes: int, flops: int):
     return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
+def quant_bytes_and_flops(m: int, w):
+    """What one dequant-matmul must move and compute: x read once (bf16),
+    the weight bytes and scales its k loop reaches read once, the output
+    written once (bf16); 2*M*in*out operations."""
+    k, n = w.in_features, w.out_features
+    weight = k * n + 4 * n if w.kind == "int8" else k * n // 2 + 2 * (k // 64) * n
+    return 2 * m * k + weight + 2 * m * n, 2 * m * k * n
+
+
 def _visible(q_pos: int, kv_len: int, window) -> int:
     """kv positions row ``q_pos`` attends to (causal, ragged, windowed)."""
     hi = min(q_pos + 1, kv_len)
@@ -161,15 +211,26 @@ def _sdpa(q, k, v, mask):
 
 
 def build() -> None:
+    """Compile every CUDA source of the port at once (one nvcc each) and
+    print each one's build seconds and the compiler's register report."""
+    from concurrent.futures import ThreadPoolExecutor
+
     from petals_tpu_torch.kernels import build as kbuild
 
+    def one(name):
+        t0 = time.perf_counter()
+        path = kbuild.build(name)
+        return name, path, time.perf_counter() - t0
+
     t0 = time.perf_counter()
-    path = kbuild.build("paged_attention")
-    log(f"build: {os.path.relpath(path, REPO)} in {time.perf_counter() - t0:.1f} s")
-    report = open(f"{path}.log").read().splitlines()
-    for line in report:
-        if "registers" in line or "spill" in line or line.startswith("built in"):
-            log(f"  {line.strip()}")
+    with ThreadPoolExecutor(len(KERNEL_SOURCES)) as pool:
+        built = list(pool.map(one, KERNEL_SOURCES))
+    log(f"build: {len(built)} sources in {time.perf_counter() - t0:.1f} s")
+    for name, path, seconds in built:
+        log(f"build: {os.path.relpath(path, REPO)} in {seconds:.1f} s")
+        for line in open(f"{path}.log").read().splitlines():
+            if "registers" in line or "spill" in line or line.startswith("built in"):
+                log(f"  {line.strip()}")
 
 
 def check_kernels(device, timer):
@@ -298,6 +359,60 @@ def check_kernels(device, timer):
     return [k1, k2]
 
 
+def check_quant_kernels(device, timer):
+    """K5 (nf4, nf4a, int4) and K6 (int8) against the plain version at
+    Mistral-7B's fused shapes; returns one report entry per kernel and arm
+    (decode and prefill), with the gate+up shape's times (without main-path
+    launch counts)."""
+    from petals_tpu_torch.ops import quant_matmul as qmm
+    from petals_tpu_torch.ops.quant import dequant_matmul_reference, dequantize, quantize
+
+    gen = torch.Generator(device=device).manual_seed(SEED + 7)
+    entries = {}
+    for shape_name, (k, n) in QUANT_SHAPES.items():
+        dense = (torch.randn(k, n, generator=gen, device=device) * 0.02).to(torch.bfloat16)
+        xs = {m: torch.randn(m, k, generator=gen, device=device).to(torch.bfloat16) for m in QUANT_ROWS}
+        # the yardstick: the dense bf16 product the quantized kernel replaces
+        library = {m: timer(lambda m=m: torch.matmul(xs[m], dense)) for m in QUANT_ROWS}
+        for kind in QUANT_KINDS:
+            w = quantize(dense, kind)
+            deq = dequantize(w, torch.bfloat16).float()
+            for m in QUANT_ROWS:
+                x, decode = xs[m], m <= 32
+                fn = qmm.quant_decode_matmul if decode else qmm.quant_prefill_matmul
+                got = fn(x, w)
+                torch.cuda.synchronize()
+                want = x.float() @ deq
+                if got.shape != want.shape or not torch.isfinite(got).all():
+                    raise AssertionError(f"{kind} {shape_name} M={m}: output {tuple(got.shape)} or non-finite")
+                err = (got.float() - want).abs().max().item()
+                scale = want.abs().max().item()
+                label = f"{'K6' if kind == 'int8' else 'K5'} {'decode' if decode else 'prefill'} {kind} {shape_name} {k}x{n} M={m}"
+                if err > QUANT_REL_TOL * scale:
+                    raise AssertionError(f"{label}: disagrees with its plain version: {err} > {QUANT_REL_TOL} * {scale}")
+                ms = timer(lambda: fn(x, w))
+                plain_ms = timer(lambda: dequant_matmul_reference(x, w))
+                nbytes, flops = quant_bytes_and_flops(m, w)
+                bound, by = bound_ms(nbytes, flops)
+                log(f"{label}: max abs err {err:.3e}, rel {err / scale:.3e} (tol {QUANT_REL_TOL}); "
+                    f"{ms:.4f} ms kernel, {plain_ms:.4f} ms plain, {library[m]:.4f} ms dense bf16 matmul, "
+                    f"bound {bound:.4f} ms ({by}, {nbytes / 1e6:.1f} MB, {flops / 1e9:.1f} GFLOP)")
+                name = f"quant_{'decode' if decode else 'prefill'}_matmul[{kind}]"
+                entry = entries.setdefault(name, {
+                    "name": name, "route": "cuda", "source": "petals_tpu_torch/csrc/quant_matmul.cu",
+                    "replaces": "petals_tpu/ops/quant.py:" + (
+                        "1030" if kind == "int8" else "781" if decode else "720"),
+                    "max_abs_err": 0.0,
+                })
+                entry["max_abs_err"] = max(entry["max_abs_err"], err)
+                if shape_name == "wgu":
+                    entry.update(shape=f"{shape_name} [{k}, {n}], M={m}", ms=ms, plain_ms=plain_ms,
+                                 bound_ms=bound, bound_by=by, library_ms=library[m])
+            del w, deq
+        del dense, xs
+    return list(entries.values())
+
+
 def write_checkpoint(path: str, device) -> None:
     """A Mistral-7B-v0.1-shaped checkpoint of SPAN blocks, one safetensors
     shard per block plus the index, random bf16 weights from SEED (HF
@@ -341,7 +456,7 @@ async def drive_server(server, prompts, n_steps, seed, at_end=None):
     from petals_tpu_torch.rpc.serialization import deserialize_array, serialize_array
 
     hsz = server.cfg.hidden_size
-    uids = CHAIN_DELIMITER.join(make_uid(server.dht_prefix, i) for i in range(SPAN))
+    uids = CHAIN_DELIMITER.join(make_uid(server.dht_prefix, i) for i in range(server.num_blocks))
     gen = torch.Generator().manual_seed(seed)
     inputs = [
         (torch.randn(1, n, hsz, generator=gen).to(torch.bfloat16),
@@ -504,7 +619,8 @@ def profile_steps(backend, device) -> None:
         f"mixed step ({PROFILE_CHUNK}-token chunk)": lambda: backend.paged_mixed_step(
             hidden, pools, mixed_positions, tables, chunk, 0, 0),
     }
-    log(f"profile: {backend.n_blocks} blocks, {PROFILE_LANES} lanes at positions {positions.tolist()}")
+    log(f"profile (--quant_type {backend.quant_type}): {backend.n_blocks} blocks, {PROFILE_LANES} lanes at "
+        f"positions {positions.tolist()}")
     for label, fn in steps.items():
         fn()
         walls = []
@@ -531,13 +647,115 @@ def profile_steps(backend, device) -> None:
         log(events.table(sort_by="self_device_time_total", row_limit=10, max_name_column_width=60))
 
 
+def dense_reference_params(block_params, dtype):
+    """The served blocks with every quantized leaf dequantized (to bf16,
+    the kernels' weights), then cast to ``dtype``."""
+    from petals_tpu_torch.ops.quant import QUANTIZED_TYPES, dequantize
+
+    return [
+        {k: (dequantize(v, torch.bfloat16) if isinstance(v, QUANTIZED_TYPES) else v).to(dtype) for k, v in p.items()}
+        for p in block_params
+    ]
+
+
+def serve_and_check(ckpt, device, quant_type, n_blocks, prompts, n_steps, seed, warmup_prompts):
+    """Serve blocks [0, n_blocks) of the checkpoint with ``--quant_type``
+    through the CLI's build_server, drive concurrent sessions (after an optional
+    warm-up), check the launch counters of the measured run, every reply
+    and every written K/V row against dense references, and return the
+    server (still holding its span) and the measured run's launch counts."""
+    from petals_tpu_torch.cli.run_server import build_parser, build_server
+    from petals_tpu_torch.ops import paged_flash_attention as pfa
+    from petals_tpu_torch.ops import quant_matmul as qmm
+
+    label = f"server (--quant_type {quant_type}, {n_blocks} blocks)"
+    args = build_parser().parse_args([
+        ckpt, "--first_block", "0", "--num_blocks", str(n_blocks), "--host", "127.0.0.1", "--quant_type", quant_type,
+    ])
+    t0 = time.perf_counter()
+    server = build_server(args)
+    torch.cuda.synchronize()
+    log(f"{label}: loaded in {time.perf_counter() - t0:.1f} s, {server.batcher.n_lanes} lanes x "
+        f"{server.batcher.max_length} tokens, page {server.batcher.page_size}, "
+        f"prefill budget {server.batcher.prefill_token_budget}; "
+        f"{torch.cuda.memory_allocated(device) / 2**30:.2f} GiB allocated on the card")
+
+    async def serve():
+        await server.start()
+        try:
+            if warmup_prompts:
+                await drive_server(server, warmup_prompts, 2, SEED + 5)
+            before = dict(server.batcher.stats)
+            pfa.paged_flash_attend.launches = 0
+            pfa.paged_flash_prefill_attend.launches = 0
+            qmm.reset_launch_counts()
+            result = await drive_server(
+                server, prompts, n_steps, seed,
+                at_end=lambda: lane_kv_rows(server.batcher, [n + n_steps for n in prompts]),
+            )
+            launches = {
+                "K1": pfa.paged_flash_attend.launches, "K2": pfa.paged_flash_prefill_attend.launches,
+                "decode": dict(qmm.quant_decode_matmul.launches), "prefill": dict(qmm.quant_prefill_matmul.launches),
+            }
+        finally:
+            await server.shutdown()
+        stats = {k: v - before[k] if not k.startswith("max") else v for k, v in server.batcher.stats.items()}
+        return result, launches, stats
+
+    (inputs, replies, metas, timing, lane_kv), launches, stats = asyncio.run(serve())
+    log(f"{label}: stats of the measured run: {stats}")
+    need_k1, need_k2 = stats["decode_steps"] * n_blocks, stats["mixed_steps"] * n_blocks
+    log(f"{label}: launches on the main path: K1 {launches['K1']} (>= {need_k1}), K2 {launches['K2']} (>= {need_k2})")
+    need_mixed = sum(-(-n // server.batcher.prefill_token_budget) for n in prompts)
+    if stats["mixed_steps"] < need_mixed or launches["K1"] < need_k1 or launches["K2"] < need_k2 or not (
+        launches["K1"] and launches["K2"]
+    ):
+        raise AssertionError(f"{label}: the main path did not run both kernels on every block of every step")
+    if quant_type != "none":
+        # 4 quantized projections a block (wqkv, wo, wgu, wd); every step
+        # (batched_steps) runs the lanes' decode rows, a mixed step also its
+        # chunk, of more than 32 rows at these prompt lengths
+        arm = quant_type[:-2] if quant_type.endswith("+o") else quant_type
+        need_dec = stats["batched_steps"] * n_blocks * 4
+        need_pf = stats["mixed_steps"] * n_blocks * 4
+        dec, pf = launches["decode"][arm], launches["prefill"][arm]
+        log(f"{label}: launches on the main path: {arm} decode kernel {dec} (>= {need_dec}), "
+            f"prefill kernel {pf} (>= {need_pf}); all kinds: decode {launches['decode']}, prefill {launches['prefill']}")
+        if dec < need_dec or pf < need_pf:
+            raise AssertionError(f"{label}: the main path did not run the dequant-matmul kernels on every projection")
+    decode_compute = [m["compute_s"] for ms in metas for m in ms[1:]]
+    prefill_compute = sum(ms[0]["compute_s"] for ms in metas)
+    log(f"{label}: main path: prefill {sum(prompts) / timing['prefill_wall_s']:.1f} tokens/s over {sum(prompts)} "
+        f"tokens ({timing['prefill_wall_s'] * 1e3:.1f} ms wall, {prefill_compute * 1e3:.1f} ms of steps "
+        f"carrying chunks); decode step {statistics.median(decode_compute) * 1e3:.3f} ms "
+        f"(median batched-step compute on the server), {timing['decode_round_trip_ms']:.3f} ms "
+        f"client round trip (median per session)")
+    params_bf16 = dense_reference_params(server.backend.block_params, torch.bfloat16)
+    params_f32 = dense_reference_params(server.backend.block_params, torch.float32)
+    failed = []
+    for (prompt, steps), got, kv, n in zip(inputs, replies, lane_kv, prompts):
+        args = (server.family, server.cfg, prompt, steps, device)
+        failed += check_session(
+            got, kv, reference_session(params_bf16, *args, torch.bfloat16),
+            reference_session(params_f32, *args, torch.float32), f"{label}: session with a {n}-token prompt",
+        )
+    if failed:
+        raise AssertionError("; ".join(failed))
+    return server, launches
+
+
+def free_card() -> None:
+    """Free what a dropped server held on the card before the next one loads
+    (its event-loop objects hold reference cycles, so collect them)."""
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 2
     sys.path.insert(0, REPO)
-    from petals_tpu_torch.cli.run_server import build_parser, build_server
-    from petals_tpu_torch.ops import paged_flash_attention as pfa
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -549,71 +767,47 @@ def main() -> int:
     log(smi)  # the card's name and power limit, as nvidia-smi prints them
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, python {sys.version.split()[0]}")
 
+    t_start = time.perf_counter()
     build()
     timer = Timer(device)
     kernels = check_kernels(device, timer)
+    quant_kernels = check_quant_kernels(device, timer)
+    log(f"kernel phases done at {time.perf_counter() - t_start:.1f} s")
 
     os.makedirs(os.path.join(REPO, "build"), exist_ok=True)
     with tempfile.TemporaryDirectory(prefix="smoke-ckpt-", dir=os.path.join(REPO, "build")) as ckpt:
         t0 = time.perf_counter()
         write_checkpoint(ckpt, device)
         log(f"checkpoint: {SPAN} Mistral-7B-shaped blocks written in {time.perf_counter() - t0:.1f} s")
-        args = build_parser().parse_args([ckpt, "--first_block", "0", "--num_blocks", str(SPAN), "--host", "127.0.0.1"])
-        t0 = time.perf_counter()
-        server = build_server(args)
-        log(f"server: loaded in {time.perf_counter() - t0:.1f} s, {server.batcher.n_lanes} lanes x "
-            f"{server.batcher.max_length} tokens, page {server.batcher.page_size}, "
-            f"prefill budget {server.batcher.prefill_token_budget}")
 
-        async def serve():
-            await server.start()
-            try:
-                await drive_server(server, WARMUP_PROMPTS, 2, SEED + 5)
-                before = dict(server.batcher.stats)
-                pfa.paged_flash_attend.launches = 0
-                pfa.paged_flash_prefill_attend.launches = 0
-                result = await drive_server(
-                    server, PROMPTS, DECODE_STEPS, SEED + 4,
-                    at_end=lambda: lane_kv_rows(server.batcher, [n + DECODE_STEPS for n in PROMPTS]),
-                )
-                launches = (pfa.paged_flash_attend.launches, pfa.paged_flash_prefill_attend.launches)
-            finally:
-                await server.shutdown()
-            stats = {k: v - before[k] if not k.startswith("max") else v for k, v in server.batcher.stats.items()}
-            return result, launches, stats
-
-        (inputs, replies, metas, timing, lane_kv), (k1_launches, k2_launches), stats = asyncio.run(serve())
-        log(f"server stats of the measured run: {stats}")
-        need_k1, need_k2 = stats["decode_steps"] * SPAN, stats["mixed_steps"] * SPAN
-        log(f"launches on the main path: K1 {k1_launches} (>= {need_k1}), K2 {k2_launches} (>= {need_k2})")
-        if stats["mixed_steps"] < len(PROMPTS) + 1 or k1_launches < need_k1 or k2_launches < need_k2 or not (
-            k1_launches and k2_launches
-        ):
-            raise AssertionError("the main path did not run both kernels on every block of every step")
-        decode_compute = [m["compute_s"] for ms in metas for m in ms[1:]]
-        prefill_compute = sum(ms[0]["compute_s"] for ms in metas)
-        log(f"main path: prefill {sum(PROMPTS) / timing['prefill_wall_s']:.1f} tokens/s over {sum(PROMPTS)} "
-            f"tokens ({timing['prefill_wall_s'] * 1e3:.1f} ms wall, {prefill_compute * 1e3:.1f} ms of steps "
-            f"carrying chunks); decode step {statistics.median(decode_compute) * 1e3:.3f} ms "
-            f"(median batched-step compute on the server), {timing['decode_round_trip_ms']:.3f} ms "
-            f"client round trip (median per session)")
-        block_params = server.backend.block_params
-        params_f32 = [{k: v.float() for k, v in p.items()} for p in block_params]
-        failed = []
-        for (prompt, steps), got, kv, n in zip(inputs, replies, lane_kv, PROMPTS):
-            args = (server.family, server.cfg, prompt, steps, device)
-            failed += check_session(
-                got, kv, reference_session(block_params, *args, torch.bfloat16),
-                reference_session(params_f32, *args, torch.float32), f"session with a {n}-token prompt",
-            )
-        if failed:
-            raise AssertionError("; ".join(failed))
-        del params_f32, lane_kv
+        # the bf16 span, then the same span quantized to nf4a
+        server, bf16_launches = serve_and_check(ckpt, device, "none", SPAN, PROMPTS, DECODE_STEPS, SEED + 4, WARMUP_PROMPTS)
         profile_steps(server.backend, device)
-        del server, block_params
-    kernels[0]["launches"] = k1_launches
-    kernels[1]["launches"] = k2_launches
-    log(json.dumps({"kernels": kernels}))
+        del server
+        free_card()
+        server, nf4a_launches = serve_and_check(ckpt, device, "nf4a", SPAN, PROMPTS, DECODE_STEPS, SEED + 4, WARMUP_PROMPTS)
+        profile_steps(server.backend, device)
+        del server
+        free_card()
+        log(f"main paths done at {time.perf_counter() - t_start:.1f} s")
+
+        # every other arm, and K6, on the served path: 2 blocks, one session each
+        arm_launches = {"nf4a": nf4a_launches}
+        for kind in SHORT_KINDS:
+            server, launches = serve_and_check(
+                ckpt, device, kind, SHORT_SPAN, (SHORT_PROMPT,), SHORT_STEPS, SEED + 8, None,
+            )
+            del server
+            free_card()
+            arm_launches.setdefault(kind, launches)
+    kernels[0]["launches"] = bf16_launches["K1"]
+    kernels[1]["launches"] = bf16_launches["K2"]
+    for entry in quant_kernels:
+        phase = "decode" if entry["name"].startswith("quant_decode") else "prefill"
+        arm = entry["name"].split("[")[1].rstrip("]")
+        entry["launches"] = arm_launches[arm][phase][arm]
+    log(f"done at {time.perf_counter() - t_start:.1f} s")
+    log(json.dumps({"kernels": kernels + quant_kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),
     }}))

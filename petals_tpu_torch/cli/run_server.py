@@ -2,7 +2,7 @@
 
     python -m petals_tpu_torch.cli.run_server <checkpoint dir> --first_block 0 --num_blocks 8
 
-The defaults are petals_tpu's: bf16, ``--page_size 64``,
+The defaults are petals_tpu's: bf16, ``--quant_type none``, ``--page_size 64``,
 ``--prefill_token_budget 512``, an 8192-token KV budget. The span is
 required: there is no DHT to place it by.
 """
@@ -18,6 +18,7 @@ import torch
 
 from petals_tpu_torch.server.from_pretrained import get_block_config
 from petals_tpu_torch.server.server import Server
+from petals_tpu_torch.utils.convert_block import QuantType
 
 DTYPES = {"bfloat16": torch.bfloat16, "float16": torch.float16, "float32": torch.float32}
 
@@ -33,6 +34,10 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--device", default=None, help="torch device (default: the current CUDA device)")
     parser.add_argument("--torch_dtype", "--dtype", dest="dtype", default="bfloat16",
                         choices=sorted(DTYPES), help="Compute dtype")
+    parser.add_argument("--quant_type", default="none", choices=[q.value for q in QuantType],
+                        help="Weight quantization: int8 (per-channel), nf4 / nf4a / int4 (blockwise "
+                             "4-bit; nf4a is the 4-bit serving default), +o = keep in/64 outlier "
+                             "input channels dense")
     parser.add_argument("--attn_cache_tokens", type=int, default=8192,
                         help="KV-cache budget in tokens (converted to bytes for the allocator)")
     parser.add_argument("--max_chunk_size_bytes", type=int, default=256 * 1024 * 1024,
@@ -92,6 +97,7 @@ def build_server(args: argparse.Namespace) -> Server:
         page_size=args.page_size,
         n_pages=args.n_pages,
         prefill_token_budget=args.prefill_token_budget,
+        quant_type=args.quant_type,
     )
 
 

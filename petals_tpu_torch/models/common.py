@@ -1,10 +1,12 @@
-"""Shared numerics for the model families: norms, activations, matmul, and
-KV-cache writes. Normalisations and activations run in float32 and cast back,
-where petals_tpu/models/common.py does."""
+"""Shared numerics for the model families: norms, activations, matmul
+(dense or quantized), and KV-cache writes. Normalisations and activations
+run in float32 and cast back, where petals_tpu/models/common.py does."""
 
 from __future__ import annotations
 
 import torch
+
+from petals_tpu_torch.ops.quant import QUANTIZED_TYPES, quant_matmul
 
 
 def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float) -> torch.Tensor:
@@ -22,8 +24,12 @@ def silu(x: torch.Tensor) -> torch.Tensor:
 ACTIVATIONS = {"silu": silu}
 
 
-def mm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """Dense matmul against a weight stored [in, out]."""
+def mm(x: torch.Tensor, w) -> torch.Tensor:
+    """Matmul against a weight stored [in, out]: dense, or quantized
+    (QuantizedLinear / OutlierQuantLinear, through ops/quant.py
+    quant_matmul)."""
+    if isinstance(w, QUANTIZED_TYPES):
+        return quant_matmul(x, w)
     return x @ w
 
 

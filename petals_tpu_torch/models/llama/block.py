@@ -1,5 +1,7 @@
 """Llama decoder block as a plain function over a dict of tensors (weights
-stored [in, out], as in petals_tpu/models/llama/block.py)."""
+stored [in, out], as in petals_tpu/models/llama/block.py). A weight may be
+dense or quantized (``mm`` dispatches), and a quantized block may carry the
+fused ``wqkv`` / ``wgu`` leaves in place of the separate projections."""
 
 from __future__ import annotations
 
@@ -33,13 +35,21 @@ def block_apply(
 
     residual = hidden_states
     x = rms_norm(hidden_states, params["ln1"], cfg.rms_norm_eps)
-    q = mm(x, params["wq"])
-    k = mm(x, params["wk"])
-    v = mm(x, params["wv"])
-    if cfg.attention_bias:
-        q = q + params["bq"]
-        k = k + params["bk"]
-        v = v + params["bv"]
+    if "wqkv" in params:  # fused quantized serving (utils/convert_block.py _FUSE_GROUPS)
+        qkv = mm(x, params["wqkv"])
+        if cfg.attention_bias:
+            qkv = qkv + params["bqkv"]
+        q = qkv[..., : hq * d]
+        k = qkv[..., hq * d : (hq + hkv) * d]
+        v = qkv[..., (hq + hkv) * d :]
+    else:
+        q = mm(x, params["wq"])
+        k = mm(x, params["wk"])
+        v = mm(x, params["wv"])
+        if cfg.attention_bias:
+            q = q + params["bq"]
+            k = k + params["bk"]
+            v = v + params["bv"]
     q = q.reshape(batch, seq, hq, d)
     k = k.reshape(batch, seq, hkv, d)
     v = v.reshape(batch, seq, hkv, d)
@@ -61,11 +71,18 @@ def block_apply(
 
     residual = hidden_states
     x = rms_norm(hidden_states, params["ln2"], cfg.rms_norm_eps)
-    gate = mm(x, params["wg"])
-    up = mm(x, params["wu"])
-    if cfg.mlp_bias:
-        gate = gate + params["bg"]
-        up = up + params["bu"]
+    if "wgu" in params:  # fused quantized serving
+        gu = mm(x, params["wgu"])
+        if cfg.mlp_bias:
+            gu = gu + params["bgu"]
+        gate = gu[..., : cfg.intermediate_size]
+        up = gu[..., cfg.intermediate_size :]
+    else:
+        gate = mm(x, params["wg"])
+        up = mm(x, params["wu"])
+        if cfg.mlp_bias:
+            gate = gate + params["bg"]
+            up = up + params["bu"]
     mlp = mm(ACTIVATIONS[cfg.hidden_act](gate) * up, params["wd"])
     if cfg.mlp_bias:
         mlp = mlp + params["bd"]
@@ -122,6 +139,7 @@ def block_param_shapes(cfg: LlamaBlockConfig, dtype=torch.bfloat16) -> dict:
 FAMILY = register_family(
     ModelFamily(
         name="llama",
+        block_arch="llama",
         config_from_hf=LlamaBlockConfig.from_hf_config,
         block_apply=block_apply,
         hf_block_prefixes=_HF_BLOCK_PREFIXES,

@@ -18,6 +18,10 @@ class ModelFamily:
     hf_block_prefixes: tuple  # checkpoint prefixes of block i, with {i} placeholder
     hf_to_block_params: Callable  # (dict[str, Tensor], cfg) -> params dict
     block_param_shapes: Callable  # (cfg, dtype) -> dict of meta tensors
+    # the block architecture ("" -> same as name): families derived with
+    # dataclasses.replace (mistral over llama) inherit it, so tables keyed
+    # by architecture (utils/convert_block.py) resolve for them too
+    block_arch: str = ""
 
 
 def register_family(family: ModelFamily) -> ModelFamily:

@@ -1,0 +1,182 @@
+"""Wrappers of the hand-written CUDA dequant-matmul kernels
+(``csrc/quant_matmul.cu``) and the dispatch ``quant_matmul`` sends a
+quantized weight to.
+
+- ``quant_decode_matmul``: M <= 32 rows (``_NF4_DECODE_MAX_M``): K5's decode
+  kernel for nf4/nf4a/int4, K6 for int8; a weight stream that splits K
+  across blocks when the columns alone cannot fill the card.
+- ``quant_prefill_matmul``: M > 32 rows: K5's prefill kernel for
+  nf4/nf4a/int4, K6 for int8; decodes a weight tile to bf16 in shared
+  memory, then tensor-core products.
+
+Each takes x [M, in] and a ``QuantizedLinear``, casts x to bf16 and returns
+x's dtype. Tensors on the CPU go to the plain version
+(ops/quant.py ``dequant_matmul_reference``); tensors on a CUDA device launch
+the kernel or raise. There is no fallback from one to the other. Each
+wrapper counts its launches per weight kind in ``<wrapper>.launches`` (a
+dict of ints), so a run can show that its main path went through the
+kernels.
+
+The kernels replace ``_packed4_decode_kernel``, ``_packed4_kernel`` and
+``_int8_kernel`` of petals_tpu/ops/quant.py; the source says what bounds
+them and how their design answers that.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Optional, Tuple
+
+import torch
+
+from petals_tpu_torch.ops.quant import NF4_BLOCK, QuantizedLinear, dequant_matmul_reference
+
+_NF4_DECODE_MAX_M = 32  # the decode/prefill split, as in the JAX package
+_FORMAT_CODES = {"nf4": 0, "nf4a": 1, "int4": 2, "int8": 3}
+_SLAB = 128  # columns per decode block
+_MIN_KB_PER_SPLIT = 8  # scale blocks (of 64 rows) each decode block takes at least
+_LIB: Optional[ctypes.CDLL] = None
+
+
+def kernel_library() -> ctypes.CDLL:
+    """Build (first use only) and load the kernels' library."""
+    global _LIB
+    if _LIB is None:
+        from petals_tpu_torch.kernels.build import load
+
+        lib = load("quant_matmul")
+        p, i = ctypes.c_void_p, ctypes.c_int
+        lib.ptt_quant_matmul_decode.argtypes = [i] + [p] * 5 + [i] * 5 + [p]
+        lib.ptt_quant_matmul_decode.restype = i
+        lib.ptt_quant_matmul_prefill.argtypes = [i] + [p] * 4 + [i] * 3 + [p]
+        lib.ptt_quant_matmul_prefill.restype = i
+        lib.ptt_quant_error_string.argtypes = [i]
+        lib.ptt_quant_error_string.restype = ctypes.c_char_p
+        _LIB = lib
+    return _LIB
+
+
+def decode_splits(in_features: int, out_features: int, n_sm: int) -> Tuple[int, int]:
+    """(k_splits, scale blocks per split) of the decode kernel: enough
+    blocks for about two per SM, each taking at least
+    ``_MIN_KB_PER_SPLIT`` scale blocks of K, so the float32 partial sums
+    stay small next to the weight."""
+    n_slabs = -(-out_features // _SLAB)
+    n_kb = in_features // NF4_BLOCK
+    want = -(-2 * n_sm // n_slabs)
+    per = max(_MIN_KB_PER_SPLIT, -(-n_kb // max(want, 1)))
+    per = min(per, max(n_kb, 1))
+    return -(-n_kb // per), per
+
+
+_N_SM = {}
+
+
+def _sm_count(device: torch.device) -> int:
+    if device not in _N_SM:
+        _N_SM[device] = torch.cuda.get_device_properties(device).multi_processor_count
+    return _N_SM[device]
+
+
+def _check_cuda(x2d: torch.Tensor, w: QuantizedLinear) -> torch.Tensor:
+    """Validate a CUDA call and return x as a contiguous, 16-byte aligned
+    bf16 [M, in] tensor."""
+    if w.kind not in _FORMAT_CODES:
+        raise ValueError(f"no dequant-matmul kernel for kind {w.kind!r}")
+    dev = x2d.device
+    if dev.type != "cuda" or w.data.device != dev or w.scales.device != dev:
+        raise ValueError(
+            f"x and the weight must lie on one CUDA device, got {dev}, {w.data.device}, {w.scales.device}"
+        )
+    if x2d.dim() != 2 or x2d.shape[1] != w.in_features:
+        raise ValueError(f"x must be [M, {w.in_features}], got {tuple(x2d.shape)}")
+    k, n = w.in_features, w.out_features
+    if k % NF4_BLOCK or n % 16:
+        raise ValueError(f"in_features must be a multiple of {NF4_BLOCK} and out_features of 16, got {k}, {n}")
+    if w.kind == "int8":
+        data_dtype, rows, scale_dtype, scale_shape = torch.int8, w.data.shape[0], torch.float32, (n,)
+    else:
+        rows = 2 * w.data.shape[0]
+        data_dtype, scale_dtype, scale_shape = torch.uint8, torch.bfloat16, (rows // NF4_BLOCK, n)
+    if w.data.dtype != data_dtype or w.data.dim() != 2 or w.data.shape[1] != n or rows < k:
+        raise ValueError(
+            f"{w.kind} data must be {data_dtype} of [>= {k} rows, {n}], got {w.data.dtype} {tuple(w.data.shape)}"
+        )
+    if w.scales.dtype != scale_dtype or tuple(w.scales.shape) != scale_shape:
+        raise ValueError(
+            f"{w.kind} scales must be {scale_dtype} {scale_shape}, got {w.scales.dtype} {tuple(w.scales.shape)}"
+        )
+    for name, t in (("data", w.data), ("scales", w.scales)):
+        if not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError(f"the weight's {name} must be contiguous and 16-byte aligned")
+    xb = x2d.to(torch.bfloat16).contiguous()
+    if xb.data_ptr() % 16:
+        xb = xb.clone()  # a fresh allocation is aligned
+    return xb
+
+
+def _raise_on(err: int, what: str) -> None:
+    if err:
+        msg = kernel_library().ptt_quant_error_string(err).decode()
+        raise RuntimeError(f"{what} kernel launch failed: CUDA error {err} ({msg})")
+
+
+def quant_decode_matmul(x2d: torch.Tensor, w: QuantizedLinear) -> torch.Tensor:
+    """x [M <= 32, in] @ dequant(w) -> [M, out] in x's dtype."""
+    if x2d.device.type == "cpu" and w.data.device.type == "cpu":
+        return dequant_matmul_reference(x2d, w)
+    xb = _check_cuda(x2d, w)
+    m = xb.shape[0]
+    if not 1 <= m <= _NF4_DECODE_MAX_M:
+        raise ValueError(f"the decode kernel takes 1 to {_NF4_DECODE_MAX_M} rows, got {m}")
+    k, n = w.in_features, w.out_features
+    splits, per = decode_splits(k, n, _sm_count(xb.device))
+    out = torch.empty(m, n, dtype=torch.bfloat16, device=xb.device)
+    partial = torch.empty(splits, m, n, dtype=torch.float32, device=xb.device) if splits > 1 else None
+    with torch.cuda.device(xb.device):
+        err = kernel_library().ptt_quant_matmul_decode(
+            _FORMAT_CODES[w.kind], xb.data_ptr(), w.data.data_ptr(), w.scales.data_ptr(), out.data_ptr(),
+            partial.data_ptr() if partial is not None else None, m, k, n, splits, per,
+            torch.cuda.current_stream(xb.device).cuda_stream,
+        )
+    _raise_on(err, "quant decode matmul")
+    quant_decode_matmul.launches[w.kind] += 1
+    return out.to(x2d.dtype)
+
+
+quant_decode_matmul.launches = dict.fromkeys(_FORMAT_CODES, 0)
+
+
+def quant_prefill_matmul(x2d: torch.Tensor, w: QuantizedLinear) -> torch.Tensor:
+    """x [M, in] @ dequant(w) -> [M, out] in x's dtype; taken for M > 32."""
+    if x2d.device.type == "cpu" and w.data.device.type == "cpu":
+        return dequant_matmul_reference(x2d, w)
+    xb = _check_cuda(x2d, w)
+    m = xb.shape[0]
+    out = torch.empty(m, w.out_features, dtype=torch.bfloat16, device=xb.device)
+    if m == 0:
+        return out.to(x2d.dtype)
+    with torch.cuda.device(xb.device):
+        err = kernel_library().ptt_quant_matmul_prefill(
+            _FORMAT_CODES[w.kind], xb.data_ptr(), w.data.data_ptr(), w.scales.data_ptr(), out.data_ptr(),
+            m, w.in_features, w.out_features, torch.cuda.current_stream(xb.device).cuda_stream,
+        )
+    _raise_on(err, "quant prefill matmul")
+    quant_prefill_matmul.launches[w.kind] += 1
+    return out.to(x2d.dtype)
+
+
+quant_prefill_matmul.launches = dict.fromkeys(_FORMAT_CODES, 0)
+
+
+def dequant_matmul(x2d: torch.Tensor, w: QuantizedLinear) -> torch.Tensor:
+    """x [M, in] @ dequant(w): the decode kernel for M <= 32 rows, the
+    prefill kernel above (on the CPU both are the plain version)."""
+    if 0 < x2d.shape[0] <= _NF4_DECODE_MAX_M:
+        return quant_decode_matmul(x2d, w)
+    return quant_prefill_matmul(x2d, w)
+
+
+def reset_launch_counts() -> None:
+    for fn in (quant_decode_matmul, quant_prefill_matmul):
+        fn.launches = dict.fromkeys(_FORMAT_CODES, 0)

@@ -25,9 +25,20 @@ import torch
 
 from petals_tpu_torch.models.registry import ModelFamily
 from petals_tpu_torch.ops.paged_attention import PagedKV
+from petals_tpu_torch.ops.quant import OutlierQuantLinear, QuantizedLinear
 from petals_tpu_torch.server.memory_cache import TensorDescriptor
 
 logger = logging.getLogger(__name__)
+
+
+def _block_view(leaf, i: int):
+    """Block ``i`` of a span-stacked leaf; a quantized leaf is indexed
+    piece by piece."""
+    if isinstance(leaf, OutlierQuantLinear):
+        return OutlierQuantLinear(_block_view(leaf.inner, i), leaf.idx[i], leaf.w_out[i])
+    if isinstance(leaf, QuantizedLinear):
+        return QuantizedLinear(leaf.kind, leaf.data[i], leaf.scales[i], leaf.in_features, leaf.out_features)
+    return leaf[i]
 
 
 def _as_tensor(x, device: torch.device, dtype: Optional[torch.dtype] = None) -> torch.Tensor:
@@ -50,18 +61,22 @@ class TransformerBackend:
         device: torch.device,
         compute_dtype: torch.dtype = torch.bfloat16,
         max_chunk_size_bytes: int = 256 * 1024 * 1024,
+        quant_type: str = "none",
     ):
-        """``params`` is a list of per-block dicts, or one dict whose tensors
+        """``params`` is a list of per-block dicts, or one dict whose leaves
         are stacked along a leading block axis (utils/convert.py
-        stacked_from_numpy); the stacked form is viewed per block. Hidden
-        states and the KV pool are kept in ``compute_dtype``."""
+        stacked_from_numpy); the stacked form is viewed per block, a
+        quantized leaf piece by piece. Hidden states and the KV pool are
+        kept in ``compute_dtype``. ``quant_type`` records how the weights
+        were quantized (utils/convert_block.py QuantType)."""
         self.family = family
         self.cfg = cfg
+        self.quant_type = quant_type
         if isinstance(params, dict):
-            params = [{name: t[i] for name, t in params.items()} for i in range(n_blocks)]
+            params = [{name: _block_view(t, i) for name, t in params.items()} for i in range(n_blocks)]
         if len(params) != n_blocks:
             raise ValueError(f"got parameters for {len(params)} blocks, expected {n_blocks}")
-        self.block_params: List[Dict[str, torch.Tensor]] = list(params)
+        self.block_params: List[Dict[str, object]] = list(params)
         self.first_block = first_block
         self.n_blocks = n_blocks
         self.device = torch.device(device)

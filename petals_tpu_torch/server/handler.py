@@ -93,6 +93,7 @@ class TransformerHandler:
             "n_blocks": self.backend.n_blocks,
             "dht_prefix": self.dht_prefix,
             "inference_max_length": self.inference_max_length,
+            "quant_type": self.backend.quant_type,  # petals_tpu's ServerInfo.quant_type
             "cache_tokens_available": max(
                 b.memory_cache.bytes_left // max(self.backend.cache_bytes_per_token(), 1), 0
             ),

@@ -1,7 +1,9 @@
 """The port's server entry point: host a span of blocks of one local
 checkpoint and answer ``ptu.inference`` / ``ptu.info`` on ``host:port``
 (petals_tpu/server/server.py without the DHT, announcements, auto-placement
-and throughput probing).
+and throughput probing). ``quant_type`` serves the span with quantized
+weights: each block is loaded, fused and quantized on the device, one block
+at a time (the JAX server's disk cache of quantized blocks is not ported).
 
 Runs on the CUDA card unless the caller passes ``device="cpu"``; a missing
 card raises instead of drifting to the CPU.
@@ -16,7 +18,7 @@ from typing import Optional
 
 import torch
 
-from petals_tpu_torch.ops.paged_flash_attention import kernel_library
+from petals_tpu_torch.ops import paged_flash_attention, quant_matmul
 from petals_tpu_torch.rpc.serialization import CompressionType
 from petals_tpu_torch.rpc.server import RpcServer
 from petals_tpu_torch.server.backend import TransformerBackend
@@ -25,6 +27,7 @@ from petals_tpu_torch.server.from_pretrained import get_block_config, load_block
 from petals_tpu_torch.server.handler import TransformerHandler
 from petals_tpu_torch.server.memory_cache import MemoryCache
 from petals_tpu_torch.server.task_queue import PriorityTaskQueue
+from petals_tpu_torch.utils.convert_block import QuantType, convert_block_params
 from petals_tpu_torch.utils.device import resolve_device
 
 logger = logging.getLogger(__name__)
@@ -64,8 +67,10 @@ class Server:
         page_size: int = 64,
         n_pages: Optional[int] = None,
         prefill_token_budget: int = 512,
+        quant_type: str = "none",  # "none" | "int8" | "nf4" | "nf4a" | "int4" | "nf4a+o" | "int4+o"
     ):
         self.device = resolve_device(device)
+        self.quant_type = QuantType(quant_type).value
         self.model_path = model_path
         self.family, self.cfg = get_block_config(model_path)
         total = self.cfg.num_hidden_layers
@@ -88,9 +93,14 @@ class Server:
             hq, hkv = self.cfg.num_attention_heads, self.cfg.num_key_value_heads
             inference_max_length = 8192 if hkv < hq else 2048
         self.inference_max_length = inference_max_length
+        # one block at a time: its dense weights are freed once quantized
+        # (fused qkv / gate+up, as the JAX server fuses on one device)
         params = [
-            load_block_params(
-                model_path, i, dtype=compute_dtype, device=self.device, family=self.family, cfg=self.cfg
+            convert_block_params(
+                load_block_params(
+                    model_path, i, dtype=compute_dtype, device=self.device, family=self.family, cfg=self.cfg
+                ),
+                self.family.name, self.quant_type, fuse=True,
             )
             for i in range(first_block, first_block + num_blocks)
         ]
@@ -98,7 +108,7 @@ class Server:
             self.family, self.cfg, params,
             first_block=first_block, n_blocks=num_blocks,
             device=self.device, compute_dtype=compute_dtype,
-            max_chunk_size_bytes=max_chunk_size_bytes,
+            max_chunk_size_bytes=max_chunk_size_bytes, quant_type=self.quant_type,
         )
         batch_max_length = batch_max_length or min(inference_max_length, 1024)
         if batch_lanes is None:
@@ -129,14 +139,16 @@ class Server:
     async def start(self) -> None:
         if self.device.type == "cuda":
             # build (or load) the CUDA kernels now, not inside the first step
-            await asyncio.to_thread(kernel_library)
+            await asyncio.to_thread(paged_flash_attention.kernel_library)
+            if self.quant_type != QuantType.NONE.value:
+                await asyncio.to_thread(quant_matmul.kernel_library)
         self.queue.start()
         self.rpc_server = RpcServer(self.host, self.port)
         self.handler.register(self.rpc_server)
         await self.rpc_server.start()
         logger.info(
             f"Serving blocks [{self.first_block}, {self.first_block + self.num_blocks}) of "
-            f"{self.model_path} on {self.host}:{self.rpc_server.port} ({self.device})"
+            f"{self.model_path} on {self.host}:{self.rpc_server.port} ({self.device}, quant={self.quant_type})"
         )
 
     async def shutdown(self) -> None:

@@ -221,3 +221,78 @@ def test_batcher_device_failure_resets_the_pool(backends):
             queue.shutdown()
 
     asyncio.run(asyncio.wait_for(main(), 60))
+
+
+# ---- a quantized span (fused nf4a / int4+o leaves, stacked along the block axis)
+#
+# The JAX backend keeps stacked quantized leaves whole (StackedQuantLinear
+# views, sliced to its XLA dequant-matmul on the CPU); the port indexes them
+# per block. Tolerance: 2e-2 relative to the output's max magnitude, since
+# every projection rounds to bf16 on both sides and a sum summed in another
+# order can land one bf16 ulp apart (observed on these seeds: at most 1.3e-3).
+QUANT_REL = 2e-2
+
+
+@pytest.fixture(scope="module", params=["nf4a", "int4+o"])
+def quant_backends(request, tmp_path_factory):
+    from petals_tpu.ops.quant import OutlierQuantLinear as JOQ
+    from petals_tpu.ops.quant import QuantizedLinear as JQ
+    from petals_tpu.utils.convert_block import convert_block_params as jax_convert
+    from tests.test_torch_quant import port_leaf
+
+    path = make_tiny_mistral(str(tmp_path_factory.mktemp("models")), n_layers=N_BLOCKS, window=6)
+    jfamily, jcfg = jax_block_config(path)
+    per_block = [
+        jax_convert(jax_load_block(path, i, dtype=jnp.float32, family=jfamily, cfg=jcfg), jfamily.name,
+                    request.param, fuse=True)
+        for i in range(N_BLOCKS)
+    ]
+    is_q = lambda x: isinstance(x, (JQ, JOQ))  # noqa: E731
+    jstacked = jax.tree_util.tree_map(lambda *xs: jnp.stack(xs), *per_block)
+    jax_backend = JaxBackend(
+        jfamily, jcfg, jstacked, first_block=0, n_blocks=N_BLOCKS,
+        memory_cache=JaxMemoryCache(None), compute_dtype=jnp.float32, use_flash=False,
+    )
+
+    numpy_blocks = [{k: port_leaf(v) for k, v in p.items()} for p in per_block]
+    assert any(is_q(v) for v in per_block[0].values())
+    family, cfg = get_block_config(path)
+    backend = TransformerBackend(
+        family, cfg, stacked_from_numpy(numpy_blocks, "cpu", torch.float32),
+        first_block=0, n_blocks=N_BLOCKS, device="cpu", compute_dtype=torch.float32,
+        quant_type=request.param,
+    )
+    return jax_backend, backend, cfg
+
+
+def _qclose(got, want, what):
+    want = np.asarray(want)
+    err = np.abs(np.asarray(got) - want).max()
+    assert err <= QUANT_REL * np.abs(want).max(), (what, err, np.abs(want).max())
+
+
+def test_quantized_span_decode_and_mixed_steps(quant_backends):
+    jax_backend, backend, cfg = quant_backends
+    assert type(backend.block_params[1]["wqkv"]).__name__ in ("QuantizedLinear", "OutlierQuantLinear")
+    rng = np.random.default_rng(5)
+    tables, n_pages = _tables("permuted", rng)
+    kp, vp = _pools(rng, cfg, n_pages)
+    positions = np.array([5, MAXLEN, 17], np.int32)
+    hidden = (rng.standard_normal((L, 1, cfg.hidden_size)) * 0.1).astype(np.float32)
+    jpools = (jnp.asarray(kp), jnp.asarray(vp))
+    tk, tv = torch.from_numpy(kp.copy()), torch.from_numpy(vp.copy())
+
+    want, jpools = jax_backend.paged_decode_step(hidden, jpools, positions, tables)
+    got, _ = backend.paged_decode_step(hidden, (tk, tv), positions, tables)
+    for lane in (0, 2):
+        _qclose(got.numpy()[lane], np.asarray(want)[lane], f"decode lane {lane}")
+
+    prompt = (rng.standard_normal((1, 20, cfg.hidden_size)) * 0.1).astype(np.float32)
+    positions = np.array([6, MAXLEN, 18], np.int32)  # lane 1 prefills
+    want, want_c, jpools = jax_backend.paged_mixed_step(hidden, jpools, positions, tables, prompt, 1, 0)
+    got, got_c, _ = backend.paged_mixed_step(hidden, (tk, tv), positions, tables, prompt, 1, 0)
+    for lane in (0, 2):
+        _qclose(got.numpy()[lane], np.asarray(want)[lane], f"mixed lane {lane}")
+    _qclose(got_c.numpy(), want_c, "chunk")
+    _qclose(tk.numpy(), jpools[0], "k pool")
+    _qclose(tv.numpy(), jpools[1], "v pool")

@@ -112,3 +112,73 @@ def test_block_paged_decode_and_chunk(model):
     np.testing.assert_allclose(tout.numpy()[:, :4], np.asarray(jout)[:, :4], atol=ATOL, rtol=0)
     np.testing.assert_allclose(tk.numpy(), np.asarray(jk.pool), atol=ATOL, rtol=0)
     np.testing.assert_allclose(tv.numpy(), np.asarray(jv.pool), atol=ATOL, rtol=0)
+
+
+# ---- quantized blocks: fused wqkv / wgu leaves through the plain dequant-matmul
+#
+# Tolerance: atol 2e-2 relative to the output's max magnitude. Both packages
+# round x and the dequantized weight of every projection to bf16 and each
+# product's f32 sum once to bf16; summed in another order, a sum near a bf16
+# rounding boundary lands one bf16 ulp (2**-8 relative) apart, and that
+# difference flows through the rest of the block. (Observed on these seeds:
+# equal outputs, K/V rows within 1e-7.)
+QUANT_REL = 2e-2
+
+
+def carry_quantized(jparams):
+    """A JAX block dict with quantized leaves, carried across: quantized
+    leaves as port leaves built from their numpy pieces, dense leaves as
+    numpy arrays."""
+    from tests.test_torch_quant import port_leaf
+
+    return {name: port_leaf(leaf) for name, leaf in jparams.items()}
+
+
+def _close(got, want, what):
+    want = np.asarray(want)
+    err = np.abs(got - want).max()
+    assert err <= QUANT_REL * np.abs(want).max(), (what, err, np.abs(want).max())
+
+
+@pytest.mark.parametrize("kind", ["nf4a", "int8"])
+def test_quantized_block_dense_and_paged(model, kind):
+    from petals_tpu.utils.convert_block import convert_block_params as jax_convert
+
+    _, (jfamily, jcfg, jparams), (family, cfg, _) = model
+    jq = jax_convert(jparams, jfamily.name, kind, fuse=True)
+    assert "wqkv" in jq and "wgu" in jq and "wq" not in jq
+    params = block_params_from_numpy(carry_quantized(jq), "cpu", torch.float32)
+    rng = np.random.default_rng(4)
+    hkv, d = cfg.num_key_value_heads, cfg.head_dim
+
+    # dense cache: a 9-token prefill, then one decode step
+    x = (rng.standard_normal((1, 9, cfg.hidden_size)) * 0.5).astype(np.float32)
+    step = (rng.standard_normal((1, 1, cfg.hidden_size)) * 0.5).astype(np.float32)
+    jkv = (jnp.zeros((1, 16, hkv, d)), jnp.zeros((1, 16, hkv, d)))
+    tkv = (torch.zeros(1, 16, hkv, d), torch.zeros(1, 16, hkv, d))
+    jout, jkv = jfamily.block_apply(jq, jnp.asarray(x), jkv, 0, jcfg)
+    tout, tkv = family.block_apply(params, t(x), tkv, 0, cfg)
+    _close(tout.numpy(), jout, "prefill")
+    jout, jkv = jfamily.block_apply(jq, jnp.asarray(step), jkv, 9, jcfg)
+    tout, tkv = family.block_apply(params, t(step), tkv, 9, cfg)
+    _close(tout.numpy(), jout, "decode")
+    for got, want in zip(tkv, jkv):
+        _close(got.numpy(), want, "kv")
+
+    # paged: per-lane decode over permuted tables, lane 1 idle at the sentinel
+    n_lanes, max_pages, ps, n_pages = 3, 4, 4, 14
+    kp = rng.standard_normal((n_pages, ps, hkv, d)).astype(np.float32)
+    vp = rng.standard_normal((n_pages, ps, hkv, d)).astype(np.float32)
+    tables = rng.permutation(n_pages)[: n_lanes * max_pages].astype(np.int32).reshape(n_lanes, max_pages)
+    positions = np.array([5, max_pages * ps, 13], np.int32)
+    xl = (rng.standard_normal((n_lanes, 1, cfg.hidden_size)) * 0.5).astype(np.float32)
+    jout, (jk, _) = jfamily.block_apply(
+        jq, jnp.asarray(xl),
+        (JPagedKV(jnp.asarray(kp), jnp.asarray(tables)), JPagedKV(jnp.asarray(vp), jnp.asarray(tables))),
+        jnp.asarray(positions), jcfg,
+    )
+    tk, tv = t(kp.copy()), t(vp.copy())
+    tout, _ = family.block_apply(params, t(xl), (TPagedKV(tk, t(tables)), TPagedKV(tv, t(tables))), t(positions), cfg)
+    for lane in (0, 2):
+        _close(tout.numpy()[lane], np.asarray(jout)[lane], f"paged lane {lane}")
+    _close(tk.numpy(), jk.pool, "paged k pool")

@@ -16,6 +16,8 @@ import pytest
 import torch
 
 from petals_tpu_torch.ops import paged_flash_attention as pfa
+from petals_tpu_torch.ops import quant_matmul as qmm
+from petals_tpu_torch.ops.quant import dequantize, quantize
 from petals_tpu_torch.ops.paged_attention import paged_attend, paged_prefill_attend
 
 pytestmark = pytest.mark.cuda
@@ -120,3 +122,39 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(cuda_device):
         pfa.paged_flash_attend(q, pool, pool, tables, pos)
     with pytest.raises(ValueError):  # a CUDA tensor never falls back to the CPU version
         pfa.paged_flash_attend(q.float().cpu(), pool.float(), pool.float(), tables, pos)
+
+
+QUANT_REL_TOL = 1e-2
+
+
+@pytest.mark.parametrize("kind", ["nf4", "nf4a", "int4", "int8"])
+@pytest.mark.parametrize("m", [1, 8, 32, 33, 512])
+@pytest.mark.parametrize("k,n", [(4096, 6144), (14336, 4096), (192, 80)])  # (192, 80): padded rows, a partial slab
+def test_dequant_matmul_kernels_match_plain(cuda_device, kind, m, k, n):
+    gen = torch.Generator(device=cuda_device).manual_seed(20 + m)
+    w = quantize((torch.randn(k, n, generator=gen, device=cuda_device) * 0.02).to(torch.bfloat16), kind)
+    x = torch.randn(m, k, generator=gen, device=cuda_device).to(torch.bfloat16)
+    wrapper = qmm.quant_decode_matmul if m <= 32 else qmm.quant_prefill_matmul
+    before = dict(wrapper.launches)
+    got = qmm.dequant_matmul(x, w)
+    torch.cuda.synchronize()
+    assert wrapper.launches[kind] == before[kind] + 1
+    assert got.dtype == torch.bfloat16 and got.shape == (m, n) and torch.isfinite(got).all()
+    want = x.float() @ dequantize(w, torch.bfloat16).float()
+    err = (got.float() - want).abs().max().item()
+    assert err <= QUANT_REL_TOL * want.abs().max().item(), (err, want.abs().max().item())
+    # an f32 caller gets f32 back, computed on the same bf16-rounded x
+    got32 = qmm.dequant_matmul(x.float(), w)
+    assert got32.dtype == torch.float32 and torch.equal(got32, got.float())
+
+
+def test_dequant_matmul_refuses_what_the_kernels_do_not_take(cuda_device):
+    w = quantize(torch.randn(128, 256, device=cuda_device), "nf4a")
+    x = torch.randn(4, 128, device=cuda_device)
+    with pytest.raises(ValueError):  # a CUDA weight never falls back to the CPU version
+        qmm.dequant_matmul(x.cpu(), w)
+    with pytest.raises(ValueError):
+        qmm.dequant_matmul(x[:, :64], w)
+    odd = quantize(torch.randn(128, 72, device=cuda_device), "int8")  # out_features % 16
+    with pytest.raises(ValueError):
+        qmm.dequant_matmul(x, odd)

@@ -247,3 +247,66 @@ def test_greedy_tokens_match_jax_server(model_path):
     port_tokens, jax_tokens = asyncio.run(main())
     assert len(port_tokens) == 8
     assert port_tokens == jax_tokens
+
+
+@pytest.mark.parametrize("quant_type", ["nf4a", "int8"])
+def test_quantized_greedy_tokens_match_jax_server(model_path, quant_type):
+    """A port server with quantized weights (fused leaves, quantized on
+    load) emits the same greedy tokens as a petals_tpu server with the same
+    --quant_type; ptu.info reports the kind."""
+    import os
+
+    import torch
+
+    weights = load_file(os.path.join(model_path, "model.safetensors"))
+    _, cfg = jax_block_config(model_path)
+    head = (weights["model.embed_tokens.weight"], weights["model.norm.weight"], weights["lm_head.weight"], cfg.rms_norm_eps)
+    prompt = [3, 17, 42, 5, 99]
+    uids = _uids(model_path)
+
+    async def main():
+        server = Server(
+            model_path, first_block=0, num_blocks=N_LAYERS, device="cpu", compute_dtype=torch.float32,
+            batch_lanes=2, batch_max_length=128, page_size=16, prefill_token_budget=16, quant_type=quant_type,
+        )
+        await server.start()
+        client = await RpcClient.connect(server.host, server.rpc_server.port)
+        try:
+            info = await client.call("ptu.info", {}, timeout=10)
+            port_tokens = await _greedy(client, uids, head, prompt, 8)
+        finally:
+            await client.close()
+            await server.shutdown()
+        jserver = JaxServer(
+            model_path, compute_dtype=jnp.float32, use_flash=False, throughput=1.0,
+            batching=True, batch_lanes=2, batch_max_length=128, page_size=16,
+            prefix_cache_bytes=0, prefix_device_bytes=0, server_side_generation=False,
+            quant_type=quant_type, quant_weight_cache=False,
+        )
+        await jserver.start()
+        jclient = await RpcClient.connect(jserver.rpc_server.host, jserver.rpc_server.port)
+        try:
+            jax_tokens = await _greedy(jclient, uids, head, prompt, 8)
+        finally:
+            await jclient.close()
+            await jserver.shutdown()
+        return info, port_tokens, jax_tokens, server
+
+    info, port_tokens, jax_tokens, server = asyncio.run(main())
+    assert info["quant_type"] == quant_type
+    assert sorted(server.backend.block_params[0]) == ["ln1", "ln2", "wd", "wgu", "wo", "wqkv"]
+    assert all(type(server.backend.block_params[0][k]).__name__ == "QuantizedLinear" for k in ("wqkv", "wgu", "wo", "wd"))
+    assert len(port_tokens) == 8
+    assert port_tokens == jax_tokens
+
+
+def test_cli_passes_quant_type_through(model_path):
+    from petals_tpu_torch.cli.run_server import build_parser, build_server
+
+    base = [model_path, "--first_block", "0", "--num_blocks", "2", "--device", "cpu", "--dtype", "float32"]
+    assert build_parser().parse_args(base).quant_type == "none"
+    server = build_server(build_parser().parse_args(base + ["--quant_type", "int4+o"]))
+    assert server.quant_type == server.backend.quant_type == "int4+o"
+    assert server.backend.block_params[1]["wgu"].kind == "int4+o"
+    with pytest.raises(SystemExit):  # the JAX CLI's choices only
+        build_parser().parse_args(base + ["--quant_type", "fp8"])
