@@ -17,10 +17,15 @@
      with the sliding window off, at Mistral's 4096 and at 200.
    - K2 chunked prefill: a 512-row chunk at position 0 and its 188-row
      continuation at 512.
+   - K3, the quantized-pool arms of both (int8 and nf4a), on the same
+     inputs with the pools quantized on the card; the yardstick gathers and
+     dequantizes the pages before SDPA. Bounds count the stored bytes.
    Tolerance: bf16 inputs against the plain version computed in float32 on
    the same bf16 values; the kernels accumulate in float32 and round once to
    bf16, so outputs of magnitude < 4 differ by at most half a bf16 ulp
-   (2**-7) plus summation order: max abs error <= 2e-2.
+   (2**-7) plus summation order: max abs error <= 2e-2 (for K3 the plain
+   version decodes the pool to bf16 values, the kernel to float32, within
+   the same bound).
 3. Server: write a seeded Mistral-7B-v0.1-shaped checkpoint of 8 blocks
    (bf16, random weights) with the port's safetensors writer, start
    petals_tpu_torch's Server on 127.0.0.1 with the CLI's defaults, and open
@@ -62,18 +67,33 @@
 7. Other kinds, short: int8, nf4, int4 and nf4a+o served at 2 blocks, one
    session each (a 300-token prompt, 8 decode steps), checked the same way,
    so every arm of K5 and K6 runs on the served path.
+8. Quantized KV pool: the bf16 8-block span served with --kv_quant_type
+   nf4a to the traffic of phase 3 (8 lanes where bf16 gets 4), then phase
+   4's profile of it; and, short as in 7, --kv_quant_type int8 and
+   --quant_type nf4a --kv_quant_type nf4a. The references write each K/V
+   row as the pool holds it (encoded, then decoded to the cache's type), in
+   bf16 and float32, and the replies are checked as in phase 3. Each K/V
+   row the server wrote is read through the block tables and decoded; it
+   must lie within RT_BOUND[kind] of its absmax (per kv head) of the bf16
+   reference's row as computed, plus twice that row's bf16 error from
+   float32: a lost or misplaced write is off by the order of the absmax.
+   The counters must show K3's arm of the kind on every block of every step
+   and no launch of K1, K2 or the other kind in that run.
 
 float32 matmuls run in full float32: TF32 is switched off for matmuls and
 convolutions. Exits non-zero on any failure. The last line is the JSON
 object ``{"ok": true, "device": {...}}``; the line before it lists the
 kernels with their times, bounds and main-path launch counts (K1/K2 from
-the bf16 run, K5's nf4a arm from the nf4a run, its nf4 and int4 arms and K6
-from their short runs).
+the bf16 run, K3's nf4a arms from the nf4a-pool run and its int8 arms from
+the short int8-pool run, K5's nf4a arm from the nf4a run, its nf4 and int4
+arms and K6 from their short runs). Every run prints its lanes, pages and
+pool bytes.
 """
 
 from __future__ import annotations
 
 import asyncio
+import contextlib
 import gc
 import json
 import os
@@ -109,6 +129,14 @@ HBM_BYTES_PER_S = 3.35e12
 BF16_FLOP_PER_S = 989e12
 
 KERNEL_TOL = 2e-2
+# K3 against its plain version on the same quantized pool: the plain version
+# decodes to bf16 values, the kernel to float32 registers, so every K/V value
+# may differ by half a bf16 ulp as well; the same KERNEL_TOL covers it
+KV_QUANT_KINDS = ("int8", "nf4a")
+# a decoded pool row may differ from the row as computed by this share of the
+# row's absmax (per kv head): half the widest code gap plus rounding slack
+# (tests/test_kv_quant.py RT_BOUND)
+RT_BOUND = {"int8": 0.005, "nf4a": 0.145}
 # server replies: both sides compute in bf16, but the server splits the
 # 700-token prompt into 512 + 188-row chunks and batches decode rows, so
 # its matmuls run at other shapes and round differently, and a bf16 ulp of
@@ -116,6 +144,12 @@ KERNEL_TOL = 2e-2
 # is that rounding noise itself, measured (see check_session).
 REPLY_NOISE_FACTOR = 2.0
 REPLY_BF16_MEAN_REL = 5e-2  # beyond this the bf16 network is too unstable to judge
+# With a quantized pool the bf16 reference differs from its float32 twin by
+# more than rounding: a row that rounds differently in bf16 can take the
+# neighbouring code, and the flip carries through the later blocks (nf4a at
+# 8 blocks: 8.2e-2 to 1.4e-1 mean-rel, measured on the H100). Beyond this
+# the quantized network is too unstable to judge.
+REPLY_KV_QUANT_MEAN_REL = 0.25
 WARMUP_PROMPTS = (64, 300)  # first-call costs (cuBLAS plans, page faults) off the clock
 
 KERNEL_SOURCES = ("paged_attention", "quant_matmul")
@@ -132,6 +166,9 @@ QUANT_KINDS = ("nf4", "nf4a", "int4", "int8")
 # plain version rounds each scaled weight to bf16 (2**-9 per product)
 QUANT_REL_TOL = 1e-2
 SHORT_KINDS = ("int8", "nf4", "int4", "nf4a+o")  # served at 2 blocks, one session each
+# (--quant_type, --kv_quant_type) served at 2 blocks, one session each: K3's
+# int8 arms, and nf4a weights with an nf4a pool (the operator's combined setting)
+SHORT_KV_RUNS = (("none", "int8"), ("nf4a", "nf4a"))
 SHORT_SPAN = 2
 SHORT_PROMPT = 300
 SHORT_STEPS = 8
@@ -233,16 +270,13 @@ def build() -> None:
                 log(f"  {line.strip()}")
 
 
-def check_kernels(device, timer):
-    """Kernel vs plain version at Mistral-7B widths; returns the K1/K2
-    report entries (without main-path launch counts)."""
-    from petals_tpu_torch.ops import paged_flash_attention as pfa
-    from petals_tpu_torch.ops.paged_attention import gather_pages, paged_attend, paged_prefill_attend
-
+def attention_cases(device):
+    """The seeded inputs of the attention kernels at Mistral-7B widths: K1's
+    8 lanes (ragged positions up to 1023 on permuted tables with holes past
+    each frontier, one lane idle at the sentinel) and K2's lane (a 512-row
+    chunk at 0 and its 188-row continuation), bf16 pools."""
     gen = torch.Generator(device=device).manual_seed(SEED + 1)
     hq, hkv, d = 32, 8, 128
-
-    # ---- K1: 8 lanes, ragged, permuted + holey tables, one idle lane
     n_lanes, max_pages = 8, 1024 // PAGE
     max_len = max_pages * PAGE
     positions = torch.tensor([0, 63, 64, 200, 511, 700, 1023, max_len], dtype=torch.int32)
@@ -257,106 +291,150 @@ def check_kernels(device, timer):
     kp = torch.randn(n_pages, PAGE, hkv, d, generator=gen, device=device).to(torch.bfloat16)
     vp = torch.randn(n_pages, PAGE, hkv, d, generator=gen, device=device).to(torch.bfloat16)
     q = torch.randn(n_lanes, 1, hq, d, generator=gen, device=device).to(torch.bfloat16)
-    tables, positions = tables.to(device), positions.to(device)
-    active = slice(0, n_lanes - 1)  # the sentinel lane's output is never read
-    k1_err = 0.0
-    for window in (None, 4096, 200):
-        got = pfa.paged_flash_attend(q, kp, vp, tables, positions, sliding_window=window)
-        torch.cuda.synchronize()
-        want = paged_attend(q.float(), kp.float(), vp.float(), tables, positions, sliding_window=window)
-        if not torch.isfinite(got).all():
-            raise AssertionError(f"K1 window={window}: non-finite output")
-        err = (got[active].float() - want[active]).abs().max().item()
-        log(f"K1 decode, window={window}: max abs err {err:.3e} (tol {KERNEL_TOL})")
-        if err > KERNEL_TOL:
-            raise AssertionError(f"K1 disagrees with its plain version: {err} > {KERNEL_TOL}")
-        k1_err = max(k1_err, err)
-
     window = MISTRAL_7B["sliding_window"]
     kv_lens = [min(p + 1, max_len) for p in positions.tolist()]
-    rows = sum(_visible(kl - 1, kl, window) for kl in kv_lens)
-    k1_bytes = 2 * rows * hkv * d * 2 + 2 * q.numel() * 2 + tables.numel() * 4 + positions.numel() * 4
-    k1_bound, k1_by = bound_ms(k1_bytes, 4 * hq * d * rows)
-
-    def k1_library():
-        k = gather_pages(kp, tables).transpose(1, 2)
-        v = gather_pages(vp, tables).transpose(1, 2)
-        kv_pos = torch.arange(k.shape[2], device=device)
-        mask = (kv_pos[None, :] <= positions[:, None].long()) & (kv_pos[None, :] > positions[:, None].long() - window)
-        return _sdpa(q.transpose(1, 2), k, v, mask[:, None, None, :])
-
-    lib_err = (k1_library().transpose(1, 2)[active].float() - paged_attend(
-        q.float(), kp.float(), vp.float(), tables, positions, sliding_window=window)[active]).abs().max().item()
-    k1 = {
-        "name": "paged_decode_attention", "route": "cuda",
-        "source": "petals_tpu_torch/csrc/paged_attention.cu",
-        "replaces": "petals_tpu/ops/paged_flash_attention.py:220",
-        "max_abs_err": k1_err,
-        "ms": timer(lambda: pfa.paged_flash_attend(q, kp, vp, tables, positions, sliding_window=window)),
-        "plain_ms": timer(lambda: paged_attend(q, kp, vp, tables, positions, sliding_window=window)),
-        "bound_ms": k1_bound, "bound_by": k1_by,
-        "library_ms": timer(k1_library),
+    decode = {
+        "q": q, "kp": kp, "vp": vp, "tables": tables.to(device), "positions": positions.to(device),
+        "active": slice(0, n_lanes - 1),  # the sentinel lane's output is never read
+        "rows": sum(_visible(kl - 1, kl, window) for kl in kv_lens),  # kv rows read at window 4096
     }
-    log(f"K1 at 8 lanes, window 4096: {k1['ms']:.4f} ms kernel, {k1['plain_ms']:.4f} ms plain, "
-        f"{k1['library_ms']:.4f} ms gather+SDPA (its err {lib_err:.3e}), bound {k1_bound:.4f} ms ({k1_by})")
-
-    # ---- K2: a 512-row chunk at 0, then its 188-row continuation at 512
     max_pages2 = 1024 // PAGE
     n_pages2 = max_pages2 + 8
     perm2 = torch.randperm(n_pages2, generator=torch.Generator().manual_seed(SEED + 3))
-    total = 512 + 188
     table_row = torch.full((max_pages2,), -1, dtype=torch.int32)
-    used = -(-total // PAGE)
-    table_row[:used] = perm2[:used].to(torch.int32)
-    table_row = table_row.to(device)
+    table_row[: -(-(512 + 188) // PAGE)] = perm2[: -(-(512 + 188) // PAGE)].to(torch.int32)
     kp2 = torch.randn(n_pages2, PAGE, hkv, d, generator=gen, device=device).to(torch.bfloat16)
     vp2 = torch.randn(n_pages2, PAGE, hkv, d, generator=gen, device=device).to(torch.bfloat16)
-    k2_err, k2_cases = 0.0, {}
-    for chunk_pos, n in ((0, 512), (512, 188)):
-        qc = torch.randn(1, n, hq, d, generator=gen, device=device).to(torch.bfloat16)
+    chunks = {pos: torch.randn(1, n, hq, d, generator=gen, device=device).to(torch.bfloat16)
+              for pos, n in ((0, 512), (512, 188))}
+    prefill = {
+        "kp": kp2, "vp": vp2, "table_row": table_row.to(device), "chunks": chunks,
+        "rows": sum(_visible(r, 512, window) for r in range(512)),  # (q, kv) pairs of the 512-row chunk
+    }
+    return decode, prefill
+
+
+def _library_decode(case, kp, vp, window):
+    """The yardstick for the decode kernels: the pages gathered (and
+    dequantized) into a dense view, then PyTorch's fused attention."""
+    from petals_tpu_torch.ops.paged_attention import gather_pages
+
+    q, tables, positions = case["q"], case["tables"], case["positions"]
+    k = gather_pages(kp, tables).transpose(1, 2)
+    v = gather_pages(vp, tables).transpose(1, 2)
+    kv_pos = torch.arange(k.shape[2], device=q.device)
+    pos = positions[:, None].long()
+    mask = (kv_pos[None, :] <= pos) & (kv_pos[None, :] > pos - window)
+    return _sdpa(q.transpose(1, 2), k, v, mask[:, None, None, :]).transpose(1, 2)
+
+
+def _library_prefill(case, kp, vp, qc, window):
+    """The yardstick for the prefill kernels at a chunk at position 0."""
+    from petals_tpu_torch.ops.paged_attention import gather_pages
+
+    n = qc.shape[1]
+    k = gather_pages(kp, case["table_row"][None])[:, :n].transpose(1, 2)
+    v = gather_pages(vp, case["table_row"][None])[:, :n].transpose(1, 2)
+    pos = torch.arange(n, device=qc.device)
+    mask = (pos[None, :] <= pos[:, None]) & (pos[None, :] > pos[:, None] - window)
+    return _sdpa(qc.transpose(1, 2), k, v, mask)
+
+
+def check_attention_kernels(device, timer, dec, pf, kind="none"):
+    """The decode and prefill kernels at one pool storage, against their
+    plain versions: K1/K2 on the cases' bf16 pools, or K3's ``kind`` arms on
+    pools quantized on the card from them. Returns the two report entries
+    (without main-path launch counts)."""
+    from petals_tpu_torch.ops import paged_flash_attention as pfa
+    from petals_tpu_torch.ops.paged_attention import (
+        PagedPool,
+        kv_wire_bytes_per_token,
+        paged_attend,
+        paged_prefill_attend,
+        quantize_kv_rows,
+    )
+
+    hq, hkv, d = dec["q"].shape[2], dec["kp"].shape[2], dec["kp"].shape[3]
+    window = MISTRAL_7B["sliding_window"]
+    if kind == "none":
+        kp, vp, kp2, vp2 = dec["kp"], dec["vp"], pf["kp"], pf["vp"]
+        plain_pool = lambda pool: pool.float()  # noqa: E731  (the plain version in float32)
+        label, names, where = "", ("K1", "K2"), ("220", "488")
+    else:
+        kp, vp, kp2, vp2 = (PagedPool(*quantize_kv_rows(p, kind)) for p in (dec["kp"], dec["vp"], pf["kp"], pf["vp"]))
+        plain_pool = lambda pool: pool  # noqa: E731  (a PagedPool: the plain version decodes it)
+        label, names, where = f"[kv_{kind}]", (f"K3 {kind} decode", f"K3 {kind} prefill"), ("150", "150")
+    side_bytes = kv_wire_bytes_per_token(hkv, d, kind)  # one token row of k (or v) of one block
+
+    # ---- decode
+    q, tables, positions, active = dec["q"], dec["tables"], dec["positions"], dec["active"]
+    dec_err = 0.0
+    for w in (None, 4096, 200):
+        got = pfa.paged_flash_attend(q, kp, vp, tables, positions, sliding_window=w)
+        torch.cuda.synchronize()
+        want = paged_attend(q.float(), plain_pool(kp), plain_pool(vp), tables, positions, sliding_window=w)
+        if not torch.isfinite(got).all():
+            raise AssertionError(f"{names[0]} window={w}: non-finite output")
+        err = (got[active].float() - want[active]).abs().max().item()
+        log(f"{names[0]}, window={w}: max abs err {err:.3e} (tol {KERNEL_TOL})")
+        if err > KERNEL_TOL:
+            raise AssertionError(f"{names[0]} disagrees with its plain version: {err} > {KERNEL_TOL}")
+        dec_err = max(dec_err, err)
+    rows = dec["rows"]
+    dec_bytes = 2 * rows * side_bytes + 2 * q.numel() * 2 + tables.numel() * 4 + positions.numel() * 4
+    dec_bound, dec_by = bound_ms(dec_bytes, 4 * hq * d * rows)
+    lib_err = (_library_decode(dec, kp, vp, window)[active].float() - paged_attend(
+        q.float(), plain_pool(kp), plain_pool(vp), tables, positions, sliding_window=window)[active]).abs().max().item()
+    decode = {
+        "name": f"paged_decode_attention{label}", "route": "cuda",
+        "source": "petals_tpu_torch/csrc/paged_attention.cu",
+        "replaces": f"petals_tpu/ops/paged_flash_attention.py:{where[0]}",
+        "max_abs_err": dec_err,
+        "ms": timer(lambda: pfa.paged_flash_attend(q, kp, vp, tables, positions, sliding_window=window)),
+        "plain_ms": timer(lambda: paged_attend(q, kp, vp, tables, positions, sliding_window=window)),
+        "bound_ms": dec_bound, "bound_by": dec_by,
+        "library_ms": timer(lambda: _library_decode(dec, kp, vp, window)),
+    }
+    log(f"{names[0]} at 8 lanes, window 4096: {decode['ms']:.4f} ms kernel, {decode['plain_ms']:.4f} ms plain, "
+        f"{decode['library_ms']:.4f} ms gather+SDPA (its err {lib_err:.3e}), bound {dec_bound:.4f} ms "
+        f"({dec_by}, {dec_bytes / 1e6:.2f} MB)")
+
+    # ---- prefill: a 512-row chunk at 0, then its 188-row continuation at 512
+    table_row = pf["table_row"]
+    pf_err = 0.0
+    for chunk_pos, qc in pf["chunks"].items():
+        n = qc.shape[1]
         got = pfa.paged_flash_prefill_attend(qc, kp2, vp2, table_row, chunk_pos, n, sliding_window=window)
         torch.cuda.synchronize()
         want = paged_prefill_attend(
-            qc.float(), kp2.float(), vp2.float(), table_row, chunk_pos, n, sliding_window=window
+            qc.float(), plain_pool(kp2), plain_pool(vp2), table_row, chunk_pos, n, sliding_window=window
         )
         if not torch.isfinite(got).all():
-            raise AssertionError(f"K2 chunk_pos={chunk_pos}: non-finite output")
+            raise AssertionError(f"{names[1]} chunk_pos={chunk_pos}: non-finite output")
         err = (got.float() - want).abs().max().item()
-        log(f"K2 prefill, chunk_pos={chunk_pos}, {n} rows: max abs err {err:.3e} (tol {KERNEL_TOL})")
+        log(f"{names[1]}, chunk_pos={chunk_pos}, {n} rows: max abs err {err:.3e} (tol {KERNEL_TOL})")
         if err > KERNEL_TOL:
-            raise AssertionError(f"K2 disagrees with its plain version: {err} > {KERNEL_TOL}")
-        k2_err = max(k2_err, err)
-        k2_cases[chunk_pos] = qc
-
-    qc = k2_cases[0]
+            raise AssertionError(f"{names[1]} disagrees with its plain version: {err} > {KERNEL_TOL}")
+        pf_err = max(pf_err, err)
+    qc, qc2 = pf["chunks"][0], pf["chunks"][512]
     n = qc.shape[1]
-    rows = sum(_visible(r, n, window) for r in range(n))
-    k2_bytes = 2 * n * hkv * d * 2 + 2 * qc.numel() * 2 + table_row.numel() * 4
-    k2_bound, k2_by = bound_ms(k2_bytes, 4 * hq * d * rows)
-
-    def k2_library():
-        k = gather_pages(kp2, table_row[None])[:, :n].transpose(1, 2)
-        v = gather_pages(vp2, table_row[None])[:, :n].transpose(1, 2)
-        pos = torch.arange(n, device=device)
-        mask = (pos[None, :] <= pos[:, None]) & (pos[None, :] > pos[:, None] - window)
-        return _sdpa(qc.transpose(1, 2), k, v, mask)
-
-    k2 = {
-        "name": "paged_prefill_attention", "route": "cuda",
+    pf_bytes = 2 * n * side_bytes + 2 * qc.numel() * 2 + table_row.numel() * 4
+    pf_bound, pf_by = bound_ms(pf_bytes, 4 * hq * d * pf["rows"])
+    prefill = {
+        "name": f"paged_prefill_attention{label}", "route": "cuda",
         "source": "petals_tpu_torch/csrc/paged_attention.cu",
-        "replaces": "petals_tpu/ops/paged_flash_attention.py:488",
-        "max_abs_err": k2_err,
+        "replaces": f"petals_tpu/ops/paged_flash_attention.py:{where[1]}",
+        "max_abs_err": pf_err,
         "ms": timer(lambda: pfa.paged_flash_prefill_attend(qc, kp2, vp2, table_row, 0, n, sliding_window=window)),
         "plain_ms": timer(lambda: paged_prefill_attend(qc, kp2, vp2, table_row, 0, n, sliding_window=window)),
-        "bound_ms": k2_bound, "bound_by": k2_by,
-        "library_ms": timer(k2_library),
+        "bound_ms": pf_bound, "bound_by": pf_by,
+        "library_ms": timer(lambda: _library_prefill(pf, kp2, vp2, qc, window)),
     }
-    qc2 = k2_cases[512]
-    k2_cont_ms = timer(lambda: pfa.paged_flash_prefill_attend(qc2, kp2, vp2, table_row, 512, 188, sliding_window=window))
-    log(f"K2 at a 512-row chunk: {k2['ms']:.4f} ms kernel, {k2['plain_ms']:.4f} ms plain, "
-        f"{k2['library_ms']:.4f} ms gather+SDPA, bound {k2_bound:.4f} ms ({k2_by}); "
-        f"188-row continuation at 512: {k2_cont_ms:.4f} ms kernel")
-    return [k1, k2]
+    cont_ms = timer(lambda: pfa.paged_flash_prefill_attend(qc2, kp2, vp2, table_row, 512, 188, sliding_window=window))
+    log(f"{names[1]} at a 512-row chunk: {prefill['ms']:.4f} ms kernel, {prefill['plain_ms']:.4f} ms plain, "
+        f"{prefill['library_ms']:.4f} ms gather+SDPA, bound {pf_bound:.4f} ms ({pf_by}); "
+        f"188-row continuation at 512: {cont_ms:.4f} ms kernel")
+    return [decode, prefill]
 
 
 def check_quant_kernels(device, timer):
@@ -503,6 +581,17 @@ async def drive_server(server, prompts, n_steps, seed, at_end=None):
     return inputs, [r[0] for r in results], [r[1] for r in results], timing, at_end_result[0]
 
 
+def _pool_rows(pool, pages, n):
+    """Rows [n_blocks, n, hkv, d] of the pages ``pages`` of a span pool; a
+    quantized pool's codes and scales are read and decoded to float32."""
+    from petals_tpu_torch.ops.paged_attention import PagedPool, dequantize_kv
+
+    if isinstance(pool, PagedPool):
+        codes, scales = (t[:, pages].flatten(1, 2)[:, :n] for t in pool)
+        return dequantize_kv(codes, scales, pool.kind, torch.float32)
+    return pool[:, pages].flatten(1, 2)[:, :n].clone()
+
+
 def lane_kv_rows(batcher, lengths):
     """The K/V rows each open session's lane holds, read from the page pools
     through the lane's block table: per entry of ``lengths`` (the session's
@@ -519,29 +608,59 @@ def lane_kv_rows(batcher, lengths):
         raise AssertionError(f"lanes hold {sorted(by_pages)} pages, sessions need {sorted(want_pages)}")
     rows = []
     for n, used in zip(lengths, want_pages):
-        pages = torch.as_tensor(tables[by_pages[used], :used], dtype=torch.long, device=k_pool.device)
-        rows.append(tuple(pool[:, pages].flatten(1, 2)[:, :n].clone() for pool in (k_pool, v_pool)))
+        pages = torch.as_tensor(tables[by_pages[used], :used], dtype=torch.long, device=batcher.backend.device)
+        rows.append(tuple(_pool_rows(pool, pages, n) for pool in (k_pool, v_pool)))
     return rows
 
 
+@contextlib.contextmanager
+def quantized_kv_writes(family, kind, written):
+    """While active, the block's KV write stores each new row as the
+    quantized pool would hold it (encoded with ``kind``, decoded back to the
+    cache's dtype), after appending the row as computed to ``written``."""
+    from petals_tpu_torch.ops.paged_attention import dequantize_kv, quantize_kv_rows
+
+    module = sys.modules[family.block_apply.__module__]
+    original = module.update_kv_cache
+
+    def write(kv, k_new, v_new, position, n_valid=None):
+        written.append((k_new, v_new))
+        k_new, v_new = (dequantize_kv(*quantize_kv_rows(x, kind), kind, x.dtype) for x in (k_new, v_new))
+        return original(kv, k_new, v_new, position, n_valid)
+
+    module.update_kv_cache = write
+    try:
+        yield
+    finally:
+        module.update_kv_cache = original
+
+
 @torch.no_grad()
-def reference_session(block_params, family, cfg, prompt, steps, device, dtype):
+def reference_session(block_params, family, cfg, prompt, steps, device, dtype, kv_quant="none"):
     """One session alone through the port's block functions over a dense
-    cache [1, length, hkv, d] per block, with plain attention, in ``dtype``.
-    Returns the replies and the caches as (k, v) of [n_blocks, length, hkv, d]."""
+    cache [1, length, hkv, d] per block, with plain attention, in ``dtype``;
+    with a ``kv_quant`` kind, each row enters the cache as the quantized pool
+    would hold it. Returns the replies and the K/V rows as computed (before
+    any quantization), (k, v) of [n_blocks, length, hkv, d]."""
     shape = (1, prompt.shape[1] + len(steps), cfg.num_key_value_heads, cfg.head_dim)
     caches = [
         (torch.zeros(shape, dtype=dtype, device=device), torch.zeros(shape, dtype=dtype, device=device))
         for _ in block_params
     ]
+    written = []
     outs, position = [], 0
-    for x in [prompt] + steps:
-        h = x.to(device, dtype)
-        for params, kv in zip(block_params, caches):
-            h, _ = family.block_apply(params, h, kv, position, cfg)
-        position += x.shape[1]
-        outs.append(h.float().cpu())
-    k, v = (torch.cat([kv[j] for kv in caches]) for j in (0, 1))
+    with quantized_kv_writes(family, kv_quant, written) if kv_quant != "none" else contextlib.nullcontext():
+        for x in [prompt] + steps:
+            h = x.to(device, dtype)
+            for params, kv in zip(block_params, caches):
+                h, _ = family.block_apply(params, h, kv, position, cfg)
+            position += x.shape[1]
+            outs.append(h.float().cpu())
+    if kv_quant == "none":
+        k, v = (torch.cat([kv[j] for kv in caches]) for j in (0, 1))
+    else:  # written holds (k, v) of each step, block by block
+        n = len(block_params)
+        k, v = (torch.cat([torch.cat([w[j] for w in written[b::n]], dim=1) for b in range(n)]) for j in (0, 1))
     return outs, (k, v)
 
 
@@ -568,13 +687,29 @@ def _row_rel_error(got, want) -> float:
     return ((got - want).abs().amax(dim=(-2, -1)) / want.abs().amax(dim=(-2, -1))).max().item()
 
 
-def check_session(got, kv, ref_bf16, ref_f32, label):
+def _quant_row_error(got, want, want_f32, kind) -> float:
+    """Worst, over cached rows, of the decoded row's error from the
+    reference's row as computed (before quantization), over what it may be:
+    RT_BOUND[kind] of the row's absmax (per kv head, as the pool quantizes)
+    plus REPLY_NOISE_FACTOR times that row's bf16 error from float32."""
+    got, want, want_f32 = got.float(), want.float(), want_f32.float()
+    if got.shape != want.shape or not torch.isfinite(got).all():
+        raise AssertionError(f"KV rows of shape {tuple(got.shape)} (want {tuple(want.shape)}) or non-finite")
+    absmax = want.abs().amax(dim=-1, keepdim=True)
+    noise = (want - want_f32).abs().amax(dim=(-2, -1), keepdim=True)
+    allowed = (RT_BOUND[kind] * absmax + REPLY_NOISE_FACTOR * noise).clamp_min(1e-30)
+    return ((got - want).abs() / allowed).max().item()
+
+
+def check_session(got, kv, ref_bf16, ref_f32, label, kv_quant="none"):
     """The server's replies and written K/V rows against the dense bf16
     reference. Tolerance: they may differ from it by at most
     REPLY_NOISE_FACTOR times the bf16 reference's own rounding error,
     measured against the same network evaluated in float32 on the same
     inputs. Two bf16 evaluations with independent rounding differ by up to
-    twice their error from float32. Returns the list of what failed."""
+    twice their error from float32. A quantized pool's rows are decoded and
+    may also differ by one quantization (_quant_row_error). Returns the list
+    of what failed."""
     (out_bf16, kv_bf16), (out_f32, kv_f32) = ref_bf16, ref_f32
     srv_ref = _rel_errors(got, out_bf16)
     noise = _rel_errors(out_bf16, out_f32)
@@ -583,11 +718,18 @@ def check_session(got, kv, ref_bf16, ref_f32, label):
         f"bf16 reference vs float32 max-rel {noise[0]:.3e} mean-rel {noise[1]:.3e}; "
         f"server vs float32 max-rel {srv_f32[0]:.3e} mean-rel {srv_f32[1]:.3e}")
     failed = []
-    if noise[1] > REPLY_BF16_MEAN_REL:
+    if noise[1] > (REPLY_BF16_MEAN_REL if kv_quant == "none" else REPLY_KV_QUANT_MEAN_REL):
         failed.append(f"{label}: the network itself is unstable in bf16 ({noise[1]:.3e})")
     if srv_ref[0] > REPLY_NOISE_FACTOR * noise[0] or srv_ref[1] > REPLY_NOISE_FACTOR * noise[1]:
         failed.append(f"{label}: replies disagree with the dense reference beyond bf16 rounding")
     for name, srv, want, want_f32 in zip("KV", kv, kv_bf16, kv_f32):
+        if kv_quant != "none":
+            ratio = _quant_row_error(srv, want, want_f32, kv_quant)
+            log(f"{label}: written {name} rows, decoded, vs the bf16 reference's rows as computed: worst "
+                f"error {ratio:.3f} of (RT_BOUND[{kv_quant}] x absmax + {REPLY_NOISE_FACTOR:g} x row noise)")
+            if ratio > 1:
+                failed.append(f"{label}: written {name} rows are off beyond one {kv_quant} quantization")
+            continue
         err, row_noise = _row_rel_error(srv, want), _row_rel_error(want, want_f32)
         log(f"{label}: written {name} rows vs dense bf16 cache, worst row max-rel {err:.3e}; "
             f"bf16 cache vs float32 worst row {row_noise:.3e}")
@@ -605,9 +747,13 @@ def profile_steps(backend, device) -> None:
 
     cfg, ps, max_len = backend.cfg, PAGE, 1024
     max_pages = max_len // ps
+    from petals_tpu_torch.ops.paged_attention import PagedPool, quantize_kv_rows
+
     gen = torch.Generator(device=device).manual_seed(SEED + 6)
     shape = (backend.n_blocks, PROFILE_LANES * max_pages, ps, cfg.num_key_value_heads, cfg.head_dim)
     pools = tuple(torch.randn(shape, generator=gen, device=device).to(torch.bfloat16) for _ in range(2))
+    if backend.kv_quant_type != "none":
+        pools = tuple(PagedPool(*quantize_kv_rows(p, backend.kv_quant_type)) for p in pools)
     tables = torch.arange(PROFILE_LANES * max_pages, dtype=torch.int32).reshape(PROFILE_LANES, max_pages)
     positions = torch.linspace(64, max_len - 64, PROFILE_LANES).to(torch.int32)
     hidden = torch.randn(PROFILE_LANES, 1, cfg.hidden_size, generator=gen, device=device).cpu()
@@ -619,7 +765,8 @@ def profile_steps(backend, device) -> None:
         f"mixed step ({PROFILE_CHUNK}-token chunk)": lambda: backend.paged_mixed_step(
             hidden, pools, mixed_positions, tables, chunk, 0, 0),
     }
-    log(f"profile (--quant_type {backend.quant_type}): {backend.n_blocks} blocks, {PROFILE_LANES} lanes at "
+    log(f"profile (--quant_type {backend.quant_type} --kv_quant_type {backend.kv_quant_type}): "
+        f"{backend.n_blocks} blocks, {PROFILE_LANES} lanes at "
         f"positions {positions.tolist()}")
     for label, fn in steps.items():
         fn()
@@ -658,26 +805,31 @@ def dense_reference_params(block_params, dtype):
     ]
 
 
-def serve_and_check(ckpt, device, quant_type, n_blocks, prompts, n_steps, seed, warmup_prompts):
-    """Serve blocks [0, n_blocks) of the checkpoint with ``--quant_type``
-    through the CLI's build_server, drive concurrent sessions (after an optional
-    warm-up), check the launch counters of the measured run, every reply
-    and every written K/V row against dense references, and return the
-    server (still holding its span) and the measured run's launch counts."""
+def serve_and_check(ckpt, device, quant_type, n_blocks, prompts, n_steps, seed, warmup_prompts, kv_quant_type="none"):
+    """Serve blocks [0, n_blocks) of the checkpoint with ``--quant_type`` and
+    ``--kv_quant_type`` through the CLI's build_server, drive concurrent
+    sessions (after an optional warm-up), check the launch counters of the
+    measured run, every reply and every written K/V row against dense
+    references, and return the server (still holding its span) and the
+    measured run's launch counts."""
     from petals_tpu_torch.cli.run_server import build_parser, build_server
     from petals_tpu_torch.ops import paged_flash_attention as pfa
     from petals_tpu_torch.ops import quant_matmul as qmm
 
-    label = f"server (--quant_type {quant_type}, {n_blocks} blocks)"
+    label = f"server (--quant_type {quant_type} --kv_quant_type {kv_quant_type}, {n_blocks} blocks)"
     args = build_parser().parse_args([
         ckpt, "--first_block", "0", "--num_blocks", str(n_blocks), "--host", "127.0.0.1", "--quant_type", quant_type,
+        "--kv_quant_type", kv_quant_type,
     ])
     t0 = time.perf_counter()
     server = build_server(args)
     torch.cuda.synchronize()
-    log(f"{label}: loaded in {time.perf_counter() - t0:.1f} s, {server.batcher.n_lanes} lanes x "
-        f"{server.batcher.max_length} tokens, page {server.batcher.page_size}, "
-        f"prefill budget {server.batcher.prefill_token_budget}; "
+    b = server.batcher
+    pool_bytes = sum(d.nbytes for d in server.backend.paged_cache_descriptors(b.n_pages, b.page_size, 0, n_blocks))
+    log(f"{label}: loaded in {time.perf_counter() - t0:.1f} s, {b.n_lanes} lanes x {b.max_length} tokens, "
+        f"{b.n_pages} pages of {b.page_size}, pool {pool_bytes / 2**20:.1f} MiB "
+        f"({server.backend.kv_bytes_per_token()} bytes a token) of a {server.memory_cache.max_size_bytes / 2**20:.1f} "
+        f"MiB budget, prefill budget {b.prefill_token_budget}; "
         f"{torch.cuda.memory_allocated(device) / 2**30:.2f} GiB allocated on the card")
 
     async def serve():
@@ -686,8 +838,7 @@ def serve_and_check(ckpt, device, quant_type, n_blocks, prompts, n_steps, seed, 
             if warmup_prompts:
                 await drive_server(server, warmup_prompts, 2, SEED + 5)
             before = dict(server.batcher.stats)
-            pfa.paged_flash_attend.launches = 0
-            pfa.paged_flash_prefill_attend.launches = 0
+            pfa.reset_launch_counts()
             qmm.reset_launch_counts()
             result = await drive_server(
                 server, prompts, n_steps, seed,
@@ -695,6 +846,8 @@ def serve_and_check(ckpt, device, quant_type, n_blocks, prompts, n_steps, seed, 
             )
             launches = {
                 "K1": pfa.paged_flash_attend.launches, "K2": pfa.paged_flash_prefill_attend.launches,
+                "K3 decode": dict(pfa.paged_flash_attend.kv_quant_launches),
+                "K3 prefill": dict(pfa.paged_flash_prefill_attend.kv_quant_launches),
                 "decode": dict(qmm.quant_decode_matmul.launches), "prefill": dict(qmm.quant_prefill_matmul.launches),
             }
         finally:
@@ -704,13 +857,24 @@ def serve_and_check(ckpt, device, quant_type, n_blocks, prompts, n_steps, seed, 
 
     (inputs, replies, metas, timing, lane_kv), launches, stats = asyncio.run(serve())
     log(f"{label}: stats of the measured run: {stats}")
-    need_k1, need_k2 = stats["decode_steps"] * n_blocks, stats["mixed_steps"] * n_blocks
-    log(f"{label}: launches on the main path: K1 {launches['K1']} (>= {need_k1}), K2 {launches['K2']} (>= {need_k2})")
+    # the attention kernels of this pool's storage: K1/K2 on a bf16 pool, K3's
+    # arms of the kind on a quantized one, and no launch of the other storage's
+    need_dec, need_pf = stats["decode_steps"] * n_blocks, stats["mixed_steps"] * n_blocks
+    if kv_quant_type == "none":
+        names, att_dec, att_pf = ("K1", "K2"), launches["K1"], launches["K2"]
+    else:
+        names = (f"K3 {kv_quant_type} decode", f"K3 {kv_quant_type} prefill")
+        att_dec, att_pf = launches["K3 decode"][kv_quant_type], launches["K3 prefill"][kv_quant_type]
+    other = launches["K1"] + launches["K2"] + sum(launches["K3 decode"].values()) + sum(
+        launches["K3 prefill"].values()) - att_dec - att_pf
+    log(f"{label}: launches on the main path: {names[0]} {att_dec} (>= {need_dec}), {names[1]} {att_pf} "
+        f"(>= {need_pf}); K1 {launches['K1']}, K2 {launches['K2']}, K3 decode {launches['K3 decode']}, "
+        f"K3 prefill {launches['K3 prefill']}")
     need_mixed = sum(-(-n // server.batcher.prefill_token_budget) for n in prompts)
-    if stats["mixed_steps"] < need_mixed or launches["K1"] < need_k1 or launches["K2"] < need_k2 or not (
-        launches["K1"] and launches["K2"]
-    ):
-        raise AssertionError(f"{label}: the main path did not run both kernels on every block of every step")
+    if stats["mixed_steps"] < need_mixed or att_dec < need_dec or att_pf < need_pf or not (att_dec and att_pf):
+        raise AssertionError(f"{label}: the main path did not run both attention kernels on every block of every step")
+    if other:
+        raise AssertionError(f"{label}: {other} attention launches of another pool storage's kernels")
     if quant_type != "none":
         # 4 quantized projections a block (wqkv, wo, wgu, wd); every step
         # (batched_steps) runs the lanes' decode rows, a mixed step also its
@@ -736,8 +900,9 @@ def serve_and_check(ckpt, device, quant_type, n_blocks, prompts, n_steps, seed, 
     for (prompt, steps), got, kv, n in zip(inputs, replies, lane_kv, prompts):
         args = (server.family, server.cfg, prompt, steps, device)
         failed += check_session(
-            got, kv, reference_session(params_bf16, *args, torch.bfloat16),
-            reference_session(params_f32, *args, torch.float32), f"{label}: session with a {n}-token prompt",
+            got, kv, reference_session(params_bf16, *args, torch.bfloat16, kv_quant_type),
+            reference_session(params_f32, *args, torch.float32, kv_quant_type),
+            f"{label}: session with a {n}-token prompt", kv_quant_type,
         )
     if failed:
         raise AssertionError("; ".join(failed))
@@ -770,7 +935,10 @@ def main() -> int:
     t_start = time.perf_counter()
     build()
     timer = Timer(device)
-    kernels = check_kernels(device, timer)
+    dec_case, pf_case = attention_cases(device)
+    kernels = check_attention_kernels(device, timer, dec_case, pf_case)
+    kv_kernels = [e for kind in KV_QUANT_KINDS for e in check_attention_kernels(device, timer, dec_case, pf_case, kind)]
+    del dec_case, pf_case
     quant_kernels = check_quant_kernels(device, timer)
     log(f"kernel phases done at {time.perf_counter() - t_start:.1f} s")
 
@@ -789,6 +957,13 @@ def main() -> int:
         profile_steps(server.backend, device)
         del server
         free_card()
+        # the bf16-weight span again, its KV pool quantized to nf4a
+        server, kv_nf4a_launches = serve_and_check(
+            ckpt, device, "none", SPAN, PROMPTS, DECODE_STEPS, SEED + 4, WARMUP_PROMPTS, "nf4a",
+        )
+        profile_steps(server.backend, device)
+        del server
+        free_card()
         log(f"main paths done at {time.perf_counter() - t_start:.1f} s")
 
         # every other arm, and K6, on the served path: 2 blocks, one session each
@@ -800,14 +975,27 @@ def main() -> int:
             del server
             free_card()
             arm_launches.setdefault(kind, launches)
+        # K3's int8 arms, and the operator's combined setting
+        kv_arm_launches = {"nf4a": kv_nf4a_launches}
+        for quant_type, kv_quant_type in SHORT_KV_RUNS:
+            server, launches = serve_and_check(
+                ckpt, device, quant_type, SHORT_SPAN, (SHORT_PROMPT,), SHORT_STEPS, SEED + 8, None, kv_quant_type,
+            )
+            del server
+            free_card()
+            kv_arm_launches.setdefault(kv_quant_type, launches)
     kernels[0]["launches"] = bf16_launches["K1"]
     kernels[1]["launches"] = bf16_launches["K2"]
+    for entry in kv_kernels:
+        kind = entry["name"].split("[kv_")[1].rstrip("]")
+        phase = "K3 decode" if entry["name"].startswith("paged_decode") else "K3 prefill"
+        entry["launches"] = kv_arm_launches[kind][phase][kind]
     for entry in quant_kernels:
         phase = "decode" if entry["name"].startswith("quant_decode") else "prefill"
         arm = entry["name"].split("[")[1].rstrip("]")
         entry["launches"] = arm_launches[arm][phase][arm]
     log(f"done at {time.perf_counter() - t_start:.1f} s")
-    log(json.dumps({"kernels": kernels + quant_kernels}))
+    log(json.dumps({"kernels": kernels + kv_kernels + quant_kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),
     }}))

@@ -2,9 +2,11 @@
 
     python -m petals_tpu_torch.cli.run_server <checkpoint dir> --first_block 0 --num_blocks 8
 
-The defaults are petals_tpu's: bf16, ``--quant_type none``, ``--page_size 64``,
-``--prefill_token_budget 512``, an 8192-token KV budget. The span is
-required: there is no DHT to place it by.
+The defaults are petals_tpu's: bf16, ``--quant_type none``,
+``--kv_quant_type none``, ``--page_size 64``, ``--prefill_token_budget 512``,
+an 8192-token KV budget (in floating-point bytes, whatever the pool's
+encoding, as petals_tpu converts it). The span is required: there is no DHT
+to place it by.
 """
 
 from __future__ import annotations
@@ -38,6 +40,10 @@ def build_parser() -> argparse.ArgumentParser:
                         help="Weight quantization: int8 (per-channel), nf4 / nf4a / int4 (blockwise "
                              "4-bit; nf4a is the 4-bit serving default), +o = keep in/64 outlier "
                              "input channels dense")
+    parser.add_argument("--kv_quant_type", default="none", choices=["none", "int8", "nf4a"],
+                        help="Quantize the paged KV pool in place: int8 (per-row absmax) or packed "
+                             "nf4a; the same cache budget then holds about 2x or 4x the pages, and "
+                             "attention decodes the pages inside its kernels")
     parser.add_argument("--attn_cache_tokens", type=int, default=8192,
                         help="KV-cache budget in tokens (converted to bytes for the allocator)")
     parser.add_argument("--max_chunk_size_bytes", type=int, default=256 * 1024 * 1024,
@@ -67,7 +73,7 @@ def build_parser() -> argparse.ArgumentParser:
 
 def attn_cache_bytes_for(args: argparse.Namespace) -> int:
     """``--attn_cache_tokens`` in bytes for the span, as petals_tpu's CLI
-    converts it."""
+    converts it: floating-point bytes, whatever ``--kv_quant_type``."""
     _, cfg = get_block_config(args.model)
     return (
         2 * args.attn_cache_tokens * cfg.num_key_value_heads * cfg.head_dim
@@ -98,6 +104,7 @@ def build_server(args: argparse.Namespace) -> Server:
         n_pages=args.n_pages,
         prefill_token_budget=args.prefill_token_budget,
         quant_type=args.quant_type,
+        kv_quant_type=args.kv_quant_type,
     )
 
 

@@ -3,13 +3,17 @@
 ``PagedKV`` to.
 
 Each wrapper takes the same arguments as its plain PyTorch version in
-ops/paged_attention.py. Tensors on the CPU go to the plain version; tensors on
-a CUDA device launch the kernel or raise. There is no fallback from one to the
-other. Each wrapper counts its kernel launches in ``<wrapper>.launches`` (a
-plain int), so a run can show that its main path went through the kernels.
+ops/paged_attention.py, a floating-point pool or a quantized ``PagedPool``
+for k and v. Tensors on the CPU go to the plain version; tensors on a CUDA
+device launch the kernel or raise. There is no fallback from one to the
+other. Each wrapper counts its kernel launches, so a run can show that its
+main path went through the kernels: ``<wrapper>.launches`` (a plain int)
+counts the floating-point arm (K1, K2), ``<wrapper>.kv_quant_launches[kind]``
+the quantized arm of each kind (K3).
 
 The kernels replace ``_decode_kernel`` and ``_prefill_kernel`` of
-petals_tpu/ops/paged_flash_attention.py; the source says what bounds them and
+petals_tpu/ops/paged_flash_attention.py, with their quantized arms
+(``_quant_k_scores``, ``_quant_pv``); the source says what bounds them and
 how their design answers that.
 """
 
@@ -20,9 +24,11 @@ from typing import Optional
 
 import torch
 
-from petals_tpu_torch.ops.paged_attention import paged_attend, paged_prefill_attend
+from petals_tpu_torch.ops.paged_attention import PagedPool, kv_quant_kind_of, paged_attend, paged_prefill_attend
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+_KV_CODES = {"int8": 1, "nf4a": 2}  # 0: a floating-point pool
+_CODES_DTYPES = {"int8": torch.int8, "nf4a": torch.uint8}
 _HEAD_DIMS = (64, 128)
 _MAX_GROUP = 16
 _MAX_PAGE_SIZE = 128
@@ -37,9 +43,9 @@ def kernel_library() -> ctypes.CDLL:
 
         lib = load("paged_attention")
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.ptt_paged_decode_attention.argtypes = [p] * 7 + [i] * 9 + [f, p]
+        lib.ptt_paged_decode_attention.argtypes = [p] * 9 + [i] * 10 + [f, p]
         lib.ptt_paged_decode_attention.restype = i
-        lib.ptt_paged_prefill_attention.argtypes = [p] * 6 + [i] * 11 + [f, p]
+        lib.ptt_paged_prefill_attention.argtypes = [p] * 8 + [i] * 12 + [f, p]
         lib.ptt_paged_prefill_attention.restype = i
         lib.ptt_error_string.argtypes = [i]
         lib.ptt_error_string.restype = ctypes.c_char_p
@@ -47,10 +53,19 @@ def kernel_library() -> ctypes.CDLL:
     return _LIB
 
 
-def _on_cpu(*tensors) -> bool:
+def _tensors(*args):
+    """The tensors of ``args``, a PagedPool's codes and scales included."""
+    for a in args:
+        if isinstance(a, PagedPool):
+            yield from a
+        elif a is not None:
+            yield a
+
+
+def _on_cpu(*args) -> bool:
     """True when every tensor lies on the CPU (the plain version's case);
     False when all lie on one CUDA device; raises on anything else."""
-    devices = {t.device for t in tensors if t is not None}
+    devices = {t.device for t in _tensors(*args)}
     if all(d.type == "cpu" for d in devices):
         return True
     if len(devices) != 1 or next(iter(devices)).type != "cuda":
@@ -67,17 +82,46 @@ def _check(name: str, t: torch.Tensor, dtype, ndim: int) -> None:
         raise ValueError(f"{name} must be contiguous")
 
 
+def _check_pools(q, k_pool, v_pool):
+    """Check the pools against q; returns the kernel's storage code and its
+    four pool pointers (k, v, k_scales, v_scales)."""
+    if isinstance(k_pool, PagedPool) != isinstance(v_pool, PagedPool):
+        raise TypeError("k and v pools must both be quantized or both be floating point")
+    if not isinstance(k_pool, PagedPool):
+        _check("k_pool", k_pool, q.dtype, 4)
+        _check("v_pool", v_pool, q.dtype, 4)
+        if k_pool.shape != v_pool.shape:
+            raise ValueError(f"k/v pools differ: {tuple(k_pool.shape)} vs {tuple(v_pool.shape)}")
+        stored = (k_pool, v_pool)
+        kv_code, ptrs = 0, (k_pool.data_ptr(), v_pool.data_ptr(), None, None)
+    else:
+        kind = k_pool.kind
+        if v_pool.kind != kind:
+            raise TypeError(f"k pool is {kind}, v pool is {v_pool.kind}")
+        for name, pool in (("k_pool", k_pool), ("v_pool", v_pool)):
+            _check(f"{name}.codes", pool.codes, _CODES_DTYPES[kind], 4)
+            _check(f"{name}.scales", pool.scales, torch.float32, 3)
+            if pool.scales.shape != pool.codes.shape[:3]:
+                raise ValueError(
+                    f"{name}: scales {tuple(pool.scales.shape)} do not match codes {tuple(pool.codes.shape)}"
+                )
+        if k_pool.codes.shape != v_pool.codes.shape:
+            raise ValueError(f"k/v pools differ: {tuple(k_pool.codes.shape)} vs {tuple(v_pool.codes.shape)}")
+        stored = (k_pool.codes, v_pool.codes)
+        kv_code = _KV_CODES[kind]
+        ptrs = (k_pool.codes.data_ptr(), v_pool.codes.data_ptr(),
+                k_pool.scales.data_ptr(), v_pool.scales.data_ptr())
+    if any(t.data_ptr() % 16 for t in stored):
+        raise ValueError("the k and v pools (codes) must be 16-byte aligned: pages are copied 16 bytes at a time")
+    return kv_code, ptrs
+
+
 def _check_common(q, k_pool, v_pool, alibi_slopes, sliding_window):
     if q.dtype not in _DTYPE_CODES:
         raise TypeError(f"paged attention kernels take float32 or bfloat16, got {q.dtype}")
     _check("q", q, q.dtype, 4)
-    _check("k_pool", k_pool, q.dtype, 4)
-    _check("v_pool", v_pool, q.dtype, 4)
-    if k_pool.shape != v_pool.shape:
-        raise ValueError(f"k/v pools differ: {tuple(k_pool.shape)} vs {tuple(v_pool.shape)}")
-    if k_pool.data_ptr() % 16 or v_pool.data_ptr() % 16:
-        raise ValueError("k_pool and v_pool must be 16-byte aligned: pages are copied 16 bytes at a time")
-    n_pages, page_size, hkv, d = k_pool.shape
+    kv_code, ptrs = _check_pools(q, k_pool, v_pool)
+    n_pages, page_size, hkv, d = k_pool.shape  # a PagedPool answers its logical shape
     hq = q.shape[2]
     if q.shape[3] != d or d not in _HEAD_DIMS:
         raise ValueError(f"head_dim must match the pool and be one of {_HEAD_DIMS}, got {q.shape[3]}/{d}")
@@ -92,7 +136,22 @@ def _check_common(q, k_pool, v_pool, alibi_slopes, sliding_window):
             raise ValueError(f"alibi_slopes must be [{hq}], got {tuple(alibi_slopes.shape)}")
     if sliding_window is not None and int(sliding_window) < 1:
         raise ValueError(f"sliding_window must be >= 1 or None, got {sliding_window}")
-    return n_pages, page_size, hkv, d
+    return (n_pages, page_size, hkv, d), kv_code, ptrs
+
+
+def _count(wrapper, k_pool) -> None:
+    kind = kv_quant_kind_of(k_pool)
+    if kind == "none":
+        wrapper.launches += 1
+    else:
+        wrapper.kv_quant_launches[kind] += 1
+
+
+def reset_launch_counts() -> None:
+    """Zero every paged-attention launch counter (K1, K2 and K3's arms)."""
+    for wrapper in (paged_flash_attend, paged_flash_prefill_attend):
+        wrapper.launches = 0
+        wrapper.kv_quant_launches = dict.fromkeys(_KV_CODES, 0)
 
 
 def _raise_on(err: int, what: str) -> None:
@@ -103,8 +162,8 @@ def _raise_on(err: int, what: str) -> None:
 
 def paged_flash_attend(
     q: torch.Tensor,
-    k_pool: torch.Tensor,
-    v_pool: torch.Tensor,
+    k_pool,
+    v_pool,
     tables: torch.Tensor,
     positions: torch.Tensor,
     *,
@@ -113,14 +172,15 @@ def paged_flash_attend(
     scale: Optional[float] = None,
 ) -> torch.Tensor:
     """Ragged paged DECODE attention: the contract of ``paged_attend``. q
-    [n_lanes, 1, hq, d]; pools [n_pages, page_size, hkv, d]; tables [n_lanes,
-    max_pages] int32 (-1 = hole); positions [n_lanes] int32."""
+    [n_lanes, 1, hq, d]; pools [n_pages, page_size, hkv, d] (q's dtype) or
+    ``PagedPool``s of that logical shape; tables [n_lanes, max_pages] int32
+    (-1 = hole); positions [n_lanes] int32."""
     if _on_cpu(q, k_pool, v_pool, tables, positions, alibi_slopes):
         return paged_attend(
             q, k_pool, v_pool, tables, positions,
             alibi_slopes=alibi_slopes, sliding_window=sliding_window, scale=scale,
         )
-    n_pages, page_size, hkv, d = _check_common(q, k_pool, v_pool, alibi_slopes, sliding_window)
+    (n_pages, page_size, hkv, d), kv_code, ptrs = _check_common(q, k_pool, v_pool, alibi_slopes, sliding_window)
     n_lanes, q_len, hq, _ = q.shape
     if q_len != 1:
         raise ValueError(f"the decode kernel takes one token per lane, got q_len={q_len}")
@@ -137,25 +197,22 @@ def paged_flash_attend(
     lib = kernel_library()
     with torch.cuda.device(q.device):
         err = lib.ptt_paged_decode_attention(
-            q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), tables.data_ptr(),
+            q.data_ptr(), *ptrs, tables.data_ptr(),
             positions.data_ptr(), alibi_slopes.data_ptr() if alibi_slopes is not None else None,
-            out.data_ptr(), _DTYPE_CODES[q.dtype], n_lanes, hq, hkv, d, n_pages, page_size,
+            out.data_ptr(), _DTYPE_CODES[q.dtype], kv_code, n_lanes, hq, hkv, d, n_pages, page_size,
             tables.shape[1], int(sliding_window or 0),
             d**-0.5 if scale is None else float(scale),
             torch.cuda.current_stream(q.device).cuda_stream,
         )
     _raise_on(err, "paged decode")
-    paged_flash_attend.launches += 1
+    _count(paged_flash_attend, k_pool)
     return out
-
-
-paged_flash_attend.launches = 0
 
 
 def paged_flash_prefill_attend(
     q: torch.Tensor,
-    k_pool: torch.Tensor,
-    v_pool: torch.Tensor,
+    k_pool,
+    v_pool,
     table_row: torch.Tensor,
     chunk_pos: int,
     n_valid: int,
@@ -166,14 +223,14 @@ def paged_flash_prefill_attend(
 ) -> torch.Tensor:
     """Ragged paged CHUNKED-PREFILL attention: the contract of
     ``paged_prefill_attend``. q [1, chunk, hq, d]; table_row [max_pages]
-    int32; ``chunk_pos`` and ``n_valid`` are host integers. The chunk's KV
-    must already be in the pages."""
+    int32; ``chunk_pos`` and ``n_valid`` are host integers; pools as for
+    ``paged_flash_attend``. The chunk's KV must already be in the pages."""
     if _on_cpu(q, k_pool, v_pool, table_row, alibi_slopes):
         return paged_prefill_attend(
             q, k_pool, v_pool, table_row, chunk_pos, n_valid,
             alibi_slopes=alibi_slopes, sliding_window=sliding_window, scale=scale,
         )
-    n_pages, page_size, hkv, d = _check_common(q, k_pool, v_pool, alibi_slopes, sliding_window)
+    (n_pages, page_size, hkv, d), kv_code, ptrs = _check_common(q, k_pool, v_pool, alibi_slopes, sliding_window)
     batch, q_len, hq, _ = q.shape
     if batch != 1:
         raise ValueError(f"the prefill kernel serves one lane's chunk, got batch={batch}")
@@ -187,19 +244,19 @@ def paged_flash_prefill_attend(
     lib = kernel_library()
     with torch.cuda.device(q.device):
         err = lib.ptt_paged_prefill_attention(
-            q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), table_row.data_ptr(),
+            q.data_ptr(), *ptrs, table_row.data_ptr(),
             alibi_slopes.data_ptr() if alibi_slopes is not None else None, out.data_ptr(),
-            _DTYPE_CODES[q.dtype], q_len, hq, hkv, d, n_pages, page_size, table_row.shape[0],
+            _DTYPE_CODES[q.dtype], kv_code, q_len, hq, hkv, d, n_pages, page_size, table_row.shape[0],
             chunk_pos, chunk_pos + n_valid, int(sliding_window or 0),
             d**-0.5 if scale is None else float(scale),
             torch.cuda.current_stream(q.device).cuda_stream,
         )
     _raise_on(err, "paged prefill")
-    paged_flash_prefill_attend.launches += 1
+    _count(paged_flash_prefill_attend, k_pool)
     return out
 
 
-paged_flash_prefill_attend.launches = 0
+reset_launch_counts()
 
 
 def paged_attend_dispatch(
@@ -214,9 +271,10 @@ def paged_attend_dispatch(
     scale: Optional[float] = None,
 ) -> torch.Tensor:
     """Route a PagedKV attention call (from ``attend``) to the decode or the
-    prefill wrapper. A [n_lanes] position tensor is the decode contract
-    (ragged kv_length = position + 1); a scalar position is one lane's
-    chunked-prefill chunk with ``kv_length - q_offset`` valid rows."""
+    prefill wrapper, its pools (plain or ``PagedPool``) passed as they are. A
+    [n_lanes] position tensor is the decode contract (ragged kv_length =
+    position + 1); a scalar position is one lane's chunked-prefill chunk
+    with ``kv_length - q_offset`` valid rows."""
     if isinstance(q_offset, torch.Tensor) and q_offset.dim() == 1:
         return paged_flash_attend(
             q, k_kv.pool, v_kv.pool, k_kv.tables, q_offset,

@@ -5,10 +5,12 @@ petals_tpu/server/backend.py).
 Where the JAX backend runs the span as one jitted ``lax.scan`` over stacked
 parameters and donated pools, this one is a Python loop over blocks that
 mutates the page pools IN PLACE. The pool layout stays [n_blocks, n_pages,
-page_size, hkv, d]; ``pool[i]`` is block i's contiguous page pool. Attention
-on a ``PagedKV`` goes to the CUDA paged-attention kernels for tensors on the
-card and to their plain versions for tensors on the CPU
-(ops/paged_flash_attention.py).
+page_size, hkv, d]; block i's page pool is ``pool_block(pool, i)``. With
+``kv_quant_type`` int8 or nf4a each side of the pool is a ``PagedPool`` of
+codes and float32 scales (ops/paged_attention.py): rows are encoded as they
+are written and decoded as attention reads them. Attention on a ``PagedKV``
+goes to the CUDA paged-attention kernels for tensors on the card and to
+their plain versions for tensors on the CPU (ops/paged_flash_attention.py).
 
 No jit means no shape buckets: a prefill chunk runs at its own length with
 ``n_valid`` equal to it, which gives the reply rows a padded bucket gives,
@@ -24,7 +26,12 @@ import numpy as np
 import torch
 
 from petals_tpu_torch.models.registry import ModelFamily
-from petals_tpu_torch.ops.paged_attention import PagedKV
+from petals_tpu_torch.ops.paged_attention import (
+    KV_QUANT_KINDS,
+    PagedKV,
+    kv_wire_bytes_per_token,
+    pool_block,
+)
 from petals_tpu_torch.ops.quant import OutlierQuantLinear, QuantizedLinear
 from petals_tpu_torch.server.memory_cache import TensorDescriptor
 
@@ -62,16 +69,23 @@ class TransformerBackend:
         compute_dtype: torch.dtype = torch.bfloat16,
         max_chunk_size_bytes: int = 256 * 1024 * 1024,
         quant_type: str = "none",
+        kv_quant_type: str = "none",
     ):
         """``params`` is a list of per-block dicts, or one dict whose leaves
         are stacked along a leading block axis (utils/convert.py
         stacked_from_numpy); the stacked form is viewed per block, a
-        quantized leaf piece by piece. Hidden states and the KV pool are
-        kept in ``compute_dtype``. ``quant_type`` records how the weights
-        were quantized (utils/convert_block.py QuantType)."""
+        quantized leaf piece by piece. Hidden states and a floating-point KV
+        pool are kept in ``compute_dtype``. ``quant_type`` records how the
+        weights were quantized (utils/convert_block.py QuantType);
+        ``kv_quant_type`` (none, int8, nf4a) how the KV pool stores rows."""
+        if kv_quant_type not in KV_QUANT_KINDS:
+            raise ValueError(f"kv_quant_type must be one of {KV_QUANT_KINDS}, got {kv_quant_type!r}")
+        if kv_quant_type == "nf4a" and cfg.head_dim % 2:
+            raise ValueError(f"nf4a KV packing needs an even head_dim, got {cfg.head_dim}")
         self.family = family
         self.cfg = cfg
         self.quant_type = quant_type
+        self.kv_quant_type = kv_quant_type
         if isinstance(params, dict):
             params = [{name: _block_view(t, i) for name, t in params.items()} for i in range(n_blocks)]
         if len(params) != n_blocks:
@@ -89,17 +103,36 @@ class TransformerBackend:
     # ------------------------------------------------------------- cache descriptors
 
     def paged_cache_descriptors(self, n_pages: int, page_size: int, start: int, end: int):
-        """(k, v) descriptors of the paged pool of blocks [start, end), each
-        [n, n_pages, page_size, hkv, d] in compute_dtype on the backend's device."""
-        shape = (end - start, n_pages, page_size, self.num_kv_heads, self.head_dim)
-        return (
-            TensorDescriptor(shape, self.compute_dtype, self.device),
-            TensorDescriptor(shape, self.compute_dtype, self.device),
-        )
+        """Descriptors of the paged pool of blocks [start, end) on the
+        backend's device. Unquantized: (k, v), each [n, n_pages, page_size,
+        hkv, d] in compute_dtype. Quantized: (k_codes, v_codes, k_scales,
+        v_scales), the codes int8 [..., d] or uint8 [..., d // 2] (two
+        split-half codes a byte, nf4a) and float32 scales [n, n_pages,
+        page_size, hkv]."""
+        n = end - start
+        shape = (n, n_pages, page_size, self.num_kv_heads, self.head_dim)
+        if self.kv_quant_type == "none":
+            return (
+                TensorDescriptor(shape, self.compute_dtype, self.device),
+                TensorDescriptor(shape, self.compute_dtype, self.device),
+            )
+        if self.kv_quant_type == "int8":
+            codes = TensorDescriptor(shape, torch.int8, self.device)
+        else:
+            codes = TensorDescriptor((*shape[:-1], self.head_dim // 2), torch.uint8, self.device)
+        scales = TensorDescriptor(shape[:-1], torch.float32, self.device)
+        return codes, codes, scales, scales
 
     def cache_bytes_per_token(self) -> int:
-        """KV bytes per token across the span."""
+        """LOGICAL (floating-point) KV bytes per token across the span."""
         return 2 * self.n_blocks * self.num_kv_heads * self.head_dim * self.compute_dtype.itemsize
+
+    def kv_bytes_per_token(self) -> int:
+        """STORED KV bytes per token across the span: what the paged pool
+        holds per token. Equals cache_bytes_per_token when unquantized."""
+        return 2 * self.n_blocks * kv_wire_bytes_per_token(
+            self.num_kv_heads, self.head_dim, self.kv_quant_type, self.compute_dtype.itemsize
+        )
 
     # ------------------------------------------------------------- steps
 
@@ -109,8 +142,8 @@ class TransformerBackend:
 
         Args:
           hidden: [n_lanes, 1, hidden] (idle lanes: any finite filler).
-          pool_kv: (k, v) page pools [n_blocks, n_pages, page_size, hkv, d],
-            updated IN PLACE.
+          pool_kv: (k, v) page pools [n_blocks, n_pages, page_size, hkv, d]
+            (tensors, or PagedPools of that logical shape), updated IN PLACE.
           positions: int32 [n_lanes]; idle sentinel = max_pages * page_size.
           tables: int32 [n_lanes, max_pages] block tables (-1 unallocated).
 
@@ -121,7 +154,7 @@ class TransformerBackend:
         positions = _as_tensor(positions, self.device, torch.int32)
         tables = _as_tensor(tables, self.device, torch.int32)
         for i, p_block in enumerate(self.block_params):
-            kv = (PagedKV(k_pool[i], tables), PagedKV(v_pool[i], tables))
+            kv = (PagedKV(pool_block(k_pool, i), tables), PagedKV(pool_block(v_pool, i), tables))
             h, _ = self.family.block_apply(p_block, h, kv, positions, self.cfg)
         return h, (k_pool, v_pool)
 
@@ -151,9 +184,10 @@ class TransformerBackend:
         table_row = tables[int(chunk_lane)][None].contiguous()
         seq = h_pf.shape[1]
         for i, p_block in enumerate(self.block_params):
-            kv = (PagedKV(k_pool[i], tables), PagedKV(v_pool[i], tables))
+            k_blk, v_blk = pool_block(k_pool, i), pool_block(v_pool, i)
+            kv = (PagedKV(k_blk, tables), PagedKV(v_blk, tables))
             h_dec, _ = self.family.block_apply(p_block, h_dec, kv, positions, self.cfg)
-            kv_pf = (PagedKV(k_pool[i], table_row), PagedKV(v_pool[i], table_row))
+            kv_pf = (PagedKV(k_blk, table_row), PagedKV(v_blk, table_row))
             h_pf, _ = self.family.block_apply(
                 p_block, h_pf, kv_pf, int(chunk_pos), self.cfg, n_valid=seq
             )

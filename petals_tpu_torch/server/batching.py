@@ -3,9 +3,11 @@ decode tokens, and one prefill chunk, into one step per tick (the paged part
 of petals_tpu/server/batching.py).
 
 - One shared page pool [n_blocks, n_pages, page_size, hkv, d] x2, budgeted
-  through MemoryCache once at open. Each session borrows a LANE for its
-  lifetime and addresses the pool through its block-table row; lanes grow
-  page by page (``prepare_write``), so admission costs one page.
+  through MemoryCache once at open (a quantized pool is 4 buffers, codes and
+  scales of each side, budgeted by their stored bytes). Each session
+  borrows a LANE for its lifetime and addresses the pool through its
+  block-table row; lanes grow page by page (``prepare_write``), so
+  admission costs one page.
 - Every step runs over all lanes. Idle lanes ride at the sentinel position
   ``max_length``: their KV writes drop and their outputs are never read.
 - A prefill is admitted with its whole page range allocated, then fed one
@@ -37,7 +39,7 @@ import numpy as np
 import torch
 
 from petals_tpu_torch.data_structures import SESSION_PRIORITY_NORMAL
-from petals_tpu_torch.ops.paged_attention import max_pages_for
+from petals_tpu_torch.ops.paged_attention import PagedPool, max_pages_for
 from petals_tpu_torch.server.memory_cache import AllocationFailed, MemoryCache, PageAllocator
 from petals_tpu_torch.server.task_queue import PRIORITY_INFERENCE, PriorityTaskQueue
 
@@ -182,8 +184,20 @@ class DecodeBatcher:
             self._handles = None
 
     def _buffers(self):
-        """The (k_pool, v_pool) pair every step consumes and mutates."""
-        return self.memory_cache.get_buffers(*self._handles)
+        """The (k_pool, v_pool) pair every step consumes and mutates. A
+        quantized pool rides as 4 buffers (codes x2, scales x2) and is
+        wrapped back into a pair of PagedPools here."""
+        bufs = self.memory_cache.get_buffers(*self._handles)
+        if len(bufs) == 4:
+            return PagedPool(bufs[0], bufs[2]), PagedPool(bufs[1], bufs[3])
+        return tuple(bufs)
+
+    def pool_info(self) -> dict:
+        """The pool's encoding and its stored bytes per token (rpc_info)."""
+        return {
+            "kv_quant": self.backend.kv_quant_type,
+            "kv_bytes_per_token": int(self.backend.kv_bytes_per_token()),
+        }
 
     # ------------------------------------------------------------------ lanes
 

@@ -94,8 +94,11 @@ class TransformerHandler:
             "dht_prefix": self.dht_prefix,
             "inference_max_length": self.inference_max_length,
             "quant_type": self.backend.quant_type,  # petals_tpu's ServerInfo.quant_type
+            "kv_quant": self.backend.kv_quant_type,
+            # a cached token costs its stored bytes (petals_tpu's
+            # ServerInfo.cache_tokens_left)
             "cache_tokens_available": max(
-                b.memory_cache.bytes_left // max(self.backend.cache_bytes_per_token(), 1), 0
+                b.memory_cache.bytes_left // max(self.backend.kv_bytes_per_token(), 1), 0
             ),
             "continuous_batching": {
                 "lanes": b.n_lanes,
@@ -103,6 +106,7 @@ class TransformerHandler:
                 "page_size": b.page_size,
                 "n_pages": b.n_pages,
                 "prefill_token_budget": b.prefill_token_budget,
+                **b.pool_info(),
                 **b.stats,
             },
         }

@@ -6,7 +6,9 @@ petals_tpu/server/memory_cache.py the paged pool uses).
   oversubscribed request queues (FIFO) until space frees or the timeout
   elapses (``AllocationFailed``).
 - ``get_buffers(*handles)`` gives the compute side its tensors, created as
-  zeros on the descriptor's device at first use. Buffers are mutated IN
+  zeros on the descriptor's device at first use. A descriptor is budgeted
+  by its real bytes, whatever its dtype: a quantized pool's int8/uint8 codes
+  and float32 scales cost what they store, and their zeros decode to zeros. Buffers are mutated IN
   PLACE by the steps (where the JAX package donates and stores a new buffer),
   so there is no ``update_cache``.
 - ``PageAllocator`` hands out page indices of one preallocated pool, with

@@ -4,6 +4,9 @@ checkpoint and answer ``ptu.inference`` / ``ptu.info`` on ``host:port``
 and throughput probing). ``quant_type`` serves the span with quantized
 weights: each block is loaded, fused and quantized on the device, one block
 at a time (the JAX server's disk cache of quantized blocks is not ported).
+``kv_quant_type`` (int8, nf4a) keeps the paged KV pool quantized, which
+fits more lanes in the same cache budget; it combines with every
+``quant_type``.
 
 Runs on the CUDA card unless the caller passes ``device="cpu"``; a missing
 card raises instead of drifting to the CPU.
@@ -19,6 +22,7 @@ from typing import Optional
 import torch
 
 from petals_tpu_torch.ops import paged_flash_attention, quant_matmul
+from petals_tpu_torch.ops.paged_attention import KV_QUANT_KINDS
 from petals_tpu_torch.rpc.serialization import CompressionType
 from petals_tpu_torch.rpc.server import RpcServer
 from petals_tpu_torch.server.backend import TransformerBackend
@@ -68,9 +72,13 @@ class Server:
         n_pages: Optional[int] = None,
         prefill_token_budget: int = 512,
         quant_type: str = "none",  # "none" | "int8" | "nf4" | "nf4a" | "int4" | "nf4a+o" | "int4+o"
+        kv_quant_type: str = "none",  # "none" | "int8" | "nf4a"
     ):
+        if kv_quant_type not in KV_QUANT_KINDS:
+            raise ValueError(f"kv_quant_type must be one of {KV_QUANT_KINDS}, got {kv_quant_type!r}")
         self.device = resolve_device(device)
         self.quant_type = QuantType(quant_type).value
+        self.kv_quant_type = kv_quant_type
         self.model_path = model_path
         self.family, self.cfg = get_block_config(model_path)
         total = self.cfg.num_hidden_layers
@@ -109,12 +117,14 @@ class Server:
             first_block=first_block, n_blocks=num_blocks,
             device=self.device, compute_dtype=compute_dtype,
             max_chunk_size_bytes=max_chunk_size_bytes, quant_type=self.quant_type,
+            kv_quant_type=kv_quant_type,
         )
         batch_max_length = batch_max_length or min(inference_max_length, 1024)
         if batch_lanes is None:
             # lanes cost their full length in pages: cap the pool at half the
-            # cache budget, as petals_tpu does
-            lane_bytes = self.backend.cache_bytes_per_token() * batch_max_length
+            # cache budget, as petals_tpu does; a quantized pool's pages cost
+            # their stored bytes
+            lane_bytes = self.backend.kv_bytes_per_token() * batch_max_length
             batch_lanes = min(8, int(self.memory_cache.max_size_bytes // 2 // max(lane_bytes, 1)))
         if batch_lanes < 1:
             raise ValueError(
@@ -148,7 +158,8 @@ class Server:
         await self.rpc_server.start()
         logger.info(
             f"Serving blocks [{self.first_block}, {self.first_block + self.num_blocks}) of "
-            f"{self.model_path} on {self.host}:{self.rpc_server.port} ({self.device}, quant={self.quant_type})"
+            f"{self.model_path} on {self.host}:{self.rpc_server.port} ({self.device}, quant={self.quant_type}, "
+            f"kv_quant={self.kv_quant_type})"
         )
 
     async def shutdown(self) -> None:

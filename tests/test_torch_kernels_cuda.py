@@ -9,7 +9,10 @@ Tolerance: in float32 the kernels agree with the plain versions to 2e-5
 (online softmax sums in another order); in bf16 the inputs are the same bf16
 values, the plain version computes in float32, and the kernel accumulates in
 float32 and rounds its output once to bf16: 2e-2 (half a bf16 ulp at
-|out| < 4 is 2**-7, plus summation order)."""
+|out| < 4 is 2**-7, plus summation order). On a quantized pool (K3) 2e-2 for
+both query types: the plain version decodes the pool to bf16 values, the
+kernel decodes the same codes to float32 registers, so every K and V value
+may differ by half a bf16 ulp (tests/test_kv_quant.py uses the same bound)."""
 
 import numpy as np
 import pytest
@@ -18,7 +21,7 @@ import torch
 from petals_tpu_torch.ops import paged_flash_attention as pfa
 from petals_tpu_torch.ops import quant_matmul as qmm
 from petals_tpu_torch.ops.quant import dequantize, quantize
-from petals_tpu_torch.ops.paged_attention import paged_attend, paged_prefill_attend
+from petals_tpu_torch.ops.paged_attention import PagedPool, paged_attend, paged_prefill_attend, quantize_kv_rows
 
 pytestmark = pytest.mark.cuda
 
@@ -122,6 +125,96 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(cuda_device):
         pfa.paged_flash_attend(q, pool, pool, tables, pos)
     with pytest.raises(ValueError):  # a CUDA tensor never falls back to the CPU version
         pfa.paged_flash_attend(q.float().cpu(), pool.float(), pool.float(), tables, pos)
+
+
+KV_QUANT_TOL = 2e-2
+
+
+def _quant_pools(device, kind, n_pages, ps, hkv, d, seed):
+    """A (k, v) pair of quantized pools, encoded on the card from seeded
+    float32 rows."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    return tuple(
+        PagedPool(*quantize_kv_rows(torch.randn(n_pages, ps, hkv, d, generator=gen, device=device), kind))
+        for _ in range(2)
+    )
+
+
+@pytest.mark.parametrize("kind", ["int8", "nf4a"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("window", [None, 40])
+@pytest.mark.parametrize("group,d,ps", [(4, 128, 64), (1, 64, 64), (16, 128, 128), (4, 128, 16), (8, 64, 128)])
+def test_quantized_decode_kernel_matches_plain(cuda_device, kind, dtype, window, group, d, ps):
+    rng = np.random.default_rng(12)
+    n_lanes, hkv = 5, 2
+    max_pages = 384 // ps
+    n_pages = n_lanes * max_pages + 10
+    kp, vp = _quant_pools(cuda_device, kind, n_pages, ps, hkv, d, seed=13)
+    q = rng.standard_normal((n_lanes, 1, hkv * group, d)).astype(np.float32)
+    pos = np.array([0, 63, 64, 200, max_pages * ps], np.int32)  # the last lane idles at the sentinel
+    used = [min(max_pages, -(-int(p + 1) // ps)) for p in pos]
+    tables = _holey_permuted(rng, n_lanes, max_pages, n_pages, used)
+    slopes = (rng.standard_normal(hkv * group) * 0.1).astype(np.float32)
+    (q,) = _on(cuda_device, dtype, q)
+    tables, positions = _on(cuda_device, torch.int32, tables, pos)
+    for alibi in (None, torch.from_numpy(slopes).to(cuda_device)):
+        before, before_fp = dict(pfa.paged_flash_attend.kv_quant_launches), pfa.paged_flash_attend.launches
+        got = pfa.paged_flash_attend(q, kp, vp, tables, positions, alibi_slopes=alibi, sliding_window=window)
+        torch.cuda.synchronize()
+        assert pfa.paged_flash_attend.kv_quant_launches[kind] == before[kind] + 1
+        assert pfa.paged_flash_attend.launches == before_fp  # never the floating-point arm
+        assert got.dtype == dtype and torch.isfinite(got).all()
+        want = paged_attend(q.float(), kp, vp, tables, positions, alibi_slopes=alibi, sliding_window=window)
+        err = (got.float() - want)[:4].abs().max().item()
+        assert err <= KV_QUANT_TOL, err
+
+
+@pytest.mark.parametrize("kind", ["int8", "nf4a"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("ps,d", [(16, 128), (64, 128), (128, 128), (64, 64)])
+@pytest.mark.parametrize("chunk_pos,n_valid,window", [(0, 130, None), (64, 100, None), (70, 90, 50), (0, 0, None)])
+def test_quantized_prefill_kernel_matches_plain(cuda_device, kind, dtype, ps, d, chunk_pos, n_valid, window):
+    rng = np.random.default_rng(14)
+    hkv, group, chunk = 2, 4, 130
+    max_pages = 320 // ps
+    n_pages = 2 * max_pages + 4
+    kp, vp = _quant_pools(cuda_device, kind, n_pages, ps, hkv, d, seed=15)
+    q = rng.standard_normal((1, chunk, hkv * group, d)).astype(np.float32)
+    used = max(1, -(-(chunk_pos + n_valid) // ps))
+    tables = _holey_permuted(rng, 3, max_pages + 1, n_pages, [0, used, 0])
+    slopes = torch.from_numpy((rng.standard_normal(hkv * group) * 0.1).astype(np.float32)).to(cuda_device)
+    (q,) = _on(cuda_device, dtype, q)
+    (tables,) = _on(cuda_device, torch.int32, tables)
+    row = tables[1]
+    before, before_fp = dict(pfa.paged_flash_prefill_attend.kv_quant_launches), pfa.paged_flash_prefill_attend.launches
+    got = pfa.paged_flash_prefill_attend(q, kp, vp, row, chunk_pos, n_valid, alibi_slopes=slopes, sliding_window=window)
+    torch.cuda.synchronize()
+    assert pfa.paged_flash_prefill_attend.kv_quant_launches[kind] == before[kind] + 1
+    assert pfa.paged_flash_prefill_attend.launches == before_fp
+    want = paged_prefill_attend(q.float(), kp, vp, row, chunk_pos, n_valid, alibi_slopes=slopes, sliding_window=window)
+    assert got.dtype == dtype and torch.isfinite(got).all()
+    err = (got.float() - want)[:, :n_valid].abs().max().item() if n_valid else 0.0
+    assert err <= KV_QUANT_TOL, err
+    if n_valid == 0:
+        assert not got.any()
+
+
+def test_wrappers_refuse_bad_quantized_pools(cuda_device):
+    q = torch.zeros(2, 1, 8, 128, device=cuda_device, dtype=torch.bfloat16)
+    tables = torch.zeros(2, 2, dtype=torch.int32, device=cuda_device)
+    pos = torch.zeros(2, dtype=torch.int32, device=cuda_device)
+    k8, v8 = _quant_pools(cuda_device, "int8", 4, 64, 2, 128, seed=16)
+    k4, _ = _quant_pools(cuda_device, "nf4a", 4, 64, 2, 128, seed=17)
+    with pytest.raises(TypeError):  # one side int8, the other nf4a
+        pfa.paged_flash_attend(q, k8, k4, tables, pos)
+    with pytest.raises(TypeError):  # one side quantized, the other not
+        pfa.paged_flash_attend(q, k8, torch.zeros(4, 64, 2, 128, device=cuda_device, dtype=torch.bfloat16), tables, pos)
+    with pytest.raises(TypeError):  # float16 scales
+        pfa.paged_flash_attend(q, PagedPool(k8.codes, k8.scales.half()), v8, tables, pos)
+    with pytest.raises(ValueError):  # scales of another page size
+        pfa.paged_flash_attend(q, PagedPool(k8.codes, k8.scales[:, :32].contiguous()), v8, tables, pos)
+    with pytest.raises(ValueError):  # a CUDA pool never falls back to the CPU version
+        pfa.paged_flash_attend(q.cpu(), k8, v8, tables.cpu(), pos.cpu())
 
 
 QUANT_REL_TOL = 1e-2
