@@ -3,7 +3,7 @@
     python3 chip_smoke.py
 
 1. Build: compile every CUDA source of the port (csrc/paged_attention.cu,
-   csrc/quant_matmul.cu) with nvcc (sm_90a) into build/kernels/, one nvcc
+   csrc/quant_matmul.cu, csrc/flash_attention.cu) with nvcc (sm_90a) into build/kernels/, one nvcc
    each, all started together, and print each one's build seconds; print
    the card's name and power limit.
 2. Kernels: at Mistral-7B-v0.1 widths (32 query heads, 8 KV heads, head_dim
@@ -80,13 +80,39 @@
    The counters must show K3's arm of the kind on every block of every step
    and no launch of K1, K2 or the other kind in that run.
 
+9. Dense flash attention (K4), right after phase 2: at Mistral-7B widths,
+   bf16, on strided views of a span-stacked cache [blocks, batch, 2048, 8,
+   128] (a session's per-block cache, never copied): (a) 512 rows at offset
+   0, (b) the 188-row continuation at 512, (c) batch 2, 700 rows, window
+   200, (d) batch 2, 333 rows at offset 100 over a buffer of 1000 rows (no multiple
+   of 128 or of the kernel's tile). Against its plain version (float32
+   scores, probabilities rounded to bf16 for the PV product as the kernel
+   rounds them) within KERNEL_TOL, for the reason phase 2 states. Times:
+   the kernel, the plain version and the yardstick, one
+   scaled_dot_product_attention call with an explicit mask over the valid
+   part of the buffer (timed here, used nowhere in the port). The bound
+   counts q, the output and the K/V rows some query row sees, once per KV
+   head, and 4 * batch * hq * d operations per visible (q, kv) pair.
+10. Private sessions: the bf16 8-block span with the CLI's defaults; a
+   session of batch 2 and max_length 2048 (a 700-token prefill, a 300-token
+   step at 700, 16 decode steps) and a sub-span session (blocks 2..6, batch
+   1: a 300-token prefill, 4 decode steps). Replies are checked as in phase
+   3, and the private cache's K/V rows row by row against the reference's.
+   K4's counter must equal blocks x steps of 8 rows and more, and K1/K2
+   must read 0.
+11. The dense lane pool: the span with --page_size 0 (and a chunk bound of
+   512 tokens' activations, so the 700-token prompt's prefill runs as two
+   queue tasks) to phase 3's four sessions at 16 decode steps: replies
+   checked as in phase 3; K4 must have run on every block of every prefill
+   chunk and K1/K2 never.
+
 float32 matmuls run in full float32: TF32 is switched off for matmuls and
 convolutions. Exits non-zero on any failure. The last line is the JSON
 object ``{"ok": true, "device": {...}}``; the line before it lists the
 kernels with their times, bounds and main-path launch counts (K1/K2 from
 the bf16 run, K3's nf4a arms from the nf4a-pool run and its int8 arms from
 the short int8-pool run, K5's nf4a arm from the nf4a run, its nf4 and int4
-arms and K6 from their short runs). Every run prints its lanes, pages and
+arms and K6 from their short runs, K4 from the private sessions' run). Every run prints its lanes, pages and
 pool bytes.
 """
 
@@ -152,7 +178,16 @@ REPLY_BF16_MEAN_REL = 5e-2  # beyond this the bf16 network is too unstable to ju
 REPLY_KV_QUANT_MEAN_REL = 0.25
 WARMUP_PROMPTS = (64, 300)  # first-call costs (cuBLAS plans, page faults) off the clock
 
-KERNEL_SOURCES = ("paged_attention", "quant_matmul")
+KERNEL_SOURCES = ("paged_attention", "quant_matmul", "flash_attention")
+
+# private sessions (phase 10) and the dense pool (phase 11)
+PRIVATE_BATCH = 2
+PRIVATE_MAX_LENGTH = 2048
+PRIVATE_STEPS = (700, 300) + (1,) * 16  # tokens a step
+SUB_SPAN = (2, 6)
+SUB_SPAN_STEPS = (300,) + (1,) * 4
+DENSE_DECODE_STEPS = 16
+DENSE_CHUNK_TOKENS = 512  # the dense pool's chunk bound, in tokens of activations
 
 # K5/K6 at Mistral-7B's fused projections: gate+up [4096, 2 x 14336] and
 # down [14336, 4096], at a decode batch (8 rows) and a prefill chunk (512)
@@ -491,6 +526,75 @@ def check_quant_kernels(device, timer):
     return list(entries.values())
 
 
+def _visible_pairs(q_len, q_offset, kv_length, window) -> int:
+    return sum(_visible(q_offset + i, kv_length, window) for i in range(q_len))
+
+
+def check_flash_kernel(device, timer):
+    """K4 against its plain version at Mistral-7B widths, bf16, on strided
+    views of a span-stacked cache; returns its report entry (without the
+    main-path launch count), timed at the 512-row chunk."""
+    from petals_tpu_torch.ops import flash_attention as fa
+
+    gen = torch.Generator(device=device).manual_seed(SEED + 9)
+    hq, hkv, d, buf = 32, 8, 128, 2048
+    window = MISTRAL_7B["sliding_window"]
+    k_stack, v_stack = (torch.randn(2, 2, buf, hkv, d, generator=gen, device=device).to(torch.bfloat16) for _ in range(2))
+    cases = {
+        # name: (batch, q_len, q_offset, window, buffer rows)
+        "a: 512 rows at 0": (1, 512, 0, window, buf),
+        "b: 188 rows at 512": (1, 188, 512, window, buf),
+        "c: batch 2, 700 rows, window 200": (2, 700, 0, 200, buf),
+        "d: batch 2, 333 rows at 100, buffer of 1000": (2, 333, 100, window, 1000),
+    }
+    worst, timed = 0.0, {}
+    for name, (batch, q_len, q_offset, w, rows) in cases.items():
+        q = torch.randn(batch, q_len, hq, d, generator=gen, device=device).to(torch.bfloat16)
+        # block 1 of the stacked cache, its last `batch` rows, the first `rows` positions: views
+        k, v = (stack[1, 2 - batch :, :rows] for stack in (k_stack, v_stack))
+        if rows != buf and k.is_contiguous():
+            raise AssertionError("the sliced buffer was meant to be a strided view")
+        kv_length = q_offset + q_len
+        kw = dict(q_offset=q_offset, kv_length=kv_length, sliding_window=w)
+        before = fa.flash_attend.launches
+        got = fa.flash_attend(q, k, v, **kw)
+        torch.cuda.synchronize()
+        if fa.flash_attend.launches != before + 1:
+            raise AssertionError("K4's wrapper did not count its launch")
+        want = fa.flash_attend_reference(q.float(), k, v, **kw)
+        if got.shape != q.shape or not torch.isfinite(got).all():
+            raise AssertionError(f"K4 {name}: output {tuple(got.shape)} or non-finite")
+        err = (got.float() - want).abs().max().item()
+        log(f"K4 {name}: max abs err {err:.3e} (tol {KERNEL_TOL})")
+        if err > KERNEL_TOL:
+            raise AssertionError(f"K4 {name} disagrees with its plain version: {err} > {KERNEL_TOL}")
+        worst = max(worst, err)
+
+        def library(q=q, k=k, v=v, q_offset=q_offset, kv_length=kv_length, w=w):
+            kv_pos = torch.arange(kv_length, device=device)
+            q_pos = q_offset + torch.arange(q.shape[1], device=device)
+            mask = (kv_pos[None, :] <= q_pos[:, None]) & (kv_pos[None, :] > q_pos[:, None] - w)
+            return _sdpa(q.transpose(1, 2), k[:, :kv_length].transpose(1, 2), v[:, :kv_length].transpose(1, 2), mask)
+
+        lib_err = (library().transpose(1, 2).float() - want).abs().max().item()
+        first_seen = max(0, q_offset - w + 1)  # the first kv row any query row sees
+        nbytes = 2 * q.numel() * 2 + 2 * batch * (kv_length - first_seen) * hkv * d * 2
+        bound, by = bound_ms(nbytes, 4 * batch * hq * d * _visible_pairs(q_len, q_offset, kv_length, w))
+        timed[name] = {
+            "ms": timer(lambda: fa.flash_attend(q, k, v, **kw)),
+            "plain_ms": timer(lambda: fa.flash_attend_reference(q, k, v, **kw)),
+            "library_ms": timer(library), "bound_ms": bound, "bound_by": by,
+        }
+        t = timed[name]
+        log(f"K4 {name}: {t['ms']:.4f} ms kernel, {t['plain_ms']:.4f} ms plain, {t['library_ms']:.4f} ms SDPA with a "
+            f"mask (its err {lib_err:.3e}), bound {bound:.4f} ms ({by}, {nbytes / 1e6:.2f} MB)")
+    return {
+        "name": "flash_attention", "route": "cuda", "source": "petals_tpu_torch/csrc/flash_attention.cu",
+        "replaces": "petals_tpu/ops/flash_attention.py:104", "max_abs_err": worst,
+        "shape": "q [1, 512, 32, 128] at offset 0, cache view [1, 2048, 8, 128]", **timed["a: 512 rows at 0"],
+    }
+
+
 def write_checkpoint(path: str, device) -> None:
     """A Mistral-7B-v0.1-shaped checkpoint of SPAN blocks, one safetensors
     shard per block plus the index, random bf16 weights from SEED (HF
@@ -641,8 +745,9 @@ def reference_session(block_params, family, cfg, prompt, steps, device, dtype, k
     cache [1, length, hkv, d] per block, with plain attention, in ``dtype``;
     with a ``kv_quant`` kind, each row enters the cache as the quantized pool
     would hold it. Returns the replies and the K/V rows as computed (before
-    any quantization), (k, v) of [n_blocks, length, hkv, d]."""
-    shape = (1, prompt.shape[1] + len(steps), cfg.num_key_value_heads, cfg.head_dim)
+    any quantization), (k, v) of [n_blocks * batch, length, hkv, d]."""
+    length = prompt.shape[1] + sum(x.shape[1] for x in steps)
+    shape = (prompt.shape[0], length, cfg.num_key_value_heads, cfg.head_dim)
     caches = [
         (torch.zeros(shape, dtype=dtype, device=device), torch.zeros(shape, dtype=dtype, device=device))
         for _ in block_params
@@ -708,8 +813,8 @@ def check_session(got, kv, ref_bf16, ref_f32, label, kv_quant="none"):
     measured against the same network evaluated in float32 on the same
     inputs. Two bf16 evaluations with independent rounding differ by up to
     twice their error from float32. A quantized pool's rows are decoded and
-    may also differ by one quantization (_quant_row_error). Returns the list
-    of what failed."""
+    may also differ by one quantization (_quant_row_error). ``kv`` None
+    checks the replies only. Returns the list of what failed."""
     (out_bf16, kv_bf16), (out_f32, kv_f32) = ref_bf16, ref_f32
     srv_ref = _rel_errors(got, out_bf16)
     noise = _rel_errors(out_bf16, out_f32)
@@ -722,7 +827,7 @@ def check_session(got, kv, ref_bf16, ref_f32, label, kv_quant="none"):
         failed.append(f"{label}: the network itself is unstable in bf16 ({noise[1]:.3e})")
     if srv_ref[0] > REPLY_NOISE_FACTOR * noise[0] or srv_ref[1] > REPLY_NOISE_FACTOR * noise[1]:
         failed.append(f"{label}: replies disagree with the dense reference beyond bf16 rounding")
-    for name, srv, want, want_f32 in zip("KV", kv, kv_bf16, kv_f32):
+    for name, srv, want, want_f32 in zip("KV", kv or (), kv_bf16, kv_f32):
         if kv_quant != "none":
             ratio = _quant_row_error(srv, want, want_f32, kv_quant)
             log(f"{label}: written {name} rows, decoded, vs the bf16 reference's rows as computed: worst "
@@ -909,6 +1014,189 @@ def serve_and_check(ckpt, device, quant_type, n_blocks, prompts, n_steps, seed, 
     return server, launches
 
 
+def _launch_counts():
+    from petals_tpu_torch.ops import flash_attention as fa
+    from petals_tpu_torch.ops import paged_flash_attention as pfa
+
+    return {
+        "K4": fa.flash_attend.launches, "K1": pfa.paged_flash_attend.launches,
+        "K2": pfa.paged_flash_prefill_attend.launches,
+        "K3": sum(pfa.paged_flash_attend.kv_quant_launches.values())
+        + sum(pfa.paged_flash_prefill_attend.kv_quant_launches.values()),
+    }
+
+
+def _reset_launch_counts():
+    from petals_tpu_torch.ops import flash_attention as fa
+    from petals_tpu_torch.ops import paged_flash_attention as pfa
+    from petals_tpu_torch.ops import quant_matmul as qmm
+
+    fa.reset_launch_counts()
+    pfa.reset_launch_counts()
+    qmm.reset_launch_counts()
+
+
+def _private_kv(server, n_tokens):
+    """The K/V rows of the one open private session, read from its cache
+    [n_blocks, batch, max_length, hkv, d]: (k, v) of [n_blocks * batch,
+    n_tokens, hkv, d]."""
+    torch.cuda.synchronize()
+    cache = server.memory_cache
+    pool_handles = set(server.batcher._handles or ())
+    # the newest allocation: an earlier session's cache may not be freed yet
+    handles = sorted(h for h in cache._allocated if h not in pool_handles)[-2:]
+    if len(handles) != 2:
+        raise AssertionError(f"expected a private cache (2 buffers), found handles {handles}")
+    return tuple(buf[:, :, :n_tokens].flatten(0, 1).clone() for buf in cache.get_buffers(*handles))
+
+
+async def _drive_private(server, blocks, batch, max_length, step_lens, seed):
+    """One private session over blocks [blocks[0], blocks[1]) at ``batch``:
+    steps of ``step_lens`` tokens each. Returns the inputs, the replies, each
+    reply's step_meta and the cache's K/V rows read before the stream ends."""
+    from petals_tpu_torch.data_structures import CHAIN_DELIMITER, make_uid
+    from petals_tpu_torch.rpc import RpcClient
+    from petals_tpu_torch.rpc.serialization import deserialize_array, serialize_array
+
+    gen = torch.Generator().manual_seed(seed)
+    inputs = [torch.randn(batch, n, server.cfg.hidden_size, generator=gen).to(torch.bfloat16) for n in step_lens]
+    uids = CHAIN_DELIMITER.join(make_uid(server.dht_prefix, i) for i in range(*blocks))
+    client = await RpcClient.connect("127.0.0.1", server.rpc_server.port)
+    try:
+        stream = await client.open_stream("ptu.inference")
+        await stream.send({"uids": uids, "max_length": max_length, "batch_size": batch})
+        if not (await stream.recv(timeout=120))["session_open"]:
+            raise AssertionError("private session did not open")
+        outs, metas, position = [], [], 0
+        for h in inputs:
+            await stream.send({"tensors": {"hidden": serialize_array(h)}})
+            reply = await stream.recv(timeout=300)
+            position += h.shape[1]
+            if reply["position"] != position:
+                raise AssertionError(f"position {reply['position']}, expected {position}")
+            outs.append(deserialize_array(reply["tensors"]["hidden"]))
+            metas.append(reply["step_meta"])
+        kv = _private_kv(server, position)
+        await stream.end()
+    finally:
+        await client.close()
+    return inputs, outs, metas, kv
+
+
+def serve_private_and_check(ckpt, device):
+    """Phase 10: the bf16 span with the CLI's defaults serving a batch-2
+    session and a sub-span session from private caches. Returns the launch
+    counts of the two sessions together."""
+    from petals_tpu_torch.cli.run_server import build_parser, build_server
+
+    label = "private sessions (bf16, 8 blocks)"
+    server = build_server(build_parser().parse_args(
+        [ckpt, "--first_block", "0", "--num_blocks", str(SPAN), "--host", "127.0.0.1"]))
+    sessions = (
+        ("batch 2, whole span", (0, SPAN), PRIVATE_BATCH, PRIVATE_MAX_LENGTH, PRIVATE_STEPS),
+        (f"sub-span [{SUB_SPAN[0]}, {SUB_SPAN[1]}), batch 1", SUB_SPAN, 1, 1024, SUB_SPAN_STEPS),
+    )
+
+    async def serve():
+        await server.start()
+        try:
+            await _drive_private(server, (0, SPAN), PRIVATE_BATCH, 256, (64, 1, 1), SEED + 5)  # warm-up
+            results = []
+            for i, (_, blocks, batch, max_length, step_lens) in enumerate(sessions):
+                _reset_launch_counts()
+                result = await _drive_private(server, blocks, batch, max_length, step_lens, SEED + 10 + i)
+                results.append((result, _launch_counts()))
+            return results
+        finally:
+            await server.shutdown()
+
+    results = asyncio.run(serve())
+    failed, total = [], {}
+    for (name, blocks, batch, max_length, step_lens), ((inputs, outs, metas, kv), launches) in zip(sessions, results):
+        n_blocks = blocks[1] - blocks[0]
+        need = n_blocks * sum(1 for n in step_lens if n >= 8)
+        variants = sorted({m["variant"] for m in metas})
+        decode = [m["compute_s"] for m, n in zip(metas, step_lens) if n == 1]
+        log(f"{label}: {name}: steps of {step_lens[:2]}... tokens, max_length {max_length}, cache "
+            f"{2 * n_blocks * batch * max_length * 8 * 128 * 2 / 2**20:.1f} MiB; variants {variants}; launches {launches} "
+            f"(K4 must be {need}); prefill {metas[0]['compute_s'] * 1e3:.1f} ms for {batch} x {step_lens[0]} tokens, "
+            f"decode step {statistics.median(decode) * 1e3:.3f} ms (median, queue included)")
+        if variants != ["private"]:
+            raise AssertionError(f"{label}: {name}: steps took {variants}, not the private path")
+        if launches["K4"] != need or launches["K1"] or launches["K2"] or launches["K3"]:
+            raise AssertionError(f"{label}: {name}: launches {launches}, K4 must be {need} and the paged kernels 0")
+        for key, n in launches.items():
+            total[key] = total.get(key, 0) + n
+        params = [server.backend.block_params[i] for i in range(*blocks)]
+        args = (server.family, server.cfg, inputs[0], inputs[1:], device)
+        failed += check_session(
+            outs, kv, reference_session(dense_reference_params(params, torch.bfloat16), *args, torch.bfloat16),
+            reference_session(dense_reference_params(params, torch.float32), *args, torch.float32),
+            f"{label}: {name}",
+        )
+    if failed:
+        raise AssertionError("; ".join(failed))
+    return total
+
+
+def serve_dense_pool_and_check(ckpt, device):
+    """Phase 11: the bf16 span with --page_size 0 (the dense lane pool) to
+    phase 3's four sessions; replies against the dense references."""
+    from petals_tpu_torch.cli.run_server import build_parser, build_server
+
+    label = "dense pool (--page_size 0, bf16, 8 blocks)"
+    cfg = MISTRAL_7B
+    # chunk_plan's linear rule at batch 1: the activations of one token
+    per_token = 2 * (2 * cfg["hidden_size"] + cfg["intermediate_size"] + cfg["num_attention_heads"] * cfg["head_dim"])
+    server = build_server(build_parser().parse_args([
+        ckpt, "--first_block", "0", "--num_blocks", str(SPAN), "--host", "127.0.0.1", "--page_size", "0",
+        "--max_chunk_size_bytes", str(DENSE_CHUNK_TOKENS * per_token),
+    ]))
+    b = server.batcher
+    pool_bytes = sum(d.nbytes for d in server.backend.cache_descriptors(b.n_lanes, b.max_length, 0, SPAN))
+    log(f"{label}: {b.n_lanes} lanes x {b.max_length} tokens, page_size {b.page_size}, pool {pool_bytes / 2**20:.1f} MiB "
+        f"of a {server.memory_cache.max_size_bytes / 2**20:.1f} MiB budget")
+
+    async def serve():
+        await server.start()
+        try:
+            await drive_server(server, WARMUP_PROMPTS, 2, SEED + 5)
+            before = dict(b.stats)
+            _reset_launch_counts()
+            result = await drive_server(server, PROMPTS, DENSE_DECODE_STEPS, SEED + 4)
+            return result, _launch_counts(), {k: v - before[k] if not k.startswith("max") else v for k, v in b.stats.items()}
+        finally:
+            await server.shutdown()
+
+    (inputs, replies, metas, timing, _), launches, stats = asyncio.run(serve())
+    chunks = [server.backend.chunk_plan(1, n) for n in PROMPTS]
+    need = SPAN * sum(1 for plan in chunks for c in plan if c >= 8)
+    variants = sorted({m["variant"] for ms in metas for m in ms})
+    decode = [m["compute_s"] for ms in metas for m in ms[1:]]
+    log(f"{label}: stats of the measured run: {stats}; chunk plans {chunks}; variants {variants}; launches {launches} "
+        f"(K4 must be {need}); prefill {sum(PROMPTS) / timing['prefill_wall_s']:.1f} tokens/s over {sum(PROMPTS)} tokens; "
+        f"decode step {statistics.median(decode) * 1e3:.3f} ms (median batched-step compute), "
+        f"{timing['decode_round_trip_ms']:.3f} ms client round trip")
+    if variants != ["decode", "dense_prefill"]:
+        raise AssertionError(f"{label}: steps took {variants}")
+    if launches["K4"] != need or launches["K1"] or launches["K2"] or launches["K3"]:
+        raise AssertionError(f"{label}: launches {launches}, K4 must be {need} and the paged kernels 0")
+    if stats["exclusive_chunks"] != sum(len(p) for p in chunks if len(p) > 1) or not stats["batched_steps"]:
+        raise AssertionError(f"{label}: stats {stats} do not show the chunked prefill and the batched steps")
+    params_bf16 = dense_reference_params(server.backend.block_params, torch.bfloat16)
+    params_f32 = dense_reference_params(server.backend.block_params, torch.float32)
+    failed = []
+    for (prompt, steps), got, n in zip(inputs, replies, PROMPTS):
+        args = (server.family, server.cfg, prompt, steps, device)
+        failed += check_session(
+            got, None, reference_session(params_bf16, *args, torch.bfloat16),
+            reference_session(params_f32, *args, torch.float32), f"{label}: session with a {n}-token prompt",
+        )
+    if failed:
+        raise AssertionError("; ".join(failed))
+    return launches
+
+
 def free_card() -> None:
     """Free what a dropped server held on the card before the next one loads
     (its event-loop objects hold reference cycles, so collect them)."""
@@ -939,6 +1227,7 @@ def main() -> int:
     kernels = check_attention_kernels(device, timer, dec_case, pf_case)
     kv_kernels = [e for kind in KV_QUANT_KINDS for e in check_attention_kernels(device, timer, dec_case, pf_case, kind)]
     del dec_case, pf_case
+    flash_kernel = check_flash_kernel(device, timer)
     quant_kernels = check_quant_kernels(device, timer)
     log(f"kernel phases done at {time.perf_counter() - t_start:.1f} s")
 
@@ -984,6 +1273,14 @@ def main() -> int:
             del server
             free_card()
             kv_arm_launches.setdefault(kv_quant_type, launches)
+        log(f"earlier paths done at {time.perf_counter() - t_start:.1f} s")
+
+        # dense caches: private sessions, then the dense lane pool
+        private_launches = serve_private_and_check(ckpt, device)
+        free_card()
+        serve_dense_pool_and_check(ckpt, device)
+        free_card()
+    flash_kernel["launches"] = private_launches["K4"]
     kernels[0]["launches"] = bf16_launches["K1"]
     kernels[1]["launches"] = bf16_launches["K2"]
     for entry in kv_kernels:
@@ -995,7 +1292,7 @@ def main() -> int:
         arm = entry["name"].split("[")[1].rstrip("]")
         entry["launches"] = arm_launches[arm][phase][arm]
     log(f"done at {time.perf_counter() - t_start:.1f} s")
-    log(json.dumps({"kernels": kernels + kv_kernels + quant_kernels}))
+    log(json.dumps({"kernels": kernels + kv_kernels + [flash_kernel] + quant_kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),
     }}))

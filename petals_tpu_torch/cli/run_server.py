@@ -62,7 +62,8 @@ def build_parser() -> argparse.ArgumentParser:
                         help="Lane count (default: auto-size to the cache budget, <=8)")
     parser.add_argument("--batch_max_length", type=int, default=None,
                         help="Lane length in tokens (default: min(inference_max_length, 1024))")
-    parser.add_argument("--page_size", type=int, default=64, help="Paged KV cache: tokens per page")
+    parser.add_argument("--page_size", type=int, default=64,
+                        help="Paged KV cache: tokens per page; 0 selects the dense lane pool")
     parser.add_argument("--n_pages", type=int, default=None,
                         help="Paged KV pool size in pages (default: batch_lanes * pages-per-lane)")
     parser.add_argument("--prefill_token_budget", type=int, default=512,

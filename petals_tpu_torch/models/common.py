@@ -47,19 +47,20 @@ def update_kv_cache(kv, k_new: torch.Tensor, v_new: torch.Tensor, position, n_va
     """Write k_new/v_new ([b, s, hkv, d]) into the cache at ``position`` and
     return (k_all, v_all, kv_length) to attend over.
 
-    ``kv`` is a (k, v) pair of dense buffers [b, max_len, hkv, d] (scalar
-    position) or of ``PagedKV``s. Both are written IN PLACE. ``n_valid`` marks
-    how many of the ``s`` new rows are real; padded rows are dropped."""
+    ``kv`` is a (k, v) pair of dense buffers [b, max_len, hkv, d] or of
+    ``PagedKV``s. Both are written IN PLACE. ``position`` is a scalar (one
+    shared history length) or, for the dense lane pool's batched step, a [b]
+    tensor: each row then writes at its own offset, kv_length comes back as a
+    vector, and rows at or past the buffer's end (the idle sentinel) are
+    DROPPED. ``n_valid`` marks how many of the ``s`` new rows are real; padded
+    rows are dropped."""
     from petals_tpu_torch.ops.paged_attention import PagedKV, paged_update_kv
 
     k_buf, v_buf = kv
     if isinstance(k_buf, PagedKV):
         return paged_update_kv(k_buf, v_buf, k_new, v_new, position, n_valid)
-    if isinstance(position, torch.Tensor) and position.dim() > 0:
-        raise ValueError(
-            "per-lane writes into dense buffers (the dense lane pool) are not "
-            "supported by this port yet"
-        )
+    if isinstance(position, torch.Tensor) and position.dim() == 1:
+        return _update_dense_per_lane(k_buf, v_buf, k_new, v_new, position, n_valid)
     pos, seq = int(position), k_new.shape[1]
     n = seq if n_valid is None else int(n_valid)
     if pos + n > k_buf.shape[1]:
@@ -69,3 +70,32 @@ def update_kv_cache(kv, k_new: torch.Tensor, v_new: torch.Tensor, position, n_va
     k_buf[:, pos : pos + n] = k_new[:, :n].to(k_buf.dtype)
     v_buf[:, pos : pos + n] = v_new[:, :n].to(v_buf.dtype)
     return k_buf, v_buf, pos + n
+
+
+def _update_dense_per_lane(k_buf, v_buf, k_new, v_new, position, n_valid):
+    """Per-lane write into dense buffers [b, max_len, hkv, d]: row (b, i) goes
+    to ``position[b] + i``; positions at or past ``max_len`` and rows past
+    ``n_valid`` drop (the JAX package's scatter with mode="drop"). The drop
+    is ``_drop_scatter_``'s: every index stays a tensor, no host sync."""
+    from petals_tpu_torch.ops.paged_attention import _drop_scatter_
+
+    batch, seq = k_new.shape[0], k_new.shape[1]
+    buf_len = k_buf.shape[1]
+    if not (k_buf.is_contiguous() and v_buf.is_contiguous()):
+        raise ValueError("per-lane writes need contiguous dense buffers [batch, max_len, hkv, d]")
+    pos = position.to(device=k_new.device, dtype=torch.long)
+    offs = torch.arange(seq, device=k_new.device)
+    idx = pos[:, None] + offs[None, :]  # [b, s]
+    ok = (idx >= 0) & (idx < buf_len)
+    n = seq
+    if n_valid is not None:
+        n = int(n_valid)
+        ok = ok & (offs[None, :] < n)
+    lane = torch.arange(batch, device=k_new.device)[:, None]
+    flat = torch.where(ok, lane * buf_len + idx, batch * buf_len).reshape(-1)
+    _drop_scatter_(
+        [(k_buf, k_new.reshape(batch * seq, *k_new.shape[2:])),
+         (v_buf, v_new.reshape(batch * seq, *v_new.shape[2:]))],
+        flat,
+    )
+    return k_buf, v_buf, position + n

@@ -28,6 +28,7 @@ def block_apply(
     cfg: LlamaBlockConfig,
     *,
     n_valid=None,  # count of real (non-padding) rows in this chunk
+    use_flash: bool = False,  # dense buffers: route chunks of >= 8 rows to the flash kernel
 ):
     """One block over ``hidden_states``; returns (hidden, (k_all, v_all))."""
     batch, seq, _ = hidden_states.shape
@@ -63,6 +64,7 @@ def block_apply(
     attn = attend(
         q, k_all, v_all, q_offset=position, kv_length=kv_length,
         sliding_window=cfg.sliding_window,  # mistral; None for llama
+        use_flash=use_flash,
     )
     attn = mm(attn.reshape(batch, seq, hq * d), params["wo"])
     if cfg.attention_bias:

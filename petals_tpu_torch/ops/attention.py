@@ -30,10 +30,18 @@ def attend(
     alibi_slopes: Optional[torch.Tensor] = None,
     sliding_window: Optional[int] = None,
     scale: Optional[float] = None,
+    use_flash: bool = False,
 ) -> torch.Tensor:
-    """Causal multi-head attention. A paged cache (``PagedKV`` in place of the
-    dense buffers) goes to the paged-attention kernels; a dense buffer to
-    ``attend_reference``."""
+    """Causal multi-head attention (petals_tpu/ops/attention.py ``attend``).
+
+    A paged cache (``PagedKV`` in place of the dense buffers) goes to the
+    paged-attention kernels. A dense buffer with ``use_flash``, scalar
+    positions and a chunk above decode shapes (``flash_supported``: q_len >=
+    8) goes to the flash-attention kernel (ops/flash_attention.py), which
+    launches on CUDA tensors or raises. Decode shapes and per-lane (vector)
+    positions take ``attend_reference``, the port of the JAX package's XLA
+    path. Not ported: ``causal=False``, ``logit_softcap``, ``tp_mesh`` and
+    ring attention (no served family of the port needs them yet)."""
     from petals_tpu_torch.ops.paged_attention import PagedKV
 
     if isinstance(k, PagedKV):
@@ -43,6 +51,15 @@ def attend(
             q, k, v, q_offset=q_offset, kv_length=kv_length,
             alibi_slopes=alibi_slopes, sliding_window=sliding_window, scale=scale,
         )
+    vector_pos = any(isinstance(p, torch.Tensor) and p.dim() > 0 for p in (q_offset, kv_length))
+    if use_flash and not vector_pos:
+        from petals_tpu_torch.ops.flash_attention import flash_attend, flash_supported
+
+        if flash_supported(q, k, v, sliding_window=sliding_window):
+            return flash_attend(
+                q, k, v, q_offset=q_offset, kv_length=kv_length,
+                alibi_slopes=alibi_slopes, sliding_window=sliding_window, scale=scale,
+            )
     return attend_reference(
         q, k, v, q_offset=q_offset, kv_length=kv_length,
         alibi_slopes=alibi_slopes, sliding_window=sliding_window, scale=scale,

@@ -35,8 +35,6 @@ Not ported yet, and what each waits for:
   KV import/export and migration).
 - ``scatter_lane_chunk_rows``: the speculative-verify write shape
   (speculative decoding).
-- ``scatter_lane_pages``: the exclusive-op check-in of a whole lane buffer
-  (the prefix cache and the dense-pool paths).
 """
 
 from __future__ import annotations
@@ -319,6 +317,34 @@ def scatter_chunk_rows(
     [max_pages]; positions [chunk] (padded rows carry a sentinel >=
     max_length and drop)."""
     _drop_scatter_(_write_pairs([pool], [rows]), chunk_rows_index(pool, table_row, positions))
+
+
+def scatter_lane_pages(pool: PoolLike, lane_pages: torch.Tensor, table_row) -> None:
+    """Write a whole lane-shaped buffer back into its pages, IN PLACE (the
+    exclusive-op check-in of a lane that was gathered out, computed on and is
+    handed back). pool [..., n_pages, ps, hkv, d] (one block's, or the
+    span-stacked pool), lane_pages [..., max_pages, ps, hkv, d] with the same
+    leading dims; table_row [max_pages], a host array or a tensor (read on
+    the host: the check-in is not on the per-token path). Unallocated slots
+    (-1) drop. On a quantized pool the buffer is RE-ENCODED row by row; rows
+    the exclusive op did not touch round-trip within one quantization."""
+    if isinstance(table_row, torch.Tensor):
+        table_row = table_row.cpu().numpy()
+    row = np.asarray(table_row)
+    slots = np.nonzero(row >= 0)[0]
+    if slots.size == 0:
+        return
+    page_axis = len(pool.shape) - 4  # of the logical [..., n_pages, ps, hkv, d]
+    device = lane_pages.device
+    slots_t = torch.as_tensor(slots, dtype=torch.long, device=device)
+    pages_t = torch.as_tensor(row[slots], dtype=torch.long, device=device)
+    kept = lane_pages.index_select(page_axis, slots_t)
+    if isinstance(pool, PagedPool):
+        codes, scales = quantize_kv_rows(kept, pool.kind)
+        pool.codes.index_copy_(page_axis, pages_t, codes.to(pool.codes.dtype))
+        pool.scales.index_copy_(page_axis, pages_t, scales.to(pool.scales.dtype))
+    else:
+        pool.index_copy_(page_axis, pages_t, kept.to(pool.dtype))
 
 
 def paged_update_kv(k_kv: PagedKV, v_kv: PagedKV, k_new, v_new, position, n_valid=None):

@@ -1,6 +1,7 @@
-"""TransformerBackend: the compute engine for a span of blocks, paged
-decode and mixed prefill+decode steps (the paged part of
-petals_tpu/server/backend.py).
+"""TransformerBackend: the compute engine for a span of blocks: paged
+decode and mixed prefill+decode steps, and the dense-cache steps of private
+sessions and the dense lane pool (petals_tpu/server/backend.py without the
+stateless forward/backward, adapters, meshes and server-side generation).
 
 Where the JAX backend runs the span as one jitted ``lax.scan`` over stacked
 parameters and donated pools, this one is a Python loop over blocks that
@@ -11,6 +12,13 @@ codes and float32 scales (ops/paged_attention.py): rows are encoded as they
 are written and decoded as attention reads them. Attention on a ``PagedKV``
 goes to the CUDA paged-attention kernels for tensors on the card and to
 their plain versions for tensors on the CPU (ops/paged_flash_attention.py).
+
+Dense caches are [n_blocks, batch, max_length, hkv, d] buffers, written IN
+PLACE too; block i attends over the view ``k_stack[i]``. ``inference_step``
+on them sends chunks of 8 rows and more to the flash-attention kernel when
+``use_flash`` is set (ops/flash_attention.py; the default on a CUDA device);
+decode shapes and the dense pool's batched step (per-lane positions) take
+plain attention, as they take XLA's in the JAX package.
 
 No jit means no shape buckets: a prefill chunk runs at its own length with
 ``n_valid`` equal to it, which gives the reply rows a padded bucket gives,
@@ -29,8 +37,11 @@ from petals_tpu_torch.models.registry import ModelFamily
 from petals_tpu_torch.ops.paged_attention import (
     KV_QUANT_KINDS,
     PagedKV,
+    PagedPool,
+    dequantize_kv,
     kv_wire_bytes_per_token,
     pool_block,
+    scatter_lane_pages,
 )
 from petals_tpu_torch.ops.quant import OutlierQuantLinear, QuantizedLinear
 from petals_tpu_torch.server.memory_cache import TensorDescriptor
@@ -70,6 +81,7 @@ class TransformerBackend:
         max_chunk_size_bytes: int = 256 * 1024 * 1024,
         quant_type: str = "none",
         kv_quant_type: str = "none",
+        use_flash: Optional[bool] = None,
     ):
         """``params`` is a list of per-block dicts, or one dict whose leaves
         are stacked along a leading block axis (utils/convert.py
@@ -77,7 +89,9 @@ class TransformerBackend:
         quantized leaf piece by piece. Hidden states and a floating-point KV
         pool are kept in ``compute_dtype``. ``quant_type`` records how the
         weights were quantized (utils/convert_block.py QuantType);
-        ``kv_quant_type`` (none, int8, nf4a) how the KV pool stores rows."""
+        ``kv_quant_type`` (none, int8, nf4a) how the KV pool stores rows.
+        ``use_flash`` sends dense-cache chunks to the flash-attention kernel
+        (None: on when the device is a CUDA card)."""
         if kv_quant_type not in KV_QUANT_KINDS:
             raise ValueError(f"kv_quant_type must be one of {KV_QUANT_KINDS}, got {kv_quant_type!r}")
         if kv_quant_type == "nf4a" and cfg.head_dim % 2:
@@ -94,6 +108,7 @@ class TransformerBackend:
         self.first_block = first_block
         self.n_blocks = n_blocks
         self.device = torch.device(device)
+        self.use_flash = self.device.type == "cuda" if use_flash is None else bool(use_flash)
         self.compute_dtype = compute_dtype
         self.max_chunk_size_bytes = max_chunk_size_bytes
         self.num_kv_heads = cfg.num_key_value_heads
@@ -101,6 +116,17 @@ class TransformerBackend:
         self.hidden_size = cfg.hidden_size
 
     # ------------------------------------------------------------- cache descriptors
+
+    def cache_descriptors(self, batch_size: int, max_length: int, start: int, end: int):
+        """(k, v) descriptors of a DENSE cache for blocks [start, end): each
+        [n, batch_size, max_length, hkv, d] in compute_dtype on the backend's
+        device (a private session's cache, or the dense lane pool with
+        batch_size = n_lanes)."""
+        shape = (end - start, batch_size, max_length, self.num_kv_heads, self.head_dim)
+        return (
+            TensorDescriptor(shape, self.compute_dtype, self.device),
+            TensorDescriptor(shape, self.compute_dtype, self.device),
+        )
 
     def paged_cache_descriptors(self, n_pages: int, page_size: int, start: int, end: int):
         """Descriptors of the paged pool of blocks [start, end) on the
@@ -134,7 +160,160 @@ class TransformerBackend:
             self.num_kv_heads, self.head_dim, self.kv_quant_type, self.compute_dtype.itemsize
         )
 
-    # ------------------------------------------------------------- steps
+    def _slice_params(self, start: int, end: int) -> List[Dict[str, object]]:
+        """The parameters of blocks [start, end) of this span (views, no copy)."""
+        return self.block_params[start:end]
+
+    # ------------------------------------------------------------- dense steps
+
+    @torch.no_grad()
+    def inference_step(self, hidden, kv, position: int, *, prompts=None, hypo_ids=None,
+                       n_total: Optional[int] = None):
+        """One (chunked-as-needed) inference step over the whole span on a
+        DENSE cache.
+
+        Args:
+          hidden: [batch, seq, hidden], real tokens, unpadded.
+          kv: (k_stack, v_stack), each [n_blocks, batch, max_length, hkv, d],
+            updated IN PLACE (rows [position, position + seq)).
+          position: tokens already cached (shared by the batch).
+          prompts: deep prompts [n_blocks, batch, pre_seq, hidden], added to
+            each block's input over absolute positions [0, pre_seq).
+          hypo_ids: [batch] beam reorder: cache row b continues row
+            hypo_ids[b]; applied in place before the first chunk.
+          n_total: the final sequence length, for callers that already
+            chunked the prompt; only length-dependent rotary variants read
+            it, and no family of the port has one, so it is only validated.
+
+        Returns (out [batch, seq, hidden] on the device, kv).
+        """
+        k_stack, v_stack = kv
+        max_length = k_stack.shape[2]
+        h = _as_tensor(hidden, self.device, k_stack.dtype)
+        batch, total_seq, _ = h.shape
+        position = int(position)
+        if k_stack.shape[0] != self.n_blocks or k_stack.shape[1] != batch:
+            raise ValueError(
+                f"cache {tuple(k_stack.shape)} does not match {self.n_blocks} blocks x batch {batch}"
+            )
+        if position + total_seq > max_length:
+            raise ValueError(
+                f"Step of {total_seq} tokens at position {position} overflows the "
+                f"allocated cache ({max_length} tokens)"
+            )
+        if n_total is not None and n_total < position + total_seq:
+            raise ValueError(
+                f"n_total={n_total} is shorter than this step's own end ({position} + {total_seq})"
+            )
+        if prompts is not None:
+            prompts = _as_tensor(prompts, self.device, k_stack.dtype)
+        if hypo_ids is not None:
+            # index_select copies the reordered rows out before copy_ writes
+            # them back, so rows may swap
+            hypo = _as_tensor(hypo_ids, self.device, torch.long)
+            k_stack.copy_(k_stack.index_select(1, hypo))
+            v_stack.copy_(v_stack.index_select(1, hypo))
+        outputs, offset = [], 0
+        for chunk_len in self.chunk_plan(batch, total_seq):
+            outputs.append(self._step_once(
+                h[:, offset : offset + chunk_len], k_stack, v_stack, position + offset, prompts
+            ))
+            offset += chunk_len
+        out = outputs[0] if len(outputs) == 1 else torch.cat(outputs, dim=1)
+        return out, (k_stack, v_stack)
+
+    def _step_once(self, h, k_stack, v_stack, position: int, prompts):
+        """One chunk through every block (the body of the JAX package's
+        jitted ``inference_step``, unpadded)."""
+        seq = h.shape[1]
+        if prompts is not None and prompts.shape[2] > position:
+            # deep prompts cover absolute positions [0, pre_seq): the overlap
+            # with this chunk [position, position + seq)
+            n_over = min(prompts.shape[2] - position, seq)
+        else:
+            n_over = 0
+        for i, p_block in enumerate(self.block_params):
+            if n_over:
+                h = torch.cat(
+                    [h[:, :n_over] + prompts[i, :, position : position + n_over], h[:, n_over:]], dim=1
+                )
+            h, _ = self.family.block_apply(
+                p_block, h, (k_stack[i], v_stack[i]), position, self.cfg, use_flash=self.use_flash
+            )
+        return h
+
+    @torch.no_grad()
+    def batched_decode_step(self, hidden, pool_kv, positions):
+        """One coalesced decode step over the whole DENSE lane pool.
+
+        Args:
+          hidden: [n_lanes, 1, hidden] (idle lanes: any finite filler).
+          pool_kv: (k, v) pool buffers [n_blocks, n_lanes, max_len, hkv, d],
+            updated IN PLACE.
+          positions: int32 [n_lanes]; idle lanes hold max_len (the sentinel:
+            their writes drop and their outputs are never read).
+
+        Returns (out [n_lanes, 1, hidden] on the device, pool_kv).
+        """
+        k_pool, v_pool = pool_kv
+        h = _as_tensor(hidden, self.device, k_pool.dtype)
+        positions = _as_tensor(positions, self.device, torch.int32)
+        for i, p_block in enumerate(self.block_params):
+            # per-lane positions: plain attention, as in the JAX package
+            h, _ = self.family.block_apply(
+                p_block, h, (k_pool[i], v_pool[i]), positions, self.cfg, use_flash=False
+            )
+        return h, (k_pool, v_pool)
+
+    # ------------------------------------------------------------- lane check-out / check-in
+
+    def lane_extract(self, k_pool, v_pool, lane: int):
+        """Copy one lane out of the dense pool as a session-shaped
+        [n_blocks, 1, max_len, hkv, d] pair (for work the batched step does
+        not cover: prefill, deep prompts)."""
+        lane = int(lane)
+        return k_pool[:, lane : lane + 1].clone(), v_pool[:, lane : lane + 1].clone()
+
+    def lane_insert(self, k_pool, v_pool, k, v, lane: int):
+        """Write a session-shaped lane pair back into the dense pool, in place."""
+        lane = int(lane)
+        k_pool[:, lane : lane + 1].copy_(k)
+        v_pool[:, lane : lane + 1].copy_(v)
+        return k_pool, v_pool
+
+    def paged_lane_gather(self, k_pool, v_pool, table_row):
+        """One lane's dense session-shaped view [n_blocks, 1, max_pages *
+        page_size, hkv, d] assembled from its block-table row: the paged
+        stand-in for ``lane_extract``. Unallocated slots read as ZEROS, never
+        as another tenant's page; a quantized pool is decoded here."""
+        row = _as_tensor(table_row, self.device, torch.long)
+        n_blocks, n_pages, page_size = k_pool.shape[:3]
+        safe = row.clamp(0, n_pages - 1)
+
+        def leaf(arr):
+            hole = (row < 0).view(1, -1, *([1] * (arr.dim() - 2)))
+            return arr.index_select(1, safe).masked_fill_(hole, 0)
+
+        def one(pool):
+            if isinstance(pool, PagedPool):
+                rows = dequantize_kv(leaf(pool.codes), leaf(pool.scales), pool.kind, pool.dtype)
+            else:
+                rows = leaf(pool)
+            return rows.reshape(n_blocks, 1, row.shape[0] * page_size, *pool.shape[3:])
+
+        return one(k_pool), one(v_pool)
+
+    def paged_lane_scatter(self, k_pool, v_pool, k, v, table_row):
+        """Write a session-shaped lane pair back into its pages, in place:
+        the paged stand-in for ``lane_insert``. Unallocated slots drop; a
+        quantized pool re-encodes the buffer row by row."""
+        n_blocks, _, page_size = k_pool.shape[:3]
+        for pool, buf in ((k_pool, k), (v_pool, v)):
+            pages = buf.reshape(n_blocks, -1, page_size, *pool.shape[3:])
+            scatter_lane_pages(pool, pages, table_row)
+        return k_pool, v_pool
+
+    # ------------------------------------------------------------- paged steps
 
     @torch.no_grad()
     def paged_decode_step(self, hidden, pool_kv, positions, tables):
@@ -196,16 +375,25 @@ class TransformerBackend:
     def chunk_plan(self, batch: int, total_seq: int, page_size: Optional[int] = None,
                    start: int = 0) -> Sequence[int]:
         """Split a long prefill so each chunk's attention footprint stays under
-        max_chunk_size_bytes. On the card the paged kernels never materialize
-        the [chunk, kv] logits, so the footprint is the chunk's activations,
-        linear in its length; the plain CPU version materializes the logits,
-        quadratic in the sequence. ``page_size`` aligns chunk ENDS to
+        max_chunk_size_bytes. Where an attention kernel runs, the [chunk, kv]
+        logits are never materialized, so the footprint is the chunk's
+        activations, linear in its length; plain attention materializes the
+        logits, quadratic in the sequence. ``page_size`` aligns chunk ENDS to
         absolute page boundaries (whole-page writes, a partial tail page only
         on the final chunk); ``start`` is the absolute position of the first
-        token."""
+        token.
+
+        The rule: linear sizing on a CUDA device for a paged prefill (the
+        paged kernels always run there) and for a dense cache with
+        ``use_flash``. The JAX package also asks that the cache length be a
+        multiple of 128, because its TPU kernel takes no other and ``attend``
+        then falls back to the materializing path; the CUDA kernel serves any
+        buffer length and a CUDA tensor never falls back, so that condition
+        has no counterpart here. On the CPU the plain versions run and the
+        sizing is quadratic."""
         if total_seq <= 1:
             return [total_seq]
-        if self.device.type == "cuda":
+        if self.device.type == "cuda" and (page_size or self.use_flash):
             per_token = batch * self.compute_dtype.itemsize * (
                 2 * self.hidden_size
                 + self.cfg.intermediate_size

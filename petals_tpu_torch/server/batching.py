@@ -1,6 +1,6 @@
-"""Continuous batching over a paged KV pool: coalesce concurrent sessions'
-decode tokens, and one prefill chunk, into one step per tick (the paged part
-of petals_tpu/server/batching.py).
+"""Continuous batching over a shared KV pool: coalesce concurrent sessions'
+decode tokens, and one prefill chunk, into one step per tick
+(petals_tpu/server/batching.py, paged and dense modes).
 
 - One shared page pool [n_blocks, n_pages, page_size, hkv, d] x2, budgeted
   through MemoryCache once at open (a quantized pool is 4 buffers, codes and
@@ -14,6 +14,16 @@ of petals_tpu/server/batching.py).
   page-aligned chunk per tick alongside the pending decode lanes (the mixed
   step), round-robin across admitted prefills under a per-tick token budget.
 
+- Dense mode (``page_size`` None or 0): the pool is [n_blocks, n_lanes,
+  max_length, hkv, d] x2 and a lane is its row. Decode steps coalesce the
+  same way (``batched_decode_step``); work the batched step does not cover
+  (a prefill, deep prompts, hypo_ids) checks the lane OUT into
+  session-shaped buffers, runs on them as queue tasks of its own, and checks
+  it back IN (``run_exclusive``, ``run_exclusive_chunks``). Batched steps
+  interleave between a long prefill's chunks: the checked-out lane rides
+  them at the sentinel. The paged pool serves the same exclusive ops through
+  a gather of the lane's pages and a scatter back.
+
 Steps run on the task queue's compute thread and mutate the pool IN PLACE.
 A step that fails with a device error leaves the pool untrustworthy: the pool
 is zeroed and the generation bumps, so every outstanding lane fails loudly on
@@ -21,7 +31,8 @@ its next step instead of decoding against lost KV. The generation is checked
 before each step and again, under the reset lock, after it.
 
 Not ported yet: server-side generation, speculative decoding, swap and
-preemption, the prefix cache's shared pages, the ledger and fingerprints.
+preemption, the prefix cache's shared pages, the ledger and fingerprints,
+multi-host lockstep (its mirrored temp handles).
 """
 
 from __future__ import annotations
@@ -33,7 +44,7 @@ import itertools
 import logging
 import threading
 import time
-from typing import Dict, List, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -75,7 +86,7 @@ class _LaneWaiter:
 
 
 class DecodeBatcher:
-    """Shared paged-pool continuous batcher for one backend (one span)."""
+    """Shared-pool continuous batcher for one backend (one span)."""
 
     def __init__(
         self,
@@ -85,27 +96,35 @@ class DecodeBatcher:
         *,
         n_lanes: int = 8,
         max_length: int = 1024,
-        page_size: int = 64,
+        page_size: Optional[int] = 64,  # None or 0: the dense lane pool
         n_pages: Optional[int] = None,  # default: n_lanes * max_pages (no oversubscription)
         prefill_token_budget: int = 512,  # max prefill-chunk tokens per mixed step
         alloc_timeout: Optional[float] = None,
     ):
-        if page_size < 1:
-            raise ValueError(f"the port serves the paged pool only: page_size must be >= 1, got {page_size}")
+        if page_size is not None and page_size < 0:
+            raise ValueError(f"page_size must be >= 1, or 0 / None for the dense lane pool; got {page_size}")
         self.backend = backend
         self.memory_cache = memory_cache
         self.queue = queue
         self.n_lanes = n_lanes
-        self.page_size = int(page_size)
-        # round the lane capacity UP to whole pages so tables tile exactly
-        self.max_pages = max_pages_for(max_length, self.page_size)
-        self.max_length = self.max_pages * self.page_size
-        self.n_pages = int(n_pages) if n_pages else self.n_lanes * self.max_pages
-        if self.n_pages < self.max_pages:
-            raise ValueError(
-                f"n_pages={self.n_pages} cannot hold even one full lane "
-                f"({self.max_pages} pages of {self.page_size} tokens)"
-            )
+        if page_size:
+            self.page_size: Optional[int] = int(page_size)
+            # round the lane capacity UP to whole pages so tables tile exactly
+            self.max_pages = max_pages_for(max_length, self.page_size)
+            self.max_length = self.max_pages * self.page_size
+            self.n_pages = int(n_pages) if n_pages else self.n_lanes * self.max_pages
+            if self.n_pages < self.max_pages:
+                raise ValueError(
+                    f"n_pages={self.n_pages} cannot hold even one full lane "
+                    f"({self.max_pages} pages of {self.page_size} tokens)"
+                )
+        else:
+            if getattr(backend, "kv_quant_type", "none") != "none":
+                raise ValueError("a quantized KV pool needs the paged pool (page_size > 0)")
+            self.page_size = None
+            self.max_length = int(max_length)
+            self.max_pages = 0
+            self.n_pages = 0
         self.prefill_token_budget = max(int(prefill_token_budget), 1)
         self.alloc_timeout = alloc_timeout
         self._pages: Optional[PageAllocator] = None
@@ -134,7 +153,7 @@ class DecodeBatcher:
         self.stats = {
             "batched_steps": 0, "batched_tokens": 0, "max_batch": 0,
             "decode_steps": 0, "mixed_steps": 0, "prefill_tokens": 0,
-            "max_prefill_tokens_per_step": 0, "pool_resets": 0,
+            "max_prefill_tokens_per_step": 0, "pool_resets": 0, "exclusive_chunks": 0,
         }
 
     # ------------------------------------------------------------------ pool
@@ -144,9 +163,14 @@ class DecodeBatcher:
         async with self._open_lock:
             if self._handles is not None or self._closed:
                 return
-            descs = self.backend.paged_cache_descriptors(
-                self.n_pages, self.page_size, 0, self.backend.n_blocks
-            )
+            if self.page_size is not None:
+                descs = self.backend.paged_cache_descriptors(
+                    self.n_pages, self.page_size, 0, self.backend.n_blocks
+                )
+            else:
+                descs = self.backend.cache_descriptors(
+                    self.n_lanes, self.max_length, 0, self.backend.n_blocks
+                )
             stack = contextlib.AsyncExitStack()
             try:
                 handles = await stack.enter_async_context(
@@ -160,12 +184,18 @@ class DecodeBatcher:
             self._pool_stack = stack
             self._handles = handles
             self._free_lanes = list(range(self.n_lanes))
+            span = f"[{self.backend.first_block}, {self.backend.first_block + self.backend.n_blocks})"
+            if self.page_size is None:
+                logger.info(
+                    f"Continuous-batching pool open: {self.n_lanes} lanes x "
+                    f"{self.max_length} tokens for blocks {span}"
+                )
+                return
             self._pages = PageAllocator(self.n_pages)
             self._tables = np.full((self.n_lanes, self.max_pages), -1, np.int32)
             logger.info(
                 f"Paged-batching pool open: {self.n_pages} pages x {self.page_size} tokens "
-                f"({self.n_lanes} lanes x {self.max_pages} table slots) for blocks "
-                f"[{self.backend.first_block}, {self.backend.first_block + self.backend.n_blocks})"
+                f"({self.n_lanes} lanes x {self.max_pages} table slots) for blocks {span}"
             )
 
     async def close(self) -> None:
@@ -209,6 +239,8 @@ class DecodeBatcher:
         lane's first page. ``timeout`` bounds the whole acquisition,
         first-use pool allocation included."""
         lane = await self._acquire_lane(timeout=timeout, priority=priority)
+        if self.page_size is None:
+            return lane
         try:
             await self.prepare_write(lane, 0, 1, timeout=timeout)
         except BaseException:
@@ -292,6 +324,8 @@ class DecodeBatcher:
 
     def _occupancy(self) -> str:
         busy = self.n_lanes - len(self._free_lanes)
+        if self.page_size is None:
+            return f"{busy}/{self.n_lanes} lanes busy, {len(self._lane_waiters)} waiting"
         free_pages = self._pages.n_free if self._pages is not None else self.n_pages
         return (
             f"{busy}/{self.n_lanes} lanes busy, {free_pages}/{self.n_pages} pages free, "
@@ -305,8 +339,9 @@ class DecodeBatcher:
     ) -> None:
         """Make token range [t0, t1) of ``lane`` writable: allocate its
         missing pages. Waits on an exhausted pool until a page frees
-        (release_lane), raising AllocationFailed at ``timeout``."""
-        if t1 <= t0:
+        (release_lane), raising AllocationFailed at ``timeout``. No-op in
+        dense mode."""
+        if self.page_size is None or t1 <= t0:
             return
         self._check_lane(lane)
         if t1 > self.max_length:
@@ -365,7 +400,10 @@ class DecodeBatcher:
         mixed-step queue: pages for the whole range are allocated up front
         (the only blocking point), then the flush loop feeds one page-aligned
         chunk per tick alongside every pending decode lane. Returns the span
-        output for the whole range, [1, seq, hidden] on the host."""
+        output for the whole range, [1, seq, hidden] on the host. Paged mode
+        only: the dense pool prefills through ``run_exclusive_chunks``."""
+        if self.page_size is None:
+            raise RuntimeError("prefill_lane serves the paged pool; a dense lane prefills through run_exclusive_chunks")
         self._check_lane(lane)
         total, position = int(hidden.shape[1]), int(position)
         if position + total > self.max_length:
@@ -518,8 +556,9 @@ class DecodeBatcher:
             self.stats["pool_resets"] += 1
             if self._pages is not None:
                 self._pages.freed_event.set()  # wake waiters on the dead allocator
-            self._pages = PageAllocator(self.n_pages)
-            self._tables[:] = -1
+            if self.page_size is not None:
+                self._pages = PageAllocator(self.n_pages)
+                self._tables[:] = -1
             for handle in self._handles:
                 self.memory_cache.reset_buffer(handle)
 
@@ -541,11 +580,14 @@ class DecodeBatcher:
             raise AllocationFailed("Lane pool was reset before this batched step ran")
         t_step = time.perf_counter()
         hidden, positions = self._lane_inputs(batch)
-        # the tables are copied: the event loop may grow OTHER lanes while
-        # this step runs, never slots this step reads or writes
-        out, _ = self.backend.paged_decode_step(
-            hidden, self._buffers(), positions, self._tables.copy()
-        )
+        if self.page_size is not None:
+            # the tables are copied: the event loop may grow OTHER lanes while
+            # this step runs, never slots this step reads or writes
+            out, _ = self.backend.paged_decode_step(
+                hidden, self._buffers(), positions, self._tables.copy()
+            )
+        else:
+            out, _ = self.backend.batched_decode_step(hidden, self._buffers(), positions)
         host_out = out.cpu()  # waits for the step to finish on the device
         with self._reset_lock:
             if batch[0][4] != self._generation:
@@ -597,6 +639,113 @@ class DecodeBatcher:
                 "compute_s": duration,
                 "variant": "decode",
             }
+
+    # ------------------------------------------------------- non-batchable ops
+
+    def _extract_lane(self, lane: int):
+        """Compute-thread body: the lane checked OUT of the pool as
+        session-shaped [n_blocks, 1, max_length, hkv, d] buffers (a copy; a
+        paged lane is gathered through its table row, a quantized pool
+        decoded), so the functions that run on it need not know the mode."""
+        k_pool, v_pool = self._buffers()
+        if self.page_size is not None:
+            return self.backend.paged_lane_gather(k_pool, v_pool, self._tables[lane].copy())
+        return self.backend.lane_extract(k_pool, v_pool, lane)
+
+    def _insert_lane(self, lane: int, kv_lane) -> None:
+        """Compute-thread body: the lane checked back IN, under the reset
+        lock: a reset landing mid-way must never be followed by a write of
+        pre-reset content into the zeroed pool. The lane check raises before
+        anything is written."""
+        k2, v2 = kv_lane
+        with self._reset_lock:
+            self._check_lane(lane)
+            k_pool, v_pool = self._buffers()
+            if self.page_size is not None:
+                # unallocated (-1) slots drop: content past the session's
+                # resident pages never lands anywhere
+                self.backend.paged_lane_scatter(k_pool, v_pool, k2, v2, self._tables[lane].copy())
+            else:
+                self.backend.lane_insert(k_pool, v_pool, k2, v2, lane)
+
+    async def run_exclusive(self, lane: int, fn: Callable, *, size: int = 0,
+                            write_range: Optional[Tuple[int, int]] = None):
+        """Run ``fn(kv_lane) -> (result, kv_lane')`` with the lane extracted
+        into session-shaped buffers, then insert the updated lane back, all
+        in ONE queue task (atomic with respect to batched steps). For any
+        step the batched program does not cover. ``write_range=(t0, t1)``
+        declares the token range the fn writes: paged mode allocates those
+        pages first so the check-in has somewhere to land."""
+        self._check_lane(lane)
+        if write_range is not None:
+            await self.prepare_write(lane, int(write_range[0]), int(write_range[1]), timeout=self.alloc_timeout)
+
+        def run():
+            self._check_lane(lane)  # re-check: a reset may have raced the queue
+            result, kv_lane = fn(self._extract_lane(lane))
+            self._insert_lane(lane, kv_lane)
+            return result
+
+        try:
+            return await self.queue.submit(run, priority=PRIORITY_INFERENCE, size=size)
+        except AllocationFailed:
+            raise
+        except BaseException as e:
+            self._maybe_reset_pool(e)
+            raise
+
+    async def run_exclusive_chunks(self, lane: int, chunk_fns: Sequence[Callable], *, size: int = 0,
+                                   write_range: Optional[Tuple[int, int]] = None) -> list:
+        """Chunked-prefill interleaving: extract the lane once, run each
+        ``fn(kv_lane) -> (result, kv_lane')`` as its OWN queue task, insert
+        once. Between chunks the flush loop's batched decode steps run
+        freely, so a long prefill does not stall every decoding session for
+        its full length. Safe while checked out: batched steps never write an
+        idle-sentinel lane. A failed chunk still checks the lane back in
+        with the last consistent content (the session's position was not
+        advanced)."""
+        self._check_lane(lane)
+        if write_range is not None:
+            await self.prepare_write(lane, int(write_range[0]), int(write_range[1]), timeout=self.alloc_timeout)
+        if len(chunk_fns) == 1:
+            # short prefills skip the separate extract / insert tasks
+            return [await self.run_exclusive(lane, chunk_fns[0], size=size)]
+        state = {}
+
+        def extract():
+            self._check_lane(lane)
+            state["kv"] = self._extract_lane(lane)
+
+        def insert():
+            self._insert_lane(lane, state["kv"])  # checks the lane first
+
+        await self.queue.submit(extract, priority=PRIORITY_INFERENCE, size=0)
+        results = []
+        try:
+            for fn in chunk_fns:
+                def run_chunk(fn=fn):
+                    self._check_lane(lane)
+                    res, state["kv"] = fn(state["kv"])
+                    self.stats["exclusive_chunks"] += 1
+                    return res
+
+                try:
+                    results.append(await self.queue.submit(run_chunk, priority=PRIORITY_INFERENCE, size=size))
+                except AllocationFailed:
+                    raise
+                except BaseException as e:
+                    self._maybe_reset_pool(e)
+                    raise
+        finally:
+            if "kv" in state:
+                try:
+                    await self.queue.submit(insert, priority=PRIORITY_INFERENCE, size=0)
+                except AllocationFailed:
+                    pass  # lane invalidated mid-prefill: nothing to check in
+                except BaseException as e:
+                    self._maybe_reset_pool(e)
+                    raise
+        return results
 
 
 def _log_crash(task: asyncio.Task) -> None:

@@ -1,17 +1,27 @@
-"""RPC surface of a port server: ``ptu.inference`` sessions on the paged
-lane pool and ``ptu.info`` (the subset of petals_tpu/server/handler.py this
-slice serves). The frames and tensor encodings are those of a petals_tpu
-server, so petals_tpu clients drive it unchanged.
+"""RPC surface of a port server: ``ptu.inference`` sessions and ``ptu.info``
+(the subset of petals_tpu/server/handler.py this port serves). The frames and
+tensor encodings are those of a petals_tpu server, so petals_tpu clients
+drive it unchanged.
 
-A session is served when it fits the lane pool: batch size 1, the whole
-span, ``max_length`` within the lane length, no adapter. Its steps carry
-hidden states only. Anything else (private caches, deep prompts, hypo_ids,
-KV import/adopt, server-side generation) is refused with a clear error.
+A session of batch size 1 over the whole span, with no adapter and a
+``max_length`` within the lane length, borrows a LANE of the batcher's shared
+pool and decodes coalesced with its neighbours; when no lane frees in time it
+falls back to a private cache. Every other session (batch > 1, a sub-span, a
+longer ``max_length``) gets a PRIVATE dense cache [n_blocks, batch,
+max_length, hkv, d], budgeted through the memory cache, and steps through the
+task queue. Each reply's ``step_meta.variant`` says which path a step took:
+``decode`` / ``prefill`` (the batcher's coalesced steps), ``dense_prefill``
+(a dense lane's chunked prefill), ``exclusive`` (deep prompts or hypo_ids on
+a pooled lane), ``private``.
+
+Refused with a clear error: adapters, KV import/adopt, server-side
+generation, push_to.
 """
 
 from __future__ import annotations
 
 import asyncio
+import contextlib
 import logging
 import time
 from typing import Optional, Tuple
@@ -21,6 +31,9 @@ import torch
 from petals_tpu_torch.data_structures import CHAIN_DELIMITER, parse_session_priority, parse_uid
 from petals_tpu_torch.rpc.serialization import CompressionType, deserialize_array, is_dummy, serialize_array
 from petals_tpu_torch.rpc.server import RpcContext, RpcServer
+from petals_tpu_torch.server.backend import TransformerBackend
+from petals_tpu_torch.server.memory_cache import AllocationFailed
+from petals_tpu_torch.server.task_queue import PRIORITY_INFERENCE
 
 logger = logging.getLogger(__name__)
 
@@ -39,6 +52,10 @@ class TransformerHandler:
     ):
         self.backend = backend
         self.batcher = batcher
+        # private sessions share the batcher's budget and compute thread
+        self.memory_cache = batcher.memory_cache
+        self.queue = batcher.queue
+        self._sub_backends = {}
         self.dht_prefix = dht_prefix
         self.compression = CompressionType(compression)
         self.inference_max_length = inference_max_length
@@ -68,6 +85,46 @@ class TransformerHandler:
         if lo < first or hi > last:
             raise ValueError(f"Requested blocks [{lo}, {hi}) outside served span [{first}, {last})")
         return lo - first, hi - first
+
+    def _sub_backend(self, start: int, end: int) -> TransformerBackend:
+        """The backend serving blocks [start, end) of the span: the span's own
+        for the whole of it, else one over a slice of its parameters (views,
+        no copy), cached per (start, end)."""
+        if start == 0 and end == self.backend.n_blocks:
+            return self.backend
+        key = (start, end)
+        if key not in self._sub_backends:
+            b = self.backend
+            self._sub_backends[key] = TransformerBackend(
+                b.family, b.cfg, b._slice_params(start, end),
+                first_block=b.first_block + start, n_blocks=end - start, device=b.device,
+                compute_dtype=b.compute_dtype, max_chunk_size_bytes=b.max_chunk_size_bytes,
+                quant_type=b.quant_type, use_flash=b.use_flash,
+            )
+        return self._sub_backends[key]
+
+    def _validate_step_tensors(self, hidden, prompts, hypo_ids, batch_size: int, n_blocks: int) -> None:
+        """Reject malformed step tensors with a clean error instead of an
+        opaque failure inside a step."""
+        hsz = self.backend.hidden_size
+        if hidden is not None and (
+            hidden.dim() != 3 or hidden.shape[0] != batch_size or hidden.shape[2] != hsz
+        ):
+            raise ValueError(
+                f"step hidden must be [batch={batch_size}, seq, hidden={hsz}], got {tuple(hidden.shape)}"
+            )
+        if hypo_ids is not None and tuple(hypo_ids.shape) != (batch_size,):
+            raise ValueError(f"hypo_ids must be [{batch_size}], got {tuple(hypo_ids.shape)}")
+        if prompts is not None and (
+            prompts.dim() != 4
+            or prompts.shape[0] != n_blocks
+            or prompts.shape[1] != batch_size
+            or prompts.shape[3] != hsz
+        ):
+            raise ValueError(
+                f"prompts must be [{n_blocks} blocks, batch={batch_size}, pre_seq, "
+                f"hidden={hsz}], got {tuple(prompts.shape)}"
+            )
 
     def _get_tensor(self, payload: dict, name: str) -> Optional[torch.Tensor]:
         wire = (payload.get("tensors") or {}).get(name)
@@ -123,29 +180,35 @@ class TransformerHandler:
             )
         batch_size = int(open_msg.get("batch_size", 1))
         reply_comp = self._reply_compression(open_msg)
+        if open_msg.get("active_adapter") is not None:
+            raise ValueError("adapters are not supported by this server yet")
+        backend = self._sub_backend(start, end)
         batcher = self.batcher
-        if (
-            batch_size != 1
-            or open_msg.get("active_adapter") is not None
-            or (start, end) != (0, self.backend.n_blocks)
-            or max_length > batcher.max_length
-        ):
-            raise ValueError(
-                "this server serves sessions of batch size 1 over its whole span "
-                f"[{self.backend.first_block}, {self.backend.first_block + self.backend.n_blocks}) "
-                f"with max_length <= {batcher.max_length} and no adapter; other sessions "
-                "(private caches, sub-spans, adapters) are not supported by this server yet"
-            )
         alloc_timeout = open_msg.get("alloc_timeout")
+        lane: Optional[int] = None
         t_open = time.perf_counter()
-        lane = await batcher.acquire_lane(
-            timeout=30.0 if alloc_timeout is None else alloc_timeout,
-            priority=parse_session_priority(open_msg.get("priority")),
-        )
-        try:
+        if batch_size == 1 and (start, end) == (0, self.backend.n_blocks) and max_length <= batcher.max_length:
+            try:
+                lane = await batcher.acquire_lane(
+                    timeout=30.0 if alloc_timeout is None else alloc_timeout,
+                    priority=parse_session_priority(open_msg.get("priority")),
+                )
+            except AllocationFailed as e:
+                logger.debug(f"No decode lane ({e}); serving with a private cache")
+        open_wait_s = time.perf_counter() - t_open
+        if lane is not None:
+            cache_ctx = self._lane_ctx(lane, batcher)
+        else:
+            cache_ctx = self.memory_cache.allocate_cache(
+                *backend.cache_descriptors(batch_size, max_length, 0, end - start), timeout=alloc_timeout
+            )
+        async with cache_ctx as handles:
+            # a private cache is (k_stack, v_stack), written in place; a
+            # pooled session's KV lives in the batcher's pool, keyed by lane
+            kv = tuple(self.memory_cache.get_buffers(*handles)) if lane is None else None
             yield {
                 "session_open": True, "position": 0, "max_length": max_length,
-                "open_wait_s": round(time.perf_counter() - t_open, 6),
+                "open_wait_s": round(open_wait_s, 6),
             }
             position = 0
             while True:
@@ -164,39 +227,95 @@ class TransformerHandler:
                             f"start_from_position {start_from} is outside the cache [0, {position}]"
                         )
                     position = int(start_from)  # rollback: later rows are overwritten
-                if self._get_tensor(step, "prompts") is not None or self._get_tensor(step, "hypo_ids") is not None:
-                    raise ValueError("deep prompts and hypo_ids are not supported by this server yet")
                 hidden = self._get_tensor(step, "hidden")
+                prompts = self._get_tensor(step, "prompts")
+                hypo_ids = self._get_tensor(step, "hypo_ids")
+                self._validate_step_tensors(hidden, prompts, hypo_ids, batch_size, end - start)
                 if hidden is None or hidden.shape[1] == 0:
                     yield {"tensors": {}, "position": position}  # cache probe
                     continue
-                hsz = self.backend.hidden_size
-                if hidden.dim() != 3 or hidden.shape[0] != 1 or hidden.shape[2] != hsz:
-                    raise ValueError(
-                        f"step hidden must be [batch=1, seq, hidden={hsz}], got {tuple(hidden.shape)}"
-                    )
                 seq = hidden.shape[1]
                 if position + seq > max_length:
                     raise ValueError(
                         f"Step of {seq} tokens at position {position} exceeds max_length {max_length}"
                     )
-                if seq == 1:
-                    out = await asyncio.wait_for(batcher.step(lane, hidden, position), self.step_timeout)
-                else:
-                    out = await asyncio.wait_for(
-                        batcher.prefill_lane(lane, hidden, position), self.step_timeout
-                    )
+                t_exec = time.perf_counter()
+                out, variant, timing = await asyncio.wait_for(
+                    self._run_step(backend, batcher, lane, kv, hidden, position, prompts, hypo_ids),
+                    self.step_timeout,
+                )
+                if timing is None:  # not a coalesced step: the execution wall, queue included
+                    timing = {"queue_s": 0.0, "compute_s": time.perf_counter() - t_exec}
                 position += seq
-                timing = batcher.pop_step_timing(lane) or {}
                 t_ser = time.perf_counter()
                 wire_out = serialize_array(out, reply_comp)
                 step_meta = {
                     "queue_s": round(timing.get("queue_s", 0.0), 6),
                     "compute_s": round(timing.get("compute_s", 0.0), 6),
-                    "variant": timing.get("variant", "decode" if seq == 1 else "prefill"),
+                    "variant": variant,
                     "serialize_s": round(time.perf_counter() - t_ser, 6),
                     "total_s": round(time.perf_counter() - t_recv, 6),
                 }
                 yield {"tensors": {"hidden": wire_out}, "position": position, "step_meta": step_meta}
+
+    @staticmethod
+    @contextlib.asynccontextmanager
+    async def _lane_ctx(lane: int, batcher):
+        """A pooled session's stand-in for the cache allocation: no handles,
+        and the lane goes back to the pool it was acquired from."""
+        try:
+            yield ()
         finally:
             batcher.release_lane(lane)
+
+    async def _run_step(self, backend, batcher, lane, kv, hidden, position: int, prompts, hypo_ids):
+        """One step on the path its session and shape select; returns (out
+        on the host, the step_meta variant, the batcher's queue/compute split
+        or None)."""
+        batch_size, seq = hidden.shape[0], hidden.shape[1]
+        plain = prompts is None and hypo_ids is None
+        if lane is not None and seq == 1 and plain:
+            # the continuous-batching hot path: one token, coalesced with
+            # whatever other sessions are stepping right now
+            out = await batcher.step(lane, hidden, position)
+            return out, "decode", batcher.pop_step_timing(lane)
+        if lane is not None and plain and batcher.page_size is not None:
+            # paged-lane prefill: one chunk rides each mixed step
+            out = await batcher.prefill_lane(lane, hidden, position)
+            return out, "prefill", batcher.pop_step_timing(lane)
+        if lane is not None and plain:
+            # prefill on the DENSE pool: each chunk is its own queue task,
+            # so other sessions' batched decode steps interleave between them
+            n_total = position + seq
+            chunk_fns, off = [], 0
+            for clen in backend.chunk_plan(batch_size, seq):
+                def run_chunk(kv_lane, chunk=hidden[:, off : off + clen], chunk_pos=position + off):
+                    out, kv_lane = backend.inference_step(chunk, kv_lane, chunk_pos, n_total=n_total)
+                    return out.cpu(), kv_lane
+
+                chunk_fns.append(run_chunk)
+                off += clen
+            outs = await batcher.run_exclusive_chunks(
+                lane, chunk_fns, size=batch_size * seq, write_range=(position, position + seq)
+            )
+            return (outs[0] if len(outs) == 1 else torch.cat(outs, dim=1)), "dense_prefill", None
+        if lane is not None:
+            # a pooled session with deep prompts or hypo_ids: one atomic
+            # exclusive pass on the lane
+            def run_lane(kv_lane):
+                out, kv_lane = backend.inference_step(
+                    hidden, kv_lane, position, prompts=prompts, hypo_ids=hypo_ids
+                )
+                return out.cpu(), kv_lane
+
+            out = await batcher.run_exclusive(
+                lane, run_lane, size=batch_size * seq, write_range=(position, position + seq)
+            )
+            return out, "exclusive", None
+
+        def run_step():
+            out, _ = backend.inference_step(hidden, kv, position, prompts=prompts, hypo_ids=hypo_ids)
+            return out.cpu()  # waits for the step to finish on the device
+
+        out = await self.queue.submit(run_step, priority=PRIORITY_INFERENCE, size=batch_size * seq)
+        return out, "private", None

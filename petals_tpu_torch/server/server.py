@@ -6,7 +6,9 @@ weights: each block is loaded, fused and quantized on the device, one block
 at a time (the JAX server's disk cache of quantized blocks is not ported).
 ``kv_quant_type`` (int8, nf4a) keeps the paged KV pool quantized, which
 fits more lanes in the same cache budget; it combines with every
-``quant_type``.
+``quant_type``. ``page_size=0`` selects the dense lane pool in place of the
+paged one. Sessions that fit no lane (batch > 1, a sub-span, a longer
+``max_length``) are served from private dense caches out of the same budget.
 
 Runs on the CUDA card unless the caller passes ``device="cpu"``; a missing
 card raises instead of drifting to the CPU.
@@ -21,7 +23,7 @@ from typing import Optional
 
 import torch
 
-from petals_tpu_torch.ops import paged_flash_attention, quant_matmul
+from petals_tpu_torch.ops import flash_attention, paged_flash_attention, quant_matmul
 from petals_tpu_torch.ops.paged_attention import KV_QUANT_KINDS
 from petals_tpu_torch.rpc.serialization import CompressionType
 from petals_tpu_torch.rpc.server import RpcServer
@@ -68,7 +70,7 @@ class Server:
         step_timeout: float = 5 * 60,
         batch_lanes: Optional[int] = None,  # None: auto-size to the cache budget (<=8)
         batch_max_length: Optional[int] = None,  # None: min(inference_max_length, 1024)
-        page_size: int = 64,
+        page_size: int = 64,  # paged KV: tokens per page; 0 = the dense lane pool
         n_pages: Optional[int] = None,
         prefill_token_budget: int = 512,
         quant_type: str = "none",  # "none" | "int8" | "nf4" | "nf4a" | "int4" | "nf4a+o" | "int4+o"
@@ -76,6 +78,13 @@ class Server:
     ):
         if kv_quant_type not in KV_QUANT_KINDS:
             raise ValueError(f"kv_quant_type must be one of {KV_QUANT_KINDS}, got {kv_quant_type!r}")
+        if page_size is None or page_size < 0:
+            raise ValueError(f"page_size must be >= 1, or 0 for the dense lane pool; got {page_size}")
+        if kv_quant_type != "none" and not page_size:
+            raise ValueError(
+                "kv_quant_type requires the paged KV pool (--page_size > 0): the "
+                "dense lane pool has no quantized storage path"
+            )
         self.device = resolve_device(device)
         self.quant_type = QuantType(quant_type).value
         self.kv_quant_type = kv_quant_type
@@ -84,8 +93,6 @@ class Server:
         total = self.cfg.num_hidden_layers
         if not 0 <= first_block < first_block + num_blocks <= total:
             raise ValueError(f"span [{first_block}, {first_block + num_blocks}) outside the model's {total} blocks")
-        if page_size < 1:
-            raise ValueError("this server serves the paged KV pool only: page_size must be >= 1")
         self.first_block, self.num_blocks = first_block, num_blocks
         self.dht_prefix = dht_prefix or default_dht_prefix(model_path)
         self.host, self.port = host, port
@@ -121,9 +128,9 @@ class Server:
         )
         batch_max_length = batch_max_length or min(inference_max_length, 1024)
         if batch_lanes is None:
-            # lanes cost their full length in pages: cap the pool at half the
-            # cache budget, as petals_tpu does; a quantized pool's pages cost
-            # their stored bytes
+            # lanes cost their full length: cap the pool at half the cache
+            # budget, as petals_tpu does (the other half serves private
+            # sessions); a quantized pool's pages cost their stored bytes
             lane_bytes = self.backend.kv_bytes_per_token() * batch_max_length
             batch_lanes = min(8, int(self.memory_cache.max_size_bytes // 2 // max(lane_bytes, 1)))
         if batch_lanes < 1:
@@ -134,7 +141,7 @@ class Server:
         self.queue = PriorityTaskQueue()
         self.batcher = DecodeBatcher(
             self.backend, self.memory_cache, self.queue,
-            n_lanes=batch_lanes, max_length=batch_max_length, page_size=page_size,
+            n_lanes=batch_lanes, max_length=batch_max_length, page_size=page_size or None,
             n_pages=n_pages, prefill_token_budget=prefill_token_budget,
             alloc_timeout=max_alloc_timeout,
         )
@@ -150,6 +157,7 @@ class Server:
         if self.device.type == "cuda":
             # build (or load) the CUDA kernels now, not inside the first step
             await asyncio.to_thread(paged_flash_attention.kernel_library)
+            await asyncio.to_thread(flash_attention.kernel_library)
             if self.quant_type != QuantType.NONE.value:
                 await asyncio.to_thread(quant_matmul.kernel_library)
         self.queue.start()

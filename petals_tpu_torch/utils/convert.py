@@ -81,3 +81,14 @@ def stacked_from_numpy(blocks: Sequence[Dict[str, object]], device, dtype: torch
     (the layout ``TransformerBackend`` takes); a quantized leaf stacks its
     pieces."""
     return {name: _stack([_leaf_to(b[name], device, dtype) for b in blocks]) for name in blocks[0]}
+
+
+def dense_cache_from_numpy(kv, device, dtype: Optional[torch.dtype] = None):
+    """A dense cache pair ``(k_stack, v_stack)``, each [n_blocks, batch,
+    max_length, hkv, d], from numpy into the port's tensors. Every array is
+    COPIED (``tensor_from_numpy``): ``np.asarray`` of a JAX array can share
+    its buffer, and the port's steps write caches in place. Deep prompts
+    [n_blocks, batch, pre_seq, hidden] cross through ``tensor_from_numpy``
+    the same way."""
+    k_stack, v_stack = kv
+    return tensor_from_numpy(k_stack, device, dtype), tensor_from_numpy(v_stack, device, dtype)

@@ -79,3 +79,50 @@ def test_entry_points_need_cuda_unless_asked_for_cpu(tmp_path):
         Server(str(tmp_path), first_block=0, num_blocks=1)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         load_block_params(str(tmp_path), 0)
+
+
+def test_flash_attention_never_falls_back_off_the_cpu():
+    """``flash_attend`` takes its plain version only for tensors on the CPU:
+    tensors elsewhere reach the kernel path or raise (here: a meta tensor, the
+    nearest thing to a CUDA tensor on a machine without a card), and a CUDA
+    launch without a card cannot build or load the kernel."""
+    from petals_tpu_torch.ops import flash_attention as fa
+    from petals_tpu_torch.ops.attention import attend
+
+    q = torch.zeros(1, 8, 4, 64)
+    k = torch.zeros(1, 16, 2, 64)
+    assert fa.flash_attend(q, k, k).shape == q.shape  # the CPU: the plain version
+    with pytest.raises(ValueError, match="one CUDA device"):
+        fa.flash_attend(q.to("meta"), k.to("meta"), k.to("meta"))
+    with pytest.raises(ValueError, match="one CUDA device"):
+        attend(q.to("meta"), k.to("meta"), k.to("meta"), use_flash=True)
+    with pytest.raises(ValueError, match="one CUDA device"):
+        fa.flash_attend(q, k.to("meta"), k.to("meta"))  # mixed devices
+    if not torch.cuda.is_available():
+        with pytest.raises(Exception):  # no nvcc, no card: the build or the load fails loudly
+            fa.kernel_library()
+
+
+@pytest.mark.parametrize("module", [
+    "petals_tpu_torch.ops.flash_attention",
+    "petals_tpu_torch.ops.attention",
+    "petals_tpu_torch.models.common",
+    "petals_tpu_torch.server.backend",
+    "petals_tpu_torch.server.batching",
+    "petals_tpu_torch.server.handler",
+    "petals_tpu_torch.server.server",
+    "petals_tpu_torch.utils.convert",
+])
+def test_dense_cache_modules_import_without_jax(module):
+    """Each module that serves dense caches, imported alone in a fresh
+    interpreter, loads neither jax nor the JAX package, and builds no kernel
+    at import."""
+    code = (
+        f"import importlib, sys; importlib.import_module({module!r}); "
+        "bad = [k for k in sys.modules if k.split('.')[0] in ('jax', 'jaxlib', 'petals_tpu')]; "
+        "assert not bad, bad; "
+        "from petals_tpu_torch.ops import flash_attention as fa; assert fa._LIB is None"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO_ROOT, env=env, capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr

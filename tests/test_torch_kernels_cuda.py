@@ -1,5 +1,5 @@
-"""The CUDA paged-attention kernels against their plain PyTorch versions on
-the card. Every test needs an NVIDIA GPU with nvcc and skips without one.
+"""The CUDA kernels (paged attention, dense flash attention, dequant-matmul)
+against their plain PyTorch versions on the card. Every test needs an NVIDIA GPU with nvcc and skips without one.
 This file imports neither jax nor petals_tpu, so it also runs where only the
 port's dependencies are installed:
 
@@ -18,6 +18,7 @@ import numpy as np
 import pytest
 import torch
 
+from petals_tpu_torch.ops import flash_attention as fa
 from petals_tpu_torch.ops import paged_flash_attention as pfa
 from petals_tpu_torch.ops import quant_matmul as qmm
 from petals_tpu_torch.ops.quant import dequantize, quantize
@@ -251,3 +252,126 @@ def test_dequant_matmul_refuses_what_the_kernels_do_not_take(cuda_device):
     odd = quantize(torch.randn(128, 72, device=cuda_device), "int8")  # out_features % 16
     with pytest.raises(ValueError):
         qmm.dequant_matmul(x, odd)
+
+
+# ---- K4: dense-buffer flash attention (csrc/flash_attention.cu)
+#
+# Tolerance as above: 2e-5 in float32; in bf16 the plain version rounds the
+# probabilities to bf16 as the kernel does, relative to the row's final max
+# where the kernel rounds relative to its running max, so a probability may
+# land one bf16 ulp apart, inside the same 2e-2.
+
+
+def _stacked_cache(rng, device, dtype, n_blocks, batch, buf, hkv, d):
+    """(k_stack, v_stack) [n_blocks, batch, buf, hkv, d]: a private session's
+    cache; block i's buffers are the strided views stack[i]."""
+    return _on(device, dtype, *rng.standard_normal((2, n_blocks, batch, buf, hkv, d)).astype(np.float32))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("group,d", [(4, 128), (1, 64), (8, 128), (16, 64)])
+@pytest.mark.parametrize("batch,q_len,buf,q_offset,window", [
+    (1, 130, 256, 0, None),  # offset 0, a ragged last tile
+    (2, 70, 200, 90, None),  # continuation; a buffer that is no multiple of 128 or of the tile
+    (2, 200, 333, 40, 50),  # window: tiles before it are never read
+    (1, 8, 77, 60, 4096),  # the smallest chunk the dispatch sends here
+    (3, 64, 64, 0, 1),  # every row sees itself only
+])
+def test_flash_kernel_matches_plain(cuda_device, dtype, group, d, batch, q_len, buf, q_offset, window):
+    rng = np.random.default_rng(30)
+    hkv = 2
+    k_stack, v_stack = _stacked_cache(rng, cuda_device, dtype, 3, batch, buf, hkv, d)
+    (q,) = _on(cuda_device, dtype, rng.standard_normal((batch, q_len, hkv * group, d)).astype(np.float32))
+    slopes = torch.from_numpy((rng.standard_normal(hkv * group) * 0.1).astype(np.float32)).to(cuda_device)
+    k, v = k_stack[1], v_stack[1]
+    kv_length = q_offset + q_len
+    for alibi in (None, slopes):
+        before = fa.flash_attend.launches
+        got = fa.flash_attend(q, k, v, q_offset=q_offset, kv_length=kv_length, alibi_slopes=alibi, sliding_window=window)
+        torch.cuda.synchronize()
+        assert fa.flash_attend.launches == before + 1
+        assert got.dtype == dtype and got.shape == q.shape and got.is_contiguous() and torch.isfinite(got).all()
+        want = fa.flash_attend_reference(
+            q, k, v, q_offset=q_offset, kv_length=kv_length, alibi_slopes=alibi, sliding_window=window
+        )
+        err = (got.float() - want.float()).abs().max().item()
+        assert err <= CUDA_TOL[dtype], err
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_kernel_on_strided_views(cuda_device, dtype):
+    """q sliced out of a fused qkv row, k/v a lane of a dense pool and a block
+    of a stacked cache: read through their strides, equal to contiguous copies."""
+    rng = np.random.default_rng(31)
+    hq, hkv, d, n = 8, 2, 128, 100
+    (qkv,) = _on(cuda_device, dtype, rng.standard_normal((2, n, (hq + 2 * hkv) * d)).astype(np.float32))
+    q = qkv[..., : hq * d].reshape(2, n, hq, d)
+    assert not q.is_contiguous()
+    k_pool, v_pool = _stacked_cache(rng, cuda_device, dtype, 2, 4, 160, hkv, d)  # [blocks, lanes, L, hkv, d]
+    for k, v, qq in ((k_pool[1, 1:3], v_pool[1, 1:3], q), (k_pool[:, 2:3][0], v_pool[:, 2:3][0], q[1:])):
+        got = fa.flash_attend(qq, k, v, q_offset=30, kv_length=30 + n, sliding_window=64)
+        want = fa.flash_attend(qq.contiguous(), k.contiguous(), v.contiguous(), q_offset=30, kv_length=30 + n, sliding_window=64)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want)
+        ref = fa.flash_attend_reference(qq, k, v, q_offset=30, kv_length=30 + n, sliding_window=64)
+        assert (got.float() - ref.float()).abs().max().item() <= CUDA_TOL[dtype]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_kernel_rows_that_see_nothing_are_exact_zeros(cuda_device, dtype):
+    rng = np.random.default_rng(32)
+    q, k, v = _on(cuda_device, dtype, *(rng.standard_normal(s).astype(np.float32)
+                                         for s in ((2, 80, 8, 128), (2, 96, 2, 128), (2, 96, 2, 128))))
+    got = fa.flash_attend(q, k, v, kv_length=0)
+    assert not got.any()
+    # the chunk overruns kv_length with a window: rows at 68 and later see (pos - 4, pos] beyond 64
+    got = fa.flash_attend(q, k, v, q_offset=60, kv_length=64, sliding_window=4)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all() and not got[:, 8:].any() and got[:, :4].any()
+    want = fa.flash_attend_reference(q, k, v, q_offset=60, kv_length=64, sliding_window=4)
+    assert (got.float() - want.float()).abs().max().item() <= CUDA_TOL[dtype]
+
+
+def test_attend_dispatches_dense_chunks_to_the_flash_kernel(cuda_device):
+    from petals_tpu_torch.ops.attention import attend, attend_reference
+
+    rng = np.random.default_rng(33)
+    q, k, v = _on(cuda_device, torch.bfloat16, *(rng.standard_normal(s).astype(np.float32)
+                                                  for s in ((2, 40, 8, 128), (2, 96, 2, 128), (2, 96, 2, 128))))
+    pfa.reset_launch_counts()
+    fa.reset_launch_counts()
+    out = attend(q, k, v, q_offset=5, kv_length=45, use_flash=True)
+    assert fa.flash_attend.launches == 1
+    ref = attend_reference(q, k, v, q_offset=5, kv_length=45)
+    assert (out.float() - ref.float()).abs().max().item() <= CUDA_TOL[torch.bfloat16]
+    attend(q[:, :7], k, v, q_offset=5, kv_length=12, use_flash=True)  # a decode shape
+    attend(q, k, v, q_offset=5, kv_length=45, use_flash=False)
+    positions = torch.tensor([5, 9], dtype=torch.int32, device=cuda_device)
+    attend(q[:, :1], k, v, q_offset=positions, kv_length=positions + 1, use_flash=True)  # per-lane positions
+    assert fa.flash_attend.launches == 1
+    assert pfa.paged_flash_attend.launches == pfa.paged_flash_prefill_attend.launches == 0
+
+
+def test_flash_wrapper_refuses_what_the_kernel_does_not_take(cuda_device):
+    def z(*shape, dtype=torch.bfloat16):
+        return torch.zeros(*shape, device=cuda_device, dtype=dtype)
+
+    with pytest.raises(ValueError):  # head_dim 96
+        fa.flash_attend(z(1, 8, 4, 96), z(1, 16, 2, 96), z(1, 16, 2, 96))
+    with pytest.raises(TypeError):  # float16
+        fa.flash_attend(z(1, 8, 4, 128, dtype=torch.float16), z(1, 16, 2, 128, dtype=torch.float16), z(1, 16, 2, 128, dtype=torch.float16))
+    with pytest.raises(TypeError):  # a cache of another type than q
+        fa.flash_attend(z(1, 8, 4, 128), z(1, 16, 2, 128, dtype=torch.float32), z(1, 16, 2, 128, dtype=torch.float32))
+    with pytest.raises(ValueError):  # 5 query heads over 2 kv heads
+        fa.flash_attend(z(1, 8, 5, 128), z(1, 16, 2, 128), z(1, 16, 2, 128))
+    with pytest.raises(ValueError):  # kv_length beyond the buffer
+        fa.flash_attend(z(1, 8, 4, 128), z(1, 16, 2, 128), z(1, 16, 2, 128), kv_length=17)
+    with pytest.raises(ValueError):  # the head dim must be contiguous
+        fa.flash_attend(z(1, 8, 4, 128), z(1, 16, 128, 2).transpose(2, 3), z(1, 16, 2, 128))
+    with pytest.raises(ValueError):  # window 0
+        fa.flash_attend(z(1, 8, 4, 128), z(1, 16, 2, 128), z(1, 16, 2, 128), sliding_window=0)
+    with pytest.raises(ValueError):  # a CUDA tensor never falls back to the CPU version
+        fa.flash_attend(z(1, 8, 4, 128).cpu(), z(1, 16, 2, 128), z(1, 16, 2, 128))
+    before = fa.flash_attend.launches
+    assert fa.flash_attend(z(1, 0, 4, 128), z(1, 16, 2, 128), z(1, 16, 2, 128)).shape == (1, 0, 4, 128)
+    assert fa.flash_attend.launches == before  # nothing to launch

@@ -8,7 +8,8 @@ wire is petals_tpu's, byte for byte.
   petals_tpu TransformerBackend.inference_step on the same weights, and the
   batcher's stats show the prefill rode mixed steps.
 - Steps and sessions this server does not serve yet (server-side
-  generation, KV import, batch > 1, sub-spans) get a clear error.
+  generation, KV import, adapters, push_to) get a clear error; batch > 1 and
+  sub-span sessions are served from private caches (tests/test_torch_dense.py).
 - The CLI builds the server with petals_tpu's pool-sizing defaults.
 - Greedy generation of 8 tokens, with the embeddings, final norm and head
   applied in the test from the checkpoint, is token-identical to the same
@@ -139,8 +140,9 @@ def test_concurrent_prefill_and_decode_match_jax(model_path):
 
 
 def test_unsupported_steps_get_a_clear_error(model_path):
-    """Server-side generation, KV import and sessions the lane pool cannot
-    serve are refused as not supported yet, never silently mishandled."""
+    """Server-side generation, KV import, push_to and adapters are refused as
+    not supported yet, never silently mishandled; sessions the lane pool
+    cannot hold (batch 2, a sub-span) open on private caches instead."""
     from petals_tpu.rpc.client import RpcError
 
     async def expect_refusal(client, open_msg, step=None):
@@ -161,8 +163,17 @@ def test_unsupported_steps_get_a_clear_error(model_path):
             await expect_refusal(client, good, {"tensors": {"hidden": hidden}, "gen_tokens": 4})
             await expect_refusal(client, good, {"tensors": {"hidden": hidden}, "gen_sampling": {"do_sample": True}})
             await expect_refusal(client, good, {"kv_import": {"position": 3}, "tensors": {}})
-            await expect_refusal(client, {**good, "batch_size": 2})
-            await expect_refusal(client, {**good, "uids": _uids(model_path).split(" ")[0]})
+            await expect_refusal(client, good, {"tensors": {"hidden": hidden}, "push_to": {"addr": "x", "session_id": "y"}})
+            await expect_refusal(client, {**good, "active_adapter": "lora"})
+            for open_msg in ({**good, "batch_size": 2}, {**good, "uids": _uids(model_path).split(" ")[0]}):
+                stream = await client.open_stream("ptu.inference")
+                await stream.send(open_msg)
+                assert (await stream.recv(timeout=60))["session_open"]
+                await stream.end()
+            await asyncio.sleep(0.1)
+            assert server.memory_cache.bytes_left == server.memory_cache.max_size_bytes - sum(
+                d.nbytes for d in server.backend.paged_cache_descriptors(
+                    server.batcher.n_pages, server.batcher.page_size, 0, N_LAYERS))
             # the lanes of the refused sessions came back
             assert sorted(server.batcher._free_lanes) == [0, 1]
         finally:
