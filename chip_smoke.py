@@ -48,16 +48,19 @@
    (no RPC) at 4 lanes; for each, the host wall (median, launch to
    synchronize), and from torch.profiler over PROFILE_CALLS further calls
    the device busy time, the kernel launches and the top operations, with
-   the idle share 1 - busy / wall of those same calls.
-5. Dequant-matmul kernels (K5: nf4, nf4a, int4; K6: int8) at Mistral-7B's
-   fused shapes, gate+up [4096, 28672] and down [14336, 4096], at 8 rows
-   (the decode kernel) and 512 rows (the prefill kernel), seeded bf16
-   weights quantized on the card: each against its plain version (x rounded
-   to bf16 against dequantize(w, bf16), summed in float32) within
-   QUANT_REL_TOL of the output's largest magnitude, with the kernel's, the
-   plain version's and a dense bf16 torch.matmul's time (the product the
-   quantized kernel replaces, timed here only) and the bound. (This phase
-   runs right after phase 2.)
+   the idle share 1 - busy / wall of those same calls, and each of the
+   port's kernels' device time a call and share of the busy time.
+5. Dequant-matmul kernels (K5: nf4, nf4a, int4; K6: int8) at the four
+   projections of a Mistral-7B block as the port serves them, wqkv [4096,
+   6144], wo [4096, 4096], gate+up [4096, 28672] and down [14336, 4096], at
+   8 rows (the decode kernel) and 64, 188 and 512 rows (the prefill kernel:
+   the main path's chunk lengths), seeded bf16 weights quantized on the
+   card: each against its plain version (x rounded to bf16 against
+   dequantize(w, bf16), summed in float32) within QUANT_REL_TOL of the
+   output's largest magnitude, timed beside a dense bf16 torch.matmul (the
+   product the quantized kernel replaces, timed here only) and the bound;
+   the plain version is timed at gate+up only, at 8 and 512 rows, the shape
+   the kernels line reports. (This phase runs right after phase 2.)
 6. Quantized server: the same 8-block span served with --quant_type nf4a
    (quantized on the card at load, qkv and gate+up fused) to the traffic of
    phase 3, checked as phase 3 checks, against dense references over the
@@ -189,10 +192,14 @@ SUB_SPAN_STEPS = (300,) + (1,) * 4
 DENSE_DECODE_STEPS = 16
 DENSE_CHUNK_TOKENS = 512  # the dense pool's chunk bound, in tokens of activations
 
-# K5/K6 at Mistral-7B's fused projections: gate+up [4096, 2 x 14336] and
-# down [14336, 4096], at a decode batch (8 rows) and a prefill chunk (512)
-QUANT_SHAPES = {"wgu": (4096, 2 * 14336), "wd": (14336, 4096)}
-QUANT_ROWS = (8, 512)
+# K5/K6 at the four projections of a Mistral-7B block as the port serves
+# them (qkv and gate+up fused), at a decode batch (8 rows) and at the chunk
+# lengths of the main path's prefill (64, 188 and 512 rows). The kernels line
+# reports gate+up at 8 and 512 rows, the shape its rows have always been taken at,
+# and only there is the plain version timed.
+QUANT_SHAPES = {"wqkv": (4096, 4096 + 2 * 1024), "wo": (4096, 4096), "wgu": (4096, 2 * 14336), "wd": (14336, 4096)}
+QUANT_ROWS = (8, 64, 188, 512)
+QUANT_REPORT = ("wgu", (8, 512))
 QUANT_KINDS = ("nf4", "nf4a", "int4", "int8")
 # kernel vs plain, as a share of the output's largest magnitude: the kernel
 # rounds its float32 sum once to bf16 (2**-9 relative); nf4a's kernel decodes
@@ -212,6 +219,9 @@ PROFILE_LANES = 4
 PROFILE_REPS = 20  # unprofiled calls for the median host wall
 PROFILE_CALLS = 5  # calls inside the profiler
 PROFILE_CHUNK = 512
+# the port's kernels, by the name each has in a profile
+PORT_KERNELS = ("paged_decode_kernel", "paged_prefill_kernel", "flash_attention_kernel", "quant_decode_kernel",
+                "quant_prefill_kernel", "split_reduce_kernel")
 
 
 def log(*parts) -> None:
@@ -473,15 +483,17 @@ def check_attention_kernels(device, timer, dec, pf, kind="none"):
 
 
 def check_quant_kernels(device, timer):
-    """K5 (nf4, nf4a, int4) and K6 (int8) against the plain version at
-    Mistral-7B's fused shapes; returns one report entry per kernel and arm
-    (decode and prefill), with the gate+up shape's times (without main-path
-    launch counts)."""
+    """K5 (nf4, nf4a, int4) and K6 (int8) against the plain version at the
+    four projections of a Mistral-7B block and QUANT_ROWS rows, each timed
+    beside the dense bf16 product and the bound; returns one report entry per
+    kernel and arm (decode and prefill) at QUANT_REPORT's shape (without
+    main-path launch counts)."""
     from petals_tpu_torch.ops import quant_matmul as qmm
     from petals_tpu_torch.ops.quant import dequant_matmul_reference, dequantize, quantize
 
     gen = torch.Generator(device=device).manual_seed(SEED + 7)
-    entries = {}
+    n_sm = torch.cuda.get_device_properties(device).multi_processor_count
+    entries, table = {}, []
     for shape_name, (k, n) in QUANT_SHAPES.items():
         dense = (torch.randn(k, n, generator=gen, device=device) * 0.02).to(torch.bfloat16)
         xs = {m: torch.randn(m, k, generator=gen, device=device).to(torch.bfloat16) for m in QUANT_ROWS}
@@ -504,12 +516,16 @@ def check_quant_kernels(device, timer):
                 if err > QUANT_REL_TOL * scale:
                     raise AssertionError(f"{label}: disagrees with its plain version: {err} > {QUANT_REL_TOL} * {scale}")
                 ms = timer(lambda: fn(x, w))
-                plain_ms = timer(lambda: dequant_matmul_reference(x, w))
+                report = shape_name == QUANT_REPORT[0] and m in QUANT_REPORT[1]
+                plain_ms = timer(lambda: dequant_matmul_reference(x, w)) if report else None
                 nbytes, flops = quant_bytes_and_flops(m, w)
                 bound, by = bound_ms(nbytes, flops)
+                plan = "" if decode else " plan {}".format(tuple(qmm.prefill_plan(m, k, n, n_sm)))
                 log(f"{label}: max abs err {err:.3e}, rel {err / scale:.3e} (tol {QUANT_REL_TOL}); "
-                    f"{ms:.4f} ms kernel, {plain_ms:.4f} ms plain, {library[m]:.4f} ms dense bf16 matmul, "
-                    f"bound {bound:.4f} ms ({by}, {nbytes / 1e6:.1f} MB, {flops / 1e9:.1f} GFLOP)")
+                    f"{ms:.4f} ms kernel, " + (f"{plain_ms:.4f} ms plain, " if report else "")
+                    + f"{library[m]:.4f} ms dense bf16 matmul ({ms / library[m]:.2f}x), "
+                    f"bound {bound:.4f} ms ({by}, {nbytes / 1e6:.1f} MB, {flops / 1e9:.1f} GFLOP){plan}")
+                table.append((kind, shape_name, m, ms, library[m], bound))
                 name = f"quant_{'decode' if decode else 'prefill'}_matmul[{kind}]"
                 entry = entries.setdefault(name, {
                     "name": name, "route": "cuda", "source": "petals_tpu_torch/csrc/quant_matmul.cu",
@@ -518,11 +534,16 @@ def check_quant_kernels(device, timer):
                     "max_abs_err": 0.0,
                 })
                 entry["max_abs_err"] = max(entry["max_abs_err"], err)
-                if shape_name == "wgu":
+                if report:
                     entry.update(shape=f"{shape_name} [{k}, {n}], M={m}", ms=ms, plain_ms=plain_ms,
-                                 bound_ms=bound, bound_by=by, library_ms=library[m])
+                                 bound_ms=bound, bound_by=by, library_ms=library[m],
+                                 library_factor=ms / library[m])
             del w, deq
         del dense, xs
+    log("dequant-matmul times, ms (kernel / dense bf16 matmul / bound):")
+    for kind in QUANT_KINDS:
+        log(f"  {kind}: " + "; ".join(f"{s} M={m} {ms:.4f}/{lib:.4f}/{b:.4f}"
+                                      for kd, s, m, ms, lib, b in table if kd == kind))
     return list(entries.values())
 
 
@@ -896,6 +917,11 @@ def profile_steps(backend, device) -> None:
         log(f"{label}: host wall {statistics.median(walls):.3f} ms (median of {PROFILE_REPS}); "
             f"profiled, per call over {PROFILE_CALLS}: host wall {prof_wall:.3f} ms, device busy {busy:.3f} ms, "
             f"idle share {1 - busy / prof_wall:.3f}, {launches / PROFILE_CALLS:g} kernel launches")
+        for kernel in PORT_KERNELS:
+            t = sum(e.self_device_time_total for e in events if e.device_type == DeviceType.CUDA and kernel in e.key)
+            if t:
+                log(f"{label}: {kernel} {t / 1e3 / PROFILE_CALLS:.3f} ms a call, "
+                    f"{t / 1e3 / PROFILE_CALLS / busy:.3f} of device busy")
         log(events.table(sort_by="self_device_time_total", row_limit=10, max_name_column_width=60))
 
 

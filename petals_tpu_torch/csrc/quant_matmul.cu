@@ -34,11 +34,23 @@
 // next to the decode; (c) splits K across blocks when N alone gives too few
 // blocks to fill the 132 SMs (wo and wd at Mistral-7B have only 4096
 // columns), with float32 partial sums reduced in a fixed order by a second
-// kernel. At prefill (M = a chunk of hundreds of rows) the work is ~2M FLOP
-// per weight on tensor cores: the prefill kernel decodes a 64 x 128 weight
-// tile to bf16 in shared memory once per 128 rows of x and runs mma.sync
-// from there (the TPU kernel's structure: decode the tile, then a dot).
-// wgmma, TMA and a persistent schedule are later work.
+// kernel.
+//
+// At prefill (M = a chunk of hundreds of rows) a call does 2*M*K*N
+// operations on bytes it reads once: it is bound by operations, 2*M*K*N over
+// the 989 TFLOP/s of bf16 tensor cores, and only wgmma reaches that rate. The
+// prefill kernel (a) runs wgmma.mma_async m64n128k16 from shared memory, x
+// arriving through a 4-stage cp.async ring in wgmma's 128-byte swizzle; (b)
+// decodes each 64 x 128 weight tile (one scale block) to bf16 in shared
+// memory, K-major and swizzled, into one of two buffers while the tensor
+// cores multiply the other, so the decode hides behind the products; (c)
+// shares each decoded tile across 128 or 256 rows of x (two warpgroups of
+// one or two 64-row sub-tiles; a sub-tile past M issues no product, so a
+// chunk wastes at most part of one 64-row tile) and decodes with cheap
+// instructions (nibbles to floats by a byte permute, no conversion); (d)
+// splits K into whole scale blocks when the tiles alone cannot fill the card
+// (ops/quant_matmul.py prefill_plan chooses the tile height and the split),
+// reduced in split order as at decode, so results are deterministic.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -294,166 +306,286 @@ __global__ void split_reduce_kernel(const float* __restrict__ partial, int k_spl
 
 // ---------------------------------------------------------------- prefill (M > 32)
 //
-// Block tile 128 x 128, one 64-row scale block of K per step; 8 warps as
-// 2 (rows) x 4 (columns), each 64 x 32 = 4 x 4 mma tiles. Per step: x's tile
-// arrives by cp.async (double-buffered, rows past M zero-filled), each
-// thread decodes one 16-byte vector of the weight tile (packed: 2 rows x 16
-// columns; int8: 1 row x 16 columns, twice) into bf16 in shared memory, and
-// the warps run ldmatrix + mma.sync over it. The next step's weight bytes
-// are loaded into registers while this step computes.
+// One block of two warpgroups (256 threads) owns a tile of 128 * MW rows of
+// x by 128 columns of the weight and a range of whole scale blocks of K (all
+// of K unless the host split K). Warpgroup g owns rows [64 * MW * g, 64 * MW *
+// (g + 1)) of the tile as MW sub-tiles of 64 rows; a sub-tile that lies past
+// M issues no product. A k step is one scale block (64 rows of K):
+//
+//   - x's 128 * MW x 64 tile and the step's raw weight bytes (and 4-bit
+//     scales) arrive by cp.async into a ring of PF_STAGES stages, issued
+//     PF_STAGES - 1 steps ahead; rows past M and columns past N zero-fill.
+//     x is stored K-major in wgmma's 128-byte swizzle (16-byte chunk c of row
+//     r at c ^ (r % 8)); the raw bytes with the same kind of swizzle keyed by
+//     the k chunk, so the decode's reads are free of bank conflicts.
+//   - The decoded tile B is bf16, K-major (row n = weight column, 64 k values
+//     = 128 bytes), in the same swizzle, and double-buffered. Step s issues
+//     wgmma.mma_async m64n128k16 on x[s] and B[s & 1], then, while the tensor
+//     cores run, all 256 threads decode step s + 1's bytes into B[(s + 1) & 1],
+//     then wait for the products and meet at one barrier.
+//   - Each thread decodes 4 weight columns x 8 k values a step: a packed byte
+//     holds k rows 2r and 2r + 1 of one column, a bf16 pair of B's row, so 4
+//     words of raw bytes become 4 16-byte stores. 4-bit levels come from the
+//     nibble through a byte permute into a float's mantissa (c exactly, with
+//     no int-to-float conversion), then int4's c - 8 or nf4a's f32 cubic, or
+//     nf4's table in shared memory; times the column's scale, rounded to
+//     bf16. int8 widens exactly; its column scale is applied to the sum.
+//
+// Epilogue: with one K split each thread rounds its sums (times int8's
+// column scale) to bf16 and stores them; with several it stores float32
+// partials that split_reduce_kernel adds in split order.
 
 constexpr int PF_THREADS = 256;
-constexpr int PF_BM = 128, PF_BN = 128;
-constexpr int PF_XP = QBLOCK + 8;  // padded pitches: conflict-free ldmatrix
-constexpr int PF_WP = PF_BN + 8;
-constexpr int PF_SMEM = (2 * PF_BM * PF_XP + QBLOCK * PF_WP) * 2;
+constexpr int PF_BN = 128;
+constexpr int PF_STAGES = 4;
+constexpr int PF_ROW_BYTES = QBLOCK * 2;  // one bf16 row of a k step: 128 bytes
 
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+// Shared memory of one block: PF_STAGES stages of [x | raw | scales], then
+// the two decoded B buffers, then nf4's table; every tile 1024-byte aligned
+// (the period of the 128-byte swizzle).
+template <int F, int MW>
+struct PrefillSmem {
+  static constexpr int X_BYTES = 128 * MW * PF_ROW_BYTES;
+  static constexpr int RAW_BYTES = F == INT8 ? QBLOCK * PF_BN : QBLOCK / 2 * PF_BN;
+  static constexpr int SCALE_BYTES = 1024;  // PF_BN bf16 scales, padded to the alignment
+  static constexpr int STAGE_BYTES = X_BYTES + RAW_BYTES + SCALE_BYTES;
+  static constexpr int B_BYTES = PF_BN * PF_ROW_BYTES;
+  static constexpr int B_OFFSET = PF_STAGES * STAGE_BYTES;
+  static constexpr int LUT_OFFSET = B_OFFSET + 2 * B_BYTES;
+  static constexpr int BYTES = LUT_OFFSET + 64 + 1024;  // + slack to align the base
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool valid) {
   const int bytes = valid ? 16 : 0;  // 0: zero-fill
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(src), "r"(bytes));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src), "r"(bytes) : "memory");
 }
 
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(p));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(s));
+// wgmma shared-memory descriptor of a K-major tile in the 128-byte swizzle:
+// 8-row groups 1024 bytes apart (SBO); the k16 step advances the start
+// address by 32 bytes inside the swizzled row.
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (static_cast<uint64_t>(16 >> 4) << 16) |
+         (static_cast<uint64_t>(1024 >> 4) << 32) | (1ull << 62);
 }
 
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const void* p) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(p));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(s));
+__device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
+__device__ __forceinline__ void wgmma_commit() { asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory"); }
+__device__ __forceinline__ void wgmma_wait0() { asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory"); }
+
+// keeps the compiler from moving accumulator registers across the
+// asynchronous products
+__device__ __forceinline__ void fence_acc(float (&d)[64]) {
+#pragma unroll
+  for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
+// d[64 x 128] += A[64 x 16] * B[16 x 128], both K-major in shared memory;
+// bf16 inputs, float32 sums
+__device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, "
+      "%22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, "
+      "%43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 0, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(1));  // scale-d: accumulate into d
+}
+
+// The 4-bit code in byte `sel` of `nibbles` (each byte 0..15) as a float,
+// exactly: the byte lands in the mantissa of 2**23, which is then subtracted.
+__device__ __forceinline__ float nibble_float(uint32_t nibbles, uint32_t sel) {
+  return __uint_as_float(__byte_perm(nibbles, 0x4B000000u, sel)) - 8388608.f;
+}
+
+// A 4-bit code's level (float32), as decode4 computes it.
 template <int F>
-__global__ void __launch_bounds__(PF_THREADS) quant_prefill_kernel(
+__device__ __forceinline__ float level4(uint32_t nibbles, uint32_t sel, const float* lut) {
+  if (F == NF4) return lut[__byte_perm(nibbles, 0u, sel)];
+  const float c = nibble_float(nibbles, sel);
+  if (F == INT4) return c - 8.f;
+  const float d = c - 7.5f;
+  return d * (NF4A_A + NF4A_B * d * d);
+}
+
+// __byte_perm selectors that move byte j of the first operand to byte 0 and
+// bytes 7, 6, 5 (of the second operand) above it
+__device__ __forceinline__ uint32_t low_byte_sel(int j) { return 0x7650u | static_cast<uint32_t>(j); }
+
+template <int F, int MW>
+__global__ void __launch_bounds__(PF_THREADS, 1) quant_prefill_kernel(
     const __nv_bfloat16* __restrict__ x, const uint8_t* __restrict__ data, const void* __restrict__ scales,
-    __nv_bfloat16* __restrict__ out, int M, int K, int N) {
-  extern __shared__ __align__(16) unsigned char pf_smem[];
-  __shared__ float lut[16];
-  __nv_bfloat16* xs = reinterpret_cast<__nv_bfloat16*>(pf_smem);  // [2][BM][XP]
-  __nv_bfloat16* ws = xs + 2 * PF_BM * PF_XP;                        // [64][WP]
+    __nv_bfloat16* __restrict__ out, float* __restrict__ partial, int M, int K, int N, int kb_per_split) {
+  using S = PrefillSmem<F, MW>;
+  constexpr int BM = 128 * MW;
+  constexpr int RAW_ROWS = F == INT8 ? QBLOCK : QBLOCK / 2;  // raw rows per k step
+  constexpr int RAW_GROUP = F == INT8 ? 8 : 4;               // raw rows per decoded 16-byte k chunk
+  extern __shared__ unsigned char pf_smem_raw[];
+  const uint32_t raw_base = smem_u32(pf_smem_raw);
+  unsigned char* smem = pf_smem_raw + (((raw_base + 1023) & ~1023u) - raw_base);
+  const uint32_t base = smem_u32(smem);
+  float* lut = reinterpret_cast<float*>(smem + S::LUT_OFFSET);
 
-  const int tid = threadIdx.x, warp = tid / WARP, lane = tid % WARP;
-  const int wm = warp / 4, wn = warp % 4;
-  const int m0 = blockIdx.y * PF_BM, n0 = blockIdx.x * PF_BN;
-  const int n_kb = K / QBLOCK;
-  if (tid < 16) lut[tid] = NF4_CODE[tid];
+  const int tid = threadIdx.x, wg = tid / 128, lane = tid % WARP, warp = tid / WARP;
+  const int m0 = blockIdx.x * BM, n0 = blockIdx.y * PF_BN;
+  const int kb_begin = blockIdx.z * kb_per_split;
+  const int n_steps = min(K / QBLOCK, kb_begin + kb_per_split) - kb_begin;
+  if (F == NF4 && tid < 16) lut[tid] = NF4_CODE[tid];
 
-  // this thread's share of the weight tile: 16 columns of packed row wr
-  // (rows 2wr, 2wr + 1), or of int8 rows wr and wr + 32
-  const int wr = tid / 8, wc = (tid % 8) * 16;
-  const bool wcol_ok = n0 + wc < N;
-
-  auto load_x = [&](int stage, int kb) {
+  // issue the cp.async copies of local step s into its ring stage (an empty
+  // group past the last step keeps the group count uniform)
+  auto load_step = [&](int s) {
+    if (s < n_steps) {
+      const int kb = kb_begin + s;
+      const uint32_t stage = base + (s % PF_STAGES) * S::STAGE_BYTES;
 #pragma unroll
-    for (int v = 0; v < (PF_BM * QBLOCK / 8) / PF_THREADS; ++v) {
-      const int i = tid + v * PF_THREADS;
-      const int r = i / 8, c = (i % 8) * 8;
-      const bool ok = m0 + r < M;
-      const __nv_bfloat16* src = ok ? x + static_cast<long>(m0 + r) * K + kb * QBLOCK + c : x;
-      cp_async16(xs + (stage * PF_BM + r) * PF_XP + c, src, ok);
+      for (int v = 0; v < BM * 8 / PF_THREADS; ++v) {
+        const int e = tid + v * PF_THREADS, r = e / 8, c = e % 8;
+        const bool ok = m0 + r < M;
+        const __nv_bfloat16* src = ok ? x + static_cast<long>(m0 + r) * K + kb * QBLOCK + c * 8 : x;
+        cp_async16(stage + r * PF_ROW_BYTES + ((c ^ (r % 8)) * 16), src, ok);
+      }
+#pragma unroll
+      for (int v = 0; v < RAW_ROWS * 8 / PF_THREADS; ++v) {
+        const int e = tid + v * PF_THREADS, r = e / 8, j = e % 8;
+        const bool ok = n0 + 16 * j < N;
+        const uint8_t* src = ok ? data + static_cast<long>(kb * RAW_ROWS + r) * N + n0 + 16 * j : data;
+        cp_async16(stage + S::X_BYTES + r * PF_BN + ((j ^ ((r / RAW_GROUP) % 8)) * 16), src, ok);
+      }
+      if (F != INT8 && tid < PF_BN / 8) {
+        const bool ok = n0 + 8 * tid < N;
+        const __nv_bfloat16* s_src = static_cast<const __nv_bfloat16*>(scales) + static_cast<long>(kb) * N + n0;
+        cp_async16(stage + S::X_BYTES + S::RAW_BYTES + tid * 16, ok ? s_src + 8 * tid : s_src, ok);
+      }
     }
-    asm volatile("cp.async.commit_group;\n" ::);
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
   };
-  uint4 wraw[2] = {};
-  float sc[16];
-  auto load_w = [&](int kb) {
-    if (!wcol_ok) return;
+
+  // this thread's share of the decode: weight columns 4q .. 4q + 3 of the
+  // tile, decoded k chunk c (k rows 8c .. 8c + 7 of the step)
+  const int c = lane % 8, q = 4 * warp + lane / 8;
+  auto decode_step = [&](int s) {
+    const unsigned char* stage = smem + (s % PF_STAGES) * S::STAGE_BYTES;
+    const unsigned char* raw = stage + S::X_BYTES + ((warp ^ c) * 16) + (lane / 8) * 4;
+    unsigned char* bt = smem + S::B_OFFSET + (s & 1) * S::B_BYTES;
+    uint32_t o[4][4];  // [column j][word]: bf16 pairs of k rows 8c + 2i, 8c + 2i + 1
     if (F == INT8) {
-      wraw[0] = load_stream(data + static_cast<long>(kb * QBLOCK + wr) * N + n0 + wc);
-      wraw[1] = load_stream(data + static_cast<long>(kb * QBLOCK + wr + 32) * N + n0 + wc);
+      uint32_t w[8];
+#pragma unroll
+      for (int i = 0; i < 8; ++i) w[i] = *reinterpret_cast<const uint32_t*>(raw + (8 * c + i) * PF_BN);
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          o[j][i] = pack_bf16(static_cast<float>(static_cast<int8_t>(w[2 * i] >> (8 * j))),
+                              static_cast<float>(static_cast<int8_t>(w[2 * i + 1] >> (8 * j))));
     } else {
-      wraw[0] = load_stream(data + static_cast<long>(kb * (QBLOCK / 2) + wr) * N + n0 + wc);
-      unpack_scales(static_cast<const __nv_bfloat16*>(scales) + static_cast<long>(kb) * N + n0 + wc, sc);
+      const uint2 sv = *reinterpret_cast<const uint2*>(stage + S::X_BYTES + S::RAW_BYTES + q * 8);
+      const float sc[4] = {__uint_as_float(sv.x << 16), __uint_as_float(sv.x & 0xFFFF0000u),
+                           __uint_as_float(sv.y << 16), __uint_as_float(sv.y & 0xFFFF0000u)};
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const uint32_t w = *reinterpret_cast<const uint32_t*>(raw + (4 * c + i) * PF_BN);
+        const uint32_t lo = w & 0x0F0F0F0Fu, hi = (w >> 4) & 0x0F0F0F0Fu;
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          o[j][i] = pack_bf16(level4<F>(lo, low_byte_sel(j), lut) * sc[j], level4<F>(hi, low_byte_sel(j), lut) * sc[j]);
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int n = 4 * q + j;
+      *reinterpret_cast<uint4*>(bt + n * PF_ROW_BYTES + ((c ^ (n % 8)) * 16)) =
+          make_uint4(o[j][0], o[j][1], o[j][2], o[j][3]);
     }
   };
 
-  float acc[4][4][4];
+  float acc[MW][64];
 #pragma unroll
-  for (int t = 0; t < 4; ++t)
+  for (int t = 0; t < MW; ++t)
 #pragma unroll
-    for (int j = 0; j < 4; ++j)
+    for (int i = 0; i < 64; ++i) acc[t][i] = 0.f;
+  // sub-tile t of this warpgroup covers rows m0 + 64 (MW g + t) ...: it
+  // issues products only if one of its rows lies below M
+  bool live[MW];
 #pragma unroll
-      for (int e = 0; e < 4; ++e) acc[t][j][e] = 0.f;
+  for (int t = 0; t < MW; ++t) live[t] = m0 + 64 * (MW * wg + t) < M;
 
-  load_x(0, 0);
-  load_w(0);
-  __syncthreads();  // lut
-  for (int kb = 0; kb < n_kb; ++kb) {
-    const int stage = kb & 1;
-    // decode this step's weight tile into ws (the previous step's readers are done)
-    uint32_t r0[8], r1[8];
-    if (!wcol_ok) {
+  // prologue: steps 0 .. STAGES - 2 in flight; steps 0 and 1 landed; B[0]
 #pragma unroll
-      for (int i = 0; i < 8; ++i) r0[i] = r1[i] = 0u;
-    } else if (F == INT8) {
+  for (int s = 0; s < PF_STAGES - 1; ++s) load_step(s);
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(PF_STAGES - 3) : "memory");
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  __syncthreads();
+  decode_step(0);
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  __syncthreads();
+
+  for (int s = 0; s < n_steps; ++s) {
+    // the stage step s - 1 used: its x was read by the products waited for
+    // at the end of step s - 1, its bytes decoded during step s - 2
+    load_step(s + PF_STAGES - 1);
+    const uint32_t xa = base + (s % PF_STAGES) * S::STAGE_BYTES + wg * MW * 64 * PF_ROW_BYTES;
+    const uint32_t bb = base + S::B_OFFSET + (s & 1) * S::B_BYTES;
 #pragma unroll
-      for (int i = 0; i < 8; ++i) {
-        r0[i] = int8_pair(byte_of(wraw[0], 2 * i), byte_of(wraw[0], 2 * i + 1));
-        r1[i] = int8_pair(byte_of(wraw[1], 2 * i), byte_of(wraw[1], 2 * i + 1));
-      }
-    } else {
+    for (int t = 0; t < MW; ++t) {
+      if (!live[t]) continue;
+      wgmma_fence();
 #pragma unroll
-      for (int i = 0; i < 8; ++i) {
-        const uint32_t b0 = byte_of(wraw[0], 2 * i), b1 = byte_of(wraw[0], 2 * i + 1);
-        r0[i] = pack_bf16(decode4<F>(b0 & 0xFu, lut) * sc[2 * i], decode4<F>(b1 & 0xFu, lut) * sc[2 * i + 1]);
-        r1[i] = pack_bf16(decode4<F>(b0 >> 4, lut) * sc[2 * i], decode4<F>(b1 >> 4, lut) * sc[2 * i + 1]);
-      }
+      for (int k = 0; k < QBLOCK / 16; ++k)
+        wgmma_m64n128k16(acc[t], sw128_desc(xa + t * 64 * PF_ROW_BYTES + 32 * k), sw128_desc(bb + 32 * k));
     }
-    const int row0 = F == INT8 ? wr : 2 * wr, row1 = F == INT8 ? wr + 32 : 2 * wr + 1;
-    uint4* d0 = reinterpret_cast<uint4*>(ws + row0 * PF_WP + wc);
-    uint4* d1 = reinterpret_cast<uint4*>(ws + row1 * PF_WP + wc);
-    d0[0] = make_uint4(r0[0], r0[1], r0[2], r0[3]);
-    d0[1] = make_uint4(r0[4], r0[5], r0[6], r0[7]);
-    d1[0] = make_uint4(r1[0], r1[1], r1[2], r1[3]);
-    d1[1] = make_uint4(r1[4], r1[5], r1[6], r1[7]);
-    asm volatile("cp.async.wait_all;\n" ::);
-    __syncthreads();
-    if (kb + 1 < n_kb) {
-      load_x(stage ^ 1, kb + 1);
-      load_w(kb + 1);
-    }
-    const __nv_bfloat16* xt = xs + stage * PF_BM * PF_XP;
+    wgmma_commit();
 #pragma unroll
-    for (int s = 0; s < QBLOCK / 16; ++s) {
-      uint32_t a[4][4];
+    for (int t = 0; t < MW; ++t) fence_acc(acc[t]);
+    // while the tensor cores run: the next step's weight tile
+    if (s + 1 < n_steps) decode_step(s + 1);
+    // steps <= s + 2 landed (the next step's x, the one after's bytes)
+    asm volatile("cp.async.wait_group %0;\n" ::"n"(PF_STAGES - 3) : "memory");
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    wgmma_wait0();
 #pragma unroll
-      for (int t = 0; t < 4; ++t)
-        ldmatrix_x4(a[t], xt + (wm * 64 + t * 16 + lane % 16) * PF_XP + 16 * s + (lane / 16) * 8);
-      uint32_t b[2][4];
-#pragma unroll
-      for (int h = 0; h < 2; ++h)  // n8 tiles 2h and 2h + 1 of the warp's 32 columns
-        ldmatrix_x4_trans(b[h], ws + (16 * s + lane % 16) * PF_WP + wn * 32 + h * 16 + (lane / 16) * 8);
-#pragma unroll
-      for (int t = 0; t < 4; ++t)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) mma_bf16(acc[t][j], a[t], b[j / 2][(j % 2) * 2], b[j / 2][(j % 2) * 2 + 1]);
-    }
+    for (int t = 0; t < MW; ++t) fence_acc(acc[t]);
     __syncthreads();
   }
 
+  // accumulator element i of a warpgroup's m64n128 product: row 16 * (warp
+  // in the group) + lane / 4 + 8 * bit 1 of i, column 8 * (i / 4) + 2 * (lane
+  // % 4) + bit 0 of i
   const float* col_scale = F == INT8 ? static_cast<const float*>(scales) : nullptr;
-  const int g = lane / 4, q = lane % 4;
 #pragma unroll
-  for (int t = 0; t < 4; ++t)
+  for (int t = 0; t < MW; ++t) {
+    if (!live[t]) continue;
+    const int row0 = m0 + 64 * (MW * wg + t) + 16 * (warp % 4) + lane / 4;
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int n = n0 + wn * 32 + j * 8 + 2 * q;
-      if (n >= N) continue;
-      float s0 = 1.f, s1 = 1.f;
-      if (col_scale != nullptr) s0 = col_scale[n], s1 = col_scale[n + 1];
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int m = m0 + wm * 64 + t * 16 + g + 8 * h;
-        if (m >= M) continue;
+    for (int i = 0; i < 64; i += 2) {
+      const int m = row0 + 8 * ((i >> 1) & 1);
+      const int n = n0 + 8 * (i / 4) + 2 * (lane % 4);
+      if (m >= M || n >= N) continue;
+      if (partial != nullptr) {
+        *reinterpret_cast<float2*>(partial + (static_cast<long>(blockIdx.z) * M + m) * N + n) =
+            make_float2(acc[t][i], acc[t][i + 1]);
+      } else {
+        float s0 = 1.f, s1 = 1.f;
+        if (col_scale != nullptr) s0 = col_scale[n], s1 = col_scale[n + 1];
         *reinterpret_cast<__nv_bfloat162*>(out + static_cast<long>(m) * N + n) =
-            __floats2bfloat162_rn(acc[t][j][2 * h] * s0, acc[t][j][2 * h + 1] * s1);
+            __floats2bfloat162_rn(acc[t][i] * s0, acc[t][i + 1] * s1);
       }
     }
+  }
 }
 
 template <int F, int MT>
@@ -473,20 +605,31 @@ int launch_decode(const void* x, const void* data, const void* scales, void* out
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int F>
-int launch_prefill(const void* x, const void* data, const void* scales, void* out, int M, int K, int N,
-                   cudaStream_t stream) {
-  static bool configured = false;
-  if (!configured) {
-    cudaError_t err = cudaFuncSetAttribute(quant_prefill_kernel<F>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                           PF_SMEM);
+template <int F, int MW>
+int launch_prefill(const void* x, const void* data, const void* scales, void* out, void* partial, int M, int K,
+                   int N, int k_splits, int kb_per_split, cudaStream_t stream) {
+  constexpr int kMaxDevices = 64;
+  static bool configured[kMaxDevices] = {};  // the shared-memory attribute, per device
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (dev >= kMaxDevices || !configured[dev]) {
+    err = cudaFuncSetAttribute(quant_prefill_kernel<F, MW>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               PrefillSmem<F, MW>::BYTES);
     if (err != cudaSuccess) return static_cast<int>(err);
-    configured = true;
+    if (dev < kMaxDevices) configured[dev] = true;
   }
-  const dim3 grid((N + PF_BN - 1) / PF_BN, (M + PF_BM - 1) / PF_BM);
-  quant_prefill_kernel<F><<<grid, PF_THREADS, PF_SMEM, stream>>>(
+  const dim3 grid((M + 128 * MW - 1) / (128 * MW), (N + PF_BN - 1) / PF_BN, k_splits);
+  quant_prefill_kernel<F, MW><<<grid, PF_THREADS, PrefillSmem<F, MW>::BYTES, stream>>>(
       static_cast<const __nv_bfloat16*>(x), static_cast<const uint8_t*>(data), scales,
-      static_cast<__nv_bfloat16*>(out), M, K, N);
+      static_cast<__nv_bfloat16*>(out), k_splits > 1 ? static_cast<float*>(partial) : nullptr, M, K, N,
+      kb_per_split);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || k_splits == 1) return static_cast<int>(err);
+  const long total = static_cast<long>(M) * N;
+  split_reduce_kernel<<<static_cast<unsigned>((total + 255) / 256), 256, 0, stream>>>(
+      static_cast<const float*>(partial), k_splits, F == INT8 ? static_cast<const float*>(scales) : nullptr,
+      static_cast<__nv_bfloat16*>(out), M, N);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -511,15 +654,25 @@ int ptt_quant_matmul_decode(int format, const void* x, const void* data, const v
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// out [M, N] bf16 = x [M, K] bf16 @ dequant(w), any M >= 1.
-int ptt_quant_matmul_prefill(int format, const void* x, const void* data, const void* scales, void* out, int M,
-                             int K, int N, void* stream) {
+// out [M, N] bf16 = x [M, K] bf16 @ dequant(w), any M >= 1, in tiles of
+// 128 * mw rows (mw 1 or 2) by 128 columns, K split into k_splits ranges of
+// kb_per_split scale blocks. With k_splits > 1, `partial` is float32
+// scratch of [k_splits, M, N].
+int ptt_quant_matmul_prefill(int format, const void* x, const void* data, const void* scales, void* out,
+                             void* partial, int M, int K, int N, int mw, int k_splits, int kb_per_split,
+                             void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (M < 1 || K % QBLOCK || N % 16) return static_cast<int>(cudaErrorInvalidValue);
-  if (format == NF4) return launch_prefill<NF4>(x, data, scales, out, M, K, N, s);
-  if (format == NF4A) return launch_prefill<NF4A>(x, data, scales, out, M, K, N, s);
-  if (format == INT4) return launch_prefill<INT4>(x, data, scales, out, M, K, N, s);
-  if (format == INT8) return launch_prefill<INT8>(x, data, scales, out, M, K, N, s);
+  if (M < 1 || K % QBLOCK || N % 16 || (mw != 1 && mw != 2) || k_splits < 1 || kb_per_split < 1 ||
+      (k_splits - 1) * kb_per_split >= K / QBLOCK || (k_splits > 1 && partial == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+#define PTT_PREFILL(F)                                                                                     \
+  return mw == 1 ? launch_prefill<F, 1>(x, data, scales, out, partial, M, K, N, k_splits, kb_per_split, s) \
+                 : launch_prefill<F, 2>(x, data, scales, out, partial, M, K, N, k_splits, kb_per_split, s)
+  if (format == NF4) PTT_PREFILL(NF4);
+  if (format == NF4A) PTT_PREFILL(NF4A);
+  if (format == INT4) PTT_PREFILL(INT4);
+  if (format == INT8) PTT_PREFILL(INT8);
+#undef PTT_PREFILL
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

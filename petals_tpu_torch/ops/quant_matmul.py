@@ -6,8 +6,9 @@ quantized weight to.
   kernel for nf4/nf4a/int4, K6 for int8; a weight stream that splits K
   across blocks when the columns alone cannot fill the card.
 - ``quant_prefill_matmul``: M > 32 rows: K5's prefill kernel for
-  nf4/nf4a/int4, K6 for int8; decodes a weight tile to bf16 in shared
-  memory, then tensor-core products.
+  nf4/nf4a/int4, K6 for int8; wgmma products on weight tiles decoded to
+  bf16 in shared memory while the tensor cores run, tiled and split by
+  ``prefill_plan``.
 
 Each takes x [M, in] and a ``QuantizedLinear``, casts x to bf16 and returns
 x's dtype. Tensors on the CPU go to the plain version
@@ -25,7 +26,7 @@ them and how their design answers that.
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -35,6 +36,9 @@ _NF4_DECODE_MAX_M = 32  # the decode/prefill split, as in the JAX package
 _FORMAT_CODES = {"nf4": 0, "nf4a": 1, "int4": 2, "int8": 3}
 _SLAB = 128  # columns per decode block
 _MIN_KB_PER_SPLIT = 8  # scale blocks (of 64 rows) each decode block takes at least
+_PF_BN = 128  # columns per prefill tile
+_PF_SUB_M = 64  # rows per warpgroup sub-tile of the prefill kernel
+_PF_MIN_KB_PER_SPLIT = 4  # scale blocks each prefill K split takes at least
 _LIB: Optional[ctypes.CDLL] = None
 
 
@@ -48,7 +52,7 @@ def kernel_library() -> ctypes.CDLL:
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.ptt_quant_matmul_decode.argtypes = [i] + [p] * 5 + [i] * 5 + [p]
         lib.ptt_quant_matmul_decode.restype = i
-        lib.ptt_quant_matmul_prefill.argtypes = [i] + [p] * 4 + [i] * 3 + [p]
+        lib.ptt_quant_matmul_prefill.argtypes = [i] + [p] * 5 + [i] * 6 + [p]
         lib.ptt_quant_matmul_prefill.restype = i
         lib.ptt_quant_error_string.argtypes = [i]
         lib.ptt_quant_error_string.restype = ctypes.c_char_p
@@ -67,6 +71,38 @@ def decode_splits(in_features: int, out_features: int, n_sm: int) -> Tuple[int, 
     per = max(_MIN_KB_PER_SPLIT, -(-n_kb // max(want, 1)))
     per = min(per, max(n_kb, 1))
     return -(-n_kb // per), per
+
+
+class PrefillPlan(NamedTuple):
+    """The prefill kernel's schedule: tiles of ``128 * mw`` rows (two
+    warpgroups of ``mw`` 64-row sub-tiles) by 128 columns; K cut into
+    ``k_splits`` ranges of ``kb_per_split`` scale blocks (the last may be
+    shorter); grid (m_tiles, n_tiles, k_splits)."""
+
+    mw: int
+    m_tiles: int
+    n_tiles: int
+    k_splits: int
+    kb_per_split: int
+
+
+def prefill_plan(m: int, in_features: int, out_features: int, n_sm: int) -> PrefillPlan:
+    """Tile height and K split of the prefill kernel for x [m, in] @ w [in,
+    out] on a card of ``n_sm`` SMs. Two 64-row sub-tiles a warpgroup (256-row
+    tiles) above 128 rows, so each decoded weight tile feeds more rows,
+    unless that leaves fewer tiles than SMs; then, while the tiles cannot
+    fill the card, K is split into whole scale blocks (at least
+    ``_PF_MIN_KB_PER_SPLIT`` each) until they can."""
+    n_tiles = -(-out_features // _PF_BN)
+    n_kb = in_features // NF4_BLOCK
+    mw = 1
+    if m > 2 * _PF_SUB_M and -(-m // (4 * _PF_SUB_M)) * n_tiles >= n_sm:
+        mw = 2
+    m_tiles = -(-m // (2 * _PF_SUB_M * mw))
+    tiles = m_tiles * n_tiles
+    want = -(-n_sm // tiles)
+    per = min(max(_PF_MIN_KB_PER_SPLIT, -(-n_kb // want)), n_kb)
+    return PrefillPlan(mw, m_tiles, n_tiles, -(-n_kb // per), per)
 
 
 _N_SM = {}
@@ -153,13 +189,19 @@ def quant_prefill_matmul(x2d: torch.Tensor, w: QuantizedLinear) -> torch.Tensor:
         return dequant_matmul_reference(x2d, w)
     xb = _check_cuda(x2d, w)
     m = xb.shape[0]
-    out = torch.empty(m, w.out_features, dtype=torch.bfloat16, device=xb.device)
+    k, n = w.in_features, w.out_features
+    out = torch.empty(m, n, dtype=torch.bfloat16, device=xb.device)
     if m == 0:
         return out.to(x2d.dtype)
+    plan = prefill_plan(m, k, n, _sm_count(xb.device))
+    partial = (
+        torch.empty(plan.k_splits, m, n, dtype=torch.float32, device=xb.device) if plan.k_splits > 1 else None
+    )
     with torch.cuda.device(xb.device):
         err = kernel_library().ptt_quant_matmul_prefill(
             _FORMAT_CODES[w.kind], xb.data_ptr(), w.data.data_ptr(), w.scales.data_ptr(), out.data_ptr(),
-            m, w.in_features, w.out_features, torch.cuda.current_stream(xb.device).cuda_stream,
+            partial.data_ptr() if partial is not None else None, m, k, n, plan.mw, plan.k_splits,
+            plan.kb_per_split, torch.cuda.current_stream(xb.device).cuda_stream,
         )
     _raise_on(err, "quant prefill matmul")
     quant_prefill_matmul.launches[w.kind] += 1

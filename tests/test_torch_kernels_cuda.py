@@ -219,14 +219,43 @@ def test_wrappers_refuse_bad_quantized_pools(cuda_device):
 
 
 QUANT_REL_TOL = 1e-2
+# Mistral-7B's projections as the port serves them (qkv and gate+up fused),
+# and (192, 80): rows padded to the stored 1024 (filled with garbage here,
+# which the kernels must ignore) and a partial 128-column tile
+QUANT_SHAPES = {
+    "wqkv": (4096, 6144), "wo": (4096, 4096), "wgu": (4096, 28672), "wd": (14336, 4096), "padded": (192, 80),
+}
+# decode rows (<= 32), then the main path's chunk lengths and the prefill
+# kernel's tile edges around them (64-row sub-tiles, 128- and 256-row tiles)
+QUANT_ROWS = [1, 8, 32, 33, 64, 65, 188, 300, 512, 516, 1024]
+_QUANT_WEIGHTS = {}
+
+
+def _quant_weight(device, kind, shape_name):
+    """A seeded weight of ``kind`` at one of QUANT_SHAPES, quantized on the
+    card once per run; the padded shape's stored rows past K hold garbage."""
+    key = (kind, shape_name)
+    if key not in _QUANT_WEIGHTS:
+        k, n = QUANT_SHAPES[shape_name]
+        gen = torch.Generator(device=device).manual_seed(20 + len(_QUANT_WEIGHTS))
+        w = quantize((torch.randn(k, n, generator=gen, device=device) * 0.02).to(torch.bfloat16), kind)
+        if shape_name == "padded":
+            rows = k if kind == "int8" else k // 2
+            w.data[rows:] = torch.randint(-128 if kind == "int8" else 0, 128 if kind == "int8" else 256,
+                                          w.data[rows:].shape, generator=gen, device=device).to(w.data.dtype)
+            if kind != "int8":
+                w.scales[k // 64:] = 1e3
+        _QUANT_WEIGHTS[key] = w
+    return _QUANT_WEIGHTS[key]
 
 
 @pytest.mark.parametrize("kind", ["nf4", "nf4a", "int4", "int8"])
-@pytest.mark.parametrize("m", [1, 8, 32, 33, 512])
-@pytest.mark.parametrize("k,n", [(4096, 6144), (14336, 4096), (192, 80)])  # (192, 80): padded rows, a partial slab
-def test_dequant_matmul_kernels_match_plain(cuda_device, kind, m, k, n):
+@pytest.mark.parametrize("m", QUANT_ROWS)
+@pytest.mark.parametrize("shape_name", list(QUANT_SHAPES))
+def test_dequant_matmul_kernels_match_plain(cuda_device, kind, m, shape_name):
+    w = _quant_weight(cuda_device, kind, shape_name)
+    k, n = QUANT_SHAPES[shape_name]
     gen = torch.Generator(device=cuda_device).manual_seed(20 + m)
-    w = quantize((torch.randn(k, n, generator=gen, device=cuda_device) * 0.02).to(torch.bfloat16), kind)
     x = torch.randn(m, k, generator=gen, device=cuda_device).to(torch.bfloat16)
     wrapper = qmm.quant_decode_matmul if m <= 32 else qmm.quant_prefill_matmul
     before = dict(wrapper.launches)
@@ -240,6 +269,32 @@ def test_dequant_matmul_kernels_match_plain(cuda_device, kind, m, k, n):
     # an f32 caller gets f32 back, computed on the same bf16-rounded x
     got32 = qmm.dequant_matmul(x.float(), w)
     assert got32.dtype == torch.float32 and torch.equal(got32, got.float())
+
+
+@pytest.mark.parametrize("kind", ["nf4a", "int8"])
+@pytest.mark.parametrize("m,shape_name", [(188, "wo"), (188, "wd"), (512, "wgu"), (65, "wqkv")])
+def test_prefill_kernel_is_deterministic(cuda_device, kind, m, shape_name):
+    """Two calls give bit-equal outputs: split-K partials are added in split
+    order, never by atomics."""
+    w = _quant_weight(cuda_device, kind, shape_name)
+    k, n = QUANT_SHAPES[shape_name]
+    plan = qmm.prefill_plan(m, k, n, torch.cuda.get_device_properties(cuda_device).multi_processor_count)
+    assert shape_name not in ("wo", "wd") or plan.k_splits > 1  # the split path is the one in question
+    x = torch.randn(m, k, generator=torch.Generator(device=cuda_device).manual_seed(7), device=cuda_device)
+    first = qmm.quant_prefill_matmul(x.to(torch.bfloat16), w)
+    second = qmm.quant_prefill_matmul(x.to(torch.bfloat16), w)
+    assert torch.equal(first, second)
+
+
+def test_prefill_launch_counter_counts_each_call(cuda_device):
+    w = _quant_weight(cuda_device, "nf4", "padded")
+    x = torch.randn(100, 192, device=cuda_device, dtype=torch.bfloat16)
+    before = dict(qmm.quant_prefill_matmul.launches)
+    for calls in (1, 2, 3):
+        qmm.quant_prefill_matmul(x, w)
+        assert qmm.quant_prefill_matmul.launches["nf4"] == before["nf4"] + calls
+    assert {k: v for k, v in qmm.quant_prefill_matmul.launches.items() if k != "nf4"} == {
+        k: v for k, v in before.items() if k != "nf4"}
 
 
 def test_dequant_matmul_refuses_what_the_kernels_do_not_take(cuda_device):
