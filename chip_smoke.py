@@ -11,10 +11,16 @@
    version on the same inputs, and time the kernel, the plain version and a
    library yardstick (page gather + scaled_dot_product_attention, timed here
    and used nowhere in the port) with CUDA events, the L2 cache flushed
-   before every launch.
+   before every launch and the card kept busy (a device-side spin) while the
+   host enqueues the timed call, so the events bracket device time only.
    - K1 paged decode: 8 lanes at ragged positions up to 1023 on permuted
      tables with holes past each frontier, one lane idle at the sentinel,
-     with the sliding window off, at Mistral's 4096 and at 200.
+     with the sliding window off, at Mistral's 4096 and at 200; its split
+     merge bit-equal over DECODE_REPEATS repeats; and three long contexts,
+     one lane and 8 lanes at position 4095 (tables of 4096 tokens) and 4
+     lanes at 1000 on tables of 8192 (short lanes on wide tables), each
+     against its plain version and timed beside gather + SDPA and the
+     bound. Each decode entry reports library_factor = kernel / library.
    - K2 chunked prefill: a 512-row chunk at position 0 and its 188-row
      continuation at 512.
    - K3, the quantized-pool arms of both (int8 and nf4a), on the same
@@ -23,9 +29,12 @@
    Tolerance: bf16 inputs against the plain version computed in float32 on
    the same bf16 values; the kernels accumulate in float32 and round once to
    bf16, so outputs of magnitude < 4 differ by at most half a bf16 ulp
-   (2**-7) plus summation order: max abs error <= 2e-2 (for K3 the plain
-   version decodes the pool to bf16 values, the kernel to float32, within
-   the same bound).
+   (2**-7) plus summation order: max abs error <= KERNEL_TOL = 2e-2 (for
+   K3 the plain version decodes the pool to bf16 values, the kernel to
+   float32, within the same bound). K1 on a bf16 pool is held tighter,
+   lane by lane: within OUT_REL_TOL = 2**-7 (twice its output's bf16
+   rounding) of the lane's largest output magnitude, so a lost split
+   fails where outputs are small (scripts/plant_attention_faults.py).
 3. Server: write a seeded Mistral-7B-v0.1-shaped checkpoint of 8 blocks
    (bf16, random weights) with the port's safetensors writer, start
    petals_tpu_torch's Server on 127.0.0.1 with the CLI's defaults, and open
@@ -49,7 +58,9 @@
    synchronize), and from torch.profiler over PROFILE_CALLS further calls
    the device busy time, the kernel launches and the top operations, with
    the idle share 1 - busy / wall of those same calls, and each of the
-   port's kernels' device time a call and share of the busy time.
+   port's kernels' device time a call and share of the busy time (K1 or
+   K3's decode arm is paged_decode_kernel; the decode step's launch count
+   shows the split merge adds none).
 5. Dequant-matmul kernels (K5: nf4, nf4a, int4; K6: int8) at the four
    projections of a Mistral-7B block as the port serves them, wqkv [4096,
    6144], wo [4096, 4096], gate+up [4096, 28672] and down [14336, 4096], at
@@ -90,7 +101,10 @@
    200, (d) batch 2, 333 rows at offset 100 over a buffer of 1000 rows (no multiple
    of 128 or of the kernel's tile). Against its plain version (float32
    scores, probabilities rounded to bf16 for the PV product as the kernel
-   rounds them) within KERNEL_TOL, for the reason phase 2 states. Times:
+   rounds them) within KERNEL_TOL, for the reason phase 2 states, on the
+   bf16 (wgmma) kernel and, on the same views in float32, the CUDA-core
+   kernel within F32_KERNEL_TOL = 1e-5 (the same arithmetic in another
+   order; inputs rounded to bf16 read ~1e-3). Times (bf16, with library_factor per case):
    the kernel, the plain version and the yardstick, one
    scaled_dot_product_attention call with an explicit mask over the valid
    part of the buffer (timed here, used nowhere in the port). The bound
@@ -158,6 +172,17 @@ HBM_BYTES_PER_S = 3.35e12
 BF16_FLOP_PER_S = 989e12
 
 KERNEL_TOL = 2e-2
+# K1 on a bf16 pool against its plain version in float32 on the same values:
+# the kernel's one rounding is its output's, to bf16, at most 2**-8 of the
+# value; so each lane's max abs error must lie within twice that of the
+# lane's largest output magnitude. At 4095 tokens the outputs are ~0.03,
+# where KERNEL_TOL is about one typical value and would pass a dropped
+# split; scripts/plant_attention_faults.py shows each limit rejects one.
+OUT_REL_TOL = 2**-7
+# K4's float32 kernel (CUDA cores) against its float32 plain version: the
+# same arithmetic in another order, 3.7e-7 at most on an H100; inputs
+# rounded to bf16 would read ~1e-3
+F32_KERNEL_TOL = 1e-5
 # K3 against its plain version on the same quantized pool: the plain version
 # decodes to bf16 values, the kernel to float32 registers, so every K/V value
 # may differ by half a bf16 ulp as well; the same KERNEL_TOL covers it
@@ -220,8 +245,13 @@ PROFILE_REPS = 20  # unprofiled calls for the median host wall
 PROFILE_CALLS = 5  # calls inside the profiler
 PROFILE_CHUNK = 512
 # the port's kernels, by the name each has in a profile
-PORT_KERNELS = ("paged_decode_kernel", "paged_prefill_kernel", "flash_attention_kernel", "quant_decode_kernel",
-                "quant_prefill_kernel", "split_reduce_kernel")
+PORT_KERNELS = ("paged_decode_kernel", "paged_prefill_kernel", "flash_attention_kernel", "flash_wgmma_kernel",
+                "quant_decode_kernel", "quant_prefill_kernel", "split_reduce_kernel")
+# K1 at long contexts (phase 2), Mistral-7B's window: (lanes, position of
+# each, tokens of each lane's table). The last is the common state of a
+# long-context server: short lanes on tables sized for --batch_max_length 8192.
+LONG_DECODE = ((1, 4095, 4096), (8, 4095, 4096), (4, 1000, 8192))
+DECODE_REPEATS = 5  # K1's split merge must give bit-equal outputs on repeats
 
 
 def log(*parts) -> None:
@@ -234,17 +264,34 @@ def log(*parts) -> None:
 class Timer:
     """Median device time of a callable over ``reps`` launches, measured
     with CUDA events; a write of 2x the L2 cache before each launch makes
-    every launch read its inputs from device memory, as a step does."""
+    every launch read its inputs from device memory, as a step does. A
+    device-side spin between the flush and the start event, longer than the
+    host takes to enqueue the callable (measured in its warm-up), keeps the
+    card busy while the host enqueues: the events then bracket the
+    callable's kernels back to back, not the host's Python in front of
+    them."""
 
     def __init__(self, device):
         self.flush = torch.empty(100 * 2**20, dtype=torch.uint8, device=device)
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        torch.cuda._sleep(1_000_000)
+        end.record()
+        end.synchronize()
+        self.cycles_per_ms = 1_000_000 / start.elapsed_time(end)
 
     def __call__(self, fn, reps: int = 30, warmup: int = 3) -> float:
+        host_ms = 0.0
         for _ in range(warmup):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
             fn()
+            host_ms = max(host_ms, (time.perf_counter() - t0) * 1e3)
+        spin = int(self.cycles_per_ms * min(50.0, 2 * host_ms + 0.1))
         times = []
         for _ in range(reps):
             self.flush.zero_()
+            torch.cuda._sleep(spin)
             start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
             start.record()
             fn()
@@ -420,10 +467,13 @@ def check_attention_kernels(device, timer, dec, pf, kind="none"):
         want = paged_attend(q.float(), plain_pool(kp), plain_pool(vp), tables, positions, sliding_window=w)
         if not torch.isfinite(got).all():
             raise AssertionError(f"{names[0]} window={w}: non-finite output")
-        err = (got[active].float() - want[active]).abs().max().item()
-        log(f"{names[0]}, window={w}: max abs err {err:.3e} (tol {KERNEL_TOL})")
-        if err > KERNEL_TOL:
-            raise AssertionError(f"{names[0]} disagrees with its plain version: {err} > {KERNEL_TOL}")
+        if kind == "none":
+            err = check_lanes(f"{names[0]}, window={w}", got[active], want[active])
+        else:
+            err = (got[active].float() - want[active]).abs().max().item()
+            log(f"{names[0]}, window={w}: max abs err {err:.3e} (tol {KERNEL_TOL})")
+            if err > KERNEL_TOL:
+                raise AssertionError(f"{names[0]} disagrees with its plain version: {err} > {KERNEL_TOL}")
         dec_err = max(dec_err, err)
     rows = dec["rows"]
     dec_bytes = 2 * rows * side_bytes + 2 * q.numel() * 2 + tables.numel() * 4 + positions.numel() * 4
@@ -440,9 +490,19 @@ def check_attention_kernels(device, timer, dec, pf, kind="none"):
         "bound_ms": dec_bound, "bound_by": dec_by,
         "library_ms": timer(lambda: _library_decode(dec, kp, vp, window)),
     }
+    decode["library_factor"] = decode["ms"] / decode["library_ms"]
     log(f"{names[0]} at 8 lanes, window 4096: {decode['ms']:.4f} ms kernel, {decode['plain_ms']:.4f} ms plain, "
-        f"{decode['library_ms']:.4f} ms gather+SDPA (its err {lib_err:.3e}), bound {dec_bound:.4f} ms "
-        f"({dec_by}, {dec_bytes / 1e6:.2f} MB)")
+        f"{decode['library_ms']:.4f} ms gather+SDPA (its err {lib_err:.3e}; kernel {decode['library_factor']:.3f}x), "
+        f"bound {dec_bound:.4f} ms ({dec_by}, {dec_bytes / 1e6:.2f} MB), "
+        f"{pfa.decode_split_plan(q.shape[0], hkv, tables.shape[1] * PAGE, _sm_count(device))} splits")
+    # the split merge is deterministic: the same bits whichever block merges
+    first = pfa.paged_flash_attend(q, kp, vp, tables, positions, sliding_window=window)
+    for _ in range(DECODE_REPEATS):
+        if not torch.equal(pfa.paged_flash_attend(q, kp, vp, tables, positions, sliding_window=window), first):
+            raise AssertionError(f"{names[0]}: the split merge is not bit-equal on repeats")
+    log(f"{names[0]}: bit-equal over {DECODE_REPEATS} repeats")
+    if kind == "none":
+        decode["long_context"] = [check_long_decode(device, timer, *case) for case in LONG_DECODE]
 
     # ---- prefill: a 512-row chunk at 0, then its 188-row continuation at 512
     table_row = pf["table_row"]
@@ -475,11 +535,73 @@ def check_attention_kernels(device, timer, dec, pf, kind="none"):
         "bound_ms": pf_bound, "bound_by": pf_by,
         "library_ms": timer(lambda: _library_prefill(pf, kp2, vp2, qc, window)),
     }
+    prefill["library_factor"] = prefill["ms"] / prefill["library_ms"]
     cont_ms = timer(lambda: pfa.paged_flash_prefill_attend(qc2, kp2, vp2, table_row, 512, 188, sliding_window=window))
     log(f"{names[1]} at a 512-row chunk: {prefill['ms']:.4f} ms kernel, {prefill['plain_ms']:.4f} ms plain, "
         f"{prefill['library_ms']:.4f} ms gather+SDPA, bound {pf_bound:.4f} ms ({pf_by}); "
         f"188-row continuation at 512: {cont_ms:.4f} ms kernel")
     return [decode, prefill]
+
+
+def check_lanes(label, got, want) -> float:
+    """K1's output on a bf16 pool against its plain version (float32), lane
+    by lane: each lane's max abs error within OUT_REL_TOL of its largest
+    output magnitude; returns the max abs error."""
+    if not torch.isfinite(got).all():
+        raise AssertionError(f"{label}: non-finite output")
+    err = (got.float() - want).abs().flatten(1).amax(1)
+    limit = OUT_REL_TOL * want.abs().flatten(1).amax(1)
+    worst = (err / limit.clamp_min(1e-30)).max().item()
+    log(f"{label}: max abs err {err.max().item():.3e}, at most {worst:.3f} of its lane's limit "
+        f"(OUT_REL_TOL {OUT_REL_TOL} x the lane's max |output|)")
+    if (err > limit).any():
+        raise AssertionError(f"{label} disagrees with its plain version: {worst:.3f} x its lane's limit")
+    return err.max().item()
+
+
+def _sm_count(device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def check_long_decode(device, timer, n_lanes, position, table_tokens):
+    """K1 at a long context: ``n_lanes`` lanes at ``position`` on permuted
+    tables of ``table_tokens`` tokens (bf16 pools at Mistral-7B widths,
+    window 4096), against its plain version and timed beside gather + SDPA
+    and the bound."""
+    from petals_tpu_torch.ops import paged_flash_attention as pfa
+    from petals_tpu_torch.ops.paged_attention import paged_attend
+
+    gen = torch.Generator(device=device).manual_seed(SEED + 10 + n_lanes)
+    hq, hkv, d, max_pages = 32, 8, 128, table_tokens // PAGE
+    window = MISTRAL_7B["sliding_window"]
+    n_pages = n_lanes * max_pages
+    tables = torch.randperm(n_pages, generator=torch.Generator().manual_seed(SEED + 11)).to(torch.int32)
+    tables = tables.reshape(n_lanes, max_pages).to(device)
+    positions = torch.full((n_lanes,), position, dtype=torch.int32, device=device)
+    kp, vp = (torch.randn(n_pages, PAGE, hkv, d, generator=gen, device=device).to(torch.bfloat16) for _ in range(2))
+    q = torch.randn(n_lanes, 1, hq, d, generator=gen, device=device).to(torch.bfloat16)
+    case = {"q": q, "tables": tables, "positions": positions}
+    got = pfa.paged_flash_attend(q, kp, vp, tables, positions, sliding_window=window)
+    torch.cuda.synchronize()
+    want = paged_attend(q.float(), kp.float(), vp.float(), tables, positions, sliding_window=window)
+    err = check_lanes(f"K1 at {n_lanes} lane(s) x position {position}, tables of {table_tokens}", got, want)
+    del want
+    rows = n_lanes * _visible(position, position + 1, window)
+    nbytes = 2 * rows * hkv * d * 2 + 2 * q.numel() * 2 + tables.numel() * 4 + positions.numel() * 4
+    bound, by = bound_ms(nbytes, 4 * hq * d * rows)
+    entry = {
+        "lanes": n_lanes, "position": position, "table_tokens": table_tokens, "max_abs_err": err,
+        "ms": timer(lambda: pfa.paged_flash_attend(q, kp, vp, tables, positions, sliding_window=window)),
+        "library_ms": timer(lambda: _library_decode(case, kp, vp, window)), "bound_ms": bound, "bound_by": by,
+        "splits": pfa.decode_split_plan(n_lanes, hkv, min(table_tokens, window), _sm_count(device)),
+    }
+    entry["library_factor"] = entry["ms"] / entry["library_ms"]
+    log(f"K1 at {n_lanes} lane(s) x position {position}, tables of {table_tokens}: {entry['ms']:.4f} ms kernel, "
+        f"{entry['library_ms']:.4f} ms gather+SDPA ({entry['library_factor']:.3f}x), bound {bound:.4f} ms "
+        f"({by}, {nbytes / 1e6:.1f} MB), {entry['splits']} splits")
+    if entry["ms"] >= entry["library_ms"]:
+        log(f"K1 at {n_lanes} lane(s) x position {position}: NOT faster than gather+SDPA")
+    return entry
 
 
 def check_quant_kernels(device, timer):
@@ -586,9 +708,17 @@ def check_flash_kernel(device, timer):
         if got.shape != q.shape or not torch.isfinite(got).all():
             raise AssertionError(f"K4 {name}: output {tuple(got.shape)} or non-finite")
         err = (got.float() - want).abs().max().item()
-        log(f"K4 {name}: max abs err {err:.3e} (tol {KERNEL_TOL})")
-        if err > KERNEL_TOL:
-            raise AssertionError(f"K4 {name} disagrees with its plain version: {err} > {KERNEL_TOL}")
+        # float32 keeps the CUDA-core kernel: the same views in float32
+        q32, k32, v32 = q.float(), k.float(), v.float()
+        got32 = fa.flash_attend(q32, k32, v32, **kw)
+        torch.cuda.synchronize()
+        err32 = (got32 - fa.flash_attend_reference(q32, k32, v32, **kw)).abs().max().item()
+        del q32, k32, v32, got32
+        log(f"K4 {name}: max abs err {err:.3e} bf16 (wgmma, tol {KERNEL_TOL}), "
+            f"{err32:.3e} float32 (CUDA cores, tol {F32_KERNEL_TOL})")
+        if err > KERNEL_TOL or err32 > F32_KERNEL_TOL:
+            raise AssertionError(f"K4 {name} disagrees with its plain version: bf16 {err} > {KERNEL_TOL} "
+                                 f"or float32 {err32} > {F32_KERNEL_TOL}")
         worst = max(worst, err)
 
         def library(q=q, k=k, v=v, q_offset=q_offset, kv_length=kv_length, w=w):
@@ -607,12 +737,17 @@ def check_flash_kernel(device, timer):
             "library_ms": timer(library), "bound_ms": bound, "bound_by": by,
         }
         t = timed[name]
+        t["library_factor"] = t["ms"] / t["library_ms"]
         log(f"K4 {name}: {t['ms']:.4f} ms kernel, {t['plain_ms']:.4f} ms plain, {t['library_ms']:.4f} ms SDPA with a "
-            f"mask (its err {lib_err:.3e}), bound {bound:.4f} ms ({by}, {nbytes / 1e6:.2f} MB)")
+            f"mask (its err {lib_err:.3e}; kernel {t['library_factor']:.3f}x), bound {bound:.4f} ms ({by}, "
+            f"{nbytes / 1e6:.2f} MB)")
+        if t["ms"] >= t["library_ms"]:
+            log(f"K4 {name}: NOT faster than SDPA with a mask")
     return {
         "name": "flash_attention", "route": "cuda", "source": "petals_tpu_torch/csrc/flash_attention.cu",
         "replaces": "petals_tpu/ops/flash_attention.py:104", "max_abs_err": worst,
         "shape": "q [1, 512, 32, 128] at offset 0, cache view [1, 2048, 8, 128]", **timed["a: 512 rows at 0"],
+        "cases": {name: {k: t[k] for k in ("ms", "library_ms", "bound_ms", "library_factor")} for name, t in timed.items()},
     }
 
 

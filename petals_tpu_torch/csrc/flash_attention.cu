@@ -17,13 +17,14 @@
 //
 // Where the TPU kernel makes the KV axis the last, sequential grid dimension
 // and carries m / l / acc in scratch memory from one grid step to the next,
-// here one block owns (batch row, query head, 64-row query tile) and loops
-// over the KV tiles itself; nothing carries between blocks. The TPU kernel's
+// here a block owns a query tile of one batch row and loops over the KV
+// tiles itself; nothing carries between blocks. The TPU kernel's
 // tile-needed predicate becomes the loop's bounds: the loop starts at the
 // first tile the window lets the tile's first row see and stops at
 // min(kv_length, last row + 1), so tiles past the causal frontier, past
-// kv_length or before the window are never read. Every tile is masked (the
-// TPU kernel's unmasked interior tiles are an optimisation left out).
+// kv_length or before the window are never read. The bf16 kernel masks
+// only the tiles some row sees in part (the TPU kernel's interior / edge
+// split); the float32 kernel masks every tile.
 //
 // q, k and v are read through the strides they are given (elements; the head
 // dim itself is contiguous): a session's per-block cache is a view of the
@@ -35,13 +36,13 @@
 // work is ~130 operations per byte of K/V read (each K/V row is read once per
 // KV head by the bound's count), under the card's ridge of ~295, so the bound
 // is bytes for short chunks and operations for long ones; either way it is a
-// few microseconds. This first version computes both products with CUDA-core
-// FMAs from register tiles (4 rows x 8 columns a thread, the loops of the
-// paged prefill kernel in csrc/paged_attention.cu), no tensor cores, so it is
-// bound by the FMA rate, tens of times above that bound. K/V tiles are
-// staged with cp.async (the whole tile in flight at once) into padded shared
-// rows; each query head of a GQA group reads its kv head's tiles again, from
-// L2. wgmma, TMA and sharing a tile across the group are later work.
+// few microseconds. The first version computed both products with CUDA-core
+// FMAs (68x that bound) and read each K/V tile once per query head. bf16 now
+// runs on wgmma with the GQA group packed into the 64 rows of a block, so a
+// tile is read once per kv head (the section before launch_wgmma). float32
+// keeps the CUDA-core kernel below: 4 rows x 8 columns a thread from
+// register tiles, K/V tiles staged with cp.async into padded shared rows, the
+// KV range between the window's and the causal frontier, every tile masked.
 //
 // Masked probabilities are selected to exactly 0, never left to
 // exp(NEG_INF - m): while every score so far was masked, m itself is NEG_INF
@@ -63,17 +64,13 @@ constexpr int NT = 128;  // threads per block
 constexpr int RPT = BQ / (NT / 8);  // rows per thread = 4
 constexpr int CPT = BKV / 8;        // score columns per thread = 8
 
+// the CUDA-core kernel is instantiated for float32 only (bf16 runs on wgmma)
 __device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
 
 template <typename T>
 __device__ __forceinline__ T from_f32(float x);
 template <>
 __device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
 
 template <typename T, int D>
 __host__ __device__ constexpr int kv_pitch() {
@@ -255,6 +252,351 @@ __global__ void __launch_bounds__(NT) flash_attention_kernel(
   }
 }
 
+// ---------------------------------------------------------------------------
+// bf16: wgmma. One warpgroup (128 threads) owns a block of 64 "rows": QP =
+// 64 / group query positions x the group's query heads of one kv head (row
+// m = position * group + head; 64 - QP * group rows idle when the group does
+// not divide 64), so each K/V tile is loaded once into shared memory and read
+// by the whole GQA group. Grid (hkv, batch, n_q_tiles), the query tile taken
+// in reverse (the tiles with the most KV under the causal frontier start
+// first).
+//
+// Shared memory, 1024-byte aligned: Q [64 rows x D], then STAGES stages of
+// K and V tiles [64 kv rows x D]. Every tile is stored as D / 64 column
+// atoms of [64 rows x 128 bytes] (8 KB each) in wgmma's 128-byte swizzle
+// (16-byte chunk c of row r at chunk c ^ (r % 8)), filled by cp.async with
+// rows past the end zero-filled:
+//   - S = Q K^T: wgmma m64n64k16, A = Q and B = K both K-major (a K tile
+//     [kv, d] is K-major for B as it is stored), D / 16 steps;
+//   - the online softmax runs on the accumulator registers (thread: rows
+//     lane / 4 and lane / 4 + 8 of its warp's 16, 16 columns each; quad
+//     shuffles for the row max; each thread keeps a partial row sum that the
+//     quad adds once at the end);
+//   - P is rounded to bf16 in registers, where the accumulator of two n8
+//     column blocks is exactly the A fragment of a k16 step, and O += P V is
+//     wgmma m64nDk16 with A from registers and V read as an MN-major
+//     (transposed) B straight from its [kv, d] tile: atoms of 64 d-columns
+//     8 KB apart (the descriptor's leading offset), 8-row groups 1 KB apart
+//     (its stride offset), a k16 step 2 KB further.
+// A K/V tile is masked only where some row of the block sees part of it (the
+// causal diagonal, kv_length, the window's edge): the TPU kernel's
+// _compute_interior / _compute_edge split. Every wgmma is issued outside any
+// branch that differs between threads (ptxas serializes wgmma behind a
+// divergent path).
+// ---------------------------------------------------------------------------
+
+constexpr int WARP = 32;
+constexpr int WG_THREADS = 128;
+constexpr int WG_ROWS = 64;      // rows of a block (query positions x heads)
+constexpr int WG_KV = 64;        // kv rows per tile
+constexpr int WG_STAGES = 2;     // K/V tiles in the ring
+constexpr int ATOM_BYTES = 64 * 128;  // one [64 rows x 64 bf16] swizzled atom
+constexpr float LOG2E = 1.4426950408889634f;
+
+template <int D>
+struct WgmmaSmem {
+  static constexpr int TILE = D / 64 * ATOM_BYTES;  // Q, K or V
+  static constexpr int K_OFFSET = TILE;             // Q first
+  static constexpr int STAGE = 2 * TILE;            // K then V
+  static constexpr int BYTES = TILE + WG_STAGES * STAGE + 1024;  // + slack to align the base
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
+}
+
+// descriptor of a K-major tile in the 128-byte swizzle: 8-row groups 1024
+// bytes apart; a k16 step advances the start by 32 bytes inside the row
+__device__ __forceinline__ uint64_t desc_k_major(uint32_t addr) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (static_cast<uint64_t>(16 >> 4) << 16) |
+         (static_cast<uint64_t>(1024 >> 4) << 32) | (1ull << 62);
+}
+
+// descriptor of an MN-major tile in the 128-byte swizzle: 64-column atoms
+// ATOM_BYTES apart along N (leading offset), 8-row groups along K 1024 bytes
+// apart (stride offset)
+__device__ __forceinline__ uint64_t desc_mn_major(uint32_t addr) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (static_cast<uint64_t>(ATOM_BYTES >> 4) << 16) |
+         (static_cast<uint64_t>(1024 >> 4) << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
+__device__ __forceinline__ void wgmma_commit() { asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory"); }
+__device__ __forceinline__ void wgmma_wait0() { asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory"); }
+
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// s[64 x 64] (+)= A[64 x 16] * B[16 x 64], both K-major in shared memory
+__device__ __forceinline__ void wgmma_m64n64k16_ss(float (&d)[32], uint64_t da, uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, "
+      "%22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// o[64 x 64] += P[64 x 16] (registers) * V[16 x 64] (MN-major in shared memory)
+__device__ __forceinline__ void wgmma_m64n64k16_rs(float (&d)[32], const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, "
+      "%22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));  // scale-d: accumulate
+}
+
+// o[64 x 128] += P[64 x 16] (registers) * V[16 x 128] (MN-major in shared memory)
+__device__ __forceinline__ void wgmma_m64n128k16_rs(float (&d)[64], const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, "
+      "%22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, "
+      "%43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));  // scale-d: accumulate
+}
+
+template <int D>
+__device__ __forceinline__ void wgmma_pv(float (&o)[D / 2], const uint32_t (&a)[4], uint64_t db) {
+  if constexpr (D == 64) {
+    wgmma_m64n64k16_rs(o, a, db);
+  } else {
+    wgmma_m64n128k16_rs(o, a, db);
+  }
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// The online softmax of one tile on the S accumulator (log2 domain; scores
+// already scaled): row j in {0, 1} of this thread is rows lane / 4 + 8 j of
+// its warp's 16. Masked scores become probability 0 by a select.
+template <bool MASK>
+__device__ __forceinline__ void softmax_tile(float (&s)[32], float (&m)[2], float (&l)[2], float (&alpha)[2],
+                                             const int (&q_pos)[2], int t0, int col0, int kv_length,
+                                             int window) {
+#pragma unroll
+  for (int j = 0; j < 2; ++j) {
+    float mx = NEG_INF;
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      if (((i >> 1) & 1) != j) continue;
+      if (MASK) {
+        const int kv = t0 + col0 + 8 * (i / 4) + (i & 1);
+        const bool ok = kv <= q_pos[j] && kv < kv_length && (window <= 0 || kv > q_pos[j] - window);
+        if (!ok) s[i] = NEG_INF;
+      }
+      mx = fmaxf(mx, s[i]);
+    }
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+    const float m_new = fmaxf(m[j], mx);
+    alpha[j] = exp2f(m[j] - m_new);
+    m[j] = m_new;
+    float sum = 0.f;
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      if (((i >> 1) & 1) != j) continue;
+      const float e = (MASK && s[i] == NEG_INF) ? 0.f : exp2f(s[i] - m_new);
+      s[i] = e;
+      sum += e;
+    }
+    l[j] = l[j] * alpha[j] + sum;
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(WG_THREADS, 2) flash_wgmma_kernel(
+    const __nv_bfloat16* __restrict__ q,  // [batch, q_len, hq, D] through q_s*
+    const __nv_bfloat16* __restrict__ k,  // [batch, kv_buf_len, hkv, D] through k_s*
+    const __nv_bfloat16* __restrict__ v,
+    const float* __restrict__ slopes,     // [hq] ALiBi slopes or nullptr
+    __nv_bfloat16* __restrict__ out,      // [batch, q_len, hq, D], contiguous
+    int q_len, int hq, int hkv, long q_sb, long q_ss, long q_sh, long k_sb, long k_ss, long k_sh,
+    long v_sb, long v_ss, long v_sh, int q_offset, int kv_length, int window, float scale) {
+  using S = WgmmaSmem<D>;
+  constexpr int CH = D / 8;  // 16-byte chunks of a row
+  extern __shared__ unsigned char wg_smem_raw[];
+  const uint32_t raw_base = smem_u32(wg_smem_raw);
+  const uint32_t base = (raw_base + 1023) & ~1023u;
+
+  const int group = hq / hkv;
+  const int qp = WG_ROWS / group;  // query positions of a block
+  const int kvh = blockIdx.x, b = blockIdx.y;
+  const int tile = gridDim.z - 1 - blockIdx.z;  // heaviest first
+  const int pos0 = tile * qp;                   // the block's first position in the chunk
+  const int tid = threadIdx.x, warp = tid / WARP, lane = tid % WARP;
+
+  // the KV range any real row sees: from the window's start for the first
+  // position to the causal frontier of the last real one
+  const int p_first = q_offset + pos0;
+  const int p_last = q_offset + min(q_len, pos0 + qp) - 1;
+  const int kv_hi = min(kv_length, p_last + 1);
+  const int kv_lo = window > 0 ? max(0, p_first - window + 1) : 0;
+  const int n_tiles = kv_hi > kv_lo ? (kv_hi - kv_lo + WG_KV - 1) / WG_KV : 0;
+
+  // Q: row m = position * group + head; idle rows and rows past q_len zero-fill
+  for (int e = tid; e < WG_ROWS * CH; e += WG_THREADS) {
+    const int m = e / CH, c = e % CH;
+    const int pos = m / group, h = m % group;
+    const bool ok = pos < qp && pos0 + pos < q_len;
+    const __nv_bfloat16* src = ok ? q + b * q_sb + (long)(pos0 + pos) * q_ss + (long)(kvh * group + h) * q_sh + c * 8 : q;
+    cp_async16(base + (c / 8) * ATOM_BYTES + m * 128 + (((c % 8) ^ (m % 8)) * 16), src, ok);
+  }
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+
+  const __nv_bfloat16* k_base = k + b * k_sb + kvh * k_sh;
+  const __nv_bfloat16* v_base = v + b * v_sb + kvh * v_sh;
+  auto load_tile = [&](int j) {
+    if (j < n_tiles) {
+      const int t0 = kv_lo + j * WG_KV;
+      const uint32_t ks = base + S::K_OFFSET + (j % WG_STAGES) * S::STAGE;
+      for (int e = tid; e < WG_KV * CH; e += WG_THREADS) {
+        const int r = e / CH, c = e % CH;
+        const bool ok = t0 + r < kv_hi;
+        const uint32_t off = (c / 8) * ATOM_BYTES + r * 128 + (((c % 8) ^ (r % 8)) * 16);
+        cp_async16(ks + off, ok ? k_base + (long)(t0 + r) * k_ss + c * 8 : k, ok);
+        cp_async16(ks + S::TILE + off, ok ? v_base + (long)(t0 + r) * v_ss + c * 8 : v, ok);
+      }
+    }
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+  };
+  load_tile(0);
+
+  // this thread's two rows: (position, head) and their scales in log2 units
+  int q_pos[2], head[2];
+  bool real[2];
+  float slope[2];
+#pragma unroll
+  for (int j = 0; j < 2; ++j) {
+    const int m = 16 * warp + lane / 4 + 8 * j;
+    const int pos = m / group;
+    head[j] = m % group;
+    real[j] = pos < qp && pos0 + pos < q_len;
+    q_pos[j] = p_first + pos;
+    slope[j] = slopes != nullptr ? slopes[kvh * group + head[j]] * LOG2E : 0.f;
+  }
+  const float qk_scale = scale * LOG2E;
+  const int col0 = 2 * (lane % 4);
+
+  float o[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+  float m_run[2] = {NEG_INF, NEG_INF}, l_run[2] = {0.f, 0.f};
+
+  for (int j = 0; j < n_tiles; ++j) {
+    load_tile(j + 1);
+    asm volatile("cp.async.wait_group 1;\n" ::: "memory");  // Q and tile j landed
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    __syncthreads();
+    const int t0 = kv_lo + j * WG_KV;
+    const uint32_t ks = base + S::K_OFFSET + (j % WG_STAGES) * S::STAGE;
+    const uint32_t vs = ks + S::TILE;
+
+    float s[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) s[i] = 0.f;
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      const uint32_t off = (kk / 4) * ATOM_BYTES + (kk % 4) * 32;
+      wgmma_m64n64k16_ss(s, desc_k_major(base + off), desc_k_major(ks + off), kk > 0);
+    }
+    wgmma_commit();
+    fence_regs(s);
+    wgmma_wait0();
+    fence_regs(s);
+
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const int kv = t0 + col0 + 8 * (i / 4) + (i & 1);
+      s[i] = s[i] * qk_scale + slope[(i >> 1) & 1] * (float)kv;
+    }
+    // interior: every row of the block sees every column of the tile
+    const bool interior = t0 + WG_KV - 1 <= p_first && t0 + WG_KV <= kv_length &&
+                          (window <= 0 || t0 > p_last - window);
+    float alpha[2];
+    if (interior) {
+      softmax_tile<false>(s, m_run, l_run, alpha, q_pos, t0, col0, kv_length, window);
+    } else {
+      softmax_tile<true>(s, m_run, l_run, alpha, q_pos, t0, col0, kv_length, window);
+    }
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) o[i] *= alpha[(i >> 1) & 1];
+
+    // P as the A fragments of the four k16 steps; the PV products
+    uint32_t a[4][4];
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+#pragma unroll
+      for (int r = 0; r < 4; ++r) a[kk][r] = pack_bf16(s[8 * kk + 2 * r], s[8 * kk + 2 * r + 1]);
+    }
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) wgmma_pv<D>(o, a[kk], desc_mn_major(vs + kk * 2048));
+    wgmma_commit();
+    fence_regs(o);
+    wgmma_wait0();
+    fence_regs(o);
+    __syncthreads();  // this stage is refilled next
+  }
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+
+  // a row that saw nothing keeps l == 0 and writes exact zeros
+  float inv[2];
+#pragma unroll
+  for (int j = 0; j < 2; ++j) {
+    float l = l_run[j];
+    l += __shfl_xor_sync(0xffffffffu, l, 1);
+    l += __shfl_xor_sync(0xffffffffu, l, 2);
+    inv[j] = 1.f / fmaxf(l, 1e-30f);
+  }
+#pragma unroll
+  for (int j = 0; j < 2; ++j) {
+    if (!real[j]) continue;
+    __nv_bfloat16* row = out + (((long)b * q_len + (q_pos[j] - q_offset)) * hq + kvh * group + head[j]) * D;
+#pragma unroll
+    for (int i = 2 * j; i < D / 2; i += 4) {
+      *reinterpret_cast<__nv_bfloat162*>(row + 8 * (i / 4) + col0) =
+          __floats2bfloat162_rn(o[i] * inv[j], o[i + 1] * inv[j]);
+    }
+  }
+}
+
 template <typename T, int D>
 int launch(const void* q, const void* k, const void* v, const float* slopes, void* out, int batch,
            int q_len, int hq, int hkv, long q_sb, long q_ss, long q_sh, long k_sb, long k_ss,
@@ -275,14 +617,42 @@ int launch(const void* q, const void* k, const void* v, const float* slopes, voi
   return (int)cudaGetLastError();
 }
 
+template <int D>
+int launch_wgmma(const void* q, const void* k, const void* v, const float* slopes, void* out, int batch,
+                 int q_len, int hq, int hkv, long q_sb, long q_ss, long q_sh, long k_sb, long k_ss,
+                 long k_sh, long v_sb, long v_ss, long v_sh, int q_offset, int kv_length, int window,
+                 float scale, cudaStream_t stream) {
+  constexpr int kMaxDevices = 64;
+  static bool configured[kMaxDevices] = {};  // the shared-memory attribute, per device
+  const int group = hq / hkv;
+  if (group > WG_ROWS) return (int)cudaErrorInvalidValue;
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  if (dev >= kMaxDevices || !configured[dev]) {
+    err = cudaFuncSetAttribute(flash_wgmma_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               WgmmaSmem<D>::BYTES);
+    if (err != cudaSuccess) return (int)err;
+    if (dev < kMaxDevices) configured[dev] = true;
+  }
+  const int qp = WG_ROWS / group;
+  flash_wgmma_kernel<D><<<dim3(hkv, batch, (q_len + qp - 1) / qp), WG_THREADS, WgmmaSmem<D>::BYTES, stream>>>(
+      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
+      static_cast<const __nv_bfloat16*>(v), slopes, static_cast<__nv_bfloat16*>(out), q_len, hq, hkv, q_sb,
+      q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, q_offset, kv_length, window, scale);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
 
 // dtype codes (q, k, v and the output share one type): 0 = float32, 1 =
-// bfloat16. Strides are in elements. The wrapper in
-// petals_tpu_torch/ops/flash_attention.py validates every argument; an
-// unsupported (dtype, head_dim) pair returns cudaErrorInvalidValue.
+// bfloat16 (the wgmma kernel; float32 keeps the CUDA-core kernel, since TF32
+// tensor cores would change float32 results). Strides are in elements. The
+// wrapper in petals_tpu_torch/ops/flash_attention.py validates every
+// argument; an unsupported (dtype, head_dim) pair returns
+// cudaErrorInvalidValue.
 int ptt_flash_attention(const void* q, const void* k, const void* v, const void* slopes, void* out,
                         int dtype, int batch, int q_len, int hq, int hkv, int head_dim,
                         long long q_sb, long long q_ss, long long q_sh, long long k_sb,
@@ -291,13 +661,13 @@ int ptt_flash_attention(const void* q, const void* k, const void* v, const void*
                         void* stream) {
   const float* sl = static_cast<const float*>(slopes);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define PTT_FLASH(T, D)                                                                          \
-  return launch<T, D>(q, k, v, sl, out, batch, q_len, hq, hkv, q_sb, q_ss, q_sh, k_sb, k_ss,     \
-                      k_sh, v_sb, v_ss, v_sh, q_offset, kv_length, window, scale, s)
-  if (dtype == 0 && head_dim == 64) PTT_FLASH(float, 64);
-  if (dtype == 0 && head_dim == 128) PTT_FLASH(float, 128);
-  if (dtype == 1 && head_dim == 64) PTT_FLASH(__nv_bfloat16, 64);
-  if (dtype == 1 && head_dim == 128) PTT_FLASH(__nv_bfloat16, 128);
+#define PTT_FLASH(LAUNCH)                                                                   \
+  return LAUNCH(q, k, v, sl, out, batch, q_len, hq, hkv, q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, \
+                v_sb, v_ss, v_sh, q_offset, kv_length, window, scale, s)
+  if (dtype == 0 && head_dim == 64) PTT_FLASH((launch<float, 64>));
+  if (dtype == 0 && head_dim == 128) PTT_FLASH((launch<float, 128>));
+  if (dtype == 1 && head_dim == 64) PTT_FLASH(launch_wgmma<64>);
+  if (dtype == 1 && head_dim == 128) PTT_FLASH(launch_wgmma<128>);
 #undef PTT_FLASH
   return (int)cudaErrorInvalidValue;
 }

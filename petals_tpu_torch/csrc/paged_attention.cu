@@ -14,19 +14,29 @@
 // sliding window are never read at all.
 //
 // What bounds them on this card. Decode reads every needed K/V page once and
-// does ~1 FLOP per byte: it is bound by HBM bytes (3.35 TB/s). The design
-// keeps each page read to exactly one pass per (lane, kv head): one block
-// owns a lane's kv head and computes all `group` query rows of that head from
-// the same shared-memory copy of the page (GQA sharing), so pool bytes are
-// read once, not once per query head. Pages are staged with cp.async, the
-// whole page in flight at once, because one block per (lane, kv head) leaves
-// most SMs idle at small batch and each block's page reads are then bound by
-// memory latency, not bandwidth. Chunked prefill at a 512-token chunk
-// does ~200 FLOP per byte, close to the card's ridge point; this first
-// version keeps the 64-row query tile resident in shared memory and computes
-// with CUDA-core FMAs from register tiles (no tensor cores yet), so it is
-// bound by FMA issue rate, far from the bf16 tensor-core peak. wgmma, TMA and
-// split-KV are later work.
+// does ~1 FLOP per byte: it is bound by HBM bytes (3.35 TB/s). Each page is
+// read once per (lane, kv head): one block computes all `group` query rows of
+// a kv head from the same shared-memory copy of its tiles (GQA sharing), so
+// pool bytes are read once, not once per query head. The first version gave
+// each (lane, kv head) one block that loaded a page, waited for it and then
+// computed: 32-64 blocks on 132 SMs at the served batch, each bound by
+// memory latency, 72x the byte bound. This one (a) cuts the slots each lane
+// needs into runs, one block each (ops/paged_flash_attention.py
+// decode_split_plan picks the count so the grid covers the card, two blocks
+// an SM; the kernel cuts each lane's own range, which only the card knows,
+// so a short lane on a wide table is spread as a long one is), and merges
+// the float32 partials in the last block to finish, so a step gains no launch; (b) keeps the next tiles' copies in flight
+// (a cp.async ring of 64-slot tiles, any page size) while a tile computes;
+// (c) computes on CUDA cores with each token row split over four
+// neighbouring threads (eight for float32), so a score costs two (three)
+// shuffles, not a warp-wide sum per query row. Tensor cores
+// would not pay here: at a group of 4 query rows a 64-slot tile is ~66K
+// FMAs, ~500 cycles of one SM's CUDA cores, against ~1.3 us for its 32 KB to
+// arrive at an SM's share of the card's bandwidth; and the float32 and
+// quantized arms keep one code path. Chunked prefill at a 512-token chunk does ~200 FLOP
+// per byte, close to the card's ridge point; it keeps the 64-row query tile
+// resident in shared memory and computes with CUDA-core FMAs from register
+// tiles (no tensor cores yet), so it is bound by FMA issue rate.
 //
 // Masked probabilities are multiplied to exactly 0 with a select, never left
 // to exp(NEG_INF - m): while every score so far was masked, m itself is
@@ -47,8 +57,9 @@
 // interleave. Codes are staged like fp rows (16-byte cp.async: a code row is
 // a multiple of 16 bytes); the scales, one float per row strided by hkv, with
 // 4-byte cp.async (decode) or plain loads (prefill). Decode decodes each code
-// where it is used (a V code once for each query row of the group) and runs
-// the fp arm's loops; prefill decodes each staged tile once into float32
+// in registers where it is used (a K chunk once for the whole group, a V
+// code once per tile row) and shares the fp arm's split, ring and loops;
+// prefill decodes each staged tile once into float32
 // shared memory and then runs the fp arm's register-tiled loops unchanged.
 
 #include <cuda_bf16.h>
@@ -131,16 +142,6 @@ __device__ __forceinline__ void copy_rows(char* dst, int dst_pitch, const char* 
   }
 }
 
-// Start copying `rows` float32 scales, one every `src_stride` floats, into a
-// dense shared array, with 4-byte cp.async (16-byte copies need 16 contiguous
-// bytes; the scales of one kv head are strided by hkv).
-__device__ __forceinline__ void copy_scales(float* dst, const float* src, long src_stride, int rows) {
-  for (int r = threadIdx.x; r < rows; r += blockDim.x) {
-    const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst + r));
-    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(src + r * src_stride));
-  }
-}
-
 // Wait for this thread's cp.async copies; a __syncthreads() after it makes
 // every thread's copies visible to the block.
 __device__ __forceinline__ void cp_async_wait_all() {
@@ -148,154 +149,299 @@ __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_group 0;\n" ::: "memory");
 }
 
-// Dim `d` of staged V row `p` (row pitch row_bytes) as the PV product takes
-// it: the value of a floating-point pool, the raw int8 code, or the unscaled
-// nf4a cubic of the nibble holding it (byte d of the row for d < D/2, byte
-// d - D/2 otherwise).
-template <typename T, int D, int KV>
-__device__ __forceinline__ float v_value(const char* v_s, int p, int d) {
-  constexpr int RB = row_bytes<T, D, KV>();
-  if constexpr (KV == KV_FP) {
-    return to_f32(reinterpret_cast<const T*>(v_s)[p * D + d]);
-  } else if constexpr (KV == KV_INT8) {
-    return (float)reinterpret_cast<const int8_t*>(v_s)[p * RB + d];
-  } else {
-    const unsigned c = reinterpret_cast<const uint8_t*>(v_s)[p * RB + (d < D / 2 ? d : d - D / 2)];
-    return nf4a_poly(d < D / 2 ? (c & 0xFu) : (c >> 4));
-  }
+// 16-byte asynchronous copy into shared memory; a false `valid` reads no
+// byte and zero-fills the 16 (a row that is not read must still be finite)
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, bool valid) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s), "l"(src), "r"(valid ? 4 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 // ---------------------------------------------------------------------------
-// decode: grid (n_lanes, hkv), D threads; thread t owns output dim t of every
-// query row in the kv head's group.
+// decode: grid (n_lanes, hkv, n_splits), DEC_THREADS threads. The slots a
+// lane needs, [max(0, kv_len - window), kv_len) within its table, are cut
+// into n_splits contiguous runs of the same length, rounded up to
+// SPLIT_ROWS (the last run shorter, trailing runs empty on a short lane):
+// block (lane, kvh, split) takes run `split`, so a short lane on a wide
+// table is spread over every split as a long one is. It walks them in tiles of
+// TR token rows through a ring of STAGES shared-memory stages filled by
+// cp.async, so tile i + STAGES - 1 is in flight while tile i is computed.
+// Each tile runs three phases with a barrier between them:
+//   scores  : TPR neighbouring threads own one token row, each a share of
+//             its 16-byte chunks, and dot it with every query row of the
+//             group (q in float32 shared memory); one or two shuffles add
+//             the shares: no warp-wide reduction per (position, row).
+//   softmax : one warp per query row: the tile's max, the rescale of the
+//             running (m, l), the probabilities (a quantized pool's V scale
+//             folded in after l has summed them).
+//   PV      : thread (set, pair) owns two output dims (a pair of a fp / int8
+//             row, or one nf4a byte: dims j and j + D/2) over the tile rows
+//             r = set (mod NSET); the sets add up once, at the end.
+// With one split the block writes its output rows. With several it writes
+// a float32 partial (m, l, acc) per query row; the last block of the (lane,
+// kvh) to finish, found by an atomic ticket that it then resets to 0, merges
+// every split's partial in split order (deterministic whichever block is
+// last) and writes the output. A split that needs no slot writes l = 0, and
+// a lane that needs none writes exact zeros.
 // ---------------------------------------------------------------------------
 
+constexpr int DEC_THREADS = 256;
+constexpr int SPLIT_ROWS = 64;  // a split's slots are a multiple of this (of every tile)
+
 template <typename T, int D, int KV>
-__global__ void __launch_bounds__(D) paged_decode_kernel(
-    const T* __restrict__ q,           // [n_lanes, hq, D]
-    const char* __restrict__ k_pool,   // [n_pages, page_size, hkv, row_bytes]
-    const char* __restrict__ v_pool,   // [n_pages, page_size, hkv, row_bytes]
+struct DecodeShape {
+  static constexpr int RB = row_bytes<T, D, KV>();
+  static constexpr int TR = (KV == KV_FP && sizeof(T) == 4) ? 32 : 64;  // token rows per tile
+  static constexpr int TPR = DEC_THREADS / TR;  // threads per token row (scores)
+  static_assert(SPLIT_ROWS % TR == 0, "a split is whole tiles");
+  // staged row pitch: a multiple of 128 bytes plus 4 * TPR banks, so the
+  // threads of a quarter-warp (8 / TPR rows x TPR chunks) hit distinct banks
+  static constexpr int PITCH = (RB + 127) / 128 * 128 + 16 * TPR;
+  static constexpr int NCH = RB / 16;  // 16-byte chunks of a row
+  static constexpr int TILE_BYTES = TR * PITCH;
+  static constexpr int SCALE_BYTES = KV == KV_FP ? 0 : TR * 4;
+  static constexpr int STAGE_BYTES = 2 * TILE_BYTES + 2 * SCALE_BYTES + TR;  // + a valid flag per row
+  // three stages where they fit in 80 KB (quantized pools), else two (bf16
+  // at head_dim 128: 80 KB), so that two blocks share an SM
+  static constexpr int STAGES = 3 * STAGE_BYTES <= 80 * 1024 ? 3 : 2;
+  static constexpr int RING_BYTES = (STAGES * STAGE_BYTES + 15) / 16 * 16;
+  static constexpr int PAIRS = D / 2;               // output dim pairs
+  static constexpr int NSET = DEC_THREADS / PAIRS;  // PV token sets
+};
+
+// Values per staged 16-byte chunk as the score product takes them.
+template <typename T, int KV>
+__host__ __device__ constexpr int chunk_values() {
+  return KV == KV_FP ? 16 / (int)sizeof(T) : KV == KV_INT8 ? 16 : 32;
+}
+
+// One staged 16-byte chunk's values: fp elements, raw int8 codes, or the
+// unscaled nf4a cubic of its 16 bytes' low nibbles (vals[0..15]: dims 16c +
+// i) and high nibbles (vals[16..31]: dims 16c + i + D/2).
+template <typename T, int KV>
+__device__ __forceinline__ void decode_chunk(const char* p, float (&vals)[chunk_values<T, KV>()]) {
+  const uint4 w = *reinterpret_cast<const uint4*>(p);
+  const unsigned words[4] = {w.x, w.y, w.z, w.w};
+  if constexpr (KV == KV_FP && sizeof(T) == 4) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) vals[i] = __uint_as_float(words[i]);
+  } else if constexpr (KV == KV_FP) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      vals[2 * i] = __uint_as_float(words[i] << 16);
+      vals[2 * i + 1] = __uint_as_float(words[i] & 0xFFFF0000u);
+    }
+  } else if constexpr (KV == KV_INT8) {
+#pragma unroll
+    for (int i = 0; i < 16; ++i) vals[i] = (float)(int8_t)((words[i / 4] >> (8 * (i % 4))) & 0xFFu);
+  } else {
+#pragma unroll
+    for (int i = 0; i < 16; ++i) {
+      const unsigned byte = (words[i / 4] >> (8 * (i % 4))) & 0xFFu;
+      vals[i] = nf4a_poly(byte & 0xFu);
+      vals[16 + i] = nf4a_poly(byte >> 4);
+    }
+  }
+}
+
+// The two output dims that PV thread `pair` owns.
+template <int D, int KV>
+__device__ __forceinline__ int2 pv_dims(int pair) {
+  return KV == KV_NF4A ? make_int2(pair, pair + D / 2) : make_int2(2 * pair, 2 * pair + 1);
+}
+
+// Staged V row `r`'s values at pv_dims(pair).
+template <typename T, int KV>
+__device__ __forceinline__ float2 v_pair(const char* row, int pair) {
+  if constexpr (KV == KV_FP && sizeof(T) == 4) {
+    return *reinterpret_cast<const float2*>(row + pair * 8);
+  } else if constexpr (KV == KV_FP) {
+    const unsigned w = *reinterpret_cast<const unsigned*>(row + pair * 4);
+    return make_float2(__uint_as_float(w << 16), __uint_as_float(w & 0xFFFF0000u));
+  } else if constexpr (KV == KV_INT8) {
+    const char2 c = *reinterpret_cast<const char2*>(row + pair * 2);
+    return make_float2((float)c.x, (float)c.y);
+  } else {
+    const unsigned c = reinterpret_cast<const uint8_t*>(row)[pair];
+    return make_float2(nf4a_poly(c & 0xFu), nf4a_poly(c >> 4));
+  }
+}
+
+template <typename T, int D, int KV, int GMAX>
+__global__ void __launch_bounds__(DEC_THREADS) paged_decode_kernel(
+    const T* __restrict__ q,             // [n_lanes, hq, D]
+    const char* __restrict__ k_pool,     // [n_pages, page_size, hkv, row_bytes]
+    const char* __restrict__ v_pool,     // [n_pages, page_size, hkv, row_bytes]
     const float* __restrict__ k_scales,  // [n_pages, page_size, hkv] (quantized pools)
     const float* __restrict__ v_scales,
-    const int* __restrict__ tables,    // [n_lanes, max_pages], -1 = hole
-    const int* __restrict__ positions, // [n_lanes]; kv_len = position + 1
-    const float* __restrict__ slopes,  // [hq] ALiBi slopes or nullptr
-    T* __restrict__ out,               // [n_lanes, hq, D]
+    const int* __restrict__ tables,      // [n_lanes, max_pages], -1 = hole
+    const int* __restrict__ positions,   // [n_lanes]; kv_len = position + 1
+    const float* __restrict__ slopes,    // [hq] ALiBi slopes or nullptr
+    T* __restrict__ out,                 // [n_lanes, hq, D]
+    float2* __restrict__ part_ml,        // [n_lanes, hkv, n_splits, group] (m, l); n_splits > 1
+    float* __restrict__ part_acc,        // [n_lanes, hkv, n_splits, group, D]
+    unsigned* __restrict__ tickets,      // [n_lanes * hkv], all 0 between launches
     int hq, int hkv, int n_pages, int page_size, int max_pages, int window, float scale) {
-  constexpr int NW = D / WARP;
-  constexpr int PER_LANE = D / WARP;
-  constexpr int RB = row_bytes<T, D, KV>();
-  const int lane_idx = blockIdx.x;
-  const int kvh = blockIdx.y;
+  using S = DecodeShape<T, D, KV>;
+  constexpr int TR = S::TR, TPR = S::TPR, PITCH = S::PITCH, NCH = S::NCH, STAGES = S::STAGES;
+  constexpr int CN = chunk_values<T, KV>();
+  constexpr int RUN = KV == KV_NF4A ? CN / 2 : CN;  // contiguous dims of a chunk's first run
+  const int lane_idx = blockIdx.x, kvh = blockIdx.y, split = blockIdx.z, n_splits = gridDim.z;
   const int group = hq / hkv;
   const int tid = threadIdx.x, warp = tid / WARP, wl = tid % WARP;
 
   extern __shared__ __align__(16) char smem[];
-  char* k_s = smem;                                            // [page_size][RB]
-  char* v_s = k_s + page_size * RB;                            // [page_size][RB]
-  float* ks_s = reinterpret_cast<float*>(v_s + page_size * RB);  // [page_size] (quantized)
-  float* vs_s = ks_s + (KV == KV_FP ? 0 : page_size);          // [page_size] (quantized)
-  float* q_s = vs_s + (KV == KV_FP ? 0 : page_size);           // [group][D]
-  float* p_s = q_s + group * D;                                // [group][page_size]
-  float* m_s = p_s + group * page_size;                        // [group] running max
-  float* l_s = m_s + group;                                    // [group] running sum
-  float* a_s = l_s + group;                                    // [group] this page's rescale
-  const T* k_t = reinterpret_cast<const T*>(k_s);
-  const int8_t* k_i8 = reinterpret_cast<const int8_t*>(k_s);
-  const uint8_t* k_u8 = reinterpret_cast<const uint8_t*>(k_s);
+  float* q_s = reinterpret_cast<float*>(smem + S::RING_BYTES);  // [group][D]
+  float* p_s = q_s + group * D;                                 // [group][TR]
+  float* m_s = p_s + group * TR;                                // [GMAX] running max
+  float* l_s = m_s + GMAX;                                      // [GMAX] running sum
+  float* a_s = l_s + GMAX;                                      // [GMAX] this tile's rescale
+  float* sl_s = a_s + GMAX;                                     // [GMAX] ALiBi slopes
+  __shared__ unsigned last;
+  // stage st: [K tile | V tile | K scales | V scales | valid flags]
+  auto stage = [&](int st) { return smem + st * S::STAGE_BYTES; };
+  auto stage_scales = [&](int st) { return reinterpret_cast<float*>(stage(st) + 2 * S::TILE_BYTES); };
+  auto stage_ok = [&](int st) {
+    return reinterpret_cast<uint8_t*>(stage(st) + 2 * S::TILE_BYTES + 2 * S::SCALE_BYTES);
+  };
 
+  // the slots this lane needs, [lane_lo, lane_hi), cut into n_splits runs of
+  // `per` slots (a multiple of SPLIT_ROWS), run `split` this block's
   const int kv_len = positions[lane_idx] + 1;
-  for (int i = tid; i < group * D; i += blockDim.x) {
+  const int lane_hi = min(kv_len, max_pages * page_size);
+  const int lane_lo = window > 0 ? max(0, kv_len - window) : 0;
+  const int per = (max(0, lane_hi - lane_lo) + n_splits * SPLIT_ROWS - 1) / (n_splits * SPLIT_ROWS) * SPLIT_ROWS;
+  const int lo = lane_lo + split * per;
+  const int hi = min(lane_hi, lo + per);
+  const int n_tiles = hi > lo ? (hi - lo + TR - 1) / TR : 0;
+  const int* table = tables + (long)lane_idx * max_pages;
+
+  for (int i = tid; i < group * D; i += DEC_THREADS) {
     const int g = i / D, d = i - g * D;
     q_s[i] = to_f32(q[((long)lane_idx * hq + kvh * group + g) * D + d]);
   }
   if (tid < group) {
     m_s[tid] = NEG_INF;
     l_s[tid] = 0.f;
+    sl_s[tid] = slopes != nullptr ? slopes[kvh * group + tid] : 0.f;
   }
-  float acc[MAX_GROUP];
-#pragma unroll
-  for (int g = 0; g < MAX_GROUP; ++g) acc[g] = 0.f;
-  __syncthreads();
 
-  const long pitch = (long)hkv * RB;  // bytes between token rows of one kv head
-  for (int j = 0; j < max_pages; ++j) {
-    const int page = tables[(long)lane_idx * max_pages + j];
-    const int slot_start = j * page_size;
-    // _decode_page_needed, plus a guard that never reads outside the pool
-    bool needed = page >= 0 && page < n_pages && slot_start < kv_len;
-    if (window > 0) needed = needed && (slot_start + page_size > kv_len - window);
-    if (!needed) continue;  // uniform across the block
-
-    const long row0 = (long)page * page_size * hkv + kvh;  // (page, slot 0, kvh) in rows
-    copy_rows(k_s, RB, k_pool + row0 * RB, pitch, page_size, RB);
-    copy_rows(v_s, RB, v_pool + row0 * RB, pitch, page_size, RB);
-    if constexpr (KV != KV_FP) {
-      copy_scales(ks_s, k_scales + row0, hkv, page_size);
-      copy_scales(vs_s, v_scales + row0, hkv, page_size);
-    }
-    cp_async_wait_all();
-    __syncthreads();
-
-    // scores: one warp per kv position, all group rows from one read of k
-    for (int p = warp; p < page_size; p += NW) {
-      float part[MAX_GROUP];
-#pragma unroll
-      for (int g = 0; g < MAX_GROUP; ++g) part[g] = 0.f;
-      if constexpr (KV == KV_NF4A) {
-        // byte j: dim j (low nibble) and dim j + D/2 (high nibble)
-#pragma unroll
-        for (int i = 0; i < PER_LANE / 2; ++i) {
-          const int jb = wl + i * WARP;
-          const unsigned c = k_u8[p * RB + jb];
-          const float lo = nf4a_poly(c & 0xFu), hi = nf4a_poly(c >> 4);
-#pragma unroll
-          for (int g = 0; g < MAX_GROUP; ++g)
-            if (g < group) part[g] += q_s[g * D + jb] * lo + q_s[g * D + jb + D / 2] * hi;
-        }
-      } else {
-#pragma unroll
-        for (int i = 0; i < PER_LANE; ++i) {
-          const int d = wl + i * WARP;
-          const float kd = KV == KV_FP ? to_f32(k_t[p * D + d]) : (float)k_i8[p * D + d];
-#pragma unroll
-          for (int g = 0; g < MAX_GROUP; ++g)
-            if (g < group) part[g] += q_s[g * D + d] * kd;
-        }
-      }
-      const int kv_pos = slot_start + p;
-      const float row_scale = KV == KV_FP ? 1.f : ks_s[p] * scale_factor<KV>();
-#pragma unroll
-      for (int g = 0; g < MAX_GROUP; ++g) {
-        if (g < group) {
-          float s = warp_sum(part[g]);
-          if constexpr (KV != KV_FP) s *= row_scale;
-          s *= scale;
-          if (slopes != nullptr) s += slopes[kvh * group + g] * (float)kv_pos;
-          if (wl == 0) p_s[g * page_size + p] = s;
+  // issue tile i's copies into its stage: rows past `hi` or on a hole
+  // zero-fill and are flagged not valid; always commit a group
+  auto load_tile = [&](int i) {
+    if (i < n_tiles) {
+      const int st = i % STAGES;
+      char* ks = stage(st);
+      char* vs = ks + S::TILE_BYTES;
+      for (int e = tid; e < TR * NCH; e += DEC_THREADS) {
+        const int r = e / NCH, c = e - r * NCH;
+        const int slot = lo + i * TR + r;
+        const int page = slot < hi ? table[slot / page_size] : -1;
+        const bool ok = page >= 0 && page < n_pages;
+        const long row = ok ? ((long)page * page_size + slot % page_size) * hkv + kvh : 0;  // in rows
+        cp_async16(ks + r * PITCH + c * 16, k_pool + row * S::RB + c * 16, ok);
+        cp_async16(vs + r * PITCH + c * 16, v_pool + row * S::RB + c * 16, ok);
+        if (c == 0) {
+          stage_ok(st)[r] = ok;
+          if constexpr (KV != KV_FP) {
+            cp_async4(stage_scales(st) + r, k_scales + row, ok);
+            cp_async4(stage_scales(st) + TR + r, v_scales + row, ok);
+          }
         }
       }
     }
+    cp_async_commit();
+  };
+
+  float acc[GMAX][2];
+#pragma unroll
+  for (int g = 0; g < GMAX; ++g) acc[g][0] = acc[g][1] = 0.f;
+  const int pair = tid % S::PAIRS, set = tid / S::PAIRS;
+
+#pragma unroll
+  for (int i = 0; i < STAGES - 1; ++i) load_tile(i);
+
+  for (int i = 0; i < n_tiles; ++i) {
+    load_tile(i + STAGES - 1);  // into the stage of tile i - 1, whose readers passed the last barrier
+    cp_async_wait<STAGES - 1>();
+    __syncthreads();
+    const int st = i % STAGES;
+    const float* ks_s = stage_scales(st);
+    const float* vs_s = ks_s + TR;
+    const uint8_t* ok_s = stage_ok(st);
+
+    // ---- scores
+    {
+      const int r = tid / TPR, sub = tid % TPR;
+      const char* krow = stage(st) + r * PITCH;
+      float part[GMAX];
+#pragma unroll
+      for (int g = 0; g < GMAX; ++g) part[g] = 0.f;
+#pragma unroll
+      for (int c = sub; c < NCH; c += TPR) {
+        float vals[CN];
+        decode_chunk<T, KV>(krow + c * 16, vals);
+        const int d0 = c * RUN;
+#pragma unroll
+        for (int g = 0; g < GMAX; ++g) {
+          if (g < group) {
+            const float* qg = q_s + g * D + d0;
+            float s = part[g];
+#pragma unroll
+            for (int j = 0; j < RUN; j += 4) {
+              const float4 qa = *reinterpret_cast<const float4*>(qg + j);
+              s += qa.x * vals[j] + qa.y * vals[j + 1] + qa.z * vals[j + 2] + qa.w * vals[j + 3];
+              if constexpr (KV == KV_NF4A) {
+                const float4 qb = *reinterpret_cast<const float4*>(qg + j + D / 2);
+                s += qb.x * vals[RUN + j] + qb.y * vals[RUN + j + 1] + qb.z * vals[RUN + j + 2] +
+                     qb.w * vals[RUN + j + 3];
+              }
+            }
+            part[g] = s;
+          }
+        }
+      }
+#pragma unroll
+      for (int g = 0; g < GMAX; ++g) {
+#pragma unroll
+        for (int o = 1; o < TPR; o <<= 1) part[g] += __shfl_xor_sync(0xffffffffu, part[g], o);
+      }
+      if (sub == 0) {
+        const float row_scale = KV == KV_FP ? scale : scale * (ks_s[r] * scale_factor<KV>());
+        const float kv_pos = (float)(lo + i * TR + r);
+#pragma unroll
+        for (int g = 0; g < GMAX; ++g)
+          if (g < group) p_s[g * TR + r] = part[g] * row_scale + sl_s[g] * kv_pos;
+      }
+    }
     __syncthreads();
 
-    // online softmax: one warp per query row
-    for (int g = warp; g < group; g += NW) {
+    // ---- online softmax: one warp per query row
+    for (int g = warp; g < group; g += DEC_THREADS / WARP) {
       float mx = NEG_INF;
-      for (int p = wl; p < page_size; p += WARP) {
-        const int kv_pos = slot_start + p;
-        const bool ok = kv_pos < kv_len && (window <= 0 || kv_pos > kv_len - 1 - window);
-        if (ok) mx = fmaxf(mx, p_s[g * page_size + p]);
-      }
+      for (int r = wl; r < TR; r += WARP)
+        if (ok_s[r]) mx = fmaxf(mx, p_s[g * TR + r]);
       mx = warp_max(mx);
       const float m_prev = m_s[g];
       const float m_new = fmaxf(m_prev, mx);
       float sum = 0.f;
-      for (int p = wl; p < page_size; p += WARP) {
-        const int kv_pos = slot_start + p;
-        const bool ok = kv_pos < kv_len && (window <= 0 || kv_pos > kv_len - 1 - window);
-        const float e = ok ? expf(p_s[g * page_size + p] - m_new) : 0.f;
+      for (int r = wl; r < TR; r += WARP) {
+        const float e = ok_s[r] ? expf(p_s[g * TR + r] - m_new) : 0.f;
         // a quantized pool's V scale folds into the probability (not into l)
-        p_s[g * page_size + p] = KV == KV_FP ? e : e * (vs_s[p] * scale_factor<KV>());
+        p_s[g * TR + r] = KV == KV_FP ? e : e * (vs_s[r] * scale_factor<KV>());
         sum += e;
       }
       sum = warp_sum(sum);
@@ -308,27 +454,114 @@ __global__ void __launch_bounds__(D) paged_decode_kernel(
     }
     __syncthreads();
 
-    // weighted values: thread tid owns dim tid (a quantized pool's V scale
-    // is already folded into p_s)
+    // ---- weighted values; rows that are not valid were zero-filled and
+    // have probability 0
+    {
+      const char* vs = stage(st) + S::TILE_BYTES;
 #pragma unroll
-    for (int g = 0; g < MAX_GROUP; ++g) {
-      if (g < group) {
-        float a = acc[g] * a_s[g];
-        for (int p = 0; p < page_size; ++p) a += p_s[g * page_size + p] * v_value<T, D, KV>(v_s, p, tid);
-        acc[g] = a;
+      for (int g = 0; g < GMAX; ++g) {
+        if (g < group) {
+          acc[g][0] *= a_s[g];
+          acc[g][1] *= a_s[g];
+        }
+      }
+      for (int r = set; r < TR; r += S::NSET) {
+        const float2 vv = v_pair<T, KV>(vs + r * PITCH, pair);
+#pragma unroll
+        for (int g = 0; g < GMAX; ++g) {
+          if (g < group) {
+            const float p = p_s[g * TR + r];
+            acc[g][0] += p * vv.x;
+            acc[g][1] += p * vv.y;
+          }
+        }
       }
     }
-    __syncthreads();  // k_s / v_s / p_s are overwritten by the next page
+    __syncthreads();  // this stage and p_s are rewritten next
   }
+  cp_async_wait<0>();  // the trailing (empty) groups
+  __syncthreads();
 
-  // a lane with no needed page keeps l == 0 and writes exact zeros
+  // the token sets add up in set order, through the (idle) ring memory
+  float* red = reinterpret_cast<float*>(smem);  // [NSET - 1][GMAX][PAIRS][2]
+  if (set > 0) {
 #pragma unroll
-  for (int g = 0; g < MAX_GROUP; ++g) {
-    if (g < group) {
-      out[((long)lane_idx * hq + kvh * group + g) * D + tid] =
-          from_f32<T>(acc[g] / fmaxf(l_s[g], 1e-30f));
+    for (int g = 0; g < GMAX; ++g) {
+      if (g < group) {
+        float* dst = red + (((set - 1) * GMAX + g) * S::PAIRS + pair) * 2;
+        dst[0] = acc[g][0];
+        dst[1] = acc[g][1];
+      }
     }
   }
+  __syncthreads();
+  const int2 dims = pv_dims<D, KV>(pair);
+  if (set == 0) {
+#pragma unroll
+    for (int g = 0; g < GMAX; ++g) {
+      if (g < group) {
+        for (int s = 1; s < S::NSET; ++s) {
+          const float* src = red + (((s - 1) * GMAX + g) * S::PAIRS + pair) * 2;
+          acc[g][0] += src[0];
+          acc[g][1] += src[1];
+        }
+        if (n_splits == 1) {
+          // a lane with no needed slot keeps l == 0 and writes exact zeros
+          const float inv = 1.f / fmaxf(l_s[g], 1e-30f);
+          T* o = out + ((long)lane_idx * hq + kvh * group + g) * D;
+          o[dims.x] = from_f32<T>(acc[g][0] * inv);
+          o[dims.y] = from_f32<T>(acc[g][1] * inv);
+        } else {
+          float* pa = part_acc + ((((long)lane_idx * hkv + kvh) * n_splits + split) * group + g) * D;
+          pa[dims.x] = acc[g][0];
+          pa[dims.y] = acc[g][1];
+        }
+      }
+    }
+  }
+  if (n_splits == 1) return;
+  const long ml0 = ((long)lane_idx * hkv + kvh) * n_splits * group;  // this (lane, kvh)'s first partial
+  if (tid < group) part_ml[ml0 + (long)split * group + tid] = make_float2(m_s[tid], l_s[tid]);
+
+  // the last block of this (lane, kvh) to arrive merges every split
+  __threadfence();  // this thread's partial is visible device-wide before the ticket
+  __syncthreads();
+  if (tid == 0) last = atomicAdd(tickets + (long)lane_idx * hkv + kvh, 1u) == (unsigned)n_splits - 1;
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+
+  // every split's (m, l) staged in shared memory by the whole block, then
+  // per query row the weights w[s] = exp(m_s - M) of the splits that saw
+  // something (written over m_s) and the merged denominator L; then every
+  // output element, in split order, its loads independent of each other
+  float2* ml_s = reinterpret_cast<float2*>(smem);  // [n_splits][group], inside the ring
+  float* big_l = p_s;                              // [group]
+  for (int e = tid; e < n_splits * group; e += DEC_THREADS) ml_s[e] = __ldcg(part_ml + ml0 + e);
+  __syncthreads();
+  if (tid < group) {
+    float mx = NEG_INF;
+    for (int s = 0; s < n_splits; ++s)
+      if (ml_s[s * group + tid].y > 0.f) mx = fmaxf(mx, ml_s[s * group + tid].x);
+    float l = 0.f;
+    for (int s = 0; s < n_splits; ++s) {
+      const float2 ml = ml_s[s * group + tid];
+      const float w = ml.y > 0.f ? expf(ml.x - mx) : 0.f;
+      ml_s[s * group + tid].x = w;
+      l += w * ml.y;
+    }
+    big_l[tid] = l;
+  }
+  __syncthreads();
+  const float* pa0 = part_acc + ml0 * D;  // every split wrote its acc (zeros if it saw nothing)
+  for (int e = tid; e < group * D; e += DEC_THREADS) {
+    const int g = e / D, d = e - g * D;
+    float o = 0.f;
+#pragma unroll 4
+    for (int s = 0; s < n_splits; ++s) o += ml_s[s * group + g].x * __ldcg(pa0 + ((long)s * group + g) * D + d);
+    out[((long)lane_idx * hq + kvh * group + g) * D + d] = from_f32<T>(o / fmaxf(big_l[g], 1e-30f));
+  }
+  if (tid == 0) tickets[(long)lane_idx * hkv + kvh] = 0u;  // ready for the next launch
 }
 
 // ---------------------------------------------------------------------------
@@ -548,29 +781,47 @@ __global__ void __launch_bounds__(NT) paged_prefill_kernel(
   }
 }
 
+constexpr int kMaxDevices = 64;
+
+// Raise the kernel's dynamic shared-memory limit to `smem` once per device;
+// `configured` is the caller's own record (one per kernel instantiation:
+// instantiations share a function type, so it cannot live here).
 template <typename Kernel>
-cudaError_t allow_smem(Kernel kernel, size_t smem) {
+cudaError_t allow_smem_once(Kernel kernel, size_t smem, size_t (&configured)[kMaxDevices]) {
   if (smem <= 48 * 1024) return cudaSuccess;
-  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < kMaxDevices && configured[dev] >= smem) return cudaSuccess;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err == cudaSuccess && dev < kMaxDevices) configured[dev] = smem;
+  return err;
 }
 
-template <typename T, int D, int KV>
+template <typename T, int D, int KV, int GMAX>
 int launch_decode(const void* q, const void* k_pool, const void* v_pool, const float* k_scales,
                   const float* v_scales, const int* tables, const int* positions,
-                  const float* slopes, void* out, int n_lanes, int hq, int hkv, int n_pages,
-                  int page_size, int max_pages, int window, float scale, cudaStream_t stream) {
+                  const float* slopes, void* out, void* part_ml, void* part_acc, void* tickets,
+                  int n_lanes, int hq, int hkv, int n_pages, int page_size, int max_pages,
+                  int n_splits, int window, float scale, cudaStream_t stream) {
+  using S = DecodeShape<T, D, KV>;
   const int group = hq / hkv;
-  const size_t smem = 2 * (size_t)page_size * row_bytes<T, D, KV>() +
-                      (KV == KV_FP ? 0 : 2 * (size_t)page_size * sizeof(float)) +
-                      (size_t)group * D * sizeof(float) + (size_t)group * page_size * sizeof(float) +
-                      3 * (size_t)group * sizeof(float);
-  auto kernel = paged_decode_kernel<T, D, KV>;
-  cudaError_t err = allow_smem(kernel, smem);
+  // the merge stages (m, l) per (query row, split) inside the ring
+  if (n_splits > 1 && ((size_t)group * n_splits * 2 * sizeof(float) > (size_t)S::RING_BYTES ||
+                       part_ml == nullptr || part_acc == nullptr || tickets == nullptr))
+    return (int)cudaErrorInvalidValue;
+  auto smem_for = [](int g) {
+    return (size_t)S::RING_BYTES + ((size_t)g * D + (size_t)g * S::TR + 4 * GMAX) * sizeof(float);
+  };
+  auto kernel = paged_decode_kernel<T, D, KV, GMAX>;
+  static size_t configured[kMaxDevices] = {};
+  cudaError_t err = allow_smem_once(kernel, smem_for(GMAX), configured);
   if (err != cudaSuccess) return (int)err;
-  kernel<<<dim3(n_lanes, hkv), D, smem, stream>>>(
+  kernel<<<dim3(n_lanes, hkv, n_splits), DEC_THREADS, smem_for(group), stream>>>(
       static_cast<const T*>(q), static_cast<const char*>(k_pool), static_cast<const char*>(v_pool),
-      k_scales, v_scales, tables, positions, slopes, static_cast<T*>(out), hq, hkv, n_pages,
-      page_size, max_pages, window, scale);
+      k_scales, v_scales, tables, positions, slopes, static_cast<T*>(out),
+      static_cast<float2*>(part_ml), static_cast<float*>(part_acc), static_cast<unsigned*>(tickets),
+      hq, hkv, n_pages, page_size, max_pages, window, scale);
   return (int)cudaGetLastError();
 }
 
@@ -584,7 +835,8 @@ int launch_prefill(const void* q, const void* k_pool, const void* v_pool, const 
                       (size_t)BQ * (D + 4) * sizeof(float) + (size_t)BQ * (BKV + 1) * sizeof(float) +
                       (KV == KV_FP ? 0 : 2 * (size_t)BKV * sizeof(float));
   auto kernel = paged_prefill_kernel<T, D, KV>;
-  cudaError_t err = allow_smem(kernel, smem);
+  static size_t configured[kMaxDevices] = {};
+  cudaError_t err = allow_smem_once(kernel, smem, configured);
   if (err != cudaSuccess) return (int)err;
   kernel<<<dim3((q_len + BQ - 1) / BQ, hq), NT, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const char*>(k_pool), static_cast<const char*>(v_pool),
@@ -609,11 +861,16 @@ int launch_prefill(const void* q, const void* k_pool, const void* v_pool, const 
 
 extern "C" {
 
+// Decode with each lane's needed slots cut into n_splits runs: with
+// n_splits > 1, part_ml is float32 scratch of [n_lanes, hkv, n_splits,
+// group, 2], part_acc of [n_lanes, hkv, n_splits, group, head_dim], and
+// tickets [n_lanes * hkv] uint32 zeros that the kernel leaves at zero.
 int ptt_paged_decode_attention(const void* q, const void* k_pool, const void* v_pool,
                                const void* k_scales, const void* v_scales, const void* tables,
-                               const void* positions, const void* slopes, void* out, int dtype,
-                               int kv, int n_lanes, int hq, int hkv, int head_dim, int n_pages,
-                               int page_size, int max_pages, int window, float scale,
+                               const void* positions, const void* slopes, void* out, void* part_ml,
+                               void* part_acc, void* tickets, int dtype, int kv, int n_lanes, int hq,
+                               int hkv, int head_dim, int n_pages, int page_size, int max_pages,
+                               int n_splits, int window, float scale,
                                void* stream) {
   const float* ks = static_cast<const float*>(k_scales);
   const float* vs = static_cast<const float*>(v_scales);
@@ -621,23 +878,26 @@ int ptt_paged_decode_attention(const void* q, const void* k_pool, const void* v_
   const int* p = static_cast<const int*>(positions);
   const float* sl = static_cast<const float*>(slopes);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define PTT_DECODE(T, D)                                                                    \
-  {                                                                                         \
-    if (kv == KV_FP)                                                                        \
-      return launch_decode<T, D, KV_FP>(q, k_pool, v_pool, ks, vs, t, p, sl, out, n_lanes,  \
-                                        hq, hkv, n_pages, page_size, max_pages, window,     \
-                                        scale, s);                                          \
-    if (kv == KV_INT8)                                                                      \
-      return launch_decode<T, D, KV_INT8>(q, k_pool, v_pool, ks, vs, t, p, sl, out,         \
-                                          n_lanes, hq, hkv, n_pages, page_size, max_pages,  \
-                                          window, scale, s);                                \
-    if (kv == KV_NF4A)                                                                      \
-      return launch_decode<T, D, KV_NF4A>(q, k_pool, v_pool, ks, vs, t, p, sl, out,         \
-                                          n_lanes, hq, hkv, n_pages, page_size, max_pages,  \
-                                          window, scale, s);                                \
+  if (n_splits < 1 || (long)(n_splits - 1) * SPLIT_ROWS >= (long)max_pages * page_size ||
+      hkv < 1 || hq % hkv || hq / hkv > MAX_GROUP)
+    return (int)cudaErrorInvalidValue;
+  const int gmax = hq / hkv <= 4 ? 4 : MAX_GROUP;
+#define PTT_DECODE_KV(T, D, KV, G)                                                              \
+  return launch_decode<T, D, KV, G>(q, k_pool, v_pool, ks, vs, t, p, sl, out, part_ml, part_acc, \
+                                    tickets, n_lanes, hq, hkv, n_pages, page_size, max_pages,    \
+                                    n_splits, window, scale, s)
+#define PTT_DECODE(T, D)                                    \
+  {                                                         \
+    if (kv == KV_FP && gmax == 4) PTT_DECODE_KV(T, D, KV_FP, 4);           \
+    if (kv == KV_FP) PTT_DECODE_KV(T, D, KV_FP, MAX_GROUP);                \
+    if (kv == KV_INT8 && gmax == 4) PTT_DECODE_KV(T, D, KV_INT8, 4);       \
+    if (kv == KV_INT8) PTT_DECODE_KV(T, D, KV_INT8, MAX_GROUP);            \
+    if (kv == KV_NF4A && gmax == 4) PTT_DECODE_KV(T, D, KV_NF4A, 4);       \
+    if (kv == KV_NF4A) PTT_DECODE_KV(T, D, KV_NF4A, MAX_GROUP);            \
   }
   PTT_DISPATCH(PTT_DECODE)
 #undef PTT_DECODE
+#undef PTT_DECODE_KV
   return (int)cudaErrorInvalidValue;
 }
 

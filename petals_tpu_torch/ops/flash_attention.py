@@ -35,6 +35,9 @@ from petals_tpu_torch.ops.attention import DEFAULT_MASK_VALUE
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (64, 128)
 MIN_FLASH_Q_LEN = 8  # below this a step is a decode shape: plain attention
+# rows of one bf16 block: 64 // group query positions x the GQA group's heads,
+# so a K/V tile in shared memory serves every query head of its kv head
+_WGMMA_ROWS = 64
 _LIB: Optional[ctypes.CDLL] = None
 
 
@@ -163,6 +166,9 @@ def flash_attend(
     kv_buf_len, hkv = k.shape[1], k.shape[2]
     if hkv == 0 or hq % hkv:
         raise ValueError(f"query heads {hq} not a multiple of kv heads {hkv}")
+    if q.dtype == torch.bfloat16 and hq // hkv > _WGMMA_ROWS:
+        raise ValueError(f"{hq} query heads over {hkv} kv heads: the bf16 kernel packs a group into "
+                         f"{_WGMMA_ROWS} rows, so it takes a group of at most {_WGMMA_ROWS}")
     q_offset = int(q_offset)
     kv_length = kv_buf_len if kv_length is None else int(kv_length)
     if q_offset < 0 or not 0 <= kv_length <= kv_buf_len:

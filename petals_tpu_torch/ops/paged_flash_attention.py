@@ -43,7 +43,7 @@ def kernel_library() -> ctypes.CDLL:
 
         lib = load("paged_attention")
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.ptt_paged_decode_attention.argtypes = [p] * 9 + [i] * 10 + [f, p]
+        lib.ptt_paged_decode_attention.argtypes = [p] * 12 + [i] * 11 + [f, p]
         lib.ptt_paged_decode_attention.restype = i
         lib.ptt_paged_prefill_attention.argtypes = [p] * 8 + [i] * 12 + [f, p]
         lib.ptt_paged_prefill_attention.restype = i
@@ -51,6 +51,45 @@ def kernel_library() -> ctypes.CDLL:
         lib.ptt_error_string.restype = ctypes.c_char_p
         _LIB = lib
     return _LIB
+
+
+SPLIT_ROWS = 64  # a decode split's slots are a multiple of this (csrc SPLIT_ROWS)
+
+
+def decode_split_plan(n_lanes: int, hkv: int, max_rows: int, n_sm: int) -> int:
+    """How many splits the decode kernel cuts each lane's needed slots into,
+    so that the grid (n_lanes x hkv x n_splits blocks, two resident on an
+    SM) covers the card: as many as keep the grid within 2 * n_sm blocks,
+    at most one per SPLIT_ROWS of ``max_rows`` (the most slots a lane can
+    need: its table's capacity, or the window if that is shorter), and one
+    (output written directly, no merge) where the lanes alone fill it. The
+    kernel cuts each lane's own range [max(0, kv_len - window), kv_len),
+    which lives on the card, into that many runs of equal length rounded up
+    to SPLIT_ROWS. Pure: the same arguments give the same count."""
+    if n_lanes < 1 or hkv < 1 or max_rows < 1 or n_sm < 1:
+        raise ValueError(f"bad decode shape: {n_lanes} lanes, {hkv} kv heads, {max_rows} rows, {n_sm} SMs")
+    return min(-(-max_rows // SPLIT_ROWS), max(1, (2 * n_sm) // (n_lanes * hkv)))
+
+
+_SM_COUNT = {}
+_TICKETS = {}
+
+
+def _sm_count(device: torch.device) -> int:
+    if device.index not in _SM_COUNT:
+        _SM_COUNT[device.index] = torch.cuda.get_device_properties(device).multi_processor_count
+    return _SM_COUNT[device.index]
+
+
+def _tickets(device: torch.device, n: int) -> torch.Tensor:
+    """The split merge's arrival counters on ``device``'s current stream: n
+    uint32 zeros, allocated (zeroed) once and grown when a launch needs
+    more; every launch leaves them at zero."""
+    key = (device.index, torch.cuda.current_stream(device).cuda_stream)
+    buf = _TICKETS.get(key)
+    if buf is None or buf.numel() < n:
+        buf = _TICKETS[key] = torch.zeros(max(n, 256), dtype=torch.int32, device=device)
+    return buf
 
 
 def _tensors(*args):
@@ -127,7 +166,8 @@ def _check_common(q, k_pool, v_pool, alibi_slopes, sliding_window):
         raise ValueError(f"head_dim must match the pool and be one of {_HEAD_DIMS}, got {q.shape[3]}/{d}")
     if hq % hkv or hq // hkv > _MAX_GROUP:
         raise ValueError(f"{hq} query heads over {hkv} kv heads: need a group of at most {_MAX_GROUP}")
-    # decode stages a whole K and V page in shared memory: at most 128 KB
+    # the page sizes the kernels are built and tested for (decode stages
+    # 64-row tiles of slots, prefill 64-row tiles of a page)
     if page_size % 8 or page_size > _MAX_PAGE_SIZE or (page_size > 64 and page_size % 64):
         raise ValueError(f"page_size must be a multiple of 8 up to 64, or 128; got {page_size}")
     if alibi_slopes is not None:
@@ -192,15 +232,23 @@ def paged_flash_attend(
             f"do not match {n_lanes} lanes"
         )
     out = torch.empty_like(q)
-    if n_lanes == 0:
-        return out
+    max_pages = tables.shape[1]
+    if n_lanes == 0 or max_pages == 0:
+        return out.zero_()
+    max_rows = max_pages * page_size if sliding_window is None else min(max_pages * page_size, int(sliding_window))
+    n_splits = decode_split_plan(n_lanes, hkv, max_rows, _sm_count(q.device))
+    scratch = (None, None, None)
+    if n_splits > 1:  # float32 partials (m, l) and acc of every split, and the merge's counters
+        part_ml = torch.empty((n_lanes, hkv, n_splits, hq // hkv, 2), dtype=torch.float32, device=q.device)
+        part_acc = torch.empty((n_lanes, hkv, n_splits, hq // hkv, d), dtype=torch.float32, device=q.device)
+        scratch = (part_ml.data_ptr(), part_acc.data_ptr(), _tickets(q.device, n_lanes * hkv).data_ptr())
     lib = kernel_library()
     with torch.cuda.device(q.device):
         err = lib.ptt_paged_decode_attention(
             q.data_ptr(), *ptrs, tables.data_ptr(),
             positions.data_ptr(), alibi_slopes.data_ptr() if alibi_slopes is not None else None,
-            out.data_ptr(), _DTYPE_CODES[q.dtype], kv_code, n_lanes, hq, hkv, d, n_pages, page_size,
-            tables.shape[1], int(sliding_window or 0),
+            out.data_ptr(), *scratch, _DTYPE_CODES[q.dtype], kv_code, n_lanes, hq, hkv, d, n_pages, page_size,
+            max_pages, n_splits, int(sliding_window or 0),
             d**-0.5 if scale is None else float(scale),
             torch.cuda.current_stream(q.device).cuda_stream,
         )

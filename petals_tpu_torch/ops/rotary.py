@@ -18,17 +18,20 @@ def rotary_tables(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """cos/sin tables [batch, seq, head_dim] for the given positions, on
     ``positions``' device. ``rope_scaling`` takes HF dicts of rope_type
-    "llama3"; others raise NotImplementedError."""
+    "linear" (every frequency divided by ``factor``) or "llama3"; others
+    raise NotImplementedError."""
     device = positions.device
     inv_freq = 1.0 / (
         theta ** (torch.arange(0, head_dim, 2, dtype=torch.float32, device=device) / head_dim)
     )
     if rope_scaling is not None:
         rope_type = rope_scaling.get("rope_type", rope_scaling.get("type", "default"))
-        if rope_type == "llama3":
+        if rope_type == "linear":
+            inv_freq = inv_freq / rope_scaling["factor"]
+        elif rope_type == "llama3":
             inv_freq = _llama3_scale_inv_freq(inv_freq, rope_scaling)
         elif rope_type not in ("default", None):
-            raise NotImplementedError(f"rope_type={rope_type!r} is not supported by this port yet")
+            raise NotImplementedError(f"rope_type={rope_type!r} is not supported yet")
 
     angles = positions.float()[..., None] * inv_freq  # [b, s, d/2]
     emb = torch.cat([angles, angles], dim=-1)

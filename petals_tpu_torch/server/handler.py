@@ -34,6 +34,7 @@ from petals_tpu_torch.rpc.server import RpcContext, RpcServer
 from petals_tpu_torch.server.backend import TransformerBackend
 from petals_tpu_torch.server.memory_cache import AllocationFailed
 from petals_tpu_torch.server.task_queue import PRIORITY_INFERENCE
+from petals_tpu_torch.utils.version import incompatibility_error, is_compatible
 
 logger = logging.getLogger(__name__)
 
@@ -171,6 +172,9 @@ class TransformerHandler:
     async def rpc_inference(self, requests, ctx: RpcContext):
         """Bidirectional inference stream: open -> step* -> end."""
         open_msg = await asyncio.wait_for(anext(requests), self.step_timeout)
+        client_version = open_msg.get("client_version")
+        if client_version is not None and not is_compatible(client_version):
+            raise ValueError(incompatibility_error(client_version, peer="client"))
         start, end = self._parse_chain(open_msg["uids"])
         max_length = int(open_msg["max_length"])
         if self.inference_max_length is not None and max_length > self.inference_max_length:

@@ -69,6 +69,31 @@ def test_block_dense_prefill_then_decode(model):
         np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATOL, rtol=0)
 
 
+def test_block_linear_rope_scaling(model):
+    """A linear-scaled checkpoint (rope_type "linear", factor 2): the port's
+    block equals the JAX block with the same scaling, past the first token."""
+    import dataclasses
+
+    _, (jfamily, jcfg, jparams), (family, cfg, params) = model
+    scaling = (("factor", 2.0), ("rope_type", "linear"))
+    jcfg, cfg = dataclasses.replace(jcfg, rope_scaling=scaling), dataclasses.replace(cfg, rope_scaling=scaling)
+    rng = np.random.default_rng(5)
+    batch, seq, max_len = 2, 9, 16
+    hkv, d = cfg.num_key_value_heads, cfg.head_dim
+    x = (rng.standard_normal((batch, seq, cfg.hidden_size)) * 0.5).astype(np.float32)
+    jkv = (jnp.zeros((batch, max_len, hkv, d)), jnp.zeros((batch, max_len, hkv, d)))
+    tkv = (torch.zeros(batch, max_len, hkv, d), torch.zeros(batch, max_len, hkv, d))
+    jout, jkv = jfamily.block_apply(jparams, jnp.asarray(x), jkv, 3, jcfg)
+    tout, tkv = family.block_apply(params, t(x), tkv, 3, cfg)
+    np.testing.assert_allclose(tout.numpy(), np.asarray(jout), atol=ATOL, rtol=0)
+    for got, want in zip(tkv, jkv):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATOL, rtol=0)
+    # and the scaling moves the output by more than the tolerance
+    plain, _ = family.block_apply(params, t(x), (torch.zeros_like(tkv[0]), torch.zeros_like(tkv[1])), 3,
+                                  dataclasses.replace(cfg, rope_scaling=None))
+    assert (plain - tout).abs().max().item() > ATOL
+
+
 def test_block_paged_decode_and_chunk(model):
     """Per-lane decode over permuted tables (one lane idle at the sentinel)
     and a padded prefill chunk (n_valid < rows) at a non-zero position."""

@@ -218,6 +218,85 @@ def test_wrappers_refuse_bad_quantized_pools(cuda_device):
         pfa.paged_flash_attend(q.cpu(), k8, v8, tables.cpu(), pos.cpu())
 
 
+def _split_case(device, kind, dtype, n_lanes, max_pages, ps, seed):
+    """Mistral-7B's heads (32 over 8, head_dim 128) on lanes at 0, mid-page,
+    a page edge and deep (up to the table's last slot), holes past each
+    frontier on a permuted table, and one idle lane whose table is all holes
+    at the sentinel position (its output is exact zeros)."""
+    rng = np.random.default_rng(seed)
+    hkv, group, d = 8, 4, 128
+    capacity = max_pages * ps
+    pos = np.array([capacity - 1, 0, ps // 2, ps, capacity // 2 + 3][: n_lanes - 1] + [capacity], np.int32)
+    n_pages = n_lanes * max_pages + 7
+    used = [-(-int(p + 1) // ps) for p in pos[:-1]] + [0]
+    tables = _holey_permuted(rng, n_lanes, max_pages, n_pages, used)
+    q = rng.standard_normal((n_lanes, 1, hkv * group, d)).astype(np.float32)
+    (q,) = _on(device, dtype, q)
+    if kind == "none":
+        kp, vp = _on(device, dtype, *rng.standard_normal((2, n_pages, ps, hkv, d)).astype(np.float32))
+    else:
+        kp, vp = _quant_pools(device, kind, n_pages, ps, hkv, d, seed=seed + 1)
+    tables, positions = _on(device, torch.int32, tables, pos)
+    return q, kp, vp, tables, positions
+
+
+@pytest.mark.parametrize("kind", ["none", "int8", "nf4a"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("window", [None, 200])  # 200: most splits of a deep lane see nothing
+@pytest.mark.parametrize("n_lanes,max_pages,ps", [(6, 64, 64), (2, 32, 128), (3, 40, 16)])
+def test_decode_kernel_over_many_splits(cuda_device, kind, dtype, window, n_lanes, max_pages, ps):
+    """Lanes up to 4096 positions: the kernel cuts each lane's needed slots
+    into many splits (16 at 2 lanes; a short lane's spread over them as a
+    long one's), merged by the last block."""
+    q, kp, vp, tables, positions = _split_case(cuda_device, kind, dtype, n_lanes, max_pages, ps, seed=60)
+    max_rows = min(max_pages * ps, window or max_pages * ps)
+    n_sm = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    assert pfa.decode_split_plan(n_lanes, 8, max_rows, n_sm) > 1
+    slopes = torch.from_numpy((np.random.default_rng(61).standard_normal(32) * 0.05).astype(np.float32)).to(cuda_device)
+    for alibi in (None, slopes):
+        pfa.reset_launch_counts()
+        got = pfa.paged_flash_attend(q, kp, vp, tables, positions, alibi_slopes=alibi, sliding_window=window)
+        torch.cuda.synchronize()
+        counted = pfa.paged_flash_attend.launches if kind == "none" else pfa.paged_flash_attend.kv_quant_launches[kind]
+        assert counted == 1  # one launch however many splits
+        assert got.dtype == dtype and torch.isfinite(got).all()
+        assert not got[-1].any()  # the idle lane: no page at all, exact zeros
+        want = paged_attend(q.float(), kp.float() if kind == "none" else kp, vp.float() if kind == "none" else vp,
+                            tables, positions, alibi_slopes=alibi, sliding_window=window)
+        err = (got.float() - want)[:-1].abs().max().item()
+        assert err <= (CUDA_TOL[dtype] if kind == "none" else KV_QUANT_TOL), err
+
+
+@pytest.mark.parametrize("kind", ["none", "int8", "nf4a"])
+def test_decode_split_merge_is_bit_equal_on_repeats(cuda_device, kind):
+    """The last block to arrive merges the partials in split order, so which
+    block that is does not change a bit; the arrival counters return to zero."""
+    q, kp, vp, tables, positions = _split_case(cuda_device, kind, torch.bfloat16, 6, 64, 64, seed=62)
+    first = pfa.paged_flash_attend(q, kp, vp, tables, positions, sliding_window=4096)
+    for _ in range(5):
+        assert torch.equal(pfa.paged_flash_attend(q, kp, vp, tables, positions, sliding_window=4096), first)
+    torch.cuda.synchronize()
+    assert not any(buf.any() for buf in pfa._TICKETS.values())
+
+
+def test_attention_launch_counters_count_each_call(cuda_device):
+    q, kp, vp, tables, positions = _split_case(cuda_device, "none", torch.bfloat16, 2, 32, 128, seed=63)
+    k8, v8 = _quant_pools(cuda_device, "int8", kp.shape[0], 128, 8, 128, seed=64)
+    pfa.reset_launch_counts()
+    fa.reset_launch_counts()
+    for calls in (1, 2, 3):
+        pfa.paged_flash_attend(q, kp, vp, tables, positions)
+        assert pfa.paged_flash_attend.launches == calls
+    pfa.paged_flash_attend(q, k8, v8, tables, positions)
+    assert pfa.paged_flash_attend.launches == 3 and pfa.paged_flash_attend.kv_quant_launches == {"int8": 1, "nf4a": 0}
+    qc = torch.randn(1, 40, 32, 128, device=cuda_device, dtype=torch.bfloat16)
+    kc = torch.randn(1, 64, 8, 128, device=cuda_device, dtype=torch.bfloat16)
+    for calls in (1, 2):
+        fa.flash_attend(qc, kc, kc, kv_length=40)
+        assert fa.flash_attend.launches == calls
+    assert pfa.paged_flash_prefill_attend.launches == 0
+
+
 QUANT_REL_TOL = 1e-2
 # Mistral-7B's projections as the port serves them (qkv and gate+up fused),
 # and (192, 80): rows padded to the stored 1024 (filled with garbage here,
@@ -351,6 +430,34 @@ def test_flash_kernel_matches_plain(cuda_device, dtype, group, d, batch, q_len, 
         )
         err = (got.float() - want.float()).abs().max().item()
         assert err <= CUDA_TOL[dtype], err
+
+
+@pytest.mark.parametrize("group,d", [(1, 128), (2, 64), (3, 128), (4, 128), (8, 64), (16, 128)])
+@pytest.mark.parametrize("batch,q_len,buf,q_offset,window", [
+    (1, 511, 600, 0, None),  # interior tiles below the diagonal, a ragged last query tile
+    (2, 300, 1100, 700, 256),  # continuation with a window: tiles before it never read
+    (1, 97, 250, 153, None),  # buffer and offset no multiple of the tile
+    (2, 40, 40, 0, 7),  # narrow window: every tile an edge tile
+])
+def test_flash_wgmma_kernel_matches_plain(cuda_device, group, d, batch, q_len, buf, q_offset, window):
+    """bf16 on the wgmma kernel: the GQA group packed into a block's 64 rows
+    (a group of 3 leaves a row idle), masks on edge tiles only, strided views
+    of a stacked cache, ALiBi."""
+    rng = np.random.default_rng(34)
+    hkv = 2
+    k_stack, v_stack = _stacked_cache(rng, cuda_device, torch.bfloat16, 2, batch, buf, hkv, d)
+    (q,) = _on(cuda_device, torch.bfloat16, rng.standard_normal((batch, q_len, hkv * group, d)).astype(np.float32))
+    slopes = torch.from_numpy((rng.standard_normal(hkv * group) * 0.05).astype(np.float32)).to(cuda_device)
+    k, v = k_stack[1], v_stack[1]
+    kv_length = min(buf, q_offset + q_len)
+    for alibi in (None, slopes):
+        got = fa.flash_attend(q, k, v, q_offset=q_offset, kv_length=kv_length, alibi_slopes=alibi, sliding_window=window)
+        torch.cuda.synchronize()
+        want = fa.flash_attend_reference(q, k, v, q_offset=q_offset, kv_length=kv_length, alibi_slopes=alibi,
+                                         sliding_window=window)
+        assert got.shape == q.shape and torch.isfinite(got).all()
+        err = (got.float() - want.float()).abs().max().item()
+        assert err <= CUDA_TOL[torch.bfloat16], err
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

@@ -44,7 +44,10 @@ def test_rms_norm_and_silu():
     close(tcommon.silu(t(x)), jcommon.silu(jnp.asarray(x)))
 
 
-@pytest.mark.parametrize("scaling", [None, LLAMA3_SCALING], ids=["plain", "llama3"])
+LINEAR_SCALING = {"rope_type": "linear", "factor": 2.0}
+
+
+@pytest.mark.parametrize("scaling", [None, LLAMA3_SCALING, LINEAR_SCALING], ids=["plain", "llama3", "linear"])
 def test_rotary(scaling):
     rng = np.random.default_rng(1)
     positions = rng.integers(0, 300, size=(2, 7)).astype(np.int32)

@@ -321,3 +321,54 @@ def test_cli_passes_quant_type_through(model_path):
     assert server.backend.block_params[1]["wgu"].kind == "int4+o"
     with pytest.raises(SystemExit):  # the JAX CLI's choices only
         build_parser().parse_args(base + ["--quant_type", "fp8"])
+
+
+def test_client_version_is_checked_at_open_as_petals_tpu_does(model_path):
+    """A JAX RpcClient opening with a compatible client_version is served by
+    both servers; one opening with 9.9.0 is refused by both, with the same
+    error text up to the package name."""
+    import petals_tpu
+    import petals_tpu_torch
+    from petals_tpu.rpc.client import RpcError
+    from petals_tpu.utils.version import parse_version
+
+    assert parse_version(petals_tpu_torch.__version__) == parse_version(petals_tpu.__version__)
+    compatible = petals_tpu.__version__.rsplit(".", 1)[0] + ".7"
+    uids = _uids(model_path)
+
+    async def opens(client):
+        stream = await client.open_stream("ptu.inference")
+        await stream.send({"uids": uids, "max_length": 32, "batch_size": 1, "client_version": compatible})
+        reply = await stream.recv(timeout=60)
+        await stream.end()
+        stream = await client.open_stream("ptu.inference")
+        await stream.send({"uids": uids, "max_length": 32, "batch_size": 1, "client_version": "9.9.0"})
+        with pytest.raises(RpcError) as refused:
+            await stream.recv(timeout=60)
+        return reply, str(refused.value)
+
+    async def main():
+        server, client = await _start_port_server(model_path)
+        try:
+            port = await opens(client)
+        finally:
+            await client.close()
+            await server.shutdown()
+        jserver = JaxServer(
+            model_path, compute_dtype=jnp.float32, use_flash=False, throughput=1.0,
+            batching=True, batch_lanes=2, batch_max_length=128, page_size=16,
+            prefix_cache_bytes=0, prefix_device_bytes=0, server_side_generation=False,
+        )
+        await jserver.start()
+        jclient = await RpcClient.connect(jserver.rpc_server.host, jserver.rpc_server.port)
+        try:
+            jax = await opens(jclient)
+        finally:
+            await jclient.close()
+            await jserver.shutdown()
+        return port, jax
+
+    (port_reply, port_error), (jax_reply, jax_error) = asyncio.run(main())
+    assert port_reply["session_open"] and jax_reply["session_open"]
+    assert "9.9.0" in port_error and "interoperate" in port_error
+    assert port_error.replace("petals_tpu_torch", "petals_tpu") == jax_error
