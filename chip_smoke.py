@@ -21,11 +21,16 @@
      lanes at 1000 on tables of 8192 (short lanes on wide tables), each
      against its plain version and timed beside gather + SDPA and the
      bound. Each decode entry reports library_factor = kernel / library.
-   - K2 chunked prefill: a 512-row chunk at position 0 and its 188-row
-     continuation at 512.
+   - K2 chunked prefill (bf16: paged_prefill_wgmma_kernel): a 512-row
+     chunk at position 0 and its 188-row continuation at 512, then the long
+     chunks of LONG_PREFILL, 512 rows at 3584 on a 4096-token table and at
+     4608 on an 8192-token table (Mistral's window), three pages inside each
+     visible range holes; each timed beside gather + SDPA with a mask that
+     hides the holes (library_factor = kernel / library) and the bound.
    - K3, the quantized-pool arms of both (int8 and nf4a), on the same
      inputs with the pools quantized on the card; the yardstick gathers and
-     dequantizes the pages before SDPA. Bounds count the stored bytes.
+     dequantizes the pages before SDPA. Bounds count the stored bytes that
+     some query row sees.
    Tolerance: bf16 inputs against the plain version computed in float32 on
    the same bf16 values; the kernels accumulate in float32 and round once to
    bf16, so outputs of magnitude < 4 differ by at most half a bf16 ulp
@@ -34,7 +39,11 @@
    float32, within the same bound). K1 on a bf16 pool is held tighter,
    lane by lane: within OUT_REL_TOL = 2**-7 (twice its output's bf16
    rounding) of the lane's largest output magnitude, so a lost split
-   fails where outputs are small (scripts/plant_attention_faults.py).
+   fails where outputs are small (scripts/plant_attention_faults.py). K2
+   and K3 prefill are held query row by query row: within ROW_REL_TOL =
+   2**-7 (bf16 pool) or KV_ROW_REL_TOL = 2**-5 (quantized pool) of the
+   row's largest output magnitude, derived beside the constants; a row
+   that sees nothing must be exact zeros.
 3. Server: write a seeded Mistral-7B-v0.1-shaped checkpoint of 8 blocks
    (bf16, random weights) with the port's safetensors writer, start
    petals_tpu_torch's Server on 127.0.0.1 with the CLI's defaults, and open
@@ -59,8 +68,9 @@
    the device busy time, the kernel launches and the top operations, with
    the idle share 1 - busy / wall of those same calls, and each of the
    port's kernels' device time a call and share of the busy time (K1 or
-   K3's decode arm is paged_decode_kernel; the decode step's launch count
-   shows the split merge adds none).
+   K3's decode arm is paged_decode_kernel, K2 or K3's prefill arm
+   paged_prefill_wgmma_kernel; the decode step's launch count shows the
+   split merge adds none).
 5. Dequant-matmul kernels (K5: nf4, nf4a, int4; K6: int8) at the four
    projections of a Mistral-7B block as the port serves them, wqkv [4096,
    6144], wo [4096, 4096], gate+up [4096, 28672] and down [14336, 4096], at
@@ -179,6 +189,24 @@ KERNEL_TOL = 2e-2
 # where KERNEL_TOL is about one typical value and would pass a dropped
 # split; scripts/plant_attention_faults.py shows each limit rejects one.
 OUT_REL_TOL = 2**-7
+# K2 and K3 prefill on bf16 queries, held row by row (each query row, a
+# (position, head), within a share of its largest output magnitude). The
+# kernel rounds each probability to bf16 before the PV product and its
+# output once; the plain version rounds neither. The output's rounding moves
+# a row by at most 2**-9 of its largest output; P's moves output d by
+# sum_j delta_j p_j v_jd / l with independent |delta_j| <= 2**-9, about
+# 2**-9 of the row's largest output too, up to ~3x where a row's few visible
+# values cancel. Two roundings, doubled: ROW_REL_TOL. A quantized pool puts two
+# more bf16 roundings of every K and V value between the two sides (the
+# kernel's of nf4a's unscaled cubic, the plain version's of each decoded
+# value), K's moving the scores and so every probability: four roundings,
+# K's twice, KV_ROW_REL_TOL. At 4000 visible positions the outputs are
+# ~0.02-0.08 and a dropped 64-slot tile moves them by ~2e-3, several times
+# ROW_REL_TOL; KERNEL_TOL would pass it (scripts/plant_attention_faults.py;
+# tests/test_torch_prefill_model.py holds a model of the kernel's arithmetic
+# to these limits on the CPU).
+ROW_REL_TOL = 2**-7
+KV_ROW_REL_TOL = 2**-5
 # K4's float32 kernel (CUDA cores) against its float32 plain version: the
 # same arithmetic in another order, 3.7e-7 at most on an H100; inputs
 # rounded to bf16 would read ~1e-3
@@ -245,12 +273,18 @@ PROFILE_REPS = 20  # unprofiled calls for the median host wall
 PROFILE_CALLS = 5  # calls inside the profiler
 PROFILE_CHUNK = 512
 # the port's kernels, by the name each has in a profile
-PORT_KERNELS = ("paged_decode_kernel", "paged_prefill_kernel", "flash_attention_kernel", "flash_wgmma_kernel",
-                "quant_decode_kernel", "quant_prefill_kernel", "split_reduce_kernel")
+PORT_KERNELS = ("paged_decode_kernel", "paged_prefill_wgmma_kernel", "paged_prefill_kernel", "flash_attention_kernel",
+                "flash_wgmma_kernel", "quant_decode_kernel", "quant_prefill_kernel", "split_reduce_kernel")
 # K1 at long contexts (phase 2), Mistral-7B's window: (lanes, position of
 # each, tokens of each lane's table). The last is the common state of a
 # long-context server: short lanes on tables sized for --batch_max_length 8192.
 LONG_DECODE = ((1, 4095, 4096), (8, 4095, 4096), (4, 1000, 8192))
+# K2 and K3 prefill at long chunks (phase 2), Mistral-7B's window:
+# (position of a 512-row chunk, tokens of the lane's table). The last chunk
+# of a 4096-token prompt, and a chunk past the window on a table sized for
+# --batch_max_length 8192. Three pages inside each visible range are holes.
+LONG_PREFILL = ((3584, 4096), (4608, 8192))
+PREFILL_ROWS = 512
 DECODE_REPEATS = 5  # K1's split merge must give bit-equal outputs on repeats
 
 
@@ -399,10 +433,7 @@ def attention_cases(device):
     vp2 = torch.randn(n_pages2, PAGE, hkv, d, generator=gen, device=device).to(torch.bfloat16)
     chunks = {pos: torch.randn(1, n, hq, d, generator=gen, device=device).to(torch.bfloat16)
               for pos, n in ((0, 512), (512, 188))}
-    prefill = {
-        "kp": kp2, "vp": vp2, "table_row": table_row.to(device), "chunks": chunks,
-        "rows": sum(_visible(r, 512, window) for r in range(512)),  # (q, kv) pairs of the 512-row chunk
-    }
+    prefill = {"kp": kp2, "vp": vp2, "table_row": table_row.to(device), "chunks": chunks}
     return decode, prefill
 
 
@@ -420,16 +451,32 @@ def _library_decode(case, kp, vp, window):
     return _sdpa(q.transpose(1, 2), k, v, mask[:, None, None, :]).transpose(1, 2)
 
 
-def _library_prefill(case, kp, vp, qc, window):
-    """The yardstick for the prefill kernels at a chunk at position 0."""
-    from petals_tpu_torch.ops.paged_attention import gather_pages
+def _library_prefill(kp, vp, table_row, qc, chunk_pos, window):
+    """The yardstick for the prefill kernels: the lane's pages gathered (and
+    dequantized) into a dense view, then PyTorch's fused attention with a
+    mask (causal, the window, the chunk's end, holes)."""
+    from petals_tpu_torch.ops.paged_attention import gather_pages, slot_valid
 
-    n = qc.shape[1]
-    k = gather_pages(kp, case["table_row"][None])[:, :n].transpose(1, 2)
-    v = gather_pages(vp, case["table_row"][None])[:, :n].transpose(1, 2)
-    pos = torch.arange(n, device=qc.device)
-    mask = (pos[None, :] <= pos[:, None]) & (pos[None, :] > pos[:, None] - window)
-    return _sdpa(qc.transpose(1, 2), k, v, mask)
+    kv_len = chunk_pos + qc.shape[1]
+    k = gather_pages(kp, table_row[None])[:, :kv_len].transpose(1, 2)
+    v = gather_pages(vp, table_row[None])[:, :kv_len].transpose(1, 2)
+    kv_pos = torch.arange(kv_len, device=qc.device)
+    q_pos = chunk_pos + torch.arange(qc.shape[1], device=qc.device)
+    mask = (kv_pos[None, :] <= q_pos[:, None]) & (kv_pos[None, :] > q_pos[:, None] - window)
+    mask &= slot_valid(kp, table_row[None])[0, :kv_len][None, :]
+    return _sdpa(qc.transpose(1, 2), k, v, mask).transpose(1, 2)
+
+
+def _prefill_work(table_row, n_pages, chunk_pos, n, window):
+    """(kv rows some query row sees, visible (query, kv) pairs) of a chunk of
+    ``n`` rows at ``chunk_pos``: slots on a hole are seen by none."""
+    valid = (table_row >= 0) & (table_row < n_pages)
+    valid = valid.cpu().repeat_interleave(PAGE)[: chunk_pos + n].long()
+    seen = torch.cumsum(torch.cat([torch.zeros(1, dtype=torch.long), valid]), 0)  # seen[i] = valid slots < i
+    q_pos = chunk_pos + torch.arange(n)
+    lo = (q_pos - window + 1).clamp_min(0)
+    pairs = int((seen[q_pos + 1] - seen[lo]).sum())
+    return int(seen[-1] - seen[int(lo[0])]), pairs
 
 
 def check_attention_kernels(device, timer, dec, pf, kind="none"):
@@ -504,8 +551,10 @@ def check_attention_kernels(device, timer, dec, pf, kind="none"):
     if kind == "none":
         decode["long_context"] = [check_long_decode(device, timer, *case) for case in LONG_DECODE]
 
-    # ---- prefill: a 512-row chunk at 0, then its 188-row continuation at 512
+    # ---- prefill: a 512-row chunk at 0, then its 188-row continuation at
+    # 512, held row by row
     table_row = pf["table_row"]
+    rel_tol = ROW_REL_TOL if kind == "none" else KV_ROW_REL_TOL
     pf_err = 0.0
     for chunk_pos, qc in pf["chunks"].items():
         n = qc.shape[1]
@@ -514,17 +563,12 @@ def check_attention_kernels(device, timer, dec, pf, kind="none"):
         want = paged_prefill_attend(
             qc.float(), plain_pool(kp2), plain_pool(vp2), table_row, chunk_pos, n, sliding_window=window
         )
-        if not torch.isfinite(got).all():
-            raise AssertionError(f"{names[1]} chunk_pos={chunk_pos}: non-finite output")
-        err = (got.float() - want).abs().max().item()
-        log(f"{names[1]}, chunk_pos={chunk_pos}, {n} rows: max abs err {err:.3e} (tol {KERNEL_TOL})")
-        if err > KERNEL_TOL:
-            raise AssertionError(f"{names[1]} disagrees with its plain version: {err} > {KERNEL_TOL}")
-        pf_err = max(pf_err, err)
+        pf_err = max(pf_err, check_rows(f"{names[1]}, chunk_pos={chunk_pos}, {n} rows", got, want, rel_tol))
     qc, qc2 = pf["chunks"][0], pf["chunks"][512]
     n = qc.shape[1]
-    pf_bytes = 2 * n * side_bytes + 2 * qc.numel() * 2 + table_row.numel() * 4
-    pf_bound, pf_by = bound_ms(pf_bytes, 4 * hq * d * pf["rows"])
+    seen, pairs = _prefill_work(table_row, kp2.shape[0], 0, n, window)
+    pf_bytes = 2 * seen * side_bytes + 2 * qc.numel() * 2 + table_row.numel() * 4
+    pf_bound, pf_by = bound_ms(pf_bytes, 4 * hq * d * pairs)
     prefill = {
         "name": f"paged_prefill_attention{label}", "route": "cuda",
         "source": "petals_tpu_torch/csrc/paged_attention.cu",
@@ -533,13 +577,17 @@ def check_attention_kernels(device, timer, dec, pf, kind="none"):
         "ms": timer(lambda: pfa.paged_flash_prefill_attend(qc, kp2, vp2, table_row, 0, n, sliding_window=window)),
         "plain_ms": timer(lambda: paged_prefill_attend(qc, kp2, vp2, table_row, 0, n, sliding_window=window)),
         "bound_ms": pf_bound, "bound_by": pf_by,
-        "library_ms": timer(lambda: _library_prefill(pf, kp2, vp2, qc, window)),
+        "library_ms": timer(lambda: _library_prefill(kp2, vp2, table_row, qc, 0, window)),
     }
     prefill["library_factor"] = prefill["ms"] / prefill["library_ms"]
     cont_ms = timer(lambda: pfa.paged_flash_prefill_attend(qc2, kp2, vp2, table_row, 512, 188, sliding_window=window))
+    cont_lib_ms = timer(lambda: _library_prefill(kp2, vp2, table_row, qc2, 512, window))
     log(f"{names[1]} at a 512-row chunk: {prefill['ms']:.4f} ms kernel, {prefill['plain_ms']:.4f} ms plain, "
-        f"{prefill['library_ms']:.4f} ms gather+SDPA, bound {pf_bound:.4f} ms ({pf_by}); "
-        f"188-row continuation at 512: {cont_ms:.4f} ms kernel")
+        f"{prefill['library_ms']:.4f} ms gather+SDPA (kernel {prefill['library_factor']:.3f}x), "
+        f"bound {pf_bound:.4f} ms ({pf_by}); 188-row continuation at 512: {cont_ms:.4f} ms kernel, "
+        f"{cont_lib_ms:.4f} ms gather+SDPA")
+    prefill["continuation"] = {"ms": cont_ms, "library_ms": cont_lib_ms}
+    prefill["long_chunks"] = [check_long_prefill(device, timer, kind, *case) for case in LONG_PREFILL]
     return [decode, prefill]
 
 
@@ -547,20 +595,96 @@ def check_lanes(label, got, want) -> float:
     """K1's output on a bf16 pool against its plain version (float32), lane
     by lane: each lane's max abs error within OUT_REL_TOL of its largest
     output magnitude; returns the max abs error."""
+    return _check_relative(label, got.flatten(1), want.flatten(1), OUT_REL_TOL, "lane")
+
+
+def check_rows(label, got, want, rel_tol) -> float:
+    """K2 / K3 prefill (bf16) against its plain version (float32), query row
+    by query row (position, head): each row's max abs error within
+    ``rel_tol`` of its largest output magnitude (a row that sees nothing must
+    be exact zeros); returns the max abs error."""
+    return _check_relative(label, got, want, rel_tol, "row")
+
+
+def _check_relative(label, got, want, rel_tol, unit) -> float:
+    """Each ``unit`` (a slice along the last dim) of ``got`` within
+    ``rel_tol`` of that unit's largest |want|, in max abs error."""
     if not torch.isfinite(got).all():
         raise AssertionError(f"{label}: non-finite output")
-    err = (got.float() - want).abs().flatten(1).amax(1)
-    limit = OUT_REL_TOL * want.abs().flatten(1).amax(1)
+    err = (got.float() - want).abs().amax(dim=-1)
+    limit = rel_tol * want.abs().amax(dim=-1)
     worst = (err / limit.clamp_min(1e-30)).max().item()
-    log(f"{label}: max abs err {err.max().item():.3e}, at most {worst:.3f} of its lane's limit "
-        f"(OUT_REL_TOL {OUT_REL_TOL} x the lane's max |output|)")
+    log(f"{label}: max abs err {err.max().item():.3e}, at most {worst:.3f} of its {unit}'s limit "
+        f"({rel_tol} x the {unit}'s max |output|)")
     if (err > limit).any():
-        raise AssertionError(f"{label} disagrees with its plain version: {worst:.3f} x its lane's limit")
+        raise AssertionError(f"{label} disagrees with its plain version: {worst:.3f} x its {unit}'s limit")
     return err.max().item()
 
 
 def _sm_count(device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def long_prefill_case(device, chunk_pos, table_tokens):
+    """A PREFILL_ROWS-row chunk at ``chunk_pos`` of one lane at Mistral-7B
+    widths, bf16: its permuted table of ``table_tokens`` tokens holds pages
+    up to the chunk's end, three of them inside the visible range holes (a
+    hole anywhere is seen by no query)."""
+    gen = torch.Generator(device=device).manual_seed(SEED + 20 + chunk_pos // PAGE)
+    hq, hkv, d = 32, 8, 128
+    used = -(-(chunk_pos + PREFILL_ROWS) // PAGE)
+    n_pages = used + 4
+    table_row = torch.full((table_tokens // PAGE,), -1, dtype=torch.int32)
+    perm = torch.randperm(n_pages, generator=torch.Generator().manual_seed(SEED + 21))
+    table_row[:used] = perm[:used].to(torch.int32)
+    table_row[[used // 5, used // 2, used - 12]] = -1
+    kp, vp = (torch.randn(n_pages, PAGE, hkv, d, generator=gen, device=device).to(torch.bfloat16) for _ in range(2))
+    q = torch.randn(1, PREFILL_ROWS, hq, d, generator=gen, device=device).to(torch.bfloat16)
+    return q, kp, vp, table_row.to(device)
+
+
+def check_long_prefill(device, timer, kind, chunk_pos, table_tokens):
+    """K2 (``kind`` "none") or K3's prefill arm of ``kind`` at a long chunk
+    (long_prefill_case; window 4096) against its plain version, row by row,
+    timed beside gather + SDPA and the bound."""
+    from petals_tpu_torch.ops import paged_flash_attention as pfa
+    from petals_tpu_torch.ops.paged_attention import (
+        PagedPool,
+        kv_wire_bytes_per_token,
+        paged_prefill_attend,
+        quantize_kv_rows,
+    )
+
+    q, kp, vp, table_row = long_prefill_case(device, chunk_pos, table_tokens)
+    if kind != "none":
+        kp, vp = (PagedPool(*quantize_kv_rows(p, kind)) for p in (kp, vp))
+    window = MISTRAL_7B["sliding_window"]
+    hq, d, n = q.shape[2], q.shape[3], q.shape[1]
+    name = "K2" if kind == "none" else f"K3 {kind} prefill"
+    label = f"{name} at {n} rows x position {chunk_pos}, tables of {table_tokens}"
+    got = pfa.paged_flash_prefill_attend(q, kp, vp, table_row, chunk_pos, n, sliding_window=window)
+    torch.cuda.synchronize()
+    plain = (kp.float(), vp.float()) if kind == "none" else (kp, vp)
+    want = paged_prefill_attend(q.float(), *plain, table_row, chunk_pos, n, sliding_window=window)
+    err = check_rows(label, got, want, ROW_REL_TOL if kind == "none" else KV_ROW_REL_TOL)
+    lib_err = (_library_prefill(kp, vp, table_row, q, chunk_pos, window).float() - want).abs().max().item()
+    del want, plain
+    seen, pairs = _prefill_work(table_row, kp.shape[0], chunk_pos, n, window)
+    nbytes = 2 * seen * kv_wire_bytes_per_token(kp.shape[2], d, kind) + 2 * q.numel() * 2 + table_row.numel() * 4
+    bound, by = bound_ms(nbytes, 4 * hq * d * pairs)
+    entry = {
+        "position": chunk_pos, "rows": n, "table_tokens": table_tokens, "max_abs_err": err,
+        "ms": timer(lambda: pfa.paged_flash_prefill_attend(q, kp, vp, table_row, chunk_pos, n, sliding_window=window)),
+        "library_ms": timer(lambda: _library_prefill(kp, vp, table_row, q, chunk_pos, window)),
+        "bound_ms": bound, "bound_by": by,
+    }
+    entry["library_factor"] = entry["ms"] / entry["library_ms"]
+    log(f"{label}: {entry['ms']:.4f} ms kernel, {entry['library_ms']:.4f} ms gather+SDPA (its err {lib_err:.3e}; "
+        f"kernel {entry['library_factor']:.3f}x), bound {bound:.4f} ms ({by}, {nbytes / 1e6:.1f} MB, "
+        f"{4 * hq * d * pairs / 1e9:.1f} GFLOP)")
+    if entry["ms"] >= entry["library_ms"]:
+        log(f"{label}: NOT faster than gather+SDPA")
+    return entry
 
 
 def check_long_decode(device, timer, n_lanes, position, table_tokens):

@@ -3,15 +3,18 @@
 //
 // Replaces the Pallas kernels of petals_tpu/ops/paged_flash_attention.py:
 //   - paged_decode_kernel  <- _decode_kernel  (paged_flash_attend)
-//   - paged_prefill_kernel <- _prefill_kernel (paged_flash_prefill_attend)
+//   - paged_prefill_wgmma_kernel (bf16) and paged_prefill_kernel (float32)
+//     <- _prefill_kernel, with its page predicate _prefill_page_needed
+//     (paged_flash_prefill_attend)
 // Each is templated on the pool's storage (KV): floating point (K1, K2) or a
 // quantized pool, int8 or nf4a (K3: the TPU kernels' quantized arms
 // _quant_k_scores / _quant_pv / _nf4a_poly).
 // Same contract as the plain PyTorch versions beside the wrappers
 // (petals_tpu_torch/ops/paged_attention.py paged_attend /
 // paged_prefill_attend): pages are read through the block table, a slot of
-// -1 is a hole, and pages past the causal/ragged frontier or outside the
-// sliding window are never read at all.
+// -1 is a hole that no query sees (as the TPU kernels skip its page), and
+// pages past the causal/ragged frontier or outside the sliding window are
+// never read at all.
 //
 // What bounds them on this card. Decode reads every needed K/V page once and
 // does ~1 FLOP per byte: it is bound by HBM bytes (3.35 TB/s). Each page is
@@ -33,10 +36,15 @@
 // would not pay here: at a group of 4 query rows a 64-slot tile is ~66K
 // FMAs, ~500 cycles of one SM's CUDA cores, against ~1.3 us for its 32 KB to
 // arrive at an SM's share of the card's bandwidth; and the float32 and
-// quantized arms keep one code path. Chunked prefill at a 512-token chunk does ~200 FLOP
-// per byte, close to the card's ridge point; it keeps the 64-row query tile
-// resident in shared memory and computes with CUDA-core FMAs from register
-// tiles (no tensor cores yet), so it is bound by FMA issue rate.
+// quantized arms keep one code path. Chunked prefill does ~130 FLOP per byte
+// of K/V at a 512-token chunk at position 0 (bound by bytes) and ~1000 at a
+// 512-token chunk deep into a long prompt (bound by operations): only the
+// tensor cores reach that rate. The first version computed both products
+// with CUDA-core FMAs from register tiles (~12 TFLOP/s) and read each K/V
+// tile once per query head; bf16 queries now run the wgmma kernel
+// (paged_prefill_wgmma_kernel: the GQA group packed into a warpgroup's 64
+// rows, so a tile is read once per kv head; the section before it), and
+// float32 queries keep the CUDA-core kernel.
 //
 // Masked probabilities are multiplied to exactly 0 with a select, never left
 // to exp(NEG_INF - m): while every score so far was masked, m itself is
@@ -56,11 +64,12 @@
 // each half of q and of the output a separate half-width dot: no
 // interleave. Codes are staged like fp rows (16-byte cp.async: a code row is
 // a multiple of 16 bytes); the scales, one float per row strided by hkv, with
-// 4-byte cp.async (decode) or plain loads (prefill). Decode decodes each code
-// in registers where it is used (a K chunk once for the whole group, a V
-// code once per tile row) and shares the fp arm's split, ring and loops;
-// prefill decodes each staged tile once into float32
-// shared memory and then runs the fp arm's register-tiled loops unchanged.
+// 4-byte cp.async (decode, bf16 prefill) or plain loads (float32 prefill).
+// Decode decodes each code in registers where it is used (a K chunk once for
+// the whole group, a V code once per tile row) and shares the fp arm's split,
+// ring and loops; bf16 prefill decodes each staged tile once into bf16
+// swizzled tiles for wgmma, float32 prefill into float32 shared memory, and
+// each then runs its fp arm's products unchanged.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -68,11 +77,13 @@
 
 #include <type_traits>
 
+#include "hopper_wgmma.cuh"
+
 namespace {
 
 constexpr float NEG_INF = -0.7f * 3.4028234663852886e38f;  // DEFAULT_MASK_VALUE
 constexpr int WARP = 32;
-constexpr int MAX_GROUP = 16;  // query heads per kv head (decode)
+constexpr int MAX_GROUP = 16;  // query heads per kv head
 
 // pool storage: floating point (the query's type), int8 codes, nf4a bytes
 constexpr int KV_FP = 0;
@@ -84,8 +95,11 @@ constexpr int KV_NF4A = 2;
 constexpr float NF4A_B = 0.0010216002528025852f;
 constexpr float NF4A_K = (float)(0.071834915950145642 / 0.0010216002528025852);
 
+// dl = c - 7.5 without an int-to-float conversion (a quarter-rate
+// instruction): the float 2^22 + c (its mantissa's last bit is 0.5) minus
+// 2^22 + 7.5, both exact
 __device__ __forceinline__ float nf4a_poly(unsigned c) {
-  const float dl = (float)c - 7.5f;
+  const float dl = __uint_as_float(0x4A800000u | (c << 1)) - 4194311.5f;
   return dl * (NF4A_K + dl * dl);
 }
 
@@ -565,9 +579,10 @@ __global__ void __launch_bounds__(DEC_THREADS) paged_decode_kernel(
 }
 
 // ---------------------------------------------------------------------------
-// chunked prefill: grid (ceil(q_len / BQ), hq), NT threads. Thread (ty, tx) =
-// (tid / 8, tid % 8) owns query rows ty + 16 i (i < 4); in the score tile it
-// owns kv columns tx + 8 j (j < 8), in the output tile dims tx + 8 k.
+// chunked prefill, float32 queries (CUDA cores; bf16 runs the wgmma kernel
+// below): grid (ceil(q_len / BQ), hq), NT threads. Thread (ty, tx) = (tid / 8,
+// tid % 8) owns query rows ty + 16 i (i < 4); in the score tile it owns kv
+// columns tx + 8 j (j < 8), in the output tile dims tx + 8 k.
 // ---------------------------------------------------------------------------
 
 constexpr int BQ = 64;   // query rows per block
@@ -781,6 +796,460 @@ __global__ void __launch_bounds__(NT) paged_prefill_kernel(
   }
 }
 
+// ---------------------------------------------------------------------------
+// chunked prefill, bf16 queries: wgmma (K2, and K3's prefill arms on int8 /
+// nf4a pools). K4's design (flash_attention.cu flash_wgmma_kernel) over one
+// lane's pages. A block has PF_WARPGROUPS (two) consumer warpgroups; each
+// owns 64 "rows": qp = 64 / group query positions x the group's query heads
+// of one kv head (row m = position * group + head; 64 - qp * group rows idle
+// when the group does not divide 64), so each K/V tile is loaded (and, from a
+// quantized pool, decoded) once into shared memory and read by every query
+// head of the kv head in both warpgroups. Grid (hkv, query tiles of 2 * qp
+// positions), the query tiles taken in reverse: the tiles with the most KV
+// under the causal frontier start first.
+//
+// A block reads the slots [kv_lo, kv_hi): from the first one the window
+// leaves its first position (rounded down to a tile) to the causal frontier
+// of its last real position, capped by kv_len and the table. It walks them in
+// 64-slot tiles whatever the page size: each slot's row is fetched through
+// its own page (table_row[slot / page_size]), so a page of 8 slots does not
+// shrink the tile. A row past kv_hi, on a hole (-1) or on a page outside the
+// pool zero-fills and is flagged not valid. A zero K row is not a skipped
+// one: it would score 0 and add exp(0 - m) to the softmax's sum. So rows that
+// are not valid are masked out of the max and the sum like any position no
+// row sees (the TPU kernel skips a hole's page). The tiles come through a
+// ring of 4 stages of 16-byte cp.async copies: tiles j + 1 to j + 3 are in
+// flight while tile j computes. The first version issued
+// each row's copies after its page's load, one after the other, and spent
+// most of its time there (PERF.md §6); a thread now reads all its rows'
+// pages before its first copy.
+//
+// Per tile, as in K4:
+//   - S = Q K^T on wgmma m64n64k16, A = Q and B = K, both K-major in the
+//     128-byte swizzle (hopper_wgmma.cuh);
+//   - the online softmax on the accumulator registers (log2 domain), masked
+//     only on an edge tile: one that holds a slot some row of the warpgroup
+//     does not see (the causal diagonal, kv_len, the window's edge) or a row
+//     that is not valid. This is the TPU kernel's _compute_interior /
+//     _compute_edge split. Every wgmma is issued outside any branch that
+//     differs between threads;
+//   - P rounded to bf16 in registers as the A fragments of O += P V (wgmma
+//     m64nDk16, V read as an MN-major B straight from its tile).
+// Quantized pools (K3): a stage holds the raw code rows and their float32
+// scales; all threads decode it once into a bf16 K tile and a bf16 V tile in
+// the swizzle (int8 codes are exact in bf16; nf4a's unscaled cubic
+// dl*(A/B + dl^2) rounds to bf16) and the products run on those. The decoded
+// tiles come in two pairs, by tile parity: tile j + 1's K is decoded while
+// tile j's scores run on the tensor cores, its V while tile j's PV product
+// runs. The TPU kernel's factoring stays: the score row is multiplied by the
+// row's K scale (times scale_factor<KV>()), and the V scale (times the same)
+// folds into P after l has summed it, before P is rounded for the PV product.
+// ---------------------------------------------------------------------------
+
+using hopper::ATOM_BYTES;
+using hopper::desc_k_major;
+using hopper::desc_mn_major;
+using hopper::fence_regs;
+using hopper::LOG2E;
+using hopper::pack_bf16;
+using hopper::smem_u32;
+using hopper::sw128;
+using hopper::WG_THREADS;
+using hopper::wgmma_commit;
+using hopper::wgmma_fence;
+using hopper::wgmma_m64n64k16_ss;
+using hopper::wgmma_pv;
+using hopper::wgmma_wait0;
+
+constexpr int PF_ROWS = 64;  // packed rows of a warpgroup (query positions x heads)
+constexpr int PF_KV = 64;    // kv slots of a tile
+
+// consumer warpgroups of a block, one block an SM: both read each K/V tile
+// (and share its decode), so a tile is loaded once per 128 packed rows; one
+// warpgroup a block, two blocks an SM, was slower for every pool at a long
+// chunk (PERF.md §6)
+constexpr int PF_WARPGROUPS = 2;
+constexpr int PF_THREADS = PF_WARPGROUPS * WG_THREADS;
+
+template <int D, int KV>
+struct PrefillSmem {
+  static constexpr int NWG = PF_WARPGROUPS;
+  static constexpr int THREADS = PF_THREADS;
+  static constexpr int TILE = D / 64 * ATOM_BYTES;  // a swizzled [64 x D] bf16 tile
+  static constexpr int RB = row_bytes<__nv_bfloat16, D, KV>();
+  static constexpr int SIDE = KV == KV_FP ? TILE : PF_KV * RB;  // K (or V) of a stage
+  // Q, then (quantized) a pair of decoded K and V tiles for each parity of j
+  static constexpr int FIXED = NWG * TILE + (KV == KV_FP ? 0 : 4 * TILE);
+  // per stage: the K and V scales (quantized), then a valid flag per row
+  static constexpr int SCALES = KV == KV_FP ? 0 : 2 * PF_KV * 4;
+  static constexpr int META = SCALES + PF_KV;
+  // as many stages as a block's 227 KB hold, at most 4 (tiles j + 1 to j + 3
+  // in flight while tile j computes); a quantized pool's loop needs three
+  static constexpr int FIT = (227 * 1024 - 1024 - FIXED) / (2 * SIDE + META);
+  static constexpr int STAGES = FIT < 4 ? FIT : 4;
+  static_assert(STAGES >= (KV == KV_FP ? 2 : 3), "too few stages for the ring");
+  static constexpr int Q_OFF = 0;
+  static constexpr int RING_OFF = FIXED;  // stage s: K at RING_OFF + 2 s SIDE, V SIDE further
+  static constexpr int META_OFF = RING_OFF + STAGES * 2 * SIDE;
+  static constexpr int BYTES = META_OFF + STAGES * META + 1024;  // + slack to align the base
+};
+
+// Decode one side (K or V) of a stage, its raw code rows [64 x RB], into a
+// bf16 tile at dst in the 128-byte swizzle: int8 codes as they are; nf4a
+// bytes as the unscaled cubic of each nibble (byte j: dim j low, dim j + D/2
+// high), rounded to bf16. Rows that are not valid decode from their zero
+// bytes and are masked.
+template <int D, int KV, int NT>
+__device__ __forceinline__ void decode_side(unsigned char* tile, const unsigned char* src) {
+  constexpr int RB = row_bytes<__nv_bfloat16, D, KV>(), RCH = RB / 16;
+  for (int e = threadIdx.x; e < PF_KV * RCH; e += NT) {
+    const int r = e / RCH, c = e % RCH;
+    const uint4 w = *reinterpret_cast<const uint4*>(src + r * RB + c * 16);
+    const uint32_t words[4] = {w.x, w.y, w.z, w.w};
+    if constexpr (KV == KV_INT8) {
+      // bytes 16c .. 16c + 15 are dims 16c .. 16c + 15: chunks 2c and 2c + 1.
+      // A code x is the float (2^23 + (x ^ 0x80)) - (2^23 + 128), exact,
+      // with no (quarter-rate) int-to-float conversion
+      uint32_t p[8];
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const uint32_t pair = (words[i / 2] ^ 0x80808080u) >> (16 * (i % 2));  // bytes 2i, 2i + 1
+        p[i] = pack_bf16(__uint_as_float(0x4B000000u | (pair & 0xFFu)) - 8388736.f,
+                         __uint_as_float(0x4B000000u | ((pair >> 8) & 0xFFu)) - 8388736.f);
+      }
+      *reinterpret_cast<uint4*>(tile + sw128(r, 2 * c)) = make_uint4(p[0], p[1], p[2], p[3]);
+      *reinterpret_cast<uint4*>(tile + sw128(r, 2 * c + 1)) = make_uint4(p[4], p[5], p[6], p[7]);
+    } else {
+      // low nibbles: dims 16c .. (chunks 2c, 2c + 1); high: dims D/2 + 16c ..
+      uint32_t lo[8], hi[8];
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const uint32_t pair = words[i / 2] >> (16 * (i % 2));
+        lo[i] = pack_bf16(nf4a_poly(pair & 0xFu), nf4a_poly((pair >> 8) & 0xFu));
+        hi[i] = pack_bf16(nf4a_poly((pair >> 4) & 0xFu), nf4a_poly((pair >> 12) & 0xFu));
+      }
+      *reinterpret_cast<uint4*>(tile + sw128(r, 2 * c)) = make_uint4(lo[0], lo[1], lo[2], lo[3]);
+      *reinterpret_cast<uint4*>(tile + sw128(r, 2 * c + 1)) = make_uint4(lo[4], lo[5], lo[6], lo[7]);
+      *reinterpret_cast<uint4*>(tile + sw128(r, D / 16 + 2 * c)) = make_uint4(hi[0], hi[1], hi[2], hi[3]);
+      *reinterpret_cast<uint4*>(tile + sw128(r, D / 16 + 2 * c + 1)) = make_uint4(hi[4], hi[5], hi[6], hi[7]);
+    }
+  }
+}
+
+// The online softmax of one tile on the S accumulator (log2 domain; scores
+// already scaled): row j in {0, 1} of this thread is rows lane / 4 + 8 j of
+// its warp's 16, columns col0 + 8 n + {0, 1}. On an edge tile (MASK) a score
+// that its row does not see, or whose slot's row is not valid (ok_col),
+// becomes probability 0 by a select.
+template <bool MASK>
+__device__ __forceinline__ void prefill_softmax(float (&s)[32], float (&m)[2], float (&l)[2], float (&alpha)[2],
+                                                const int (&q_pos)[2], int t0, int col0, int kv_len, int window,
+                                                const uint8_t* ok_col) {
+#pragma unroll
+  for (int j = 0; j < 2; ++j) {
+    float mx = NEG_INF;
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      if (((i >> 1) & 1) != j) continue;
+      if (MASK) {
+        const int col = col0 + 8 * (i / 4) + (i & 1), kv = t0 + col;
+        const bool ok = ok_col[col] && kv <= q_pos[j] && kv < kv_len && (window <= 0 || kv > q_pos[j] - window);
+        if (!ok) s[i] = NEG_INF;
+      }
+      mx = fmaxf(mx, s[i]);
+    }
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+    const float m_new = fmaxf(m[j], mx);
+    alpha[j] = exp2f(m[j] - m_new);
+    m[j] = m_new;
+    float sum = 0.f;
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      if (((i >> 1) & 1) != j) continue;
+      const float e = (MASK && s[i] == NEG_INF) ? 0.f : exp2f(s[i] - m_new);
+      s[i] = e;
+      sum += e;
+    }
+    l[j] = l[j] * alpha[j] + sum;
+  }
+}
+
+template <int D, int KV>
+__global__ void __launch_bounds__(PF_THREADS, 1)
+    paged_prefill_wgmma_kernel(const __nv_bfloat16* __restrict__ q,  // [q_len, hq, D] (one lane's chunk)
+                               const char* __restrict__ k_pool,      // [n_pages, page_size, hkv, row_bytes]
+                               const char* __restrict__ v_pool,
+                               const float* __restrict__ k_scales,  // [n_pages, page_size, hkv] (quantized)
+                               const float* __restrict__ v_scales,
+                               const int* __restrict__ table_row,  // [max_pages], -1 = hole
+                               const float* __restrict__ slopes,   // [hq] or nullptr
+                               __nv_bfloat16* __restrict__ out,    // [q_len, hq, D]
+                               int q_len, int hq, int hkv, int n_pages, int page_size, int max_pages,
+                               int chunk_pos, int kv_len, int window, float scale) {
+  using S = PrefillSmem<D, KV>;
+  constexpr int NWG = S::NWG, NT = S::THREADS, STAGES = S::STAGES, RB = S::RB;
+  constexpr int CH = D / 8;     // 16-byte chunks of a bf16 row
+  constexpr int RCH = RB / 16;  // 16-byte chunks of a stored row
+  extern __shared__ __align__(16) unsigned char pf_smem_raw[];
+  const uint32_t raw_base = smem_u32(pf_smem_raw);
+  const uint32_t base = (raw_base + 1023) & ~1023u;
+  unsigned char* const smem = pf_smem_raw + (base - raw_base);  // the aligned base, generic
+
+  const int group = hq / hkv;
+  const int qp = PF_ROWS / group;  // query positions of a warpgroup
+  const int kvh = blockIdx.x;
+  const int pos0 = (gridDim.y - 1 - blockIdx.y) * NWG * qp;  // the block's first position; heaviest first
+  const int tid = threadIdx.x, wg = tid / WG_THREADS;
+  const int warp = (tid % WG_THREADS) / WARP, lane = tid % WARP;
+
+  // the slots any real row of the block sees: from the window's start for
+  // its first position to the causal frontier of its last real one
+  const int p_first = chunk_pos + pos0;
+  const int p_last = chunk_pos + min(q_len, pos0 + NWG * qp) - 1;
+  const int kv_hi = min(min(kv_len, p_last + 1), max_pages * page_size);
+  int kv_lo = window > 0 ? max(0, p_first - window + 1) : 0;
+  kv_lo -= kv_lo % PF_KV;
+  const int n_tiles = kv_hi > kv_lo ? (kv_hi - kv_lo + PF_KV - 1) / PF_KV : 0;
+
+  // Q of each warpgroup w: row m = (position w * qp + m / group, head m %
+  // group); idle rows and rows past q_len zero-fill
+  for (int e = tid; e < NWG * PF_ROWS * CH; e += NT) {
+    const int w = e / (PF_ROWS * CH), m = e / CH % PF_ROWS, c = e % CH;
+    const int pos = m / group, row = pos0 + w * qp + pos;
+    const bool ok = pos < qp && row < q_len;
+    const __nv_bfloat16* src = ok ? q + ((long)row * hq + kvh * group + m % group) * D + c * 8 : q;
+    hopper::cp_async16(base + S::Q_OFF + w * S::TILE + sw128(m, c), src, ok);
+  }
+  cp_async_commit();
+
+  // stage st: K and V (swizzled bf16 tiles, or raw code rows), and its meta:
+  // [K scales | V scales] (quantized), then a valid flag per row
+  auto side_addr = [&](int st, int side) { return base + S::RING_OFF + (2 * st + side) * S::SIDE; };
+  auto scales_of = [&](int st) { return reinterpret_cast<float*>(smem + S::META_OFF + st * S::META); };
+  auto flags_of = [&](int st) { return smem + S::META_OFF + st * S::META + S::SCALES; };
+
+  // issue tile j's copies into its stage; always commit a group. Each
+  // thread reads the pages of all its rows first, so those loads are in
+  // flight together (each cp.async is a compiler barrier); a page size that
+  // is a power of two takes a shift, not a division.
+  constexpr int PER = (PF_KV * RCH + NT - 1) / NT;  // copies of each side a thread issues
+  const bool pow2 = (page_size & (page_size - 1)) == 0;
+  const int page_shift = __ffs(page_size) - 1;
+  auto load_tile = [&](int j) {
+    if (j < n_tiles) {
+      const int st = j % STAGES, t0 = kv_lo + j * PF_KV;
+      long row[PER];  // this thread's rows in the pool, in rows of one kv head
+      bool ok[PER];
+#pragma unroll
+      for (int i = 0; i < PER; ++i) {
+        const int slot = t0 + (tid + i * NT) / RCH;
+        const int idx = pow2 ? slot >> page_shift : slot / page_size;
+        const int page = tid + i * NT < PF_KV * RCH && slot < kv_hi ? table_row[idx] : -1;
+        const int in_page = pow2 ? slot & (page_size - 1) : slot - idx * page_size;
+        ok[i] = page >= 0 && page < n_pages;
+        row[i] = ok[i] ? ((long)page * page_size + in_page) * hkv + kvh : 0;
+      }
+#pragma unroll
+      for (int i = 0; i < PER; ++i) {
+        const int e = tid + i * NT, r = e / RCH, c = e % RCH;
+        if (e >= PF_KV * RCH) break;
+        const uint32_t off = KV == KV_FP ? sw128(r, c) : r * RB + c * 16;
+        hopper::cp_async16(side_addr(st, 0) + off, k_pool + row[i] * RB + c * 16, ok[i]);
+        hopper::cp_async16(side_addr(st, 1) + off, v_pool + row[i] * RB + c * 16, ok[i]);
+        if (c == 0) {
+          flags_of(st)[r] = ok[i];
+          if constexpr (KV != KV_FP) {
+            cp_async4(scales_of(st) + r, k_scales + row[i], ok[i]);
+            cp_async4(scales_of(st) + PF_KV + r, v_scales + row[i], ok[i]);
+          }
+        }
+      }
+    }
+    cp_async_commit();
+  };
+
+  // this thread's two rows: (position, head), and their slopes in log2 units
+  int q_pos[2], head[2];
+  bool real[2];
+  float slope[2];
+#pragma unroll
+  for (int j = 0; j < 2; ++j) {
+    const int m = 16 * warp + lane / 4 + 8 * j;
+    const int pos = m / group, row = pos0 + wg * qp + pos;
+    head[j] = m % group;
+    real[j] = pos < qp && row < q_len;
+    q_pos[j] = chunk_pos + row;
+    slope[j] = slopes != nullptr ? slopes[kvh * group + head[j]] * LOG2E : 0.f;
+  }
+  // the warpgroup's first and last real positions, for the interior test
+  const int wg_first = p_first + wg * qp;
+  const int wg_last = chunk_pos + min(q_len, pos0 + (wg + 1) * qp) - 1;
+  const float qk_scale = scale * LOG2E;
+  const int col0 = 2 * (lane % 4);
+  const uint32_t q_tile = base + S::Q_OFF + wg * S::TILE;
+
+  float o[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+  float m_run[2] = {NEG_INF, NEG_INF}, l_run[2] = {0.f, 0.f};
+
+  // tile j's scores S = Q K^T, issued (not waited) from the K tile at ks
+  auto issue_scores = [&](float(&acc)[32], uint32_t ks) {
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc[i] = 0.f;
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      const uint32_t off = (kk / 4) * ATOM_BYTES + (kk % 4) * 32;
+      wgmma_m64n64k16_ss(acc, desc_k_major(q_tile + off), desc_k_major(ks + off), kk > 0);
+    }
+    wgmma_commit();
+    fence_regs(acc);
+  };
+  // tile j's softmax on its (waited) scores, o rescaled, and P (a quantized
+  // pool's V scale folded in) as the A fragments of the PV product's four
+  // k16 steps
+  auto softmax_to_p = [&](float(&scores)[32], uint32_t (&a)[4][4], int j) {
+    const int st = j % STAGES, t0 = kv_lo + j * PF_KV;
+    const uint8_t* ok_col = flags_of(st);
+    const float* k_scale = scales_of(st);
+    const float* v_scale = k_scale + PF_KV;
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      float sc = qk_scale;
+      if constexpr (KV != KV_FP) sc *= k_scale[col0 + 8 * (i / 4) + (i & 1)] * scale_factor<KV>();
+      scores[i] *= sc;
+    }
+    if (slopes != nullptr) {
+#pragma unroll
+      for (int i = 0; i < 32; ++i) scores[i] += slope[(i >> 1) & 1] * (float)(t0 + col0 + 8 * (i / 4) + (i & 1));
+    }
+    // interior: every row of the tile is valid and every row of the
+    // warpgroup sees every slot of it
+    bool full = true;
+#pragma unroll
+    for (int w4 = 0; w4 < PF_KV / 16; ++w4) {
+      const uint4 f = reinterpret_cast<const uint4*>(ok_col)[w4];
+      full = full && (f.x & f.y & f.z & f.w) == 0x01010101u;
+    }
+    const bool interior = full && t0 + PF_KV - 1 <= wg_first && t0 + PF_KV <= kv_len &&
+                          (window <= 0 || t0 > wg_last - window);
+    float alpha[2];
+    if (interior) {
+      prefill_softmax<false>(scores, m_run, l_run, alpha, q_pos, t0, col0, kv_len, window, ok_col);
+    } else {
+      prefill_softmax<true>(scores, m_run, l_run, alpha, q_pos, t0, col0, kv_len, window, ok_col);
+    }
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) o[i] *= alpha[(i >> 1) & 1];
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        float p0 = scores[8 * kk + 2 * r], p1 = scores[8 * kk + 2 * r + 1];
+        if constexpr (KV != KV_FP) {
+          const int col = col0 + 8 * (2 * kk + r / 2);
+          p0 *= v_scale[col] * scale_factor<KV>();
+          p1 *= v_scale[col + 1] * scale_factor<KV>();
+        }
+        a[kk][r] = pack_bf16(p0, p1);
+      }
+    }
+  };
+  auto issue_pv = [&](const uint32_t (&a)[4][4], uint32_t vs) {
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) wgmma_pv<D>(o, a[kk], desc_mn_major(vs + kk * 2048));
+    wgmma_commit();
+    fence_regs(o);
+  };
+
+#pragma unroll
+  for (int i = 0; i < STAGES - 1; ++i) load_tile(i);
+  float s[32];
+  uint32_t a[4][4];
+
+  if constexpr (KV == KV_FP) {
+    for (int j = 0; j < n_tiles; ++j) {
+      cp_async_wait<STAGES - 2>();  // Q and tile j landed
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+      __syncthreads();  // tile j visible to all; every thread is done with tile j - 1
+      load_tile(j + STAGES - 1);  // into tile j - 1's stage
+      issue_scores(s, side_addr(j % STAGES, 0));
+      wgmma_wait0();
+      fence_regs(s);
+      softmax_to_p(s, a, j);
+      issue_pv(a, side_addr(j % STAGES, 1));
+      wgmma_wait0();
+      fence_regs(o);
+    }
+  } else {
+    // decoded tiles: a K and V pair for each parity of j. Tile j + 1 is
+    // decoded while tile j's products run: its K under the scores, its V
+    // under the PV product.
+    constexpr int DEC = S::Q_OFF + NWG * S::TILE;
+    auto dec_k = [&](int j) { return DEC + (j & 1) * 2 * S::TILE; };  // byte offsets from the base
+    auto raw = [&](int j, int side) { return smem + (side_addr(j % STAGES, side) - base); };
+    if (n_tiles > 0) {
+      cp_async_wait<STAGES - 2>();  // Q and tile 0 landed
+      __syncthreads();
+      decode_side<D, KV, NT>(smem + dec_k(0), raw(0, 0));
+      decode_side<D, KV, NT>(smem + dec_k(0) + S::TILE, raw(0, 1));
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+      __syncthreads();
+    }
+    for (int j = 0; j < n_tiles; ++j) {
+      const bool next = j + 1 < n_tiles;  // uniform
+      issue_scores(s, base + dec_k(j));
+      if (next) {
+        cp_async_wait<STAGES - 3>();  // tile j + 1 landed
+        __syncthreads();  // ... for all; every thread is done with tile j - 1
+        load_tile(j + STAGES - 1);  // into tile j - 1's stage
+        decode_side<D, KV, NT>(smem + dec_k(j + 1), raw(j + 1, 0));
+      }
+      wgmma_wait0();
+      fence_regs(s);
+      softmax_to_p(s, a, j);
+      issue_pv(a, base + dec_k(j) + S::TILE);
+      if (next) decode_side<D, KV, NT>(smem + dec_k(j + 1) + S::TILE, raw(j + 1, 1));
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+      wgmma_wait0();
+      fence_regs(o);
+      // P, the product's A operand, stays in its registers until it is done
+      // (the decode above must not reuse them)
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+#pragma unroll
+        for (int r = 0; r < 4; ++r) asm volatile("" : "+r"(a[kk][r])::"memory");
+      }
+      __syncthreads();  // tile j + 1's decoded tiles visible to all
+    }
+  }
+  cp_async_wait<0>();  // the trailing (empty) groups
+
+  // rows past n_valid are computed but never read; a row that saw nothing
+  // keeps l == 0 and writes exact zeros
+  float inv[2];
+#pragma unroll
+  for (int j = 0; j < 2; ++j) {
+    float l = l_run[j];
+    l += __shfl_xor_sync(0xffffffffu, l, 1);
+    l += __shfl_xor_sync(0xffffffffu, l, 2);
+    inv[j] = 1.f / fmaxf(l, 1e-30f);
+  }
+#pragma unroll
+  for (int j = 0; j < 2; ++j) {
+    if (!real[j]) continue;
+    __nv_bfloat16* row = out + ((long)(q_pos[j] - chunk_pos) * hq + kvh * group + head[j]) * D;
+#pragma unroll
+    for (int i = 2 * j; i < D / 2; i += 4) {
+      *reinterpret_cast<__nv_bfloat162*>(row + 8 * (i / 4) + col0) =
+          __floats2bfloat162_rn(o[i] * inv[j], o[i + 1] * inv[j]);
+    }
+  }
+}
+
 constexpr int kMaxDevices = 64;
 
 // Raise the kernel's dynamic shared-memory limit to `smem` once per device;
@@ -843,6 +1312,44 @@ int launch_prefill(const void* q, const void* k_pool, const void* v_pool, const 
       k_scales, v_scales, table_row, slopes, static_cast<T*>(out), q_len, hq, hkv, n_pages,
       page_size, max_pages, chunk_pos, kv_len, window, scale);
   return (int)cudaGetLastError();
+}
+
+template <int D, int KV>
+int launch_prefill_wgmma(const void* q, const void* k_pool, const void* v_pool, const float* k_scales,
+                         const float* v_scales, const int* table_row, const float* slopes, void* out,
+                         int q_len, int hq, int hkv, int n_pages, int page_size, int max_pages,
+                         int chunk_pos, int kv_len, int window, float scale, cudaStream_t stream) {
+  using S = PrefillSmem<D, KV>;
+  auto kernel = paged_prefill_wgmma_kernel<D, KV>;
+  static size_t configured[kMaxDevices] = {};
+  cudaError_t err = allow_smem_once(kernel, S::BYTES, configured);
+  if (err != cudaSuccess) return (int)err;
+  const int per_block = S::NWG * (PF_ROWS / (hq / hkv));  // query positions of a block
+  kernel<<<dim3(hkv, (q_len + per_block - 1) / per_block), S::THREADS, S::BYTES, stream>>>(
+      static_cast<const __nv_bfloat16*>(q), static_cast<const char*>(k_pool), static_cast<const char*>(v_pool),
+      k_scales, v_scales, table_row, slopes, static_cast<__nv_bfloat16*>(out), q_len, hq, hkv, n_pages,
+      page_size, max_pages, chunk_pos, kv_len, window, scale);
+  return (int)cudaGetLastError();
+}
+
+// bf16 queries take the wgmma kernel; float32 keeps the CUDA-core kernel
+// (TF32 tensor cores would change float32 results)
+template <int D>
+int launch_prefill_any(int dtype, int kv, const void* q, const void* k_pool, const void* v_pool,
+                       const float* k_scales, const float* v_scales, const int* table_row, const float* slopes,
+                       void* out, int q_len, int hq, int hkv, int n_pages, int page_size, int max_pages,
+                       int chunk_pos, int kv_len, int window, float scale, cudaStream_t stream) {
+#define PTT_PREFILL_ARGS                                                                         \
+  q, k_pool, v_pool, k_scales, v_scales, table_row, slopes, out, q_len, hq, hkv, n_pages, page_size, \
+      max_pages, chunk_pos, kv_len, window, scale, stream
+  if (dtype == 1 && kv == KV_FP) return launch_prefill_wgmma<D, KV_FP>(PTT_PREFILL_ARGS);
+  if (dtype == 1 && kv == KV_INT8) return launch_prefill_wgmma<D, KV_INT8>(PTT_PREFILL_ARGS);
+  if (dtype == 1 && kv == KV_NF4A) return launch_prefill_wgmma<D, KV_NF4A>(PTT_PREFILL_ARGS);
+  if (dtype == 0 && kv == KV_FP) return launch_prefill<float, D, KV_FP>(PTT_PREFILL_ARGS);
+  if (dtype == 0 && kv == KV_INT8) return launch_prefill<float, D, KV_INT8>(PTT_PREFILL_ARGS);
+  if (dtype == 0 && kv == KV_NF4A) return launch_prefill<float, D, KV_NF4A>(PTT_PREFILL_ARGS);
+#undef PTT_PREFILL_ARGS
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -912,23 +1419,13 @@ int ptt_paged_prefill_attention(const void* q, const void* k_pool, const void* v
   const int* t = static_cast<const int*>(table_row);
   const float* sl = static_cast<const float*>(slopes);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define PTT_PREFILL(T, D)                                                                    \
-  {                                                                                          \
-    if (kv == KV_FP)                                                                         \
-      return launch_prefill<T, D, KV_FP>(q, k_pool, v_pool, ks, vs, t, sl, out, q_len, hq,   \
-                                         hkv, n_pages, page_size, max_pages, chunk_pos,      \
-                                         kv_len, window, scale, s);                          \
-    if (kv == KV_INT8)                                                                       \
-      return launch_prefill<T, D, KV_INT8>(q, k_pool, v_pool, ks, vs, t, sl, out, q_len, hq, \
-                                           hkv, n_pages, page_size, max_pages, chunk_pos,    \
-                                           kv_len, window, scale, s);                        \
-    if (kv == KV_NF4A)                                                                       \
-      return launch_prefill<T, D, KV_NF4A>(q, k_pool, v_pool, ks, vs, t, sl, out, q_len, hq, \
-                                           hkv, n_pages, page_size, max_pages, chunk_pos,    \
-                                           kv_len, window, scale, s);                        \
-  }
-  PTT_DISPATCH(PTT_PREFILL)
-#undef PTT_PREFILL
+  if (hkv < 1 || hq % hkv || hq / hkv > MAX_GROUP) return (int)cudaErrorInvalidValue;
+  if (head_dim == 64)
+    return launch_prefill_any<64>(dtype, kv, q, k_pool, v_pool, ks, vs, t, sl, out, q_len, hq, hkv, n_pages,
+                                  page_size, max_pages, chunk_pos, kv_len, window, scale, s);
+  if (head_dim == 128)
+    return launch_prefill_any<128>(dtype, kv, q, k_pool, v_pool, ks, vs, t, sl, out, q_len, hq, hkv, n_pages,
+                                   page_size, max_pages, chunk_pos, kv_len, window, scale, s);
   return (int)cudaErrorInvalidValue;
 }
 

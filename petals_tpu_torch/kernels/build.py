@@ -3,10 +3,10 @@ interface and load them with ctypes.
 
 ``nvcc`` compiles each ``csrc/<name>.cu`` for ``sm_90a`` on first use. The
 library lands in ``build/kernels/`` beside the package (a directory the
-repository's ``.gitignore`` lists), under a name keyed by a hash of the source
-and the compiler flags, so an edited source rebuilds and an unchanged one is
-reused. Nothing is compiled at import: the CPU tests import every module on a
-machine that has no ``nvcc``.
+repository's ``.gitignore`` lists), under a name keyed by a hash of the source,
+the headers beside it and the compiler flags, so an edited source or header
+rebuilds and an unchanged one is reused. Nothing is compiled at import: the
+CPU tests import every module on a machine that has no ``nvcc``.
 """
 
 from __future__ import annotations
@@ -38,9 +38,20 @@ def find_nvcc() -> str:
     return found
 
 
+def nvcc_command(source, output) -> list:
+    """The nvcc command that builds ``source`` (a ``.cu`` file anywhere, e.g.
+    a modified copy) into the shared library ``output``; csrc's headers are
+    on the include path."""
+    return [find_nvcc(), *NVCC_FLAGS, "-I", str(CSRC_DIR), "-o", str(output), str(source)]
+
+
 def library_path(name: str) -> Path:
-    """Where the library built from ``csrc/<name>.cu`` lives."""
+    """Where the library built from ``csrc/<name>.cu`` lives: keyed by the
+    source, every header beside it (``csrc/*.cuh``, which a source may
+    include) and the flags, so an edited header rebuilds too."""
     digest = hashlib.sha256((CSRC_DIR / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC_DIR.glob("*.cuh")):
+        digest.update(header.name.encode() + b"\0" + header.read_bytes())
     digest.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
 
@@ -59,7 +70,7 @@ def build(name: str) -> Path:
         if out.exists():
             return out
         tmp = out.with_suffix(f".tmp{os.getpid()}")
-        cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC_DIR / f"{name}.cu")]
+        cmd = nvcc_command(CSRC_DIR / f"{name}.cu", tmp)
         t0 = time.perf_counter()
         proc = subprocess.run(cmd, capture_output=True, text=True)
         if proc.returncode != 0:

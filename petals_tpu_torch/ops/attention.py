@@ -76,9 +76,12 @@ def attend_reference(
     alibi_slopes: Optional[torch.Tensor] = None,
     sliding_window: Optional[int] = None,
     scale: Optional[float] = None,
+    kv_valid: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Plain attention in float32. ``q_offset``/``kv_length`` are scalars (one
-    shared history length) or [batch] tensors (per-lane positions)."""
+    shared history length) or [batch] tensors (per-lane positions).
+    ``kv_valid`` [batch, kv_len] bool, where given, hides the positions it
+    marks False from every query (a paged cache's holes)."""
     batch, q_len, num_q_heads, head_dim = q.shape
     _, kv_buf_len, num_kv_heads, _ = k.shape
     if num_q_heads % num_kv_heads:
@@ -106,6 +109,8 @@ def attend_reference(
     mask = (kv_pos[None, None, :] < kv_len) & (kv_pos[None, None, :] <= q_pos[:, :, None])
     if sliding_window is not None:
         mask = mask & (kv_pos[None, None, :] > q_pos[:, :, None] - sliding_window)
+    if kv_valid is not None:
+        mask = mask & kv_valid[:, None, :]
     mask = mask.expand(mask.shape[0], q_len, kv_buf_len)
 
     logits = torch.where(mask[:, None], logits, DEFAULT_MASK_VALUE)

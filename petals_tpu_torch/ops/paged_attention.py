@@ -386,6 +386,15 @@ def paged_update_kv(k_kv: PagedKV, v_kv: PagedKV, k_new, v_new, position, n_vali
     return k_kv, v_kv, pos + n
 
 
+def slot_valid(pool: PoolLike, tables: torch.Tensor) -> torch.Tensor:
+    """[n_lanes, max_pages * page_size] bool: the slots whose page lies in
+    the pool. A hole (-1) is no position at all, not a zero row: the kernels
+    skip its page, as the TPU kernels do, so the plain versions mask it out
+    of the softmax (a zero K row would score 0 and take a share of it)."""
+    n_pages, page_size = pool.shape[0], pool.shape[1]
+    return ((tables >= 0) & (tables < n_pages)).repeat_interleave(page_size, dim=1)
+
+
 def paged_attend(
     q: torch.Tensor,
     k_pool: PoolLike,
@@ -401,12 +410,14 @@ def paged_attend(
     a dense view and attend with ragged lengths (kv_length = position + 1).
     q [n_lanes, 1, hq, d]; pools [n_pages, ps, hkv, d]; tables [n_lanes,
     max_pages]; positions [n_lanes] int32. On ``PagedPool``s it is the plain
-    version of the quantized arm too: pages dequantize to bfloat16 first."""
+    version of the quantized arm too: pages dequantize to bfloat16 first.
+    Holes are seen by no query (``slot_valid``)."""
     k = gather_pages(k_pool, tables)
     v = gather_pages(v_pool, tables)
     return attend_reference(
         q, k, v, q_offset=positions, kv_length=positions + q.shape[1],
         alibi_slopes=alibi_slopes, sliding_window=sliding_window, scale=scale,
+        kv_valid=slot_valid(k_pool, tables),
     )
 
 
@@ -425,11 +436,13 @@ def paged_prefill_attend(
     """Plain version of the paged CHUNKED-PREFILL kernel: causal attention for
     one lane's chunk q [1, chunk, hq, d] starting at absolute position
     ``chunk_pos``, whose ``n_valid`` real rows' KV is already in the pages.
-    Rows past n_valid give finite values that no caller reads. Takes
-    ``PagedPool``s as ``paged_attend`` does."""
+    Rows past n_valid give finite values that no caller reads; holes are
+    seen by no query (``slot_valid``). Takes ``PagedPool``s as
+    ``paged_attend`` does."""
     k = gather_pages(k_pool, table_row[None])
     v = gather_pages(v_pool, table_row[None])
     return attend_reference(
         q, k, v, q_offset=int(chunk_pos), kv_length=int(chunk_pos) + int(n_valid),
         alibi_slopes=alibi_slopes, sliding_window=sliding_window, scale=scale,
+        kv_valid=slot_valid(k_pool, table_row[None]),
     )

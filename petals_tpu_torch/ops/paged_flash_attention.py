@@ -14,7 +14,9 @@ the quantized arm of each kind (K3).
 The kernels replace ``_decode_kernel`` and ``_prefill_kernel`` of
 petals_tpu/ops/paged_flash_attention.py, with their quantized arms
 (``_quant_k_scores``, ``_quant_pv``); the source says what bounds them and
-how their design answers that.
+how their design answers that. A bf16 prefill call runs
+``paged_prefill_wgmma_kernel`` (tensor cores), a float32 one the CUDA-core
+``paged_prefill_kernel``; both skip holes, as the TPU kernels do.
 """
 
 from __future__ import annotations
@@ -166,8 +168,9 @@ def _check_common(q, k_pool, v_pool, alibi_slopes, sliding_window):
         raise ValueError(f"head_dim must match the pool and be one of {_HEAD_DIMS}, got {q.shape[3]}/{d}")
     if hq % hkv or hq // hkv > _MAX_GROUP:
         raise ValueError(f"{hq} query heads over {hkv} kv heads: need a group of at most {_MAX_GROUP}")
-    # the page sizes the kernels are built and tested for (decode stages
-    # 64-row tiles of slots, prefill 64-row tiles of a page)
+    # the page sizes the kernels are built and tested for (decode and bf16
+    # prefill stage 64-slot tiles, each row through its page; float32
+    # prefill 64-row tiles of a page)
     if page_size % 8 or page_size > _MAX_PAGE_SIZE or (page_size > 64 and page_size % 64):
         raise ValueError(f"page_size must be a multiple of 8 up to 64, or 128; got {page_size}")
     if alibi_slopes is not None:

@@ -60,7 +60,7 @@ def main() -> int:
         cu, so = os.path.join(out_dir, f"v{i}.cu"), os.path.join(out_dir, f"libv{i}.so")
         with open(cu, "w") as f:
             f.write(text)
-        procs[name] = (so, subprocess.Popen([kbuild.find_nvcc(), *kbuild.NVCC_FLAGS, "-o", so, cu],
+        procs[name] = (so, subprocess.Popen(kbuild.nvcc_command(cu, so),
                                             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
     libs = {}
     for name, (so, proc) in procs.items():

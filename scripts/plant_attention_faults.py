@@ -10,14 +10,21 @@ real ones (into build/faults/):
   every (lane, kv head) the weight 0, so that run's keys leave the softmax
   and the rest is renormalised (the subtle way to lose a split);
 - "float32 read as bf16": the float32 flash kernel rounds every q, k and v
-  element it reads to bf16.
+  element it reads to bf16;
+- "prefill skips an interior tile": the bf16 prefill kernel leaves the
+  second tile of each block out of the softmax and the PV product where it is
+  an interior tile (below the diagonal, no hole);
+- "prefill leaves holes unmasked": the bf16 prefill kernel's edge mask
+  ignores the valid flags, so a hole's zero-filled rows score 0 and take a
+  share of the softmax.
 
-and runs chip_smoke.py's checks of those kernels with each (K1 at phase 2's
-shape and at its long contexts, K3 decode's int8 and nf4a arms; K4 at its
-four cases, bf16 and float32), each logging what it read beside its
-limit. The real kernels run the same checks first, as the control. Exits 0
-when the control passes every check and each fault is rejected by every
-check of its kernel. The card's name and power limit are printed first.
+and runs chip_smoke.py's checks of the kernel each fault is planted in (K1
+at phase 2's shape and at its long contexts, K3 decode's int8 and nf4a arms;
+K4 at its four cases, bf16 and float32; K2 at its long chunks, row by row),
+each logging what it read beside its limit. The real kernels run every
+check first, as the control. Exits 0 when the control passes every check and
+each fault is rejected by every check of its kernel. The card's name and
+power limit are printed first.
 """
 
 from __future__ import annotations
@@ -32,12 +39,22 @@ import torch
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 MERGE_WEIGHT = "      const float w = ml.y > 0.f ? expf(ml.x - mx) : 0.f;"
 F32_READ = "__device__ __forceinline__ float to_f32(float x) { return x; }"
+INTERIOR = """    if (interior) {
+      prefill_softmax<false>("""
+HOLE_MASK = "        const bool ok = ok_col[col] && kv <= q_pos[j]"
+# fault: (source, the line it replaces, the planted text, the checks it must fail)
 FAULTS = {
     "merge drops split 1": ("paged_attention", MERGE_WEIGHT,
-                            "      const float w = ml.y > 0.f && s != 1 ? expf(ml.x - mx) : 0.f;"),
+                            "      const float w = ml.y > 0.f && s != 1 ? expf(ml.x - mx) : 0.f;", ("K1", "K3 decode")),
     "float32 read as bf16": ("flash_attention", F32_READ,
                              "__device__ __forceinline__ float to_f32(float x) "
-                             "{ return __bfloat162float(__float2bfloat16(x)); }"),
+                             "{ return __bfloat162float(__float2bfloat16(x)); }", ("K4",)),
+    "prefill skips an interior tile": ("paged_attention", INTERIOR, """    if (interior && j == 1) {
+      alpha[0] = alpha[1] = 1.f;
+      for (int i = 0; i < 32; ++i) scores[i] = 0.f;
+    } else if (interior) {
+      prefill_softmax<false>(""", ("K2",)),
+    "prefill leaves holes unmasked": ("paged_attention", HOLE_MASK, "        const bool ok = kv <= q_pos[j]", ("K2",)),
 }
 
 
@@ -46,14 +63,14 @@ def faulty_libraries(kbuild) -> dict:
     out_dir = os.path.join(REPO, "build", "faults")
     os.makedirs(out_dir, exist_ok=True)
     procs = {}
-    for i, (fault, (name, line, planted)) in enumerate(FAULTS.items()):
+    for i, (fault, (name, line, planted, _)) in enumerate(FAULTS.items()):
         src = open(os.path.join(kbuild.CSRC_DIR, f"{name}.cu")).read()
         if src.count(line) != 1:
             raise SystemExit(f"{name}.cu no longer has the line the fault {fault!r} replaces")
         cu, so = os.path.join(out_dir, f"f{i}.cu"), os.path.join(out_dir, f"libf{i}.so")
         with open(cu, "w") as f:
             f.write(src.replace(line, planted))
-        procs[fault] = (name, so, subprocess.Popen([kbuild.find_nvcc(), *kbuild.NVCC_FLAGS, "-o", so, cu],
+        procs[fault] = (name, so, subprocess.Popen(kbuild.nvcc_command(cu, so),
                                                    stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
     libs = {}
     for fault, (name, so, proc) in procs.items():
@@ -88,22 +105,26 @@ def main() -> int:
         fn()
         return 1.0
 
+    # check: (the kernel it holds, the call)
     checks = {
-        "K1, phase 2": ("paged_attention", lambda: chip_smoke.check_attention_kernels(device, untimed, dec, pf)),
+        "K1, phase 2": ("K1", lambda: chip_smoke.check_attention_kernels(device, untimed, dec, pf)),
         **{f"K1, {n} lane(s) x {p}, tables of {t}": (
-            "paged_attention", lambda case=(n, p, t): chip_smoke.check_long_decode(device, untimed, *case))
+            "K1", lambda case=(n, p, t): chip_smoke.check_long_decode(device, untimed, *case))
            for n, p, t in chip_smoke.LONG_DECODE},
         **{f"K3 {kind} decode": (
-            "paged_attention", lambda kind=kind: chip_smoke.check_attention_kernels(device, untimed, dec, pf, kind))
+            "K3 decode", lambda kind=kind: chip_smoke.check_attention_kernels(device, untimed, dec, pf, kind))
            for kind in chip_smoke.KV_QUANT_KINDS},
-        "K4, cases a-d": ("flash_attention", lambda: chip_smoke.check_flash_kernel(device, untimed)),
+        "K4, cases a-d": ("K4", lambda: chip_smoke.check_flash_kernel(device, untimed)),
+        **{f"K2, 512 rows x position {p}, tables of {t}": (
+            "K2", lambda case=(p, t): chip_smoke.check_long_prefill(device, untimed, "none", *case))
+           for p, t in chip_smoke.LONG_PREFILL},
     }
     failures = []
     for variant, libs in variants.items():
         pfa._LIB = fa._LIB = None  # the wrappers bind whichever library kbuild.load returns
         kbuild.load = lambda name, libs=libs: ctypes.CDLL(libs[name]) if name in libs else real_load(name)
-        for check, (source, run) in checks.items():
-            if variant != "control" and source not in libs:
+        for check, (kernel, run) in checks.items():
+            if variant != "control" and kernel not in FAULTS[variant][3]:
                 continue
             try:
                 run()

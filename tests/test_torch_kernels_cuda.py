@@ -12,7 +12,12 @@ float32 and rounds its output once to bf16: 2e-2 (half a bf16 ulp at
 |out| < 4 is 2**-7, plus summation order). On a quantized pool (K3) 2e-2 for
 both query types: the plain version decodes the pool to bf16 values, the
 kernel decodes the same codes to float32 registers, so every K and V value
-may differ by half a bf16 ulp (tests/test_kv_quant.py uses the same bound)."""
+may differ by half a bf16 ulp (tests/test_kv_quant.py uses the same bound).
+The bf16 prefill kernel at Mistral-7B's long chunks is held row by row, each
+query row within ROW_REL_TOL (bf16 pool) or KV_ROW_REL_TOL (quantized pool)
+of its largest output, as chip_smoke.py holds it; both limits are derived in
+tests/test_torch_prefill_model.py. Tables with holes where the rows look
+check that a hole is seen by no query, as the plain version masks it."""
 
 import numpy as np
 import pytest
@@ -77,20 +82,44 @@ def test_decode_kernel_matches_plain(cuda_device, dtype, window, group, d, ps):
         assert err <= CUDA_TOL[dtype], err
 
 
+# (group, head_dim, page size) of the prefill cases: every group the wrapper
+# takes a kernel for (up to 16; 3 leaves a packed row idle), every kind of page
+# (8 slots: eight pages a 64-slot tile; 128: half a page a tile)
+PREFILL_SHAPES = [(4, 128, 64), (4, 128, 16), (4, 128, 128), (4, 64, 64), (1, 64, 8), (2, 128, 16), (3, 128, 64),
+                  (8, 64, 128), (16, 128, 8)]
+PREFILL_CHUNKS = [(0, 130, None), (64, 100, None), (70, 90, 50), (0, 0, None)]  # (chunk_pos, n_valid, window)
+
+
+def _prefill_table(rng, ps, max_pages, n_pages, kv_len, holes):
+    """Row 1 of a 3-row table with an odd width (a table row need not start
+    16-byte aligned): the lane's pages up to kv_len, permuted; with
+    ``holes``, its second page and one near the middle of its visible range
+    are holes (-1) too, which no query may see."""
+    used = max(1, -(-kv_len // ps))
+    tables = _holey_permuted(rng, 3, max_pages + 1, n_pages, [0, used, 0])
+    if holes:
+        tables[1, [min(1, used - 1), used // 2]] = -1
+    return tables
+
+
+def _blind_rows(want, n_valid):
+    """Query rows (position, head) among the first n_valid that see nothing:
+    exact zeros in the plain version, as the kernels must give them."""
+    return want[:, :n_valid].abs().amax(dim=-1) == 0
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("ps", [16, 64, 128])
-@pytest.mark.parametrize("chunk_pos,n_valid,window", [(0, 130, None), (64, 100, None), (70, 90, 50), (0, 0, None)])
-def test_prefill_kernel_matches_plain(cuda_device, dtype, ps, chunk_pos, n_valid, window):
+@pytest.mark.parametrize("holes", [False, True])
+@pytest.mark.parametrize("group,d,ps", PREFILL_SHAPES)
+@pytest.mark.parametrize("chunk_pos,n_valid,window", PREFILL_CHUNKS)
+def test_prefill_kernel_matches_plain(cuda_device, dtype, holes, group, d, ps, chunk_pos, n_valid, window):
     rng = np.random.default_rng(11)
-    hkv, group, d, chunk = 2, 4, 128, 130
+    hkv, chunk = 2, 130
     max_pages = 320 // ps
     n_pages = 2 * max_pages + 4
     kp, vp = rng.standard_normal((2, n_pages, ps, hkv, d)).astype(np.float32)
     q = rng.standard_normal((1, chunk, hkv * group, d)).astype(np.float32)
-    # the lane's row is row 1 of a 3-row table with an odd width: a table
-    # row need not start 16-byte aligned
-    used = max(1, -(-(chunk_pos + n_valid) // ps))
-    tables = _holey_permuted(rng, 3, max_pages + 1, n_pages, [0, used, 0])
+    tables = _prefill_table(rng, ps, max_pages, n_pages, chunk_pos + n_valid, holes)
     slopes = torch.from_numpy((rng.standard_normal(hkv * group) * 0.1).astype(np.float32)).to(cuda_device)
     q, kp, vp = _on(cuda_device, dtype, q, kp, vp)
     (tables,) = _on(cuda_device, torch.int32, tables)
@@ -102,10 +131,13 @@ def test_prefill_kernel_matches_plain(cuda_device, dtype, ps, chunk_pos, n_valid
     want = paged_prefill_attend(
         q.float(), kp.float(), vp.float(), row, chunk_pos, n_valid, alibi_slopes=slopes, sliding_window=window
     )
-    assert torch.isfinite(got).all()
+    assert got.dtype == dtype and torch.isfinite(got).all()
     err = (got.float() - want)[:, :n_valid].abs().max().item() if n_valid else 0.0
     assert err <= CUDA_TOL[dtype], err
-    if n_valid == 0:  # no visible position: exact zeros, as the TPU kernel gives
+    # no visible position (n_valid 0, or only holes before it): exact zeros,
+    # as the TPU kernel gives
+    assert not got[:, :n_valid][_blind_rows(want, n_valid)].any()
+    if n_valid == 0:
         assert not got.any()
 
 
@@ -172,17 +204,18 @@ def test_quantized_decode_kernel_matches_plain(cuda_device, kind, dtype, window,
 
 @pytest.mark.parametrize("kind", ["int8", "nf4a"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("ps,d", [(16, 128), (64, 128), (128, 128), (64, 64)])
-@pytest.mark.parametrize("chunk_pos,n_valid,window", [(0, 130, None), (64, 100, None), (70, 90, 50), (0, 0, None)])
-def test_quantized_prefill_kernel_matches_plain(cuda_device, kind, dtype, ps, d, chunk_pos, n_valid, window):
+@pytest.mark.parametrize("holes", [False, True])
+@pytest.mark.parametrize("group,d,ps", PREFILL_SHAPES)
+@pytest.mark.parametrize("chunk_pos,n_valid,window", PREFILL_CHUNKS)
+def test_quantized_prefill_kernel_matches_plain(cuda_device, kind, dtype, holes, group, d, ps, chunk_pos, n_valid,
+                                                window):
     rng = np.random.default_rng(14)
-    hkv, group, chunk = 2, 4, 130
+    hkv, chunk = 2, 130
     max_pages = 320 // ps
     n_pages = 2 * max_pages + 4
     kp, vp = _quant_pools(cuda_device, kind, n_pages, ps, hkv, d, seed=15)
     q = rng.standard_normal((1, chunk, hkv * group, d)).astype(np.float32)
-    used = max(1, -(-(chunk_pos + n_valid) // ps))
-    tables = _holey_permuted(rng, 3, max_pages + 1, n_pages, [0, used, 0])
+    tables = _prefill_table(rng, ps, max_pages, n_pages, chunk_pos + n_valid, holes)
     slopes = torch.from_numpy((rng.standard_normal(hkv * group) * 0.1).astype(np.float32)).to(cuda_device)
     (q,) = _on(cuda_device, dtype, q)
     (tables,) = _on(cuda_device, torch.int32, tables)
@@ -196,8 +229,91 @@ def test_quantized_prefill_kernel_matches_plain(cuda_device, kind, dtype, ps, d,
     assert got.dtype == dtype and torch.isfinite(got).all()
     err = (got.float() - want)[:, :n_valid].abs().max().item() if n_valid else 0.0
     assert err <= KV_QUANT_TOL, err
+    assert not got[:, :n_valid][_blind_rows(want, n_valid)].any()
     if n_valid == 0:
         assert not got.any()
+
+
+# bf16 prefill held row by row, relative to each query row's largest output
+# (tests/test_torch_prefill_model.py derives both): the kernel rounds P and
+# its output to bf16, 2**-7 of the row on a bf16 pool; a quantized pool adds a
+# bf16 decode of every K and V value on each side, 2**-5
+ROW_REL_TOL = 2**-7
+KV_ROW_REL_TOL = 2**-5
+
+
+def _long_chunk(device, kind, chunk_pos, table_tokens, seed):
+    """Mistral-7B's heads (32 over 8, head_dim 128, page 64): a 512-row chunk
+    at ``chunk_pos`` on a permuted table of ``table_tokens`` tokens, pages up
+    to the chunk's end allocated, three pages inside the visible range holes."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    max_pages, kv_len = table_tokens // 64, chunk_pos + 512
+    used = kv_len // 64
+    n_pages = max_pages + 3
+    row = torch.full((max_pages,), -1, dtype=torch.int32)
+    row[:used] = torch.randperm(n_pages, generator=torch.Generator().manual_seed(seed))[:used].to(torch.int32)
+    row[[used // 5, used // 2, used - 12]] = -1
+    if kind == "none":
+        kp, vp = (torch.randn(n_pages, 64, 8, 128, generator=gen, device=device).to(torch.bfloat16) for _ in range(2))
+    else:
+        kp, vp = _quant_pools(device, kind, n_pages, 64, 8, 128, seed=seed + 1)
+    q = torch.randn(1, 512, 32, 128, generator=gen, device=device).to(torch.bfloat16)
+    return q, kp, vp, row.to(device)
+
+
+def _row_ratio(got, want):
+    """Worst, over query rows (position, head), of the row's max abs error
+    over its largest |want|."""
+    return ((got.float() - want).abs().amax(dim=-1) / want.abs().amax(dim=-1).clamp_min(1e-30)).max().item()
+
+
+@pytest.mark.parametrize("kind", ["none", "int8", "nf4a"])
+@pytest.mark.parametrize("chunk_pos,table_tokens", [(3584, 4096), (4608, 8192)])
+def test_prefill_kernels_at_long_chunks(cuda_device, kind, chunk_pos, table_tokens):
+    """The long chunks of a 4096-token prompt and of an 8192-token table
+    under Mistral-7B's window of 4096, with holes where the rows look; each
+    query row within its limit of its largest output."""
+    q, kp, vp, row = _long_chunk(cuda_device, kind, chunk_pos, table_tokens, seed=90)
+    got = pfa.paged_flash_prefill_attend(q, kp, vp, row, chunk_pos, 512, sliding_window=4096)
+    torch.cuda.synchronize()
+    plain = (kp.float(), vp.float()) if kind == "none" else (kp, vp)
+    want = paged_prefill_attend(q.float(), *plain, row, chunk_pos, 512, sliding_window=4096)
+    assert got.dtype == torch.bfloat16 and torch.isfinite(got).all()
+    ratio = _row_ratio(got, want)
+    assert ratio <= (ROW_REL_TOL if kind == "none" else KV_ROW_REL_TOL), ratio
+
+
+@pytest.mark.parametrize("kind", ["none", "int8", "nf4a"])
+def test_prefill_kernel_is_bit_equal_on_repeats(cuda_device, kind):
+    """Each block sums its own rows in a fixed order: repeats give the same bits."""
+    q, kp, vp, row = _long_chunk(cuda_device, kind, 3584, 4096, seed=91)
+    first = pfa.paged_flash_prefill_attend(q, kp, vp, row, 3584, 500, sliding_window=4096)
+    for _ in range(5):
+        assert torch.equal(pfa.paged_flash_prefill_attend(q, kp, vp, row, 3584, 500, sliding_window=4096), first)
+
+
+def test_bf16_prefill_runs_the_wgmma_kernel(cuda_device):
+    """A bf16 call launches paged_prefill_wgmma_kernel and counts it; a
+    float32 call the CUDA-core paged_prefill_kernel, for every pool kind."""
+    from torch.profiler import ProfilerActivity, profile
+
+    def kernel_names(fn):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        return {e.key for e in prof.key_averages() if "paged_prefill" in e.key}
+
+    for kind in ("none", "int8", "nf4a"):
+        q, kp, vp, row = _long_chunk(cuda_device, kind, 448, 1024, seed=92)
+        f32 = (kp.float(), vp.float()) if kind == "none" else (kp, vp)
+        pfa.reset_launch_counts()
+        names = kernel_names(lambda: pfa.paged_flash_prefill_attend(q, kp, vp, row, 448, 512))
+        assert names and all("paged_prefill_wgmma_kernel" in n for n in names), names
+        names = kernel_names(lambda: pfa.paged_flash_prefill_attend(q.float(), *f32, row, 448, 512))
+        assert names and not any("wgmma" in n for n in names) and all("paged_prefill_kernel" in n for n in names)
+        counted = pfa.paged_flash_prefill_attend.launches if kind == "none" else \
+            pfa.paged_flash_prefill_attend.kv_quant_launches[kind]
+        assert counted == 2
 
 
 def test_wrappers_refuse_bad_quantized_pools(cuda_device):
