@@ -74,14 +74,18 @@
 5. Dequant-matmul kernels (K5: nf4, nf4a, int4; K6: int8) at the four
    projections of a Mistral-7B block as the port serves them, wqkv [4096,
    6144], wo [4096, 4096], gate+up [4096, 28672] and down [14336, 4096], at
-   8 rows (the decode kernel) and 64, 188 and 512 rows (the prefill kernel:
-   the main path's chunk lengths), seeded bf16 weights quantized on the
-   card: each against its plain version (x rounded to bf16 against
-   dequantize(w, bf16), summed in float32) within QUANT_REL_TOL of the
-   output's largest magnitude, timed beside a dense bf16 torch.matmul (the
-   product the quantized kernel replaces, timed here only) and the bound;
-   the plain version is timed at gate+up only, at 8 and 512 rows, the shape
-   the kernels line reports. (This phase runs right after phase 2.)
+   1, 4, 8 and 32 rows (the decode kernel: one session to a batched decode
+   step) and 64, 188 and 512 rows (the prefill kernel: the main path's chunk
+   lengths), seeded bf16 weights quantized on the card: each against its
+   plain version (x rounded to bf16 against dequantize(w, bf16), summed in
+   float32) within QUANT_REL_TOL of the output's largest magnitude, the
+   decode kernel (whose split slabs are merged inside the launch) also
+   bit-equal over two more calls, timed beside a dense bf16 torch.matmul
+   (the product the quantized kernel replaces, timed here only) and the
+   bound; the plain version is timed at gate+up only, at 8 and 512 rows, the
+   shape the kernels line reports. A line names every decode shape where
+   nf4a is not faster than the dense matmul. (This phase runs right after
+   phase 2.)
 6. Quantized server: the same 8-block span served with --quant_type nf4a
    (quantized on the card at load, qkv and gate+up fused) to the traffic of
    phase 3, checked as phase 3 checks, against dense references over the
@@ -246,19 +250,24 @@ DENSE_DECODE_STEPS = 16
 DENSE_CHUNK_TOKENS = 512  # the dense pool's chunk bound, in tokens of activations
 
 # K5/K6 at the four projections of a Mistral-7B block as the port serves
-# them (qkv and gate+up fused), at a decode batch (8 rows) and at the chunk
-# lengths of the main path's prefill (64, 188 and 512 rows). The kernels line
-# reports gate+up at 8 and 512 rows, the shape its rows have always been taken at,
-# and only there is the plain version timed.
+# them (qkv and gate+up fused), at decode batches (1, 4, 8 and 32 rows: one
+# session, the profile's 4 lanes, the 8-lane pool, a batched step at the
+# decode kernel's limit) and at the chunk lengths of the main path's prefill
+# (64, 188 and 512 rows). The kernels line reports gate+up at 8 and 512 rows,
+# the shape its rows have always been taken at, and only there is the plain
+# version timed.
 QUANT_SHAPES = {"wqkv": (4096, 4096 + 2 * 1024), "wo": (4096, 4096), "wgu": (4096, 2 * 14336), "wd": (14336, 4096)}
-QUANT_ROWS = (8, 64, 188, 512)
+QUANT_DECODE_ROWS = (1, 4, 8, 32)
+QUANT_ROWS = QUANT_DECODE_ROWS + (64, 188, 512)
 QUANT_REPORT = ("wgu", (8, 512))
 QUANT_KINDS = ("nf4", "nf4a", "int4", "int8")
 # kernel vs plain, as a share of the output's largest magnitude: the kernel
-# rounds its float32 sum once to bf16 (2**-9 relative); nf4a's kernel decodes
-# by the f32 cubic where the plain version reads the float32 table (an
-# occasional bf16 ulp on a weight); int8's kernel scales the sum where the
-# plain version rounds each scaled weight to bf16 (2**-9 per product)
+# rounds its float32 sum once to bf16 (2**-9 relative); a 4-bit weight of
+# the decode kernel is the plain version's round(level x scale) but near a
+# rounding boundary (nf4a: one weight in ~800 one bf16 ulp apart), the
+# prefill kernel's nf4a cubic in float32 the same; int8's kernels scale the
+# sum where the plain version rounds each scaled weight to bf16 (2**-9 per
+# product) (tests/test_torch_quant.py models the decode kernel's weights)
 QUANT_REL_TOL = 1e-2
 SHORT_KINDS = ("int8", "nf4", "int4", "nf4a+o")  # served at 2 blocks, one session each
 # (--quant_type, --kv_quant_type) served at 2 blocks, one session each: K3's
@@ -274,7 +283,7 @@ PROFILE_CALLS = 5  # calls inside the profiler
 PROFILE_CHUNK = 512
 # the port's kernels, by the name each has in a profile
 PORT_KERNELS = ("paged_decode_kernel", "paged_prefill_wgmma_kernel", "paged_prefill_kernel", "flash_attention_kernel",
-                "flash_wgmma_kernel", "quant_decode_kernel", "quant_prefill_kernel", "split_reduce_kernel")
+                "flash_wgmma_kernel", "quant_decode_ring_kernel", "quant_prefill_kernel", "split_reduce_kernel")
 # K1 at long contexts (phase 2), Mistral-7B's window: (lanes, position of
 # each, tokens of each lane's table). The last is the common state of a
 # long-context server: short lanes on tables sized for --batch_max_length 8192.
@@ -303,7 +312,8 @@ class Timer:
     host takes to enqueue the callable (measured in its warm-up), keeps the
     card busy while the host enqueues: the events then bracket the
     callable's kernels back to back, not the host's Python in front of
-    them."""
+    them. A launch whose enqueue outlasted its spin (a slow host moment) is
+    timed again, up to ``reps`` more times, so no sample holds host time."""
 
     def __init__(self, device):
         self.flush = torch.empty(100 * 2**20, dtype=torch.uint8, device=device)
@@ -321,17 +331,25 @@ class Timer:
             t0 = time.perf_counter()
             fn()
             host_ms = max(host_ms, (time.perf_counter() - t0) * 1e3)
-        spin = int(self.cycles_per_ms * min(50.0, 2 * host_ms + 0.1))
+        spin_ms = min(50.0, 2 * host_ms + 0.1)
+        spin = int(self.cycles_per_ms * spin_ms)
         times = []
-        for _ in range(reps):
+        for _ in range(2 * reps):
             self.flush.zero_()
             torch.cuda._sleep(spin)
             start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            t0 = time.perf_counter()
             start.record()
             fn()
             end.record()
+            enqueue_ms = (time.perf_counter() - t0) * 1e3
             end.synchronize()
-            times.append(start.elapsed_time(end))
+            if enqueue_ms < spin_ms:
+                times.append(start.elapsed_time(end))
+                if len(times) == reps:
+                    break
+        if not times:
+            raise RuntimeError(f"every enqueue outlasted the {spin_ms:.3f} ms spin: no device time measured")
         return statistics.median(times)
 
 
@@ -728,12 +746,13 @@ def check_long_decode(device, timer, n_lanes, position, table_tokens):
     return entry
 
 
-def check_quant_kernels(device, timer):
+def check_quant_kernels(device, timer, rows=QUANT_ROWS, kinds=QUANT_KINDS):
     """K5 (nf4, nf4a, int4) and K6 (int8) against the plain version at the
-    four projections of a Mistral-7B block and QUANT_ROWS rows, each timed
-    beside the dense bf16 product and the bound; returns one report entry per
-    kernel and arm (decode and prefill) at QUANT_REPORT's shape (without
-    main-path launch counts)."""
+    four projections of a Mistral-7B block and ``rows`` rows, each timed
+    beside the dense bf16 product and the bound, the decode kernel's output
+    also bit-equal over two more calls; returns one report entry per kernel
+    and arm (decode and prefill) at QUANT_REPORT's shape (without main-path
+    launch counts)."""
     from petals_tpu_torch.ops import quant_matmul as qmm
     from petals_tpu_torch.ops.quant import dequant_matmul_reference, dequantize, quantize
 
@@ -742,13 +761,13 @@ def check_quant_kernels(device, timer):
     entries, table = {}, []
     for shape_name, (k, n) in QUANT_SHAPES.items():
         dense = (torch.randn(k, n, generator=gen, device=device) * 0.02).to(torch.bfloat16)
-        xs = {m: torch.randn(m, k, generator=gen, device=device).to(torch.bfloat16) for m in QUANT_ROWS}
+        xs = {m: torch.randn(m, k, generator=gen, device=device).to(torch.bfloat16) for m in rows}
         # the yardstick: the dense bf16 product the quantized kernel replaces
-        library = {m: timer(lambda m=m: torch.matmul(xs[m], dense)) for m in QUANT_ROWS}
-        for kind in QUANT_KINDS:
+        library = {m: timer(lambda m=m: torch.matmul(xs[m], dense)) for m in rows}
+        for kind in kinds:
             w = quantize(dense, kind)
             deq = dequantize(w, torch.bfloat16).float()
-            for m in QUANT_ROWS:
+            for m in rows:
                 x, decode = xs[m], m <= 32
                 fn = qmm.quant_decode_matmul if decode else qmm.quant_prefill_matmul
                 got = fn(x, w)
@@ -761,12 +780,15 @@ def check_quant_kernels(device, timer):
                 label = f"{'K6' if kind == 'int8' else 'K5'} {'decode' if decode else 'prefill'} {kind} {shape_name} {k}x{n} M={m}"
                 if err > QUANT_REL_TOL * scale:
                     raise AssertionError(f"{label}: disagrees with its plain version: {err} > {QUANT_REL_TOL} * {scale}")
+                if decode and not all(torch.equal(fn(x, w), got) for _ in range(2)):
+                    raise AssertionError(f"{label}: the decode kernel's output differs between calls")
                 ms = timer(lambda: fn(x, w))
                 report = shape_name == QUANT_REPORT[0] and m in QUANT_REPORT[1]
                 plain_ms = timer(lambda: dequant_matmul_reference(x, w)) if report else None
                 nbytes, flops = quant_bytes_and_flops(m, w)
                 bound, by = bound_ms(nbytes, flops)
-                plan = "" if decode else " plan {}".format(tuple(qmm.prefill_plan(m, k, n, n_sm)))
+                plan = " plan {}".format(tuple(qmm.decode_plan(m, k, n, n_sm, kind) if decode
+                                               else qmm.prefill_plan(m, k, n, n_sm)))
                 log(f"{label}: max abs err {err:.3e}, rel {err / scale:.3e} (tol {QUANT_REL_TOL}); "
                     f"{ms:.4f} ms kernel, " + (f"{plain_ms:.4f} ms plain, " if report else "")
                     + f"{library[m]:.4f} ms dense bf16 matmul ({ms / library[m]:.2f}x), "
@@ -787,9 +809,13 @@ def check_quant_kernels(device, timer):
             del w, deq
         del dense, xs
     log("dequant-matmul times, ms (kernel / dense bf16 matmul / bound):")
-    for kind in QUANT_KINDS:
+    for kind in kinds:
         log(f"  {kind}: " + "; ".join(f"{s} M={m} {ms:.4f}/{lib:.4f}/{b:.4f}"
                                       for kd, s, m, ms, lib, b in table if kd == kind))
+    slower = [f"{s} M={m}" for kd, s, m, ms, lib, _ in table if kd == "nf4a" and m <= 32 and ms >= lib]
+    if "nf4a" in kinds:
+        log("K5 decode nf4a against the dense bf16 matmul: " + (
+            f"NOT faster at {', '.join(slower)}" if slower else "faster at every decode shape"))
     return list(entries.values())
 
 

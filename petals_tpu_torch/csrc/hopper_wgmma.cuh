@@ -1,7 +1,8 @@
 // Warpgroup matrix multiply (wgmma) on Hopper (sm_90a): the shared-memory
-// layout, descriptors and products the attention kernels share
+// layout, descriptors and products the port's wgmma kernels share
 // (flash_attention.cu's flash_wgmma_kernel, paged_attention.cu's
-// paged_prefill_wgmma_kernel).
+// paged_prefill_wgmma_kernel, quant_matmul.cu's quant_prefill_kernel, which
+// also takes smem_u32 and pack_bf16 for its decode kernel).
 //
 // Tiles live in shared memory as column atoms of [64 rows x 128 bytes]
 // (64 bf16 values a row, 8 KB an atom) in wgmma's 128-byte swizzle: 16-byte

@@ -83,10 +83,12 @@ def _sm_count(device: torch.device) -> int:
     return _SM_COUNT[device.index]
 
 
-def _tickets(device: torch.device, n: int) -> torch.Tensor:
-    """The split merge's arrival counters on ``device``'s current stream: n
-    uint32 zeros, allocated (zeroed) once and grown when a launch needs
-    more; every launch leaves them at zero."""
+def merge_tickets(device: torch.device, n: int) -> torch.Tensor:
+    """The arrival counters of an in-launch split merge (this module's
+    decode kernel, the dequant-matmul decode kernel) on ``device``'s current
+    stream: n uint32 zeros, allocated (zeroed) once and grown when a launch
+    needs more; every launch leaves them at zero, so launches on one stream
+    share them."""
     key = (device.index, torch.cuda.current_stream(device).cuda_stream)
     buf = _TICKETS.get(key)
     if buf is None or buf.numel() < n:
@@ -244,7 +246,7 @@ def paged_flash_attend(
     if n_splits > 1:  # float32 partials (m, l) and acc of every split, and the merge's counters
         part_ml = torch.empty((n_lanes, hkv, n_splits, hq // hkv, 2), dtype=torch.float32, device=q.device)
         part_acc = torch.empty((n_lanes, hkv, n_splits, hq // hkv, d), dtype=torch.float32, device=q.device)
-        scratch = (part_ml.data_ptr(), part_acc.data_ptr(), _tickets(q.device, n_lanes * hkv).data_ptr())
+        scratch = (part_ml.data_ptr(), part_acc.data_ptr(), merge_tickets(q.device, n_lanes * hkv).data_ptr())
     lib = kernel_library()
     with torch.cuda.device(q.device):
         err = lib.ptt_paged_decode_attention(

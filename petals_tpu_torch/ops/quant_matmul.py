@@ -3,8 +3,9 @@
 quantized weight to.
 
 - ``quant_decode_matmul``: M <= 32 rows (``_NF4_DECODE_MAX_M``): K5's decode
-  kernel for nf4/nf4a/int4, K6 for int8; a weight stream that splits K
-  across blocks when the columns alone cannot fill the card.
+  kernel for nf4/nf4a/int4, K6 for int8; at most one block per SM streams
+  an equal share of the weight through a TMA ring, and a column slab cut
+  between blocks is merged inside the same launch (``decode_plan``).
 - ``quant_prefill_matmul``: M > 32 rows: K5's prefill kernel for
   nf4/nf4a/int4, K6 for int8; wgmma products on weight tiles decoded to
   bf16 in shared memory while the tensor cores run, tiled and split by
@@ -26,16 +27,18 @@ them and how their design answers that.
 from __future__ import annotations
 
 import ctypes
-from typing import NamedTuple, Optional, Tuple
+from typing import List, NamedTuple, Optional, Tuple
 
 import torch
 
+from petals_tpu_torch.ops.paged_flash_attention import merge_tickets
 from petals_tpu_torch.ops.quant import NF4_BLOCK, QuantizedLinear, dequant_matmul_reference
 
 _NF4_DECODE_MAX_M = 32  # the decode/prefill split, as in the JAX package
 _FORMAT_CODES = {"nf4": 0, "nf4a": 1, "int4": 2, "int8": 3}
-_SLAB = 128  # columns per decode block
-_MIN_KB_PER_SPLIT = 8  # scale blocks (of 64 rows) each decode block takes at least
+_DEC_SLAB = 256  # columns of a decode work unit (one unit: a slab by one scale block)
+_DEC_RING_BYTES = 64 * 1024  # weight bytes a decode block keeps in flight, at least
+_DEC_ALIGNED_FILL = 0.8  # the share of SMs a slab-aligned decode grid must fill to be taken
 _PF_BN = 128  # columns per prefill tile
 _PF_SUB_M = 64  # rows per warpgroup sub-tile of the prefill kernel
 _PF_MIN_KB_PER_SPLIT = 4  # scale blocks each prefill K split takes at least
@@ -50,7 +53,7 @@ def kernel_library() -> ctypes.CDLL:
 
         lib = load("quant_matmul")
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.ptt_quant_matmul_decode.argtypes = [i] + [p] * 5 + [i] * 5 + [p]
+        lib.ptt_quant_matmul_decode.argtypes = [i] + [p] * 6 + [i] * 5 + [p]
         lib.ptt_quant_matmul_decode.restype = i
         lib.ptt_quant_matmul_prefill.argtypes = [i] + [p] * 5 + [i] * 6 + [p]
         lib.ptt_quant_matmul_prefill.restype = i
@@ -60,17 +63,72 @@ def kernel_library() -> ctypes.CDLL:
     return _LIB
 
 
-def decode_splits(in_features: int, out_features: int, n_sm: int) -> Tuple[int, int]:
-    """(k_splits, scale blocks per split) of the decode kernel: enough
-    blocks for about two per SM, each taking at least
-    ``_MIN_KB_PER_SPLIT`` scale blocks of K, so the float32 partial sums
-    stay small next to the weight."""
-    n_slabs = -(-out_features // _SLAB)
+class DecodePlan(NamedTuple):
+    """The decode kernel's schedule: the weight's columns in ``n_slabs``
+    slabs of 256, K in ``n_kb`` scale blocks of 64 rows; a unit is one
+    (slab, scale block), numbered slab-major; ``ctas`` blocks (at most one
+    per SM) each take an equal contiguous run of the units
+    (``decode_segments``); each block's producer feeds two rings of
+    ``stages`` units (one per consumer parity); ``row_tiles`` 8-row tiles of
+    x (1 to 4) per product."""
+
+    n_slabs: int
+    n_kb: int
+    ctas: int
+    stages: int
+    row_tiles: int
+
+
+def decode_plan(m: int, in_features: int, out_features: int, n_sm: int, kind: str = "nf4a") -> DecodePlan:
+    """The decode kernel's plan for x [m <= 32, in] @ w [in, out] of
+    ``kind`` on a card of ``n_sm`` SMs. The blocks: a multiple of the slab
+    count, ``n_slabs * (n_sm // n_slabs)``, when that fills at least
+    ``_DEC_ALIGNED_FILL`` of the SMs: every block's run then lies in one
+    slab, so a block leaves at most one partial to merge (none when it holds
+    the whole slab); else one block per SM, whose runs may cut two slabs
+    each (stream-K). Either way every block streams the same share of the
+    weight (fewer blocks only when there are fewer units). Two rings of 2
+    to 4 stages holding at least ``_DEC_RING_BYTES`` of weight bytes
+    together (a stage of int8 is twice a 4-bit one). Pure: the same
+    arguments give the same plan."""
+    if not 1 <= m <= _NF4_DECODE_MAX_M or in_features < NF4_BLOCK or in_features % NF4_BLOCK or n_sm < 1:
+        raise ValueError(f"bad decode shape: {m} rows, in {in_features}, out {out_features}, {n_sm} SMs")
+    n_slabs = -(-out_features // _DEC_SLAB)
     n_kb = in_features // NF4_BLOCK
-    want = -(-2 * n_sm // n_slabs)
-    per = max(_MIN_KB_PER_SPLIT, -(-n_kb // max(want, 1)))
-    per = min(per, max(n_kb, 1))
-    return -(-n_kb // per), per
+    stage_bytes = (NF4_BLOCK if kind == "int8" else NF4_BLOCK // 2) * _DEC_SLAB
+    stages = max(2, min(4, -(-_DEC_RING_BYTES // (2 * stage_bytes))))
+    split = n_sm // n_slabs
+    ctas = n_slabs * split if split and n_slabs * split >= _DEC_ALIGNED_FILL * n_sm else n_sm
+    return DecodePlan(n_slabs, n_kb, min(ctas, n_slabs * n_kb), stages, -(-m // 8))
+
+
+def decode_segments(plan: DecodePlan, cta: int) -> List[Tuple[int, int, int]]:
+    """Block ``cta``'s work as the kernel walks it: (slab, first scale block,
+    end scale block) for each slab its run of units touches, in order. Block
+    b takes units [U * b // G, U * (b + 1) // G) of U = n_slabs * n_kb over
+    G = ctas blocks."""
+    units = plan.n_slabs * plan.n_kb
+    u, end = units * cta // plan.ctas, units * (cta + 1) // plan.ctas
+    out = []
+    while u < end:
+        slab = u // plan.n_kb
+        seg_end = min(end, (slab + 1) * plan.n_kb)
+        out.append((slab, u - slab * plan.n_kb, seg_end - slab * plan.n_kb))
+        u = seg_end
+    return out
+
+
+def decode_contributors(plan: DecodePlan, slab: int) -> Tuple[int, int]:
+    """(first, last) block whose run touches ``slab``: the blocks whose
+    float32 partials the slab's last arrival adds, in this (K) order, when
+    more than one block touches it. The kernel computes the same owner
+    arithmetic."""
+    units = plan.n_slabs * plan.n_kb
+
+    def owner(v):  # the largest b with units * b // ctas <= v
+        return ((v + 1) * plan.ctas + units - 1) // units - 1
+
+    return owner(slab * plan.n_kb), owner((slab + 1) * plan.n_kb - 1)
 
 
 class PrefillPlan(NamedTuple):
@@ -166,13 +224,15 @@ def quant_decode_matmul(x2d: torch.Tensor, w: QuantizedLinear) -> torch.Tensor:
     if not 1 <= m <= _NF4_DECODE_MAX_M:
         raise ValueError(f"the decode kernel takes 1 to {_NF4_DECODE_MAX_M} rows, got {m}")
     k, n = w.in_features, w.out_features
-    splits, per = decode_splits(k, n, _sm_count(xb.device))
+    plan = decode_plan(m, k, n, _sm_count(xb.device), w.kind)
     out = torch.empty(m, n, dtype=torch.bfloat16, device=xb.device)
-    partial = torch.empty(splits, m, n, dtype=torch.float32, device=xb.device) if splits > 1 else None
+    # each block's partials: its first and last slab, two column halves
+    partial = torch.empty(plan.ctas, 2, 2, m, _DEC_SLAB // 2, dtype=torch.float32, device=xb.device)
     with torch.cuda.device(xb.device):
+        tickets = merge_tickets(xb.device, 2 * plan.n_slabs)
         err = kernel_library().ptt_quant_matmul_decode(
             _FORMAT_CODES[w.kind], xb.data_ptr(), w.data.data_ptr(), w.scales.data_ptr(), out.data_ptr(),
-            partial.data_ptr() if partial is not None else None, m, k, n, splits, per,
+            partial.data_ptr(), tickets.data_ptr(), m, k, n, plan.ctas, plan.stages,
             torch.cuda.current_stream(xb.device).cuda_stream,
         )
     _raise_on(err, "quant decode matmul")

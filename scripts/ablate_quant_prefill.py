@@ -24,7 +24,8 @@ import torch
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 DECODE = "    if (s + 1 < n_steps) decode_step(s + 1);"
 PRODUCTS = (
-    "        wgmma_m64n128k16(acc[t], sw128_desc(xa + t * 64 * PF_ROW_BYTES + 32 * k), sw128_desc(bb + 32 * k));"
+    "        wgmma_m64n128k16(acc[t], hopper::desc_k_major(xa + t * 64 * PF_ROW_BYTES + 32 * k),\n"
+    "                         hopper::desc_k_major(bb + 32 * k));"
 )
 
 

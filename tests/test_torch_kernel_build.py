@@ -8,10 +8,15 @@ on the CPU: no nvcc is needed to name a library or its compiler command.
 - The compiler command puts csrc on the include path, so a modified copy of
   a source built elsewhere (the ablation and fault scripts) finds the
   headers.
-- The attention sources share one copy of the wgmma helpers: the header's."""
+- The attention sources and the dequant-matmul source share one copy of
+  the wgmma helpers: the header's.
+- The ablation and fault scripts find, once each, the source lines they
+  edit (a script whose line moved would measure or plant nothing)."""
 
+import importlib.util
 import re
 import shutil
+from pathlib import Path
 
 import pytest
 
@@ -73,3 +78,41 @@ def test_attention_sources_share_one_copy_of_the_wgmma_helpers():
     for src in kbuild.CSRC_DIR.glob("*.cu"):  # every included header lies in csrc
         for included in re.findall(r'#include "([^"]+)"', src.read_text()):
             assert (kbuild.CSRC_DIR / included).is_file(), (src.name, included)
+
+
+def test_quant_source_shares_the_wgmma_helpers():
+    src = (kbuild.CSRC_DIR / "quant_matmul.cu").read_text()
+    assert '#include "hopper_wgmma.cuh"' in src
+    for helper in ("smem_u32", "cp_async16", "desc_k_major", "wgmma_fence", "wgmma_commit", "wgmma_wait0",
+                   "fence_regs", "pack_bf16", "sw128_desc", "fence_acc"):
+        assert not re.search(rf"(void|uint64_t|uint32_t) {helper}\(", src), helper
+    assert "quant_matmul.cu" in (kbuild.CSRC_DIR / "hopper_wgmma.cuh").read_text()  # its note names who includes it
+
+
+SCRIPTS = Path(__file__).resolve().parent.parent / "scripts"
+
+
+def _script(name):
+    spec = importlib.util.spec_from_file_location(f"_script_{name}", SCRIPTS / f"{name}.py")
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+@pytest.mark.parametrize("name,source", [
+    ("ablate_quant_prefill", "quant_matmul"), ("ablate_quant_decode", "quant_matmul"),
+    ("ablate_paged_decode", "paged_attention"), ("ablate_paged_prefill", "paged_attention"),
+])
+def test_ablation_scripts_find_their_lines(name, source):
+    src = (kbuild.CSRC_DIR / f"{source}.cu").read_text()
+    variants = _script(name).ablated_sources(src)  # raises SystemExit when a line is missing
+    assert variants["kernel"] == src
+    assert all(text != src for variant, text in variants.items() if variant != "kernel")
+
+
+def test_fault_scripts_find_their_lines():
+    quant = (kbuild.CSRC_DIR / "quant_matmul.cu").read_text()
+    for line, planted, _ in _script("plant_quant_faults").FAULTS.values():
+        assert quant.count(line) == 1 and planted != line
+    for name, line, planted, _ in _script("plant_attention_faults").FAULTS.values():
+        assert (kbuild.CSRC_DIR / f"{name}.cu").read_text().count(line) == 1 and planted != line

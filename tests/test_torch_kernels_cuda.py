@@ -420,9 +420,10 @@ QUANT_REL_TOL = 1e-2
 QUANT_SHAPES = {
     "wqkv": (4096, 6144), "wo": (4096, 4096), "wgu": (4096, 28672), "wd": (14336, 4096), "padded": (192, 80),
 }
-# decode rows (<= 32), then the main path's chunk lengths and the prefill
-# kernel's tile edges around them (64-row sub-tiles, 128- and 256-row tiles)
-QUANT_ROWS = [1, 8, 32, 33, 64, 65, 188, 300, 512, 516, 1024]
+# decode rows (<= 32, around the decode kernel's 8-row tiles of x and the
+# m16 edges), then the main path's chunk lengths and the prefill kernel's
+# tile edges around them (64-row sub-tiles, 128- and 256-row tiles)
+QUANT_ROWS = [1, 4, 8, 16, 17, 32, 33, 64, 65, 188, 300, 512, 516, 1024]
 _QUANT_WEIGHTS = {}
 
 
@@ -479,6 +480,58 @@ def test_prefill_kernel_is_deterministic(cuda_device, kind, m, shape_name):
     first = qmm.quant_prefill_matmul(x.to(torch.bfloat16), w)
     second = qmm.quant_prefill_matmul(x.to(torch.bfloat16), w)
     assert torch.equal(first, second)
+
+
+@pytest.mark.parametrize("kind", ["nf4a", "int8"])
+@pytest.mark.parametrize("m", [1, 8, 32])
+@pytest.mark.parametrize("shape_name", ["wo", "wd", "wqkv"])
+def test_decode_kernel_is_deterministic(cuda_device, kind, m, shape_name):
+    """Two calls give bit-equal outputs where the decode kernel cuts column
+    slabs between blocks: the last block to arrive adds the float32 partials
+    in K order, whichever block that is."""
+    w = _quant_weight(cuda_device, kind, shape_name)
+    k, n = QUANT_SHAPES[shape_name]
+    plan = qmm.decode_plan(m, k, n, torch.cuda.get_device_properties(cuda_device).multi_processor_count, kind)
+    assert any(qmm.decode_contributors(plan, s)[1] > qmm.decode_contributors(plan, s)[0]
+               for s in range(plan.n_slabs))  # the merge path is the one in question
+    x = torch.randn(m, k, generator=torch.Generator(device=cuda_device).manual_seed(7), device=cuda_device)
+    first = qmm.quant_decode_matmul(x.to(torch.bfloat16), w)
+    second = qmm.quant_decode_matmul(x.to(torch.bfloat16), w)
+    assert torch.equal(first, second)
+
+
+@pytest.mark.parametrize("kind", ["nf4", "nf4a", "int4", "int8"])
+@pytest.mark.parametrize("m", [1, 8, 17, 32])
+def test_decode_kernel_stream_k_deal_matches_plain(cuda_device, kind, m):
+    """92 slabs fill too few of the SMs for a slab-aligned grid: one block
+    per SM, whose runs cut up to two slabs each (partial slots 0 and 1 in
+    the merge), held to the plain version and bit-equal on a repeat."""
+    k, n = 1024, 92 * 256
+    gen = torch.Generator(device=cuda_device).manual_seed(40 + m)
+    w = quantize((torch.randn(k, n, generator=gen, device=cuda_device) * 0.02).to(torch.bfloat16), kind)
+    n_sm = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    plan = qmm.decode_plan(m, k, n, n_sm, kind)
+    assert plan.ctas == min(n_sm, plan.n_slabs * plan.n_kb) and plan.ctas % plan.n_slabs != 0
+    assert any(len(qmm.decode_segments(plan, c)) == 2 for c in range(plan.ctas))
+    x = torch.randn(m, k, generator=gen, device=cuda_device).to(torch.bfloat16)
+    got = qmm.quant_decode_matmul(x, w)
+    want = x.float() @ dequantize(w, torch.bfloat16).float()
+    assert (got.float() - want).abs().max().item() <= QUANT_REL_TOL * want.abs().max().item()
+    assert torch.equal(qmm.quant_decode_matmul(x, w), got)
+
+
+def test_decode_launch_counter_counts_each_call(cuda_device):
+    """One launch a call, on a shape whose slabs are merged inside the
+    launch (no second kernel)."""
+    w = _quant_weight(cuda_device, "int4", "wd")
+    x = torch.randn(4, QUANT_SHAPES["wd"][0], device=cuda_device, dtype=torch.bfloat16)
+    before, before_prefill = dict(qmm.quant_decode_matmul.launches), dict(qmm.quant_prefill_matmul.launches)
+    for calls in (1, 2, 3):
+        qmm.quant_decode_matmul(x, w)
+        assert qmm.quant_decode_matmul.launches["int4"] == before["int4"] + calls
+    assert {k: v for k, v in qmm.quant_decode_matmul.launches.items() if k != "int4"} == {
+        k: v for k, v in before.items() if k != "int4"}
+    assert qmm.quant_prefill_matmul.launches == before_prefill
 
 
 def test_prefill_launch_counter_counts_each_call(cuda_device):

@@ -199,12 +199,176 @@ def test_wrappers_dispatch_on_the_tensors_device():
             fn(x[:4], on_meta)
 
 
-@pytest.mark.parametrize("k,n,splits,per", [
-    (4096, 28672, 2, 32),  # Mistral-7B wgu: 224 column slabs fill the card almost alone
-    (14336, 4096, 9, 25),  # wd: 32 slabs, K split nine ways
-    (4096, 4096, 8, 8),  # wo: at least 8 scale blocks per split
-    (64, 128, 1, 1),
+MISTRAL_PROJECTIONS = {"wqkv": (4096, 6144), "wo": (4096, 4096), "wgu": (4096, 28672), "wd": (14336, 4096)}
+
+
+def _dealt_units(plan):
+    """{(slab, scale block): block} as the decode kernel's blocks walk their runs."""
+    dealt = {}
+    for cta in range(plan.ctas):
+        for slab, kb0, kb1 in qmm.decode_segments(plan, cta):
+            assert 0 <= kb0 < kb1 <= plan.n_kb
+            for kb in range(kb0, kb1):
+                assert (slab, kb) not in dealt, (slab, kb)
+                dealt[slab, kb] = cta
+    return dealt
+
+
+@pytest.mark.parametrize("k,n,slabs,n_kb,ctas", [
+    (4096, 28672, 112, 64, 112),  # Mistral-7B wgu: a whole slab a block, nothing to merge
+    (14336, 4096, 16, 224, 128),  # wd: each slab cut between 8 blocks of 28 scale blocks
+    (4096, 4096, 16, 64, 128),  # wo: 8 blocks of 8 scale blocks a slab
+    (64, 128, 1, 1, 1),  # one unit: one block
 ])
-def test_decode_splits(k, n, splits, per):
-    assert qmm.decode_splits(k, n, 132) == (splits, per)
-    assert splits * per >= k // 64 > (splits - 1) * per
+def test_decode_splits(k, n, slabs, n_kb, ctas):
+    """The decode plan deals every (256-column slab, scale block) unit to
+    exactly one block, so K is covered once in whole scale blocks; each
+    block's run is contiguous in K within a slab and the runs differ by at
+    most one unit; at Mistral-7B's shapes the block count is a multiple of
+    the slab count, so no block cuts two slabs."""
+    plan = qmm.decode_plan(8, k, n, 132)
+    assert plan == qmm.decode_plan(8, k, n, 132)  # pure
+    assert (plan.n_slabs, plan.n_kb, plan.ctas) == (slabs, n_kb, ctas)
+    dealt = _dealt_units(plan)
+    assert set(dealt) == {(s, kb) for s in range(slabs) for kb in range(n_kb)}
+    sizes = [sum(kb1 - kb0 for _, kb0, kb1 in qmm.decode_segments(plan, c)) for c in range(plan.ctas)]
+    assert max(sizes) - min(sizes) <= 1 and min(sizes) >= 1
+    for slab in range(slabs):  # the blocks the merge adds, in K order
+        owners = [dealt[slab, kb] for kb in range(n_kb)]
+        assert owners == sorted(owners)
+        assert qmm.decode_contributors(plan, slab) == (owners[0], owners[-1])
+
+
+@pytest.mark.parametrize("m", [1, 4, 8, 16, 17, 32])
+@pytest.mark.parametrize("kind", ["nf4a", "int8"])
+@pytest.mark.parametrize("name", list(MISTRAL_PROJECTIONS))
+def test_decode_plan_fills_the_card(name, kind, m):
+    """At Mistral-7B's four projections at least 80% of an H100's SMs (132)
+    stream, and of an H100 PCIe's (114), each block within one slab; an
+    8-row tile of x per 8 rows; two rings of 2-4 stages holding 64 KB of
+    weight bytes together (4-bit: 4 stages of 8 KB each; int8: 2 of 16 KB)."""
+    k, n = MISTRAL_PROJECTIONS[name]
+    for n_sm in (132, 114):
+        plan = qmm.decode_plan(m, k, n, n_sm, kind)
+        assert 0.8 * n_sm <= plan.ctas <= n_sm and plan.ctas % plan.n_slabs == 0
+        assert all(len(qmm.decode_segments(plan, c)) == 1 for c in range(plan.ctas))
+        assert plan.row_tiles == -(-m // 8)
+        stage_bytes = (64 if kind == "int8" else 32) * 256
+        assert 2 <= plan.stages <= 4 and 2 * plan.stages * stage_bytes == 64 * 1024
+        assert len(_dealt_units(plan)) == plan.n_slabs * plan.n_kb
+
+
+@pytest.mark.parametrize("k,n", [(4096, 92 * 256), (8192, 140 * 256), (256, 16)])
+def test_decode_plan_deals_stream_k_where_slabs_do_not_fill_the_card(k, n):
+    """92 slabs fill 70% of 132 SMs and 140 slabs exceed them: one block per
+    SM then, whose runs may cut two slabs (both merged in K order); a shape
+    with fewer units than SMs gets a block a unit."""
+    plan = qmm.decode_plan(8, k, n, 132)
+    units = plan.n_slabs * plan.n_kb
+    assert plan.ctas == min(132, units)
+    assert len(_dealt_units(plan)) == units
+    for slab in range(plan.n_slabs):
+        first, last = qmm.decode_contributors(plan, slab)
+        assert all(any(s == slab for s, _, _ in qmm.decode_segments(plan, b)) for b in range(first, last + 1))
+
+
+def test_decode_plan_refuses_what_the_kernel_does_not_take():
+    for m, k in ((0, 4096), (33, 4096), (8, 100), (8, 0)):
+        with pytest.raises(ValueError):
+            qmm.decode_plan(m, k, 4096, 132)
+
+
+@pytest.mark.parametrize("k,n", [(14336, 4096), (4096, 6144), (640, 512), (4096, 92 * 256)])
+def test_decode_merge_is_the_sequential_sum_in_k_order(k, n):
+    """A plain model of the kernel's in-launch merge: every block writes the
+    float32 partial of each slab it cuts, the blocks arrive in any order, and
+    the last to take the slab's ticket adds the partials of blocks first ..
+    last in that order. Whatever the arrival order, the merged sums are bit
+    for bit the float32 sum of the partials taken one after another in K
+    order."""
+    plan = qmm.decode_plan(8, k, n, 132)
+    rng = np.random.default_rng(3)
+    partial = {}  # (block, slab) -> float32 partial sums of 8 x 256
+    for cta in range(plan.ctas):
+        for slab, kb0, kb1 in qmm.decode_segments(plan, cta):
+            if (kb0, kb1) != (0, plan.n_kb):
+                partial[cta, slab] = (rng.standard_normal((8, 256)) * 10.0 ** rng.integers(-3, 3)).astype(np.float32)
+    cut = sorted({slab for _, slab in partial})
+    assert cut  # the shapes cut slabs between blocks
+    for order in range(3):
+        tickets, merged = {}, {}
+        arrivals = list(partial)
+        rng.shuffle(arrivals)
+        for cta, slab in arrivals:
+            first, last = qmm.decode_contributors(plan, slab)
+            tickets[slab] = tickets.get(slab, 0) + 1
+            if tickets[slab] == last - first + 1:  # the last arrival merges
+                acc = np.zeros((8, 256), np.float32)
+                for b in range(first, last + 1):
+                    acc = acc + partial[b, slab]
+                merged[slab] = acc
+        assert sorted(merged) == cut
+        for slab in cut:
+            blocks = sorted(b for b, s in partial if s == slab)
+            want = partial[blocks[0], slab].copy()
+            for b in blocks[1:]:
+                want = np.float32(want + partial[b, slab])
+            np.testing.assert_array_equal(_bits(merged[slab]), _bits(want))
+
+
+def _kernel_weights(w):
+    """The decode kernel's weights, modelled: a 4-bit level split into a
+    bf16 head h and a bf16 tail t (its table), and the weight round(h x s +
+    round(t x s)) for the block's bf16 scale s (its two bf16x2 fmas; h x s is
+    exact, the sum is taken in float64 and rounded); int8 values exactly."""
+    if w.kind == "int8":
+        return w.data.float()
+    table = tq.code_table(w.kind)
+    head = table.to(torch.bfloat16).float()
+    tail = (table - head).to(torch.bfloat16).float()
+
+    def per_weight(levels):
+        pairs = torch.stack([levels[(w.data & 0x0F).long()], levels[(w.data >> 4).long()]], dim=1)
+        return pairs.reshape(-1, w.out_features)[: w.in_features]
+
+    scales = w.scales.float().repeat_interleave(64, dim=0)[: w.in_features]
+    t = (per_weight(tail) * scales).to(torch.bfloat16).double()
+    return (per_weight(head).double() * scales.double() + t).to(torch.bfloat16).float()
+
+
+@pytest.mark.parametrize("kind", ["nf4", "nf4a", "int4", "int8"])
+def test_decode_kernel_weight_rounding_model(kind):
+    """Why the card check's limit holds the new decode kernel: its weights
+    are the plain version's dequantize bit for bit (int4, int8 and, at these
+    weights, nf4) or one bf16 ulp apart where level x scale lies next to a
+    rounding boundary (nf4a: under 0.5% of the weights), so an output moves
+    by far less than QUANT_REL_TOL (1e-2 of the largest output). A table of
+    levels rounded to bf16 alone would move every nf4a output by ~3e-3."""
+    torch.manual_seed(0)
+    dense = (torch.randn(1024, 512) * 0.02).to(torch.bfloat16)
+    w = tq.quantize(dense, kind)
+    got, want = _kernel_weights(w), tq.dequantize(w, torch.bfloat16).float()
+    if kind == "int8":  # the column scale multiplies the float32 sum instead
+        want = w.data.float()
+    if kind != "nf4a":
+        assert torch.equal(got, want)
+        return
+    ulp = torch.exp2(torch.floor(torch.log2(want.abs().clamp_min(1e-30))) - 7)
+    assert ((got - want).abs() <= ulp).all() and (got != want).float().mean() < 5e-3
+    x = torch.randn(8, 1024).to(torch.bfloat16).float()
+    out_kernel, out_plain = x @ got, x @ want
+    assert ((out_kernel - out_plain).abs().max() / out_plain.abs().max()).item() < 1e-3
+
+
+def test_kernel_source_levels_match_the_plain_tables():
+    """The decode kernel's level tables (csrc/quant_matmul.cu) are the plain
+    version's float32 levels, bit for bit."""
+    import re
+
+    from petals_tpu_torch.kernels.build import CSRC_DIR
+
+    src = (CSRC_DIR / "quant_matmul.cu").read_text()
+    for name, table in (("NF4_CODE", tq.NF4_CODE), ("NF4A_CODE", tq.NF4A_CODE)):
+        body = re.search(rf"__constant__ float {name}\[16\] = \{{(.*?)\}};", src, re.S).group(1)
+        values = np.array([float(v.rstrip("f")) for v in re.findall(r"-?[0-9.]+f", body)], np.float32)
+        np.testing.assert_array_equal(_bits(values), _bits(table.astype(np.float32)))
