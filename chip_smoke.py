@@ -136,6 +136,27 @@
    queue tasks) to phase 3's four sessions at 16 decode steps: replies
    checked as in phase 3; K4 must have run on every block of every prefill
    chunk and K1/K2 never.
+12. Swarm: a port DHT bootstrap node on 127.0.0.1, then two port servers
+   built by the CLI (its 8192-token budget, --update_period 2,
+   --throughput auto with a fresh cache under build/): A on blocks [0, 4),
+   whose throughput probe runs on the card (a one-lane paged decode step
+   and a 1024-token forward of one random block; printed with the card's
+   name and power limit), and B with --num_blocks 4 and no --first_block,
+   which must place itself at block 4 (B reads A's cached probe). Prints
+   choose_num_blocks for the full Mistral-7B-v0.1 config (32 layers) at the
+   CLI's budget, none and nf4a, from the card's memory. Reads the directory
+   through a query-only port DHT node: exactly two ONLINE spans, [0, 4) and
+   [4, 8), each announcing the port's version, a positive throughput and
+   cache_tokens_left; within SWARM_WAIT_S, A's next_pings holds B's id.
+   Then two sessions (prompts of 300 and 64 tokens, 16 decode steps) run
+   through the chain with the port's RpcClient over an identity-proving
+   connection pool, dialing the directory's addresses (each server must
+   prove the peer id it announced): A for blocks 0-3, B for 4-7, A's reply
+   fed into B at each step. Every final hidden state is held against phase
+   3's dense reference over all 8 blocks with check_session's tolerance;
+   the chain's step times are printed, and K1 and K2 must have run on both
+   servers (K4 in A's probe). Then B shuts down and the directory must read
+   its records OFFLINE.
 
 float32 matmuls run in full float32: TF32 is switched off for matmuls and
 convolutions. Exits non-zero on any failure. The last line is the JSON
@@ -247,6 +268,12 @@ PRIVATE_STEPS = (700, 300) + (1,) * 16  # tokens a step
 SUB_SPAN = (2, 6)
 SUB_SPAN_STEPS = (300,) + (1,) * 4
 DENSE_DECODE_STEPS = 16
+SWARM_HALF = 4  # two port servers, blocks [0, 4) and [4, 8)
+SWARM_PROMPTS = (300, 64)
+SWARM_STEPS = 16
+SWARM_UPDATE_PERIOD = 2.0  # seconds between announces
+SWARM_WAIT_S = 20.0  # the longest wait for an announce to show
+CLI_ATTN_CACHE_TOKENS = 8192  # run_server's --attn_cache_tokens default
 DENSE_CHUNK_TOKENS = 512  # the dense pool's chunk bound, in tokens of activations
 
 # K5/K6 at the four projections of a Mistral-7B block as the port serves
@@ -1237,20 +1264,21 @@ def serve_and_check(ckpt, device, quant_type, n_blocks, prompts, n_steps, seed, 
         ckpt, "--first_block", "0", "--num_blocks", str(n_blocks), "--host", "127.0.0.1", "--quant_type", quant_type,
         "--kv_quant_type", kv_quant_type,
     ])
-    t0 = time.perf_counter()
     server = build_server(args)
-    torch.cuda.synchronize()
-    b = server.batcher
-    pool_bytes = sum(d.nbytes for d in server.backend.paged_cache_descriptors(b.n_pages, b.page_size, 0, n_blocks))
-    log(f"{label}: loaded in {time.perf_counter() - t0:.1f} s, {b.n_lanes} lanes x {b.max_length} tokens, "
-        f"{b.n_pages} pages of {b.page_size}, pool {pool_bytes / 2**20:.1f} MiB "
-        f"({server.backend.kv_bytes_per_token()} bytes a token) of a {server.memory_cache.max_size_bytes / 2**20:.1f} "
-        f"MiB budget, prefill budget {b.prefill_token_budget}; "
-        f"{torch.cuda.memory_allocated(device) / 2**30:.2f} GiB allocated on the card")
 
     async def serve():
+        t0 = time.perf_counter()
         await server.start()
         try:
+            torch.cuda.synchronize()
+            b = server.batcher
+            pool_bytes = sum(
+                d.nbytes for d in server.backend.paged_cache_descriptors(b.n_pages, b.page_size, 0, n_blocks))
+            log(f"{label}: started in {time.perf_counter() - t0:.1f} s (span loaded), {b.n_lanes} lanes x "
+                f"{b.max_length} tokens, {b.n_pages} pages of {b.page_size}, pool {pool_bytes / 2**20:.1f} MiB "
+                f"({server.backend.kv_bytes_per_token()} bytes a token) of a "
+                f"{server.memory_cache.max_size_bytes / 2**20:.1f} MiB budget, prefill budget "
+                f"{b.prefill_token_budget}; {torch.cuda.memory_allocated(device) / 2**30:.2f} GiB allocated on the card")
             if warmup_prompts:
                 await drive_server(server, warmup_prompts, 2, SEED + 5)
             before = dict(server.batcher.stats)
@@ -1463,14 +1491,14 @@ def serve_dense_pool_and_check(ckpt, device):
         ckpt, "--first_block", "0", "--num_blocks", str(SPAN), "--host", "127.0.0.1", "--page_size", "0",
         "--max_chunk_size_bytes", str(DENSE_CHUNK_TOKENS * per_token),
     ]))
-    b = server.batcher
-    pool_bytes = sum(d.nbytes for d in server.backend.cache_descriptors(b.n_lanes, b.max_length, 0, SPAN))
-    log(f"{label}: {b.n_lanes} lanes x {b.max_length} tokens, page_size {b.page_size}, pool {pool_bytes / 2**20:.1f} MiB "
-        f"of a {server.memory_cache.max_size_bytes / 2**20:.1f} MiB budget")
 
     async def serve():
         await server.start()
         try:
+            b = server.batcher
+            pool_bytes = sum(d.nbytes for d in server.backend.cache_descriptors(b.n_lanes, b.max_length, 0, SPAN))
+            log(f"{label}: {b.n_lanes} lanes x {b.max_length} tokens, page_size {b.page_size}, pool "
+                f"{pool_bytes / 2**20:.1f} MiB of a {server.memory_cache.max_size_bytes / 2**20:.1f} MiB budget")
             await drive_server(server, WARMUP_PROMPTS, 2, SEED + 5)
             before = dict(b.stats)
             _reset_launch_counts()
@@ -1508,6 +1536,192 @@ def serve_dense_pool_and_check(ckpt, device):
     return launches
 
 
+async def _read_directory(peers, prefix, n_blocks):
+    """The directory as a client reads it, through a query-only port node:
+    (module infos of blocks [0, n_blocks), the address book)."""
+    from petals_tpu_torch.data_structures import make_uid
+    from petals_tpu_torch.dht import DHTNode
+    from petals_tpu_torch.utils.dht_utils import get_remote_module_infos
+
+    reader = await DHTNode.create(initial_peers=peers, client_mode=True)
+    try:
+        return await get_remote_module_infos(reader, [make_uid(prefix, i) for i in range(n_blocks)])
+    finally:
+        await reader.shutdown()
+
+
+async def _drive_chain(chain, prompts, n_steps, seed, hsz):
+    """Sessions through a chain of servers: each step's hidden states go to
+    the first server, its reply to the next. ``chain`` lists (rpc client,
+    uids) in block order. Returns the inputs, the last server's replies and
+    the client's prefill and decode round-trip times."""
+    from petals_tpu_torch.rpc.serialization import deserialize_array, serialize_array
+
+    gen = torch.Generator().manual_seed(seed)
+    inputs = [
+        (torch.randn(1, n, hsz, generator=gen).to(torch.bfloat16),
+         [torch.randn(1, 1, hsz, generator=gen).to(torch.bfloat16) for _ in range(n_steps)])
+        for n in prompts
+    ]
+
+    async def session(prompt, steps):
+        streams = []
+        for client, uids in chain:
+            stream = await client.open_stream("ptu.inference")
+            await stream.send({"uids": uids, "max_length": prompt.shape[1] + n_steps, "batch_size": 1})
+            if not (await stream.recv(timeout=120))["session_open"]:
+                raise AssertionError("a chain session did not open")
+            streams.append(stream)
+        outs, times = [], []
+        for h in [prompt] + steps:
+            t0 = time.perf_counter()
+            for stream in streams:
+                await stream.send({"tensors": {"hidden": serialize_array(h)}})
+                h = deserialize_array((await stream.recv(timeout=300))["tensors"]["hidden"])
+            times.append(time.perf_counter() - t0)
+            outs.append(h)
+        for stream in streams:
+            await stream.end()
+        return outs, times
+
+    results = await asyncio.gather(*(session(p, s) for p, s in inputs))
+    return inputs, [r[0] for r in results], [r[1] for r in results]
+
+
+def serve_swarm_and_check(ckpt, device, smi):
+    """Phase 12: two port servers join a swarm and serve one model as a chain."""
+    import petals_tpu_torch
+    from petals_tpu_torch.cli.run_server import build_parser, build_server
+    from petals_tpu_torch.data_structures import CHAIN_DELIMITER, ServerState, make_uid
+    from petals_tpu_torch.dht import DHTNode, Identity
+    from petals_tpu_torch.rpc.pool import ConnectionPool
+    from petals_tpu_torch.server.block_utils import choose_num_blocks, device_memory_bytes
+    from petals_tpu_torch.server.from_pretrained import get_block_config
+    from petals_tpu_torch.utils.dht_utils import compute_spans
+
+    label = "swarm (two port servers, bf16, blocks [0, 4) and [4, 8))"
+    # a fresh throughput cache, so A's probe runs on the card here
+    os.environ["PETALS_TPU_TORCH_CACHE"] = tempfile.mkdtemp(prefix="swarm-throughput-", dir=os.path.join(REPO, "build"))
+    family, full_cfg = get_block_config(ckpt)  # the config keeps Mistral's 32 layers
+    attn_cache_bytes = (2 * CLI_ATTN_CACHE_TOKENS * full_cfg.num_key_value_heads * full_cfg.head_dim * 2
+                        * full_cfg.num_hidden_layers)
+    sizes = {q: choose_num_blocks(family, full_cfg, quant_type=q, attn_cache_bytes=attn_cache_bytes, device=device)
+             for q in ("none", "nf4a")}
+    log(f"{label}: choose_num_blocks for Mistral-7B-v0.1 ({full_cfg.num_hidden_layers} layers) at the CLI's "
+        f"{CLI_ATTN_CACHE_TOKENS}-token budget ({attn_cache_bytes / 2**30:.2f} GiB) on {device_memory_bytes(device) / 2**30:.2f} "
+        f"GiB of card memory: {sizes['none']} blocks in bf16, {sizes['nf4a']} in nf4a ({smi})")
+
+    async def run():
+        boot = await DHTNode.create(host="127.0.0.1")
+        peers = [boot.own_addr.to_string()]
+        servers, pool = [], ConnectionPool(identity=Identity.generate())
+
+        async def start(*span):
+            server = build_server(build_parser().parse_args([
+                ckpt, "--host", "127.0.0.1", "--initial_peers", *peers, "--update_period", str(SWARM_UPDATE_PERIOD),
+                "--throughput", "auto", *span,
+            ]))
+            t0 = time.perf_counter()
+            await server.start()
+            servers.append(server)
+            return server, time.perf_counter() - t0
+
+        try:
+            _reset_launch_counts()
+            a, a_s = await start("--first_block", "0", "--num_blocks", str(SWARM_HALF))
+            probe_launches = _launch_counts()
+            rps = a._rps_info
+            log(f"{label}: server A started in {a_s:.1f} s; throughput probe on the card: inference_rps "
+                f"{rps['inference_rps']:.1f} (one-lane paged decode steps a second, one block), forward_rps "
+                f"{rps['forward_rps']:.1f} (tokens a second of a 1024-token forward, one block), network_rps "
+                f"{rps['network_rps']:.1f}, throughput {rps['throughput']:.1f}; probe launches {probe_launches} ({smi})")
+            b, b_s = await start("--num_blocks", str(SWARM_HALF))
+            log(f"{label}: server B started in {b_s:.1f} s and placed itself at [{b.first_block}, "
+                f"{b.first_block + b.num_blocks})")
+            if b.first_block != SWARM_HALF:
+                raise AssertionError(f"{label}: B placed itself at block {b.first_block}, not {SWARM_HALF}")
+            ids = {a.dht.peer_id: "A", b.dht.peer_id: "B"}
+
+            deadline = time.perf_counter() + SWARM_WAIT_S
+            while True:  # A's next_pings holds B once one announce period has passed
+                infos, addr_book = await _read_directory(peers, a.dht_prefix, SPAN)
+                pings = infos[0].servers[a.dht.peer_id].next_pings or {}
+                if b.dht.peer_id.to_string() in pings or time.perf_counter() > deadline:
+                    break
+                await asyncio.sleep(0.5)
+            spans = compute_spans(infos)
+            got = sorted((s.start, s.end, ids.get(pid, "?")) for pid, s in spans.items())
+            log(f"{label}: directory: ONLINE spans {got}; A's next_pings {pings}")
+            if got != [(0, SWARM_HALF, "A"), (SWARM_HALF, SPAN, "B")]:
+                raise AssertionError(f"{label}: the directory holds the spans {got}")
+            for pid, span in spans.items():
+                info = span.server_info
+                log(f"{label}: {ids[pid]} announces version {info.version}, throughput {info.throughput:.1f}, "
+                    f"inference_rps {info.inference_rps:.1f}, forward_rps {info.forward_rps:.1f}, network_rps "
+                    f"{info.network_rps:.1f}, cache_tokens_left {info.cache_tokens_left}, quant_type "
+                    f"{info.quant_type}, compute_dtype {info.compute_dtype}, server_gen {info.server_gen}")
+                if info.version != petals_tpu_torch.__version__ or not info.throughput > 0 or not (
+                        info.cache_tokens_left or 0) > 0:
+                    raise AssertionError(f"{label}: {ids[pid]} announces {info}")
+            if b.dht.peer_id.to_string() not in pings:
+                raise AssertionError(f"{label}: A's next_pings {pings} lacks B after {SWARM_WAIT_S} s")
+
+            chain = []
+            for server in (a, b):
+                client = await pool.get_addr(addr_book[server.dht.peer_id])
+                if await client.wait_authenticated() != server.dht.peer_id:
+                    raise AssertionError(f"{label}: {ids[server.dht.peer_id]} did not prove its announced peer id")
+                uids = CHAIN_DELIMITER.join(
+                    make_uid(server.dht_prefix, i) for i in range(server.first_block, server.first_block + server.num_blocks))
+                chain.append((client, uids))
+            await _drive_chain(chain, (64,), 2, SEED + 5, a.cfg.hidden_size)  # warm-up
+            _reset_launch_counts()
+            result = await _drive_chain(chain, SWARM_PROMPTS, SWARM_STEPS, SEED + 12, a.cfg.hidden_size)
+            launches = _launch_counts()
+            stats = [dict(s.batcher.stats) for s in (a, b)]
+
+            await b.shutdown()
+            servers.remove(b)
+            infos, _ = await _read_directory(peers, a.dht_prefix, SPAN)
+            states = [infos[i].servers[b.dht.peer_id].state if infos[i] and b.dht.peer_id in infos[i].servers else None
+                      for i in range(SWARM_HALF, SPAN)]
+            log(f"{label}: after B shut down, its records read {[None if s is None else s.name for s in states]}")
+            if states != [ServerState.OFFLINE] * (SPAN - SWARM_HALF):
+                raise AssertionError(f"{label}: B's records read {states} after it shut down, not OFFLINE")
+            return result, launches, probe_launches, stats, [x.backend.block_params for x in (a, b)]
+        finally:
+            for server in servers:
+                await server.shutdown()
+            await pool.close()
+            await boot.shutdown()
+
+    t0 = time.perf_counter()
+    (inputs, outs, times), launches, probe_launches, stats, params = asyncio.run(run())
+    decode_ms = [t * 1e3 for ts in times for t in ts[1:]]
+    log(f"{label}: chain of 2 servers x {SWARM_HALF} blocks: prefill round trip "
+        f"{', '.join(f'{ts[0] * 1e3:.1f} ms ({n} tokens)' for ts, n in zip(times, SWARM_PROMPTS))}; decode step round "
+        f"trip median {statistics.median(decode_ms):.3f} ms, max {max(decode_ms):.3f} ms over {len(decode_ms)} steps "
+        f"({smi}); launches {launches}; batcher stats A {stats[0]}, B {stats[1]}")
+    # a decode step runs K1 on each of the 8 blocks (the sessions' steps may
+    # share one), a prefill chunk K2; the probe runs K1 and K4
+    if launches["K1"] < SWARM_STEPS * SPAN or launches["K2"] < SPAN or not probe_launches["K4"] or not probe_launches["K1"]:
+        raise AssertionError(f"{label}: launches {launches} (probe {probe_launches}) miss a kernel of the path")
+    block_params = params[0] + params[1]
+    params_bf16 = dense_reference_params(block_params, torch.bfloat16)
+    params_f32 = dense_reference_params(block_params, torch.float32)
+    family, cfg = get_block_config(ckpt)
+    failed = []
+    for (prompt, steps), got, n in zip(inputs, outs, SWARM_PROMPTS):
+        args = (family, cfg, prompt, steps, device)
+        failed += check_session(
+            got, None, reference_session(params_bf16, *args, torch.bfloat16),
+            reference_session(params_f32, *args, torch.float32), f"{label}: session with a {n}-token prompt",
+        )
+    if failed:
+        raise AssertionError("; ".join(failed))
+    log(f"{label}: phase done in {time.perf_counter() - t0:.1f} s")
+
+
 def free_card() -> None:
     """Free what a dropped server held on the card before the next one loads
     (its event-loop objects hold reference cycles, so collect them)."""
@@ -1531,6 +1745,9 @@ def main() -> int:
     log(smi)  # the card's name and power limit, as nvidia-smi prints them
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, python {sys.version.split()[0]}")
 
+    # servers measure their throughput at start (--throughput auto) and cache
+    # it here, inside the checkout
+    os.environ.setdefault("PETALS_TPU_TORCH_CACHE", os.path.join(REPO, "build", "throughput-cache"))
     t_start = time.perf_counter()
     build()
     timer = Timer(device)
@@ -1590,6 +1807,9 @@ def main() -> int:
         private_launches = serve_private_and_check(ckpt, device)
         free_card()
         serve_dense_pool_and_check(ckpt, device)
+        free_card()
+        # the swarm: two port servers, placed through the DHT, as one chain
+        serve_swarm_and_check(ckpt, device, smi)
         free_card()
     flash_kernel["launches"] = private_launches["K4"]
     kernels[0]["launches"] = bf16_launches["K1"]

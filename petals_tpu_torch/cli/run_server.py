@@ -1,12 +1,20 @@
-"""Serve a span of a local checkpoint on the CUDA card:
+"""Serve a span of a local checkpoint on the CUDA card, in a petals_tpu
+swarm:
 
-    python -m petals_tpu_torch.cli.run_server <checkpoint dir> --first_block 0 --num_blocks 8
+    python -m petals_tpu_torch.cli.run_dht                  # prints its address
+    python -m petals_tpu_torch.cli.run_server <checkpoint dir> --initial_peers <address>
 
-The defaults are petals_tpu's: bf16, ``--quant_type none``,
-``--kv_quant_type none``, ``--page_size 64``, ``--prefill_token_budget 512``,
-an 8192-token KV budget (in floating-point bytes, whatever the pool's
-encoding, as petals_tpu converts it). The span is required: there is no DHT
-to place it by.
+Without ``--first_block`` the server places its span where the swarm is
+weakest, and without ``--num_blocks`` it serves as many blocks as fit the
+card beside the KV budget; ``--block_indices 0:16`` gives both at once.
+Without ``--initial_peers`` it starts a swarm of its own. The defaults are
+petals_tpu's: bf16, ``--quant_type none``, ``--kv_quant_type none``,
+``--page_size 64``, ``--prefill_token_budget 512``, ``--throughput auto``
+(measured on the card, server/throughput.py, and cached under
+``$PETALS_TPU_TORCH_CACHE``, default ~/.cache/petals_tpu_torch), an
+announce every 30 seconds,
+and an 8192-token KV budget (in floating-point bytes, whatever the pool's
+encoding, as petals_tpu converts it).
 """
 
 from __future__ import annotations
@@ -28,10 +36,25 @@ DTYPES = {"bfloat16": torch.bfloat16, "float16": torch.float16, "float32": torch
 def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(description="Host a span of transformer blocks on this CUDA card")
     parser.add_argument("model", help="Local path of the HF checkpoint to serve")
-    parser.add_argument("--first_block", type=int, required=True, help="First block to serve")
-    parser.add_argument("--num_blocks", type=int, required=True, help="How many blocks to serve")
     parser.add_argument("--host", default="0.0.0.0", help="Listen address")
     parser.add_argument("--port", type=int, default=0, help="Listen port (0 = ephemeral)")
+    parser.add_argument("--initial_peers", nargs="*", default=[],
+                        help="Bootstrap peers as host:port/peer_id strings (none: a swarm of one)")
+    parser.add_argument("--identity_seed", default=None,
+                        help="Seed string for a deterministic peer id")
+    parser.add_argument("--first_block", type=int, default=None,
+                        help="First block to serve (default: placed where the swarm is weakest)")
+    parser.add_argument("--num_blocks", type=int, default=None,
+                        help="How many blocks to serve (default: as many as fit the card)")
+    parser.add_argument("--block_indices", default=None,
+                        help="Alternative to first/num: a range like 0:16")
+    parser.add_argument("--throughput", default="auto",
+                        help='"auto" to measure it on the card, or a number (requests a second)')
+    parser.add_argument("--update_period", type=float, default=30.0, help="DHT announce period, seconds")
+    parser.add_argument("--public_name", default=None, help="Display name announced to the swarm")
+    parser.add_argument("--network_mbps", type=float, default=None,
+                        help="Known network budget in Mbit/s (default: probe the bootstrap peers; "
+                             "the loopback stack probe when alone)")
     parser.add_argument("--dht_prefix", default=None, help="Swarm namespace (default: derived from model name)")
     parser.add_argument("--device", default=None, help="torch device (default: the current CUDA device)")
     parser.add_argument("--torch_dtype", "--dtype", dest="dtype", default="bfloat16",
@@ -72,24 +95,44 @@ def build_parser() -> argparse.ArgumentParser:
     return parser
 
 
+def parse_block_range(args: argparse.Namespace) -> tuple:
+    """(first_block, num_blocks) from ``--block_indices`` or the two flags."""
+    if args.block_indices:
+        first, last = args.block_indices.split(":")
+        return int(first), int(last) - int(first)
+    return args.first_block, args.num_blocks
+
+
 def attn_cache_bytes_for(args: argparse.Namespace) -> int:
-    """``--attn_cache_tokens`` in bytes for the span, as petals_tpu's CLI
-    converts it: floating-point bytes, whatever ``--kv_quant_type``."""
+    """``--attn_cache_tokens`` in bytes for the span (the whole model when
+    its size is not given), as petals_tpu's CLI converts it: floating-point
+    bytes, whatever ``--kv_quant_type``."""
     _, cfg = get_block_config(args.model)
     return (
         2 * args.attn_cache_tokens * cfg.num_key_value_heads * cfg.head_dim
-        * DTYPES[args.dtype].itemsize * args.num_blocks
+        * DTYPES[args.dtype].itemsize * (parse_block_range(args)[1] or cfg.num_hidden_layers)
     )
 
 
 def build_server(args: argparse.Namespace) -> Server:
+    first_block, num_blocks = parse_block_range(args)
+    try:
+        throughput = float(args.throughput)
+    except ValueError:
+        throughput = args.throughput
     return Server(
         args.model,
-        first_block=args.first_block,
-        num_blocks=args.num_blocks,
+        first_block=first_block,
+        num_blocks=num_blocks,
         dht_prefix=args.dht_prefix,
         host=args.host,
         port=args.port,
+        initial_peers=args.initial_peers,
+        identity_seed=args.identity_seed.encode() if args.identity_seed else None,
+        throughput=throughput,
+        update_period=args.update_period,
+        public_name=args.public_name,
+        network_mbps=args.network_mbps,
         device=args.device,
         compute_dtype=DTYPES[args.dtype],
         attn_cache_bytes=attn_cache_bytes_for(args),
@@ -116,7 +159,7 @@ def main(argv=None) -> None:
 
     async def run():
         await server.start()
-        print(f"listening on {server.host}:{server.rpc_server.port}", flush=True)
+        print(server.contact_addr.to_string(), flush=True)  # the address peers dial
         stop = asyncio.Event()
         loop = asyncio.get_running_loop()
         for sig in (signal.SIGINT, signal.SIGTERM):

@@ -1,15 +1,22 @@
 """Asyncio RPC client with connection multiplexing: the stub side of the
-wire protocol (petals_tpu/rpc/client.py without the identity handshake).
-One ``RpcClient`` owns one TCP connection; concurrent unary calls and streams
-share it, matched by call id. A lost connection fails every call in flight."""
+wire protocol (petals_tpu/rpc/client.py without the relay). One
+``RpcClient`` owns one TCP connection; concurrent unary calls and streams
+share it, matched by call id. A lost connection fails every call in flight.
+
+Given an ``identity``, the client's hello carries its key and a nonce, it
+proves its own id to a server that advertised a key, and
+``remote_peer_id`` is set once the server proves its id by signing our
+nonce (``wait_authenticated``). Without one, no remote id is ever trusted."""
 
 from __future__ import annotations
 
 import asyncio
 import itertools
 import logging
+import secrets
 from typing import Any, AsyncIterator, Optional
 
+from petals_tpu_torch.data_structures import PeerID
 from petals_tpu_torch.rpc.protocol import read_frame, write_frame
 from petals_tpu_torch.rpc.server import RpcError
 
@@ -58,21 +65,35 @@ class StreamCall:
 
 
 class RpcClient:
-    def __init__(self, reader: asyncio.StreamReader, writer: asyncio.StreamWriter):
+    def __init__(self, reader: asyncio.StreamReader, writer: asyncio.StreamWriter, identity=None):
         self._reader, self._writer = reader, writer
+        self._identity = identity
+        self._nonce = secrets.token_bytes(16)
         self._write_lock = asyncio.Lock()
         self._call_ids = itertools.count()
         self._pending: dict = {}  # call_id -> Future (unary)
         self._streams: dict = {}  # call_id -> StreamCall
         self._closed = False
+        # set ONLY once the server proves its id by signing our nonce
+        self.remote_peer_id: Optional[PeerID] = None
+        self._server_pub: Optional[bytes] = None
+        self._server_claimed: Optional[PeerID] = None
+        # set once the server's hello is handled (and our proof sent), so our
+        # first request never overtakes the proof
         self._hello = asyncio.Event()
+        # set once the server's auth frame is handled, valid or not
+        self._auth_done = asyncio.Event()
         self._loop_task = asyncio.create_task(self._read_loop())
 
     @classmethod
-    async def connect(cls, host: str, port: int, *, timeout: float = 10.0) -> "RpcClient":
+    async def connect(cls, host: str, port: int, *, identity=None, timeout: float = 10.0) -> "RpcClient":
         reader, writer = await asyncio.wait_for(asyncio.open_connection(host, port), timeout)
-        client = cls(reader, writer)
-        await client._send({"t": "hello", "peer_id": None})
+        client = cls(reader, writer, identity)
+        hello = {"t": "hello", "peer_id": identity.peer_id.to_string() if identity is not None else None}
+        if identity is not None:
+            hello["pub"] = identity.public_bytes.hex()
+            hello["nonce"] = client._nonce.hex()
+        await client._send(hello)
         try:
             await asyncio.wait_for(client._hello.wait(), timeout)
         except asyncio.TimeoutError:
@@ -81,6 +102,47 @@ class RpcClient:
         if client._closed:
             raise RpcError("Connection closed during handshake")
         return client
+
+    async def wait_authenticated(self, timeout: float = 10.0) -> Optional[PeerID]:
+        """The server's PROVEN peer id, after waiting for its proof when it
+        advertised a key; None if it never proves or the proof is wrong."""
+        if self._identity is None or self._server_pub is None:
+            return self.remote_peer_id
+        try:
+            await asyncio.wait_for(self._auth_done.wait(), timeout)
+        except asyncio.TimeoutError:
+            pass
+        return self.remote_peer_id
+
+    async def _on_server_hello(self, msg: dict) -> None:
+        from petals_tpu_torch.dht.identity import hello_challenge_message
+
+        self._server_pub = bytes.fromhex(msg["pub"]) if msg.get("pub") else None
+        self._server_claimed = PeerID.from_string(msg["peer_id"]) if msg.get("peer_id") else None
+        if self._identity is not None and self._server_pub is not None and msg.get("nonce"):
+            sig = self._identity.sign(
+                hello_challenge_message(self._identity.public_bytes, self._server_pub, bytes.fromhex(msg["nonce"]))
+            )
+            await self._send({"t": "auth", "sig": sig.hex()})
+        self._hello.set()
+
+    def _on_server_auth(self, msg: dict) -> None:
+        """The server's proof: its signature over OUR key and nonce."""
+        from petals_tpu_torch.dht.identity import hello_challenge_message, peer_id_of, verify
+
+        try:
+            if self._server_pub is None or self._identity is None:
+                return
+            try:
+                sig = bytes.fromhex(msg.get("sig") or "")
+            except ValueError:
+                return
+            message = hello_challenge_message(self._server_pub, self._identity.public_bytes, self._nonce)
+            proven = peer_id_of(self._server_pub)
+            if verify(self._server_pub, sig, message) and self._server_claimed in (None, proven):
+                self.remote_peer_id = proven
+        finally:
+            self._auth_done.set()
 
     async def _send(self, message: Any) -> None:
         if self._closed:
@@ -118,9 +180,9 @@ class RpcClient:
                 msg = await read_frame(self._reader)
                 kind = msg.get("t")
                 if kind == "hello":
-                    self._hello.set()
+                    await self._on_server_hello(msg)
                 elif kind == "auth":
-                    continue  # a server's identity proof: this client checks none
+                    self._on_server_auth(msg)
                 elif kind == "resp":
                     call_id = msg["id"]
                     future = self._pending.get(call_id)
@@ -153,7 +215,9 @@ class RpcClient:
             error = RpcError(f"Client read loop crashed: {e}")
         finally:
             self._closed = True
-            self._hello.set()  # a connection that died mid-handshake fails connect() now
+            # a connection that died mid-handshake fails connect() now
+            self._hello.set()
+            self._auth_done.set()
             for future in self._pending.values():
                 if not future.done():
                     future.set_exception(error)

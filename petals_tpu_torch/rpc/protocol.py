@@ -2,7 +2,11 @@
 the same frames as petals_tpu/rpc/protocol.py. One TCP connection multiplexes
 many calls, each with a connection-local id:
 
-  {"t": "hello", "peer_id": hex | None}               — sent once by each side
+  {"t": "hello", "peer_id": hex | None,
+   "pub"?: hex, "nonce"?: hex}                       — sent once by each side
+  {"t": "auth", "sig": hex}                           — identity proof: the
+        sender's signature over the peer's key and nonce (dht/identity.py
+        hello_challenge_message), sent once it has the peer's hello
   {"t": "req",  "id", "method", "payload"}            — unary request
   {"t": "resp", "id", "ok", "payload"|"error"}        — unary response / stream abort
   {"t": "sopen", "id", "method"}                      — open bidirectional stream

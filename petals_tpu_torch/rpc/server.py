@@ -1,17 +1,22 @@
 """Asyncio RPC server: unary and bidirectional-streaming methods over the
 framed msgpack protocol (rpc/protocol.py), the surface of
-petals_tpu/rpc/server.py without the identity handshake. A client's
-``hello`` and ``auth`` frames are accepted and ignored, as petals_tpu's
-server does when it has no identity of its own."""
+petals_tpu/rpc/server.py. Given an ``identity`` (dht/identity.py), its hello
+carries its public key and a nonce, it proves its own id to a client that
+sent a key and a nonce, and a client's ``auth`` proof sets
+``remote_peer_id`` on the connection's context; a wrong proof closes the
+connection. Without an identity, a client's ``hello`` and ``auth`` frames
+are accepted and ignored, and no remote id is ever trusted."""
 
 from __future__ import annotations
 
 import asyncio
 import dataclasses
 import logging
+import secrets
 import traceback
 from typing import Any, AsyncIterator, Awaitable, Callable, Dict, Optional
 
+from petals_tpu_torch.data_structures import PeerID
 from petals_tpu_torch.rpc.protocol import read_frame, write_frame
 
 logger = logging.getLogger(__name__)
@@ -30,6 +35,8 @@ class RpcError(Exception):
 @dataclasses.dataclass
 class RpcContext:
     remote_addr: tuple
+    local_peer_id: Optional[PeerID] = None
+    remote_peer_id: Optional[PeerID] = None  # set only once the client PROVES it
 
 
 UnaryHandler = Callable[[Any, RpcContext], Awaitable[Any]]
@@ -37,7 +44,9 @@ StreamHandler = Callable[[AsyncIterator[Any], RpcContext], AsyncIterator[Any]]
 
 
 class RpcServer:
-    def __init__(self, host: str = "127.0.0.1", port: int = 0):
+    def __init__(self, host: str = "127.0.0.1", port: int = 0, *, identity=None):
+        self.identity = identity
+        self.peer_id: Optional[PeerID] = identity.peer_id if identity is not None else None
         self.host, self._requested_port = host, port
         self._unary: Dict[str, UnaryHandler] = {}
         self._stream: Dict[str, StreamHandler] = {}
@@ -77,15 +86,26 @@ class RpcServer:
         write_lock = asyncio.Lock()
         call_tasks: Dict[int, asyncio.Task] = {}
         inbound: Dict[int, asyncio.Queue] = {}
-        ctx = RpcContext(remote_addr=writer.get_extra_info("peername") or ("?", 0))
+        ctx = RpcContext(remote_addr=writer.get_extra_info("peername") or ("?", 0), local_peer_id=self.peer_id)
+        handshake = _Handshake(self.identity)
         try:
-            await write_frame(writer, {"t": "hello", "peer_id": None}, write_lock)
+            await write_frame(writer, handshake.hello(), write_lock)
             while True:
                 msg = await read_frame(reader)
                 kind = msg.get("t")
-                if kind in ("hello", "auth"):
-                    continue  # no identity here: claims are neither checked nor trusted
-                if kind == "req":
+                if kind == "hello":
+                    proof = handshake.on_client_hello(msg)
+                    if proof is not None:
+                        await write_frame(writer, proof, write_lock)
+                elif kind == "auth":
+                    if handshake.client_pub is None:
+                        continue  # no identity on one side: nothing to prove
+                    proven = handshake.check_client_auth(msg)
+                    if proven is None:
+                        logger.warning(f"Rejecting peer {ctx.remote_addr}: invalid identity proof")
+                        break  # close the connection
+                    ctx.remote_peer_id = proven
+                elif kind == "req":
                     call_tasks[msg["id"]] = asyncio.create_task(
                         self._run_unary(msg, ctx, writer, write_lock, call_tasks)
                     )
@@ -184,3 +204,55 @@ async def _send_error(writer, write_lock, call_id: int, e: Exception) -> None:
         )
     except (ConnectionError, RuntimeError):
         pass
+
+
+class _Handshake:
+    """The server's side of the hello challenge (petals_tpu/rpc/server.py):
+    the client's hello claims an id and may send its key and a nonce; the id
+    counts only once its ``auth`` frame proves the key, and this server
+    proves its own id by signing the client's nonce."""
+
+    def __init__(self, identity):
+        self.identity = identity
+        self.nonce = secrets.token_bytes(16)
+        self.client_pub: Optional[bytes] = None
+        self.client_claimed: Optional[PeerID] = None
+
+    def hello(self) -> dict:
+        ident = self.identity
+        msg = {"t": "hello", "peer_id": ident.peer_id.to_string() if ident is not None else None}
+        if ident is not None:
+            msg["pub"] = ident.public_bytes.hex()
+            msg["nonce"] = self.nonce.hex()
+        return msg
+
+    def on_client_hello(self, msg: dict) -> Optional[dict]:
+        """Record the client's claim; return our proof frame when both sides
+        have keys (claims are recorded, never trusted, without one)."""
+        # imported here: the dht package imports the rpc modules
+        from petals_tpu_torch.dht.identity import hello_challenge_message
+
+        if self.identity is None:
+            return None
+        self.client_pub = bytes.fromhex(msg["pub"]) if msg.get("pub") else None
+        self.client_claimed = PeerID.from_string(msg["peer_id"]) if msg.get("peer_id") else None
+        if self.client_pub is None or not msg.get("nonce"):
+            return None
+        sig = self.identity.sign(
+            hello_challenge_message(self.identity.public_bytes, self.client_pub, bytes.fromhex(msg["nonce"]))
+        )
+        return {"t": "auth", "sig": sig.hex()}
+
+    def check_client_auth(self, msg: dict) -> Optional[PeerID]:
+        """The client's proven peer id, or None for a wrong proof."""
+        from petals_tpu_torch.dht.identity import hello_challenge_message, peer_id_of, verify
+
+        try:
+            sig = bytes.fromhex(msg.get("sig") or "")
+        except ValueError:
+            return None
+        message = hello_challenge_message(self.client_pub, self.identity.public_bytes, self.nonce)
+        proven = peer_id_of(self.client_pub)
+        if verify(self.client_pub, sig, message) and self.client_claimed in (None, proven):
+            return proven
+        return None

@@ -1,7 +1,8 @@
 """TransformerBackend: the compute engine for a span of blocks: paged
-decode and mixed prefill+decode steps, and the dense-cache steps of private
-sessions and the dense lane pool (petals_tpu/server/backend.py without the
-stateless forward/backward, adapters, meshes and server-side generation).
+decode and mixed prefill+decode steps, the dense-cache steps of private
+sessions and the dense lane pool, and the stateless forward the throughput
+probe times (petals_tpu/server/backend.py without the backward, adapters,
+meshes and server-side generation).
 
 Where the JAX backend runs the span as one jitted ``lax.scan`` over stacked
 parameters and donated pools, this one is a Python loop over blocks that
@@ -221,6 +222,37 @@ class TransformerBackend:
             offset += chunk_len
         out = outputs[0] if len(outputs) == 1 else torch.cat(outputs, dim=1)
         return out, (k_stack, v_stack)
+
+    @torch.no_grad()
+    def forward(self, hidden, prompts=None) -> torch.Tensor:
+        """A stateless forward over the span, with no KV cache (petals_tpu's
+        backend ``forward``): each block attends causally over the chunk
+        itself, through a K/V buffer of the chunk's length that block
+        after block overwrites. Attention goes through the flash-attention
+        wrapper (ops/flash_attention.py): the CUDA kernel on the card, its
+        plain version on the CPU (a chunk under 8 rows takes plain attention).
+
+        Args:
+          hidden: [batch, seq, hidden].
+          prompts: deep prompts [n_blocks, batch, pre_seq, hidden], added to
+            each block's input over positions [0, pre_seq).
+
+        Returns out [batch, seq, hidden] on the device."""
+        h = _as_tensor(hidden, self.device, self.compute_dtype)
+        batch, seq, _ = h.shape
+        if prompts is not None:
+            prompts = _as_tensor(prompts, self.device, self.compute_dtype)
+        shape = (batch, seq, self.num_kv_heads, self.head_dim)
+        kv_buf = (
+            torch.empty(shape, dtype=self.compute_dtype, device=self.device),
+            torch.empty(shape, dtype=self.compute_dtype, device=self.device),
+        )
+        for i, p_block in enumerate(self.block_params):
+            if prompts is not None:
+                pre = prompts.shape[2]
+                h = torch.cat([h[:, :pre] + prompts[i], h[:, pre:]], dim=1)
+            h, _ = self.family.block_apply(p_block, h, kv_buf, 0, self.cfg, use_flash=True)
+        return h
 
     def _step_once(self, h, k_stack, v_stack, position: int, prompts):
         """One chunk through every block (the body of the JAX package's

@@ -229,6 +229,20 @@ class DecodeBatcher:
             "kv_bytes_per_token": int(self.backend.kv_bytes_per_token()),
         }
 
+    def occupancy_info(self) -> dict:
+        """Lane and page occupancy, as a petals_tpu server announces it in
+        ServerInfo.pool, so clients can route around a loaded server."""
+        info = {
+            "lanes": self.n_lanes,
+            "busy_lanes": self.n_lanes - len(self._free_lanes) if self._handles is not None else 0,
+            "lane_waiters": len(self._lane_waiters),
+        }
+        if self.page_size is not None:
+            info["n_pages"] = self.n_pages
+            info["pages_free"] = self._pages.n_free if self._pages is not None else self.n_pages
+            info.update(self.pool_info())
+        return info
+
     # ------------------------------------------------------------------ lanes
 
     async def acquire_lane(

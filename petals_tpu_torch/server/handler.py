@@ -14,8 +14,15 @@ task queue. Each reply's ``step_meta.variant`` says which path a step took:
 (a dense lane's chunked prefill), ``exclusive`` (deep prompts or hypo_ids on
 a pooled lane), ``private``.
 
+The session-open ack echoes the client's ``trace_id``, normalized, or one
+minted here, as petals_tpu's does. ``ptu.info`` reports the fields of the
+ServerInfo the server announces (``server_info_fn``) beside the handler's
+own. A client id proven by the RPC handshake is ``ctx.remote_peer_id``.
+
 Refused with a clear error: adapters, KV import/adopt, server-side
-generation, push_to.
+generation, push_to in a step. A ``push_to`` in the open message (petals_tpu
+servers push each step's output to the next server as well) is ignored:
+the client relays every step itself, and its copy is the one that counts.
 """
 
 from __future__ import annotations
@@ -23,8 +30,10 @@ from __future__ import annotations
 import asyncio
 import contextlib
 import logging
+import re
 import time
-from typing import Optional, Tuple
+import uuid
+from typing import Callable, Optional, Tuple
 
 import torch
 
@@ -38,6 +47,20 @@ from petals_tpu_torch.utils.version import incompatibility_error, is_compatible
 
 logger = logging.getLogger(__name__)
 
+_TRACE_ID_RE = re.compile(r"^[0-9A-Za-z_-]{1,64}$")
+
+
+def normalize_trace_id(value) -> Optional[str]:
+    """A remote-supplied trace id if it is a short url-safe token, else None
+    (the server then mints its own)."""
+    if not isinstance(value, str) or not _TRACE_ID_RE.match(value):
+        return None
+    return value
+
+
+def new_trace_id() -> str:
+    return uuid.uuid4().hex[:16]
+
 
 class TransformerHandler:
     def __init__(
@@ -50,8 +73,10 @@ class TransformerHandler:
         inference_max_length: Optional[int] = None,
         session_timeout: float = 30 * 60,
         step_timeout: float = 5 * 60,
+        server_info_fn: Optional[Callable[[], dict]] = None,  # the announced ServerInfo's fields
     ):
         self.backend = backend
+        self.server_info_fn = server_info_fn
         self.batcher = batcher
         # private sessions share the batcher's budget and compute thread
         self.memory_cache = batcher.memory_cache
@@ -146,7 +171,8 @@ class TransformerHandler:
 
     async def rpc_info(self, payload, ctx: RpcContext):
         b = self.batcher
-        return {
+        info = dict(self.server_info_fn()) if self.server_info_fn is not None else {}
+        return info | {
             "first_block": self.backend.first_block,
             "n_blocks": self.backend.n_blocks,
             "dht_prefix": self.dht_prefix,
@@ -186,6 +212,7 @@ class TransformerHandler:
         reply_comp = self._reply_compression(open_msg)
         if open_msg.get("active_adapter") is not None:
             raise ValueError("adapters are not supported by this server yet")
+        trace_id = normalize_trace_id(open_msg.get("trace_id")) or new_trace_id()
         backend = self._sub_backend(start, end)
         batcher = self.batcher
         alloc_timeout = open_msg.get("alloc_timeout")
@@ -212,7 +239,7 @@ class TransformerHandler:
             kv = tuple(self.memory_cache.get_buffers(*handles)) if lane is None else None
             yield {
                 "session_open": True, "position": 0, "max_length": max_length,
-                "open_wait_s": round(open_wait_s, 6),
+                "trace_id": trace_id, "open_wait_s": round(open_wait_s, 6),
             }
             position = 0
             while True:

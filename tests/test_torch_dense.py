@@ -445,8 +445,19 @@ async def _session(client, uids, max_length, batch_size, steps):
 def _port_server(model_path, page_size, **kw):
     return Server(
         model_path, first_block=0, num_blocks=N_BLOCKS, device="cpu", compute_dtype=torch.float32,
-        batch_lanes=2, batch_max_length=64, page_size=page_size, prefill_token_budget=16, **kw,
+        batch_lanes=2, batch_max_length=64, page_size=page_size, prefill_token_budget=16, throughput=1.0, **kw,
     )
+
+
+def _started(server):
+    """``server`` after one start and shutdown: ``start()`` loads its span."""
+
+    async def cycle():
+        await server.start()
+        await server.shutdown()
+
+    asyncio.run(cycle())
+    return server
 
 
 def _jax_reference(make_backends, start, end):
@@ -657,7 +668,7 @@ def test_greedy_tokens_match_jax_server(model_path, name):
     assert port_tokens == jax_tokens
 
 
-def test_page_size_0_with_a_quantized_pool_raises_in_both_packages(model_path):
+def test_page_size_0_with_a_quantized_pool_raises_in_both_packages(model_path, tmp_path, monkeypatch):
     from petals_tpu_torch.cli.run_server import build_parser, build_server
 
     with pytest.raises(ValueError, match="requires the paged KV pool"):
@@ -667,6 +678,7 @@ def test_page_size_0_with_a_quantized_pool_raises_in_both_packages(model_path):
     base = [model_path, "--first_block", "0", "--num_blocks", "2", "--device", "cpu", "--dtype", "float32"]
     with pytest.raises(ValueError, match="requires the paged KV pool"):
         build_server(build_parser().parse_args(base + ["--page_size", "0", "--kv_quant_type", "int8"]))
-    server = build_server(build_parser().parse_args(base + ["--page_size", "0"]))
+    monkeypatch.setenv("PETALS_TPU_TORCH_CACHE", str(tmp_path))  # the measured throughput's cache
+    server = _started(build_server(build_parser().parse_args(base + ["--page_size", "0"])))
     assert server.batcher.page_size is None and server.batcher.n_pages == 0
     assert (server.batcher.n_lanes, server.batcher.max_length) == (4, 1024)  # half the budget in lanes

@@ -534,7 +534,7 @@ def _serve_both(model_path, quant_type, kv_quant_type, drive, budget=None):
         server = Server(
             model_path, first_block=0, num_blocks=N_LAYERS, device="cpu", compute_dtype=torch.float32,
             attn_cache_bytes=budget, batch_max_length=128, page_size=16, prefill_token_budget=16,
-            quant_type=quant_type, kv_quant_type=kv_quant_type,
+            quant_type=quant_type, kv_quant_type=kv_quant_type, throughput=1.0,
         )
         await server.start()
         client = await RpcClient.connect(server.host, server.rpc_server.port)
@@ -619,13 +619,25 @@ def test_quantized_weights_and_pool_follow_jax_server(model_path):
     assert decided >= 2
 
 
-def test_cli_passes_kv_quant_type_through(model_path):
+def _started(server):
+    """``server`` after one start and shutdown: ``start()`` loads its span."""
+
+    async def cycle():
+        await server.start()
+        await server.shutdown()
+
+    asyncio.run(cycle())
+    return server
+
+
+def test_cli_passes_kv_quant_type_through(model_path, tmp_path, monkeypatch):
     from petals_tpu_torch.cli.run_server import attn_cache_bytes_for, build_parser, build_server
 
     base = [model_path, "--first_block", "0", "--num_blocks", "2", "--device", "cpu", "--dtype", "float32"]
     assert build_parser().parse_args(base).kv_quant_type == "none"
     args = build_parser().parse_args(base + ["--kv_quant_type", "nf4a", "--quant_type", "int8"])
-    server = build_server(args)
+    monkeypatch.setenv("PETALS_TPU_TORCH_CACHE", str(tmp_path))  # the measured throughput's cache
+    server = _started(build_server(args))
     assert server.kv_quant_type == server.backend.kv_quant_type == "nf4a"
     assert server.quant_type == "int8"
     # the budget stays in floating-point bytes, whatever the pool's encoding

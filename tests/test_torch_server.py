@@ -50,11 +50,22 @@ async def _start_port_server(model_path):
 
     server = Server(
         model_path, first_block=0, num_blocks=N_LAYERS, device="cpu", compute_dtype=torch.float32,
-        batch_lanes=2, batch_max_length=128, page_size=16, prefill_token_budget=16,
+        batch_lanes=2, batch_max_length=128, page_size=16, prefill_token_budget=16, throughput=1.0,
     )
     await server.start()
     client = await RpcClient.connect(server.host, server.rpc_server.port)
     return server, client
+
+
+def _started(server):
+    """``server`` after one start and shutdown: ``start()`` loads its span."""
+
+    async def cycle():
+        await server.start()
+        await server.shutdown()
+
+    asyncio.run(cycle())
+    return server
 
 
 def _uids(model_path):
@@ -183,7 +194,7 @@ def test_unsupported_steps_get_a_clear_error(model_path):
     asyncio.run(main())
 
 
-def test_cli_builds_the_server_with_petals_tpu_defaults(model_path):
+def test_cli_builds_the_server_with_petals_tpu_defaults(model_path, tmp_path, monkeypatch):
     """The CLI's defaults size the pool as petals_tpu's do: an 8192-token
     KV budget, lanes of min(inference_max_length, 1024) tokens, at most
     half the budget in lanes."""
@@ -192,14 +203,21 @@ def test_cli_builds_the_server_with_petals_tpu_defaults(model_path):
     args = build_parser().parse_args(
         [model_path, "--first_block", "0", "--num_blocks", "2", "--device", "cpu", "--dtype", "float32"]
     )
-    server = build_server(args)
+    monkeypatch.setenv("PETALS_TPU_TORCH_CACHE", str(tmp_path))  # the measured throughput's cache
+    server = _started(build_server(args))
     # 2 blocks x 2 kv heads x head_dim 16 x f32, k and v: 512 bytes a token
     assert server.backend.cache_bytes_per_token() == 512
     assert server.memory_cache.max_size_bytes == 8192 * 512
     assert (server.batcher.n_lanes, server.batcher.max_length, server.batcher.page_size) == (4, 1024, 64)
     assert server.batcher.prefill_token_budget == 512
-    with pytest.raises(SystemExit):  # the span is required
-        build_parser().parse_args([model_path])
+    # the span is optional: without it the server is placed by the swarm
+    # when it starts, and sized to the device (where torch reports no device
+    # memory, as on the CPU, the whole model)
+    args = build_parser().parse_args([model_path, "--device", "cpu", "--dtype", "float32"])
+    assert (args.first_block, args.num_blocks, args.throughput) == (None, None, "auto")
+    unplaced = build_server(args)
+    assert (unplaced.first_block, unplaced.num_blocks, unplaced.backend) == (None, N_LAYERS, None)
+    assert unplaced.memory_cache.max_size_bytes == 8192 * 512
 
 
 def _rms(x, w, eps):
@@ -279,6 +297,7 @@ def test_quantized_greedy_tokens_match_jax_server(model_path, quant_type):
         server = Server(
             model_path, first_block=0, num_blocks=N_LAYERS, device="cpu", compute_dtype=torch.float32,
             batch_lanes=2, batch_max_length=128, page_size=16, prefill_token_budget=16, quant_type=quant_type,
+            throughput=1.0,
         )
         await server.start()
         client = await RpcClient.connect(server.host, server.rpc_server.port)
@@ -311,12 +330,13 @@ def test_quantized_greedy_tokens_match_jax_server(model_path, quant_type):
     assert port_tokens == jax_tokens
 
 
-def test_cli_passes_quant_type_through(model_path):
+def test_cli_passes_quant_type_through(model_path, tmp_path, monkeypatch):
     from petals_tpu_torch.cli.run_server import build_parser, build_server
 
     base = [model_path, "--first_block", "0", "--num_blocks", "2", "--device", "cpu", "--dtype", "float32"]
     assert build_parser().parse_args(base).quant_type == "none"
-    server = build_server(build_parser().parse_args(base + ["--quant_type", "int4+o"]))
+    monkeypatch.setenv("PETALS_TPU_TORCH_CACHE", str(tmp_path))  # the measured throughput's cache
+    server = _started(build_server(build_parser().parse_args(base + ["--quant_type", "int4+o"])))
     assert server.quant_type == server.backend.quant_type == "int4+o"
     assert server.backend.block_params[1]["wgu"].kind == "int4+o"
     with pytest.raises(SystemExit):  # the JAX CLI's choices only
