@@ -45,7 +45,8 @@
    row's largest output magnitude, derived beside the constants; a row
    that sees nothing must be exact zeros.
 3. Server: write a seeded Mistral-7B-v0.1-shaped checkpoint of 8 blocks
-   (bf16, random weights) with the port's safetensors writer, start
+   and the client's tensors (model.embed_tokens [32000, 4096], model.norm,
+   lm_head; bf16, random weights) with the port's safetensors writer, start
    petals_tpu_torch's Server on 127.0.0.1 with the CLI's defaults, and open
    4 concurrent sessions through the port's RpcClient: prompts of 700, 450,
    300 and 64 tokens (700 > the 512-token prefill budget forces a
@@ -84,8 +85,13 @@
    (the product the quantized kernel replaces, timed here only) and the
    bound; the plain version is timed at gate+up only, at 8 and 512 rows, the
    shape the kernels line reports. A line names every decode shape where
-   nf4a is not faster than the dense matmul. (This phase runs right after
-   phase 2.)
+   nf4a is not faster than the dense matmul. Then K5 nf4a the same way at
+   the four projections of a Qwen2.5-7B block as phase 14 serves them
+   (QWEN_QUANT_SHAPES: wqkv [3584, 4608], wo [3584, 3584], gate+up [3584,
+   37888], down [18944, 3584]) at 1, 2, 4 and 8 rows and at phase 14's 64-
+   and 300-row chunks, timed at gate+up only, at 8 and 300 rows; the kernels
+   line carries those as "qwen2_5_7b". (This phase runs right after phase
+   2.)
 6. Quantized server: the same 8-block span served with --quant_type nf4a
    (quantized on the card at load, qkv and gate+up fused) to the traffic of
    phase 3, checked as phase 3 checks, against dense references over the
@@ -157,6 +163,42 @@
    the chain's step times are printed, and K1 and K2 must have run on both
    servers (K4 in A's probe). Then B shuts down and the directory must read
    its records OFFLINE.
+13. Client: the port's own client over a chain of two port servers. A
+   sibling of the checkpoint whose config says 8 layers (the depth cut: the
+   client's model is every block served); two port servers built by the CLI
+   join a port DHT bootstrap, A at [0, 4), B placing itself at [4, 8), on a
+   loop thread of their own. AutoDistributedModelForCausalLM.from_pretrained
+   loads the client's parameters on the card (float32, the head held in
+   float32) and, on its own loop, runs: greedy generation of 32 tokens from a
+   300-token prompt; a batch of 2 prompts (16 tokens); seeded sampling
+   (CLIENT_SAMPLING) twice, whose streams must be identical; 2-beam search;
+   a two-call chat session. What the client sent is held to its own tokens:
+   the prompt step is the checkpoint's embeddings of the prompt; every later
+   step of a greedy, sampled or chat stream the embedding of the token
+   chosen before it; every later beam step's rows rows of the embedding
+   table, each among the 2 x beams tokens its parent lane's logits rank
+   highest. Every session is teacher-forced through a dense
+   reference on the card (the client's inputs through the 8 blocks in bf16 and float32 by
+   reference_session, with each step's hypo_ids reordering the caches, then
+   the final norm and a float32 head): the client's logits must lie within
+   REPLY_NOISE_FACTOR times the bf16 reference's error from float32 (as
+   phase 3 holds replies), and each greedy token's float32 reference logit
+   within REPLY_NOISE_FACTOR times the largest bf16 logit error of the
+   reference's largest (random weights leave the top two nearly equal, so
+   exact argmax equality is no test). K1 and K2 must have run during the
+   client's runs; the servers' loop thread is a SwarmRuntime, as the
+   client's is. Prints the per-token round trip the client sees (median,
+   max), its embed and head time a token, the time to the first token, with
+   the card's name and power limit.
+14. Qwen2: a checkpoint at Qwen2.5-7B's widths (QWEN2_5_7B: 28 query heads
+   over 4 kv heads, a GQA group of 7; q/k/v biases drawn with std 0.1;
+   vocabulary 152064, untied), depth cut to 4 blocks; served by one port
+   server in bf16 and then with --quant_type nf4a to two sessions (300 and
+   64 tokens, 16 decode steps), checked as phase 3 checks them; then the
+   port client generates 16 greedy tokens over an nf4a server, held as in
+   phase 13, and K1, K2 and K5 must have run on its path. (K1/K2 at group 7
+   are held to their plain versions and timed beside Mistral's shapes right
+   after phase 2; the kernels line carries them as "group_7".)
 
 float32 matmuls run in full float32: TF32 is switched off for matmuls and
 convolutions. Exits non-zero on any failure. The last line is the JSON
@@ -273,7 +315,26 @@ SWARM_PROMPTS = (300, 64)
 SWARM_STEPS = 16
 SWARM_UPDATE_PERIOD = 2.0  # seconds between announces
 SWARM_WAIT_S = 20.0  # the longest wait for an announce to show
+LOOP_TIMEOUT_S = 600  # the longest wait for a call on the servers' loop thread
 CLI_ATTN_CACHE_TOKENS = 8192  # run_server's --attn_cache_tokens default
+# the client (phases 13 and 14): greedy generation from a CLIENT_PROMPT-token
+# prompt; seeded sampling as tests/test_full_model.py samples
+CLIENT_PROMPT = 300
+CLIENT_NEW = 32
+CLIENT_SAMPLING = dict(do_sample=True, top_k=10, temperature=0.8, seed=7)
+# Qwen2.5-7B's config.json (Qwen/Qwen2.5-7B): 28 query heads over 4 kv heads
+# (a GQA group of 7), q/k/v biases, untied; depth cut to QWEN_SPAN blocks,
+# random weights from SEED
+QWEN2_5_7B = {
+    "model_type": "qwen2", "architectures": ["Qwen2ForCausalLM"],
+    "hidden_size": 3584, "intermediate_size": 18944, "num_attention_heads": 28, "num_key_value_heads": 4,
+    "num_hidden_layers": 28, "rms_norm_eps": 1e-6, "rope_theta": 1000000.0, "vocab_size": 152064,
+    "hidden_act": "silu", "max_position_embeddings": 131072, "max_window_layers": 28, "sliding_window": 131072,
+    "use_sliding_window": False, "tie_word_embeddings": False, "bos_token_id": 151643, "eos_token_id": 151643,
+    "torch_dtype": "bfloat16",
+}
+QWEN_SPAN = 4
+QWEN_NEW = 16
 DENSE_CHUNK_TOKENS = 512  # the dense pool's chunk bound, in tokens of activations
 
 # K5/K6 at the four projections of a Mistral-7B block as the port serves
@@ -296,6 +357,14 @@ QUANT_KINDS = ("nf4", "nf4a", "int4", "int8")
 # sum where the plain version rounds each scaled weight to bf16 (2**-9 per
 # product) (tests/test_torch_quant.py models the decode kernel's weights)
 QUANT_REL_TOL = 1e-2
+# K5 nf4a at the four projections of a Qwen2.5-7B block as phase 14 serves
+# them (wqkv N = 3584 + 2 * 4 * 128, gate+up N = 2 * 18944, down K = 18944),
+# at its decode batches and prefill chunks; only gate+up at 8 and 300 rows
+# is timed
+QWEN_QUANT_SHAPES = {"wqkv": (3584, 3584 + 2 * 512), "wo": (3584, 3584), "wgu": (3584, 2 * 18944),
+                     "wd": (18944, 3584)}
+QWEN_QUANT_ROWS = (1, 2, 4, 8, 64, 300)
+QWEN_QUANT_REPORT = ("wgu", (8, 300))
 SHORT_KINDS = ("int8", "nf4", "int4", "nf4a+o")  # served at 2 blocks, one session each
 # (--quant_type, --kv_quant_type) served at 2 blocks, one session each: K3's
 # int8 arms, and nf4a weights with an nf4a pool (the operator's combined setting)
@@ -441,13 +510,14 @@ def build() -> None:
                 log(f"  {line.strip()}")
 
 
-def attention_cases(device):
-    """The seeded inputs of the attention kernels at Mistral-7B widths: K1's
-    8 lanes (ragged positions up to 1023 on permuted tables with holes past
-    each frontier, one lane idle at the sentinel) and K2's lane (a 512-row
-    chunk at 0 and its 188-row continuation), bf16 pools."""
+def attention_cases(device, hq=32, hkv=8):
+    """The seeded inputs of the attention kernels at Mistral-7B widths (or
+    ``hq`` query heads over ``hkv`` kv heads): K1's 8 lanes (ragged positions
+    up to 1023 on permuted tables with holes past each frontier, one lane
+    idle at the sentinel) and K2's lane (a 512-row chunk at 0 and its
+    188-row continuation), bf16 pools."""
     gen = torch.Generator(device=device).manual_seed(SEED + 1)
-    hq, hkv, d = 32, 8, 128
+    d = 128
     n_lanes, max_pages = 8, 1024 // PAGE
     max_len = max_pages * PAGE
     positions = torch.tensor([0, 63, 64, 200, 511, 700, 1023, max_len], dtype=torch.int32)
@@ -524,11 +594,12 @@ def _prefill_work(table_row, n_pages, chunk_pos, n, window):
     return int(seen[-1] - seen[int(lo[0])]), pairs
 
 
-def check_attention_kernels(device, timer, dec, pf, kind="none"):
+def check_attention_kernels(device, timer, dec, pf, kind="none", long=True):
     """The decode and prefill kernels at one pool storage, against their
     plain versions: K1/K2 on the cases' bf16 pools, or K3's ``kind`` arms on
-    pools quantized on the card from them. Returns the two report entries
-    (without main-path launch counts)."""
+    pools quantized on the card from them; ``long`` adds the long contexts
+    and chunks. Returns the two report entries (without main-path launch
+    counts)."""
     from petals_tpu_torch.ops import paged_flash_attention as pfa
     from petals_tpu_torch.ops.paged_attention import (
         PagedPool,
@@ -548,6 +619,8 @@ def check_attention_kernels(device, timer, dec, pf, kind="none"):
         kp, vp, kp2, vp2 = (PagedPool(*quantize_kv_rows(p, kind)) for p in (dec["kp"], dec["vp"], pf["kp"], pf["vp"]))
         plain_pool = lambda pool: pool  # noqa: E731  (a PagedPool: the plain version decodes it)
         label, names, where = f"[kv_{kind}]", (f"K3 {kind} decode", f"K3 {kind} prefill"), ("150", "150")
+    if hq // hkv != 4:  # not Mistral-7B's group
+        names = tuple(f"{name} at group {hq // hkv}" for name in names)
     side_bytes = kv_wire_bytes_per_token(hkv, d, kind)  # one token row of k (or v) of one block
 
     # ---- decode
@@ -593,7 +666,7 @@ def check_attention_kernels(device, timer, dec, pf, kind="none"):
         if not torch.equal(pfa.paged_flash_attend(q, kp, vp, tables, positions, sliding_window=window), first):
             raise AssertionError(f"{names[0]}: the split merge is not bit-equal on repeats")
     log(f"{names[0]}: bit-equal over {DECODE_REPEATS} repeats")
-    if kind == "none":
+    if kind == "none" and long:
         decode["long_context"] = [check_long_decode(device, timer, *case) for case in LONG_DECODE]
 
     # ---- prefill: a 512-row chunk at 0, then its 188-row continuation at
@@ -632,7 +705,8 @@ def check_attention_kernels(device, timer, dec, pf, kind="none"):
         f"bound {pf_bound:.4f} ms ({pf_by}); 188-row continuation at 512: {cont_ms:.4f} ms kernel, "
         f"{cont_lib_ms:.4f} ms gather+SDPA")
     prefill["continuation"] = {"ms": cont_ms, "library_ms": cont_lib_ms}
-    prefill["long_chunks"] = [check_long_prefill(device, timer, kind, *case) for case in LONG_PREFILL]
+    if long:
+        prefill["long_chunks"] = [check_long_prefill(device, timer, kind, *case) for case in LONG_PREFILL]
     return [decode, prefill]
 
 
@@ -773,24 +847,27 @@ def check_long_decode(device, timer, n_lanes, position, table_tokens):
     return entry
 
 
-def check_quant_kernels(device, timer, rows=QUANT_ROWS, kinds=QUANT_KINDS):
+def check_quant_kernels(device, timer, shapes=QUANT_SHAPES, rows=QUANT_ROWS, kinds=QUANT_KINDS,
+                        report_at=QUANT_REPORT, time_all=True, model="Mistral-7B"):
     """K5 (nf4, nf4a, int4) and K6 (int8) against the plain version at the
-    four projections of a Mistral-7B block and ``rows`` rows, each timed
-    beside the dense bf16 product and the bound, the decode kernel's output
-    also bit-equal over two more calls; returns one report entry per kernel
-    and arm (decode and prefill) at QUANT_REPORT's shape (without main-path
-    launch counts)."""
+    four projections of a ``model`` block (``shapes``) and ``rows`` rows,
+    the decode kernel's output also bit-equal over two more calls; each
+    case timed beside the dense bf16 product and the bound (only
+    ``report_at``'s with ``time_all`` False); returns one report entry per
+    kernel and arm (decode and prefill) at ``report_at``'s shape (without
+    main-path launch counts)."""
     from petals_tpu_torch.ops import quant_matmul as qmm
     from petals_tpu_torch.ops.quant import dequant_matmul_reference, dequantize, quantize
 
     gen = torch.Generator(device=device).manual_seed(SEED + 7)
     n_sm = torch.cuda.get_device_properties(device).multi_processor_count
     entries, table = {}, []
-    for shape_name, (k, n) in QUANT_SHAPES.items():
+    for shape_name, (k, n) in shapes.items():
         dense = (torch.randn(k, n, generator=gen, device=device) * 0.02).to(torch.bfloat16)
         xs = {m: torch.randn(m, k, generator=gen, device=device).to(torch.bfloat16) for m in rows}
         # the yardstick: the dense bf16 product the quantized kernel replaces
-        library = {m: timer(lambda m=m: torch.matmul(xs[m], dense)) for m in rows}
+        library = {m: timer(lambda m=m: torch.matmul(xs[m], dense)) for m in rows
+                   if time_all or (shape_name == report_at[0] and m in report_at[1])}
         for kind in kinds:
             w = quantize(dense, kind)
             deq = dequantize(w, torch.bfloat16).float()
@@ -804,13 +881,26 @@ def check_quant_kernels(device, timer, rows=QUANT_ROWS, kinds=QUANT_KINDS):
                     raise AssertionError(f"{kind} {shape_name} M={m}: output {tuple(got.shape)} or non-finite")
                 err = (got.float() - want).abs().max().item()
                 scale = want.abs().max().item()
-                label = f"{'K6' if kind == 'int8' else 'K5'} {'decode' if decode else 'prefill'} {kind} {shape_name} {k}x{n} M={m}"
+                label = (f"{model} {'K6' if kind == 'int8' else 'K5'} {'decode' if decode else 'prefill'} {kind} "
+                         f"{shape_name} {k}x{n} M={m}")
                 if err > QUANT_REL_TOL * scale:
                     raise AssertionError(f"{label}: disagrees with its plain version: {err} > {QUANT_REL_TOL} * {scale}")
                 if decode and not all(torch.equal(fn(x, w), got) for _ in range(2)):
                     raise AssertionError(f"{label}: the decode kernel's output differs between calls")
+                name = f"quant_{'decode' if decode else 'prefill'}_matmul[{kind}]"
+                entry = entries.setdefault(name, {
+                    "name": name, "route": "cuda", "source": "petals_tpu_torch/csrc/quant_matmul.cu",
+                    "replaces": "petals_tpu/ops/quant.py:" + (
+                        "1030" if kind == "int8" else "781" if decode else "720"),
+                    "max_abs_err": 0.0,
+                })
+                entry["max_abs_err"] = max(entry["max_abs_err"], err)
+                report = shape_name == report_at[0] and m in report_at[1]
+                if not (time_all or report):
+                    log(f"{label}: max abs err {err:.3e}, rel {err / scale:.3e} (tol {QUANT_REL_TOL})"
+                        + ("; bit-equal on two repeats" if decode else ""))
+                    continue
                 ms = timer(lambda: fn(x, w))
-                report = shape_name == QUANT_REPORT[0] and m in QUANT_REPORT[1]
                 plain_ms = timer(lambda: dequant_matmul_reference(x, w)) if report else None
                 nbytes, flops = quant_bytes_and_flops(m, w)
                 bound, by = bound_ms(nbytes, flops)
@@ -821,26 +911,18 @@ def check_quant_kernels(device, timer, rows=QUANT_ROWS, kinds=QUANT_KINDS):
                     + f"{library[m]:.4f} ms dense bf16 matmul ({ms / library[m]:.2f}x), "
                     f"bound {bound:.4f} ms ({by}, {nbytes / 1e6:.1f} MB, {flops / 1e9:.1f} GFLOP){plan}")
                 table.append((kind, shape_name, m, ms, library[m], bound))
-                name = f"quant_{'decode' if decode else 'prefill'}_matmul[{kind}]"
-                entry = entries.setdefault(name, {
-                    "name": name, "route": "cuda", "source": "petals_tpu_torch/csrc/quant_matmul.cu",
-                    "replaces": "petals_tpu/ops/quant.py:" + (
-                        "1030" if kind == "int8" else "781" if decode else "720"),
-                    "max_abs_err": 0.0,
-                })
-                entry["max_abs_err"] = max(entry["max_abs_err"], err)
                 if report:
                     entry.update(shape=f"{shape_name} [{k}, {n}], M={m}", ms=ms, plain_ms=plain_ms,
                                  bound_ms=bound, bound_by=by, library_ms=library[m],
                                  library_factor=ms / library[m])
             del w, deq
         del dense, xs
-    log("dequant-matmul times, ms (kernel / dense bf16 matmul / bound):")
+    log(f"{model} dequant-matmul times, ms (kernel / dense bf16 matmul / bound):")
     for kind in kinds:
         log(f"  {kind}: " + "; ".join(f"{s} M={m} {ms:.4f}/{lib:.4f}/{b:.4f}"
                                       for kd, s, m, ms, lib, b in table if kd == kind))
     slower = [f"{s} M={m}" for kd, s, m, ms, lib, _ in table if kd == "nf4a" and m <= 32 and ms >= lib]
-    if "nf4a" in kinds:
+    if "nf4a" in kinds and time_all:
         log("K5 decode nf4a against the dense bf16 matmul: " + (
             f"NOT faster at {', '.join(slower)}" if slower else "faster at every decode shape"))
     return list(entries.values())
@@ -928,36 +1010,75 @@ def check_flash_kernel(device, timer):
     }
 
 
-def write_checkpoint(path: str, device) -> None:
-    """A Mistral-7B-v0.1-shaped checkpoint of SPAN blocks, one safetensors
-    shard per block plus the index, random bf16 weights from SEED (HF
-    layout [out, in], std 0.02 as HF initializes, norms at 1)."""
+def write_checkpoint(path: str, device, cfg=None, n_blocks: int = SPAN) -> None:
+    """A checkpoint of ``n_blocks`` blocks at ``cfg``'s widths (default
+    MISTRAL_7B), one safetensors shard per block plus one of the client's
+    tensors (model.embed_tokens, model.norm, lm_head) and the index; random
+    bf16 weights from SEED (HF layout [out, in], std 0.02 as HF initializes,
+    norms at 1; a qwen2 config's q/k/v biases std 0.1, where zeros would
+    hide a missing bias). The blocks are drawn first, so they do not depend
+    on the client's tensors."""
     from petals_tpu_torch.utils.safetensors_io import save_file
 
-    cfg = MISTRAL_7B
-    h, m, hq, hkv, d = (cfg[k] for k in ("hidden_size", "intermediate_size", "num_attention_heads",
-                                          "num_key_value_heads", "head_dim"))
+    cfg = cfg or MISTRAL_7B
+    h, m, hq, hkv = (cfg[k] for k in ("hidden_size", "intermediate_size", "num_attention_heads",
+                                      "num_key_value_heads"))
+    d = cfg.get("head_dim") or h // hq
     shapes = {
         "self_attn.q_proj.weight": (hq * d, h), "self_attn.k_proj.weight": (hkv * d, h),
         "self_attn.v_proj.weight": (hkv * d, h), "self_attn.o_proj.weight": (h, hq * d),
         "mlp.gate_proj.weight": (m, h), "mlp.up_proj.weight": (m, h), "mlp.down_proj.weight": (h, m),
     }
+    biases = {"self_attn.q_proj.bias": hq * d, "self_attn.k_proj.bias": hkv * d, "self_attn.v_proj.bias": hkv * d}
     gen = torch.Generator(device=device).manual_seed(SEED)
     weight_map = {}
-    for i in range(SPAN):
-        fname = f"model-{i + 1:05d}-of-{SPAN:05d}.safetensors"
+
+    def save(fname, tensors):
+        save_file(tensors, os.path.join(path, fname), metadata={"format": "pt"})
+        weight_map.update({name: fname for name in tensors})
+
+    for i in range(n_blocks):
         tensors = {
             f"model.layers.{i}.{name}": (torch.randn(shape, generator=gen, device=device) * 0.02).to(torch.bfloat16)
             for name, shape in shapes.items()
         }
+        if cfg["model_type"] == "qwen2":
+            tensors.update({
+                f"model.layers.{i}.{name}": (torch.randn(n, generator=gen, device=device) * 0.1).to(torch.bfloat16)
+                for name, n in biases.items()
+            })
         for norm in ("input_layernorm.weight", "post_attention_layernorm.weight"):
             tensors[f"model.layers.{i}.{norm}"] = torch.ones(h, dtype=torch.bfloat16)
-        save_file(tensors, os.path.join(path, fname), metadata={"format": "pt"})
-        weight_map.update({name: fname for name in tensors})
+        save(f"model-{i + 1:05d}-of-{n_blocks:05d}.safetensors", tensors)
+    vocab = cfg["vocab_size"]
+    client = {name: (torch.randn(vocab, h, generator=gen, device=device) * 0.02).to(torch.bfloat16)
+              for name in ("model.embed_tokens.weight", "lm_head.weight")}
+    client["model.norm.weight"] = torch.ones(h, dtype=torch.bfloat16)
+    save("model-client.safetensors", client)
+    del client
     with open(os.path.join(path, "model.safetensors.index.json"), "w") as f:
         json.dump({"metadata": {}, "weight_map": weight_map}, f)
     with open(os.path.join(path, "config.json"), "w") as f:
         json.dump(cfg, f)
+
+
+def cut_checkpoint(src: str, dst: str, n_layers: int) -> str:
+    """A sibling of checkpoint ``src`` whose config says ``n_layers`` layers
+    (the depth cut, so a client's model is every block that is served): the
+    same index, its shards linked, not copied."""
+    os.makedirs(dst)
+    for name in os.listdir(src):
+        if name.endswith(".safetensors"):
+            os.symlink(os.path.join(src, name), os.path.join(dst, name))
+    with open(os.path.join(src, "model.safetensors.index.json")) as f:
+        index = f.read()
+    with open(os.path.join(dst, "model.safetensors.index.json"), "w") as f:
+        f.write(index)
+    with open(os.path.join(src, "config.json")) as f:
+        cfg = json.load(f)
+    with open(os.path.join(dst, "config.json"), "w") as f:
+        json.dump(dict(cfg, num_hidden_layers=n_layers), f)
+    return dst
 
 
 async def drive_server(server, prompts, n_steps, seed, at_end=None):
@@ -1073,12 +1194,15 @@ def quantized_kv_writes(family, kind, written):
 
 
 @torch.no_grad()
-def reference_session(block_params, family, cfg, prompt, steps, device, dtype, kv_quant="none"):
+def reference_session(block_params, family, cfg, prompt, steps, device, dtype, kv_quant="none", hypo_ids=None):
     """One session alone through the port's block functions over a dense
-    cache [1, length, hkv, d] per block, with plain attention, in ``dtype``;
-    with a ``kv_quant`` kind, each row enters the cache as the quantized pool
-    would hold it. Returns the replies and the K/V rows as computed (before
-    any quantization), (k, v) of [n_blocks * batch, length, hkv, d]."""
+    cache [batch, length, hkv, d] per block, with plain attention, in
+    ``dtype``; with a ``kv_quant`` kind, each row enters the cache as the
+    quantized pool would hold it. ``hypo_ids`` (one entry per step, None or
+    a [batch] lane order) reorders the caches' lanes before the step, as a
+    server does for beam search. Returns the replies and the K/V rows as
+    computed (before any quantization), (k, v) of [n_blocks * batch, length,
+    hkv, d]."""
     length = prompt.shape[1] + sum(x.shape[1] for x in steps)
     shape = (prompt.shape[0], length, cfg.num_key_value_heads, cfg.head_dim)
     caches = [
@@ -1088,7 +1212,10 @@ def reference_session(block_params, family, cfg, prompt, steps, device, dtype, k
     written = []
     outs, position = [], 0
     with quantized_kv_writes(family, kv_quant, written) if kv_quant != "none" else contextlib.nullcontext():
-        for x in [prompt] + steps:
+        for i, x in enumerate([prompt] + steps):
+            if hypo_ids is not None and hypo_ids[i] is not None:
+                order = torch.as_tensor(hypo_ids[i], dtype=torch.long, device=device)
+                caches = [(k[order], v[order]) for k, v in caches]
             h = x.to(device, dtype)
             for params, kv in zip(block_params, caches):
                 h, _ = family.block_apply(params, h, kv, position, cfg)
@@ -1722,6 +1849,342 @@ def serve_swarm_and_check(ckpt, device, smi):
     log(f"{label}: phase done in {time.perf_counter() - t0:.1f} s")
 
 
+class ClientRecorder:
+    """Wraps a port DistributedModelForCausalLM: per inference session, each
+    step's input hidden states (the embeddings the client sent), its
+    hypo_ids, its round trip and the float32 logits the client read after
+    it; per generate() call, the time to its first token's logits; the
+    embed and head (logits to the host) times."""
+
+    def __init__(self, model):
+        self.sessions, self.embed_s, self.head_s, self.ttft_s = [], [], [], []
+        self._current, self._call_t0 = None, None
+        open_session, embed, host_logits, generate = (
+            model.remote.inference_session, model.embed, model._host_logits, model.generate)
+
+        def inference_session(**kwargs):
+            session = open_session(**kwargs)
+            entry = {"steps": [], "hypos": [], "logits": [], "step_s": []}
+            self.sessions.append(entry)
+            step = session.step
+
+            def timed_step(hidden, **step_kwargs):
+                t0 = time.perf_counter()
+                out = step(hidden, **step_kwargs)
+                entry["step_s"].append(time.perf_counter() - t0)
+                entry["steps"].append(hidden.detach().float().cpu())
+                hypo = step_kwargs.get("hypo_ids")
+                entry["hypos"].append(None if hypo is None else torch.as_tensor(hypo).clone())
+                self._current = entry
+                return out
+
+            session.step = timed_step
+            return session
+
+        def timed_embed(ids):
+            t0 = time.perf_counter()
+            out = embed(ids)
+            torch.cuda.synchronize()
+            self.embed_s.append(time.perf_counter() - t0)
+            return out
+
+        def timed_host_logits(out_hidden):
+            t0 = time.perf_counter()
+            logits = host_logits(out_hidden)  # on the host: the card is done
+            self.head_s.append(time.perf_counter() - t0)
+            self._current["logits"].append(torch.from_numpy(logits.copy()))
+            if self._call_t0 is not None:
+                self.ttft_s.append(time.perf_counter() - self._call_t0)
+                self._call_t0 = None
+            return logits
+
+        def timed_generate(*args, **kwargs):
+            self._call_t0 = time.perf_counter()
+            return generate(*args, **kwargs)
+
+        model.remote.inference_session = inference_session
+        model.embed, model._host_logits, model.generate = timed_embed, timed_host_logits, timed_generate
+
+
+def _reference_head(ckpt, device):
+    """The checkpoint's embeddings (bf16, host), and its final norm then
+    float32 head on the card: hidden [b, h] -> logits [b, vocab]."""
+    from petals_tpu_torch.server.from_pretrained import get_block_config, load_tensors_with_prefixes
+
+    _, cfg = get_block_config(ckpt)
+    t = load_tensors_with_prefixes(ckpt, ("model.embed_tokens.", "model.norm.", "lm_head."), keep_full_names=True)
+    head = t.get("lm_head.weight", t["model.embed_tokens.weight"]).to(device, torch.float32)
+    norm = t["model.norm.weight"].to(device, torch.float32)
+
+    def logits(h):
+        h = h.to(device, torch.float32)
+        return (h * torch.rsqrt((h * h).mean(-1, keepdim=True) + cfg.rms_norm_eps) * norm) @ head.t()
+
+    return t["model.embed_tokens.weight"], logits
+
+
+def _client_input_faults(tag, steps, hypos, got, tokens, prompt_len, embed):
+    """What the client sent, held to its own tokens: the prompt step is the
+    checkpoint's embeddings of the prompt (a beam's rows all begin with it);
+    for a greedy, sampled or chat stream every later step is the embedding
+    of the token chosen before it, so the steps laid end to end are the
+    embeddings of the stream but its last token. A beam step's rows are
+    rows of the table, each one of the 2 x beams tokens its parent lane's
+    logits (the previous step's row hypo_ids names) rank highest: the beam
+    search draws its candidates from those."""
+    faults = []
+    prompt_ids = torch.as_tensor(tokens[:, :prompt_len])
+    if not torch.equal(steps[0], embed[prompt_ids].float().expand(steps[0].shape)):
+        faults.append("the client's prompt hidden states are not the checkpoint's embeddings")
+    if tag != "beam":
+        sent = torch.cat(steps, dim=1)
+        ids = torch.as_tensor(tokens[:, : tokens.shape[1] - 1])
+        if sent.shape[:2] != ids.shape or not torch.equal(sent, embed[ids].float()):
+            faults.append(f"the client's steps {tuple(sent.shape[:2])} are not the embeddings of its tokens "
+                          f"{tuple(ids.shape)} but the last")
+        return faults
+    lanes = steps[0].shape[0]  # the smoke's beam streams are batch 1: a lane a beam
+    for i in range(1, len(steps)):
+        rows = steps[i][:, -1].to(torch.bfloat16)
+        if steps[i].shape[1] != 1 or not torch.equal(rows.float(), steps[i][:, -1]):
+            faults.append(f"beam step {i} is not one bf16 row a lane")
+            continue
+        parents = torch.arange(lanes) if hypos[i] is None else torch.as_tensor(hypos[i]).cpu()
+        for lane in range(lanes):
+            match = (embed == rows[lane]).all(-1).nonzero().flatten()
+            top = got[i - 1][parents[lane]].topk(2 * lanes).indices
+            if match.numel() == 0:
+                faults.append(f"beam step {i} lane {lane}: the row is no row of the embedding table")
+            elif not torch.isin(match, top).any():
+                faults.append(f"beam step {i} lane {lane}: token {match.tolist()} is not among the "
+                              f"{2 * lanes} its parent lane {int(parents[lane])}'s logits rank highest")
+    return faults
+
+
+def check_client_streams(label, entries, block_params, ckpt, device):
+    """Each recorded session teacher-forced through a dense reference on the
+    card: the client's inputs (held to its tokens by _client_input_faults)
+    through the served blocks in bf16 and in float32 (reference_session,
+    the servers' weights dequantized for a quantized span), then the final
+    norm and a float32 head. The client's logits must lie within
+    REPLY_NOISE_FACTOR times the bf16 reference's own error from float32 of
+    the bf16 reference's (max-rel and mean-rel over the session's steps, as
+    check_session holds replies); each greedy token's float32 reference
+    logit within REPLY_NOISE_FACTOR times the largest absolute bf16 error
+    of the reference's largest logit. ``entries``: (session, tag, tokens,
+    prompt length), tag "greedy" or "other". Returns the list of what
+    failed."""
+    from petals_tpu_torch.server.from_pretrained import get_block_config
+
+    family, cfg = get_block_config(ckpt)
+    embed, ref_logits = _reference_head(ckpt, device)
+    params_bf16 = dense_reference_params(block_params, torch.bfloat16)
+    params_f32 = dense_reference_params(block_params, torch.float32)
+    failed = []
+    for n, (session, tag, tokens, prompt_len) in enumerate(entries):
+        steps, hypos, got = session["steps"], session["hypos"], session["logits"]
+        name = f"{label}: stream {n} ({tag}, batch {steps[0].shape[0]}, {len(steps)} steps)"
+        input_faults = _client_input_faults(tag, steps, hypos, got, tokens, prompt_len, embed)
+        failed += [f"{name}: {what}" for what in input_faults]
+        args = (family, cfg, steps[0], steps[1:], device)
+        want = [[ref_logits(o[:, -1]).cpu() for o in reference_session(p, *args, dtype, hypo_ids=hypos)[0]]
+                for p, dtype in ((params_bf16, torch.bfloat16), (params_f32, torch.float32))]
+        srv, noise = _rel_errors(got, want[0]), _rel_errors(want[0], want[1])
+        tol = REPLY_NOISE_FACTOR * max((b - f).abs().max().item() for b, f in zip(*want))
+        line = (f"{name}: logits vs the dense bf16 reference max-rel {srv[0]:.3e} mean-rel {srv[1]:.3e}; "
+                f"bf16 reference vs float32 max-rel {noise[0]:.3e} mean-rel {noise[1]:.3e}")
+        if any(h is not None for h in hypos):
+            moved = sum(h is not None and not torch.equal(h, torch.arange(len(h))) for h in hypos)
+            line += f"; {moved} of {len(hypos) - 1} hypo_ids steps reorder the lanes"
+        if not input_faults:
+            line += f"; every step's inputs held to the tokens ({'beam rows' if tag == 'beam' else 'embeddings'})"
+        if srv[0] > REPLY_NOISE_FACTOR * noise[0] or srv[1] > REPLY_NOISE_FACTOR * noise[1]:
+            failed.append(f"{name}: logits disagree with the dense reference beyond bf16 rounding")
+        if tag == "greedy":
+            new = torch.as_tensor(tokens[:, prompt_len:])
+            if new.shape[1] != len(got):
+                failed.append(f"{name}: {new.shape[1]} new tokens from {len(got)} steps' logits")
+            else:
+                gap = max((f.max(-1).values - f.gather(-1, new[:, i : i + 1])[:, 0]).max().item()
+                          for i, f in enumerate(want[1]))
+                line += f"; greedy tokens' reference logit at most {gap:.3e} below its max (tol {tol:.3e})"
+                if gap > tol:
+                    failed.append(f"{name}: a greedy token's reference logit is {gap:.3e} below the max (> {tol:.3e})")
+        log(line)
+    return failed
+
+
+def drive_client(label, ckpt, device, smi, server_args, runs, place_check=None):
+    """Port servers built by the CLI (``server_args``: each one's span
+    arguments), joined through a port DHT bootstrap on a loop thread of
+    their own; then the port client, from_pretrained on the card, runs
+    ``runs(model)`` (which returns the streams to check). The kernels'
+    launch counters are set to 0 just before the client's runs and read
+    just after. Returns (the recorder, the streams, the launch counts, the
+    servers' block params)."""
+    from petals_tpu_torch.cli.run_server import build_parser, build_server
+    from petals_tpu_torch.client import AutoDistributedModelForCausalLM
+    from petals_tpu_torch.client.runtime import SwarmRuntime
+    from petals_tpu_torch.dht import DHTNode
+
+    loop = SwarmRuntime()  # the servers' loop thread; the client runs its own
+    servers, boot = [], None
+    try:
+        boot = loop.run(DHTNode.create(host="127.0.0.1"), LOOP_TIMEOUT_S)
+        peers = [boot.own_addr.to_string()]
+        for args in server_args:
+            server = build_server(build_parser().parse_args([
+                ckpt, "--host", "127.0.0.1", "--initial_peers", *peers, "--update_period", str(SWARM_UPDATE_PERIOD),
+                "--throughput", "auto", *args,
+            ]))
+            t0 = time.perf_counter()
+            loop.run(server.start(), LOOP_TIMEOUT_S)
+            servers.append(server)
+            log(f"{label}: server at [{server.first_block}, {server.first_block + server.num_blocks}) "
+                f"(--quant_type {server.quant_type}) started in {time.perf_counter() - t0:.1f} s")
+        if place_check is not None:
+            place_check(servers)
+        t0 = time.perf_counter()
+        model = AutoDistributedModelForCausalLM.from_pretrained(ckpt, initial_peers=peers)
+        torch.cuda.synchronize()
+        log(f"{label}: client loaded in {time.perf_counter() - t0:.1f} s on {model.device}: "
+            + ", ".join(f"{k} {tuple(v.shape)} {str(v.dtype).removeprefix('torch.')}"
+                        for k, v in model.client_params.items()))
+        if model.device.type != device.type or model.client_params["head"].dtype != torch.float32:
+            raise AssertionError(f"{label}: the client's parameters are not on the card, or its head is not float32")
+        try:
+            rec = ClientRecorder(model)
+            model.generate(torch.randint(0, model.cfg.vocab_size, (1, 64)).numpy(), max_new_tokens=2)  # warm-up
+            for record in (rec.sessions, rec.embed_s, rec.head_s, rec.ttft_s):
+                record.clear()
+            _reset_launch_counts()
+            streams = runs(model, rec)
+            launches = dict(_launch_counts(), K5=_quant_launches())
+        finally:
+            model.close()
+        return rec, streams, launches, [p for s in servers for p in s.backend.block_params]
+    finally:
+        for server in servers:
+            loop.run(server.shutdown(), LOOP_TIMEOUT_S)
+        if boot is not None:
+            loop.run(boot.shutdown(), LOOP_TIMEOUT_S)
+        loop.shutdown()
+
+
+def _quant_launches():
+    from petals_tpu_torch.ops import quant_matmul as qmm
+
+    return sum(qmm.quant_decode_matmul.launches.values()) + sum(qmm.quant_prefill_matmul.launches.values())
+
+
+def _client_timing_line(label, rec, session, smi):
+    decode_ms = [t * 1e3 for t in session["step_s"][1:]]
+    log(f"{label}: per-token round trip seen by the client (session.step, {len(decode_ms)} decode steps): "
+        f"median {statistics.median(decode_ms):.3f} ms, max {max(decode_ms):.3f} ms; prefill round trip "
+        f"{session['step_s'][0] * 1e3:.1f} ms; time to the first token {rec.ttft_s[0] * 1e3:.1f} ms; client embed "
+        f"{statistics.median(rec.embed_s) * 1e3:.3f} ms and head (norm, float32 product, logits to the host) "
+        f"{statistics.median(rec.head_s) * 1e3:.3f} ms a token (medians) ({smi})")
+
+
+def serve_client_and_check(ckpt, device, smi):
+    """Phase 13: the port client over a chain of two port servers."""
+    label = f"client (two port servers, bf16, {SPAN} Mistral-7B blocks)"
+    cut = cut_checkpoint(ckpt, os.path.join(ckpt, f"mistral-7b-{SPAN}-layers"), SPAN)
+
+    def placed(servers):
+        spans = [(s.first_block, s.num_blocks) for s in servers]
+        if spans != [(0, SWARM_HALF), (SWARM_HALF, SWARM_HALF)]:
+            raise AssertionError(f"{label}: the servers hold {spans}")
+
+    gen = torch.Generator().manual_seed(SEED + 13)
+
+    def ids(shape):
+        return torch.randint(0, MISTRAL_7B["vocab_size"], shape, generator=gen).numpy()
+
+    def runs(model, rec):
+        streams = []
+        prompt = ids((1, CLIENT_PROMPT))
+        out = model.generate(prompt, max_new_tokens=CLIENT_NEW)
+        streams.append((rec.sessions[-1], "greedy", out, CLIENT_PROMPT))
+        batch = ids((2, 64))
+        out = model.generate(batch, max_new_tokens=16)
+        streams.append((rec.sessions[-1], "greedy", out, 64))
+        prompt = ids((1, 64))
+        a = model.generate(prompt, max_new_tokens=16, **CLIENT_SAMPLING)
+        streams.append((rec.sessions[-1], "sampled", a, 64))
+        b = model.generate(prompt, max_new_tokens=16, **CLIENT_SAMPLING)
+        if not (a == b).all():
+            raise AssertionError(f"{label}: two seeded sampling runs gave different streams")
+        out = model.generate(prompt, max_new_tokens=8, num_beams=2)
+        streams.append((rec.sessions[-1], "beam", out, 64))
+        prompt = ids((1, 100))
+        with model.inference_session(max_length=256):
+            first = model.generate(prompt, max_new_tokens=8)
+            second = model.generate(first, max_new_tokens=8)
+        if not (second[:, : first.shape[1]] == first).all():
+            raise AssertionError(f"{label}: the chat session's second call does not extend the first")
+        streams.append((rec.sessions[-1], "greedy", second, 100))
+        log(f"{label}: streams: greedy {CLIENT_NEW} tokens of a {CLIENT_PROMPT}-token prompt, a batch of 2 "
+            f"(16 tokens), seeded sampling twice ({CLIENT_SAMPLING}; identical), 2-beam search (8 tokens), "
+            f"a two-call chat session (8 + 8 tokens)")
+        return streams
+
+    t0 = time.perf_counter()
+    rec, streams, launches, params = drive_client(
+        label, cut, device, smi, [("--first_block", "0", "--num_blocks", str(SWARM_HALF)), ("--num_blocks", str(SWARM_HALF))],
+        runs, place_check=placed,
+    )
+    _client_timing_line(label, rec, streams[0][0], smi)
+    log(f"{label}: launches during the client's runs {launches}")
+    if not (launches["K1"] > 0 and launches["K2"] > 0):
+        raise AssertionError(f"{label}: K1 or K2 never ran on the client's path ({launches})")
+    failed = check_client_streams(label, streams, params, cut, device)
+    if failed:
+        raise AssertionError("; ".join(failed))
+    log(f"{label}: phase done in {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
+def serve_qwen2_and_check(root, device, smi):
+    """Phase 14: Qwen2.5-7B's widths (group 7, q/k/v biases), 4 blocks."""
+    qdir = os.path.join(root, "qwen2.5-7b")
+    os.makedirs(qdir)
+    t0 = time.perf_counter()
+    write_checkpoint(qdir, device, QWEN2_5_7B, QWEN_SPAN)
+    log(f"checkpoint: {QWEN_SPAN} Qwen2.5-7B-shaped blocks and its client tensors written in "
+        f"{time.perf_counter() - t0:.1f} s")
+    counts = {}
+    for quant_type in ("none", "nf4a"):
+        server, launches = serve_and_check(
+            qdir, device, quant_type, QWEN_SPAN, SWARM_PROMPTS, SWARM_STEPS, SEED + 14, WARMUP_PROMPTS,
+        )
+        del server
+        free_card()
+        counts[quant_type] = launches
+    label = f"client (one port server, nf4a, {QWEN_SPAN} Qwen2.5-7B blocks)"
+    cut = cut_checkpoint(qdir, os.path.join(root, f"qwen2.5-7b-{QWEN_SPAN}-layers"), QWEN_SPAN)
+    gen = torch.Generator().manual_seed(SEED + 15)
+
+    def runs(model, rec):
+        prompt = torch.randint(0, QWEN2_5_7B["vocab_size"], (1, CLIENT_PROMPT), generator=gen).numpy()
+        out = model.generate(prompt, max_new_tokens=QWEN_NEW)
+        return [(rec.sessions[-1], "greedy", out, CLIENT_PROMPT)]
+
+    rec, streams, launches, params = drive_client(
+        label, cut, device, smi, [("--first_block", "0", "--num_blocks", str(QWEN_SPAN), "--quant_type", "nf4a")], runs,
+    )
+    _client_timing_line(label, rec, streams[0][0], smi)
+    log(f"{label}: launches during the client's run {launches}; served runs: bf16 K1 {counts['none']['K1']}, "
+        f"K2 {counts['none']['K2']}; nf4a K1 {counts['nf4a']['K1']}, K2 {counts['nf4a']['K2']}, K5 decode "
+        f"{counts['nf4a']['decode']}, K5 prefill {counts['nf4a']['prefill']} (group 7)")
+    if not (launches["K1"] > 0 and launches["K2"] > 0 and launches["K5"] > 0):
+        raise AssertionError(f"{label}: K1, K2 or K5 never ran on the client's path ({launches})")
+    failed = check_client_streams(label, streams, params, cut, device)
+    if failed:
+        raise AssertionError("; ".join(failed))
+    return counts, launches
+
+
 def free_card() -> None:
     """Free what a dropped server held on the card before the next one loads
     (its event-loop objects hold reference cycles, so collect them)."""
@@ -1753,10 +2216,19 @@ def main() -> int:
     timer = Timer(device)
     dec_case, pf_case = attention_cases(device)
     kernels = check_attention_kernels(device, timer, dec_case, pf_case)
+    # K1/K2 at Qwen2.5-7B's GQA group of 7 (28 query heads over 4), beside
+    # Mistral-7B's 4: the same cases, no long ones
+    for entry, g7 in zip(kernels, check_attention_kernels(device, timer, *attention_cases(device, 28, 4), long=False)):
+        entry["group_7"] = {k: g7[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms", "max_abs_err")}
     kv_kernels = [e for kind in KV_QUANT_KINDS for e in check_attention_kernels(device, timer, dec_case, pf_case, kind)]
     del dec_case, pf_case
     flash_kernel = check_flash_kernel(device, timer)
     quant_kernels = check_quant_kernels(device, timer)
+    # K5 nf4a at Qwen2.5-7B's projections (phase 14's nf4a server runs them)
+    for q in check_quant_kernels(device, timer, QWEN_QUANT_SHAPES, QWEN_QUANT_ROWS, ("nf4a",), QWEN_QUANT_REPORT,
+                                 time_all=False, model="Qwen2.5-7B"):
+        next(e for e in quant_kernels if e["name"] == q["name"])["qwen2_5_7b"] = {
+            k: q[k] for k in ("shape", "ms", "plain_ms", "library_ms", "bound_ms", "bound_by", "max_abs_err")}
     log(f"kernel phases done at {time.perf_counter() - t_start:.1f} s")
 
     os.makedirs(os.path.join(REPO, "build"), exist_ok=True)
@@ -1810,6 +2282,12 @@ def main() -> int:
         free_card()
         # the swarm: two port servers, placed through the DHT, as one chain
         serve_swarm_and_check(ckpt, device, smi)
+        free_card()
+        # the port's client over a chain of two port servers
+        serve_client_and_check(ckpt, device, smi)
+        free_card()
+        # Qwen2.5-7B's widths: served in bf16 and nf4a, then the client
+        serve_qwen2_and_check(ckpt, device, smi)
         free_card()
     flash_kernel["launches"] = private_launches["K4"]
     kernels[0]["launches"] = bf16_launches["K1"]

@@ -38,7 +38,7 @@ def block_apply(
     x = rms_norm(hidden_states, params["ln1"], cfg.rms_norm_eps)
     if "wqkv" in params:  # fused quantized serving (utils/convert_block.py _FUSE_GROUPS)
         qkv = mm(x, params["wqkv"])
-        if cfg.attention_bias:
+        if cfg.attention_bias or cfg.qkv_bias:
             qkv = qkv + params["bqkv"]
         q = qkv[..., : hq * d]
         k = qkv[..., hq * d : (hq + hkv) * d]
@@ -47,7 +47,7 @@ def block_apply(
         q = mm(x, params["wq"])
         k = mm(x, params["wk"])
         v = mm(x, params["wv"])
-        if cfg.attention_bias:
+        if cfg.attention_bias or cfg.qkv_bias:
             q = q + params["bq"]
             k = k + params["bk"]
             v = v + params["bv"]
@@ -112,9 +112,11 @@ def hf_to_block_params(tensors: dict, cfg: LlamaBlockConfig) -> dict:
         "wu": t("mlp.up_proj.weight"),
         "wd": t("mlp.down_proj.weight"),
     }
-    if cfg.attention_bias:
-        for ours, hf in (("bq", "q_proj"), ("bk", "k_proj"), ("bv", "v_proj"), ("bo", "o_proj")):
+    if cfg.attention_bias or cfg.qkv_bias:
+        for ours, hf in (("bq", "q_proj"), ("bk", "k_proj"), ("bv", "v_proj")):
             params[ours] = tensors[f"self_attn.{hf}.bias"]
+    if cfg.attention_bias:  # qwen2's o_proj has none
+        params["bo"] = tensors["self_attn.o_proj.bias"]
     if cfg.mlp_bias:
         for ours, hf in (("bg", "gate_proj"), ("bu", "up_proj"), ("bd", "down_proj")):
             params[ours] = tensors[f"mlp.{hf}.bias"]
@@ -131,8 +133,10 @@ def block_param_shapes(cfg: LlamaBlockConfig, dtype=torch.bfloat16) -> dict:
         "ln1": (h,), "wq": (h, hq * d), "wk": (h, hkv * d), "wv": (h, hkv * d),
         "wo": (hq * d, h), "ln2": (h,), "wg": (h, m), "wu": (h, m), "wd": (m, h),
     }
+    if cfg.attention_bias or cfg.qkv_bias:
+        shapes.update(bq=(hq * d,), bk=(hkv * d,), bv=(hkv * d,))
     if cfg.attention_bias:
-        shapes.update(bq=(hq * d,), bk=(hkv * d,), bv=(hkv * d,), bo=(h,))
+        shapes.update(bo=(h,))
     if cfg.mlp_bias:
         shapes.update(bg=(m,), bu=(m,), bd=(h,))
     return {name: torch.empty(shape, dtype=dtype, device="meta") for name, shape in shapes.items()}

@@ -1,5 +1,5 @@
 """Llama family block config (the fields of petals_tpu/models/llama/config.py
-that the llama and mistral families use)."""
+that the llama, mistral and qwen2 families use)."""
 
 from __future__ import annotations
 
@@ -22,6 +22,7 @@ class LlamaBlockConfig:
     # rope_scaling as a hashable tuple of (key, value) pairs, or None
     rope_scaling: Optional[Tuple[Tuple[str, object], ...]] = None
     attention_bias: bool = False  # bias on q, k, v AND o (HF llama convention)
+    qkv_bias: bool = False  # bias on q, k, v only (HF qwen2 convention)
     mlp_bias: bool = False
     # all-layer sliding window (HF mistral convention); None = full attention
     sliding_window: Optional[int] = None

@@ -1,12 +1,13 @@
 """Mistral family: the llama block with an all-layer sliding attention window
-taken from the checkpoint (``sliding_window: null`` degrades to llama)."""
+taken from the checkpoint (``sliding_window: null`` degrades to llama), and
+llama's client mapping."""
 
 from __future__ import annotations
 
 import dataclasses
 
-from petals_tpu_torch.models.llama.block import FAMILY as LLAMA_FAMILY
 from petals_tpu_torch.models.llama.config import LlamaBlockConfig
+from petals_tpu_torch.models.llama.model import FAMILY as LLAMA_FAMILY
 from petals_tpu_torch.models.registry import register_family
 
 

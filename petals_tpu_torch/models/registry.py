@@ -3,14 +3,15 @@
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, Dict
+from typing import Any, Callable, Dict, Optional
 
 _FAMILIES: Dict[str, "ModelFamily"] = {}
 
 
 @dataclasses.dataclass(frozen=True)
 class ModelFamily:
-    """What the server needs to load and run one model family's blocks."""
+    """What the server needs to load and run one model family's blocks, and
+    what the client needs for its embeddings, final norm and head."""
 
     name: str  # HF model_type, e.g. "llama"
     config_from_hf: Callable[[Any], Any]  # config.json namespace -> block config
@@ -22,6 +23,13 @@ class ModelFamily:
     # dataclasses.replace (mistral over llama) inherit it, so tables keyed
     # by architecture (utils/convert_block.py) resolve for them too
     block_arch: str = ""
+    # client side (embeddings + final norm + LM head), filled by model.py
+    # modules; server-only code never reads them
+    hf_client_prefixes: tuple = ()  # checkpoint prefixes of client-held tensors
+    hf_to_client_params: Optional[Callable] = None  # (dict of full names, cfg) -> params dict
+    client_embed: Optional[Callable] = None  # (params, input_ids, cfg) -> hidden
+    client_head: Optional[Callable] = None  # (params, hidden, cfg) -> float32 logits
+    client_norm: Optional[Callable] = None  # (params, hidden, cfg) -> final-norm'd hidden
 
 
 def register_family(family: ModelFamily) -> ModelFamily:

@@ -54,6 +54,16 @@ class StreamCall:
             raise item
         return item
 
+    async def cancel(self) -> None:
+        """Stop the server's handler of this stream and forget the stream."""
+        if not self._closed:
+            self._closed = True
+            try:
+                await self._client._send({"t": "cancel", "id": self._call_id})
+            except (ConnectionError, RpcError):
+                pass
+        self._client._streams.pop(self._call_id, None)
+
     def __aiter__(self) -> AsyncIterator[Any]:
         return self
 

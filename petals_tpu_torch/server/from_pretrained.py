@@ -45,9 +45,10 @@ def _index_weight_files(path: str) -> Dict[str, str]:
     raise FileNotFoundError(f"No safetensors weights in {path}")
 
 
-def load_tensors_with_prefixes(path: str, prefixes: tuple) -> Dict[str, torch.Tensor]:
+def load_tensors_with_prefixes(path: str, prefixes: tuple, *, keep_full_names: bool = False) -> Dict[str, torch.Tensor]:
     """CPU tensors whose name starts with one of ``prefixes``, keyed by the
-    name relative to that prefix; each weight file is read at most once."""
+    name relative to that prefix (``keep_full_names``: by the full name, as
+    the client's mappings read them); each weight file is read at most once."""
     weight_map = _index_weight_files(path)
 
     def match(name: str) -> Optional[str]:
@@ -66,7 +67,7 @@ def load_tensors_with_prefixes(path: str, prefixes: tuple) -> Dict[str, torch.Te
             os.path.join(path, fname), select=lambda name: match(name) is not None
         )
         for name, tensor in tensors.items():
-            out[match(name)] = tensor
+            out[name if keep_full_names else match(name)] = tensor
     return out
 
 

@@ -1,8 +1,10 @@
 """Carry a block's parameters from numpy (as the JAX package's
 ``hf_to_block_params`` returns them: weights [in, out]) into the port's
 tensors, keeping the layout. A quantized weight crosses as its numpy pieces
-(``quant_leaf_from_numpy``) and rides beside the dense arrays. The tests
-feed both packages the same weights through these."""
+(``quant_leaf_from_numpy``) and rides beside the dense arrays. The JAX
+client's embeddings, norm and head cross through
+``client_params_from_numpy``. The tests feed both packages the same weights
+through these."""
 
 from __future__ import annotations
 
@@ -92,3 +94,12 @@ def dense_cache_from_numpy(kv, device, dtype: Optional[torch.dtype] = None):
     the same way."""
     k_stack, v_stack = kv
     return tensor_from_numpy(k_stack, device, dtype), tensor_from_numpy(v_stack, device, dtype)
+
+
+def client_params_from_numpy(params: Dict[str, np.ndarray], device, dtype: torch.dtype = torch.float32) -> Dict[str, torch.Tensor]:
+    """The JAX client's parameters (``{"embed", "norm", "head"}`` numpy
+    arrays, the head [hidden, vocab]) as the port client holds them: floating
+    leaves in ``dtype``, the head in float32 (client/from_pretrained.py)."""
+    from petals_tpu_torch.client.from_pretrained import cast_client_params
+
+    return cast_client_params({name: tensor_from_numpy(arr, "cpu", None) for name, arr in params.items()}, device, dtype)

@@ -1,7 +1,7 @@
 """Where a decode step through a chain of two port servers spends its time,
 on one NVIDIA GPU.
 
-    python3 scripts/time_swarm_chain.py
+    python3 scripts/time_swarm_chain.py [--only SUBSTRING]
 
 Serves chip_smoke.py's 8 Mistral-7B-shaped bf16 blocks (random weights from
 its seed) as phase 12 does: a port DHT bootstrap on 127.0.0.1, server A on
@@ -22,6 +22,19 @@ the steps ran:
 - ``two processes``: A and B each in a process of its own
   (``python -m petals_tpu_torch.cli.run_server``), announce every 3600 s,
   with two sessions and then one.
+
+Then the port's own client (``petals_tpu_torch.client``) generates
+CLIENT_NEW greedy tokens from chip_smoke.py's 300-token prompt over the same
+chain, on a sibling of the checkpoint whose config says 8 layers, with the
+servers announcing every 2 s as in the smoke:
+
+- ``port client, one process``: chip_smoke.py phase 13's layout (both
+  servers on a loop thread of this process, the client on its own);
+- ``port client, two processes``: A and B each in a process of its own.
+
+For these it prints the per-token round trip the client sees (median,
+max), the time to the first token and the client's embed and head time a
+token. ``--only`` runs the settings whose name holds the substring.
 
 First it times one signature and one check of a 512-byte message with the
 Ed25519 the identity uses (``cryptography`` where it is installed) and with
@@ -61,6 +74,12 @@ SETTINGS = (
     ("two processes, announce 3600 s, 2 sessions", True, 3600.0, smoke.SWARM_PROMPTS),
     ("two processes, announce 3600 s, 1 session", True, 3600.0, smoke.SWARM_PROMPTS[:1]),
 )
+CLIENT_SETTINGS = (
+    # (name, servers in their own processes)
+    ("port client, one process", False),
+    ("port client, two processes", True),
+)
+CLIENT_NEW = 64
 SIGNATURE_REPS = 20
 START_TIMEOUT_S = 300.0
 
@@ -113,7 +132,43 @@ def time_signatures() -> dict:
 
 def server_args(ckpt, peers, period, first):
     return [ckpt, "--host", "127.0.0.1", "--initial_peers", *peers, "--update_period", str(period),
-            "--throughput", "1", "--first_block", str(first), "--num_blocks", str(HALF)]
+            "--throughput", "1", *span_args(first)]
+
+
+def span_args(first):
+    return ["--first_block", str(first), "--num_blocks", str(HALF)]
+
+
+def start_server_processes(ckpt, peers, period, log_dir):
+    """A and B, each ``python -m petals_tpu_torch.cli.run_server`` in a
+    process of its own; returns once each has printed its address."""
+    env = dict(os.environ, PYTHONPATH=REPO)
+    procs = []
+    for first in (0, HALF):
+        err = open(os.path.join(log_dir, f"server-{first}.log"), "w")
+        procs.append(subprocess.Popen(
+            [sys.executable, "-m", "petals_tpu_torch.cli.run_server", *server_args(ckpt, peers, period, first)],
+            cwd=REPO, env=env, stdout=subprocess.PIPE, stderr=err, text=True,
+        ))
+    return procs
+
+
+async def wait_for_servers(procs, log_dir):
+    for proc in procs:  # each prints its address once it serves
+        line = await asyncio.wait_for(asyncio.to_thread(proc.stdout.readline), START_TIMEOUT_S)
+        if not line:
+            raise AssertionError(f"a server process exited with {proc.wait()} (logs in {log_dir})")
+
+
+def stop_server_processes(procs):
+    for proc in procs:
+        proc.send_signal(signal.SIGTERM)
+    for proc in procs:
+        try:
+            proc.wait(timeout=60)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
 
 
 async def connect_chain(peers, prefix, pool):
@@ -232,36 +287,86 @@ async def two_processes(ckpt, period, prompts, counts, log_dir):
     boot = await DHTNode.create(host="127.0.0.1")
     peers = [boot.own_addr.to_string()]
     pool, procs = ConnectionPool(identity=Identity.generate()), []
-    env = dict(os.environ, PYTHONPATH=REPO)
     try:
-        for first in (0, HALF):
-            err = open(os.path.join(log_dir, f"server-{first}.log"), "w")
-            procs.append(subprocess.Popen(
-                [sys.executable, "-m", "petals_tpu_torch.cli.run_server", *server_args(ckpt, peers, period, first)],
-                cwd=REPO, env=env, stdout=subprocess.PIPE, stderr=err, text=True,
-            ))
-        for proc in procs:  # each prints its address once it serves
-            line = await asyncio.wait_for(asyncio.to_thread(proc.stdout.readline), START_TIMEOUT_S)
-            if not line:
-                raise AssertionError(f"a server process exited with {proc.wait()} (logs in {log_dir})")
+        procs = start_server_processes(ckpt, peers, period, log_dir)
+        await wait_for_servers(procs, log_dir)
         chain = await connect_chain(peers, default_dht_prefix(ckpt), pool)
         from petals_tpu_torch.server.from_pretrained import get_block_config
 
         return await timed_run(chain, prompts, counts, get_block_config(ckpt)[1].hidden_size)
     finally:
         await pool.close()
-        for proc in procs:
-            proc.send_signal(signal.SIGTERM)
-        for proc in procs:
-            try:
-                proc.wait(timeout=60)
-            except subprocess.TimeoutExpired:
-                proc.kill()
-                proc.wait()
+        stop_server_processes(procs)
         await boot.shutdown()
 
 
+def client_generate(model, rec):
+    """CLIENT_NEW greedy tokens from a seeded CLIENT_PROMPT-token prompt,
+    checked for its length; the recorded session's numbers."""
+    gen = torch.Generator().manual_seed(smoke.SEED + 13)
+    prompt = torch.randint(0, model.cfg.vocab_size, (1, smoke.CLIENT_PROMPT), generator=gen).numpy()
+    out = model.generate(prompt, max_new_tokens=CLIENT_NEW)
+    if out.shape != (1, smoke.CLIENT_PROMPT + CLIENT_NEW):
+        raise AssertionError(f"the client generated {out.shape}")
+    return [(rec.sessions[-1], "greedy", out, smoke.CLIENT_PROMPT)]
+
+
+def client_numbers(rec, streams):
+    ms = lambda xs: [x * 1e3 for x in xs]  # noqa: E731
+    trips = ms(streams[0][0]["step_s"][1:])
+    return {
+        "decode_round_trip_ms": {"median": statistics.median(trips), "max": max(trips), "n": len(trips)},
+        "ttft_ms": rec.ttft_s[0] * 1e3,
+        "embed_ms_median": statistics.median(ms(rec.embed_s)),
+        "head_ms_median": statistics.median(ms(rec.head_s)),
+    }
+
+
+def client_two_processes(ckpt, device, smi, log_dir):
+    """The port client in this process, A and B in processes of their own."""
+    from petals_tpu_torch.client import AutoDistributedModelForCausalLM
+    from petals_tpu_torch.client.runtime import SwarmRuntime
+    from petals_tpu_torch.dht import DHTNode, Identity
+    from petals_tpu_torch.rpc.pool import ConnectionPool
+    from petals_tpu_torch.server.server import default_dht_prefix
+
+    loop = SwarmRuntime()  # the bootstrap's loop; the client runs its own
+    boot, procs = None, []
+    try:
+        boot = loop.run(DHTNode.create(host="127.0.0.1"), smoke.LOOP_TIMEOUT_S)
+        peers = [boot.own_addr.to_string()]
+        procs = start_server_processes(ckpt, peers, smoke.SWARM_UPDATE_PERIOD, log_dir)
+        pool = ConnectionPool(identity=Identity.generate())
+        try:
+            loop.run(wait_for_servers(procs, log_dir), START_TIMEOUT_S + 60)
+            loop.run(connect_chain(peers, default_dht_prefix(ckpt), pool), START_TIMEOUT_S + 60)
+        finally:
+            loop.run(pool.close(), smoke.LOOP_TIMEOUT_S)
+        model = AutoDistributedModelForCausalLM.from_pretrained(ckpt, initial_peers=peers, device=device)
+        try:
+            rec = smoke.ClientRecorder(model)
+            # a warm-up at the measured prompt's length: a fresh server
+            # process pays its first-call costs (cuBLAS plans, module loads)
+            # on the first chunk of each shape
+            model.generate(torch.randint(0, model.cfg.vocab_size, (1, smoke.CLIENT_PROMPT)).numpy(), max_new_tokens=2)
+            for record in (rec.sessions, rec.embed_s, rec.head_s, rec.ttft_s):
+                record.clear()
+            return client_numbers(rec, client_generate(model, rec))
+        finally:
+            model.close()
+    finally:
+        stop_server_processes(procs)
+        if boot is not None:
+            loop.run(boot.shutdown(), smoke.LOOP_TIMEOUT_S)
+        loop.shutdown()
+
+
 def main() -> int:
+    import argparse
+
+    parser = argparse.ArgumentParser()
+    parser.add_argument("--only", default="", help="run only the settings whose name holds this substring")
+    only = parser.parse_args().only
     if not torch.cuda.is_available():
         print("time_swarm_chain: no CUDA device available", file=sys.stderr)
         return 2
@@ -284,6 +389,8 @@ def main() -> int:
         smoke.write_checkpoint(ckpt, device)
         log_dir = tempfile.mkdtemp(prefix="chain-logs-", dir=os.path.join(REPO, "build"))
         for name, separate, period, prompts in SETTINGS:
+            if only not in name:
+                continue
             t0 = time.perf_counter()
             if separate:
                 result = asyncio.run(two_processes(ckpt, period, prompts, counts, log_dir))
@@ -298,6 +405,25 @@ def main() -> int:
                 f"{result.get('max_batch', 'not read')}; signatures in this process over the "
                 f"{result['window_s']:.2f} s of steps {result['signatures_in_window']} ({smi}); "
                 f"setting done in {time.perf_counter() - t0:.1f} s")
+            results[name] = result
+        cut = smoke.cut_checkpoint(ckpt, os.path.join(ckpt, f"mistral-7b-{smoke.SPAN}-layers"), smoke.SPAN)
+        for name, separate in CLIENT_SETTINGS:
+            if only not in name:
+                continue
+            t0 = time.perf_counter()
+            if separate:
+                result = client_two_processes(cut, device, smi, log_dir)
+            else:
+                rec, streams, _, _ = smoke.drive_client(name, cut, device, smi, [span_args(0), span_args(HALF)],
+                                                        client_generate)
+                result = client_numbers(rec, streams)
+            smoke.free_card()
+            trip = result["decode_round_trip_ms"]
+            smoke.log(
+                f"{name}: per-token round trip the client sees median {trip['median']:.3f} ms, max "
+                f"{trip['max']:.3f} ms over {trip['n']} steps; time to the first token {result['ttft_ms']:.1f} ms; "
+                f"client embed {result['embed_ms_median']:.3f} ms, head {result['head_ms_median']:.3f} ms a token "
+                f"({smi}); setting done in {time.perf_counter() - t0:.1f} s")
             results[name] = result
     smoke.log(json.dumps({"device": smi, "signatures": signatures, "settings": results}))
     return 0

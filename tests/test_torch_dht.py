@@ -421,7 +421,8 @@ def test_ping_smoothing_equals_petals_tpu():
         rtt = math.inf if rng.rand() < 0.1 else float(rng.uniform(1e-4, 1e-2))
         jp._update(JaxPeerID(raw), rtt, 1000.0 + step)
         pp._update(PeerID(raw), rtt, 1000.0 + step)
-    # petals_tpu keeps (rtt, jitter, expiry); the port (rtt, expiry)
-    assert {k.to_string(): (v[0], v[2]) for k, v in jp._rtts.items()} == {
+    # both keep (rtt, jitter, expiry), and estimate the same jitter
+    assert {k.to_string(): v for k, v in jp._rtts.items()} == {
         k.to_string(): v for k, v in pp._rtts.items()
     }
+    assert pp.noise_s() == jp.noise_s()

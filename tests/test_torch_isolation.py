@@ -27,6 +27,12 @@ def test_importing_every_module_loads_no_jax():
             importlib.import_module(name)
         bad = sorted(k for k in sys.modules if k == "jax" or k.startswith("jax.")
                      or k == "petals_tpu" or k.startswith("petals_tpu."))
+        client = {"petals_tpu_torch.client." + m for m in (
+            "config", "runtime", "inference_session", "remote_sequential", "remote_generation",
+            "from_pretrained", "model", "routing.sequence_manager", "routing.sequence_info",
+            "routing.spending_policy")} | {"petals_tpu_torch.models.client_common",
+            "petals_tpu_torch.models.llama.model", "petals_tpu_torch.models.qwen2"}
+        assert client <= set(names), sorted(client - set(names))  # the client is walked
         print(len(names), bad)
         assert not bad, bad
         """
@@ -79,6 +85,14 @@ def test_entry_points_need_cuda_unless_asked_for_cpu(tmp_path):
         Server(str(tmp_path), first_block=0, num_blocks=1)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         load_block_params(str(tmp_path), 0)
+    # the client: its parameters go to the card unless the caller asks for the CPU
+    from petals_tpu_torch.client import AutoDistributedModelForCausalLM
+    from petals_tpu_torch.client.from_pretrained import load_client_params
+
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        AutoDistributedModelForCausalLM.from_pretrained(str(tmp_path), initial_peers=[])
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        load_client_params(str(tmp_path))
 
 
 def test_flash_attention_never_falls_back_off_the_cpu():
