@@ -21,8 +21,11 @@
      lanes at 1000 on tables of 8192 (short lanes on wide tables), each
      against its plain version and timed beside gather + SDPA and the
      bound. Each decode entry reports library_factor = kernel / library.
-   - K2 chunked prefill (bf16: paged_prefill_wgmma_kernel): a 512-row
-     chunk at position 0 and its 188-row continuation at 512, then the long
+   - K2 chunked prefill (bf16: paged_prefill_wgmma_kernel), its chunk
+     position and length passed as int32 scalars on the card (as the
+     served step passes them, so a graph replays one launch for any
+     position): a 512-row chunk at position 0 and its 188-row continuation
+     at 512, then the long
      chunks of LONG_PREFILL, 512 rows at 3584 on a 4096-token table and at
      4608 on an 8192-token table (Mistral's window), three pages inside each
      visible range holes; each timed beside gather + SDPA with a mask that
@@ -61,17 +64,24 @@
    the reference's dense caches with the same tolerance, so a lost or
    misplaced write fails even where it moves the replies by less than bf16
    noise. The kernels' launch counters must show both kernels ran on every
-   block of every step of the measured run.
-4. Profile: where a step's time goes. The served span's backend runs a
-   paged decode step and a mixed step carrying a 512-token chunk directly
-   (no RPC) at 4 lanes; for each, the host wall (median, launch to
-   synchronize), and from torch.profiler over PROFILE_CALLS further calls
-   the device busy time, the kernel launches and the top operations, with
-   the idle share 1 - busy / wall of those same calls, and each of the
-   port's kernels' device time a call and share of the busy time (K1 or
-   K3's decode arm is paged_decode_kernel, K2 or K3's prefill arm
-   paged_prefill_wgmma_kernel; the decode step's launch count shows the
-   split merge adds none).
+   block of every step of the measured run. The server's paged steps are
+   step programs: the batcher captures them as CUDA graphs when its pool
+   opens, and its stats must show every batched step of the run a replay
+   and no capture after warm-up (check_graph_stats, in every served paged
+   run of phases 3, 6-8 and 12-14; the launch counters count each replay's
+   kernels).
+4. Profile: where a step's time goes. A sibling of the served span's
+   backend (its weights, step programs of its own) runs a paged decode step
+   and a mixed step carrying a 512-token chunk directly (no RPC) at 4
+   lanes, each two ways: the eager block loop and the replayed step
+   program; for each, the host wall (median, launch to synchronize) and
+   the device span (CUDA events around the same calls), and from
+   torch.profiler over PROFILE_CALLS further calls the device busy time,
+   the kernel and graph launches and the top operations, with the idle
+   share 1 - busy / wall of those same calls (and of the device span), and
+   each of the port's kernels' device time a call and share of the busy
+   time (K1 or K3's decode arm is paged_decode_kernel, K2 or K3's prefill
+   arm paged_prefill_wgmma_kernel).
 5. Dequant-matmul kernels (K5: nf4, nf4a, int4; K6: int8) at the four
    projections of a Mistral-7B block as the port serves them, wqkv [4096,
    6144], wo [4096, 4096], gate+up [4096, 28672] and down [14336, 4096], at
@@ -199,6 +209,23 @@
    phase 13, and K1, K2 and K5 must have run on its path. (K1/K2 at group 7
    are held to their plain versions and timed beside Mistral's shapes right
    after phase 2; the kernels line carries them as "group_7".)
+15. Step programs against the eager loop (check_step_programs, right after
+   phase 3 for the bf16 weights with a bf16, int8 and nf4a pool, after phase
+   6 for nf4a weights, after each 2-block run of phase 7): on a sibling
+   backend, seeded pools at 4 lanes on 1024-token tables, two decode steps
+   and mixed steps at STEP_CHUNKS (buckets 8, 64 and 512 captured, then
+   300 tokens padded to 512 and 5 padded to 8, which replay those graphs at
+   another lane, position and real length), each replayed and run through
+   the eager block loop (the same padded chunk and device scalars) on a
+   clone of the pools. Every output row and every pool byte must be
+   bit-equal (the prefilling lane's decode row, at the sentinel, is left
+   out only on the step that captures its bucket); 4 captures and a replay
+   a step. Beside the 8-block bf16 and nf4a runs, measure_graph_pool reads
+   the memory the step programs keep reserved (warmed as the served
+   batcher warms them, and up to the last prefill bucket) beside the eager
+   paths' peaks, and fails if they pass the reserve choose_num_blocks
+   leaves. At the end the observatory's digest must count no capture after
+   warm-up.
 
 float32 matmuls run in full float32: TF32 is switched off for matmuls and
 convolutions. Exits non-zero on any failure. The last line is the JSON
@@ -377,6 +404,11 @@ PROFILE_LANES = 4
 PROFILE_REPS = 20  # unprofiled calls for the median host wall
 PROFILE_CALLS = 5  # calls inside the profiler
 PROFILE_CHUNK = 512
+# phase 15: mixed steps replayed against the eager loop, (chunk length,
+# chunk lane, chunk position): buckets 8, 64 and 512 captured, then 300
+# tokens padded to 512 and 5 padded to 8 replay those graphs at another
+# lane, position and real length
+STEP_CHUNKS = ((8, 0, 128), (64, 1, 200), (512, 2, 64), (300, 3, 600), (5, 1, 700))
 # the port's kernels, by the name each has in a profile
 PORT_KERNELS = ("paged_decode_kernel", "paged_prefill_wgmma_kernel", "paged_prefill_kernel", "flash_attention_kernel",
                 "flash_wgmma_kernel", "quant_decode_ring_kernel", "quant_prefill_kernel", "split_reduce_kernel")
@@ -676,7 +708,9 @@ def check_attention_kernels(device, timer, dec, pf, kind="none", long=True):
     pf_err = 0.0
     for chunk_pos, qc in pf["chunks"].items():
         n = qc.shape[1]
-        got = pfa.paged_flash_prefill_attend(qc, kp2, vp2, table_row, chunk_pos, n, sliding_window=window)
+        # chunk_pos and n_valid as the served step passes them: on the card
+        cp, nv = pfa.chunk_scalars(chunk_pos, n, device)
+        got = pfa.paged_flash_prefill_attend(qc, kp2, vp2, table_row, cp, nv, sliding_window=window)
         torch.cuda.synchronize()
         want = paged_prefill_attend(
             qc.float(), plain_pool(kp2), plain_pool(vp2), table_row, chunk_pos, n, sliding_window=window
@@ -684,6 +718,7 @@ def check_attention_kernels(device, timer, dec, pf, kind="none", long=True):
         pf_err = max(pf_err, check_rows(f"{names[1]}, chunk_pos={chunk_pos}, {n} rows", got, want, rel_tol))
     qc, qc2 = pf["chunks"][0], pf["chunks"][512]
     n = qc.shape[1]
+    at0, at512 = pfa.chunk_scalars(0, n, device), pfa.chunk_scalars(512, 188, device)
     seen, pairs = _prefill_work(table_row, kp2.shape[0], 0, n, window)
     pf_bytes = 2 * seen * side_bytes + 2 * qc.numel() * 2 + table_row.numel() * 4
     pf_bound, pf_by = bound_ms(pf_bytes, 4 * hq * d * pairs)
@@ -692,13 +727,13 @@ def check_attention_kernels(device, timer, dec, pf, kind="none", long=True):
         "source": "petals_tpu_torch/csrc/paged_attention.cu",
         "replaces": f"petals_tpu/ops/paged_flash_attention.py:{where[1]}",
         "max_abs_err": pf_err,
-        "ms": timer(lambda: pfa.paged_flash_prefill_attend(qc, kp2, vp2, table_row, 0, n, sliding_window=window)),
+        "ms": timer(lambda: pfa.paged_flash_prefill_attend(qc, kp2, vp2, table_row, *at0, sliding_window=window)),
         "plain_ms": timer(lambda: paged_prefill_attend(qc, kp2, vp2, table_row, 0, n, sliding_window=window)),
         "bound_ms": pf_bound, "bound_by": pf_by,
         "library_ms": timer(lambda: _library_prefill(kp2, vp2, table_row, qc, 0, window)),
     }
     prefill["library_factor"] = prefill["ms"] / prefill["library_ms"]
-    cont_ms = timer(lambda: pfa.paged_flash_prefill_attend(qc2, kp2, vp2, table_row, 512, 188, sliding_window=window))
+    cont_ms = timer(lambda: pfa.paged_flash_prefill_attend(qc2, kp2, vp2, table_row, *at512, sliding_window=window))
     cont_lib_ms = timer(lambda: _library_prefill(kp2, vp2, table_row, qc2, 512, window))
     log(f"{names[1]} at a 512-row chunk: {prefill['ms']:.4f} ms kernel, {prefill['plain_ms']:.4f} ms plain, "
         f"{prefill['library_ms']:.4f} ms gather+SDPA (kernel {prefill['library_factor']:.3f}x), "
@@ -781,7 +816,8 @@ def check_long_prefill(device, timer, kind, chunk_pos, table_tokens):
     hq, d, n = q.shape[2], q.shape[3], q.shape[1]
     name = "K2" if kind == "none" else f"K3 {kind} prefill"
     label = f"{name} at {n} rows x position {chunk_pos}, tables of {table_tokens}"
-    got = pfa.paged_flash_prefill_attend(q, kp, vp, table_row, chunk_pos, n, sliding_window=window)
+    scalars = pfa.chunk_scalars(chunk_pos, n, device)  # on the card, as the served step passes them
+    got = pfa.paged_flash_prefill_attend(q, kp, vp, table_row, *scalars, sliding_window=window)
     torch.cuda.synchronize()
     plain = (kp.float(), vp.float()) if kind == "none" else (kp, vp)
     want = paged_prefill_attend(q.float(), *plain, table_row, chunk_pos, n, sliding_window=window)
@@ -793,7 +829,7 @@ def check_long_prefill(device, timer, kind, chunk_pos, table_tokens):
     bound, by = bound_ms(nbytes, 4 * hq * d * pairs)
     entry = {
         "position": chunk_pos, "rows": n, "table_tokens": table_tokens, "max_abs_err": err,
-        "ms": timer(lambda: pfa.paged_flash_prefill_attend(q, kp, vp, table_row, chunk_pos, n, sliding_window=window)),
+        "ms": timer(lambda: pfa.paged_flash_prefill_attend(q, kp, vp, table_row, *scalars, sliding_window=window)),
         "library_ms": timer(lambda: _library_prefill(kp, vp, table_row, q, chunk_pos, window)),
         "bound_ms": bound, "bound_by": by,
     }
@@ -1303,45 +1339,233 @@ def check_session(got, kv, ref_bf16, ref_f32, label, kv_quant="none"):
     return failed
 
 
-def profile_steps(backend, device) -> None:
-    """Where a step's time goes, on the served span's backend called directly
-    (no RPC): a paged decode step at PROFILE_LANES lanes and a mixed step
-    that also carries a PROFILE_CHUNK-token chunk, on fresh random pools."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+def sibling_backend(backend, kv_quant_type=None):
+    """A backend over ``backend``'s own block parameters (no copy), with
+    step programs of its own, for work off the served path: its captures
+    do not run up the served backend's call counts, so the served programs'
+    warm-up stays what serving made it."""
+    from petals_tpu_torch.server.backend import TransformerBackend
 
-    cfg, ps, max_len = backend.cfg, PAGE, 1024
-    max_pages = max_len // ps
+    return TransformerBackend(
+        backend.family, backend.cfg, backend.block_params, first_block=backend.first_block,
+        n_blocks=backend.n_blocks, device=backend.device, compute_dtype=backend.compute_dtype,
+        quant_type=backend.quant_type, kv_quant_type=kv_quant_type or backend.kv_quant_type,
+    )
+
+
+def _random_pools(backend, device, n_pages, seed):
+    """Seeded random bf16 span pools [n_blocks, n_pages, PAGE, hkv, d],
+    quantized on the card to the backend's pool kind."""
     from petals_tpu_torch.ops.paged_attention import PagedPool, quantize_kv_rows
 
-    gen = torch.Generator(device=device).manual_seed(SEED + 6)
-    shape = (backend.n_blocks, PROFILE_LANES * max_pages, ps, cfg.num_key_value_heads, cfg.head_dim)
+    cfg = backend.cfg
+    gen = torch.Generator(device=device).manual_seed(seed)
+    shape = (backend.n_blocks, n_pages, PAGE, cfg.num_key_value_heads, cfg.head_dim)
     pools = tuple(torch.randn(shape, generator=gen, device=device).to(torch.bfloat16) for _ in range(2))
     if backend.kv_quant_type != "none":
         pools = tuple(PagedPool(*quantize_kv_rows(p, backend.kv_quant_type)) for p in pools)
+    return pools
+
+
+def _pool_tensors(pools):
+    from petals_tpu_torch.ops.paged_attention import PagedPool
+
+    return [t for p in pools for t in (p if isinstance(p, PagedPool) else (p,))]
+
+
+def _clone_pools(pools):
+    from petals_tpu_torch.ops.paged_attention import PagedPool
+
+    return tuple(PagedPool(p.codes.clone(), p.scales.clone()) if isinstance(p, PagedPool) else p.clone()
+                 for p in pools)
+
+
+def check_step_programs(backend, device, label) -> dict:
+    """The step programs against the eager block loop (phase 15): on a
+    sibling of the served backend (its weights, its pool kind), two decode
+    steps and mixed steps at STEP_CHUNKS (buckets 8, 64 and 512 captured,
+    then a 300-token chunk padded to 512 and a 5-token chunk padded to 8,
+    which replay those graphs at another lane, position and real length),
+    PROFILE_LANES lanes on 1024-token tables; the replayed steps on one copy
+    of seeded pools, the eager loop (the same padded chunk, the same device
+    scalars) on a clone. Every output row and every pool byte must be
+    bit-equal after each step, with one exception: on the step that
+    captures a bucket, the prefilling lane's decode row (at the idle
+    sentinel, read by no caller) is left out, because the capture's warm-up
+    has run the step once already, so that row's attention, which covers
+    the lane's whole table, sees the chunk's rows written. On a replay of a
+    bucket that row is held bit-equal as well."""
+    from petals_tpu_torch.server.backend import bucket_length
+
+    sib = sibling_backend(backend)
+    cfg, max_pages = sib.cfg, 1024 // PAGE
+    replayed = _random_pools(sib, device, PROFILE_LANES * max_pages, SEED + 7)
+    eager = _clone_pools(replayed)
+    tables = torch.arange(PROFILE_LANES * max_pages, dtype=torch.int32).reshape(PROFILE_LANES, max_pages)
+    positions = torch.tensor([64, 362, 661, 960], dtype=torch.int32)[:PROFILE_LANES]
+    gen = torch.Generator().manual_seed(SEED + 8)
+    steps = [None, None] + list(STEP_CHUNKS)
+    captured, sentinel_checked = set(), 0
+    for i, step in enumerate(steps):
+        hidden = torch.randn(PROFILE_LANES, 1, cfg.hidden_size, generator=gen)
+        h_dev = hidden.to(torch.bfloat16).to(device)
+        if step is None:
+            got = sib.paged_decode_step(hidden, replayed, positions, tables)[:1]
+            want = sib._paged_decode_eager(h_dev, eager, positions.to(device), tables.to(device))[:1]
+            what = "decode"
+        else:
+            seq, lane, chunk_pos = step
+            bucket = bucket_length(seq)
+            chunk = torch.randn(1, seq, cfg.hidden_size, generator=gen)
+            mixed = positions.clone()
+            mixed[lane] = max_pages * PAGE  # the chunk's lane: its decode row idles
+            padded = torch.zeros(1, bucket, cfg.hidden_size, dtype=torch.bfloat16)
+            padded[:, :seq] = chunk.to(torch.bfloat16)
+            sc = torch.tensor([lane, chunk_pos, seq], dtype=torch.int32).to(device)
+            dec, out, _ = sib.paged_mixed_step(hidden, replayed, mixed, tables, chunk, lane, chunk_pos)
+            w_dec, w_out, _ = sib._paged_mixed_eager(
+                h_dev, eager, mixed.to(device), tables.to(device), padded.to(device), sc[0:1], sc[1], sc[2])
+            rows = [r for r in range(PROFILE_LANES) if r != lane or bucket in captured]
+            sentinel_checked += len(rows) == PROFILE_LANES
+            captured.add(bucket)
+            got, want = (dec[rows], out), (w_dec[rows], w_out[:, :seq])
+            what = f"mixed, a {seq}-token chunk (bucket {bucket}) of lane {lane} at position {chunk_pos}"
+        torch.cuda.synchronize()
+        if not all(torch.equal(g, w) for g, w in zip(got, want)):
+            diff = max((g.float() - w.float()).abs().max().item() for g, w in zip(got, want))
+            raise AssertionError(f"{label}: replayed {what} step differs from the eager loop (max abs {diff:.3e})")
+        if not all(torch.equal(g, w) for g, w in zip(_pool_tensors(replayed), _pool_tensors(eager))):
+            raise AssertionError(f"{label}: replayed {what} step wrote other pool bytes than the eager loop")
+        positions = positions + 1
+    stats = sib.step_program_stats()
+    log(f"{label}: step programs bit-equal to the eager loop: decode x2, mixed at (tokens, lane, position) "
+        f"{list(STEP_CHUNKS)}, the sentinel row held on the {sentinel_checked} replays of a captured bucket; {stats}")
+    if stats["graph_captures"] != 4 or stats["graph_replays"] != len(steps) or sentinel_checked != 2:
+        raise AssertionError(f"{label}: expected 4 captures (decode; buckets 8, 64, 512), {len(steps)} replays and "
+                             f"2 bucket replays with the sentinel row held, got {stats}, {sentinel_checked}")
+    return stats
+
+
+def measure_graph_pool(backend, batcher, device, label) -> dict:
+    """The card memory the step programs keep reserved, beside the eager
+    paths' peaks and the reserve that choose_num_blocks leaves beside the
+    weights and the KV budget (AUTOGRAD_RESERVE_FRACTION of the card). A
+    sibling of the served backend warms its programs as the served batcher
+    does (its lanes, its table width, its longest chunk), and a second
+    sibling warms them up to the last prefill bucket on tables long enough
+    for it; the reserved bytes are read before and after, the allocator's
+    cache emptied each time, so what remains is the graphs' pool and their
+    static buffers. Beside each: the peak allocation of one eager mixed
+    step, and of the stateless forward (the dense paths' step, which runs
+    eagerly), at the longest chunk. Fails if a pool and the larger eager
+    peak together pass the reserve."""
+    from petals_tpu_torch.server.backend import PREFILL_BUCKETS, bucket_length
+    from petals_tpu_torch.server.block_utils import AUTOGRAD_RESERVE_FRACTION
+
+    total = torch.cuda.get_device_properties(device).total_memory
+    reserve = AUTOGRAD_RESERVE_FRACTION * total
+    rows = {}
+    for name, max_chunk in (("served", batcher.max_chunk()), ("last bucket", PREFILL_BUCKETS[-1])):
+        max_pages = max(batcher.max_pages, -(-max_chunk // PAGE))
+        sib = sibling_backend(backend)
+        pools = _random_pools(sib, device, max_pages, SEED + 9)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        before = torch.cuda.memory_reserved(device)
+        sib.warm_step_programs(pools, batcher.n_lanes, max_pages, max_chunk)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        graph_bytes = torch.cuda.memory_reserved(device) - before
+        captures = sib.step_program_stats()["graph_captures"]
+        longest = min(max_chunk, max_pages * PAGE)
+        h = sib.hidden_size
+        hidden = torch.zeros(batcher.n_lanes, 1, h, dtype=torch.bfloat16, device=device)
+        positions = torch.full((batcher.n_lanes,), max_pages * PAGE, dtype=torch.int32, device=device)
+        tables = torch.full((batcher.n_lanes, max_pages), -1, dtype=torch.int32, device=device)
+        chunk = torch.zeros(1, bucket_length(longest), h, dtype=torch.bfloat16, device=device)
+        sc = torch.tensor([0, 0, longest], dtype=torch.int32, device=device)
+        peaks = {}
+        for what, fn in (
+            ("eager mixed step", lambda: sib._paged_mixed_eager(hidden, pools, positions, tables, chunk,
+                                                                sc[0:1], sc[1], sc[2])),
+            ("eager forward", lambda: sib.forward(chunk[:, :longest])),
+        ):
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated(device)
+            torch.cuda.reset_peak_memory_stats(device)
+            fn()
+            torch.cuda.synchronize()
+            peaks[what] = torch.cuda.max_memory_allocated(device) - base
+        rows[name] = {"max_chunk": max_chunk, "lanes": batcher.n_lanes, "max_pages": max_pages,
+                      "captures": captures, "graph_pool_bytes": graph_bytes, **{f"{k} peak bytes": v for k, v in
+                                                                                  peaks.items()}}
+        log(f"{label}: step programs warmed to {max_chunk}-token chunks ({captures} captures, {batcher.n_lanes} "
+            f"lanes x {max_pages} pages) hold {graph_bytes / 2**20:.1f} MiB reserved; eager peaks at a "
+            f"{longest}-token chunk: mixed step {peaks['eager mixed step'] / 2**20:.1f} MiB, forward "
+            f"{peaks['eager forward'] / 2**20:.1f} MiB; reserve {reserve / 2**30:.2f} GiB "
+            f"({AUTOGRAD_RESERVE_FRACTION:g} of {total / 2**30:.2f} GiB)")
+        if graph_bytes + max(peaks.values()) > reserve:
+            raise AssertionError(f"{label}: the step programs' pool and the eager peak pass the reserve: {rows[name]}")
+        del sib, pools, hidden, positions, tables, chunk, sc
+        free_card()
+    log(f"{label}: graph pool {json.dumps(rows)}")
+    return rows
+
+
+def check_graph_stats(label, stats) -> None:
+    """A served paged run stepped on its step programs: every batched step
+    a replay, no capture after warm-up."""
+    log(f"{label}: step programs: {stats['graph_captures']} captures, {stats['graph_replays']} replays, "
+        f"{stats['graph_anomalies']} captures after warm-up, for {stats['batched_steps']} batched steps")
+    if stats["graph_anomalies"] or stats["graph_replays"] < stats["batched_steps"] or not stats["batched_steps"]:
+        raise AssertionError(f"{label}: served steps did not all replay step programs without a late capture: {stats}")
+
+
+def profile_steps(backend, device) -> None:
+    """Where a step's time goes, beside the served span's backend (its
+    weights, on a sibling backend, called directly, no RPC): a paged decode
+    step at PROFILE_LANES lanes and a mixed step that also carries a
+    PROFILE_CHUNK-token chunk, on fresh random pools, each run two ways:
+    the eager block loop (host inputs uploaded per call, as the port ran
+    every step before its step programs) and the replayed step program."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    sib = sibling_backend(backend)
+    cfg, max_len = sib.cfg, 1024
+    max_pages = max_len // PAGE
+    pools = _random_pools(sib, device, PROFILE_LANES * max_pages, SEED + 6)
+    gen = torch.Generator(device=device).manual_seed(SEED + 6)
     tables = torch.arange(PROFILE_LANES * max_pages, dtype=torch.int32).reshape(PROFILE_LANES, max_pages)
     positions = torch.linspace(64, max_len - 64, PROFILE_LANES).to(torch.int32)
     hidden = torch.randn(PROFILE_LANES, 1, cfg.hidden_size, generator=gen, device=device).cpu()
     chunk = torch.randn(1, PROFILE_CHUNK, cfg.hidden_size, generator=gen, device=device).cpu()
     mixed_positions = positions.clone()
     mixed_positions[0] = max_len  # lane 0 prefills: its decode row idles
+    scalars = torch.tensor([0, 0, PROFILE_CHUNK], dtype=torch.int32).to(device)
     steps = {
-        "decode step": lambda: backend.paged_decode_step(hidden, pools, positions, tables),
-        f"mixed step ({PROFILE_CHUNK}-token chunk)": lambda: backend.paged_mixed_step(
+        "decode step, eager": lambda: sib._paged_decode_eager(hidden, pools, positions, tables),
+        "decode step, replayed": lambda: sib.paged_decode_step(hidden, pools, positions, tables),
+        f"mixed step ({PROFILE_CHUNK}-token chunk), eager": lambda: sib._paged_mixed_eager(
+            hidden, pools, mixed_positions, tables, chunk, scalars[0:1], scalars[1], scalars[2]),
+        f"mixed step ({PROFILE_CHUNK}-token chunk), replayed": lambda: sib.paged_mixed_step(
             hidden, pools, mixed_positions, tables, chunk, 0, 0),
     }
-    log(f"profile (--quant_type {backend.quant_type} --kv_quant_type {backend.kv_quant_type}): "
-        f"{backend.n_blocks} blocks, {PROFILE_LANES} lanes at "
-        f"positions {positions.tolist()}")
+    log(f"profile (--quant_type {sib.quant_type} --kv_quant_type {sib.kv_quant_type}): "
+        f"{sib.n_blocks} blocks, {PROFILE_LANES} lanes at positions {positions.tolist()}")
     for label, fn in steps.items():
         fn()
-        walls = []
+        walls, spans = [], []
         for _ in range(PROFILE_REPS):
             torch.cuda.synchronize()
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
             t0 = time.perf_counter()
+            start.record()
             fn()
+            end.record()
             torch.cuda.synchronize()
             walls.append((time.perf_counter() - t0) * 1e3)
+            spans.append(start.elapsed_time(end))
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             torch.cuda.synchronize()
             t0 = time.perf_counter()
@@ -1353,9 +1577,13 @@ def profile_steps(backend, device) -> None:
         # device-side events only: an operator's row repeats its kernels' time
         busy = sum(e.self_device_time_total for e in events if e.device_type == DeviceType.CUDA) / 1e3 / PROFILE_CALLS
         launches = sum(e.count for e in events if e.key.startswith(("cudaLaunchKernel", "cuLaunchKernel")))
-        log(f"{label}: host wall {statistics.median(walls):.3f} ms (median of {PROFILE_REPS}); "
-            f"profiled, per call over {PROFILE_CALLS}: host wall {prof_wall:.3f} ms, device busy {busy:.3f} ms, "
-            f"idle share {1 - busy / prof_wall:.3f}, {launches / PROFILE_CALLS:g} kernel launches")
+        graph_launches = sum(e.count for e in events if e.key.startswith(("cudaGraphLaunch", "cuGraphLaunch")))
+        span = statistics.median(spans)
+        log(f"{label}: host wall {statistics.median(walls):.3f} ms (median of {PROFILE_REPS}; device span "
+            f"{span:.3f} ms, CUDA events around the call); profiled, per call over "
+            f"{PROFILE_CALLS}: host wall {prof_wall:.3f} ms, device busy {busy:.3f} ms, idle share "
+            f"{1 - busy / prof_wall:.3f} (of the unprofiled device span: {1 - busy / span:.3f}), "
+            f"{launches / PROFILE_CALLS:g} kernel launches, {graph_launches / PROFILE_CALLS:g} graph launches")
         for kernel in PORT_KERNELS:
             t = sum(e.self_device_time_total for e in events if e.device_type == DeviceType.CUDA and kernel in e.key)
             if t:
@@ -1428,6 +1656,7 @@ def serve_and_check(ckpt, device, quant_type, n_blocks, prompts, n_steps, seed, 
 
     (inputs, replies, metas, timing, lane_kv), launches, stats = asyncio.run(serve())
     log(f"{label}: stats of the measured run: {stats}")
+    check_graph_stats(label, stats)
     # the attention kernels of this pool's storage: K1/K2 on a bf16 pool, K3's
     # arms of the kind on a quantized one, and no launch of the other storage's
     need_dec, need_pf = stats["decode_steps"] * n_blocks, stats["mixed_steps"] * n_blocks
@@ -1806,6 +2035,8 @@ def serve_swarm_and_check(ckpt, device, smi):
             result = await _drive_chain(chain, SWARM_PROMPTS, SWARM_STEPS, SEED + 12, a.cfg.hidden_size)
             launches = _launch_counts()
             stats = [dict(s.batcher.stats) for s in (a, b)]
+            for name, st in zip("AB", stats):
+                check_graph_stats(f"{label}: server {name}", st)
 
             await b.shutdown()
             servers.remove(b)
@@ -2060,6 +2291,9 @@ def drive_client(label, ckpt, device, smi, server_args, runs, place_check=None):
             _reset_launch_counts()
             streams = runs(model, rec)
             launches = dict(_launch_counts(), K5=_quant_launches())
+            for server in servers:
+                check_graph_stats(f"{label}: server at [{server.first_block}, "
+                                  f"{server.first_block + server.num_blocks})", server.batcher.stats)
         finally:
             model.close()
         return rec, streams, launches, [p for s in servers for p in s.backend.block_params]
@@ -2239,10 +2473,18 @@ def main() -> int:
 
         # the bf16 span, then the same span quantized to nf4a
         server, bf16_launches = serve_and_check(ckpt, device, "none", SPAN, PROMPTS, DECODE_STEPS, SEED + 4, WARMUP_PROMPTS)
+        # phase 15: the step programs against the eager loop, a bf16 pool
+        # and both quantized pools over the served bf16 weights
+        for kv in ("none",) + KV_QUANT_KINDS:
+            check_step_programs(sibling_backend(server.backend, kv), device,
+                                f"step programs (--quant_type none --kv_quant_type {kv}, {SPAN} blocks)")
+        measure_graph_pool(server.backend, server.batcher, device, f"graph pool (--quant_type none, {SPAN} blocks)")
         profile_steps(server.backend, device)
         del server
         free_card()
         server, nf4a_launches = serve_and_check(ckpt, device, "nf4a", SPAN, PROMPTS, DECODE_STEPS, SEED + 4, WARMUP_PROMPTS)
+        check_step_programs(server.backend, device, f"step programs (--quant_type nf4a, {SPAN} blocks)")
+        measure_graph_pool(server.backend, server.batcher, device, f"graph pool (--quant_type nf4a, {SPAN} blocks)")
         profile_steps(server.backend, device)
         del server
         free_card()
@@ -2261,6 +2503,7 @@ def main() -> int:
             server, launches = serve_and_check(
                 ckpt, device, kind, SHORT_SPAN, (SHORT_PROMPT,), SHORT_STEPS, SEED + 8, None,
             )
+            check_step_programs(server.backend, device, f"step programs (--quant_type {kind}, {SHORT_SPAN} blocks)")
             del server
             free_card()
             arm_launches.setdefault(kind, launches)
@@ -2300,6 +2543,12 @@ def main() -> int:
         phase = "decode" if entry["name"].startswith("quant_decode") else "prefill"
         arm = entry["name"].split("[")[1].rstrip("]")
         entry["launches"] = arm_launches[arm][phase][arm]
+    from petals_tpu_torch.telemetry.observatory import get_observatory
+
+    digest = get_observatory().compile_stats()
+    log(f"step-program observatory: {digest}; by program {get_observatory().functions()}")
+    if digest["anomalies"]:
+        raise AssertionError(f"{digest['anomalies']} step-program captures after warm-up")
     log(f"done at {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": kernels + kv_kernels + [flash_kernel] + quant_kernels}))
     log(json.dumps({"ok": True, "device": {

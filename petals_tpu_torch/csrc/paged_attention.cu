@@ -631,10 +631,11 @@ __global__ void __launch_bounds__(NT) paged_prefill_kernel(
     const float* __restrict__ k_scales,  // [n_pages, page_size, hkv] (quantized pools)
     const float* __restrict__ v_scales,
     const int* __restrict__ table_row, // [max_pages], -1 = hole
+    const int* __restrict__ chunk_pos_p,  // device scalars: the chunk's first position
+    const int* __restrict__ n_valid_p,    // and its real rows (kv_len = chunk_pos + n_valid)
     const float* __restrict__ slopes,  // [hq] or nullptr
     T* __restrict__ out,               // [q_len, hq, D]
-    int q_len, int hq, int hkv, int n_pages, int page_size, int max_pages,
-    int chunk_pos, int kv_len, int window, float scale) {
+    int q_len, int hq, int hkv, int n_pages, int page_size, int max_pages, int window, float scale) {
   // a quantized tile is decoded once into float32 shared memory; the loops
   // below then read it exactly as they read a floating-point tile
   using KT = typename std::conditional<KV == KV_FP, T, float>::type;
@@ -646,6 +647,7 @@ __global__ void __launch_bounds__(NT) paged_prefill_kernel(
   const int qb = blockIdx.x, h = blockIdx.y;
   const int kvh = h / (hq / hkv);
   const int tid = threadIdx.x, ty = tid / 8, tx = tid % 8;
+  const int chunk_pos = *chunk_pos_p, kv_len = chunk_pos + *n_valid_p;
 
   extern __shared__ __align__(16) char smem[];
   KT* k_s = reinterpret_cast<KT*>(smem);                   // [BKV][KP]
@@ -983,10 +985,12 @@ __global__ void __launch_bounds__(PF_THREADS, 1)
                                const float* __restrict__ k_scales,  // [n_pages, page_size, hkv] (quantized)
                                const float* __restrict__ v_scales,
                                const int* __restrict__ table_row,  // [max_pages], -1 = hole
+                               const int* __restrict__ chunk_pos_p,  // device scalars: the chunk's first
+                               const int* __restrict__ n_valid_p,    // position and its real rows
                                const float* __restrict__ slopes,   // [hq] or nullptr
                                __nv_bfloat16* __restrict__ out,    // [q_len, hq, D]
                                int q_len, int hq, int hkv, int n_pages, int page_size, int max_pages,
-                               int chunk_pos, int kv_len, int window, float scale) {
+                               int window, float scale) {
   using S = PrefillSmem<D, KV>;
   constexpr int NWG = S::NWG, NT = S::THREADS, STAGES = S::STAGES, RB = S::RB;
   constexpr int CH = D / 8;     // 16-byte chunks of a bf16 row
@@ -999,6 +1003,8 @@ __global__ void __launch_bounds__(PF_THREADS, 1)
   const int group = hq / hkv;
   const int qp = PF_ROWS / group;  // query positions of a warpgroup
   const int kvh = blockIdx.x;
+  // read from the device, so one captured launch serves every chunk position
+  const int chunk_pos = *chunk_pos_p, kv_len = chunk_pos + *n_valid_p;
   const int pos0 = (gridDim.y - 1 - blockIdx.y) * NWG * qp;  // the block's first position; heaviest first
   const int tid = threadIdx.x, wg = tid / WG_THREADS;
   const int warp = (tid % WG_THREADS) / WARP, lane = tid % WARP;
@@ -1296,9 +1302,9 @@ int launch_decode(const void* q, const void* k_pool, const void* v_pool, const f
 
 template <typename T, int D, int KV>
 int launch_prefill(const void* q, const void* k_pool, const void* v_pool, const float* k_scales,
-                   const float* v_scales, const int* table_row, const float* slopes, void* out,
-                   int q_len, int hq, int hkv, int n_pages, int page_size, int max_pages,
-                   int chunk_pos, int kv_len, int window, float scale, cudaStream_t stream) {
+                   const float* v_scales, const int* table_row, const int* chunk_pos, const int* n_valid,
+                   const float* slopes, void* out, int q_len, int hq, int hkv, int n_pages, int page_size,
+                   int max_pages, int window, float scale, cudaStream_t stream) {
   using KT = typename std::conditional<KV == KV_FP, T, float>::type;
   const size_t smem = 2 * (size_t)BKV * kv_pitch<KT, D>() * sizeof(KT) +
                       (size_t)BQ * (D + 4) * sizeof(float) + (size_t)BQ * (BKV + 1) * sizeof(float) +
@@ -1309,16 +1315,16 @@ int launch_prefill(const void* q, const void* k_pool, const void* v_pool, const 
   if (err != cudaSuccess) return (int)err;
   kernel<<<dim3((q_len + BQ - 1) / BQ, hq), NT, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const char*>(k_pool), static_cast<const char*>(v_pool),
-      k_scales, v_scales, table_row, slopes, static_cast<T*>(out), q_len, hq, hkv, n_pages,
-      page_size, max_pages, chunk_pos, kv_len, window, scale);
+      k_scales, v_scales, table_row, chunk_pos, n_valid, slopes, static_cast<T*>(out), q_len, hq, hkv,
+      n_pages, page_size, max_pages, window, scale);
   return (int)cudaGetLastError();
 }
 
 template <int D, int KV>
 int launch_prefill_wgmma(const void* q, const void* k_pool, const void* v_pool, const float* k_scales,
-                         const float* v_scales, const int* table_row, const float* slopes, void* out,
-                         int q_len, int hq, int hkv, int n_pages, int page_size, int max_pages,
-                         int chunk_pos, int kv_len, int window, float scale, cudaStream_t stream) {
+                         const float* v_scales, const int* table_row, const int* chunk_pos, const int* n_valid,
+                         const float* slopes, void* out, int q_len, int hq, int hkv, int n_pages, int page_size,
+                         int max_pages, int window, float scale, cudaStream_t stream) {
   using S = PrefillSmem<D, KV>;
   auto kernel = paged_prefill_wgmma_kernel<D, KV>;
   static size_t configured[kMaxDevices] = {};
@@ -1327,8 +1333,8 @@ int launch_prefill_wgmma(const void* q, const void* k_pool, const void* v_pool, 
   const int per_block = S::NWG * (PF_ROWS / (hq / hkv));  // query positions of a block
   kernel<<<dim3(hkv, (q_len + per_block - 1) / per_block), S::THREADS, S::BYTES, stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const char*>(k_pool), static_cast<const char*>(v_pool),
-      k_scales, v_scales, table_row, slopes, static_cast<__nv_bfloat16*>(out), q_len, hq, hkv, n_pages,
-      page_size, max_pages, chunk_pos, kv_len, window, scale);
+      k_scales, v_scales, table_row, chunk_pos, n_valid, slopes, static_cast<__nv_bfloat16*>(out), q_len, hq,
+      hkv, n_pages, page_size, max_pages, window, scale);
   return (int)cudaGetLastError();
 }
 
@@ -1336,12 +1342,12 @@ int launch_prefill_wgmma(const void* q, const void* k_pool, const void* v_pool, 
 // (TF32 tensor cores would change float32 results)
 template <int D>
 int launch_prefill_any(int dtype, int kv, const void* q, const void* k_pool, const void* v_pool,
-                       const float* k_scales, const float* v_scales, const int* table_row, const float* slopes,
-                       void* out, int q_len, int hq, int hkv, int n_pages, int page_size, int max_pages,
-                       int chunk_pos, int kv_len, int window, float scale, cudaStream_t stream) {
-#define PTT_PREFILL_ARGS                                                                         \
-  q, k_pool, v_pool, k_scales, v_scales, table_row, slopes, out, q_len, hq, hkv, n_pages, page_size, \
-      max_pages, chunk_pos, kv_len, window, scale, stream
+                       const float* k_scales, const float* v_scales, const int* table_row, const int* chunk_pos,
+                       const int* n_valid, const float* slopes, void* out, int q_len, int hq, int hkv,
+                       int n_pages, int page_size, int max_pages, int window, float scale, cudaStream_t stream) {
+#define PTT_PREFILL_ARGS                                                                                  \
+  q, k_pool, v_pool, k_scales, v_scales, table_row, chunk_pos, n_valid, slopes, out, q_len, hq, hkv, n_pages, \
+      page_size, max_pages, window, scale, stream
   if (dtype == 1 && kv == KV_FP) return launch_prefill_wgmma<D, KV_FP>(PTT_PREFILL_ARGS);
   if (dtype == 1 && kv == KV_INT8) return launch_prefill_wgmma<D, KV_INT8>(PTT_PREFILL_ARGS);
   if (dtype == 1 && kv == KV_NF4A) return launch_prefill_wgmma<D, KV_NF4A>(PTT_PREFILL_ARGS);
@@ -1408,24 +1414,28 @@ int ptt_paged_decode_attention(const void* q, const void* k_pool, const void* v_
   return (int)cudaErrorInvalidValue;
 }
 
+// chunk_pos and n_valid point at int32 scalars on the device, read by the
+// kernel: the launch's arguments do not change with the chunk's position,
+// so a captured launch (a CUDA graph) serves every chunk of its length.
 int ptt_paged_prefill_attention(const void* q, const void* k_pool, const void* v_pool,
                                 const void* k_scales, const void* v_scales, const void* table_row,
-                                const void* slopes, void* out, int dtype, int kv, int q_len,
-                                int hq, int hkv, int head_dim, int n_pages, int page_size,
-                                int max_pages, int chunk_pos, int kv_len, int window, float scale,
-                                void* stream) {
+                                const void* chunk_pos, const void* n_valid, const void* slopes, void* out,
+                                int dtype, int kv, int q_len, int hq, int hkv, int head_dim, int n_pages,
+                                int page_size, int max_pages, int window, float scale, void* stream) {
   const float* ks = static_cast<const float*>(k_scales);
   const float* vs = static_cast<const float*>(v_scales);
   const int* t = static_cast<const int*>(table_row);
+  const int* cp = static_cast<const int*>(chunk_pos);
+  const int* nv = static_cast<const int*>(n_valid);
   const float* sl = static_cast<const float*>(slopes);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (hkv < 1 || hq % hkv || hq / hkv > MAX_GROUP) return (int)cudaErrorInvalidValue;
   if (head_dim == 64)
-    return launch_prefill_any<64>(dtype, kv, q, k_pool, v_pool, ks, vs, t, sl, out, q_len, hq, hkv, n_pages,
-                                  page_size, max_pages, chunk_pos, kv_len, window, scale, s);
+    return launch_prefill_any<64>(dtype, kv, q, k_pool, v_pool, ks, vs, t, cp, nv, sl, out, q_len, hq, hkv,
+                                  n_pages, page_size, max_pages, window, scale, s);
   if (head_dim == 128)
-    return launch_prefill_any<128>(dtype, kv, q, k_pool, v_pool, ks, vs, t, sl, out, q_len, hq, hkv, n_pages,
-                                   page_size, max_pages, chunk_pos, kv_len, window, scale, s);
+    return launch_prefill_any<128>(dtype, kv, q, k_pool, v_pool, ks, vs, t, cp, nv, sl, out, q_len, hq, hkv,
+                                   n_pages, page_size, max_pages, window, scale, s);
   return (int)cudaErrorInvalidValue;
 }
 

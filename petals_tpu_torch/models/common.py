@@ -35,11 +35,15 @@ def mm(x: torch.Tensor, w) -> torch.Tensor:
 
 def absolute_positions(position, batch: int, seq: int, device) -> torch.Tensor:
     """[batch, seq] absolute positions of this chunk's tokens. ``position`` is
-    a scalar (one shared history length) or a [batch] tensor (per-lane
+    a scalar (one shared history length: a host int, or a 0-dim tensor on
+    ``device``, as a captured step passes it) or a [batch] tensor (per-lane
     positions of a batched decode step)."""
     offs = torch.arange(seq, dtype=torch.int32, device=device)
-    if isinstance(position, torch.Tensor) and position.dim() == 1:
-        return position.to(device=device, dtype=torch.int32)[:, None] + offs[None, :]
+    if isinstance(position, torch.Tensor):
+        pos = position.to(device=device, dtype=torch.int32)
+        if pos.dim() == 1:
+            return pos[:, None] + offs[None, :]
+        return (pos + offs)[None, :].expand(batch, seq)
     return (int(position) + offs)[None, :].expand(batch, seq)
 
 
@@ -53,7 +57,9 @@ def update_kv_cache(kv, k_new: torch.Tensor, v_new: torch.Tensor, position, n_va
     tensor: each row then writes at its own offset, kv_length comes back as a
     vector, and rows at or past the buffer's end (the idle sentinel) are
     DROPPED. ``n_valid`` marks how many of the ``s`` new rows are real; padded
-    rows are dropped."""
+    rows are dropped. On ``PagedKV``s a scalar ``position`` and ``n_valid``
+    may be 0-dim device tensors (a captured step's chunk scalars); dense
+    buffers take host integers."""
     from petals_tpu_torch.ops.paged_attention import PagedKV, paged_update_kv
 
     k_buf, v_buf = kv

@@ -356,7 +356,9 @@ def paged_update_kv(k_kv: PagedKV, v_kv: PagedKV, k_new, v_new, position, n_vali
       [n_lanes, 1, hkv, d] (sentinel positions drop);
     - chunked prefill: ``position`` is a scalar and k_new/v_new are
       [1, chunk, hkv, d] with ``n_valid`` real rows; the lane's table row is
-      ``tables[0]``.
+      ``tables[0]``. ``position`` and ``n_valid`` are host integers or 0-dim
+      integer tensors on the rows' device (a captured step's chunk scalars);
+      both give the same bytes, and kv_length comes back in the same form.
     """
     tables = k_kv.tables
     if isinstance(position, torch.Tensor) and position.dim() == 1:
@@ -376,8 +378,8 @@ def paged_update_kv(k_kv: PagedKV, v_kv: PagedKV, k_new, v_new, position, n_vali
             f"got batch={k_new.shape[0]}, table rows={tables.shape[0]}"
         )
     seq = k_new.shape[1]
-    n = seq if n_valid is None else int(n_valid)
-    pos = int(position)
+    n = seq if n_valid is None else n_valid
+    pos = position
     offs = torch.arange(seq, device=k_new.device)
     # padded tail rows route to the sentinel one past the lane and drop
     write_pos = torch.where(offs < n, pos + offs, k_kv.max_length)
@@ -426,8 +428,8 @@ def paged_prefill_attend(
     k_pool: PoolLike,
     v_pool: PoolLike,
     table_row: torch.Tensor,
-    chunk_pos: int,
-    n_valid: int,
+    chunk_pos,
+    n_valid,
     *,
     alibi_slopes: Optional[torch.Tensor] = None,
     sliding_window: Optional[int] = None,
@@ -436,13 +438,14 @@ def paged_prefill_attend(
     """Plain version of the paged CHUNKED-PREFILL kernel: causal attention for
     one lane's chunk q [1, chunk, hq, d] starting at absolute position
     ``chunk_pos``, whose ``n_valid`` real rows' KV is already in the pages.
-    Rows past n_valid give finite values that no caller reads; holes are
-    seen by no query (``slot_valid``). Takes ``PagedPool``s as
-    ``paged_attend`` does."""
+    ``chunk_pos`` and ``n_valid`` are host integers or 0-dim integer tensors
+    on q's device, with identical results. Rows past n_valid give finite
+    values that no caller reads; holes are seen by no query (``slot_valid``).
+    Takes ``PagedPool``s as ``paged_attend`` does."""
     k = gather_pages(k_pool, table_row[None])
     v = gather_pages(v_pool, table_row[None])
     return attend_reference(
-        q, k, v, q_offset=int(chunk_pos), kv_length=int(chunk_pos) + int(n_valid),
+        q, k, v, q_offset=chunk_pos, kv_length=chunk_pos + n_valid,
         alibi_slopes=alibi_slopes, sliding_window=sliding_window, scale=scale,
         kv_valid=slot_valid(k_pool, table_row[None]),
     )

@@ -9,7 +9,9 @@ device launch the kernel or raise. There is no fallback from one to the
 other. Each wrapper counts its kernel launches, so a run can show that its
 main path went through the kernels: ``<wrapper>.launches`` (a plain int)
 counts the floating-point arm (K1, K2), ``<wrapper>.kv_quant_launches[kind]``
-the quantized arm of each kind (K3).
+the quantized arm of each kind (K3). A launch inside a CUDA graph capture
+is counted by each replay of the graph instead
+(telemetry/observatory.py ``count_launch``).
 
 The kernels replace ``_decode_kernel`` and ``_prefill_kernel`` of
 petals_tpu/ops/paged_flash_attention.py, with their quantized arms
@@ -27,6 +29,7 @@ from typing import Optional
 import torch
 
 from petals_tpu_torch.ops.paged_attention import PagedPool, kv_quant_kind_of, paged_attend, paged_prefill_attend
+from petals_tpu_torch.telemetry.observatory import count_launch
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _KV_CODES = {"int8": 1, "nf4a": 2}  # 0: a floating-point pool
@@ -47,7 +50,7 @@ def kernel_library() -> ctypes.CDLL:
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         lib.ptt_paged_decode_attention.argtypes = [p] * 12 + [i] * 11 + [f, p]
         lib.ptt_paged_decode_attention.restype = i
-        lib.ptt_paged_prefill_attention.argtypes = [p] * 8 + [i] * 12 + [f, p]
+        lib.ptt_paged_prefill_attention.argtypes = [p] * 10 + [i] * 10 + [f, p]
         lib.ptt_paged_prefill_attention.restype = i
         lib.ptt_error_string.argtypes = [i]
         lib.ptt_error_string.restype = ctypes.c_char_p
@@ -75,6 +78,7 @@ def decode_split_plan(n_lanes: int, hkv: int, max_rows: int, n_sm: int) -> int:
 
 _SM_COUNT = {}
 _TICKETS = {}
+_RETIRED_TICKETS = []  # outgrown counters: a captured graph may still address them
 
 
 def _sm_count(device: torch.device) -> int:
@@ -88,10 +92,18 @@ def merge_tickets(device: torch.device, n: int) -> torch.Tensor:
     decode kernel, the dequant-matmul decode kernel) on ``device``'s current
     stream: n uint32 zeros, allocated (zeroed) once and grown when a launch
     needs more; every launch leaves them at zero, so launches on one stream
-    share them."""
-    key = (device.index, torch.cuda.current_stream(device).cuda_stream)
+    share them. A CUDA graph bakes in the counters' address: a grown buffer
+    keeps the old one alive for the graphs that read it, and growing is
+    refused during a capture (the warm-up on the capture stream, which runs
+    the same shapes first, allocates them)."""
+    stream = torch.cuda.current_stream(device)
+    key = (device.index, stream.cuda_stream)
     buf = _TICKETS.get(key)
     if buf is None or buf.numel() < n:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError("merge tickets must be allocated before a CUDA graph capture: warm up on its stream")
+        if buf is not None:
+            _RETIRED_TICKETS.append(buf)
         buf = _TICKETS[key] = torch.zeros(max(n, 256), dtype=torch.int32, device=device)
     return buf
 
@@ -187,9 +199,9 @@ def _check_common(q, k_pool, v_pool, alibi_slopes, sliding_window):
 def _count(wrapper, k_pool) -> None:
     kind = kv_quant_kind_of(k_pool)
     if kind == "none":
-        wrapper.launches += 1
+        count_launch(wrapper, "launches")
     else:
-        wrapper.kv_quant_launches[kind] += 1
+        count_launch(wrapper, "kv_quant_launches", kind)
 
 
 def reset_launch_counts() -> None:
@@ -262,13 +274,28 @@ def paged_flash_attend(
     return out
 
 
+def chunk_scalars(chunk_pos, n_valid, device: torch.device):
+    """``(chunk_pos, n_valid)`` as the prefill kernel reads them: 0-dim
+    int32 tensors on ``device``. Tensors pass as they are (cast to int32
+    where needed); host integers are range-checked and uploaded, an H2D copy
+    that a CUDA graph capture refuses, so a captured caller passes tensors
+    it filled before the replay (server/backend.py)."""
+    if isinstance(chunk_pos, torch.Tensor) and isinstance(n_valid, torch.Tensor):
+        return tuple(t.to(device=device, dtype=torch.int32) for t in (chunk_pos, n_valid))
+    chunk_pos, n_valid = int(chunk_pos), int(n_valid)
+    if chunk_pos < 0 or n_valid < 0:
+        raise ValueError(f"bad chunk: chunk_pos={chunk_pos}, n_valid={n_valid}")
+    pair = torch.tensor([chunk_pos, n_valid], dtype=torch.int32, device=device)
+    return pair[0], pair[1]
+
+
 def paged_flash_prefill_attend(
     q: torch.Tensor,
     k_pool,
     v_pool,
     table_row: torch.Tensor,
-    chunk_pos: int,
-    n_valid: int,
+    chunk_pos,
+    n_valid,
     *,
     alibi_slopes: Optional[torch.Tensor] = None,
     sliding_window: Optional[int] = None,
@@ -276,8 +303,13 @@ def paged_flash_prefill_attend(
 ) -> torch.Tensor:
     """Ragged paged CHUNKED-PREFILL attention: the contract of
     ``paged_prefill_attend``. q [1, chunk, hq, d]; table_row [max_pages]
-    int32; ``chunk_pos`` and ``n_valid`` are host integers; pools as for
-    ``paged_flash_attend``. The chunk's KV must already be in the pages."""
+    int32; pools as for ``paged_flash_attend``. The chunk's KV must already
+    be in the pages. ``chunk_pos`` and ``n_valid`` are 0-dim int32 tensors on
+    q's device, which the kernel reads there (``chunk_scalars``), or host
+    integers (checked, then uploaded). The kernel's grid depends on the
+    chunk's length alone, so a padded chunk (``n_valid`` < its length) and
+    any position replay one captured launch; the caller keeps n_valid within
+    the chunk's length (rows past it give finite values no caller reads)."""
     if _on_cpu(q, k_pool, v_pool, table_row, alibi_slopes):
         return paged_prefill_attend(
             q, k_pool, v_pool, table_row, chunk_pos, n_valid,
@@ -288,20 +320,19 @@ def paged_flash_prefill_attend(
     if batch != 1:
         raise ValueError(f"the prefill kernel serves one lane's chunk, got batch={batch}")
     _check("table_row", table_row, torch.int32, 1)
-    chunk_pos, n_valid = int(chunk_pos), int(n_valid)
-    if chunk_pos < 0 or not 0 <= n_valid <= q_len:
-        raise ValueError(f"bad chunk: chunk_pos={chunk_pos}, n_valid={n_valid}, q_len={q_len}")
+    if not isinstance(n_valid, torch.Tensor) and int(n_valid) > q_len:
+        raise ValueError(f"bad chunk: n_valid={int(n_valid)} > q_len={q_len}")
+    chunk_pos, n_valid = chunk_scalars(chunk_pos, n_valid, q.device)
     out = torch.empty_like(q)
     if q_len == 0:
         return out
     lib = kernel_library()
     with torch.cuda.device(q.device):
         err = lib.ptt_paged_prefill_attention(
-            q.data_ptr(), *ptrs, table_row.data_ptr(),
+            q.data_ptr(), *ptrs, table_row.data_ptr(), chunk_pos.data_ptr(), n_valid.data_ptr(),
             alibi_slopes.data_ptr() if alibi_slopes is not None else None, out.data_ptr(),
             _DTYPE_CODES[q.dtype], kv_code, q_len, hq, hkv, d, n_pages, page_size, table_row.shape[0],
-            chunk_pos, chunk_pos + n_valid, int(sliding_window or 0),
-            d**-0.5 if scale is None else float(scale),
+            int(sliding_window or 0), d**-0.5 if scale is None else float(scale),
             torch.cuda.current_stream(q.device).cuda_stream,
         )
     _raise_on(err, "paged prefill")
@@ -333,8 +364,8 @@ def paged_attend_dispatch(
             q, k_kv.pool, v_kv.pool, k_kv.tables, q_offset,
             alibi_slopes=alibi_slopes, sliding_window=sliding_window, scale=scale,
         )
-    chunk_pos = int(q_offset)
+    # a scalar position: host ints, or 0-dim device tensors (a captured step)
     return paged_flash_prefill_attend(
-        q, k_kv.pool, v_kv.pool, k_kv.tables[0], chunk_pos, int(kv_length) - chunk_pos,
+        q, k_kv.pool, v_kv.pool, k_kv.tables[0], q_offset, kv_length - q_offset,
         alibi_slopes=alibi_slopes, sliding_window=sliding_window, scale=scale,
     )

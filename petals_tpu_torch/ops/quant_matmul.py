@@ -17,7 +17,8 @@ x's dtype. Tensors on the CPU go to the plain version
 the kernel or raise. There is no fallback from one to the other. Each
 wrapper counts its launches per weight kind in ``<wrapper>.launches`` (a
 dict of ints), so a run can show that its main path went through the
-kernels.
+kernels; a launch inside a CUDA graph capture is counted by each replay of
+the graph instead (telemetry/observatory.py ``count_launch``).
 
 The kernels replace ``_packed4_decode_kernel``, ``_packed4_kernel`` and
 ``_int8_kernel`` of petals_tpu/ops/quant.py; the source says what bounds
@@ -33,6 +34,7 @@ import torch
 
 from petals_tpu_torch.ops.paged_flash_attention import merge_tickets
 from petals_tpu_torch.ops.quant import NF4_BLOCK, QuantizedLinear, dequant_matmul_reference
+from petals_tpu_torch.telemetry.observatory import count_launch
 
 _NF4_DECODE_MAX_M = 32  # the decode/prefill split, as in the JAX package
 _FORMAT_CODES = {"nf4": 0, "nf4a": 1, "int4": 2, "int8": 3}
@@ -236,7 +238,7 @@ def quant_decode_matmul(x2d: torch.Tensor, w: QuantizedLinear) -> torch.Tensor:
             torch.cuda.current_stream(xb.device).cuda_stream,
         )
     _raise_on(err, "quant decode matmul")
-    quant_decode_matmul.launches[w.kind] += 1
+    count_launch(quant_decode_matmul, "launches", w.kind)
     return out.to(x2d.dtype)
 
 
@@ -264,7 +266,7 @@ def quant_prefill_matmul(x2d: torch.Tensor, w: QuantizedLinear) -> torch.Tensor:
             plan.kb_per_split, torch.cuda.current_stream(xb.device).cuda_stream,
         )
     _raise_on(err, "quant prefill matmul")
-    quant_prefill_matmul.launches[w.kind] += 1
+    count_launch(quant_prefill_matmul, "launches", w.kind)
     return out.to(x2d.dtype)
 
 

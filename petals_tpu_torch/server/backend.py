@@ -21,9 +21,21 @@ on them sends chunks of 8 rows and more to the flash-attention kernel when
 decode shapes and the dense pool's batched step (per-lane positions) take
 plain attention, as they take XLA's in the JAX package.
 
-No jit means no shape buckets: a prefill chunk runs at its own length with
-``n_valid`` equal to it, which gives the reply rows a padded bucket gives,
-so nothing here pads (the JAX package's ``bucket_length`` has no use).
+The step programs. Where the JAX package jits ``paged_decode_step`` and
+``paged_mixed_step`` into one program per shape, on a CUDA device this
+backend replays each as a CUDA graph (telemetry/observatory.py
+``TrackedGraph``): one graph per ``step_program_key`` (the step kind, lanes,
+table width, chunk bucket, weight and pool encodings and the pools'
+addresses), captured on first use after a warm-up on the capture stream;
+the inputs are copied into the graph's static buffers before each replay
+and the outputs returned as clones. A mixed step pads its prefill chunk to
+a power-of-two bucket (``PREFILL_BUCKETS``, the JAX package's) and passes
+the chunk lane, its position and its real length as device scalars, so one
+graph serves every chunk of a bucket. On the CPU the same methods run the
+block loop eagerly (``_paged_decode_eager``, ``_paged_mixed_eager``) with the
+plain kernels, padding alike. On the card nothing falls back to the eager
+loop: a capture that fails raises. The dense-cache steps
+(``inference_step``, ``batched_decode_step``, ``forward``) run eagerly.
 """
 
 from __future__ import annotations
@@ -33,6 +45,7 @@ from typing import Dict, List, Optional, Sequence, Union
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from petals_tpu_torch.models.registry import ModelFamily
 from petals_tpu_torch.ops.paged_attention import (
@@ -46,8 +59,48 @@ from petals_tpu_torch.ops.paged_attention import (
 )
 from petals_tpu_torch.ops.quant import OutlierQuantLinear, QuantizedLinear
 from petals_tpu_torch.server.memory_cache import TensorDescriptor
+from petals_tpu_torch.telemetry.observatory import CudaGraphCapture, TrackedGraph
 
 logger = logging.getLogger(__name__)
+
+# a prefill chunk is padded to the smallest bucket that holds it, so a step
+# program serves every chunk length of its bucket (petals_tpu's buckets)
+PREFILL_BUCKETS = (8, 16, 32, 64, 128, 256, 512, 1024, 2048, 4096)
+
+
+def bucket_length(n: int) -> int:
+    """The padded length of an ``n``-token prefill chunk: the smallest
+    bucket that holds it; past the last bucket, a multiple of it."""
+    for b in PREFILL_BUCKETS:
+        if n <= b:
+            return b
+    return -(-n // PREFILL_BUCKETS[-1]) * PREFILL_BUCKETS[-1]
+
+
+def chunk_buckets(max_chunk: int) -> List[int]:
+    """Every bucket a chunk of 1..``max_chunk`` tokens pads to: the
+    ``PREFILL_BUCKETS`` up to ``bucket_length(max_chunk)``, then the
+    multiples of the last bucket up to it."""
+    top = bucket_length(max(1, int(max_chunk)))
+    last = PREFILL_BUCKETS[-1]
+    return [b for b in PREFILL_BUCKETS if b <= top] + list(range(2 * last, top + 1, last))
+
+
+def _pool_tensors(pool_kv):
+    for pool in pool_kv:
+        yield from (pool if isinstance(pool, PagedPool) else (pool,))
+
+
+def step_program_key(kind: str, n_lanes: int, max_pages: int, bucket: int, quant_type: str,
+                     kv_quant_type: str, pool_kv) -> tuple:
+    """What a captured step bakes in, so that two calls share a graph only
+    where all of it agrees: the step kind, its lanes and table width (its
+    inputs' shapes), the prefill chunk's bucket (0 for a decode step), the
+    weight and pool encodings, and each pool tensor's address, shape and
+    dtype. A pool reset zeroes the pool in place and keeps its key; a fresh
+    pool never replays a graph that addresses another pool's memory."""
+    pools = tuple((t.data_ptr(), tuple(t.shape), str(t.dtype)) for t in _pool_tensors(pool_kv))
+    return (kind, int(n_lanes), int(max_pages), int(bucket), quant_type, kv_quant_type, pools)
 
 
 def _block_view(leaf, i: int):
@@ -60,7 +113,9 @@ def _block_view(leaf, i: int):
     return leaf[i]
 
 
-def _as_tensor(x, device: torch.device, dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+def _as_tensor(x, device: Optional[torch.device], dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """``x`` (a tensor or an array) as a tensor on ``device`` (None: where
+    it lies) of ``dtype``."""
     if not isinstance(x, torch.Tensor):
         x = torch.from_numpy(np.ascontiguousarray(x))
     return x.to(device=device, dtype=dtype if dtype is not None else x.dtype)
@@ -115,6 +170,13 @@ class TransformerBackend:
         self.num_kv_heads = cfg.num_key_value_heads
         self.head_dim = cfg.head_dim
         self.hidden_size = cfg.hidden_size
+        # the step programs (CUDA graphs, on a card only); every graph of
+        # this backend shares one memory pool: steps never run at once
+        self._decode_program = self._mixed_program = None
+        if self.device.type == "cuda":
+            capture = CudaGraphCapture(self.device)
+            self._decode_program = TrackedGraph("paged_decode", capture)
+            self._mixed_program = TrackedGraph("paged_mixed_step", capture)
 
     # ------------------------------------------------------------- cache descriptors
 
@@ -349,7 +411,8 @@ class TransformerBackend:
 
     @torch.no_grad()
     def paged_decode_step(self, hidden, pool_kv, positions, tables):
-        """One coalesced decode step over a set of lanes, PAGED layout.
+        """One coalesced decode step over a set of lanes, PAGED layout: on a
+        CUDA device a replay of its step program, on the CPU the block loop.
 
         Args:
           hidden: [n_lanes, 1, hidden] (idle lanes: any finite filler).
@@ -360,6 +423,23 @@ class TransformerBackend:
 
         Returns (out [n_lanes, 1, hidden] on the device, pool_kv).
         """
+        if self._decode_program is None:
+            return self._paged_decode_eager(hidden, pool_kv, positions, tables)
+        # the inputs where they lie; the program copies them into its buffers
+        inputs = (_as_tensor(hidden, None, self.compute_dtype), _as_tensor(positions, None, torch.int32),
+                  _as_tensor(tables, None, torch.int32))
+        n_lanes, max_pages = inputs[2].shape
+        key = step_program_key("decode", n_lanes, max_pages, 0, self.quant_type, self.kv_quant_type, pool_kv)
+
+        def step(h, pos, tab):
+            return self._paged_decode_eager(h, pool_kv, pos, tab)[:1]
+
+        (out,) = self._decode_program.run(key, step, inputs)
+        return out, pool_kv
+
+    def _paged_decode_eager(self, hidden, pool_kv, positions, tables):
+        """The decode step's block loop, launched op by op: what the CPU
+        runs, and what a step program captures."""
         k_pool, v_pool = pool_kv
         h = _as_tensor(hidden, self.device, self.compute_dtype)
         positions = _as_tensor(positions, self.device, torch.int32)
@@ -373,7 +453,11 @@ class TransformerBackend:
     def paged_mixed_step(self, hidden, pool_kv, positions, tables,
                          chunk_hidden, chunk_lane: int, chunk_pos: int):
         """One mixed step: every decode lane (one token each) plus ONE
-        prefill chunk for ``chunk_lane``, block by block.
+        prefill chunk for ``chunk_lane``, block by block. The chunk is padded
+        to ``bucket_length(seq)`` rows with ``n_valid = seq``, as the JAX
+        package pads it: the padded rows' K/V writes drop and their outputs
+        are cut off. On a CUDA device a replay of the bucket's step program,
+        on the CPU the block loop.
 
         Args:
           hidden: [n_lanes, 1, hidden] (idle lanes: any finite filler).
@@ -383,26 +467,94 @@ class TransformerBackend:
             write drops); its table row is ``tables[chunk_lane]``.
           chunk_hidden: [1, seq, hidden], unpadded.
           chunk_lane / chunk_pos: which lane, and the chunk's first absolute
-            token position.
+            token position (host integers, checked here: the step reads them
+            on the device).
 
         Returns (decode_out [n_lanes, 1, h], chunk_out [1, seq, h], pool_kv).
         """
+        chunk = _as_tensor(chunk_hidden, None, self.compute_dtype)
+        seq = chunk.shape[1]
+        tables_t = _as_tensor(tables, None, torch.int32)
+        n_lanes, max_pages = tables_t.shape
+        lane, pos = int(chunk_lane), int(chunk_pos)
+        max_length = max_pages * pool_kv[0].shape[2]
+        if not 0 <= lane < n_lanes or pos < 0 or seq < 1 or pos + seq > max_length:
+            raise ValueError(
+                f"bad prefill chunk: lane {lane} of {n_lanes}, {seq} tokens at position {pos} "
+                f"(lane capacity {max_length})"
+            )
+        bucket = bucket_length(seq)
+        chunk = F.pad(chunk, (0, 0, 0, bucket - seq))
+        # {chunk_lane, chunk_pos, n_valid}: read on the device by the step
+        scalars = torch.tensor([lane, pos, seq], dtype=torch.int32)
+        inputs = (_as_tensor(hidden, None, self.compute_dtype), _as_tensor(positions, None, torch.int32), tables_t,
+                  chunk, scalars)
+
+        def step(h, pos_t, tab, c, sc):
+            return self._paged_mixed_eager(h, pool_kv, pos_t, tab, c, sc[0:1], sc[1], sc[2])[:2]
+
+        if self._mixed_program is None:
+            dec, chunk_out = step(*inputs)
+        else:
+            key = step_program_key("mixed", n_lanes, max_pages, bucket, self.quant_type, self.kv_quant_type, pool_kv)
+            dec, chunk_out = self._mixed_program.run(key, step, inputs)
+        return dec, chunk_out[:, :seq], pool_kv
+
+    def _paged_mixed_eager(self, hidden, pool_kv, positions, tables, chunk_hidden, chunk_lane, chunk_pos, n_valid):
+        """The mixed step's block loop, launched op by op (what the CPU runs,
+        and what a step program captures). ``chunk_hidden`` [1, bucket,
+        hidden] is already padded; ``chunk_lane`` ([1] or a scalar),
+        ``chunk_pos`` and ``n_valid`` are integer tensors on the device (or
+        host integers), read there: no value of theirs reaches the host."""
         k_pool, v_pool = pool_kv
         h_dec = _as_tensor(hidden, self.device, self.compute_dtype)
         h_pf = _as_tensor(chunk_hidden, self.device, self.compute_dtype)
         positions = _as_tensor(positions, self.device, torch.int32)
         tables = _as_tensor(tables, self.device, torch.int32)
-        table_row = tables[int(chunk_lane)][None].contiguous()
-        seq = h_pf.shape[1]
+        lane = torch.as_tensor(chunk_lane, device=self.device).reshape(1)
+        table_row = tables.index_select(0, lane)
         for i, p_block in enumerate(self.block_params):
             k_blk, v_blk = pool_block(k_pool, i), pool_block(v_pool, i)
             kv = (PagedKV(k_blk, tables), PagedKV(v_blk, tables))
             h_dec, _ = self.family.block_apply(p_block, h_dec, kv, positions, self.cfg)
             kv_pf = (PagedKV(k_blk, table_row), PagedKV(v_blk, table_row))
             h_pf, _ = self.family.block_apply(
-                p_block, h_pf, kv_pf, int(chunk_pos), self.cfg, n_valid=seq
+                p_block, h_pf, kv_pf, chunk_pos, self.cfg, n_valid=n_valid
             )
         return h_dec, h_pf, (k_pool, v_pool)
+
+    def warm_step_programs(self, pool_kv, n_lanes: int, max_pages: int, max_chunk: int) -> None:
+        """Capture every step program a batcher of ``n_lanes`` lanes and
+        ``max_pages`` table slots will replay on ``pool_kv``: the decode
+        step, and the mixed step at every bucket of a chunk of at most
+        ``max_chunk`` tokens (``chunk_buckets``; a lane caps it). Run when
+        the pool opens, so that serving captures nothing. Every lane rides
+        at the idle sentinel on a table of holes: nothing is written and no
+        row is read. A no-op on the CPU."""
+        if self._decode_program is None:
+            return
+        max_length = max_pages * pool_kv[0].shape[2]
+        hidden = torch.zeros(n_lanes, 1, self.hidden_size, dtype=self.compute_dtype)
+        positions = np.full((n_lanes,), max_length, np.int32)
+        tables = np.full((n_lanes, max_pages), -1, np.int32)
+        self.paged_decode_step(hidden, pool_kv, positions, tables)
+        longest = min(max_chunk, max_length)
+        for bucket in chunk_buckets(longest):
+            # the top bucket's chunk is the longest one (a lane may be
+            # shorter than the bucket)
+            chunk = torch.zeros(1, min(bucket, longest), self.hidden_size, dtype=self.compute_dtype)
+            self.paged_mixed_step(hidden, pool_kv, positions, tables, chunk, 0, 0)
+
+    def step_program_stats(self) -> dict:
+        """Captures, replays and post-warm-up captures (anomalies) of this
+        backend's step programs, summed (zeros on the CPU)."""
+        stats = {"graph_captures": 0, "graph_replays": 0, "graph_anomalies": 0}
+        for prog in (self._decode_program, self._mixed_program):
+            if prog is not None:
+                stats["graph_captures"] += prog.counts.captures
+                stats["graph_replays"] += prog.counts.replays
+                stats["graph_anomalies"] += prog.counts.anomalies
+        return stats
 
     def chunk_plan(self, batch: int, total_seq: int, page_size: Optional[int] = None,
                    start: int = 0) -> Sequence[int]:

@@ -25,6 +25,12 @@ decode tokens, and one prefill chunk, into one step per tick
   a gather of the lane's pages and a scatter back.
 
 Steps run on the task queue's compute thread and mutate the pool IN PLACE.
+On a CUDA card the paged steps replay the backend's step programs (CUDA
+graphs keyed by the pool's address, server/backend.py): the pool never
+moves, so they are all captured when it opens (``warm_step_programs``, the
+decode step and the mixed step at every chunk bucket up to ``max_chunk``),
+and serving only replays them; ``stats`` carries their captures,
+replays and late captures (``graph_*``).
 A step that fails with a device error leaves the pool untrustworthy: the pool
 is zeroed and the generation bumps, so every outstanding lane fails loudly on
 its next step instead of decoding against lost KV. The generation is checked
@@ -150,10 +156,13 @@ class DecodeBatcher:
         self._flush_task: Optional[asyncio.Task] = None
         self._open_lock = asyncio.Lock()
         self._closed = False
+        # graph_*: the backend's step programs (CUDA graphs on a card):
+        # captures, replays, and captures after warm-up (anomalies)
         self.stats = {
             "batched_steps": 0, "batched_tokens": 0, "max_batch": 0,
             "decode_steps": 0, "mixed_steps": 0, "prefill_tokens": 0,
             "max_prefill_tokens_per_step": 0, "pool_resets": 0, "exclusive_chunks": 0,
+            "graph_captures": 0, "graph_replays": 0, "graph_anomalies": 0,
         }
 
     # ------------------------------------------------------------------ pool
@@ -197,6 +206,13 @@ class DecodeBatcher:
                 f"Paged-batching pool open: {self.n_pages} pages x {self.page_size} tokens "
                 f"({self.n_lanes} lanes x {self.max_pages} table slots) for blocks {span}"
             )
+            if self.backend.device.type == "cuda":
+                # capture every step program on the open pool now, so that
+                # serving replays and captures nothing
+                await self.queue.submit(
+                    self.backend.warm_step_programs, self._buffers(), self.n_lanes, self.max_pages,
+                    self.max_chunk(),
+                )
 
     async def close(self) -> None:
         self._closed = True
@@ -506,6 +522,13 @@ class DecodeBatcher:
             if pf is not None:
                 self._advance_prefill(pf[0], pf[1], chunk_out)
 
+    def max_chunk(self) -> int:
+        """The longest chunk a mixed step can carry: the prefill budget, or
+        one page when decode pressure lifts a smaller budget to a page
+        (``_prefill_budget``), at most a lane. Page alignment only shortens
+        a chunk."""
+        return min(max(self.prefill_token_budget, self.page_size), self.max_length)
+
     def _prefill_budget(self, n_decode: int) -> int:
         """Per-tick fairness: the prefill token budget halves under decode
         pressure (more than half the lanes stepping), but never below one
@@ -641,6 +664,7 @@ class DecodeBatcher:
 
     def _count_step(self, batch, t_step: float, duration: float) -> None:
         """Stats and the per-lane queue/compute split (compute thread)."""
+        self.stats.update(self.backend.step_program_stats())
         self.stats["batched_steps"] += 1
         self.stats["batched_tokens"] += len(batch)
         self.stats["max_batch"] = max(self.stats["max_batch"], len(batch))

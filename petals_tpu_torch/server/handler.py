@@ -179,10 +179,11 @@ class TransformerHandler:
             "inference_max_length": self.inference_max_length,
             "quant_type": self.backend.quant_type,  # petals_tpu's ServerInfo.quant_type
             "kv_quant": self.backend.kv_quant_type,
-            # a cached token costs its stored bytes (petals_tpu's
-            # ServerInfo.cache_tokens_left)
+            # free bytes over the LOGICAL (floating-point) bytes a token, as
+            # petals_tpu's rpc_info answers; the announce's cache_tokens_left
+            # counts stored bytes (server.py)
             "cache_tokens_available": max(
-                b.memory_cache.bytes_left // max(self.backend.kv_bytes_per_token(), 1), 0
+                b.memory_cache.bytes_left // max(self.backend.cache_bytes_per_token(), 1), 0
             ),
             "continuous_batching": {
                 "lanes": b.n_lanes,

@@ -238,7 +238,8 @@ class Server:
             dht_prefix=self.dht_prefix, compression=self.compression,
             inference_max_length=self.inference_max_length,
             session_timeout=self.session_timeout, step_timeout=self.step_timeout,
-            server_info_fn=lambda: dataclasses.asdict(self._server_info(self._state)),
+            # rpc_info answers ONLINE, as petals_tpu's does
+            server_info_fn=lambda: dataclasses.asdict(self._server_info(ServerState.ONLINE)),
         )
 
     # ------------------------------------------------------------------ life cycle
@@ -314,7 +315,8 @@ class Server:
     def _server_info(self, state: ServerState) -> ServerInfo:
         cache_tokens_left = pool = None
         if self.backend is not None:
-            # a cached token costs its stored bytes, as rpc_info counts it
+            # the announce counts a token's stored bytes, as petals_tpu's does
+            # (rpc_info counts its logical bytes)
             cache_tokens_left = int(self.memory_cache.bytes_left // max(self.backend.kv_bytes_per_token(), 1))
             pool = self.batcher.occupancy_info()
         rps = self._rps_info or {}

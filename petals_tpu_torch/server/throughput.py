@@ -4,8 +4,9 @@ backend on the device that will serve, with the same quantization:
 
 - inference_rps: one-token decode steps a second, on the path that will
   serve them. A paged server (the default) steps ``paged_decode_step`` on a
-  one-lane pool of its page size and KV encoding; a ``page_size=0`` server
-  steps ``inference_step`` on a dense cache. (petals_tpu measures its dense
+  one-lane pool of its page size and KV encoding (on a card, replays of its
+  step program, a CUDA graph); a ``page_size=0`` server steps
+  ``inference_step`` on a dense cache. (petals_tpu measures its dense
   ``inference_step`` whatever its pool: the port's dense decode is plain
   attention, several times slower than the paged kernel, and the number
   must describe the path that serves.)
@@ -16,8 +17,8 @@ backend on the device that will serve, with the same quantization:
 
 The compute figures are cached in an fcntl-locked JSON file of the port's
 own (``$PETALS_TPU_TORCH_CACHE``, default ~/.cache/petals_tpu_torch), keyed
-by the model's shape, the dtype, the quantization, the decode path, the
-port's version and the card's name, so the two packages never read each
+by the model's shape, the dtype, the quantization, the decode path and how
+it runs (graph replays or eager), the port's version and the card's name, so the two packages never read each
 other's numbers. The network figure is never cached.
 """
 
@@ -83,6 +84,9 @@ def get_server_throughput(
             "dtype": str(compute_dtype).removeprefix("torch."),
             "quant": str(quant_type),
             "decode": f"paged:{page_size}:{kv_quant_type}" if page_size else "dense",
+            # a paged decode step on a card replays a CUDA graph: a number
+            # timed on the eager block loop is not reused for it
+            "step": "cuda_graph" if page_size and device.type == "cuda" else "eager",
             "version": petals_tpu_torch.__version__,
             "backend": device.type,
             "device_name": _device_name(device),

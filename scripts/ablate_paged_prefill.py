@@ -108,21 +108,22 @@ def main() -> int:
         for shape, (q, kp, vp, row, pos) in (("512 rows at 0", short), ("512 rows at 3584", long)):
             if kind != "none":
                 kp, vp = (PagedPool(*quantize_kv_rows(p, kind)) for p in (kp, vp))
-            cases[f"{kind}, {shape}"] = (q, kp, vp, row, pos, q.shape[1])
+            # the chunk's position and length on the card, as the served step passes them
+            cases[f"{kind}, {shape}"] = (q, kp, vp, row, pos, q.shape[1], pfa.chunk_scalars(pos, q.shape[1], device))
     for name, so in libs.items():
         pfa._LIB = None  # the wrapper binds whichever library kbuild.load returns
         kbuild.load = lambda _name, so=so: ctypes.CDLL(so)
         times = {}
-        for case, (q, kp, vp, row, pos, n) in cases.items():
+        for case, (q, kp, vp, row, pos, n, scalars) in cases.items():
             if name in ("no decode", "decode not overlapped") and case.startswith("none"):
                 continue
             if name == "decode not overlapped":  # a right kernel: hold it to its limit
                 want = paged_prefill_attend(q.float(), *((kp.float(), vp.float()) if case.startswith("none")
                                                          else (kp, vp)), row, pos, n, sliding_window=window)
-                got = pfa.paged_flash_prefill_attend(q, kp, vp, row, pos, n, sliding_window=window)
+                got = pfa.paged_flash_prefill_attend(q, kp, vp, row, *scalars, sliding_window=window)
                 chip_smoke.check_rows(f"{name}, {case}", got, want, chip_smoke.ROW_REL_TOL if case.startswith("none")
                                       else chip_smoke.KV_ROW_REL_TOL)
-            times[case] = timer(lambda c=(q, kp, vp, row, pos, n): pfa.paged_flash_prefill_attend(
+            times[case] = timer(lambda c=(q, kp, vp, row, *scalars): pfa.paged_flash_prefill_attend(
                 *c, sliding_window=window))
         print(f"{name}: " + ", ".join(f"{case} {t:.4f} ms" for case, t in times.items()), flush=True)
     return 0

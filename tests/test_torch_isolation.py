@@ -31,8 +31,9 @@ def test_importing_every_module_loads_no_jax():
             "config", "runtime", "inference_session", "remote_sequential", "remote_generation",
             "from_pretrained", "model", "routing.sequence_manager", "routing.sequence_info",
             "routing.spending_policy")} | {"petals_tpu_torch.models.client_common",
-            "petals_tpu_torch.models.llama.model", "petals_tpu_torch.models.qwen2"}
-        assert client <= set(names), sorted(client - set(names))  # the client is walked
+            "petals_tpu_torch.models.llama.model", "petals_tpu_torch.models.qwen2",
+            "petals_tpu_torch.telemetry", "petals_tpu_torch.telemetry.observatory"}
+        assert client <= set(names), sorted(client - set(names))  # the client and telemetry are walked
         print(len(names), bad)
         assert not bad, bad
         """
@@ -126,6 +127,7 @@ def test_flash_attention_never_falls_back_off_the_cpu():
     "petals_tpu_torch.server.handler",
     "petals_tpu_torch.server.server",
     "petals_tpu_torch.utils.convert",
+    "petals_tpu_torch.telemetry.observatory",
 ])
 def test_dense_cache_modules_import_without_jax(module):
     """Each module that serves dense caches, imported alone in a fresh

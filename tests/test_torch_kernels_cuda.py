@@ -706,3 +706,135 @@ def test_flash_wrapper_refuses_what_the_kernel_does_not_take(cuda_device):
     before = fa.flash_attend.launches
     assert fa.flash_attend(z(1, 0, 4, 128), z(1, 16, 2, 128), z(1, 16, 2, 128)).shape == (1, 0, 4, 128)
     assert fa.flash_attend.launches == before  # nothing to launch
+
+
+# ------------------------------------------------------------------ step programs (CUDA graphs)
+
+
+@pytest.mark.parametrize("kind", ["none", "int8", "nf4a"])
+def test_prefill_kernel_replays_with_chunk_scalars_read_on_the_card(cuda_device, kind):
+    """The prefill kernel reads chunk_pos and n_valid on the card: captured
+    once in a CUDA graph, a replay after new values are copied in equals a
+    direct call with those values, bit for bit; host integers give the same
+    bits as device scalars."""
+    rng = np.random.default_rng(31)
+    hq, hkv, d, ps, max_pages, q_len = 32, 8, 128, 64, 16, 64
+    n_pages = max_pages + 2
+    table_row = torch.from_numpy(rng.permutation(n_pages)[:max_pages].astype(np.int32)).to(cuda_device)
+    kp, vp = _on(cuda_device, torch.bfloat16, *(rng.standard_normal((n_pages, ps, hkv, d)) for _ in range(2)))
+    if kind != "none":
+        kp, vp = (PagedPool(*quantize_kv_rows(p, kind)) for p in (kp, vp))
+    (q,) = _on(cuda_device, torch.bfloat16, rng.standard_normal((1, q_len, hq, d)))
+    scalars = torch.tensor([0, q_len], dtype=torch.int32, device=cuda_device)
+    direct = {}
+    for pos, n in ((0, 64), (300, 37), (900, 64)):
+        direct[pos, n] = pfa.paged_flash_prefill_attend(q, kp, vp, table_row, pos, n, sliding_window=4096)
+        cp, nv = pfa.chunk_scalars(pos, n, cuda_device)
+        assert torch.equal(pfa.paged_flash_prefill_attend(q, kp, vp, table_row, cp, nv, sliding_window=4096),
+                           direct[pos, n])
+    stream = torch.cuda.Stream(cuda_device)
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        pfa.paged_flash_prefill_attend(q, kp, vp, table_row, scalars[0], scalars[1], sliding_window=4096)
+    torch.cuda.current_stream().wait_stream(stream)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=stream):
+        out = pfa.paged_flash_prefill_attend(q, kp, vp, table_row, scalars[0], scalars[1], sliding_window=4096)
+    for (pos, n), want in direct.items():
+        scalars.copy_(torch.tensor([pos, n], dtype=torch.int32))
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out[:, :n], want[:, :n]), (pos, n)
+
+
+def _step_backend(device, quant_type="none", kv_quant_type="none", n_blocks=2):
+    """A 2-block Llama-shaped backend with seeded random bf16 weights at a
+    small width (hidden 512, 4 query heads of 128 over 2 kv heads)."""
+    from petals_tpu_torch.models.llama.config import LlamaBlockConfig
+    from petals_tpu_torch.models.registry import get_family
+    from petals_tpu_torch.server.backend import TransformerBackend
+    from petals_tpu_torch.utils.convert_block import convert_block_params
+
+    family = get_family("llama")
+    cfg = LlamaBlockConfig(hidden_size=512, num_attention_heads=4, num_key_value_heads=2, head_dim=128,
+                           intermediate_size=1024, num_hidden_layers=n_blocks, rms_norm_eps=1e-5)
+    gen = torch.Generator(device=device).manual_seed(5)
+    blocks = []
+    for _ in range(n_blocks):
+        params = {name: (torch.randn(meta.shape, generator=gen, device=device) * 0.05).to(torch.bfloat16)
+                  for name, meta in sorted(family.block_param_shapes(cfg, torch.bfloat16).items())}
+        params["ln1"] = params["ln1"] + 1
+        params["ln2"] = params["ln2"] + 1
+        blocks.append(convert_block_params(params, family.name, quant_type, fuse=True))
+    return TransformerBackend(family, cfg, blocks, first_block=0, n_blocks=n_blocks, device=device,
+                              quant_type=quant_type, kv_quant_type=kv_quant_type)
+
+
+@pytest.mark.parametrize("quant_type,kv_quant_type", [("none", "none"), ("none", "int8"), ("none", "nf4a"),
+                                                      ("nf4a", "none")])
+def test_step_programs_replay_bit_equal_to_the_eager_loop(cuda_device, quant_type, kv_quant_type):
+    """Decode and mixed steps replayed as CUDA graphs (server/backend.py)
+    against the eager block loop on a clone of the pools: outputs and pool
+    bytes bit-equal; one graph per bucket (a 5-token chunk replays the 8
+    bucket's graph, 64 the 64 bucket's, each at another lane and position
+    than the capture's); the launch counters count the replays' kernels.
+    The chunk lane's decode row (at the idle sentinel, read by no caller)
+    is held on a replay and left out on the step that captures its bucket:
+    the capture's warm-up has run that step once already, so the row, which
+    attends the lane's whole table, sees the chunk's rows written."""
+    from petals_tpu_torch.ops.paged_attention import PagedPool as Pool
+    from petals_tpu_torch.server.backend import bucket_length
+
+    backend = _step_backend(cuda_device, quant_type, kv_quant_type)
+    cfg, n_lanes, max_pages, ps = backend.cfg, 3, 8, 64
+    bufs = [dsc.make_zeros() for dsc in backend.paged_cache_descriptors(n_lanes * max_pages, ps, 0, 2)]
+    replayed = (Pool(bufs[0], bufs[2]), Pool(bufs[1], bufs[3])) if len(bufs) == 4 else tuple(bufs)
+    tables = torch.arange(n_lanes * max_pages, dtype=torch.int32).reshape(n_lanes, max_pages)
+    gen = torch.Generator().manual_seed(9)
+    positions = torch.tensor([3, 100, 250], dtype=torch.int32)
+
+    def clone(pools):
+        return tuple(Pool(p.codes.clone(), p.scales.clone()) if isinstance(p, Pool) else p.clone() for p in pools)
+
+    def flat(pools):
+        return [t for p in pools for t in (p if isinstance(p, Pool) else (p,))]
+
+    eager = clone(replayed)
+    pfa.reset_launch_counts()
+    captured = set()
+    # (chunk tokens, chunk lane, chunk position), None for a decode step
+    for step, chunk_step in enumerate([None, None, (8, 1, 200), (5, 0, 300), (40, 2, 20), (64, 1, 400), None]):
+        hidden = torch.randn(n_lanes, 1, cfg.hidden_size, generator=gen)
+        h_dev = hidden.to(torch.bfloat16).to(cuda_device)
+        if chunk_step is None:
+            got = backend.paged_decode_step(hidden, replayed, positions, tables)[:1]
+            want = backend._paged_decode_eager(h_dev, eager, positions.to(cuda_device), tables.to(cuda_device))[:1]
+        else:
+            seq, lane, chunk_pos = chunk_step
+            bucket = bucket_length(seq)
+            chunk = torch.randn(1, seq, cfg.hidden_size, generator=gen)
+            mixed = positions.clone()
+            mixed[lane] = max_pages * ps
+            padded = torch.zeros(1, bucket, cfg.hidden_size, dtype=torch.bfloat16)
+            padded[:, :seq] = chunk.to(torch.bfloat16)
+            sc = torch.tensor([lane, chunk_pos, seq], dtype=torch.int32, device=cuda_device)
+            dec, out, _ = backend.paged_mixed_step(hidden, replayed, mixed, tables, chunk, lane, chunk_pos)
+            w_dec, w_out, _ = backend._paged_mixed_eager(
+                h_dev, eager, mixed.to(cuda_device), tables.to(cuda_device), padded.to(cuda_device),
+                sc[0:1], sc[1], sc[2])
+            rows = [r for r in range(n_lanes) if r != lane or bucket in captured]
+            captured.add(bucket)
+            got, want = (dec[rows], out), (w_dec[rows], w_out[:, :seq])
+        torch.cuda.synchronize()
+        assert all(torch.equal(g, w) for g, w in zip(got, want)), (step, chunk_step)
+        assert all(torch.equal(g, w) for g, w in zip(flat(replayed), flat(eager))), (step, chunk_step)
+        positions = positions + 1
+    stats = backend.step_program_stats()
+    assert stats == {"graph_captures": 3, "graph_replays": 7, "graph_anomalies": 0}, stats
+    # every step's K1 (decode) and K2 (mixed) ran on both blocks: the eager
+    # loop's launches, the warm-ups' and each replay's (the counters count
+    # replays, not only the launches a capture made)
+    k1 = pfa.paged_flash_attend.launches + sum(pfa.paged_flash_attend.kv_quant_launches.values())
+    k2 = pfa.paged_flash_prefill_attend.launches + sum(pfa.paged_flash_prefill_attend.kv_quant_launches.values())
+    assert k1 == 2 * (7 + 7 + 3) and k2 == 2 * (4 + 4 + 2), (k1, k2)
+

@@ -565,8 +565,10 @@ def _serve_both(model_path, quant_type, kv_quant_type, drive, budget=None):
 def test_greedy_tokens_match_jax_server(model_path, kv_quant_type):
     """A port server with a quantized KV pool emits the same greedy tokens as
     a petals_tpu server with the same --kv_quant_type; for the same cache
-    budget ptu.info reports the same cache tokens (ServerInfo's
-    cache_tokens_left there) and lanes, and the pool's kind."""
+    budget ptu.info reports the same cache tokens (cache_tokens_available:
+    free bytes over a token's logical bytes; the announce's
+    cache_tokens_left: over its stored bytes), state and lanes, and the
+    pool's kind."""
     from tests.test_torch_server import _greedy, _uids
 
     head, cfg = _head(model_path)
@@ -579,7 +581,9 @@ def test_greedy_tokens_match_jax_server(model_path, kv_quant_type):
     )
     assert info["kv_quant"] == info["continuous_batching"]["kv_quant"] == kv_quant_type
     assert info["continuous_batching"]["kv_bytes_per_token"] == jinfo["pool"]["kv_bytes_per_token"]
-    assert info["cache_tokens_available"] == jinfo["cache_tokens_left"]
+    assert info["cache_tokens_available"] == jinfo["cache_tokens_available"]
+    assert info["cache_tokens_left"] == jinfo["cache_tokens_left"] > info["cache_tokens_available"]
+    assert info["state"] == jinfo["state"]
     assert info["continuous_batching"]["lanes"] == jinfo["continuous_batching"]["lanes"] > 3
     assert len(port_tokens) == 8
     assert port_tokens == jax_tokens
