@@ -226,6 +226,33 @@
    paths' peaks, and fails if they pass the reserve choose_num_blocks
    leaves. At the end the observatory's digest must count no capture after
    warm-up.
+16. Server-side generation (serve_gen_and_check, after phase 14): the
+   8-layer cut of the checkpoint served whole by one port server built by
+   the CLI (so it loads the client's float32 leaves and announces
+   server_gen), in bf16 and then with --quant_type nf4a, GEN_LANES lanes.
+   The port client takes its fast path (chunks of up to 32 tokens a round
+   trip): greedy GEN_NEW tokens of a GEN_PROMPT-token prompt, seeded
+   sampling (GEN_SAMPLING) twice (identical), greedy under GEN_PENALTY,
+   seeded sampling on a private cache, GEN_LONG_NEW greedy tokens alone,
+   then GEN_SESSIONS generating sessions at once beside a per-token session
+   and a GEN_LATE_PROMPT-token prompt arriving once all of them generate.
+   Each generated stream is fed back per token through the same server,
+   and every token must be the client's own pick on those logits (the
+   Threefry draw for a sampled one, ties within float rounding counted);
+   each is teacher-forced through the dense reference (greedy tokens within
+   the noise of the maximum; sampled draws against the reference's, those
+   its noise moves counted); the per-token sessions are checked as in phase
+   13. Every generation step must be one replay of the step program that
+   runs K1 on every block (and, with nf4a weights, K5's decode kernel on
+   every projection), no capture after warm-up, gen_steps > 0,
+   max_gen_lanes >= GEN_SESSIONS, a prefill chunk in a mixed step while
+   lanes generate. The generation step's program is held bit-equal to its
+   eager loop on cloned pools and profiled beside the decode step (the
+   share of the embedding, head and sampling). Prints the client's time per
+   generated token on the fast path (1 and GEN_SESSIONS sessions), the
+   server's per-token round trip and both step bodies' host walls, with the
+   card's name and power limit. Phase 14's server runs with
+   --no_server_side_generation, so its client keeps the per-token path.
 
 float32 matmuls run in full float32: TF32 is switched off for matmuls and
 convolutions. Exits non-zero on any failure. The last line is the JSON
@@ -248,6 +275,7 @@ import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 import torch
@@ -362,6 +390,22 @@ QWEN2_5_7B = {
 }
 QWEN_SPAN = 4
 QWEN_NEW = 16
+# phase 16: server-side generation over one port server of the 8-block cut
+GEN_PROMPT = 300
+GEN_NEW = 32
+GEN_SAMPLING = dict(do_sample=True, temperature=0.8, top_k=50, top_p=0.9, seed=1234)
+GEN_PENALTY = 1.2
+GEN_SESSIONS = 4  # concurrent generating sessions
+GEN_LONG_NEW = 96  # three chunks of 32: the later two time the fast path per token
+GEN_LATE_PROMPT = 450  # a prompt that arrives while the sessions generate
+GEN_LANES = 8  # room for the sessions, the per-token one and the late prompt in one pool
+GEN_CACHE_TOKENS = 2 * CLI_ATTN_CACHE_TOKENS  # 8 lanes of 1024 tokens in half the budget
+GEN_PRIVATE_MAX_LENGTH = 2048  # past a lane's 1024 tokens: a private cache
+# a token that is not the pick on the server's own logits is a tie when its
+# logit lies this close to the maximum (greedy) or u this close to its CDF
+# interval (sampled): float32 sums in another order, float64 on the client
+GEN_TIE_LOGIT = 1e-3
+GEN_TIE_CDF = 1e-4
 DENSE_CHUNK_TOKENS = 512  # the dense pool's chunk bound, in tokens of activations
 
 # K5/K6 at the four projections of a Mistral-7B block as the port serves
@@ -1521,13 +1565,17 @@ def check_graph_stats(label, stats) -> None:
         raise AssertionError(f"{label}: served steps did not all replay step programs without a late capture: {stats}")
 
 
-def profile_steps(backend, device) -> None:
+def profile_steps(backend, device, gen_params=None, smi="") -> None:
     """Where a step's time goes, beside the served span's backend (its
     weights, on a sibling backend, called directly, no RPC): a paged decode
     step at PROFILE_LANES lanes and a mixed step that also carries a
     PROFILE_CHUNK-token chunk, on fresh random pools, each run two ways:
     the eager block loop (host inputs uploaded per call, as the port ran
-    every step before its step programs) and the replayed step program."""
+    every step before its step programs) and the replayed step program.
+    With the client's leaves (``gen_params``), the generation step (every
+    lane generating, sampled) beside the decode step in place of the mixed
+    step, and the head and sampling's share of its device time: the
+    generation step's busy time less the decode step's, over the former."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1546,11 +1594,25 @@ def profile_steps(backend, device) -> None:
     steps = {
         "decode step, eager": lambda: sib._paged_decode_eager(hidden, pools, positions, tables),
         "decode step, replayed": lambda: sib.paged_decode_step(hidden, pools, positions, tables),
-        f"mixed step ({PROFILE_CHUNK}-token chunk), eager": lambda: sib._paged_mixed_eager(
-            hidden, pools, mixed_positions, tables, chunk, scalars[0:1], scalars[1], scalars[2]),
-        f"mixed step ({PROFILE_CHUNK}-token chunk), replayed": lambda: sib.paged_mixed_step(
-            hidden, pools, mixed_positions, tables, chunk, 0, 0),
     }
+    if gen_params is None:
+        steps.update({
+            f"mixed step ({PROFILE_CHUNK}-token chunk), eager": lambda: sib._paged_mixed_eager(
+                hidden, pools, mixed_positions, tables, chunk, scalars[0:1], scalars[1], scalars[2]),
+            f"mixed step ({PROFILE_CHUNK}-token chunk), replayed": lambda: sib.paged_mixed_step(
+                hidden, pools, mixed_positions, tables, chunk, 0, 0),
+        })
+    else:
+        vec, tokens, use_token = _gen_vectors(cfg.vocab_size, PROFILE_LANES, [True] * PROFILE_LANES, SEED + 6)
+        samp = sib._sampling_inputs(vec, device)
+        dev = [t.to(device) for t in (hidden.to(torch.bfloat16), tokens, use_token, positions, tables)]
+        steps.update({
+            "generation step, eager": lambda: sib._paged_gen_decode_eager(
+                gen_params, dev[0], dev[1], dev[2], pools, dev[3], dev[4], samp),
+            "generation step, replayed": lambda: sib.paged_gen_decode_step(
+                gen_params, hidden, tokens, use_token, pools, positions, tables, sampling_vecs=vec),
+        })
+    times = {}
     log(f"profile (--quant_type {sib.quant_type} --kv_quant_type {sib.kv_quant_type}): "
         f"{sib.n_blocks} blocks, {PROFILE_LANES} lanes at positions {positions.tolist()}")
     for label, fn in steps.items():
@@ -1579,6 +1641,7 @@ def profile_steps(backend, device) -> None:
         launches = sum(e.count for e in events if e.key.startswith(("cudaLaunchKernel", "cuLaunchKernel")))
         graph_launches = sum(e.count for e in events if e.key.startswith(("cudaGraphLaunch", "cuGraphLaunch")))
         span = statistics.median(spans)
+        times[label] = {"host_wall_ms": statistics.median(walls), "device_span_ms": span, "device_busy_ms": busy}
         log(f"{label}: host wall {statistics.median(walls):.3f} ms (median of {PROFILE_REPS}; device span "
             f"{span:.3f} ms, CUDA events around the call); profiled, per call over "
             f"{PROFILE_CALLS}: host wall {prof_wall:.3f} ms, device busy {busy:.3f} ms, idle share "
@@ -1590,6 +1653,13 @@ def profile_steps(backend, device) -> None:
                 log(f"{label}: {kernel} {t / 1e3 / PROFILE_CALLS:.3f} ms a call, "
                     f"{t / 1e3 / PROFILE_CALLS / busy:.3f} of device busy")
         log(events.table(sort_by="self_device_time_total", row_limit=10, max_name_column_width=60))
+    if gen_params is not None:
+        gen, dec = times["generation step, replayed"], times["decode step, replayed"]
+        share = (gen["device_busy_ms"] - dec["device_busy_ms"]) / gen["device_busy_ms"]
+        log(f"profile (--quant_type {sib.quant_type}): the replayed generation step's device busy "
+            f"{gen['device_busy_ms']:.3f} ms beside the decode step's {dec['device_busy_ms']:.3f} ms: the embedding, "
+            f"float32 head and sampling take {share:.3f} of it ({gen['device_busy_ms'] - dec['device_busy_ms']:.3f} ms); "
+            f"host wall {gen['host_wall_ms']:.3f} vs {dec['host_wall_ms']:.3f} ms ({smi})")
 
 
 def dense_reference_params(block_params, dtype):
@@ -2084,7 +2154,9 @@ class ClientRecorder:
     """Wraps a port DistributedModelForCausalLM: per inference session, each
     step's input hidden states (the embeddings the client sent), its
     hypo_ids, its round trip and the float32 logits the client read after
-    it; per generate() call, the time to its first token's logits; the
+    it, and each server-side generation call (``generate_remote``: its
+    input, the tokens asked and returned, its round trip, its sampling
+    dict); per generate() call, the time to its first token's logits; the
     embed and head (logits to the host) times."""
 
     def __init__(self, model):
@@ -2095,7 +2167,7 @@ class ClientRecorder:
 
         def inference_session(**kwargs):
             session = open_session(**kwargs)
-            entry = {"steps": [], "hypos": [], "logits": [], "step_s": []}
+            entry = {"steps": [], "hypos": [], "logits": [], "step_s": [], "thread": threading.get_ident()}
             self.sessions.append(entry)
             step = session.step
 
@@ -2110,6 +2182,17 @@ class ClientRecorder:
                 return out
 
             session.step = timed_step
+            entry["gen"] = []
+            generate_remote = session.generate_remote
+
+            def timed_generate_remote(hidden, n_tokens, embed_fn, sampling=None):
+                t0 = time.perf_counter()
+                tokens = generate_remote(hidden, n_tokens, embed_fn, sampling=sampling)
+                entry["gen"].append({"hidden": hidden.detach().float().cpu(), "asked": n_tokens, "tokens": tokens,
+                                     "s": time.perf_counter() - t0, "sampling": sampling})
+                return tokens
+
+            session.generate_remote = timed_generate_remote
             return session
 
         def timed_embed(ids):
@@ -2245,13 +2328,14 @@ def check_client_streams(label, entries, block_params, ckpt, device):
     return failed
 
 
-def drive_client(label, ckpt, device, smi, server_args, runs, place_check=None):
+def drive_client(label, ckpt, device, smi, server_args, runs, place_check=None, after_runs=None):
     """Port servers built by the CLI (``server_args``: each one's span
     arguments), joined through a port DHT bootstrap on a loop thread of
     their own; then the port client, from_pretrained on the card, runs
     ``runs(model)`` (which returns the streams to check). The kernels'
     launch counters are set to 0 just before the client's runs and read
-    just after. Returns (the recorder, the streams, the launch counts, the
+    just after; ``after_runs(servers)`` is called then, the servers still
+    serving. Returns (the recorder, the streams, the launch counts, the
     servers' block params)."""
     from petals_tpu_torch.cli.run_server import build_parser, build_server
     from petals_tpu_torch.client import AutoDistributedModelForCausalLM
@@ -2291,6 +2375,8 @@ def drive_client(label, ckpt, device, smi, server_args, runs, place_check=None):
             _reset_launch_counts()
             streams = runs(model, rec)
             launches = dict(_launch_counts(), K5=_quant_launches())
+            if after_runs is not None:
+                after_runs(servers)
             for server in servers:
                 check_graph_stats(f"{label}: server at [{server.first_block}, "
                                   f"{server.first_block + server.num_blocks})", server.batcher.stats)
@@ -2405,7 +2491,10 @@ def serve_qwen2_and_check(root, device, smi):
         return [(rec.sessions[-1], "greedy", out, CLIENT_PROMPT)]
 
     rec, streams, launches, params = drive_client(
-        label, cut, device, smi, [("--first_block", "0", "--num_blocks", str(QWEN_SPAN), "--quant_type", "nf4a")], runs,
+        label, cut, device, smi,
+        # the per-token path, as before server-side generation (phase 16 drives that)
+        [("--first_block", "0", "--num_blocks", str(QWEN_SPAN), "--quant_type", "nf4a", "--no_server_side_generation")],
+        runs,
     )
     _client_timing_line(label, rec, streams[0][0], smi)
     log(f"{label}: launches during the client's run {launches}; served runs: bf16 K1 {counts['none']['K1']}, "
@@ -2417,6 +2506,442 @@ def serve_qwen2_and_check(root, device, smi):
     if failed:
         raise AssertionError("; ".join(failed))
     return counts, launches
+
+
+def _gen_vectors(vocab, n_lanes, generating, seed):
+    """Sampling vectors, previous tokens and use_token for a generation
+    step: the generating lanes alternate greedy, sampled (GEN_SAMPLING) and
+    greedy under GEN_PENALTY over a random seen mask."""
+    from petals_tpu_torch.ops.sampling import sampling_vectors
+
+    gen = torch.Generator().manual_seed(seed)
+    vec = sampling_vectors(n_lanes, vocab)
+    for lane in range(n_lanes):
+        if lane % 3 == 1:
+            vec["do_sample"][lane] = True
+            vec["temperature"][lane] = GEN_SAMPLING["temperature"]
+            vec["top_k"][lane] = GEN_SAMPLING["top_k"]
+            vec["top_p"][lane] = GEN_SAMPLING["top_p"]
+        elif lane % 3 == 2:
+            vec["repetition_penalty"][lane] = GEN_PENALTY
+            vec["seen_mask"][lane] = (torch.rand(vocab, generator=gen) < 0.01).numpy()
+    vec["seeds"][:] = torch.randint(0, 2**31 - 1, (n_lanes,), generator=gen).numpy()
+    vec["draw_idx"][:] = torch.randint(0, 64, (n_lanes,), generator=gen).numpy()
+    tokens = torch.randint(0, vocab, (n_lanes,), generator=gen)
+    use_token = torch.tensor(generating)
+    return vec, tokens * use_token, use_token
+
+
+def check_gen_step_program(backend, gen_params, device, label) -> dict:
+    """The generation step's program against its eager loop (as phase 15
+    holds the decode step): on a sibling of the served backend, seeded pools
+    at PROFILE_LANES lanes on 1024-token tables, four steps whose lanes
+    generate (greedy, sampled, penalised) or decode a hidden state, each
+    replayed and run through the eager loop on a clone of the pools, the
+    next step feeding the tokens the last one picked. Hidden states, tokens
+    and every pool byte must be bit-equal; one capture, a replay a step."""
+    sib = sibling_backend(backend)
+    cfg, max_pages = sib.cfg, 1024 // PAGE
+    replayed = _random_pools(sib, device, PROFILE_LANES * max_pages, SEED + 16)
+    eager = _clone_pools(replayed)
+    tables = torch.arange(PROFILE_LANES * max_pages, dtype=torch.int32).reshape(PROFILE_LANES, max_pages)
+    positions = torch.tensor([64, 362, 661, 960], dtype=torch.int32)[:PROFILE_LANES]
+    gen = torch.Generator().manual_seed(SEED + 17)
+    generating = [lane != 1 for lane in range(PROFILE_LANES)]  # lane 1 decodes a hidden state
+    vec, tokens, use_token = _gen_vectors(cfg.vocab_size, PROFILE_LANES, generating, SEED + 16)
+    for step in range(4):
+        hidden = torch.randn(PROFILE_LANES, 1, cfg.hidden_size, generator=gen)
+        got_h, got_t, _ = sib.paged_gen_decode_step(gen_params, hidden, tokens, use_token, replayed, positions, tables,
+                                                    sampling_vecs=vec)
+        samp = sib._sampling_inputs(vec, device)
+        want_h, want_t = sib._paged_gen_decode_eager(
+            gen_params, hidden.to(torch.bfloat16).to(device), tokens.to(device), use_token.to(device), eager,
+            positions.to(device), tables.to(device), samp)
+        torch.cuda.synchronize()
+        if not (torch.equal(got_h, want_h) and torch.equal(got_t, want_t)):
+            raise AssertionError(f"{label}: replayed generation step {step} differs from its eager loop "
+                                 f"(tokens {got_t.tolist()} vs {want_t.tolist()})")
+        if not all(torch.equal(g, w) for g, w in zip(_pool_tensors(replayed), _pool_tensors(eager))):
+            raise AssertionError(f"{label}: replayed generation step {step} wrote other pool bytes than its eager loop")
+        tokens = torch.where(use_token, got_t.cpu(), 0)
+        positions = positions + 1
+        vec["draw_idx"] += 1
+    stats = sib.step_program_stats()
+    log(f"{label}: the generation step program bit-equal to its eager loop over 4 steps (hidden, tokens, pool "
+        f"bytes; lanes generating greedy / sampled / penalised and one decoding); {stats}")
+    if stats != {"graph_captures": 1, "graph_replays": 4, "graph_anomalies": 0}:
+        raise AssertionError(f"{label}: expected 1 capture and 4 replays of the generation step, got {stats}")
+    return stats
+
+
+def _gen_input_faults(gen_calls, tokens, prompt_len, embed):
+    """What the client sent on its fast path, held to its tokens: the first
+    call's input is the embeddings of the prompt, each later one the
+    embedding of the last token of the chunk before; the chunks' tokens laid
+    end to end are the stream's new tokens."""
+    faults, at = [], prompt_len
+    for i, call in enumerate(gen_calls):
+        want = embed[torch.as_tensor(tokens[:, :prompt_len] if i == 0 else tokens[:, at - 1 : at])].float()
+        if not torch.equal(call["hidden"], want):
+            faults.append(f"chunk {i}'s input is not the embeddings of the tokens before it")
+        got = call["tokens"]
+        if got is None or not (tokens[:, at : at + got.shape[1]] == got).all():
+            faults.append(f"chunk {i}'s tokens are not the stream's")
+            break
+        at += got.shape[1]
+    if at != tokens.shape[1]:
+        faults.append(f"the chunks hold {at - prompt_len} of the stream's {tokens.shape[1] - prompt_len} new tokens")
+    return faults
+
+
+def _draw(logits, seen, kwargs, i):
+    """The client's pick of new token ``i`` from float64 logits [1, vocab]:
+    the repetition penalty over ``seen``, then argmax, or the inverse-CDF
+    draw of ``uniform_for_draw(seed, i)`` on its numpy pipeline (as its
+    per-token fallback draws). Returns (token, the penalized logits [vocab],
+    the CDF or None, u or None)."""
+    import numpy as np
+
+    from petals_tpu_torch.client.remote_generation import (
+        _softmax,
+        _warp_scores,
+        apply_repetition_penalty,
+        uniform_for_draw,
+    )
+
+    z = apply_repetition_penalty(logits, seen, float(kwargs.get("repetition_penalty", 1.0)))
+    if not kwargs.get("do_sample"):
+        return int(z[0].argmax()), z[0], None, None
+    warp = dict(temperature=kwargs["temperature"], top_k=kwargs.get("top_k"), top_p=kwargs.get("top_p"))
+    cdf = np.cumsum(_softmax(_warp_scores(z, **warp))[0])
+    u = uniform_for_draw(kwargs["seed"] % (1 << 31), i)
+    return min(int((cdf < u).sum()), cdf.shape[0] - 1), z[0], cdf, u
+
+
+def _off_interval(cdf, tok, u) -> float:
+    """How far ``u`` lies outside token ``tok``'s CDF interval (0 inside)."""
+    lo = cdf[tok - 1] if tok > 0 else 0.0
+    return float(max(lo - u, u - cdf[tok], 0.0))
+
+
+def check_gen_streams(label, entries, replayed, block_params, ckpt, device):
+    """Each server-generated stream held two ways.
+
+    The server's own logits: ``replayed`` holds, per stream (None for one
+    whose prefill rode other chunks), the float32 logits the client read
+    when it fed the same tokens through the same server per token (the
+    decode step program, the same lanes and pages as the generation step
+    program, whose blocks it shares). Every new token must be the client's
+    pick on them (``_draw``: the penalty, then argmax or the inverse-CDF
+    draw of ``uniform_for_draw(seed, i)``), but for a tie within float
+    rounding of a boundary (a logit within GEN_TIE_LOGIT of the maximum, or
+    ``u`` within GEN_TIE_CDF of the token's CDF interval): exact sampling,
+    checked on the card.
+
+    A dense reference: the prompt and every new token but the last,
+    embedded, in one chunk through the served blocks in bf16 and float32,
+    then the final norm and a float32 head (the network is causal, so a
+    chunk's row i sees what step i saw). ``eps`` is REPLY_NOISE_FACTOR times
+    the stream's largest |bf16 - float32| reference logit difference. A
+    greedy token's float32 reference logit (after the penalty) must lie
+    within ``eps`` of the maximum. A sampled token is the float32
+    reference's draw, or a tie where ``u`` lies within the step's CDF noise
+    (REPLY_NOISE_FACTOR times the bf16 and float32 references' largest CDF
+    difference) of the token's interval, or beyond it; at random bf16
+    weights the noise moves many draws, so these are counted and printed,
+    and at least half of a stream's draws must be the reference's (a wrong
+    uniform stream agrees on about one in ten).
+    ``entries``: (recorded session, tokens, prompt length, generate
+    kwargs). Returns (what failed, counts: tokens held to the server's own
+    logits and their ties, sampled draws, those the dense reference moved
+    within and beyond its noise)."""
+    import numpy as np
+
+    from petals_tpu_torch.server.from_pretrained import get_block_config
+
+    family, cfg = get_block_config(ckpt)
+    embed, ref_logits = _reference_head(ckpt, device)
+    params = {dt: dense_reference_params(block_params, dt) for dt in (torch.bfloat16, torch.float32)}
+    failed = []
+    counts = dict.fromkeys(("own", "own_ties", "draws", "near", "beyond"), 0)
+    for n, ((session, tokens, prompt_len, kwargs), own) in enumerate(zip(entries, replayed)):
+        name = f"{label}: stream {n} ({kwargs or 'greedy'}, {tokens.shape[1] - prompt_len} tokens)"
+        faults = _gen_input_faults(session["gen"], tokens, prompt_len, embed)
+        failed += [f"{name}: {f}" for f in faults]
+        x = embed[torch.as_tensor(tokens[:, :-1])].float()
+        logits = {}
+        for dt, p in params.items():
+            out = reference_session(p, family, cfg, x, [], device, dt)[0][0]
+            logits[dt] = ref_logits(out[0, prompt_len - 1 :]).cpu().double().numpy()
+        noise = np.abs(logits[torch.bfloat16] - logits[torch.float32]).max()
+        eps = REPLY_NOISE_FACTOR * noise
+        sampled = bool(kwargs.get("do_sample"))
+        worst, agree, near, beyond, own_ties, own_worst = 0.0, 0, 0, 0, 0, 0.0
+        for i, tok in enumerate(int(t) for t in tokens[0, prompt_len:]):
+            seen = tokens[:, : prompt_len + i]
+            if own is not None:
+                counts["own"] += 1
+                pick, z, cdf, u = _draw(own[i : i + 1], seen, kwargs, i)
+                if pick != tok:
+                    miss = float(z.max() - z[tok]) if cdf is None else _off_interval(cdf, tok, u)
+                    own_worst = max(own_worst, miss)
+                    if miss <= (GEN_TIE_CDF if sampled else GEN_TIE_LOGIT):
+                        own_ties += 1
+                    else:
+                        failed.append(f"{name}: token {i} is {tok}, the pick on the server's own logits {pick} "
+                                      f"({'u' if sampled else 'logit'} {miss:.3e} off)")
+            ref, z, cdf32, u = _draw(logits[torch.float32][i : i + 1], seen, kwargs, i)
+            if not sampled:
+                worst = max(worst, z.max() - z[tok])
+                continue
+            counts["draws"] += 1
+            if ref == tok:
+                agree += 1
+                continue
+            cdf16 = _draw(logits[torch.bfloat16][i : i + 1], seen, kwargs, i)[2]
+            if _off_interval(cdf32, tok, u) <= REPLY_NOISE_FACTOR * np.abs(cdf16 - cdf32).max():
+                near += 1
+            else:
+                beyond += 1
+        counts["near"] += near
+        counts["beyond"] += beyond
+        counts["own_ties"] += own_ties
+        line = f"{name}: reference bf16 vs float32 logits max {noise:.3e}"
+        if own is not None:
+            line += (f"; every token the client's pick on the server's own logits but {own_ties} ties "
+                     f"(worst {own_worst:.2e} off)")
+        if sampled:
+            line += (f"; {agree} of {len(tokens[0]) - prompt_len} draws the dense float32 reference's, {near} within "
+                     f"the step's CDF noise of it, {beyond} beyond")
+            if agree * 2 < len(tokens[0]) - prompt_len:
+                failed.append(f"{name}: only {agree} draws agree with the dense reference's")
+        else:
+            line += f"; each token's float32 reference logit at most {worst:.3e} below the max (tol {eps:.3e})"
+            if worst > eps:
+                failed.append(f"{name}: a greedy token's reference logit is {worst:.3e} below the max (> {eps:.3e})")
+        if not faults:
+            line += "; the client's inputs and the chunks held to the tokens"
+        log(line)
+    return failed, counts
+
+
+def _server_logits(model, tokens, prompt_len, max_length=None):
+    """The float32 logits [new tokens, vocab] the client reads when it feeds
+    ``tokens`` (but the last) through the server per token, float64 on the
+    host: what the server computed for each generated token. ``max_length``
+    past the lanes' length puts the session on a private cache."""
+    import numpy as np
+
+    with model.remote.inference_session(max_length=max_length or tokens.shape[1]) as session:
+        outs = [session.step(model.embed(tokens[:, :prompt_len]))[:, -1:]]
+        for i in range(prompt_len, tokens.shape[1] - 1):
+            outs.append(session.step(model.embed(tokens[:, i : i + 1])))
+    return np.concatenate([model._host_logits(o) for o in outs]).astype(np.float64)
+
+
+def serve_gen_and_check(ckpt, device, smi, quant_type) -> None:
+    """Phase 16: server-side generation on the card. One port server built
+    by the CLI serves every block of the 8-layer cut of the checkpoint (a
+    whole model, cut in depth), with ``--quant_type``, GEN_LANES lanes in
+    a GEN_CACHE_TOKENS budget; the port client runs, through its fast path:
+    greedy GEN_NEW tokens from a GEN_PROMPT-token prompt; seeded sampling
+    (GEN_SAMPLING) twice, whose streams must be identical; greedy under
+    GEN_PENALTY; seeded sampling in a session longer than a lane
+    (GEN_PRIVATE_MAX_LENGTH: a private cache, ``generate_tokens``' loop);
+    greedy GEN_LONG_NEW tokens alone (the fast path's time per
+    token: its chunks after the first); the per-token path alone (a
+    pass-through logits processor keeps the client on it: the server's
+    per-token round trip); then GEN_SESSIONS concurrent generating sessions
+    (GEN_LONG_NEW tokens, greedy and sampled) beside one per-token session
+    and a GEN_LATE_PROMPT-token prompt that arrives once they all generate,
+    in one pool. Every generation step must replay the step program, with
+    K1 on every block and, with nf4a weights, K5's decode kernel on every
+    projection (counted around each call); no capture after warm-up;
+    gen_steps > 0 and max_gen_lanes >= GEN_SESSIONS; a prefill chunk must
+    have ridden a mixed step while lanes generated. Every stream is checked
+    (check_gen_streams, check_client_streams for the per-token ones); the
+    generation step's program is held bit-equal to its eager loop and
+    profiled beside the decode step."""
+    import concurrent.futures
+
+    from petals_tpu_torch.ops import paged_flash_attention as pfa
+    from petals_tpu_torch.ops import quant_matmul as qmm
+
+    label = f"server-side generation (one port server, --quant_type {quant_type}, {SPAN} Mistral-7B blocks)"
+    dst = os.path.join(ckpt, f"mistral-7b-{SPAN}-layers-gen-{quant_type}")
+    cut = cut_checkpoint(ckpt, dst, SPAN)
+    held, per_call, mixed_beside_gen, private_calls = [], [], [], []
+    step_walls = {"_run_batch_gen": [], "_run_batch": []}  # the batcher's step bodies, host wall in ms
+
+    def place(servers):
+        (server,) = servers
+        held.append(server)
+        backend, batcher = server.backend, server.batcher
+        if server.server_gen_params is None or not batcher.gen_params:
+            raise AssertionError(f"{label}: the whole-model server holds no client leaves")
+        nbytes = sum(t.numel() * t.element_size() for t in server.server_gen_params.values())
+        log(f"{label}: client leaves {nbytes / 2**30:.3f} GiB on the card beside the weights, outside the "
+            f"{server.memory_cache.max_size_bytes / 2**20:.1f} MiB KV budget; announce server_gen "
+            f"{server._server_info(server._state).server_gen}")
+        step, run_mixed = backend.paged_gen_decode_step, batcher._run_batch_mixed
+
+        def counted(*args, **kwargs):
+            before = (pfa.paged_flash_attend.launches, qmm.quant_decode_matmul.launches.get("nf4a", 0),
+                      backend._gen_program.counts.captures, backend._gen_program.counts.replays)
+            out = step(*args, **kwargs)
+            after = (pfa.paged_flash_attend.launches, qmm.quant_decode_matmul.launches.get("nf4a", 0),
+                     backend._gen_program.counts.captures, backend._gen_program.counts.replays)
+            per_call.append(tuple(b - a for a, b in zip(before, after)))
+            return out
+
+        def mixed(batch, pf):
+            mixed_beside_gen.append(len(batcher._gen_states))
+            return run_mixed(batch, pf)
+
+        backend.paged_gen_decode_step, batcher._run_batch_mixed = counted, mixed
+        generate_tokens = backend.generate_tokens
+
+        def private(*args, **kwargs):
+            private_calls.append(args[4])
+            return generate_tokens(*args, **kwargs)
+
+        backend.generate_tokens = private
+        for name, walls in step_walls.items():
+            def timed(*args, _body=getattr(batcher, name), _walls=walls):
+                t0 = time.perf_counter()
+                out = _body(*args)
+                _walls.append((time.perf_counter() - t0) * 1e3)
+                return out
+
+            setattr(batcher, name, timed)
+
+    gen = torch.Generator().manual_seed(SEED + 16)
+
+    def ids(n):
+        return torch.randint(0, MISTRAL_7B["vocab_size"], (1, n), generator=gen).numpy()
+
+    def runs(model, rec):
+        first_call = len(per_call)
+        streams, per_token = [], []
+
+        def own_session():
+            """This thread's last session (threads generate at once below)."""
+            return [e for e in rec.sessions if e["thread"] == threading.get_ident()][-1]
+
+        def stream(prompt, new, **kwargs):
+            out = model.generate(prompt, max_new_tokens=new, **kwargs)
+            return (own_session(), out, prompt.shape[1], kwargs)
+
+        def per_token_stream(prompt, new):
+            # a pass-through logits processor keeps the client on its per-token path
+            out = model.generate(prompt, max_new_tokens=new, logits_processor=[lambda ids_, scores: scores])
+            return (own_session(), "greedy", out, prompt.shape[1])
+
+        streams.append(stream(ids(GEN_PROMPT), GEN_NEW))
+        prompt = ids(64)
+        a, b = stream(prompt, GEN_NEW, **GEN_SAMPLING), stream(prompt, GEN_NEW, **GEN_SAMPLING)
+        if not (a[1] == b[1]).all():
+            raise AssertionError(f"{label}: two seeded sampling runs gave different streams")
+        streams.append(a)
+        streams.append(stream(ids(64), GEN_NEW, repetition_penalty=GEN_PENALTY))
+        # a session longer than a lane: a private cache, generate_tokens' loop
+        with model.inference_session(max_length=GEN_PRIVATE_MAX_LENGTH):
+            private_stream = stream(ids(64), GEN_NEW, **GEN_SAMPLING)
+        g0 = len(step_walls["_run_batch_gen"])
+        alone = stream(ids(64), GEN_LONG_NEW)
+        streams.append(alone)
+        d0 = len(step_walls["_run_batch"])
+        per_token.append(per_token_stream(ids(64), GEN_NEW))
+        alone_per_token = per_token[0][0]
+        # the batcher's step bodies alone: generation steps, then decode steps
+        walls = (step_walls["_run_batch_gen"][g0:], step_walls["_run_batch"][d0:])
+        server = held[0]
+        prompts = [ids(64) for _ in range(GEN_SESSIONS)]
+        late, solo = ids(GEN_LATE_PROMPT), ids(64)
+
+        def late_prompt():
+            t0 = time.perf_counter()
+            while len(server.batcher._gen_states) < GEN_SESSIONS:
+                if time.perf_counter() - t0 > 60:
+                    raise AssertionError(f"{label}: the {GEN_SESSIONS} sessions never generated together")
+                time.sleep(0.0005)
+            return stream(late, GEN_NEW)
+
+        with concurrent.futures.ThreadPoolExecutor(GEN_SESSIONS + 2) as pool:
+            gens = [pool.submit(stream, p, GEN_LONG_NEW, **(dict(GEN_SAMPLING, seed=i) if i % 2 else {}))
+                    for i, p in enumerate(prompts)]
+            tok = pool.submit(per_token_stream, solo, GEN_NEW)
+            late_f = pool.submit(late_prompt)
+            together = [f.result(timeout=600) for f in gens]
+            per_token.append(tok.result(timeout=600))
+            streams += together + [late_f.result(timeout=600)]
+        # each stream's tokens fed back per token: the server's own logits
+        # (the late prompt's prefill rode chunks cut under load: its rows
+        # are rounded otherwise, so it is held to the dense reference only)
+        replayed = [_server_logits(model, out, plen) for _, out, plen, _ in streams[:-1]] + [None]
+        streams.append(private_stream)
+        replayed.append(_server_logits(model, private_stream[1], 64, GEN_PRIVATE_MAX_LENGTH))
+        calls = per_call[first_call:]
+        return {"streams": streams, "per_token": per_token, "calls": calls, "alone": alone,
+                "alone_per_token": alone_per_token, "together": together, "replayed": replayed,
+                "walls": walls}
+
+    def after(servers):
+        server = servers[0]
+        stats = server.batcher.stats
+        log(f"{label}: batcher stats {json.dumps(stats)}")
+        if not (stats["gen_steps"] > 0 and stats["max_gen_lanes"] >= GEN_SESSIONS):
+            raise AssertionError(f"{label}: gen_steps {stats['gen_steps']}, max_gen_lanes {stats['max_gen_lanes']}")
+
+    t0 = time.perf_counter()
+    rec, result, launches, params = drive_client(
+        label, cut, device, smi,
+        [("--first_block", "0", "--num_blocks", str(SPAN), "--quant_type", quant_type, "--batch_lanes",
+          str(GEN_LANES), "--attn_cache_tokens", str(GEN_CACHE_TOKENS))],
+        runs, place_check=place, after_runs=after,
+    )
+    calls = result["calls"]
+    k5_each = 4 * SPAN if quant_type == "nf4a" else 0
+    bad = [c for c in calls if c != (SPAN, k5_each, 0, 1)]
+    log(f"{label}: {len(calls)} generation steps during the runs, each (K1, K5 decode nf4a, captures, replays) "
+        f"= {(SPAN, k5_each, 0, 1)} but {len(bad)}; launches during the runs {launches}; prefill chunks riding a mixed "
+        f"step beside generating lanes: {sum(n > 0 for n in mixed_beside_gen)}")
+    if not calls or bad:
+        raise AssertionError(f"{label}: generation steps that were not one replay running K1 on every block"
+                             f"{' and K5 on every projection' if k5_each else ''}: {bad[:5]}")
+    if not any(n > 0 for n in mixed_beside_gen):
+        raise AssertionError(f"{label}: no prefill chunk rode a mixed step while lanes generated")
+    log(f"{label}: a private session's generation: generate_tokens ran {len(private_calls)} chunks "
+        f"({sum(private_calls)} tokens)")
+    if not private_calls:
+        raise AssertionError(f"{label}: the private session did not generate through generate_tokens")
+
+    # the fast path's time per token: chunks after the first (one fed token, 32 generated)
+    def per_token_ms(entries):
+        return statistics.median(c["s"] / c["tokens"].shape[1] * 1e3 for e in entries for c in e[0]["gen"][1:])
+
+    alone, together = per_token_ms([result["alone"]]), per_token_ms(result["together"])
+    step_ms = [t * 1e3 for t in result["alone_per_token"]["step_s"][1:]]
+    gen_walls, dec_walls = result["walls"]
+    log(f"{label}: the batcher's step bodies at one session (host wall on the compute thread, inputs built, "
+        f"replay, results to the host; median): generation step {statistics.median(gen_walls):.3f} ms over "
+        f"{len(gen_walls)}, decode step {statistics.median(dec_walls):.3f} ms over {len(dec_walls)} ({smi})")
+    log(f"{label}: client time per generated token on the fast path (a chunk's round trip over its tokens, chunks "
+        f"after the first, median): {alone:.3f} ms for 1 session, {together:.3f} ms for {GEN_SESSIONS} concurrent "
+        f"sessions; the same server's per-token round trip (session.step, 1 session, {len(step_ms)} steps): median "
+        f"{statistics.median(step_ms):.3f} ms ({smi})")
+    failed, counts = check_gen_streams(label, result["streams"], result["replayed"], params, cut, device)
+    failed += check_client_streams(label + ", per token", result["per_token"], params, cut, device)
+    log(f"{label}: {len(result['streams'])} server-generated streams: {counts['own']} tokens held to the server's "
+        f"own logits, {counts['own_ties']} ties within float rounding; of {counts['draws']} sampled draws the dense "
+        f"reference's noise moved {counts['near']} within its CDF noise and {counts['beyond']} beyond")
+    if failed:
+        raise AssertionError("; ".join(failed))
+    server = held[0]
+    check_gen_step_program(server.backend, server.server_gen_params, device, label)
+    profile_steps(server.backend, device, gen_params=server.server_gen_params, smi=smi)
+    log(f"{label}: phase done in {time.perf_counter() - t0:.1f} s")
+    held.clear()
 
 
 def free_card() -> None:
@@ -2532,6 +3057,10 @@ def main() -> int:
         # Qwen2.5-7B's widths: served in bf16 and nf4a, then the client
         serve_qwen2_and_check(ckpt, device, smi)
         free_card()
+        # server-side generation: one port server of the 8-block cut, bf16 then nf4a
+        for quant_type in ("none", "nf4a"):
+            serve_gen_and_check(ckpt, device, smi, quant_type)
+            free_card()
     flash_kernel["launches"] = private_launches["K4"]
     kernels[0]["launches"] = bf16_launches["K1"]
     kernels[1]["launches"] = bf16_launches["K2"]

@@ -12,7 +12,8 @@ petals_tpu's: bf16, ``--quant_type none``, ``--kv_quant_type none``,
 ``--page_size 64``, ``--prefill_token_budget 512``, ``--throughput auto``
 (measured on the card, server/throughput.py, and cached under
 ``$PETALS_TPU_TORCH_CACHE``, default ~/.cache/petals_tpu_torch), an
-announce every 30 seconds,
+announce every 30 seconds, server-side generation on a whole-model span
+(``--no_server_side_generation`` turns it off),
 and an 8192-token KV budget (in floating-point bytes, whatever the pool's
 encoding, as petals_tpu converts it).
 """
@@ -92,6 +93,9 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--prefill_token_budget", type=int, default=512,
                         help="Max prefill-chunk tokens folded into each mixed batched step "
                              "(halved under decode pressure)")
+    parser.add_argument("--no_server_side_generation", action="store_true",
+                        help="Do not generate tokens on the server (a whole-model span otherwise "
+                             "loads the client's leaves and answers gen_tokens)")
     return parser
 
 
@@ -149,6 +153,7 @@ def build_server(args: argparse.Namespace) -> Server:
         prefill_token_budget=args.prefill_token_budget,
         quant_type=args.quant_type,
         kv_quant_type=args.kv_quant_type,
+        server_side_generation=not args.no_server_side_generation,
     )
 
 

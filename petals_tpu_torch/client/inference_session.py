@@ -10,6 +10,13 @@
   keeping the healthy sessions and their caches, and replays the recorded
   history through the new span (``_replay_step``), so every replacement
   server re-prefills its cache and generation continues unnoticed.
+- ``generate_remote``: over a route of one span covering the whole model
+  whose server announces ``server_gen`` (``server_gen_sampling`` for a
+  ``sampling`` dict), the server generates a chunk of tokens in one step
+  (``step_generate``); the session records the embeddings of the tokens the
+  server fed, so a replay rebuilds the same cache. A failure mid-chunk
+  tears the route down and repairs it by replay, and the caller goes on
+  per token.
 
 Hidden states are CPU tensors on the wire side (``rpc/serialization.py``).
 
@@ -17,9 +24,9 @@ Left out, each with the slice that takes it (ROADMAP.md): ``import_kv``,
 ``adopt_kv``, ``_try_export``, ``_seed_by_import`` / ``_seed_by_adopt``,
 ``_maybe_upgrade_route`` / ``_migrate_to``, ``_maybe_phase_handoff`` and
 the server-to-server push wiring (``_wire_push_chain``,
-``_wire_repair_pushes``): A9; without push wiring the client relays every
-hop, and a repair always replays. ``generate_remote`` /
-``server_gen_available``: A5. ``IntegrityMonitor``, ``HopTrace``'s
+``_wire_repair_pushes``) and the route-upgrade check after a generated
+chunk (``_maybe_check_route_upgrade``): A9; without push wiring the client
+relays every hop, and a repair always replays. ``IntegrityMonitor``, ``HopTrace``'s
 waterfall, ``trace_report`` and the flight recorder: A11; a hop keeps only
 what routing blame and ``usage_report`` read (``_Hop``).
 """
@@ -31,8 +38,9 @@ import hashlib
 import logging
 import time
 import uuid
-from typing import List, Optional, Sequence
+from typing import Callable, List, Optional, Sequence
 
+import numpy as np
 import torch
 
 import petals_tpu_torch
@@ -207,6 +215,44 @@ class _ServerInferenceSession:
         self.history.append((hidden, hypo_ids))
         return out
 
+    async def step_generate(
+        self,
+        hidden,
+        n_tokens: int,
+        embed_fn: Callable,
+        *,
+        start_from_position: Optional[int] = None,
+        step_id: Optional[str] = None,
+        sampling: Optional[dict] = None,
+    ) -> np.ndarray:
+        """Feed ``hidden`` and have the server generate ``n_tokens`` tokens
+        after it (a whole-model server announcing ``server_gen``): greedy,
+        or under a ``gen_sampling`` dict. Returns the token ids [1, n] int64,
+        n the count the server answered (it clamps). ``embed_fn(tokens)``
+        gives the embeddings of the tokens the server fed itself (all but the
+        last), recorded into the history, so a replay onto any server
+        rebuilds the same cache."""
+        hidden = as_tensor(hidden)
+        if start_from_position is not None:
+            self._rollback_history(start_from_position)
+        msg = {"tensors": {"hidden": serialize_array(hidden, self.compression)}, "gen_tokens": int(n_tokens)}
+        if sampling is not None:
+            msg["gen_sampling"] = sampling
+        if step_id is not None:
+            msg["step_id"] = step_id
+        if start_from_position is not None:
+            msg["start_from_position"] = int(start_from_position)
+        t_rpc = time.perf_counter()
+        await self.stream.send(msg)
+        reply = await self.stream.recv(timeout=self.step_timeout)
+        tokens = np.asarray(reply["tokens"], np.int64)[None]
+        self.hop.record(time.perf_counter() - t_rpc, reply.get("step_meta"))
+        self.position = reply["position"]
+        self.history.append((hidden, None))
+        if tokens.shape[1] > 1:
+            self.history.append((as_tensor(embed_fn(tokens[:, :-1])), None))
+        return tokens
+
     def _rollback_history(self, new_position: int) -> None:
         self.position = new_position
         kept, total = [], 0
@@ -334,6 +380,69 @@ class InferenceSession:
         self._tokens += n_input_tokens
         self._phase = "decode"  # repairs after the first step route decode-ward
         return inputs
+
+    def _spans_support_server_gen(self, spans, sampling: bool = False) -> bool:
+        """One span covering every block, announcing ``server_gen`` (or,
+        for ``sampling``, ``server_gen_sampling``)."""
+        if len(spans) != 1:
+            return False
+        span = spans[0]
+        flag = "server_gen_sampling" if sampling else "server_gen"
+        return span.start == 0 and span.end == self.num_blocks and bool(getattr(span.server_info, flag, False))
+
+    def server_gen_available(self, sampling: bool = False) -> bool:
+        """Whether the CURRENT route generates on the server; meaningful
+        once a route exists."""
+        if len(self._sessions) != 1 or self._sessions[0].closed:
+            return False
+        return self._spans_support_server_gen([s.span for s in self._sessions], sampling=sampling)
+
+    async def generate_remote(self, hidden, n_tokens: int, embed_fn: Callable,
+                              sampling: Optional[dict] = None) -> Optional[np.ndarray]:
+        """Feed ``hidden`` and have the whole-model server generate
+        ``n_tokens`` tokens (greedy, or under a ``gen_sampling`` dict).
+        Returns their ids [1, n] (n may be fewer: the server clamps), or
+        None when the route cannot generate and nothing was sent. On a
+        failure mid-generation the server's cache may have run ahead of
+        this session's view: the route is repaired by replaying the
+        recorded history onto a fresh chain (the one repair that is always
+        consistent) and None returned, so the caller goes on per token."""
+        assert not self._closed
+        hidden = as_tensor(hidden)
+        n_input = hidden.shape[1]
+        if self._position + n_input + n_tokens - 1 > self.max_length:
+            return None
+        await self._ensure_route(hidden)
+        if not self.server_gen_available(sampling=sampling is not None):
+            return None
+        session = self._sessions[0]
+        rollback = self._position if session.position > self._position else None
+        try:
+            tokens = await session.step_generate(
+                hidden, n_tokens, embed_fn, start_from_position=rollback, step_id=uuid.uuid4().hex,
+                sampling=sampling,
+            )
+        except Exception as e:
+            logger.warning(f"Server-side generation failed (falling back to the per-token path): {e!r}")
+            self.seq_manager.on_request_failure(session.span.peer_id)
+            try:
+                await self._repair_chain(0)
+            except Exception as repair_err:
+                # without the replay the servers' caches are empty past this
+                # point: continuing would generate garbage, so fail loudly
+                raise RuntimeError(
+                    "server-side generation failed and the chain could not be repaired; "
+                    "the session cannot continue consistently"
+                ) from repair_err
+            return None
+        self.seq_manager.on_request_success(session.span.peer_id)
+        self._maybe_blame_hop(session)
+        # the server fed what it answered but the last token
+        fed = n_input + tokens.shape[1] - 1
+        self._position += fed
+        self._tokens += fed
+        self._phase = "decode"
+        return tokens
 
     def _backoff(self, attempt: int) -> float:
         config = self.seq_manager.config

@@ -9,13 +9,17 @@ The sampling loop, the penalties and beam scoring are numpy, as petals_tpu's
 are (``:62-175``): each step moves its last position's float32 logits to
 the host once. Seeded draws come from ``np.random.RandomState(seed)`` in
 petals_tpu's order, so a port client and a petals_tpu client emit the same
-seeded stream over the same servers, wherever neither takes a server-side
-path.
+seeded stream over the same servers on the per-token path.
 
-Left out until A5: the server-side fast paths (``_server_side_greedy``,
-``_server_side_sample``) and the Threefry draw contract
-(``uniform_for_draw``). The port's session has no ``generate_remote``, so
-every call runs the per-token loop.
+The server-side fast paths (petals_tpu's ``generate`` :327-375): over a
+route of one whole-model server that generates (``server_gen``), a batch-1
+call with no logits processor, stopping criterion, n-gram ban or
+``min_new_tokens`` asks the server for chunks of up to 32 tokens, one round
+trip each (``_server_side_greedy``; sampling and the repetition penalty in
+``_server_side_sample``, with the wire seed ``seed % 2**31``, or a random
+one). A sampled stream draws by inverse-CDF from ``uniform_for_draw(seed,
+i)``, petals_tpu's Threefry contract (ops/threefry.py), so a stream cut
+mid-chunk is finished per token on the same draws.
 """
 
 from __future__ import annotations
@@ -27,7 +31,16 @@ from typing import Optional
 import numpy as np
 import torch
 
+from petals_tpu_torch.ops import threefry
+
 logger = logging.getLogger(__name__)
+
+
+def uniform_for_draw(seed: int, draw_index: int) -> float:
+    """Draw ``draw_index`` of the server-side stream seeded ``seed``:
+    ``jax.random.uniform(fold_in(PRNGKey(seed), draw_index))``, bit for bit
+    (ops/threefry.py), as a server draws it."""
+    return float(threefry.uniform_for_draw(int(seed), int(draw_index)))
 
 
 def sample_next_token(
@@ -38,18 +51,25 @@ def sample_next_token(
     top_k: Optional[int] = None,
     top_p: Optional[float] = None,
     rng: Optional[np.random.RandomState] = None,
+    rng_key: Optional[tuple] = None,  # (seed, draw index): a server-side stream
 ) -> np.ndarray:
     """Pick the next token per row: argmax, or one draw per row from
     ``rng`` in row order, as petals_tpu's client draws, so a seeded port
-    client and a seeded petals_tpu client emit the same stream. Replaying
-    the server-gen stream (the Threefry contract of petals_tpu's
-    ``uniform_for_draw``) waits for A5."""
+    client and a seeded petals_tpu client emit the same stream.
+    ``rng_key`` replays the server-side stream instead: every row draws by
+    inverse-CDF against ``uniform_for_draw(*rng_key)``, as the server
+    would have (its streams are batch 1)."""
     if not do_sample or temperature == 0.0:  # temperature->0 is greedy by convention
         return logits.argmax(axis=-1)
 
     logits = _warp_scores(logits, temperature=temperature, top_k=top_k, top_p=top_p)
     probs = _softmax(logits)
     out = np.empty(logits.shape[0], dtype=np.int64)
+    if rng_key is not None:
+        u = uniform_for_draw(*rng_key)
+        for i in range(probs.shape[0]):
+            out[i] = min(int((probs[i].cumsum() < u).sum()), probs.shape[-1] - 1)
+        return out
     rng = rng or np.random
     for i in range(logits.shape[0]):
         out[i] = rng.choice(probs.shape[-1], p=probs[i])
@@ -312,7 +332,44 @@ class RemoteGenerationMixin:
                 )
             if streamer is not None:
                 streamer.put(input_ids)  # HF: the prompt goes first
-            out_hidden = session.step(self.embed(new_tokens))
+            hidden = self.embed(new_tokens)
+
+            # the server-side fast paths: chunks of tokens generated on a
+            # whole-model server, one round trip a chunk; what needs the
+            # logits on the client (processors, criteria, n-gram bans,
+            # min_new_tokens) keeps the per-token loop
+            fastpath_ok = (
+                logits_processor is None
+                and stopping_criteria is None
+                and not no_repeat_ngram_size
+                and (min_new_tokens or 0) == 0
+                and batch == 1
+                and hasattr(session, "generate_remote")
+            )
+            rep = 1.0 if repetition_penalty is None else float(repetition_penalty)
+            wants_sampling = do_sample and temperature != 0.0
+            if fastpath_ok and not wants_sampling and rep == 1.0:
+                result = self._server_side_greedy(
+                    session, hidden, generated, max_new_tokens,
+                    eos_token_id=eos_token_id, pad_token_id=pad_token_id, streamer=streamer,
+                )
+                if result is not None:
+                    return result
+                # nothing was sent: the per-token loop below starts over
+            elif fastpath_ok:
+                # the wire seed is the caller's, so a seeded stream repeats;
+                # an unseeded call draws one
+                wire_seed = int(seed) % (1 << 31) if seed is not None else int(rng.randint(1 << 31))
+                result = self._server_side_sample(
+                    session, hidden, generated, max_new_tokens,
+                    do_sample=wants_sampling, temperature=temperature, top_k=top_k, top_p=top_p,
+                    repetition_penalty=rep, wire_seed=wire_seed, eos_token_id=eos_token_id,
+                    pad_token_id=pad_token_id, streamer=streamer,
+                )
+                if result is not None:
+                    return result
+
+            out_hidden = session.step(hidden)
             logits = self._host_logits(out_hidden)
 
             finished = np.zeros(batch, dtype=bool)
@@ -355,6 +412,148 @@ class RemoteGenerationMixin:
         finally:
             if own_session:
                 session.close()
+
+    _SERVER_GEN_CHUNK = 32  # tokens a generating step asks for (the server may clamp)
+
+    def _server_side_greedy(self, session, hidden, generated, max_new_tokens, *, eos_token_id, pad_token_id,
+                            streamer):
+        """Greedy generation by the server, in chunks (petals_tpu's
+        ``_server_side_greedy``). Returns the final sequence, or None when
+        the route cannot generate and nothing was sent (the caller's
+        per-token loop takes over). A failure mid-stream finishes the tail
+        here, per token: plain argmax is the whole of this path."""
+        remaining = max_new_tokens
+        first = True
+        with_context = True
+        pending_hidden = hidden  # the unfed input of the next request
+        while remaining > 0:
+            want = min(self._SERVER_GEN_CHUNK, remaining)
+            pos_before = session.position
+            # a context-only gen_sampling is exact greedy on the wire (its
+            # defaults are argmax no-ops) and gives a server's draft model
+            # its window
+            sampling = {"context": [int(t) for t in generated[0]]} if with_context else None
+            tokens = session.generate_remote(pending_hidden, want, self.embed, sampling=sampling)
+            if tokens is None and first and with_context:
+                # a route announcing server_gen without server_gen_sampling
+                with_context = False
+                tokens = session.generate_remote(pending_hidden, want, self.embed)
+            if tokens is None:
+                if first:
+                    return None
+                break  # finish the tail per token below
+            first = False
+            got = tokens.shape[1]  # the server may clamp the chunk
+            if eos_token_id is not None:
+                eos_at = np.flatnonzero(tokens[0] == eos_token_id)
+                if eos_at.size:
+                    j = int(eos_at[0])
+                    tokens = tokens[:, : j + 1]
+                    # roll the servers back so the eos token is the pending,
+                    # unfed one (the resume convention)
+                    session.position = pos_before + pending_hidden.shape[1] + j
+                    remaining = 0
+            generated = np.concatenate([generated, tokens], axis=1)
+            if streamer is not None:
+                streamer.put(np.asarray(tokens[0]))
+            if remaining:
+                remaining -= got
+            if remaining <= 0:
+                if streamer is not None:
+                    streamer.end()
+                return generated
+            pending_hidden = self.embed(generated[:, -1:])  # the next chunk feeds the last token
+
+        # a failure mid-stream: plain per-token greedy for the tail
+        while remaining > 0:
+            logits = self._host_logits(session.step(pending_hidden))
+            next_token = logits.argmax(-1).astype(generated.dtype)
+            generated = np.concatenate([generated, next_token[:, None]], axis=1)
+            if streamer is not None:
+                streamer.put(np.asarray(next_token))
+            remaining -= 1
+            if eos_token_id is not None and int(next_token[0]) == eos_token_id:
+                break
+            if remaining > 0:
+                pending_hidden = self.embed(generated[:, -1:])
+        if streamer is not None:
+            streamer.end()
+        return generated
+
+    def _server_side_sample(self, session, hidden, generated, max_new_tokens, *, do_sample, temperature, top_k,
+                            top_p, repetition_penalty, wire_seed, eos_token_id, pad_token_id, streamer):
+        """Sampling, or greedy with a repetition penalty, by the server, in
+        chunks (petals_tpu's ``_server_side_sample``): the greedy path's
+        protocol plus a ``gen_sampling`` dict. Each chunk's ``offset`` is the
+        count of tokens drawn so far, so a failure mid-stream finishes the
+        tail per token on the same draws (``sample_next_token``'s
+        ``rng_key``). Returns the final sequence, or None when the route
+        cannot serve it and nothing was sent."""
+        rep = float(repetition_penalty)
+        base = {
+            "do_sample": bool(do_sample),
+            "temperature": float(temperature),
+            "top_k": int(top_k or 0),
+            "top_p": float(top_p) if top_p is not None else 1.0,
+            "repetition_penalty": rep,
+            "seed": int(wire_seed),
+        }
+        draws = 0  # tokens drawn so far: the next draw index
+        remaining = max_new_tokens
+        first = True
+        pending_hidden = hidden
+        while remaining > 0:
+            want = min(self._SERVER_GEN_CHUNK, remaining)
+            pos_before = session.position
+            # the penalty's seen set (tokens drawn inside a chunk are added
+            # on the server)
+            sampling = dict(base, offset=draws, context=[int(t) for t in generated[0]])
+            tokens = session.generate_remote(pending_hidden, want, self.embed, sampling=sampling)
+            if tokens is None:
+                if first:
+                    return None
+                break  # finish the tail per token below
+            first = False
+            got = tokens.shape[1]
+            draws += got
+            if eos_token_id is not None:
+                eos_at = np.flatnonzero(tokens[0] == eos_token_id)
+                if eos_at.size:
+                    j = int(eos_at[0])
+                    tokens = tokens[:, : j + 1]
+                    session.position = pos_before + pending_hidden.shape[1] + j
+                    remaining = 0
+            generated = np.concatenate([generated, tokens], axis=1)
+            if streamer is not None:
+                streamer.put(np.asarray(tokens[0]))
+            if remaining:
+                remaining -= got
+            if remaining <= 0:
+                if streamer is not None:
+                    streamer.end()
+                return generated
+            pending_hidden = self.embed(generated[:, -1:])
+
+        # a failure mid-stream: per-token sampling on the stream's own draws
+        while remaining > 0:
+            logits = self._host_logits(session.step(pending_hidden))
+            scores = apply_repetition_penalty(logits, generated, rep)
+            next_token = sample_next_token(
+                scores, do_sample=do_sample, temperature=temperature, top_k=top_k, top_p=top_p,
+                rng_key=(wire_seed, draws),
+            ).astype(generated.dtype)
+            draws += 1
+            generated = np.concatenate([generated, next_token[:, None]], axis=1)
+            if streamer is not None:
+                streamer.put(np.asarray(next_token))
+            remaining -= 1
+            if eos_token_id is not None and int(next_token[0]) == eos_token_id:
+                break
+            if remaining > 0:
+                pending_hidden = self.embed(generated[:, -1:])
+        if streamer is not None:
+            streamer.end()
+        return generated
 
     def _beam_search(
         self,

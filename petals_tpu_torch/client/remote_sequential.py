@@ -94,6 +94,9 @@ class SyncInferenceSession:
     def step(self, hidden, **kwargs) -> torch.Tensor:
         return self._runtime.run(self._session.step(hidden, **kwargs))
 
+    def generate_remote(self, hidden, n_tokens: int, embed_fn, sampling=None):
+        return self._runtime.run(self._session.generate_remote(hidden, n_tokens, embed_fn, sampling=sampling))
+
     @property
     def position(self) -> int:
         return self._session.position

@@ -1,8 +1,8 @@
 """TransformerBackend: the compute engine for a span of blocks: paged
 decode and mixed prefill+decode steps, the dense-cache steps of private
-sessions and the dense lane pool, and the stateless forward the throughput
-probe times (petals_tpu/server/backend.py without the backward, adapters,
-meshes and server-side generation).
+sessions and the dense lane pool, server-side generation, and the
+stateless forward the throughput probe times (petals_tpu/server/backend.py
+without the backward, adapters, meshes and speculative decoding).
 
 Where the JAX backend runs the span as one jitted ``lax.scan`` over stacked
 parameters and donated pools, this one is a Python loop over blocks that
@@ -36,6 +36,16 @@ block loop eagerly (``_paged_decode_eager``, ``_paged_mixed_eager``) with the
 plain kernels, padding alike. On the card nothing falls back to the eager
 loop: a capture that fails raises. The dense-cache steps
 (``inference_step``, ``batched_decode_step``, ``forward``) run eagerly.
+
+Server-side generation (a whole-model span holding the client's float32
+embeddings, norm and head, ``gen_params``): ``paged_gen_decode_step`` is a
+third step program, the decode step with generating lanes embedding their
+previous token on the card and every lane's next token sampled after the
+head (ops/sampling.py); its sampling settings, seen-token masks and
+uniforms (ops/threefry.py, computed on the host) are graph inputs.
+``sample_from_hidden`` picks a stream's first token from the span output
+before it; ``batched_gen_decode_step`` is the dense pool's step and
+``generate_tokens`` a private session's loop, both eager.
 """
 
 from __future__ import annotations
@@ -58,6 +68,8 @@ from petals_tpu_torch.ops.paged_attention import (
     scatter_lane_pages,
 )
 from petals_tpu_torch.ops.quant import OutlierQuantLinear, QuantizedLinear
+from petals_tpu_torch.ops.sampling import sample_tokens, sampling_tensors, sampling_vectors
+from petals_tpu_torch.ops.threefry import uniform_for_draw
 from petals_tpu_torch.server.memory_cache import TensorDescriptor
 from petals_tpu_torch.telemetry.observatory import CudaGraphCapture, TrackedGraph
 
@@ -92,15 +104,22 @@ def _pool_tensors(pool_kv):
 
 
 def step_program_key(kind: str, n_lanes: int, max_pages: int, bucket: int, quant_type: str,
-                     kv_quant_type: str, pool_kv) -> tuple:
+                     kv_quant_type: str, pool_kv, extra: Sequence[torch.Tensor] = ()) -> tuple:
     """What a captured step bakes in, so that two calls share a graph only
     where all of it agrees: the step kind, its lanes and table width (its
     inputs' shapes), the prefill chunk's bucket (0 for a decode step), the
     weight and pool encodings, and each pool tensor's address, shape and
-    dtype. A pool reset zeroes the pool in place and keeps its key; a fresh
-    pool never replays a graph that addresses another pool's memory."""
-    pools = tuple((t.data_ptr(), tuple(t.shape), str(t.dtype)) for t in _pool_tensors(pool_kv))
+    dtype, and those of the ``extra`` tensors the step reads (a generation
+    step's client parameters). A pool reset zeroes the pool in place and
+    keeps its key; a fresh pool never replays a graph that addresses another
+    pool's memory."""
+    tensors = (*_pool_tensors(pool_kv), *extra)
+    pools = tuple((t.data_ptr(), tuple(t.shape), str(t.dtype)) for t in tensors)
     return (kind, int(n_lanes), int(max_pages), int(bucket), quant_type, kv_quant_type, pools)
+
+
+# sample_tokens' per-lane inputs, in the order a generation step takes them
+SAMPLING_INPUTS = ("do_sample", "temperature", "top_k", "top_p", "repetition_penalty", "seen_mask", "u")
 
 
 def _block_view(leaf, i: int):
@@ -172,11 +191,12 @@ class TransformerBackend:
         self.hidden_size = cfg.hidden_size
         # the step programs (CUDA graphs, on a card only); every graph of
         # this backend shares one memory pool: steps never run at once
-        self._decode_program = self._mixed_program = None
+        self._decode_program = self._mixed_program = self._gen_program = None
         if self.device.type == "cuda":
             capture = CudaGraphCapture(self.device)
             self._decode_program = TrackedGraph("paged_decode", capture)
             self._mixed_program = TrackedGraph("paged_mixed_step", capture)
+            self._gen_program = TrackedGraph("paged_gen_decode", capture)
 
     # ------------------------------------------------------------- cache descriptors
 
@@ -523,14 +543,16 @@ class TransformerBackend:
             )
         return h_dec, h_pf, (k_pool, v_pool)
 
-    def warm_step_programs(self, pool_kv, n_lanes: int, max_pages: int, max_chunk: int) -> None:
+    def warm_step_programs(self, pool_kv, n_lanes: int, max_pages: int, max_chunk: int,
+                           gen_params: Optional[dict] = None) -> None:
         """Capture every step program a batcher of ``n_lanes`` lanes and
         ``max_pages`` table slots will replay on ``pool_kv``: the decode
-        step, and the mixed step at every bucket of a chunk of at most
-        ``max_chunk`` tokens (``chunk_buckets``; a lane caps it). Run when
-        the pool opens, so that serving captures nothing. Every lane rides
-        at the idle sentinel on a table of holes: nothing is written and no
-        row is read. A no-op on the CPU."""
+        step, the generation step when the batcher holds ``gen_params``, and
+        the mixed step at every bucket of a chunk of at most ``max_chunk``
+        tokens (``chunk_buckets``; a lane caps it). Run when the pool opens,
+        so that serving captures nothing. Every lane rides at the idle
+        sentinel on a table of holes: nothing is written and no row is read.
+        A no-op on the CPU."""
         if self._decode_program is None:
             return
         max_length = max_pages * pool_kv[0].shape[2]
@@ -538,6 +560,12 @@ class TransformerBackend:
         positions = np.full((n_lanes,), max_length, np.int32)
         tables = np.full((n_lanes, max_pages), -1, np.int32)
         self.paged_decode_step(hidden, pool_kv, positions, tables)
+        if gen_params is not None:
+            idle = np.zeros((n_lanes,), np.int64)
+            self.paged_gen_decode_step(
+                gen_params, hidden, idle, idle.astype(bool), pool_kv, positions, tables,
+                sampling_vecs=sampling_vectors(n_lanes, self.cfg.vocab_size),
+            )
         longest = min(max_chunk, max_length)
         for bucket in chunk_buckets(longest):
             # the top bucket's chunk is the longest one (a lane may be
@@ -549,12 +577,150 @@ class TransformerBackend:
         """Captures, replays and post-warm-up captures (anomalies) of this
         backend's step programs, summed (zeros on the CPU)."""
         stats = {"graph_captures": 0, "graph_replays": 0, "graph_anomalies": 0}
-        for prog in (self._decode_program, self._mixed_program):
+        for prog in (self._decode_program, self._mixed_program, self._gen_program):
             if prog is not None:
                 stats["graph_captures"] += prog.counts.captures
                 stats["graph_replays"] += prog.counts.replays
                 stats["graph_anomalies"] += prog.counts.anomalies
         return stats
+
+    # ------------------------------------------------------------- server-side generation
+
+    def _gen_embed(self, gen_params: dict, hidden, tokens, use_token) -> torch.Tensor:
+        """Each lane's step input [n, 1, hidden] in compute_dtype: the
+        embedding of its previous token where ``use_token``, else its
+        ``hidden`` (petals_tpu casts the float32 embedding the same way)."""
+        h = _as_tensor(hidden, self.device, self.compute_dtype)
+        tokens = _as_tensor(tokens, self.device, torch.long)
+        use_token = _as_tensor(use_token, self.device, torch.bool)
+        emb = self.family.client_embed(gen_params, tokens[:, None], self.cfg).to(self.compute_dtype)
+        return torch.where(use_token[:, None, None], emb, h)
+
+    def _head_sample(self, gen_params: dict, hidden: torch.Tensor, samp: dict) -> torch.Tensor:
+        """The float32 head over each row's last position, then
+        ``sample_tokens``: [n] int64 on the device."""
+        logits = self.family.client_head(gen_params, hidden[:, -1:], self.cfg)[:, -1, :]
+        return sample_tokens(logits, **samp)
+
+    def _sampling_inputs(self, sampling_vecs: dict, device=None) -> tuple:
+        """A ``sampling_vectors`` dict as the generation step's inputs, in
+        ``SAMPLING_INPUTS`` order (``u`` from its seeds and draw indices)."""
+        samp = sampling_tensors(sampling_vecs, device)
+        return tuple(samp[name] for name in SAMPLING_INPUTS)
+
+    @torch.no_grad()
+    def sample_from_hidden(self, gen_params: dict, last_hidden, sampling: Optional[dict] = None) -> np.ndarray:
+        """The next token of each row [batch] int32 (on the host) from a
+        span output [batch, seq, hidden]: greedy unless a validated
+        ``sampling`` dict is given. A pooled stream's first token."""
+        h = _as_tensor(last_hidden, self.device)
+        samp = sampling_tensors(sampling_vectors(h.shape[0], self.cfg.vocab_size, sampling), self.device)
+        return self._head_sample(gen_params, h, samp).to(torch.int32).cpu().numpy()
+
+    @torch.no_grad()
+    def paged_gen_decode_step(self, gen_params: dict, hidden, tokens, use_token, pool_kv, positions, tables,
+                              *, sampling_vecs: dict):
+        """One decode step over a set of lanes with the client's leaves in
+        it, PAGED layout: generating lanes (``use_token``) feed the
+        embedding of their previous token, decode lanes their ``hidden``;
+        after the block loop the float32 head and ``sample_tokens`` pick
+        every lane's next token. On a CUDA device a replay of its step
+        program, on the CPU the block loop.
+
+        Args:
+          gen_params: the client's float32 leaves (embed, norm, head) on
+            the backend's device.
+          hidden: [n_lanes, 1, hidden] (generating and idle lanes: filler).
+          tokens: [n_lanes] the generating lanes' previous tokens (others 0).
+          use_token: bool [n_lanes].
+          pool_kv / positions / tables: as in ``paged_decode_step``.
+          sampling_vecs: per-lane settings, ``sampling_vectors``' layout.
+
+        Returns (out [n_lanes, 1, hidden], next tokens [n_lanes] int64, both
+        on the device, pool_kv).
+        """
+        inputs = (_as_tensor(hidden, None, self.compute_dtype), _as_tensor(tokens, None, torch.long),
+                  _as_tensor(use_token, None, torch.bool), _as_tensor(positions, None, torch.int32),
+                  _as_tensor(tables, None, torch.int32), *self._sampling_inputs(sampling_vecs))
+
+        def step(h, tok, use, pos, tab, *samp):
+            return self._paged_gen_decode_eager(gen_params, h, tok, use, pool_kv, pos, tab, samp)
+
+        if self._gen_program is None:
+            out, toks = step(*inputs)
+        else:
+            n_lanes, max_pages = inputs[4].shape
+            key = step_program_key("gen_decode", n_lanes, max_pages, 0, self.quant_type, self.kv_quant_type, pool_kv,
+                                   extra=tuple(gen_params.values()))
+            out, toks = self._gen_program.run(key, step, inputs)
+        return out, toks, pool_kv
+
+    def _paged_gen_decode_eager(self, gen_params, hidden, tokens, use_token, pool_kv, positions, tables, samp):
+        """The generation step launched op by op (what the CPU runs, and
+        what its step program captures). ``samp``: the sampling inputs in
+        ``SAMPLING_INPUTS`` order."""
+        h = self._gen_embed(gen_params, hidden, tokens, use_token)
+        h, _ = self._paged_decode_eager(h, pool_kv, positions, tables)
+        samp = {name: _as_tensor(x, self.device) for name, x in zip(SAMPLING_INPUTS, samp)}
+        return h, self._head_sample(gen_params, h, samp)
+
+    @torch.no_grad()
+    def batched_gen_decode_step(self, gen_params: dict, hidden, tokens, use_token, pool_kv, positions,
+                                *, sampling_vecs: dict):
+        """``paged_gen_decode_step`` on the DENSE lane pool (pool_kv and
+        positions as in ``batched_decode_step``), eager as the dense steps
+        are. Returns (out [n_lanes, 1, hidden], next tokens [n_lanes] int64,
+        pool_kv)."""
+        h = self._gen_embed(gen_params, hidden, tokens, use_token)
+        h, pool_kv = self.batched_decode_step(h, pool_kv, positions)
+        return h, self._head_sample(gen_params, h, sampling_tensors(sampling_vecs, self.device)), pool_kv
+
+    @torch.no_grad()
+    def generate_tokens(self, gen_params: dict, last_hidden, kv, position: int, n_tokens: int, *,
+                        sampling: Optional[dict] = None):
+        """Generate ``n_tokens`` on a private DENSE cache from
+        ``last_hidden`` (the span output of the last fed token): greedy, or
+        sampled under a validated ``sampling`` dict. The first token comes
+        from ``last_hidden``; each later one is fed at the next position
+        before the one after it is picked, and the last is never fed (the
+        client loop's convention), so the cache gains n_tokens - 1 rows.
+        An eager loop over ``inference_step``; the tokens stay on the card
+        until the one sync at the end. Returns (tokens [batch, n_tokens]
+        int32 on the host, kv)."""
+        k_stack = kv[0]
+        batch, n_tokens, position = k_stack.shape[1], int(n_tokens), int(position)
+        if position + n_tokens - 1 > k_stack.shape[2]:
+            raise ValueError(
+                f"Generating {n_tokens} tokens at position {position} overflows "
+                f"the allocated cache ({k_stack.shape[2]} tokens)"
+            )
+        vocab = self.cfg.vocab_size
+        if sampling is None:
+            def pick(h, i):
+                logits = self.family.client_head(gen_params, h[:, -1:], self.cfg)[:, -1, :]
+                return torch.argmax(logits, dim=-1)
+        else:
+            vec = sampling_vectors(batch, vocab, sampling)
+            samp = sampling_tensors(vec, self.device)
+            # draw i of the stream is draw offset + i
+            draws = vec["draw_idx"][:, None].astype(np.int64) + np.arange(n_tokens)
+            us = torch.from_numpy(uniform_for_draw(vec["seeds"][:, None], draws)).to(self.device)
+            seen = samp["seen_mask"].clone()
+            rows = torch.arange(batch, device=self.device)
+
+            def pick(h, i):
+                return self._head_sample(gen_params, h, {**samp, "seen_mask": seen, "u": us[:, i]})
+
+        tok = pick(_as_tensor(last_hidden, self.device), 0)
+        tokens = [tok]
+        for i in range(1, n_tokens):
+            if sampling is not None:
+                seen[rows, tok] = True
+            h_in = self.family.client_embed(gen_params, tok[:, None], self.cfg)
+            out, kv = self.inference_step(h_in, kv, position + i - 1)
+            tok = pick(out, i)
+            tokens.append(tok)
+        return torch.stack(tokens, dim=1).to(torch.int32).cpu().numpy(), kv
 
     def chunk_plan(self, batch: int, total_seq: int, page_size: Optional[int] = None,
                    start: int = 0) -> Sequence[int]:

@@ -13,6 +13,12 @@ decode tokens, and one prefill chunk, into one step per tick
 - A prefill is admitted with its whole page range allocated, then fed one
   page-aligned chunk per tick alongside the pending decode lanes (the mixed
   step), round-robin across admitted prefills under a per-tick token budget.
+- Server-side generation (a batcher holding the client's leaves,
+  ``gen_params``): ``generate_lane`` registers a lane that generates a
+  chunk of tokens; every tick advances each generating lane by one token
+  and every pending decode lane in ONE generation step (the backend's
+  ``paged_gen_decode_step``), and a waiting prefill chunk rides its own
+  mixed step in the same tick.
 
 - Dense mode (``page_size`` None or 0): the pool is [n_blocks, n_lanes,
   max_length, hkv, d] x2 and a lane is its row. Decode steps coalesce the
@@ -36,7 +42,7 @@ is zeroed and the generation bumps, so every outstanding lane fails loudly on
 its next step instead of decoding against lost KV. The generation is checked
 before each step and again, under the reset lock, after it.
 
-Not ported yet: server-side generation, speculative decoding, swap and
+Not ported yet: speculative decoding (and its lanes), swap and
 preemption, the prefix cache's shared pages, the ledger and fingerprints,
 multi-host lockstep (its mirrored temp handles).
 """
@@ -57,6 +63,8 @@ import torch
 
 from petals_tpu_torch.data_structures import SESSION_PRIORITY_NORMAL
 from petals_tpu_torch.ops.paged_attention import PagedPool, max_pages_for
+from petals_tpu_torch.ops.sampling import sampling_vectors
+from petals_tpu_torch.ops.threefry import uniform_for_draw
 from petals_tpu_torch.server.memory_cache import AllocationFailed, MemoryCache, PageAllocator
 from petals_tpu_torch.server.task_queue import PRIORITY_INFERENCE, PriorityTaskQueue
 
@@ -83,6 +91,35 @@ class _LanePrefillState:
 
 
 @dataclasses.dataclass
+class _LaneGenState:
+    """One lane mid server-side generation: each tick's generation step
+    feeds ``token`` at ``position`` and samples the next, until
+    ``remaining`` reaches 0; then ``future`` resolves with ``collected``
+    (petals_tpu/server/batching.py ``_LaneGenState`` without the
+    speculative-decoding fields, A10)."""
+
+    future: asyncio.Future
+    generation: int
+    token: int  # the last sampled token: fed on the next step
+    position: int  # where that step writes it
+    remaining: int  # steps left (n_tokens - 1 at the start)
+    collected: List[int]
+    do_sample: bool = False
+    temperature: float = 1.0
+    top_k: int = 0
+    top_p: float = 1.0
+    repetition_penalty: float = 1.0
+    seen: Optional[np.ndarray] = None  # [vocab] bool; only under a penalty
+    # the uniforms of the stream's draws after the first, one a step (the
+    # Threefry draws offset + 1, offset + 2, ...); only when sampling
+    uniforms: Optional[np.ndarray] = None
+    enqueued: float = 0.0  # time.perf_counter() at registration
+    started: bool = False  # the first step has recorded the queue wait
+    queue_s: float = 0.0
+    compute_s: float = 0.0  # summed generation-step wall
+
+
+@dataclasses.dataclass
 class _LaneWaiter:
     """One parked acquire_lane caller, admitted by priority class then FIFO."""
 
@@ -106,6 +143,7 @@ class DecodeBatcher:
         n_pages: Optional[int] = None,  # default: n_lanes * max_pages (no oversubscription)
         prefill_token_budget: int = 512,  # max prefill-chunk tokens per mixed step
         alloc_timeout: Optional[float] = None,
+        gen_params: Optional[dict] = None,  # the client's leaves: server-side generation
     ):
         if page_size is not None and page_size < 0:
             raise ValueError(f"page_size must be >= 1, or 0 / None for the dense lane pool; got {page_size}")
@@ -133,6 +171,8 @@ class DecodeBatcher:
             self.n_pages = 0
         self.prefill_token_budget = max(int(prefill_token_budget), 1)
         self.alloc_timeout = alloc_timeout
+        self.gen_params = gen_params
+        self._gen_states: Dict[int, _LaneGenState] = {}
         self._pages: Optional[PageAllocator] = None
         self._tables: Optional[np.ndarray] = None  # [n_lanes, max_pages] int32, -1 = unallocated
         self._prefill_queue: List[_LanePrefillState] = []
@@ -160,6 +200,7 @@ class DecodeBatcher:
         # captures, replays, and captures after warm-up (anomalies)
         self.stats = {
             "batched_steps": 0, "batched_tokens": 0, "max_batch": 0,
+            "gen_steps": 0, "gen_lane_tokens": 0, "max_gen_lanes": 0,
             "decode_steps": 0, "mixed_steps": 0, "prefill_tokens": 0,
             "max_prefill_tokens_per_step": 0, "pool_resets": 0, "exclusive_chunks": 0,
             "graph_captures": 0, "graph_replays": 0, "graph_anomalies": 0,
@@ -211,7 +252,7 @@ class DecodeBatcher:
                 # serving replays and captures nothing
                 await self.queue.submit(
                     self.backend.warm_step_programs, self._buffers(), self.n_lanes, self.max_pages,
-                    self.max_chunk(),
+                    self.max_chunk(), self.gen_params,
                 )
 
     async def close(self) -> None:
@@ -220,6 +261,10 @@ class DecodeBatcher:
             if not w.fut.done():
                 w.fut.set_exception(AllocationFailed("Batcher is shutting down"))
         self._lane_waiters.clear()
+        for st in self._gen_states.values():
+            if not st.future.done():
+                st.future.set_exception(AllocationFailed("Batcher is shutting down"))
+        self._gen_states.clear()
         for pst in self._prefill_queue:
             if not pst.future.done():
                 pst.future.set_exception(AllocationFailed("Batcher is shutting down"))
@@ -325,6 +370,11 @@ class DecodeBatcher:
             else:
                 kept.append(entry)
         self._pending = kept
+        # likewise a generating lane: its stream must never resolve against
+        # a lane now owned by someone else
+        st = self._gen_states.pop(lane, None)
+        if st is not None and not st.future.done():
+            st.future.set_exception(AllocationFailed("Lane released mid-step"))
         for pst in [p for p in self._prefill_queue if p.lane == lane]:
             self._prefill_queue.remove(pst)
             if not pst.future.done():
@@ -462,6 +512,67 @@ class DecodeBatcher:
             if st in self._prefill_queue:
                 self._prefill_queue.remove(st)
 
+    async def generate_lane(self, lane: int, last_hidden: torch.Tensor, position: int, n_tokens: int,
+                            sampling: Optional[dict] = None) -> np.ndarray:
+        """Server-side generation on a pooled lane: ``n_tokens`` tokens from
+        ``last_hidden`` (the span output of the last fed token, [1, 1,
+        hidden]), feeding the first n_tokens - 1 into the lane from
+        ``position`` on (the last is never fed, as ``generate_tokens``).
+        The pages of the whole stream are reserved first; the first token
+        is picked by a queue task of its own (``sample_from_hidden``), the
+        rest by the flush loop's generation steps, one a tick, beside every
+        other generating and decoding lane. ``sampling``: a validated
+        ``gen_sampling`` dict, or None for greedy. Returns tokens [1,
+        n_tokens] int32."""
+        if self.gen_params is None:
+            raise RuntimeError("This batcher has no client leaves loaded for server-side generation")
+        self._check_lane(lane)
+        position, n_tokens = int(position), int(n_tokens)
+        if position + n_tokens - 1 > self.max_length:
+            raise ValueError(
+                f"Generating {n_tokens} tokens at position {position} overflows "
+                f"the lane buffer ({self.max_length} tokens)"
+            )
+        if n_tokens > 1:
+            # the flush loop cannot wait for a page mid-stream
+            await self.prepare_write(lane, position, position + n_tokens - 1, timeout=self.alloc_timeout)
+
+        def boot():
+            self._check_lane(lane)
+            return self.backend.sample_from_hidden(self.gen_params, last_hidden, sampling)
+
+        t0 = int((await self.queue.submit(boot, priority=PRIORITY_INFERENCE, size=1))[0])
+        if n_tokens <= 1:
+            return np.asarray([[t0]], np.int32)
+        st = _LaneGenState(
+            future=asyncio.get_running_loop().create_future(), generation=self._lane_generation[lane],
+            token=t0, position=position, remaining=n_tokens - 1, collected=[t0], enqueued=time.perf_counter(),
+        )
+        if sampling is not None:
+            st.do_sample = bool(sampling.get("do_sample", False))
+            st.temperature = float(sampling.get("temperature", 1.0))
+            st.top_k = int(sampling.get("top_k", 0) or 0)
+            st.top_p = float(sampling.get("top_p", 1.0) or 1.0)
+            st.repetition_penalty = float(sampling.get("repetition_penalty", 1.0) or 1.0)
+            if st.do_sample:
+                # every draw of the stream at once: a step then reads its own
+                offset = int(sampling.get("offset", 0))
+                st.uniforms = uniform_for_draw(int(sampling.get("seed", 0)), offset + 1 + np.arange(st.remaining))
+            if st.repetition_penalty != 1.0:
+                vocab = self.backend.cfg.vocab_size
+                seen = np.zeros((vocab,), bool)
+                for t in (*(sampling.get("context") or ()), t0):
+                    if 0 <= int(t) < vocab:
+                        seen[int(t)] = True
+                st.seen = seen
+        self._gen_states[lane] = st
+        self._spawn_flush_loop()
+        try:
+            return await st.future
+        finally:
+            if self._gen_states.get(lane) is st:
+                del self._gen_states[lane]
+
     def pop_step_timing(self, lane: int) -> Optional[dict]:
         return self._step_timing.pop(lane, None)
 
@@ -473,7 +584,7 @@ class DecodeBatcher:
             self._flush_task.add_done_callback(_log_crash)
 
     async def _flush_loop(self) -> None:
-        while self._pending or self._prefill_queue:
+        while self._pending or self._gen_states or self._prefill_queue:
             batch, self._pending = self._pending, []
             # entries enqueued before a pool reset must fail loudly: running
             # them against the zeroed pool would silently corrupt their output
@@ -482,18 +593,35 @@ class DecodeBatcher:
             for *_, fut, _gen in stale:
                 if not fut.done():
                     fut.set_exception(AllocationFailed("Lane pool was reset while this step was pending"))
+            for lane, st in list(self._gen_states.items()):
+                if st.generation != self._generation:
+                    del self._gen_states[lane]
+                    if not st.future.done():
+                        st.future.set_exception(AllocationFailed("Lane pool was reset while this step was pending"))
             for pst in [p for p in self._prefill_queue if p.generation != self._generation]:
                 self._prefill_queue.remove(pst)
                 if not pst.future.done():
                     pst.future.set_exception(
                         AllocationFailed("Lane pool was reset while this step was pending")
                     )
-            pf = self._next_prefill_chunk(len(batch))
-            if not batch and pf is None:
+            gen_states = dict(self._gen_states)
+            pf = self._next_prefill_chunk(len(batch) + len(gen_states))
+            if not batch and not gen_states and pf is None:
                 continue
             try:
-                chunk_out = None
-                if pf is not None:
+                toks = chunk_out = None
+                if gen_states:
+                    out, toks = await self.queue.submit(
+                        self._run_batch_gen, batch, gen_states,
+                        priority=PRIORITY_INFERENCE, size=len(batch) + len(gen_states),
+                    )
+                    if pf is not None:
+                        # the generation step has no prefill half: the chunk
+                        # rides its own mixed step this tick
+                        _, chunk_out = await self.queue.submit(
+                            self._run_batch_mixed, [], pf, priority=PRIORITY_INFERENCE, size=pf[1],
+                        )
+                elif pf is not None:
                     out, chunk_out = await self.queue.submit(
                         self._run_batch_mixed, batch, pf,
                         priority=PRIORITY_INFERENCE, size=len(batch) + pf[1],
@@ -506,6 +634,11 @@ class DecodeBatcher:
                 for *_, fut, _gen in batch:
                     if not fut.done():
                         fut.set_exception(e)
+                for lane, st in gen_states.items():
+                    if self._gen_states.get(lane) is st:
+                        del self._gen_states[lane]
+                    if not st.future.done():
+                        st.future.set_exception(e)
                 if pf is not None:
                     pst = pf[0]
                     if pst in self._prefill_queue:
@@ -521,6 +654,28 @@ class DecodeBatcher:
                     fut.set_result(out[lane : lane + 1])
             if pf is not None:
                 self._advance_prefill(pf[0], pf[1], chunk_out)
+            if toks is not None:
+                self._advance_gen(gen_states, toks)
+
+    def _advance_gen(self, gen_states: Dict[int, _LaneGenState], toks: np.ndarray) -> None:
+        """Event-loop side of a generation step: collect each lane's token,
+        advance its feed position and draw index, and resolve finished
+        streams."""
+        for lane, st in gen_states.items():
+            if self._gen_states.get(lane) is not st:
+                continue  # released or cancelled while the step ran
+            tok = int(toks[lane])
+            st.collected.append(tok)
+            st.token = tok
+            st.position += 1
+            if st.seen is not None and 0 <= tok < st.seen.shape[0]:
+                st.seen[tok] = True
+            st.remaining -= 1
+            if st.remaining <= 0:
+                del self._gen_states[lane]
+                self._step_timing[lane] = {"queue_s": st.queue_s, "compute_s": st.compute_s, "variant": "gen"}
+                if not st.future.done():
+                    st.future.set_result(np.asarray([st.collected], np.int32))
 
     def max_chunk(self) -> int:
         """The longest chunk a mixed step can carry: the prefill budget, or
@@ -662,12 +817,64 @@ class DecodeBatcher:
         st.compute_s += duration
         return host_out, host_chunk
 
-    def _count_step(self, batch, t_step: float, duration: float) -> None:
+    def _run_batch_gen(self, batch, gen_states) -> Tuple[torch.Tensor, np.ndarray]:
+        """Compute-thread body: ONE generation step advancing every pending
+        decode lane AND every generating lane (the client's leaves embed the
+        generating lanes' tokens and sample every lane's next one on the
+        device). Returns (out on the host, next tokens [n_lanes])."""
+        expected = batch[0][4] if batch else next(iter(gen_states.values())).generation
+        if expected != self._generation or any(st.generation != self._generation for st in gen_states.values()):
+            raise AllocationFailed("Lane pool was reset before this batched step ran")
+        t_step = time.perf_counter()
+        hidden, positions = self._lane_inputs(batch)
+        tokens = np.zeros((self.n_lanes,), np.int64)
+        use_token = np.zeros((self.n_lanes,), bool)
+        vecs = sampling_vectors(self.n_lanes, self.backend.cfg.vocab_size)
+        vecs["u"] = np.zeros((self.n_lanes,), np.float32)
+        for lane, st in gen_states.items():
+            tokens[lane] = st.token
+            use_token[lane] = True
+            positions[lane] = st.position
+            vecs["do_sample"][lane] = st.do_sample
+            vecs["temperature"][lane] = st.temperature
+            vecs["top_k"][lane] = st.top_k
+            vecs["top_p"][lane] = st.top_p
+            vecs["repetition_penalty"][lane] = st.repetition_penalty
+            if st.uniforms is not None:
+                vecs["u"][lane] = st.uniforms[len(st.collected) - 1]
+            if st.seen is not None:
+                vecs["seen_mask"][lane] = st.seen
+        if self.page_size is not None:
+            out, toks, _ = self.backend.paged_gen_decode_step(
+                self.gen_params, hidden, tokens, use_token, self._buffers(), positions, self._tables.copy(),
+                sampling_vecs=vecs,
+            )
+        else:
+            out, toks, _ = self.backend.batched_gen_decode_step(
+                self.gen_params, hidden, tokens, use_token, self._buffers(), positions, sampling_vecs=vecs,
+            )
+        host_out, host_toks = out.cpu(), toks.cpu().numpy()  # waits for the step on the device
+        with self._reset_lock:
+            if expected != self._generation:
+                raise AllocationFailed("Lane pool was reset while this batched step ran")
+        duration = time.perf_counter() - t_step
+        self._count_step(batch, t_step, duration, n_gen=len(gen_states))
+        self.stats["gen_steps"] += 1
+        self.stats["gen_lane_tokens"] += len(gen_states)
+        self.stats["max_gen_lanes"] = max(self.stats["max_gen_lanes"], len(gen_states))
+        for st in gen_states.values():
+            if not st.started:
+                st.started = True
+                st.queue_s = max(t_step - st.enqueued, 0.0)
+            st.compute_s += duration
+        return host_out, host_toks
+
+    def _count_step(self, batch, t_step: float, duration: float, n_gen: int = 0) -> None:
         """Stats and the per-lane queue/compute split (compute thread)."""
         self.stats.update(self.backend.step_program_stats())
         self.stats["batched_steps"] += 1
-        self.stats["batched_tokens"] += len(batch)
-        self.stats["max_batch"] = max(self.stats["max_batch"], len(batch))
+        self.stats["batched_tokens"] += len(batch) + n_gen
+        self.stats["max_batch"] = max(self.stats["max_batch"], len(batch) + n_gen)
         if batch:
             self.stats["decode_steps"] += 1
         for lane, *_ in batch:

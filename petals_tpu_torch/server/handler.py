@@ -12,17 +12,28 @@ max_length, hkv, d], budgeted through the memory cache, and steps through the
 task queue. Each reply's ``step_meta.variant`` says which path a step took:
 ``decode`` / ``prefill`` (the batcher's coalesced steps), ``dense_prefill``
 (a dense lane's chunked prefill), ``exclusive`` (deep prompts or hypo_ids on
-a pooled lane), ``private``.
+a pooled lane), ``private``; a step that also generated adds ``+gen``
+when its lane's generation steps ran in the batcher.
+
+Server-side generation (petals_tpu/server/handler.py:1966-2077): a step
+with ``gen_tokens`` (clamped to a power of two up to 32) and an optional
+``gen_sampling`` dict runs its hidden states as any step, then generates
+that many tokens from the last output row, and replies with the token ids
+instead of hidden states. Only a server holding the client's leaves
+(``server_gen_params``) answers it, and only for a whole-model session of
+batch 1 with no deep prompts and no hypo_ids: a pooled session's tokens come
+from the batcher's generation steps (``generate_lane``), a private
+session's from ``backend.generate_tokens`` on the task queue.
 
 The session-open ack echoes the client's ``trace_id``, normalized, or one
 minted here, as petals_tpu's does. ``ptu.info`` reports the fields of the
 ServerInfo the server announces (``server_info_fn``) beside the handler's
 own. A client id proven by the RPC handshake is ``ctx.remote_peer_id``.
 
-Refused with a clear error: adapters, KV import/adopt, server-side
-generation, push_to in a step. A ``push_to`` in the open message (petals_tpu
-servers push each step's output to the next server as well) is ignored:
-the client relays every step itself, and its copy is the one that counts.
+Refused with a clear error: adapters, KV import/adopt, push_to in a step.
+A ``push_to`` in the open message (petals_tpu servers push each step's
+output to the next server as well) is ignored: the client relays every
+step itself, and its copy is the one that counts.
 """
 
 from __future__ import annotations
@@ -38,6 +49,7 @@ from typing import Callable, Optional, Tuple
 import torch
 
 from petals_tpu_torch.data_structures import CHAIN_DELIMITER, parse_session_priority, parse_uid
+from petals_tpu_torch.rpc.protocol import validate_gen_sampling
 from petals_tpu_torch.rpc.serialization import CompressionType, deserialize_array, is_dummy, serialize_array
 from petals_tpu_torch.rpc.server import RpcContext, RpcServer
 from petals_tpu_torch.server.backend import TransformerBackend
@@ -48,6 +60,7 @@ from petals_tpu_torch.utils.version import incompatibility_error, is_compatible
 logger = logging.getLogger(__name__)
 
 _TRACE_ID_RE = re.compile(r"^[0-9A-Za-z_-]{1,64}$")
+MAX_GEN_TOKENS = 32  # the longest chunk a generating step answers
 
 
 def normalize_trace_id(value) -> Optional[str]:
@@ -74,8 +87,10 @@ class TransformerHandler:
         session_timeout: float = 30 * 60,
         step_timeout: float = 5 * 60,
         server_info_fn: Optional[Callable[[], dict]] = None,  # the announced ServerInfo's fields
+        server_gen_params: Optional[dict] = None,  # the client's leaves: server-side generation
     ):
         self.backend = backend
+        self.server_gen_params = server_gen_params
         self.server_info_fn = server_info_fn
         self.batcher = batcher
         # private sessions share the batcher's budget and compute thread
@@ -249,7 +264,7 @@ class TransformerHandler:
                 except StopAsyncIteration:
                     break  # the client half-closed
                 t_recv = time.perf_counter()
-                for key in ("kv_adopt", "kv_import", "gen_tokens", "gen_sampling", "push_to"):
+                for key in ("kv_adopt", "kv_import", "push_to"):
                     if step.get(key):
                         raise ValueError(f"step field {key!r} is not supported by this server yet")
                 start_from = step.get("start_from_position")
@@ -271,6 +286,9 @@ class TransformerHandler:
                     raise ValueError(
                         f"Step of {seq} tokens at position {position} exceeds max_length {max_length}"
                     )
+                gen_n, gen_sampling = self._gen_request(
+                    step, (start, end), batch_size, prompts, hypo_ids, position + seq, max_length
+                )
                 t_exec = time.perf_counter()
                 out, variant, timing = await asyncio.wait_for(
                     self._run_step(backend, batcher, lane, kv, hidden, position, prompts, hypo_ids),
@@ -279,6 +297,26 @@ class TransformerHandler:
                 if timing is None:  # not a coalesced step: the execution wall, queue included
                     timing = {"queue_s": 0.0, "compute_s": time.perf_counter() - t_exec}
                 position += seq
+                if gen_n:
+                    t_gen = time.perf_counter()
+                    tokens, gen_timing = await asyncio.wait_for(
+                        self._generate(backend, batcher, lane, kv, out[:, -1:], position, gen_n, gen_sampling),
+                        self.step_timeout,
+                    )
+                    if gen_timing is not None:  # the batcher's steps: the two phases sum
+                        timing = {"queue_s": timing.get("queue_s", 0.0) + gen_timing["queue_s"],
+                                  "compute_s": timing.get("compute_s", 0.0) + gen_timing["compute_s"]}
+                        variant += "+gen"
+                    else:
+                        timing = {**timing, "compute_s": timing.get("compute_s", 0.0) + time.perf_counter() - t_gen}
+                    position += gen_n - 1  # the last token is never fed
+                    step_meta = {
+                        "queue_s": round(timing["queue_s"], 6), "compute_s": round(timing["compute_s"], 6),
+                        "variant": variant, "serialize_s": 0.0,
+                        "total_s": round(time.perf_counter() - t_recv, 6),
+                    }
+                    yield {"tokens": [int(t) for t in tokens[0]], "position": position, "step_meta": step_meta}
+                    continue
                 t_ser = time.perf_counter()
                 wire_out = serialize_array(out, reply_comp)
                 step_meta = {
@@ -289,6 +327,48 @@ class TransformerHandler:
                     "total_s": round(time.perf_counter() - t_recv, 6),
                 }
                 yield {"tensors": {"hidden": wire_out}, "position": position, "step_meta": step_meta}
+
+    def _gen_request(self, step: dict, span: Tuple[int, int], batch_size: int, prompts, hypo_ids,
+                     position: int, max_length: int) -> Tuple[int, Optional[dict]]:
+        """(tokens to generate, validated sampling dict) of a step, (0, None)
+        when it asks for none. The count is clamped to a power of two up to
+        ``MAX_GEN_TOKENS`` (the client loops on the count it gets back);
+        ``position`` is where the step's own tokens end. Raises, before the
+        step runs, for what this server or session cannot generate."""
+        gen_n = step.get("gen_tokens")
+        if not gen_n:
+            return 0, None
+        gen_n = max(1, min(int(gen_n), MAX_GEN_TOKENS))
+        gen_n = 1 << (gen_n.bit_length() - 1)
+        sampling = validate_gen_sampling(step.get("gen_sampling"))
+        whole = span == (0, self.backend.n_blocks)
+        if not (self.server_gen_params is not None and whole and batch_size == 1
+                and prompts is None and hypo_ids is None):
+            raise ValueError(
+                "server-side generation is not available for this "
+                "session (requires a whole-model session on a "
+                "full-span single-host server with client "
+                "leaves loaded; check the server_gen info flag)"
+            )
+        if position + gen_n - 1 > max_length:
+            raise ValueError(f"Generating {gen_n} tokens at position {position} exceeds max_length {max_length}")
+        return gen_n, sampling
+
+    async def _generate(self, backend, batcher, lane, kv, last_hidden, position: int, gen_n: int, sampling):
+        """``gen_n`` tokens from ``last_hidden`` [1, 1, hidden]: a pooled
+        session's through the batcher's generation steps, a private one's
+        through ``generate_tokens`` on the task queue. Returns (tokens [1,
+        gen_n], the batcher's queue/compute split or None)."""
+        if lane is not None:
+            tokens = await batcher.generate_lane(lane, last_hidden, position, gen_n, sampling=sampling)
+            return tokens, batcher.pop_step_timing(lane)
+
+        def run_gen():
+            tokens, _ = backend.generate_tokens(self.server_gen_params, last_hidden, kv, position, gen_n,
+                                                sampling=sampling)
+            return tokens
+
+        return await self.queue.submit(run_gen, priority=PRIORITY_INFERENCE, size=gen_n), None
 
     @staticmethod
     @contextlib.asynccontextmanager

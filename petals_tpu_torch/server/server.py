@@ -1,8 +1,7 @@
 """The port's server entry point: host a span of blocks of one local
 checkpoint, serve ``ptu.inference`` / ``ptu.info`` on ``host:port``, and take
 part in a petals_tpu swarm (petals_tpu/server/server.py without the relay,
-the rebalance loop, adapters, drain and migration, and server-side
-generation).
+the rebalance loop, adapters, drain and migration).
 
 ``start()`` runs the swarm life cycle in petals_tpu's order: it makes the
 node's identity (``identity_seed``), listens with it, joins the DHT on the
@@ -24,6 +23,14 @@ same cache budget; it combines with every ``quant_type``. ``page_size=0``
 selects the dense lane pool in place of the paged one. Sessions that fit no
 lane (batch > 1, a sub-span, a longer ``max_length``) are served from
 private dense caches out of the same budget.
+
+A server that hosts the whole model (``server_side_generation``, the
+default) also loads the client's leaves (embeddings, final norm, head) in
+float32 and generates tokens in its own step programs for a client that
+asks (``gen_tokens``); it announces ``server_gen`` and
+``server_gen_sampling`` then, as petals_tpu's does. The leaves lie beside
+the weights, outside the KV budget (``attn_cache_bytes``): about 1.05 GB at
+Mistral-7B's widths, logged at load.
 
 Runs on the CUDA card unless the caller passes ``device="cpu"``; a missing
 card raises instead of drifting to the CPU.
@@ -121,6 +128,7 @@ class Server:
         public_name: Optional[str] = None,
         update_period: float = DEFAULT_UPDATE_PERIOD,
         network_mbps: Optional[float] = None,  # a known network budget; None: probe the peers
+        server_side_generation: bool = True,  # generate on a whole-model span (gen_tokens)
     ):
         if kv_quant_type not in KV_QUANT_KINDS:
             raise ValueError(f"kv_quant_type must be one of {KV_QUANT_KINDS}, got {kv_quant_type!r}")
@@ -179,6 +187,8 @@ class Server:
         self.public_name = public_name
         self.update_period = update_period
         self.network_mbps = network_mbps
+        self.server_side_generation = server_side_generation
+        self.server_gen_params: Optional[dict] = None  # the client's leaves, once loaded
 
         self.queue = PriorityTaskQueue()
         self.backend: Optional[TransformerBackend] = None
@@ -215,6 +225,7 @@ class Server:
             max_chunk_size_bytes=self.max_chunk_size_bytes, quant_type=self.quant_type,
             kv_quant_type=self.kv_quant_type,
         )
+        self.server_gen_params = self._load_server_gen_params()
         batch_lanes = self.batch_lanes
         if batch_lanes is None:
             # lanes cost their full length: cap the pool at half the cache
@@ -231,7 +242,7 @@ class Server:
             self.backend, self.memory_cache, self.queue,
             n_lanes=batch_lanes, max_length=self.batch_max_length, page_size=self.page_size or None,
             n_pages=self.n_pages, prefill_token_budget=self.prefill_token_budget,
-            alloc_timeout=self.max_alloc_timeout,
+            alloc_timeout=self.max_alloc_timeout, gen_params=self.server_gen_params,
         )
         self.handler = TransformerHandler(
             self.backend, self.batcher,
@@ -240,7 +251,29 @@ class Server:
             session_timeout=self.session_timeout, step_timeout=self.step_timeout,
             # rpc_info answers ONLINE, as petals_tpu's does
             server_info_fn=lambda: dataclasses.asdict(self._server_info(ServerState.ONLINE)),
+            server_gen_params=self.server_gen_params,
         )
+
+    def _load_server_gen_params(self) -> Optional[dict]:
+        """The client's leaves (embeddings, final norm, head) in float32 on
+        the device, for server-side generation: on a server that hosts every
+        block of the model, unless ``server_side_generation`` is off (as
+        petals_tpu's server.py:945-971, whose leaves are float32 too, so a
+        generated token's logits are the client's own). None otherwise."""
+        if not self.server_side_generation or (self.first_block, self.num_blocks) != (0, self.cfg.num_hidden_layers):
+            return None
+        # here, not at the top: the client package imports this module
+        from petals_tpu_torch.client.from_pretrained import load_client_params
+
+        params = load_client_params(
+            self.model_path, dtype=torch.float32, device=self.device, family=self.family, cfg=self.cfg,
+        )
+        nbytes = sum(t.numel() * t.element_size() for t in {t.data_ptr(): t for t in params.values()}.values())
+        logger.info(
+            f"Server-side generation on: the client's leaves hold {nbytes} bytes on {self.device} "
+            f"beside the weights, outside the KV budget of {self.memory_cache.max_size_bytes} bytes"
+        )
+        return params
 
     # ------------------------------------------------------------------ life cycle
 
@@ -335,9 +368,10 @@ class Server:
             adapters=(),
             cache_tokens_left=cache_tokens_left,
             next_pings=dict(self._next_pings) or None,
-            # this server refuses server-side generation: no client routes it here
-            server_gen=False,
-            server_gen_sampling=False,
+            # a whole-model server holding the client's leaves generates,
+            # greedy and sampled alike
+            server_gen=self.server_gen_params is not None,
+            server_gen_sampling=self.server_gen_params is not None,
             pool=pool,
         )
 

@@ -4,6 +4,10 @@ the same servers: one port Server on tiny-llama's whole span here (the mixed
 chains: tests/test_torch_client_mixed.py; petals_tpu servers:
 tests/test_torch_client_jax.py).
 
+The server does not generate (``server_side_generation=False``), so both
+clients run their per-token loops; their server-side generation paths are
+compared in tests/test_torch_client_jax.py.
+
 Compared token array for token array: greedy, a batch of 3, seeded sampling
 (tests/test_full_model.py's SAMPLING), a two-call chat session, 2-beam
 search, repetition penalty with no_repeat_ngram_size, eos/pad with and
@@ -204,7 +208,11 @@ def model_path(tmp_path_factory):
 
 @pytest.fixture(scope="module")
 def port_route(model_path, tmp_path_factory):
-    route = Route(model_path, [("port", 0, N_LAYERS)], str(tmp_path_factory.mktemp("cache"))).start()
+    # the per-token path: a whole-model server that generated would take
+    # both clients' batch-1 calls (tests/test_torch_client_jax.py)
+    route = Route(
+        model_path, [("port", 0, N_LAYERS)], str(tmp_path_factory.mktemp("cache")), server_side_generation=False,
+    ).start()
     jax_model, port_model = both_clients(model_path, route.initial_peers)
     yield route, jax_model, port_model
     port_model.close()

@@ -28,6 +28,7 @@ def redundant_swarm(tmp_path_factory):
         [("port", 0, N_LAYERS, dict(throughput=1000.0)),  # preferred
          ("port", 0, N_LAYERS, dict(throughput=1.0))],  # understudy
         str(tmp_path_factory.mktemp("cache")),
+        server_side_generation=False,  # the per-token path (a failed generated chunk: test_torch_client_jax.py)
     ).start()
     model = AutoDistributedModelForCausalLM.from_pretrained(
         path, initial_peers=route.initial_peers, device="cpu", min_backoff=0.1,

@@ -564,7 +564,12 @@ def test_dense_pool_prefill_interleaves_chunks(model_path):
                                deserialize_array(reply["tensors"]["hidden"]), atol=2e-5, rtol=0)
 
 
-def test_adapters_and_server_side_generation_are_still_refused(model_path):
+def test_adapters_refused_and_server_gen_limited_to_whole_model_batch_1(model_path):
+    """Adapters are refused; server-side generation is served to a
+    whole-model session of batch 1 only (tests/test_torch_server_gen.py),
+    so a batch-2 session's ``gen_tokens`` gets petals_tpu's refusal; a step
+    of the wrong batch is refused by the step validation."""
+
     async def main():
         server = _port_server(model_path, 0)
         await server.start()
@@ -579,7 +584,7 @@ def test_adapters_and_server_side_generation_are_still_refused(model_path):
             await stream.send(base)
             await stream.recv(timeout=60)
             await stream.send({"tensors": {"hidden": serialize_array(np.zeros((2, 2, 64), np.float32))}, "gen_tokens": 4})
-            with pytest.raises(RpcError, match="not supported by this server yet"):
+            with pytest.raises(RpcError, match="server-side generation is not available for this session"):
                 await stream.recv(timeout=60)
             stream = await client.open_stream("ptu.inference")
             await stream.send(base)

@@ -32,8 +32,9 @@ def test_importing_every_module_loads_no_jax():
             "from_pretrained", "model", "routing.sequence_manager", "routing.sequence_info",
             "routing.spending_policy")} | {"petals_tpu_torch.models.client_common",
             "petals_tpu_torch.models.llama.model", "petals_tpu_torch.models.qwen2",
-            "petals_tpu_torch.telemetry", "petals_tpu_torch.telemetry.observatory"}
-        assert client <= set(names), sorted(client - set(names))  # the client and telemetry are walked
+            "petals_tpu_torch.telemetry", "petals_tpu_torch.telemetry.observatory",
+            "petals_tpu_torch.ops.sampling", "petals_tpu_torch.ops.threefry"}
+        assert client <= set(names), sorted(client - set(names))  # the client, telemetry and sampling are walked
         print(len(names), bad)
         assert not bad, bad
         """

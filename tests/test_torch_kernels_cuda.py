@@ -838,3 +838,106 @@ def test_step_programs_replay_bit_equal_to_the_eager_loop(cuda_device, quant_typ
     k2 = pfa.paged_flash_prefill_attend.launches + sum(pfa.paged_flash_prefill_attend.kv_quant_launches.values())
     assert k1 == 2 * (7 + 7 + 3) and k2 == 2 * (4 + 4 + 2), (k1, k2)
 
+
+
+def test_sampling_captures_and_replays_bit_equal(cuda_device):
+    """``sample_tokens`` at 8 lanes of Mistral-7B's 32000-token vocabulary,
+    captured in a CUDA graph (its sorts and cumulative sums included) and
+    replayed on fresh inputs: the tokens equal the eager call's."""
+    from petals_tpu_torch.ops.sampling import sample_tokens, sampling_tensors, sampling_vectors
+
+    gen = torch.Generator(device=cuda_device).manual_seed(3)
+    rng = np.random.default_rng(3)
+
+    def inputs():
+        vec = sampling_vectors(8, 32000)
+        vec["do_sample"][1:] = True
+        vec["temperature"][:] = rng.uniform(0.5, 1.5, 8)
+        vec["top_k"][2:5] = (1, 50, 40000)
+        vec["top_p"][4:] = (0.9, 0.5, 0.95, 1.0)
+        vec["repetition_penalty"][[0, 6]] = 1.3
+        vec["seen_mask"][:] = rng.random((8, 32000)) < 0.01
+        vec["seeds"][:] = rng.integers(0, 2**31, 8)
+        vec["draw_idx"][:] = rng.integers(0, 1000, 8)
+        logits = torch.randn(8, 32000, generator=gen, device=cuda_device) * 3
+        return logits, sampling_tensors(vec, cuda_device)
+
+    logits, samp = inputs()
+    static = {"logits": logits.clone(), **{k: v.clone() for k, v in samp.items()}}
+
+    def run():
+        return sample_tokens(static["logits"], **{k: v for k, v in static.items() if k != "logits"})
+
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        run()  # warm-up
+    torch.cuda.current_stream().wait_stream(stream)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = run()
+    for _ in range(3):
+        logits, samp = inputs()
+        static["logits"].copy_(logits)
+        for k, v in samp.items():
+            static[k].copy_(v)
+        graph.replay()
+        want = sample_tokens(logits, **samp)
+        torch.cuda.synchronize()
+        assert torch.equal(out, want), (out, want)
+
+
+@pytest.mark.parametrize("quant_type,kv_quant_type", [("none", "none"), ("nf4a", "nf4a")])
+def test_gen_step_program_replays_bit_equal_to_the_eager_loop(cuda_device, quant_type, kv_quant_type):
+    """The generation step (server/backend.py ``paged_gen_decode_step``)
+    replayed as a CUDA graph against its eager loop on a clone of the pools:
+    hidden states, tokens and pool bytes bit-equal over four steps whose
+    lanes generate, decode and idle, greedy and sampled; one capture, and
+    K1 ran on both blocks of every replay."""
+    from petals_tpu_torch.ops.paged_attention import PagedPool as Pool
+    from petals_tpu_torch.ops.sampling import sampling_vectors
+
+    backend = _step_backend(cuda_device, quant_type, kv_quant_type)
+    cfg, n_lanes, max_pages, ps = backend.cfg, 4, 8, 64
+    gen = torch.Generator(device=cuda_device).manual_seed(11)
+    params = {"embed": torch.randn(cfg.vocab_size, cfg.hidden_size, generator=gen, device=cuda_device) * 0.05,
+              "norm": torch.ones(cfg.hidden_size, device=cuda_device),
+              "head": torch.randn(cfg.hidden_size, cfg.vocab_size, generator=gen, device=cuda_device) * 0.05}
+    bufs = [dsc.make_zeros() for dsc in backend.paged_cache_descriptors(n_lanes * max_pages, ps, 0, 2)]
+    replayed = (Pool(bufs[0], bufs[2]), Pool(bufs[1], bufs[3])) if len(bufs) == 4 else tuple(bufs)
+
+    def clone(pools):
+        return tuple(Pool(p.codes.clone(), p.scales.clone()) if isinstance(p, Pool) else p.clone() for p in pools)
+
+    def flat(pools):
+        return [t for p in pools for t in (p if isinstance(p, Pool) else (p,))]
+
+    eager = clone(replayed)
+    tables = torch.arange(n_lanes * max_pages, dtype=torch.int32).reshape(n_lanes, max_pages)
+    positions = torch.tensor([3, 100, 250, max_pages * ps], dtype=torch.int32)
+    use_token = torch.tensor([True, False, True, False])
+    tokens = torch.tensor([7, 0, 31999, 0])
+    rng = np.random.default_rng(4)
+    pfa.reset_launch_counts()
+    for step in range(4):
+        hidden = torch.randn(n_lanes, 1, cfg.hidden_size, generator=gen, device=cuda_device).cpu()
+        vec = sampling_vectors(n_lanes, cfg.vocab_size)
+        vec["do_sample"][2] = True
+        vec["top_p"][2] = 0.9
+        vec["repetition_penalty"][0] = 1.2
+        vec["seen_mask"][0] = rng.random(cfg.vocab_size) < 0.05
+        vec["seeds"][2], vec["draw_idx"][2] = 12345, step
+        got_h, got_t, _ = backend.paged_gen_decode_step(params, hidden, tokens, use_token, replayed, positions,
+                                                        tables, sampling_vecs=vec)
+        samp = backend._sampling_inputs(vec, cuda_device)
+        want_h, want_t = backend._paged_gen_decode_eager(
+            params, hidden.to(torch.bfloat16).to(cuda_device), tokens.to(cuda_device), use_token.to(cuda_device),
+            eager, positions.to(cuda_device), tables.to(cuda_device), samp)
+        torch.cuda.synchronize()
+        assert torch.equal(got_h, want_h) and torch.equal(got_t, want_t), step
+        assert all(torch.equal(g, w) for g, w in zip(flat(replayed), flat(eager))), step
+        tokens = torch.where(use_token, got_t.cpu(), 0)
+        positions = positions + torch.tensor([1, 1, 1, 0], dtype=torch.int32)
+    assert backend.step_program_stats() == {"graph_captures": 1, "graph_replays": 4, "graph_anomalies": 0}
+    k1 = pfa.paged_flash_attend.launches + sum(pfa.paged_flash_attend.kv_quant_launches.values())
+    assert k1 == 2 * (4 + 4 + 1), k1  # eager and replayed steps, and the capture's warm-up

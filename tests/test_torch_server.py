@@ -7,9 +7,11 @@ wire is petals_tpu's, byte for byte.
   test_mixed_prefill_interleaves_with_decode): every reply equals a
   petals_tpu TransformerBackend.inference_step on the same weights, and the
   batcher's stats show the prefill rode mixed steps.
-- Steps and sessions this server does not serve yet (server-side
-  generation, KV import, adapters, push_to) get a clear error; batch > 1 and
-  sub-span sessions are served from private caches (tests/test_torch_dense.py).
+- Steps and sessions this server does not serve yet (KV import, adapters,
+  push_to) get a clear error, and so does server-side generation outside a
+  whole-model session (tests/test_torch_server_gen.py serves it); batch > 1
+  and sub-span sessions are served from private caches
+  (tests/test_torch_dense.py).
 - The CLI builds the server with petals_tpu's pool-sizing defaults.
 - Greedy generation of 8 tokens, with the embeddings, final norm and head
   applied in the test from the checkpoint, is token-identical to the same
@@ -151,18 +153,20 @@ def test_concurrent_prefill_and_decode_match_jax(model_path):
 
 
 def test_unsupported_steps_get_a_clear_error(model_path):
-    """Server-side generation, KV import, push_to and adapters are refused as
-    not supported yet, never silently mishandled; sessions the lane pool
-    cannot hold (batch 2, a sub-span) open on private caches instead."""
+    """KV import, push_to and adapters are refused as not supported yet,
+    and server-side generation outside a whole-model session (a sub-span)
+    or with a malformed ``gen_sampling`` with petals_tpu's errors, never
+    silently mishandled; sessions the lane pool cannot hold (batch 2, a
+    sub-span) open on private caches instead."""
     from petals_tpu.rpc.client import RpcError
 
-    async def expect_refusal(client, open_msg, step=None):
+    async def expect_refusal(client, open_msg, step=None, match="not supported by this server yet"):
         stream = await client.open_stream("ptu.inference")
         await stream.send(open_msg)
         if step is not None:
             await stream.recv(timeout=60)
             await stream.send(step)
-        with pytest.raises(RpcError, match="not supported by this server yet"):
+        with pytest.raises(RpcError, match=match):
             await stream.recv(timeout=60)
 
     async def main():
@@ -171,8 +175,12 @@ def test_unsupported_steps_get_a_clear_error(model_path):
             uids = _uids(model_path)
             hidden = serialize_array(np.zeros((1, 2, server.cfg.hidden_size), np.float32))
             good = {"uids": uids, "max_length": 64, "batch_size": 1}
-            await expect_refusal(client, good, {"tensors": {"hidden": hidden}, "gen_tokens": 4})
-            await expect_refusal(client, good, {"tensors": {"hidden": hidden}, "gen_sampling": {"do_sample": True}})
+            sub_span = {**good, "uids": uids.split(" ")[0]}
+            await expect_refusal(client, sub_span, {"tensors": {"hidden": hidden}, "gen_tokens": 4},
+                                 match="server-side generation is not available for this session")
+            await expect_refusal(client, good, {"tensors": {"hidden": hidden}, "gen_tokens": 4,
+                                                "gen_sampling": {"do_sample": True, "top_k": -1}},
+                                 match="gen_sampling.top_k must be >= 0")
             await expect_refusal(client, good, {"kv_import": {"position": 3}, "tensors": {}})
             await expect_refusal(client, good, {"tensors": {"hidden": hidden}, "push_to": {"addr": "x", "session_id": "y"}})
             await expect_refusal(client, {**good, "active_adapter": "lora"})
