@@ -137,7 +137,10 @@
    order; inputs rounded to bf16 read ~1e-3). Times (bf16, with library_factor per case):
    the kernel, the plain version and the yardstick, one
    scaled_dot_product_attention call with an explicit mask over the valid
-   part of the buffer (timed here, used nowhere in the port). The bound
+   part of the buffer (timed here, used nowhere in the port). The kernel is
+   called and timed with its position and length as int32 scalars on the
+   card, as a served step passes them (a replayed graph reads them there),
+   and must give the bytes its host-integer form gives. The bound
    counts q, the output and the K/V rows some query row sees, once per KV
    head, and 4 * batch * hq * d operations per visible (q, kv) pair.
 10. Private sessions: the bf16 8-block span with the CLI's defaults; a
@@ -145,13 +148,29 @@
    step at 700, 16 decode steps) and a sub-span session (blocks 2..6, batch
    1: a 300-token prefill, 4 decode steps). Replies are checked as in phase
    3, and the private cache's K/V rows row by row against the reference's.
-   K4's counter must equal blocks x steps of 8 rows and more, and K1/K2
-   must read 0.
+   Each step is a call of its backend's private step program: a chunk
+   (padded to its bucket) runs its key once, eagerly; the decode key runs
+   eagerly, is captured on the second decode step and replays every later
+   one, and the program's counts must say exactly that. K4's counter must
+   equal blocks x steps of more than one token (each padded to 8 rows and
+   more; a replay counts through the capture's record), and K1/K2 must
+   read 0. Then, on the served weights, phase 15's dense programs and the
+   profile's dense rows (profile_dense_steps: the private batch-2 decode
+   step on a 2048-token cache and the dense pool's 4-lane decode step,
+   eager and replayed, and B6, the plain decode attention they run,
+   captured alone and profiled as a replay).
 11. The dense lane pool: the span with --page_size 0 (and a chunk bound of
    512 tokens' activations, so the 700-token prompt's prefill runs as two
    queue tasks) to phase 3's four sessions at 16 decode steps: replies
    checked as in phase 3; K4 must have run on every block of every prefill
-   chunk and K1/K2 never.
+   chunk and K1/K2 never. The pool's programs are captured when it opens
+   (the batched decode step; on each lane's view of the pool the chunk at
+   bucket 0 and every bucket up to the chunk bound): the measured run must
+   capture none, every batched step must replay the batched decode program
+   and every prefill chunk a lane program. Then measure_dense_graph_pool
+   reads the memory the dense programs keep reserved (this pool's, a
+   private batch-2 session's and the forward's) beside the eager peaks,
+   against the reserve choose_num_blocks leaves.
 12. Swarm: a port DHT bootstrap node on 127.0.0.1, then two port servers
    built by the CLI (its 8192-token budget, --update_period 2,
    --throughput auto with a fresh cache under build/): A on blocks [0, 4),
@@ -220,7 +239,20 @@
    clone of the pools. Every output row and every pool byte must be
    bit-equal (the prefilling lane's decode row, at the sentinel, is left
    out only on the step that captures its bucket); 4 captures and a replay
-   a step. Beside the 8-block bf16 and nf4a runs, measure_graph_pool reads
+   a step. The dense programs (check_dense_programs, after phase 10's
+   sessions on its weights): a seeded private cache of 2 rows and 1024
+   tokens, the private step at buckets 8, 64 and 512 (each run eagerly,
+   then captured by a second chunk of the bucket; the last, 300 tokens
+   padded to 512, past the cache's end), three decode steps, three with
+   hypo_ids, deep prompts over a chunk that straddles their end; a 4-lane
+   dense pool warmed as a batcher warms it, its batched decode step and a
+   lane-view chunk; the forward three times; each against the same call on
+   a backend without programs on a clone, bit-equal; the private decode
+   steps again on 2 of phase 6's nf4a blocks, so K5's decode kernel runs
+   inside a dense graph; and in phase 16, where the client's leaves are
+   loaded, the private generation step (8 greedy and 8 sampled tokens)
+   and the dense pool's generation step (check_private_gen_program).
+   Beside the 8-block bf16 and nf4a runs, measure_graph_pool reads
    the memory the step programs keep reserved (warmed as the served
    batcher warms them, and up to the last prefill bucket) beside the eager
    paths' peaks, and fails if they pass the reserve choose_num_blocks
@@ -453,6 +485,16 @@ PROFILE_CHUNK = 512
 # tokens padded to 512 and 5 padded to 8 replay those graphs at another
 # lane, position and real length
 STEP_CHUNKS = ((8, 0, 128), (64, 1, 200), (512, 2, 64), (300, 3, 600), (5, 1, 700))
+# phase 15's dense programs, on a private cache of PRIVATE_BATCH rows and
+# DENSE_MAX_LENGTH tokens: (tokens, position) of the private step's chunks,
+# buckets 8, 64 and 512 each run eagerly and then captured by a second
+# chunk of the bucket, the last (300 tokens) padded to 512 past the cache's
+# end; a dense pool warmed to chunks of DENSE_WARM_CHUNK tokens
+DENSE_MAX_LENGTH = 1024
+DENSE_STEP_CHUNKS = ((8, 0), (5, 8), (64, 13), (40, 77), (512, 117), (300, 629))
+DENSE_WARM_CHUNK = 64
+STEADY_DENSE_PROGRAMS = ("_dense_decode_program", "_lane_program")  # the dense pool's, captured when it opens
+DENSE_PROFILE_POSITION = 1000  # the profiled private decode step's position in its PRIVATE_MAX_LENGTH cache
 # the port's kernels, by the name each has in a profile
 PORT_KERNELS = ("paged_decode_kernel", "paged_prefill_wgmma_kernel", "paged_prefill_kernel", "flash_attention_kernel",
                 "flash_wgmma_kernel", "quant_decode_ring_kernel", "quant_prefill_kernel", "split_reduce_kernel")
@@ -1038,18 +1080,23 @@ def check_flash_kernel(device, timer):
             raise AssertionError("the sliced buffer was meant to be a strided view")
         kv_length = q_offset + q_len
         kw = dict(q_offset=q_offset, kv_length=kv_length, sliding_window=w)
+        # as the served step passes them: position and length as int32s on the card
+        scalars = torch.tensor([q_offset, kv_length], dtype=torch.int32, device=device)
+        kw_dev = dict(q_offset=scalars[0], kv_length=scalars[1], sliding_window=w)
         before = fa.flash_attend.launches
-        got = fa.flash_attend(q, k, v, **kw)
+        got = fa.flash_attend(q, k, v, **kw_dev)
         torch.cuda.synchronize()
         if fa.flash_attend.launches != before + 1:
             raise AssertionError("K4's wrapper did not count its launch")
+        if not torch.equal(got, fa.flash_attend(q, k, v, **kw)):
+            raise AssertionError(f"K4 {name}: host-integer and device-held positions give other bytes")
         want = fa.flash_attend_reference(q.float(), k, v, **kw)
         if got.shape != q.shape or not torch.isfinite(got).all():
             raise AssertionError(f"K4 {name}: output {tuple(got.shape)} or non-finite")
         err = (got.float() - want).abs().max().item()
         # float32 keeps the CUDA-core kernel: the same views in float32
         q32, k32, v32 = q.float(), k.float(), v.float()
-        got32 = fa.flash_attend(q32, k32, v32, **kw)
+        got32 = fa.flash_attend(q32, k32, v32, **kw_dev)
         torch.cuda.synchronize()
         err32 = (got32 - fa.flash_attend_reference(q32, k32, v32, **kw)).abs().max().item()
         del q32, k32, v32, got32
@@ -1071,7 +1118,7 @@ def check_flash_kernel(device, timer):
         nbytes = 2 * q.numel() * 2 + 2 * batch * (kv_length - first_seen) * hkv * d * 2
         bound, by = bound_ms(nbytes, 4 * batch * hq * d * _visible_pairs(q_len, q_offset, kv_length, w))
         timed[name] = {
-            "ms": timer(lambda: fa.flash_attend(q, k, v, **kw)),
+            "ms": timer(lambda: fa.flash_attend(q, k, v, **kw_dev)),
             "plain_ms": timer(lambda: fa.flash_attend_reference(q, k, v, **kw)),
             "library_ms": timer(library), "bound_ms": bound, "bound_by": by,
         }
@@ -1397,6 +1444,18 @@ def sibling_backend(backend, kv_quant_type=None):
     )
 
 
+def sub_span_backend(backend, n_blocks: int):
+    """A backend over the first ``n_blocks`` of ``backend``'s blocks (their
+    parameters, no copy), with step programs of its own."""
+    from petals_tpu_torch.server.backend import TransformerBackend
+
+    return TransformerBackend(
+        backend.family, backend.cfg, backend.block_params[:n_blocks], first_block=backend.first_block,
+        n_blocks=n_blocks, device=backend.device, compute_dtype=backend.compute_dtype,
+        quant_type=backend.quant_type, kv_quant_type=backend.kv_quant_type,
+    )
+
+
 def _random_pools(backend, device, n_pages, seed):
     """Seeded random bf16 span pools [n_blocks, n_pages, PAGE, hkv, d],
     quantized on the card to the backend's pool kind."""
@@ -1490,6 +1549,317 @@ def check_step_programs(backend, device, label) -> dict:
     return stats
 
 
+def eager_sibling(backend):
+    """A sibling of ``backend`` with no step programs: its steps run the
+    eager block loop on the card (the same methods, the same padding and
+    device scalars), the reference a replay must equal bit for bit."""
+    sib = sibling_backend(backend)
+    for name in ("_decode_program", "_mixed_program", "_gen_program", "_dense_decode_program", "_dense_gen_program",
+                 "_lane_program", "_private_program", "_private_gen_program", "_forward_program"):
+        setattr(sib, name, None)
+    return sib
+
+
+def _program_counts(prog) -> dict:
+    c = prog.counts
+    return {"calls": c.calls, "eager": c.eager_calls, "captures": c.captures, "replays": c.replays,
+            "anomalies": c.anomalies}
+
+
+def _count_delta(after: dict, before: dict) -> dict:
+    return {k: after[k] - before[k] for k in after}
+
+
+def _seeded_cache(backend, device, batch, max_length, seed):
+    """Seeded bf16 dense K/V buffers [n_blocks, batch, max_length, hkv, d]."""
+    cfg = backend.cfg
+    gen = torch.Generator(device=device).manual_seed(seed)
+    shape = (backend.n_blocks, batch, max_length, cfg.num_key_value_heads, cfg.head_dim)
+    return tuple(torch.randn(shape, generator=gen, device=device).to(torch.bfloat16) for _ in range(2))
+
+
+def _bit_equal(label, what, got, want, pairs) -> None:
+    torch.cuda.synchronize()
+    if not torch.equal(got, want):
+        diff = (got.float() - want.float()).abs().max().item() if got.shape == want.shape else "shape"
+        raise AssertionError(f"{label}: replayed {what} differs from the eager loop (max abs {diff})")
+    if not all(torch.equal(a, b) for a, b in pairs):
+        raise AssertionError(f"{label}: replayed {what} wrote other cache bytes than the eager loop")
+
+
+def check_dense_programs(backend, device, label, full=True) -> dict:
+    """The dense programs against the eager block loop (phase 15): on a
+    sibling of the served backend, a seeded private cache of PRIVATE_BATCH
+    rows and DENSE_MAX_LENGTH tokens; the private step's chunks at
+    DENSE_STEP_CHUNKS (each bucket run eagerly, then captured by its second
+    chunk and replayed; the 300-token chunk padded to 512 past the cache's
+    end), three decode steps, three with hypo_ids, and deep prompts over a
+    chunk that straddles their end; a PROFILE_LANES-lane dense pool warmed
+    as a batcher warms it (nothing written), its batched decode step twice
+    and a chunk on a lane's view; the stateless forward three times. Each
+    call on one cache, the same call on an ``eager_sibling`` on a clone:
+    outputs and every cache byte bit-equal. ``full=False``: the decode steps
+    alone (a quantized 2-block span: K5's decode kernel inside a dense
+    graph). Every non-steady key: one eager call, one capture; no
+    anomaly."""
+    from petals_tpu_torch.server.backend import chunk_buckets
+
+    sib, ref = sibling_backend(backend), eager_sibling(backend)
+    hsz = sib.hidden_size
+    cache = _seeded_cache(sib, device, PRIVATE_BATCH, DENSE_MAX_LENGTH, SEED + 18)
+    eager = tuple(t.clone() for t in cache)
+    gen = torch.Generator().manual_seed(SEED + 19)
+
+    def hidden(batch, n):
+        return torch.randn(batch, n, hsz, generator=gen)
+
+    def private(what, h, position, **kw):
+        got, _ = sib.inference_step(h, cache, position, **kw)
+        want, _ = ref.inference_step(h, eager, position, **kw)
+        _bit_equal(label, what, got, want, zip(cache, eager))
+
+    done = []
+    if full:
+        for n, pos in DENSE_STEP_CHUNKS:
+            private(f"private step, {n} tokens at {pos}", hidden(PRIVATE_BATCH, n), pos)
+        done.append(f"chunks {list(DENSE_STEP_CHUNKS)}")
+    position = 929
+    for i in range(3):
+        private("private decode step", hidden(PRIVATE_BATCH, 1), position + i)
+    hypo = torch.arange(PRIVATE_BATCH - 1, -1, -1)
+    for i in range(3):
+        private("private decode step with hypo_ids", hidden(PRIVATE_BATCH, 1), position + 3 + i, hypo_ids=hypo)
+    done.append("decode x3, with hypo_ids x3")
+    if full:
+        prompts = torch.randn(sib.n_blocks, PRIVATE_BATCH, 16, hsz, generator=gen) * 0.1
+        private("private chunk with deep prompts", hidden(PRIVATE_BATCH, 8), 0, prompts=prompts)
+        private("private chunk straddling the deep prompts", hidden(PRIVATE_BATCH, 8), 12, prompts=prompts)
+        done.append("deep prompts (8 rows at 0, 8 at 12 over pre_seq 16)")
+    private_counts = _program_counts(sib._private_program)
+    n_keys = 2 + 3 * full + 1 * full  # decode, hypo decode; buckets 8, 64, 512; prompts
+    stats = {"private": private_counts}
+    if private_counts["eager"] != n_keys or private_counts["captures"] != n_keys or private_counts["anomalies"]:
+        raise AssertionError(f"{label}: expected {n_keys} keys, each one eager call and one capture: {private_counts}")
+    if full:
+        pool = _seeded_cache(sib, device, PROFILE_LANES, DENSE_MAX_LENGTH, SEED + 20)
+        eager_pool = tuple(t.clone() for t in pool)
+        sib.warm_dense_programs(pool, PROFILE_LANES, DENSE_MAX_LENGTH, DENSE_WARM_CHUNK)
+        _bit_equal(label, "dense pool warm-up", pool[0], eager_pool[0], zip(pool, eager_pool))
+        positions = torch.tensor([64, 362, 661, DENSE_MAX_LENGTH], dtype=torch.int32)[:PROFILE_LANES]
+        for i in range(2):
+            h = hidden(PROFILE_LANES, 1)
+            got, _ = sib.batched_decode_step(h, pool, positions + i)
+            want, _ = ref.batched_decode_step(h, eager_pool, positions + i)
+            _bit_equal(label, "dense pool batched decode step", got, want, zip(pool, eager_pool))
+        h = hidden(1, 40)
+        got, _ = sib.inference_step(h, sib.dense_lane_view(*pool, 2), 700)
+        want, _ = ref.inference_step(h, ref.dense_lane_view(*eager_pool, 2), 700)
+        _bit_equal(label, "lane-view chunk (40 tokens of lane 2 at 700)", got, want, zip(pool, eager_pool))
+        stats["pool"] = {name: _program_counts(getattr(sib, attr)) for name, attr in
+                         (("batched_decode", "_dense_decode_program"), ("lane", "_lane_program"))}
+        n_lane = PROFILE_LANES * (1 + len(chunk_buckets(DENSE_WARM_CHUNK)))
+        if (stats["pool"]["batched_decode"]["captures"] != 1 or stats["pool"]["lane"]["captures"] != n_lane
+                or stats["pool"]["lane"]["replays"] != n_lane + 1):
+            raise AssertionError(f"{label}: the dense pool's programs: {stats['pool']}")
+        x = hidden(1, PROFILE_CHUNK)
+        for i in range(3):
+            _bit_equal(label, f"forward (call {i + 1})", sib.forward(x), ref.forward(x), ())
+        stats["forward"] = _program_counts(sib._forward_program)
+        done.append(f"dense pool: warm-up, batched decode x2, a lane-view chunk; forward x3 at {PROFILE_CHUNK}")
+        del pool, eager_pool
+    log(f"{label}: dense programs bit-equal to the eager loop: {'; '.join(done)}; {json.dumps(stats)}")
+    return stats
+
+
+def check_private_gen_program(backend, gen_params, device, label) -> dict:
+    """The private generation step's program and the dense pool's generation
+    step against the eager loop (phase 15, run here where the client's
+    leaves are loaded): on a sibling, ``generate_tokens`` on a seeded
+    private cache of one row, 8 tokens greedy then 8 sampled
+    (GEN_SAMPLING), beside an ``eager_sibling`` on a clone: tokens and every
+    cache byte bit-equal; then a warmed PROFILE_LANES-lane dense pool's
+    ``batched_gen_decode_step`` twice (generating, sampled and decoding
+    lanes) the same way."""
+    from petals_tpu_torch.rpc.protocol import validate_gen_sampling
+
+    sib, ref = sibling_backend(backend), eager_sibling(backend)
+    cfg = sib.cfg
+    cache = _seeded_cache(sib, device, 1, DENSE_MAX_LENGTH, SEED + 21)
+    eager = tuple(t.clone() for t in cache)
+    gen = torch.Generator().manual_seed(SEED + 22)
+    last = torch.randn(1, 1, cfg.hidden_size, generator=gen).to(torch.bfloat16).to(device)
+    position = 500
+    for sampling in (None, validate_gen_sampling(GEN_SAMPLING)):
+        got, _ = sib.generate_tokens(gen_params, last, cache, position, 8, sampling=sampling)
+        want, _ = ref.generate_tokens(gen_params, last, eager, position, 8, sampling=sampling)
+        _bit_equal(label, f"private generation ({'sampled' if sampling else 'greedy'})", torch.from_numpy(got),
+                   torch.from_numpy(want), zip(cache, eager))
+        position += 7
+    private = _program_counts(sib._private_gen_program)
+    pool = _seeded_cache(sib, device, PROFILE_LANES, DENSE_MAX_LENGTH, SEED + 23)
+    eager_pool = tuple(t.clone() for t in pool)
+    sib.warm_dense_programs(pool, PROFILE_LANES, DENSE_MAX_LENGTH, 8, gen_params)
+    positions = torch.tensor([64, 362, 661, 960], dtype=torch.int32)[:PROFILE_LANES]
+    vec, tokens, use_token = _gen_vectors(cfg.vocab_size, PROFILE_LANES,
+                                          [lane != 1 for lane in range(PROFILE_LANES)], SEED + 22)
+    for step in range(2):
+        h = torch.randn(PROFILE_LANES, 1, cfg.hidden_size, generator=gen)
+        got_h, got_t, _ = sib.batched_gen_decode_step(gen_params, h, tokens, use_token, pool, positions,
+                                                      sampling_vecs=vec)
+        want_h, want_t, _ = ref.batched_gen_decode_step(gen_params, h, tokens, use_token, eager_pool, positions,
+                                                        sampling_vecs=vec)
+        _bit_equal(label, f"dense pool generation step {step}", torch.cat([got_h.flatten(), got_t.float()]),
+                   torch.cat([want_h.flatten(), want_t.float()]), zip(pool, eager_pool))
+        tokens = torch.where(use_token, got_t.cpu(), 0)
+        positions = positions + 1
+        vec["draw_idx"] += 1
+    stats = {"server_gen": private, "batched_gen_decode": _program_counts(sib._dense_gen_program)}
+    log(f"{label}: private generation (8 greedy, 8 sampled tokens) and the dense pool's generation step x2 "
+        f"bit-equal to the eager loop; {json.dumps(stats)}")
+    # one key a sampling mode: its first step eager, its second captured
+    if private["eager"] != 2 or private["captures"] != 2 or stats["batched_gen_decode"]["captures"] != 1:
+        raise AssertionError(f"{label}: generation programs {stats}")
+    return stats
+
+
+def _graph_of(fn, device):
+    """``fn`` captured in a CUDA graph of its own (warmed on a side
+    stream first), for timing a piece of a step as its replay runs it."""
+    stream = torch.cuda.Stream(device)
+    stream.wait_stream(torch.cuda.current_stream(device))
+    with torch.cuda.stream(stream):
+        fn()
+    torch.cuda.current_stream(device).wait_stream(stream)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    return graph
+
+
+def profile_dense_steps(backend, device, smi) -> dict:
+    """Where a dense step's time goes (the profile phase's dense rows), on a
+    sibling and an ``eager_sibling`` of the served span's backend: the
+    private decode step of a PRIVATE_BATCH-row session on a
+    PRIVATE_MAX_LENGTH-token cache at DENSE_PROFILE_POSITION, and the dense
+    pool's PROFILE_LANES-lane batched decode step on DENSE_MAX_LENGTH-token
+    lanes at the paged profile's positions, each eager (the block loop,
+    host inputs uploaded per call) and replayed, as ``profile_calls``
+    measures them. Then B6, the plain decode attention the dense steps run:
+    the span's n_blocks calls of ``attend_reference`` at each step's shapes
+    on the same caches, captured in one graph and profiled as its replay,
+    beside the replayed step's device busy time."""
+    from petals_tpu_torch.ops.attention import attend_reference
+
+    sib, ref = sibling_backend(backend), eager_sibling(backend)
+    cfg = sib.cfg
+    gen = torch.Generator().manual_seed(SEED + 24)
+    cache = _seeded_cache(sib, device, PRIVATE_BATCH, PRIVATE_MAX_LENGTH, SEED + 24)
+    pool = _seeded_cache(sib, device, PROFILE_LANES, DENSE_MAX_LENGTH, SEED + 25)
+    sib.warm_dense_programs(pool, PROFILE_LANES, DENSE_MAX_LENGTH, 8)
+    pos = DENSE_PROFILE_POSITION
+    positions = torch.linspace(64, DENSE_MAX_LENGTH - 64, PROFILE_LANES).to(torch.int32)
+    h_private = torch.randn(PRIVATE_BATCH, 1, cfg.hidden_size, generator=gen)
+    h_pool = torch.randn(PROFILE_LANES, 1, cfg.hidden_size, generator=gen)
+    for _ in range(2):  # the private decode key: its eager call, then its capture
+        sib.inference_step(h_private, cache, pos)
+    private = f"private decode step (batch {PRIVATE_BATCH}, {PRIVATE_MAX_LENGTH}-token cache at {pos})"
+    pooled = f"dense pool decode step ({PROFILE_LANES} lanes of {DENSE_MAX_LENGTH} tokens)"
+
+    def b6(batch, k_stack, v_stack, q_offset):
+        q = torch.randn(batch, 1, cfg.num_attention_heads, cfg.head_dim, device=device).to(torch.bfloat16)
+        q_offset = q_offset.to(device)
+
+        def run():
+            for i in range(sib.n_blocks):
+                attend_reference(q, k_stack[i], v_stack[i], q_offset=q_offset, kv_length=q_offset + 1,
+                                 sliding_window=cfg.sliding_window)
+        return _graph_of(run, device)
+
+    b6_private = b6(PRIVATE_BATCH, *cache, torch.tensor(pos, dtype=torch.int32))
+    b6_pool = b6(PROFILE_LANES, *pool, positions)
+    steps = {
+        f"{private}, eager": lambda: ref.inference_step(h_private, cache, pos),
+        f"{private}, replayed": lambda: sib.inference_step(h_private, cache, pos),
+        f"{pooled}, eager": lambda: ref.batched_decode_step(h_pool, pool, positions),
+        f"{pooled}, replayed": lambda: sib.batched_decode_step(h_pool, pool, positions),
+        f"B6 of the {private}, {sib.n_blocks} blocks in one graph": b6_private.replay,
+        f"B6 of the {pooled}, {sib.n_blocks} blocks in one graph": b6_pool.replay,
+    }
+    log(f"dense profile (--quant_type {sib.quant_type}): {sib.n_blocks} blocks ({smi})")
+    times = profile_calls(steps)
+    for what in (private, pooled):
+        b6_ms = times[f"B6 of the {what}, {sib.n_blocks} blocks in one graph"]["device_busy_ms"]
+        step_ms = times[f"{what}, replayed"]["device_busy_ms"]
+        log(f"dense profile: B6 (plain decode attention) takes {b6_ms:.3f} ms of the replayed {what}'s "
+            f"{step_ms:.3f} ms device busy ({b6_ms / step_ms:.3f}) ({smi})")
+    rows = {label: {k: round(v, 4) for k, v in t.items()} for label, t in times.items()}
+    log(f"dense profile rows: {json.dumps(rows)}")
+    return times
+
+
+def measure_dense_graph_pool(backend, batcher, device, label) -> dict:
+    """The card memory the dense programs keep reserved, as
+    ``measure_graph_pool`` reads the paged ones: a sibling of the served
+    backend warms them as the served dense batcher does (its lanes, its
+    length, its longest chunk), then captures a private session's
+    (PRIVATE_BATCH rows on a PRIVATE_MAX_LENGTH-token cache: the decode
+    step and a PROFILE_CHUNK-token chunk) and the forward at PROFILE_CHUNK
+    tokens; the reserved bytes are read before and after, the allocator's
+    cache emptied each time. Beside them the eager peaks of a lane chunk at
+    the longest chunk, the private chunk and the forward. Fails if the
+    pool and the larger peak together pass the reserve that
+    choose_num_blocks leaves."""
+    from petals_tpu_torch.server.block_utils import AUTOGRAD_RESERVE_FRACTION
+
+    total = torch.cuda.get_device_properties(device).total_memory
+    reserve = AUTOGRAD_RESERVE_FRACTION * total
+    sib, ref = sibling_backend(backend), eager_sibling(backend)
+    hsz, n_lanes, max_length = sib.hidden_size, batcher.n_lanes, batcher.max_length
+    pool = _seeded_cache(sib, device, n_lanes, max_length, SEED + 26)
+    cache = _seeded_cache(sib, device, PRIVATE_BATCH, PRIVATE_MAX_LENGTH, SEED + 27)
+    longest = min(backend.longest_chunk(1), max_length)
+    token = torch.zeros(PRIVATE_BATCH, 1, hsz)
+    chunk = torch.zeros(PRIVATE_BATCH, PROFILE_CHUNK, hsz)
+    x = torch.zeros(1, PROFILE_CHUNK, hsz)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    before = torch.cuda.memory_reserved(device)
+    sib.warm_dense_programs(pool, n_lanes, max_length, longest)
+    for _ in range(2):
+        sib.inference_step(token, cache, 0)
+        sib.inference_step(chunk, cache, 0)
+        sib.forward(x)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    graph_bytes = torch.cuda.memory_reserved(device) - before
+    captures = sib.step_program_stats()["graph_captures"]
+    peaks = {}
+    for what, fn in (
+        ("eager lane chunk", lambda: ref.inference_step(torch.zeros(1, longest, hsz), ref.dense_lane_view(*pool, 0), 0)),
+        ("eager private chunk", lambda: ref.inference_step(chunk, cache, 0)),
+        ("eager forward", lambda: ref.forward(x)),
+    ):
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated(device)
+        torch.cuda.reset_peak_memory_stats(device)
+        fn()
+        torch.cuda.synchronize()
+        peaks[what] = torch.cuda.max_memory_allocated(device) - base
+    row = {"lanes": n_lanes, "max_length": max_length, "longest_chunk": longest, "captures": captures,
+           "graph_pool_bytes": graph_bytes, **{f"{k} peak bytes": v for k, v in peaks.items()}}
+    log(f"{label}: dense programs ({captures} captures: {n_lanes} lanes x {max_length} tokens warmed to "
+        f"{longest}-token chunks, a private batch-{PRIVATE_BATCH} session's decode and {PROFILE_CHUNK}-token chunk, "
+        f"the forward at {PROFILE_CHUNK}) hold {graph_bytes / 2**20:.1f} MiB reserved; eager peaks "
+        + ", ".join(f"{k} {v / 2**20:.1f} MiB" for k, v in peaks.items())
+        + f"; reserve {reserve / 2**30:.2f} GiB ({AUTOGRAD_RESERVE_FRACTION:g} of {total / 2**30:.2f} GiB)")
+    log(f"{label}: dense graph pool {json.dumps(row)}")
+    if graph_bytes + max(peaks.values()) > reserve:
+        raise AssertionError(f"{label}: the dense programs' pool and the eager peak pass the reserve: {row}")
+    del sib, ref, pool, cache
+    free_card()
+    return row
+
+
 def measure_graph_pool(backend, batcher, device, label) -> dict:
     """The card memory the step programs keep reserved, beside the eager
     paths' peaks and the reserve that choose_num_blocks leaves beside the
@@ -1576,9 +1946,6 @@ def profile_steps(backend, device, gen_params=None, smi="") -> None:
     lane generating, sampled) beside the decode step in place of the mixed
     step, and the head and sampling's share of its device time: the
     generation step's busy time less the decode step's, over the former."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
     sib = sibling_backend(backend)
     cfg, max_len = sib.cfg, 1024
     max_pages = max_len // PAGE
@@ -1612,9 +1979,30 @@ def profile_steps(backend, device, gen_params=None, smi="") -> None:
             "generation step, replayed": lambda: sib.paged_gen_decode_step(
                 gen_params, hidden, tokens, use_token, pools, positions, tables, sampling_vecs=vec),
         })
-    times = {}
     log(f"profile (--quant_type {sib.quant_type} --kv_quant_type {sib.kv_quant_type}): "
         f"{sib.n_blocks} blocks, {PROFILE_LANES} lanes at positions {positions.tolist()}")
+    times = profile_calls(steps)
+    if gen_params is not None:
+        gen, dec = times["generation step, replayed"], times["decode step, replayed"]
+        share = (gen["device_busy_ms"] - dec["device_busy_ms"]) / gen["device_busy_ms"]
+        log(f"profile (--quant_type {sib.quant_type}): the replayed generation step's device busy "
+            f"{gen['device_busy_ms']:.3f} ms beside the decode step's {dec['device_busy_ms']:.3f} ms: the embedding, "
+            f"float32 head and sampling take {share:.3f} of it ({gen['device_busy_ms'] - dec['device_busy_ms']:.3f} ms); "
+            f"host wall {gen['host_wall_ms']:.3f} vs {dec['host_wall_ms']:.3f} ms ({smi})")
+
+
+def profile_calls(steps: dict) -> dict:
+    """Each of ``steps`` (label: a callable) profiled as the profile phase
+    does: the host wall (median of PROFILE_REPS calls, launch to
+    synchronize) and the device span (CUDA events around the same calls),
+    then from torch.profiler over PROFILE_CALLS further calls the device
+    busy time, the kernel and graph launches and the top operations, with
+    the idle share 1 - busy / wall. Returns {label: {host_wall_ms,
+    device_span_ms, device_busy_ms, idle_share, launches, graph_launches}}."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    times = {}
     for label, fn in steps.items():
         fn()
         walls, spans = [], []
@@ -1641,7 +2029,9 @@ def profile_steps(backend, device, gen_params=None, smi="") -> None:
         launches = sum(e.count for e in events if e.key.startswith(("cudaLaunchKernel", "cuLaunchKernel")))
         graph_launches = sum(e.count for e in events if e.key.startswith(("cudaGraphLaunch", "cuGraphLaunch")))
         span = statistics.median(spans)
-        times[label] = {"host_wall_ms": statistics.median(walls), "device_span_ms": span, "device_busy_ms": busy}
+        times[label] = {"host_wall_ms": statistics.median(walls), "device_span_ms": span, "device_busy_ms": busy,
+                        "idle_share": 1 - busy / prof_wall, "launches": launches / PROFILE_CALLS,
+                        "graph_launches": graph_launches / PROFILE_CALLS}
         log(f"{label}: host wall {statistics.median(walls):.3f} ms (median of {PROFILE_REPS}; device span "
             f"{span:.3f} ms, CUDA events around the call); profiled, per call over "
             f"{PROFILE_CALLS}: host wall {prof_wall:.3f} ms, device busy {busy:.3f} ms, idle share "
@@ -1653,13 +2043,7 @@ def profile_steps(backend, device, gen_params=None, smi="") -> None:
                 log(f"{label}: {kernel} {t / 1e3 / PROFILE_CALLS:.3f} ms a call, "
                     f"{t / 1e3 / PROFILE_CALLS / busy:.3f} of device busy")
         log(events.table(sort_by="self_device_time_total", row_limit=10, max_name_column_width=60))
-    if gen_params is not None:
-        gen, dec = times["generation step, replayed"], times["decode step, replayed"]
-        share = (gen["device_busy_ms"] - dec["device_busy_ms"]) / gen["device_busy_ms"]
-        log(f"profile (--quant_type {sib.quant_type}): the replayed generation step's device busy "
-            f"{gen['device_busy_ms']:.3f} ms beside the decode step's {dec['device_busy_ms']:.3f} ms: the embedding, "
-            f"float32 head and sampling take {share:.3f} of it ({gen['device_busy_ms'] - dec['device_busy_ms']:.3f} ms); "
-            f"host wall {gen['host_wall_ms']:.3f} vs {dec['host_wall_ms']:.3f} ms ({smi})")
+    return times
 
 
 def dense_reference_params(block_params, dtype):
@@ -1848,11 +2232,16 @@ async def _drive_private(server, blocks, batch, max_length, step_lens, seed):
     return inputs, outs, metas, kv
 
 
-def serve_private_and_check(ckpt, device):
+def serve_private_and_check(ckpt, device, smi):
     """Phase 10: the bf16 span with the CLI's defaults serving a batch-2
-    session and a sub-span session from private caches. Returns the launch
-    counts of the two sessions together."""
+    session and a sub-span session from private caches, each step a call of
+    its backend's private step program: a chunk's key runs once, eagerly;
+    the decode key runs eagerly, is captured on the second decode step and
+    replays every later one. Then phase 15's dense programs against the
+    eager loop and the profile phase's dense rows, on the served weights.
+    Returns the launch counts of the two sessions together."""
     from petals_tpu_torch.cli.run_server import build_parser, build_server
+    from petals_tpu_torch.server.backend import bucket_length
 
     label = "private sessions (bf16, 8 blocks)"
     server = build_server(build_parser().parse_args(
@@ -1868,18 +2257,30 @@ def serve_private_and_check(ckpt, device):
             await _drive_private(server, (0, SPAN), PRIVATE_BATCH, 256, (64, 1, 1), SEED + 5)  # warm-up
             results = []
             for i, (_, blocks, batch, max_length, step_lens) in enumerate(sessions):
+                # the backend the session's steps run on (the handler's, for a sub-span)
+                program = server.handler._sub_backend(*blocks)._private_program
+                before = _program_counts(program)
                 _reset_launch_counts()
                 result = await _drive_private(server, blocks, batch, max_length, step_lens, SEED + 10 + i)
-                results.append((result, _launch_counts()))
+                results.append((result, _launch_counts(), _count_delta(_program_counts(program), before)))
             return results
         finally:
             await server.shutdown()
 
     results = asyncio.run(serve())
     failed, total = [], {}
-    for (name, blocks, batch, max_length, step_lens), ((inputs, outs, metas, kv), launches) in zip(sessions, results):
+    for (name, blocks, batch, max_length, step_lens), ((inputs, outs, metas, kv), launches, programs) in zip(
+            sessions, results):
         n_blocks = blocks[1] - blocks[0]
-        need = n_blocks * sum(1 for n in step_lens if n >= 8)
+        # a chunk of more than one token is padded to a bucket of at least 8 rows: K4's
+        need = n_blocks * sum(1 for n in step_lens if n > 1)
+        n_decode = sum(1 for n in step_lens if n == 1)
+        want = {"calls": len(step_lens), "eager": len({bucket_length(n) for n in step_lens if n > 1}) + 1,
+                "captures": 1, "replays": n_decode - 1, "anomalies": 0}
+        log(f"{label}: {name}: the private step program {programs} (every decode step from the second on a "
+            f"replay: {want})")
+        if programs != want:
+            raise AssertionError(f"{label}: {name}: private step program counts {programs}, expected {want}")
         variants = sorted({m["variant"] for m in metas})
         decode = [m["compute_s"] for m, n in zip(metas, step_lens) if n == 1]
         log(f"{label}: {name}: steps of {step_lens[:2]}... tokens, max_length {max_length}, cache "
@@ -1901,6 +2302,9 @@ def serve_private_and_check(ckpt, device):
         )
     if failed:
         raise AssertionError("; ".join(failed))
+    # phase 15's dense programs and the profile's dense rows, on the served weights
+    check_dense_programs(server.backend, device, f"dense programs (--quant_type none, {SPAN} blocks)")
+    profile_dense_steps(server.backend, device, smi)
     return total
 
 
@@ -1927,15 +2331,28 @@ def serve_dense_pool_and_check(ckpt, device):
                 f"{pool_bytes / 2**20:.1f} MiB of a {server.memory_cache.max_size_bytes / 2**20:.1f} MiB budget")
             await drive_server(server, WARMUP_PROMPTS, 2, SEED + 5)
             before = dict(b.stats)
+            steady = {name: _program_counts(getattr(server.backend, name)) for name in STEADY_DENSE_PROGRAMS}
+            log(f"{label}: the pool's programs after warm-up: {json.dumps(steady)}")
             _reset_launch_counts()
             result = await drive_server(server, PROMPTS, DENSE_DECODE_STEPS, SEED + 4)
-            return result, _launch_counts(), {k: v - before[k] if not k.startswith("max") else v for k, v in b.stats.items()}
+            late = {name: _count_delta(_program_counts(getattr(server.backend, name)), steady[name])
+                    for name in STEADY_DENSE_PROGRAMS}
+            stats = {k: v - before[k] if not k.startswith("max") else v for k, v in b.stats.items()}
+            return result, _launch_counts(), stats, late
         finally:
             await server.shutdown()
 
-    (inputs, replies, metas, timing, _), launches, stats = asyncio.run(serve())
+    (inputs, replies, metas, timing, _), launches, stats, late = asyncio.run(serve())
+    log(f"{label}: the pool's programs in the measured run: {json.dumps(late)}")
+    check_graph_stats(label, stats)
+    if any(c["captures"] for c in late.values()) or stats["graph_captures"]:
+        raise AssertionError(f"{label}: the dense pool captured after its warm-up: {late}, {stats}")
     chunks = [server.backend.chunk_plan(1, n) for n in PROMPTS]
-    need = SPAN * sum(1 for plan in chunks for c in plan if c >= 8)
+    if (late["_lane_program"]["replays"] != sum(len(p) for p in chunks)
+            or late["_dense_decode_program"]["replays"] != stats["batched_steps"]):
+        raise AssertionError(f"{label}: every prefill chunk and batched step must replay the pool's programs: "
+                             f"{late}, chunk plans {chunks}, {stats['batched_steps']} batched steps")
+    need = SPAN * sum(1 for plan in chunks for c in plan if c > 1)  # padded to >= 8 rows: K4's
     variants = sorted({m["variant"] for ms in metas for m in ms})
     decode = [m["compute_s"] for ms in metas for m in ms[1:]]
     log(f"{label}: stats of the measured run: {stats}; chunk plans {chunks}; variants {variants}; launches {launches} "
@@ -1959,6 +2376,7 @@ def serve_dense_pool_and_check(ckpt, device):
         )
     if failed:
         raise AssertionError("; ".join(failed))
+    measure_dense_graph_pool(server.backend, server.batcher, device, label)
     return launches
 
 
@@ -2939,6 +3357,7 @@ def serve_gen_and_check(ckpt, device, smi, quant_type) -> None:
         raise AssertionError("; ".join(failed))
     server = held[0]
     check_gen_step_program(server.backend, server.server_gen_params, device, label)
+    check_private_gen_program(server.backend, server.server_gen_params, device, label)
     profile_steps(server.backend, device, gen_params=server.server_gen_params, smi=smi)
     log(f"{label}: phase done in {time.perf_counter() - t0:.1f} s")
     held.clear()
@@ -3009,6 +3428,9 @@ def main() -> int:
         free_card()
         server, nf4a_launches = serve_and_check(ckpt, device, "nf4a", SPAN, PROMPTS, DECODE_STEPS, SEED + 4, WARMUP_PROMPTS)
         check_step_programs(server.backend, device, f"step programs (--quant_type nf4a, {SPAN} blocks)")
+        # K5's decode kernel inside a dense graph: the private decode steps on 2 of the nf4a blocks
+        check_dense_programs(sub_span_backend(server.backend, SHORT_SPAN), device,
+                             f"dense programs (--quant_type nf4a, {SHORT_SPAN} blocks)", full=False)
         measure_graph_pool(server.backend, server.batcher, device, f"graph pool (--quant_type nf4a, {SPAN} blocks)")
         profile_steps(server.backend, device)
         del server
@@ -3044,7 +3466,7 @@ def main() -> int:
         log(f"earlier paths done at {time.perf_counter() - t_start:.1f} s")
 
         # dense caches: private sessions, then the dense lane pool
-        private_launches = serve_private_and_check(ckpt, device)
+        private_launches = serve_private_and_check(ckpt, device, smi)
         free_card()
         serve_dense_pool_and_check(ckpt, device)
         free_card()

@@ -7,11 +7,16 @@
 // are valid. Query row i sits at absolute position q_offset + i and sees kv
 // position j when j <= q_offset + i, j < kv_length and, with a sliding
 // window, j > q_offset + i - window. q_offset and kv_length are scalars
-// shared by the batch. GQA (query head h reads kv head h / group), optional
-// ALiBi (slopes[h] * j added to the scaled scores), online softmax in
-// float32, probabilities rounded to the storage type for the PV product (as
-// the TPU kernel feeds its matrix unit), float32 accumulator, one rounding to
-// the output type at the end. Same contract as the plain PyTorch version
+// shared by the batch, read by the kernel from two int32s on the card (as
+// K2 reads its chunk's position), so one launch, and one CUDA graph that
+// captures it, serves a padded chunk at any position and real length: the
+// grid depends only on the shapes. kv_length is clamped to [0, the buffer's
+// length], since no host checks a value held on the card. GQA
+// (query head h reads kv head h / group), optional ALiBi (slopes[h] * j
+// added to the scaled scores), online softmax in float32, probabilities
+// rounded to the storage type for the PV product (as the TPU kernel feeds
+// its matrix unit), float32 accumulator, one rounding to the output type at
+// the end. Same contract as the plain PyTorch version
 // beside the wrapper (petals_tpu_torch/ops/flash_attention.py
 // flash_attend_reference).
 //
@@ -117,7 +122,10 @@ __global__ void __launch_bounds__(NT) flash_attention_kernel(
     long q_sb, long q_ss, long q_sh,  // strides of q in elements: batch, row, head
     long k_sb, long k_ss, long k_sh,
     long v_sb, long v_ss, long v_sh,
-    int q_offset, int kv_length, int window, float scale) {
+    const int* __restrict__ q_offset_p, const int* __restrict__ kv_length_p, int kv_buf_len,
+    int window, float scale) {
+  const int q_offset = *q_offset_p;
+  const int kv_length = min(max(*kv_length_p, 0), kv_buf_len);
   constexpr int RB = D * (int)sizeof(T);  // bytes of one K/V row of one head
   constexpr int KP = kv_pitch<T, D>();
   constexpr int QP = D + 4;
@@ -347,8 +355,11 @@ __global__ void __launch_bounds__(WG_THREADS, 2) flash_wgmma_kernel(
     const float* __restrict__ slopes,     // [hq] ALiBi slopes or nullptr
     __nv_bfloat16* __restrict__ out,      // [batch, q_len, hq, D], contiguous
     int q_len, int hq, int hkv, long q_sb, long q_ss, long q_sh, long k_sb, long k_ss, long k_sh,
-    long v_sb, long v_ss, long v_sh, int q_offset, int kv_length, int window, float scale) {
+    long v_sb, long v_ss, long v_sh, const int* __restrict__ q_offset_p, const int* __restrict__ kv_length_p,
+    int kv_buf_len, int window, float scale) {
   using S = WgmmaSmem<D>;
+  const int q_offset = *q_offset_p;
+  const int kv_length = min(max(*kv_length_p, 0), kv_buf_len);
   constexpr int CH = D / 8;  // 16-byte chunks of a row
   extern __shared__ unsigned char wg_smem_raw[];
   const uint32_t raw_base = smem_u32(wg_smem_raw);
@@ -500,28 +511,33 @@ __global__ void __launch_bounds__(WG_THREADS, 2) flash_wgmma_kernel(
 template <typename T, int D>
 int launch(const void* q, const void* k, const void* v, const float* slopes, void* out, int batch,
            int q_len, int hq, int hkv, long q_sb, long q_ss, long q_sh, long k_sb, long k_ss,
-           long k_sh, long v_sb, long v_ss, long v_sh, int q_offset, int kv_length, int window,
-           float scale, cudaStream_t stream) {
+           long k_sh, long v_sb, long v_ss, long v_sh, const int* q_offset, const int* kv_length,
+           int kv_buf_len, int window, float scale, cudaStream_t stream) {
+  constexpr int kMaxDevices = 64;
+  static bool configured[kMaxDevices] = {};  // the shared-memory attribute, per device
   const size_t smem = 2 * (size_t)BKV * kv_pitch<T, D>() * sizeof(T) +
                       (size_t)BQ * (D + 4) * sizeof(float) + (size_t)BQ * (BKV + 1) * sizeof(float);
   auto kernel = flash_attention_kernel<T, D>;
-  if (smem > 48 * 1024) {
-    cudaError_t err =
-        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  if (smem > 48 * 1024 && (dev >= kMaxDevices || !configured[dev])) {
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
+    if (dev < kMaxDevices) configured[dev] = true;
   }
   kernel<<<dim3((q_len + BQ - 1) / BQ, hq, batch), NT, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), slopes,
       static_cast<T*>(out), q_len, hq, hkv, q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh,
-      q_offset, kv_length, window, scale);
+      q_offset, kv_length, kv_buf_len, window, scale);
   return (int)cudaGetLastError();
 }
 
 template <int D>
 int launch_wgmma(const void* q, const void* k, const void* v, const float* slopes, void* out, int batch,
                  int q_len, int hq, int hkv, long q_sb, long q_ss, long q_sh, long k_sb, long k_ss,
-                 long k_sh, long v_sb, long v_ss, long v_sh, int q_offset, int kv_length, int window,
-                 float scale, cudaStream_t stream) {
+                 long k_sh, long v_sb, long v_ss, long v_sh, const int* q_offset, const int* kv_length,
+                 int kv_buf_len, int window, float scale, cudaStream_t stream) {
   constexpr int kMaxDevices = 64;
   static bool configured[kMaxDevices] = {};  // the shared-memory attribute, per device
   const int group = hq / hkv;
@@ -539,7 +555,7 @@ int launch_wgmma(const void* q, const void* k, const void* v, const float* slope
   flash_wgmma_kernel<D><<<dim3(hkv, batch, (q_len + qp - 1) / qp), WG_THREADS, WgmmaSmem<D>::BYTES, stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), slopes, static_cast<__nv_bfloat16*>(out), q_len, hq, hkv, q_sb,
-      q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, q_offset, kv_length, window, scale);
+      q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, q_offset, kv_length, kv_buf_len, window, scale);
   return (int)cudaGetLastError();
 }
 
@@ -551,19 +567,22 @@ extern "C" {
 // bfloat16 (the wgmma kernel; float32 keeps the CUDA-core kernel, since TF32
 // tensor cores would change float32 results). Strides are in elements. The
 // wrapper in petals_tpu_torch/ops/flash_attention.py validates every
-// argument; an unsupported (dtype, head_dim) pair returns
-// cudaErrorInvalidValue.
+// argument it holds on the host; q_offset and kv_length point to int32s on
+// the card (0-dim tensors), which the kernels read and clamp. An
+// unsupported (dtype, head_dim) pair returns cudaErrorInvalidValue.
 int ptt_flash_attention(const void* q, const void* k, const void* v, const void* slopes, void* out,
                         int dtype, int batch, int q_len, int hq, int hkv, int head_dim,
                         long long q_sb, long long q_ss, long long q_sh, long long k_sb,
                         long long k_ss, long long k_sh, long long v_sb, long long v_ss,
-                        long long v_sh, int q_offset, int kv_length, int window, float scale,
-                        void* stream) {
+                        long long v_sh, const void* q_offset, const void* kv_length, int kv_buf_len,
+                        int window, float scale, void* stream) {
   const float* sl = static_cast<const float*>(slopes);
+  const int* qo = static_cast<const int*>(q_offset);
+  const int* kl = static_cast<const int*>(kv_length);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define PTT_FLASH(LAUNCH)                                                                   \
   return LAUNCH(q, k, v, sl, out, batch, q_len, hq, hkv, q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, \
-                v_sb, v_ss, v_sh, q_offset, kv_length, window, scale, s)
+                v_sb, v_ss, v_sh, qo, kl, kv_buf_len, window, scale, s)
   if (dtype == 0 && head_dim == 64) PTT_FLASH((launch<float, 64>));
   if (dtype == 0 && head_dim == 128) PTT_FLASH((launch<float, 128>));
   if (dtype == 1 && head_dim == 64) PTT_FLASH(launch_wgmma<64>);

@@ -57,15 +57,18 @@ def update_kv_cache(kv, k_new: torch.Tensor, v_new: torch.Tensor, position, n_va
     tensor: each row then writes at its own offset, kv_length comes back as a
     vector, and rows at or past the buffer's end (the idle sentinel) are
     DROPPED. ``n_valid`` marks how many of the ``s`` new rows are real; padded
-    rows are dropped. On ``PagedKV``s a scalar ``position`` and ``n_valid``
-    may be 0-dim device tensors (a captured step's chunk scalars); dense
-    buffers take host integers."""
+    rows are dropped. A scalar ``position`` and ``n_valid`` may be host
+    integers or 0-dim integer tensors on the rows' device (a captured step's
+    chunk scalars). With host integers a dense write is a slice assignment
+    and an overflow raises; with a tensor it goes through ``_drop_scatter_``,
+    which drops padded rows and rows past the buffer without a host sync,
+    the same bytes either way, and kv_length comes back as a tensor."""
     from petals_tpu_torch.ops.paged_attention import PagedKV, paged_update_kv
 
     k_buf, v_buf = kv
     if isinstance(k_buf, PagedKV):
         return paged_update_kv(k_buf, v_buf, k_new, v_new, position, n_valid)
-    if isinstance(position, torch.Tensor) and position.dim() == 1:
+    if isinstance(position, torch.Tensor) or isinstance(n_valid, torch.Tensor):
         return _update_dense_per_lane(k_buf, v_buf, k_new, v_new, position, n_valid)
     pos, seq = int(position), k_new.shape[1]
     n = seq if n_valid is None else int(n_valid)
@@ -79,23 +82,28 @@ def update_kv_cache(kv, k_new: torch.Tensor, v_new: torch.Tensor, position, n_va
 
 
 def _update_dense_per_lane(k_buf, v_buf, k_new, v_new, position, n_valid):
-    """Per-lane write into dense buffers [b, max_len, hkv, d]: row (b, i) goes
-    to ``position[b] + i``; positions at or past ``max_len`` and rows past
-    ``n_valid`` drop (the JAX package's scatter with mode="drop"). The drop
-    is ``_drop_scatter_``'s: every index stays a tensor, no host sync."""
+    """Write into dense buffers [b, max_len, hkv, d] at positions held as
+    tensors: row (b, i) goes to ``position[b] + i`` (``position`` [b], per
+    lane) or ``position + i`` (a 0-dim tensor or an int, shared); positions
+    at or past ``max_len`` and rows past ``n_valid`` (an int or a 0-dim
+    tensor) drop (the JAX package's scatter with mode="drop"). The drop is
+    ``_drop_scatter_``'s: every index stays a tensor, no host sync."""
     from petals_tpu_torch.ops.paged_attention import _drop_scatter_
 
     batch, seq = k_new.shape[0], k_new.shape[1]
     buf_len = k_buf.shape[1]
     if not (k_buf.is_contiguous() and v_buf.is_contiguous()):
         raise ValueError("per-lane writes need contiguous dense buffers [batch, max_len, hkv, d]")
-    pos = position.to(device=k_new.device, dtype=torch.long)
+    if isinstance(position, torch.Tensor):
+        pos = position.to(device=k_new.device, dtype=torch.long).reshape(-1, 1)
+    else:
+        pos = int(position)
     offs = torch.arange(seq, device=k_new.device)
-    idx = pos[:, None] + offs[None, :]  # [b, s]
+    idx = pos + offs[None, :]  # [b, s], or [1, s] for a shared position
     ok = (idx >= 0) & (idx < buf_len)
     n = seq
     if n_valid is not None:
-        n = int(n_valid)
+        n = n_valid if isinstance(n_valid, torch.Tensor) else int(n_valid)
         ok = ok & (offs[None, :] < n)
     lane = torch.arange(batch, device=k_new.device)[:, None]
     flat = torch.where(ok, lane * buf_len + idx, batch * buf_len).reshape(-1)

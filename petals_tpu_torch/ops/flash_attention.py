@@ -10,10 +10,19 @@ q_len, hq, d]; k, v [batch, kv_buf_len, hkv, d] of which the first
 ``q_offset`` and ``kv_length`` are scalars shared by the batch. GQA, optional
 ALiBi, float32 softmax; a row that sees nothing gives exact zeros.
 
+``q_offset`` and ``kv_length`` are host integers or 0-dim integer tensors on
+the device (a captured step's chunk position and real length): the kernel
+reads them from the card, so a CUDA graph that captures it replays a padded
+chunk at any position. Host integers are checked and uploaded, an H2D copy
+that a capture refuses; tensors are read unchecked, and the kernel clamps
+kv_length to the buffer.
+
 Tensors on the CPU go to the plain version; tensors on a CUDA device launch
 the kernel or raise. There is no fallback from one to the other.
-``flash_attend.launches`` (a plain int) counts the kernel's launches, so a
-run can show that its main path went through the kernel.
+``flash_attend.launches`` (a plain int) counts the kernel's launches
+(telemetry/observatory.py ``count_launch``: a launch inside a capture is
+counted by each replay), so a run can show that its main path went through
+the kernel.
 
 The kernel replaces ``_kernel`` of petals_tpu/ops/flash_attention.py; the
 source says what bounds it and how its design answers that. It reads q, k and
@@ -31,6 +40,7 @@ from typing import Optional
 import torch
 
 from petals_tpu_torch.ops.attention import DEFAULT_MASK_VALUE
+from petals_tpu_torch.telemetry.observatory import count_launch
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (64, 128)
@@ -49,7 +59,7 @@ def kernel_library() -> ctypes.CDLL:
 
         lib = load("flash_attention")
         p, i, s, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
-        lib.ptt_flash_attention.argtypes = [p] * 5 + [i] * 6 + [s] * 9 + [i] * 3 + [f, p]
+        lib.ptt_flash_attention.argtypes = [p] * 5 + [i] * 6 + [s] * 9 + [p] * 2 + [i] * 2 + [f, p]
         lib.ptt_flash_attention.restype = i
         lib.ptt_flash_error_string.argtypes = [i]
         lib.ptt_flash_error_string.restype = ctypes.c_char_p
@@ -77,8 +87,8 @@ def flash_attend_reference(
     k: torch.Tensor,
     v: torch.Tensor,
     *,
-    q_offset: int = 0,
-    kv_length: Optional[int] = None,
+    q_offset=0,
+    kv_length=None,
     alibi_slopes: Optional[torch.Tensor] = None,
     sliding_window: Optional[int] = None,
     scale: Optional[float] = None,
@@ -87,16 +97,19 @@ def flash_attend_reference(
     softmax, the unnormalised probabilities rounded to the storage type for
     the PV product, a float32 sum divided by ``max(l, 1e-30)`` (l summed
     unrounded) and rounded once to ``q.dtype``. In float32 it is
-    ``attend_reference`` up to the order of the division."""
+    ``attend_reference`` up to the order of the division. ``q_offset`` and
+    ``kv_length`` are host integers or 0-dim integer tensors (read where they
+    lie, kv_length clamped to the buffer as the kernel clamps it); both give
+    the same bytes."""
     batch, q_len, hq, d = q.shape
     kv_buf_len, hkv = k.shape[1], k.shape[2]
     if hq % hkv:
         raise ValueError(f"query heads {hq} not a multiple of kv heads {hkv}")
     group = hq // hkv
     scale = d**-0.5 if scale is None else float(scale)
-    q_offset = int(q_offset)
-    kv_length = kv_buf_len if kv_length is None else int(kv_length)
     device = q.device
+    q_offset = _scalar(q_offset, device)
+    kv_length = _scalar(kv_buf_len if kv_length is None else kv_length, device).clamp(0, kv_buf_len)
 
     qg = q.float().reshape(batch, q_len, hkv, group, d)
     logits = torch.einsum("bqkgd,bskd->bkgqs", qg, k.float()) * scale
@@ -116,6 +129,30 @@ def flash_attend_reference(
     return (acc / l.permute(0, 2, 1)[..., None]).to(q.dtype)
 
 
+def _scalar(x, device: torch.device) -> torch.Tensor:
+    """A host integer or a 0-dim integer tensor as a 0-dim int32 tensor on
+    ``device`` (no copy for an int32 tensor already there)."""
+    if isinstance(x, torch.Tensor):
+        return x.to(device=device, dtype=torch.int32)
+    return torch.tensor(int(x), dtype=torch.int32, device=device)
+
+
+def _device_scalars(q_offset, kv_length, kv_buf_len: int, device: torch.device):
+    """(q_offset, kv_length) as 0-dim int32 tensors on ``device``, as the
+    kernel reads them. Tensors pass as they are (cast where needed); host
+    integers are range-checked and uploaded together."""
+    if isinstance(q_offset, torch.Tensor) or isinstance(kv_length, torch.Tensor):
+        if kv_length is None:
+            kv_length = kv_buf_len
+        return _scalar(q_offset, device), _scalar(kv_length, device)
+    q_offset = int(q_offset)
+    kv_length = kv_buf_len if kv_length is None else int(kv_length)
+    if q_offset < 0 or not 0 <= kv_length <= kv_buf_len:
+        raise ValueError(f"bad positions: q_offset={q_offset}, kv_length={kv_length}, buffer {kv_buf_len}")
+    pair = torch.tensor([q_offset, kv_length], dtype=torch.int32, device=device)
+    return pair[0], pair[1]
+
+
 def _check_strided(name: str, t: torch.Tensor, dtype, head_dim: int) -> None:
     if t.dtype != dtype:
         raise TypeError(f"{name} must be {dtype} like q, got {t.dtype}")
@@ -133,8 +170,8 @@ def flash_attend(
     k: torch.Tensor,
     v: torch.Tensor,
     *,
-    q_offset: int = 0,
-    kv_length: Optional[int] = None,
+    q_offset=0,
+    kv_length=None,
     alibi_slopes: Optional[torch.Tensor] = None,
     sliding_window: Optional[int] = None,
     scale: Optional[float] = None,
@@ -169,15 +206,12 @@ def flash_attend(
     if q.dtype == torch.bfloat16 and hq // hkv > _WGMMA_ROWS:
         raise ValueError(f"{hq} query heads over {hkv} kv heads: the bf16 kernel packs a group into "
                          f"{_WGMMA_ROWS} rows, so it takes a group of at most {_WGMMA_ROWS}")
-    q_offset = int(q_offset)
-    kv_length = kv_buf_len if kv_length is None else int(kv_length)
-    if q_offset < 0 or not 0 <= kv_length <= kv_buf_len:
-        raise ValueError(f"bad positions: q_offset={q_offset}, kv_length={kv_length}, buffer {kv_buf_len}")
     if alibi_slopes is not None:
         if alibi_slopes.dtype != torch.float32 or tuple(alibi_slopes.shape) != (hq,) or not alibi_slopes.is_contiguous():
             raise ValueError(f"alibi_slopes must be contiguous float32 [{hq}], got {alibi_slopes.dtype} {tuple(alibi_slopes.shape)}")
     if sliding_window is not None and int(sliding_window) < 1:
         raise ValueError(f"sliding_window must be >= 1 or None, got {sliding_window}")
+    q_off_t, kv_len_t = _device_scalars(q_offset, kv_length, kv_buf_len, q.device)
     out = torch.empty((batch, q_len, hq, d), dtype=q.dtype, device=q.device)
     if out.numel() == 0:
         return out
@@ -188,14 +222,14 @@ def flash_attend(
             alibi_slopes.data_ptr() if alibi_slopes is not None else None, out.data_ptr(),
             _DTYPE_CODES[q.dtype], batch, q_len, hq, hkv, d,
             *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-            q_offset, kv_length, int(sliding_window or 0),
+            q_off_t.data_ptr(), kv_len_t.data_ptr(), kv_buf_len, int(sliding_window or 0),
             d**-0.5 if scale is None else float(scale),
             torch.cuda.current_stream(q.device).cuda_stream,
         )
     if err:
         msg = lib.ptt_flash_error_string(err).decode()
         raise RuntimeError(f"flash attention kernel launch failed: CUDA error {err} ({msg})")
-    flash_attend.launches += 1
+    count_launch(flash_attend, "launches")
     return out
 
 

@@ -16,10 +16,13 @@ their plain versions for tensors on the CPU (ops/paged_flash_attention.py).
 
 Dense caches are [n_blocks, batch, max_length, hkv, d] buffers, written IN
 PLACE too; block i attends over the view ``k_stack[i]``. ``inference_step``
-on them sends chunks of 8 rows and more to the flash-attention kernel when
-``use_flash`` is set (ops/flash_attention.py; the default on a CUDA device);
-decode shapes and the dense pool's batched step (per-lane positions) take
-plain attention, as they take XLA's in the JAX package.
+pads each chunk of more than one token to its bucket (``bucket_length``, as
+the JAX package's ``_step_once`` does) and passes its position and real
+length as device scalars; chunks of 8 rows and more go to the
+flash-attention kernel when ``use_flash`` is set (ops/flash_attention.py;
+the default on a CUDA device), which reads both scalars on the card; decode
+tokens and the dense pool's batched step (per-lane positions) take plain
+attention, as they take XLA's in the JAX package.
 
 The step programs. Where the JAX package jits ``paged_decode_step`` and
 ``paged_mixed_step`` into one program per shape, on a CUDA device this
@@ -34,8 +37,30 @@ the chunk lane, its position and its real length as device scalars, so one
 graph serves every chunk of a bucket. On the CPU the same methods run the
 block loop eagerly (``_paged_decode_eager``, ``_paged_mixed_eager``) with the
 plain kernels, padding alike. On the card nothing falls back to the eager
-loop: a capture that fails raises. The dense-cache steps
-(``inference_step``, ``batched_decode_step``, ``forward``) run eagerly.
+loop: a capture that fails raises.
+
+The dense programs, each keyed by ``dense_program_key`` (the kind, the
+cache's batch and length, the bucket, the weight encoding, the cache's
+addresses; a private step adds whether it carries hypo_ids and its deep
+prompts' pre_seq; ``forward`` is keyed by (batch, seq, pre_seq) alone):
+
+- steady, captured when a dense lane pool opens (``warm_dense_programs``):
+  ``batched_decode_step`` (the JAX package's ``batched_decode``), the
+  generation step ``batched_gen_decode_step`` when the batcher generates,
+  and on each lane's view of the pool (``dense_lane_view``, whose address
+  never changes) the plain chunk at every bucket the batcher can hand it;
+- not steady (``TrackedGraph(steady=False)``, as the JAX package's
+  ``inference_step``, ``server_gen`` and ``forward`` are): a private
+  session's step, its generation step (``generate_tokens``) and the
+  stateless ``forward``. A key's first call runs the block loop eagerly
+  on the capture stream, its second captures it, later calls replay, so a
+  prefill chunk that runs once never pays a capture and a decode step
+  replays from the session's second step on. hypo_ids reorder the cache
+  inside the first chunk's graph; deep prompts take the JAX package's
+  masked form, so no position reaches the host. A cache's programs are
+  dropped when it is freed (``drop_cache_programs``: the handler at a
+  private session's end, the batcher after a paged lane's check-in and at
+  pool close).
 
 Server-side generation (a whole-model span holding the client's float32
 embeddings, norm and head, ``gen_params``): ``paged_gen_decode_step`` is a
@@ -45,12 +70,14 @@ head (ops/sampling.py); its sampling settings, seen-token masks and
 uniforms (ops/threefry.py, computed on the host) are graph inputs.
 ``sample_from_hidden`` picks a stream's first token from the span output
 before it; ``batched_gen_decode_step`` is the dense pool's step and
-``generate_tokens`` a private session's loop, both eager.
+``generate_tokens`` a private session's loop of generation steps, each a
+program too.
 """
 
 from __future__ import annotations
 
 import logging
+import math
 from typing import Dict, List, Optional, Sequence, Union
 
 import numpy as np
@@ -116,6 +143,25 @@ def step_program_key(kind: str, n_lanes: int, max_pages: int, bucket: int, quant
     tensors = (*_pool_tensors(pool_kv), *extra)
     pools = tuple((t.data_ptr(), tuple(t.shape), str(t.dtype)) for t in tensors)
     return (kind, int(n_lanes), int(max_pages), int(bucket), quant_type, kv_quant_type, pools)
+
+
+def dense_program_key(kind: str, bucket: int, quant_type: str, kv, *flags, extra: Sequence[torch.Tensor] = ()) -> tuple:
+    """``step_program_key`` of a dense step: the step kind, the cache's
+    batch (the pool's lanes) and length, the chunk's bucket (0: a decode
+    token), the weight encoding, each cache tensor's address, shape and
+    dtype and those of ``extra`` (a generation step's client parameters),
+    then ``flags`` (a private step's: whether it carries hypo_ids, and its
+    deep prompts' pre_seq, 0 without). A private cache is allocated per
+    session, so its keys are dropped when it is freed
+    (``TransformerBackend.drop_cache_programs``)."""
+    k = kv[0]
+    return step_program_key(kind, k.shape[-4], k.shape[-3], bucket, quant_type, "none", kv, extra) + tuple(flags)
+
+
+def _replay(program: Optional[TrackedGraph], key, step, inputs) -> tuple:
+    """``step(*inputs)``: a replay of ``program``'s graph for ``key`` on a
+    card, the eager call on the CPU (no program)."""
+    return step(*inputs) if program is None else program.run(key, step, inputs)
 
 
 # sample_tokens' per-lane inputs, in the order a generation step takes them
@@ -192,11 +238,22 @@ class TransformerBackend:
         # the step programs (CUDA graphs, on a card only); every graph of
         # this backend shares one memory pool: steps never run at once
         self._decode_program = self._mixed_program = self._gen_program = None
+        self._dense_decode_program = self._dense_gen_program = self._lane_program = None
+        self._private_program = self._private_gen_program = self._forward_program = None
+        # (k, v) addresses of the dense pool's lane views, whose plain chunks
+        # replay the lane programs captured when the pool opened
+        self._lane_views: set = set()
         if self.device.type == "cuda":
             capture = CudaGraphCapture(self.device)
             self._decode_program = TrackedGraph("paged_decode", capture)
             self._mixed_program = TrackedGraph("paged_mixed_step", capture)
             self._gen_program = TrackedGraph("paged_gen_decode", capture)
+            self._dense_decode_program = TrackedGraph("batched_decode", capture)
+            self._dense_gen_program = TrackedGraph("batched_gen_decode", capture)
+            self._lane_program = TrackedGraph("dense_lane_step", capture)
+            self._private_program = TrackedGraph("inference_step", capture, steady=False)
+            self._private_gen_program = TrackedGraph("server_gen", capture, steady=False)
+            self._forward_program = TrackedGraph("forward", capture, steady=False)
 
     # ------------------------------------------------------------- cache descriptors
 
@@ -253,7 +310,8 @@ class TransformerBackend:
     def inference_step(self, hidden, kv, position: int, *, prompts=None, hypo_ids=None,
                        n_total: Optional[int] = None):
         """One (chunked-as-needed) inference step over the whole span on a
-        DENSE cache.
+        DENSE cache: each chunk is one call of the dense step (``_dense_chunk``:
+        on a CUDA device a step program, on the CPU the block loop).
 
         Args:
           hidden: [batch, seq, hidden], real tokens, unpadded.
@@ -263,7 +321,7 @@ class TransformerBackend:
           prompts: deep prompts [n_blocks, batch, pre_seq, hidden], added to
             each block's input over absolute positions [0, pre_seq).
           hypo_ids: [batch] beam reorder: cache row b continues row
-            hypo_ids[b]; applied in place before the first chunk.
+            hypo_ids[b]; applied in place by the first chunk.
           n_total: the final sequence length, for callers that already
             chunked the prompt; only length-dependent rotary variants read
             it, and no family of the port has one, so it is only validated.
@@ -272,7 +330,7 @@ class TransformerBackend:
         """
         k_stack, v_stack = kv
         max_length = k_stack.shape[2]
-        h = _as_tensor(hidden, self.device, k_stack.dtype)
+        h = _as_tensor(hidden, None, k_stack.dtype)
         batch, total_seq, _ = h.shape
         position = int(position)
         if k_stack.shape[0] != self.n_blocks or k_stack.shape[1] != batch:
@@ -289,21 +347,87 @@ class TransformerBackend:
                 f"n_total={n_total} is shorter than this step's own end ({position} + {total_seq})"
             )
         if prompts is not None:
-            prompts = _as_tensor(prompts, self.device, k_stack.dtype)
+            prompts = _as_tensor(prompts, None, k_stack.dtype)
+            if prompts.shape[2] == 0:
+                prompts = None
+        hypo = None
         if hypo_ids is not None:
-            # index_select copies the reordered rows out before copy_ writes
-            # them back, so rows may swap
-            hypo = _as_tensor(hypo_ids, self.device, torch.long)
-            k_stack.copy_(k_stack.index_select(1, hypo))
-            v_stack.copy_(v_stack.index_select(1, hypo))
+            hypo = _as_tensor(hypo_ids, None, torch.long)
+            # a bad row index would fault the card inside a replay: checked
+            # here, where the ids still lie on the host
+            if hypo.device.type == "cpu" and bool(((hypo < 0) | (hypo >= batch)).any()):
+                raise ValueError(f"hypo_ids {hypo.tolist()} out of range for batch {batch}")
         outputs, offset = [], 0
         for chunk_len in self.chunk_plan(batch, total_seq):
-            outputs.append(self._step_once(
-                h[:, offset : offset + chunk_len], k_stack, v_stack, position + offset, prompts
+            outputs.append(self._dense_chunk(
+                h[:, offset : offset + chunk_len], (k_stack, v_stack), position + offset, prompts,
+                hypo if offset == 0 else None,
             ))
             offset += chunk_len
         out = outputs[0] if len(outputs) == 1 else torch.cat(outputs, dim=1)
         return out, (k_stack, v_stack)
+
+    def _dense_chunk(self, chunk, kv, position: int, prompts=None, hypo=None, n_valid: Optional[int] = None):
+        """One chunk of a dense step through every block: the JAX package's
+        ``_step_once``. A chunk of more than one token is padded to
+        ``bucket_length(seq)`` rows with ``n_valid = seq`` (a decode token is
+        bucket 0, unpadded); position and n_valid ride as int32 scalars read
+        on the device, so one graph serves every chunk of a bucket. On a CUDA
+        device the call replays the dense pool's lane program (a plain chunk
+        on a lane view) or a private step program, keyed by
+        ``dense_program_key``; on the CPU it runs the block loop.
+        ``n_valid`` overrides the real length (the pool's warm-up writes
+        nothing). Returns [batch, seq, hidden] on the device."""
+        k_stack, v_stack = kv
+        batch, seq = chunk.shape[:2]
+        bucket = 0 if seq == 1 else bucket_length(seq)
+        if bucket > seq:
+            chunk = F.pad(chunk, (0, 0, 0, bucket - seq))
+        scalars = torch.tensor([position, seq if n_valid is None else n_valid], dtype=torch.int32)
+        extra = tuple(x for x in (hypo, prompts) if x is not None)
+        with_hypo = hypo is not None
+
+        def step(h, sc, *extra):
+            return self._dense_step_eager(h, k_stack, v_stack, sc[0], sc[1], extra[0] if with_hypo else None,
+                                          extra[-1] if prompts is not None else None)
+
+        plain = not extra and (k_stack.data_ptr(), v_stack.data_ptr()) in self._lane_views
+        key = dense_program_key("dense", bucket, self.quant_type, kv, with_hypo,
+                                0 if prompts is None else prompts.shape[2])
+        (out,) = _replay(self._lane_program if plain else self._private_program, key, step, (chunk, scalars, *extra))
+        return out[:, :seq]
+
+    def _dense_step_eager(self, hidden, k_stack, v_stack, position, n_valid, hypo=None, prompts=None):
+        """The dense step's block loop, launched op by op: what the CPU
+        runs, and what a step program captures. ``hidden`` [batch, bucket,
+        hidden] is already padded; ``position`` and ``n_valid`` are 0-dim
+        integer tensors (or host integers), read on the device. ``hypo``
+        reorders the caches' rows in place first; ``prompts`` are added in
+        the JAX package's masked form (each row's prompt row gathered at its
+        clipped position, kept where the position lies under ``pre_seq``),
+        so no value of the position reaches the host. Returns (out,)."""
+        h = _as_tensor(hidden, self.device, k_stack.dtype)
+        position = torch.as_tensor(position).to(self.device, torch.int32)
+        if hypo is not None:
+            # index_select copies the reordered rows out before copy_ writes
+            # them back, so rows may swap
+            hypo = _as_tensor(hypo, self.device, torch.long)
+            k_stack.copy_(k_stack.index_select(1, hypo))
+            v_stack.copy_(v_stack.index_select(1, hypo))
+        if prompts is not None:
+            prompts = _as_tensor(prompts, self.device, k_stack.dtype)
+            pre_seq = prompts.shape[2]
+            pos_in_chunk = position + torch.arange(h.shape[1], dtype=torch.int32, device=self.device)
+            prompt_mask = (pos_in_chunk < pre_seq)[None, :, None]
+            idx = pos_in_chunk.clamp(0, pre_seq - 1).long()
+        for i, p_block in enumerate(self.block_params):
+            if prompts is not None:
+                h = h + torch.where(prompt_mask, prompts[i].index_select(1, idx), 0).to(h.dtype)
+            h, _ = self.family.block_apply(
+                p_block, h, (k_stack[i], v_stack[i]), position, self.cfg, n_valid=n_valid,
+                use_flash=self.use_flash,
+            )
+        return (h,)
 
     @torch.no_grad()
     def forward(self, hidden, prompts=None) -> torch.Tensor:
@@ -313,6 +437,9 @@ class TransformerBackend:
         after block overwrites. Attention goes through the flash-attention
         wrapper (ops/flash_attention.py): the CUDA kernel on the card, its
         plain version on the CPU (a chunk under 8 rows takes plain attention).
+        On a CUDA device a step program, one graph per (batch, seq, pre_seq)
+        as the JAX package jits one program per shape: its K/V buffer comes
+        from the graph's pool.
 
         Args:
           hidden: [batch, seq, hidden].
@@ -320,6 +447,26 @@ class TransformerBackend:
             each block's input over positions [0, pre_seq).
 
         Returns out [batch, seq, hidden] on the device."""
+        h = _as_tensor(hidden, None, self.compute_dtype)
+        if prompts is not None:
+            prompts = _as_tensor(prompts, None, self.compute_dtype)
+            if prompts.shape[2] == 0:
+                prompts = None
+        inputs = (h,) if prompts is None else (h, prompts)
+
+        def step(h, *p):
+            return self._forward_eager(h, p[0] if p else None)
+
+        # step_program_key's layout, with no cache: (batch, seq, pre_seq)
+        key = ("forward", h.shape[0], h.shape[1], 0 if prompts is None else prompts.shape[2], self.quant_type,
+               "none", ())
+        (out,) = _replay(self._forward_program, key, step, inputs)
+        return out
+
+    def _forward_eager(self, hidden, prompts=None):
+        """The stateless forward's block loop (what the CPU runs, and what
+        its program captures). The buffer's position rides as a 0-dim tensor
+        on the device, as a captured step needs it. Returns (out,)."""
         h = _as_tensor(hidden, self.device, self.compute_dtype)
         batch, seq, _ = h.shape
         if prompts is not None:
@@ -329,36 +476,19 @@ class TransformerBackend:
             torch.empty(shape, dtype=self.compute_dtype, device=self.device),
             torch.empty(shape, dtype=self.compute_dtype, device=self.device),
         )
+        position = torch.zeros((), dtype=torch.int32, device=self.device)
         for i, p_block in enumerate(self.block_params):
             if prompts is not None:
                 pre = prompts.shape[2]
                 h = torch.cat([h[:, :pre] + prompts[i], h[:, pre:]], dim=1)
-            h, _ = self.family.block_apply(p_block, h, kv_buf, 0, self.cfg, use_flash=True)
-        return h
-
-    def _step_once(self, h, k_stack, v_stack, position: int, prompts):
-        """One chunk through every block (the body of the JAX package's
-        jitted ``inference_step``, unpadded)."""
-        seq = h.shape[1]
-        if prompts is not None and prompts.shape[2] > position:
-            # deep prompts cover absolute positions [0, pre_seq): the overlap
-            # with this chunk [position, position + seq)
-            n_over = min(prompts.shape[2] - position, seq)
-        else:
-            n_over = 0
-        for i, p_block in enumerate(self.block_params):
-            if n_over:
-                h = torch.cat(
-                    [h[:, :n_over] + prompts[i, :, position : position + n_over], h[:, n_over:]], dim=1
-                )
-            h, _ = self.family.block_apply(
-                p_block, h, (k_stack[i], v_stack[i]), position, self.cfg, use_flash=self.use_flash
-            )
-        return h
+            h, _ = self.family.block_apply(p_block, h, kv_buf, position, self.cfg, use_flash=True)
+        return (h,)
 
     @torch.no_grad()
     def batched_decode_step(self, hidden, pool_kv, positions):
-        """One coalesced decode step over the whole DENSE lane pool.
+        """One coalesced decode step over the whole DENSE lane pool: on a
+        CUDA device a replay of its step program (captured when the pool
+        opens, ``warm_dense_programs``), on the CPU the block loop.
 
         Args:
           hidden: [n_lanes, 1, hidden] (idle lanes: any finite filler).
@@ -369,15 +499,89 @@ class TransformerBackend:
 
         Returns (out [n_lanes, 1, hidden] on the device, pool_kv).
         """
+        inputs = (_as_tensor(hidden, None, self.compute_dtype), _as_tensor(positions, None, torch.int32))
+
+        def step(h, pos):
+            return self._dense_decode_eager(h, pool_kv, pos)[:1]
+
+        key = dense_program_key("batched_decode", 0, self.quant_type, pool_kv)
+        (out,) = _replay(self._dense_decode_program, key, step, inputs)
+        return out, pool_kv
+
+    def _dense_decode_eager(self, hidden, pool_kv, positions):
+        """The dense pool's decode block loop (what the CPU runs, and what
+        its step program captures): per-lane positions, plain attention, as
+        in the JAX package."""
         k_pool, v_pool = pool_kv
         h = _as_tensor(hidden, self.device, k_pool.dtype)
         positions = _as_tensor(positions, self.device, torch.int32)
         for i, p_block in enumerate(self.block_params):
-            # per-lane positions: plain attention, as in the JAX package
             h, _ = self.family.block_apply(
                 p_block, h, (k_pool[i], v_pool[i]), positions, self.cfg, use_flash=False
             )
         return h, (k_pool, v_pool)
+
+    def longest_chunk(self, batch: int) -> int:
+        """The longest chunk ``chunk_plan`` hands a dense step at ``batch``
+        rows (what the dense pool warms its lane programs up to)."""
+        if self.device.type == "cuda" and self.use_flash:
+            return self._linear_max_chunk(batch)
+        # quadratic sizing: a chunk of n tokens of an n-token prompt costs
+        # batch * heads * n * n * 4 bytes
+        return max(math.isqrt(self.max_chunk_size_bytes // max(batch * self.cfg.num_attention_heads * 4, 1)), 1)
+
+    def dense_lane_view(self, k_pool, v_pool, lane: int):
+        """One lane of the dense pool as a session-shaped [n_blocks, 1,
+        max_len, hkv, d] pair of VIEWS: work the batched step does not cover
+        (a prefill, deep prompts, hypo_ids) runs on it in place. Its address
+        is the lane's for as long as the pool lives, so its graphs stay
+        valid; ``lane_extract`` is the copying form."""
+        lane = int(lane)
+        return k_pool[:, lane : lane + 1], v_pool[:, lane : lane + 1]
+
+    def warm_dense_programs(self, pool_kv, n_lanes: int, max_length: int, max_chunk: int,
+                            gen_params: Optional[dict] = None) -> None:
+        """Capture every step program a dense lane pool of ``n_lanes`` lanes
+        of ``max_length`` tokens replays on ``pool_kv``: the batched decode
+        step, the generation step when the batcher holds ``gen_params``, and
+        on each lane's view the plain chunk at bucket 0 (one token) and at
+        every bucket of a chunk of at most ``max_chunk`` tokens. Run when
+        the pool opens, so that serving captures nothing. Every lane rides
+        at the idle sentinel and every chunk has no real row: nothing is
+        written. A no-op on the CPU."""
+        if self._dense_decode_program is None:
+            return
+        hidden = torch.zeros(n_lanes, 1, self.hidden_size, dtype=self.compute_dtype)
+        positions = np.full((n_lanes,), max_length, np.int32)
+        self.batched_decode_step(hidden, pool_kv, positions)
+        if gen_params is not None:
+            idle = np.zeros((n_lanes,), np.int64)
+            self.batched_gen_decode_step(
+                gen_params, hidden, idle, idle.astype(bool), pool_kv, positions,
+                sampling_vecs=sampling_vectors(n_lanes, self.cfg.vocab_size),
+            )
+        longest = min(max_chunk, max_length)
+        for lane in range(n_lanes):
+            view = self.dense_lane_view(*pool_kv, lane)
+            self._lane_views.add((view[0].data_ptr(), view[1].data_ptr()))
+            for bucket in [1] + chunk_buckets(longest):
+                chunk = torch.zeros(1, min(bucket, longest), self.hidden_size, dtype=self.compute_dtype)
+                self._dense_chunk(chunk, view, 0, n_valid=0)
+
+    def drop_cache_programs(self, buffers: Sequence[torch.Tensor]) -> int:
+        """Forget every step program that writes or reads memory of
+        ``buffers`` (a cache or pool about to be freed): a graph must never
+        outlive the tensors it addresses. Returns how many graphs went."""
+        spans = [(t.data_ptr(), t.data_ptr() + t.numel() * t.element_size()) for t in buffers]
+
+        def inside(ptr: int) -> bool:
+            return any(lo <= ptr < hi for lo, hi in spans)
+
+        def hits(key) -> bool:
+            return any(inside(ptr) for ptr, *_ in key[6])
+
+        self._lane_views = {v for v in self._lane_views if not inside(v[0])}
+        return sum(p.drop(hits) for p in self._programs() if p is not None)
 
     # ------------------------------------------------------------- lane check-out / check-in
 
@@ -513,11 +717,8 @@ class TransformerBackend:
         def step(h, pos_t, tab, c, sc):
             return self._paged_mixed_eager(h, pool_kv, pos_t, tab, c, sc[0:1], sc[1], sc[2])[:2]
 
-        if self._mixed_program is None:
-            dec, chunk_out = step(*inputs)
-        else:
-            key = step_program_key("mixed", n_lanes, max_pages, bucket, self.quant_type, self.kv_quant_type, pool_kv)
-            dec, chunk_out = self._mixed_program.run(key, step, inputs)
+        key = step_program_key("mixed", n_lanes, max_pages, bucket, self.quant_type, self.kv_quant_type, pool_kv)
+        dec, chunk_out = _replay(self._mixed_program, key, step, inputs)
         return dec, chunk_out[:, :seq], pool_kv
 
     def _paged_mixed_eager(self, hidden, pool_kv, positions, tables, chunk_hidden, chunk_lane, chunk_pos, n_valid):
@@ -573,11 +774,17 @@ class TransformerBackend:
             chunk = torch.zeros(1, min(bucket, longest), self.hidden_size, dtype=self.compute_dtype)
             self.paged_mixed_step(hidden, pool_kv, positions, tables, chunk, 0, 0)
 
+    def _programs(self) -> tuple:
+        """Every step program of this backend (Nones on the CPU)."""
+        return (self._decode_program, self._mixed_program, self._gen_program, self._dense_decode_program,
+                self._dense_gen_program, self._lane_program, self._private_program, self._private_gen_program,
+                self._forward_program)
+
     def step_program_stats(self) -> dict:
         """Captures, replays and post-warm-up captures (anomalies) of this
         backend's step programs, summed (zeros on the CPU)."""
         stats = {"graph_captures": 0, "graph_replays": 0, "graph_anomalies": 0}
-        for prog in (self._decode_program, self._mixed_program, self._gen_program):
+        for prog in self._programs():
             if prog is not None:
                 stats["graph_captures"] += prog.counts.captures
                 stats["graph_replays"] += prog.counts.replays
@@ -646,13 +853,10 @@ class TransformerBackend:
         def step(h, tok, use, pos, tab, *samp):
             return self._paged_gen_decode_eager(gen_params, h, tok, use, pool_kv, pos, tab, samp)
 
-        if self._gen_program is None:
-            out, toks = step(*inputs)
-        else:
-            n_lanes, max_pages = inputs[4].shape
-            key = step_program_key("gen_decode", n_lanes, max_pages, 0, self.quant_type, self.kv_quant_type, pool_kv,
-                                   extra=tuple(gen_params.values()))
-            out, toks = self._gen_program.run(key, step, inputs)
+        n_lanes, max_pages = inputs[4].shape
+        key = step_program_key("gen_decode", n_lanes, max_pages, 0, self.quant_type, self.kv_quant_type, pool_kv,
+                               extra=tuple(gen_params.values()))
+        out, toks = _replay(self._gen_program, key, step, inputs)
         return out, toks, pool_kv
 
     def _paged_gen_decode_eager(self, gen_params, hidden, tokens, use_token, pool_kv, positions, tables, samp):
@@ -668,12 +872,23 @@ class TransformerBackend:
     def batched_gen_decode_step(self, gen_params: dict, hidden, tokens, use_token, pool_kv, positions,
                                 *, sampling_vecs: dict):
         """``paged_gen_decode_step`` on the DENSE lane pool (pool_kv and
-        positions as in ``batched_decode_step``), eager as the dense steps
-        are. Returns (out [n_lanes, 1, hidden], next tokens [n_lanes] int64,
-        pool_kv)."""
-        h = self._gen_embed(gen_params, hidden, tokens, use_token)
-        h, pool_kv = self.batched_decode_step(h, pool_kv, positions)
-        return h, self._head_sample(gen_params, h, sampling_tensors(sampling_vecs, self.device)), pool_kv
+        positions as in ``batched_decode_step``): on a CUDA device a replay
+        of its step program (captured when the pool opens), on the CPU the
+        block loop. Returns (out [n_lanes, 1, hidden], next tokens [n_lanes]
+        int64, pool_kv)."""
+        inputs = (_as_tensor(hidden, None, self.compute_dtype), _as_tensor(tokens, None, torch.long),
+                  _as_tensor(use_token, None, torch.bool), _as_tensor(positions, None, torch.int32),
+                  *self._sampling_inputs(sampling_vecs))
+
+        def step(h, tok, use, pos, *samp):
+            h = self._gen_embed(gen_params, h, tok, use)
+            h, _ = self._dense_decode_eager(h, pool_kv, pos)
+            samp = {name: _as_tensor(x, self.device) for name, x in zip(SAMPLING_INPUTS, samp)}
+            return h, self._head_sample(gen_params, h, samp)
+
+        key = dense_program_key("batched_gen_decode", 0, self.quant_type, pool_kv, extra=tuple(gen_params.values()))
+        out, toks = _replay(self._dense_gen_program, key, step, inputs)
+        return out, toks, pool_kv
 
     @torch.no_grad()
     def generate_tokens(self, gen_params: dict, last_hidden, kv, position: int, n_tokens: int, *,
@@ -684,43 +899,88 @@ class TransformerBackend:
         from ``last_hidden``; each later one is fed at the next position
         before the one after it is picked, and the last is never fed (the
         client loop's convention), so the cache gains n_tokens - 1 rows.
-        An eager loop over ``inference_step``; the tokens stay on the card
-        until the one sync at the end. Returns (tokens [batch, n_tokens]
+        Each later token is one generation step (``_private_gen_eager``: the
+        embedding of the previous token, the span's decode step, the float32
+        head and the pick): on a CUDA device a replay of its step program
+        (the JAX package's ``server_gen``), keyed like the private decode
+        step. The previous token and the seen-token mask come from the last
+        step's outputs on the card; the uniforms (computed on the host) are
+        an input; one sync at the end. Returns (tokens [batch, n_tokens]
         int32 on the host, kv)."""
-        k_stack = kv[0]
+        k_stack, v_stack = kv
         batch, n_tokens, position = k_stack.shape[1], int(n_tokens), int(position)
         if position + n_tokens - 1 > k_stack.shape[2]:
             raise ValueError(
                 f"Generating {n_tokens} tokens at position {position} overflows "
                 f"the allocated cache ({k_stack.shape[2]} tokens)"
             )
-        vocab = self.cfg.vocab_size
-        if sampling is None:
-            def pick(h, i):
-                logits = self.family.client_head(gen_params, h[:, -1:], self.cfg)[:, -1, :]
-                return torch.argmax(logits, dim=-1)
-        else:
-            vec = sampling_vectors(batch, vocab, sampling)
-            samp = sampling_tensors(vec, self.device)
+        sampled = sampling is not None
+        h_last = _as_tensor(last_hidden, self.device)
+        samp = ()
+        if sampled:
+            vec = sampling_vectors(batch, self.cfg.vocab_size, sampling)
             # draw i of the stream is draw offset + i
             draws = vec["draw_idx"][:, None].astype(np.int64) + np.arange(n_tokens)
-            us = torch.from_numpy(uniform_for_draw(vec["seeds"][:, None], draws)).to(self.device)
-            seen = samp["seen_mask"].clone()
-            rows = torch.arange(batch, device=self.device)
-
-            def pick(h, i):
-                return self._head_sample(gen_params, h, {**samp, "seen_mask": seen, "u": us[:, i]})
-
-        tok = pick(_as_tensor(last_hidden, self.device), 0)
+            us = torch.from_numpy(uniform_for_draw(vec["seeds"][:, None], draws))
+            vec["u"] = us[:, 0].numpy()
+            samp = self._sampling_inputs(vec)
+            tok = self._head_sample(gen_params, h_last, dict(zip(SAMPLING_INPUTS, (
+                _as_tensor(x, self.device) for x in samp))))
+            seen = samp[SAMPLING_INPUTS.index("seen_mask")].to(self.device)
+        else:
+            tok = torch.argmax(self.family.client_head(gen_params, h_last[:, -1:], self.cfg)[:, -1, :], dim=-1)
         tokens = [tok]
+
+        def step(tok, pos, *state):
+            return self._private_gen_eager(gen_params, (k_stack, v_stack), tok, pos, state)
+
+        key = dense_program_key("server_gen", 0, self.quant_type, (k_stack, v_stack), sampled,
+                                extra=tuple(gen_params.values()))
         for i in range(1, n_tokens):
-            if sampling is not None:
-                seen[rows, tok] = True
-            h_in = self.family.client_embed(gen_params, tok[:, None], self.cfg)
-            out, kv = self.inference_step(h_in, kv, position + i - 1)
-            tok = pick(out, i)
+            pos = torch.tensor(position + i - 1, dtype=torch.int32)
+            inputs = (tok, pos)
+            if sampled:
+                # the settings, the mask of tokens seen so far and this draw
+                inputs += (*samp[:5], seen, us[:, i])
+            outs = _replay(self._private_gen_program, key, step, inputs)
+            tok = outs[0]
+            if sampled:
+                seen = outs[1]
             tokens.append(tok)
         return torch.stack(tokens, dim=1).to(torch.int32).cpu().numpy(), kv
+
+    def _private_gen_eager(self, gen_params: dict, kv, tok, position, state=()):
+        """One private generation step, launched op by op (what the CPU
+        runs, and what its program captures): the previous token's float32
+        embedding cast to the cache's type, the dense decode step at
+        ``position`` (a 0-dim tensor), the float32 head over its output and
+        the next token: argmax, or with ``state`` (the sampling inputs in
+        ``SAMPLING_INPUTS`` order) ``sample_tokens`` after the fed token joins
+        the seen-token mask. Returns (next token [batch],) or (next token,
+        the updated mask)."""
+        k_stack, v_stack = kv
+        tok = _as_tensor(tok, self.device, torch.long)
+        h = self.family.client_embed(gen_params, tok[:, None], self.cfg).to(k_stack.dtype)
+        (h,) = self._dense_step_eager(h, k_stack, v_stack, position, 1)
+        if not state:
+            logits = self.family.client_head(gen_params, h[:, -1:], self.cfg)[:, -1, :]
+            return (torch.argmax(logits, dim=-1),)
+        samp = {name: _as_tensor(x, self.device) for name, x in zip(SAMPLING_INPUTS, state)}
+        seen = samp["seen_mask"].clone()
+        # the value is a tensor on the card: a Python True would be copied
+        # from the host, which a capture refuses
+        seen.index_put_((torch.arange(seen.shape[0], device=self.device), tok),
+                        torch.ones((), dtype=torch.bool, device=self.device))
+        samp["seen_mask"] = seen
+        return self._head_sample(gen_params, h, samp), seen
+
+    def _linear_max_chunk(self, batch: int) -> int:
+        """The longest chunk whose activations fit ``max_chunk_size_bytes``
+        (the linear sizing of ``chunk_plan``)."""
+        per_token = batch * self.compute_dtype.itemsize * (
+            2 * self.hidden_size + self.cfg.intermediate_size + self.cfg.num_attention_heads * self.head_dim
+        )
+        return max(self.max_chunk_size_bytes // max(per_token, 1), 1)
 
     def chunk_plan(self, batch: int, total_seq: int, page_size: Optional[int] = None,
                    start: int = 0) -> Sequence[int]:
@@ -744,12 +1004,7 @@ class TransformerBackend:
         if total_seq <= 1:
             return [total_seq]
         if self.device.type == "cuda" and (page_size or self.use_flash):
-            per_token = batch * self.compute_dtype.itemsize * (
-                2 * self.hidden_size
-                + self.cfg.intermediate_size
-                + self.cfg.num_attention_heads * self.head_dim
-            )
-            max_chunk = max(self.max_chunk_size_bytes // max(per_token, 1), 1)
+            max_chunk = self._linear_max_chunk(batch)
         else:
             denom = max(batch * self.cfg.num_attention_heads * total_seq * 4, 1)
             max_chunk = max(self.max_chunk_size_bytes // denom, 1)

@@ -23,20 +23,25 @@ decode tokens, and one prefill chunk, into one step per tick
 - Dense mode (``page_size`` None or 0): the pool is [n_blocks, n_lanes,
   max_length, hkv, d] x2 and a lane is its row. Decode steps coalesce the
   same way (``batched_decode_step``); work the batched step does not cover
-  (a prefill, deep prompts, hypo_ids) checks the lane OUT into
-  session-shaped buffers, runs on them as queue tasks of its own, and checks
-  it back IN (``run_exclusive``, ``run_exclusive_chunks``). Batched steps
-  interleave between a long prefill's chunks: the checked-out lane rides
-  them at the sentinel. The paged pool serves the same exclusive ops through
-  a gather of the lane's pages and a scatter back.
+  (a prefill, deep prompts, hypo_ids) runs on the lane's session-shaped
+  VIEW of the pool (``dense_lane_view``, written in place) as queue tasks of
+  its own (``run_exclusive``, ``run_exclusive_chunks``). Batched steps
+  interleave between a long prefill's chunks: the lane rides them at the
+  sentinel, so they neither write nor read it. The paged pool serves the
+  same exclusive ops through a gather of the lane's pages into a fresh
+  session-shaped copy, checked OUT, and a scatter back IN.
 
 Steps run on the task queue's compute thread and mutate the pool IN PLACE.
-On a CUDA card the paged steps replay the backend's step programs (CUDA
-graphs keyed by the pool's address, server/backend.py): the pool never
-moves, so they are all captured when it opens (``warm_step_programs``, the
-decode step and the mixed step at every chunk bucket up to ``max_chunk``),
-and serving only replays them; ``stats`` carries their captures,
-replays and late captures (``graph_*``).
+On a CUDA card every step replays the backend's step programs (CUDA graphs
+keyed by the pool's address, server/backend.py): the pool never moves, so
+they are all captured when it opens, and serving only replays them. A paged
+pool warms the decode step and the mixed step at every chunk bucket up to
+``max_chunk`` (``warm_step_programs``); a dense pool the batched decode step
+and, on every lane's view, the plain chunk at every bucket up to the
+backend's ``longest_chunk`` (``warm_dense_programs``); both the generation
+step when the batcher generates. ``stats`` carries the captures, replays
+and late captures (``graph_*``); a lane's exclusive op with deep prompts or
+hypo_ids replays a private step program, captured on its key's second call.
 A step that fails with a device error leaves the pool untrustworthy: the pool
 is zeroed and the generation bumps, so every outstanding lane fails loudly on
 its next step instead of decoding against lost KV. The generation is checked
@@ -240,6 +245,11 @@ class DecodeBatcher:
                     f"Continuous-batching pool open: {self.n_lanes} lanes x "
                     f"{self.max_length} tokens for blocks {span}"
                 )
+                if self.backend.device.type == "cuda":
+                    await self.queue.submit(
+                        self.backend.warm_dense_programs, self._buffers(), self.n_lanes, self.max_length,
+                        self.backend.longest_chunk(1), self.gen_params,
+                    )
                 return
             self._pages = PageAllocator(self.n_pages)
             self._tables = np.full((self.n_lanes, self.max_pages), -1, np.int32)
@@ -270,6 +280,8 @@ class DecodeBatcher:
                 pst.future.set_exception(AllocationFailed("Batcher is shutting down"))
         self._prefill_queue.clear()
         if self._pool_stack is not None:
+            # the step programs address the pool: they go with it
+            self.backend.drop_cache_programs(self.memory_cache.get_buffers(*self._handles))
             await self._pool_stack.aclose()
             self._pool_stack = None
             self._handles = None
@@ -888,30 +900,34 @@ class DecodeBatcher:
     # ------------------------------------------------------- non-batchable ops
 
     def _extract_lane(self, lane: int):
-        """Compute-thread body: the lane checked OUT of the pool as
-        session-shaped [n_blocks, 1, max_length, hkv, d] buffers (a copy; a
-        paged lane is gathered through its table row, a quantized pool
-        decoded), so the functions that run on it need not know the mode."""
+        """Compute-thread body: the lane as session-shaped [n_blocks, 1,
+        max_length, hkv, d] buffers, so the functions that run on it need
+        not know the mode: a dense lane's view of the pool (its address
+        never changes, so its step programs stay valid), a paged lane
+        gathered through its table row into a copy (a quantized pool
+        decoded)."""
         k_pool, v_pool = self._buffers()
         if self.page_size is not None:
             return self.backend.paged_lane_gather(k_pool, v_pool, self._tables[lane].copy())
-        return self.backend.lane_extract(k_pool, v_pool, lane)
+        return self.backend.dense_lane_view(k_pool, v_pool, lane)
 
     def _insert_lane(self, lane: int, kv_lane) -> None:
         """Compute-thread body: the lane checked back IN, under the reset
         lock: a reset landing mid-way must never be followed by a write of
         pre-reset content into the zeroed pool. The lane check raises before
-        anything is written."""
+        anything is written. A dense lane was written in place (a failed
+        chunk leaves only rows past the session's position, which nothing
+        reads before they are written again); a paged lane's copy is
+        scattered back and the programs that addressed it dropped."""
         k2, v2 = kv_lane
         with self._reset_lock:
             self._check_lane(lane)
-            k_pool, v_pool = self._buffers()
             if self.page_size is not None:
+                k_pool, v_pool = self._buffers()
                 # unallocated (-1) slots drop: content past the session's
                 # resident pages never lands anywhere
                 self.backend.paged_lane_scatter(k_pool, v_pool, k2, v2, self._tables[lane].copy())
-            else:
-                self.backend.lane_insert(k_pool, v_pool, k2, v2, lane)
+                self.backend.drop_cache_programs(kv_lane)
 
     async def run_exclusive(self, lane: int, fn: Callable, *, size: int = 0,
                             write_range: Optional[Tuple[int, int]] = None):
@@ -945,8 +961,9 @@ class DecodeBatcher:
         ``fn(kv_lane) -> (result, kv_lane')`` as its OWN queue task, insert
         once. Between chunks the flush loop's batched decode steps run
         freely, so a long prefill does not stall every decoding session for
-        its full length. Safe while checked out: batched steps never write an
-        idle-sentinel lane. A failed chunk still checks the lane back in
+        its full length. Safe while checked out (a dense lane: while its
+        view is being written): batched steps never write an idle-sentinel
+        lane, nor read its rows. A failed chunk still checks the lane back in
         with the last consistent content (the session's position was not
         advanced)."""
         self._check_lane(lane)

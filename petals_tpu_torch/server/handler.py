@@ -246,9 +246,7 @@ class TransformerHandler:
         if lane is not None:
             cache_ctx = self._lane_ctx(lane, batcher)
         else:
-            cache_ctx = self.memory_cache.allocate_cache(
-                *backend.cache_descriptors(batch_size, max_length, 0, end - start), timeout=alloc_timeout
-            )
+            cache_ctx = self._private_cache_ctx(backend, batch_size, max_length, alloc_timeout)
         async with cache_ctx as handles:
             # a private cache is (k_stack, v_stack), written in place; a
             # pooled session's KV lives in the batcher's pool, keyed by lane
@@ -369,6 +367,18 @@ class TransformerHandler:
             return tokens
 
         return await self.queue.submit(run_gen, priority=PRIORITY_INFERENCE, size=gen_n), None
+
+    @contextlib.asynccontextmanager
+    async def _private_cache_ctx(self, backend, batch_size: int, max_length: int, timeout):
+        """A private session's dense cache, budgeted through the memory
+        cache; the step programs that address it are dropped before it is
+        freed (a graph never outlives the memory it writes)."""
+        descriptors = backend.cache_descriptors(batch_size, max_length, 0, backend.n_blocks)
+        async with self.memory_cache.allocate_cache(*descriptors, timeout=timeout) as handles:
+            try:
+                yield handles
+            finally:
+                backend.drop_cache_programs(self.memory_cache.get_buffers(*handles))
 
     @staticmethod
     @contextlib.asynccontextmanager

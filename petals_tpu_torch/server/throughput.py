@@ -4,13 +4,18 @@ backend on the device that will serve, with the same quantization:
 
 - inference_rps: one-token decode steps a second, on the path that will
   serve them. A paged server (the default) steps ``paged_decode_step`` on a
-  one-lane pool of its page size and KV encoding (on a card, replays of its
-  step program, a CUDA graph); a ``page_size=0`` server steps
-  ``inference_step`` on a dense cache. (petals_tpu measures its dense
-  ``inference_step`` whatever its pool: the port's dense decode is plain
-  attention, several times slower than the paged kernel, and the number
-  must describe the path that serves.)
-- forward_rps: tokens a second of ``forward`` at 1024 tokens.
+  one-lane pool of its page size and KV encoding; a ``page_size=0`` server
+  steps ``inference_step`` on a dense cache (petals_tpu measures its dense
+  ``inference_step`` whatever its pool; the port's dense decode attention is
+  plain PyTorch, not the paged kernel, so the number must describe the path
+  that serves). On a card both are replays of their step programs (CUDA
+  graphs), each timed after the calls that run its key eagerly and capture
+  it. A replayed dense decode step of 8 Mistral-7B blocks on an H100 takes
+  3.7-3.9 ms of device time against the paged step's 2.6 ms, a third of it
+  the plain decode attention (chip_smoke.py's profile phase; PERF.md
+  section 5).
+- forward_rps: tokens a second of ``forward`` at 1024 tokens, on a card
+  replays of its step program as well.
 - network_rps: the requests a second the wire carries, from the swarm
   bandwidth probe (utils/bandwidth.py), ``network_mbps`` or, alone, a
   loopback serialization and framing probe.
@@ -84,9 +89,11 @@ def get_server_throughput(
             "dtype": str(compute_dtype).removeprefix("torch."),
             "quant": str(quant_type),
             "decode": f"paged:{page_size}:{kv_quant_type}" if page_size else "dense",
-            # a paged decode step on a card replays a CUDA graph: a number
-            # timed on the eager block loop is not reused for it
-            "step": "cuda_graph" if page_size and device.type == "cuda" else "eager",
+            # every step on a card replays a CUDA graph (the dense decode
+            # step and the forward too): a number timed on the eager block
+            # loop is not reused for it
+            "step": "cuda_graph" if device.type == "cuda" else "eager",
+            "forward": "cuda_graph" if device.type == "cuda" else "eager",
             "version": petals_tpu_torch.__version__,
             "backend": device.type,
             "device_name": _device_name(device),
@@ -163,16 +170,20 @@ def measure_compute_rps(
         def step(i, pool):
             return backend.inference_step(token, pool, i)
 
-    out, pool = step(0, pool)
+    # a step program's key runs eagerly (dense) or captures on its first
+    # calls: both stay off the clock
+    for i in range(2):
+        out, pool = step(i, pool)
     _sync(device)
     t0 = time.perf_counter()
     for i in range(n_steps_inference):
-        out, pool = step(i + 1, pool)
+        out, pool = step(i + 2, pool)
     _sync(device)
     inference_rps = n_steps_inference / (time.perf_counter() - t0)
 
     batch = torch.zeros(1, FORWARD_TOKENS, cfg.hidden_size, dtype=compute_dtype, device=device)
-    backend.forward(batch)
+    for _ in range(2):
+        backend.forward(batch)
     _sync(device)
     t0 = time.perf_counter()
     for _ in range(n_steps_forward):

@@ -8,13 +8,22 @@ The port runs each served step on the card as a CUDA graph, captured once
 per key and replayed (server/backend.py), so here the capture takes the
 compile's place:
 
-- ``TrackedGraph`` runs a step function as one graph per key: the first
+- ``TrackedGraph`` runs a step function as one graph per key, and is
+  ``steady`` or not, as ``tracked_jit`` is. A steady program's keys are all
+  captured when a pool opens (the paged and dense pools' steps): the first
   call of a key copies its inputs into static buffers, warms the function
-  up and captures it; every call replays. Per program name the observatory
-  counts captures, replays and capture seconds; once a program has run
-  ``DEFAULT_WARMUP_CALLS`` calls that captured nothing, a capture is an
-  anomaly (every step program is steady: its keys are all captured when a
-  pool opens).
+  up on the capture stream and captures it; every call replays. Once it has
+  run ``DEFAULT_WARMUP_CALLS`` calls that captured nothing, a capture is an
+  anomaly (a bucketing bug, a drifting shape). A non-steady program's keys
+  come and go with the caches they write (a private session's steps, its
+  generation step, the stateless forward): the first call of a key runs
+  the function eagerly on the capture stream (its warm-up, counted in
+  ``eager_calls``), the second captures and replays it, later calls replay;
+  so a key that runs once, as most prefill chunks do, never pays a capture,
+  and its captures are never anomalies. ``drop`` forgets the keys whose
+  graphs write a freed cache: a graph never outlives the memory it writes
+  by address. Per program name the observatory counts calls, eager calls,
+  captures, replays and capture seconds.
 - ``compile_stats()`` is the JAX package's digest with the fields a capture
   can fill: ``functions``, ``programs`` (captures), ``compile_s`` (capture
   seconds) and ``anomalies``, plus ``replays``.
@@ -66,11 +75,11 @@ class ProgramCounts:
     the graphs, so a backend that is dropped frees its graphs and leaves its
     counts behind."""
 
-    __slots__ = ("name", "calls", "captures", "replays", "capture_s", "anomalies")
+    __slots__ = ("name", "calls", "eager_calls", "captures", "replays", "capture_s", "anomalies")
 
     def __init__(self, name: str):
         self.name = name
-        self.calls = self.captures = self.replays = self.anomalies = 0
+        self.calls = self.eager_calls = self.captures = self.replays = self.anomalies = 0
         self.capture_s = 0.0
 
 
@@ -89,15 +98,15 @@ class Observatory:
 
     def functions(self) -> List[dict]:
         """Per program name, the totals of every graph of that name (each
-        backend in a process has a ``paged_decode`` and a
-        ``paged_mixed_step``)."""
+        backend in a process has a ``paged_decode``, a ``paged_mixed_step``
+        and so on)."""
         with self._lock:
             counts = list(self._counts)
         by_name: Dict[str, dict] = {}
         for c in counts:
-            f = by_name.setdefault(c.name, {"fn": c.name, "calls": 0, "captures": 0, "replays": 0,
-                                            "capture_s": 0.0, "anomalies": 0})
-            for field in ("calls", "captures", "replays", "capture_s", "anomalies"):
+            f = by_name.setdefault(c.name, {"fn": c.name, "calls": 0, "eager_calls": 0, "captures": 0,
+                                            "replays": 0, "capture_s": 0.0, "anomalies": 0})
+            for field in ("calls", "eager_calls", "captures", "replays", "capture_s", "anomalies"):
                 f[field] += getattr(c, field)
         for f in by_name.values():
             f["capture_s"] = round(f["capture_s"], 4)
@@ -136,7 +145,8 @@ class CudaGraphCapture:
     made on first use. The warm-up run does the one-time host work a capture
     refuses (the kernels' build and load, their shared-memory attributes,
     device-property queries, constant uploads, the split merge's counters of
-    this stream) and runs the step once for real."""
+    this stream) and runs the step once for real; it returns the step's
+    outputs (a non-steady key's first call is its warm-up)."""
 
     def __init__(self, device):
         self.device = torch.device(device)
@@ -149,12 +159,15 @@ class CudaGraphCapture:
             self._pool = torch.cuda.graph_pool_handle()
         return self._stream
 
-    def warm(self, fn: Callable, inputs: Sequence[torch.Tensor]) -> None:
+    def warm(self, fn: Callable, inputs: Sequence[torch.Tensor]):
         stream, current = self._side_stream(), torch.cuda.current_stream(self.device)
         stream.wait_stream(current)
         with torch.cuda.stream(stream):
-            fn(*inputs)
+            outputs = fn(*inputs)
         current.wait_stream(stream)
+        for out in outputs:
+            out.record_stream(current)  # the caller reads them on its own stream
+        return outputs
 
     def capture(self, fn: Callable, inputs: Sequence[torch.Tensor]):
         """(graph, outputs): one call of ``fn(*inputs)`` captured; raises
@@ -176,31 +189,54 @@ class _Entry(NamedTuple):
 
 class TrackedGraph:
     """A step function replayed as graphs, one per key, with its captures
-    observed (the counterpart of ``tracked_jit`` with ``steady=True``).
+    observed (the counterpart of ``tracked_jit``, ``steady`` as there).
 
     ``run(key, fn, inputs)``: ``fn(*static_inputs)`` returns a tuple of
-    tensors. The first call of a key allocates static buffers like
-    ``inputs`` on the capture's device and copies the inputs in, warms
-    ``fn`` up, captures it and replays it; later calls of the key copy the
-    inputs into its buffers and replay. Everything else ``fn`` reads
-    (weights, page pools) is baked into the graph by address, so the key
-    must tell apart everything that differs there. Returns clones of the
-    static outputs: a result stays valid after the next replay.
+    tensors. The call that captures a key allocates static buffers like
+    ``inputs`` on the capture's device and copies the inputs in, captures
+    ``fn`` and replays it; later calls of the key copy the inputs into its
+    buffers and replay. A steady program captures on a key's first call,
+    after a warm-up run of ``fn``; a non-steady one runs a key's first call
+    eagerly through the capture's ``warm`` (which returns the outputs: the
+    same run, once) and captures on its second, with no further warm-up, so
+    a function with effects that do not repeat (a beam reorder of a cache)
+    runs exactly once a call. Everything else ``fn`` reads (weights, page
+    pools, caches) is baked into the graph by address, so the key must tell
+    apart everything that differs there. Returns clones of the static
+    outputs: a result stays valid after the next replay.
 
-    Once this instance has run ``DEFAULT_WARMUP_CALLS`` calls that replayed
-    a graph it already held, a capture is an anomaly. Warm-up and anomalies
-    are per instance, as ``tracked_jit``'s
-    are: a fresh backend captures its own graphs. ``capture`` is the capture
-    backend (``CudaGraphCapture`` on a card; a test may hand in a stand-in
-    with the same ``device``, ``warm`` and ``capture``)."""
+    Once a steady instance has run ``DEFAULT_WARMUP_CALLS`` calls that
+    replayed a graph it already held, a capture is an anomaly. Warm-up and
+    anomalies are per instance, as ``tracked_jit``'s are: a fresh backend
+    captures its own graphs. ``capture`` is the capture backend
+    (``CudaGraphCapture`` on a card; a test may hand in a stand-in with the
+    same ``device``, ``warm`` and ``capture``)."""
 
-    def __init__(self, name: str, capture, *, observatory: Optional[Observatory] = None):
+    def __init__(self, name: str, capture, *, steady: bool = True, observatory: Optional[Observatory] = None):
         self._capture = capture
+        self.steady = steady
         self.counts = (observatory if observatory is not None else get_observatory()).register(name)
         self._entries: Dict[Hashable, _Entry] = {}
+        self._seen: set = set()  # a non-steady program's keys that ran their eager call
+
+    def drop(self, predicate: Callable[[Hashable], bool]) -> int:
+        """Forget every key ``predicate`` selects, its graph and its eager
+        call; returns how many graphs went. For a cache about to be freed."""
+        for key in [k for k in list(self._seen) if predicate(k)]:
+            self._seen.discard(key)
+        dropped = [k for k in list(self._entries) if predicate(k)]
+        for key in dropped:
+            self._entries.pop(key, None)
+        return len(dropped)
 
     def run(self, key: Hashable, fn: Callable, inputs: Sequence[torch.Tensor]) -> Tuple[torch.Tensor, ...]:
         entry = self._entries.get(key)
+        if entry is None and not self.steady and key not in self._seen:
+            outputs = tuple(self._capture.warm(fn, inputs))
+            self._seen.add(key)
+            self.counts.calls += 1
+            self.counts.eager_calls += 1
+            return outputs
         if entry is None:
             entry = self._entries[key] = self._capture_entry(fn, inputs)
         else:
@@ -217,13 +253,15 @@ class TrackedGraph:
         # warm-up is counted in calls that replayed a graph already held: a
         # pool's warm-up, which captures every bucket in a row, is never an
         # anomaly however many buckets it has
-        anomaly = self.counts.calls - self.counts.captures >= DEFAULT_WARMUP_CALLS
+        replayed = self.counts.calls - self.counts.captures - self.counts.eager_calls
+        anomaly = self.steady and replayed >= DEFAULT_WARMUP_CALLS
         device = self._capture.device
         static = tuple(torch.empty(x.shape, dtype=x.dtype, device=device) for x in inputs)
         for buf, x in zip(static, inputs):
             buf.copy_(x)
         with _CAPTURE_LOCK:
-            self._capture.warm(fn, static)
+            if self.steady:  # a non-steady key's eager call was its warm-up
+                self._capture.warm(fn, static)
             record: List[tuple] = []
             t0 = time.perf_counter()
             _TLS.record = record

@@ -747,6 +747,127 @@ def test_prefill_kernel_replays_with_chunk_scalars_read_on_the_card(cuda_device,
         assert torch.equal(out[:, :n], want[:, :n]), (pos, n)
 
 
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_flash_kernel_replays_with_positions_read_on_the_card(cuda_device, dtype):
+    """K4 reads q_offset and kv_length on the card: captured once in a CUDA
+    graph over a strided cache view, a replay after new values are copied in
+    equals a direct call with host integers, bit for bit (a padded chunk:
+    kv_length = q_offset + its real rows; a kv_length past the buffer is
+    clamped to it)."""
+    rng = np.random.default_rng(34)
+    q, k_stack, v_stack = _on(cuda_device, dtype, rng.standard_normal((2, 64, 8, 128)),
+                              *(rng.standard_normal((3, 2, 400, 2, 128)) for _ in range(2)))
+    k, v = k_stack[1], v_stack[1]
+    cases = ((0, 64), (100, 137), (300, 301), (336, 400))
+    direct = {(pos, n): fa.flash_attend(q, k, v, q_offset=pos, kv_length=n, sliding_window=200) for pos, n in cases}
+    scalars = torch.tensor([0, 64], dtype=torch.int32, device=cuda_device)
+    stream = torch.cuda.Stream(cuda_device)
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        fa.flash_attend(q, k, v, q_offset=scalars[0], kv_length=scalars[1], sliding_window=200)
+    torch.cuda.current_stream().wait_stream(stream)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=stream):
+        out = fa.flash_attend(q, k, v, q_offset=scalars[0], kv_length=scalars[1], sliding_window=200)
+    for (pos, n), want in direct.items():
+        scalars.copy_(torch.tensor([pos, n], dtype=torch.int32))
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, want), (pos, n)
+    scalars.copy_(torch.tensor([336, 999], dtype=torch.int32))
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, direct[336, 400])
+
+
+@pytest.mark.parametrize("quant_type", ["none", "nf4a"])
+def test_dense_programs_replay_bit_equal_to_the_eager_loop(cuda_device, quant_type):
+    """The dense programs (server/backend.py) against the eager block loop
+    of a backend without programs, on clones: a private session's chunks (5
+    and 8 rows share the 8 bucket: run eagerly, then captured; 40 padded to
+    64), decode steps and decode steps with hypo_ids (each key eager, then
+    captured, then replayed), a dense pool's batched decode step and a
+    chunk on a lane's view after the pool's warm-up, and the forward:
+    outputs and cache bytes bit-equal; K4 counted on every block of every
+    padded chunk, replays included."""
+    backend = _step_backend(cuda_device, quant_type)
+    ref = _step_backend(cuda_device, quant_type)
+    ref.block_params = backend.block_params
+    for name in ("_dense_decode_program", "_dense_gen_program", "_lane_program", "_private_program",
+                 "_private_gen_program", "_forward_program"):
+        setattr(ref, name, None)
+    hsz, gen = backend.hidden_size, torch.Generator().manual_seed(13)
+    cache = tuple(torch.randn(2, 2, 256, 2, 128, generator=torch.Generator(device=cuda_device).manual_seed(3),
+                              device=cuda_device).to(torch.bfloat16) for _ in range(2))
+    eager = tuple(t.clone() for t in cache)
+    fa.reset_launch_counts()
+    steps = [(5, 0, None), (8, 5, None), (40, 13, None), (1, 53, None), (1, 54, None), (1, 55, None),
+             (1, 56, [1, 0]), (1, 57, [1, 0]), (1, 58, [0, 0])]
+    for seq, pos, hypo in steps:
+        h = torch.randn(2, seq, hsz, generator=gen)
+        hypo = None if hypo is None else torch.tensor(hypo)
+        got, _ = backend.inference_step(h, cache, pos, hypo_ids=hypo)
+        want, _ = ref.inference_step(h, eager, pos, hypo_ids=hypo)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), (seq, pos)
+        assert all(torch.equal(a, b) for a, b in zip(cache, eager)), (seq, pos)
+    c = backend._private_program.counts
+    assert (c.eager_calls, c.captures, c.replays, c.anomalies) == (4, 3, 5, 0)
+    assert fa.flash_attend.launches == 2 * 2 * 3  # 2 blocks x 3 chunks, program and eager loop
+    pool = tuple(torch.randn(2, 3, 256, 2, 128, generator=gen).to(torch.bfloat16).to(cuda_device) for _ in range(2))
+    eager_pool = tuple(t.clone() for t in pool)
+    backend.warm_dense_programs(pool, 3, 256, 64)
+    assert all(torch.equal(a, b) for a, b in zip(pool, eager_pool))  # the warm-up wrote nothing
+    positions = torch.tensor([10, 256, 200], dtype=torch.int32)
+    for i in range(2):
+        h = torch.randn(3, 1, hsz, generator=gen)
+        got, _ = backend.batched_decode_step(h, pool, positions + i)
+        want, _ = ref.batched_decode_step(h, eager_pool, positions + i)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want) and all(torch.equal(a, b) for a, b in zip(pool, eager_pool))
+    h = torch.randn(1, 33, hsz, generator=gen)
+    got, _ = backend.inference_step(h, backend.dense_lane_view(*pool, 1), 100)
+    want, _ = ref.inference_step(h, ref.dense_lane_view(*eager_pool, 1), 100)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want) and all(torch.equal(a, b) for a, b in zip(pool, eager_pool))
+    x = torch.randn(1, 96, hsz, generator=gen)
+    for _ in range(3):
+        assert torch.equal(backend.forward(x), ref.forward(x))
+    lane = backend._lane_program.counts
+    assert lane.captures == 3 * 5 and lane.anomalies == 0  # 3 lanes x buckets 0, 8, 16, 32 and 64
+
+
+@pytest.mark.parametrize("sampled", [False, True])
+def test_private_generation_program_replays_bit_equal_to_the_eager_loop(cuda_device, sampled):
+    """``generate_tokens`` on a private cache (server/backend.py: each token
+    after the first one replay of the private generation step's program,
+    captured on its second step) against a backend without programs on a
+    clone: tokens and cache bytes bit-equal, greedy and seeded sampling
+    (the seen-token mask updated inside the graph)."""
+    backend = _step_backend(cuda_device)
+    ref = _step_backend(cuda_device)
+    ref.block_params = backend.block_params
+    ref._private_gen_program = ref._private_program = None
+    cfg = backend.cfg
+    gen = torch.Generator(device=cuda_device).manual_seed(12)
+    params = {"embed": torch.randn(cfg.vocab_size, cfg.hidden_size, generator=gen, device=cuda_device) * 0.05,
+              "norm": torch.ones(cfg.hidden_size, device=cuda_device),
+              "head": torch.randn(cfg.hidden_size, cfg.vocab_size, generator=gen, device=cuda_device) * 0.05}
+    cache = tuple((torch.randn(2, 1, 128, 2, 128, generator=gen, device=cuda_device) * 0.5).to(torch.bfloat16)
+                  for _ in range(2))
+    eager = tuple(t.clone() for t in cache)
+    last = torch.randn(1, 1, cfg.hidden_size, generator=gen, device=cuda_device).to(torch.bfloat16)
+    sampling = {"do_sample": True, "temperature": 0.8, "top_k": 50, "top_p": 0.9, "repetition_penalty": 1.3,
+                "seed": 1234, "offset": 0, "context": [5, 9]} if sampled else None
+    got, _ = backend.generate_tokens(params, last, cache, 40, 8, sampling=sampling)
+    want, _ = ref.generate_tokens(params, last, eager, 40, 8, sampling=sampling)
+    torch.cuda.synchronize()
+    assert (got == want).all(), (got, want)
+    assert all(torch.equal(a, b) for a, b in zip(cache, eager))
+    c = backend._private_gen_program.counts
+    assert (c.eager_calls, c.captures, c.replays) == (1, 1, 6)
+
+
 def _step_backend(device, quant_type="none", kv_quant_type="none", n_blocks=2):
     """A 2-block Llama-shaped backend with seeded random bf16 weights at a
     small width (hidden 512, 4 query heads of 128 over 2 kv heads)."""
