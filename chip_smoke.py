@@ -285,6 +285,38 @@
    server's per-token round trip and both step bodies' host walls, with the
    card's name and power limit. Phase 14's server runs with
    --no_server_side_generation, so its client keeps the per-token path.
+17. The prefix cache (serve_prefix_and_check, last), at its defaults (256
+   MiB host tier, 256 MiB HBM tier, radix, swarm scope); every earlier phase
+   runs its servers with --prefix_cache_bytes 0, so their counts of kernels,
+   steps and chunks mean what they meant. The 8-block bf16 span with lanes
+   of PREFIX_LANE tokens (the CLI's are 1024: the 1024-token shared prompt,
+   a tail and the decode steps must fit one), after a warm-up session:
+   sessions share a PREFIX_SHARED-token prompt (8 segments, 16 pages) with
+   tails of 64 and 37 tokens, 4 decode steps each; an exact match of the
+   prompt decodes 16 steps; a session that hit rolls back to position
+   PREFIX_ROLLBACK and rewrites 4 tokens there; a fresh exact match
+   follows. Each session runs alone with the launch counters at 0. The
+   miss stores 8 segments and pins their pages; the hit must adopt them
+   (page_hits), its 37-token tail run alone as one mixed step (K2 once a
+   block, at q_offset 1024 over the adopted pages) and its decode steps run
+   K1 over them; the exact match runs nothing (variant "cached", no prefill
+   token); the rollback forks exactly 1 page, and the fresh exact match
+   gets the first one's outputs bit for bit (the cached prefix intact); 20
+   pages stay pinned; no step program is captured after the pool's warm-up.
+   The same traffic at 2 blocks on an nf4a pool (K3's nf4a prefill once a
+   block on the hit's tail), on the --page_size 0 dense pool (a device-tier
+   seed; K4 once a block on the tail at q_offset 1024), and in private
+   sessions (max_length past the lanes: the device tier is dropped after
+   the miss, so the hit and the exact match read the host tier, which
+   promotes the path, and a fourth session hits the device tier; K4 once a
+   block on each hit's tail). Every reply is checked as phase 3 checks
+   replies, against the dense references without a cache (the rewrite's
+   against the prompt's first PREFIX_ROLLBACK rows and the rewrite). Prints
+   each prefill's reply wall (the miss, the hit, the exact match) beside
+   the server's own time for it, the first step after the storing prefill
+   (it waits for the store's snapshot) against the later ones, the host's
+   time to hash the prompt, the cache's summary and the pool's pages, with
+   the card's name and power limit.
 
 float32 matmuls run in full float32: TF32 is switched off for matmuls and
 convolutions. Exits non-zero on any failure. The last line is the JSON
@@ -439,6 +471,24 @@ GEN_PRIVATE_MAX_LENGTH = 2048  # past a lane's 1024 tokens: a private cache
 GEN_TIE_LOGIT = 1e-3
 GEN_TIE_CDF = 1e-4
 DENSE_CHUNK_TOKENS = 512  # the dense pool's chunk bound, in tokens of activations
+# the earlier phases count kernels, steps and chunks of traffic that would hit
+# the prefix cache (warm-ups, repeated prompts): their servers run without it
+NO_PREFIX_CACHE = ("--prefix_cache_bytes", "0")
+# phase 17: the prefix cache. Sessions share a PREFIX_SHARED-token prompt (8
+# segments of 128 tokens, 16 pages of 64) with tails of PREFIX_TAILS tokens;
+# an exact match of it decodes PREFIX_EXACT_STEPS tokens; a session that hit
+# rolls back to PREFIX_ROLLBACK and rewrites PREFIX_REWRITE tokens there.
+# Lanes of PREFIX_LANE tokens (the CLI's are 1024) hold the prompt, a tail
+# and the decode steps; a private session opens PREFIX_PRIVATE_MAX_LENGTH
+PREFIX_SHARED = 1024
+PREFIX_TAILS = (64, 37)
+PREFIX_STEPS = 4
+PREFIX_EXACT_STEPS = 16
+PREFIX_ROLLBACK = 600
+PREFIX_REWRITE = 4
+PREFIX_LANE = 2048
+PREFIX_PRIVATE_MAX_LENGTH = 2048
+PREFIX_WARMUP = 300
 
 # K5/K6 at the four projections of a Mistral-7B block as the port serves
 # them (qkv and gate+up fused), at decode batches (1, 4, 8 and 32 rows: one
@@ -2071,7 +2121,7 @@ def serve_and_check(ckpt, device, quant_type, n_blocks, prompts, n_steps, seed, 
     label = f"server (--quant_type {quant_type} --kv_quant_type {kv_quant_type}, {n_blocks} blocks)"
     args = build_parser().parse_args([
         ckpt, "--first_block", "0", "--num_blocks", str(n_blocks), "--host", "127.0.0.1", "--quant_type", quant_type,
-        "--kv_quant_type", kv_quant_type,
+        "--kv_quant_type", kv_quant_type, *NO_PREFIX_CACHE,
     ])
     server = build_server(args)
 
@@ -2245,7 +2295,7 @@ def serve_private_and_check(ckpt, device, smi):
 
     label = "private sessions (bf16, 8 blocks)"
     server = build_server(build_parser().parse_args(
-        [ckpt, "--first_block", "0", "--num_blocks", str(SPAN), "--host", "127.0.0.1"]))
+        [ckpt, "--first_block", "0", "--num_blocks", str(SPAN), "--host", "127.0.0.1", *NO_PREFIX_CACHE]))
     sessions = (
         ("batch 2, whole span", (0, SPAN), PRIVATE_BATCH, PRIVATE_MAX_LENGTH, PRIVATE_STEPS),
         (f"sub-span [{SUB_SPAN[0]}, {SUB_SPAN[1]}), batch 1", SUB_SPAN, 1, 1024, SUB_SPAN_STEPS),
@@ -2319,7 +2369,7 @@ def serve_dense_pool_and_check(ckpt, device):
     per_token = 2 * (2 * cfg["hidden_size"] + cfg["intermediate_size"] + cfg["num_attention_heads"] * cfg["head_dim"])
     server = build_server(build_parser().parse_args([
         ckpt, "--first_block", "0", "--num_blocks", str(SPAN), "--host", "127.0.0.1", "--page_size", "0",
-        "--max_chunk_size_bytes", str(DENSE_CHUNK_TOKENS * per_token),
+        "--max_chunk_size_bytes", str(DENSE_CHUNK_TOKENS * per_token), *NO_PREFIX_CACHE,
     ]))
 
     async def serve():
@@ -2463,7 +2513,7 @@ def serve_swarm_and_check(ckpt, device, smi):
         async def start(*span):
             server = build_server(build_parser().parse_args([
                 ckpt, "--host", "127.0.0.1", "--initial_peers", *peers, "--update_period", str(SWARM_UPDATE_PERIOD),
-                "--throughput", "auto", *span,
+                "--throughput", "auto", *NO_PREFIX_CACHE, *span,
             ]))
             t0 = time.perf_counter()
             await server.start()
@@ -2768,7 +2818,7 @@ def drive_client(label, ckpt, device, smi, server_args, runs, place_check=None, 
         for args in server_args:
             server = build_server(build_parser().parse_args([
                 ckpt, "--host", "127.0.0.1", "--initial_peers", *peers, "--update_period", str(SWARM_UPDATE_PERIOD),
-                "--throughput", "auto", *args,
+                "--throughput", "auto", *NO_PREFIX_CACHE, *args,
             ]))
             t0 = time.perf_counter()
             loop.run(server.start(), LOOP_TIMEOUT_S)
@@ -3363,6 +3413,221 @@ def serve_gen_and_check(ckpt, device, smi, quant_type) -> None:
     held.clear()
 
 
+async def _prefix_session(client, uids, max_length, steps):
+    """One session of ``steps`` ((hidden [1, n, h], extra step fields)).
+    Returns its replies, each reply's step_meta and client-side wall."""
+    from petals_tpu_torch.rpc.serialization import deserialize_array, serialize_array
+
+    stream = await client.open_stream("ptu.inference")
+    await stream.send({"uids": uids, "max_length": max_length, "batch_size": 1})
+    if not (await stream.recv(timeout=120))["session_open"]:
+        raise AssertionError("session did not open")
+    outs, metas, walls, position = [], [], [], 0
+    for hidden, extra in steps:
+        t0 = time.perf_counter()
+        await stream.send({"tensors": {"hidden": serialize_array(hidden)}, **extra})
+        reply = await stream.recv(timeout=300)
+        walls.append(time.perf_counter() - t0)
+        position = extra.get("start_from_position", position) + hidden.shape[1]
+        if reply["position"] != position:
+            raise AssertionError(f"position {reply['position']}, expected {position}")
+        outs.append(deserialize_array(reply["tensors"]["hidden"]))
+        metas.append(reply["step_meta"])
+    await stream.end()
+    return outs, metas, walls
+
+
+def serve_prefix_and_check(ckpt, device, smi, label, n_blocks, extra_args, private=False):
+    """Phase 17: the prefix cache at its defaults. Sessions share a
+    PREFIX_SHARED-token prompt with different tails; an exact match decodes;
+    a session that hit rolls back into the cached prefix and rewrites it; a
+    fresh exact match follows. Each session runs alone, its launches counted
+    from 0, and every reply is held to the dense references without a cache.
+    ``private`` opens the sessions past the lanes' length (private caches):
+    the device tier is dropped after the first, so the second and third hit
+    the host tier, which promotes the path, and a fourth hits the device
+    tier."""
+    from petals_tpu_torch.cli.run_server import build_parser, build_server
+    from petals_tpu_torch.data_structures import CHAIN_DELIMITER, make_uid
+    from petals_tpu_torch.ops import paged_flash_attention as pfa
+    from petals_tpu_torch.rpc import RpcClient
+
+    server = build_server(build_parser().parse_args([
+        ckpt, "--first_block", "0", "--num_blocks", str(n_blocks), "--host", "127.0.0.1", *extra_args]))
+    hsz = server.cfg.hidden_size
+    gen = torch.Generator().manual_seed(SEED + 17)
+
+    def rnd(n):
+        return torch.randn(1, n, hsz, generator=gen).to(torch.bfloat16)
+
+    shared = rnd(PREFIX_SHARED)
+    p_a, p_b = (torch.cat([shared, rnd(n)], dim=1) for n in PREFIX_TAILS)
+    dec = [(rnd(1), {}) for _ in range(PREFIX_EXACT_STEPS)]
+    rewrite = [rnd(1) for _ in range(PREFIX_REWRITE)]
+    warm = [(rnd(PREFIX_WARMUP), {})] + dec[:2]
+    sessions = [("miss", [(p_a, {})] + dec[:PREFIX_STEPS]), ("hit", [(p_b, {})] + dec[:PREFIX_STEPS]),
+                ("exact", [(shared, {})] + dec)]
+    if private:
+        sessions.append(("device hit", [(p_b, {})] + dec[:PREFIX_STEPS]))
+    else:
+        sessions += [
+            ("rollback", [(p_a, {}), (rewrite[0], {"start_from_position": PREFIX_ROLLBACK})]
+             + [(r, {}) for r in rewrite[1:]]),
+            ("exact after rollback", [(shared, {})] + dec[:2]),
+        ]
+    uids = CHAIN_DELIMITER.join(make_uid(server.dht_prefix, i) for i in range(n_blocks))
+
+    async def serve():
+        await server.start()
+        b, pc = server.batcher, server.handler.prefix_cache
+        max_length = PREFIX_PRIVATE_MAX_LENGTH if private else b.max_length
+        client = await RpcClient.connect("127.0.0.1", server.rpc_server.port)
+        try:
+            await _prefix_session(client, uids, max_length, warm)
+            results = []
+            for name, steps in sessions:
+                if private and name == "hit":
+                    pc._evict_device(0)  # the device tier dropped: the host tier serves
+                if private and name == "device hit":
+                    for _ in range(1000):  # the host-tier hits promote the path off the reply path
+                        if pc.stats["promotions"] >= PREFIX_SHARED // 128:
+                            break
+                        await asyncio.sleep(0.01)
+                forked = b._pages.stats["forked"] if b._pages is not None else 0
+                before, cache_before = dict(b.stats), dict(pc.stats)
+                _reset_launch_counts()
+                outs, metas, walls = await _prefix_session(client, uids, max_length, steps)
+                launches = _launch_counts()
+                launches["K3 decode"] = dict(pfa.paged_flash_attend.kv_quant_launches)
+                launches["K3 prefill"] = dict(pfa.paged_flash_prefill_attend.kv_quant_launches)
+                results.append({
+                    "outs": outs, "variants": [m["variant"] for m in metas], "server_s": metas[0]["total_s"],
+                    "walls": walls, "launches": launches,
+                    "stats": {k: v - before[k] for k, v in b.stats.items() if not k.startswith("max")},
+                    "cache": {k: v - cache_before.get(k, 0) for k, v in pc.stats.items()},
+                    "forked": (b._pages.stats["forked"] if b._pages is not None else 0) - forked,
+                })
+            info = await client.call("ptu.info", {}, timeout=10)
+            pinned = sum(len(e.get("pages", ())) for e in pc._store.values())
+            return results, info, pinned
+        finally:
+            await client.close()
+            await server.shutdown()
+
+    results, info, pinned = asyncio.run(serve())
+    kvq = server.kv_quant_type
+    dense_pool = not private and server.page_size == 0
+    by_name = dict(zip((n for n, _ in sessions), results))
+    for (name, _), r in zip(sessions, results):
+        log(f"{label}: {name}: variants {r['variants']}; walls {[round(w * 1e3, 3) for w in r['walls']]} ms; "
+            f"launches {r['launches']}; batcher {r['stats']}; cache {r['cache']}; forks {r['forked']}")
+    log(f"{label}: ptu.info prefix_cache {info['prefix_cache']}; pool "
+        f"{info['continuous_batching'].get('paged')}; {pinned} pages pinned by the cache")
+    # every reply against the dense references without a cache
+    params_bf16 = dense_reference_params(server.backend.block_params, torch.bfloat16)
+    params_f32 = dense_reference_params(server.backend.block_params, torch.float32)
+    failed = []
+
+    def check(got, prompt, steps, what):
+        args = (server.family, server.cfg, prompt, steps, device)
+        failed.extend(check_session(
+            got, None, reference_session(params_bf16, *args, torch.bfloat16, kvq),
+            reference_session(params_f32, *args, torch.float32, kvq), f"{label}: {what}", kvq,
+        ))
+
+    for (name, steps), r in zip(sessions, results):
+        if name == "rollback":
+            check(r["outs"][:1], steps[0][0], [], "rollback session's prefill")
+            # the rewrite continues the prompt's first PREFIX_ROLLBACK rows
+            rows = torch.cat([p_a[:, :PREFIX_ROLLBACK], steps[1][0]], dim=1)
+            got = [r["outs"][1]] + r["outs"][2:]
+            args = (server.family, server.cfg, rows, [h for h, _ in steps[2:]], device)
+            ref_bf16, ref_f32 = (reference_session(p, *args, dt, kvq) for p, dt in
+                                 ((params_bf16, torch.bfloat16), (params_f32, torch.float32)))
+            # the reference's first reply covers the whole prefix: keep its last row
+            cut = [[outs[0][:, -1:]] + outs[1:] for outs in (ref_bf16[0], ref_f32[0])]
+            failed.extend(check_session(got, None, (cut[0], ref_bf16[1]), (cut[1], ref_f32[1]),
+                                        f"{label}: rewrite after the rollback", kvq))
+        else:
+            check(r["outs"], steps[0][0], [h for h, _ in steps[1:]], f"{name} session")
+    if failed:
+        raise AssertionError("; ".join(failed))
+    miss, hit, exact = by_name["miss"], by_name["hit"], by_name["exact"]
+    tail = PREFIX_TAILS[1]
+    problems = []
+    if exact["variants"][0] != "cached" or exact["stats"].get("prefill_tokens", 0) or exact["launches"]["K4"]:
+        problems.append(f"the exact match ran work: {exact['variants']}, {exact['stats']}, {exact['launches']}")
+    if hit["cache"]["hit_tokens"] != PREFIX_SHARED or miss["cache"]["stored_segments"] != PREFIX_SHARED // 128:
+        problems.append(f"the hit / the store: {hit['cache']}, {miss['cache']}")
+    if private:
+        device_hit = by_name["device hit"]
+        if hit["cache"].get("device_hits") or exact["cache"].get("device_hits") or \
+                device_hit["cache"].get("device_hits") != 1:
+            problems.append("the private session must hit the host tier twice, then the device tier")
+        for r in (hit, device_hit):
+            if r["launches"]["K4"] != n_blocks:  # the tail: one chunk of more than 8 rows a block
+                problems.append(f"K4 did not run once a block on a hit's tail: {r['launches']}")
+    elif dense_pool:
+        if hit["cache"].get("device_hits") != 1 or hit["launches"]["K4"] != n_blocks:
+            problems.append(f"the dense pool's hit: {hit['cache']}, {hit['launches']} (K4 once a block)")
+    else:
+        prefill = hit["launches"]["K2"] if kvq == "none" else hit["launches"]["K3 prefill"].get(kvq, 0)
+        decode = hit["launches"]["K1"] if kvq == "none" else hit["launches"]["K3 decode"].get(kvq, 0)
+        if hit["cache"].get("page_hits") != 1 or hit["stats"]["prefill_tokens"] != tail \
+                or hit["stats"]["mixed_steps"] != 1 or prefill != n_blocks:
+            problems.append(f"the page hit's tail did not run alone, on the paged prefill kernel: "
+                            f"{hit['cache']}, {hit['stats']}, {hit['launches']}")
+        if decode < PREFIX_STEPS * n_blocks:
+            problems.append(f"the decode steps over adopted pages did not run the decode kernel: {hit['launches']}")
+        if by_name["rollback"]["forked"] != 1:
+            problems.append(f"the rollback forked {by_name['rollback']['forked']} pages, not 1")
+        # the shared prompt's and the warm-up's segments, every page of each
+        if pinned != (PREFIX_SHARED // 128 + PREFIX_WARMUP // 128) * (128 // server.page_size):
+            problems.append(f"{pinned} pages pinned")
+        if any(r["stats"]["graph_captures"] for r in results):
+            problems.append("a step program was captured after the pool's warm-up")
+    after = by_name.get("exact after rollback")
+    if after is not None and not torch.equal(after["outs"][0], exact["outs"][0]):
+        problems.append("the cached prefix changed after the rollback")
+    if problems:
+        raise AssertionError(f"{label}: " + "; ".join(problems))
+    from petals_tpu_torch.server.prefix_cache import segment_keys
+
+    hash_s = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        segment_keys(p_a, "salt")
+        hash_s.append(time.perf_counter() - t0)
+    first_step = miss["walls"][1]
+    later = statistics.median(miss["walls"][2:])
+    log(f"{label}: reply wall of the prefill (the server's own time from receipt to reply in brackets): miss "
+        f"{miss['walls'][0] * 1e3:.3f} ms [{miss['server_s'] * 1e3:.3f}] ({PREFIX_SHARED + PREFIX_TAILS[0]} tokens "
+        f"computed), hit {hit['walls'][0] * 1e3:.3f} ms [{hit['server_s'] * 1e3:.3f}] ({tail} computed, "
+        f"{PREFIX_SHARED} cached), exact {exact['walls'][0] * 1e3:.3f} ms [{exact['server_s'] * 1e3:.3f}] (none "
+        f"computed); the first step after the storing prefill {first_step * 1e3:.3f} ms against "
+        f"{later * 1e3:.3f} ms for the later ones; hashing the {p_a.shape[1]}-token prompt on the host "
+        f"{statistics.median(hash_s) * 1e3:.3f} ms; {smi}")
+
+
+# phase 17's runs: (what, blocks, CLI arguments, private sessions)
+PREFIX_RUNS = (
+    ("bf16", SPAN, ("--batch_max_length", str(PREFIX_LANE)), False),
+    ("--kv_quant_type nf4a", SHORT_SPAN, ("--batch_max_length", str(PREFIX_LANE), "--kv_quant_type", "nf4a"), False),
+    ("--page_size 0", SHORT_SPAN, ("--batch_max_length", str(PREFIX_LANE), "--page_size", "0"), False),
+    ("private sessions", SHORT_SPAN, (), True),
+)
+
+
+def serve_prefix_runs(ckpt, device, smi, names=None) -> None:
+    """Phase 17's runs (those of ``names``, default all), one server each."""
+    for what, n_blocks, args, private in PREFIX_RUNS:
+        if names is None or what in names:
+            label, t0 = f"prefix cache ({what}, {n_blocks} blocks)", time.perf_counter()
+            serve_prefix_and_check(ckpt, device, smi, label, n_blocks, args, private)
+            free_card()
+            log(f"{label}: phase done in {time.perf_counter() - t0:.1f} s")
+
+
 def free_card() -> None:
     """Free what a dropped server held on the card before the next one loads
     (its event-loop objects hold reference cycles, so collect them)."""
@@ -3483,6 +3748,8 @@ def main() -> int:
         for quant_type in ("none", "nf4a"):
             serve_gen_and_check(ckpt, device, smi, quant_type)
             free_card()
+        # the prefix cache at its defaults
+        serve_prefix_runs(ckpt, device, smi)
     flash_kernel["launches"] = private_launches["K4"]
     kernels[0]["launches"] = bf16_launches["K1"]
     kernels[1]["launches"] = bf16_launches["K2"]

@@ -13,7 +13,9 @@ petals_tpu's: bf16, ``--quant_type none``, ``--kv_quant_type none``,
 (measured on the card, server/throughput.py, and cached under
 ``$PETALS_TPU_TORCH_CACHE``, default ~/.cache/petals_tpu_torch), an
 announce every 30 seconds, server-side generation on a whole-model span
-(``--no_server_side_generation`` turns it off),
+(``--no_server_side_generation`` turns it off), the prompt-prefix cache
+(``--prefix_cache_bytes`` and ``--prefix_device_bytes`` 256 MiB each,
+``--prefix_cache_policy radix``, ``--prefix_share_scope swarm``),
 and an 8192-token KV budget (in floating-point bytes, whatever the pool's
 encoding, as petals_tpu converts it).
 """
@@ -96,6 +98,19 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--no_server_side_generation", action="store_true",
                         help="Do not generate tokens on the server (a whole-model span otherwise "
                              "loads the client's leaves and answers gen_tokens)")
+    parser.add_argument("--prefix_cache_bytes", type=int, default=256 * 2**20,
+                        help="Host-RAM prompt-prefix cache budget; 0 disables")
+    parser.add_argument("--prefix_device_bytes", type=int, default=256 * 2**20,
+                        help="HBM tier of the prefix cache (device-resident hit seeding); 0 disables")
+    parser.add_argument("--prefix_cache_policy", choices=["radix", "lru"], default="radix",
+                        help="'radix' keys prefix-cache entries into a token-segment radix "
+                             "tree with tiered residency (HBM / host) and leaf-first eviction; "
+                             "'lru' is the flat insertion-order baseline (A/B comparisons)")
+    parser.add_argument("--prefix_share_scope", choices=["swarm", "peer"], default="swarm",
+                        help="'swarm' shares cached prefixes across all clients (fastest; a client "
+                             "can time-probe whether a prompt prefix was recently served); 'peer' "
+                             "salts entries per authenticated client identity, closing that "
+                             "side channel at the cost of cross-client sharing")
     return parser
 
 
@@ -154,6 +169,10 @@ def build_server(args: argparse.Namespace) -> Server:
         quant_type=args.quant_type,
         kv_quant_type=args.kv_quant_type,
         server_side_generation=not args.no_server_side_generation,
+        prefix_cache_bytes=args.prefix_cache_bytes,
+        prefix_device_bytes=args.prefix_device_bytes,
+        prefix_cache_policy=args.prefix_cache_policy,
+        prefix_share_scope=args.prefix_share_scope,
     )
 
 

@@ -62,6 +62,12 @@ prompts' pre_seq; ``forward`` is keyed by (batch, seq, pre_seq) alone):
   private session's end, the batcher after a paged lane's check-in and at
   pool close).
 
+The prefix cache writes pools and caches in place too, so every buffer
+keeps the address its programs are keyed by: ``copy_page`` (a
+copy-on-write fork of a page shared with the cache) and ``seed_cache`` (a
+hit's prefix rows written into a dense cache or a lane's session-shaped
+copy).
+
 Server-side generation (a whole-model span holding the client's float32
 embeddings, norm and head, ``gen_params``): ``paged_gen_decode_step`` is a
 third step program, the decode step with generating lanes embedding their
@@ -330,7 +336,7 @@ class TransformerBackend:
         """
         k_stack, v_stack = kv
         max_length = k_stack.shape[2]
-        h = _as_tensor(hidden, None, k_stack.dtype)
+        h = _as_tensor(hidden, None, self.compute_dtype)
         batch, total_seq, _ = h.shape
         position = int(position)
         if k_stack.shape[0] != self.n_blocks or k_stack.shape[1] != batch:
@@ -347,7 +353,7 @@ class TransformerBackend:
                 f"n_total={n_total} is shorter than this step's own end ({position} + {total_seq})"
             )
         if prompts is not None:
-            prompts = _as_tensor(prompts, None, k_stack.dtype)
+            prompts = _as_tensor(prompts, None, self.compute_dtype)
             if prompts.shape[2] == 0:
                 prompts = None
         hypo = None
@@ -406,7 +412,7 @@ class TransformerBackend:
         the JAX package's masked form (each row's prompt row gathered at its
         clipped position, kept where the position lies under ``pre_seq``),
         so no value of the position reaches the host. Returns (out,)."""
-        h = _as_tensor(hidden, self.device, k_stack.dtype)
+        h = _as_tensor(hidden, self.device, self.compute_dtype)
         position = torch.as_tensor(position).to(self.device, torch.int32)
         if hypo is not None:
             # index_select copies the reordered rows out before copy_ writes
@@ -415,7 +421,7 @@ class TransformerBackend:
             k_stack.copy_(k_stack.index_select(1, hypo))
             v_stack.copy_(v_stack.index_select(1, hypo))
         if prompts is not None:
-            prompts = _as_tensor(prompts, self.device, k_stack.dtype)
+            prompts = _as_tensor(prompts, self.device, self.compute_dtype)
             pre_seq = prompts.shape[2]
             pos_in_chunk = position + torch.arange(h.shape[1], dtype=torch.int32, device=self.device)
             prompt_mask = (pos_in_chunk < pre_seq)[None, :, None]
@@ -630,6 +636,29 @@ class TransformerBackend:
             pages = buf.reshape(n_blocks, -1, page_size, *pool.shape[3:])
             scatter_lane_pages(pool, pages, table_row)
         return k_pool, v_pool
+
+    def copy_page(self, k_pool, v_pool, src: int, dst: int) -> None:
+        """Copy page ``src`` into page ``dst`` across every block of both
+        pools, IN PLACE (the copy-on-write fork: a shared page is copied
+        before a lane writes into it; petals_tpu's ``_copy_page_fn``). A
+        quantized pool copies its codes and scales verbatim. The pools keep
+        their addresses, so the step programs that address them stay
+        valid."""
+        for t in _pool_tensors((k_pool, v_pool)):
+            t[:, int(dst)].copy_(t[:, int(src)])
+
+    @staticmethod
+    def seed_cache(kv, k_rows, v_rows) -> None:
+        """Write a prefix into a session-shaped cache IN PLACE: rows [0, n)
+        of ``kv`` (k, v) [n_blocks, batch, max_len, hkv, d] become ``k_rows``
+        / ``v_rows`` [n_blocks, batch, n, hkv, d] (cast to the cache's type)
+        and the rows past n zeros, as petals_tpu's seed leaves them. Where
+        the JAX package replaces the buffers, this keeps their addresses, by
+        which the dense step programs are keyed."""
+        for buf, rows in zip(kv, (k_rows, v_rows)):
+            n = rows.shape[2]
+            buf[:, :, :n].copy_(rows.to(buf.device, buf.dtype))
+            buf[:, :, n:].zero_()
 
     # ------------------------------------------------------------- paged steps
 

@@ -47,9 +47,19 @@ is zeroed and the generation bumps, so every outstanding lane fails loudly on
 its next step instead of decoding against lost KV. The generation is checked
 before each step and again, under the reset lock, after it.
 
+Prefix-cache pages (petals_tpu/server/batching.py): a page's refcount
+counts its table slots and its prefix-cache pins. ``pin_lane_pages`` takes
+a pin on a lane's pages for the cache, ``adopt_pages`` points a lane's first
+slots at pinned pages (a hit that copies nothing), and ``prepare_write``
+forks a shared page (``refs > 1``) before any write: a fresh page, the
+shared one copied into it on the compute thread (``backend.copy_page``, in
+place), then the shared reference dropped. A pool reset bumps
+``page_epoch``, so pins taken on the dead pool unpin as no-ops.
+``snapshot_lane`` copies a lane's rows out for the cache's store.
+
 Not ported yet: speculative decoding (and its lanes), swap and
-preemption, the prefix cache's shared pages, the ledger and fingerprints,
-multi-host lockstep (its mirrored temp handles).
+preemption, the ledger and fingerprints, multi-host lockstep (its mirrored
+temp handles).
 """
 
 from __future__ import annotations
@@ -188,6 +198,9 @@ class DecodeBatcher:
         # makes the compute thread's post-step generation check atomic with
         # respect to a reset (check-then-act alone is a race)
         self._reset_lock = threading.Lock()
+        # bumped by a pool reset too: prefix-cache pins carry the epoch they
+        # were taken under, so a stale pin never decrefs the rebuilt allocator
+        self._page_epoch = 0
         self._lane_generation: Dict[int, int] = {}
         self._free_lanes: List[int] = []
         self._lane_waiters: List[_LaneWaiter] = []
@@ -300,6 +313,20 @@ class DecodeBatcher:
         return {
             "kv_quant": self.backend.kv_quant_type,
             "kv_bytes_per_token": int(self.backend.kv_bytes_per_token()),
+        }
+
+    def paged_summary(self) -> Optional[dict]:
+        """Pool occupancy and the allocator's counters (rpc_info), None on
+        the dense pool."""
+        if self.page_size is None:
+            return None
+        alloc = self._pages
+        return {
+            "page_size": self.page_size,
+            "n_pages": self.n_pages,
+            "page_epoch": self._page_epoch,
+            "pages_free": alloc.n_free if alloc is not None else self.n_pages,
+            **({f"pages_{k}": v for k, v in alloc.stats.items()} if alloc is not None else {}),
         }
 
     def occupancy_info(self) -> dict:
@@ -430,9 +457,10 @@ class DecodeBatcher:
         self, lane: int, t0: int, t1: int, timeout: Optional[float] = None
     ) -> None:
         """Make token range [t0, t1) of ``lane`` writable: allocate its
-        missing pages. Waits on an exhausted pool until a page frees
-        (release_lane), raising AllocationFailed at ``timeout``. No-op in
-        dense mode."""
+        missing pages, and fork every page it shares with the prefix cache
+        or another lane (refs > 1) into a fresh copy. Waits on an exhausted
+        pool until a page frees (release_lane, a prefix-cache eviction),
+        raising AllocationFailed at ``timeout``. No-op in dense mode."""
         if self.page_size is None or t1 <= t0:
             return
         self._check_lane(lane)
@@ -448,8 +476,9 @@ class DecodeBatcher:
         )
         deadline = None if timeout is None else time.monotonic() + timeout
         for slot in range(t0 // self.page_size, (t1 - 1) // self.page_size + 1):
-            if self._tables[lane, slot] >= 0:
-                continue
+            cur = int(self._tables[lane, slot])
+            if cur >= 0 and alloc.refs[cur] == 1:
+                continue  # already exclusively owned
             preferred = None if identity_base is None else identity_base + slot
             while True:
                 page = alloc.try_alloc(preferred=preferred)
@@ -468,7 +497,77 @@ class DecodeBatcher:
                 if self._pages is not alloc:
                     raise AllocationFailed("Lane pool was reset while waiting for a free page")
                 self._check_lane(lane)
+            try:
+                if cur >= 0:
+                    # a shared page: fork it on the compute thread (serialized
+                    # with the steps by the queue), then drop the shared ref
+                    await self.queue.submit(self._copy_page, cur, page, priority=PRIORITY_INFERENCE, size=0)
+                    alloc.stats["forked"] += 1
+                    self._check_lane(lane)
+                    alloc.decref(cur)
+            except BaseException:
+                if self._pages is alloc:
+                    alloc.decref(page)  # never reached the table: hand it back
+                raise
             self._tables[lane, slot] = page
+
+    def _copy_page(self, src: int, dst: int) -> None:
+        """Compute-thread body: copy page ``src`` into ``dst`` across every
+        block of the pool, in place (the copy-on-write fork), under the
+        reset lock like every other pool write outside a step."""
+        with self._reset_lock:
+            self.backend.copy_page(*self._buffers(), src, dst)
+
+    @property
+    def page_epoch(self) -> int:
+        return self._page_epoch
+
+    @property
+    def page_nbytes(self) -> int:
+        """Stored bytes of one page across the span (0 on the dense pool):
+        what the prefix cache's summary prices a pinned run at."""
+        if self.page_size is None:
+            return 0
+        return self.backend.kv_bytes_per_token() * self.page_size
+
+    def pin_lane_pages(self, lane: int, t0: int, t1: int) -> Optional[List[int]]:
+        """Take a reference on the pages backing token range [t0, t1) of
+        ``lane`` (page-aligned), so the prefix cache can share them after the
+        lane is released. Returns the pages, or None when the range is not
+        fully resident (or the pool is dense). Pair with unpin_pages."""
+        if self.page_size is None or self._tables is None:
+            return None
+        if t0 % self.page_size or t1 % self.page_size:
+            raise ValueError(f"pin range [{t0}, {t1}) is not page-aligned (page {self.page_size})")
+        pages = [int(p) for p in self._tables[lane, t0 // self.page_size : t1 // self.page_size]]
+        if any(p < 0 for p in pages):
+            return None
+        for page in pages:
+            self._pages.incref(page)  # the refs belong to the caller (the prefix cache)
+        return pages
+
+    def unpin_pages(self, pages: Sequence[int], epoch: int) -> None:
+        """Drop references taken by pin_lane_pages. Pins from an earlier
+        epoch are ignored: the reset rebuilt the allocator, and those pages
+        no longer exist to decref."""
+        if self.page_size is None or self._pages is None or epoch != self._page_epoch:
+            return
+        for page in pages:
+            self._pages.decref(int(page))
+
+    def adopt_pages(self, lane: int, pages: Sequence[int]) -> None:
+        """Point ``lane``'s first len(pages) table slots at resident (pinned)
+        pages: a prefix-cache hit that copies ZERO bytes. The lane holds them
+        shared; its first write into one forks it (prepare_write)."""
+        if self.page_size is None or self._tables is None or len(pages) > self.max_pages:
+            raise ValueError(f"cannot adopt {len(pages)} pages into a lane of {self.max_pages} slots")
+        row = self._tables[lane]
+        for slot, page in enumerate(pages):
+            cur = int(row[slot])
+            self._pages.incref(int(page))
+            if cur >= 0:
+                self._pages.decref(cur)
+            row[slot] = int(page)
 
     # ------------------------------------------------------------------ steps
 
@@ -761,6 +860,10 @@ class DecodeBatcher:
             if self._pages is not None:
                 self._pages.freed_event.set()  # wake waiters on the dead allocator
             if self.page_size is not None:
+                # every table reference and pin died with the lanes: rebuild
+                # the allocator and bump the epoch, so pins taken against the
+                # old pool unpin as no-ops
+                self._page_epoch += 1
                 self._pages = PageAllocator(self.n_pages)
                 self._tables[:] = -1
             for handle in self._handles:
@@ -954,6 +1057,25 @@ class DecodeBatcher:
         except BaseException as e:
             self._maybe_reset_pool(e)
             raise
+
+    async def snapshot_lane(self, lane: int, position: int, b0: int, b1: int, *, return_device: bool = False):
+        """Host copy of blocks [b0, b1) of a lane, rows [0, position): (k, v)
+        each [b1 - b0, 1, position, hkv, d] on the CPU (a quantized pool's
+        rows decoded, as ``paged_lane_gather`` decodes them). With
+        ``return_device=True``: (k, v, k_dev, v_dev), the device pair the
+        same rows as COPIES on the card (never views of the pool: a later
+        step writes the lane in place). One queue task, so the copy is
+        atomic with respect to the steps."""
+        self._check_lane(lane)
+
+        def run():
+            self._check_lane(lane)  # re-check: a reset may have raced the queue
+            k, v = self._extract_lane(lane)
+            kd, vd = k[b0:b1, :, :position].clone(), v[b0:b1, :, :position].clone()
+            host = (kd.cpu(), vd.cpu())
+            return (*host, kd, vd) if return_device else host
+
+        return await self.queue.submit(run, priority=PRIORITY_INFERENCE, size=0)
 
     async def run_exclusive_chunks(self, lane: int, chunk_fns: Sequence[Callable], *, size: int = 0,
                                    write_range: Optional[Tuple[int, int]] = None) -> list:

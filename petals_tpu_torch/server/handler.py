@@ -25,6 +25,25 @@ batch 1 with no deep prompts and no hypo_ids: a pooled session's tokens come
 from the batcher's generation steps (``generate_lane``), a private
 session's from ``backend.generate_tokens`` on the task queue.
 
+The prefix cache (server/prefix_cache.py; petals_tpu/server/handler.py
+:1631-1970), on by default as in petals_tpu: a fresh batch-1 prefill of at
+least ``SEGMENT_TOKENS`` tokens with no deep prompts, hypo_ids or adapter
+is hashed, off the event loop, into segment keys over its wire bytes,
+salted by the span (and, under ``prefix_share_scope="peer"``, by the
+client's proven peer id; a client without one is not cached). Its longest
+cached path seeds the session's KV without recomputing it, from the first
+tier that holds all of it: a paged lane adopts the pinned pages (zero
+bytes copied); else the device tier's copies, else the host tier's rows,
+are written into the lane or the private cache in place (after a host-tier
+hit, hot nodes move up to the device tier off the reply path). Only the
+tail runs, at position ``hit_len``; a prefill that is cached whole runs
+nothing on the device (variant ``cached``). The cached outputs come ahead
+of the tail's. After the reply a task stores the new segments (pinning a
+paged lane's pages; copying a dense lane's or a private cache's rows to
+the device tier, and every segment's rows to the host); the session awaits
+it before its next step, so the stored rows are what the content hash
+names. ``ptu.info`` carries the cache's ``summary()`` as ``prefix_cache``.
+
 The session-open ack echoes the client's ``trace_id``, normalized, or one
 minted here, as petals_tpu's does. ``ptu.info`` reports the fields of the
 ServerInfo the server announces (``server_info_fn``) beside the handler's
@@ -54,6 +73,7 @@ from petals_tpu_torch.rpc.serialization import CompressionType, deserialize_arra
 from petals_tpu_torch.rpc.server import RpcContext, RpcServer
 from petals_tpu_torch.server.backend import TransformerBackend
 from petals_tpu_torch.server.memory_cache import AllocationFailed
+from petals_tpu_torch.server.prefix_cache import SEGMENT_TOKENS, PrefixCache, segment_keys
 from petals_tpu_torch.server.task_queue import PRIORITY_INFERENCE
 from petals_tpu_torch.utils.version import incompatibility_error, is_compatible
 
@@ -88,7 +108,13 @@ class TransformerHandler:
         step_timeout: float = 5 * 60,
         server_info_fn: Optional[Callable[[], dict]] = None,  # the announced ServerInfo's fields
         server_gen_params: Optional[dict] = None,  # the client's leaves: server-side generation
+        prefix_cache_bytes: int = 256 * 2**20,  # host tier of the prefix cache; 0 disables it
+        prefix_share_scope: str = "swarm",  # "swarm" shares across clients; "peer" salts per client
+        prefix_device_bytes: int = 256 * 2**20,  # its HBM tier; 0 disables
+        prefix_cache_policy: str = "radix",  # "radix" tree | "lru" flat baseline
     ):
+        if prefix_share_scope not in ("swarm", "peer"):
+            raise ValueError(f"prefix_share_scope must be 'swarm' or 'peer', got {prefix_share_scope!r}")
         self.backend = backend
         self.server_gen_params = server_gen_params
         self.server_info_fn = server_info_fn
@@ -102,6 +128,21 @@ class TransformerHandler:
         self.inference_max_length = inference_max_length
         self.session_timeout = session_timeout
         self.step_timeout = step_timeout
+        self.prefix_share_scope = prefix_share_scope
+        self.prefix_cache = None
+        if prefix_cache_bytes > 0:
+            self.prefix_cache = PrefixCache(
+                prefix_cache_bytes, device_max_bytes=prefix_device_bytes, policy=prefix_cache_policy,
+                device=backend.device,
+            )
+            # a pinned page run is sliced at segment boundaries, so segments
+            # must tile exactly into pages
+            if batcher.page_size is not None and SEGMENT_TOKENS % batcher.page_size:
+                raise ValueError(
+                    f"page_size={batcher.page_size} must divide the prefix-cache segment size "
+                    f"({SEGMENT_TOKENS} tokens)"
+                )
+        self._promotions: set = set()  # in-flight device-tier promotions (strong refs)
 
     def register(self, server: RpcServer) -> None:
         server.add_unary_handler("ptu.info", self.rpc_info)
@@ -187,7 +228,7 @@ class TransformerHandler:
     async def rpc_info(self, payload, ctx: RpcContext):
         b = self.batcher
         info = dict(self.server_info_fn()) if self.server_info_fn is not None else {}
-        return info | {
+        info |= {
             "first_block": self.backend.first_block,
             "n_blocks": self.backend.n_blocks,
             "dht_prefix": self.dht_prefix,
@@ -210,6 +251,12 @@ class TransformerHandler:
                 **b.stats,
             },
         }
+        paged = b.paged_summary()
+        if paged is not None:
+            info["continuous_batching"]["paged"] = paged
+        if self.prefix_cache is not None:
+            info["prefix_cache"] = self.prefix_cache.summary()
+        return info
 
     async def rpc_inference(self, requests, ctx: RpcContext):
         """Bidirectional inference stream: open -> step* -> end."""
@@ -256,75 +303,256 @@ class TransformerHandler:
                 "trace_id": trace_id, "open_wait_s": round(open_wait_s, 6),
             }
             position = 0
-            while True:
-                try:
-                    step = await asyncio.wait_for(anext(requests), self.session_timeout)
-                except StopAsyncIteration:
-                    break  # the client half-closed
-                t_recv = time.perf_counter()
-                for key in ("kv_adopt", "kv_import", "push_to"):
-                    if step.get(key):
-                        raise ValueError(f"step field {key!r} is not supported by this server yet")
-                start_from = step.get("start_from_position")
-                if start_from is not None:
-                    if not 0 <= int(start_from) <= position:
-                        raise ValueError(
-                            f"start_from_position {start_from} is outside the cache [0, {position}]"
-                        )
-                    position = int(start_from)  # rollback: later rows are overwritten
-                hidden = self._get_tensor(step, "hidden")
-                prompts = self._get_tensor(step, "prompts")
-                hypo_ids = self._get_tensor(step, "hypo_ids")
-                self._validate_step_tensors(hidden, prompts, hypo_ids, batch_size, end - start)
-                if hidden is None or hidden.shape[1] == 0:
-                    yield {"tensors": {}, "position": position}  # cache probe
-                    continue
-                seq = hidden.shape[1]
-                if position + seq > max_length:
-                    raise ValueError(
-                        f"Step of {seq} tokens at position {position} exceeds max_length {max_length}"
+            pending_store = None  # the in-flight prefix-cache store
+            try:
+                while True:
+                    try:
+                        step = await asyncio.wait_for(anext(requests), self.session_timeout)
+                    except StopAsyncIteration:
+                        step = None  # the client half-closed
+                    t_recv = time.perf_counter()
+                    # a later step may roll back or overwrite the rows being
+                    # stored, and the session's end releases them: the store
+                    # finishes first
+                    if pending_store is not None:
+                        with contextlib.suppress(Exception):
+                            await pending_store
+                        pending_store = None
+                    if step is None:
+                        break
+                    position, reply, pending_store = await self._serve_step(
+                        step, t_recv, ctx, backend, batcher, lane, kv, (start, end), batch_size, max_length,
+                        position, reply_comp,
                     )
-                gen_n, gen_sampling = self._gen_request(
-                    step, (start, end), batch_size, prompts, hypo_ids, position + seq, max_length
+                    yield reply
+            finally:
+                if pending_store is not None:
+                    # a failure or a cancellation: the store is dropped now,
+                    # and releases its pins on the way out
+                    pending_store.cancel()
+
+    async def _serve_step(self, step, t_recv, ctx, backend, batcher, lane, kv, span, batch_size, max_length,
+                          position, reply_comp):
+        """One step of a session: returns (the new position, the reply, the
+        prefix store it started or None)."""
+        start, end = span
+        for key in ("kv_adopt", "kv_import", "push_to"):
+            if step.get(key):
+                raise ValueError(f"step field {key!r} is not supported by this server yet")
+        start_from = step.get("start_from_position")
+        if start_from is not None:
+            if not 0 <= int(start_from) <= position:
+                raise ValueError(f"start_from_position {start_from} is outside the cache [0, {position}]")
+            position = int(start_from)  # rollback: later rows are overwritten
+        hidden = self._get_tensor(step, "hidden")
+        prompts = self._get_tensor(step, "prompts")
+        hypo_ids = self._get_tensor(step, "hypo_ids")
+        self._validate_step_tensors(hidden, prompts, hypo_ids, batch_size, end - start)
+        if hidden is None or hidden.shape[1] == 0:
+            return position, {"tensors": {}, "position": position}, None  # cache probe
+        seq = hidden.shape[1]
+        if position + seq > max_length:
+            raise ValueError(f"Step of {seq} tokens at position {position} exceeds max_length {max_length}")
+        gen_n, gen_sampling = self._gen_request(step, span, batch_size, prompts, hypo_ids, position + seq, max_length)
+        t_exec = time.perf_counter()
+        keys, n_hit, prefix_out = None, 0, None
+        if (
+            self.prefix_cache is not None and position == 0 and batch_size == 1 and prompts is None
+            and hypo_ids is None and seq >= SEGMENT_TOKENS
+            # "peer" scope isolates clients by their proven identity: a client
+            # without one is not cached at all (a shared salt would merge them
+            # back into one timing-observable pool)
+            and (self.prefix_share_scope == "swarm" or getattr(ctx, "remote_peer_id", None) is not None)
+        ):
+            salt = f"{self.dht_prefix}:{self.backend.first_block + start}:{self.backend.first_block + end}"
+            if self.prefix_share_scope == "peer":
+                salt += f":{ctx.remote_peer_id.to_string()}"
+            keys = await asyncio.to_thread(segment_keys, hidden, salt)
+            # probe and entry resolution with no await between: a concurrent
+            # put()'s eviction cannot pop a probed key before its entry is held
+            n_hit = self.prefix_cache.probe(keys)
+            if n_hit:
+                entries = self.prefix_cache.get_entries(keys, n_hit)
+                prefix_out = await self._seed_prefix(backend, batcher, lane, kv, keys, entries)
+        hit_len = n_hit * SEGMENT_TOKENS
+        if hit_len == seq:
+            # the whole prefill was cached: nothing runs on the device
+            out, variant, timing = prefix_out, "cached", None
+        else:
+            out, variant, timing = await asyncio.wait_for(
+                self._run_step(backend, batcher, lane, kv, hidden[:, hit_len:], position + hit_len, prompts,
+                               hypo_ids),
+                self.step_timeout,
+            )
+            if prefix_out is not None:  # the cached outputs ahead of the tail's
+                out = torch.cat([prefix_out.to(out.dtype), out], dim=1)
+        if timing is None:  # not a coalesced step: the execution wall, queue included
+            timing = {"queue_s": 0.0, "compute_s": time.perf_counter() - t_exec}
+        pending_store = None
+        if keys is not None and len(keys) > n_hit:
+            pending_store = self._maybe_store(backend, batcher, lane, kv, keys, n_hit, out, end - start)
+        position += seq
+        if gen_n:
+            t_gen = time.perf_counter()
+            tokens, gen_timing = await asyncio.wait_for(
+                self._generate(backend, batcher, lane, kv, out[:, -1:], position, gen_n, gen_sampling),
+                self.step_timeout,
+            )
+            if gen_timing is not None:  # the batcher's steps: the two phases sum
+                timing = {"queue_s": timing.get("queue_s", 0.0) + gen_timing["queue_s"],
+                          "compute_s": timing.get("compute_s", 0.0) + gen_timing["compute_s"]}
+                variant += "+gen"
+            else:
+                timing = {**timing, "compute_s": timing.get("compute_s", 0.0) + time.perf_counter() - t_gen}
+            position += gen_n - 1  # the last token is never fed
+            step_meta = {
+                "queue_s": round(timing["queue_s"], 6), "compute_s": round(timing["compute_s"], 6),
+                "variant": variant, "serialize_s": 0.0, "total_s": round(time.perf_counter() - t_recv, 6),
+            }
+            return position, {"tokens": [int(t) for t in tokens[0]], "position": position,
+                              "step_meta": step_meta}, pending_store
+        t_ser = time.perf_counter()
+        wire_out = serialize_array(out, reply_comp)
+        step_meta = {
+            "queue_s": round(timing.get("queue_s", 0.0), 6),
+            "compute_s": round(timing.get("compute_s", 0.0), 6),
+            "variant": variant,
+            "serialize_s": round(time.perf_counter() - t_ser, 6),
+            "total_s": round(time.perf_counter() - t_recv, 6),
+        }
+        return position, {"tensors": {"hidden": wire_out}, "position": position, "step_meta": step_meta}, pending_store
+
+    # ------------------------------------------------------------------ prefix cache
+
+    async def _seed_prefix(self, backend, batcher, lane, kv, keys, entries) -> torch.Tensor:
+        """Seed a fresh session's KV rows [0, hit_len) from the cache's
+        ``entries`` (resolved on the loop right after the probe), from the
+        first tier that holds the whole hit: a paged lane adopts the pinned
+        pages of THIS batcher at its current epoch (the block table is the
+        seed); else the device tier's copies; else the host tier's rows,
+        after which the hit path's hot nodes move up to the device tier off
+        the reply path. Returns the cached outputs [1, hit_len, hidden] on
+        the host."""
+        pc = self.prefix_cache
+        outs = [e["out"] for e in entries]
+        kd = [e.get("kd") for e in entries]
+        vd = [e.get("vd") for e in entries]
+        if lane is not None and batcher.page_size is not None:
+            spp = SEGMENT_TOKENS // batcher.page_size
+            if all(
+                e.get("pages") is not None and e.get("pages_pool") is batcher
+                and e.get("pages_epoch") == batcher.page_epoch and len(e["pages"]) == spp
+                for e in entries
+            ):
+                # the refs now belong to the lane's table row: release_lane or
+                # a copy-on-write fork drops them
+                batcher.adopt_pages(lane, [p for e in entries for p in e["pages"]])
+                pc.stats["page_hits"] = pc.stats.get("page_hits", 0) + 1
+                return await asyncio.to_thread(torch.cat, outs, 1)
+        if all(x is not None for x in kd):
+            # the whole prefix on the device: no host-to-device transfer
+            pc.stats["device_hits"] = pc.stats.get("device_hits", 0) + 1
+            prefix_out = await asyncio.to_thread(torch.cat, outs, 1)
+            await self._seed_kv(backend, batcher, lane, kv, kd, vd)
+            return prefix_out
+        k, v, prefix_out = await asyncio.to_thread(pc.concat_entries, entries)
+        await self._seed_kv(backend, batcher, lane, kv, [k], [v])
+        if pc.device_max_bytes > 0:
+            promo = asyncio.create_task(asyncio.to_thread(pc.maybe_promote_device, keys, len(entries)))
+            self._promotions.add(promo)
+            promo.add_done_callback(self._promotions.discard)
+            promo.add_done_callback(_log_failure("prefix device promotion"))
+        return prefix_out
+
+    async def _seed_kv(self, backend, batcher, lane, kv, k_parts, v_parts) -> None:
+        """Write the prefix rows (the token-axis concatenation of
+        ``k_parts`` / ``v_parts``, on the host or the device) into the
+        session's lane or private cache IN PLACE, rows past them zeroed, as
+        one task on the compute thread. A paged lane first owns pages for
+        the rows (a quantized pool re-encodes them on check-in)."""
+        n = sum(p.shape[2] for p in k_parts)
+
+        def seed(target):
+            backend.seed_cache(target, torch.cat(k_parts, dim=2), torch.cat(v_parts, dim=2))
+            return None, target
+
+        if lane is not None:
+            await batcher.run_exclusive(lane, seed, size=n, write_range=(0, n))
+        else:
+            await self.queue.submit(seed, kv, priority=PRIORITY_INFERENCE, size=n)
+
+    def _maybe_store(self, backend, batcher, lane, kv, keys, n_hit: int, out, n_blocks: int):
+        """Start the store of this prefill's new segments as a task, unless
+        it would add nothing (every key present and no tier to gain: device
+        copies where the session can give them, live page pins where it
+        runs on a paged lane)."""
+        pc = self.prefix_cache
+        # a segment's host bytes: its k/v rows in the cache's type, and its
+        # outputs in the reply's type
+        seg_bytes = (
+            2 * n_blocks * SEGMENT_TOKENS * backend.num_kv_heads * backend.head_dim * backend.compute_dtype.itemsize
+            + SEGMENT_TOKENS * backend.hidden_size * out.element_size()
+        )
+        paged = lane is not None and batcher.page_size is not None
+        if not pc.worth_storing(keys, n_hit, seg_bytes, device_capable=pc.device_max_bytes > 0 and not paged,
+                                pages_pool=batcher if paged else None):
+            return None
+        task = asyncio.create_task(self._store_prefix_async(
+            keys, n_hit, len(keys) * SEGMENT_TOKENS, batcher, lane, kv, out, n_blocks,
+        ))
+        task.add_done_callback(_log_failure("prefix store"))
+        return task
+
+    async def _store_prefix_async(self, keys, n_hit: int, boundary: int, batcher, lane, kv, out_full,
+                                  n_blocks: int) -> None:
+        """Snapshot KV rows [0, boundary) and store the fresh segments. Runs
+        as a task after the prefill's reply; the session awaits it before
+        its next step, so the stored rows match the content hash. A paged
+        lane pins the fresh segments' pages; a dense lane's or a private
+        cache's rows are also copied to the device tier."""
+        pc = self.prefix_cache
+        first = n_hit * SEGMENT_TOKENS
+        pages, epoch = None, 0
+        try:
+            if lane is not None:
+                if batcher.page_size is not None:
+                    # whole stored segments pin: both bounds page-aligned
+                    # because page_size divides SEGMENT_TOKENS
+                    seg_end = (boundary // SEGMENT_TOKENS) * SEGMENT_TOKENS
+                    if seg_end > first:
+                        epoch = batcher.page_epoch
+                        pages = batcher.pin_lane_pages(lane, first, seg_end)
+                snap = await batcher.snapshot_lane(
+                    lane, boundary, 0, n_blocks, return_device=pc.device_max_bytes > 0 and batcher.page_size is None
                 )
-                t_exec = time.perf_counter()
-                out, variant, timing = await asyncio.wait_for(
-                    self._run_step(backend, batcher, lane, kv, hidden, position, prompts, hypo_ids),
-                    self.step_timeout,
-                )
-                if timing is None:  # not a coalesced step: the execution wall, queue included
-                    timing = {"queue_s": 0.0, "compute_s": time.perf_counter() - t_exec}
-                position += seq
-                if gen_n:
-                    t_gen = time.perf_counter()
-                    tokens, gen_timing = await asyncio.wait_for(
-                        self._generate(backend, batcher, lane, kv, out[:, -1:], position, gen_n, gen_sampling),
-                        self.step_timeout,
-                    )
-                    if gen_timing is not None:  # the batcher's steps: the two phases sum
-                        timing = {"queue_s": timing.get("queue_s", 0.0) + gen_timing["queue_s"],
-                                  "compute_s": timing.get("compute_s", 0.0) + gen_timing["compute_s"]}
-                        variant += "+gen"
-                    else:
-                        timing = {**timing, "compute_s": timing.get("compute_s", 0.0) + time.perf_counter() - t_gen}
-                    position += gen_n - 1  # the last token is never fed
-                    step_meta = {
-                        "queue_s": round(timing["queue_s"], 6), "compute_s": round(timing["compute_s"], 6),
-                        "variant": variant, "serialize_s": 0.0,
-                        "total_s": round(time.perf_counter() - t_recv, 6),
-                    }
-                    yield {"tokens": [int(t) for t in tokens[0]], "position": position, "step_meta": step_meta}
-                    continue
-                t_ser = time.perf_counter()
-                wire_out = serialize_array(out, reply_comp)
-                step_meta = {
-                    "queue_s": round(timing.get("queue_s", 0.0), 6),
-                    "compute_s": round(timing.get("compute_s", 0.0), 6),
-                    "variant": variant,
-                    "serialize_s": round(time.perf_counter() - t_ser, 6),
-                    "total_s": round(time.perf_counter() - t_recv, 6),
-                }
-                yield {"tensors": {"hidden": wire_out}, "position": position, "step_meta": step_meta}
+            else:
+                def read():
+                    k, v = (t[:, :, :boundary] for t in kv)
+                    host = (k.cpu(), v.cpu())
+                    if pc.device_max_bytes <= 0:
+                        return host
+                    return (*host, k[:, :, first:].clone(), v[:, :, first:].clone())
+
+                snap = await self.queue.submit(read, priority=PRIORITY_INFERENCE, size=0)
+        except BaseException as e:
+            # release the pins on EVERY abnormal exit, a cancellation included:
+            # this coroutine awaits between the pin and the cache's commit
+            if pages:
+                batcher.unpin_pages(pages, epoch)
+            if not isinstance(e, Exception):
+                raise
+            logger.debug(f"Prefix store skipped: {e!r}")  # storing is best-effort
+            return
+        k, v = snap[:2]
+        k_dev = v_dev = None
+        if len(snap) == 4:
+            k_dev, v_dev = snap[2:]
+            if lane is not None:  # the lane's snapshot starts at row 0
+                k_dev, v_dev = k_dev[:, :, first:], v_dev[:, :, first:]
+        pc.put(
+            keys, n_hit, k[:, :, first:], v[:, :, first:], out_full[:, first:boundary],
+            k_dev=k_dev, v_dev=v_dev, pages=pages, pages_pool=batcher if pages else None, pages_epoch=epoch,
+        )
 
     def _gen_request(self, step: dict, span: Tuple[int, int], batch_size: int, prompts, hypo_ids,
                      position: int, max_length: int) -> Tuple[int, Optional[dict]]:
@@ -441,3 +669,13 @@ class TransformerHandler:
 
         out = await self.queue.submit(run_step, priority=PRIORITY_INFERENCE, size=batch_size * seq)
         return out, "private", None
+
+
+def _log_failure(what: str):
+    """A done-callback that logs a background task's failure."""
+
+    def callback(task: asyncio.Task) -> None:
+        if not task.cancelled() and task.exception() is not None:
+            logger.warning(f"{what} failed", exc_info=task.exception())
+
+    return callback

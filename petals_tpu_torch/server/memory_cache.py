@@ -12,7 +12,9 @@ petals_tpu/server/memory_cache.py the paged pool uses).
   PLACE by the steps (where the JAX package donates and stores a new buffer),
   so there is no ``update_cache``.
 - ``PageAllocator`` hands out page indices of one preallocated pool, with
-  refcounts and a ``freed_event`` that wakes allocation waiters.
+  refcounts (a lane's table slot and a prefix-cache pin each hold one, and
+  a page with ``refs > 1`` is copied before a write) and a ``freed_event``
+  that wakes allocation waiters.
 """
 
 from __future__ import annotations
@@ -68,6 +70,8 @@ class PageAllocator:
         self._free_set = set(range(self.n_pages))
         self.refs = np.zeros((self.n_pages,), np.int32)
         self.freed_event = asyncio.Event()
+        # petals_tpu's counters; ``forked`` counts copy-on-write forks
+        self.stats = {"allocated": 0, "forked": 0, "freed": 0}
 
     @property
     def n_free(self) -> int:
@@ -86,7 +90,13 @@ class PageAllocator:
             page = self._free.popleft()
         self._free_set.discard(page)
         self.refs[page] = 1
+        self.stats["allocated"] += 1
         return page
+
+    def incref(self, page: int) -> None:
+        if self.refs[page] <= 0:
+            raise RuntimeError(f"incref of free page {page}")
+        self.refs[page] += 1
 
     def decref(self, page: int) -> None:
         """Drop one reference; a page at zero returns to the free list (FIFO)
@@ -97,6 +107,7 @@ class PageAllocator:
         if self.refs[page] == 0 and page not in self._free_set:
             self._free.append(page)
             self._free_set.add(page)
+            self.stats["freed"] += 1
             self.freed_event.set()
 
 

@@ -32,6 +32,12 @@ asks (``gen_tokens``); it announces ``server_gen`` and
 the weights, outside the KV budget (``attn_cache_bytes``): about 1.05 GB at
 Mistral-7B's widths, logged at load.
 
+The prompt-prefix cache (server/prefix_cache.py) is on with petals_tpu's
+defaults: a 256 MiB host tier (``prefix_cache_bytes``), a 256 MiB HBM tier
+(``prefix_device_bytes``, which an auto-sized KV budget gives up, as
+petals_tpu's does), the ``radix`` policy and ``swarm`` sharing; a paged
+pool's page size must then divide its 128-token segments.
+
 Runs on the CUDA card unless the caller passes ``device="cpu"``; a missing
 card raises instead of drifting to the CPU.
 """
@@ -65,6 +71,7 @@ from petals_tpu_torch.server.block_utils import choose_num_blocks
 from petals_tpu_torch.server.from_pretrained import get_block_config, load_block_params
 from petals_tpu_torch.server.handler import TransformerHandler
 from petals_tpu_torch.server.memory_cache import MemoryCache
+from petals_tpu_torch.server.prefix_cache import resolve_device_bytes
 from petals_tpu_torch.server.task_queue import PriorityTaskQueue
 from petals_tpu_torch.server.throughput import get_server_throughput
 from petals_tpu_torch.utils.bandwidth import probe_swarm_bandwidth_mbps
@@ -129,6 +136,10 @@ class Server:
         update_period: float = DEFAULT_UPDATE_PERIOD,
         network_mbps: Optional[float] = None,  # a known network budget; None: probe the peers
         server_side_generation: bool = True,  # generate on a whole-model span (gen_tokens)
+        prefix_cache_bytes: int = 256 * 2**20,  # host tier of the prompt-prefix cache; 0 disables it
+        prefix_share_scope: str = "swarm",  # "peer" isolates the prefix cache per client identity
+        prefix_device_bytes: int = 256 * 2**20,  # its HBM tier; 0 disables
+        prefix_cache_policy: str = "radix",  # "radix" tree | "lru" flat baseline
     ):
         if kv_quant_type not in KV_QUANT_KINDS:
             raise ValueError(f"kv_quant_type must be one of {KV_QUANT_KINDS}, got {kv_quant_type!r}")
@@ -147,12 +158,20 @@ class Server:
         self.model_path = model_path
         self.family, self.cfg = get_block_config(model_path)
         total = self.cfg.num_hidden_layers
+        # PETALS_TPU_RADIX_DEVICE_FRAC retunes the prefix cache's HBM/host
+        # split as a fraction of prefix_cache_bytes
+        prefix_device_bytes = resolve_device_bytes(prefix_cache_bytes, prefix_device_bytes)
         if attn_cache_bytes is None:
             # default KV budget: 15% of device memory, as petals_tpu sizes it
             if self.device.type == "cuda":
                 attn_cache_bytes = int(torch.cuda.mem_get_info(self.device)[1] * 0.15)
             else:
                 attn_cache_bytes = 2 << 30
+            # the prefix cache's HBM tier lives outside the KV budget: carve
+            # it out of an auto-sized one, floored so that a large tier cannot
+            # starve serving
+            if prefix_device_bytes > 0:
+                attn_cache_bytes = max(attn_cache_bytes - prefix_device_bytes, attn_cache_bytes // 4)
         if num_blocks is None:
             num_blocks = total - first_block if first_block is not None else choose_num_blocks(
                 self.family, self.cfg, quant_type=self.quant_type, attn_cache_bytes=attn_cache_bytes,
@@ -189,6 +208,8 @@ class Server:
         self.network_mbps = network_mbps
         self.server_side_generation = server_side_generation
         self.server_gen_params: Optional[dict] = None  # the client's leaves, once loaded
+        self.prefix_cache_bytes, self.prefix_share_scope = prefix_cache_bytes, prefix_share_scope
+        self.prefix_device_bytes, self.prefix_cache_policy = prefix_device_bytes, prefix_cache_policy
 
         self.queue = PriorityTaskQueue()
         self.backend: Optional[TransformerBackend] = None
@@ -252,6 +273,8 @@ class Server:
             # rpc_info answers ONLINE, as petals_tpu's does
             server_info_fn=lambda: dataclasses.asdict(self._server_info(ServerState.ONLINE)),
             server_gen_params=self.server_gen_params,
+            prefix_cache_bytes=self.prefix_cache_bytes, prefix_share_scope=self.prefix_share_scope,
+            prefix_device_bytes=self.prefix_device_bytes, prefix_cache_policy=self.prefix_cache_policy,
         )
 
     def _load_server_gen_params(self) -> Optional[dict]:
