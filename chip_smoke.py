@@ -317,6 +317,35 @@
    (it waits for the store's snapshot) against the later ones, the host's
    time to hash the prompt, the cache's summary and the pool's pages, with
    the card's name and power limit.
+18. Preemption to host memory and the wire (serve_swap_and_check,
+   serve_relay_and_check; alone: scripts/smoke_swap_wire.py). 18a: one
+   port server of the 8-block bf16 cut built by the CLI with --batch_lanes
+   4, lanes of SWAP_LANE tokens, --n_pages SWAP_PAGES (half the lanes'
+   peak), --swap_host_bytes SWAP_HOST_BYTES (48 pages) and the prefix cache
+   off. Four sessions with prompts of 900, 700, 600 and 450 tokens (44
+   pages at prefill), then SWAP_STEPS decode steps each in barrier rounds,
+   so idle lanes hold their pages, then one more step a session, one
+   session at a time (a lane preempted after its last round swaps in
+   before it is released); session 0's is a SWAP_CHUNK-token prompt chunk
+   right after its lane is swapped out by hand, so K2 reads moved pages.
+   Checks: no AllocationFailed; swap_outs >= 1 and swap_ins == swap_outs;
+   every reply within phase 3's tolerance of the dense reference; each
+   swapped lane's rows, read through paged_lane_gather (and its pages'
+   stored leaves) just before the swap-out and just after the swap-in,
+   bit-equal; no step program captured after the warm-up; K1 on every block
+   of every decode step and K2 on every block of the chunk after the
+   swap-in. The same at 2 blocks on an nf4a pool (K3; codes and scales
+   bit-equal through the round trip). Prints each swap's pages, MiB, ms
+   and GB/s, the host memory kind, the oldest suspension and the peak of
+   suspended sessions. 18b: on 18a's bf16 server a session at qint8 and the
+   same session uncompressed: every qint8 reply element within
+   absmax_block / 254 plus one float32 ulp of the uncompressed reply, which
+   is held to the dense reference as phase 3 holds replies; the codec's
+   time on a QINT8_REPLY reply. Then a port DHT bootstrap with its relay
+   (run_dht's), a port server of the SHORT_SPAN-layer cut behind
+   --relay_via, and the port client's greedy stream through the relay,
+   equal token for token to its stream from the same server started again
+   without the relay.
 
 float32 matmuls run in full float32: TF32 is switched off for matmuls and
 convolutions. Exits non-zero on any failure. The last line is the JSON
@@ -489,6 +518,27 @@ PREFIX_REWRITE = 4
 PREFIX_LANE = 2048
 PREFIX_PRIVATE_MAX_LENGTH = 2048
 PREFIX_WARMUP = 300
+# phase 18a: preemption to host memory. 4 lanes of SWAP_LANE tokens on
+# SWAP_PAGES pages (half the lanes' peak of 64), a swap budget of 48 pages
+# of the 8-block bf16 span; prompts of 44 pages at prefill, SWAP_STEPS
+# decode steps each in barrier rounds (a lane waiting at the barrier holds
+# its pages, idle), then one more step a session, one session at a time;
+# session 0's is a SWAP_CHUNK-token prompt chunk after a forced swap-out
+SWAP_PROMPTS = (900, 700, 600, 450)
+SWAP_STEPS = 32
+SWAP_LANE = 1024
+SWAP_PAGES = 32
+SWAP_HOST_BYTES = 96 * 2**20
+SWAP_CHUNK = 64
+# phase 18b: the wire. A qint8 session on 18a's server (a QINT8_PROMPT-token
+# prompt and QINT8_STEPS steps), the codec timed on a reply of QINT8_REPLY;
+# the port's client (RELAY_NEW greedy tokens of a RELAY_PROMPT-token prompt)
+# through a relay to a server of the SHORT_SPAN-layer cut, and directly
+QINT8_PROMPT = 300
+QINT8_STEPS = 4
+QINT8_REPLY = (1088, 4096)
+RELAY_PROMPT = 64
+RELAY_NEW = 16
 
 # K5/K6 at the four projections of a Mistral-7B block as the port serves
 # them (qkv and gate+up fused), at decode batches (1, 4, 8 and 32 rows: one
@@ -3628,6 +3678,318 @@ def serve_prefix_runs(ckpt, device, smi, names=None) -> None:
             log(f"{label}: phase done in {time.perf_counter() - t0:.1f} s")
 
 
+async def _swap_session(client, uids, steps, barrier=None, turn=None, release=None, comp="none", peer=None):
+    """One session of phase 18 (billed to ``peer``): its prompt, then each
+    decode step after ``barrier(k)`` for round k, then (``turn``: awaited
+    first) its last step and its end, after which ``release()`` waits for
+    the server to free the lane. Returns the replies, each reply's
+    step_meta and each reply's wire dict."""
+    from petals_tpu_torch.rpc.serialization import deserialize_array, serialize_array
+
+    stream = await client.open_stream("ptu.inference")
+    await stream.send({"uids": uids, "max_length": SWAP_LANE, "batch_size": 1, "compression": comp,
+                       "peer_hint": peer})
+    if not (await stream.recv(timeout=120))["session_open"]:
+        raise AssertionError("session did not open")
+    outs, metas, wires = [], [], []
+    for k, hidden in enumerate(steps):
+        if k == len(steps) - 1 and turn is not None:
+            await turn()
+        elif k and barrier is not None:
+            await barrier(k)
+        await stream.send({"tensors": {"hidden": serialize_array(hidden)}})
+        reply = await stream.recv(timeout=300)
+        wire = reply["tensors"]["hidden"]
+        wires.append(wire)
+        outs.append(deserialize_array(wire))
+        metas.append(reply["step_meta"])
+    await stream.end()
+    if release is not None:
+        await release()
+    return outs, metas, wires
+
+
+def serve_swap_and_check(ckpt, device, smi, label, n_blocks, extra_args, wire=False):
+    """Phase 18a (and, with ``wire``, 18b's qint8 session) on one server."""
+    from petals_tpu_torch.cli.run_server import build_parser, build_server
+    from petals_tpu_torch.data_structures import CHAIN_DELIMITER, make_uid
+    from petals_tpu_torch.ops import paged_flash_attention as pfa
+    from petals_tpu_torch.rpc import RpcClient
+
+    server = build_server(build_parser().parse_args([
+        ckpt, "--first_block", "0", "--num_blocks", str(n_blocks), "--host", "127.0.0.1", *NO_PREFIX_CACHE,
+        "--batch_lanes", "4", "--batch_max_length", str(SWAP_LANE), "--n_pages", str(SWAP_PAGES),
+        "--swap_host_bytes", str(SWAP_HOST_BYTES), *extra_args]))
+    kvq = server.kv_quant_type
+    hsz = server.cfg.hidden_size
+    gen = torch.Generator().manual_seed(SEED + 18)
+
+    def rnd(n):
+        return torch.randn(1, n, hsz, generator=gen).to(torch.bfloat16)
+
+    sessions = [[rnd(n)] + [rnd(1) for _ in range(SWAP_STEPS)] for n in SWAP_PROMPTS]
+    sessions[0].append(rnd(SWAP_CHUNK))
+    for steps in sessions[1:]:
+        steps.append(rnd(1))
+    warm = [rnd(64), rnd(1), rnd(1)]
+    qint8_steps = [rnd(QINT8_PROMPT)] + [rnd(1) for _ in range(QINT8_STEPS)]
+    uids = CHAIN_DELIMITER.join(make_uid(server.dht_prefix, i) for i in range(n_blocks))
+    watch = {"pairs": 0, "bad": [], "peak_suspended": 0, "oldest_s": 0.0, "chunk_launches": {}}
+
+    def hook(b):
+        """Each swapped lane's gathered rows and its pages' stored leaves,
+        read on the compute thread just before the copy out and just after
+        the write back, must be bit-equal; the peak of suspended sessions."""
+        pending = {}
+        out_body, in_body, occupancy_body = b._swap_out_device, b._swap_in_device, b._note_occupancy
+
+        def read(lane, pages):
+            pools = b._buffers()
+            rows = b.backend.paged_lane_gather(*pools, b._tables[lane].copy())
+            idx = torch.as_tensor(pages, dtype=torch.long, device=device)
+            return [*rows, *(t.index_select(1, idx) for t in _pool_tensors(pools))]
+
+        def swap_out(lane, pages):
+            before = read(lane, pages)
+            result = out_body(lane, pages)
+            pending[lane] = before
+            return result
+
+        def swap_in(lane, entry, pages):
+            in_body(lane, entry, pages)
+            after = read(lane, pages)
+            before = pending.pop(lane)
+            watch["pairs"] += 1
+            if not all(torch.equal(x, y) for x, y in zip(before, after)):
+                watch["bad"].append(lane)
+
+        def note_occupancy():
+            occupancy_body()
+            watch["peak_suspended"] = max(watch["peak_suspended"], b._scheduler.suspended_count)
+            watch["oldest_s"] = max(watch["oldest_s"], b._scheduler.oldest_swap_age())
+
+        b._swap_out_device, b._swap_in_device, b._note_occupancy = swap_out, swap_in, note_occupancy
+
+    async def serve():
+        await server.start()
+        b = server.batcher
+        hook(b)
+        client = await RpcClient.connect("127.0.0.1", server.rpc_server.port)
+        try:
+            await _swap_session(client, uids, warm)
+            before = dict(b.stats)
+            arrived = [0] * (SWAP_STEPS + 1)
+            gates = [asyncio.Event() for _ in range(SWAP_STEPS + 1)]
+            turns = [asyncio.Event() for _ in range(len(sessions) + 1)]
+            turns[0].set()
+
+            async def barrier(k):
+                arrived[k] += 1
+                if arrived[k] == len(sessions):
+                    gates[k].set()
+                await asyncio.wait_for(gates[k].wait(), 300)
+
+            def session_fns(s):
+                async def turn():
+                    await asyncio.wait_for(turns[s].wait(), 300)
+                    if s == 0:
+                        # the chunk runs on moved pages: the lane swapped out
+                        # (by hand, unless a round preempted it already)
+                        lane, slot = next((l, sl) for l, sl in b._scheduler.lanes.items() if sl.peer_id == "session-0")
+                        if not slot.suspended and not await b._swap_out_lane(lane):
+                            raise AssertionError("the forced swap-out did not happen")
+                        _reset_launch_counts()
+
+                async def release():
+                    if s == 0:
+                        watch["chunk_launches"] = dict(_launch_counts(), K3=dict(
+                            pfa.paged_flash_prefill_attend.kv_quant_launches))
+                    for _ in range(30000):
+                        if b.occupancy_hint()["busy_lanes"] < len(sessions) - s:
+                            break
+                        await asyncio.sleep(0.001)
+                    turns[s + 1].set()
+
+                return turn, release
+
+            _reset_launch_counts()
+            t0 = time.perf_counter()
+            runs = await asyncio.gather(*(
+                _swap_session(client, uids, steps, barrier, *session_fns(s), peer=f"session-{s}")
+                for s, steps in enumerate(sessions)))
+            wall = time.perf_counter() - t0
+            stats = {k: v - before[k] for k, v in b.stats.items() if not k.startswith("max")}
+            summary = b._scheduler.summary()
+            qint8 = None
+            if wire:
+                plain = await _swap_session(client, uids, qint8_steps)
+                comp = await _swap_session(client, uids, qint8_steps, comp="qint8")
+                qint8 = (plain, comp)
+            events = list(b.swap_events)
+            return runs, stats, summary, wall, qint8, events, b.swap_host_memory, b.page_nbytes
+        finally:
+            await client.close()
+            await server.shutdown()
+
+    t0 = time.perf_counter()
+    runs, stats, summary, wall, qint8, events, memory_kind, page_bytes = asyncio.run(serve())
+    log(f"{label}: {len(sessions)} sessions ({SWAP_PROMPTS} + {SWAP_STEPS} + 1 tokens) on {SWAP_PAGES} pages "
+        f"of {page_bytes} B in {wall:.2f} s; scheduler {summary}; batcher {stats}")
+    failed = []
+    params_bf16 = dense_reference_params(server.backend.block_params, torch.bfloat16)
+    params_f32 = dense_reference_params(server.backend.block_params, torch.float32)
+    for s, (steps, (outs, metas, _)) in enumerate(zip(sessions, runs)):
+        args = (server.family, server.cfg, steps[0], steps[1:], device)
+        failed.extend(check_session(
+            outs, None, reference_session(params_bf16, *args, torch.bfloat16, kvq),
+            reference_session(params_f32, *args, torch.float32, kvq), f"{label}: session {s}", kvq))
+        if not {"busy_lanes", "lane_waiters", "usage"} <= set(metas[-1]):
+            failed.append(f"{label}: session {s}'s reply lacks the load hint or its bill: {sorted(metas[-1])}")
+    if summary["swap_outs"] < 1 or summary["swap_ins"] != summary["swap_outs"]:
+        failed.append(f"{label}: swaps out {summary['swap_outs']}, in {summary['swap_ins']}")
+    if watch["bad"] or watch["pairs"] != summary["swap_ins"]:
+        failed.append(f"{label}: {len(watch['bad'])} of {watch['pairs']} swapped lanes came back changed "
+                      f"(lanes {watch['bad']})")
+    if stats["graph_captures"] or stats["graph_anomalies"]:
+        failed.append(f"{label}: a step program was captured after the warm-up: {stats}")
+    launches = watch["chunk_launches"]
+    chunk_kernel = launches["K2"] if kvq == "none" else launches["K3"].get(kvq, 0)
+    if chunk_kernel != n_blocks:
+        failed.append(f"{label}: the chunk on moved pages ran the prefill kernel {chunk_kernel} times: {launches}")
+    if failed:
+        raise AssertionError("; ".join(failed))
+    swaps = [f"{e['dir']} {e['pages']}p {e['bytes'] / 2**20:.1f} MiB {e['seconds'] * 1e3:.3f} ms "
+             f"{e['bytes'] / e['seconds'] / 1e9:.2f} GB/s" for e in events]
+    for direction in ("out", "in"):
+        rates = [e["bytes"] / e["seconds"] / 1e9 for e in events if e["dir"] == direction]
+        ms = [e["seconds"] * 1e3 for e in events if e["dir"] == direction]
+        log(f"{label}: swap-{direction}: {len(rates)} swaps, median {statistics.median(ms):.3f} ms, "
+            f"median {statistics.median(rates):.2f} GB/s, max {max(rates):.2f} GB/s ({memory_kind} host memory; {smi})")
+    log(f"{label}: every swap: {'; '.join(swaps)}")
+    log(f"{label}: {watch['pairs']} round trips bit-equal (rows through paged_lane_gather, pages' stored leaves); "
+        f"peak suspended {watch['peak_suspended']}; oldest suspension {watch['oldest_s']:.3f} s; chunk on moved "
+        f"pages: {launches}")
+    if qint8 is not None:
+        check_qint8(label, qint8, qint8_steps, server, params_bf16, params_f32, device, smi)
+    log(f"{label}: phase done in {time.perf_counter() - t0:.1f} s")
+
+
+def check_qint8(label, runs, steps, server, params_bf16, params_f32, device, smi) -> None:
+    """18b's qint8 session: each reply's float32 decode within a code step
+    (absmax_block / 254) plus one float32 ulp of the same reply
+    uncompressed, which is held to the dense reference; then the codec's
+    time on a QINT8_REPLY reply."""
+    import numpy as np
+
+    from petals_tpu_torch.rpc.serialization import deserialize_array, qint8_dequantize, serialize_array
+
+    (plain, _, _), (_, _, wires) = runs
+    worst = 0.0
+    for exact, wire in zip(plain, wires):
+        if wire["compression"] != "qint8":
+            raise AssertionError(f"{label}: a reply came back as {wire['compression']}, not qint8")
+        got = qint8_dequantize(np.frombuffer(wire["data"], np.int8), np.frombuffer(wire["scales"], np.float32))
+        want = exact.float().numpy().reshape(-1)
+        n_blocks = -(-want.size // 1024)
+        padded = np.zeros(n_blocks * 1024, np.float32)
+        padded[: want.size] = np.abs(want)
+        absmax = np.maximum(padded.reshape(n_blocks, 1024).max(1), np.float32(1e-8))
+        bound = np.repeat(absmax / np.float32(254) + np.spacing(absmax), 1024)[: want.size]
+        worst = max(worst, float((np.abs(got - want) / bound).max()))
+    args = (server.family, server.cfg, steps[0], steps[1:], device)
+    failed = check_session(plain, None, reference_session(params_bf16, *args, torch.bfloat16),
+                           reference_session(params_f32, *args, torch.float32), f"{label}: the uncompressed session")
+    if failed or worst > 1:
+        raise AssertionError(f"{label}: qint8 replies off by {worst:.3f} of their bound; {failed}")
+    reply = torch.randn(QINT8_REPLY, generator=torch.Generator().manual_seed(SEED + 181)).to(torch.bfloat16)
+    enc, dec = [], []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        w = serialize_array(reply, "qint8")
+        t1 = time.perf_counter()
+        deserialize_array(w)
+        enc.append(t1 - t0)
+        dec.append(time.perf_counter() - t1)
+    log(f"{label}: qint8 replies within {worst:.6f} of absmax_block / 254 + 1 ulp of the uncompressed ones; "
+        f"the codec on a {QINT8_REPLY[0]} x {QINT8_REPLY[1]} bf16 reply on the host: encode "
+        f"{statistics.median(enc) * 1e3:.3f} ms, decode {statistics.median(dec) * 1e3:.3f} ms (medians of 5; "
+        f"{len(w['data']) + len(w['scales'])} wire bytes against {reply.numel() * 2}; {smi})")
+
+
+def serve_relay_and_check(ckpt, device, smi) -> None:
+    """18b: a port DHT bootstrap with its relay (run_dht's), a port server of
+    the SHORT_SPAN-layer cut behind --relay_via, the port client's greedy
+    stream through the relay; then the same server started again without
+    the relay, and the same stream from it directly."""
+    from petals_tpu_torch.cli.run_dht import build_parser as dht_parser
+    from petals_tpu_torch.cli.run_dht import start_node, start_relay
+    from petals_tpu_torch.cli.run_server import build_parser, build_server
+    from petals_tpu_torch.client import AutoDistributedModelForCausalLM
+    from petals_tpu_torch.client.runtime import SwarmRuntime
+
+    label = f"relay (port bootstrap and relay, a port server of {SHORT_SPAN} blocks)"
+    t_phase = time.perf_counter()
+    cut = cut_checkpoint(ckpt, os.path.join(ckpt, f"mistral-7b-{SHORT_SPAN}-layers"), SHORT_SPAN)
+    prompt = torch.randint(0, MISTRAL_7B["vocab_size"], (1, RELAY_PROMPT),
+                           generator=torch.Generator().manual_seed(SEED + 182)).numpy()
+    loop = SwarmRuntime()
+    streams = {}
+    try:
+        args = dht_parser().parse_args(["--host", "127.0.0.1"])
+        boot = loop.run(start_node(args), LOOP_TIMEOUT_S)
+        relay = loop.run(start_relay(args, boot), LOOP_TIMEOUT_S)
+        peers = [boot.own_addr.to_string()]
+        try:
+            for how, extra in (("relay", ["--relay_via", f"127.0.0.1:{relay.port}"]), ("direct", [])):
+                server = build_server(build_parser().parse_args([
+                    cut, "--host", "127.0.0.1", "--initial_peers", *peers, "--first_block", "0", "--num_blocks",
+                    str(SHORT_SPAN), "--no_server_side_generation", *NO_PREFIX_CACHE, *extra]))
+                loop.run(server.start(), LOOP_TIMEOUT_S)
+                try:
+                    addr = server.contact_addr
+                    if (how == "relay") != bool(addr.relayed) or (how == "relay") != server.dht.client_mode:
+                        raise AssertionError(f"{label}: {how} server announces {addr.to_string()}")
+                    model = AutoDistributedModelForCausalLM.from_pretrained(cut, initial_peers=peers)
+                    try:
+                        t0 = time.perf_counter()
+                        streams[how] = model.generate(prompt, max_new_tokens=RELAY_NEW)
+                        log(f"{label}: {how}: {RELAY_NEW} greedy tokens in {time.perf_counter() - t0:.3f} s "
+                            f"from {addr.to_string()} ({smi})")
+                    finally:
+                        model.close()
+                finally:
+                    loop.run(server.shutdown(), LOOP_TIMEOUT_S)
+                    del server
+                    free_card()
+        finally:
+            loop.run(relay.stop(), LOOP_TIMEOUT_S)
+            loop.run(boot.shutdown(), LOOP_TIMEOUT_S)
+    finally:
+        loop.shutdown()
+    relayed, direct = (torch.as_tensor(streams[k]) for k in ("relay", "direct"))
+    if relayed.shape != (1, RELAY_PROMPT + RELAY_NEW) or not torch.equal(relayed, direct):
+        raise AssertionError(f"{label}: the stream through the relay {relayed.tolist()} differs from the direct "
+                             f"one {direct.tolist()}")
+    log(f"{label}: the stream through the relay equals the direct one, token for token; phase done in "
+        f"{time.perf_counter() - t_phase:.1f} s")
+
+
+# phase 18a's runs: (what, blocks, CLI arguments, 18b's qint8 session on it)
+SWAP_RUNS = (
+    ("bf16", SPAN, (), True),
+    ("--kv_quant_type nf4a", SHORT_SPAN, ("--kv_quant_type", "nf4a"), False),
+)
+
+
+def serve_swap_runs(ckpt, device, smi) -> None:
+    """Phase 18: preemption on both runs, then the relay."""
+    for what, n_blocks, args, wire in SWAP_RUNS:
+        serve_swap_and_check(ckpt, device, smi, f"swap ({what}, {n_blocks} blocks)", n_blocks, args, wire)
+        free_card()
+    serve_relay_and_check(ckpt, device, smi)
+    free_card()
+
+
 def free_card() -> None:
     """Free what a dropped server held on the card before the next one loads
     (its event-loop objects hold reference cycles, so collect them)."""
@@ -3750,6 +4112,9 @@ def main() -> int:
             free_card()
         # the prefix cache at its defaults
         serve_prefix_runs(ckpt, device, smi)
+        free_card()
+        # preemption to host memory, qint8 replies and the relay
+        serve_swap_runs(ckpt, device, smi)
     flash_kernel["launches"] = private_launches["K4"]
     kernels[0]["launches"] = bf16_launches["K1"]
     kernels[1]["launches"] = bf16_launches["K2"]

@@ -16,8 +16,13 @@ announce every 30 seconds, server-side generation on a whole-model span
 (``--no_server_side_generation`` turns it off), the prompt-prefix cache
 (``--prefix_cache_bytes`` and ``--prefix_device_bytes`` 256 MiB each,
 ``--prefix_cache_policy radix``, ``--prefix_share_scope swarm``),
+no swap tier (``--swap_host_bytes 0``; with a budget, an exhausted page pool
+preempts an idle session to host memory, ``--preemption_policy lru``),
 and an 8192-token KV budget (in floating-point bytes, whatever the pool's
-encoding, as petals_tpu converts it).
+encoding, as petals_tpu converts it). A server behind NAT passes
+``--relay_via host:port`` (the relay a port or petals_tpu bootstrap prints):
+it then listens nowhere and serves through reverse connections the relay
+splices.
 """
 
 from __future__ import annotations
@@ -75,8 +80,11 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--max_chunk_size_bytes", type=int, default=256 * 1024 * 1024,
                         help="Prefill chunking bound (activation bytes per chunk)")
     parser.add_argument("--max_alloc_timeout", type=float, default=600.0)
-    parser.add_argument("--compression", default="none", choices=["none", "float16", "bfloat16"],
+    parser.add_argument("--compression", default="none", choices=["none", "float16", "bfloat16", "qint8"],
                         help="Default reply compression (clients may override per request)")
+    parser.add_argument("--relay_via", default=None,
+                        help="host:port of a relay peer (run_dht prints one): serve from behind "
+                             "NAT/firewall with no inbound listener (rpc/relay.py)")
     parser.add_argument("--inference_max_length", type=int, default=None,
                         help="Reject sessions longer than this (default: 8192 for GQA/MQA "
                              "models, 2048 otherwise)")
@@ -98,6 +106,16 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--no_server_side_generation", action="store_true",
                         help="Do not generate tokens on the server (a whole-model span otherwise "
                              "loads the client's leaves and answers gen_tokens)")
+    parser.add_argument("--swap_host_bytes", type=int, default=0,
+                        help="Host-RAM KV swap tier for session preemption (paged lanes only): "
+                             "on pool exhaustion an idle victim session's pages are copied to "
+                             "host RAM and freed, then transparently swapped back in on its "
+                             "next step; 0 disables (full pool keeps the fail-at-timeout "
+                             "backpressure behavior)")
+    parser.add_argument("--preemption_policy", choices=["lru", "largest", "off"], default="lru",
+                        help="Victim choice on pool exhaustion: 'lru' = lowest priority class "
+                             "then least-recently-stepped; 'largest' = lowest class then most "
+                             "pages held; 'off' disables preemption")
     parser.add_argument("--prefix_cache_bytes", type=int, default=256 * 2**20,
                         help="Host-RAM prompt-prefix cache budget; 0 disables")
     parser.add_argument("--prefix_device_bytes", type=int, default=256 * 2**20,
@@ -158,6 +176,7 @@ def build_server(args: argparse.Namespace) -> Server:
         max_chunk_size_bytes=args.max_chunk_size_bytes,
         max_alloc_timeout=args.max_alloc_timeout,
         compression=args.compression,
+        relay_via=args.relay_via,
         inference_max_length=args.inference_max_length,
         session_timeout=args.session_timeout,
         step_timeout=args.step_timeout,
@@ -166,6 +185,8 @@ def build_server(args: argparse.Namespace) -> Server:
         page_size=args.page_size,
         n_pages=args.n_pages,
         prefill_token_budget=args.prefill_token_budget,
+        swap_host_bytes=args.swap_host_bytes,
+        preemption_policy=args.preemption_policy,
         quant_type=args.quant_type,
         kv_quant_type=args.kv_quant_type,
         server_side_generation=not args.no_server_side_generation,

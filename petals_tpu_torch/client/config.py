@@ -3,12 +3,11 @@
 Fields whose machinery waits for a later slice are refused at construction
 when set away from their defaults: ``route_upgrade_period`` and
 ``route_upgrade_threshold`` (live route upgrades, A9), ``kv_export_timeout``
-and ``handoff_timeout`` (KV export and the prefill-to-decode handoff, A9),
-``compression="qint8"`` (the qint8 codec, A3) and ``active_adapter``
-(adapters, A13). ``use_server_to_server`` and ``disagg_handoff`` keep
-petals_tpu's defaults (True), which do nothing until A9; False, what the
-port does anyway (the client relays every hop and never hands a session's
-KV over), is accepted."""
+and ``handoff_timeout`` (KV export and the prefill-to-decode handoff, A9)
+and ``active_adapter`` (adapters, A13). ``use_server_to_server`` and
+``disagg_handoff`` keep petals_tpu's defaults (True), which do nothing until
+A9; False, what the port does anyway (the client relays every hop and never
+hands a session's KV over), is accepted."""
 
 from __future__ import annotations
 
@@ -53,7 +52,7 @@ class ClientConfig:
     session_priority: Optional[str] = None
 
     # wire compression of the activations we send and of the replies we ask
-    # for ("none" | "float16" | "bfloat16"; "qint8" waits for A3)
+    # for ("none" | "float16" | "bfloat16" | "qint8")
     compression: str = "none"
 
     # live route upgrading (A9); 0 disables
@@ -81,8 +80,6 @@ class ClientConfig:
                            ("handoff_timeout", "the prefill-to-decode KV handoff")):
             if getattr(self, name) != defaults[name]:
                 raise NotImplementedError(f"{name}={getattr(self, name)!r} ({what}) waits for A9 in this port")
-        if self.compression == "qint8":
-            raise NotImplementedError("compression='qint8' waits for the qint8 codec (A3) in this port")
         if self.active_adapter is not None:
             raise NotImplementedError("active_adapter (adapters) waits for A13 in this port")
         if self.max_retries is None:

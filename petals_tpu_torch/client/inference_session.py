@@ -462,7 +462,7 @@ class InferenceSession:
         """The session's resource bill so far, as the servers meter it: each
         hop's ``step_meta["usage"]`` deltas summed per peer and in total,
         closed hops included (a bill after a repair still holds the dead
-        server's charges). A port server bills nothing yet (A8)."""
+        server's charges)."""
         hops = list(self._retired_hops) + [s.hop for s in self._sessions if not s.closed]
         per_peer: dict = {}
         total: dict = {}

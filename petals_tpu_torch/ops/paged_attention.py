@@ -28,13 +28,14 @@ high nibble. A zero scale decodes to exact zeros, so holes and never-written
 rows read as zeros. The codes are byte-identical to the JAX package's jitted
 encoder, which is what a JAX server's pool holds.
 
-Not ported yet, and what each waits for:
+``quantize_kv_rows_np`` / ``dequantize_kv_np`` are the JAX package's numpy
+twins of the codec, for host-side work: ``snapshot_from_swap`` decodes a
+suspended lane's packed swap entry with ``dequantize_kv_np``. (The numpy
+int8 encoder divides by 127, as petals_tpu's twin does; the torch encoder
+multiplies by the reciprocal, as its jitted one does.)
 
-- ``quantize_kv_rows_np`` / ``dequantize_kv_np``, the numpy codec twins:
-  host-side migration packing and swap entries (swap and preemption,
-  KV import/export and migration).
-- ``scatter_lane_chunk_rows``: the speculative-verify write shape
-  (speculative decoding).
+Not ported yet: ``scatter_lane_chunk_rows``, the speculative-verify write
+shape (speculative decoding).
 """
 
 from __future__ import annotations
@@ -167,6 +168,45 @@ def dequantize_kv(codes: torch.Tensor, scales: torch.Tensor, kind: str,
 
     vals = torch.cat([poly(c & 0x0F), poly((c >> 4) & 0x0F)], dim=-1)
     return (vals * sf).to(dtype)
+
+
+def quantize_kv_rows_np(rows: np.ndarray, kind: str) -> Tuple[np.ndarray, np.ndarray]:
+    """Numpy twin of ``quantize_kv_rows`` for host-side work, petals_tpu's
+    ``quantize_kv_rows_np``: the same layout, with the int8 scale computed
+    as ``max(absmax, 1e-8) / 127`` (a division, as that twin does)."""
+    rows_f = np.asarray(rows, np.float32)
+    absmax = np.max(np.abs(rows_f), axis=-1)
+    if kind == "int8":
+        scale = np.maximum(absmax, 1e-8) / 127.0
+        codes = np.clip(np.round(rows_f / scale[..., None]), -127, 127)
+        return codes.astype(np.int8), scale.astype(np.float32)
+    if kind != "nf4a":
+        raise ValueError(f"kv quant kind must be int8|nf4a, got {kind!r}")
+    scale = absmax.astype(np.float32)
+    normed = rows_f / np.maximum(absmax, 1e-8)[..., None]
+    codes = np.zeros(normed.shape, np.uint8)
+    for m in _NF4A_MIDPOINTS:
+        codes += (normed > m).astype(np.uint8)
+    half = rows_f.shape[-1] // 2
+    return (codes[..., :half] | (codes[..., half:] << 4)).astype(np.uint8), scale
+
+
+def dequantize_kv_np(codes: np.ndarray, scales: np.ndarray, kind: str, dtype=np.float32) -> np.ndarray:
+    """Numpy twin of ``dequantize_kv`` (petals_tpu's ``dequantize_kv_np``):
+    decodes a swap entry's packed rows on the host."""
+    sf = np.asarray(scales, np.float32)[..., None]
+    if kind == "int8":
+        return (np.asarray(codes, np.float32) * sf).astype(dtype)
+    if kind != "nf4a":
+        raise ValueError(f"kv quant kind must be int8|nf4a, got {kind!r}")
+    c = np.asarray(codes).astype(np.int32)
+
+    def poly(p):
+        dl = p.astype(np.float32) - 7.5
+        return dl * (NF4A_A + NF4A_B * dl * dl)
+
+    vals = np.concatenate([poly(c & 0x0F), poly((c >> 4) & 0x0F)], axis=-1)
+    return (vals * sf).astype(dtype)
 
 
 class PagedKV(NamedTuple):

@@ -1,7 +1,8 @@
 """Asyncio RPC client with connection multiplexing: the stub side of the
-wire protocol (petals_tpu/rpc/client.py without the relay). One
-``RpcClient`` owns one TCP connection; concurrent unary calls and streams
-share it, matched by call id. A lost connection fails every call in flight.
+wire protocol (petals_tpu/rpc/client.py). One ``RpcClient`` owns one byte
+stream (a TCP connection, or a relay circuit spliced by rpc/relay.py:
+``from_streams``); concurrent unary calls and streams share it, matched by
+call id. A lost connection fails every call in flight.
 
 Given an ``identity``, the client's hello carries its key and a nonce, it
 proves its own id to a server that advertised a key, and
@@ -98,6 +99,13 @@ class RpcClient:
     @classmethod
     async def connect(cls, host: str, port: int, *, identity=None, timeout: float = 10.0) -> "RpcClient":
         reader, writer = await asyncio.wait_for(asyncio.open_connection(host, port), timeout)
+        return await cls.from_streams(reader, writer, identity=identity, timeout=timeout)
+
+    @classmethod
+    async def from_streams(cls, reader: asyncio.StreamReader, writer: asyncio.StreamWriter, *,
+                           identity=None, timeout: float = 10.0) -> "RpcClient":
+        """The handshake over a byte stream already open (a TCP connection
+        or a relay splice): the hello and auth exchange is end to end."""
         client = cls(reader, writer, identity)
         hello = {"t": "hello", "peer_id": identity.peer_id.to_string() if identity is not None else None}
         if identity is not None:

@@ -66,7 +66,11 @@ The prefix cache writes pools and caches in place too, so every buffer
 keeps the address its programs are keyed by: ``copy_page`` (a
 copy-on-write fork of a page shared with the cache) and ``seed_cache`` (a
 hit's prefix rows written into a dense cache or a lane's session-shaped
-copy).
+copy). So does preemption to host memory: ``swap_out_pages`` copies a list
+of pages of every block to the host (pinned memory when the pool is on the
+card), and ``swap_in_pages`` writes them back onto other page ids with
+``index_copy_`` into the pool tensors the step programs address; a
+quantized pool moves its codes and scales as they are stored.
 
 Server-side generation (a whole-model span holding the client's float32
 embeddings, norm and head, ``gen_params``): ``paged_gen_decode_step`` is a
@@ -190,6 +194,11 @@ def _as_tensor(x, device: Optional[torch.device], dtype: Optional[torch.dtype] =
     if not isinstance(x, torch.Tensor):
         x = torch.from_numpy(np.ascontiguousarray(x))
     return x.to(device=device, dtype=dtype if dtype is not None else x.dtype)
+
+
+def _pool_device(pool) -> torch.device:
+    """The device a pool (a tensor or a PagedPool) lies on."""
+    return (pool.codes if isinstance(pool, PagedPool) else pool).device
 
 
 class TransformerBackend:
@@ -646,6 +655,53 @@ class TransformerBackend:
         valid."""
         for t in _pool_tensors((k_pool, v_pool)):
             t[:, int(dst)].copy_(t[:, int(src)])
+
+    def swap_out_pages(self, k_pool, v_pool, pages):
+        """Copy pages ``pages`` (an int array of page ids) of every block of
+        both pools to the host, for the swap tier (petals_tpu's
+        ``_swap_out_pages_fn`` and the host copy after it). Returns (k, v):
+        [n_blocks, len(pages), page_size, hkv, d] tensors on the CPU, or
+        PagedPool pairs of the stored codes and scales for a quantized pool
+        (wire bytes: never decoded). From a pool on the card the copies land
+        in pinned memory, and the call returns once they have landed: only
+        then may the batcher free the pages. The pools are only read."""
+        idx = _as_tensor(np.asarray(pages, np.int64), _pool_device(k_pool))
+
+        def leaf(t):
+            g = t.index_select(1, idx)
+            if g.device.type != "cuda":
+                return g  # index_select copies
+            host = torch.empty(g.shape, dtype=g.dtype, pin_memory=True)
+            host.copy_(g, non_blocking=True)
+            return host
+
+        def one(pool):
+            return PagedPool(leaf(pool.codes), leaf(pool.scales)) if isinstance(pool, PagedPool) else leaf(pool)
+
+        out = one(k_pool), one(v_pool)
+        if idx.device.type == "cuda":
+            torch.cuda.current_stream(idx.device).synchronize()
+        return out
+
+    def swap_in_pages(self, k_pool, v_pool, k_pages, v_pages, pages) -> None:
+        """Write swapped-out pages back into the pools IN PLACE, onto page
+        ids ``pages`` (petals_tpu's ``_swap_in_pages_fn``): entry i of the
+        host copies lands on page ``pages[i]``, a negative entry drops. The
+        pools keep their addresses, so the step programs stay valid; the
+        call returns once the writes are done."""
+        pages = np.asarray(pages, np.int64)
+        keep = np.flatnonzero(pages >= 0)
+        device = _pool_device(k_pool)
+        idx = torch.from_numpy(pages[keep]).to(device)
+        sel = None if keep.size == pages.size else torch.from_numpy(keep)
+        for pool, host in ((k_pool, k_pages), (v_pool, v_pages)):
+            pairs = zip(pool, host) if isinstance(pool, PagedPool) else ((pool, host),)
+            for dst, src in pairs:
+                if sel is not None:
+                    src = src.index_select(1, sel)
+                dst.index_copy_(1, idx, src.to(device=dst.device, dtype=dst.dtype, non_blocking=True))
+        if device.type == "cuda":
+            torch.cuda.current_stream(device).synchronize()
 
     @staticmethod
     def seed_cache(kv, k_rows, v_rows) -> None:

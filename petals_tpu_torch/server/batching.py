@@ -57,31 +57,58 @@ place), then the shared reference dropped. A pool reset bumps
 ``page_epoch``, so pins taken on the dead pool unpin as no-ops.
 ``snapshot_lane`` copies a lane's rows out for the cache's store.
 
-Not ported yet: speculative decoding (and its lanes), swap and
-preemption, the ledger and fingerprints, multi-host lockstep (its mirrored
-temp handles).
+The session scheduler (server/scheduler.py; petals_tpu/server/batching.py's
+scheduler and swap paths): lane waiters are admitted by priority class, then
+the peer's dominant-resource share in the resource ledger, then the lanes
+that peer holds, then FIFO (``pick_waiter``). With ``swap_host_bytes > 0``
+on the paged pool, a ``prepare_write`` (or a swap-in) that finds no free
+page first PREEMPTS an idle victim lane (``pick_victim``: lowest priority,
+then the dominant peer, then the least recently stepped, or the largest):
+its pages are copied to host memory on the compute thread
+(``backend.swap_out_pages``), its table row cleared and its pages freed.
+The lane's next operation swaps it back in first (``_lane_busy`` ->
+``_ensure_resident``): fresh pages, all at once and one resumer at a time
+(the turnstile), written in place (``backend.swap_in_pages``) and the row
+rewritten on the compute thread between steps, so the next replay reads
+the moved pages. A lane is a victim only while nothing touches it: no step
+pending or in flight, no prefill or generation stream, no exclusive op, no
+swap under way. The dense pool never preempts. Locks come from
+analysis/sanitizer.py, so ``PETALS_TPU_SANITIZE=1`` checks their order.
+
+The resource ledger (telemetry/ledger.py): each admitted lane is a ledger
+session; page-seconds (shared pages split by refcount), lane-seconds,
+compute-seconds (each step's wall split over its lanes), tokens and swap
+bytes accrue to it, and each pooled reply carries the delta since the last
+(``pop_usage_delta``) beside the two-field load hint (``occupancy_hint``).
+
+Not ported yet: speculative decoding (and its lanes), fingerprints, the
+journal and metrics, multi-host lockstep (its mirrored temp handles).
 """
 
 from __future__ import annotations
 
 import asyncio
+import collections
 import contextlib
 import dataclasses
 import itertools
 import logging
-import threading
 import time
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
+from petals_tpu_torch.analysis.sanitizer import lock_try_acquire_nowait, make_async_lock, make_thread_lock
 from petals_tpu_torch.data_structures import SESSION_PRIORITY_NORMAL
-from petals_tpu_torch.ops.paged_attention import PagedPool, max_pages_for
+from petals_tpu_torch.ops.paged_attention import PagedPool, dequantize_kv_np, max_pages_for
 from petals_tpu_torch.ops.sampling import sampling_vectors
 from petals_tpu_torch.ops.threefry import uniform_for_draw
-from petals_tpu_torch.server.memory_cache import AllocationFailed, MemoryCache, PageAllocator
+from petals_tpu_torch.server.memory_cache import AllocationFailed, HostSwapPool, MemoryCache, PageAllocator
+from petals_tpu_torch.server.scheduler import SessionScheduler, SwapEntry
 from petals_tpu_torch.server.task_queue import PRIORITY_INFERENCE, PriorityTaskQueue
+from petals_tpu_torch.telemetry.ledger import derive_efficiency, get_ledger
+from petals_tpu_torch.utils.locks import AsyncTryLock
 
 logger = logging.getLogger(__name__)
 
@@ -136,11 +163,14 @@ class _LaneGenState:
 
 @dataclasses.dataclass
 class _LaneWaiter:
-    """One parked acquire_lane caller, admitted by priority class then FIFO."""
+    """One parked acquire_lane caller. The scheduler's ``pick_waiter``
+    admits by priority class, then the peer's fair share, then ``seq``."""
 
     fut: asyncio.Future
     priority: int
+    peer_id: Optional[str]
     seq: int
+    trace_id: Optional[str] = None
 
 
 class DecodeBatcher:
@@ -159,6 +189,9 @@ class DecodeBatcher:
         prefill_token_budget: int = 512,  # max prefill-chunk tokens per mixed step
         alloc_timeout: Optional[float] = None,
         gen_params: Optional[dict] = None,  # the client's leaves: server-side generation
+        swap_host_bytes: int = 0,  # host-memory swap tier of preempted lanes; 0: no preemption
+        preemption_policy: str = "lru",  # victim choice on page exhaustion: lru | largest | off
+        ledger=None,  # a ResourceLedger (telemetry/ledger.py); None: the process's
     ):
         if page_size is not None and page_size < 0:
             raise ValueError(f"page_size must be >= 1, or 0 / None for the dense lane pool; got {page_size}")
@@ -197,7 +230,7 @@ class DecodeBatcher:
         self._generation = 0
         # makes the compute thread's post-step generation check atomic with
         # respect to a reset (check-then-act alone is a race)
-        self._reset_lock = threading.Lock()
+        self._reset_lock = make_thread_lock("batching._reset_lock")
         # bumped by a pool reset too: prefix-cache pins carry the epoch they
         # were taken under, so a stale pin never decrefs the rebuilt allocator
         self._page_epoch = 0
@@ -212,8 +245,30 @@ class DecodeBatcher:
         self._enq_t: Dict[int, float] = {}
         self._step_timing: Dict[int, dict] = {}
         self._flush_task: Optional[asyncio.Task] = None
-        self._open_lock = asyncio.Lock()
+        self._open_lock = make_async_lock("batching._open_lock")
         self._closed = False
+        # the session scheduler: priority + fair-share admission, and (paged
+        # pool, swap_host_bytes > 0) preemption of idle lanes to host memory
+        self.swap_pool = HostSwapPool(int(swap_host_bytes or 0))
+        if ledger is None:
+            ledger = get_ledger()
+        self._ledger = ledger
+        ledger.set_kv_cost(backend.kv_quant_type, backend.kv_bytes_per_token())
+        self._ledger_keys: Dict[int, str] = {}  # lane -> ledger session key
+        self._scheduler = SessionScheduler(
+            self.swap_pool, policy=preemption_policy, pages_fn=self._lane_pages,
+            usage_fn=ledger.peer_dominant_share,
+        )
+        # per-lane locks serialize a swap-out against a swap-in; the in-flight
+        # count makes a lane with any operation under way unpreemptable
+        self._lane_locks: Dict[int, AsyncTryLock] = {}
+        self._inflight: Dict[int, int] = {}
+        # swap-ins take pages one resumer at a time: two resumers each holding
+        # part of what they need would starve each other
+        self._swap_in_turnstile = make_async_lock("batching._swap_in_turnstile")
+        # the latest swaps, each {"dir", "lane", "pages", "bytes", "seconds"}
+        # (the compute thread's copy time, measured around the synced copy)
+        self.swap_events: collections.deque = collections.deque(maxlen=256)
         # graph_*: the backend's step programs (CUDA graphs on a card):
         # captures, replays, and captures after warm-up (anomalies)
         self.stats = {
@@ -284,6 +339,7 @@ class DecodeBatcher:
             if not w.fut.done():
                 w.fut.set_exception(AllocationFailed("Batcher is shutting down"))
         self._lane_waiters.clear()
+        self._scheduler.reset()  # drop the swap entries and their host bytes
         for st in self._gen_states.values():
             if not st.future.done():
                 st.future.set_exception(AllocationFailed("Batcher is shutting down"))
@@ -330,39 +386,62 @@ class DecodeBatcher:
         }
 
     def occupancy_info(self) -> dict:
-        """Lane and page occupancy, as a petals_tpu server announces it in
-        ServerInfo.pool, so clients can route around a loaded server."""
+        """Lane, page and scheduler occupancy, as a petals_tpu server
+        announces it in ServerInfo.pool and answers it in rpc_info, so
+        clients can route around a loaded server: busy lanes, free pages and
+        their fragmentation, suspended sessions, swap bytes, preemptions."""
         info = {
             "lanes": self.n_lanes,
-            "busy_lanes": self.n_lanes - len(self._free_lanes) if self._handles is not None else 0,
+            "busy_lanes": self._busy_lanes(),
             "lane_waiters": len(self._lane_waiters),
         }
         if self.page_size is not None:
             info["n_pages"] = self.n_pages
             info["pages_free"] = self._pages.n_free if self._pages is not None else self.n_pages
+            if self._pages is not None:
+                frag = self._pages.fragmentation_info()
+                info["frag"] = frag["frag"]
+                info["largest_free_run"] = frag["largest_run"]
             info.update(self.pool_info())
+        info.update(self._scheduler.summary())
         return info
+
+    def occupancy_hint(self) -> dict:
+        """The two-field load hint riding every pooled reply's step_meta."""
+        return {"busy_lanes": self._busy_lanes(), "lane_waiters": len(self._lane_waiters)}
+
+    def _busy_lanes(self) -> int:
+        return self.n_lanes - len(self._free_lanes) if self._handles is not None else 0
 
     # ------------------------------------------------------------------ lanes
 
     async def acquire_lane(
-        self, timeout: Optional[float] = None, *, priority: int = SESSION_PRIORITY_NORMAL
+        self, timeout: Optional[float] = None, *, priority: int = SESSION_PRIORITY_NORMAL,
+        peer_id: Optional[str] = None, trace_id: Optional[str] = None,
     ) -> int:
         """Borrow a lane; queues when all lanes are taken. Parked callers are
-        admitted by priority class, then FIFO. Admission also claims the
-        lane's first page. ``timeout`` bounds the whole acquisition,
-        first-use pool allocation included."""
-        lane = await self._acquire_lane(timeout=timeout, priority=priority)
-        if self.page_size is None:
-            return lane
-        try:
-            await self.prepare_write(lane, 0, 1, timeout=timeout)
-        except BaseException:
-            self.release_lane(lane)
-            raise
+        admitted by priority class, then the peer's fair share, then FIFO
+        (the scheduler's ``pick_waiter``). ``peer_id`` is whom the session
+        bills to (the resource ledger). Admission also claims the lane's
+        first page, preempting an idle lane when the swap tier is on.
+        ``timeout`` bounds the whole acquisition, first-use pool allocation
+        included."""
+        lane = await self._acquire_lane(timeout=timeout, priority=priority, peer_id=peer_id, trace_id=trace_id)
+        self._scheduler.register(lane, peer_id, int(priority), trace_id=trace_id)
+        # the ledger session opens before the first page, so every
+        # page-second of the lane's residency lands on its bill
+        self._ledger_keys[lane] = self._ledger.open_session(peer_id, trace_id)
+        if self.page_size is not None:
+            try:
+                await self.prepare_write(lane, 0, 1, timeout=timeout)
+            except BaseException:
+                self.release_lane(lane)
+                raise
+        self._note_occupancy()
         return lane
 
-    async def _acquire_lane(self, timeout: Optional[float], priority: int) -> int:
+    async def _acquire_lane(self, timeout: Optional[float], priority: int, peer_id: Optional[str],
+                            trace_id: Optional[str]) -> int:
         await self.ensure_open(timeout=timeout)
         if self._closed:
             raise AllocationFailed("Batcher is closed")
@@ -372,7 +451,7 @@ class DecodeBatcher:
             return lane
         waiter = _LaneWaiter(
             fut=asyncio.get_running_loop().create_future(),
-            priority=int(priority), seq=next(self._waiter_seq),
+            priority=int(priority), peer_id=peer_id, seq=next(self._waiter_seq), trace_id=trace_id,
         )
         fut = waiter.fut
         self._lane_waiters.append(waiter)
@@ -419,20 +498,32 @@ class DecodeBatcher:
             if not pst.future.done():
                 pst.future.set_exception(AllocationFailed("Lane released mid-step"))
         self._lane_generation.pop(lane, None)
+        # a suspended lane's host bytes free with its slot, and a swap-out
+        # racing this release aborts on its check after the gather
+        self._scheduler.unregister(lane)
+        key = self._ledger_keys.pop(lane, None)
+        if key is not None:
+            self._ledger.close_session(key)  # totals fold into the peer's rollup
         if self._tables is not None:
             row = self._tables[lane]
             for page in row[row >= 0]:
                 self._pages.decref(int(page))
             row[:] = -1
-        # hand straight to the best-placed waiter, else back to the free list;
-        # the next session overwrites the lane from position 0, so no zeroing
+        # hand straight to the best-placed waiter (priority, fair share,
+        # FIFO), else back to the free list; the next session overwrites the
+        # lane from position 0, so no zeroing
         while self._lane_waiters:
-            w = min(self._lane_waiters, key=lambda w: (w.priority, w.seq))
+            w = self._scheduler.pick_waiter(self._lane_waiters)
+            if w is None:
+                self._lane_waiters.clear()  # every parked caller already gone
+                break
             self._lane_waiters.remove(w)
             if not w.fut.done():
                 w.fut.set_result(lane)
+                self._note_occupancy()
                 return
         self._free_lanes.append(lane)
+        self._note_occupancy()
 
     def _check_lane(self, lane: int) -> None:
         if self._lane_generation.get(lane) != self._generation:
@@ -442,14 +533,21 @@ class DecodeBatcher:
             )
 
     def _occupancy(self) -> str:
-        busy = self.n_lanes - len(self._free_lanes)
-        if self.page_size is None:
-            return f"{busy}/{self.n_lanes} lanes busy, {len(self._lane_waiters)} waiting"
-        free_pages = self._pages.n_free if self._pages is not None else self.n_pages
-        return (
-            f"{busy}/{self.n_lanes} lanes busy, {free_pages}/{self.n_pages} pages free, "
-            f"{len(self._lane_waiters)} waiting"
-        )
+        """Pool occupancy for AllocationFailed messages: lanes and pages, each
+        lane's page holdings and the swap tier, so a refused client (and the
+        operator reading its logs) can see why."""
+        parts = [f"{self._busy_lanes()}/{self.n_lanes} lanes busy", f"{len(self._lane_waiters)} waiters"]
+        if self.page_size is not None and self._pages is not None:
+            parts.append(f"{self._pages.n_free}/{self.n_pages} pages free")
+            if self._tables is not None and self._lane_generation:
+                held = ", ".join(f"lane {l}: {self._lane_pages(l)}" for l in sorted(self._lane_generation))
+                parts.append(f"pages held: [{held}]")
+        if self.swap_pool.max_size_bytes > 0:
+            parts.append(
+                f"{self._scheduler.suspended_count} suspended, swap "
+                f"{self.swap_pool.bytes_in_use}/{self.swap_pool.max_size_bytes} B"
+            )
+        return "; ".join(parts)
 
     # ------------------------------------------------------------------ pages
 
@@ -458,9 +556,11 @@ class DecodeBatcher:
     ) -> None:
         """Make token range [t0, t1) of ``lane`` writable: allocate its
         missing pages, and fork every page it shares with the prefix cache
-        or another lane (refs > 1) into a fresh copy. Waits on an exhausted
-        pool until a page frees (release_lane, a prefix-cache eviction),
-        raising AllocationFailed at ``timeout``. No-op in dense mode."""
+        or another lane (refs > 1) into a fresh copy. On an exhausted pool it
+        first tries to preempt an idle lane to the swap tier, then waits
+        until a page frees (release_lane, a prefix-cache eviction, a lane
+        turning idle), raising AllocationFailed at ``timeout``. No-op in
+        dense mode."""
         if self.page_size is None or t1 <= t0:
             return
         self._check_lane(lane)
@@ -475,6 +575,7 @@ class DecodeBatcher:
             lane * self.max_pages if self.n_pages == self.n_lanes * self.max_pages else None
         )
         deadline = None if timeout is None else time.monotonic() + timeout
+        pages_changed = False
         for slot in range(t0 // self.page_size, (t1 - 1) // self.page_size + 1):
             cur = int(self._tables[lane, slot])
             if cur >= 0 and alloc.refs[cur] == 1:
@@ -484,14 +585,26 @@ class DecodeBatcher:
                 page = alloc.try_alloc(preferred=preferred)
                 if page is not None:
                     break
+                # exhausted: swap an idle lane out first (a no-op without
+                # the swap tier), then wait
+                if await self._try_preempt(exclude=lane):
+                    if self._pages is not alloc:
+                        raise AllocationFailed("Lane pool was reset while waiting for a free page")
+                    self._check_lane(lane)
+                    continue
                 remaining = None if deadline is None else deadline - time.monotonic()
                 if remaining is not None and remaining <= 0:
                     raise AllocationFailed(
                         f"No free KV page within {timeout} s ({self._occupancy()})"
                     )
                 alloc.freed_event.clear()
+                wait = remaining
+                if self._can_preempt():
+                    # a lane can turn idle without freeing a page, which
+                    # freed_event never reports: poll to retry preemption
+                    wait = 0.05 if wait is None else min(wait, 0.05)
                 try:
-                    await asyncio.wait_for(alloc.freed_event.wait(), timeout=remaining)
+                    await asyncio.wait_for(alloc.freed_event.wait(), timeout=wait)
                 except asyncio.TimeoutError:
                     pass  # loop once more to produce the AllocationFailed message
                 if self._pages is not alloc:
@@ -510,6 +623,11 @@ class DecodeBatcher:
                     alloc.decref(page)  # never reached the table: hand it back
                 raise
             self._tables[lane, slot] = page
+            pages_changed = True
+        if pages_changed:
+            # the lanes' page shares changed (a grow or a fork): settle the
+            # ledger under the old ones up to now
+            self._ledger_sync()
 
     def _copy_page(self, src: int, dst: int) -> None:
         """Compute-thread body: copy page ``src`` into ``dst`` across every
@@ -544,6 +662,7 @@ class DecodeBatcher:
             return None
         for page in pages:
             self._pages.incref(page)  # the refs belong to the caller (the prefix cache)
+        self._ledger_sync()  # refcounts moved: the lane's share of those pages shrank
         return pages
 
     def unpin_pages(self, pages: Sequence[int], epoch: int) -> None:
@@ -554,11 +673,20 @@ class DecodeBatcher:
             return
         for page in pages:
             self._pages.decref(int(page))
+        self._ledger_sync()  # pins released: the other holders' shares grew
+
+    def lane_resident(self, lane: int) -> bool:
+        """The lane's pages are in the pool: it is not suspended, and no
+        swap-out of it is under way."""
+        slot = self._scheduler.lanes.get(lane)
+        return slot is None or (slot.swap is None and not slot.suspending)
 
     def adopt_pages(self, lane: int, pages: Sequence[int]) -> None:
         """Point ``lane``'s first len(pages) table slots at resident (pinned)
         pages: a prefix-cache hit that copies ZERO bytes. The lane holds them
-        shared; its first write into one forks it (prepare_write)."""
+        shared; its first write into one forks it (prepare_write). The lane
+        must be resident (``lane_resident``): a swap-in would write its old
+        row over the adopted slots."""
         if self.page_size is None or self._tables is None or len(pages) > self.max_pages:
             raise ValueError(f"cannot adopt {len(pages)} pages into a lane of {self.max_pages} slots")
         row = self._tables[lane]
@@ -568,6 +696,333 @@ class DecodeBatcher:
             if cur >= 0:
                 self._pages.decref(cur)
             row[slot] = int(page)
+        if len(pages):
+            self._ledger_sync()  # the lane now shares the pinned pages
+
+    # ------------------------------------------------------ preemption / swap
+
+    @property
+    def ledger(self):
+        """The resource ledger this batcher bills to."""
+        return self._ledger
+
+    def _lane_pages(self, lane: int) -> int:
+        """Resident pages of a lane (the scheduler's pages_fn)."""
+        if self._tables is None:
+            return 0
+        return int((self._tables[lane] >= 0).sum())
+
+    def _can_preempt(self) -> bool:
+        return (
+            self.page_size is not None and self._scheduler.policy != "off" and self.swap_pool.max_size_bytes > 0
+        )
+
+    @property
+    def swap_host_memory(self) -> str:
+        """Where swapped pages land: page-locked memory from a pool on the
+        card, ordinary memory from one on the CPU."""
+        return "pinned" if self.backend.device.type == "cuda" else "pageable"
+
+    def _lane_lock(self, lane: int) -> AsyncTryLock:
+        lock = self._lane_locks.get(lane)
+        if lock is None:
+            # one sanitizer name for all: lane locks are one class, never
+            # nested in each other except through a trylock
+            lock = self._lane_locks[lane] = make_async_lock("batching.lane_lock")
+        return lock
+
+    @contextlib.asynccontextmanager
+    async def _lane_busy(self, lane: int):
+        """Guard of every operation on a lane: a suspended lane swaps back in
+        first, then the in-flight count keeps it unpreemptable until the
+        operation ends. No await between the residency check returning and
+        the increment, so the pair is atomic on the event loop."""
+        await self._ensure_resident(lane)
+        self._inflight[lane] = self._inflight.get(lane, 0) + 1
+        self._scheduler.touch(lane)
+        try:
+            yield
+        finally:
+            self._inflight[lane] -= 1
+            # the end of an operation is when a lane turns idle, so that is
+            # when page waiters should retry preemption: wake them now
+            if self._inflight[lane] == 0 and self._pages is not None and self.swap_pool.max_size_bytes > 0:
+                self._pages.freed_event.set()
+
+    def _lane_idle(self, lane: int, *, ignore_lock: bool = False) -> bool:
+        """A lane is preemptable only while nothing touches it: no step
+        pending or in flight, no generation or prefill stream, no exclusive
+        op, no swap under way, and pages resident to reclaim.
+        ``ignore_lock`` serves the re-check in ``_swap_out_lane``, which
+        holds the lane lock itself."""
+        if self._lane_generation.get(lane) != self._generation:
+            return False
+        if self._inflight.get(lane, 0) > 0 or lane in self._gen_states:
+            return False
+        if any(p.lane == lane for p in self._prefill_queue) or any(e[0] == lane for e in self._pending):
+            return False
+        if not ignore_lock:
+            lock = self._lane_locks.get(lane)
+            if lock is not None and lock.locked():
+                return False
+        return self._lane_pages(lane) > 0
+
+    async def _try_preempt(self, exclude: int) -> bool:
+        """The pool is exhausted: swap ONE idle victim lane, of equal or
+        lower priority than lane ``exclude``, out to host memory. True when
+        its pages were freed (the caller retries at once); False when there
+        is no victim (the caller waits)."""
+        if not self._can_preempt():
+            return False
+        sched = self._scheduler
+        req = sched.lanes.get(exclude)
+        candidates = [l for l in list(self._lane_generation) if l != exclude and self._lane_idle(l)]
+        victim = sched.pick_victim(candidates, max_priority=req.priority if req is not None else None)
+        if victim is None:
+            return False
+        return await self._swap_out_lane(victim)
+
+    async def _swap_out_lane(self, lane: int) -> bool:
+        """Suspend ``lane``: copy its resident pages to host memory on the
+        compute thread, then free them and clear its table row; a swap-in
+        may later land the content on other pages. Aborts (False) if the
+        lane's state moved while the copy ran: a release, a pool reset or
+        a racing operation each invalidate it."""
+        sched = self._scheduler
+        slot = sched.lanes.get(lane)
+        if slot is None or slot.swap is not None or slot.suspending:
+            return False
+        lock = self._lane_lock(lane)
+        # a trylock: a held lane lock means the lane is busy, and a blocking
+        # acquire would invert the lane lock -> turnstile order (this runs
+        # with the turnstile held when a swap-in preempts)
+        if not lock_try_acquire_nowait(lock):
+            return False
+        try:
+            if not self._lane_idle(lane, ignore_lock=True) or sched.lanes.get(lane) is not slot:
+                return False
+            alloc = self._pages
+            gen = self._lane_generation.get(lane)
+            row = self._tables[lane]
+            slots = np.flatnonzero(row >= 0).astype(np.int32)
+            if slots.size == 0:
+                return False
+            pages = row[slots].astype(np.int32).copy()
+            nbytes = int(slots.size) * self.page_nbytes
+            if not self.swap_pool.try_reserve(nbytes):
+                return False  # the swap tier is full: this victim stays
+            slot.suspending = True
+            try:
+                k_host, v_host = await self.queue.submit(
+                    self._swap_out_device, lane, pages, priority=PRIORITY_INFERENCE, size=0,
+                )
+            except asyncio.CancelledError:
+                self.swap_pool.free(nbytes)
+                slot.suspending = False
+                sched.stats["swap_aborted"] += 1
+                raise
+            except Exception as e:
+                # the copy only reads the pool, which stays intact: fall back
+                # to waiting rather than fail the requester for the victim
+                logger.warning(f"Swap-out copy of lane {lane} failed: {e!r}")
+                self.swap_pool.free(nbytes)
+                slot.suspending = False
+                sched.stats["swap_aborted"] += 1
+                return False
+            # only now, the host copy landed and nothing moved, do the pages free
+            if (
+                sched.lanes.get(lane) is not slot
+                or self._pages is not alloc
+                or self._lane_generation.get(lane) != gen
+                or gen != self._generation
+                or not np.array_equal(self._tables[lane][slots], pages)
+            ):
+                self.swap_pool.free(nbytes)
+                slot.suspending = False
+                sched.stats["swap_aborted"] += 1
+                return False
+            for page in pages:
+                alloc.decref(int(page))
+            self._tables[lane, slots] = -1
+            slot.swap = SwapEntry(
+                k=k_host, v=v_host, slots=slots, nbytes=nbytes, generation=gen, suspended_at=time.monotonic(),
+            )
+            slot.suspending = False
+            sched.stats["preemptions"] += 1
+            sched.stats["swap_outs"] += 1
+            key = self._ledger_keys.get(lane)
+            if key is not None:
+                self._ledger.note_swap(key, out_bytes=nbytes)
+            self._note_occupancy()
+            logger.debug(
+                f"Preempted lane {lane}: {slots.size} pages to the host "
+                f"({self.swap_pool.bytes_in_use}/{self.swap_pool.max_size_bytes} B used)"
+            )
+            return True
+        finally:
+            lock.release()
+
+    def _swap_out_device(self, lane: int, pages: np.ndarray):
+        """Compute-thread body: copy the victim's pages to host memory. It
+        returns once the copy has landed, and only reads the pool: the pages
+        free after the event loop validates the suspend."""
+        with self._reset_lock:
+            t0 = time.perf_counter()
+            k, v = self.backend.swap_out_pages(*self._buffers(), pages)
+            self._note_swap_event("out", lane, len(pages), time.perf_counter() - t0)
+            return k, v
+
+    def _note_swap_event(self, direction: str, lane: int, n_pages: int, seconds: float) -> None:
+        self.swap_events.append({
+            "dir": direction, "lane": lane, "pages": int(n_pages),
+            "bytes": int(n_pages) * self.page_nbytes, "seconds": seconds,
+        })
+
+    async def _ensure_resident(self, lane: int) -> None:
+        """Transparent resume: a suspended lane (or one whose suspend is
+        under way: the lane lock queues us behind it) swaps back in before
+        the caller's operation goes on."""
+        slot = self._scheduler.lanes.get(lane)
+        if slot is None or (slot.swap is None and not slot.suspending):
+            return
+        async with self._lane_lock(lane):
+            slot = self._scheduler.lanes.get(lane)
+            if slot is None or slot.swap is None:
+                return  # the suspend aborted, or the lane was released
+            await self._swap_in(lane, slot)
+
+    async def _swap_in(self, lane: int, slot) -> None:
+        """Resume a suspended lane (its lane lock held): take fresh pages,
+        all at once and preempting others if needed, then write the host
+        copy onto them and rewrite the table row, on the compute thread."""
+        entry = slot.swap
+        self._check_lane(lane)
+        # only the allocation takes turns: once this resumer holds its pages
+        # the next may negotiate while the write runs
+        async with self._swap_in_turnstile:
+            pages = await self._alloc_pages(lane, entry.slots)
+        alloc = self._pages
+        pages_arr = np.asarray(pages, np.int32)
+        try:
+            await self.queue.submit(self._swap_in_device, lane, entry, pages_arr, priority=PRIORITY_INFERENCE, size=0)
+        except BaseException as e:
+            if self._pages is alloc:
+                for page in pages:
+                    alloc.decref(int(page))
+            self._maybe_reset_pool(e)  # a device fault mid-write: the pool is not trusted
+            raise
+        slot.swap = None
+        slot.resumed_at = time.monotonic()
+        self.swap_pool.free(entry.nbytes)
+        self._scheduler.stats["swap_ins"] += 1
+        key = self._ledger_keys.get(lane)
+        if key is not None:
+            self._ledger.note_swap(key, in_bytes=entry.nbytes)
+        self._note_occupancy()
+        logger.debug(f"Resumed lane {lane}: {entry.slots.size} pages swapped in")
+
+    def _swap_in_device(self, lane: int, entry: SwapEntry, pages: np.ndarray) -> None:
+        """Compute-thread body: write a swap entry onto fresh pages in place,
+        then point the lane's table row at them, between steps. Under the
+        reset lock, with the generation checked there, as for a check-in."""
+        with self._reset_lock:
+            self._check_lane(lane)
+            if entry.generation != self._generation:
+                raise AllocationFailed("Lane pool was reset while this session was swapped out")
+            t0 = time.perf_counter()
+            self.backend.swap_in_pages(*self._buffers(), entry.k, entry.v, pages)
+            self._tables[lane, entry.slots] = pages
+            self._note_swap_event("in", lane, len(pages), time.perf_counter() - t0)
+
+    async def _alloc_pages(self, lane: int, slots: np.ndarray) -> List[int]:
+        """All-or-nothing pages for a swap-in: take len(slots) pages only
+        once that many are free at once (two resumers each holding part of a
+        set would deadlock), preempting other lanes when the pool is short.
+        Identity pages are preferred."""
+        alloc = self._pages
+        n = int(len(slots))
+        identity_base = lane * self.max_pages if self.n_pages == self.n_lanes * self.max_pages else None
+        timeout = 30.0 if self.alloc_timeout is None else self.alloc_timeout
+        deadline = time.monotonic() + timeout
+        while True:
+            if self._pages is not alloc:
+                raise AllocationFailed("Lane pool was reset while waiting for a free page")
+            self._check_lane(lane)
+            if alloc.n_free >= n:
+                pages = []
+                for slot in slots:
+                    page = alloc.try_alloc(preferred=None if identity_base is None else identity_base + int(slot))
+                    if page is None:
+                        raise RuntimeError("page allocator invariant broken: n_free overstated")
+                    pages.append(page)
+                return pages
+            if await self._try_preempt(exclude=lane):
+                continue
+            remaining = deadline - time.monotonic()
+            if remaining <= 0:
+                raise AllocationFailed(f"No free KV page for swap-in within {timeout} s ({self._occupancy()})")
+            alloc.freed_event.clear()
+            try:
+                # bounded, as in prepare_write: a lane turning idle frees nothing
+                await asyncio.wait_for(alloc.freed_event.wait(), timeout=min(remaining, 0.05))
+            except asyncio.TimeoutError:
+                pass  # loop once more to produce the AllocationFailed message
+
+    # ------------------------------------------------------------- the ledger
+
+    def _note_occupancy(self) -> None:
+        """An occupancy boundary (admission, release, swap): settle the
+        ledger at the new rates, and let the noisy-neighbor detector look
+        while the admission queue is current."""
+        self._ledger_sync()
+        if self._lane_waiters:
+            self._ledger.check_noisy([w.peer_id for w in self._lane_waiters if not w.fut.done()])
+
+    def _ledger_sync(self) -> None:
+        """Settle the ledger and install the new piecewise-constant rates:
+        each lane's fractional page holding (1/refcount a referenced page;
+        prefix-cache pins hold the rest) and the pool's occupancy, whose
+        integral the lanes' shares sum to. Called where tables or refcounts
+        change, never on the decode path."""
+        weights: Dict[str, float] = {}
+        occupied = 0.0
+        if self.page_size is not None and self._pages is not None and self._tables is not None:
+            occupied = float(self.n_pages - self._pages.n_free)
+            if self._ledger_keys:
+                lanes = list(self._ledger_keys)
+                shares = self._pages.fractional_shares(self._tables[lanes])
+                weights = {self._ledger_keys[lane]: float(sh) for lane, sh in zip(lanes, shares)}
+        self._ledger.set_rates(weights, occupied)
+
+    def pop_usage_delta(self, lane: int) -> Optional[dict]:
+        """The lane's resource usage since the last call: the tenant's own
+        bill, which rides step_meta as ``usage`` (``usage_report`` in both
+        clients sums it). None for an empty delta."""
+        key = self._ledger_keys.get(lane)
+        if key is None:
+            return None
+        delta = self._ledger.usage_delta(key)
+        if delta and delta.get("spec_proposed"):
+            delta.update(derive_efficiency(delta))
+        return delta or None
+
+    def _ledger_account_step(self, duration: float, *, decode_lanes=(), gen_lanes=(), prefill=None) -> None:
+        """Bill one batched step (compute thread): its wall splits equally
+        over the lanes that rode it, each decode or generating lane gets a
+        decode token and the prefill chunk's lane its tokens. ``prefill`` is
+        (lane, tokens)."""
+        keys = []
+        for lane in (*decode_lanes, *gen_lanes):
+            key = self._ledger_keys.get(lane)
+            if key is not None:
+                keys.append(key)
+                self._ledger.note_tokens(key, decode=1)
+        if prefill is not None:
+            key = self._ledger_keys.get(prefill[0])
+            if key is not None:
+                keys.append(key)
+                self._ledger.note_tokens(key, prefill=int(prefill[1]))
+        self._ledger.note_compute(keys, duration)
 
     # ------------------------------------------------------------------ steps
 
@@ -576,15 +1031,16 @@ class DecodeBatcher:
         with whatever other lanes are pending when the device is free.
         Returns [1, 1, hidden] on the host."""
         t_enq = time.perf_counter()
-        self._check_lane(lane)
-        # grow the lane to cover this token BEFORE the step: allocation may
-        # await a freed page, the step itself never blocks
-        await self.prepare_write(lane, int(position), int(position) + 1, timeout=self.alloc_timeout)
-        fut = asyncio.get_running_loop().create_future()
-        self._enq_t[lane] = t_enq
-        self._pending.append((lane, hidden, int(position), fut, self._generation))
-        self._spawn_flush_loop()
-        return await fut
+        async with self._lane_busy(lane):
+            self._check_lane(lane)
+            # grow the lane to cover this token BEFORE the step: allocation may
+            # await a freed page, the step itself never blocks
+            await self.prepare_write(lane, int(position), int(position) + 1, timeout=self.alloc_timeout)
+            fut = asyncio.get_running_loop().create_future()
+            self._enq_t[lane] = t_enq
+            self._pending.append((lane, hidden, int(position), fut, self._generation))
+            self._spawn_flush_loop()
+            return await fut
 
     async def prefill_lane(self, lane: int, hidden: torch.Tensor, position: int) -> torch.Tensor:
         """Admit a multi-token prefill (hidden [1, seq, hidden]) into the
@@ -593,35 +1049,36 @@ class DecodeBatcher:
         chunk per tick alongside every pending decode lane. Returns the span
         output for the whole range, [1, seq, hidden] on the host. Paged mode
         only: the dense pool prefills through ``run_exclusive_chunks``."""
-        if self.page_size is None:
-            raise RuntimeError("prefill_lane serves the paged pool; a dense lane prefills through run_exclusive_chunks")
-        self._check_lane(lane)
-        total, position = int(hidden.shape[1]), int(position)
-        if position + total > self.max_length:
-            raise ValueError(
-                f"Prefill of {total} tokens at position {position} overflows the lane "
-                f"buffer ({self.max_length} tokens)"
+        async with self._lane_busy(lane):
+            if self.page_size is None:
+                raise RuntimeError("prefill_lane serves the paged pool; a dense lane prefills through run_exclusive_chunks")
+            self._check_lane(lane)
+            total, position = int(hidden.shape[1]), int(position)
+            if position + total > self.max_length:
+                raise ValueError(
+                    f"Prefill of {total} tokens at position {position} overflows the lane "
+                    f"buffer ({self.max_length} tokens)"
+                )
+            await self.prepare_write(lane, position, position + total, timeout=self.alloc_timeout)
+            plan = self.backend.chunk_plan(1, total, page_size=self.page_size, start=position)
+            st = _LanePrefillState(
+                future=asyncio.get_running_loop().create_future(),
+                generation=self._lane_generation[lane],
+                lane=lane,
+                hidden=hidden.detach().to("cpu", torch.float32).contiguous(),
+                position=position,
+                offset=0,
+                cap=int(max(plan)),
+                outs=[],
+                enqueued=time.perf_counter(),
             )
-        await self.prepare_write(lane, position, position + total, timeout=self.alloc_timeout)
-        plan = self.backend.chunk_plan(1, total, page_size=self.page_size, start=position)
-        st = _LanePrefillState(
-            future=asyncio.get_running_loop().create_future(),
-            generation=self._lane_generation[lane],
-            lane=lane,
-            hidden=hidden.detach().to("cpu", torch.float32).contiguous(),
-            position=position,
-            offset=0,
-            cap=int(max(plan)),
-            outs=[],
-            enqueued=time.perf_counter(),
-        )
-        self._prefill_queue.append(st)
-        self._spawn_flush_loop()
-        try:
-            return await st.future
-        finally:
-            if st in self._prefill_queue:
-                self._prefill_queue.remove(st)
+            self._prefill_queue.append(st)
+            self._spawn_flush_loop()
+            try:
+                return await st.future
+            finally:
+                if st in self._prefill_queue:
+                    self._prefill_queue.remove(st)
 
     async def generate_lane(self, lane: int, last_hidden: torch.Tensor, position: int, n_tokens: int,
                             sampling: Optional[dict] = None) -> np.ndarray:
@@ -635,54 +1092,55 @@ class DecodeBatcher:
         other generating and decoding lane. ``sampling``: a validated
         ``gen_sampling`` dict, or None for greedy. Returns tokens [1,
         n_tokens] int32."""
-        if self.gen_params is None:
-            raise RuntimeError("This batcher has no client leaves loaded for server-side generation")
-        self._check_lane(lane)
-        position, n_tokens = int(position), int(n_tokens)
-        if position + n_tokens - 1 > self.max_length:
-            raise ValueError(
-                f"Generating {n_tokens} tokens at position {position} overflows "
-                f"the lane buffer ({self.max_length} tokens)"
-            )
-        if n_tokens > 1:
-            # the flush loop cannot wait for a page mid-stream
-            await self.prepare_write(lane, position, position + n_tokens - 1, timeout=self.alloc_timeout)
-
-        def boot():
+        async with self._lane_busy(lane):
+            if self.gen_params is None:
+                raise RuntimeError("This batcher has no client leaves loaded for server-side generation")
             self._check_lane(lane)
-            return self.backend.sample_from_hidden(self.gen_params, last_hidden, sampling)
+            position, n_tokens = int(position), int(n_tokens)
+            if position + n_tokens - 1 > self.max_length:
+                raise ValueError(
+                    f"Generating {n_tokens} tokens at position {position} overflows "
+                    f"the lane buffer ({self.max_length} tokens)"
+                )
+            if n_tokens > 1:
+                # the flush loop cannot wait for a page mid-stream
+                await self.prepare_write(lane, position, position + n_tokens - 1, timeout=self.alloc_timeout)
 
-        t0 = int((await self.queue.submit(boot, priority=PRIORITY_INFERENCE, size=1))[0])
-        if n_tokens <= 1:
-            return np.asarray([[t0]], np.int32)
-        st = _LaneGenState(
-            future=asyncio.get_running_loop().create_future(), generation=self._lane_generation[lane],
-            token=t0, position=position, remaining=n_tokens - 1, collected=[t0], enqueued=time.perf_counter(),
-        )
-        if sampling is not None:
-            st.do_sample = bool(sampling.get("do_sample", False))
-            st.temperature = float(sampling.get("temperature", 1.0))
-            st.top_k = int(sampling.get("top_k", 0) or 0)
-            st.top_p = float(sampling.get("top_p", 1.0) or 1.0)
-            st.repetition_penalty = float(sampling.get("repetition_penalty", 1.0) or 1.0)
-            if st.do_sample:
-                # every draw of the stream at once: a step then reads its own
-                offset = int(sampling.get("offset", 0))
-                st.uniforms = uniform_for_draw(int(sampling.get("seed", 0)), offset + 1 + np.arange(st.remaining))
-            if st.repetition_penalty != 1.0:
-                vocab = self.backend.cfg.vocab_size
-                seen = np.zeros((vocab,), bool)
-                for t in (*(sampling.get("context") or ()), t0):
-                    if 0 <= int(t) < vocab:
-                        seen[int(t)] = True
-                st.seen = seen
-        self._gen_states[lane] = st
-        self._spawn_flush_loop()
-        try:
-            return await st.future
-        finally:
-            if self._gen_states.get(lane) is st:
-                del self._gen_states[lane]
+            def boot():
+                self._check_lane(lane)
+                return self.backend.sample_from_hidden(self.gen_params, last_hidden, sampling)
+
+            t0 = int((await self.queue.submit(boot, priority=PRIORITY_INFERENCE, size=1))[0])
+            if n_tokens <= 1:
+                return np.asarray([[t0]], np.int32)
+            st = _LaneGenState(
+                future=asyncio.get_running_loop().create_future(), generation=self._lane_generation[lane],
+                token=t0, position=position, remaining=n_tokens - 1, collected=[t0], enqueued=time.perf_counter(),
+            )
+            if sampling is not None:
+                st.do_sample = bool(sampling.get("do_sample", False))
+                st.temperature = float(sampling.get("temperature", 1.0))
+                st.top_k = int(sampling.get("top_k", 0) or 0)
+                st.top_p = float(sampling.get("top_p", 1.0) or 1.0)
+                st.repetition_penalty = float(sampling.get("repetition_penalty", 1.0) or 1.0)
+                if st.do_sample:
+                    # every draw of the stream at once: a step then reads its own
+                    offset = int(sampling.get("offset", 0))
+                    st.uniforms = uniform_for_draw(int(sampling.get("seed", 0)), offset + 1 + np.arange(st.remaining))
+                if st.repetition_penalty != 1.0:
+                    vocab = self.backend.cfg.vocab_size
+                    seen = np.zeros((vocab,), bool)
+                    for t in (*(sampling.get("context") or ()), t0):
+                        if 0 <= int(t) < vocab:
+                            seen[int(t)] = True
+                    st.seen = seen
+            self._gen_states[lane] = st
+            self._spawn_flush_loop()
+            try:
+                return await st.future
+            finally:
+                if self._gen_states.get(lane) is st:
+                    del self._gen_states[lane]
 
     def pop_step_timing(self, lane: int) -> Optional[dict]:
         return self._step_timing.pop(lane, None)
@@ -862,7 +1320,10 @@ class DecodeBatcher:
             if self.page_size is not None:
                 # every table reference and pin died with the lanes: rebuild
                 # the allocator and bump the epoch, so pins taken against the
-                # old pool unpin as no-ops
+                # old pool unpin as no-ops. Swap entries target the dead
+                # generation too: drop them and their host bytes, so
+                # suspended sessions fail loudly through _check_lane
+                self._scheduler.reset()
                 self._page_epoch += 1
                 self._pages = PageAllocator(self.n_pages)
                 self._tables[:] = -1
@@ -901,6 +1362,7 @@ class DecodeBatcher:
                 raise AllocationFailed("Lane pool was reset while this batched step ran")
         duration = time.perf_counter() - t_step
         self._count_step(batch, t_step, duration)
+        self._ledger_account_step(duration, decode_lanes=[e[0] for e in batch])
         return host_out
 
     def _run_batch_mixed(self, batch, pf) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -924,6 +1386,7 @@ class DecodeBatcher:
                 raise AllocationFailed("Lane pool was reset while this batched step ran")
         duration = time.perf_counter() - t_step
         self._count_step(batch, t_step, duration)
+        self._ledger_account_step(duration, decode_lanes=[e[0] for e in batch], prefill=(st.lane, take))
         self.stats["mixed_steps"] += 1
         self.stats["prefill_tokens"] += take
         self.stats["max_prefill_tokens_per_step"] = max(
@@ -974,6 +1437,7 @@ class DecodeBatcher:
                 raise AllocationFailed("Lane pool was reset while this batched step ran")
         duration = time.perf_counter() - t_step
         self._count_step(batch, t_step, duration, n_gen=len(gen_states))
+        self._ledger_account_step(duration, decode_lanes=[e[0] for e in batch], gen_lanes=list(gen_states))
         self.stats["gen_steps"] += 1
         self.stats["gen_lane_tokens"] += len(gen_states)
         self.stats["max_gen_lanes"] = max(self.stats["max_gen_lanes"], len(gen_states))
@@ -1040,23 +1504,32 @@ class DecodeBatcher:
         step the batched program does not cover. ``write_range=(t0, t1)``
         declares the token range the fn writes: paged mode allocates those
         pages first so the check-in has somewhere to land."""
-        self._check_lane(lane)
-        if write_range is not None:
-            await self.prepare_write(lane, int(write_range[0]), int(write_range[1]), timeout=self.alloc_timeout)
+        async with self._lane_busy(lane):
+            self._check_lane(lane)
+            if write_range is not None:
+                await self.prepare_write(lane, int(write_range[0]), int(write_range[1]), timeout=self.alloc_timeout)
+            # an exclusive op runs alone on the device: its whole wall bills
+            # to this tenant, and a declared write range is prompt tokens
+            ledger_key = self._ledger_keys.get(lane)
+            if ledger_key is not None and write_range is not None:
+                self._ledger.note_tokens(ledger_key, prefill=int(write_range[1]) - int(write_range[0]))
 
-        def run():
-            self._check_lane(lane)  # re-check: a reset may have raced the queue
-            result, kv_lane = fn(self._extract_lane(lane))
-            self._insert_lane(lane, kv_lane)
-            return result
+            def run():
+                self._check_lane(lane)  # re-check: a reset may have raced the queue
+                t_run = time.perf_counter()
+                result, kv_lane = fn(self._extract_lane(lane))
+                self._insert_lane(lane, kv_lane)
+                if ledger_key is not None:
+                    self._ledger.note_compute([ledger_key], time.perf_counter() - t_run)
+                return result
 
-        try:
-            return await self.queue.submit(run, priority=PRIORITY_INFERENCE, size=size)
-        except AllocationFailed:
-            raise
-        except BaseException as e:
-            self._maybe_reset_pool(e)
-            raise
+            try:
+                return await self.queue.submit(run, priority=PRIORITY_INFERENCE, size=size)
+            except AllocationFailed:
+                raise
+            except BaseException as e:
+                self._maybe_reset_pool(e)
+                raise
 
     async def snapshot_lane(self, lane: int, position: int, b0: int, b1: int, *, return_device: bool = False):
         """Host copy of blocks [b0, b1) of a lane, rows [0, position): (k, v)
@@ -1066,16 +1539,17 @@ class DecodeBatcher:
         same rows as COPIES on the card (never views of the pool: a later
         step writes the lane in place). One queue task, so the copy is
         atomic with respect to the steps."""
-        self._check_lane(lane)
+        async with self._lane_busy(lane):
+            self._check_lane(lane)
 
-        def run():
-            self._check_lane(lane)  # re-check: a reset may have raced the queue
-            k, v = self._extract_lane(lane)
-            kd, vd = k[b0:b1, :, :position].clone(), v[b0:b1, :, :position].clone()
-            host = (kd.cpu(), vd.cpu())
-            return (*host, kd, vd) if return_device else host
+            def run():
+                self._check_lane(lane)  # re-check: a reset may have raced the queue
+                k, v = self._extract_lane(lane)
+                kd, vd = k[b0:b1, :, :position].clone(), v[b0:b1, :, :position].clone()
+                host = (kd.cpu(), vd.cpu())
+                return (*host, kd, vd) if return_device else host
 
-        return await self.queue.submit(run, priority=PRIORITY_INFERENCE, size=0)
+            return await self.queue.submit(run, priority=PRIORITY_INFERENCE, size=0)
 
     async def run_exclusive_chunks(self, lane: int, chunk_fns: Sequence[Callable], *, size: int = 0,
                                    write_range: Optional[Tuple[int, int]] = None) -> list:
@@ -1088,48 +1562,113 @@ class DecodeBatcher:
         lane, nor read its rows. A failed chunk still checks the lane back in
         with the last consistent content (the session's position was not
         advanced)."""
-        self._check_lane(lane)
-        if write_range is not None:
-            await self.prepare_write(lane, int(write_range[0]), int(write_range[1]), timeout=self.alloc_timeout)
-        if len(chunk_fns) == 1:
-            # short prefills skip the separate extract / insert tasks
-            return [await self.run_exclusive(lane, chunk_fns[0], size=size)]
-        state = {}
-
-        def extract():
+        async with self._lane_busy(lane):
             self._check_lane(lane)
-            state["kv"] = self._extract_lane(lane)
+            if write_range is not None:
+                await self.prepare_write(lane, int(write_range[0]), int(write_range[1]), timeout=self.alloc_timeout)
+            ledger_key = self._ledger_keys.get(lane)
+            if ledger_key is not None and write_range is not None:
+                # the whole declared prompt bills once, here (the delegation
+                # below declares no range)
+                self._ledger.note_tokens(ledger_key, prefill=int(write_range[1]) - int(write_range[0]))
+            if len(chunk_fns) == 1:
+                # short prefills skip the separate extract / insert tasks
+                return [await self.run_exclusive(lane, chunk_fns[0], size=size)]
+            state = {}
 
-        def insert():
-            self._insert_lane(lane, state["kv"])  # checks the lane first
+            def extract():
+                self._check_lane(lane)
+                state["kv"] = self._extract_lane(lane)
 
-        await self.queue.submit(extract, priority=PRIORITY_INFERENCE, size=0)
-        results = []
+            def insert():
+                self._insert_lane(lane, state["kv"])  # checks the lane first
+
+            await self.queue.submit(extract, priority=PRIORITY_INFERENCE, size=0)
+            results = []
+            try:
+                for fn in chunk_fns:
+                    def run_chunk(fn=fn):
+                        self._check_lane(lane)
+                        t_run = time.perf_counter()
+                        res, state["kv"] = fn(state["kv"])
+                        self.stats["exclusive_chunks"] += 1
+                        if ledger_key is not None:
+                            self._ledger.note_compute([ledger_key], time.perf_counter() - t_run)
+                        return res
+
+                    try:
+                        results.append(await self.queue.submit(run_chunk, priority=PRIORITY_INFERENCE, size=size))
+                    except AllocationFailed:
+                        raise
+                    except BaseException as e:
+                        self._maybe_reset_pool(e)
+                        raise
+            finally:
+                if "kv" in state:
+                    try:
+                        await self.queue.submit(insert, priority=PRIORITY_INFERENCE, size=0)
+                    except AllocationFailed:
+                        pass  # lane invalidated mid-prefill: nothing to check in
+                    except BaseException as e:
+                        self._maybe_reset_pool(e)
+                        raise
+            return results
+
+    async def snapshot_from_swap(self, lane: int, position: int, b0: int, b1: int):
+        """Host copy of a SUSPENDED lane's blocks [b0, b1), rows [0,
+        position), read straight from its swap entry with no device work
+        (``snapshot_lane`` would first swap the lane back in, spending pages
+        and two copies to read bytes already on the host). Returns (k, v)
+        shaped as ``snapshot_lane``'s host pair (a quantized entry decoded
+        with ``dequantize_kv_np`` to float32), or None when the lane is not
+        suspended, is busy, or its entry does not cover [0, position): the
+        caller then takes the device path."""
+        if self.page_size is None:
+            return None
+        slot = self._scheduler.lanes.get(lane)
+        if slot is None:
+            return None
+        lock = self._lane_lock(lane)
+        # a trylock: busy means a step or a resume is under way, and the
+        # device path queues behind it correctly
+        if not lock_try_acquire_nowait(lock):
+            return None
         try:
-            for fn in chunk_fns:
-                def run_chunk(fn=fn):
-                    self._check_lane(lane)
-                    res, state["kv"] = fn(state["kv"])
-                    self.stats["exclusive_chunks"] += 1
-                    return res
+            entry = slot.swap
+            if entry is None or slot.suspending:
+                return None
+            ps = self.page_size
+            n_slots = -(-position // ps)  # the table slots covering [0, position)
+            index_of = {int(sl): i for i, sl in enumerate(entry.slots)}
+            if any(sl not in index_of for sl in range(n_slots)):
+                return None  # part of it was never resident: only the pool knows
 
-                try:
-                    results.append(await self.queue.submit(run_chunk, priority=PRIORITY_INFERENCE, size=size))
-                except AllocationFailed:
-                    raise
-                except BaseException as e:
-                    self._maybe_reset_pool(e)
-                    raise
+            def assemble():
+                quantized = isinstance(entry.k, PagedPool)
+                hkv, d = entry.k.shape[-2], entry.k.shape[-1]
+                out_dtype = torch.float32 if quantized else entry.k.dtype
+                nb = b1 - b0
+                k_out = torch.zeros((nb, 1, position, hkv, d), dtype=out_dtype)
+                v_out = torch.zeros((nb, 1, position, hkv, d), dtype=out_dtype)
+                for sl in range(n_slots):
+                    i = index_of[sl]
+                    t0, t1 = sl * ps, min((sl + 1) * ps, position)
+                    for out, side in ((k_out, entry.k), (v_out, entry.v)):
+                        if quantized:
+                            rows = dequantize_kv_np(
+                                side.codes[b0:b1, i, : t1 - t0].numpy(), side.scales[b0:b1, i, : t1 - t0].numpy(),
+                                side.kind,
+                            )
+                            out[:, 0, t0:t1] = torch.from_numpy(rows)
+                        else:
+                            out[:, 0, t0:t1] = side[b0:b1, i, : t1 - t0]
+                return k_out, v_out
+
+            # the lane lock stays held across the copy, so a racing resume
+            # cannot consume the entry mid-way; a trylock holds no order edge
+            return await asyncio.to_thread(assemble)
         finally:
-            if "kv" in state:
-                try:
-                    await self.queue.submit(insert, priority=PRIORITY_INFERENCE, size=0)
-                except AllocationFailed:
-                    pass  # lane invalidated mid-prefill: nothing to check in
-                except BaseException as e:
-                    self._maybe_reset_pool(e)
-                    raise
-        return results
+            lock.release()
 
 
 def _log_crash(task: asyncio.Task) -> None:

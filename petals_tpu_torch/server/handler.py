@@ -47,7 +47,18 @@ names. ``ptu.info`` carries the cache's ``summary()`` as ``prefix_cache``.
 The session-open ack echoes the client's ``trace_id``, normalized, or one
 minted here, as petals_tpu's does. ``ptu.info`` reports the fields of the
 ServerInfo the server announces (``server_info_fn``) beside the handler's
-own. A client id proven by the RPC handshake is ``ctx.remote_peer_id``.
+own, and the pool's occupancy with the scheduler's summary (``pool``). A
+client id proven by the RPC handshake is ``ctx.remote_peer_id``.
+
+The scheduler and the ledger (petals_tpu/server/handler.py:1448-1488,
+2111-2118): a session bills to the client's proven peer id, else to the
+open message's self-declared ``peer_hint``, else anonymously; that peer and
+the open message's ``priority`` go to ``acquire_lane``, and the prefix
+cache bills the segments it stores to it. Each pooled reply's step_meta
+carries the load hint (``busy_lanes``, ``lane_waiters``) and the session's
+``usage`` since its last reply. A store after a prefill reads a lane that
+was preempted meanwhile from its swap entry (``snapshot_from_swap``)
+rather than swap it back in.
 
 Refused with a clear error: adapters, KV import/adopt, push_to in a step.
 A ``push_to`` in the open message (petals_tpu servers push each step's
@@ -131,9 +142,13 @@ class TransformerHandler:
         self.prefix_share_scope = prefix_share_scope
         self.prefix_cache = None
         if prefix_cache_bytes > 0:
+            # the swapped tier shares the batcher's swap budget (one budget
+            # with session preemption), and eviction ranks tenants by the
+            # ledger's dominant share, which also bills their residency
             self.prefix_cache = PrefixCache(
                 prefix_cache_bytes, device_max_bytes=prefix_device_bytes, policy=prefix_cache_policy,
-                device=backend.device,
+                device=backend.device, swap_pool=batcher.swap_pool,
+                usage_fn=batcher.ledger.peer_dominant_share, ledger=batcher.ledger,
             )
             # a pinned page run is sliced at segment boundaries, so segments
             # must tile exactly into pages
@@ -223,7 +238,7 @@ class TransformerHandler:
         try:
             return CompressionType(requested)
         except ValueError:
-            raise ValueError(f"Compression {requested!r} is not supported by this server yet") from None
+            raise ValueError(f"Compression {requested!r} is not supported by this server") from None
 
     async def rpc_info(self, payload, ctx: RpcContext):
         b = self.batcher
@@ -254,6 +269,9 @@ class TransformerHandler:
         paged = b.paged_summary()
         if paged is not None:
             info["continuous_batching"]["paged"] = paged
+        # lanes, pages, suspended sessions, swap bytes, preemptions: the dict
+        # ServerInfo.pool carries too
+        info["pool"] = b.occupancy_info()
         if self.prefix_cache is not None:
             info["prefix_cache"] = self.prefix_cache.summary()
         return info
@@ -276,6 +294,15 @@ class TransformerHandler:
         if open_msg.get("active_adapter") is not None:
             raise ValueError("adapters are not supported by this server yet")
         trace_id = normalize_trace_id(open_msg.get("trace_id")) or new_trace_id()
+        # whom the session bills to (fair-share admission, the ledger): a
+        # PROVEN identity wins; else the open message's unauthenticated
+        # peer_hint, which can only split its sender's own bill
+        proven = getattr(ctx, "remote_peer_id", None)
+        if proven is not None:
+            peer: Optional[str] = proven.to_string()
+        else:
+            hint = open_msg.get("peer_hint")
+            peer = str(hint)[:64] if hint else None
         backend = self._sub_backend(start, end)
         batcher = self.batcher
         alloc_timeout = open_msg.get("alloc_timeout")
@@ -286,6 +313,7 @@ class TransformerHandler:
                 lane = await batcher.acquire_lane(
                     timeout=30.0 if alloc_timeout is None else alloc_timeout,
                     priority=parse_session_priority(open_msg.get("priority")),
+                    peer_id=peer, trace_id=trace_id,
                 )
             except AllocationFailed as e:
                 logger.debug(f"No decode lane ({e}); serving with a private cache")
@@ -322,7 +350,7 @@ class TransformerHandler:
                         break
                     position, reply, pending_store = await self._serve_step(
                         step, t_recv, ctx, backend, batcher, lane, kv, (start, end), batch_size, max_length,
-                        position, reply_comp,
+                        position, reply_comp, peer,
                     )
                     yield reply
             finally:
@@ -332,7 +360,7 @@ class TransformerHandler:
                     pending_store.cancel()
 
     async def _serve_step(self, step, t_recv, ctx, backend, batcher, lane, kv, span, batch_size, max_length,
-                          position, reply_comp):
+                          position, reply_comp, peer):
         """One step of a session: returns (the new position, the reply, the
         prefix store it started or None)."""
         start, end = span
@@ -390,7 +418,7 @@ class TransformerHandler:
             timing = {"queue_s": 0.0, "compute_s": time.perf_counter() - t_exec}
         pending_store = None
         if keys is not None and len(keys) > n_hit:
-            pending_store = self._maybe_store(backend, batcher, lane, kv, keys, n_hit, out, end - start)
+            pending_store = self._maybe_store(backend, batcher, lane, kv, keys, n_hit, out, end - start, peer)
         position += seq
         if gen_n:
             t_gen = time.perf_counter()
@@ -409,6 +437,7 @@ class TransformerHandler:
                 "queue_s": round(timing["queue_s"], 6), "compute_s": round(timing["compute_s"], 6),
                 "variant": variant, "serialize_s": 0.0, "total_s": round(time.perf_counter() - t_recv, 6),
             }
+            self._lane_meta(step_meta, batcher, lane)
             return position, {"tokens": [int(t) for t in tokens[0]], "position": position,
                               "step_meta": step_meta}, pending_store
         t_ser = time.perf_counter()
@@ -420,7 +449,19 @@ class TransformerHandler:
             "serialize_s": round(time.perf_counter() - t_ser, 6),
             "total_s": round(time.perf_counter() - t_recv, 6),
         }
+        self._lane_meta(step_meta, batcher, lane)
         return position, {"tensors": {"hidden": wire_out}, "position": position, "step_meta": step_meta}, pending_store
+
+    @staticmethod
+    def _lane_meta(step_meta: dict, batcher, lane: Optional[int]) -> None:
+        """A pooled reply's load hint and the session's bill since its last
+        reply (``usage``, summed by the clients' ``usage_report``)."""
+        if lane is None:
+            return
+        step_meta.update(batcher.occupancy_hint())
+        usage = batcher.pop_usage_delta(lane)
+        if usage:
+            step_meta["usage"] = usage
 
     # ------------------------------------------------------------------ prefix cache
 
@@ -437,7 +478,9 @@ class TransformerHandler:
         outs = [e["out"] for e in entries]
         kd = [e.get("kd") for e in entries]
         vd = [e.get("vd") for e in entries]
-        if lane is not None and batcher.page_size is not None:
+        # a lane preempted since its admission (idle with its first page)
+        # seeds through run_exclusive instead, which swaps it back in first
+        if lane is not None and batcher.page_size is not None and batcher.lane_resident(lane):
             spp = SEGMENT_TOKENS // batcher.page_size
             if all(
                 e.get("pages") is not None and e.get("pages_pool") is batcher
@@ -481,7 +524,7 @@ class TransformerHandler:
         else:
             await self.queue.submit(seed, kv, priority=PRIORITY_INFERENCE, size=n)
 
-    def _maybe_store(self, backend, batcher, lane, kv, keys, n_hit: int, out, n_blocks: int):
+    def _maybe_store(self, backend, batcher, lane, kv, keys, n_hit: int, out, n_blocks: int, peer: Optional[str]):
         """Start the store of this prefill's new segments as a task, unless
         it would add nothing (every key present and no tier to gain: device
         copies where the session can give them, live page pins where it
@@ -498,18 +541,20 @@ class TransformerHandler:
                                 pages_pool=batcher if paged else None):
             return None
         task = asyncio.create_task(self._store_prefix_async(
-            keys, n_hit, len(keys) * SEGMENT_TOKENS, batcher, lane, kv, out, n_blocks,
+            keys, n_hit, len(keys) * SEGMENT_TOKENS, batcher, lane, kv, out, n_blocks, peer,
         ))
         task.add_done_callback(_log_failure("prefix store"))
         return task
 
     async def _store_prefix_async(self, keys, n_hit: int, boundary: int, batcher, lane, kv, out_full,
-                                  n_blocks: int) -> None:
+                                  n_blocks: int, peer: Optional[str] = None) -> None:
         """Snapshot KV rows [0, boundary) and store the fresh segments. Runs
         as a task after the prefill's reply; the session awaits it before
         its next step, so the stored rows match the content hash. A paged
         lane pins the fresh segments' pages; a dense lane's or a private
-        cache's rows are also copied to the device tier."""
+        cache's rows are also copied to the device tier. A lane preempted
+        since its prefill is read from its swap entry (nothing pins then:
+        its pages are gone). ``peer`` is the tenant the segments bill to."""
         pc = self.prefix_cache
         first = n_hit * SEGMENT_TOKENS
         pages, epoch = None, 0
@@ -522,9 +567,11 @@ class TransformerHandler:
                     if seg_end > first:
                         epoch = batcher.page_epoch
                         pages = batcher.pin_lane_pages(lane, first, seg_end)
-                snap = await batcher.snapshot_lane(
-                    lane, boundary, 0, n_blocks, return_device=pc.device_max_bytes > 0 and batcher.page_size is None
-                )
+                return_device = pc.device_max_bytes > 0 and batcher.page_size is None
+                # a suspended lane: its swap entry holds the rows already
+                snap = None if return_device else await batcher.snapshot_from_swap(lane, boundary, 0, n_blocks)
+                if snap is None:
+                    snap = await batcher.snapshot_lane(lane, boundary, 0, n_blocks, return_device=return_device)
             else:
                 def read():
                     k, v = (t[:, :, :boundary] for t in kv)
@@ -552,6 +599,7 @@ class TransformerHandler:
         pc.put(
             keys, n_hit, k[:, :, first:], v[:, :, first:], out_full[:, first:boundary],
             k_dev=k_dev, v_dev=v_dev, pages=pages, pages_pool=batcher if pages else None, pages_epoch=epoch,
+            tenant=peer,
         )
 
     def _gen_request(self, step: dict, span: Tuple[int, int], batch_size: int, prompts, hypo_ids,

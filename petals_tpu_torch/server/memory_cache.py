@@ -14,7 +14,12 @@ petals_tpu/server/memory_cache.py the paged pool uses).
 - ``PageAllocator`` hands out page indices of one preallocated pool, with
   refcounts (a lane's table slot and a prefix-cache pin each hold one, and
   a page with ``refs > 1`` is copied before a write) and a ``freed_event``
-  that wakes allocation waiters.
+  that wakes allocation waiters. It also reports the free list's runs
+  (``fragmentation_info``, announced in ServerInfo.pool) and each lane's
+  fractional page ownership (``fractional_shares``, the resource ledger's
+  copy-on-write split).
+- ``HostSwapPool`` budgets the host-RAM swap tier that preempted lanes and
+  demoted prefix-cache nodes share, in wire bytes.
 """
 
 from __future__ import annotations
@@ -93,6 +98,60 @@ class PageAllocator:
         self.stats["allocated"] += 1
         return page
 
+    def free_runs(self) -> list:
+        """Lengths of the contiguous free-page runs, in ascending page order."""
+        runs = []
+        current = 0
+        prev = -2
+        for page in sorted(self._free_set):
+            if page == prev + 1:
+                current += 1
+            else:
+                if current:
+                    runs.append(current)
+                current = 1
+            prev = page
+        if current:
+            runs.append(current)
+        return runs
+
+    def fragmentation_info(self) -> dict:
+        """The free list's run-length histogram (fixed buckets), its largest
+        run, and ``frag = 1 - largest_run / free`` (0: one hole)."""
+        runs = self.free_runs()
+        free = len(self._free_set)
+        largest = max(runs) if runs else 0
+        hist = {"1": 0, "2_3": 0, "4_7": 0, "8_15": 0, "16_plus": 0}
+        for r in runs:
+            if r == 1:
+                hist["1"] += 1
+            elif r <= 3:
+                hist["2_3"] += 1
+            elif r <= 7:
+                hist["4_7"] += 1
+            elif r <= 15:
+                hist["8_15"] += 1
+            else:
+                hist["16_plus"] += 1
+        return {
+            "free": free,
+            "runs": len(runs),
+            "largest_run": largest,
+            "frag": round(1.0 - largest / free, 4) if free else 0.0,
+            "run_hist": hist,
+        }
+
+    def fractional_shares(self, tables: np.ndarray) -> np.ndarray:
+        """Fractional page ownership per block-table row: a page with
+        refcount R contributes 1/R to each row referencing it, so the rows'
+        shares plus the prefix cache's pins sum to the allocated pages (the
+        resource ledger's copy-on-write attribution). ``tables`` is
+        [n_rows, max_pages] int32, -1 for an empty slot."""
+        mask = tables >= 0
+        pages = np.where(mask, tables, 0)
+        inv = np.where(mask, 1.0 / np.maximum(self.refs[pages], 1), 0.0)
+        return inv.sum(axis=1)
+
     def incref(self, page: int) -> None:
         if self.refs[page] <= 0:
             raise RuntimeError(f"incref of free page {page}")
@@ -109,6 +168,76 @@ class PageAllocator:
             self._free_set.add(page)
             self.stats["freed"] += 1
             self.freed_event.set()
+
+
+class HostSwapPool:
+    """Byte budget of the host-RAM KV swap tier.
+
+    When the page pool is exhausted, the session scheduler
+    (server/scheduler.py) preempts an idle victim lane: its resident pages
+    are gathered on the device and copied to host memory, its pool pages
+    freed, and the content scattered back onto (possibly other) pages when
+    the session next steps. This class only counts the bytes, which are the
+    pool's WIRE bytes (a quantized pool's codes and scales); the tensors
+    ride in the scheduler's swap entries. ``try_reserve`` is
+    all-or-nothing: a victim whose KV does not fit is not preemptable.
+
+    The prefix cache's swapped tier shares this budget: its demoted nodes
+    reserve with ``kind="cache"``, counted apart (``cache_bytes_in_use``),
+    and the cache keeps to a fraction of the budget (prefix_cache.py
+    ``CACHE_SWAP_FRAC``), so preemption always finds room.
+    """
+
+    def __init__(self, max_size_bytes: int):
+        if max_size_bytes < 0:
+            raise ValueError(f"max_size_bytes must be >= 0, got {max_size_bytes}")
+        self.max_size_bytes = int(max_size_bytes)
+        self._bytes_in_use = 0
+        self._cache_bytes_in_use = 0  # of which: demoted prefix-cache nodes
+        self.stats = {
+            "reserved": 0, "rejected": 0, "peak_bytes": 0,
+            "cache_reserved": 0, "cache_rejected": 0,
+        }
+
+    @property
+    def bytes_in_use(self) -> int:
+        return self._bytes_in_use
+
+    @property
+    def cache_bytes_in_use(self) -> int:
+        return self._cache_bytes_in_use
+
+    @property
+    def bytes_left(self) -> int:
+        return self.max_size_bytes - self._bytes_in_use
+
+    def try_reserve(self, nbytes: int, kind: str = "session") -> bool:
+        """Reserve ``nbytes`` for one swap entry, or False when it would
+        overflow the budget. ``kind="cache"`` tags a prefix-cache demotion:
+        the same budget, counted apart."""
+        nbytes = int(nbytes)
+        if nbytes < 0:
+            raise ValueError(f"cannot reserve {nbytes} bytes")
+        if nbytes > self.bytes_left:
+            self.stats["rejected" if kind == "session" else "cache_rejected"] += 1
+            return False
+        self._bytes_in_use += nbytes
+        if kind == "cache":
+            self._cache_bytes_in_use += nbytes
+            self.stats["cache_reserved"] += 1
+        else:
+            self.stats["reserved"] += 1
+        self.stats["peak_bytes"] = max(self.stats["peak_bytes"], self._bytes_in_use)
+        return True
+
+    def free(self, nbytes: int, kind: str = "session") -> None:
+        self._bytes_in_use -= int(nbytes)
+        if kind == "cache":
+            self._cache_bytes_in_use -= int(nbytes)
+            if self._cache_bytes_in_use < 0:
+                raise RuntimeError("cache swap accounting went negative")
+        if self._bytes_in_use < 0:
+            raise RuntimeError("swap-pool accounting went negative")
 
 
 class MemoryCache:

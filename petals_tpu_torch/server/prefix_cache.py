@@ -22,17 +22,22 @@ Residency, as in the JAX package:
   the next session and that step programs write by address.
 - **host**: CPU tensors k/v/out within the cache's own byte budget
   (``max_bytes``); a hit uploads them into the session's cache.
+- **swapped**: with the batcher's ``HostSwapPool`` (``swap_pool``), a node
+  pushed out of the host budget is DEMOTED rather than dropped: its bytes
+  move from the cache's budget to the swap pool's (``kind="cache"``, at
+  most ``CACHE_SWAP_FRAC`` of it, so preemption always finds room) and it
+  sheds its HBM residency; the tensors stay where they are. A hit promotes
+  it back to the host tier.
 
 Eviction is leaf-first: device refs drop before host bytes, and a victim is
-the host-tier leaf with the fewest hits, then the least recent use
-(``policy="radix"``); ``policy="lru"`` is the flat insertion-order baseline.
-Interior nodes are never removed while a descendant survives.
-
-Not ported yet: the swapped tier that demotes nodes into the session swap
-pool's budget, and the ledger hooks (each entry's storing peer, tenant
-shares for victim order, residency billing); the constructor refuses a swap
-pool, a usage function or a ledger. Without them the JAX package's cache
-behaves as this one does.
+the host-tier leaf of the tenant with the largest dominant-resource share
+(``usage_fn``, the ledger's), then with the fewest hits, then the least
+recent use (``policy="radix"``); it is demoted when the swap tier has room,
+else removed. ``policy="lru"`` is the flat insertion-order baseline.
+Interior nodes are never removed while a descendant survives. Each node
+records the tenant that stored it, and the cache bills every tenant its
+resident bytes (host, device, swapped and pinned pages) through the
+ledger's cache-residency channel (``ledger.set_cache_rates``).
 
 Trust model: the cache is shared across all clients of a server by default
 (a client can time whether a prompt prefix was served recently); the
@@ -47,7 +52,7 @@ import logging
 import os
 import threading
 from collections import OrderedDict
-from typing import List, Optional, Sequence, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -55,6 +60,11 @@ import torch
 logger = logging.getLogger(__name__)
 
 SEGMENT_TOKENS = 128
+
+# the cache may reserve at most this fraction of the HostSwapPool for demoted
+# nodes: session preemption and the prefix cache share ONE budget, and a cold
+# cache must never make a live session unswappable
+CACHE_SWAP_FRAC = 0.5
 
 # device-tier promotion threshold: a host-resident node must be hit this many
 # times before maybe_promote_device uploads it (a one-off hit does not pay
@@ -127,47 +137,57 @@ class RadixPrefixCache:
         device_max_bytes: int = 0,
         *,
         policy: str = "radix",
-        swap_pool=None,
-        usage_fn=None,
-        ledger=None,
+        swap_pool=None,  # memory_cache.HostSwapPool, shared with session swap
+        usage_fn: Optional[Callable[[Optional[str]], float]] = None,  # tenant -> dominant share
+        ledger=None,  # telemetry.ledger.ResourceLedger: cache-residency billing
+        swap_frac: float = CACHE_SWAP_FRAC,
         device=None,  # where promoted entries go (None: the CPU)
     ):
         if policy not in ("radix", "lru"):
             raise ValueError(f"policy must be 'radix' or 'lru', got {policy!r}")
-        if swap_pool is not None or usage_fn is not None or ledger is not None:
-            raise ValueError(
-                "the prefix cache's swapped tier and ledger hooks (swap_pool, usage_fn, ledger) "
-                "are not supported by this server yet"
-            )
         self.max_bytes = max_bytes
         self.device_max_bytes = device_max_bytes
         self.policy = policy
+        self.swap_pool = swap_pool
+        self.usage_fn = usage_fn
+        self.ledger = ledger
+        self.swap_frac = float(swap_frac)
         self.device = torch.device(device if device is not None else "cpu")
         self._store: "OrderedDict[str, dict]" = OrderedDict()
-        self._bytes = 0  # host tier
+        self._bytes = 0  # host tier (swapped nodes charge the swap pool instead)
         self._dev_bytes = 0
+        self._swap_bytes = 0  # the cache's share of swap_pool.bytes_in_use
         self._tick = 0  # logical clock for recency scoring
         # called from the event loop AND worker threads (maybe_promote_device
         # uploads off-loop): every mutation holds the mutex; get_entries
         # returns plain references, which stay valid across a concurrent
         # eviction (dict pops only)
         self._mutex = threading.RLock()
-        # the JAX package's keys; demotions and swap_evictions stay 0 until
-        # the swapped tier is ported
         self.stats = {
             "hits": 0, "misses": 0, "hit_tokens": 0, "stored_segments": 0,
             "evictions": 0, "demotions": 0, "promotions": 0,
             "swap_evictions": 0, "device_evictions": 0,
         }
 
+    @property
+    def current_bytes(self) -> int:
+        return self._bytes
+
+    @property
+    def swap_bytes(self) -> int:
+        return self._swap_bytes
+
     # ------------------------------------------------------------------ probe
 
     def probe(self, keys: Sequence[str]) -> int:
         """Longest cached path (in segments). Touches every node on the path
-        (hit count and recency: the counters eviction scores by)."""
+        (hit count and recency: the counters eviction scores by) and
+        promotes swapped nodes on it back to the host tier, demoting colder
+        nodes to make room."""
         with self._mutex:
             self._tick += 1
             n = 0
+            path: List[str] = []
             for key in keys:
                 entry = self._store.get(key)
                 if entry is None:
@@ -175,12 +195,18 @@ class RadixPrefixCache:
                 entry["hits"] += 1
                 entry["last_use"] = self._tick
                 self._store.move_to_end(key)
+                path.append(key)
                 n += 1
+            if n and self.policy == "radix" and self.swap_pool is not None:
+                protect = frozenset(keys)
+                for key in path:
+                    self._promote_host(key, protect)
             if n:
                 self.stats["hits"] += 1
                 self.stats["hit_tokens"] += n * SEGMENT_TOKENS
             else:
                 self.stats["misses"] += 1
+            self._bill()
             return n
 
     def get_entries(self, keys: Sequence[str], n: int) -> List[dict]:
@@ -211,6 +237,7 @@ class RadixPrefixCache:
         k: torch.Tensor, v: torch.Tensor, out: torch.Tensor,
         k_dev: Optional[torch.Tensor] = None, v_dev: Optional[torch.Tensor] = None,
         pages: Optional[Sequence[int]] = None, pages_pool=None, pages_epoch: int = 0,
+        tenant: Optional[str] = None,
     ) -> None:
         """Store segments [first, len(keys)) from span-shaped tensors
         covering them: k/v [n_blocks, 1, tokens, hkv, d] and out [1, tokens,
@@ -224,11 +251,15 @@ class RadixPrefixCache:
         so a later hit can adopt_pages the prefix with zero copies. Ownership
         transfers here: every incoming page reference is attached to an entry
         or unpinned before put returns, and attached pins are unpinned on
-        eviction or clear."""
-        with self._mutex:
-            self._put_locked(keys, first, k, v, out, k_dev, v_dev, pages, pages_pool, pages_epoch)
+        eviction, demotion or clear.
 
-    def _put_locked(self, keys, first, k, v, out, k_dev, v_dev, pages, pages_pool, pages_epoch) -> None:
+        ``tenant`` is the storing peer: its residency bills to it through
+        the ledger, and eviction takes the dominant tenant's nodes first."""
+        with self._mutex:
+            self._put_locked(keys, first, k, v, out, k_dev, v_dev, pages, pages_pool, pages_epoch, tenant)
+            self._bill()
+
+    def _put_locked(self, keys, first, k, v, out, k_dev, v_dev, pages, pages_pool, pages_epoch, tenant) -> None:
         self._tick += 1
         spp = 0
         if pages is not None and pages_pool is not None and pages_pool.page_size:
@@ -247,12 +278,20 @@ class RadixPrefixCache:
                 entry = self._store[key]
                 self._store.move_to_end(key)
                 entry["last_use"] = self._tick
-                # a hot entry first stored host-only (a paged store, or after
-                # a device eviction) gains HBM residency on its next
-                # device-capable store
-                if t1 <= k.shape[2]:
-                    self._attach_device(entry, k_dev, v_dev, t0, t1)
-                if seg_pages and not self._attach_pages(entry, seg_pages, pages_pool, pages_epoch):
+                # a re-store is evidence of heat: a swapped node about to
+                # regain HBM residency comes back to the host tier first
+                # (a swapped node holds no device refs and no pins)
+                if entry.get("swapped"):
+                    self._promote_host(key, protect)
+                if not entry.get("swapped"):
+                    # a hot entry first stored host-only (a paged store, or
+                    # after a device eviction) gains HBM residency on its
+                    # next device-capable store
+                    if t1 <= k.shape[2]:
+                        self._attach_device(entry, k_dev, v_dev, t0, t1)
+                    if seg_pages and not self._attach_pages(entry, seg_pages, pages_pool, pages_epoch):
+                        pages_pool.unpin_pages(seg_pages, pages_epoch)
+                elif seg_pages:
                     pages_pool.unpin_pages(seg_pages, pages_epoch)
                 continue
             if t1 > k.shape[2]:
@@ -278,8 +317,10 @@ class RadixPrefixCache:
             entry["parent"] = parent if parent_entry is not None else None
             entry["children"] = set()
             entry["depth"] = parent_entry["depth"] + 1 if parent_entry is not None else 0
+            entry["tenant"] = tenant
             entry["hits"] = 0
             entry["last_use"] = self._tick
+            entry["swapped"] = False
             if parent_entry is not None:
                 parent_entry["children"].add(key)
             self._attach_device(entry, k_dev, v_dev, t0, t1)
@@ -291,39 +332,136 @@ class RadixPrefixCache:
 
     # -------------------------------------------------------------- residency
 
-    def _host_leaf(self, entry: dict) -> bool:
-        """No child left in the store: the bottom of the tree under this
-        node, where eviction works upward from."""
-        return not any(c in self._store for c in entry["children"])
+    def _tenant_share(self, shares: Dict, tenant: Optional[str]) -> float:
+        """The dominant-resource share of ``tenant``, cached in ``shares``
+        for one victim search (0.0 without a usage_fn: victim order is then
+        economics alone)."""
+        if tenant not in shares:
+            share = 0.0
+            if self.usage_fn is not None:
+                try:
+                    share = float(self.usage_fn(tenant))
+                except Exception as e:
+                    logger.warning(f"prefix-cache usage_fn failed for {tenant!r}: {e}")
+            shares[tenant] = share
+        return shares[tenant]
 
-    def _pick_victim(self, protect: frozenset) -> Optional[str]:
-        """Leaf-first economics victim: among leaves, the fewest hits, then
-        the least recent use. Every node is one segment, so comparing hit
-        counts compares prefill saved per byte held."""
+    def _host_leaf(self, entry: dict) -> bool:
+        """Host-resident with no host-resident child: the bottom of the host
+        tier under this node, where demotion and eviction work upward from
+        (never stranding a hotter descendant below a removed ancestor)."""
+        if entry.get("swapped"):
+            return False
+        for c in entry["children"]:
+            ce = self._store.get(c)
+            if ce is not None and not ce.get("swapped"):
+                return False
+        return True
+
+    def _pick_victim(self, protect: frozenset, skip: set) -> Optional[str]:
+        """Leaf-first economics victim: among host-tier leaves, the node of
+        the most dominant tenant, then the fewest hits, then the least
+        recent use. Every node is one segment, so comparing hit counts
+        compares prefill saved per byte held."""
         best_key = None
         best_rank = None
+        shares: Dict = {}
         for key, entry in self._store.items():
-            if key in protect or not self._host_leaf(entry):
+            if key in protect or key in skip or not self._host_leaf(entry):
                 continue
-            rank = (entry["hits"], entry["last_use"])
+            rank = (-self._tenant_share(shares, entry.get("tenant")), entry["hits"], entry["last_use"])
             if best_rank is None or rank < best_rank:
                 best_key, best_rank = key, rank
         return best_key
 
     def _make_room(self, need: int, protect: frozenset) -> bool:
-        """Free host bytes until ``need`` fits: the flat policy evicts in
-        store (LRU) order, radix leaf-first by economics."""
+        """Free host-tier bytes until ``need`` fits. The flat policy evicts
+        in store (LRU) order; radix demotes leaf-first into the swapped tier
+        and removes a node outright only when it cannot demote and has no
+        surviving descendant."""
         if self._bytes + need <= self.max_bytes:
             return True
         if self.policy != "radix":
             while self._bytes + need > self.max_bytes and self._store:
                 self._evict_node(next(iter(self._store)))
             return self._bytes + need <= self.max_bytes
+        skip: set = set()
         while self._bytes + need > self.max_bytes:
-            victim = self._pick_victim(protect)
+            victim = self._pick_victim(protect, skip)
+            if victim is None:
+                return False
+            if self._demote_node(victim, protect):
+                continue
+            if any(c in self._store for c in self._store[victim]["children"]):
+                # an interior node over swapped children: removing it would
+                # orphan them, and it cannot demote: look further
+                skip.add(victim)
+                continue
+            self._evict_node(victim)
+        return True
+
+    def _demote_node(self, key: str, protect: frozenset) -> bool:
+        """host -> swapped: move the node's byte charge from the cache's
+        budget into the swap pool's (the tensors stay where they are: the
+        tier is an accounting boundary) and shed its HBM residency."""
+        entry = self._store[key]
+        if self.swap_pool is None or not self._swap_reserve(entry["bytes"], protect):
+            return False
+        self._drop_device(entry)
+        self._unpin_entry(entry)
+        entry["swapped"] = True
+        self._bytes -= entry["bytes"]
+        self._swap_bytes += entry["bytes"]
+        self.stats["demotions"] += 1
+        return True
+
+    def _swap_reserve(self, nbytes: int, protect: frozenset) -> bool:
+        """Reserve cache-tagged swap bytes, evicting the coldest swapped
+        nodes to stay within the cache's fraction of the shared budget."""
+        cap = int(self.swap_frac * self.swap_pool.max_size_bytes)
+        if nbytes > cap:
+            return False
+        while True:
+            # the reservation belongs to the demoted node: _promote_host and
+            # _evict_node free it
+            if self._swap_bytes + nbytes <= cap and self.swap_pool.try_reserve(nbytes, kind="cache"):
+                return True
+            victim = self._pick_swapped_victim(protect)
             if victim is None:
                 return False
             self._evict_node(victim)
+            self.stats["swap_evictions"] += 1
+
+    def _pick_swapped_victim(self, protect: frozenset) -> Optional[str]:
+        """The coldest childless swapped node (the swapped tier's eviction
+        order); ``protect`` keeps the chain being probed or stored."""
+        best_key = None
+        best_rank = None
+        shares: Dict = {}
+        for key, entry in self._store.items():
+            if not entry.get("swapped") or key in protect:
+                continue
+            if any(c in self._store for c in entry["children"]):
+                continue
+            rank = (-self._tenant_share(shares, entry.get("tenant")), entry["hits"], entry["last_use"])
+            if best_rank is None or rank < best_rank:
+                best_key, best_rank = key, rank
+        return best_key
+
+    def _promote_host(self, key: str, protect: frozenset) -> bool:
+        """swapped -> host on a hit: free the swap reservation and charge the
+        cache's budget again, demoting colder nodes to make room. A failure
+        is benign: the node still serves, from the swapped tier."""
+        entry = self._store.get(key)
+        if entry is None or not entry.get("swapped"):
+            return False
+        if not self._make_room(entry["bytes"], protect):
+            return False
+        self.swap_pool.free(entry["bytes"], kind="cache")
+        self._swap_bytes -= entry["bytes"]
+        entry["swapped"] = False
+        self._bytes += entry["bytes"]
+        self.stats["promotions"] += 1
         return True
 
     def maybe_promote_device(self, keys: Sequence[str], n: int) -> int:
@@ -338,7 +476,7 @@ class RadixPrefixCache:
         for key in list(keys[:n]):
             with self._mutex:
                 entry = self._store.get(key)
-                if entry is None or "kd" in entry or entry["hits"] < PROMOTE_MIN_HITS:
+                if entry is None or entry.get("swapped") or "kd" in entry or entry["hits"] < PROMOTE_MIN_HITS:
                     continue
                 k_host, v_host = entry["k"], entry["v"]
             # the uploads run OUTSIDE the mutex: a concurrent probe must not
@@ -347,7 +485,7 @@ class RadixPrefixCache:
             vd = v_host.to(self.device, copy=True)
             with self._mutex:
                 entry = self._store.get(key)
-                if entry is None or "kd" in entry:
+                if entry is None or "kd" in entry or entry.get("swapped"):
                     continue
                 dev_bytes = _nbytes(kd) + _nbytes(vd)
                 if dev_bytes > self.device_max_bytes:
@@ -358,6 +496,9 @@ class RadixPrefixCache:
                 self._dev_bytes += dev_bytes
                 promoted += 1
                 self.stats["promotions"] += 1
+        if promoted:
+            with self._mutex:
+                self._bill()
         return promoted
 
     # ------------------------------------------------------------ device tier
@@ -429,7 +570,11 @@ class RadixPrefixCache:
         entry = self._store.pop(key)
         self._drop_device(entry)
         self._unpin_entry(entry)
-        self._bytes -= entry["bytes"]
+        if entry.get("swapped"):
+            self.swap_pool.free(entry["bytes"], kind="cache")
+            self._swap_bytes -= entry["bytes"]
+        else:
+            self._bytes -= entry["bytes"]
         parent = self._store.get(entry.get("parent"))
         if parent is not None:
             parent["children"].discard(key)
@@ -440,9 +585,13 @@ class RadixPrefixCache:
         with self._mutex:
             for entry in self._store.values():
                 self._unpin_entry(entry)
+                if entry.get("swapped") and self.swap_pool is not None:
+                    self.swap_pool.free(entry["bytes"], kind="cache")
             self._store.clear()
             self._bytes = 0
             self._dev_bytes = 0
+            self._swap_bytes = 0
+            self._bill()
 
     # ------------------------------------------------------------------ views
 
@@ -466,12 +615,14 @@ class RadixPrefixCache:
             if any(k not in self._store for k in tail):
                 return True
             if device_capable and self.device_max_bytes > 0:
-                if any("kd" not in self._store[k] for k in tail):
+                if any("kd" not in self._store[k] and not self._store[k].get("swapped") for k in tail):
                     return True
             if pages_pool is not None and getattr(pages_pool, "page_size", None):
                 epoch = getattr(pages_pool, "page_epoch", -1)
                 for k in tail:
                     entry = self._store[k]
+                    if entry.get("swapped"):
+                        continue
                     if (
                         entry.get("pages") is None
                         or entry.get("pages_pool") is not pages_pool
@@ -480,12 +631,34 @@ class RadixPrefixCache:
                         return True
             return False
 
+    def _bill(self) -> None:
+        """Push each tenant's resident bytes (host, device, swapped, pinned
+        pages) to the ledger as its new cache-residency rate. Called under
+        the mutex at the end of every mutating operation."""
+        if self.ledger is None:
+            return
+        by_tenant: Dict[Optional[str], float] = {}
+        for entry in self._store.values():
+            nbytes = entry["bytes"] + entry.get("dev_bytes", 0)
+            pages = entry.get("pages")
+            if pages:
+                nbytes += len(pages) * int(getattr(entry.get("pages_pool"), "page_nbytes", 0) or 0)
+            tenant = entry.get("tenant")
+            by_tenant[tenant] = by_tenant.get(tenant, 0.0) + nbytes
+        try:
+            self.ledger.set_cache_rates(by_tenant)
+        except Exception as e:
+            logger.warning(f"prefix-cache ledger billing failed: {e}")
+
     def summary(self) -> dict:
-        """petals_tpu's summary keys (the swapped tier's read 0)."""
+        """petals_tpu's summary keys."""
         with self._mutex:
             page_bytes = 0
+            swapped = 0
             max_depth = 0
             for e in self._store.values():
+                if e.get("swapped"):
+                    swapped += 1
                 pages = e.get("pages")
                 if pages:
                     page_bytes += len(pages) * int(getattr(e.get("pages_pool"), "page_nbytes", 0) or 0)
@@ -495,9 +668,9 @@ class RadixPrefixCache:
                 "segments": len(self._store),
                 "bytes": self._bytes,
                 "max_bytes": self.max_bytes,
-                "host_segments": len(self._store),
-                "swap_segments": 0,
-                "swap_bytes": 0,
+                "host_segments": len(self._store) - swapped,
+                "swap_segments": swapped,
+                "swap_bytes": self._swap_bytes,
                 "device_segments": sum(1 for e in self._store.values() if "kd" in e),
                 "device_bytes": self._dev_bytes,
                 "device_max_bytes": self.device_max_bytes,

@@ -1,7 +1,7 @@
 """The port's server entry point: host a span of blocks of one local
 checkpoint, serve ``ptu.inference`` / ``ptu.info`` on ``host:port``, and take
-part in a petals_tpu swarm (petals_tpu/server/server.py without the relay,
-the rebalance loop, adapters, drain and migration).
+part in a petals_tpu swarm (petals_tpu/server/server.py without the
+rebalance loop, adapters, drain and migration).
 
 ``start()`` runs the swarm life cycle in petals_tpu's order: it makes the
 node's identity (``identity_seed``), listens with it, joins the DHT on the
@@ -38,6 +38,22 @@ defaults: a 256 MiB host tier (``prefix_cache_bytes``), a 256 MiB HBM tier
 petals_tpu's does), the ``radix`` policy and ``swarm`` sharing; a paged
 pool's page size must then divide its 128-token segments.
 
+The session scheduler (server/scheduler.py): ``swap_host_bytes`` (default
+0: off) gives the paged pool a host-memory swap tier, so an exhausted pool
+preempts an idle session (``preemption_policy``: lru, largest or off)
+instead of failing the request at its timeout. One resource ledger
+(telemetry/ledger.py, the process's) meters every session for the
+scheduler's fair share, the replies' ``usage`` and the prefix cache's
+billing; ServerInfo.pool carries the scheduler's summary.
+
+Behind NAT (``relay_via="host:port"``, petals_tpu/server/server.py:316-347):
+the server opens no listener; its DHT node is query-only, a RelayRegistrar
+(rpc/relay.py) keeps a control connection to the relay and serves the RPC
+methods on the reverse connections the relay splices, and the announced
+contact address is the relay circuit (``relay+host:port/peer``). Its
+network rate is priced by ``RELAY_PENALTY`` (server/throughput.py). Every
+server answers ``reach.check`` (server/reachability.py).
+
 Runs on the CUDA card unless the caller passes ``device="cpu"``; a missing
 card raises instead of drifting to the CPU.
 """
@@ -72,7 +88,10 @@ from petals_tpu_torch.server.from_pretrained import get_block_config, load_block
 from petals_tpu_torch.server.handler import TransformerHandler
 from petals_tpu_torch.server.memory_cache import MemoryCache
 from petals_tpu_torch.server.prefix_cache import resolve_device_bytes
+from petals_tpu_torch.server.reachability import ReachabilityProtocol
+from petals_tpu_torch.server.scheduler import PREEMPTION_POLICIES
 from petals_tpu_torch.server.task_queue import PriorityTaskQueue
+from petals_tpu_torch.telemetry.ledger import get_ledger
 from petals_tpu_torch.server.throughput import get_server_throughput
 from petals_tpu_torch.utils.bandwidth import probe_swarm_bandwidth_mbps
 from petals_tpu_torch.utils.convert_block import QuantType, convert_block_params
@@ -121,6 +140,7 @@ class Server:
         max_chunk_size_bytes: int = 256 * 1024 * 1024,
         max_alloc_timeout: float = 600.0,
         compression: str = "none",
+        relay_via: Optional[str] = None,  # "host:port" of a relay peer: serve from behind NAT
         inference_max_length: Optional[int] = None,  # None: 8192 for GQA/MQA, 2048 otherwise
         session_timeout: float = 30 * 60,
         step_timeout: float = 5 * 60,
@@ -129,6 +149,9 @@ class Server:
         page_size: int = 64,  # paged KV: tokens per page; 0 = the dense lane pool
         n_pages: Optional[int] = None,
         prefill_token_budget: int = 512,
+        swap_host_bytes: int = 0,  # host-memory swap tier (session preemption); 0 disables
+        preemption_policy: str = "lru",  # victim choice on pool exhaustion: lru | largest | off
+        ledger=None,  # a ResourceLedger; None: the process's (telemetry/ledger.py)
         quant_type: str = "none",  # "none" | "int8" | "nf4" | "nf4a" | "int4" | "nf4a+o" | "int4+o"
         kv_quant_type: str = "none",  # "none" | "int8" | "nf4a"
         throughput="auto",  # a number, or "auto" to measure it (server/throughput.py)
@@ -150,6 +173,10 @@ class Server:
                 "kv_quant_type requires the paged KV pool (--page_size > 0): the "
                 "dense lane pool has no quantized storage path"
             )
+        if preemption_policy not in PREEMPTION_POLICIES:
+            raise ValueError(f"preemption_policy must be one of {PREEMPTION_POLICIES}, got {preemption_policy!r}")
+        if swap_host_bytes < 0:
+            raise ValueError(f"swap_host_bytes must be >= 0, got {swap_host_bytes}")
         if not isinstance(throughput, (int, float)) and throughput != "auto":
             raise ValueError(f'throughput must be a number or "auto", got {throughput!r}')
         self.device = resolve_device(device)
@@ -200,6 +227,11 @@ class Server:
         self.batch_max_length = batch_max_length or min(inference_max_length, 1024)
         self.page_size, self.n_pages = page_size, n_pages
         self.prefill_token_budget = prefill_token_budget
+        self.swap_host_bytes, self.preemption_policy = swap_host_bytes, preemption_policy
+        self.ledger = ledger if ledger is not None else get_ledger()
+        self.relay_via = relay_via
+        self._relay_registrar = None
+        self._contact_addr: Optional[PeerAddr] = None  # the relay circuit, behind a relay
         self._throughput_spec = throughput
         self.throughput = float(throughput) if throughput != "auto" else 1.0
         self._rps_info: Optional[dict] = None
@@ -264,6 +296,7 @@ class Server:
             n_lanes=batch_lanes, max_length=self.batch_max_length, page_size=self.page_size or None,
             n_pages=self.n_pages, prefill_token_budget=self.prefill_token_budget,
             alloc_timeout=self.max_alloc_timeout, gen_params=self.server_gen_params,
+            swap_host_bytes=self.swap_host_bytes, preemption_policy=self.preemption_policy, ledger=self.ledger,
         )
         self.handler = TransformerHandler(
             self.backend, self.batcher,
@@ -303,9 +336,15 @@ class Server:
     async def start(self) -> None:
         identity = Identity.from_seed(self.identity_seed) if self.identity_seed else Identity.generate()
         self.rpc_server = RpcServer(self.host, self.port, identity=identity)
-        # listen BEFORE the DHT bootstraps: the node advertises its address
-        await self.rpc_server.start()
-        self.dht = await DHTNode.create(identity=identity, rpc_server=self.rpc_server, initial_peers=self.initial_peers)
+        if self.relay_via is not None:
+            await self._start_behind_relay(identity)
+        else:
+            # listen BEFORE the DHT bootstraps: the node advertises its address
+            await self.rpc_server.start()
+            self.dht = await DHTNode.create(
+                identity=identity, rpc_server=self.rpc_server, initial_peers=self.initial_peers
+            )
+        ReachabilityProtocol().register(self.rpc_server)
         self._ping_aggregator = PingAggregator(self.dht.pool)
         if self.device.type == "cuda":
             # build (or load) the CUDA kernels now, not inside the first step
@@ -319,6 +358,7 @@ class Server:
                 get_server_throughput, self.family, self.cfg, device=self.device,
                 compute_dtype=self.compute_dtype, quant_type=self.quant_type, kv_quant_type=self.kv_quant_type,
                 page_size=self.page_size, network_mbps=network_mbps, num_blocks=self.num_blocks,
+                using_relay=self.relay_via is not None,
             )
             self.throughput = self._rps_info["throughput"]
         if self.first_block is None:
@@ -340,9 +380,34 @@ class Server:
             f"kv_quant={self.kv_quant_type}, throughput={self.throughput:.1f})"
         )
 
+    async def _start_behind_relay(self, identity: Identity) -> None:
+        """No listener at all: a query-only DHT node, the RPC methods served
+        on reverse connections through the relay, and the relay circuit as
+        the contact address. Peers still probe a relayed server (pings for
+        next_pings, the bandwidth probe), so it answers those here."""
+        from petals_tpu_torch.rpc.relay import RelayRegistrar
+        from petals_tpu_torch.utils.bandwidth import BandwidthProtocol
+
+        relay_host, relay_port = self.relay_via.rsplit(":", 1)
+        self.dht = await DHTNode.create(identity=identity, client_mode=True, initial_peers=self.initial_peers)
+        self._relay_registrar = RelayRegistrar(relay_host, int(relay_port), identity, self.rpc_server)
+        await self._relay_registrar.start()
+        await self._relay_registrar.wait_registered()
+        self._contact_addr = PeerAddr(relay_host, int(relay_port), identity.peer_id, relayed=True)
+
+        async def ping(_payload, _ctx):
+            return {"peer_id": identity.peer_id.to_string()}
+
+        self.rpc_server.add_unary_handler("dht.ping", ping)
+        BandwidthProtocol().register(self.rpc_server)
+        logger.info(f"Serving behind relay {self.relay_via} (no inbound listener)")
+
     @property
     def contact_addr(self) -> Optional[PeerAddr]:
-        """The address this server announces: its DHT node's listen address."""
+        """The address this server announces: the relay circuit behind a
+        relay, else its DHT node's listen address."""
+        if self._contact_addr is not None:
+            return self._contact_addr
         return self.dht.own_addr if self.dht is not None else None
 
     async def shutdown(self) -> None:
@@ -360,6 +425,8 @@ class Server:
                 logger.debug(f"OFFLINE announce during shutdown failed: {e!r}")
         if self.dht is not None:
             await self.dht.shutdown()
+        if self._relay_registrar is not None:
+            await self._relay_registrar.stop()
         if self.rpc_server is not None:
             await self.rpc_server.stop()
         if self.batcher is not None:
@@ -400,7 +467,9 @@ class Server:
 
     async def _announce(self, state: ServerState, expiration: Optional[float] = None) -> None:
         expiration = expiration or default_expiration(self.update_period)
-        await declare_active_modules(self.dht, self.module_uids, self._server_info(state), expiration)
+        await declare_active_modules(
+            self.dht, self.module_uids, self._server_info(state), expiration, contact_addr=self._contact_addr
+        )
         if state != ServerState.OFFLINE:
             await declare_model(
                 self.dht, self.dht_prefix, num_blocks=self.cfg.num_hidden_layers, expiration_time=expiration,

@@ -18,7 +18,9 @@ backend on the device that will serve, with the same quantization:
   replays of its step program as well.
 - network_rps: the requests a second the wire carries, from the swarm
   bandwidth probe (utils/bandwidth.py), ``network_mbps`` or, alone, a
-  loopback serialization and framing probe.
+  loopback serialization and framing probe, times ``RELAY_PENALTY`` for a
+  server reached through a relay (``using_relay``): its traffic crosses
+  the relay's splice.
 
 The compute figures are cached in an fcntl-locked JSON file of the port's
 own (``$PETALS_TPU_TORCH_CACHE``, default ~/.cache/petals_tpu_torch), keyed
@@ -46,6 +48,7 @@ logger = logging.getLogger(__name__)
 THROUGHPUT_FILE = "throughput_v1.json"
 PROBE_CACHE_TOKENS = 256  # the decode probe's cache length, as petals_tpu's
 FORWARD_TOKENS = 1024
+RELAY_PENALTY = 0.2  # a relayed server's network rate, as petals_tpu prices it
 
 
 def default_cache_dir() -> Path:
@@ -67,11 +70,12 @@ def get_server_throughput(
     page_size: int = 64,
     network_mbps: Optional[float] = None,
     num_blocks: int = 1,
+    using_relay: bool = False,
     cache_dir: Optional[Path] = None,
 ) -> dict:
     """Returns {"throughput", "inference_rps", "forward_rps", "network_rps"}:
     ``throughput`` is the smaller of the compute rate spread over the hosted
-    blocks and the network rate. No relay is priced: the port has none yet."""
+    blocks and the network rate (cut by ``RELAY_PENALTY`` behind a relay)."""
     device = torch.device(device)
     cache_dir = Path(cache_dir or default_cache_dir())
     cache_dir.mkdir(parents=True, exist_ok=True)
@@ -111,7 +115,9 @@ def get_server_throughput(
         )
         cache[cache_key] = info
         _write_cache(cache_path, cache)
-    info["network_rps"] = measure_network_rps(cfg.hidden_size, network_mbps=network_mbps)
+    info["network_rps"] = measure_network_rps(cfg.hidden_size, network_mbps=network_mbps) * (
+        RELAY_PENALTY if using_relay else 1.0
+    )
     compute_rps = info["forward_rps"] / max(num_blocks, 1)
     return {
         "throughput": min(compute_rps, info["network_rps"]),

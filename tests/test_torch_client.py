@@ -235,7 +235,8 @@ def test_port_client_equals_jax_client_over_one_port_server(port_route, case):
 
 def test_remote_sequential_slice_and_usage(port_route):
     """A slice of the chain steps like petals_tpu's slice; a session's
-    usage report counts its tokens (a port server bills nothing yet)."""
+    usage report counts its tokens, and both clients sum the port server's
+    bills (step_meta ``usage``) alike."""
     route, jax_model, port_model = port_route
     hidden = np.random.RandomState(6).randn(1, 5, port_model.cfg.hidden_size).astype(np.float32)
     outs = []
@@ -249,10 +250,17 @@ def test_remote_sequential_slice_and_usage(port_route):
         finally:
             sub.close()
     np.testing.assert_array_equal(outs[1], outs[0])
-    with port_model.remote.inference_session(max_length=8) as session:
-        session.step(torch.from_numpy(hidden))
-        report = session.usage_report()
-    assert report["tokens"] == 5 and report["total"] == {} and len(report["trace_id"]) == 16
+    reports = []
+    for model, h in ((jax_model, hidden), (port_model, torch.from_numpy(hidden))):
+        with model.remote.inference_session(max_length=8) as session:
+            session.step(h)
+            # petals_tpu's sync wrapper keeps its InferenceSession inside
+            reports.append(getattr(session, "_session", session).usage_report()
+                           if model is jax_model else session.usage_report())
+    for report in reports:
+        assert report["tokens"] == 5 and len(report["trace_id"]) == 16
+        assert report["total"]["prefill_tokens"] == 5 and report["total"]["compute_seconds"] > 0
+        assert list(report["peers"].values()) == [report["total"]]
 
 
 def test_session_rollback_replays_from_a_position(port_route):
@@ -287,9 +295,10 @@ def test_waiting_parts_raise_with_their_slice(port_route):
         port_model.generate(_ids(1, (1, 4)), max_new_tokens=2, prompts=np.zeros((4, 1, 2, 64), np.float32))
     for bad, slice_name in ((dict(route_upgrade_period=5.0), "A9"), (dict(route_upgrade_threshold=0.5), "A9"),
                             (dict(kv_export_timeout=10.0), "A9"), (dict(handoff_timeout=5.0), "A9"),
-                            (dict(compression="qint8"), "A3"), (dict(active_adapter="lora"), "A13")):
+                            (dict(active_adapter="lora"), "A13")):
         with pytest.raises(NotImplementedError, match=slice_name):
             ClientConfig(**bad)
+    assert ClientConfig(compression="qint8").compression == "qint8"  # the codec is ported
     assert ClientConfig().use_server_to_server and ClientConfig().disagg_handoff  # inert defaults
     # False asks for what the port does (the client relays, no handoff)
     ClientConfig(use_server_to_server=False, disagg_handoff=False)

@@ -35,6 +35,11 @@ def test_importing_every_module_loads_no_jax():
             "petals_tpu_torch.telemetry", "petals_tpu_torch.telemetry.observatory",
             "petals_tpu_torch.ops.sampling", "petals_tpu_torch.ops.threefry"}
         assert client <= set(names), sorted(client - set(names))  # the client, telemetry and sampling are walked
+        # the scheduler, the ledger, the sanitizer and locks, the relay and reachability
+        swap_wire = {"petals_tpu_torch." + m for m in (
+            "server.scheduler", "telemetry.ledger", "analysis.sanitizer", "utils.locks", "rpc.relay",
+            "server.reachability")}
+        assert swap_wire <= set(names), sorted(swap_wire - set(names))
         print(len(names), bad)
         assert not bad, bad
         """
@@ -129,6 +134,12 @@ def test_flash_attention_never_falls_back_off_the_cpu():
     "petals_tpu_torch.server.server",
     "petals_tpu_torch.utils.convert",
     "petals_tpu_torch.telemetry.observatory",
+    "petals_tpu_torch.server.scheduler",
+    "petals_tpu_torch.telemetry.ledger",
+    "petals_tpu_torch.analysis.sanitizer",
+    "petals_tpu_torch.utils.locks",
+    "petals_tpu_torch.rpc.relay",
+    "petals_tpu_torch.server.reachability",
 ])
 def test_dense_cache_modules_import_without_jax(module):
     """Each module that serves dense caches, imported alone in a fresh

@@ -441,11 +441,96 @@ def test_cache_class_matches_petals_tpu(policy):
 
 
 def test_cache_refuses_the_tiers_not_ported_yet():
-    for kw in ({"swap_pool": object()}, {"usage_fn": lambda peer: 0.0}, {"ledger": object()}):
-        with pytest.raises(ValueError, match="not supported"):
-            port_pc.PrefixCache(1 << 20, **kw)
+    """Every tier is ported now: the constructor takes a swap pool, a usage
+    function and a ledger as petals_tpu's does (test_swapped_tier_*), and
+    still refuses an unknown policy."""
+    from petals_tpu_torch.server.memory_cache import HostSwapPool
+    from petals_tpu_torch.telemetry.ledger import ResourceLedger
+
+    cache = port_pc.PrefixCache(1 << 20, swap_pool=HostSwapPool(1 << 20), usage_fn=lambda peer: 0.0,
+                                ledger=ResourceLedger())
+    assert cache.swap_frac == jax_pc.CACHE_SWAP_FRAC == port_pc.CACHE_SWAP_FRAC
     with pytest.raises(ValueError, match="policy"):
         port_pc.PrefixCache(1 << 20, policy="fifo")
+
+
+def _swap_ops():
+    """(op, args): tenants' chains that overflow the host budget into the
+    swapped tier and past its share of the swap budget, probes that promote
+    swapped nodes, re-stores of swapped nodes, device promotions."""
+    a, b, c, d = _segments(11, 3), _segments(12, 2), _segments(13, 3), _segments(14, 2)
+    return [
+        ("put", (["a0", "a1", "a2"], 0, *a, True, "tenant-a")),
+        ("put", (["b0", "b1"], 0, *b, False, "tenant-b")),
+        ("probe", (["a0", "a1"],)),
+        ("put", (["c0", "c1", "c2"], 0, *c, True, "tenant-a")),  # demotes leaves into the swapped tier
+        ("probe", (["b0", "b1"],)),  # a swapped chain comes back, demoting others
+        ("put", (["d0", "d1"], 0, *d, False, "tenant-c")),  # over the cache's swap share: swap evictions
+        ("probe", (["a0", "a1", "a2"],)),
+        ("put", (["b0", "b1"], 0, *b, True, "tenant-b")),  # a re-store of swapped nodes
+        ("promote", (["a0", "a1"], 2)),
+        ("worth", (["c0", "c1", "c2"], 0, ENTRY_BYTES, True)),
+        ("probe", (["zz"],)),
+    ]
+
+
+@pytest.mark.parametrize("policy", ["radix", "lru"])
+def test_swapped_tier_matches_petals_tpu(policy):
+    """The swapped tier, tenant-ranked eviction and residency billing on
+    both classes: each fed the same operations, with a swap pool, a usage
+    function (the dominant shares of a ledger each, on clocks advanced in
+    step) and that ledger. After every step: the same answers, the same
+    nodes (swapped or not, whose, device-resident or not), summaries, swap
+    pool stats and per-tenant billed byte-seconds."""
+    from petals_tpu.server.memory_cache import HostSwapPool as JaxSwapPool
+    from petals_tpu.telemetry.ledger import ResourceLedger as JaxLedger
+    from petals_tpu_torch.server.memory_cache import HostSwapPool
+    from petals_tpu_torch.telemetry.ledger import ResourceLedger
+
+    clock = {"t": 0.0}
+    caches = []
+    for pool_cls, ledger_cls, cache_mod in ((HostSwapPool, ResourceLedger, port_pc),
+                                            (JaxSwapPool, JaxLedger, jax_pc)):
+        ledger = ledger_cls(clock=lambda: clock["t"], noisy_min_interval_s=0.0)
+        # tenant-a also holds pages and compute: the dominant tenant
+        key = ledger.open_session("tenant-a")
+        ledger.set_rates({key: 2.0}, 2.0)
+        ledger.note_compute([key], 1.0)
+        pool = pool_cls(6 * ENTRY_BYTES)
+        cache = cache_mod.PrefixCache(4 * ENTRY_BYTES + 10, device_max_bytes=2 * DEVICE_BYTES + 10, policy=policy,
+                                      swap_pool=pool, usage_fn=ledger.peer_dominant_share, ledger=ledger)
+        caches.append((cache, pool, ledger))
+
+    def view(cache):
+        return [(key, e["hits"], e["depth"], e["parent"], sorted(e["children"]), "kd" in e, e["swapped"],
+                 e["tenant"]) for key, e in cache._store.items()]
+
+    for op, args in _swap_ops():
+        clock["t"] += 1.0
+        answers = []
+        for (cache, _, _), torch_side in zip(caches, (True, False)):
+            if op == "put":
+                keys, first, k, v, out, dev, tenant = args
+                if torch_side:
+                    k, v, out = (torch.from_numpy(x.copy()) for x in (k, v, out))
+                    kd, vd = (k, v) if dev else (None, None)
+                else:
+                    kd, vd = (jnp.asarray(k), jnp.asarray(v)) if dev else (None, None)
+                answers.append(cache.put(keys, first, k, v, out, k_dev=kd, v_dev=vd, tenant=tenant))
+            else:
+                answers.append(_apply(cache, op, args, torch_side))
+        (port, port_pool, port_ledger), (ref, ref_pool, ref_ledger) = caches
+        assert answers[0] == answers[1], (op, args)
+        assert view(port) == view(ref), (op, args)
+        assert port.summary() == ref.summary(), (op, args)
+        assert port_pool.stats == ref_pool.stats and port_pool.bytes_in_use == ref_pool.bytes_in_use
+        assert port_ledger.cache_residency() == ref_ledger.cache_residency()
+    port = caches[0][0]
+    if policy == "radix":
+        assert port.stats["demotions"] > 0 and port.stats["swap_evictions"] > 0 and port.stats["promotions"] > 0
+    port.clear()
+    caches[1][0].clear()
+    assert caches[0][1].bytes_in_use == caches[1][1].bytes_in_use == 0
 
 
 # ------------------------------------------------------------------ the server
@@ -461,7 +546,12 @@ def test_handler_checks_page_size_and_scope():
     backend = SimpleNamespace(device=torch.device("cpu"))
 
     def batcher(page_size):
-        return SimpleNamespace(memory_cache=None, queue=None, page_size=page_size)
+        # the swapped tier rides the batcher's swap pool, billed to its ledger
+        from petals_tpu_torch.server.memory_cache import HostSwapPool
+        from petals_tpu_torch.telemetry.ledger import ResourceLedger
+
+        return SimpleNamespace(memory_cache=None, queue=None, page_size=page_size, swap_pool=HostSwapPool(0),
+                               ledger=ResourceLedger())
 
     with pytest.raises(ValueError, match="must divide the prefix-cache segment size"):
         TransformerHandler(backend, batcher(24), dht_prefix="p")
@@ -689,3 +779,56 @@ def test_auto_kv_budget_gives_up_the_hbm_tier(model_path, device_bytes):
     assert port.memory_cache.max_size_bytes == max((2 << 30) - device_bytes, (2 << 30) // 4)
     explicit = Server(model_path, first_block=0, num_blocks=1, device="cpu", throughput=1.0, attn_cache_bytes=1 << 20)
     assert explicit.memory_cache.max_size_bytes == 1 << 20
+
+
+@pytest.mark.parametrize("kind", ["int8", "nf4a"])
+def test_snapshot_from_swap_matches_petals_tpu(model_path, kind):
+    """A suspended lane of a quantized pool read straight from its swap
+    entry (``snapshot_from_swap``, ``dequantize_kv_np``): the same float32
+    rows as petals_tpu's from the same stored rows, and, once the lane is
+    swapped back in, its ``snapshot_lane`` (decoded to bfloat16 on the
+    device path) within a bfloat16 rounding of them."""
+
+    async def scenario(side):
+        kw = dict(batch_lanes=2, batch_max_length=32, page_size=8, n_pages=4, swap_host_bytes=1 << 22,
+                  prefix_cache_bytes=0, kv_quant_type=kind)
+        if side == "port":
+            server = Server(model_path, first_block=0, num_blocks=N_LAYERS, device="cpu",
+                            compute_dtype=torch.float32, throughput=1.0, **kw)
+        else:
+            server = JaxServer(model_path, compute_dtype=jnp.float32, use_flash=False, throughput=1.0,
+                               batching=True, **kw)
+        await server.start()
+        batcher = server.batcher if side == "port" else server.handler.batcher
+        try:
+            lane = await batcher.acquire_lane(timeout=5)
+            await batcher.prepare_write(lane, 0, 20)
+            rows = np.random.RandomState(9).randn(N_LAYERS, 1, 20, 2, 16).astype(np.float32)
+
+            def stamp(kv_lane):
+                k, v = kv_lane
+                if side == "port":
+                    k[:, :, :20] = torch.from_numpy(rows).to(k.dtype)
+                    v[:, :, :20] = -torch.from_numpy(rows).to(v.dtype)
+                    return None, (k, v)
+                return None, (k.at[:, :, :20].set(jnp.asarray(rows, k.dtype)),
+                              v.at[:, :, :20].set(-jnp.asarray(rows, v.dtype)))
+
+            await batcher.run_exclusive(lane, stamp if side == "port" else (lambda kv, _t: stamp(kv)))
+            assert await batcher._swap_out_lane(lane)
+            from_swap = await batcher.snapshot_from_swap(lane, 20, 0, N_LAYERS)
+            assert batcher._scheduler.lanes[lane].suspended  # read without a swap-in
+            resumed = await batcher.snapshot_lane(lane, 20, 0, N_LAYERS)
+            batcher.release_lane(lane)
+            to_np = (lambda t: t.float().numpy()) if side == "port" else (lambda a: np.asarray(a, np.float32))
+            return [to_np(x) for x in from_swap], [to_np(x) for x in resumed]
+        finally:
+            await server.shutdown()
+
+    port = asyncio.run(scenario("port"))
+    ref = asyncio.run(scenario("jax"))
+    for got, want in zip(port[0], ref[0]):
+        assert got.dtype == want.dtype == np.float32
+        np.testing.assert_array_equal(got, want)
+    for decoded, resumed in zip(port[0], port[1]):
+        np.testing.assert_allclose(resumed, decoded, rtol=2**-8, atol=1e-6)
