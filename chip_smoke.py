@@ -346,6 +346,32 @@
    --relay_via, and the port client's greedy stream through the relay,
    equal token for token to its stream from the same server started again
    without the relay.
+19. Sessions that move between port servers (serve_migration_and_check;
+   alone: scripts/smoke_migration.py). Two servers of the 8-block cut built
+   by the CLI (--phase_tier prefill and decode, one announced throughput,
+   lanes of MIGRATE_LANE tokens, no server-side generation, the prefix
+   cache off) and the port client, each run beside the same session
+   unmoved: (c) a MIGRATE_SHORT_PROMPT-token prompt hands off to the
+   decode tier after its prefill (ptu.session_handoff, kv_adopt) and
+   decodes there; (a) a MIGRATE_PROMPT-token session with MIGRATE_STEPS
+   decode steps, then its server drains without migrating, the client
+   exports its KV and imports it into the other server (the export's and
+   import's bytes and ms, client and server side), then a chat turn of
+   MIGRATE_EXTRA tokens (a chunk over the imported pages) and
+   MIGRATE_STEPS more; (e) the same for a private batch-2 session (the
+   chunk runs K4 on the seeded dense cache); (b) a drain that pushes the
+   session to the other server, where the client adopts it (the push's
+   bytes and ms; 0 KV bytes over the client's link), again at SHORT_SPAN
+   blocks on an nf4a pool, the packed entry on the wire; (d) a chain of
+   two 4-block servers with use_server_to_server on and off (pushed
+   steps served, copies skipped, per-token walls). Every bf16 stream
+   equals its unmoved session's; the nf4a one up to the move, then the
+   greedy picks of a reference that re-encodes its rows as the move does
+   (ROADMAP C9). After each move, on the receiving server, K1 and K2 (K3's
+   nf4a arms, K4) are held against their plain versions on the moved
+   cache, and each must have launched on it; every moved session's logits
+   are teacher-forced through the dense reference as phase 13 holds the
+   client's; no capture after warm-up.
 
 float32 matmuls run in full float32: TF32 is switched off for matmuls and
 convolutions. Exits non-zero on any failure. The last line is the JSON
@@ -353,7 +379,9 @@ object ``{"ok": true, "device": {...}}``; the line before it lists the
 kernels with their times, bounds and main-path launch counts (K1/K2 from
 the bf16 run, K3's nf4a arms from the nf4a-pool run and its int8 arms from
 the short int8-pool run, K5's nf4a arm from the nf4a run, its nf4 and int4
-arms and K6 from their short runs, K4 from the private sessions' run). Every run prints its lanes, pages and
+arms and K6 from their short runs, K4 from the private sessions' run), and
+``migration_launches``: K1, K2, K3's nf4a arms and K4 on phase 19's moved
+caches. Every run prints its lanes, pages and
 pool bytes.
 """
 
@@ -539,6 +567,19 @@ QINT8_STEPS = 4
 QINT8_REPLY = (1088, 4096)
 RELAY_PROMPT = 64
 RELAY_NEW = 16
+# phase 19: KV migration between port servers. The 8-layer cut served whole
+# by two servers of the CLI (the prefill and the decode tier, one announced
+# throughput), lanes of MIGRATE_LANE tokens, 4 lanes in half the budget,
+# per-token path (no server-side generation), the prefix cache off
+MIGRATE_LANE = 2048
+MIGRATE_CACHE_TOKENS = 4 * 2 * MIGRATE_LANE
+MIGRATE_PROMPT = 1024  # run a: the session exported over the client's link
+MIGRATE_STEPS = 16  # decode steps before and after each move
+MIGRATE_EXTRA = 8  # tokens a chat turn appends after the move: a chunk over the moved pages
+MIGRATE_SHORT_PROMPT = 300  # runs b and c (>= the client's prefill_tier_tokens)
+MIGRATE_PRIVATE = (2, 64)  # run e: a private session's batch and prompt
+PUSH_PROMPT, PUSH_NEW = 64, 16  # run d: the push chain of two 4-block servers
+MIGRATE_HOLD_ROWS = 8  # the seeded caches' kernel holds: a chunk of this many rows
 
 # K5/K6 at the four projections of a Mistral-7B block as the port serves
 # them (qkv and gate+up fused), at decode batches (1, 4, 8 and 32 rows: one
@@ -1292,7 +1333,9 @@ def write_checkpoint(path: str, device, cfg=None, n_blocks: int = SPAN) -> None:
 def cut_checkpoint(src: str, dst: str, n_layers: int) -> str:
     """A sibling of checkpoint ``src`` whose config says ``n_layers`` layers
     (the depth cut, so a client's model is every block that is served): the
-    same index, its shards linked, not copied."""
+    same index, its shards linked, not copied; one made already is reused."""
+    if os.path.isdir(dst):
+        return dst
     os.makedirs(dst)
     for name in os.listdir(src):
         if name.endswith(".safetensors"):
@@ -1421,15 +1464,19 @@ def quantized_kv_writes(family, kind, written):
 
 
 @torch.no_grad()
-def reference_session(block_params, family, cfg, prompt, steps, device, dtype, kv_quant="none", hypo_ids=None):
+def reference_session(block_params, family, cfg, prompt, steps, device, dtype, kv_quant="none", hypo_ids=None,
+                      reencode=None):
     """One session alone through the port's block functions over a dense
     cache [batch, length, hkv, d] per block, with plain attention, in
     ``dtype``; with a ``kv_quant`` kind, each row enters the cache as the
     quantized pool would hold it. ``hypo_ids`` (one entry per step, None or
     a [batch] lane order) reorders the caches' lanes before the step, as a
-    server does for beam search. Returns the replies and the K/V rows as
-    computed (before any quantization), (k, v) of [n_blocks * batch, length,
-    hkv, d]."""
+    server does for beam search. ``reencode=(i, times)``: before step i the
+    cached rows are encoded and decoded ``times`` times more, as a session
+    moved between quantized pools is (its parked rows packed for the wire,
+    then encoded again as the adopting pool writes them). Returns the
+    replies and the K/V rows as computed (before any quantization), (k, v)
+    of [n_blocks * batch, length, hkv, d]."""
     length = prompt.shape[1] + sum(x.shape[1] for x in steps)
     shape = (prompt.shape[0], length, cfg.num_key_value_heads, cfg.head_dim)
     caches = [
@@ -1443,6 +1490,8 @@ def reference_session(block_params, family, cfg, prompt, steps, device, dtype, k
             if hypo_ids is not None and hypo_ids[i] is not None:
                 order = torch.as_tensor(hypo_ids[i], dtype=torch.long, device=device)
                 caches = [(k[order], v[order]) for k, v in caches]
+            if reencode is not None and reencode[0] == i:
+                caches = [tuple(_reencoded(t, position, kv_quant, reencode[1]) for t in kv) for kv in caches]
             h = x.to(device, dtype)
             for params, kv in zip(block_params, caches):
                 h, _ = family.block_apply(params, h, kv, position, cfg)
@@ -1454,6 +1503,19 @@ def reference_session(block_params, family, cfg, prompt, steps, device, dtype, k
         n = len(block_params)
         k, v = (torch.cat([torch.cat([w[j] for w in written[b::n]], dim=1) for b in range(n)]) for j in (0, 1))
     return outs, (k, v)
+
+
+def _reencoded(cache, n, kind, times):
+    """``cache`` with its rows [0, n) encoded with ``kind`` and decoded back
+    to its dtype ``times`` times."""
+    from petals_tpu_torch.ops.paged_attention import dequantize_kv, quantize_kv_rows
+
+    rows = cache[:, :n]
+    for _ in range(times):
+        rows = dequantize_kv(*quantize_kv_rows(rows.float(), kind), kind, cache.dtype)
+    out = cache.clone()
+    out[:, :n] = rows
+    return out
 
 
 def _rel_errors(got, want):
@@ -2290,13 +2352,7 @@ def _private_kv(server, n_tokens):
     [n_blocks, batch, max_length, hkv, d]: (k, v) of [n_blocks * batch,
     n_tokens, hkv, d]."""
     torch.cuda.synchronize()
-    cache = server.memory_cache
-    pool_handles = set(server.batcher._handles or ())
-    # the newest allocation: an earlier session's cache may not be freed yet
-    handles = sorted(h for h in cache._allocated if h not in pool_handles)[-2:]
-    if len(handles) != 2:
-        raise AssertionError(f"expected a private cache (2 buffers), found handles {handles}")
-    return tuple(buf[:, :, :n_tokens].flatten(0, 1).clone() for buf in cache.get_buffers(*handles))
+    return tuple(buf[:, :, :n_tokens].flatten(0, 1).clone() for buf in _private_buffers(server))
 
 
 async def _drive_private(server, blocks, batch, max_length, step_lens, seed):
@@ -2793,7 +2849,7 @@ def _client_input_faults(tag, steps, hypos, got, tokens, prompt_len, embed):
     return faults
 
 
-def check_client_streams(label, entries, block_params, ckpt, device):
+def check_client_streams(label, entries, block_params, ckpt, device, kv_quant="none", reencode=None):
     """Each recorded session teacher-forced through a dense reference on the
     card: the client's inputs (held to its tokens by _client_input_faults)
     through the served blocks in bf16 and in float32 (reference_session,
@@ -2804,8 +2860,11 @@ def check_client_streams(label, entries, block_params, ckpt, device):
     check_session holds replies); each greedy token's float32 reference
     logit within REPLY_NOISE_FACTOR times the largest absolute bf16 error
     of the reference's largest logit. ``entries``: (session, tag, tokens,
-    prompt length), tag "greedy" or "other". Returns the list of what
-    failed."""
+    prompt length[, the columns of the tokens picked greedily from the
+    steps' logits, one a step, for a stream that also appends tokens of
+    its own]), tag "greedy" or "other". ``kv_quant``: the references
+    write each row as a pool of that kind holds it (``reencode``: see
+    reference_session). Returns the list of what failed."""
     from petals_tpu_torch.server.from_pretrained import get_block_config
 
     family, cfg = get_block_config(ckpt)
@@ -2813,13 +2872,15 @@ def check_client_streams(label, entries, block_params, ckpt, device):
     params_bf16 = dense_reference_params(block_params, torch.bfloat16)
     params_f32 = dense_reference_params(block_params, torch.float32)
     failed = []
-    for n, (session, tag, tokens, prompt_len) in enumerate(entries):
+    for n, (session, tag, tokens, prompt_len, *cols) in enumerate(entries):
         steps, hypos, got = session["steps"], session["hypos"], session["logits"]
         name = f"{label}: stream {n} ({tag}, batch {steps[0].shape[0]}, {len(steps)} steps)"
         input_faults = _client_input_faults(tag, steps, hypos, got, tokens, prompt_len, embed)
         failed += [f"{name}: {what}" for what in input_faults]
         args = (family, cfg, steps[0], steps[1:], device)
-        want = [[ref_logits(o[:, -1]).cpu() for o in reference_session(p, *args, dtype, hypo_ids=hypos)[0]]
+        want = [[ref_logits(o[:, -1]).cpu()
+                 for o in reference_session(p, *args, dtype, kv_quant=kv_quant, hypo_ids=hypos,
+                                            reencode=reencode)[0]]
                 for p, dtype in ((params_bf16, torch.bfloat16), (params_f32, torch.float32))]
         srv, noise = _rel_errors(got, want[0]), _rel_errors(want[0], want[1])
         tol = REPLY_NOISE_FACTOR * max((b - f).abs().max().item() for b, f in zip(*want))
@@ -2832,8 +2893,8 @@ def check_client_streams(label, entries, block_params, ckpt, device):
             line += f"; every step's inputs held to the tokens ({'beam rows' if tag == 'beam' else 'embeddings'})"
         if srv[0] > REPLY_NOISE_FACTOR * noise[0] or srv[1] > REPLY_NOISE_FACTOR * noise[1]:
             failed.append(f"{name}: logits disagree with the dense reference beyond bf16 rounding")
-        if tag == "greedy":
-            new = torch.as_tensor(tokens[:, prompt_len:])
+        if tag == "greedy" or cols:
+            new = torch.as_tensor(tokens[:, cols[0] if cols else slice(prompt_len, None)])
             if new.shape[1] != len(got):
                 failed.append(f"{name}: {new.shape[1]} new tokens from {len(got)} steps' logits")
             else:
@@ -3990,6 +4051,435 @@ def serve_swap_runs(ckpt, device, smi) -> None:
     free_card()
 
 
+class MigrationSpy:
+    """The KV bytes and seconds of the port client's exports (received) and
+    imports (sent), over its own link."""
+
+    def __init__(self):
+        from petals_tpu_torch.client.inference_session import InferenceSession, _ServerInferenceSession
+
+        self.export_bytes = self.import_bytes = 0
+        self.export_s, self.import_s = [], []
+        self._patched = [(InferenceSession, "_export_from"), (_ServerInferenceSession, "import_kv")]
+        self._orig = [getattr(cls, name) for cls, name in self._patched]
+        export_from, import_kv = self._orig
+        spy = self
+
+        async def timed_export(session, *args):
+            t0 = time.perf_counter()
+            got = await export_from(session, *args)
+            spy.export_s.append(time.perf_counter() - t0)
+            if isinstance(got, tuple):
+                spy.export_bytes += sum(t.numel() * t.element_size() for t in got[:2])
+            return got
+
+        async def timed_import(session, k, v, position):
+            t0 = time.perf_counter()
+            await import_kv(session, k, v, position)
+            spy.import_s.append(time.perf_counter() - t0)
+            spy.import_bytes += sum(t.numel() * t.element_size() for t in (k, v))
+
+        InferenceSession._export_from, _ServerInferenceSession.import_kv = timed_export, timed_import
+
+    def close(self):
+        for (cls, name), orig in zip(self._patched, self._orig):
+            setattr(cls, name, orig)
+
+
+def _lane_of(server):
+    """The one busy lane of a server's pool."""
+    batcher = server.batcher
+    busy = [lane for lane in range(batcher.n_lanes) if lane not in batcher._free_lanes]
+    if len(busy) != 1:
+        raise AssertionError(f"expected one busy lane, found {busy}")
+    return busy[0]
+
+
+def hold_seeded_kernels(label, server, position, device, *, private_batch=None):
+    """The kernels held against their plain versions on the cache a moved
+    session now reads on ``server`` (block 0, its rows [0, position)): on a
+    paged lane K1 (a query at position - 1) and K2 (a MIGRATE_HOLD_ROWS-row
+    chunk ending at position), K3's arms on a quantized pool; on a private
+    cache (``private_batch`` rows) K4 on the same chunk. Called after the
+    main path's launch counts were read: these launches do not count."""
+    from petals_tpu_torch.ops import flash_attention as fa
+    from petals_tpu_torch.ops import paged_flash_attention as pfa
+    from petals_tpu_torch.ops.paged_attention import PagedPool, paged_attend, paged_prefill_attend, pool_block
+
+    torch.cuda.synchronize()
+    gen = torch.Generator(device=device).manual_seed(SEED + 19)
+    hq, d, window = MISTRAL_7B["num_attention_heads"], MISTRAL_7B["head_dim"], MISTRAL_7B["sliding_window"]
+    n, chunk_pos = MIGRATE_HOLD_ROWS, position - MIGRATE_HOLD_ROWS
+    if private_batch is not None:
+        k, v = (buf[0, :private_batch] for buf in _private_buffers(server))
+        q = torch.randn(private_batch, n, hq, d, generator=gen, device=device).to(k.dtype)
+        kw = dict(q_offset=chunk_pos, kv_length=position, sliding_window=window)
+        got = fa.flash_attend(q, k, v, **kw)
+        err = (got.float() - fa.flash_attend_reference(q.float(), k, v, **kw)).abs().max().item()
+        log(f"{label}: K4 on the seeded private cache ({private_batch} rows, {n} queries at {chunk_pos}): "
+            f"max abs err {err:.3e} (tol {KERNEL_TOL})")
+        if not torch.isfinite(got).all() or err > KERNEL_TOL:
+            raise AssertionError(f"{label}: K4 disagrees with its plain version on the seeded cache ({err})")
+        return
+    batcher = server.batcher
+    row = torch.as_tensor(batcher._tables[_lane_of(server)].copy(), device=device)
+    kp, vp = (pool_block(pool, 0) for pool in batcher._buffers())
+    quantized = isinstance(kp, PagedPool)
+    plain = (lambda pool: pool) if quantized else (lambda pool: pool.float())  # noqa: E731
+    names = (f"K3 {kp.kind} decode", f"K3 {kp.kind} prefill") if quantized else ("K1", "K2")
+    q = torch.randn(1, 1, hq, d, generator=gen, device=device).to(torch.bfloat16)
+    pos = torch.tensor([position - 1], dtype=torch.int32, device=device)
+    got = pfa.paged_flash_attend(q, kp, vp, row[None], pos, sliding_window=window)
+    want = paged_attend(q.float(), plain(kp), plain(vp), row[None], pos, sliding_window=window)
+    if quantized:
+        err = (got.float() - want).abs().max().item()
+        log(f"{label}: {names[0]} on the moved pages: max abs err {err:.3e} (tol {KERNEL_TOL})")
+        if not torch.isfinite(got).all() or err > KERNEL_TOL:
+            raise AssertionError(f"{label}: {names[0]} disagrees with its plain version on the moved pages ({err})")
+    else:
+        check_lanes(f"{label}: {names[0]} on the moved pages", got, want)
+    qc = torch.randn(1, n, hq, d, generator=gen, device=device).to(torch.bfloat16)
+    got = pfa.paged_flash_prefill_attend(qc, kp, vp, row, *pfa.chunk_scalars(chunk_pos, n, device),
+                                         sliding_window=window)
+    want = paged_prefill_attend(qc.float(), plain(kp), plain(vp), row, chunk_pos, n, sliding_window=window)
+    check_rows(f"{label}: {names[1]} on the moved pages, {n} rows at {chunk_pos}", got, want,
+               KV_ROW_REL_TOL if quantized else ROW_REL_TOL)
+
+
+def _private_buffers(server):
+    """The (k, v) cache of the one open private session of ``server``."""
+    cache = server.memory_cache
+    pool_handles = set(server.batcher._handles or ())
+    # the newest allocation: an earlier session's cache may not be freed yet
+    handles = sorted(h for h in cache._allocated if h not in pool_handles)[-2:]
+    if len(handles) != 2:
+        raise AssertionError(f"expected a private cache (2 buffers), found handles {handles}")
+    return cache.get_buffers(*handles)
+
+
+async def _undrain(server):
+    """A drained server serving again (the smoke reuses its pair): steps and
+    sessions taken, its parked sessions and redirects dropped, ONLINE."""
+    from petals_tpu_torch.data_structures import ServerState
+
+    handler = server.handler
+    handler.draining = False
+    handler._parked.clear()
+    handler._migrated_away.clear()
+    server._state = ServerState.ONLINE
+    await server._announce(ServerState.ONLINE)
+
+
+def serve_migration_and_check(ckpt, device, smi) -> dict:
+    """Phase 19: a session's KV moved between port servers (runs a-e), each
+    against the same session unmoved. Returns the launches on the moved
+    caches by kernel."""
+    from petals_tpu_torch.cli.run_server import build_parser, build_server
+    from petals_tpu_torch.client import AutoDistributedModelForCausalLM
+    from petals_tpu_torch.client.runtime import SwarmRuntime
+    from petals_tpu_torch.dht import DHTNode
+
+    import numpy as np
+
+    t_phase = time.perf_counter()
+    cut, short_cut = (cut_checkpoint(ckpt, os.path.join(ckpt, f"mistral-7b-{n}-layers"), n) for n in (SPAN, SHORT_SPAN))
+    gen = torch.Generator().manual_seed(SEED + 19)
+    vocab = MISTRAL_7B["vocab_size"]
+
+    def ids(shape):
+        return torch.randint(0, vocab, shape, generator=gen).numpy()
+
+    loop = SwarmRuntime()
+    boot, servers = None, []
+    launches = {"K1": 0, "K2": 0, "K3 decode": 0, "K3 prefill": 0, "K4": 0}
+    # (label, recorded session, tag, tokens, prompt length, block params, kv kind, reencode)
+    entries = []
+    try:
+        boot = loop.run(DHTNode.create(host="127.0.0.1"), LOOP_TIMEOUT_S)
+        peers = [boot.own_addr.to_string()]
+
+        def start(path, *args):
+            server = build_server(build_parser().parse_args([
+                path, "--host", "127.0.0.1", "--initial_peers", *peers, "--update_period", str(SWARM_UPDATE_PERIOD),
+                "--no_server_side_generation", *NO_PREFIX_CACHE, "--batch_max_length", str(MIGRATE_LANE),
+                "--attn_cache_tokens", str(MIGRATE_CACHE_TOKENS), *args]))
+            t0 = time.perf_counter()
+            loop.run(server.start(), LOOP_TIMEOUT_S)
+            servers.append(server)
+            log(f"migration: server at [{server.first_block}, {server.first_block + server.num_blocks}) "
+                f"(--phase_tier {server.phase_tier}, --kv_quant_type {server.kv_quant_type}) started in "
+                f"{time.perf_counter() - t0:.1f} s")
+            return server
+
+        def stop(*which):
+            for server in which:
+                check_graph_stats(f"migration: server at [{server.first_block}, "
+                                  f"{server.first_block + server.num_blocks}) {server.phase_tier}",
+                                  server.batcher.stats)
+                loop.run(server.shutdown(), LOOP_TIMEOUT_S)
+                servers.remove(server)
+            free_card()
+
+        def client(path):
+            model = AutoDistributedModelForCausalLM.from_pretrained(
+                path, initial_peers=peers, min_backoff=0.1, ban_timeout=1.0, disagg_handoff=False,
+            )
+            return model, ClientRecorder(model)
+
+        def on(model, session):
+            (span,) = [s.span for s in session._session._sessions]
+            return span.peer_id.to_string()
+
+        def peer(server):
+            return server.dht.peer_id.to_string()
+
+        def counted(fn, moved=True):
+            """Run ``fn`` with the kernels' launch counters at 0; what ran
+            counts as launches on a moved cache when ``moved``."""
+            _reset_launch_counts()
+            out = fn()
+            torch.cuda.synchronize()
+            from petals_tpu_torch.ops import flash_attention as fa
+            from petals_tpu_torch.ops import paged_flash_attention as pfa
+
+            got = {"K1": pfa.paged_flash_attend.launches, "K2": pfa.paged_flash_prefill_attend.launches,
+                   "K3 decode": sum(pfa.paged_flash_attend.kv_quant_launches.values()),
+                   "K3 prefill": sum(pfa.paged_flash_prefill_attend.kv_quant_launches.values()),
+                   "K4": fa.flash_attend.launches}
+            for k, n in got.items():
+                launches[k] += n if moved else 0
+            return out, got
+
+        def turn(model, session, tokens, extra, new_tokens):
+            """A chat turn: the ``extra`` tokens after ``tokens``, then
+            ``new_tokens`` greedy ones."""
+            return model.generate(np.concatenate([tokens, extra], axis=1), max_new_tokens=new_tokens, session=session)
+
+        def moved_run(label, model, rec, prompt, move, target_of, *, private=False, kv="none", params=None):
+            """One session: the prompt and MIGRATE_STEPS greedy tokens, then
+            ``move(source)`` (the source is where the session runs), then a
+            chat turn of MIGRATE_EXTRA tokens and MIGRATE_STEPS greedy ones;
+            the same session unmoved first, whose stream the moved one must
+            equal. On a quantized pool (``kv``) the move encodes the rows
+            twice more (ROADMAP C9: 0.9697 of the scale each time, as
+            petals_tpu does), so there the tokens up to the move must be
+            equal and the later ones the greedy picks of a reference that
+            re-encodes as the move does (check_client_streams). Returns
+            (stream, launches after the move)."""
+            max_length = prompt.shape[1] + 2 * MIGRATE_STEPS + MIGRATE_EXTRA
+            extra = ids((prompt.shape[0], MIGRATE_EXTRA))
+            streams = {}
+            for moved in (False, True):
+                with model.inference_session(max_length=max_length, batch_size=prompt.shape[0]) as session:
+                    first = model.generate(prompt, max_new_tokens=MIGRATE_STEPS, session=session)
+                    source = next(s for s in servers if peer(s) == on(model, session))
+                    target = target_of(source)
+                    if moved:
+                        move_at = len(rec.sessions[-1]["steps"])  # the first step after the move
+                        move(source)
+                    out, got = counted(lambda: turn(model, session, first, extra, MIGRATE_STEPS), moved)
+                    now = on(model, session)
+                    if now != peer(target if moved else source):
+                        raise AssertionError(f"{label}: the session runs on {now[:8]}, not on the "
+                                             f"{'target' if moved else 'source'}")
+                    if moved:
+                        hold_seeded_kernels(label, target, session.position, device,
+                                            private_batch=prompt.shape[0] if private else None)
+                streams[moved] = out
+                if moved:
+                    # a quantized pool's rows are encoded twice more on the way: the
+                    # park's pack for the wire, and the adopting pool's write
+                    p0 = prompt.shape[1]
+                    cols = list(range(p0, p0 + MIGRATE_STEPS)) + list(
+                        range(p0 + MIGRATE_STEPS + MIGRATE_EXTRA, p0 + 2 * MIGRATE_STEPS + MIGRATE_EXTRA))
+                    entries.append((label, rec.sessions[-1], "other", out, p0, params, kv,
+                                    None if kv == "none" else (move_at, 2), cols))
+            n_new = streams[True].shape[1] - prompt.shape[1]
+            before = prompt.shape[1] + MIGRATE_STEPS  # the tokens up to the move
+            if kv == "none" and not np.array_equal(streams[True], streams[False]):
+                raise AssertionError(f"{label}: the moved session's stream {streams[True][0, -24:].tolist()} differs "
+                                     f"from the unmoved one's {streams[False][0, -24:].tolist()}")
+            if not np.array_equal(streams[True][:, :before], streams[False][:, :before]):
+                raise AssertionError(f"{label}: the streams differ before the move")
+            same = int((streams[True] == streams[False]).all(0).cumprod(0).sum()) - prompt.shape[1]
+            log(f"{label}: the moved session's first {same} of {n_new} tokens equal the unmoved session's"
+                + ("" if same == n_new else " (the rest are held to a reference that re-encodes as the move does)")
+                + f"; launches after the move {got}")
+            return streams[True], got
+
+        # ---- the 8-block pair: A the prefill tier, B the decode tier
+        a = start(cut, "--throughput", "1000", "--phase_tier", "prefill")
+        b = start(cut, "--throughput", "1000", "--phase_tier", "decode")
+        params = a.backend.block_params
+        model, rec = client(cut)
+        spy = MigrationSpy()
+        try:
+            model.generate(ids((1, MIGRATE_SHORT_PROMPT)), max_new_tokens=2)  # warm-up: the pools open
+            other = {peer(a): b, peer(b): a}
+
+            def target_of(source):
+                return other[peer(source)]
+
+            # run c: the prefill-to-decode handoff
+            label = "migration c (handoff, prefill tier to decode tier, bf16)"
+            prompt = ids((1, MIGRATE_SHORT_PROMPT))
+            streams = {}
+            for handoff in (False, True):
+                model.remote.sequence_manager.config.disagg_handoff = handoff
+                pushed0 = a.handler.migration_stats["push_bytes"]
+                with model.inference_session(max_length=MIGRATE_SHORT_PROMPT + MIGRATE_STEPS) as session:
+                    first = model.generate(prompt, max_new_tokens=1, session=session)
+                    out, got = counted(lambda: model.generate(first, max_new_tokens=MIGRATE_STEPS - 1, session=session),
+                                       handoff)
+                    stats = session._session._handoff_stats
+                    if handoff:
+                        if stats != {"adopted": 1, "fallback": 0, "replayed": 0} or on(model, session) != peer(b):
+                            raise AssertionError(f"{label}: no clean handoff to the decode tier ({stats})")
+                        if not got["K1"]:
+                            raise AssertionError(f"{label}: K1 never ran on the adopted pages ({got})")
+                        hold_seeded_kernels(label, b, session.position, device)
+                        entries.append((label, rec.sessions[-1], "greedy", out, MIGRATE_SHORT_PROMPT, params, "none",
+                                        None))
+                        log(f"{label}: {a.handler.migration_stats['push_bytes'] - pushed0} bytes pushed A -> B; "
+                            f"launches after the handoff {got}")
+                    elif on(model, session) != peer(a):
+                        raise AssertionError(f"{label}: without the handoff the session left the prefill tier")
+                streams[handoff] = out
+            model.remote.sequence_manager.config.disagg_handoff = False
+            if not np.array_equal(streams[True], streams[False]):
+                raise AssertionError(f"{label}: the handed-off stream differs from the colocated one")
+            log(f"{label}: the handed-off session's {MIGRATE_STEPS} tokens equal the colocated session's")
+
+            # run a: export over the client's link, import on the other server
+            def drain_export(source):
+                loop.run(source.drain(migrate=False), LOOP_TIMEOUT_S)
+
+            def undrain():
+                for server in (a, b):
+                    loop.run(_undrain(server), LOOP_TIMEOUT_S)
+                time.sleep(1.5)  # the client's ban of the drained server lapses
+                model.remote.update_routing()
+
+            label = "migration a (export -> kv_import, bf16)"
+            stats0 = {n: dict(s.handler.migration_stats) for n, s in (("a", a), ("b", b))}
+            _, got = moved_run(label, model, rec, ids((1, MIGRATE_PROMPT)), drain_export, target_of, params=params)
+            if not (got["K1"] and got["K2"]):
+                raise AssertionError(f"{label}: K1 or K2 never ran on the imported pages ({got})")
+            exp = {k: a.handler.migration_stats[k] - stats0["a"][k] for k in ("exports", "export_bytes", "export_s")}
+            imp = {k: b.handler.migration_stats[k] - stats0["b"][k] for k in ("imports", "import_bytes", "import_s")}
+            if exp["exports"] != 1 or imp["imports"] != 1 or spy.export_bytes == 0:
+                raise AssertionError(f"{label}: expected one export and one import ({exp}, {imp})")
+            log(f"{label}: export {spy.export_bytes} bytes received by the client in {spy.export_s[-1] * 1e3:.1f} ms "
+                f"(server: {exp['export_bytes']} wire bytes, {exp['export_s'] * 1e3:.1f} ms); import "
+                f"{spy.import_bytes} bytes sent in {spy.import_s[-1] * 1e3:.1f} ms (server: {imp['import_bytes']} "
+                f"wire bytes, {imp['import_s'] * 1e3:.1f} ms) ({smi})")
+            undrain()
+
+            # run e: a private batch-2 session, exported and imported; the
+            # chat turn's chunk runs K4 on the seeded cache
+            label = f"migration e (a private batch-{MIGRATE_PRIVATE[0]} session, export -> kv_import)"
+            _, got = moved_run(label, model, rec, ids(MIGRATE_PRIVATE), drain_export, target_of, private=True,
+                               params=params)
+            if got["K4"] < SPAN or got["K1"] or got["K2"]:
+                raise AssertionError(f"{label}: K4 did not run on every block of the seeded cache ({got})")
+            undrain()
+
+            # run b: drain-to-migrate, the client adopting at the target
+            label = "migration b (drain -> push -> kv_adopt, bf16)"
+            spy.export_bytes = spy.import_bytes = 0
+            push0 = {k: a.handler.migration_stats[k] for k in ("pushes", "push_bytes", "push_s")}
+            adopt0 = {k: b.handler.migration_stats[k] for k in ("adopts", "adopt_bytes", "adopt_s")}
+            _, got = moved_run(label, model, rec, ids((1, MIGRATE_SHORT_PROMPT)),
+                               lambda source: loop.run(source.drain(migrate=True), LOOP_TIMEOUT_S),
+                               target_of, params=params)
+            push = {k: a.handler.migration_stats[k] - push0[k] for k in push0}
+            adopt = {k: b.handler.migration_stats[k] - adopt0[k] for k in adopt0}
+            if push["pushes"] != 1 or adopt["adopts"] != 1:
+                raise AssertionError(f"{label}: expected one push and one adopt ({push}, {adopt})")
+            if spy.export_bytes or spy.import_bytes:
+                raise AssertionError(f"{label}: KV crossed the client's link ({spy.export_bytes} bytes received, "
+                                     f"{spy.import_bytes} sent)")
+            if not (got["K1"] and got["K2"]):
+                raise AssertionError(f"{label}: K1 or K2 never ran on the adopted pages ({got})")
+            log(f"{label}: push {push['push_bytes']} bytes in {push['push_s'] * 1e3:.1f} ms server to server, "
+                f"adopted ({adopt['adopt_bytes']} bytes) in {adopt['adopt_s'] * 1e3:.1f} ms; the client received 0 KV "
+                f"bytes and sent 0 ({smi})")
+        finally:
+            spy.close()
+            model.close()
+        stop(a, b)
+
+        # run b again on an nf4a pool (SHORT_SPAN blocks): the packed entry crosses the wire
+        a2 = start(short_cut, "--throughput", "1000", "--kv_quant_type", "nf4a")
+        b2 = start(short_cut, "--throughput", "1", "--kv_quant_type", "nf4a")
+        model, rec = client(short_cut)
+        try:
+            model.generate(ids((1, 64)), max_new_tokens=2)  # warm-up
+            label = f"migration b (drain -> push -> kv_adopt, --kv_quant_type nf4a, {SHORT_SPAN} blocks)"
+            push0 = a2.handler.migration_stats["push_bytes"]
+            _, got = moved_run(label, model, rec, ids((1, MIGRATE_SHORT_PROMPT)),
+                               lambda source: loop.run(source.drain(migrate=True), LOOP_TIMEOUT_S),
+                               lambda source: b2, kv="nf4a", params=a2.backend.block_params)
+            if not (got["K3 decode"] and got["K3 prefill"]) or got["K1"] or got["K2"]:
+                raise AssertionError(f"{label}: K3's nf4a arms did not run (alone) on the adopted pages ({got})")
+            log(f"{label}: packed push {a2.handler.migration_stats['push_bytes'] - push0} bytes")
+        finally:
+            model.close()
+        stop(a2, b2)
+
+        # run d: the push chain of two 4-block servers, pushes on and off
+        label = f"migration d (push chain [0, {SWARM_HALF}) -> [{SWARM_HALF}, {SPAN}), bf16)"
+        c = start(cut, "--first_block", "0", "--num_blocks", str(SWARM_HALF), "--throughput", "1000")
+        d = start(cut, "--first_block", str(SWARM_HALF), "--num_blocks", str(SWARM_HALF), "--throughput", "1000")
+        prompt, streams = ids((1, PUSH_PROMPT)), {}
+        for push in (True, False):
+            model = AutoDistributedModelForCausalLM.from_pretrained(cut, initial_peers=peers,
+                                                                    use_server_to_server=push)
+            rec = ClientRecorder(model)
+            try:
+                model.generate(ids((1, 64)), max_new_tokens=2)  # warm-up
+                stats0 = dict(d.handler.migration_stats)
+                streams[push], got = counted(lambda: model.generate(prompt, max_new_tokens=PUSH_NEW), False)
+                st = {k: d.handler.migration_stats[k] - stats0[k]
+                      for k in ("pushed_steps_served", "client_copies_skipped", "pushed_copies_skipped")}
+                walls = [t * 1e3 for t in rec.sessions[-1]["step_s"][1:]]
+                log(f"{label}: use_server_to_server={push}: {st['pushed_steps_served']} pushed steps served, "
+                    f"{st['client_copies_skipped']} client copies and {st['pushed_copies_skipped']} pushed copies "
+                    f"skipped; per-token wall median {statistics.median(walls):.3f} ms ({smi})")
+                skipped = st["client_copies_skipped"] + st["pushed_copies_skipped"]
+                # the last step's second copy may meet a closed session
+                if push and (skipped < PUSH_NEW - 1 or st["pushed_steps_served"] + st["client_copies_skipped"] < 1):
+                    raise AssertionError(f"{label}: every step should reach [{SWARM_HALF}, {SPAN}) twice ({st})")
+                if not push and (skipped or st["pushed_steps_served"]):
+                    raise AssertionError(f"{label}: pushes without use_server_to_server ({st})")
+                if push:
+                    entries.append((label, rec.sessions[-1], "greedy", streams[push], PUSH_PROMPT,
+                                    c.backend.block_params + d.backend.block_params, "none", None))
+            finally:
+                model.close()
+        if not np.array_equal(streams[True], streams[False]):
+            raise AssertionError(f"{label}: the pushed chain's stream differs from the relayed one")
+        log(f"{label}: the streams with and without pushes are equal; launches {got}")
+        stop(c, d)
+
+        # every moved session held to the dense reference, as phase 13 holds the client's
+        failed = []
+        for label, session, tag, tokens, prompt_len, block_params, kv, reencode, *cols in entries:
+            failed += check_client_streams(label, [(session, tag, tokens, prompt_len, *cols)], block_params,
+                                           short_cut if kv != "none" else cut, device, kv_quant=kv,
+                                           reencode=reencode)
+        if failed:
+            raise AssertionError("; ".join(failed))
+    finally:
+        for server in list(servers):
+            loop.run(server.shutdown(), LOOP_TIMEOUT_S)
+        if boot is not None:
+            loop.run(boot.shutdown(), LOOP_TIMEOUT_S)
+        loop.shutdown()
+    log(f"migration: launches on the moved caches {launches}; phase done in {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
 def free_card() -> None:
     """Free what a dropped server held on the card before the next one loads
     (its event-loop objects hold reference cycles, so collect them)."""
@@ -4115,7 +4605,17 @@ def main() -> int:
         free_card()
         # preemption to host memory, qint8 replies and the relay
         serve_swap_runs(ckpt, device, smi)
+        free_card()
+        # KV migration: export/import, drain-to-migrate, the handoff, the push chain
+        moved = serve_migration_and_check(ckpt, device, smi)
+        free_card()
     flash_kernel["launches"] = private_launches["K4"]
+    # the launches on moved (imported, adopted) caches, phase 19
+    kernels[0]["migration_launches"], kernels[1]["migration_launches"] = moved["K1"], moved["K2"]
+    flash_kernel["migration_launches"] = moved["K4"]
+    for entry in kv_kernels:
+        if entry["name"].endswith("[kv_nf4a]"):
+            entry["migration_launches"] = moved["K3 decode" if entry["name"].startswith("paged_decode") else "K3 prefill"]
     kernels[0]["launches"] = bf16_launches["K1"]
     kernels[1]["launches"] = bf16_launches["K2"]
     for entry in kv_kernels:

@@ -22,7 +22,10 @@ and an 8192-token KV budget (in floating-point bytes, whatever the pool's
 encoding, as petals_tpu converts it). A server behind NAT passes
 ``--relay_via host:port`` (the relay a port or petals_tpu bootstrap prints):
 it then listens nowhere and serves through reverse connections the relay
-splices.
+splices. ``--drain_seconds N`` makes the first SIGTERM/SIGINT park the live
+sessions' KV, push it to replicas and keep serving exports for N seconds
+before exiting (a second signal skips the rest); ``--phase_tier`` announces
+the server as a prefill or decode specialist (default: generalist).
 """
 
 from __future__ import annotations
@@ -85,6 +88,10 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--relay_via", default=None,
                         help="host:port of a relay peer (run_dht prints one): serve from behind "
                              "NAT/firewall with no inbound listener (rpc/relay.py)")
+    parser.add_argument("--drain_seconds", type=float, default=0.0,
+                        help="On SIGTERM/SIGINT, park live sessions' KV and keep serving "
+                             "ptu.session_export for this long before exiting, so clients "
+                             "migrate caches to replacements instead of recomputing prefills")
     parser.add_argument("--inference_max_length", type=int, default=None,
                         help="Reject sessions longer than this (default: 8192 for GQA/MQA "
                              "models, 2048 otherwise)")
@@ -124,6 +131,11 @@ def build_parser() -> argparse.ArgumentParser:
                         help="'radix' keys prefix-cache entries into a token-segment radix "
                              "tree with tiered residency (HBM / host) and leaf-first eviction; "
                              "'lru' is the flat insertion-order baseline (A/B comparisons)")
+    parser.add_argument("--phase_tier", choices=["generalist", "prefill", "decode"], default="generalist",
+                        help="Disaggregated serving tier announced to the swarm: 'prefill' "
+                             "replicas soak heavy prompt processing and hand the finished KV "
+                             "to a 'decode' replica over the server-to-server page-push path; "
+                             "'generalist' (default) serves both phases")
     parser.add_argument("--prefix_share_scope", choices=["swarm", "peer"], default="swarm",
                         help="'swarm' shares cached prefixes across all clients (fastest; a client "
                              "can time-probe whether a prompt prefix was recently served); 'peer' "
@@ -194,6 +206,7 @@ def build_server(args: argparse.Namespace) -> Server:
         prefix_device_bytes=args.prefix_device_bytes,
         prefix_cache_policy=args.prefix_cache_policy,
         prefix_share_scope=args.prefix_share_scope,
+        phase_tier=args.phase_tier,
     )
 
 
@@ -205,12 +218,28 @@ def main(argv=None) -> None:
     async def run():
         await server.start()
         print(server.contact_addr.to_string(), flush=True)  # the address peers dial
-        stop = asyncio.Event()
+        stop, force = asyncio.Event(), asyncio.Event()
+
+        def on_signal():
+            # a second signal skips what is left of the drain window
+            (force if stop.is_set() else stop).set()
+
         loop = asyncio.get_running_loop()
         for sig in (signal.SIGINT, signal.SIGTERM):
-            loop.add_signal_handler(sig, stop.set)
+            loop.add_signal_handler(sig, on_signal)
         try:
             await stop.wait()
+            if args.drain_seconds > 0:
+                parked = await server.drain(park_ttl=args.drain_seconds + 30)
+                if parked:
+                    logging.getLogger(__name__).info(
+                        f"Drain window: serving KV exports for {parked} session(s) for "
+                        f"{args.drain_seconds:.0f} s (signal again to skip)"
+                    )
+                    try:
+                        await asyncio.wait_for(force.wait(), args.drain_seconds)
+                    except asyncio.TimeoutError:
+                        pass
         finally:
             await server.shutdown()
 

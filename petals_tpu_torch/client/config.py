@@ -1,13 +1,8 @@
 """Client configuration, every field of petals_tpu/client/config.py:11-102.
 
-Fields whose machinery waits for a later slice are refused at construction
-when set away from their defaults: ``route_upgrade_period`` and
-``route_upgrade_threshold`` (live route upgrades, A9), ``kv_export_timeout``
-and ``handoff_timeout`` (KV export and the prefill-to-decode handoff, A9)
-and ``active_adapter`` (adapters, A13). ``use_server_to_server`` and
-``disagg_handoff`` keep petals_tpu's defaults (True), which do nothing until
-A9; False, what the port does anyway (the client relays every hop and never
-hands a session's KV over), is accepted."""
+Every field takes petals_tpu's default and works as there, except
+``active_adapter`` (adapters, A13), which is refused at construction when
+set."""
 
 from __future__ import annotations
 
@@ -45,7 +40,7 @@ class ClientConfig:
     alloc_timeout: Optional[float] = None
     active_adapter: Optional[str] = None  # A13
 
-    use_server_to_server: bool = True  # inert until A9: the client relays every hop
+    use_server_to_server: bool = True  # each server pushes its output to the next one
 
     # scheduling-priority hint ("high" | "normal" | "low") sent in the
     # session-open message; None sends none
@@ -55,17 +50,23 @@ class ClientConfig:
     # for ("none" | "float16" | "bfloat16" | "qint8")
     compression: str = "none"
 
-    # live route upgrading (A9); 0 disables
+    # live route upgrading: every `route_upgrade_period` seconds a session
+    # re-routes and, when the best chain costs at most
+    # `route_upgrade_threshold` of the current one's estimated latency,
+    # moves its KV there by ptu.session_export; 0 disables
     route_upgrade_period: float = 0.0
     route_upgrade_threshold: float = 0.7
 
-    # deadline of a KV export during repair (A9; repairs replay history)
+    # deadline of a KV export over the client's link during a repair; on
+    # expiry the repair replays the history
     kv_export_timeout: float = 120.0
 
     # phase tiers: a session whose first step feeds at least
     # `prefill_tier_tokens` tokens routes as "prefill", lighter ones as
-    # "decode" (replicas announcing no tier score the same either way); the
-    # prefill-to-decode KV handoff (`disagg_handoff`) waits for A9
+    # "decode" (replicas announcing no tier score the same either way). With
+    # `disagg_handoff`, a session that prefilled on a prefill-tier replica
+    # has its KV pushed to a decode-tier one after the first step, within
+    # `handoff_timeout` seconds; a failed handoff decodes where it prefilled
     prefill_tier_tokens: int = 256
     disagg_handoff: bool = True
     handoff_timeout: float = 30.0
@@ -73,13 +74,10 @@ class ClientConfig:
     def __post_init__(self):
         if self.prefill_tier_tokens <= 0:
             raise ValueError(f"prefill_tier_tokens must be positive, got {self.prefill_tier_tokens}")
-        defaults = {f.name: f.default for f in dataclasses.fields(self)}
-        for name, what in (("route_upgrade_period", "live route upgrades over KV export"),
-                           ("route_upgrade_threshold", "live route upgrades over KV export"),
-                           ("kv_export_timeout", "KV export during repair"),
-                           ("handoff_timeout", "the prefill-to-decode KV handoff")):
-            if getattr(self, name) != defaults[name]:
-                raise NotImplementedError(f"{name}={getattr(self, name)!r} ({what}) waits for A9 in this port")
+        if self.handoff_timeout <= 0:
+            raise ValueError(f"handoff_timeout must be positive, got {self.handoff_timeout}")
+        if self.kv_export_timeout <= 0:
+            raise ValueError(f"kv_export_timeout must be positive, got {self.kv_export_timeout}")
         if self.active_adapter is not None:
             raise NotImplementedError("active_adapter (adapters) waits for A13 in this port")
         if self.max_retries is None:

@@ -6,10 +6,24 @@
   hypo_ids, start_from_position). It records the ``history`` of inputs it
   sent, so a replacement server's KV cache can be rebuilt after a failure.
 - ``InferenceSession`` chains per-span sessions across the whole model. On
-  a step failure it bans the peer, rebuilds the failed span's range only,
-  keeping the healthy sessions and their caches, and replays the recorded
-  history through the new span (``_replay_step``), so every replacement
-  server re-prefills its cache and generation continues unnoticed.
+  a step failure it bans the peer and rebuilds the failed span's range
+  only, keeping the healthy sessions and their caches. The replacement is
+  seeded, in this order, by adopting the KV the failed server pushed to a
+  replica (a ``migrated_to`` redirect: the repair routes there and sends
+  ``kv_adopt``, with no KV bytes on the client's link), by importing the
+  KV it still exports (``ptu.session_export`` -> ``kv_import``, topped up
+  by replaying the steps it missed), or by replaying the recorded history
+  through the new span (``_replay_step``).
+- With ``use_server_to_server`` each server is told to push its output to
+  the next span's session (``push_to``); the client still relays every
+  step, and the next server serves whichever copy comes first. After a
+  repair, a route upgrade or a handoff, the chain is re-linked through the
+  next step's ``push_to``.
+- ``route_upgrade_period`` moves a session onto a clearly faster chain by
+  live export and import; a session that prefilled on a prefill-tier
+  replica hands its KV to a decode-tier one after the first step
+  (``_maybe_phase_handoff``: ``ptu.session_handoff`` on the source,
+  ``kv_adopt`` at the destination), or goes on where it is.
 - ``generate_remote``: over a route of one span covering the whole model
   whose server announces ``server_gen`` (``server_gen_sampling`` for a
   ``sampling`` dict), the server generates a chunk of tokens in one step
@@ -20,15 +34,10 @@
 
 Hidden states are CPU tensors on the wire side (``rpc/serialization.py``).
 
-Left out, each with the slice that takes it (ROADMAP.md): ``import_kv``,
-``adopt_kv``, ``_try_export``, ``_seed_by_import`` / ``_seed_by_adopt``,
-``_maybe_upgrade_route`` / ``_migrate_to``, ``_maybe_phase_handoff`` and
-the server-to-server push wiring (``_wire_push_chain``,
-``_wire_repair_pushes``) and the route-upgrade check after a generated
-chunk (``_maybe_check_route_upgrade``): A9; without push wiring the client
-relays every hop, and a repair always replays. ``IntegrityMonitor``, ``HopTrace``'s
-waterfall, ``trace_report`` and the flight recorder: A11; a hop keeps only
-what routing blame and ``usage_report`` read (``_Hop``).
+Left out, each with the slice that takes it (ROADMAP.md): ``IntegrityMonitor``,
+``HopTrace``'s waterfall, ``trace_report``, the flight recorder and the
+journal events of exports and handoffs: A11; a hop keeps only what routing
+blame and ``usage_report`` read (``_Hop``).
 """
 
 from __future__ import annotations
@@ -45,7 +54,8 @@ import torch
 
 import petals_tpu_torch
 from petals_tpu_torch.client.routing.sequence_manager import RemoteSequenceManager
-from petals_tpu_torch.data_structures import CHAIN_DELIMITER, RemoteSpanInfo
+from petals_tpu_torch.data_structures import CHAIN_DELIMITER, PeerID, RemoteSpanInfo
+from petals_tpu_torch.dht.routing import PeerAddr
 from petals_tpu_torch.rpc.client import StreamCall
 from petals_tpu_torch.rpc.serialization import CompressionType, as_tensor, deserialize_array, serialize_array
 from petals_tpu_torch.server.handler import new_trace_id
@@ -115,6 +125,9 @@ class _ServerInferenceSession:
         self.history: List[tuple] = []
         self.closed = False
         self.session_id: Optional[str] = None
+        # set after a chain repair: a dict retargets this server's pushes,
+        # False stops them; sent with the next step
+        self.pending_push_to = None
         self.echoed_trace_id: Optional[str] = None
         self.hop = _Hop(span.peer_id.to_string())
 
@@ -129,6 +142,7 @@ class _ServerInferenceSession:
         batch_size: int = 1,
         step_timeout: float = 5 * 60,
         session_id: Optional[str] = None,
+        push_to: Optional[dict] = None,
         trace_id: Optional[str] = None,
     ) -> "_ServerInferenceSession":
         stub = await seq_manager.get_stub(span.peer_id)
@@ -146,6 +160,8 @@ class _ServerInferenceSession:
         }
         if session_id:
             open_msg["session_id"] = session_id
+        if push_to:
+            open_msg["push_to"] = push_to
         if trace_id:
             # one id for every server span of the session (and its repairs)
             open_msg["trace_id"] = trace_id
@@ -183,6 +199,30 @@ class _ServerInferenceSession:
                 seq_manager.request_refresh()
         return self
 
+    async def import_kv(self, k, v, position: int) -> None:
+        """Seed this fresh session's server-side KV from an exported cache
+        [blocks, batch, position, hkv, d], before any step."""
+        assert self.position == 0 and not self.history, "import_kv only on a fresh session"
+        await self.stream.send({
+            "kv_import": {"position": int(position)},
+            "tensors": {"k": serialize_array(k), "v": serialize_array(v)},
+        })
+        reply = await self.stream.recv(timeout=self.step_timeout)
+        if not reply.get("kv_import") or reply.get("position") != position:
+            raise RuntimeError(f"kv_import rejected: {reply}")
+        self.position = position
+
+    async def adopt_kv(self, source_session_id: str, position: int) -> None:
+        """Seed this fresh session from KV the SERVER already holds (pushed
+        there by a draining or handing-off peer, or its own parked copy):
+        only ids cross the client's link."""
+        assert self.position == 0 and not self.history, "adopt_kv only on a fresh session"
+        await self.stream.send({"kv_adopt": {"session_id": source_session_id, "position": int(position)}})
+        reply = await self.stream.recv(timeout=self.step_timeout)
+        if not reply.get("kv_adopt") or reply.get("position") != position:
+            raise RuntimeError(f"kv_adopt rejected: {reply}")
+        self.position = position
+
     async def step(
         self,
         hidden,
@@ -199,6 +239,9 @@ class _ServerInferenceSession:
         msg = {"tensors": {"hidden": serialize_array(hidden, comp)}}
         if step_id is not None:
             msg["step_id"] = step_id
+        if self.pending_push_to is not None:
+            msg["push_to"] = self.pending_push_to or None
+            self.pending_push_to = None
         if prompts is not None:
             msg["tensors"]["prompts"] = serialize_array(prompts, comp)
         if hypo_ids is not None:
@@ -296,6 +339,10 @@ class InferenceSession:
         # carries >= config.prefill_tier_tokens tokens, else "decode");
         # decode after the first step, for repairs
         self._phase: Optional[str] = None
+        # the handoff tally: adopts, fallbacks to decoding colocated, and
+        # adopts that had to replay a tail
+        self._handoff_stats = {"adopted": 0, "fallback": 0, "replayed": 0}
+        self._last_route_check = time.monotonic()
         # one trace id for the whole session, minted here: every server span
         # (replacements included) opens with it
         self.trace_id: str = new_trace_id()
@@ -378,7 +425,12 @@ class InferenceSession:
 
         self._position += n_input_tokens
         self._tokens += n_input_tokens
+        if self._phase == "prefill":
+            # the prefill is done and decoding begins: hand the KV to a
+            # decode-tier replica (a step boundary: the adopt never replays)
+            await self._maybe_phase_handoff()
         self._phase = "decode"  # repairs after the first step route decode-ward
+        await self._maybe_check_route_upgrade()
         return inputs
 
     def _spans_support_server_gen(self, spans, sampling: bool = False) -> bool:
@@ -442,6 +494,7 @@ class InferenceSession:
         self._position += fed
         self._tokens += fed
         self._phase = "decode"
+        await self._maybe_check_route_upgrade()
         return tokens
 
     def _backoff(self, attempt: int) -> float:
@@ -520,17 +573,28 @@ class InferenceSession:
                 return i
         return None
 
-    async def _enter_server_sessions(self, chain: List[RemoteSpanInfo]) -> List[_ServerInferenceSession]:
-        """Open one session per span (the server-to-server push petals_tpu
-        wires here waits for A9: the client relays every hop)."""
+    async def _enter_server_sessions(self, chain: List[RemoteSpanInfo],
+                                     wire_push: bool = True) -> List[_ServerInferenceSession]:
+        """Open one session per span. With ``use_server_to_server`` each
+        server is told to push its outputs to the next span's session. A
+        repair passes ``wire_push=False``, so that seeding the fresh
+        sessions never leaks pushed steps into the surviving downstream
+        chain; it links them afterwards through ``pending_push_to``."""
+        use_push = wire_push and self.seq_manager.config.use_server_to_server and len(chain) > 1
+        session_ids = [uuid.uuid4().hex for _ in chain]
         sessions = []
         try:
-            for span in chain:
+            for i, span in enumerate(chain):
                 uids = self.seq_manager.block_uids[span.start : span.end]
+                push_to = None
+                if use_push and i + 1 < len(chain):
+                    next_addr = self.seq_manager.addr_of(chain[i + 1].peer_id)
+                    if next_addr is not None:
+                        push_to = {"addr": next_addr.to_string(), "session_id": session_ids[i + 1]}
                 try:
                     session = await _ServerInferenceSession.create(
-                        self.seq_manager, span, uids, max_length=self.max_length,
-                        batch_size=self.batch_size, session_id=uuid.uuid4().hex, trace_id=self.trace_id,
+                        self.seq_manager, span, uids, max_length=self.max_length, batch_size=self.batch_size,
+                        session_id=session_ids[i], push_to=push_to, trace_id=self.trace_id,
                     )
                 except Exception:
                     # blame the hop that refused, so the retry routes around it
@@ -550,8 +614,10 @@ class InferenceSession:
     async def _repair_chain(self, failed_block: int) -> int:
         """Repair only the failed span's range [resume, dead_end), keeping the
         healthy sessions upstream and downstream, and their caches, alive.
-        The replacement is seeded by replaying the recorded input history
-        (KV export and migration wait for A9). Returns the block index to
+        The replacement is seeded by adopting the KV the failed server
+        pushed to a replica (its export answers with a redirect, and the
+        routing prefers that replica), else by importing the KV it exports,
+        else by replaying the recorded history. Returns the block index to
         resume from."""
         dead: Optional[_ServerInferenceSession] = None
         for session in self._sessions:
@@ -567,14 +633,30 @@ class InferenceSession:
         keep_up = [s for s in self._sessions if s.span.end <= resume and not s.closed]
         keep_down = [s for s in self._sessions if s.span.start >= dead_end and not s.closed and s is not dead]
         drop = [s for s in self._sessions if s not in keep_up and s not in keep_down]
+        # ask the failed server for the hole's KV BEFORE closing anything (a
+        # drained server serves exports after its streams died), or for the
+        # replica it pushed the KV to
+        exported = redirect = None
+        if dead is not None and dead.session_id and self._position > 0:
+            got = await self._try_export(dead.span.peer_id, dead.session_id, resume, dead_end)
+            if isinstance(got, dict):
+                redirect = got["migrated_to"]
+            else:
+                exported = got
         self._retire_hops(drop)
         for session in drop:
             await session.close()
+        prefer_peers = None
+        if redirect is not None and redirect.get("peer_id"):
+            try:
+                prefer_peers = (PeerID.from_string(redirect["peer_id"]),)
+            except (ValueError, TypeError):
+                prefer_peers = None
 
         # building and seeding is a chain of RPCs as exposed to the fault as
         # the step that failed: retry the whole attempt with the step loop's
-        # backoff; `replay_steps` was captured once, so every attempt reseeds
-        # from the full history
+        # backoff; `replay_steps`, `exported` and `redirect` were captured
+        # once, so every attempt reseeds from the same sources
         attempt = 0
         while True:
             new_sessions = []
@@ -583,17 +665,39 @@ class InferenceSession:
                 new_chain = await self.seq_manager.make_sequence(
                     resume, dead_end, mode="min_latency",
                     cache_tokens_needed=self.batch_size * self.max_length,
-                    affinity_seed=self._affinity_seed,
+                    affinity_seed=self._affinity_seed, prefer_peers=prefer_peers,
                 )
-                new_sessions = await self._enter_server_sessions(new_chain)
+                new_sessions = await self._enter_server_sessions(new_chain, wire_push=False)
                 self._sessions = sorted(keep_up + new_sessions + keep_down, key=lambda s: s.span.start)
-                # re-prefill the hole, repeating each recorded step (and its
-                # beam-lane reorder, hypo_ids) in the original order
-                for hidden_step, hypo_step in replay_steps:
-                    chunk = hidden_step
-                    step_id = uuid.uuid4().hex
-                    for session in new_sessions:
-                        chunk = await self._replay_step(session, chunk, hypo_step, step_id)
+                # a single-span hole only: a split one would leave the later
+                # spans without an input history for a later failover
+                seeded = False
+                if (redirect is not None and prefer_peers and len(new_sessions) == 1
+                        and new_sessions[0].span.peer_id == prefer_peers[0] and dead is not None):
+                    try:
+                        seeded = await self._seed_by_adopt(
+                            new_sessions[0], dead.session_id, int(redirect["position"]), replay_steps,
+                        )
+                    except Exception as e:
+                        logger.warning(f"KV adopt failed, falling back: {e!r}")
+                        # the stream's state is unknown after a failed adopt
+                        new_sessions = await self._reopen(new_sessions, new_chain, keep_up, keep_down)
+                if not seeded and redirect is not None and exported is None and dead is not None:
+                    exported = await self._fetch_migrated(redirect, dead.session_id, resume, dead_end)
+                if not seeded and exported is not None and len(new_sessions) == 1:
+                    try:
+                        seeded = await self._seed_by_import(new_sessions[0], exported, replay_steps)
+                    except Exception as e:
+                        logger.warning(f"KV import failed, replaying history instead: {e!r}")
+                        new_sessions = await self._reopen(new_sessions, new_chain, keep_up, keep_down)
+                if not seeded:
+                    # re-prefill the hole, repeating each recorded step (and its
+                    # beam-lane reorder, hypo_ids) in the original order
+                    for hidden_step, hypo_step in replay_steps:
+                        chunk = hidden_step
+                        step_id = uuid.uuid4().hex
+                        for session in new_sessions:
+                            chunk = await self._replay_step(session, chunk, hypo_step, step_id)
                 break
             except Exception as e:
                 attempt += 1
@@ -612,12 +716,339 @@ class InferenceSession:
                     f"retrying in {delay:.1f}s: {e!r}"
                 )
                 await asyncio.sleep(delay)
+        self._wire_repair_pushes(keep_up, new_sessions, keep_down, dead_end)
         return resume
+
+    async def _reopen(self, new_sessions, new_chain, keep_up, keep_down) -> List[_ServerInferenceSession]:
+        """Close the fresh sessions of a repair (a failed adopt or import
+        leaves their streams in an unknown state) and open them again."""
+        for session in new_sessions:
+            await session.close()
+        new_sessions = await self._enter_server_sessions(new_chain, wire_push=False)
+        self._sessions = sorted(keep_up + new_sessions + keep_down, key=lambda s: s.span.start)
+        return new_sessions
 
     async def _replay_step(self, session, chunk, hypo_step, step_id):
         span = session.span
         server_prompts = self._last_prompts[span.start : span.end] if self._last_prompts is not None else None
         return await session.step(chunk, prompts=server_prompts, hypo_ids=hypo_step, step_id=step_id)
+
+    def _export_compression(self) -> str:
+        """The session's wire codec for a KV export, but bfloat16 for qint8:
+        blockwise int8 of the KV would degrade every later token, where the
+        replay it stands in for is exact."""
+        comp = self.seq_manager.config.compression
+        return CompressionType.BFLOAT16.value if comp == CompressionType.QINT8.value else comp
+
+    async def _export_from(self, stub, session_id: str, start: int, end: int):
+        """One ``ptu.session_export`` call: (k, v, position), a
+        ``{"migrated_to": ...}`` redirect, or None for another batch size."""
+        reply = await asyncio.wait_for(
+            stub.call("ptu.session_export", {"session_id": session_id, "start": start, "end": end,
+                                             "compression": self._export_compression()}),
+            timeout=self.seq_manager.config.kv_export_timeout,
+        )
+        fwd = reply.get("migrated_to")
+        if isinstance(fwd, dict) and fwd.get("addr"):
+            return {"migrated_to": fwd}
+        if int(reply.get("batch_size", -1)) != self.batch_size:
+            return None
+        k = deserialize_array(reply["tensors"]["k"])
+        v = deserialize_array(reply["tensors"]["v"])
+        return k, v, int(reply["position"])
+
+    async def _try_export(self, peer_id, session_id: str, start: int, end: int):
+        """The failed span's KV from its (maybe draining) server: (k, v,
+        position), a ``{"migrated_to": ...}`` redirect when it pushed the KV
+        to a peer, or None, and the caller replays. A quick liveness probe
+        first, so that a dead peer costs seconds and not the transfer's
+        ``kv_export_timeout``."""
+        try:
+            stub = await asyncio.wait_for(self.seq_manager.get_stub(peer_id), timeout=5)
+            await asyncio.wait_for(stub.call("ptu.info", {}), timeout=3)
+            got = await self._export_from(stub, session_id, start, end)
+            if isinstance(got, dict):
+                logger.info(f"Session KV moved from {peer_id.to_string()[:8]} to "
+                            f"{str(got['migrated_to'].get('peer_id'))[:8]}: retargeting")
+            return got
+        except Exception as e:
+            logger.info(f"KV export unavailable from {peer_id.to_string()[:8]}: {e!r}")
+            return None
+
+    async def _fetch_migrated(self, fwd: dict, session_id: str, start: int, end: int):
+        """The failed server pushed the KV to a peer, but the new chain did
+        not land there (or the adopt failed): pull the migrated copy from
+        its new home over the client's link. One forwarding hop only."""
+        try:
+            stub = await asyncio.wait_for(self.seq_manager.pool.get_addr(PeerAddr.from_string(fwd["addr"])), timeout=5)
+            got = await self._export_from(stub, session_id, start, end)
+            return None if isinstance(got, dict) else got
+        except Exception as e:
+            logger.info(f"Migrated KV unavailable from {fwd.get('addr')}: {e!r}")
+            return None
+
+    def _cut_at_step(self, export_pos: int, replay_steps) -> tuple:
+        """(tokens, steps) of the longest prefix of the history whose length
+        fits in ``export_pos`` and the session's position: a seed cuts at a
+        step boundary, so each step's hypo_ids reorder stays whole. (0, 0)
+        when the export is AHEAD of the client (a step's reply was lost: a
+        hypo_ids reorder in it would leave the cache permuted against the
+        history; the replay is exact)."""
+        if export_pos > self._position:
+            return 0, 0
+        cut = n_prefix = 0
+        for hidden_step, _ in replay_steps:
+            if cut + hidden_step.shape[1] > export_pos:
+                break
+            cut += hidden_step.shape[1]
+            n_prefix += 1
+        return cut, n_prefix
+
+    async def _seed_by_import(self, session, exported, replay_steps) -> bool:
+        """Import exported KV up to a history step boundary, then replay the
+        recorded steps past it (a parked export can be a little stale)."""
+        k, v, export_pos = exported
+        cut, n_prefix = self._cut_at_step(export_pos, replay_steps)
+        if cut <= 0:
+            return False
+        await session.import_kv(k[:, :, :cut], v[:, :, :cut], cut)
+        session.history = [tuple(step) for step in replay_steps[:n_prefix]]
+        for hidden_step, hypo_step in replay_steps[n_prefix:]:
+            await self._replay_step(session, hidden_step, hypo_step, uuid.uuid4().hex)
+        logger.info(f"Imported {cut} cached tokens into {session.span.peer_id.to_string()[:8]} "
+                    f"(+{len(replay_steps) - n_prefix} replayed steps)")
+        return True
+
+    async def _seed_by_adopt(self, session, source_session_id: str, export_pos: int, replay_steps) -> bool:
+        """Adopt migrated KV already on the replacement server, up to a
+        history step boundary, then replay the steps past it; the KV never
+        crosses the client's link."""
+        cut, n_prefix = self._cut_at_step(export_pos, replay_steps)
+        if cut <= 0:
+            return False
+        await session.adopt_kv(source_session_id, cut)
+        session.history = [tuple(step) for step in replay_steps[:n_prefix]]
+        for hidden_step, hypo_step in replay_steps[n_prefix:]:
+            await self._replay_step(session, hidden_step, hypo_step, uuid.uuid4().hex)
+        logger.info(f"Adopted {cut} migrated tokens on {session.span.peer_id.to_string()[:8]} "
+                    f"(+{len(replay_steps) - n_prefix} replayed steps)")
+        return True
+
+    async def _maybe_check_route_upgrade(self) -> None:
+        """The periodic better-chain check, after a step or a generated
+        chunk alike (a session served by generation RPCs alone must still
+        move onto a faster server that joins)."""
+        period = self.seq_manager.config.route_upgrade_period
+        if period and time.monotonic() - self._last_route_check >= period:
+            self._last_route_check = time.monotonic()
+            try:
+                await self._maybe_upgrade_route()
+            except Exception as e:
+                logger.warning(f"Route upgrade check failed (continuing as is): {e!r}")
+
+    async def _maybe_upgrade_route(self) -> bool:
+        """Move the session onto a clearly better chain (a fast server
+        joined, congestion cleared) by live ``ptu.session_export``, with no
+        prefill recomputed. The current chain serves until every
+        replacement is seeded, and any failure abandons the attempt."""
+        current = [s for s in self._sessions if not s.closed]
+        if not current or self._position == 0:
+            return False
+        await self.seq_manager.update()
+        tokens_needed = self.batch_size * self.max_length
+        candidate = await self.seq_manager.make_sequence(
+            0, self.num_blocks, mode="min_latency", cache_tokens_needed=tokens_needed,
+            affinity_seed=self._affinity_seed,
+        )
+        if [(c.peer_id, c.start, c.end) for c in candidate] == [(s.span.peer_id, s.span.start, s.span.end)
+                                                                  for s in current]:
+            return False
+        cur_cost = self.seq_manager.estimate_chain_latency([s.span for s in current], cache_tokens_needed=tokens_needed)
+        new_cost = self.seq_manager.estimate_chain_latency(candidate, cache_tokens_needed=tokens_needed)
+        if new_cost > self.seq_manager.config.route_upgrade_threshold * cur_cost:
+            return False
+        # the latency model is blind to server-side generation, which
+        # amortizes the round trip over whole chunks: never trade it away
+        if self.server_gen_available() and not self._spans_support_server_gen(candidate):
+            return False
+        # each new span's input history must exist on the client: its start
+        # must be a current span's start
+        starts = {s.span.start for s in current}
+        if any(c.start not in starts for c in candidate):
+            return False
+        logger.info(f"Upgrading route (estimated {cur_cost * 1e3:.0f} -> {new_cost * 1e3:.0f} ms/token)")
+        return await self._migrate_to(candidate, current)
+
+    async def _migrate_to(self, chain, current) -> bool:
+        """Open sessions for ``chain``, seeding each NEW span by exports of
+        the live current sessions (sliced by block, joined across their
+        boundaries); a current session that matches a span is kept."""
+        by_start = {s.span.start: s for s in current}
+        new_sessions: List[_ServerInferenceSession] = []
+        created: List[_ServerInferenceSession] = []
+        try:
+            for span in chain:
+                existing = by_start.get(span.start)
+                if existing is not None and existing.span.peer_id == span.peer_id and existing.span.end == span.end:
+                    new_sessions.append(existing)
+                    continue
+                # the (cheap) open before the (expensive) exports: a candidate
+                # that refuses the open must not cost a KV transfer
+                uids = self.seq_manager.block_uids[span.start : span.end]
+                session = await _ServerInferenceSession.create(
+                    self.seq_manager, span, uids, max_length=self.max_length, batch_size=self.batch_size,
+                    session_id=uuid.uuid4().hex, trace_id=self.trace_id,
+                )
+                created.append(session)
+                pieces, export_pos = [], self._position
+                for cur in sorted(current, key=lambda s: s.span.start):
+                    lo, hi = max(cur.span.start, span.start), min(cur.span.end, span.end)
+                    if lo >= hi:
+                        continue
+                    got = await self._try_export(cur.span.peer_id, cur.session_id, lo, hi)
+                    if got is None or isinstance(got, dict):
+                        # a redirect: the live session moved meanwhile, and the
+                        # repair path handles it
+                        raise RuntimeError(f"export of blocks [{lo}, {hi}) unavailable")
+                    pieces.append(got)
+                    export_pos = min(export_pos, got[2])
+                k_all = torch.cat([k[:, :, :export_pos] for k, _, _ in pieces], dim=0)
+                v_all = torch.cat([v[:, :, :export_pos] for _, v, _ in pieces], dim=0)
+                if k_all.shape[0] != span.end - span.start:
+                    raise RuntimeError(f"exported {k_all.shape[0]} blocks for span [{span.start}, {span.end})")
+                if not await self._seed_by_import(session, (k_all, v_all, export_pos),
+                                                  by_start[span.start].history_steps()):
+                    raise RuntimeError("the exported cache is too stale (or ahead of us) to seed from")
+                new_sessions.append(session)
+        except Exception as e:
+            logger.warning(f"Route upgrade abandoned (staying on the current chain): {e!r}")
+            for session in created:
+                await session.close()
+            # back off: the same doomed attempt must not repeat every period
+            self._last_route_check = time.monotonic() + 4 * self.seq_manager.config.route_upgrade_period
+            return False
+        replaced = [s for s in current if s not in new_sessions]
+        self._retire_hops(replaced)
+        for session in replaced:
+            await session.close()
+        self._sessions = new_sessions
+        self._wire_push_chain(new_sessions)
+        return True
+
+    async def _maybe_phase_handoff(self) -> None:
+        """The prefill-to-decode handoff: a session that just prefilled on a
+        prefill-tier replica routes its decoding onto decode-tier replicas,
+        the KV moving server to server (``ptu.session_handoff`` on the
+        source, ``kv_adopt`` at the destination). The cut is the step
+        boundary, so the adopt never replays and no KV crosses the client's
+        link. Any failure decodes where the session prefilled: the current
+        chain keeps serving."""
+        cfg = self.seq_manager.config
+        self._phase = "decode"  # later routing (repairs) scores decode-ward
+        if not cfg.disagg_handoff or self._position == 0:
+            return
+        current = [s for s in self._sessions if not s.closed]
+        if not current or not any(getattr(s.span.server_info, "phase_tier", None) == "prefill" for s in current):
+            return  # nothing prefill-tiered to hand off from
+
+        def fallback(reason: str) -> None:
+            self._handoff_stats["fallback"] += 1
+            logger.info(f"Phase handoff skipped, decoding colocated: {reason}")
+
+        try:
+            candidate = await self.seq_manager.make_sequence(
+                0, self.num_blocks, mode="min_latency", cache_tokens_needed=self.batch_size * self.max_length,
+                affinity_seed=self._affinity_seed, phase="decode",
+            )
+        except Exception as e:
+            fallback(f"decode routing failed: {e!r}")
+            return
+        # whole spans move: the decode chain must cut where the prefill one does
+        if [(c.start, c.end) for c in candidate] != [(s.span.start, s.span.end) for s in current]:
+            fallback("decode chain spans misaligned with prefill chain")
+            return
+        moves = [(old, span) for old, span in zip(current, candidate) if span.peer_id != old.span.peer_id]
+        if not moves:
+            fallback("no better decode-tier replica than the prefill chain")
+            return
+        if not all(getattr(span.server_info, "phase_tier", None) == "decode" for _, span in moves):
+            fallback("best decode chain is not decode-tiered")  # moving to a generalist buys nothing
+            return
+        replaced: List[_ServerInferenceSession] = []
+        created: List[_ServerInferenceSession] = []
+        try:
+            for old, span in moves:
+                addr = self.seq_manager.addr_of(span.peer_id)
+                if addr is None:
+                    raise RuntimeError(f"no address for decode replica {span.peer_id.to_string()[:8]}")
+                # the source pushes the KV as of this step boundary to the replica
+                stub = await self.seq_manager.get_stub(old.span.peer_id)
+                reply = await asyncio.wait_for(
+                    stub.call("ptu.session_handoff", {
+                        "session_id": old.session_id, "peer_id": span.peer_id.to_string(),
+                        "addr": addr.to_string(), "deadline_s": cfg.handoff_timeout,
+                    }),
+                    timeout=cfg.handoff_timeout + 5.0,
+                )
+                if not reply.get("ok"):
+                    raise RuntimeError(f"source refused handoff: {reply}")
+                # a fresh session there adopts it in place
+                uids = self.seq_manager.block_uids[span.start : span.end]
+                session = await _ServerInferenceSession.create(
+                    self.seq_manager, span, uids, max_length=self.max_length, batch_size=self.batch_size,
+                    session_id=uuid.uuid4().hex, trace_id=self.trace_id,
+                )
+                created.append(session)
+                export_pos = int(reply["position"])
+                if export_pos < self._position:
+                    self._handoff_stats["replayed"] += 1  # the cut missed the boundary: the adopt replays
+                if not await self._seed_by_adopt(session, old.session_id, export_pos, old.history_steps()):
+                    raise RuntimeError("pushed KV too stale to adopt")
+                replaced.append(old)
+        except Exception as e:
+            for session in created:
+                try:
+                    await session.close()
+                except Exception:
+                    pass  # best effort: the prefill chain is still live
+            fallback(repr(e))
+            return
+        by_old = dict(zip(replaced, created))
+        self._sessions = sorted([by_old.get(s, s) for s in current], key=lambda s: s.span.start)
+        self._retire_hops(replaced)
+        for old in replaced:
+            try:
+                await old.close()
+            except Exception:
+                pass  # the source may already be tearing the lane down
+        self._wire_push_chain(self._sessions)
+        self._handoff_stats["adopted"] += len(replaced)
+
+    def _push_target(self, session) -> Optional[dict]:
+        if session is None or not session.session_id:
+            return None
+        addr = self.seq_manager.addr_of(session.span.peer_id)
+        return None if addr is None else {"addr": addr.to_string(), "session_id": session.session_id}
+
+    def _wire_push_chain(self, sessions: List[_ServerInferenceSession]) -> None:
+        """Point each session's pushes at the next one (sent with its next step)."""
+        if not self.seq_manager.config.use_server_to_server:
+            return
+        for i, session in enumerate(sessions):
+            nxt = sessions[i + 1] if i + 1 < len(sessions) else None
+            session.pending_push_to = self._push_target(nxt) or False
+
+    def _wire_repair_pushes(self, keep_up, new_sessions, keep_down, dead_end: int) -> None:
+        """Re-link the push chain around a repaired hole (the surviving
+        upstream server still pushes to a dead session id)."""
+        if not self.seq_manager.config.use_server_to_server:
+            return
+        downstream = keep_down[0] if keep_down and keep_down[0].span.start == dead_end else None
+        chain = list(new_sessions) + [downstream]
+        for i, session in enumerate(new_sessions):
+            session.pending_push_to = self._push_target(chain[i + 1]) or False
+        if keep_up:
+            keep_up[-1].pending_push_to = self._push_target(new_sessions[0] if new_sessions else None) or False
 
     async def close(self) -> None:
         if not self._closed:

@@ -42,9 +42,9 @@ from petals_tpu_torch.utils.version import incompatibility_error, is_compatible
 logger = logging.getLogger(__name__)
 
 CACHE_MISS_PENALTY = 10.0  # seconds added when a server's KV cache can't fit us
-# petals_tpu's bonus for a peer that holds a session's migrated KV
-# (PREFER_PEER_BONUS_S, ``prefer_peers``) and its chain-latency estimate for
-# route upgrades (``estimate_chain_latency``) wait for A9 with KV migration.
+# the discount of a peer that holds a session's migrated KV (``prefer_peers``):
+# a repair lands there and adopts it, with no KV bytes on the client's link
+PREFER_PEER_BONUS_S = 10.0
 # Disaggregated serving (phase tiers): when a route is built FOR a phase
 # ("prefill" heavy prompt processing / "decode" token generation), a replica
 # announcing the matching tier gets a discount and a mismatched specialist
@@ -444,6 +444,7 @@ class RemoteSequenceManager:
         mode: str = "min_latency",
         cache_tokens_needed: Optional[int] = None,
         affinity_seed: Optional[int] = None,
+        prefer_peers: Optional[Sequence[PeerID]] = None,
         phase: Optional[str] = None,
     ) -> List[RemoteSpanInfo]:
         end_index = end_index if end_index is not None else len(self.block_uids)
@@ -467,7 +468,7 @@ class RemoteSequenceManager:
         if mode == "min_latency":
             sequence = self._make_sequence_min_latency(
                 start_index, end_index, cache_tokens_needed, affinity_seed,
-                phase=phase,
+                prefer_peers=prefer_peers, phase=phase,
             )
         elif mode == "max_throughput":
             sequence = self._make_sequence_max_throughput(start_index, end_index)
@@ -483,7 +484,7 @@ class RemoteSequenceManager:
             sequence = (
                 self._make_sequence_min_latency(
                     start_index, end_index, cache_tokens_needed, affinity_seed,
-                    phase=phase,
+                    prefer_peers=prefer_peers, phase=phase,
                 )
                 if mode == "min_latency"
                 else self._make_sequence_max_throughput(start_index, end_index)
@@ -532,6 +533,7 @@ class RemoteSequenceManager:
     def _make_sequence_min_latency(
         self, start: int, end: int, cache_tokens_needed: Optional[int],
         affinity_seed: Optional[int] = None,
+        prefer_peers: Optional[Sequence[PeerID]] = None,
         phase: Optional[str] = None,
     ) -> List[RemoteSpanInfo]:
         """Dijkstra over (block, peer) states; edge = RTT + per-block decode cost
@@ -559,7 +561,7 @@ class RemoteSequenceManager:
                 edge = self._edge_cost(
                     peer, span.peer_id, info, next_block - block, cache_tokens_needed,
                     affinity_jitter=jitter(span.peer_id),
-                    phase=phase,
+                    prefer_peers=prefer_peers, phase=phase,
                 )
                 nkey = (next_block, span.peer_id)
                 ncost = cost + edge
@@ -590,10 +592,12 @@ class RemoteSequenceManager:
     def _edge_cost(
         self, prev_peer, peer_id, info, n_blocks: int, cache_tokens_needed: Optional[int],
         *, affinity_jitter: float = 0.0,
+        prefer_peers: Optional[Sequence[PeerID]] = None,
         phase: Optional[str] = None,
     ) -> float:
         """One chain hop's cost: RTT + per-block decode cost + cache-miss
-        penalty, the edge model of the Dijkstra.
+        penalty, the edge model shared by the Dijkstra and
+        ``estimate_chain_latency``.
 
         ``affinity_jitter`` (prompt-prefix affinity, up to AFFINITY_JITTER_S
         = 5 ms): a deterministic per-(prompt, peer) bias that consistently
@@ -624,7 +628,32 @@ class RemoteSequenceManager:
                     edge = max(edge - PHASE_TIER_BONUS_S, 0.0)
                 else:
                     edge += PHASE_TIER_MISMATCH_S
+        if prefer_peers is not None and peer_id in prefer_peers:
+            # this peer holds the session's migrated KV (clamped: the
+            # Dijkstra needs non-negative edges)
+            edge = max(edge - PREFER_PEER_BONUS_S, 0.0)
         return edge
+
+    def estimate_chain_latency(
+        self, chain: List[RemoteSpanInfo], cache_tokens_needed: Optional[int] = None,
+        phase: Optional[str] = None,
+    ) -> float:
+        """A chain's estimated per-token latency under the Dijkstra's cost
+        model (``_edge_cost``), each span's ServerInfo taken from the
+        current routing state, so that a chain chosen minutes ago is scored
+        against today's swarm (route upgrades compare two chains by it)."""
+        cost, prev = 0.0, None
+        by_block = self.state.spans_containing_block
+        for span in chain:
+            info = span.server_info
+            if span.start < len(by_block):
+                for cand in by_block[span.start]:
+                    if cand.peer_id == span.peer_id:
+                        info = cand.server_info
+                        break
+            cost += self._edge_cost(prev, span.peer_id, info, span.end - span.start, cache_tokens_needed, phase=phase)
+            prev = span.peer_id
+        return cost
 
     # ------------------------------------------------------------------ stubs
 

@@ -1497,13 +1497,18 @@ class DecodeBatcher:
                 self.backend.drop_cache_programs(kv_lane)
 
     async def run_exclusive(self, lane: int, fn: Callable, *, size: int = 0,
-                            write_range: Optional[Tuple[int, int]] = None):
+                            write_range: Optional[Tuple[int, int]] = None, extract: bool = True):
         """Run ``fn(kv_lane) -> (result, kv_lane')`` with the lane extracted
         into session-shaped buffers, then insert the updated lane back, all
         in ONE queue task (atomic with respect to batched steps). For any
         step the batched program does not cover. ``write_range=(t0, t1)``
         declares the token range the fn writes: paged mode allocates those
-        pages first so the check-in has somewhere to land."""
+        pages first so the check-in has somewhere to land. ``extract=False``
+        (a paged lane only) hands ``fn`` None: it builds the whole lane
+        itself, which the check-in scatters (a seed, as petals_tpu's
+        ``extract=False``)."""
+        if not extract and self.page_size is None:
+            raise ValueError("extract=False replaces a paged lane; a dense lane is written through its view")
         async with self._lane_busy(lane):
             self._check_lane(lane)
             if write_range is not None:
@@ -1517,7 +1522,7 @@ class DecodeBatcher:
             def run():
                 self._check_lane(lane)  # re-check: a reset may have raced the queue
                 t_run = time.perf_counter()
-                result, kv_lane = fn(self._extract_lane(lane))
+                result, kv_lane = fn(self._extract_lane(lane) if extract else None)
                 self._insert_lane(lane, kv_lane)
                 if ledger_key is not None:
                     self._ledger.note_compute([ledger_key], time.perf_counter() - t_run)

@@ -60,10 +60,26 @@ carries the load hint (``busy_lanes``, ``lane_waiters``) and the session's
 was preempted meanwhile from its swap entry (``snapshot_from_swap``)
 rather than swap it back in.
 
-Refused with a clear error: adapters, KV import/adopt, push_to in a step.
-A ``push_to`` in the open message (petals_tpu servers push each step's
-output to the next server as well) is ignored: the client relays every
-step itself, and its copy is the one that counts.
+Sessions move between servers (petals_tpu/server/handler.py:267-1160,
+2146-2271). An open message with a ``session_id`` registers the session, so
+that ``ptu.session_export`` can hand its KV (sliced to its position and to
+the asked blocks, dense on the wire: a quantized pool's rows decoded) to a
+client seeding a replacement by a ``kv_import`` first step. A draining
+server parks every live session's KV in host memory (``park_sessions``)
+and pushes it to a replica over ``ptu.session_migrate``
+(``migrate_parked_to``); the replica holds it under a byte budget and a TTL
+until the client opens there with a ``kv_adopt`` first step, and the source
+answers later exports with a ``migrated_to`` redirect. A prefill-tier
+server pushes a LIVE session the same way on ``ptu.session_handoff``, and
+keeps it. Every seed writes the lane's pages or the private cache IN PLACE
+(``_seed_kv``), so the step programs that captured those buffers stay valid.
+A ``push_to`` (from the open message, or retargeted by a step) makes each
+step's reply also go to the next server's session (``ptu.push``), which
+serves whichever copy of a ``step_id`` comes first and skips the other; a
+step with deep prompts is not pushed. A draining server refuses new
+sessions and every further step.
+
+Refused with a clear error: adapters.
 """
 
 from __future__ import annotations
@@ -74,11 +90,15 @@ import logging
 import re
 import time
 import uuid
-from typing import Callable, Optional, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
+import numpy as np
 import torch
 
 from petals_tpu_torch.data_structures import CHAIN_DELIMITER, parse_session_priority, parse_uid
+from petals_tpu_torch.dht.routing import PeerAddr
+from petals_tpu_torch.ops.paged_attention import KV_QUANT_KINDS, dequantize_kv_np, quantize_kv_rows_np
+from petals_tpu_torch.rpc.pool import ConnectionPool
 from petals_tpu_torch.rpc.protocol import validate_gen_sampling
 from petals_tpu_torch.rpc.serialization import CompressionType, deserialize_array, is_dummy, serialize_array
 from petals_tpu_torch.rpc.server import RpcContext, RpcServer
@@ -123,6 +143,7 @@ class TransformerHandler:
         prefix_share_scope: str = "swarm",  # "swarm" shares across clients; "peer" salts per client
         prefix_device_bytes: int = 256 * 2**20,  # its HBM tier; 0 disables
         prefix_cache_policy: str = "radix",  # "radix" tree | "lru" flat baseline
+        identity=None,  # proves this server's peer id to the peers it pushes to
     ):
         if prefix_share_scope not in ("swarm", "peer"):
             raise ValueError(f"prefix_share_scope must be 'swarm' or 'peer', got {prefix_share_scope!r}")
@@ -158,10 +179,58 @@ class TransformerHandler:
                     f"({SEGMENT_TOKENS} tokens)"
                 )
         self._promotions: set = set()  # in-flight device-tier promotions (strong refs)
+        # server-to-server push: session_id -> the queue of pushed steps
+        self._push_queues: Dict[str, asyncio.Queue] = {}
+        self._push_pool = ConnectionPool(identity=identity)
+        self._push_tasks: set = set()
+        # live sessions by session_id, for ptu.session_export / handoff; and
+        # the host snapshots a draining server parked
+        self._session_registry: Dict[str, dict] = {}
+        self._parked: Dict[str, dict] = {}
+        self.park_ttl = 60.0
+        self.draining = False
+        # KV a peer pushed here (ptu.session_migrate), held under a byte
+        # budget until the client adopts it or the TTL lapses; and the
+        # sessions pushed away from here, answered as redirects
+        self._migrated: Dict[str, dict] = {}
+        self._migrated_away: Dict[str, dict] = {}
+        self._migrated_bytes = 0
+        self.migrate_in_budget_bytes = 512 * 2**20
+        self.migrate_ttl = 120.0
+        # set at shutdown: an in-flight migration push gives up at once
+        self._migrate_abort = asyncio.Event()
+        # what moved through this handler: bytes and seconds of the KV
+        # transfers, pushed steps served and duplicate copies skipped
+        self.migration_stats = {
+            "exports": 0, "export_bytes": 0, "export_s": 0.0,
+            "imports": 0, "import_bytes": 0, "import_s": 0.0,
+            "pushes": 0, "push_bytes": 0, "push_s": 0.0, "push_failures": 0,
+            "adopts": 0, "adopt_bytes": 0, "adopt_s": 0.0,
+            "pushed_steps_served": 0, "client_copies_skipped": 0, "pushed_copies_skipped": 0,
+        }
 
     def register(self, server: RpcServer) -> None:
         server.add_unary_handler("ptu.info", self.rpc_info)
+        server.add_unary_handler("ptu.push", self.rpc_push)
+        server.add_unary_handler("ptu.session_export", self.rpc_session_export)
+        server.add_unary_handler("ptu.session_migrate", self.rpc_session_migrate)
+        server.add_unary_handler("ptu.session_handoff", self.rpc_session_handoff)
         server.add_stream_handler("ptu.inference", self.rpc_inference)
+
+    def abort_migrations(self) -> None:
+        """In-flight migration pushes give up at once (the shutdown path):
+        the parked entries stay, and clients repair by export or replay."""
+        self._migrate_abort.set()
+
+    async def close(self) -> None:
+        """Cancel the output pushes still in flight and close the push
+        connections (the server's shutdown)."""
+        self.abort_migrations()
+        for task in list(self._push_tasks):
+            task.cancel()
+        if self._push_tasks:
+            await asyncio.gather(*self._push_tasks, return_exceptions=True)
+        await self._push_pool.close()
 
     def _parse_chain(self, uids) -> Tuple[int, int]:
         """Validate a chain of UIDs against our span; return (start, end)
@@ -279,6 +348,8 @@ class TransformerHandler:
     async def rpc_inference(self, requests, ctx: RpcContext):
         """Bidirectional inference stream: open -> step* -> end."""
         open_msg = await asyncio.wait_for(anext(requests), self.step_timeout)
+        if self.draining:
+            raise RuntimeError("Server is draining: not accepting new sessions")
         client_version = open_msg.get("client_version")
         if client_version is not None and not is_compatible(client_version):
             raise ValueError(incompatibility_error(client_version, peer="client"))
@@ -294,6 +365,9 @@ class TransformerHandler:
         if open_msg.get("active_adapter") is not None:
             raise ValueError("adapters are not supported by this server yet")
         trace_id = normalize_trace_id(open_msg.get("trace_id")) or new_trace_id()
+        session_id = open_msg.get("session_id")
+        # where to push each step's output: {"addr": "host:port/peer", "session_id": ...}
+        push_to = open_msg.get("push_to") or None
         # whom the session bills to (fair-share admission, the ledger): a
         # PROVEN identity wins; else the open message's unauthenticated
         # peer_hint, which can only split its sender's own bill
@@ -326,18 +400,31 @@ class TransformerHandler:
             # a private cache is (k_stack, v_stack), written in place; a
             # pooled session's KV lives in the batcher's pool, keyed by lane
             kv = tuple(self.memory_cache.get_buffers(*handles)) if lane is None else None
+            push_queue: Optional[asyncio.Queue] = None
+            reg = None
+            if session_id:
+                # registered once the cache exists, so a failed open leaks nothing
+                push_queue = asyncio.Queue(maxsize=64)
+                self._push_queues[session_id] = push_queue
+                reg = {
+                    "lane": lane, "batcher": batcher, "kv": kv, "position": 0,
+                    "start": self.backend.first_block + start, "end": self.backend.first_block + end,
+                    "batch_size": batch_size, "max_length": max_length,
+                    "trace_id": trace_id, "peer": peer,
+                }
+                self._session_registry[session_id] = reg
             yield {
                 "session_open": True, "position": 0, "max_length": max_length,
                 "trace_id": trace_id, "open_wait_s": round(open_wait_s, 6),
             }
+            next_step, cleanup_steps = self._step_source(requests, push_queue, self.session_timeout)
+            seen_steps = set()  # the same step may come from the client and from a push
             position = 0
             pending_store = None  # the in-flight prefix-cache store
+            stats = self.migration_stats
             try:
                 while True:
-                    try:
-                        step = await asyncio.wait_for(anext(requests), self.session_timeout)
-                    except StopAsyncIteration:
-                        step = None  # the client half-closed
+                    step, pushed = await next_step()
                     t_recv = time.perf_counter()
                     # a later step may roll back or overwrite the rows being
                     # stored, and the session's end releases them: the store
@@ -348,25 +435,106 @@ class TransformerHandler:
                         pending_store = None
                     if step is None:
                         break
+                    if self.draining:
+                        # fail fast, so that the client repairs its chain while
+                        # the parked export is still served
+                        raise RuntimeError("Server is draining: migrate this session via ptu.session_export")
+                    if "push_to" in step:  # a chain repair moved the next server
+                        push_to = step["push_to"] or None
+                    step_id = step.get("step_id")
+                    if step_id is not None:
+                        if step_id in seen_steps:
+                            stats["pushed_copies_skipped" if pushed else "client_copies_skipped"] += 1
+                            continue
+                        seen_steps.add(step_id)
+                    if pushed:
+                        stats["pushed_steps_served"] += 1
+                    if "kv_adopt" in step or "kv_import" in step:
+                        kind = "kv_adopt" if "kv_adopt" in step else "kv_import"
+                        if kind == "kv_adopt":
+                            position = await self._install_kv_adopt(
+                                step, backend, batcher, lane, kv, position,
+                                abs_start=self.backend.first_block + start, batch_size=batch_size,
+                                n_blocks=end - start, max_length=max_length,
+                            )
+                        else:
+                            position = await self._install_kv_import(
+                                step, backend, batcher, lane, kv, position,
+                                batch_size=batch_size, n_blocks=end - start, max_length=max_length,
+                            )
+                        if reg is not None:
+                            reg["position"] = position
+                        yield {"position": position, kind: True}
+                        continue
                     position, reply, pending_store = await self._serve_step(
                         step, t_recv, ctx, backend, batcher, lane, kv, (start, end), batch_size, max_length,
-                        position, reply_comp, peer,
+                        position, reply_comp, peer, push_to,
                     )
+                    if reg is not None:
+                        reg["position"] = position
                     yield reply
             finally:
                 if pending_store is not None:
                     # a failure or a cancellation: the store is dropped now,
                     # and releases its pins on the way out
                     pending_store.cancel()
+                await cleanup_steps()
+                if session_id:
+                    if self._push_queues.get(session_id) is push_queue:
+                        self._push_queues.pop(session_id, None)
+                    if self._session_registry.get(session_id) is reg:
+                        self._session_registry.pop(session_id, None)
+
+    @staticmethod
+    def _step_source(requests, push_queue, timeout):
+        """(next_step, cleanup): ``next_step()`` returns (the next step,
+        whether it was pushed) from whichever comes first, the client's
+        stream or the push queue; (None, False) once the client
+        half-closed. The pending reads persist across calls, and the client
+        stream is read straight, so the transport's bounded inbound queue is
+        the only buffer (petals_tpu/server/handler.py:2205)."""
+        pending: Dict[str, asyncio.Task] = {}
+
+        async def next_client():
+            try:
+                return await anext(requests)
+            except StopAsyncIteration:
+                return None  # the client half-closed
+            except Exception as e:
+                logger.debug(f"Client stream error (treated as a half-close): {e!r}")
+                return None
+
+        async def next_step():
+            if "client" not in pending:
+                pending["client"] = asyncio.create_task(next_client())
+            if push_queue is not None and "push" not in pending:
+                pending["push"] = asyncio.create_task(push_queue.get())
+            done, _ = await asyncio.wait(set(pending.values()), timeout=timeout, return_when=asyncio.FIRST_COMPLETED)
+            if not done:
+                await cleanup()
+                raise asyncio.TimeoutError("No inference step within session_timeout")
+            # the client's read first when both are ready: its half-close
+            # must not wait behind a push
+            name = "client" if pending.get("client") in done else "push"
+            task = pending.pop(name)
+            return task.result(), name == "push"
+
+        async def cleanup():
+            for task in pending.values():
+                task.cancel()
+                with contextlib.suppress(asyncio.CancelledError, Exception):
+                    await task
+            pending.clear()
+
+        return next_step, cleanup
 
     async def _serve_step(self, step, t_recv, ctx, backend, batcher, lane, kv, span, batch_size, max_length,
-                          position, reply_comp, peer):
+                          position, reply_comp, peer, push_to=None):
         """One step of a session: returns (the new position, the reply, the
-        prefix store it started or None)."""
+        prefix store it started or None). A reply of hidden states to a step
+        without deep prompts is also pushed to ``push_to``, after it is
+        serialized and off its path."""
         start, end = span
-        for key in ("kv_adopt", "kv_import", "push_to"):
-            if step.get(key):
-                raise ValueError(f"step field {key!r} is not supported by this server yet")
         start_from = step.get("start_from_position")
         if start_from is not None:
             if not 0 <= int(start_from) <= position:
@@ -449,8 +617,46 @@ class TransformerHandler:
             "serialize_s": round(time.perf_counter() - t_ser, 6),
             "total_s": round(time.perf_counter() - t_recv, 6),
         }
+        if push_to is not None and prompts is None:
+            # fire and forget: the client's relayed copy still counts (the
+            # next server serves whichever comes first), so a slow or dead
+            # peer must never delay this reply
+            task = asyncio.create_task(self._push_outputs(push_to, wire_out, step))
+            self._push_tasks.add(task)
+            task.add_done_callback(self._push_tasks.discard)
         self._lane_meta(step_meta, batcher, lane)
         return position, {"tensors": {"hidden": wire_out}, "position": position, "step_meta": step_meta}, pending_store
+
+    async def _push_outputs(self, push_to: dict, wire_out, step: dict) -> None:
+        """Send a step's output straight to the next server's session, with
+        the step's id, hypo_ids and rollback marker, under petals_tpu's key
+        set. A failure is only logged: the client's copy still flows."""
+        try:
+            payload = {"session_id": push_to["session_id"], "step_id": step.get("step_id"),
+                       "tensors": {"hidden": wire_out}}
+            wire_hypo = (step.get("tensors") or {}).get("hypo_ids")
+            if wire_hypo is not None:  # a beam reorder must survive the push
+                payload["tensors"]["hypo_ids"] = wire_hypo
+            if step.get("start_from_position") is not None:
+                payload["start_from_position"] = int(step["start_from_position"])
+            client = await self._push_pool.get_addr(PeerAddr.from_string(push_to["addr"]))
+            await asyncio.wait_for(client.call("ptu.push", payload), 10.0)
+        except Exception as e:
+            logger.debug(f"Push to the next server failed (the client's copy still flows): {e!r}")
+
+    async def rpc_push(self, payload, ctx: RpcContext):
+        """A step pushed by the previous server of a chain, for the session
+        ``payload["session_id"]`` (petals_tpu/server/handler.py:267)."""
+        session_id = payload.get("session_id")
+        queue = self._push_queues.get(session_id)
+        if queue is None:
+            raise KeyError(f"No active inference session {session_id!r} on this server")
+        try:
+            queue.put_nowait(payload)
+        except asyncio.QueueFull:
+            # best effort: refusing beats buffering a runaway upstream's backlog
+            raise RuntimeError(f"Push queue full for session {session_id!r}") from None
+        return {"ok": True}
 
     @staticmethod
     def _lane_meta(step_meta: dict, batcher, lane: Optional[int]) -> None:
@@ -462,6 +668,377 @@ class TransformerHandler:
         usage = batcher.pop_usage_delta(lane)
         if usage:
             step_meta["usage"] = usage
+
+    # ------------------------------------------------------------------ migration
+
+    async def _snapshot_session(self, reg: dict, b0: Optional[int] = None, b1: Optional[int] = None) -> dict:
+        """Host copy of a live session's KV, blocks [b0, b1) of its span
+        (all by default), rows [0, its position): (k, v) [blocks, batch,
+        position, hkv, d] CPU tensors (a quantized pool's rows decoded). A
+        pooled lane is read by the batcher, from its swap entry when it is
+        suspended (a swap-in only to read bytes already on the host would
+        cost pages and two copies); a private cache is copied on the compute
+        queue, ordered against the steps that write it in place."""
+        n = reg["end"] - reg["start"]
+        b0 = 0 if b0 is None else b0
+        b1 = n if b1 is None else b1
+        position = reg["position"]
+        if reg["lane"] is not None:
+            batcher = reg["batcher"]
+            pair = await batcher.snapshot_from_swap(reg["lane"], position, b0, b1)
+            if pair is None:
+                pair = await batcher.snapshot_lane(reg["lane"], position, b0, b1)
+        else:
+            def read():
+                return tuple(t[b0:b1, :, :position].to("cpu", copy=True) for t in reg["kv"])
+
+            pair = await self.queue.submit(read, priority=PRIORITY_INFERENCE, size=0)
+        k, v = pair
+        return {
+            "k": k, "v": v, "position": position, "start": reg["start"], "end": reg["end"],
+            "batch_size": reg["batch_size"], "max_length": reg["max_length"],
+        }
+
+    async def park_sessions(self, ttl: Optional[float] = None) -> int:
+        """Snapshot every live session's KV into host memory (the drain
+        path: the streams die with the server, the exports must not).
+        Returns how many sessions were parked."""
+        ttl = self.park_ttl if ttl is None else ttl
+        parked = 0
+        for session_id, reg in list(self._session_registry.items()):
+            if reg["position"] <= 0:
+                continue
+            try:
+                snap = await self._snapshot_session(reg)
+            except Exception as e:
+                logger.warning(f"Could not park session {session_id!r}: {e!r}")
+                continue
+            snap |= {"expires": time.monotonic() + ttl, "trace_id": reg.get("trace_id"), "peer": reg.get("peer")}
+            self._parked[session_id] = snap
+            parked += 1
+        return parked
+
+    def _prune_parked(self) -> None:
+        now = time.monotonic()
+        for sid in [s for s, p in self._parked.items() if p.get("expires", 0) < now]:
+            del self._parked[sid]
+
+    def _prune_migrated(self) -> None:
+        now = time.monotonic()
+        for sid in [s for s, m in self._migrated.items() if m["expires"] < now]:
+            self._migrated_bytes -= self._migrated[sid]["nbytes"]
+            del self._migrated[sid]
+
+    def _consume_migrated(self, session_id: str) -> None:
+        entry = self._migrated.pop(session_id, None)
+        if entry is not None:
+            self._migrated_bytes -= entry["nbytes"]
+
+    async def rpc_session_export(self, payload, ctx: RpcContext):
+        """A session's KV, sliced to its position and to blocks [start,
+        end), for a client seeding a replacement without recomputing the
+        prefill: a live session's, a parked one's or a migrated-in entry's;
+        or a ``migrated_to`` redirect for a session pushed away."""
+        t0 = time.perf_counter()
+        session_id = payload.get("session_id")
+        want_start, want_end = int(payload["start"]), int(payload["end"])
+        comp = CompressionType(payload.get("compression", "none"))
+        self._prune_parked()
+        # the copy at the destination is the authoritative one now, even
+        # while the drained stream is still open
+        fwd = self._migrated_away.get(session_id)
+        if fwd is not None:
+            return {"migrated_to": dict(fwd)}
+        # live first: a parked snapshot goes stale if steps kept flowing
+        live = self._session_registry.get(session_id)
+        if live is not None:
+            if not live["start"] <= want_start < want_end <= live["end"]:
+                raise ValueError(
+                    f"Requested blocks [{want_start}, {want_end}) outside session span "
+                    f"[{live['start']}, {live['end']})"
+                )
+            # only the asked blocks leave the device
+            src = await self._snapshot_session(live, want_start - live["start"], want_end - live["start"])
+            b0, b1 = 0, want_end - want_start
+        else:
+            self._prune_migrated()
+            src = self._parked.get(session_id) or self._migrated.get(session_id)
+            if src is None:
+                raise KeyError(f"No live or parked session {session_id!r}")
+            if not src["start"] <= want_start < want_end <= src["end"]:
+                raise ValueError(
+                    f"Requested blocks [{want_start}, {want_end}) outside session span "
+                    f"[{src['start']}, {src['end']})"
+                )
+            b0, b1 = want_start - src["start"], want_end - src["start"]
+        position = src["position"]
+        if position <= 0:
+            raise ValueError(f"Session {session_id!r} has no cached tokens yet")
+        # a migrated-in entry may hold packed codes and scales: the export
+        # stays dense on the wire
+        kv_quant = src.get("kv_quant") or "none"
+
+        def dense(name: str):
+            arr = src[name][b0:b1]
+            if kv_quant != "none":
+                arr = torch.from_numpy(dequantize_kv_np(arr.numpy(), src[name + "_scales"][b0:b1].numpy(), kv_quant))
+            return serialize_array(arr, comp)
+
+        k_wire, v_wire = await asyncio.to_thread(lambda: (dense("k"), dense("v")))
+        stats = self.migration_stats
+        stats["exports"] += 1
+        stats["export_bytes"] += len(k_wire["data"]) + len(v_wire["data"])
+        stats["export_s"] += time.perf_counter() - t0
+        return {
+            "position": position, "start": want_start, "end": want_end, "batch_size": src["batch_size"],
+            "tensors": {"k": k_wire, "v": v_wire},
+        }
+
+    async def rpc_session_migrate(self, payload, ctx: RpcContext):
+        """A session's KV pushed here by a draining (or handing-off) peer,
+        held in host memory under ``migrate_in_budget_bytes`` until the
+        client opens here and adopts it (``kv_adopt``), exports it onward,
+        or ``migrate_ttl`` lapses. A packed entry (``kv_quant``) is kept as
+        it came."""
+        session_id = payload["session_id"]
+        src_start, src_end = int(payload["start"]), int(payload["end"])
+        position = int(payload["position"])
+        batch_size = int(payload["batch_size"])
+        max_length = int(payload["max_length"])
+        trace_id = normalize_trace_id(payload.get("trace_id"))
+        if self.draining:
+            raise RuntimeError("Server is draining: not accepting migrated sessions")
+        first = self.backend.first_block
+        if not first <= src_start < src_end <= first + self.backend.n_blocks:
+            raise ValueError(
+                f"Migrated span [{src_start}, {src_end}) outside this server's "
+                f"blocks [{first}, {first + self.backend.n_blocks})"
+            )
+        if position <= 0:
+            raise ValueError("Refusing to migrate a session with no cached tokens")
+        tensors = payload.get("tensors") or {}
+        if "k" not in tensors or "v" not in tensors:
+            raise ValueError("session_migrate needs k and v tensors")
+        kv_quant = str(payload.get("kv_quant") or "none")
+        if kv_quant not in KV_QUANT_KINDS:
+            raise ValueError(f"Unknown kv_quant {kv_quant!r} in session_migrate")
+        names = ("k", "v") if kv_quant == "none" else ("k", "v", "k_scales", "v_scales")
+        if any(name not in tensors for name in names):
+            raise ValueError("quantized session_migrate needs k_scales and v_scales tensors")
+        want = (src_end - src_start, batch_size, position)
+
+        def parse():
+            arrs = {}
+            for name in names:
+                arr = deserialize_array(tensors[name])
+                if tuple(arr.shape[:3]) != want:
+                    raise ValueError(f"migrated KV shape {tuple(arr.shape)} != (blocks, batch, position) {want}")
+                arrs[name] = arr
+            return arrs
+
+        arrs = await asyncio.to_thread(parse)
+        nbytes = sum(a.numel() * a.element_size() for a in arrs.values())
+        self._prune_migrated()
+        if self._migrated_bytes + nbytes > self.migrate_in_budget_bytes:
+            raise RuntimeError(
+                f"Migration budget exhausted ({self._migrated_bytes + nbytes} > {self.migrate_in_budget_bytes} bytes)"
+            )
+        self._consume_migrated(session_id)  # a re-push after a failed adopt replaces the entry
+        self._migrated[session_id] = {
+            "k": arrs["k"], "v": arrs["v"], "k_scales": arrs.get("k_scales"), "v_scales": arrs.get("v_scales"),
+            "kv_quant": kv_quant, "position": position, "start": src_start, "end": src_end,
+            "batch_size": batch_size, "max_length": max_length, "trace_id": trace_id, "nbytes": nbytes,
+            "expires": time.monotonic() + self.migrate_ttl,
+        }
+        self._migrated_bytes += nbytes
+        return {"ok": True, "position": position}
+
+    async def rpc_session_handoff(self, payload, ctx: RpcContext):
+        """The prefill-to-decode boundary: push one LIVE session's KV to a
+        decode-tier replica (the client, between steps, then adopts it
+        there). The session stays live here and no redirect is installed,
+        so a failed push or adopt degrades to decoding on this server."""
+        session_id = payload["session_id"]
+        deadline_s = min(max(float(payload.get("deadline_s") or 30.0), 0.1), 120.0)
+        reg = self._session_registry.get(session_id)
+        if reg is None:
+            raise KeyError(f"No live session {session_id!r} to hand off")
+        if reg["position"] <= 0:
+            raise ValueError(f"Session {session_id!r} has no cached tokens yet")
+        snap = await self._snapshot_session(reg)
+        snap |= {"trace_id": reg.get("trace_id"), "peer": reg.get("peer")}
+        ok = await self.migrate_parked_to(
+            session_id, snap, str(payload["peer_id"]), str(payload["addr"]), deadline_s=deadline_s, kind="handoff",
+        )
+        return {"ok": bool(ok), "position": int(snap["position"])}
+
+    async def migrate_parked_to(self, session_id: str, snap: dict, peer_id: str, addr: str, *,
+                                deadline_s: float = 30.0, budget_bytes: Optional[int] = None,
+                                kind: str = "migrate") -> bool:
+        """Push one session snapshot's KV to a live replica's
+        ``ptu.session_migrate``. ``kind="migrate"`` (drain): on success the
+        parked copy becomes a ``migrated_to`` redirect. ``kind="handoff"``:
+        the source stays live, with no redirect. A quantized pool packs the
+        rows (codes with the server's compression, which passes integers
+        through; scales uncompressed, so the entry crosses byte-exact).
+        The deadline covers the whole push, serialization included, and
+        shutdown's abort ends it at once. Returns False when the push fails
+        or is aborted: the entry stays, and the client falls back to export
+        or replay (migrate) or to decoding on the source (handoff)."""
+        assert kind in ("migrate", "handoff"), kind
+        kv_quant = self.backend.kv_quant_type
+        t0 = time.perf_counter()
+
+        def pack():
+            if kv_quant == "none":
+                return {"k": snap["k"], "v": snap["v"]}
+            kc, ks = quantize_kv_rows_np(snap["k"].float().numpy(), kv_quant)
+            vc, vs = quantize_kv_rows_np(snap["v"].float().numpy(), kv_quant)
+            return {"k": kc, "v": vc, "k_scales": ks, "v_scales": vs}
+
+        packed = await asyncio.to_thread(pack)
+        nbytes = int(sum(a.nbytes if isinstance(a, np.ndarray) else a.numel() * a.element_size()
+                         for a in packed.values()))
+
+        async def push() -> None:
+            if budget_bytes is not None and nbytes > budget_bytes:
+                raise RuntimeError(f"session KV ({nbytes}B) exceeds the migration budget ({budget_bytes}B)")
+            tensors = await asyncio.to_thread(lambda: {
+                name: serialize_array(arr, self.compression if name in ("k", "v") else CompressionType.NONE)
+                for name, arr in packed.items()
+            })
+            body = {
+                "session_id": session_id, "start": snap["start"], "end": snap["end"],
+                "position": snap["position"], "batch_size": snap["batch_size"], "max_length": snap["max_length"],
+                "trace_id": snap.get("trace_id"), "kv_quant": kv_quant, "tensors": tensors,
+            }
+            client = await self._push_pool.get_addr(PeerAddr.from_string(addr))
+            await client.call("ptu.session_migrate", body)
+
+        push_task = asyncio.create_task(push())
+        abort_task = asyncio.create_task(self._migrate_abort.wait())
+        try:
+            await asyncio.wait({push_task, abort_task}, timeout=deadline_s, return_when=asyncio.FIRST_COMPLETED)
+        finally:
+            abort_task.cancel()
+            with contextlib.suppress(asyncio.CancelledError):
+                await abort_task
+        stats = self.migration_stats
+        if not push_task.done():
+            reason = "shutdown" if self._migrate_abort.is_set() else "deadline"
+            push_task.cancel()
+            with contextlib.suppress(asyncio.CancelledError):
+                await push_task
+            stats["push_failures"] += 1
+            logger.warning(f"{kind.capitalize()} of {session_id!r} to {peer_id} aborted ({reason})")
+            return False
+        try:
+            push_task.result()
+        except Exception as e:
+            stats["push_failures"] += 1
+            logger.warning(f"{kind.capitalize()} of {session_id!r} to {peer_id} failed: {e!r}")
+            return False
+        if kind == "migrate":
+            self._migrated_away[session_id] = {"peer_id": peer_id, "addr": addr, "position": snap["position"]}
+            self._parked.pop(session_id, None)
+        stats["pushes"] += 1
+        stats["push_bytes"] += nbytes
+        stats["push_s"] += time.perf_counter() - t0
+        # the parked session's ledger session already closed (a handoff
+        # source keeps its own bill): the bytes go to the owning peer's rollup
+        self.batcher.ledger.note_migrated(None, nbytes, peer_id=snap.get("peer"))
+        return True
+
+    async def _install_kv_import(self, step, backend, batcher, lane, kv, position, *, batch_size: int,
+                                 n_blocks: int, max_length: int) -> int:
+        """A ``kv_import`` first step: seed the session's lane or private
+        cache from another server's exported KV. Returns the new position."""
+        t0 = time.perf_counter()
+        if position != 0:
+            raise ValueError("kv_import must be the first step of a session")
+        new_position = int(step["kv_import"]["position"])
+        if not 0 < new_position <= max_length:
+            raise ValueError(f"kv_import position {new_position} outside (0, {max_length}]")
+        tensors = step.get("tensors") or {}
+        if "k" not in tensors or "v" not in tensors:
+            raise ValueError("kv_import needs k and v tensors")
+        want_shape = (n_blocks, batch_size, new_position, backend.num_kv_heads, backend.head_dim)
+
+        def parse(name):
+            arr = deserialize_array(tensors[name])
+            if tuple(arr.shape) != want_shape:
+                raise ValueError(f"kv_import {name} shape {tuple(arr.shape)} != {want_shape}")
+            return arr
+
+        k, v = await asyncio.to_thread(lambda: (parse("k"), parse("v")))
+        await self._seed_kv(backend, batcher, lane, kv, [k], [v])
+        stats = self.migration_stats
+        stats["imports"] += 1
+        stats["import_bytes"] += len(tensors["k"]["data"]) + len(tensors["v"]["data"])
+        stats["import_s"] += time.perf_counter() - t0
+        return new_position
+
+    async def _install_kv_adopt(self, step, backend, batcher, lane, kv, position, *, abs_start: int,
+                                batch_size: int, n_blocks: int, max_length: int) -> int:
+        """A ``kv_adopt`` first step: seed a fresh session from KV already
+        on this server, a migrated-in entry or a parked snapshot; only ids
+        cross the client's link. A packed entry is decoded, and a quantized
+        pool encodes the rows again as they land. The seed goes through
+        ``run_exclusive`` like every lane write outside a step, which swaps
+        a lane suspended before its first step back in first. The entry is
+        consumed only once the seed landed; the adopted wire bytes bill to
+        the lane's ledger session. Returns the new position."""
+        t0 = time.perf_counter()
+        if position != 0:
+            raise ValueError("kv_adopt must be the first step of a session")
+        spec = step["kv_adopt"]
+        src_sid = spec["session_id"]
+        cut = int(spec["position"])
+        self._prune_migrated()
+        self._prune_parked()
+        entry = self._migrated.get(src_sid) or self._parked.get(src_sid)
+        if entry is None:
+            raise KeyError(f"No migrated or parked KV for session {src_sid!r}")
+        if not 0 < cut <= entry["position"]:
+            raise ValueError(f"kv_adopt position {cut} outside (0, {entry['position']}]")
+        if cut > max_length:
+            raise ValueError(f"kv_adopt position {cut} exceeds max_length {max_length}")
+        if batch_size != entry["batch_size"]:
+            raise ValueError(f"kv_adopt batch_size {batch_size} != source {entry['batch_size']}")
+        if not (entry["start"] <= abs_start and abs_start + n_blocks <= entry["end"]):
+            raise ValueError(
+                f"Session blocks [{abs_start}, {abs_start + n_blocks}) outside "
+                f"migrated span [{entry['start']}, {entry['end']})"
+            )
+        b0 = abs_start - entry["start"]
+        kv_quant = entry.get("kv_quant") or "none"
+        parts = {name: entry[name][b0 : b0 + n_blocks, :, :cut]
+                 for name in (("k", "v") if kv_quant == "none" else ("k", "v", "k_scales", "v_scales"))}
+        wire_nbytes = int(sum(t.numel() * t.element_size() for t in parts.values()))
+        if kv_quant != "none":
+            def decode(name):
+                return torch.from_numpy(dequantize_kv_np(
+                    np.ascontiguousarray(parts[name].numpy()), np.ascontiguousarray(parts[name + "_scales"].numpy()),
+                    kv_quant,
+                ))
+
+            k, v = await asyncio.to_thread(lambda: (decode("k"), decode("v")))
+        else:
+            k, v = parts["k"], parts["v"]
+        await self._seed_kv(backend, batcher, lane, kv, [k], [v])
+        # consumed only now: a failed adopt leaves the entry for a retry or
+        # an export until its TTL lapses
+        self._consume_migrated(src_sid)
+        self._parked.pop(src_sid, None)
+        if lane is not None:
+            key = batcher._ledger_keys.get(lane)
+            if key is not None:
+                batcher.ledger.note_migrated(key, wire_nbytes)
+        stats = self.migration_stats
+        stats["adopts"] += 1
+        stats["adopt_bytes"] += wire_nbytes
+        stats["adopt_s"] += time.perf_counter() - t0
+        return cut
 
     # ------------------------------------------------------------------ prefix cache
 
@@ -511,15 +1088,27 @@ class TransformerHandler:
         """Write the prefix rows (the token-axis concatenation of
         ``k_parts`` / ``v_parts``, on the host or the device) into the
         session's lane or private cache IN PLACE, rows past them zeroed, as
-        one task on the compute thread. A paged lane first owns pages for
-        the rows (a quantized pool re-encodes them on check-in)."""
+        one task on the compute thread: the prefix cache's hits, a
+        ``kv_import`` and a ``kv_adopt``. A paged lane first owns pages for
+        the rows (a quantized pool re-encodes them on check-in); the pool
+        tensors and the table stay where the step programs read them."""
         n = sum(p.shape[2] for p in k_parts)
 
         def seed(target):
             backend.seed_cache(target, torch.cat(k_parts, dim=2), torch.cat(v_parts, dim=2))
             return None, target
 
-        if lane is not None:
+        if lane is not None and batcher.page_size is not None:
+            # the lane is rebuilt whole in the compute type and scattered, as
+            # petals_tpu's seed builds it: a quantized pool then encodes the
+            # rows as they came, never their bfloat16 decoded view
+            def rebuild(_):
+                shape = (k_parts[0].shape[0], 1, batcher.max_pages * batcher.page_size, *k_parts[0].shape[3:])
+                return seed(tuple(torch.zeros(shape, dtype=backend.compute_dtype, device=backend.device)
+                                  for _ in range(2)))
+
+            await batcher.run_exclusive(lane, rebuild, size=n, write_range=(0, n), extract=False)
+        elif lane is not None:
             await batcher.run_exclusive(lane, seed, size=n, write_range=(0, n))
         else:
             await self.queue.submit(seed, kv, priority=PRIORITY_INFERENCE, size=n)

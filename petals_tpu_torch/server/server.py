@@ -1,7 +1,7 @@
 """The port's server entry point: host a span of blocks of one local
 checkpoint, serve ``ptu.inference`` / ``ptu.info`` on ``host:port``, and take
 part in a petals_tpu swarm (petals_tpu/server/server.py without the
-rebalance loop, adapters, drain and migration).
+rebalance loop and adapters).
 
 ``start()`` runs the swarm life cycle in petals_tpu's order: it makes the
 node's identity (``identity_seed``), listens with it, joins the DHT on the
@@ -53,6 +53,16 @@ methods on the reverse connections the relay splices, and the announced
 contact address is the relay circuit (``relay+host:port/peer``). Its
 network rate is priced by ``RELAY_PENALTY`` (server/throughput.py). Every
 server answers ``reach.check`` (server/reachability.py).
+
+Drain and phase tiers (petals_tpu/server/server.py:488-591, 716):
+``drain()`` parks every live session's KV in host memory BEFORE it refuses
+steps, announces OFFLINE, then pushes each parked session to the
+highest-throughput ONLINE replica covering its span (decode-tier replicas
+first), so that the client adopts it there; the server keeps answering
+``ptu.session_export`` until ``shutdown()``, which aborts a push in flight.
+``phase_tier`` ("generalist", "prefill" or "decode") is announced for
+clients' phase-aware routing; a prefill-tier server hands a session's KV to
+a decode-tier replica when the client asks (``ptu.session_handoff``).
 
 Runs on the CUDA card unless the caller passes ``device="cpu"``; a missing
 card raises instead of drifting to the CPU.
@@ -109,6 +119,9 @@ logger = logging.getLogger(__name__)
 
 DEFAULT_UPDATE_PERIOD = 30.0
 OFFLINE_EXPIRATION = 60.0  # how long the final OFFLINE announce stays readable
+# disaggregated serving tiers: generalists serve both phases; a prefill-tier
+# replica hands finished prefills to a decode-tier one (handler.rpc_session_handoff)
+PHASE_TIERS = ("generalist", "prefill", "decode")
 MAX_PINGED_SUCCESSORS = 10
 
 
@@ -163,7 +176,10 @@ class Server:
         prefix_share_scope: str = "swarm",  # "peer" isolates the prefix cache per client identity
         prefix_device_bytes: int = 256 * 2**20,  # its HBM tier; 0 disables
         prefix_cache_policy: str = "radix",  # "radix" tree | "lru" flat baseline
+        phase_tier: str = "generalist",  # disaggregated serving: "generalist" | "prefill" | "decode"
     ):
+        if phase_tier not in PHASE_TIERS:
+            raise ValueError(f"phase_tier must be one of {PHASE_TIERS}, got {phase_tier!r}")
         if kv_quant_type not in KV_QUANT_KINDS:
             raise ValueError(f"kv_quant_type must be one of {KV_QUANT_KINDS}, got {kv_quant_type!r}")
         if page_size is None or page_size < 0:
@@ -242,6 +258,8 @@ class Server:
         self.server_gen_params: Optional[dict] = None  # the client's leaves, once loaded
         self.prefix_cache_bytes, self.prefix_share_scope = prefix_cache_bytes, prefix_share_scope
         self.prefix_device_bytes, self.prefix_cache_policy = prefix_device_bytes, prefix_cache_policy
+        self.phase_tier = phase_tier
+        self.identity: Optional[Identity] = None
 
         self.queue = PriorityTaskQueue()
         self.backend: Optional[TransformerBackend] = None
@@ -308,6 +326,7 @@ class Server:
             server_gen_params=self.server_gen_params,
             prefix_cache_bytes=self.prefix_cache_bytes, prefix_share_scope=self.prefix_share_scope,
             prefix_device_bytes=self.prefix_device_bytes, prefix_cache_policy=self.prefix_cache_policy,
+            identity=self.identity,
         )
 
     def _load_server_gen_params(self) -> Optional[dict]:
@@ -335,6 +354,7 @@ class Server:
 
     async def start(self) -> None:
         identity = Identity.from_seed(self.identity_seed) if self.identity_seed else Identity.generate()
+        self.identity = identity
         self.rpc_server = RpcServer(self.host, self.port, identity=identity)
         if self.relay_via is not None:
             await self._start_behind_relay(identity)
@@ -410,7 +430,94 @@ class Server:
             return self._contact_addr
         return self.dht.own_addr if self.dht is not None else None
 
+    async def drain(self, park_ttl: float = 60.0, migrate: bool = True) -> int:
+        """The prelude to a graceful shutdown: park every live session's KV
+        in host memory, refuse new sessions and steps, announce OFFLINE,
+        and (``migrate``) push each parked session to a replica covering its
+        span, where the client adopts it without its KV crossing the
+        client's link. Exports keep being served until ``shutdown()``.
+        Returns the number of parked sessions."""
+        parked = 0
+        if self.handler is not None:
+            # park BEFORE refusing steps: flipping `draining` first lets an
+            # in-flight step raise and unregister its session while the park
+            # awaits, and the export would then find nothing. A step landing
+            # between the snapshot and the flip only makes the parked copy
+            # stale, which clients top up by replaying the tail.
+            parked = await self.handler.park_sessions(ttl=park_ttl)
+            self.handler.draining = True
+        self._state = ServerState.OFFLINE
+        if self.dht is not None and self.module_uids:
+            try:
+                await self._announce(ServerState.OFFLINE, expiration=dht_time() + OFFLINE_EXPIRATION)
+            except Exception as e:  # best effort: the records expire on their own
+                logger.debug(f"OFFLINE announce during drain failed: {e!r}")
+        if parked:
+            logger.info(f"Draining: parked {parked} session(s) for migration")
+        if parked and migrate:
+            pushed = await self._migrate_parked_sessions()
+            if pushed:
+                logger.info(f"Drain-to-migrate: pushed {pushed} session(s) to replicas")
+        return parked
+
+    async def _migrate_parked_sessions(self, deadline_s: float = 30.0) -> int:
+        """Push every parked session's KV to a live replica covering its
+        span. A session with no such replica, or whose push fails, stays
+        parked for the client's export or replay. Returns how many moved."""
+        handler = self.handler
+        if handler is None or not handler._parked or self.dht is None:
+            return 0
+        uids = module_uids(self.dht_prefix, range(self.cfg.num_hidden_layers))
+        try:
+            infos, addr_book = await get_remote_module_infos(self.dht, uids)
+        except Exception as e:
+            logger.warning(f"Drain-to-migrate skipped: swarm lookup failed ({e!r})")
+            return 0
+        migrated = 0
+        for session_id, snap in list(handler._parked.items()):
+            dest = self._pick_migration_target(infos, addr_book, snap["start"], snap["end"])
+            if dest is None:
+                logger.info(
+                    f"No live replica covers blocks [{snap['start']}, {snap['end']}): "
+                    f"session {session_id!r} stays parked for the client's export"
+                )
+                continue
+            peer_id, addr = dest
+            if await handler.migrate_parked_to(
+                session_id, snap, peer_id.to_string(), addr.to_string(), deadline_s=deadline_s,
+            ):
+                migrated += 1
+        return migrated
+
+    def _pick_migration_target(self, infos, addr_book, start: int, end: int):
+        """The highest-throughput ONLINE peer (not this one) serving every
+        block of [start, end) at a known address, decode-tier replicas
+        first (a migrated session is mid-generation); None when none."""
+        candidates = None
+        for i in range(start, end):
+            info = infos[i] if i < len(infos) else None
+            if info is None:
+                return None
+            here = {
+                pid for pid, si in info.servers.items()
+                if si.state == ServerState.ONLINE and pid in addr_book and pid != self.dht.peer_id
+            }
+            candidates = here if candidates is None else candidates & here
+            if not candidates:
+                return None
+        best, best_key = None, (-1, -1.0)
+        for pid in candidates:
+            si = infos[start].servers[pid]
+            key = (1 if getattr(si, "phase_tier", None) == "decode" else 0, si.throughput or 0.0)
+            if key > best_key:
+                best, best_key = pid, key
+        return (best, addr_book[best]) if best is not None else None
+
     async def shutdown(self) -> None:
+        if self.handler is not None:
+            # a drain-to-migrate push racing shutdown must not hang teardown
+            # on a slow peer: the aborted sessions stay parked
+            self.handler.abort_migrations()
         if self._announcer_task is not None:
             self._announcer_task.cancel()
             try:
@@ -429,6 +536,8 @@ class Server:
             await self._relay_registrar.stop()
         if self.rpc_server is not None:
             await self.rpc_server.stop()
+        if self.handler is not None:
+            await self.handler.close()
         if self.batcher is not None:
             await self.batcher.close()
         self.queue.shutdown()
@@ -463,6 +572,9 @@ class Server:
             server_gen=self.server_gen_params is not None,
             server_gen_sampling=self.server_gen_params is not None,
             pool=pool,
+            # generalists announce it too, which tells an explicit
+            # generalist from a server that predates tiers
+            phase_tier=self.phase_tier,
         )
 
     async def _announce(self, state: ServerState, expiration: Optional[float] = None) -> None:

@@ -293,15 +293,17 @@ def test_waiting_parts_raise_with_their_slice(port_route):
         port_model.remote.forward(torch.zeros(1, 4, port_model.cfg.hidden_size))
     with pytest.raises(NotImplementedError, match="A13"):
         port_model.generate(_ids(1, (1, 4)), max_new_tokens=2, prompts=np.zeros((4, 1, 2, 64), np.float32))
-    for bad, slice_name in ((dict(route_upgrade_period=5.0), "A9"), (dict(route_upgrade_threshold=0.5), "A9"),
-                            (dict(kv_export_timeout=10.0), "A9"), (dict(handoff_timeout=5.0), "A9"),
-                            (dict(active_adapter="lora"), "A13")):
-        with pytest.raises(NotImplementedError, match=slice_name):
-            ClientConfig(**bad)
+    with pytest.raises(NotImplementedError, match="A13"):
+        ClientConfig(active_adapter="lora")
     assert ClientConfig(compression="qint8").compression == "qint8"  # the codec is ported
-    assert ClientConfig().use_server_to_server and ClientConfig().disagg_handoff  # inert defaults
-    # False asks for what the port does (the client relays, no handoff)
-    ClientConfig(use_server_to_server=False, disagg_handoff=False)
+    # the KV-migration knobs are ported: petals_tpu's defaults, any value taken
+    assert ClientConfig().use_server_to_server and ClientConfig().disagg_handoff
+    cfg = ClientConfig(route_upgrade_period=5.0, route_upgrade_threshold=0.5, kv_export_timeout=10.0,
+                       handoff_timeout=5.0, use_server_to_server=False, disagg_handoff=False)
+    assert (cfg.route_upgrade_period, cfg.kv_export_timeout, cfg.handoff_timeout) == (5.0, 10.0, 5.0)
+    for bad in (dict(kv_export_timeout=0.0), dict(handoff_timeout=-1.0)):
+        with pytest.raises(ValueError, match="must be positive"):
+            ClientConfig(**bad)
     # the head is held in float32 once, and the logits are float32
     assert port_model.client_params["head"].dtype == torch.float32
     assert port_model.lm_logits(torch.zeros(1, 1, port_model.cfg.hidden_size)).dtype == torch.float32

@@ -7,8 +7,9 @@ wire is petals_tpu's, byte for byte.
   test_mixed_prefill_interleaves_with_decode): every reply equals a
   petals_tpu TransformerBackend.inference_step on the same weights, and the
   batcher's stats show the prefill rode mixed steps.
-- Steps and sessions this server does not serve yet (KV import, adapters,
-  push_to) get a clear error, and so does server-side generation outside a
+- Sessions this server does not serve yet (adapters) and malformed KV
+  imports get a clear error, a step's push_to to an unreachable peer is
+  served as usual, and so does server-side generation outside a
   whole-model session (tests/test_torch_server_gen.py serves it); batch > 1
   and sub-span sessions are served from private caches
   (tests/test_torch_dense.py).
@@ -153,7 +154,9 @@ def test_concurrent_prefill_and_decode_match_jax(model_path):
 
 
 def test_unsupported_steps_get_a_clear_error(model_path):
-    """KV import, push_to and adapters are refused as not supported yet,
+    """Adapters are refused as not supported yet, a KV import without its
+    tensors with petals_tpu's error, and a push_to naming no reachable peer
+    does not hold the step's reply back,
     and server-side generation outside a whole-model session (a sub-span)
     or with a malformed ``gen_sampling`` with petals_tpu's errors, never
     silently mishandled; sessions the lane pool cannot hold (batch 2, a
@@ -181,8 +184,14 @@ def test_unsupported_steps_get_a_clear_error(model_path):
             await expect_refusal(client, good, {"tensors": {"hidden": hidden}, "gen_tokens": 4,
                                                 "gen_sampling": {"do_sample": True, "top_k": -1}},
                                  match="gen_sampling.top_k must be >= 0")
-            await expect_refusal(client, good, {"kv_import": {"position": 3}, "tensors": {}})
-            await expect_refusal(client, good, {"tensors": {"hidden": hidden}, "push_to": {"addr": "x", "session_id": "y"}})
+            await expect_refusal(client, good, {"kv_import": {"position": 3}, "tensors": {}},
+                                 match="kv_import needs k and v tensors")
+            stream = await client.open_stream("ptu.inference")
+            await stream.send(good)
+            await stream.recv(timeout=60)
+            await stream.send({"tensors": {"hidden": hidden}, "push_to": {"addr": "x", "session_id": "y"}})
+            assert (await stream.recv(timeout=60))["position"] == 2
+            await stream.end()
             await expect_refusal(client, {**good, "active_adapter": "lora"})
             for open_msg in ({**good, "batch_size": 2}, {**good, "uids": _uids(model_path).split(" ")[0]}):
                 stream = await client.open_stream("ptu.inference")
