@@ -580,6 +580,25 @@ MIGRATE_SHORT_PROMPT = 300  # runs b and c (>= the client's prefill_tier_tokens)
 MIGRATE_PRIVATE = (2, 64)  # run e: a private session's batch and prompt
 PUSH_PROMPT, PUSH_NEW = 64, 16  # run d: the push chain of two 4-block servers
 MIGRATE_HOLD_ROWS = 8  # the seeded caches' kernel holds: a chunk of this many rows
+# phase 20: speculative decoding. Run a serves the 8-layer cut whole with
+# the cut itself as an unquantized draft; run b serves a SPEC_DRAFT_BLOCKS-
+# layer cut whole on an nf4a pool with that cut as its (default) nf4a draft.
+# Each run: SPEC_SESSIONS concurrent sessions of SPEC_PROMPT-token prompts
+# and SPEC_NEW generated tokens (two greedy, two sampled at SPEC_SAMPLING
+# with fixed seeds), then the same sessions with the draft detached.
+# Contexts stay within SPEC_WINDOW, so the draft sees exact positions.
+SPEC_K = 4
+SPEC_WINDOW = 64
+SPEC_PROMPT = 24
+SPEC_NEW = 32
+SPEC_SESSIONS = 4
+SPEC_SAMPLING = dict(do_sample=True, temperature=0.8, top_k=10)
+SPEC_SEEDS = (11, 12)
+SPEC_DRAFT_BLOCKS = 2
+SPEC_GREEDY_ACCEPT = 0.9  # run a's greedy acceptance must exceed this
+# the verify arm's kernels-line case: 4 lanes of S = SPEC_K + 1 rows at
+# these positions on 1024-token tables (Mistral's window)
+SPEC_VERIFY_POSITIONS = (100, 400, 700, 1000)
 
 # K5/K6 at the four projections of a Mistral-7B block as the port serves
 # them (qkv and gate+up fused), at decode batches (1, 4, 8 and 32 rows: one
@@ -3203,7 +3222,7 @@ def _off_interval(cdf, tok, u) -> float:
     return float(max(lo - u, u - cdf[tok], 0.0))
 
 
-def check_gen_streams(label, entries, replayed, block_params, ckpt, device):
+def check_gen_streams(label, entries, replayed, block_params, ckpt, device, kv_quant="none"):
     """Each server-generated stream held two ways.
 
     The server's own logits: ``replayed`` holds, per stream (None for one
@@ -3231,7 +3250,8 @@ def check_gen_streams(label, entries, replayed, block_params, ckpt, device):
     and at least half of a stream's draws must be the reference's (a wrong
     uniform stream agrees on about one in ten).
     ``entries``: (recorded session, tokens, prompt length, generate
-    kwargs). Returns (what failed, counts: tokens held to the server's own
+    kwargs). ``kv_quant``: the served pool's kind, whose rows the dense
+    references write as the pool holds them. Returns (what failed, counts: tokens held to the server's own
     logits and their ties, sampled draws, those the dense reference moved
     within and beyond its noise)."""
     import numpy as np
@@ -3250,7 +3270,7 @@ def check_gen_streams(label, entries, replayed, block_params, ckpt, device):
         x = embed[torch.as_tensor(tokens[:, :-1])].float()
         logits = {}
         for dt, p in params.items():
-            out = reference_session(p, family, cfg, x, [], device, dt)[0][0]
+            out = reference_session(p, family, cfg, x, [], device, dt, kv_quant)[0][0]
             logits[dt] = ref_logits(out[0, prompt_len - 1 :]).cpu().double().numpy()
         noise = np.abs(logits[torch.bfloat16] - logits[torch.float32]).max()
         eps = REPLY_NOISE_FACTOR * noise
@@ -4480,6 +4500,356 @@ def serve_migration_and_check(ckpt, device, smi) -> dict:
     return launches
 
 
+def _verify_case(device, kind):
+    """The verify arm's timed case at Mistral-7B widths: SPEC_VERIFY_POSITIONS
+    lanes of SPEC_K + 1 query rows on permuted 1024-token tables over seeded
+    bf16 pools (quantized on the card for ``kind``)."""
+    from petals_tpu_torch.ops.paged_attention import PagedPool, quantize_kv_rows
+
+    gen = torch.Generator(device=device).manual_seed(SEED + 20)
+    (hq, hkv, d), S = (MISTRAL_7B[k] for k in ("num_attention_heads", "num_key_value_heads", "head_dim")), SPEC_K + 1
+    n_lanes, max_pages = len(SPEC_VERIFY_POSITIONS), 1024 // PAGE
+    n_pages = n_lanes * max_pages + 8
+    perm = torch.randperm(n_pages, generator=torch.Generator().manual_seed(SEED + 21)).to(torch.int32)
+    tables = perm[: n_lanes * max_pages].reshape(n_lanes, max_pages).to(device)
+    pools = [torch.randn(n_pages, PAGE, hkv, d, generator=gen, device=device).to(torch.bfloat16) for _ in range(2)]
+    if kind != "none":
+        pools = [PagedPool(*quantize_kv_rows(p, kind)) for p in pools]
+    q = torch.randn(n_lanes, S, hq, d, generator=gen, device=device).to(torch.bfloat16)
+    positions = torch.tensor(SPEC_VERIFY_POSITIONS, dtype=torch.int32, device=device)
+    return q, pools[0], pools[1], tables, positions
+
+
+def _library_verify(q, kp, vp, tables, positions, window):
+    """The verify arm's yardstick: the pages gathered (and dequantized) into
+    a dense view, then PyTorch's fused attention with each row's causal and
+    window mask."""
+    from petals_tpu_torch.ops.paged_attention import gather_pages
+
+    k = gather_pages(kp, tables).transpose(1, 2)
+    v = gather_pages(vp, tables).transpose(1, 2)
+    kv_pos = torch.arange(k.shape[2], device=q.device)
+    q_pos = positions[:, None].long() + torch.arange(q.shape[1], device=q.device)
+    mask = (kv_pos[None, None, :] <= q_pos[:, :, None]) & (kv_pos[None, None, :] > q_pos[:, :, None] - window)
+    return _sdpa(q.transpose(1, 2), k, v, mask[:, None]).transpose(1, 2)
+
+
+def check_verify_arm(device, timer, kind) -> dict:
+    """K1 (``kind`` "none") or K3's ``kind`` arm in the verify step's shape,
+    4 lanes x SPEC_K + 1 rows at Mistral-7B widths, held against the plain
+    per-row causal ``paged_attend`` (each lane within KERNEL_TOL), timed
+    beside the plain version, gather + SDPA, the one-row decode of the same
+    lanes and the bound. Returns the kernels line's ``verify_arm`` entry
+    (without its launches)."""
+    from petals_tpu_torch.ops import paged_flash_attention as pfa
+    from petals_tpu_torch.ops.paged_attention import kv_wire_bytes_per_token, paged_attend
+
+    q, kp, vp, tables, positions = _verify_case(device, kind)
+    window = MISTRAL_7B["sliding_window"]
+    n_lanes, S, hq, d = q.shape
+    plain = (lambda p: p.float()) if kind == "none" else (lambda p: p)
+    got = pfa.paged_flash_attend(q, kp, vp, tables, positions, sliding_window=window)
+    torch.cuda.synchronize()
+    want = paged_attend(q.float(), plain(kp), plain(vp), tables, positions, sliding_window=window)
+    name = "K1 verify arm" if kind == "none" else f"K3 {kind} verify arm"
+    if not torch.isfinite(got).all():
+        raise AssertionError(f"{name}: non-finite output")
+    err = (got.float() - want).abs().max().item()
+    log(f"{name} ({n_lanes} lanes x {S} rows): max abs err {err:.3e} (tol {KERNEL_TOL})")
+    if err > KERNEL_TOL:
+        raise AssertionError(f"{name} disagrees with its plain version: {err} > {KERNEL_TOL}")
+    hkv = kp.shape[2]
+    rows_read = sum(min(p + S, window) for p in SPEC_VERIFY_POSITIONS)  # each lane's union of rows
+    pairs = sum(_visible(p + j, p + S, window) for p in SPEC_VERIFY_POSITIONS for j in range(S))
+    nbytes = (2 * rows_read * kv_wire_bytes_per_token(hkv, d, kind) + 2 * q.numel() * 2 + tables.numel() * 4
+              + positions.numel() * 4)
+    bound, by = bound_ms(nbytes, 4 * hq * d * pairs)
+    one = q[:, :1].contiguous()
+    entry = {
+        "shape": f"{n_lanes} lanes x {S} rows at {list(SPEC_VERIFY_POSITIONS)}, window {window}",
+        "max_abs_err": err,
+        "ms": timer(lambda: pfa.paged_flash_attend(q, kp, vp, tables, positions, sliding_window=window)),
+        "plain_ms": timer(lambda: paged_attend(q, kp, vp, tables, positions, sliding_window=window)),
+        "bound_ms": bound, "bound_by": by,
+        "library_ms": timer(lambda: _library_verify(q, kp, vp, tables, positions, window)),
+        "one_row_ms": timer(lambda: pfa.paged_flash_attend(one, kp, vp, tables, positions, sliding_window=window)),
+    }
+    log(f"{name}: {entry['ms']:.4f} ms kernel ({n_lanes * S} virtual lanes, one launch), {entry['plain_ms']:.4f} ms "
+        f"plain, {entry['library_ms']:.4f} ms gather+SDPA, {entry['one_row_ms']:.4f} ms for one row a lane; bound "
+        f"{bound:.4f} ms ({by}, {nbytes / 1e6:.2f} MB)")
+    return entry
+
+
+def _spec_run(label, ckpt, n_blocks, device, smi, server_args, kv_quant):
+    """One run of phase 20: a whole-model port server of ``ckpt`` built by
+    the CLI with ``server_args`` (its draft among them) and the port client;
+    SPEC_SESSIONS concurrent generate() calls with the draft, then the same
+    with the draft detached. Returns what the phase checks and prints."""
+    import concurrent.futures
+
+    import numpy as np
+
+    from petals_tpu_torch.data_structures import ServerState
+    from petals_tpu_torch.ops import paged_flash_attention as pfa
+    from petals_tpu_torch.ops import quant_matmul as qmm
+    from petals_tpu_torch.ops.paged_attention import PagedPool, paged_attend, pool_block
+
+    held, calls, accept, walls = [], [], {False: [0, 0], True: [0, 0]}, {"spec": [], "gen": []}
+    last_verify, emitted = {}, [0, 0]  # emitted tokens, spec ticks
+
+    def place(servers):
+        (server,) = servers
+        held.append(server)
+        backend, batcher = server.backend, server.batcher
+        announced = server._server_info(ServerState.ONLINE).spec_k
+        if batcher.draft is None or announced != SPEC_K:
+            raise AssertionError(f"{label}: the draft did not load (batcher draft {batcher.draft}, announced "
+                                 f"spec_k {announced}): the server would serve plain decode")
+        verify, commit = backend.paged_spec_verify_step, batcher._commit_spec_results
+
+        def counted(*args, **kwargs):
+            before = (pfa.paged_flash_attend.launches, pfa.paged_flash_attend.kv_quant_launches.get(kv_quant, 0),
+                      backend._spec_program.counts.captures, backend._spec_program.counts.replays)
+            out = verify(*args, **kwargs)
+            after = (pfa.paged_flash_attend.launches, pfa.paged_flash_attend.kv_quant_launches.get(kv_quant, 0),
+                     backend._spec_program.counts.captures, backend._spec_program.counts.replays)
+            calls.append(tuple(b - a for a, b in zip(before, after)))
+            last_verify.update(positions=torch.as_tensor(args[3]).clone(), tables=torch.as_tensor(args[4]).clone())
+            return out
+
+        def committed(spec_states, g_hat, n_emit):
+            for lane, st in spec_states.items():
+                accept[st.do_sample][0] += batcher.spec_k
+                accept[st.do_sample][1] += int(n_emit[lane]) - 1
+                emitted[0] += int(n_emit[lane])
+            emitted[1] += 1
+            return commit(spec_states, g_hat, n_emit)
+
+        backend.paged_spec_verify_step, batcher._commit_spec_results = counted, committed
+        for name, key in (("_run_batch_spec", "spec"), ("_run_batch_gen", "gen")):
+            def timed(*args, _body=getattr(batcher, name), _walls=walls[key]):
+                t0 = time.perf_counter()
+                out = _body(*args)
+                _walls.append((time.perf_counter() - t0) * 1e3)
+                return out
+
+            setattr(batcher, name, timed)
+
+    gen = torch.Generator().manual_seed(SEED + 20)
+    prompts = [torch.randint(0, MISTRAL_7B["vocab_size"], (1, SPEC_PROMPT), generator=gen).numpy()
+               for _ in range(SPEC_SESSIONS)]
+    kwargs = [{}, {}] + [dict(SPEC_SAMPLING, seed=s) for s in SPEC_SEEDS]
+
+    def runs(model, rec):
+        def own_session():
+            return [e for e in rec.sessions if e["thread"] == threading.get_ident()][-1]
+
+        def stream(i):
+            t0 = time.perf_counter()
+            out = model.generate(prompts[i], max_new_tokens=SPEC_NEW, **kwargs[i])
+            return (own_session(), out, SPEC_PROMPT, kwargs[i]), time.perf_counter() - t0
+
+        def together():
+            with concurrent.futures.ThreadPoolExecutor(SPEC_SESSIONS) as pool:
+                return [f.result(timeout=600) for f in [pool.submit(stream, i) for i in range(SPEC_SESSIONS)]]
+
+        batcher = held[0].batcher
+        # one spec stream first, off the clock: the first spec tick warms
+        # (captures) the draft's buckets
+        model.generate(torch.randint(0, MISTRAL_7B["vocab_size"], (1, SPEC_PROMPT), generator=gen).numpy(),
+                       max_new_tokens=SPEC_NEW)
+        for counts in (*accept.values(), emitted):
+            counts[:] = [0, 0]
+        for w in walls.values():
+            w.clear()
+        n_calls = len(calls)
+        spec = together()
+        spec_calls = calls[n_calls:]
+        draft, batcher.draft = batcher.draft, None  # the reference stream: plain decode on the same server
+        try:
+            plain = together()
+        finally:
+            batcher.draft = draft
+        return {"spec": spec, "plain": plain, "spec_calls": spec_calls}
+
+    k5 = {}
+
+    def after(servers):
+        server = servers[0]
+        stats, draft = server.batcher.stats, server.batcher.draft
+        k5.update(decode=sum(qmm.quant_decode_matmul.launches.values()),
+                  prefill=sum(qmm.quant_prefill_matmul.launches.values()))
+        counts = draft._program.counts
+        buckets = len(draft._buckets(server.batcher.n_lanes))
+        log(f"{label}: batcher stats {json.dumps(stats)}; draft programs: {counts.captures} captures for "
+            f"{buckets} buckets, {counts.replays} replays, {counts.anomalies} captures after warm-up")
+        if not (stats["spec_steps"] > 0 and stats["max_spec_lanes"] >= 1):
+            raise AssertionError(f"{label}: spec_steps {stats['spec_steps']}, max_spec_lanes "
+                                 f"{stats['max_spec_lanes']}: the draft never speculated")
+        if counts.captures != buckets or counts.anomalies or not counts.replays:
+            raise AssertionError(f"{label}: the draft's programs did not capture each bucket once and replay")
+        # the verify arm on the step's real pools (block 0), at the last
+        # verify step's positions and tables
+        kp, vp = (pool_block(p, 0) for p in server.batcher._buffers())
+        positions, tables = (last_verify[k].to(device) for k in ("positions", "tables"))
+        q = torch.randn(positions.shape[0], SPEC_K + 1, MISTRAL_7B["num_attention_heads"], MISTRAL_7B["head_dim"],
+                        generator=torch.Generator(device=device).manual_seed(SEED + 22), device=device)
+        q = q.to(kp.dtype)  # a PagedPool answers bfloat16
+        window = MISTRAL_7B["sliding_window"]
+        got = pfa.paged_flash_attend(q, kp, vp, tables, positions, sliding_window=window)
+        plain = (lambda p: p) if isinstance(kp, PagedPool) else (lambda p: p.float())
+        want = paged_attend(q.float(), plain(kp), plain(vp), tables, positions, sliding_window=window)
+        active = positions < server.batcher.max_length
+        err = (got.float() - want)[active].abs().max().item()
+        log(f"{label}: the verify arm on the served pool's block 0 at the last verify step's "
+            f"{int(active.sum())} speculating lanes: max abs err {err:.3e} from the plain paged_attend "
+            f"(tol {KERNEL_TOL})")
+        if not torch.isfinite(got).all() or err > KERNEL_TOL:
+            raise AssertionError(f"{label}: the verify arm disagrees with its plain version on the served pool")
+
+    t0 = time.perf_counter()
+    rec, result, launches, params = drive_client(label, ckpt, device, smi, [server_args], runs, place_check=place,
+                                                 after_runs=after)
+    want_call = (n_blocks if kv_quant == "none" else 0, n_blocks if kv_quant != "none" else 0, 0, 1)
+    bad = [c for c in result["spec_calls"] if c != want_call]
+    log(f"{label}: {len(result['spec_calls'])} verify steps during the spec runs, each (K1, K3 {kv_quant}, "
+        f"captures, replays) = {want_call} but {len(bad)}; launches during the runs {launches}; K5 in the draft: "
+        f"{k5['decode']} decode and {k5['prefill']} prefill launches")
+    if not result["spec_calls"] or bad:
+        raise AssertionError(f"{label}: verify steps that were not one replay running the k+1-row arm on every "
+                             f"block: {bad[:5]}")
+    g_prop, g_acc = accept[False]
+    s_prop, s_acc = accept[True]
+    log(f"{label}: proposed / accepted drafts: greedy lanes {g_acc} of {g_prop} "
+        f"({g_acc / max(g_prop, 1):.3f}), sampled lanes {s_acc} of {s_prop} ({s_acc / max(s_prop, 1):.3f}); "
+        f"{emitted[0]} tokens over {emitted[1]} verify ticks ({emitted[0] / max(emitted[1], 1):.3f} a tick)")
+    failed, counts = check_gen_streams(label, [e for e, _ in result["spec"]], [None] * SPEC_SESSIONS, params, ckpt,
+                                       device, kv_quant)
+    # each spec stream beside its plain one: where they part, the step and
+    # the dense float32 reference's logit gap of each pick
+    embed, ref_logits = _reference_head(ckpt, device)
+    from petals_tpu_torch.server.from_pretrained import get_block_config
+
+    family, cfg = get_block_config(ckpt)
+    params32 = dense_reference_params(params, torch.float32)
+    parted = 0
+    for i, ((spec_e, _), (plain_e, _)) in enumerate(zip(result["spec"], result["plain"])):
+        a, b = (np.asarray(e[1])[0, SPEC_PROMPT:] for e in (spec_e, plain_e))
+        if (a == b).all():
+            continue
+        parted += 1
+        at = int(np.flatnonzero(a != b)[0])
+        x = embed[torch.as_tensor(spec_e[1][:, : SPEC_PROMPT + at])].float()
+        out = reference_session(params32, family, cfg, x, [], device, torch.float32, kv_quant)[0][0]
+        z = ref_logits(out[0, -1:])[0].double().cpu()
+        log(f"{label}: stream {i} ({kwargs[i] or 'greedy'}) parts from its plain stream at new token {at}: spec "
+            f"{int(a[at])}, plain {int(b[at])}; float32 reference logits {float(z[int(a[at])]):.4f} and "
+            f"{float(z[int(b[at])]):.4f} (max {float(z.max()):.4f})")
+    log(f"{label}: {SPEC_SESSIONS - parted} of {SPEC_SESSIONS} spec streams equal their plain streams token for "
+        f"token")
+
+    def per_token(entries):
+        return statistics.median(s / SPEC_NEW * 1e3 for _, s in entries)
+
+    log(f"{label}: client time per generated token ({SPEC_SESSIONS} concurrent sessions, a generate() call's wall "
+        f"over its {SPEC_NEW} tokens, median): {per_token(result['spec']):.3f} ms with the draft, "
+        f"{per_token(result['plain']):.3f} ms without; the batcher's step bodies (host wall on the compute thread, "
+        f"median): spec tick {statistics.median(walls['spec']):.3f} ms over {len(walls['spec'])}, generation "
+        f"step {statistics.median(walls['gen']) if walls['gen'] else float('nan'):.3f} ms over "
+        f"{len(walls['gen'])} ({smi})")
+    if failed:
+        raise AssertionError("; ".join(failed))
+    log(f"{label}: done in {time.perf_counter() - t0:.1f} s")
+    return {"server": held[0], "accept": accept, "launches": launches, "k5": k5,
+            "verify_launches": sum(c[0] + c[1] for c in result["spec_calls"])}
+
+
+def profile_spec_steps(server, device, smi) -> None:
+    """The verify step's device busy beside a generation step's, on a
+    sibling of the served backend (its weights, fresh pools, PROFILE_LANES
+    lanes at the profile's positions, all sampled), and the draft's propose
+    at PROFILE_LANES lanes, each a replayed program (profile_calls)."""
+    sib = sibling_backend(server.backend)
+    gen_params, draft = server.server_gen_params, server.batcher.draft
+    cfg, max_len, S = sib.cfg, 1024, SPEC_K + 1
+    max_pages = max_len // PAGE
+    pools = _random_pools(sib, device, PROFILE_LANES * max_pages, SEED + 23)
+    tables = torch.arange(PROFILE_LANES * max_pages, dtype=torch.int32).reshape(PROFILE_LANES, max_pages)
+    positions = torch.linspace(64, max_len - 64, PROFILE_LANES).to(torch.int32)
+    vec, tokens, use_token = _gen_vectors(cfg.vocab_size, PROFILE_LANES, [True] * PROFILE_LANES, SEED + 23)
+    hidden = torch.zeros(PROFILE_LANES, 1, cfg.hidden_size)
+    spec_tokens = torch.randint(0, cfg.vocab_size, (PROFILE_LANES, S), generator=torch.Generator().manual_seed(SEED))
+    contexts = [list(range(SPEC_WINDOW))] * PROFILE_LANES
+    times = profile_calls({
+        "generation step, replayed": lambda: sib.paged_gen_decode_step(
+            gen_params, hidden, tokens, use_token, pools, positions, tables, sampling_vecs=vec),
+        f"verify step ({S} rows a lane), replayed": lambda: sib.paged_spec_verify_step(
+            gen_params, spec_tokens, pools, positions, tables, sampling_vecs=vec),
+        f"draft propose ({PROFILE_LANES} lanes, window {draft.window}, k {draft.spec_k}), replayed":
+            lambda: draft.propose(contexts),
+    })
+    ver, gen_t = times[f"verify step ({S} rows a lane), replayed"], times["generation step, replayed"]
+    prop = times[f"draft propose ({PROFILE_LANES} lanes, window {draft.window}, k {draft.spec_k}), replayed"]
+    log(f"profile (speculative decoding, {sib.n_blocks} blocks, --kv_quant_type {sib.kv_quant_type}): the replayed "
+        f"verify step's device busy {ver['device_busy_ms']:.3f} ms for {PROFILE_LANES} x {S} rows beside the "
+        f"generation step's {gen_t['device_busy_ms']:.3f} ms for {PROFILE_LANES} rows "
+        f"({ver['device_busy_ms'] / gen_t['device_busy_ms']:.3f}x); the draft's propose "
+        f"{prop['device_busy_ms']:.3f} ms; host wall {ver['host_wall_ms']:.3f}, {gen_t['host_wall_ms']:.3f} and "
+        f"{prop['host_wall_ms']:.3f} ms ({smi})")
+
+
+def serve_spec_and_check(ckpt, device, smi, timer) -> dict:
+    """Phase 20: server-side speculative decoding on the card (alone:
+    scripts/smoke_spec_decode.py). Run a: the 8-layer cut served whole by
+    the CLI with ``--draft_model <the cut> --draft_quant_type none --spec_k
+    SPEC_K --draft_window SPEC_WINDOW`` (a cooperative draft: K1's k+1-row
+    arm in the verify step). Run b: a SPEC_DRAFT_BLOCKS-layer cut of the
+    same weights served whole with ``--kv_quant_type nf4a`` and itself as
+    the default nf4a draft (K3's nf4a k+1-row arm in the verify step, K5 in
+    the draft). Each: SPEC_SESSIONS concurrent sessions, two greedy and two
+    sampled, then the same sessions with the draft detached
+    (``batcher.draft = None``, as the reference's test does). Checks: the
+    draft loaded and the announce says spec_k; spec_steps > 0 and
+    max_spec_lanes >= 1; run a's greedy acceptance > SPEC_GREEDY_ACCEPT;
+    every verify step one replay with the k+1-row arm on every block;
+    each draft bucket captured once, then replayed; every spec token held
+    to the dense float32 reference as phase 16 holds generated tokens (run
+    b's reference writing its rows as the nf4a pool holds them); the verify
+    arm held against the plain paged_attend on the served pool. Prints
+    each spec stream beside its plain one (where they part, the step and
+    the reference's logit gap: on the card the verify step's M = lanes x
+    (k+1) rows and K1's split plan differ from a decode step's, so bit
+    identity is not promised), the acceptance, tokens per verify tick, the
+    time per generated token with and without the draft, and the verify
+    step's device busy beside a generation step's. Then the verify arm at
+    Mistral-7B widths for the kernels line (K1, and K3's nf4a arm)."""
+    t0 = time.perf_counter()
+    cut = cut_checkpoint(ckpt, os.path.join(ckpt, f"mistral-7b-{SPAN}-layers-spec"), SPAN)
+    small = cut_checkpoint(ckpt, os.path.join(ckpt, f"mistral-7b-{SPEC_DRAFT_BLOCKS}-layers-spec"),
+                           SPEC_DRAFT_BLOCKS)
+    common = ("--batch_lanes", str(SPEC_SESSIONS), "--spec_k", str(SPEC_K), "--draft_window", str(SPEC_WINDOW))
+    a = _spec_run(f"speculative decoding a (cooperative draft, {SPAN} Mistral-7B blocks)", cut, SPAN, device, smi,
+                  ("--draft_model", cut, "--draft_quant_type", "none", *common), "none")
+    g_prop, g_acc = a["accept"][False]
+    if not g_prop or g_acc / g_prop <= SPEC_GREEDY_ACCEPT:
+        raise AssertionError(f"speculative decoding a: greedy acceptance {g_acc} of {g_prop} is not above "
+                             f"{SPEC_GREEDY_ACCEPT}")
+    profile_spec_steps(a.pop("server"), device, smi)
+    free_card()
+    b = _spec_run(f"speculative decoding b (nf4a self-draft, {SPEC_DRAFT_BLOCKS} Mistral-7B blocks, nf4a pool)",
+                  small, SPEC_DRAFT_BLOCKS, device, smi,
+                  ("--draft_model", small, "--kv_quant_type", "nf4a", *common), "nf4a")
+    b.pop("server")
+    free_card()
+    if not (b["k5"]["decode"] and b["k5"]["prefill"]):
+        raise AssertionError(f"speculative decoding b: K5 did not run in the nf4a draft: {b['k5']}")
+    arms = {"none": check_verify_arm(device, timer, "none"), "nf4a": check_verify_arm(device, timer, "nf4a")}
+    arms["none"]["launches"] = a["verify_launches"]
+    arms["nf4a"]["launches"] = b["verify_launches"]
+    log(f"speculative decoding: phase done in {time.perf_counter() - t0:.1f} s")
+    return {"verify_arm": arms, "k5": b["k5"]}
+
+
 def free_card() -> None:
     """Free what a dropped server held on the card before the next one loads
     (its event-loop objects hold reference cycles, so collect them)."""
@@ -4609,6 +4979,9 @@ def main() -> int:
         # KV migration: export/import, drain-to-migrate, the handoff, the push chain
         moved = serve_migration_and_check(ckpt, device, smi)
         free_card()
+        # speculative decoding: a cooperative draft, then an nf4a self-draft on an nf4a pool
+        spec = serve_spec_and_check(ckpt, device, smi, timer)
+        free_card()
     flash_kernel["launches"] = private_launches["K4"]
     # the launches on moved (imported, adopted) caches, phase 19
     kernels[0]["migration_launches"], kernels[1]["migration_launches"] = moved["K1"], moved["K2"]
@@ -4617,6 +4990,11 @@ def main() -> int:
         if entry["name"].endswith("[kv_nf4a]"):
             entry["migration_launches"] = moved["K3 decode" if entry["name"].startswith("paged_decode") else "K3 prefill"]
     kernels[0]["launches"] = bf16_launches["K1"]
+    # the speculative verify step's k+1-row arm (phase 20): its time at 4
+    # lanes x SPEC_K + 1 rows, bound and launches on the phase's verify steps
+    kernels[0]["verify_arm"] = spec["verify_arm"]["none"]
+    next(e for e in kv_kernels if e["name"] == "paged_decode_attention[kv_nf4a]")["verify_arm"] = \
+        spec["verify_arm"]["nf4a"]
     kernels[1]["launches"] = bf16_launches["K2"]
     for entry in kv_kernels:
         kind = entry["name"].split("[kv_")[1].rstrip("]")
@@ -4626,6 +5004,8 @@ def main() -> int:
         phase = "decode" if entry["name"].startswith("quant_decode") else "prefill"
         arm = entry["name"].split("[")[1].rstrip("]")
         entry["launches"] = arm_launches[arm][phase][arm]
+        if arm == "nf4a":  # the nf4a draft's launches (phase 20 run b)
+            entry["draft_launches"] = spec["k5"][phase]
     from petals_tpu_torch.telemetry.observatory import get_observatory
 
     digest = get_observatory().compile_stats()

@@ -26,6 +26,11 @@ splices. ``--drain_seconds N`` makes the first SIGTERM/SIGINT park the live
 sessions' KV, push it to replicas and keep serving exports for N seconds
 before exiting (a second signal skips the rest); ``--phase_tier`` announces
 the server as a prefill or decode specialist (default: generalist).
+``--draft_model <small checkpoint dir>`` turns on speculative decoding on a
+whole-model span: the draft proposes ``--spec_k`` (4) tokens a generating
+lane a tick from its last ``--draft_window`` (64) tokens, its blocks
+quantized per ``--draft_quant_type`` (nf4a), and the span verifies them in
+one paged step; the tokens are plain decode's.
 """
 
 from __future__ import annotations
@@ -110,6 +115,20 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--prefill_token_budget", type=int, default=512,
                         help="Max prefill-chunk tokens folded into each mixed batched step "
                              "(halved under decode pressure)")
+    parser.add_argument("--draft_model", default=None,
+                        help="Local path of a SMALL checkpoint for speculative decoding: "
+                             "it drafts --spec_k tokens per lane per tick and the span "
+                             "verifies them in one paged step (full-span single-host "
+                             "servers with server-side generation and a paged pool; "
+                             "output stays bit-identical to plain decode)")
+    parser.add_argument("--spec_k", type=int, default=4,
+                        help="Draft tokens verified per lane per tick (with --draft_model)")
+    parser.add_argument("--draft_window", type=int, default=None,
+                        help="Draft context window in tokens (default 64): the draft "
+                             "re-prefills the last N tokens each tick")
+    parser.add_argument("--draft_quant_type", default="nf4a",
+                        choices=["none", "int8", "nf4", "nf4a", "int4"],
+                        help="Quantization for the draft model's blocks")
     parser.add_argument("--no_server_side_generation", action="store_true",
                         help="Do not generate tokens on the server (a whole-model span otherwise "
                              "loads the client's leaves and answers gen_tokens)")
@@ -207,6 +226,10 @@ def build_server(args: argparse.Namespace) -> Server:
         prefix_cache_policy=args.prefix_cache_policy,
         prefix_share_scope=args.prefix_share_scope,
         phase_tier=args.phase_tier,
+        draft_model=args.draft_model,
+        spec_k=args.spec_k,
+        draft_window=args.draft_window,
+        draft_quant_type=args.draft_quant_type,
     )
 
 

@@ -8,6 +8,7 @@ from petals_tpu_torch.client.model import (
     AutoDistributedModelForCausalLM,
     DistributedModel,
     DistributedModelForCausalLM,
+    DistributedModelForSpeculativeGeneration,
 )
 from petals_tpu_torch.client.remote_sequential import RemoteSequential
 
@@ -17,6 +18,7 @@ __all__ = [
     "ClientConfig",
     "DistributedModel",
     "DistributedModelForCausalLM",
+    "DistributedModelForSpeculativeGeneration",
     "InferenceSession",
     "RemoteSequential",
 ]

@@ -59,6 +59,7 @@ from petals_tpu_torch.dht.routing import PeerAddr
 from petals_tpu_torch.rpc.client import StreamCall
 from petals_tpu_torch.rpc.serialization import CompressionType, as_tensor, deserialize_array, serialize_array
 from petals_tpu_torch.server.handler import new_trace_id
+from petals_tpu_torch.telemetry.ledger import derive_efficiency
 
 logger = logging.getLogger(__name__)
 
@@ -526,6 +527,11 @@ class InferenceSession:
             for field, amount in hop.usage.items():
                 peer[field] = round(peer.get(field, 0.0) + amount, 6)
                 total[field] = round(total.get(field, 0.0) + amount, 6)
+        # speculative efficiency is re-derived from the summed counters (rates
+        # do not sum across replies or peers)
+        for usage in (*per_peer.values(), total):
+            if usage.get("spec_proposed"):
+                usage.update(derive_efficiency(usage))
         return {"trace_id": self.trace_id, "tokens": self._tokens, "total": total, "peers": per_peer}
 
     def _retire_hops(self, sessions) -> None:

@@ -10,10 +10,13 @@ The client's parameters sit on the CUDA card unless the caller passes a CPU
 device; with no card and no explicit CPU, ``from_pretrained`` raises, as
 the port's server entry points do.
 
+``DistributedModelForSpeculativeGeneration`` generates greedily with a
+local draft, verified by the swarm (client/speculative.py).
+
 Waiting, each raising with its slice named: ``forward()`` (needs the
 servers' ``rpc_forward``, A11), trained prompts (``PTuneMixin``,
-``ptune=``, A13), ``DistributedModelForSequenceClassification`` (A11/A13)
-and ``DistributedModelForSpeculativeGeneration`` (A10/A11).
+``ptune=``, A13) and ``DistributedModelForSequenceClassification``
+(A11/A13).
 """
 
 from __future__ import annotations
@@ -122,9 +125,37 @@ class DistributedModelForSequenceClassification:
 
 
 class DistributedModelForSpeculativeGeneration:
+    """A causal LM over the swarm plus a LOCAL draft for draft-and-verify
+    greedy decoding (petals_tpu/client/model.py's, family-agnostic). The
+    output is plain greedy decoding's; a bad draft only costs speed."""
+
+    def __init__(self, model: DistributedModelForCausalLM, draft_fn, *, speculative_tokens: int = 4):
+        self.model = model
+        self.draft_fn = draft_fn
+        self.speculative_tokens = speculative_tokens
+        self.cfg = model.cfg
+
     @classmethod
-    def from_pretrained(cls, *args, **kwargs):
-        raise NotImplementedError("speculative generation waits for A10/A11 in this port")
+    def from_pretrained(cls, model_name_or_path: str, draft_model_path: str, *, speculative_tokens: int = 4,
+                        **kwargs) -> "DistributedModelForSpeculativeGeneration":
+        """``kwargs`` go to ``DistributedModelForCausalLM.from_pretrained``;
+        the draft runs on the same device as the client's parameters."""
+        from petals_tpu_torch.client.speculative import make_local_draft_fn
+
+        model = DistributedModelForCausalLM.from_pretrained(model_name_or_path, **kwargs)
+        return cls(model, make_local_draft_fn(draft_model_path, device=model.device),
+                   speculative_tokens=speculative_tokens)
+
+    def generate(self, input_ids, *, max_new_tokens: int, speculative_tokens: Optional[int] = None):
+        from petals_tpu_torch.client.speculative import speculative_generate
+
+        return speculative_generate(
+            self.model, self.draft_fn, input_ids, max_new_tokens=max_new_tokens,
+            speculative_tokens=speculative_tokens if speculative_tokens is not None else self.speculative_tokens,
+        )
+
+    def close(self) -> None:
+        self.model.close()
 
 
 class AutoDistributedModelForCausalLM:

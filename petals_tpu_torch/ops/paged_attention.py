@@ -34,8 +34,10 @@ suspended lane's packed swap entry with ``dequantize_kv_np``. (The numpy
 int8 encoder divides by 127, as petals_tpu's twin does; the torch encoder
 multiplies by the reciprocal, as its jitted one does.)
 
-Not ported yet: ``scatter_lane_chunk_rows``, the speculative-verify write
-shape (speculative decoding).
+The speculative-verify write shape, ``scatter_lane_chunk_rows``: every lane
+lands a short run of rows at its own position in one scatter (the verify
+step's k+1 candidate rows a lane); ``paged_attend`` then masks each of a
+lane's query rows causally at its own position.
 """
 
 from __future__ import annotations
@@ -316,16 +318,18 @@ def _flat_index(n_pages: int, page_size: int, page: torch.Tensor, positions: tor
     return torch.where(valid, page * page_size + positions % page_size, n_pages * page_size)
 
 
-def token_rows_index(pool: torch.Tensor, tables: torch.Tensor, positions: torch.Tensor) -> torch.Tensor:
-    """Flat write index of each lane's token at ``positions`` [n_lanes]
-    (idle sentinel = max_length drops)."""
+def lane_rows_index(pool: torch.Tensor, tables: torch.Tensor, positions: torch.Tensor, seq: int = 1) -> torch.Tensor:
+    """Flat write index [n_lanes * seq] of ``seq`` rows per lane (one: a
+    decode token), lane i's row j at ``positions[i] + j`` (the idle sentinel
+    = max_length drops every row of its lane: each offset lands past the
+    table)."""
     n_pages, page_size = pool.shape[0], pool.shape[1]
     max_pages = tables.shape[1]
-    positions = positions.long()
-    slot = torch.div(positions, page_size, rounding_mode="floor")
-    in_range = (positions >= 0) & (slot < max_pages)
-    page = tables.gather(1, slot.clamp(0, max_pages - 1)[:, None])[:, 0].long()
-    return _flat_index(n_pages, page_size, page, positions, in_range)
+    pos = positions.long()[:, None] + torch.arange(seq, device=positions.device)[None, :]
+    slot = torch.div(pos, page_size, rounding_mode="floor")
+    in_range = (pos >= 0) & (slot < max_pages)
+    page = tables.gather(1, slot.clamp(0, max_pages - 1)).long()
+    return _flat_index(n_pages, page_size, page, pos, in_range).reshape(-1)
 
 
 def chunk_rows_index(pool: torch.Tensor, table_row: torch.Tensor, positions: torch.Tensor) -> torch.Tensor:
@@ -346,7 +350,7 @@ def scatter_token_rows(
     """Write each lane's new token row into its page, in place (encoded on
     the way in for a PagedPool). rows [n_lanes, hkv, d]; positions [n_lanes]
     (idle sentinel = max_length)."""
-    _drop_scatter_(_write_pairs([pool], [rows]), token_rows_index(pool, tables, positions))
+    _drop_scatter_(_write_pairs([pool], [rows]), lane_rows_index(pool, tables, positions))
 
 
 def scatter_chunk_rows(
@@ -357,6 +361,20 @@ def scatter_chunk_rows(
     [max_pages]; positions [chunk] (padded rows carry a sentinel >=
     max_length and drop)."""
     _drop_scatter_(_write_pairs([pool], [rows]), chunk_rows_index(pool, table_row, positions))
+
+
+def scatter_lane_chunk_rows(
+    pool: PoolLike, rows: torch.Tensor, tables: torch.Tensor, positions: torch.Tensor
+) -> None:
+    """Write a short run of rows into EVERY lane's pages at once, in place
+    (encoded on the way in for a PagedPool): the speculative-verify write
+    shape, each lane landing ``seq`` candidate rows from its own position.
+    rows [n_lanes, seq, hkv, d]; tables [n_lanes, max_pages]; positions
+    [n_lanes] (the idle sentinel drops every row of its lane). The rows of
+    one lane go to distinct slots, so no two valid writes collide."""
+    n_lanes, seq = rows.shape[:2]
+    idx = lane_rows_index(pool, tables, positions, seq)
+    _drop_scatter_(_write_pairs([pool], [rows.reshape(n_lanes * seq, *rows.shape[2:])]), idx)
 
 
 def scatter_lane_pages(pool: PoolLike, lane_pages: torch.Tensor, table_row) -> None:
@@ -394,6 +412,10 @@ def paged_update_kv(k_kv: PagedKV, v_kv: PagedKV, k_new, v_new, position, n_vali
 
     - decode: ``position`` is a [n_lanes] tensor and k_new/v_new are
       [n_lanes, 1, hkv, d] (sentinel positions drop);
+    - per-lane chunk (speculative verify): ``position`` is a [n_lanes]
+      tensor and k_new/v_new are [n_lanes, S, hkv, d] with S > 1, each lane
+      landing S rows from its own position (``scatter_lane_chunk_rows``;
+      the idle sentinel drops all of its lane's); kv_length is position + S;
     - chunked prefill: ``position`` is a scalar and k_new/v_new are
       [1, chunk, hkv, d] with ``n_valid`` real rows; the lane's table row is
       ``tables[0]``. ``position`` and ``n_valid`` are host integers or 0-dim
@@ -404,14 +426,11 @@ def paged_update_kv(k_kv: PagedKV, v_kv: PagedKV, k_new, v_new, position, n_vali
     if isinstance(position, torch.Tensor) and position.dim() == 1:
         if n_valid is not None:
             raise ValueError(f"per-lane paged writes take no n_valid (got n_valid={n_valid})")
-        if k_new.shape[1] != 1:
-            raise ValueError(
-                "per-lane paged writes of more than one row (speculative verify) "
-                "are not supported by this port yet"
-            )
-        idx = token_rows_index(k_kv.pool, tables, position)
-        _drop_scatter_(_write_pairs([k_kv.pool, v_kv.pool], [k_new[:, 0], v_new[:, 0]]), idx)
-        return k_kv, v_kv, position + 1
+        seq = k_new.shape[1]
+        idx = lane_rows_index(k_kv.pool, tables, position, seq)
+        rows = [x.reshape(-1, *x.shape[2:]) for x in (k_new, v_new)]
+        _drop_scatter_(_write_pairs([k_kv.pool, v_kv.pool], rows), idx)
+        return k_kv, v_kv, position + seq
     if k_new.shape[0] != 1 or tables.shape[0] != 1:
         raise ValueError(
             "scalar-position paged writes are single-lane chunks: "
@@ -449,9 +468,11 @@ def paged_attend(
     scale: Optional[float] = None,
 ) -> torch.Tensor:
     """Plain version of the paged DECODE kernel: gather each lane's pages into
-    a dense view and attend with ragged lengths (kv_length = position + 1).
-    q [n_lanes, 1, hq, d]; pools [n_pages, ps, hkv, d]; tables [n_lanes,
-    max_pages]; positions [n_lanes] int32. On ``PagedPool``s it is the plain
+    a dense view and attend with ragged lengths (kv_length = position +
+    q_len). q [n_lanes, q_len, hq, d]; pools [n_pages, ps, hkv, d]; tables
+    [n_lanes, max_pages]; positions [n_lanes] int32. q_len > 1 is the
+    speculative verify: row j of a lane sits at position + j and sees the
+    slots up to it. On ``PagedPool``s it is the plain
     version of the quantized arm too: pages dequantize to bfloat16 first.
     Holes are seen by no query (``slot_valid``)."""
     k = gather_pages(k_pool, tables)

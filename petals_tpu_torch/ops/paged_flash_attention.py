@@ -229,9 +229,19 @@ def paged_flash_attend(
     scale: Optional[float] = None,
 ) -> torch.Tensor:
     """Ragged paged DECODE attention: the contract of ``paged_attend``. q
-    [n_lanes, 1, hq, d]; pools [n_pages, page_size, hkv, d] (q's dtype) or
-    ``PagedPool``s of that logical shape; tables [n_lanes, max_pages] int32
-    (-1 = hole); positions [n_lanes] int32."""
+    [n_lanes, q_len, hq, d]; pools [n_pages, page_size, hkv, d] (q's dtype)
+    or ``PagedPool``s of that logical shape; tables [n_lanes, max_pages]
+    int32 (-1 = hole); positions [n_lanes] int32.
+
+    q_len > 1 is the speculative verify (S query rows a lane at positions
+    p..p+S-1): the reference composes it from XLA, and here the one-row
+    kernel serves it over ``n_lanes * S`` virtual lanes, row j of lane i
+    being virtual lane ``i * S + j`` with lane i's table row and position
+    ``p + j`` (so kv_len = p + j + 1, the per-row causal mask). An idle
+    sentinel lane's rows land past its table, which the kernel clamps to
+    the table: they read only that lane's own pages. The split plan, the
+    merge's counters and the launch count follow the virtual lanes: one
+    launch a call."""
     if _on_cpu(q, k_pool, v_pool, tables, positions, alibi_slopes):
         return paged_attend(
             q, k_pool, v_pool, tables, positions,
@@ -239,8 +249,6 @@ def paged_flash_attend(
         )
     (n_pages, page_size, hkv, d), kv_code, ptrs = _check_common(q, k_pool, v_pool, alibi_slopes, sliding_window)
     n_lanes, q_len, hq, _ = q.shape
-    if q_len != 1:
-        raise ValueError(f"the decode kernel takes one token per lane, got q_len={q_len}")
     _check("tables", tables, torch.int32, 2)
     _check("positions", positions, torch.int32, 1)
     if tables.shape[0] != n_lanes or positions.shape[0] != n_lanes:
@@ -248,10 +256,17 @@ def paged_flash_attend(
             f"tables {tuple(tables.shape)} / positions {tuple(positions.shape)} "
             f"do not match {n_lanes} lanes"
         )
+    if q_len != 1:
+        # every tensor stays on the card: no host sync, so a capture takes it
+        rows = torch.arange(q_len, dtype=torch.int32, device=q.device)
+        q = q.reshape(n_lanes * q_len, 1, hq, d)
+        tables = tables[:, None].expand(n_lanes, q_len, tables.shape[1]).reshape(n_lanes * q_len, -1)
+        positions = (positions[:, None] + rows[None, :]).reshape(-1)
+        n_lanes = n_lanes * q_len
     out = torch.empty_like(q)
     max_pages = tables.shape[1]
     if n_lanes == 0 or max_pages == 0:
-        return out.zero_()
+        return out.zero_().reshape(n_lanes // q_len, q_len, hq, d)
     max_rows = max_pages * page_size if sliding_window is None else min(max_pages * page_size, int(sliding_window))
     n_splits = decode_split_plan(n_lanes, hkv, max_rows, _sm_count(q.device))
     scratch = (None, None, None)
@@ -271,7 +286,7 @@ def paged_flash_attend(
         )
     _raise_on(err, "paged decode")
     _count(paged_flash_attend, k_pool)
-    return out
+    return out.reshape(n_lanes // q_len, q_len, hq, d)
 
 
 def chunk_scalars(chunk_pos, n_valid, device: torch.device):
@@ -357,8 +372,9 @@ def paged_attend_dispatch(
     """Route a PagedKV attention call (from ``attend``) to the decode or the
     prefill wrapper, its pools (plain or ``PagedPool``) passed as they are. A
     [n_lanes] position tensor is the decode contract (ragged kv_length =
-    position + 1); a scalar position is one lane's chunked-prefill chunk
-    with ``kv_length - q_offset`` valid rows."""
+    position + q_len; q_len > 1 is the speculative verify's rows); a scalar
+    position is one lane's chunked-prefill chunk with ``kv_length -
+    q_offset`` valid rows."""
     if isinstance(q_offset, torch.Tensor) and q_offset.dim() == 1:
         return paged_flash_attend(
             q, k_kv.pool, v_kv.pool, k_kv.tables, q_offset,

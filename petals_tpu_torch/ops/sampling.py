@@ -115,13 +115,18 @@ def sampling_vectors(batch: int, vocab: int, sampling: Optional[dict] = None, *,
     return vec
 
 
-def sampling_uniforms(vec: dict) -> np.ndarray:
+def sampling_uniforms(vec: dict, n_draws: Optional[int] = None) -> np.ndarray:
     """Each sampling row's float32 uniform for its (seed, draw index) in
-    ``vec``; 0 for a greedy row, which reads none."""
-    u = np.zeros(vec["do_sample"].shape, np.float32)
+    ``vec``; 0 for a greedy row, which reads none. With ``n_draws``, each
+    row's [n_draws] uniforms for draws draw_idx .. draw_idx + n_draws - 1
+    (the speculative verify step's rows)."""
     rows = vec["do_sample"]
+    seeds, draws = vec["seeds"][rows], vec["draw_idx"][rows]
+    if n_draws is not None:
+        seeds, draws = seeds[:, None], draws[:, None].astype(np.int64) + np.arange(n_draws)
+    u = np.zeros(rows.shape + (() if n_draws is None else (n_draws,)), np.float32)
     if rows.any():
-        u[rows] = uniform_for_draw(vec["seeds"][rows], vec["draw_idx"][rows])
+        u[rows] = uniform_for_draw(seeds, draws)
     return u
 
 

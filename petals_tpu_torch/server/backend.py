@@ -1,8 +1,9 @@
 """TransformerBackend: the compute engine for a span of blocks: paged
 decode and mixed prefill+decode steps, the dense-cache steps of private
 sessions and the dense lane pool, server-side generation, and the
-stateless forward the throughput probe times (petals_tpu/server/backend.py
-without the backward, adapters, meshes and speculative decoding).
+stateless forward the throughput probe times, and the speculative-decoding
+verify step (petals_tpu/server/backend.py without the backward, adapters
+and meshes).
 
 Where the JAX backend runs the span as one jitted ``lax.scan`` over stacked
 parameters and donated pools, this one is a Python loop over blocks that
@@ -82,6 +83,18 @@ uniforms (ops/threefry.py, computed on the host) are graph inputs.
 before it; ``batched_gen_decode_step`` is the dense pool's step and
 ``generate_tokens`` a private session's loop of generation steps, each a
 program too.
+
+Speculative decoding (server/spec_decode.py): ``paged_spec_verify_step``
+feeds each speculating lane's last committed token and its k drafts, S =
+k + 1 rows at positions p..p+k, through the span in ONE step: the block
+loop writes all S K/V rows a lane (``scatter_lane_chunk_rows``) and attends
+S query rows a lane (the decode kernel over S virtual lanes a lane,
+ops/paged_flash_attention.py); the float32 head then samples the target's
+own token on every row with the lane's uniform for draw ``draw_idx + j``,
+and the leading matches of drafts and sampled tokens decide how many
+tokens a lane emits. A fourth paged program ("paged_spec_verify", keyed by
+``step_program_key("spec_verify", ...)`` with S as its bucket), captured
+when the pool opens on a batcher that holds a draft.
 """
 
 from __future__ import annotations
@@ -105,7 +118,7 @@ from petals_tpu_torch.ops.paged_attention import (
     scatter_lane_pages,
 )
 from petals_tpu_torch.ops.quant import OutlierQuantLinear, QuantizedLinear
-from petals_tpu_torch.ops.sampling import sample_tokens, sampling_tensors, sampling_vectors
+from petals_tpu_torch.ops.sampling import sample_tokens, sampling_tensors, sampling_uniforms, sampling_vectors
 from petals_tpu_torch.ops.threefry import uniform_for_draw
 from petals_tpu_torch.server.memory_cache import TensorDescriptor
 from petals_tpu_torch.telemetry.observatory import CudaGraphCapture, TrackedGraph
@@ -252,7 +265,7 @@ class TransformerBackend:
         self.hidden_size = cfg.hidden_size
         # the step programs (CUDA graphs, on a card only); every graph of
         # this backend shares one memory pool: steps never run at once
-        self._decode_program = self._mixed_program = self._gen_program = None
+        self._decode_program = self._mixed_program = self._gen_program = self._spec_program = None
         self._dense_decode_program = self._dense_gen_program = self._lane_program = None
         self._private_program = self._private_gen_program = self._forward_program = None
         # (k, v) addresses of the dense pool's lane views, whose plain chunks
@@ -263,6 +276,7 @@ class TransformerBackend:
             self._decode_program = TrackedGraph("paged_decode", capture)
             self._mixed_program = TrackedGraph("paged_mixed_step", capture)
             self._gen_program = TrackedGraph("paged_gen_decode", capture)
+            self._spec_program = TrackedGraph("paged_spec_verify", capture)
             self._dense_decode_program = TrackedGraph("batched_decode", capture)
             self._dense_gen_program = TrackedGraph("batched_gen_decode", capture)
             self._lane_program = TrackedGraph("dense_lane_step", capture)
@@ -830,15 +844,16 @@ class TransformerBackend:
         return h_dec, h_pf, (k_pool, v_pool)
 
     def warm_step_programs(self, pool_kv, n_lanes: int, max_pages: int, max_chunk: int,
-                           gen_params: Optional[dict] = None) -> None:
+                           gen_params: Optional[dict] = None, spec_k: int = 0) -> None:
         """Capture every step program a batcher of ``n_lanes`` lanes and
         ``max_pages`` table slots will replay on ``pool_kv``: the decode
-        step, the generation step when the batcher holds ``gen_params``, and
-        the mixed step at every bucket of a chunk of at most ``max_chunk``
-        tokens (``chunk_buckets``; a lane caps it). Run when the pool opens,
-        so that serving captures nothing. Every lane rides at the idle
-        sentinel on a table of holes: nothing is written and no row is read.
-        A no-op on the CPU."""
+        step, the generation step when the batcher holds ``gen_params`` (and
+        the verify step of ``spec_k`` drafts when it also holds a draft),
+        and the mixed step at every bucket of a chunk of at most
+        ``max_chunk`` tokens (``chunk_buckets``; a lane caps it). Run when
+        the pool opens, so that serving captures nothing. Every lane rides
+        at the idle sentinel on a table of holes: nothing is written and no
+        row is read. A no-op on the CPU."""
         if self._decode_program is None:
             return
         max_length = max_pages * pool_kv[0].shape[2]
@@ -852,6 +867,11 @@ class TransformerBackend:
                 gen_params, hidden, idle, idle.astype(bool), pool_kv, positions, tables,
                 sampling_vecs=sampling_vectors(n_lanes, self.cfg.vocab_size),
             )
+            if spec_k:
+                self.paged_spec_verify_step(
+                    gen_params, np.zeros((n_lanes, spec_k + 1), np.int64), pool_kv, positions, tables,
+                    sampling_vecs=sampling_vectors(n_lanes, self.cfg.vocab_size),
+                )
         longest = min(max_chunk, max_length)
         for bucket in chunk_buckets(longest):
             # the top bucket's chunk is the longest one (a lane may be
@@ -861,9 +881,9 @@ class TransformerBackend:
 
     def _programs(self) -> tuple:
         """Every step program of this backend (Nones on the CPU)."""
-        return (self._decode_program, self._mixed_program, self._gen_program, self._dense_decode_program,
-                self._dense_gen_program, self._lane_program, self._private_program, self._private_gen_program,
-                self._forward_program)
+        return (self._decode_program, self._mixed_program, self._gen_program, self._spec_program,
+                self._dense_decode_program, self._dense_gen_program, self._lane_program, self._private_program,
+                self._private_gen_program, self._forward_program)
 
     def step_program_stats(self) -> dict:
         """Captures, replays and post-warm-up captures (anomalies) of this
@@ -952,6 +972,75 @@ class TransformerBackend:
         h, _ = self._paged_decode_eager(h, pool_kv, positions, tables)
         samp = {name: _as_tensor(x, self.device) for name, x in zip(SAMPLING_INPUTS, samp)}
         return h, self._head_sample(gen_params, h, samp)
+
+    @torch.no_grad()
+    def paged_spec_verify_step(self, gen_params: dict, tokens, pool_kv, positions, tables, *,
+                               sampling_vecs: dict):
+        """One speculative verify step over the lane pool, PAGED layout (the
+        JAX package's ``paged_spec_verify_step``): on a CUDA device a replay
+        of its step program, on the CPU the block loop.
+
+        Args:
+          gen_params: the client's float32 leaves on the backend's device.
+          tokens: [n_lanes, S] (S = spec_k + 1): column 0 each lane's last
+            committed token, columns 1.. its drafts (other lanes: anything;
+            their sentinel position drops every write).
+          pool_kv: (k, v) page pools, updated IN PLACE (S rows a lane).
+          positions: int32 [n_lanes], where column 0 is written; idle
+            sentinel = max_pages * page_size.
+          tables: int32 [n_lanes, max_pages] block tables (-1 unallocated).
+          sampling_vecs: per-lane settings, ``sampling_vectors``' layout.
+            Row j of a lane samples with the uniform of draw ``draw_idx +
+            j`` of its seed (``ops/threefry.py``), or with ``u`` [n_lanes,
+            S] where the caller drew them ahead.
+
+        Returns (g_hat [n_lanes, S] int32, n_emit [n_lanes] int32, both on
+        the device, pool_kv): lane i commits exactly g_hat[i, :n_emit[i]].
+        Rollback is position truncation: rows past what a lane commits stay
+        in its pages, masked by every later step's kv_length and written
+        over as the lane advances."""
+        tokens = _as_tensor(tokens, None, torch.long)
+        n_lanes, S = tokens.shape
+        vec = dict(sampling_vecs)
+        if "u" not in vec:
+            vec["u"] = sampling_uniforms(vec, S)
+        inputs = (tokens, _as_tensor(positions, None, torch.int32), _as_tensor(tables, None, torch.int32),
+                  *self._sampling_inputs(vec))
+
+        def step(tok, pos, tab, *samp):
+            return self._paged_spec_verify_eager(gen_params, tok, pool_kv, pos, tab, samp)
+
+        key = step_program_key("spec_verify", n_lanes, inputs[2].shape[1], S, self.quant_type, self.kv_quant_type,
+                               pool_kv, extra=tuple(gen_params.values()))
+        g_hat, n_emit = _replay(self._spec_program, key, step, inputs)
+        return g_hat, n_emit, pool_kv
+
+    def _paged_spec_verify_eager(self, gen_params, tokens, pool_kv, positions, tables, samp):
+        """The verify step launched op by op (what the CPU runs, and what
+        its step program captures): the S rows of every lane embedded and
+        run through the block loop at per-lane positions, the float32 head
+        on every row, then for each row j the fed token joins the seen mask
+        (plain decode adds each fed token before the next draw; row 0's is
+        already there) and ``sample_tokens`` picks the target's token with
+        uniform column j. Draft j (tokens column j) is accepted while it
+        equals the token sampled on row j - 1 and every draft before it was
+        accepted; a lane emits n_accept + 1 tokens, at most S."""
+        tokens = _as_tensor(tokens, self.device, torch.long)
+        S = tokens.shape[1]
+        h = self.family.client_embed(gen_params, tokens, self.cfg).to(self.compute_dtype)
+        h, _ = self._paged_decode_eager(h, pool_kv, positions, tables)
+        logits = self.family.client_head(gen_params, h, self.cfg)  # [n_lanes, S, vocab] float32
+        samp = {name: _as_tensor(x, self.device) for name, x in zip(SAMPLING_INPUTS, samp)}
+        u, seen = samp.pop("u"), samp.pop("seen_mask")
+        vocab_ids = torch.arange(logits.shape[-1], device=self.device)[None, :]
+        emitted = []
+        for j in range(S):
+            seen = seen | (vocab_ids == tokens[:, j : j + 1])
+            emitted.append(sample_tokens(logits[:, j], seen_mask=seen, u=u[:, j], **samp))
+        g_hat = torch.stack(emitted, dim=1)
+        match = (tokens[:, 1:] == g_hat[:, :-1]).to(torch.int32)
+        n_accept = torch.cumprod(match, dim=1).sum(dim=1)
+        return g_hat.to(torch.int32), (n_accept + 1).clamp(max=S).to(torch.int32)
 
     @torch.no_grad()
     def batched_gen_decode_step(self, gen_params: dict, hidden, tokens, use_token, pool_kv, positions,

@@ -19,6 +19,21 @@ decode tokens, and one prefill chunk, into one step per tick
   and every pending decode lane in ONE generation step (the backend's
   ``paged_gen_decode_step``), and a waiting prefill chunk rides its own
   mixed step in the same tick.
+- Speculative decoding (a batcher holding a ``DraftModel``,
+  server/spec_decode.py, beside the client's leaves, on the paged pool):
+  each tick the eligible generating lanes (``_pick_spec_lanes``: room for
+  k + 1 rows, no cooldown) leave the generation step for a spec step of
+  their own (``_run_batch_spec``): the draft proposes k tokens a lane from
+  the lane's context and collected tokens, and ONE verify step
+  (``paged_spec_verify_step``) writes and attends k + 1 rows a lane and
+  samples the target's token on each, with row j's uniform that of the
+  stream's next draw plus j. The event loop commits each lane's leading
+  matches plus one (``_commit_spec_results``): the stream is plain
+  decode's, token for token. Rollback is position truncation: no page is
+  freed, no refcount touched. A lane whose acceptance EMA falls below
+  ``PETALS_TPU_SPEC_MIN_ACCEPT`` stops speculating for
+  ``PETALS_TPU_SPEC_COOLDOWN`` ticks. The verify rows spend the tick's
+  prefill budget as chunk rows do.
 
 - Dense mode (``page_size`` None or 0): the pool is [n_blocks, n_lanes,
   max_length, hkv, d] x2 and a lane is its row. Decode steps coalesce the
@@ -81,8 +96,9 @@ compute-seconds (each step's wall split over its lanes), tokens and swap
 bytes accrue to it, and each pooled reply carries the delta since the last
 (``pop_usage_delta``) beside the two-field load hint (``occupancy_hint``).
 
-Not ported yet: speculative decoding (and its lanes), fingerprints, the
-journal and metrics, multi-host lockstep (its mirrored temp handles).
+Not ported yet: fingerprints, the journal (the spec tick's
+``spec_disabled`` event among them) and metrics, multi-host lockstep (its
+mirrored temp handles).
 """
 
 from __future__ import annotations
@@ -93,6 +109,7 @@ import contextlib
 import dataclasses
 import itertools
 import logging
+import os
 import time
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
@@ -106,6 +123,7 @@ from petals_tpu_torch.ops.sampling import sampling_vectors
 from petals_tpu_torch.ops.threefry import uniform_for_draw
 from petals_tpu_torch.server.memory_cache import AllocationFailed, HostSwapPool, MemoryCache, PageAllocator
 from petals_tpu_torch.server.scheduler import SessionScheduler, SwapEntry
+from petals_tpu_torch.server.spec_decode import min_accept_floor
 from petals_tpu_torch.server.task_queue import PRIORITY_INFERENCE, PriorityTaskQueue
 from petals_tpu_torch.telemetry.ledger import derive_efficiency, get_ledger
 from petals_tpu_torch.utils.locks import AsyncTryLock
@@ -137,8 +155,7 @@ class _LaneGenState:
     """One lane mid server-side generation: each tick's generation step
     feeds ``token`` at ``position`` and samples the next, until
     ``remaining`` reaches 0; then ``future`` resolves with ``collected``
-    (petals_tpu/server/batching.py ``_LaneGenState`` without the
-    speculative-decoding fields, A10)."""
+    (petals_tpu/server/batching.py ``_LaneGenState``)."""
 
     future: asyncio.Future
     generation: int
@@ -159,6 +176,15 @@ class _LaneGenState:
     started: bool = False  # the first step has recorded the queue wait
     queue_s: float = 0.0
     compute_s: float = 0.0  # summed generation-step wall
+    # speculative decoding: the client's context (the draft's window reads
+    # it before the collected tokens), the acceptance-rate EMA behind the
+    # auto-disable, the plain ticks left of a cooldown, and the stream's
+    # proposed / accepted draft counts for its step_meta
+    context: Optional[List[int]] = None
+    spec_ema: float = 1.0  # optimistic start: a new lane gets to speculate
+    spec_cooldown: int = 0
+    spec_proposed: int = 0
+    spec_accepted: int = 0
 
 
 @dataclasses.dataclass
@@ -192,6 +218,8 @@ class DecodeBatcher:
         swap_host_bytes: int = 0,  # host-memory swap tier of preempted lanes; 0: no preemption
         preemption_policy: str = "lru",  # victim choice on page exhaustion: lru | largest | off
         ledger=None,  # a ResourceLedger (telemetry/ledger.py); None: the process's
+        draft_model=None,  # a DraftModel (server/spec_decode.py): speculative decoding
+        spec_k: Optional[int] = None,  # drafts a lane a tick; None: the draft's k
     ):
         if page_size is not None and page_size < 0:
             raise ValueError(f"page_size must be >= 1, or 0 / None for the dense lane pool; got {page_size}")
@@ -221,6 +249,28 @@ class DecodeBatcher:
         self.alloc_timeout = alloc_timeout
         self.gen_params = gen_params
         self._gen_states: Dict[int, _LaneGenState] = {}
+        # speculative decoding: k drafts a lane verified in one paged step a
+        # tick; the verify step embeds and samples with the client's leaves
+        self.draft = draft_model
+        self.spec_k = int(spec_k if spec_k is not None else getattr(draft_model, "spec_k", 0) or 0)
+        if draft_model is not None:
+            draft_k = int(getattr(draft_model, "spec_k", self.spec_k))
+            if self.spec_k != draft_k:
+                raise ValueError(f"spec_k={self.spec_k} does not match the draft model's compiled k={draft_k}")
+            if gen_params is None:
+                raise ValueError(
+                    "Speculative decoding needs the client leaves loaded "
+                    "(gen_params): the verify step embeds and samples on device"
+                )
+        # the draft whose buckets are warmed (captured on a card): the first
+        # spec tick warms it on the compute thread; a swapped-in draft re-warms
+        self._draft_warmed = None
+        self._spec_min_accept = min_accept_floor()
+        self._spec_ema_alpha = 0.2
+        try:
+            self._spec_cooldown_ticks = max(int(os.environ.get("PETALS_TPU_SPEC_COOLDOWN", 64)), 1)
+        except ValueError:
+            self._spec_cooldown_ticks = 64
         self._pages: Optional[PageAllocator] = None
         self._tables: Optional[np.ndarray] = None  # [n_lanes, max_pages] int32, -1 = unallocated
         self._prefill_queue: List[_LanePrefillState] = []
@@ -277,6 +327,7 @@ class DecodeBatcher:
             "decode_steps": 0, "mixed_steps": 0, "prefill_tokens": 0,
             "max_prefill_tokens_per_step": 0, "pool_resets": 0, "exclusive_chunks": 0,
             "graph_captures": 0, "graph_replays": 0, "graph_anomalies": 0,
+            "spec_steps": 0, "spec_proposed": 0, "spec_accepted": 0, "spec_disabled": 0, "max_spec_lanes": 0,
         }
 
     # ------------------------------------------------------------------ pool
@@ -330,7 +381,7 @@ class DecodeBatcher:
                 # serving replays and captures nothing
                 await self.queue.submit(
                     self.backend.warm_step_programs, self._buffers(), self.n_lanes, self.max_pages,
-                    self.max_chunk(), self.gen_params,
+                    self.max_chunk(), self.gen_params, self.spec_k if self.draft is not None else 0,
                 )
 
     async def close(self) -> None:
@@ -1123,6 +1174,11 @@ class DecodeBatcher:
                 st.top_k = int(sampling.get("top_k", 0) or 0)
                 st.top_p = float(sampling.get("top_p", 1.0) or 1.0)
                 st.repetition_penalty = float(sampling.get("repetition_penalty", 1.0) or 1.0)
+                # the draft conditions on context + collected; a missing
+                # context costs acceptance only, never the stream
+                ctx = sampling.get("context")
+                if ctx:
+                    st.context = [int(t) for t in ctx]
                 if st.do_sample:
                     # every draw of the stream at once: a step then reads its own
                     offset = int(sampling.get("offset", 0))
@@ -1174,11 +1230,20 @@ class DecodeBatcher:
                         AllocationFailed("Lane pool was reset while this step was pending")
                     )
             gen_states = dict(self._gen_states)
-            pf = self._next_prefill_chunk(len(batch) + len(gen_states))
-            if not batch and not gen_states and pf is None:
+            # speculating lanes leave the generation step for their own
+            # verify step; its rows spend the prefill budget, as chunk rows
+            spec_states = self._pick_spec_lanes(gen_states)
+            pf = self._next_prefill_chunk(len(batch) + len(gen_states) + len(spec_states),
+                                          spec_tokens=len(spec_states) * (self.spec_k + 1))
+            if not batch and not gen_states and not spec_states and pf is None:
                 continue
             try:
-                toks = chunk_out = None
+                toks = chunk_out = spec_res = None
+                if spec_states:
+                    spec_res = await self.queue.submit(
+                        self._run_batch_spec, spec_states,
+                        priority=PRIORITY_INFERENCE, size=len(spec_states) * (self.spec_k + 1),
+                    )
                 if gen_states:
                     out, toks = await self.queue.submit(
                         self._run_batch_gen, batch, gen_states,
@@ -1195,7 +1260,7 @@ class DecodeBatcher:
                         self._run_batch_mixed, batch, pf,
                         priority=PRIORITY_INFERENCE, size=len(batch) + pf[1],
                     )
-                else:
+                elif batch:
                     out = await self.queue.submit(
                         self._run_batch, batch, priority=PRIORITY_INFERENCE, size=len(batch)
                     )
@@ -1203,7 +1268,7 @@ class DecodeBatcher:
                 for *_, fut, _gen in batch:
                     if not fut.done():
                         fut.set_exception(e)
-                for lane, st in gen_states.items():
+                for lane, st in itertools.chain(gen_states.items(), spec_states.items()):
                     if self._gen_states.get(lane) is st:
                         del self._gen_states[lane]
                     if not st.future.done():
@@ -1223,6 +1288,8 @@ class DecodeBatcher:
                     fut.set_result(out[lane : lane + 1])
             if pf is not None:
                 self._advance_prefill(pf[0], pf[1], chunk_out)
+            if spec_res is not None:
+                self._commit_spec_results(spec_states, *spec_res)
             if toks is not None:
                 self._advance_gen(gen_states, toks)
 
@@ -1242,7 +1309,72 @@ class DecodeBatcher:
             st.remaining -= 1
             if st.remaining <= 0:
                 del self._gen_states[lane]
-                self._step_timing[lane] = {"queue_s": st.queue_s, "compute_s": st.compute_s, "variant": "gen"}
+                self._step_timing[lane] = self._gen_step_timing(st, "gen")
+                if not st.future.done():
+                    st.future.set_result(np.asarray([st.collected], np.int32))
+
+    def _pick_spec_lanes(self, gen_states: Dict[int, _LaneGenState]) -> Dict[int, _LaneGenState]:
+        """This tick's speculating lanes, moved OUT of ``gen_states`` (the
+        rest take the generation step). Eligible: a draft is loaded, the pool
+        is paged, the lane's cooldown is over, and the lane has room for the
+        best case: the verify step writes spec_k + 1 rows at positions
+        p..p+spec_k, inside the pages ``generate_lane`` reserved (its
+        remaining rows from the current position)."""
+        if self.draft is None or self.spec_k < 1 or self.page_size is None:
+            return {}
+        spec: Dict[int, _LaneGenState] = {}
+        for lane, st in list(gen_states.items()):
+            if st.spec_cooldown > 0:
+                st.spec_cooldown -= 1
+                continue
+            if st.remaining < self.spec_k + 1:
+                continue
+            spec[lane] = st
+            del gen_states[lane]
+        return spec
+
+    def _gen_step_timing(self, st: _LaneGenState, variant: str) -> dict:
+        """A finished stream's step_meta timing; a stream that speculated
+        also reports its lifetime acceptance."""
+        timing = {"queue_s": st.queue_s, "compute_s": st.compute_s, "variant": variant}
+        if st.spec_proposed:
+            timing["spec_proposed"] = st.spec_proposed
+            timing["spec_accepted"] = st.spec_accepted
+            timing["acceptance_rate"] = round(st.spec_accepted / st.spec_proposed, 4)
+        return timing
+
+    def _commit_spec_results(self, spec_states: Dict[int, _LaneGenState], g_hat: np.ndarray,
+                             n_emit: np.ndarray) -> None:
+        """Event-loop side of a spec step: commit each lane's
+        g_hat[lane, :n_emit[lane]] (the target's own tokens: plain decode's
+        stream) and advance its position by the count; the rejected rows
+        stay in its pages, masked and later written over. Then the
+        acceptance EMA: a lane below the floor decodes plain for a
+        cooldown."""
+        for lane, st in spec_states.items():
+            if self._gen_states.get(lane) is not st:
+                continue  # released or cancelled while the step ran
+            m = int(n_emit[lane])  # in [1, spec_k + 1] <= st.remaining
+            emitted = [int(t) for t in g_hat[lane, :m]]
+            for tok in emitted:
+                st.collected.append(tok)
+                if st.seen is not None and 0 <= tok < st.seen.shape[0]:
+                    st.seen[tok] = True
+            st.token = emitted[-1]
+            st.position += m
+            st.remaining -= m
+            accepted = m - 1  # of spec_k proposed drafts
+            st.spec_proposed += self.spec_k
+            st.spec_accepted += accepted
+            alpha = self._spec_ema_alpha
+            st.spec_ema = (1.0 - alpha) * st.spec_ema + alpha * (accepted / self.spec_k)
+            if st.spec_ema < self._spec_min_accept and st.remaining > 0:
+                st.spec_cooldown = self._spec_cooldown_ticks
+                st.spec_ema = 1.0  # optimistic restart after the cooldown
+                self.stats["spec_disabled"] += 1
+            if st.remaining <= 0:
+                del self._gen_states[lane]
+                self._step_timing[lane] = self._gen_step_timing(st, "spec")
                 if not st.future.done():
                     st.future.set_result(np.asarray([st.collected], np.int32))
 
@@ -1253,17 +1385,21 @@ class DecodeBatcher:
         a chunk."""
         return min(max(self.prefill_token_budget, self.page_size), self.max_length)
 
-    def _prefill_budget(self, n_decode: int) -> int:
+    def _prefill_budget(self, n_decode: int, spec_tokens: int = 0) -> int:
         """Per-tick fairness: the prefill token budget halves under decode
         pressure (more than half the lanes stepping), but never below one
         page, so prefills always progress and decode lanes never wait on
-        more than one bounded chunk per tick."""
+        more than one bounded chunk per tick. Verify rows spend from the
+        same budget (they are chunk writes riding the tick), with the same
+        one-page floor."""
         budget = self.prefill_token_budget
         if n_decode > max(1, self.n_lanes // 2):
             budget = max(self.page_size, budget // 2)
+        if spec_tokens:
+            budget = max(self.page_size, budget - int(spec_tokens))
         return budget
 
-    def _next_prefill_chunk(self, n_decode: int) -> Optional[Tuple[_LanePrefillState, int]]:
+    def _next_prefill_chunk(self, n_decode: int, spec_tokens: int = 0) -> Optional[Tuple[_LanePrefillState, int]]:
         """The chunk riding this tick: the queue head's next ``take`` tokens,
         capped by the chunk cap and the budget, its END aligned to an
         absolute page boundary unless it is the prefill's last chunk.
@@ -1272,7 +1408,7 @@ class DecodeBatcher:
             return None
         st = self._prefill_queue[0]
         remaining = st.hidden.shape[1] - st.offset
-        take = min(remaining, st.cap, self._prefill_budget(n_decode))
+        take = min(remaining, st.cap, self._prefill_budget(n_decode, spec_tokens))
         if take < remaining:
             end = st.position + take
             aligned = end - end % self.page_size
@@ -1447,6 +1583,86 @@ class DecodeBatcher:
                 st.queue_s = max(t_step - st.enqueued, 0.0)
             st.compute_s += duration
         return host_out, host_toks
+
+    def _run_batch_spec(self, spec_states: Dict[int, _LaneGenState]) -> Tuple[np.ndarray, np.ndarray]:
+        """Compute-thread body of one speculative tick: the draft proposes
+        k tokens a speculating lane, then ONE verify step feeds [last
+        committed token, k drafts] at positions p..p+k and samples the
+        target's token on every row; other lanes ride at the idle sentinel.
+        Returns (g_hat [n_lanes, spec_k + 1], n_emit [n_lanes]) on the host;
+        the event loop commits g_hat[lane, :n_emit[lane]].
+
+        The ledger: the tick's whole wall (draft and verify) is billed over
+        the speculating lanes through ``note_compute``, and each lane's share
+        of the draft's wall rides beside it as ``draft_seconds``, with its
+        proposed and accepted counts."""
+        expected = next(iter(spec_states.values())).generation
+        if expected != self._generation or any(st.generation != self._generation for st in spec_states.values()):
+            raise AllocationFailed("Lane pool was reset before this batched step ran")
+        if self._draft_warmed is not self.draft:
+            # every bucket before the first measured tick: later lane mixes
+            # never capture
+            self.draft.warmup(self.n_lanes)
+            self._draft_warmed = self.draft
+        t_step = time.perf_counter()
+        S = self.spec_k + 1
+        contexts: List[Optional[List[int]]] = [None] * self.n_lanes
+        for lane, st in spec_states.items():
+            contexts[lane] = (st.context or []) + st.collected
+        drafts = self.draft.propose(contexts)  # [n_lanes, spec_k] greedy
+        draft_s = time.perf_counter() - t_step
+        tokens = np.zeros((self.n_lanes, S), np.int64)
+        positions = np.full((self.n_lanes,), self.max_length, np.int32)  # idle sentinel
+        vecs = sampling_vectors(self.n_lanes, self.backend.cfg.vocab_size)
+        vecs["u"] = np.zeros((self.n_lanes, S), np.float32)
+        for lane, st in spec_states.items():
+            tokens[lane, 0] = st.token
+            tokens[lane, 1:] = drafts[lane]
+            positions[lane] = st.position
+            vecs["do_sample"][lane] = st.do_sample
+            vecs["temperature"][lane] = st.temperature
+            vecs["top_k"][lane] = st.top_k
+            vecs["top_p"][lane] = st.top_p
+            vecs["repetition_penalty"][lane] = st.repetition_penalty
+            if st.uniforms is not None:
+                # row j draws the stream's next draw plus j; remaining >= S
+                # keeps them inside the stream's uniforms
+                at = len(st.collected) - 1
+                vecs["u"][lane] = st.uniforms[at : at + S]
+            if st.seen is not None:
+                vecs["seen_mask"][lane] = st.seen
+        g_hat, n_emit, _ = self.backend.paged_spec_verify_step(
+            self.gen_params, tokens, self._buffers(), positions, self._tables.copy(), sampling_vecs=vecs,
+        )
+        host_g, host_m = g_hat.cpu().numpy(), n_emit.cpu().numpy()  # waits for the step on the device
+        with self._reset_lock:
+            if expected != self._generation:
+                raise AllocationFailed("Lane pool was reset while this batched step ran")
+        n_spec = len(spec_states)
+        emitted_total = int(sum(int(host_m[lane]) for lane in spec_states))
+        duration = time.perf_counter() - t_step
+        self.stats.update(self.backend.step_program_stats())
+        self.stats["batched_steps"] += 1
+        self.stats["batched_tokens"] += emitted_total
+        self.stats["spec_steps"] += 1
+        self.stats["spec_proposed"] += n_spec * self.spec_k
+        self.stats["spec_accepted"] += emitted_total - n_spec  # one bonus token a lane
+        self.stats["max_spec_lanes"] = max(self.stats["max_spec_lanes"], n_spec)
+        keys = []
+        for lane in spec_states:
+            key = self._ledger_keys.get(lane)
+            if key is not None:
+                keys.append(key)
+                self._ledger.note_tokens(key, decode=int(host_m[lane]))
+                self._ledger.note_spec(key, draft_seconds=draft_s / n_spec, proposed=self.spec_k,
+                                       accepted=int(host_m[lane]) - 1)
+        self._ledger.note_compute(keys, duration)
+        for st in spec_states.values():
+            if not st.started:
+                st.started = True
+                st.queue_s = max(t_step - st.enqueued, 0.0)
+            st.compute_s += duration
+        return host_g, host_m
 
     def _count_step(self, batch, t_step: float, duration: float, n_gen: int = 0) -> None:
         """Stats and the per-lane queue/compute split (compute thread)."""

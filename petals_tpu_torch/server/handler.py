@@ -112,6 +112,8 @@ logger = logging.getLogger(__name__)
 
 _TRACE_ID_RE = re.compile(r"^[0-9A-Za-z_-]{1,64}$")
 MAX_GEN_TOKENS = 32  # the longest chunk a generating step answers
+# a speculating stream's evidence in its reply's step_meta
+SPEC_META_KEYS = ("spec_proposed", "spec_accepted", "acceptance_rate")
 
 
 def normalize_trace_id(value) -> Optional[str]:
@@ -597,6 +599,8 @@ class TransformerHandler:
             if gen_timing is not None:  # the batcher's steps: the two phases sum
                 timing = {"queue_s": timing.get("queue_s", 0.0) + gen_timing["queue_s"],
                           "compute_s": timing.get("compute_s", 0.0) + gen_timing["compute_s"]}
+                # a stream that speculated: its acceptance survives the merge
+                timing.update({k: gen_timing[k] for k in SPEC_META_KEYS if k in gen_timing})
                 variant += "+gen"
             else:
                 timing = {**timing, "compute_s": timing.get("compute_s", 0.0) + time.perf_counter() - t_gen}
@@ -604,6 +608,7 @@ class TransformerHandler:
             step_meta = {
                 "queue_s": round(timing["queue_s"], 6), "compute_s": round(timing["compute_s"], 6),
                 "variant": variant, "serialize_s": 0.0, "total_s": round(time.perf_counter() - t_recv, 6),
+                **{k: timing[k] for k in SPEC_META_KEYS if k in timing},
             }
             self._lane_meta(step_meta, batcher, lane)
             return position, {"tokens": [int(t) for t in tokens[0]], "position": position,

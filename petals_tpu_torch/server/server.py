@@ -32,6 +32,16 @@ asks (``gen_tokens``); it announces ``server_gen`` and
 the weights, outside the KV budget (``attn_cache_bytes``): about 1.05 GB at
 Mistral-7B's widths, logged at load.
 
+Speculative decoding (server/spec_decode.py): ``draft_model``, a local
+path of a small checkpoint, is loaded beside such a span (``spec_k``
+drafts a lane a tick, a ``draft_window``-token window, its blocks
+quantized per ``draft_quant_type``, nf4a by default) on a paged pool, and
+the batcher verifies its drafts in one paged step a tick; the announce then
+carries ``spec_k``. The stream is plain decode's. A server that cannot
+take a draft (not a whole-model span with server-side generation on a
+paged pool), or whose draft fails to load, logs a warning and serves plain
+decode, as petals_tpu's does.
+
 The prompt-prefix cache (server/prefix_cache.py) is on with petals_tpu's
 defaults: a 256 MiB host tier (``prefix_cache_bytes``), a 256 MiB HBM tier
 (``prefix_device_bytes``, which an auto-sized KV budget gives up, as
@@ -177,6 +187,10 @@ class Server:
         prefix_device_bytes: int = 256 * 2**20,  # its HBM tier; 0 disables
         prefix_cache_policy: str = "radix",  # "radix" tree | "lru" flat baseline
         phase_tier: str = "generalist",  # disaggregated serving: "generalist" | "prefill" | "decode"
+        draft_model: Optional[str] = None,  # a small local checkpoint for speculative decoding
+        spec_k: int = 4,  # drafts verified per lane per tick when draft_model is set
+        draft_window: Optional[int] = None,  # the draft's context window in tokens; None: 64
+        draft_quant_type: str = "nf4a",  # the draft's block quantization
     ):
         if phase_tier not in PHASE_TIERS:
             raise ValueError(f"phase_tier must be one of {PHASE_TIERS}, got {phase_tier!r}")
@@ -259,6 +273,11 @@ class Server:
         self.prefix_cache_bytes, self.prefix_share_scope = prefix_cache_bytes, prefix_share_scope
         self.prefix_device_bytes, self.prefix_cache_policy = prefix_device_bytes, prefix_cache_policy
         self.phase_tier = phase_tier
+        self.draft_model_path = draft_model
+        self.spec_k = int(spec_k)
+        self.draft_window = draft_window
+        self.draft_quant_type = draft_quant_type
+        self._draft_model = None  # loaded with the span (_load_draft_model)
         self.identity: Optional[Identity] = None
 
         self.queue = PriorityTaskQueue()
@@ -297,6 +316,8 @@ class Server:
             kv_quant_type=self.kv_quant_type,
         )
         self.server_gen_params = self._load_server_gen_params()
+        draft = self._load_draft_model()
+        spec_k = self.spec_k if self.draft_model_path else None
         batch_lanes = self.batch_lanes
         if batch_lanes is None:
             # lanes cost their full length: cap the pool at half the cache
@@ -315,6 +336,7 @@ class Server:
             n_pages=self.n_pages, prefill_token_budget=self.prefill_token_budget,
             alloc_timeout=self.max_alloc_timeout, gen_params=self.server_gen_params,
             swap_host_bytes=self.swap_host_bytes, preemption_policy=self.preemption_policy, ledger=self.ledger,
+            draft_model=draft, spec_k=spec_k,
         )
         self.handler = TransformerHandler(
             self.backend, self.batcher,
@@ -328,6 +350,36 @@ class Server:
             prefix_device_bytes=self.prefix_device_bytes, prefix_cache_policy=self.prefix_cache_policy,
             identity=self.identity,
         )
+
+    def _load_draft_model(self):
+        """The speculative-decoding draft (server/spec_decode.py), loaded
+        beside the span on its device: eligible as server-side generation
+        is (the verify step embeds and samples with the client's leaves), on
+        a paged pool (the verify step's rows are chunk writes into pages).
+        An ineligible server, or a draft that fails to load, serves plain
+        decode with a warning, as petals_tpu's does. The draft computes in
+        float32, as petals_tpu's does, whatever the span's dtype."""
+        if not self.draft_model_path or self.spec_k < 1:
+            return None
+        if self.server_gen_params is None or not self.page_size:
+            logger.warning(
+                "Speculative decoding disabled: --draft_model needs a full-span single-host server with "
+                "server-side generation and a paged lane pool"
+            )
+            return None
+        if self._draft_model is not None:
+            return self._draft_model
+        try:
+            from petals_tpu_torch.server.spec_decode import DEFAULT_WINDOW, DraftModel
+
+            self._draft_model = DraftModel.from_pretrained(
+                self.draft_model_path, spec_k=self.spec_k, window=int(self.draft_window or DEFAULT_WINDOW),
+                quant_type=self.draft_quant_type, device=self.device,
+            )
+        except Exception as e:
+            logger.warning(f"Speculative decoding disabled (draft load failed): {e}")
+            self._draft_model = None
+        return self._draft_model
 
     def _load_server_gen_params(self) -> Optional[dict]:
         """The client's leaves (embeddings, final norm, head) in float32 on
@@ -571,6 +623,8 @@ class Server:
             # greedy and sampled alike
             server_gen=self.server_gen_params is not None,
             server_gen_sampling=self.server_gen_params is not None,
+            # k drafts verified a tick (informational: the stream is plain decode's)
+            spec_k=self.spec_k if self._draft_model is not None else None,
             pool=pool,
             # generalists announce it too, which tells an explicit
             # generalist from a server that predates tiers

@@ -1062,3 +1062,96 @@ def test_gen_step_program_replays_bit_equal_to_the_eager_loop(cuda_device, quant
     assert backend.step_program_stats() == {"graph_captures": 1, "graph_replays": 4, "graph_anomalies": 0}
     k1 = pfa.paged_flash_attend.launches + sum(pfa.paged_flash_attend.kv_quant_launches.values())
     assert k1 == 2 * (4 + 4 + 1), k1  # eager and replayed steps, and the capture's warm-up
+
+
+@pytest.mark.parametrize("kind", ["none", "int8", "nf4a"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("window", [None, 40])
+@pytest.mark.parametrize("group,q_len", [(4, 5), (8, 2), (1, 4)])
+def test_multi_row_decode_matches_plain(cuda_device, kind, dtype, window, group, q_len):
+    """The speculative verify's arm: q_len rows a lane at per-lane
+    positions (Mistral's group 4 x S 5 = 20 rows a kv head among them),
+    through ONE launch of the decode kernel over n_lanes * q_len virtual
+    lanes, against the plain per-row causal ``paged_attend``; an idle
+    sentinel lane's rows stay finite. Tolerances as the one-row arms'."""
+    rng = np.random.default_rng(14)
+    n_lanes, hkv, d, ps = 4, 2, 128, 64
+    max_pages = 384 // ps
+    n_pages = n_lanes * max_pages + 10
+    if kind == "none":
+        kp, vp = _on(cuda_device, dtype, *rng.standard_normal((2, n_pages, ps, hkv, d)).astype(np.float32))
+        tol = CUDA_TOL[dtype]
+    else:
+        kp, vp = _quant_pools(cuda_device, kind, n_pages, ps, hkv, d, seed=15)
+        tol = KV_QUANT_TOL
+    q = rng.standard_normal((n_lanes, q_len, hkv * group, d)).astype(np.float32)
+    pos = np.array([0, 61, 200, max_pages * ps], np.int32)  # lane 1 crosses a page; lane 3 idles
+    used = [min(max_pages, -(-int(p + q_len) // ps)) for p in pos]
+    tables = _holey_permuted(rng, n_lanes, max_pages, n_pages, used)
+    (q,) = _on(cuda_device, dtype, q)
+    tables, positions = _on(cuda_device, torch.int32, tables, pos)
+    pfa.reset_launch_counts()
+    got = pfa.paged_flash_attend(q, kp, vp, tables, positions, sliding_window=window)
+    torch.cuda.synchronize()
+    launches = pfa.paged_flash_attend.launches + sum(pfa.paged_flash_attend.kv_quant_launches.values())
+    assert launches == 1
+    assert got.shape == q.shape and got.dtype == dtype and torch.isfinite(got).all()
+    want = paged_attend(q.float(), kp if kind != "none" else kp.float(), vp if kind != "none" else vp.float(),
+                        tables, positions, sliding_window=window)
+    err = (got.float() - want)[:3].abs().max().item()
+    assert err <= tol, err
+    # row j is the one-row decode at position p + j
+    for j in range(q_len):
+        one = pfa.paged_flash_attend(q[:, j : j + 1].contiguous(), kp, vp, tables, positions + j,
+                                     sliding_window=window)
+        assert (one[:3, 0].float() - got[:3, j].float()).abs().max().item() <= tol
+
+
+@pytest.mark.parametrize("kv_quant_type", ["none", "nf4a"])
+def test_spec_verify_program_replays_bit_equal_to_the_eager_loop(cuda_device, kv_quant_type):
+    """The verify step (server/backend.py ``paged_spec_verify_step``)
+    replayed as a CUDA graph against its eager loop on a clone of the
+    pools: g_hat, n_emit and pool bytes bit-equal over three steps with
+    greedy, sampled and idle lanes; one capture, and K1 (the k+1-row arm)
+    ran on both blocks of every replay."""
+    from petals_tpu_torch.ops.paged_attention import PagedPool as Pool
+    from petals_tpu_torch.ops.sampling import sampling_uniforms, sampling_vectors
+
+    backend = _step_backend(cuda_device, "none", kv_quant_type)
+    cfg, n_lanes, max_pages, ps, S = backend.cfg, 4, 8, 64, 5
+    gen = torch.Generator(device=cuda_device).manual_seed(12)
+    params = {"embed": torch.randn(cfg.vocab_size, cfg.hidden_size, generator=gen, device=cuda_device) * 0.05,
+              "norm": torch.ones(cfg.hidden_size, device=cuda_device),
+              "head": torch.randn(cfg.hidden_size, cfg.vocab_size, generator=gen, device=cuda_device) * 0.05}
+    bufs = [dsc.make_zeros() for dsc in backend.paged_cache_descriptors(n_lanes * max_pages, ps, 0, 2)]
+    replayed = (Pool(bufs[0], bufs[2]), Pool(bufs[1], bufs[3])) if len(bufs) == 4 else tuple(bufs)
+
+    def clone(pools):
+        return tuple(Pool(p.codes.clone(), p.scales.clone()) if isinstance(p, Pool) else p.clone() for p in pools)
+
+    def flat(pools):
+        return [t for p in pools for t in (p if isinstance(p, Pool) else (p,))]
+
+    eager = clone(replayed)
+    tables = torch.arange(n_lanes * max_pages, dtype=torch.int32).reshape(n_lanes, max_pages)
+    positions = torch.tensor([3, 100, 250, max_pages * ps], dtype=torch.int32)
+    pfa.reset_launch_counts()
+    for step in range(3):
+        tokens = torch.randint(0, cfg.vocab_size, (n_lanes, S), generator=gen, device=cuda_device).cpu()
+        vec = sampling_vectors(n_lanes, cfg.vocab_size)
+        vec["do_sample"][1] = True
+        vec["top_k"][1] = 40
+        vec["seeds"][1], vec["draw_idx"][1] = 321, 5 * step
+        got_g, got_m, _ = backend.paged_spec_verify_step(params, tokens, replayed, positions, tables,
+                                                         sampling_vecs=vec)
+        vec["u"] = sampling_uniforms(vec, S)
+        samp = backend._sampling_inputs(vec, cuda_device)
+        want_g, want_m = backend._paged_spec_verify_eager(params, tokens.to(cuda_device), eager,
+                                                          positions.to(cuda_device), tables.to(cuda_device), samp)
+        torch.cuda.synchronize()
+        assert torch.equal(got_g, want_g) and torch.equal(got_m, want_m), step
+        assert all(torch.equal(g, w) for g, w in zip(flat(replayed), flat(eager))), step
+        positions = positions + torch.where(positions < max_pages * ps, got_m.cpu(), 0)
+    assert backend.step_program_stats() == {"graph_captures": 1, "graph_replays": 3, "graph_anomalies": 0}
+    k1 = pfa.paged_flash_attend.launches + sum(pfa.paged_flash_attend.kv_quant_launches.values())
+    assert k1 == 2 * (3 + 3 + 1), k1  # eager and replayed steps, and the capture's warm-up
