@@ -372,6 +372,38 @@
    cache, and each must have launched on it; every moved session's logits
    are teacher-forced through the dense reference as phase 13 holds the
    client's; no capture after warm-up.
+20. Server-side speculative decoding (serve_spec_and_check; alone:
+   scripts/smoke_spec_decode.py): see its docstring.
+21. The stateless forward, the integrity probe and the telemetry plane
+   (serve_forward_telemetry_and_check, last; alone:
+   scripts/smoke_forward_telemetry.py), on the 8-block cut with
+   fingerprints enabled before any step program is captured. A bf16 server
+   of the whole cut built by the CLI with --metrics_port 0 and --trace_dir
+   (a torch.profiler capture of its first TRACE_SECONDS), then an nf4a
+   server of blocks [4, 8) (a sub-span chain). (a) ``ptu.forward`` over the
+   wire from the port's RemoteSequential: FWD_SHAPES (batch 1 x 512, batch
+   2 x 300 with 16-row deep prompts, and 3 x 500 = 1500 tokens, which the
+   client splits at its 1024-token bound), each shape three times (its
+   eager call, its capture, a replay that must capture nothing), every
+   output held to a dense bf16 reference as phase 3 holds replies (twice
+   the reference's own rounding error from float32); K4 on every block of
+   every call; on the nf4a chain K5's prefill kernel on every projection.
+   Then FWD_LENGTHS distinct lengths, each twice: the forward program's
+   graphs and the memory they keep reserved. (b) ``ptu.probe`` at
+   PROBE_TOKENS tokens: a seed gives the same digest twice, bit for bit,
+   two seeds give two digests, and each digest's relative gap from the
+   float32 reference's and from the bf16 plain path's is printed beside
+   ``tolerance_for("none")``; K4 runs on the 16-token probe, not the
+   4-token one (a chunk under 8 rows takes plain attention); the nf4a
+   chain probes its own span. (c) phase 3's four sessions: every reply's
+   ``step_meta["fp"]`` within TOL_TRANSPORT of the digest of the hidden
+   state received, an IntegrityMonitor fed every reply records no
+   divergence, no capture after warm-up; the replayed bf16 decode step's
+   device busy with and without ``with_fp``. (d) ``/metrics`` and
+   ``/journal`` scraped over HTTP; the step counters by variant and the
+   decode tokens equal the batcher's stats; the announce carries
+   telemetry, compile_stats, integrity and metrics_port; the trace names
+   K4's kernel. The phase prints its seconds.
 
 float32 matmuls run in full float32: TF32 is switched off for matmuls and
 convolutions. Exits non-zero on any failure. The last line is the JSON
@@ -381,17 +413,20 @@ the bf16 run, K3's nf4a arms from the nf4a-pool run and its int8 arms from
 the short int8-pool run, K5's nf4a arm from the nf4a run, its nf4 and int4
 arms and K6 from their short runs, K4 from the private sessions' run), and
 ``migration_launches``: K1, K2, K3's nf4a arms and K4 on phase 19's moved
-caches. Every run prints its lanes, pages and
+caches; ``forward_launches``: K4 and K5's nf4a prefill kernel on phase
+21's stateless forwards. Every run prints its lanes, pages and
 pool bytes.
 """
 
 from __future__ import annotations
 
 import asyncio
+import collections
 import contextlib
 import gc
 import json
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -598,6 +633,13 @@ SPEC_DRAFT_BLOCKS = 2
 SPEC_GREEDY_ACCEPT = 0.9  # run a's greedy acceptance must exceed this
 # the verify arm's kernels-line case: 4 lanes of S = SPEC_K + 1 rows at
 # these positions on 1024-token tables (Mistral's window)
+# phase 21: the stateless forward, the probe and the telemetry plane
+FWD_SHAPES = ((1, 512, 0), (2, 300, 16), (3, 500, 0))  # (batch, seq, deep-prompt rows); 1500 tokens split at 1024
+FWD_LENGTHS = (96, 160, 224, 288, 352, 416, 480, 544)  # distinct lengths a swarm client may send
+FWD_SUB_SPAN = (4, 8)  # the nf4a server's blocks
+PROBE_TOKENS = (4, 16)
+PROBE_SEEDS = (101, 202)
+TRACE_SECONDS = 8.0  # the --trace_dir capture's window from startup
 SPEC_VERIFY_POSITIONS = (100, 400, 700, 1000)
 
 # K5/K6 at the four projections of a Mistral-7B block as the port serves
@@ -4850,6 +4892,324 @@ def serve_spec_and_check(ckpt, device, smi, timer) -> dict:
     return {"verify_arm": arms, "k5": b["k5"]}
 
 
+def reference_forward(block_params, family, cfg, hidden, prompts, device, dtype):
+    """The stateless forward alone through the port's block functions, plain
+    attention over a dense K/V buffer of the input's length, in ``dtype``:
+    deep prompts are added to block i's input over positions [0, pre_seq),
+    as the server adds them. Returns the output on the host in float32."""
+    h = hidden.to(device, dtype)
+    shape = (h.shape[0], h.shape[1], cfg.num_key_value_heads, cfg.head_dim)
+    kv = (torch.zeros(shape, dtype=dtype, device=device), torch.zeros(shape, dtype=dtype, device=device))
+    for i, params in enumerate(block_params):
+        if prompts is not None:
+            pre = prompts.shape[2]
+            h = torch.cat([h[:, :pre] + prompts[i].to(device, dtype), h[:, pre:]], dim=1)
+        h, _ = family.block_apply(params, h, kv, 0, cfg)
+    return h.float().cpu()
+
+
+def _http_get(port: int, path: str) -> str:
+    import urllib.request
+
+    with urllib.request.urlopen(f"http://127.0.0.1:{port}{path}", timeout=30) as r:
+        return r.read().decode()
+
+
+def _digest_gap(fp, ref) -> float:
+    fp, ref = torch.as_tensor(fp, dtype=torch.float64), torch.as_tensor(ref, dtype=torch.float64)
+    return ((fp - ref).abs().max() / ref.abs().max()).item()
+
+
+def _check_forwards(label, server, remote, blocks, device, prompts_rows=True):
+    """Phase 21 (a) on one server: FWD_SHAPES through ``remote`` (the port
+    client's RemoteSequential over ``blocks``), three calls a shape, each
+    output held to the dense references; returns (server-side forward
+    calls, the forward program's captures in the shapes' last calls)."""
+    from petals_tpu_torch.client.sequential_autograd import MAX_TOKENS_IN_BATCH, _split_batch
+
+    params_bf16 = dense_reference_params(server.backend.block_params, torch.bfloat16)
+    params_f32 = dense_reference_params(server.backend.block_params, torch.float32)
+    prog = server.backend._forward_program
+    gen = torch.Generator().manual_seed(SEED + 21)
+    n_calls, late_captures, failed = 0, 0, []
+    for batch, seq, pre in FWD_SHAPES:
+        hidden = torch.randn(batch, seq, server.cfg.hidden_size, generator=gen).to(torch.bfloat16)
+        prompts = None
+        if pre and prompts_rows:
+            prompts = torch.randn(blocks[1] - blocks[0], batch, pre, server.cfg.hidden_size,
+                                  generator=gen).to(torch.bfloat16)
+        parts = len(_split_batch(hidden))
+        if batch * seq > MAX_TOKENS_IN_BATCH and parts < 2:
+            raise AssertionError(f"{label}: a batch of {batch * seq} tokens did not split")
+        outs, walls = [], []
+        for call in range(3):
+            before = prog.counts.captures
+            t0 = time.perf_counter()
+            outs.append(remote.forward(hidden, prompts))
+            walls.append(time.perf_counter() - t0)
+            if call == 2:
+                late_captures += prog.counts.captures - before
+        n_calls += 3 * parts
+        if not torch.equal(outs[1], outs[2]):
+            failed.append(f"{label}: two replays of {batch} x {seq} differ")
+        args = (server.family, server.cfg, hidden, prompts, device)
+        ref_bf16 = reference_forward(params_bf16, *args, torch.bfloat16)
+        ref_f32 = reference_forward(params_f32, *args, torch.float32)
+        what = f"forward {batch} x {seq}" + (f" (+{pre}-row prompts)" if prompts is not None else "") + (
+            f", split into {parts}" if parts > 1 else "")
+        failed += check_session([outs[2]], None, ([ref_bf16], ()), ([ref_f32], ()), f"{label}: {what}")
+        log(f"{label}: {what}: client walls {', '.join(f'{w * 1e3:.1f}' for w in walls)} ms "
+            f"(eager, capture, replay); eager vs replay max abs {(outs[0].float() - outs[2].float()).abs().max():.3e}")
+    if failed:
+        raise AssertionError("; ".join(failed))
+    return n_calls, late_captures
+
+
+def serve_forward_telemetry_and_check(ckpt, device, smi) -> dict:
+    """Phase 21 (see the module docstring; alone:
+    scripts/smoke_forward_telemetry.py). Returns the launches of K4 and of
+    K5's nf4a prefill kernel on the phase's forwards."""
+    import numpy as np
+
+    from petals_tpu_torch.cli.run_server import build_parser, build_server
+    from petals_tpu_torch.client.config import ClientConfig
+    from petals_tpu_torch.client.remote_sequential import RemoteSequential
+    from petals_tpu_torch.client.runtime import SwarmRuntime
+    from petals_tpu_torch.data_structures import ServerState, make_uid
+    from petals_tpu_torch.ops import fingerprint as fp_ops
+    from petals_tpu_torch.ops import flash_attention as fa
+    from petals_tpu_torch.ops import quant_matmul as qmm
+    from petals_tpu_torch.rpc import RpcClient
+    from petals_tpu_torch.telemetry import instruments as tm
+    from petals_tpu_torch.telemetry.integrity import IntegrityMonitor
+    from petals_tpu_torch.telemetry.observatory import get_observatory
+
+    t_phase = time.perf_counter()
+    label = f"forward and telemetry (bf16, {SPAN} Mistral-7B blocks)"
+    cut = cut_checkpoint(ckpt, os.path.join(ckpt, f"mistral-7b-{SPAN}-layers-forward"), SPAN)
+    trace_dir = os.path.join(REPO, "build", "forward-trace")
+    shutil.rmtree(trace_dir, ignore_errors=True)
+    tol = fp_ops.tolerance_for("none")
+    hsz = MISTRAL_7B["hidden_size"]
+    # before any step program is captured: the pool's warm-up captures the
+    # programs with the fused digest
+    fp_ops.set_enabled(True)
+    os.environ["PETALS_TPU_TRACE_SECONDS"] = str(TRACE_SECONDS)
+    loop = SwarmRuntime()
+    servers, remotes, result = [], [], {}
+
+    async def probe(srv, seed, tokens):
+        client = await RpcClient.connect("127.0.0.1", srv.rpc_server.port)
+        try:
+            return await client.call("ptu.probe", {"seed": seed, "tokens": tokens}, timeout=120)
+        finally:
+            await client.close()
+
+    def check_probes(what, srv, blocks):
+        params_f32 = dense_reference_params(srv.backend.block_params, torch.float32)
+        params_bf16 = dense_reference_params(srv.backend.block_params, torch.bfloat16)
+        for tokens in PROBE_TOKENS:
+            k4 = fa.flash_attend.launches
+            first, again, other = (loop.run(probe(srv, seed, tokens), LOOP_TIMEOUT_S)
+                                   for seed in (PROBE_SEEDS[0], PROBE_SEEDS[0], PROBE_SEEDS[1]))
+            k4 = fa.flash_attend.launches - k4
+            if (first["first_block"], first["n_blocks"]) != (blocks[0], blocks[1] - blocks[0]):
+                raise AssertionError(f"{what}: the probe answered span {first['first_block']} + {first['n_blocks']}")
+            if first["fp"] != again["fp"] or first["fp"] == other["fp"] or first["tokens"] != tokens:
+                raise AssertionError(f"{what}: probe digests {first['fp']}, {again['fp']} (same seed), "
+                                     f"{other['fp']} (another)")
+            golden = torch.from_numpy(
+                (np.random.RandomState(PROBE_SEEDS[0] & 0x7FFFFFFF).standard_normal((1, tokens, hsz)) * 0.02)
+                .astype(np.float32))
+            refs = {
+                "float32 reference": reference_forward(params_f32, srv.family, srv.cfg, golden, None, device,
+                                                       torch.float32),
+                "bf16 plain path": reference_forward(params_bf16, srv.family, srv.cfg, golden, None, device,
+                                                     torch.bfloat16),
+            }
+            gaps = {name: _digest_gap(first["fp"], fp_ops.fingerprint_output(ref.numpy(), hsz))
+                    for name, ref in refs.items()}
+            want_k4 = 3 * (blocks[1] - blocks[0]) if tokens >= 8 else 0
+            log(f"{what}: probe of {tokens} tokens: digest gap from the float32 reference "
+                f"{gaps['float32 reference']:.3e}, from the bf16 plain path {gaps['bf16 plain path']:.3e}; "
+                f"tolerance_for('none') {tol:g}; K4 launches {k4} (want {want_k4}); same seed twice: bit-equal ({smi})")
+            if k4 != want_k4:
+                raise AssertionError(f"{what}: {k4} K4 launches for three probes of {tokens} tokens")
+
+    try:
+        server = build_server(build_parser().parse_args([
+            cut, "--host", "127.0.0.1", "--first_block", "0", "--num_blocks", str(SPAN), "--metrics_port", "0",
+            "--trace_dir", trace_dir, *NO_PREFIX_CACHE,
+        ]))
+        t0 = time.perf_counter()
+        loop.run(server.start(), LOOP_TIMEOUT_S)
+        servers.append(server)
+        log(f"{label}: started in {time.perf_counter() - t0:.1f} s, /metrics on {server._metrics_server.port}, "
+            f"tracing to {trace_dir} for {TRACE_SECONDS:g} s")
+        peers = [server.dht.own_addr.to_string()]
+        uids = [make_uid(server.dht_prefix, i) for i in range(SPAN)]
+        remote = RemoteSequential(ClientConfig(initial_peers=peers), uids)
+        remotes.append(remote)
+        # (d) the trace: one forward inside its window, then the written file
+        remote.forward(torch.randn(1, 256, hsz).to(torch.bfloat16))
+        deadline = time.perf_counter() + TRACE_SECONDS + 120
+        while not (os.path.isdir(trace_dir) and any(n.endswith(".json") for n in os.listdir(trace_dir))):
+            if time.perf_counter() > deadline:
+                raise AssertionError(f"{label}: no trace was written under {trace_dir}")
+            time.sleep(0.5)
+        time.sleep(1.0)  # the file is complete once stop_trace returns; allow its write to land
+        trace_file = next(os.path.join(trace_dir, n) for n in os.listdir(trace_dir) if n.endswith(".json"))
+        with open(trace_file) as tf:
+            trace_text = tf.read()
+        if "flash_wgmma_kernel" not in trace_text:
+            raise AssertionError(f"{label}: the trace {trace_file} does not name K4's kernel")
+        log(f"{label}: the --trace_dir capture wrote {trace_file} ({len(trace_text) / 2**20:.1f} MiB), "
+            f"naming flash_wgmma_kernel {trace_text.count('flash_wgmma_kernel')} times")
+
+        # (a) the stateless forward over the wire
+        _reset_launch_counts()
+        n_calls, late = _check_forwards(label, server, remote, (0, SPAN), device)
+        k4 = fa.flash_attend.launches
+        log(f"{label}: K4 launches {k4} for {n_calls} server-side forward calls of {SPAN} blocks "
+            f"(want >= {n_calls * SPAN}); captures in the shapes' third calls: {late}")
+        if k4 < n_calls * SPAN or late:
+            raise AssertionError(f"{label}: K4 did not run on every block of every forward, or a repeat captured")
+        result["K4"] = k4
+        # forward programs without bound: distinct lengths, each captured
+        prog = server.backend._forward_program
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        reserved0, graphs0 = torch.cuda.memory_reserved(device), len(prog._entries)
+        for n in FWD_LENGTHS:
+            x = torch.randn(1, n, hsz).to(torch.bfloat16)
+            remote.forward(x)
+            remote.forward(x)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        grown = torch.cuda.memory_reserved(device) - reserved0
+        log(f"{label}: forward programs: {len(prog._entries)} graphs held ({len(prog._entries) - graphs0} more "
+            f"after {len(FWD_LENGTHS)} distinct lengths), {grown / 2**20:.1f} MiB more reserved; counts "
+            f"captures {prog.counts.captures}, replays {prog.counts.replays}, eager {prog.counts.eager_calls}; "
+            f"compile_stats {get_observatory().compile_stats()}")
+        result["forward_programs"] = {"graphs": len(prog._entries), "lengths": len(FWD_LENGTHS),
+                                      "added_graphs": len(prog._entries) - graphs0, "reserved_bytes": grown}
+
+        # (b) the probe
+        check_probes(label, server, (0, SPAN))
+
+        # (c) fused fingerprints on phase 3's sessions, (d) the counters
+        loop.run(drive_server(server, WARMUP_PROMPTS, 2, SEED + 5), LOOP_TIMEOUT_S)
+        before = dict(server.batcher.stats)
+        reg_before = {v: tm.BATCHED_STEPS.labels(variant=v).value for v in ("dense", "paged", "mixed", "gen", "spec")}
+        tokens_before = tm.DECODE_TOKENS.value
+        inputs, replies, metas, _, _ = loop.run(drive_server(server, PROMPTS, DECODE_STEPS, SEED + 4), LOOP_TIMEOUT_S)
+        stats = {k: v - before[k] if not k.startswith("max") else v for k, v in server.batcher.stats.items()}
+        check_graph_stats(label, stats)
+        if stats["graph_captures"]:
+            raise AssertionError(f"{label}: a step program was captured after the warm-up: {stats}")
+        monitor = IntegrityMonitor(trace_id="phase21")
+        worst, n_fp = 0.0, 0
+        for (prompt, _), outs, ms in zip(inputs, replies, metas):
+            for i, (out, meta) in enumerate(zip(outs, ms)):
+                if meta.get("fp") is None:
+                    raise AssertionError(f"{label}: a {meta.get('variant')} reply carries no fused digest")
+                twin = fp_ops.fingerprint_output(out.float().numpy(), hsz)
+                worst = max(worst, _digest_gap(meta["fp"], twin))
+                monitor.verify_step("server", meta["fp"], out.float().numpy(), start=0, end=SPAN,
+                                    position=prompt.shape[1] + i)
+                n_fp += 1
+        log(f"{label}: fused digests of {n_fp} replies: worst relative gap from the client's digest of the "
+            f"hidden received {worst:.3e} (TOL_TRANSPORT {fp_ops.TOL_TRANSPORT:g}); the IntegrityMonitor "
+            f"checked {monitor.checked}, divergences {monitor.divergences}")
+        if worst > fp_ops.TOL_TRANSPORT or monitor.divergences or monitor.checked != n_fp:
+            raise AssertionError(f"{label}: a fused digest disagrees with the reply it rides")
+        steps = {v: tm.BATCHED_STEPS.labels(variant=v).value - reg_before[v] for v in reg_before}
+        tokens = tm.DECODE_TOKENS.value - tokens_before
+        log(f"{label}: petals_batched_steps_total by variant {steps}, petals_decode_tokens_total {tokens:g}; the "
+            f"batcher's stats: batched_steps {stats['batched_steps']}, mixed_steps {stats['mixed_steps']}, "
+            f"batched_tokens {stats['batched_tokens']}")
+        if (sum(steps.values()) != stats["batched_steps"] or steps["mixed"] != stats["mixed_steps"]
+                or tokens != stats["batched_tokens"]):
+            raise AssertionError(f"{label}: the step counters disagree with the batcher's stats")
+        mport = server._metrics_server.port
+        metrics, journal = _http_get(mport, "/metrics"), _http_get(mport, "/journal")
+        want_line = f'petals_batched_steps_total{{variant="mixed"}} {int(tm.BATCHED_STEPS.labels(variant="mixed").value)}'
+        kinds = collections.Counter(json.loads(line)["kind"] for line in journal.splitlines() if line.strip())
+        log(f"{label}: /metrics {len(metrics)} bytes, /journal {sum(kinds.values())} events {dict(kinds)}")
+        if want_line not in metrics or kinds["admission"] < len(PROMPTS):
+            raise AssertionError(f"{label}: /metrics lacks {want_line!r}, or /journal its admissions")
+        info = server._server_info(ServerState.ONLINE)
+        announce = {k: getattr(info, k) for k in ("telemetry", "compile_stats", "integrity", "metrics_port")}
+        log(f"{label}: the announce's telemetry plane: {json.dumps(announce, default=str)}")
+        if any(v is None for v in announce.values()) or announce["metrics_port"] != mport:
+            raise AssertionError(f"{label}: the announce lacks a telemetry field: {announce}")
+        # the fused digest's device cost on the replayed bf16 decode step:
+        # a sibling backend each way, so each captures its one graph during
+        # its own warm-up (a flip on one backend after its warm-up would
+        # capture again, which the observatory counts as an anomaly)
+        sibs = {flag: sibling_backend(server.backend) for flag in (False, True)}
+        max_pages = 1024 // PAGE
+        pools = _random_pools(sibs[False], device, PROFILE_LANES * max_pages, SEED + 21)
+        tables = torch.arange(PROFILE_LANES * max_pages, dtype=torch.int32).reshape(PROFILE_LANES, max_pages)
+        positions = torch.linspace(64, 960, PROFILE_LANES).to(torch.int32)
+        hidden = torch.randn(PROFILE_LANES, 1, hsz)
+
+        def decode(with_fp):
+            fp_ops.set_enabled(with_fp)
+            sibs[with_fp].paged_decode_step(hidden, pools, positions, tables)
+            sibs[with_fp].pop_step_fp()
+
+        times = profile_calls({"decode step, replayed, without with_fp": lambda: decode(False),
+                               "decode step, replayed, with with_fp": lambda: decode(True)})
+        off, on = times["decode step, replayed, without with_fp"], times["decode step, replayed, with with_fp"]
+        log(f"{label}: the fused digest's cost: replayed decode step device busy {on['device_busy_ms']:.4f} ms with "
+            f"with_fp, {off['device_busy_ms']:.4f} ms without ({PROFILE_LANES} lanes, {SPAN} blocks; {smi})")
+        result["with_fp_busy_ms"] = (on["device_busy_ms"], off["device_busy_ms"])
+        fp_ops.set_enabled(True)
+        if any(b.step_program_stats()["graph_anomalies"] for b in sibs.values()):
+            raise AssertionError(f"{label}: the digest's cost measurement captured after a warm-up")
+        del sibs, pools
+        remote.close()
+        remotes.remove(remote)
+        loop.run(server.shutdown(), LOOP_TIMEOUT_S)
+        servers.remove(server)
+        del server
+        free_card()
+
+        # (a) and (b) again on nf4a weights, over a sub-span chain
+        label = f"forward (nf4a, blocks [{FWD_SUB_SPAN[0]}, {FWD_SUB_SPAN[1]}) of the cut)"
+        server = build_server(build_parser().parse_args([
+            cut, "--host", "127.0.0.1", "--first_block", str(FWD_SUB_SPAN[0]),
+            "--num_blocks", str(FWD_SUB_SPAN[1] - FWD_SUB_SPAN[0]), "--quant_type", "nf4a", *NO_PREFIX_CACHE,
+        ]))
+        loop.run(server.start(), LOOP_TIMEOUT_S)
+        servers.append(server)
+        remote = RemoteSequential(ClientConfig(initial_peers=[server.dht.own_addr.to_string()]),
+                                  uids[FWD_SUB_SPAN[0]:FWD_SUB_SPAN[1]])
+        remotes.append(remote)
+        _reset_launch_counts()
+        n_calls, late = _check_forwards(label, server, remote, FWD_SUB_SPAN, device)
+        n_blocks = FWD_SUB_SPAN[1] - FWD_SUB_SPAN[0]
+        k5 = qmm.quant_prefill_matmul.launches["nf4a"]
+        k4 = fa.flash_attend.launches
+        log(f"{label}: K5 nf4a prefill launches {k5} (want >= {n_calls * n_blocks * 4}), K4 {k4} "
+            f"(want >= {n_calls * n_blocks}), for {n_calls} server-side calls; captures in third calls: {late}")
+        if k5 < n_calls * n_blocks * 4 or k4 < n_calls * n_blocks or late:
+            raise AssertionError(f"{label}: K5's prefill kernel or K4 did not run on every block of every forward")
+        result["K5 prefill"] = k5
+        check_probes(label, server, FWD_SUB_SPAN)
+    finally:
+        fp_ops.set_enabled(False)
+        os.environ.pop("PETALS_TPU_TRACE_SECONDS", None)
+        for remote in remotes:
+            remote.close()
+        for server in servers:
+            loop.run(server.shutdown(), LOOP_TIMEOUT_S)
+        loop.shutdown()
+    log(f"forward and telemetry: phase done in {time.perf_counter() - t_phase:.1f} s")
+    return result
+
+
 def free_card() -> None:
     """Free what a dropped server held on the card before the next one loads
     (its event-loop objects hold reference cycles, so collect them)."""
@@ -4982,10 +5342,14 @@ def main() -> int:
         # speculative decoding: a cooperative draft, then an nf4a self-draft on an nf4a pool
         spec = serve_spec_and_check(ckpt, device, smi, timer)
         free_card()
+        # the stateless forward, the probe and the telemetry plane
+        fwd = serve_forward_telemetry_and_check(ckpt, device, smi)
+        free_card()
     flash_kernel["launches"] = private_launches["K4"]
     # the launches on moved (imported, adopted) caches, phase 19
     kernels[0]["migration_launches"], kernels[1]["migration_launches"] = moved["K1"], moved["K2"]
     flash_kernel["migration_launches"] = moved["K4"]
+    flash_kernel["forward_launches"] = fwd["K4"]
     for entry in kv_kernels:
         if entry["name"].endswith("[kv_nf4a]"):
             entry["migration_launches"] = moved["K3 decode" if entry["name"].startswith("paged_decode") else "K3 prefill"]
@@ -5006,6 +5370,8 @@ def main() -> int:
         entry["launches"] = arm_launches[arm][phase][arm]
         if arm == "nf4a":  # the nf4a draft's launches (phase 20 run b)
             entry["draft_launches"] = spec["k5"][phase]
+            if phase == "prefill":  # phase 21's nf4a forwards
+                entry["forward_launches"] = fwd["K5 prefill"]
     from petals_tpu_torch.telemetry.observatory import get_observatory
 
     digest = get_observatory().compile_stats()

@@ -31,6 +31,10 @@ whole-model span: the draft proposes ``--spec_k`` (4) tokens a generating
 lane a tick from its last ``--draft_window`` (64) tokens, its blocks
 quantized per ``--draft_quant_type`` (nf4a), and the span verifies them in
 one paged step; the tokens are plain decode's.
+``--metrics_port N`` serves ``/metrics``, ``/journal`` and ``/ledger`` on a
+local HTTP port (0: ephemeral), ``--trace_dir DIR`` writes a torch.profiler
+Chrome trace of the first ``PETALS_TPU_TRACE_SECONDS`` (60) of serving, and
+``--request_timeout`` (180 s) bounds a stateless forward or probe.
 """
 
 from __future__ import annotations
@@ -93,6 +97,13 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--relay_via", default=None,
                         help="host:port of a relay peer (run_dht prints one): serve from behind "
                              "NAT/firewall with no inbound listener (rpc/relay.py)")
+    parser.add_argument("--trace_dir", default=None,
+                        help="Capture a torch.profiler trace (CPU and CUDA activity, Chrome trace JSON) "
+                             "here for PETALS_TPU_TRACE_SECONDS (default 60) from startup "
+                             "(or set PETALS_TPU_TRACE_DIR)")
+    parser.add_argument("--metrics_port", type=int, default=None,
+                        help="Serve Prometheus-text /metrics (plus the /journal scheduler event log and "
+                             "the /ledger view) on this local HTTP port; 0 = ephemeral, omit to disable")
     parser.add_argument("--drain_seconds", type=float, default=0.0,
                         help="On SIGTERM/SIGINT, park live sessions' KV and keep serving "
                              "ptu.session_export for this long before exiting, so clients "
@@ -100,6 +111,8 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--inference_max_length", type=int, default=None,
                         help="Reject sessions longer than this (default: 8192 for GQA/MQA "
                              "models, 2048 otherwise)")
+    parser.add_argument("--request_timeout", type=float, default=3 * 60,
+                        help="Timeout for a stateless forward or an integrity probe, seconds")
     parser.add_argument("--session_timeout", type=float, default=30 * 60,
                         help="Max idle time of an inference session, seconds")
     parser.add_argument("--step_timeout", type=float, default=5 * 60,
@@ -209,8 +222,11 @@ def build_server(args: argparse.Namespace) -> Server:
         compression=args.compression,
         relay_via=args.relay_via,
         inference_max_length=args.inference_max_length,
+        request_timeout=args.request_timeout,
         session_timeout=args.session_timeout,
         step_timeout=args.step_timeout,
+        metrics_port=args.metrics_port,
+        trace_dir=args.trace_dir,
         batch_lanes=args.batch_lanes,
         batch_max_length=args.batch_max_length,
         page_size=args.page_size,

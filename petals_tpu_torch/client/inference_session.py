@@ -34,10 +34,19 @@
 
 Hidden states are CPU tensors on the wire side (``rpc/serialization.py``).
 
-Left out, each with the slice that takes it (ROADMAP.md): ``IntegrityMonitor``,
-``HopTrace``'s waterfall, ``trace_report``, the flight recorder and the
-journal events of exports and handoffs: A11; a hop keeps only what routing
-blame and ``usage_report`` read (``_Hop``).
+Telemetry (telemetry/, as petals_tpu's session wires it): each server span
+keeps a ``HopTrace`` of its steps (client wall, the server's queue /
+compute / serialize seconds from ``step_meta``, the billed usage), and
+``trace_report()`` turns the hops, closed ones included, into the
+session's latency waterfall. ``flight`` (``flight_from_env``: set
+``PETALS_TPU_SLO_TTFT_MS`` / ``PETALS_TPU_SLO_TOKEN_MS``) records a step
+that breaches an SLO with the waterfall and the critical-path server's
+journal excerpt (from its announced ``metrics_port``). ``integrity``, an
+``IntegrityMonitor``, checks each reply that carries the server's fused
+fingerprint (``step_meta["fp"]``) against the digest of the hidden state
+received; a divergence is journaled and blamed on the peer through
+``report_integrity``. The journal records ``export_fallback``,
+``handoff_fallback`` and ``handoff_complete``.
 """
 
 from __future__ import annotations
@@ -58,8 +67,12 @@ from petals_tpu_torch.data_structures import CHAIN_DELIMITER, PeerID, RemoteSpan
 from petals_tpu_torch.dht.routing import PeerAddr
 from petals_tpu_torch.rpc.client import StreamCall
 from petals_tpu_torch.rpc.serialization import CompressionType, as_tensor, deserialize_array, serialize_array
-from petals_tpu_torch.server.handler import new_trace_id
+from petals_tpu_torch.telemetry.flight import flight_from_env, http_journal_fetcher
+from petals_tpu_torch.telemetry.integrity import IntegrityMonitor
+from petals_tpu_torch.telemetry.journal import get_journal
 from petals_tpu_torch.telemetry.ledger import derive_efficiency
+from petals_tpu_torch.telemetry.spans import MAX_RETIRED_HOPS, HopTrace, build_trace_report
+from petals_tpu_torch.telemetry.trace import new_trace_id
 
 logger = logging.getLogger(__name__)
 
@@ -73,42 +86,6 @@ OPEN_WAIT_FOLD_MIN_S = 0.05
 # unit petals_tpu's server-side prefix cache stores
 # (petals_tpu/server/prefix_cache.py SEGMENT_TOKENS)
 AFFINITY_SEGMENT_TOKENS = 128
-MAX_RETIRED_HOPS = 32  # hops of closed sessions kept for usage_report
-
-
-class _Hop:
-    """One server span's client-side account: steps, the client's wall, the
-    server-reported queue time (routing blame reads its share) and the
-    server-billed usage deltas riding ``step_meta`` (``usage_report`` sums
-    them). The rest of petals_tpu's HopTrace waits for A11."""
-
-    def __init__(self, peer: str):
-        self.peer = peer
-        self.steps = 0
-        self.meta_steps = 0
-        self.wall_s = 0.0
-        self.queue_s = 0.0
-        self.usage: dict = {}
-
-    def record(self, wall_s: float, meta: Optional[dict]) -> None:
-        self.steps += 1
-        self.wall_s += max(float(wall_s), 0.0)
-        if not meta:
-            return
-        self.meta_steps += 1
-        self.queue_s += float(meta.get("queue_s") or 0.0)
-        usage = meta.get("usage")
-        if isinstance(usage, dict):
-            for field, amount in usage.items():
-                if field in ("acceptance_rate", "tokens_per_compute_second"):
-                    continue  # rates don't sum
-                try:
-                    self.usage[field] = self.usage.get(field, 0) + float(amount)
-                except (TypeError, ValueError):
-                    continue  # a malformed server delta must not kill the step
-
-    def queue_share(self) -> float:
-        return self.queue_s / self.wall_s if self.wall_s > 0 else 0.0
 
 
 class _ServerInferenceSession:
@@ -130,7 +107,12 @@ class _ServerInferenceSession:
         # False stops them; sent with the next step
         self.pending_push_to = None
         self.echoed_trace_id: Optional[str] = None
-        self.hop = _Hop(span.peer_id.to_string())
+        # the hop's critical-path account: each step's client wall and the
+        # server's step_meta (telemetry/spans.py)
+        self.hop = HopTrace(span.peer_id.to_string(), span.start, span.end)
+        # the owning InferenceSession's IntegrityMonitor: a reply carrying a
+        # fused fingerprint is checked against the hidden state received
+        self.monitor: Optional[IntegrityMonitor] = None
 
     @classmethod
     async def create(
@@ -191,7 +173,7 @@ class _ServerInferenceSession:
         except (TypeError, ValueError):
             open_wait_s = 0.0
         if open_wait_s >= OPEN_WAIT_FOLD_MIN_S:
-            self.hop.record(open_wall_s, {"queue_s": open_wait_s})
+            self.hop.record(open_wall_s, {"queue_s": open_wait_s, "total_s": open_wait_s}, tokens=0)
             share = self.hop.queue_share()
             if open_wait_s >= OPEN_WAIT_BLAME_S and share > 0.5:
                 seq_manager.report_congestion(span.peer_id, share)
@@ -253,9 +235,19 @@ class _ServerInferenceSession:
         t_rpc = time.perf_counter()
         await self.stream.send(msg)
         reply = await self.stream.recv(timeout=self.step_timeout)
-        self.hop.record(time.perf_counter() - t_rpc, reply.get("step_meta"))
+        self.hop.record(time.perf_counter() - t_rpc, reply.get("step_meta"), tokens=int(hidden.shape[1]))
         out = deserialize_array(reply["tensors"]["hidden"])
         self.position = reply["position"]
+        meta = reply.get("step_meta") or {}
+        if self.monitor is not None and meta.get("fp") is not None:
+            # the reply against the server's fused fingerprint: a mismatch
+            # means the activation changed after the step program (the wire,
+            # serialization, or a lying replica)
+            self.monitor.verify_step(
+                self.span.peer_id, meta["fp"], out.float().numpy(), start=self.span.start, end=self.span.end,
+                position=int(reply["position"]), lossy_wire=self.compression != CompressionType.NONE,
+                quant=getattr(self.span.server_info, "quant_type", None) or "none",
+            )
         self.history.append((hidden, hypo_ids))
         return out
 
@@ -290,7 +282,7 @@ class _ServerInferenceSession:
         await self.stream.send(msg)
         reply = await self.stream.recv(timeout=self.step_timeout)
         tokens = np.asarray(reply["tokens"], np.int64)[None]
-        self.hop.record(time.perf_counter() - t_rpc, reply.get("step_meta"))
+        self.hop.record(time.perf_counter() - t_rpc, reply.get("step_meta"), tokens=int(tokens.shape[1]))
         self.position = reply["position"]
         self.history.append((hidden, None))
         if tokens.shape[1] > 1:
@@ -347,8 +339,21 @@ class InferenceSession:
         # one trace id for the whole session, minted here: every server span
         # (replacements included) opens with it
         self.trace_id: str = new_trace_id()
+        # the critical-path profiler: whole-session wall, steps and tokens,
+        # and the hops of closed sessions (bounded), so trace_report()
+        # accounts for time spent on replaced servers too
+        self._wall_s = 0.0
+        self._steps = 0
         self._tokens = 0
-        self._retired_hops: List[_Hop] = []
+        self._retired_hops: List[HopTrace] = []
+        # the SLO flight recorder (None unless PETALS_TPU_SLO_*_MS is set; a
+        # caller may assign a FlightRecorder)
+        self.flight = flight_from_env()
+        # the fingerprint cross-check of every reply that carries a digest,
+        # with digest continuity across repairs and migrations
+        self.integrity = IntegrityMonitor(
+            trace_id=self.trace_id, on_divergence=self._on_integrity_divergence, flight=self.flight,
+        )
 
     @property
     def position(self) -> int:
@@ -380,6 +385,7 @@ class InferenceSession:
             self._last_prompts = prompts
         inputs = as_tensor(hidden)
         n_input_tokens = inputs.shape[1]
+        t_step0 = time.perf_counter()
         if self._position + n_input_tokens > self.max_length:
             raise ValueError(
                 f"Maximum length exceeded: prefix {self._position} + current {n_input_tokens}"
@@ -425,7 +431,7 @@ class InferenceSession:
                 block_idx = await self._repair_chain(block_idx)
 
         self._position += n_input_tokens
-        self._tokens += n_input_tokens
+        self._account_step(time.perf_counter() - t_step0, n_input_tokens)
         if self._phase == "prefill":
             # the prefill is done and decoding begins: hand the KV to a
             # decode-tier replica (a step boundary: the adopt never replays)
@@ -463,6 +469,7 @@ class InferenceSession:
         assert not self._closed
         hidden = as_tensor(hidden)
         n_input = hidden.shape[1]
+        t_step0 = time.perf_counter()
         if self._position + n_input + n_tokens - 1 > self.max_length:
             return None
         await self._ensure_route(hidden)
@@ -493,7 +500,7 @@ class InferenceSession:
         # the server fed what it answered but the last token
         fed = n_input + tokens.shape[1] - 1
         self._position += fed
-        self._tokens += fed
+        self._account_step(time.perf_counter() - t_step0, fed)
         self._phase = "decode"
         await self._maybe_check_route_upgrade()
         return tokens
@@ -511,6 +518,63 @@ class InferenceSession:
         share = hop.queue_share()
         if share > 0.5:
             self.seq_manager.report_congestion(session.span.peer_id, share)
+
+    # ------------------------------------------------- critical-path profiler
+
+    def _account_step(self, wall_s: float, n_tokens: int) -> None:
+        """Fold one whole-chain step into the session's totals and hold it
+        against the flight recorder's SLOs (the first step is the TTFT)."""
+        self._wall_s += wall_s
+        self._steps += 1
+        self._tokens += max(int(n_tokens), 0)
+        if self.flight is None:
+            return
+        self.flight.observe(
+            "ttft" if self._steps == 1 else "token", wall_s, trace_id=self.trace_id,
+            # both resolved only when the observation breaches
+            waterfall=self.trace_report, journal=self._victim_journal_fetcher(),
+        )
+
+    def _on_integrity_divergence(self, peer_id) -> None:
+        """A hop's reply diverged from its fused fingerprint: routing gets
+        the hard, decaying integrity penalty, so the next route build (and
+        any repair) steers off the replica."""
+        self.seq_manager.report_integrity(peer_id)
+
+    def trace_report(self) -> dict:
+        """The session's per-hop latency waterfall so far: the wall split
+        into network / queue / compute / serialize / other, per hop and in
+        total, with the dominating (hop, component) critical path."""
+        hops = list(self._retired_hops) + [s.hop for s in self._sessions if not s.closed]
+        return build_trace_report(
+            self.trace_id, [h for h in hops if h.steps > 0], wall_s=self._wall_s, steps=self._steps,
+            tokens=self._tokens, retired_hops=len(self._retired_hops),
+        )
+
+    def _victim_journal_fetcher(self):
+        """A callable for the flight recorder: at a breach, the journal
+        excerpt of this trace on the critical-path hop's server, fetched
+        from the ``metrics_port`` it announces."""
+
+        def fetch():
+            crit = self.trace_report().get("critical_path")
+            peer_str = crit["peer"] if crit else None
+            victim = next((s for s in self._sessions if not s.closed and s.hop.peer == peer_str), None)
+            if victim is None:
+                return {"error": "victim hop has no live session", "peer": peer_str}
+            port = getattr(victim.span.server_info, "metrics_port", None)
+            if not port:
+                return {"error": "victim server announces no metrics_port", "peer": peer_str}
+            addr = self.seq_manager.addr_of(victim.span.peer_id)
+            url = f"http://{addr.host if addr is not None else '127.0.0.1'}:{port}"
+            return {"peer": peer_str, "url": url, "events": http_journal_fetcher(url)(self.trace_id)}
+
+        return fetch
+
+    def _journal_export_fallback(self, peer: str, reason: str) -> None:
+        """A repair is about to cost a replay (or a second fetch) instead of
+        a KV transfer: the journal says why."""
+        get_journal().event("export_fallback", trace_id=self.trace_id, peer=peer, reason=reason)
 
     def usage_report(self) -> dict:
         """The session's resource bill so far, as the servers meter it: each
@@ -606,10 +670,12 @@ class InferenceSession:
                     # blame the hop that refused, so the retry routes around it
                     self.seq_manager.on_request_failure(span.peer_id)
                     raise
+                session.monitor = self.integrity
                 # adopt the first hop's echoed id, so the rest of the chain
                 # opens with the id the servers registered
                 if session.echoed_trace_id and session.echoed_trace_id != self.trace_id:
                     self.trace_id = session.echoed_trace_id
+                    self.integrity.trace_id = self.trace_id
                 sessions.append(session)
             return sessions
         except Exception:
@@ -686,6 +752,7 @@ class InferenceSession:
                         )
                     except Exception as e:
                         logger.warning(f"KV adopt failed, falling back: {e!r}")
+                        self._journal_export_fallback(str(redirect.get("peer_id")), repr(e))
                         # the stream's state is unknown after a failed adopt
                         new_sessions = await self._reopen(new_sessions, new_chain, keep_up, keep_down)
                 if not seeded and redirect is not None and exported is None and dead is not None:
@@ -779,6 +846,7 @@ class InferenceSession:
             return got
         except Exception as e:
             logger.info(f"KV export unavailable from {peer_id.to_string()[:8]}: {e!r}")
+            self._journal_export_fallback(peer_id.to_string(), repr(e))
             return None
 
     async def _fetch_migrated(self, fwd: dict, session_id: str, start: int, end: int):
@@ -791,6 +859,7 @@ class InferenceSession:
             return None if isinstance(got, dict) else got
         except Exception as e:
             logger.info(f"Migrated KV unavailable from {fwd.get('addr')}: {e!r}")
+            self._journal_export_fallback(str(fwd.get("peer_id")), repr(e))
             return None
 
     def _cut_at_step(self, export_pos: int, replay_steps) -> tuple:
@@ -905,6 +974,7 @@ class InferenceSession:
                     self.seq_manager, span, uids, max_length=self.max_length, batch_size=self.batch_size,
                     session_id=uuid.uuid4().hex, trace_id=self.trace_id,
                 )
+                session.monitor = self.integrity
                 created.append(session)
                 pieces, export_pos = [], self._position
                 for cur in sorted(current, key=lambda s: s.span.start):
@@ -959,6 +1029,7 @@ class InferenceSession:
 
         def fallback(reason: str) -> None:
             self._handoff_stats["fallback"] += 1
+            get_journal().event("handoff_fallback", trace_id=self.trace_id, reason=reason)
             logger.info(f"Phase handoff skipped, decoding colocated: {reason}")
 
         try:
@@ -1004,6 +1075,7 @@ class InferenceSession:
                     self.seq_manager, span, uids, max_length=self.max_length, batch_size=self.batch_size,
                     session_id=uuid.uuid4().hex, trace_id=self.trace_id,
                 )
+                session.monitor = self.integrity
                 created.append(session)
                 export_pos = int(reply["position"])
                 if export_pos < self._position:
@@ -1029,6 +1101,7 @@ class InferenceSession:
                 pass  # the source may already be tearing the lane down
         self._wire_push_chain(self._sessions)
         self._handoff_stats["adopted"] += len(replaced)
+        get_journal().event("handoff_complete", trace_id=self.trace_id, moved=len(replaced), position=self._position)
 
     def _push_target(self, session) -> Optional[dict]:
         if session is None or not session.session_id:

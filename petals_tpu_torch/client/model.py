@@ -13,10 +13,13 @@ the port's server entry points do.
 ``DistributedModelForSpeculativeGeneration`` generates greedily with a
 local draft, verified by the swarm (client/speculative.py).
 
-Waiting, each raising with its slice named: ``forward()`` (needs the
-servers' ``rpc_forward``, A11), trained prompts (``PTuneMixin``,
-``ptune=``, A13) and ``DistributedModelForSequenceClassification``
-(A11/A13).
+``forward(input_ids)`` is a stateless forward over the swarm (the
+servers' ``rpc_forward``): the causal LM returns float32 logits, the bare
+model its last hidden state after the final norm.
+
+Waiting, each raising with its slice named: trained prompts
+(``PTuneMixin``, ``ptune=``, A13) and
+``DistributedModelForSequenceClassification`` (A13).
 """
 
 from __future__ import annotations
@@ -82,10 +85,11 @@ class _DistributedModelBase:
         ids = torch.as_tensor(input_ids, dtype=torch.long).to(self.device)
         return self.family.client_embed(self.client_params, ids, self.cfg)
 
-    def forward(self, input_ids):
-        raise NotImplementedError("a stateless forward needs the servers' rpc_forward, which waits for A11")
-
-    __call__ = forward
+    def _remote_hidden(self, input_ids) -> torch.Tensor:
+        """The last block's output for ``input_ids`` (a stateless forward),
+        on the client's device."""
+        hidden = self.embed(input_ids)
+        return self.remote.forward(hidden.cpu()).to(self.device)
 
     def close(self) -> None:
         self.remote.close()
@@ -99,6 +103,13 @@ class DistributedModelForCausalLM(RemoteGenerationMixin, _DistributedModelBase):
         """float32 logits [..., vocab] of hidden states from the last block."""
         hidden = torch.as_tensor(hidden).to(self.device)
         return self.family.client_head(self.client_params, hidden, self.cfg)
+
+    def forward(self, input_ids) -> torch.Tensor:
+        """float32 logits [batch, seq, vocab] of a whole sequence through a
+        stateless swarm forward."""
+        return self.lm_logits(self._remote_hidden(input_ids))
+
+    __call__ = forward
 
 
 class DistributedModel(_DistributedModelBase):
@@ -117,11 +128,18 @@ class DistributedModel(_DistributedModelBase):
         hidden = torch.as_tensor(hidden).to(self.device)
         return self.family.client_norm(self.client_params, hidden, self.cfg)
 
+    def forward(self, input_ids) -> torch.Tensor:
+        """last_hidden_state [batch, seq, hidden] after the final norm, as
+        HF's *Model forward returns it."""
+        return self.final_norm(self._remote_hidden(input_ids))
+
+    __call__ = forward
+
 
 class DistributedModelForSequenceClassification:
     @classmethod
     def from_pretrained(cls, *args, **kwargs):
-        raise NotImplementedError("sequence classification waits for A11/A13 in this port")
+        raise NotImplementedError("sequence classification waits for A13 in this port")
 
 
 class DistributedModelForSpeculativeGeneration:

@@ -1,7 +1,8 @@
 """RemoteSequential: the chain of remote blocks as one object with a
-synchronous API (petals_tpu/client/remote_sequential.py). Stateless
-``forward``/``backward`` need the servers' ``rpc_forward`` and
-``rpc_backward``, which wait for A11 and A13."""
+synchronous API (petals_tpu/client/remote_sequential.py): inference
+sessions and the stateless, fault-tolerant ``forward`` over the servers'
+``rpc_forward`` (client/sequential_autograd.py). ``backward`` needs the
+servers' ``rpc_backward``, which waits for A13."""
 
 from __future__ import annotations
 
@@ -12,6 +13,7 @@ import torch
 from petals_tpu_torch.client.config import ClientConfig
 from petals_tpu_torch.client.inference_session import InferenceSession
 from petals_tpu_torch.client.routing.sequence_manager import RemoteSequenceManager
+from petals_tpu_torch.client.sequential_autograd import sequential_forward_batched
 from petals_tpu_torch.client.runtime import SwarmRuntime
 from petals_tpu_torch.data_structures import ModuleUID
 
@@ -64,10 +66,20 @@ class RemoteSequential:
     def __exit__(self, *exc) -> None:
         self.close()
 
-    def forward(self, hidden, prompts=None):
-        raise NotImplementedError("stateless forward needs the servers' rpc_forward, which waits for A11")
+    def forward(self, hidden, prompts=None) -> torch.Tensor:
+        """A stateless forward of ``hidden`` [batch, seq, hidden] (deep
+        ``prompts`` [n_blocks, batch, pre_seq, hidden]) through every block,
+        no server-side state; retried and re-routed on failure. Returns the
+        output on the host."""
+        out, _, _ = self.runtime.run(sequential_forward_batched(self.sequence_manager, hidden, prompts))
+        return out
 
     __call__ = forward
+
+    def forward_with_state(self, hidden, prompts=None):
+        """``forward`` returning (output, histories, spans) for a later
+        backward."""
+        return self.runtime.run(sequential_forward_batched(self.sequence_manager, hidden, prompts))
 
     def backward(self, *args, **kwargs):
         raise NotImplementedError("backward needs the servers' rpc_backward, which waits for A13")

@@ -13,9 +13,11 @@ Keeps a DHT-refreshed view of the swarm and builds server chains:
 Failures ban a peer with a streak-scaled timeout; successes reset the
 streak. Congestion blame (a peer whose queue wait dominates its hop) adds a
 decaying penalty; prompt-prefix affinity breaks near-ties deterministically.
-The integrity penalty (fingerprint divergence, announced quarantine) waits
-for A11: its hook here scores nothing. petals_tpu's telemetry counters
-(bans, route builds) wait for A11 too.
+Integrity blame (a peer whose replies diverged from their fused
+fingerprints, ``report_integrity``) adds ``INTEGRITY_PENALTY_S`` for
+``INTEGRITY_WINDOW_S``, as does a quarantine a server announces in
+``ServerInfo.integrity``. Bans, congestion and integrity penalties and route
+builds count into the telemetry registry, as petals_tpu's do.
 """
 
 from __future__ import annotations
@@ -35,6 +37,7 @@ from petals_tpu_torch.dht.node import DHTNode
 from petals_tpu_torch.dht.routing import PeerAddr
 from petals_tpu_torch.rpc.client import RpcClient
 from petals_tpu_torch.rpc.pool import ConnectionPool
+from petals_tpu_torch.telemetry import instruments as tm
 from petals_tpu_torch.utils.dht_utils import ModuleDirectory
 from petals_tpu_torch.utils.ping import PingAggregator
 from petals_tpu_torch.utils.version import incompatibility_error, is_compatible
@@ -52,8 +55,8 @@ PREFER_PEER_BONUS_S = 10.0
 # nothing) score unchanged. Sized between the congestion and integrity
 # penalties: strong enough to pull phase traffic onto its tier against RTT
 # noise, weak enough that a quarantined or capacity-missing specialist still
-# loses to a healthy generalist (petals_tpu's 5 s INTEGRITY_PENALTY_S, A11
-# here, and CACHE_MISS_PENALTY dominate).
+# loses to a healthy generalist (INTEGRITY_PENALTY_S and CACHE_MISS_PENALTY
+# dominate).
 PHASE_TIER_BONUS_S = 2.0
 PHASE_TIER_MISMATCH_S = 2.0
 # Soft routing penalty for a queue-dominated server (report_congestion):
@@ -62,8 +65,14 @@ PHASE_TIER_MISMATCH_S = 2.0
 # replica, far below CACHE_MISS_PENALTY so it never overrides capacity.
 CONGESTION_PENALTY_S = 0.05
 CONGESTION_WINDOW_S = 30.0
-# The hard routing penalty of an integrity-divergent server waits for A11
-# (the fingerprint cross-check and the canary prober that report it).
+# Hard routing penalty for an integrity-divergent server (report_integrity):
+# a replica whose replies disagree with their own fused fingerprints is
+# producing WRONG tokens, not slow ones, so the penalty dominates every
+# latency signal short of a missing block. Decaying (not a hard ban), so a
+# transient wire fault heals without an unban step, and long-windowed,
+# because correctness evidence does not go stale the way queue depth does.
+INTEGRITY_PENALTY_S = 5.0
+INTEGRITY_WINDOW_S = 120.0
 # Minimum spacing between congestion-triggered routing refreshes
 # (request_refresh): one backlogged open is enough evidence that the cached
 # swarm view is stale, but a burst of them must collapse to a single DHT
@@ -172,6 +181,7 @@ class RemoteSequenceManager:
         # penalty (peer -> (expires_monotonic, queue_share)) — steering, not
         # the hard hammer of a ban
         self._congestion: Dict[PeerID, Tuple[float, float]] = {}
+        self._integrity: Dict[PeerID, float] = {}  # peer -> penalty expiry (monotonic)
         self._last_refresh_req = 0.0  # monotonic time of last request_refresh
         self._refresh_task: Optional[asyncio.Task] = None
         self._update_lock = asyncio.Lock()
@@ -295,6 +305,7 @@ class RemoteSequenceManager:
         # cap would re-synchronize long streaks if jitter came first
         duration *= random.uniform(0.75, 1.25)
         self._banned[peer_id] = (time.monotonic() + duration, streak + 1)
+        tm.PEER_BANS.inc()
         logger.debug(f"Banned {peer_id} for {duration:.1f}s (streak {streak + 1})")
 
     def on_request_success(self, peer_id: PeerID) -> None:
@@ -337,6 +348,7 @@ class RemoteSequenceManager:
         server that drains its backlog is forgiven without any unban step."""
         share = min(max(float(queue_share), 0.0), 1.0)
         self._congestion[peer_id] = (time.monotonic() + window_s, share)
+        tm.CONGESTION_PENALTIES.inc()
         logger.debug(
             f"Congestion blame on {peer_id}: queue share {share:.0%} "
             f"for {window_s:.0f}s"
@@ -354,15 +366,30 @@ class RemoteSequenceManager:
 
     # -------------------------------------------------------------- integrity
 
-    def report_integrity(self, peer_id: PeerID, **_) -> None:
-        """The hook of petals_tpu's integrity blame (a peer whose replies
-        diverged from their fused fingerprints). A no-op until A11 ports
-        the fingerprint cross-check that calls it and fills the penalty."""
+    def report_integrity(self, peer_id: PeerID, *, window_s: float = INTEGRITY_WINDOW_S) -> None:
+        """Hard blame from the integrity observatory (the session's
+        fingerprint cross-check or a canary prober): this peer's replies
+        diverged from their own fused fingerprints. Route builds avoid it
+        for ``window_s`` unless no healthy replica covers its blocks."""
+        self._integrity[peer_id] = time.monotonic() + window_s
+        tm.INTEGRITY_PENALTIES.inc()
+        logger.warning(f"Integrity blame on {peer_id}: divergent replies, penalized for {window_s:.0f}s")
 
     def _integrity_penalty(self, peer_id, info) -> float:
-        """petals_tpu adds INTEGRITY_PENALTY_S for a reported peer and for an
-        announced quarantine (``ServerInfo.integrity``); A11 fills this."""
-        return 0.0
+        """``INTEGRITY_PENALTY_S`` while a blame lasts, plus as much again for
+        a quarantine the server announces (a canary prober anywhere in the
+        swarm flagged it), so clients that never talked to it steer off."""
+        penalty = 0.0
+        expires = self._integrity.get(peer_id)
+        if expires is not None:
+            if time.monotonic() >= expires:
+                self._integrity.pop(peer_id, None)
+            else:
+                penalty += INTEGRITY_PENALTY_S
+        integ = getattr(info, "integrity", None)
+        if isinstance(integ, dict) and integ.get("quarantined"):
+            penalty += INTEGRITY_PENALTY_S
+        return penalty
 
     # ------------------------------------------------------------------ sequences
 
@@ -497,6 +524,7 @@ class RemoteSequenceManager:
             ]
             raise MissingBlocksError(missing)
 
+        tm.ROUTE_BUILDS.labels(mode=mode).inc()
         if self.config.show_route:
             route = " => ".join(
                 f"{s.peer_id.to_string()[:8]} [{s.start}:{s.end}] ({s.throughput:.1f} rps)"

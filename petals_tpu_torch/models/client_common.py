@@ -1,7 +1,7 @@
 """The client's embeddings, final norm and LM head for llama-layout
 families (``model.embed_tokens`` / ``model.norm`` / ``lm_head``, RMSNorm,
 optional weight tying), the port of petals_tpu/models/client_common.py:1-41.
-The classification heads wait for A11/A13 (ROADMAP.md)."""
+The classification heads wait for A13 (ROADMAP.md)."""
 
 from __future__ import annotations
 

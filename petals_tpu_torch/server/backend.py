@@ -95,6 +95,19 @@ and the leading matches of drafts and sampled tokens decide how many
 tokens a lane emits. A fourth paged program ("paged_spec_verify", keyed by
 ``step_program_key("spec_verify", ...)`` with S as its bucket), captured
 when the pool opens on a batcher that holds a draft.
+
+Fused fingerprints (ops/fingerprint.py), built only when
+``fingerprint.enabled()``: the batched steps (paged decode, mixed,
+generation, verify, and the dense pool's decode and generation steps) then
+also return the digest of each lane's last row, ``rows.float() @ proj`` on
+a float32 projection held on the device, as one more output of the same
+graph (a mixed step adds its chunk's last valid row; the verify step
+digests each lane's last emitted row). ``with_fp`` is the last element of
+every such step's program key, as it is a static jit argument in the JAX
+package: flipping the switch after warm-up captures each program once
+more, and a graph built without the digest never serves a step that wants
+one. The step stashes the digests on the device; ``pop_step_fp`` hands
+them to the batcher after the step.
 """
 
 from __future__ import annotations
@@ -108,6 +121,7 @@ import torch
 import torch.nn.functional as F
 
 from petals_tpu_torch.models.registry import ModelFamily
+from petals_tpu_torch.ops import fingerprint as fp_ops
 from petals_tpu_torch.ops.paged_attention import (
     KV_QUANT_KINDS,
     PagedKV,
@@ -271,6 +285,9 @@ class TransformerBackend:
         # (k, v) addresses of the dense pool's lane views, whose plain chunks
         # replay the lane programs captured when the pool opened
         self._lane_views: set = set()
+        # the last batched step's fused fingerprints, on the device
+        self._last_step_fp: Optional[torch.Tensor] = None  # [n_lanes, FP_DIM]
+        self._last_chunk_fp: Optional[torch.Tensor] = None  # [FP_DIM], a mixed step's chunk
         if self.device.type == "cuda":
             capture = CudaGraphCapture(self.device)
             self._decode_program = TrackedGraph("paged_decode", capture)
@@ -530,11 +547,15 @@ class TransformerBackend:
         """
         inputs = (_as_tensor(hidden, None, self.compute_dtype), _as_tensor(positions, None, torch.int32))
 
-        def step(h, pos):
-            return self._dense_decode_eager(h, pool_kv, pos)[:1]
+        with_fp = fp_ops.enabled()
+        proj = self._fp_proj(with_fp)
 
-        key = dense_program_key("batched_decode", 0, self.quant_type, pool_kv)
-        (out,) = _replay(self._dense_decode_program, key, step, inputs)
+        def step(h, pos):
+            out = self._dense_decode_eager(h, pool_kv, pos)[0]
+            return (out,) if proj is None else (out, fp_ops.fingerprint_rows_torch(out[:, -1], proj))
+
+        key = dense_program_key("batched_decode", 0, self.quant_type, pool_kv, with_fp)
+        (out,) = self._keep_fp(_replay(self._dense_decode_program, key, step, inputs), 1)
         return out, pool_kv
 
     def _dense_decode_eager(self, hidden, pool_kv, positions):
@@ -746,18 +767,20 @@ class TransformerBackend:
 
         Returns (out [n_lanes, 1, hidden] on the device, pool_kv).
         """
-        if self._decode_program is None:
-            return self._paged_decode_eager(hidden, pool_kv, positions, tables)
         # the inputs where they lie; the program copies them into its buffers
         inputs = (_as_tensor(hidden, None, self.compute_dtype), _as_tensor(positions, None, torch.int32),
                   _as_tensor(tables, None, torch.int32))
         n_lanes, max_pages = inputs[2].shape
-        key = step_program_key("decode", n_lanes, max_pages, 0, self.quant_type, self.kv_quant_type, pool_kv)
+        with_fp = fp_ops.enabled()
+        proj = self._fp_proj(with_fp)
+        key = step_program_key("decode", n_lanes, max_pages, 0, self.quant_type, self.kv_quant_type,
+                               pool_kv) + (with_fp,)
 
         def step(h, pos, tab):
-            return self._paged_decode_eager(h, pool_kv, pos, tab)[:1]
+            out = self._paged_decode_eager(h, pool_kv, pos, tab)[0]
+            return (out,) if proj is None else (out, fp_ops.fingerprint_rows_torch(out[:, -1], proj))
 
-        (out,) = self._decode_program.run(key, step, inputs)
+        (out,) = self._keep_fp(_replay(self._decode_program, key, step, inputs), 1)
         return out, pool_kv
 
     def _paged_decode_eager(self, hidden, pool_kv, positions, tables):
@@ -813,11 +836,22 @@ class TransformerBackend:
         inputs = (_as_tensor(hidden, None, self.compute_dtype), _as_tensor(positions, None, torch.int32), tables_t,
                   chunk, scalars)
 
-        def step(h, pos_t, tab, c, sc):
-            return self._paged_mixed_eager(h, pool_kv, pos_t, tab, c, sc[0:1], sc[1], sc[2])[:2]
+        with_fp = fp_ops.enabled()
+        proj = self._fp_proj(with_fp)
 
-        key = step_program_key("mixed", n_lanes, max_pages, bucket, self.quant_type, self.kv_quant_type, pool_kv)
-        dec, chunk_out = _replay(self._mixed_program, key, step, inputs)
+        def step(h, pos_t, tab, c, sc):
+            dec, chunk_out = self._paged_mixed_eager(h, pool_kv, pos_t, tab, c, sc[0:1], sc[1], sc[2])[:2]
+            if proj is None:
+                return dec, chunk_out
+            # the chunk's digest is of its LAST VALID row, the last one the
+            # client receives for this chunk
+            last = chunk_out[0].index_select(0, (sc[2:3] - 1).clamp(min=0).long())
+            return (dec, chunk_out, fp_ops.fingerprint_rows_torch(dec[:, -1], proj),
+                    fp_ops.fingerprint_rows_torch(last, proj)[0])
+
+        key = step_program_key("mixed", n_lanes, max_pages, bucket, self.quant_type, self.kv_quant_type,
+                               pool_kv) + (with_fp,)
+        dec, chunk_out = self._keep_fp(_replay(self._mixed_program, key, step, inputs), 2, chunk=True)
         return dec, chunk_out[:, :seq], pool_kv
 
     def _paged_mixed_eager(self, hidden, pool_kv, positions, tables, chunk_hidden, chunk_lane, chunk_pos, n_valid):
@@ -878,6 +912,30 @@ class TransformerBackend:
             # shorter than the bucket)
             chunk = torch.zeros(1, min(bucket, longest), self.hidden_size, dtype=self.compute_dtype)
             self.paged_mixed_step(hidden, pool_kv, positions, tables, chunk, 0, 0)
+
+    # ------------------------------------------------------------- fingerprints
+
+    def _fp_proj(self, with_fp: bool) -> Optional[torch.Tensor]:
+        """The device projection a step with ``with_fp`` reads (uploaded
+        before any capture), else None."""
+        return fp_ops.device_projection(self.hidden_size, self.device) if with_fp else None
+
+    def _keep_fp(self, res: tuple, n: int, chunk: bool = False) -> tuple:
+        """Split a step's outputs: its first ``n`` and, behind them, the
+        fused digests the step added when it ran with a projection, which
+        are stashed for ``pop_step_fp`` (None when it ran without)."""
+        extra = res[n:]
+        self._last_step_fp = extra[0] if extra else None
+        self._last_chunk_fp = extra[1] if chunk and extra else None
+        return res[:n]
+
+    def pop_step_fp(self) -> tuple:
+        """Take (and clear) the last batched step's fused fingerprints:
+        (lane digests [n_lanes, FP_DIM], chunk digest [FP_DIM]) tensors on
+        the device, or Nones."""
+        fp, chunk = self._last_step_fp, self._last_chunk_fp
+        self._last_step_fp = self._last_chunk_fp = None
+        return fp, chunk
 
     def _programs(self) -> tuple:
         """Every step program of this backend (Nones on the CPU)."""
@@ -955,13 +1013,17 @@ class TransformerBackend:
                   _as_tensor(use_token, None, torch.bool), _as_tensor(positions, None, torch.int32),
                   _as_tensor(tables, None, torch.int32), *self._sampling_inputs(sampling_vecs))
 
+        with_fp = fp_ops.enabled()
+        proj = self._fp_proj(with_fp)
+
         def step(h, tok, use, pos, tab, *samp):
-            return self._paged_gen_decode_eager(gen_params, h, tok, use, pool_kv, pos, tab, samp)
+            out, toks = self._paged_gen_decode_eager(gen_params, h, tok, use, pool_kv, pos, tab, samp)
+            return (out, toks) if proj is None else (out, toks, fp_ops.fingerprint_rows_torch(out[:, -1], proj))
 
         n_lanes, max_pages = inputs[4].shape
         key = step_program_key("gen_decode", n_lanes, max_pages, 0, self.quant_type, self.kv_quant_type, pool_kv,
-                               extra=tuple(gen_params.values()))
-        out, toks = _replay(self._gen_program, key, step, inputs)
+                               extra=tuple(gen_params.values())) + (with_fp,)
+        out, toks = self._keep_fp(_replay(self._gen_program, key, step, inputs), 2)
         return out, toks, pool_kv
 
     def _paged_gen_decode_eager(self, gen_params, hidden, tokens, use_token, pool_kv, positions, tables, samp):
@@ -1007,15 +1069,18 @@ class TransformerBackend:
         inputs = (tokens, _as_tensor(positions, None, torch.int32), _as_tensor(tables, None, torch.int32),
                   *self._sampling_inputs(vec))
 
+        with_fp = fp_ops.enabled()
+        proj = self._fp_proj(with_fp)
+
         def step(tok, pos, tab, *samp):
-            return self._paged_spec_verify_eager(gen_params, tok, pool_kv, pos, tab, samp)
+            return self._paged_spec_verify_eager(gen_params, tok, pool_kv, pos, tab, samp, proj)
 
         key = step_program_key("spec_verify", n_lanes, inputs[2].shape[1], S, self.quant_type, self.kv_quant_type,
-                               pool_kv, extra=tuple(gen_params.values()))
-        g_hat, n_emit = _replay(self._spec_program, key, step, inputs)
+                               pool_kv, extra=tuple(gen_params.values())) + (with_fp,)
+        g_hat, n_emit = self._keep_fp(_replay(self._spec_program, key, step, inputs), 2)
         return g_hat, n_emit, pool_kv
 
-    def _paged_spec_verify_eager(self, gen_params, tokens, pool_kv, positions, tables, samp):
+    def _paged_spec_verify_eager(self, gen_params, tokens, pool_kv, positions, tables, samp, proj=None):
         """The verify step launched op by op (what the CPU runs, and what
         its step program captures): the S rows of every lane embedded and
         run through the block loop at per-lane positions, the float32 head
@@ -1024,7 +1089,9 @@ class TransformerBackend:
         already there) and ``sample_tokens`` picks the target's token with
         uniform column j. Draft j (tokens column j) is accepted while it
         equals the token sampled on row j - 1 and every draft before it was
-        accepted; a lane emits n_accept + 1 tokens, at most S."""
+        accepted; a lane emits n_accept + 1 tokens, at most S. With
+        ``proj`` it also returns each lane's digest of its last emitted
+        row (the verify twin of decode's last-row digest)."""
         tokens = _as_tensor(tokens, self.device, torch.long)
         S = tokens.shape[1]
         h = self.family.client_embed(gen_params, tokens, self.cfg).to(self.compute_dtype)
@@ -1040,7 +1107,12 @@ class TransformerBackend:
         g_hat = torch.stack(emitted, dim=1)
         match = (tokens[:, 1:] == g_hat[:, :-1]).to(torch.int32)
         n_accept = torch.cumprod(match, dim=1).sum(dim=1)
-        return g_hat.to(torch.int32), (n_accept + 1).clamp(max=S).to(torch.int32)
+        n_emit = (n_accept + 1).clamp(max=S)
+        if proj is None:
+            return g_hat.to(torch.int32), n_emit.to(torch.int32)
+        last_idx = (n_emit - 1).clamp(0, S - 1)[:, None, None].expand(-1, 1, h.shape[-1])
+        fp = fp_ops.fingerprint_rows_torch(h.gather(1, last_idx)[:, 0], proj)
+        return g_hat.to(torch.int32), n_emit.to(torch.int32), fp
 
     @torch.no_grad()
     def batched_gen_decode_step(self, gen_params: dict, hidden, tokens, use_token, pool_kv, positions,
@@ -1054,14 +1126,19 @@ class TransformerBackend:
                   _as_tensor(use_token, None, torch.bool), _as_tensor(positions, None, torch.int32),
                   *self._sampling_inputs(sampling_vecs))
 
+        with_fp = fp_ops.enabled()
+        proj = self._fp_proj(with_fp)
+
         def step(h, tok, use, pos, *samp):
             h = self._gen_embed(gen_params, h, tok, use)
             h, _ = self._dense_decode_eager(h, pool_kv, pos)
             samp = {name: _as_tensor(x, self.device) for name, x in zip(SAMPLING_INPUTS, samp)}
-            return h, self._head_sample(gen_params, h, samp)
+            toks = self._head_sample(gen_params, h, samp)
+            return (h, toks) if proj is None else (h, toks, fp_ops.fingerprint_rows_torch(h[:, -1], proj))
 
-        key = dense_program_key("batched_gen_decode", 0, self.quant_type, pool_kv, extra=tuple(gen_params.values()))
-        out, toks = _replay(self._dense_gen_program, key, step, inputs)
+        key = dense_program_key("batched_gen_decode", 0, self.quant_type, pool_kv, with_fp,
+                                extra=tuple(gen_params.values()))
+        out, toks = self._keep_fp(_replay(self._dense_gen_program, key, step, inputs), 2)
         return out, toks, pool_kv
 
     @torch.no_grad()

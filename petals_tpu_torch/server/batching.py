@@ -96,9 +96,20 @@ compute-seconds (each step's wall split over its lanes), tokens and swap
 bytes accrue to it, and each pooled reply carries the delta since the last
 (``pop_usage_delta``) beside the two-field load hint (``occupancy_hint``).
 
-Not ported yet: fingerprints, the journal (the spec tick's
-``spec_disabled`` event among them) and metrics, multi-host lockstep (its
-mirrored temp handles).
+Telemetry (telemetry/), recorded where petals_tpu's batcher records, on
+the host after each step's outputs reached it (never inside a captured
+step): each batched step's wall and count by variant (``dense``,
+``paged``, ``mixed``, ``gen``, ``spec``) and its decode tokens, the
+prefill queue wait, the pool gauges at every occupancy boundary, swap
+bytes, preemptions and allocation failures; the journal's ``admission``,
+``waiter_picked``, ``victim_selected``, ``swap_out``, ``swap_in``,
+``noisy_neighbor`` and ``spec_disabled`` events, each with the occupancy
+that justified it. With fingerprints enabled the step programs return the
+fused digest of each lane's last row (server/backend.py ``pop_step_fp``),
+which ``_capture_step_fp`` stashes per lane for the handler's reply
+(``pop_step_fp``); a mixed step's chunk lane takes its chunk's digest.
+
+Not ported yet: multi-host lockstep (its mirrored temp handles).
 """
 
 from __future__ import annotations
@@ -125,6 +136,8 @@ from petals_tpu_torch.server.memory_cache import AllocationFailed, HostSwapPool,
 from petals_tpu_torch.server.scheduler import SessionScheduler, SwapEntry
 from petals_tpu_torch.server.spec_decode import min_accept_floor
 from petals_tpu_torch.server.task_queue import PRIORITY_INFERENCE, PriorityTaskQueue
+from petals_tpu_torch.telemetry import instruments as tm
+from petals_tpu_torch.telemetry.journal import get_journal
 from petals_tpu_torch.telemetry.ledger import derive_efficiency, get_ledger
 from petals_tpu_torch.utils.locks import AsyncTryLock
 
@@ -294,6 +307,10 @@ class DecodeBatcher:
         # never race on one key
         self._enq_t: Dict[int, float] = {}
         self._step_timing: Dict[int, dict] = {}
+        # the finished step's fused fingerprint per lane (FP_DIM floats)
+        self._step_fp: Dict[int, list] = {}
+        # every scheduler decision goes to the journal with its occupancy
+        self._journal = get_journal()
         self._flush_task: Optional[asyncio.Task] = None
         self._open_lock = make_async_lock("batching._open_lock")
         self._closed = False
@@ -477,6 +494,7 @@ class DecodeBatcher:
         first page, preempting an idle lane when the swap tier is on.
         ``timeout`` bounds the whole acquisition, first-use pool allocation
         included."""
+        t_wait = time.perf_counter()
         lane = await self._acquire_lane(timeout=timeout, priority=priority, peer_id=peer_id, trace_id=trace_id)
         self._scheduler.register(lane, peer_id, int(priority), trace_id=trace_id)
         # the ledger session opens before the first page, so every
@@ -488,6 +506,10 @@ class DecodeBatcher:
             except BaseException:
                 self.release_lane(lane)
                 raise
+        self._journal.event(
+            "admission", trace_id=trace_id, lane=lane, occupancy=self.occupancy_info(), priority=int(priority),
+            wait_s=round(time.perf_counter() - t_wait, 6),
+        )
         self._note_occupancy()
         return lane
 
@@ -515,6 +537,7 @@ class DecodeBatcher:
                 lane = fut.result()  # resolved in the cancellation race window
                 self._lane_generation[lane] = self._generation
                 return lane
+            tm.ALLOC_FAILED.inc()
             raise AllocationFailed(f"No free decode lane within {timeout} s ({self._occupancy()})")
         except BaseException:
             # cancelled after release_lane already handed us the lane: put it
@@ -529,6 +552,7 @@ class DecodeBatcher:
     def release_lane(self, lane: int) -> None:
         self._enq_t.pop(lane, None)
         self._step_timing.pop(lane, None)
+        self._step_fp.pop(lane, None)
         # a timed-out or cancelled session may have left a step queued: fail
         # it, or its stale KV write could land in the next tenant's history
         kept = []
@@ -570,6 +594,11 @@ class DecodeBatcher:
                 break
             self._lane_waiters.remove(w)
             if not w.fut.done():
+                # the pick_waiter decision: who was chosen over how many others
+                self._journal.event(
+                    "waiter_picked", trace_id=w.trace_id, lane=lane, occupancy=self.occupancy_info(),
+                    priority=w.priority, waiters=len(self._lane_waiters) + 1,
+                )
                 w.fut.set_result(lane)
                 self._note_occupancy()
                 return
@@ -645,6 +674,7 @@ class DecodeBatcher:
                     continue
                 remaining = None if deadline is None else deadline - time.monotonic()
                 if remaining is not None and remaining <= 0:
+                    tm.ALLOC_FAILED.inc()
                     raise AllocationFailed(
                         f"No free KV page within {timeout} s ({self._occupancy()})"
                     )
@@ -748,6 +778,7 @@ class DecodeBatcher:
                 self._pages.decref(cur)
             row[slot] = int(page)
         if len(pages):
+            tm.PREFIX_ADOPT.inc()
             self._ledger_sync()  # the lane now shares the pinned pages
 
     # ------------------------------------------------------ preemption / swap
@@ -831,6 +862,13 @@ class DecodeBatcher:
         victim = sched.pick_victim(candidates, max_priority=req.priority if req is not None else None)
         if victim is None:
             return False
+        # the decision (its outcome is a following swap_out event, or none):
+        # who was evicted, for whom, under what occupancy
+        self._journal.event(
+            "victim_selected", trace_id=sched.trace_id_of(victim), lane=victim, occupancy=self.occupancy_info(),
+            requester_lane=exclude, requester_trace_id=sched.trace_id_of(exclude), policy=sched.policy,
+            candidates=list(candidates),
+        )
         return await self._swap_out_lane(victim)
 
     async def _swap_out_lane(self, lane: int) -> bool:
@@ -901,9 +939,15 @@ class DecodeBatcher:
             slot.suspending = False
             sched.stats["preemptions"] += 1
             sched.stats["swap_outs"] += 1
+            tm.PREEMPTIONS.inc()
+            tm.SWAP_OUT_BYTES.inc(nbytes)
             key = self._ledger_keys.get(lane)
             if key is not None:
                 self._ledger.note_swap(key, out_bytes=nbytes)
+            self._journal.event(
+                "swap_out", trace_id=slot.trace_id, lane=lane, occupancy=self.occupancy_info(),
+                pages=int(slots.size), nbytes=nbytes,
+            )
             self._note_occupancy()
             logger.debug(
                 f"Preempted lane {lane}: {slots.size} pages to the host "
@@ -966,9 +1010,14 @@ class DecodeBatcher:
         slot.resumed_at = time.monotonic()
         self.swap_pool.free(entry.nbytes)
         self._scheduler.stats["swap_ins"] += 1
+        tm.SWAP_IN_BYTES.inc(entry.nbytes)
         key = self._ledger_keys.get(lane)
         if key is not None:
             self._ledger.note_swap(key, in_bytes=entry.nbytes)
+        self._journal.event(
+            "swap_in", trace_id=slot.trace_id, lane=lane, occupancy=self.occupancy_info(),
+            pages=int(entry.slots.size), nbytes=entry.nbytes,
+        )
         self._note_occupancy()
         logger.debug(f"Resumed lane {lane}: {entry.slots.size} pages swapped in")
 
@@ -1011,6 +1060,7 @@ class DecodeBatcher:
                 continue
             remaining = deadline - time.monotonic()
             if remaining <= 0:
+                tm.ALLOC_FAILED.inc()
                 raise AllocationFailed(f"No free KV page for swap-in within {timeout} s ({self._occupancy()})")
             alloc.freed_event.clear()
             try:
@@ -1022,12 +1072,30 @@ class DecodeBatcher:
     # ------------------------------------------------------------- the ledger
 
     def _note_occupancy(self) -> None:
-        """An occupancy boundary (admission, release, swap): settle the
-        ledger at the new rates, and let the noisy-neighbor detector look
-        while the admission queue is current."""
+        """An occupancy boundary (admission, release, swap): refresh the
+        pool gauges (occupancy only changes here, so the decode tick pays
+        nothing for them), settle the ledger at the new rates, and let the
+        noisy-neighbor detector look while the admission queue is current;
+        its evidence goes to the journal."""
+        tm.LANES_BUSY.set(self._busy_lanes())
+        if self.page_size is not None:
+            tm.PAGES_TOTAL.set(self.n_pages)
+            tm.PAGES_FREE.set(self._pages.n_free if self._pages is not None else self.n_pages)
+            if self._pages is not None:
+                info = self._pages.fragmentation_info()
+                tm.PAGE_FRAGMENTATION.set(info["frag"])
+                tm.PAGE_LARGEST_RUN.set(info["largest_run"])
+                for bucket, child in tm.PAGE_FREE_RUN_CHILDREN.items():
+                    child.set(info["run_hist"][bucket])
+        mc = self.memory_cache
+        if mc is not None and mc.max_size_bytes < 2**60:
+            tm.HBM_HEADROOM.set(mc.bytes_left)
+        tm.SWAP_RESIDENCY_OLDEST.set(self._scheduler.oldest_swap_age())
         self._ledger_sync()
         if self._lane_waiters:
-            self._ledger.check_noisy([w.peer_id for w in self._lane_waiters if not w.fut.done()])
+            evidence = self._ledger.check_noisy([w.peer_id for w in self._lane_waiters if not w.fut.done()])
+            if evidence is not None:
+                self._journal.event("noisy_neighbor", occupancy=self.occupancy_info(), **evidence)
 
     def _ledger_sync(self) -> None:
         """Settle the ledger and install the new piecewise-constant rates:
@@ -1201,6 +1269,27 @@ class DecodeBatcher:
     def pop_step_timing(self, lane: int) -> Optional[dict]:
         return self._step_timing.pop(lane, None)
 
+    def pop_step_fp(self, lane: int) -> Optional[list]:
+        """Consume the finished step's fused fingerprint of ``lane``'s last
+        row (FP_DIM floats, ops/fingerprint.py), which the handler puts in
+        the reply's step_meta; None when fingerprints are off or no batched
+        step ran."""
+        return self._step_fp.pop(lane, None)
+
+    def _capture_step_fp(self, lanes, chunk_lane: Optional[int] = None) -> None:
+        """Stash the backend's fused fingerprints of the step that just ran
+        (compute thread, after its outputs reached the host): each of
+        ``lanes`` its row's, and ``chunk_lane`` the mixed step's chunk
+        digest (of its last valid row, what the client re-derives from the
+        assembled prefill reply)."""
+        fp, chunk_fp = self.backend.pop_step_fp()
+        if fp is not None:
+            host = fp.cpu().numpy()
+            for lane in lanes:
+                self._step_fp[lane] = [float(x) for x in host[lane]]
+        if chunk_fp is not None and chunk_lane is not None:
+            self._step_fp[chunk_lane] = [float(x) for x in chunk_fp.cpu().numpy().reshape(-1)]
+
     def _spawn_flush_loop(self) -> None:
         """(Re)start the flush loop unless it is already draining; the strong
         reference keeps the task alive and the callback surfaces a crash."""
@@ -1369,9 +1458,15 @@ class DecodeBatcher:
             alpha = self._spec_ema_alpha
             st.spec_ema = (1.0 - alpha) * st.spec_ema + alpha * (accepted / self.spec_k)
             if st.spec_ema < self._spec_min_accept and st.remaining > 0:
+                ema = st.spec_ema
                 st.spec_cooldown = self._spec_cooldown_ticks
                 st.spec_ema = 1.0  # optimistic restart after the cooldown
                 self.stats["spec_disabled"] += 1
+                tm.SPEC_DISABLED.inc()
+                self._journal.event(
+                    "spec_disabled", lane=lane, ema=round(ema, 4), floor=self._spec_min_accept,
+                    cooldown_ticks=self._spec_cooldown_ticks, proposed=st.spec_proposed, accepted=st.spec_accepted,
+                )
             if st.remaining <= 0:
                 del self._gen_states[lane]
                 self._step_timing[lane] = self._gen_step_timing(st, "spec")
@@ -1415,7 +1510,9 @@ class DecodeBatcher:
             if aligned > st.position:
                 take = aligned - st.position
         if st.offset == 0 and not st.outs:
+            # first chunk entering a step: the admission to first-compute gap
             st.queue_s = max(time.perf_counter() - st.enqueued, 0.0)
+            tm.PREFILL_QUEUE_WAIT.observe(st.queue_s)
         return st, max(int(take), 1)
 
     def _advance_prefill(self, st: _LanePrefillState, take: int, chunk_out: torch.Tensor) -> None:
@@ -1497,8 +1594,16 @@ class DecodeBatcher:
             if batch[0][4] != self._generation:
                 raise AllocationFailed("Lane pool was reset while this batched step ran")
         duration = time.perf_counter() - t_step
+        if self.page_size is not None:
+            tm.STEP_PAGED.observe(duration)
+            tm.STEPS_PAGED.inc()
+        else:
+            tm.STEP_DENSE.observe(duration)
+            tm.STEPS_DENSE.inc()
+        tm.DECODE_TOKENS.inc(len(batch))
         self._count_step(batch, t_step, duration)
         self._ledger_account_step(duration, decode_lanes=[e[0] for e in batch])
+        self._capture_step_fp([e[0] for e in batch])
         return host_out
 
     def _run_batch_mixed(self, batch, pf) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -1521,8 +1626,12 @@ class DecodeBatcher:
             if expected != self._generation:
                 raise AllocationFailed("Lane pool was reset while this batched step ran")
         duration = time.perf_counter() - t_step
+        tm.STEP_MIXED.observe(duration)
+        tm.STEPS_MIXED.inc()
+        tm.DECODE_TOKENS.inc(len(batch))
         self._count_step(batch, t_step, duration)
         self._ledger_account_step(duration, decode_lanes=[e[0] for e in batch], prefill=(st.lane, take))
+        self._capture_step_fp([e[0] for e in batch], chunk_lane=st.lane)
         self.stats["mixed_steps"] += 1
         self.stats["prefill_tokens"] += take
         self.stats["max_prefill_tokens_per_step"] = max(
@@ -1572,8 +1681,12 @@ class DecodeBatcher:
             if expected != self._generation:
                 raise AllocationFailed("Lane pool was reset while this batched step ran")
         duration = time.perf_counter() - t_step
+        tm.STEP_GEN.observe(duration)
+        tm.STEPS_GEN.inc()
+        tm.DECODE_TOKENS.inc(len(batch) + len(gen_states))
         self._count_step(batch, t_step, duration, n_gen=len(gen_states))
         self._ledger_account_step(duration, decode_lanes=[e[0] for e in batch], gen_lanes=list(gen_states))
+        self._capture_step_fp([e[0] for e in batch] + list(gen_states))
         self.stats["gen_steps"] += 1
         self.stats["gen_lane_tokens"] += len(gen_states)
         self.stats["max_gen_lanes"] = max(self.stats["max_gen_lanes"], len(gen_states))
@@ -1641,11 +1754,18 @@ class DecodeBatcher:
         n_spec = len(spec_states)
         emitted_total = int(sum(int(host_m[lane]) for lane in spec_states))
         duration = time.perf_counter() - t_step
+        proposed_total = n_spec * self.spec_k
+        tm.STEP_SPEC.observe(duration)
+        tm.STEPS_SPEC.inc()
+        tm.DECODE_TOKENS.inc(emitted_total)
+        tm.SPEC_PROPOSED.inc(proposed_total)
+        tm.SPEC_ACCEPTED.inc(emitted_total - n_spec)
+        self._capture_step_fp(list(spec_states))
         self.stats.update(self.backend.step_program_stats())
         self.stats["batched_steps"] += 1
         self.stats["batched_tokens"] += emitted_total
         self.stats["spec_steps"] += 1
-        self.stats["spec_proposed"] += n_spec * self.spec_k
+        self.stats["spec_proposed"] += proposed_total
         self.stats["spec_accepted"] += emitted_total - n_spec  # one bonus token a lane
         self.stats["max_spec_lanes"] = max(self.stats["max_spec_lanes"], n_spec)
         keys = []

@@ -1,7 +1,34 @@
-"""RPC surface of a port server: ``ptu.inference`` sessions and ``ptu.info``
-(the subset of petals_tpu/server/handler.py this port serves). The frames and
+"""RPC surface of a port server: ``ptu.inference`` sessions, the stateless
+``ptu.forward``, the integrity probe ``ptu.probe`` and ``ptu.info`` (the
+subset of petals_tpu/server/handler.py this port serves). The frames and
 tensor encodings are those of a petals_tpu server, so petals_tpu clients
 drive it unchanged.
+
+The stateless forward (petals_tpu/server/handler.py:1253-1281): ``{uids,
+tensors: {hidden, prompts?}, compression?}`` runs the span's ``forward``
+(one step program per (batch, seq, pre_seq)) on the task queue at
+``PRIORITY_TRAINING`` with size batch * seq, under ``request_timeout``, and
+replies ``{tensors: {hidden}}`` in the reply codec. A step that timed out
+still finishes on the compute thread (a running step cannot be cancelled)
+and its result is dropped.
+
+The integrity probe (:1362-1404): a caller-seeded golden input
+(``RandomState(seed & 0x7FFFFFFF)``, scaled by 0.02, 1 to 16 tokens) runs
+through the span's forward, and the reply carries the fingerprint of its
+last row (ops/fingerprint.py) with the seed, the token count and the span.
+The ``integrity.corrupt`` chaos site of petals_tpu's probe is not ported:
+it comes with the chaos plane (ROADMAP A15).
+
+Telemetry (telemetry/): every site where petals_tpu's handler records,
+this one records, into the port's registry and journal: TTFT on a
+session's first content reply, the pooled decode's token latency, reply
+serialization, the migration and handoff counters and journal events; the
+``rpc_forward``, ``rpc_probe`` and ``inference_step`` spans feed
+``ptu.info``'s ``tracing``, beside ``telemetry`` (``telemetry_digest``)
+and ``compile_stats`` (the step-program observatory). With fingerprints
+enabled (``PETALS_TPU_FINGERPRINT``), each pooled decode or paged prefill
+reply carries the step program's fused digest of its last row in
+``step_meta["fp"]``.
 
 A session of batch size 1 over the whole span, with no adapter and a
 ``max_length`` within the lane length, borrows a LANE of the batcher's shared
@@ -87,9 +114,7 @@ from __future__ import annotations
 import asyncio
 import contextlib
 import logging
-import re
 import time
-import uuid
 from typing import Callable, Dict, Optional, Tuple
 
 import numpy as np
@@ -105,27 +130,23 @@ from petals_tpu_torch.rpc.server import RpcContext, RpcServer
 from petals_tpu_torch.server.backend import TransformerBackend
 from petals_tpu_torch.server.memory_cache import AllocationFailed
 from petals_tpu_torch.server.prefix_cache import SEGMENT_TOKENS, PrefixCache, segment_keys
-from petals_tpu_torch.server.task_queue import PRIORITY_INFERENCE
+from petals_tpu_torch.ops import fingerprint as fp_ops
+from petals_tpu_torch.server.task_queue import PRIORITY_INFERENCE, PRIORITY_TRAINING
+from petals_tpu_torch.telemetry import instruments as tm
+from petals_tpu_torch.telemetry.exposition import telemetry_digest
+from petals_tpu_torch.telemetry.flight import flight_from_env
+from petals_tpu_torch.telemetry.journal import get_journal
+from petals_tpu_torch.telemetry.observatory import get_observatory
+from petals_tpu_torch.telemetry.trace import new_trace_id, normalize_trace_id, reset_trace_id, set_trace_id
+from petals_tpu_torch.utils.tracing import device_annotation, get_tracer
 from petals_tpu_torch.utils.version import incompatibility_error, is_compatible
 
 logger = logging.getLogger(__name__)
 
-_TRACE_ID_RE = re.compile(r"^[0-9A-Za-z_-]{1,64}$")
 MAX_GEN_TOKENS = 32  # the longest chunk a generating step answers
 # a speculating stream's evidence in its reply's step_meta
 SPEC_META_KEYS = ("spec_proposed", "spec_accepted", "acceptance_rate")
 
-
-def normalize_trace_id(value) -> Optional[str]:
-    """A remote-supplied trace id if it is a short url-safe token, else None
-    (the server then mints its own)."""
-    if not isinstance(value, str) or not _TRACE_ID_RE.match(value):
-        return None
-    return value
-
-
-def new_trace_id() -> str:
-    return uuid.uuid4().hex[:16]
 
 
 class TransformerHandler:
@@ -139,6 +160,7 @@ class TransformerHandler:
         inference_max_length: Optional[int] = None,
         session_timeout: float = 30 * 60,
         step_timeout: float = 5 * 60,
+        request_timeout: float = 3 * 60,  # a stateless forward or probe
         server_info_fn: Optional[Callable[[], dict]] = None,  # the announced ServerInfo's fields
         server_gen_params: Optional[dict] = None,  # the client's leaves: server-side generation
         prefix_cache_bytes: int = 256 * 2**20,  # host tier of the prefix cache; 0 disables it
@@ -162,6 +184,7 @@ class TransformerHandler:
         self.inference_max_length = inference_max_length
         self.session_timeout = session_timeout
         self.step_timeout = step_timeout
+        self.request_timeout = request_timeout
         self.prefix_share_scope = prefix_share_scope
         self.prefix_cache = None
         if prefix_cache_bytes > 0:
@@ -213,6 +236,8 @@ class TransformerHandler:
 
     def register(self, server: RpcServer) -> None:
         server.add_unary_handler("ptu.info", self.rpc_info)
+        server.add_unary_handler("ptu.forward", self.rpc_forward)
+        server.add_unary_handler("ptu.probe", self.rpc_probe)
         server.add_unary_handler("ptu.push", self.rpc_push)
         server.add_unary_handler("ptu.session_export", self.rpc_session_export)
         server.add_unary_handler("ptu.session_migrate", self.rpc_session_migrate)
@@ -311,6 +336,68 @@ class TransformerHandler:
         except ValueError:
             raise ValueError(f"Compression {requested!r} is not supported by this server") from None
 
+    async def rpc_forward(self, payload, ctx: RpcContext):
+        """A stateless forward of ``hidden`` [batch, seq, hidden] (and deep
+        ``prompts`` [n_blocks, batch, pre_seq, hidden]) through the asked
+        blocks: petals_tpu's ``rpc_forward``, adapters refused as the
+        inference open refuses them."""
+        start, end = self._parse_chain(payload["uids"])
+        reply_comp = self._reply_compression(payload)  # a bad codec is refused up front
+        hidden = self._get_tensor(payload, "hidden")
+        prompts = self._get_tensor(payload, "prompts")
+        hsz = self.backend.hidden_size
+        if hidden is None or hidden.dim() != 3 or hidden.shape[2] != hsz:
+            raise ValueError(
+                f"rpc_forward expects a [batch, seq, hidden={hsz}] "
+                f"tensor, got {None if hidden is None else tuple(hidden.shape)}"
+            )
+        if payload.get("active_adapter") is not None:
+            raise ValueError("adapters are not supported by this server yet")
+        backend = self._sub_backend(start, end)
+        size = hidden.shape[0] * hidden.shape[1]
+
+        def run_forward():
+            with device_annotation("rpc_forward"):  # on the compute thread
+                return backend.forward(hidden, prompts=prompts).cpu()
+
+        with get_tracer().span("rpc_forward", annotate=False, blocks=end - start, tokens=size):
+            out = await asyncio.wait_for(
+                self.queue.submit(run_forward, priority=PRIORITY_TRAINING, size=size), self.request_timeout
+            )
+        return {"tensors": {"hidden": serialize_array(out, reply_comp)}}
+
+    async def rpc_probe(self, payload, ctx: RpcContext):
+        """The integrity canary probe: a caller-seeded golden input through
+        the whole span's forward, answered with the fingerprint of its last
+        row. The caller picks the seed, so a replica cannot precompute or
+        replay an honest digest; a prober compares the digests of every
+        replica of a span by quorum (telemetry/integrity.py)."""
+        seed = int(payload.get("seed", fp_ops.fp_seed()))
+        n_tokens = max(1, min(int(payload.get("tokens", 4)), 16))
+        hsz = self.backend.hidden_size
+        rng = np.random.RandomState(seed & 0x7FFFFFFF)
+        # activation-scale golden input: magnitudes typical of embedding outputs
+        hidden = (rng.standard_normal((1, n_tokens, hsz)) * 0.02).astype(np.float32)
+        backend = self.backend
+
+        def run_probe():
+            with device_annotation("rpc_probe"):
+                return backend.forward(hidden).float().cpu().numpy()
+
+        with get_tracer().span("rpc_probe", annotate=False, blocks=backend.n_blocks, tokens=n_tokens):
+            out = await asyncio.wait_for(
+                self.queue.submit(run_probe, priority=PRIORITY_TRAINING, size=n_tokens), self.request_timeout
+            )
+        fp = fp_ops.fingerprint_output(out, hsz)
+        return {
+            "fp": fp_ops.fp_list(fp),
+            "seed": seed,
+            "tokens": n_tokens,
+            "fp_seed": fp_ops.fp_seed(),
+            "first_block": backend.first_block,
+            "n_blocks": backend.n_blocks,
+        }
+
     async def rpc_info(self, payload, ctx: RpcContext):
         b = self.batcher
         info = dict(self.server_info_fn()) if self.server_info_fn is not None else {}
@@ -321,6 +408,11 @@ class TransformerHandler:
             "inference_max_length": self.inference_max_length,
             "quant_type": self.backend.quant_type,  # petals_tpu's ServerInfo.quant_type
             "kv_quant": self.backend.kv_quant_type,
+            "tracing": get_tracer().summary(),
+            # the digest the announce carries, and the step-program
+            # observatory's (a capture standing for a compile)
+            "telemetry": telemetry_digest(),
+            "compile_stats": get_observatory().compile_stats(),
             # free bytes over the LOGICAL (floating-point) bytes a token, as
             # petals_tpu's rpc_info answers; the announce's cache_tokens_left
             # counts stored bytes (server.py)
@@ -367,6 +459,7 @@ class TransformerHandler:
         if open_msg.get("active_adapter") is not None:
             raise ValueError("adapters are not supported by this server yet")
         trace_id = normalize_trace_id(open_msg.get("trace_id")) or new_trace_id()
+        t_session = time.perf_counter()  # TTFT runs from here to the first content reply
         session_id = open_msg.get("session_id")
         # where to push each step's output: {"addr": "host:port/peer", "session_id": ...}
         push_to = open_msg.get("push_to") or None
@@ -424,6 +517,9 @@ class TransformerHandler:
             position = 0
             pending_store = None  # the in-flight prefix-cache store
             stats = self.migration_stats
+            ttft_observed = False
+            # every span of this session carries its trace id
+            trace_token = set_trace_id(trace_id)
             try:
                 while True:
                     step, pushed = await next_step()
@@ -474,8 +570,14 @@ class TransformerHandler:
                     )
                     if reg is not None:
                         reg["position"] = position
+                    if not ttft_observed and (reply.get("tokens") or reply.get("tensors")):
+                        # the session's first content reply: open to first
+                        # token out, queue wait and prefill included
+                        ttft_observed = True
+                        tm.TTFT.observe(time.perf_counter() - t_session)
                     yield reply
             finally:
+                reset_trace_id(trace_token)
                 if pending_store is not None:
                     # a failure or a cancellation: the store is dropped now,
                     # and releases its pins on the way out
@@ -575,13 +677,14 @@ class TransformerHandler:
         hit_len = n_hit * SEGMENT_TOKENS
         if hit_len == seq:
             # the whole prefill was cached: nothing runs on the device
-            out, variant, timing = prefix_out, "cached", None
+            out, variant, timing, step_fp = prefix_out, "cached", None, None
         else:
-            out, variant, timing = await asyncio.wait_for(
-                self._run_step(backend, batcher, lane, kv, hidden[:, hit_len:], position + hit_len, prompts,
-                               hypo_ids),
-                self.step_timeout,
-            )
+            with get_tracer().span("inference_step", annotate=False, blocks=end - start, batch=batch_size, seq=seq):
+                out, variant, timing, step_fp = await asyncio.wait_for(
+                    self._run_step(backend, batcher, lane, kv, hidden[:, hit_len:], position + hit_len, prompts,
+                                   hypo_ids),
+                    self.step_timeout,
+                )
             if prefix_out is not None:  # the cached outputs ahead of the tail's
                 out = torch.cat([prefix_out.to(out.dtype), out], dim=1)
         if timing is None:  # not a coalesced step: the execution wall, queue included
@@ -596,6 +699,10 @@ class TransformerHandler:
                 self._generate(backend, batcher, lane, kv, out[:, -1:], position, gen_n, gen_sampling),
                 self.step_timeout,
             )
+            if lane is not None:
+                # a token reply carries no hidden state to digest: the
+                # generation steps' fingerprint must not ride a later reply
+                batcher.pop_step_fp(lane)
             if gen_timing is not None:  # the batcher's steps: the two phases sum
                 timing = {"queue_s": timing.get("queue_s", 0.0) + gen_timing["queue_s"],
                           "compute_s": timing.get("compute_s", 0.0) + gen_timing["compute_s"]}
@@ -615,13 +722,19 @@ class TransformerHandler:
                               "step_meta": step_meta}, pending_store
         t_ser = time.perf_counter()
         wire_out = serialize_array(out, reply_comp)
+        ser_s = time.perf_counter() - t_ser
+        tm.REPLY_SERIALIZE.observe(ser_s)
         step_meta = {
             "queue_s": round(timing.get("queue_s", 0.0), 6),
             "compute_s": round(timing.get("compute_s", 0.0), 6),
             "variant": variant,
-            "serialize_s": round(time.perf_counter() - t_ser, 6),
+            "serialize_s": round(ser_s, 6),
             "total_s": round(time.perf_counter() - t_recv, 6),
         }
+        if step_fp is not None:
+            # the step program's fused digest of the reply's last row: the
+            # client re-derives it from the hidden state it receives
+            step_meta["fp"] = step_fp
         if push_to is not None and prompts is None:
             # fire and forget: the client's relayed copy still counts (the
             # next server serves whichever comes first), so a slow or dead
@@ -845,6 +958,11 @@ class TransformerHandler:
         nbytes = sum(a.numel() * a.element_size() for a in arrs.values())
         self._prune_migrated()
         if self._migrated_bytes + nbytes > self.migrate_in_budget_bytes:
+            tm.MIGRATIONS.labels(direction="in", outcome="refused").inc()
+            get_journal().event(
+                "migrate_refused", trace_id=trace_id, session_id=session_id,
+                nbytes=nbytes, in_use=self._migrated_bytes, budget=self.migrate_in_budget_bytes,
+            )
             raise RuntimeError(
                 f"Migration budget exhausted ({self._migrated_bytes + nbytes} > {self.migrate_in_budget_bytes} bytes)"
             )
@@ -856,6 +974,12 @@ class TransformerHandler:
             "expires": time.monotonic() + self.migrate_ttl,
         }
         self._migrated_bytes += nbytes
+        tm.MIGRATIONS.labels(direction="in", outcome="ok").inc()
+        tm.MIGRATION_BYTES.labels(direction="in").inc(nbytes)
+        get_journal().event(
+            "migrate_in", trace_id=trace_id, occupancy=self.batcher.occupancy_info(),
+            session_id=session_id, position=position, nbytes=nbytes, start=src_start, end=src_end,
+        )
         return {"ok": True, "position": position}
 
     async def rpc_session_handoff(self, payload, ctx: RpcContext):
@@ -891,8 +1015,20 @@ class TransformerHandler:
         or is aborted: the entry stays, and the client falls back to export
         or replay (migrate) or to decoding on the source (handoff)."""
         assert kind in ("migrate", "handoff"), kind
+        handoff = kind == "handoff"
         kv_quant = self.backend.kv_quant_type
         t0 = time.perf_counter()
+        trace_id = snap.get("trace_id")
+
+        def note_outcome(outcome: str, nbytes: int = 0) -> None:
+            if handoff:
+                tm.HANDOFFS.labels(outcome=outcome).inc()
+                if outcome == "ok":
+                    tm.HANDOFF_BYTES.inc(nbytes)
+            else:
+                tm.MIGRATIONS.labels(direction="out", outcome=outcome).inc()
+                if outcome == "ok":
+                    tm.MIGRATION_BYTES.labels(direction="out").inc(nbytes)
 
         def pack():
             if kv_quant == "none":
@@ -935,15 +1071,33 @@ class TransformerHandler:
             with contextlib.suppress(asyncio.CancelledError):
                 await push_task
             stats["push_failures"] += 1
+            note_outcome("aborted")
+            get_journal().event(
+                "handoff_aborted" if handoff else "migrate_aborted", trace_id=trace_id, session_id=session_id,
+                dest=peer_id, nbytes=nbytes, reason=reason, elapsed_s=time.perf_counter() - t0,
+            )
             logger.warning(f"{kind.capitalize()} of {session_id!r} to {peer_id} aborted ({reason})")
             return False
         try:
             push_task.result()
         except Exception as e:
             stats["push_failures"] += 1
+            note_outcome("failed")
+            get_journal().event(
+                "handoff_failed" if handoff else "migrate_failed", trace_id=trace_id, session_id=session_id,
+                dest=peer_id, nbytes=nbytes, error=repr(e),
+            )
+            recorder = flight_from_env()  # None unless an SLO is configured
+            if recorder is not None:
+                recorder.record(
+                    "handoff_failed" if handoff else "migrate_failed", trace_id=trace_id,
+                    journal=lambda: get_journal().events(trace_id=trace_id)[-50:],
+                    session_id=session_id, dest_peer=peer_id, dest_addr=addr, nbytes=nbytes, error=repr(e),
+                    elapsed_s=time.perf_counter() - t0,
+                )
             logger.warning(f"{kind.capitalize()} of {session_id!r} to {peer_id} failed: {e!r}")
             return False
-        if kind == "migrate":
+        if not handoff:
             self._migrated_away[session_id] = {"peer_id": peer_id, "addr": addr, "position": snap["position"]}
             self._parked.pop(session_id, None)
         stats["pushes"] += 1
@@ -952,6 +1106,12 @@ class TransformerHandler:
         # the parked session's ledger session already closed (a handoff
         # source keeps its own bill): the bytes go to the owning peer's rollup
         self.batcher.ledger.note_migrated(None, nbytes, peer_id=snap.get("peer"))
+        note_outcome("ok", nbytes)
+        get_journal().event(
+            "handoff_out" if handoff else "migrate_out", trace_id=trace_id,
+            occupancy=self.batcher.occupancy_info(), session_id=session_id, dest=peer_id, nbytes=nbytes,
+            position=snap["position"], elapsed_s=time.perf_counter() - t0,
+        )
         return True
 
     async def _install_kv_import(self, step, backend, batcher, lane, kv, position, *, batch_size: int,
@@ -1043,6 +1203,10 @@ class TransformerHandler:
         stats["adopts"] += 1
         stats["adopt_bytes"] += wire_nbytes
         stats["adopt_s"] += time.perf_counter() - t0
+        get_journal().event(
+            "migrate_adopt", trace_id=entry.get("trace_id"), occupancy=self.batcher.occupancy_info(),
+            session_id=src_sid, position=cut, nbytes=wire_nbytes,
+        )
         return cut
 
     # ------------------------------------------------------------------ prefix cache
@@ -1263,18 +1427,21 @@ class TransformerHandler:
     async def _run_step(self, backend, batcher, lane, kv, hidden, position: int, prompts, hypo_ids):
         """One step on the path its session and shape select; returns (out
         on the host, the step_meta variant, the batcher's queue/compute split
-        or None)."""
+        or None, the step program's fused fingerprint of the last row or
+        None)."""
         batch_size, seq = hidden.shape[0], hidden.shape[1]
         plain = prompts is None and hypo_ids is None
         if lane is not None and seq == 1 and plain:
             # the continuous-batching hot path: one token, coalesced with
             # whatever other sessions are stepping right now
+            t_tok = time.perf_counter()
             out = await batcher.step(lane, hidden, position)
-            return out, "decode", batcher.pop_step_timing(lane)
+            tm.TOKEN_LATENCY.observe(time.perf_counter() - t_tok)
+            return out, "decode", batcher.pop_step_timing(lane), batcher.pop_step_fp(lane)
         if lane is not None and plain and batcher.page_size is not None:
             # paged-lane prefill: one chunk rides each mixed step
             out = await batcher.prefill_lane(lane, hidden, position)
-            return out, "prefill", batcher.pop_step_timing(lane)
+            return out, "prefill", batcher.pop_step_timing(lane), batcher.pop_step_fp(lane)
         if lane is not None and plain:
             # prefill on the DENSE pool: each chunk is its own queue task,
             # so other sessions' batched decode steps interleave between them
@@ -1290,7 +1457,7 @@ class TransformerHandler:
             outs = await batcher.run_exclusive_chunks(
                 lane, chunk_fns, size=batch_size * seq, write_range=(position, position + seq)
             )
-            return (outs[0] if len(outs) == 1 else torch.cat(outs, dim=1)), "dense_prefill", None
+            return (outs[0] if len(outs) == 1 else torch.cat(outs, dim=1)), "dense_prefill", None, None
         if lane is not None:
             # a pooled session with deep prompts or hypo_ids: one atomic
             # exclusive pass on the lane
@@ -1303,14 +1470,14 @@ class TransformerHandler:
             out = await batcher.run_exclusive(
                 lane, run_lane, size=batch_size * seq, write_range=(position, position + seq)
             )
-            return out, "exclusive", None
+            return out, "exclusive", None, None
 
         def run_step():
             out, _ = backend.inference_step(hidden, kv, position, prompts=prompts, hypo_ids=hypo_ids)
             return out.cpu()  # waits for the step to finish on the device
 
         out = await self.queue.submit(run_step, priority=PRIORITY_INFERENCE, size=batch_size * seq)
-        return out, "private", None
+        return out, "private", None, None
 
 
 def _log_failure(what: str):

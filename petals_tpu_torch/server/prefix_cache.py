@@ -43,6 +43,10 @@ Trust model: the cache is shared across all clients of a server by default
 (a client can time whether a prompt prefix was served recently); the
 handler's ``prefix_share_scope="peer"`` folds the requesting peer's proven
 id into the salt, so each client only hits its own entries.
+
+Each ``stats`` event also counts into ``petals_prefix_cache_events_total``
+by event (hit, miss, evict, device_evict, demote, promote, swap_evict; the
+batcher counts adopt), as petals_tpu's cache counts them.
 """
 
 from __future__ import annotations
@@ -56,6 +60,8 @@ from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+
+from petals_tpu_torch.telemetry import instruments as tm
 
 logger = logging.getLogger(__name__)
 
@@ -203,9 +209,11 @@ class RadixPrefixCache:
                     self._promote_host(key, protect)
             if n:
                 self.stats["hits"] += 1
+                tm.PREFIX_HIT.inc()
                 self.stats["hit_tokens"] += n * SEGMENT_TOKENS
             else:
                 self.stats["misses"] += 1
+                tm.PREFIX_MISS.inc()
             self._bill()
             return n
 
@@ -413,6 +421,7 @@ class RadixPrefixCache:
         self._bytes -= entry["bytes"]
         self._swap_bytes += entry["bytes"]
         self.stats["demotions"] += 1
+        tm.PREFIX_DEMOTE.inc()
         return True
 
     def _swap_reserve(self, nbytes: int, protect: frozenset) -> bool:
@@ -431,6 +440,7 @@ class RadixPrefixCache:
                 return False
             self._evict_node(victim)
             self.stats["swap_evictions"] += 1
+            tm.PREFIX_SWAP_EVICT.inc()
 
     def _pick_swapped_victim(self, protect: frozenset) -> Optional[str]:
         """The coldest childless swapped node (the swapped tier's eviction
@@ -462,6 +472,7 @@ class RadixPrefixCache:
         entry["swapped"] = False
         self._bytes += entry["bytes"]
         self.stats["promotions"] += 1
+        tm.PREFIX_PROMOTE.inc()
         return True
 
     def maybe_promote_device(self, keys: Sequence[str], n: int) -> int:
@@ -496,6 +507,7 @@ class RadixPrefixCache:
                 self._dev_bytes += dev_bytes
                 promoted += 1
                 self.stats["promotions"] += 1
+                tm.PREFIX_PROMOTE.inc()
         if promoted:
             with self._mutex:
                 self._bill()
@@ -547,6 +559,7 @@ class RadixPrefixCache:
             entry.pop("vd", None)
             self._dev_bytes -= dev
             self.stats["device_evictions"] += 1
+            tm.PREFIX_DEVICE_EVICT.inc()
 
     def _evict_device(self, target_bytes: int) -> None:
         """Drop device copies until the tier fits ``target_bytes``; host
@@ -579,6 +592,7 @@ class RadixPrefixCache:
         if parent is not None:
             parent["children"].discard(key)
         self.stats["evictions"] += 1
+        tm.PREFIX_EVICT.inc()
 
     def clear(self) -> None:
         """Drop every node (stats are kept: they describe the lifetime)."""

@@ -74,6 +74,21 @@ first), so that the client adopts it there; the server keeps answering
 clients' phase-aware routing; a prefill-tier server hands a session's KV to
 a decode-tier replica when the client asks (``ptu.session_handoff``).
 
+Telemetry (petals_tpu/server/server.py:440-462, 649-770): with
+``metrics_port`` (0: ephemeral) a ``MetricsServer`` serves ``/metrics``,
+``/journal`` and ``/ledger``; with ``trace_dir`` (or
+``PETALS_TPU_TRACE_DIR``) a torch.profiler capture runs from startup for
+``trace_window_seconds()`` and is written there as a Chrome trace (a
+capture that cannot start fails the start). The announce carries
+``telemetry`` (``telemetry_digest``, size-capped), ``compile_stats`` (the
+step-program observatory), ``integrity`` (the digest of a self-probe
+through ``ptu.probe`` with the server's quarantine flag) and
+``metrics_port``. The self-probe runs at the first ONLINE announce and its
+digest is reused by later ones: a span's weights do not change while it
+serves, and the chaos plane's ``integrity.corrupt`` site, the one thing
+petals_tpu re-probes every announce for, is not ported (ROADMAP A15).
+``request_timeout`` bounds a stateless forward or probe.
+
 Runs on the CUDA card unless the caller passes ``device="cpu"``; a missing
 card raises instead of drifting to the CPU.
 """
@@ -96,6 +111,7 @@ from petals_tpu_torch.data_structures import ServerInfo, ServerState
 from petals_tpu_torch.dht.identity import Identity
 from petals_tpu_torch.dht.node import DHTNode, dht_time
 from petals_tpu_torch.dht.routing import PeerAddr
+from petals_tpu_torch.ops import fingerprint as fp_ops
 from petals_tpu_torch.ops import flash_attention, paged_flash_attention, quant_matmul
 from petals_tpu_torch.ops.paged_attention import KV_QUANT_KINDS
 from petals_tpu_torch.rpc.serialization import CompressionType
@@ -105,7 +121,7 @@ from petals_tpu_torch.server.batching import DecodeBatcher
 from petals_tpu_torch.server.block_selection import choose_best_start, compute_throughputs
 from petals_tpu_torch.server.block_utils import choose_num_blocks
 from petals_tpu_torch.server.from_pretrained import get_block_config, load_block_params
-from petals_tpu_torch.server.handler import TransformerHandler
+from petals_tpu_torch.server.handler import TransformerHandler, _log_failure
 from petals_tpu_torch.server.memory_cache import MemoryCache
 from petals_tpu_torch.server.prefix_cache import resolve_device_bytes
 from petals_tpu_torch.server.reachability import ReachabilityProtocol
@@ -113,6 +129,11 @@ from petals_tpu_torch.server.scheduler import PREEMPTION_POLICIES
 from petals_tpu_torch.server.task_queue import PriorityTaskQueue
 from petals_tpu_torch.telemetry.ledger import get_ledger
 from petals_tpu_torch.server.throughput import get_server_throughput
+from petals_tpu_torch.telemetry.exposition import MetricsServer, telemetry_digest
+from petals_tpu_torch.telemetry.integrity import cap_announce_payload, get_quarantine
+from petals_tpu_torch.telemetry.journal import get_journal
+from petals_tpu_torch.telemetry.observatory import get_observatory
+from petals_tpu_torch.utils import tracing
 from petals_tpu_torch.utils.bandwidth import probe_swarm_bandwidth_mbps
 from petals_tpu_torch.utils.convert_block import QuantType, convert_block_params
 from petals_tpu_torch.utils.device import resolve_device
@@ -165,8 +186,11 @@ class Server:
         compression: str = "none",
         relay_via: Optional[str] = None,  # "host:port" of a relay peer: serve from behind NAT
         inference_max_length: Optional[int] = None,  # None: 8192 for GQA/MQA, 2048 otherwise
+        request_timeout: float = 3 * 60,  # a stateless forward or probe
         session_timeout: float = 30 * 60,
         step_timeout: float = 5 * 60,
+        metrics_port: Optional[int] = None,  # /metrics, /journal, /ledger over HTTP; None disables, 0 ephemeral
+        trace_dir: Optional[str] = None,  # a torch.profiler trace of the first seconds; None: $PETALS_TPU_TRACE_DIR
         batch_lanes: Optional[int] = None,  # None: auto-size to the cache budget (<=8)
         batch_max_length: Optional[int] = None,  # None: min(inference_max_length, 1024)
         page_size: int = 64,  # paged KV: tokens per page; 0 = the dense lane pool
@@ -253,6 +277,12 @@ class Server:
             inference_max_length = 8192 if hkv < hq else 2048
         self.inference_max_length = inference_max_length
         self.session_timeout, self.step_timeout = session_timeout, step_timeout
+        self.request_timeout = request_timeout
+        self.metrics_port = metrics_port
+        self.trace_dir = trace_dir
+        self._metrics_server: Optional[MetricsServer] = None
+        self._trace_flush_task: Optional[asyncio.Task] = None
+        self._integrity_info: Optional[dict] = None  # the self-probe's digest, once taken
         self.batch_lanes = batch_lanes
         self.batch_max_length = batch_max_length or min(inference_max_length, 1024)
         self.page_size, self.n_pages = page_size, n_pages
@@ -343,6 +373,7 @@ class Server:
             dht_prefix=self.dht_prefix, compression=self.compression,
             inference_max_length=self.inference_max_length,
             session_timeout=self.session_timeout, step_timeout=self.step_timeout,
+            request_timeout=self.request_timeout,
             # rpc_info answers ONLINE, as petals_tpu's does
             server_info_fn=lambda: dataclasses.asdict(self._server_info(ServerState.ONLINE)),
             server_gen_params=self.server_gen_params,
@@ -443,6 +474,21 @@ class Server:
         await asyncio.to_thread(self._load_span)
         self.queue.start()
         self.handler.register(self.rpc_server)
+        if tracing.start_trace(self.trace_dir) is not None:
+            # a bounded window: the profiler buffers every event until it stops
+            async def flush_trace():
+                await asyncio.sleep(tracing.trace_window_seconds())
+                # on the loop's thread: the profiler stops where it started
+                tracing.stop_trace()
+
+            self._trace_flush_task = asyncio.create_task(flush_trace())
+            self._trace_flush_task.add_done_callback(_log_failure("trace flush"))
+        if self.metrics_port is not None:
+            try:
+                self._metrics_server = MetricsServer(port=self.metrics_port)
+                logger.info(f"Prometheus /metrics on port {self._metrics_server.port}")
+            except OSError as e:  # the port is taken: serve without the scrape endpoint
+                logger.warning(f"Could not bind metrics port {self.metrics_port}: {e}")
         self._state = ServerState.ONLINE
         await self._announce(ServerState.ONLINE)
         self._announcer_task = asyncio.create_task(self._announce_loop())
@@ -593,6 +639,14 @@ class Server:
         if self.batcher is not None:
             await self.batcher.close()
         self.queue.shutdown()
+        if self._trace_flush_task is not None:
+            self._trace_flush_task.cancel()
+        tracing.stop_trace()
+        if self._metrics_server is not None:
+            self._metrics_server.close()
+            self._metrics_server = None
+        # the journal's JSONL sink flushes and detaches once nothing emits
+        get_journal().close()
 
     # ------------------------------------------------------------------ the swarm
 
@@ -626,13 +680,55 @@ class Server:
             # k drafts verified a tick (informational: the stream is plain decode's)
             spec_k=self.spec_k if self._draft_model is not None else None,
             pool=pool,
+            # the telemetry digest (the announce loop's cadence makes tok_s an
+            # update_period average), the step-program observatory's digest,
+            # the self-probe's integrity digest and where /metrics lives
+            telemetry=self._telemetry_digest(),
+            compile_stats=get_observatory().compile_stats(),
+            integrity=self._integrity_info,
+            metrics_port=self._metrics_server.port if self._metrics_server is not None else None,
             # generalists announce it too, which tells an explicit
             # generalist from a server that predates tiers
             phase_tier=self.phase_tier,
         )
 
+    @staticmethod
+    def _telemetry_digest() -> Optional[dict]:
+        try:
+            # size-capped: the digest rides every widely replicated announce
+            return cap_announce_payload(telemetry_digest())
+        except Exception as e:  # an announce never fails over metrics
+            logger.debug(f"telemetry digest failed: {e!r}")
+            return None
+
+    async def _refresh_integrity(self) -> None:
+        """The announce's integrity view: the digest of a self-probe through
+        ``ptu.probe`` (taken once, see the module docstring) and this
+        server's quarantine flag in the process's registry. A failure
+        leaves the previous view in place."""
+        if self.handler is None:
+            return
+        try:
+            if self._integrity_info is None:
+                reply = await self.handler.rpc_probe({"tokens": 4}, None)
+                self._integrity_info = {
+                    "self_digest": fp_ops.digest_hex(np.asarray(reply["fp"], dtype=np.float32)),
+                    "fp_seed": int(reply["fp_seed"]),
+                    "span": f"{reply['first_block']}:{reply['first_block'] + reply['n_blocks']}",
+                    "quarantined": False,
+                }
+            peer = self.identity.peer_id.to_string() if self.identity is not None else ""
+            self._integrity_info = cap_announce_payload(
+                {**self._integrity_info, "quarantined": bool(peer and get_quarantine().is_quarantined(peer))}
+            )
+        except Exception as e:
+            logger.debug(f"integrity digest refresh failed: {e!r}")
+
     async def _announce(self, state: ServerState, expiration: Optional[float] = None) -> None:
         expiration = expiration or default_expiration(self.update_period)
+        if state != ServerState.OFFLINE:
+            # the ServerInfo below carries this period's integrity view
+            await self._refresh_integrity()
         await declare_active_modules(
             self.dht, self.module_uids, self._server_info(state), expiration, contact_addr=self._contact_addr
         )

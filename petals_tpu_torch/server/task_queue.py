@@ -12,6 +12,7 @@ import threading
 from typing import Any, Callable, Optional
 
 PRIORITY_INFERENCE = 1.0
+PRIORITY_TRAINING = 2.0  # stateless forwards and probes: after every inference step
 
 
 class TaskRejected(Exception):

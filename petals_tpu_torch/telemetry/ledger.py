@@ -24,26 +24,28 @@ to "now" without touching the rates, so the decode hot path never settles.
 
 Peer cardinality is bounded the same way the metrics registry bounds label
 sets: past ``max_peers`` distinct peers, new peers collapse into the shared
-``"_overflow"`` rollup (``peer_overflows`` counts the collapse). Peer ids
-never become metric labels; they live only in this ledger's bounded dicts
+``"_overflow"`` rollup (``peer_overflows`` and
+``petals_ledger_peer_overflow_total`` count the collapse). Peer ids never
+become metric labels; they live only in this ledger's bounded dicts
 and its JSON views.
 
 On top of the meters sits a DRF-style noisy-neighbor detector: a rolling
 window of per-peer cumulative totals yields each peer's dominant-resource
 share (max over resources of its share of that resource's window delta).
 A peer exceeding a configurable share while OTHER peers' admissions queue is
-a noisy neighbor: ``check_noisy`` returns an evidence dict, bumps
-``noisy_events``, and files the evidence with the ledger's snapshot to an
-attached flight recorder.
+a noisy neighbor: ``check_noisy`` returns an evidence dict (the batcher
+journals it with the occupancy attached), bumps ``noisy_events`` and
+``petals_ledger_noisy_neighbors_total``, and files the evidence with the
+ledger's snapshot to the flight recorder (one attached with
+``attach_flight``, else one made on first use, as petals_tpu's).
 
 Layering: like the rest of the telemetry package, this module imports
 nothing from the rest of the port. The batcher/scheduler pull the ledger
 in, never the other way around.
 
-Not ported yet: the metric counters (``petals_ledger_*``) wait for the
-metrics registry, the flight recorder and the ``/ledger`` endpoint for the
-rest of the telemetry package (ROADMAP A11); a noisy-neighbor event goes
-to a recorder only when one is attached (``attach_flight``).
+The ``petals_ledger_*`` metrics (telemetry/instruments.py) are recorded
+where petals_tpu's ledger records them, and ``/ledger``
+(telemetry/exposition.py) serves ``snapshot``.
 """
 
 from __future__ import annotations
@@ -59,7 +61,7 @@ logger = logging.getLogger(__name__)
 
 # the metrics registry's bound on one metric's label sets, which the
 # ledger's peer cardinality follows
-DEFAULT_MAX_SERIES = 64
+from petals_tpu_torch.telemetry.registry import DEFAULT_MAX_SERIES  # noqa: E402
 
 ANON_PEER = "_anon"  # unidentified clients (no proven peer id, no hint)
 OVERFLOW_PEER = "_overflow"  # shared rollup once max_peers distinct peers seen
@@ -98,6 +100,20 @@ USAGE_FIELDS = (
     "swap_in_bytes",
     "migrated_bytes",
 )
+
+
+_TM = None
+
+
+def _tm():
+    """The instruments module, imported at first use (it registers on the
+    package's metrics registry)."""
+    global _TM
+    if _TM is None:
+        from petals_tpu_torch.telemetry import instruments
+
+        _TM = instruments
+    return _TM
 
 
 def derive_efficiency(usage: Dict[str, float]) -> Dict[str, float]:
@@ -236,11 +252,16 @@ class ResourceLedger:
                 if len(self._known_peers) >= self.max_peers:
                     peer = OVERFLOW_PEER
                     self.peer_overflows += 1
+                    _tm().LEDGER_PEER_OVERFLOW.inc()
                 else:
                     self._known_peers.add(peer)
             self._seq += 1
             key = f"s{self._seq}"
             self._sessions[key] = _Session(key, peer, trace_id, now)
+            n_sessions, n_peers = len(self._sessions), len(self._known_peers)
+        tm = _tm()
+        tm.LEDGER_SESSIONS.set(n_sessions)
+        tm.LEDGER_PEERS.set(n_peers)
         return key
 
     def close_session(self, key: str) -> Dict[str, float]:
@@ -253,7 +274,10 @@ class ResourceLedger:
                 return _zero_usage()
             rollup = self._closed_peers.setdefault(sess.peer, _zero_usage())
             _fold(rollup, sess.totals)
-            return dict(sess.totals)
+            totals = dict(sess.totals)
+            n_sessions = len(self._sessions)
+        _tm().LEDGER_SESSIONS.set(n_sessions)
+        return totals
 
     # --------------------------------------------------------------- accrual
 
@@ -308,6 +332,7 @@ class ResourceLedger:
                 sess = self._sessions.get(key)
                 if sess is not None:
                     sess.totals["compute_seconds"] += share
+        _tm().LEDGER_COMPUTE_SECONDS.inc(float(seconds))
 
     def note_spec(
         self, key: str, *, draft_seconds: float = 0.0,
@@ -389,6 +414,14 @@ class ResourceLedger:
                     self._cache_rollup[peer] = self._cache_rollup.get(peer, 0.0) + inc
                     cache_inc += inc
             self.cache_byte_seconds += cache_inc
+        if attributed or unattributed_inc or cache_inc:
+            tm = _tm()
+            if attributed:
+                tm.LEDGER_PAGE_SECONDS.inc(attributed)
+            if unattributed_inc:
+                tm.LEDGER_UNATTRIBUTED_PAGE_SECONDS.inc(unattributed_inc)
+            if cache_inc:
+                tm.LEDGER_CACHE_BYTE_SECONDS.inc(cache_inc)
 
     # ----------------------------------------------------------------- reads
 
@@ -561,6 +594,7 @@ class ResourceLedger:
             if evidence is None:
                 return None
             snapshot = self._snapshot_locked(k=8)
+        _tm().LEDGER_NOISY_NEIGHBORS.inc()
         self._flight_record(evidence, snapshot)
         return evidence
 
@@ -656,15 +690,17 @@ class ResourceLedger:
 
     # ------------------------------------------------- metric / flight hooks
 
-    _flight = None  # a recorder with a record(kind, **fields) method, once attached
+    _flight = None  # a FlightRecorder: attached, or made on first use
 
     def attach_flight(self, recorder) -> None:
         self._flight = recorder
 
     def _flight_record(self, evidence: dict, snapshot: dict) -> None:
-        if self._flight is None:
-            return
         try:
+            if self._flight is None:
+                from petals_tpu_torch.telemetry.flight import FlightRecorder
+
+                self._flight = FlightRecorder(path=os.environ.get("PETALS_TPU_FLIGHT"))
             self._flight.record("noisy_neighbor", ledger=snapshot, **evidence)
         except Exception as e:  # evidence filing must never fail the detector
             logger.debug(f"flight record of a noisy neighbor failed: {e!r}")

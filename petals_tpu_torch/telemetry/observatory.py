@@ -33,8 +33,13 @@ compile's place:
   replay of the graph adds it again, so a counter reads the same whether a
   step ran eagerly or replayed.
 
-Not ported: the journal, the flight recorder, per-program cost analysis and
-the metrics exposition (they wait for the rest of the telemetry package).
+- Each capture also counts into the registry's ``petals_compiles_total``,
+  ``petals_compile_seconds_total`` and ``petals_compile_anomalies_total``
+  by program name (telemetry/instruments.py), and ``/compile``
+  (telemetry/exposition.py) serves ``compile_stats()`` with ``functions()``.
+
+Not ported: per-program cost analysis (an XLA facility with no capture
+counterpart).
 """
 
 from __future__ import annotations
@@ -273,4 +278,10 @@ class TrackedGraph:
         self.counts.captures += 1
         self.counts.capture_s += seconds
         self.counts.anomalies += int(anomaly)
+        from petals_tpu_torch.telemetry import instruments as tm
+
+        tm.COMPILES.labels(fn=self.counts.name).inc()
+        tm.COMPILE_SECONDS.labels(fn=self.counts.name).inc(seconds)
+        if anomaly:
+            tm.COMPILE_ANOMALIES.labels(fn=self.counts.name).inc()
         return _Entry(graph, static, tuple(outputs), tuple(record))

@@ -287,10 +287,12 @@ def test_session_rollback_replays_from_a_position(port_route):
 
 def test_waiting_parts_raise_with_their_slice(port_route):
     _, _, port_model = port_route
-    with pytest.raises(NotImplementedError, match="A11"):
-        port_model.forward(_ids(1, (1, 4)))
-    with pytest.raises(NotImplementedError, match="A11"):
-        port_model.remote.forward(torch.zeros(1, 4, port_model.cfg.hidden_size))
+    # the stateless forward is ported (A11): it answers, it does not raise
+    assert tuple(port_model.forward(_ids(1, (1, 4))).shape) == (1, 4, port_model.cfg.vocab_size)
+    hsz = port_model.cfg.hidden_size
+    assert tuple(port_model.remote.forward(torch.zeros(1, 4, hsz)).shape) == (1, 4, hsz)
+    with pytest.raises(NotImplementedError, match="A13"):
+        port_model.remote.backward(torch.zeros(1, 4, hsz))
     with pytest.raises(NotImplementedError, match="A13"):
         port_model.generate(_ids(1, (1, 4)), max_new_tokens=2, prompts=np.zeros((4, 1, 2, 64), np.float32))
     with pytest.raises(NotImplementedError, match="A13"):
@@ -379,8 +381,9 @@ def test_bare_model_keeps_no_head_and_norms_as_petals_tpu(port_route):
         hidden = np.random.RandomState(12).randn(2, 3, bare.cfg.hidden_size).astype(np.float32)
         want = jax_bare.family.client_norm(jax_bare.client_params, hidden, jax_bare.cfg)
         np.testing.assert_allclose(bare.final_norm(torch.from_numpy(hidden)).numpy(), np.asarray(want), atol=1e-6, rtol=0)
-        with pytest.raises(NotImplementedError, match="A11"):
-            bare.forward(_ids(1, (1, 4)))
+        # the stateless forward (A11): the last hidden state after the norm, as petals_tpu's bare model
+        np.testing.assert_allclose(bare.forward(_ids(1, (1, 4))).numpy(), np.asarray(jax_bare.forward(_ids(1, (1, 4)))),
+                                   atol=1e-5, rtol=1e-5)
     finally:
         bare.close()
         jax_bare.close()
