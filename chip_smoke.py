@@ -3,7 +3,8 @@
     python3 chip_smoke.py
 
 1. Build: compile every CUDA source of the port (csrc/paged_attention.cu,
-   csrc/quant_matmul.cu, csrc/flash_attention.cu) with nvcc (sm_90a) into build/kernels/, one nvcc
+   csrc/quant_matmul.cu, csrc/flash_attention.cu, csrc/grouped_matmul.cu)
+   with nvcc (sm_90a) into build/kernels/, one nvcc
    each, all started together, and print each one's build seconds; print
    the card's name and power limit.
 2. Kernels: at Mistral-7B-v0.1 widths (32 query heads, 8 KV heads, head_dim
@@ -404,11 +405,41 @@
    decode tokens equal the batcher's stats; the announce carries
    telemetry, compile_stats, integrity and metrics_port; the trace names
    K4's kernel. The phase prints its seconds.
+22. BLOOM, Falcon and Mixtral (check_family_kernels right after phase 5,
+   serve_families_and_check last; alone: scripts/smoke_families.py).
+   (a) K1 and K2, with K3's int8 and nf4a arms, at Falcon's GQA groups
+   (FAMILY_GROUPS: 71 query heads over 1 kv head, 232 over 8 = 29 and 128
+   over 8 = 16, head_dim 64; the wide-group arm cuts a group of more than 16
+   into tiles of at most 16 heads), and K1 and K2 with ALiBi at BLOOM-7b1's
+   32 heads and BLOOM-176B's 112 (MHA, head_dim 128), each on phase 2's
+   cases (8 decode lanes; a 512-row chunk at 0 and its 188-row
+   continuation) against its plain version within phase 2's limits, timed
+   beside gather + SDPA (ALiBi as an additive mask) and the bound; K4 at
+   group 71 and with ALiBi (32 heads) at a 512-row chunk, bf16 and float32;
+   K7, the grouped product of Mixtral's sparse experts, at Mixtral-8x7B's
+   widths (1024 assignment rows over 8 experts of [4096, 14336] and [14336,
+   4096], GROUPED_SIZES: one expert empty, one with half the rows) against
+   its plain version row by row within OUT_REL_TOL, timed beside
+   torch._grouped_mm where the card's torch has it (timed here only) and the
+   bound. (b) Each family's span at a published config's full width
+   (FAMILY_RUNS: bigscience/bloom-7b1 and tiiuae/falcon-7b at 8 blocks,
+   mistralai/Mixtral-8x7B-v0.1 at 4), seeded bf16 weights written by the
+   port's writer in HF's layout, served by one port server built by the
+   CLI with its defaults to 3 sessions (600, 300 and 64 tokens, then 16
+   decode steps) and checked as phase 3 checks (replies and K/V rows, K1
+   and K2 on every block of every step, K7 on every Mixtral chunk's block,
+   check_graph_stats); the references take the plain grouped product
+   (plain_grouped_products). Mixtral again with --quant_type nf4a at 2
+   blocks, one session (K5 on every projection, each expert's three). One
+   greedy stream a family through the port's client, held as phase 13
+   holds its streams (BLOOM's embeddings through their LayerNorm).
 
 float32 matmuls run in full float32: TF32 is switched off for matmuls and
 convolutions. Exits non-zero on any failure. The last line is the JSON
 object ``{"ok": true, "device": {...}}``; the line before it lists the
-kernels with their times, bounds and main-path launch counts (K1/K2 from
+kernels with their times, bounds and main-path launch counts, each with
+``families`` (phase 22's cases and, for K1/K2, launches on each family's
+served run), K7 last (its launches from the Mixtral run) (K1/K2 from
 the bf16 run, K3's nf4a arms from the nf4a-pool run and its int8 arms from
 the short int8-pool run, K5's nf4a arm from the nf4a run, its nf4 and int4
 arms and K6 from their short runs, K4 from the private sessions' run), and
@@ -512,7 +543,7 @@ REPLY_BF16_MEAN_REL = 5e-2  # beyond this the bf16 network is too unstable to ju
 REPLY_KV_QUANT_MEAN_REL = 0.25
 WARMUP_PROMPTS = (64, 300)  # first-call costs (cuBLAS plans, page faults) off the clock
 
-KERNEL_SOURCES = ("paged_attention", "quant_matmul", "flash_attention")
+KERNEL_SOURCES = ("paged_attention", "quant_matmul", "flash_attention", "grouped_matmul")
 
 # private sessions (phase 10) and the dense pool (phase 11)
 PRIVATE_BATCH = 2
@@ -641,6 +672,61 @@ PROBE_TOKENS = (4, 16)
 PROBE_SEEDS = (101, 202)
 TRACE_SECONDS = 8.0  # the --trace_dir capture's window from startup
 SPEC_VERIFY_POSITIONS = (100, 400, 700, 1000)
+# phase 22: BLOOM, Falcon and Mixtral. Each published config.json at full
+# width, depth cut to the span served (the config says that many layers, so
+# the client's model is every block served); random bf16 weights from SEED.
+# bigscience/bloom-7b1: ALiBi over 32 heads (MHA), the fused per-head QKV
+BLOOM_7B1 = {
+    "model_type": "bloom", "architectures": ["BloomForCausalLM"], "hidden_size": 4096, "n_head": 32,
+    "n_layer": 30, "layer_norm_epsilon": 1e-5, "vocab_size": 250880, "apply_residual_connection_post_layernorm": False,
+    "tie_word_embeddings": True,
+}
+# tiiuae/falcon-7b: 71 query heads over one kv head (multi_query), parallel
+# attention, rotary, no bias, no ALiBi
+FALCON_7B = {
+    "model_type": "falcon", "architectures": ["FalconForCausalLM"], "hidden_size": 4544, "num_attention_heads": 71,
+    "num_hidden_layers": 32, "layer_norm_epsilon": 1e-5, "multi_query": True, "new_decoder_architecture": False,
+    "parallel_attn": True, "bias": False, "alibi": False, "vocab_size": 65024,
+}
+# mistralai/Mixtral-8x7B-v0.1: 32 query heads over 8, 8 experts of 14336,
+# top-2, rope_theta 1e6, no sliding window
+MIXTRAL_8X7B = {
+    "model_type": "mixtral", "architectures": ["MixtralForCausalLM"], "hidden_size": 4096,
+    "intermediate_size": 14336, "num_attention_heads": 32, "num_key_value_heads": 8, "num_hidden_layers": 32,
+    "num_local_experts": 8, "num_experts_per_tok": 2, "rms_norm_eps": 1e-5, "rope_theta": 1e6,
+    "sliding_window": None, "vocab_size": 32000, "hidden_act": "silu", "tie_word_embeddings": False,
+}
+# Mixtral's seeded experts. A route flips when a token's second and third
+# router logits lie within bf16 rounding of each other (~2% of the tokens a
+# block at random weights, whatever the router's scale: the rounding is
+# relative), so a bf16 network and its float32 twin pick different experts
+# for some tokens. With independent random experts whose output outweighs
+# the residual stream (HF's std 0.02 at these widths), one flipped decode
+# token moves its whole reply, far past REPLY_BF16_MEAN_REL, and no
+# comparison could judge the server. So the experts of a block share a base
+# weight and differ by MIXTRAL_EXPERT_SPREAD of it, and w2 is drawn at
+# MIXTRAL_W2_SCALE of HF's std: a flip then moves a token by ~4% of its
+# size, while a row routed to a wrong expert, a wrong combine weight or a
+# lost row still moves it past twice the reference's noise. K7 itself is
+# held to its plain version on fully independent random experts (phase 22
+# (a)).
+MIXTRAL_EXPERT_SPREAD = 0.15
+MIXTRAL_W2_SCALE = 0.25
+# (config, blocks served) of each family's run
+FAMILY_RUNS = {"bloom": (BLOOM_7B1, 8), "falcon": (FALCON_7B, 8), "mixtral": (MIXTRAL_8X7B, 4)}
+FAMILY_PROMPTS = (600, 300, 64)  # 600 > the 512-token prefill budget: a continuation chunk
+FAMILY_STEPS = 16
+FAMILY_NEW = 16  # the client's greedy tokens a family
+FAMILY_QUANT_BLOCKS = 2  # Mixtral again at --quant_type nf4a: K5 per expert
+# the kernel cases: (query heads, kv heads, head_dim) at Falcon's GQA groups
+# (Falcon-7B's 71 over 1, Falcon-180B's 232 over 8 = 29, Falcon-40B's 128
+# over 8 = 16), head_dim 64; ALiBi at BLOOM-7b1's 32 heads and BLOOM-176B's
+# 112, head_dim 128
+FAMILY_GROUPS = {"group_71": (71, 1, 64), "group_29": (232, 8, 64), "group_16": (128, 8, 64)}
+FAMILY_ALIBI = {"alibi_32": 32, "alibi_112": 112}
+# K7's case: a 512-row chunk at top-2 over Mixtral's 8 experts, skewed: one
+# expert empty, one taking half the rows
+GROUPED_SIZES = (512, 0, 160, 96, 64, 96, 48, 48)
 
 # K5/K6 at the four projections of a Mistral-7B block as the port serves
 # them (qkv and gate+up fused), at decode batches (1, 4, 8 and 32 rows: one
@@ -830,14 +916,13 @@ def build() -> None:
                 log(f"  {line.strip()}")
 
 
-def attention_cases(device, hq=32, hkv=8):
+def attention_cases(device, hq=32, hkv=8, d=128):
     """The seeded inputs of the attention kernels at Mistral-7B widths (or
-    ``hq`` query heads over ``hkv`` kv heads): K1's 8 lanes (ragged positions
-    up to 1023 on permuted tables with holes past each frontier, one lane
-    idle at the sentinel) and K2's lane (a 512-row chunk at 0 and its
-    188-row continuation), bf16 pools."""
+    ``hq`` query heads over ``hkv`` kv heads of ``d``): K1's 8 lanes (ragged
+    positions up to 1023 on permuted tables with holes past each frontier,
+    one lane idle at the sentinel) and K2's lane (a 512-row chunk at 0 and
+    its 188-row continuation), bf16 pools."""
     gen = torch.Generator(device=device).manual_seed(SEED + 1)
-    d = 128
     n_lanes, max_pages = 8, 1024 // PAGE
     max_len = max_pages * PAGE
     positions = torch.tensor([0, 63, 64, 200, 511, 700, 1023, max_len], dtype=torch.int32)
@@ -872,9 +957,22 @@ def attention_cases(device, hq=32, hkv=8):
     return decode, prefill
 
 
-def _library_decode(case, kp, vp, window):
+def _alibi_mask(mask, alibi, kv_pos):
+    """A boolean mask [..., q, kv] as SDPA's additive mask in bf16 (the
+    yardsticks' queries' type) with the ALiBi bias slopes[h] * j: [..., hq,
+    q, kv] (no bias: the mask as it is). A hidden position takes bf16's
+    lowest finite value, so a row that sees nothing stays finite, as the
+    kernels' rows do."""
+    if alibi is None:
+        return mask
+    bias = (alibi.float()[:, None, None] * kv_pos.float()).to(torch.bfloat16)
+    return torch.where(mask.unsqueeze(-3), bias, torch.finfo(torch.bfloat16).min)
+
+
+def _library_decode(case, kp, vp, window, alibi=None):
     """The yardstick for the decode kernels: the pages gathered (and
-    dequantized) into a dense view, then PyTorch's fused attention."""
+    dequantized) into a dense view, then PyTorch's fused attention (ALiBi as
+    an additive mask)."""
     from petals_tpu_torch.ops.paged_attention import gather_pages
 
     q, tables, positions = case["q"], case["tables"], case["positions"]
@@ -883,13 +981,14 @@ def _library_decode(case, kp, vp, window):
     kv_pos = torch.arange(k.shape[2], device=q.device)
     pos = positions[:, None].long()
     mask = (kv_pos[None, :] <= pos) & (kv_pos[None, :] > pos - window)
-    return _sdpa(q.transpose(1, 2), k, v, mask[:, None, None, :]).transpose(1, 2)
+    mask = _alibi_mask(mask[:, None, :], alibi, kv_pos)  # [lanes, 1, kv] or [lanes, hq, 1, kv]
+    return _sdpa(q.transpose(1, 2), k, v, mask if alibi is not None else mask[:, None]).transpose(1, 2)
 
 
-def _library_prefill(kp, vp, table_row, qc, chunk_pos, window):
+def _library_prefill(kp, vp, table_row, qc, chunk_pos, window, alibi=None):
     """The yardstick for the prefill kernels: the lane's pages gathered (and
     dequantized) into a dense view, then PyTorch's fused attention with a
-    mask (causal, the window, the chunk's end, holes)."""
+    mask (causal, the window, the chunk's end, holes; ALiBi added)."""
     from petals_tpu_torch.ops.paged_attention import gather_pages, slot_valid
 
     kv_len = chunk_pos + qc.shape[1]
@@ -899,7 +998,7 @@ def _library_prefill(kp, vp, table_row, qc, chunk_pos, window):
     q_pos = chunk_pos + torch.arange(qc.shape[1], device=qc.device)
     mask = (kv_pos[None, :] <= q_pos[:, None]) & (kv_pos[None, :] > q_pos[:, None] - window)
     mask &= slot_valid(kp, table_row[None])[0, :kv_len][None, :]
-    return _sdpa(qc.transpose(1, 2), k, v, mask).transpose(1, 2)
+    return _sdpa(qc.transpose(1, 2), k, v, _alibi_mask(mask, alibi, kv_pos)).transpose(1, 2)
 
 
 def _prefill_work(table_row, n_pages, chunk_pos, n, window):
@@ -914,12 +1013,12 @@ def _prefill_work(table_row, n_pages, chunk_pos, n, window):
     return int(seen[-1] - seen[int(lo[0])]), pairs
 
 
-def check_attention_kernels(device, timer, dec, pf, kind="none", long=True):
+def check_attention_kernels(device, timer, dec, pf, kind="none", long=True, alibi=None):
     """The decode and prefill kernels at one pool storage, against their
     plain versions: K1/K2 on the cases' bf16 pools, or K3's ``kind`` arms on
     pools quantized on the card from them; ``long`` adds the long contexts
-    and chunks. Returns the two report entries (without main-path launch
-    counts)."""
+    and chunks; ``alibi`` (slopes [hq]) passes ALiBi slopes to every call.
+    Returns the two report entries (without main-path launch counts)."""
     from petals_tpu_torch.ops import paged_flash_attention as pfa
     from petals_tpu_torch.ops.paged_attention import (
         PagedPool,
@@ -941,15 +1040,18 @@ def check_attention_kernels(device, timer, dec, pf, kind="none", long=True):
         label, names, where = f"[kv_{kind}]", (f"K3 {kind} decode", f"K3 {kind} prefill"), ("150", "150")
     if hq // hkv != 4:  # not Mistral-7B's group
         names = tuple(f"{name} at group {hq // hkv}" for name in names)
+    if alibi is not None:
+        names = tuple(f"{name} with ALiBi ({hq} heads, head_dim {d})" for name in names)
+    ab = dict(alibi_slopes=alibi)
     side_bytes = kv_wire_bytes_per_token(hkv, d, kind)  # one token row of k (or v) of one block
 
     # ---- decode
     q, tables, positions, active = dec["q"], dec["tables"], dec["positions"], dec["active"]
     dec_err = 0.0
     for w in (None, 4096, 200):
-        got = pfa.paged_flash_attend(q, kp, vp, tables, positions, sliding_window=w)
+        got = pfa.paged_flash_attend(q, kp, vp, tables, positions, sliding_window=w, **ab)
         torch.cuda.synchronize()
-        want = paged_attend(q.float(), plain_pool(kp), plain_pool(vp), tables, positions, sliding_window=w)
+        want = paged_attend(q.float(), plain_pool(kp), plain_pool(vp), tables, positions, sliding_window=w, **ab)
         if not torch.isfinite(got).all():
             raise AssertionError(f"{names[0]} window={w}: non-finite output")
         if kind == "none":
@@ -963,27 +1065,28 @@ def check_attention_kernels(device, timer, dec, pf, kind="none", long=True):
     rows = dec["rows"]
     dec_bytes = 2 * rows * side_bytes + 2 * q.numel() * 2 + tables.numel() * 4 + positions.numel() * 4
     dec_bound, dec_by = bound_ms(dec_bytes, 4 * hq * d * rows)
-    lib_err = (_library_decode(dec, kp, vp, window)[active].float() - paged_attend(
-        q.float(), plain_pool(kp), plain_pool(vp), tables, positions, sliding_window=window)[active]).abs().max().item()
+    lib_err = (_library_decode(dec, kp, vp, window, alibi)[active].float() - paged_attend(
+        q.float(), plain_pool(kp), plain_pool(vp), tables, positions, sliding_window=window, **ab)[active]
+    ).abs().max().item()
     decode = {
         "name": f"paged_decode_attention{label}", "route": "cuda",
         "source": "petals_tpu_torch/csrc/paged_attention.cu",
         "replaces": f"petals_tpu/ops/paged_flash_attention.py:{where[0]}",
         "max_abs_err": dec_err,
-        "ms": timer(lambda: pfa.paged_flash_attend(q, kp, vp, tables, positions, sliding_window=window)),
-        "plain_ms": timer(lambda: paged_attend(q, kp, vp, tables, positions, sliding_window=window)),
+        "ms": timer(lambda: pfa.paged_flash_attend(q, kp, vp, tables, positions, sliding_window=window, **ab)),
+        "plain_ms": timer(lambda: paged_attend(q, kp, vp, tables, positions, sliding_window=window, **ab)),
         "bound_ms": dec_bound, "bound_by": dec_by,
-        "library_ms": timer(lambda: _library_decode(dec, kp, vp, window)),
+        "library_ms": timer(lambda: _library_decode(dec, kp, vp, window, alibi)),
     }
     decode["library_factor"] = decode["ms"] / decode["library_ms"]
     log(f"{names[0]} at 8 lanes, window 4096: {decode['ms']:.4f} ms kernel, {decode['plain_ms']:.4f} ms plain, "
         f"{decode['library_ms']:.4f} ms gather+SDPA (its err {lib_err:.3e}; kernel {decode['library_factor']:.3f}x), "
         f"bound {dec_bound:.4f} ms ({dec_by}, {dec_bytes / 1e6:.2f} MB), "
-        f"{pfa.decode_split_plan(q.shape[0], hkv, tables.shape[1] * PAGE, _sm_count(device))} splits")
+        f"{pfa.decode_split_plan(q.shape[0], hkv, tables.shape[1] * PAGE, _sm_count(device), hq // hkv)} splits")
     # the split merge is deterministic: the same bits whichever block merges
-    first = pfa.paged_flash_attend(q, kp, vp, tables, positions, sliding_window=window)
+    first = pfa.paged_flash_attend(q, kp, vp, tables, positions, sliding_window=window, **ab)
     for _ in range(DECODE_REPEATS):
-        if not torch.equal(pfa.paged_flash_attend(q, kp, vp, tables, positions, sliding_window=window), first):
+        if not torch.equal(pfa.paged_flash_attend(q, kp, vp, tables, positions, sliding_window=window, **ab), first):
             raise AssertionError(f"{names[0]}: the split merge is not bit-equal on repeats")
     log(f"{names[0]}: bit-equal over {DECODE_REPEATS} repeats")
     if kind == "none" and long:
@@ -998,10 +1101,10 @@ def check_attention_kernels(device, timer, dec, pf, kind="none", long=True):
         n = qc.shape[1]
         # chunk_pos and n_valid as the served step passes them: on the card
         cp, nv = pfa.chunk_scalars(chunk_pos, n, device)
-        got = pfa.paged_flash_prefill_attend(qc, kp2, vp2, table_row, cp, nv, sliding_window=window)
+        got = pfa.paged_flash_prefill_attend(qc, kp2, vp2, table_row, cp, nv, sliding_window=window, **ab)
         torch.cuda.synchronize()
         want = paged_prefill_attend(
-            qc.float(), plain_pool(kp2), plain_pool(vp2), table_row, chunk_pos, n, sliding_window=window
+            qc.float(), plain_pool(kp2), plain_pool(vp2), table_row, chunk_pos, n, sliding_window=window, **ab
         )
         pf_err = max(pf_err, check_rows(f"{names[1]}, chunk_pos={chunk_pos}, {n} rows", got, want, rel_tol))
     qc, qc2 = pf["chunks"][0], pf["chunks"][512]
@@ -1015,14 +1118,15 @@ def check_attention_kernels(device, timer, dec, pf, kind="none", long=True):
         "source": "petals_tpu_torch/csrc/paged_attention.cu",
         "replaces": f"petals_tpu/ops/paged_flash_attention.py:{where[1]}",
         "max_abs_err": pf_err,
-        "ms": timer(lambda: pfa.paged_flash_prefill_attend(qc, kp2, vp2, table_row, *at0, sliding_window=window)),
-        "plain_ms": timer(lambda: paged_prefill_attend(qc, kp2, vp2, table_row, 0, n, sliding_window=window)),
+        "ms": timer(lambda: pfa.paged_flash_prefill_attend(qc, kp2, vp2, table_row, *at0, sliding_window=window, **ab)),
+        "plain_ms": timer(lambda: paged_prefill_attend(qc, kp2, vp2, table_row, 0, n, sliding_window=window, **ab)),
         "bound_ms": pf_bound, "bound_by": pf_by,
-        "library_ms": timer(lambda: _library_prefill(kp2, vp2, table_row, qc, 0, window)),
+        "library_ms": timer(lambda: _library_prefill(kp2, vp2, table_row, qc, 0, window, alibi)),
     }
     prefill["library_factor"] = prefill["ms"] / prefill["library_ms"]
-    cont_ms = timer(lambda: pfa.paged_flash_prefill_attend(qc2, kp2, vp2, table_row, *at512, sliding_window=window))
-    cont_lib_ms = timer(lambda: _library_prefill(kp2, vp2, table_row, qc2, 512, window))
+    cont_ms = timer(lambda: pfa.paged_flash_prefill_attend(qc2, kp2, vp2, table_row, *at512, sliding_window=window,
+                                                           **ab))
+    cont_lib_ms = timer(lambda: _library_prefill(kp2, vp2, table_row, qc2, 512, window, alibi))
     log(f"{names[1]} at a 512-row chunk: {prefill['ms']:.4f} ms kernel, {prefill['plain_ms']:.4f} ms plain, "
         f"{prefill['library_ms']:.4f} ms gather+SDPA (kernel {prefill['library_factor']:.3f}x), "
         f"bound {pf_bound:.4f} ms ({pf_by}); 188-row continuation at 512: {cont_ms:.4f} ms kernel, "
@@ -1339,6 +1443,141 @@ def check_flash_kernel(device, timer):
     }
 
 
+def check_flash_case(device, timer, hq, hkv, d, alibi=None):
+    """K4 at a 512-row chunk at offset 0 over a 1024-row buffer (a session's
+    cache), bf16 (wgmma) and float32 (CUDA cores) on the same values, against
+    its plain version (KERNEL_TOL, F32_KERNEL_TOL, as phase 9), timed beside
+    SDPA with a mask (ALiBi added) and the bound; returns the timings."""
+    from petals_tpu_torch.ops import flash_attention as fa
+
+    gen = torch.Generator(device=device).manual_seed(SEED + 22)
+    q_len, buf = 512, 1024
+    q = torch.randn(1, q_len, hq, d, generator=gen, device=device).to(torch.bfloat16)
+    k, v = (torch.randn(1, buf, hkv, d, generator=gen, device=device).to(torch.bfloat16) for _ in range(2))
+    scalars = torch.tensor([0, q_len], dtype=torch.int32, device=device)
+    kw = dict(q_offset=0, kv_length=q_len, alibi_slopes=alibi)
+    kw_dev = dict(q_offset=scalars[0], kv_length=scalars[1], alibi_slopes=alibi)
+    name = f"K4 at group {hq // hkv} ({hq} heads over {hkv}, head_dim {d}){' with ALiBi' if alibi is not None else ''}"
+    got = fa.flash_attend(q, k, v, **kw_dev)
+    torch.cuda.synchronize()
+    want = fa.flash_attend_reference(q.float(), k, v, **kw)
+    if got.shape != q.shape or not torch.isfinite(got).all():
+        raise AssertionError(f"{name}: output {tuple(got.shape)} or non-finite")
+    err = (got.float() - want).abs().max().item()
+    got32 = fa.flash_attend(q.float(), k.float(), v.float(), **kw_dev)
+    torch.cuda.synchronize()
+    err32 = (got32 - fa.flash_attend_reference(q.float(), k.float(), v.float(), **kw)).abs().max().item()
+    # with ALiBi a score reaches slope x j (~255 at 32 heads over a 512-row
+    # chunk), where a float32 ulp is ~3e-5: the kernel and its plain version
+    # add the bias in another order, so a score may differ by an ulp of the
+    # largest one; the limit adds two such ulps to phase 9's
+    tol32 = F32_KERNEL_TOL
+    if alibi is not None:
+        tol32 += 2 * torch.finfo(torch.float32).eps * alibi.abs().max().item() * (q_len - 1)
+    log(f"{name}: max abs err {err:.3e} bf16 (wgmma, tol {KERNEL_TOL}), {err32:.3e} float32 (CUDA cores, "
+        f"tol {tol32:.3e})")
+    if err > KERNEL_TOL or err32 > tol32:
+        raise AssertionError(f"{name} disagrees with its plain version: bf16 {err}, float32 {err32}")
+
+    def library():
+        kv_pos = torch.arange(q_len, device=device)
+        mask = _alibi_mask(kv_pos[None, :] <= kv_pos[:, None], alibi, kv_pos)
+        return _sdpa(q.transpose(1, 2), k[:, :q_len].transpose(1, 2), v[:, :q_len].transpose(1, 2), mask)
+
+    nbytes = 2 * q.numel() * 2 + 2 * q_len * hkv * d * 2
+    bound, by = bound_ms(nbytes, 4 * hq * d * _visible_pairs(q_len, 0, q_len, None))
+    out = {"ms": timer(lambda: fa.flash_attend(q, k, v, **kw_dev)),
+           "plain_ms": timer(lambda: fa.flash_attend_reference(q, k, v, **kw)),
+           "library_ms": timer(library), "bound_ms": bound, "bound_by": by, "max_abs_err": err}
+    log(f"{name}: {out['ms']:.4f} ms kernel, {out['plain_ms']:.4f} ms plain, {out['library_ms']:.4f} ms SDPA with "
+        f"a mask, bound {bound:.4f} ms ({by})")
+    return out
+
+
+def check_grouped_matmul(device, timer):
+    """K7 at Mixtral-8x7B's widths: a 512-row chunk at top-2 is 1024
+    assignment rows over 8 experts, in GROUPED_SIZES (one expert empty, one
+    taking half the rows), through w1 [8, 4096, 14336] and w2 [8, 14336,
+    4096] (seeded bf16), against its plain version (the same rows through
+    each expert's weight in float32, rounded once to bf16: the kernel sums
+    in float32 in another order and rounds once, so row by row within
+    OUT_REL_TOL of the row's largest output, as K1's lanes). Timed beside
+    torch._grouped_mm where the card's torch has it (timed here only) and
+    the bound; returns the report entry (without main-path launches)."""
+    from petals_tpu_torch.ops.grouped_matmul import grouped_matmul, grouped_matmul_reference
+
+    gen = torch.Generator(device=device).manual_seed(SEED + 23)
+    h, m = MIXTRAL_8X7B["hidden_size"], MIXTRAL_8X7B["intermediate_size"]
+    E, n = len(GROUPED_SIZES), sum(GROUPED_SIZES)
+    sizes = torch.tensor(GROUPED_SIZES, dtype=torch.int32, device=device)
+    entry = {"name": "grouped_matmul", "route": "cuda", "source": "petals_tpu_torch/csrc/grouped_matmul.cu",
+             "replaces": "petals_tpu/models/mixtral/block.py:56 (jax.lax.ragged_dot; no TPU kernel)"}
+    worst = 0.0
+    for proj, (k_in, k_out) in (("w1", (h, m)), ("w2", (m, h))):
+        x = (torch.randn(n, k_in, generator=gen, device=device) * 0.5).to(torch.bfloat16)
+        w = (torch.randn(E, k_in, k_out, generator=gen, device=device) * 0.02).to(torch.bfloat16)
+        got = grouped_matmul(x, w, sizes)
+        torch.cuda.synchronize()
+        want = grouped_matmul_reference(x, w, sizes).float()
+        worst = max(worst, _check_relative(f"K7 {proj} [{E}, {k_in}, {k_out}] over {GROUPED_SIZES}", got, want,
+                                           OUT_REL_TOL, "row"))
+        used = sum(1 for g in GROUPED_SIZES if g)
+        nbytes = 2 * n * k_in + 2 * used * k_in * k_out + 2 * n * k_out
+        bound, by = bound_ms(nbytes, 2 * n * k_in * k_out)
+        offs = torch.cumsum(sizes, 0, dtype=torch.int32)
+        library_ms, why = None, "torch._grouped_mm is not in this torch"
+        if hasattr(torch, "_grouped_mm"):
+            for layout, wl in (("row-major", w), ("column-major", w.transpose(1, 2).contiguous().transpose(1, 2))):
+                try:
+                    lib = torch._grouped_mm(x, wl, offs=offs)
+                    torch.cuda.synchronize()
+                    lib_err = (lib.float() - want).abs().max().item()
+                    library_ms = timer(lambda wl=wl: torch._grouped_mm(x, wl, offs=offs))
+                    why = f"torch._grouped_mm on a {layout} w (its err {lib_err:.3e})"
+                    break
+                except (RuntimeError, TypeError, ValueError) as e:
+                    why = f"torch._grouped_mm refused a {layout} w: {str(e).splitlines()[0][:160]}"
+        timed = {"ms": timer(lambda: grouped_matmul(x, w, sizes)),
+                 "plain_ms": timer(lambda: grouped_matmul_reference(x, w, sizes)),
+                 "library_ms": library_ms, "bound_ms": bound, "bound_by": by}
+        log(f"K7 {proj}: {timed['ms']:.4f} ms kernel, {timed['plain_ms']:.4f} ms plain, library "
+            f"{'%.4f ms' % library_ms if library_ms is not None else 'none'} ({why}), bound {bound:.4f} ms ({by}, "
+            f"{nbytes / 1e6:.1f} MB, {2 * n * k_in * k_out / 1e9:.1f} GFLOP)")
+        if proj == "w1":
+            entry.update(timed, shape=f"x [{n}, {k_in}] over w [{E}, {k_in}, {k_out}], groups {list(GROUPED_SIZES)}")
+        else:
+            entry["w2"] = timed
+        del x, w
+    entry["max_abs_err"] = worst
+    return entry
+
+
+def check_family_kernels(device, timer):
+    """Phase 22 (a): the attention kernels' wide-group and ALiBi arms and K7
+    at the families' shapes. Returns ({entry name: {case: numbers}} for the
+    K1-K4 entries, K7's entry)."""
+    from petals_tpu_torch.ops.alibi import build_alibi_slopes
+
+    keys = ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by", "max_abs_err")
+    families = collections.defaultdict(dict)
+    for case, (hq, hkv, d) in FAMILY_GROUPS.items():
+        dec, pf = attention_cases(device, hq, hkv, d)
+        for kind in ("none",) + KV_QUANT_KINDS:
+            for entry in check_attention_kernels(device, timer, dec, pf, kind, long=False):
+                families[entry["name"]][case] = {k: entry[k] for k in keys}
+        del dec, pf
+    for case, hq in FAMILY_ALIBI.items():
+        dec, pf = attention_cases(device, hq, hq, 128)
+        slopes = build_alibi_slopes(hq, device)
+        for entry in check_attention_kernels(device, timer, dec, pf, long=False, alibi=slopes):
+            families[entry["name"]][case] = {k: entry[k] for k in keys}
+        del dec, pf
+    families["flash_attention"]["group_71"] = check_flash_case(device, timer, *FAMILY_GROUPS["group_71"])
+    families["flash_attention"]["alibi_32"] = check_flash_case(device, timer, 32, 32, 128,
+                                                               build_alibi_slopes(32, device))
+    return dict(families), check_grouped_matmul(device, timer)
+
+
 def write_checkpoint(path: str, device, cfg=None, n_blocks: int = SPAN) -> None:
     """A checkpoint of ``n_blocks`` blocks at ``cfg``'s widths (default
     MISTRAL_7B), one safetensors shard per block plus one of the client's
@@ -1524,6 +1763,25 @@ def quantized_kv_writes(family, kind, written):
         module.update_kv_cache = original
 
 
+@contextlib.contextmanager
+def plain_grouped_products(family):
+    """While active, a Mixtral block's sparse experts take the plain grouped
+    product (a loop over the experts on host-read group sizes), not K7: the
+    references are independent of the kernels. Other families: no change."""
+    module = sys.modules[family.block_apply.__module__]
+    original = getattr(module, "grouped_matmul", None)
+    if original is None:
+        yield
+        return
+    from petals_tpu_torch.ops.grouped_matmul import grouped_matmul_reference
+
+    module.grouped_matmul = grouped_matmul_reference
+    try:
+        yield
+    finally:
+        module.grouped_matmul = original
+
+
 @torch.no_grad()
 def reference_session(block_params, family, cfg, prompt, steps, device, dtype, kv_quant="none", hypo_ids=None,
                       reencode=None):
@@ -1538,15 +1796,18 @@ def reference_session(block_params, family, cfg, prompt, steps, device, dtype, k
     then encoded again as the adopting pool writes them). Returns the
     replies and the K/V rows as computed (before any quantization), (k, v)
     of [n_blocks * batch, length, hkv, d]."""
+    from petals_tpu_torch.models.registry import num_kv_heads
+
     length = prompt.shape[1] + sum(x.shape[1] for x in steps)
-    shape = (prompt.shape[0], length, cfg.num_key_value_heads, cfg.head_dim)
+    shape = (prompt.shape[0], length, num_kv_heads(cfg), cfg.head_dim)
     caches = [
         (torch.zeros(shape, dtype=dtype, device=device), torch.zeros(shape, dtype=dtype, device=device))
         for _ in block_params
     ]
     written = []
     outs, position = [], 0
-    with quantized_kv_writes(family, kv_quant, written) if kv_quant != "none" else contextlib.nullcontext():
+    with quantized_kv_writes(family, kv_quant, written) if kv_quant != "none" else contextlib.nullcontext(), \
+            plain_grouped_products(family):
         for i, x in enumerate([prompt] + steps):
             if hypo_ids is not None and hypo_ids[i] is not None:
                 order = torch.as_tensor(hypo_ids[i], dtype=torch.long, device=device)
@@ -2280,7 +2541,8 @@ def dense_reference_params(block_params, dtype):
     ]
 
 
-def serve_and_check(ckpt, device, quant_type, n_blocks, prompts, n_steps, seed, warmup_prompts, kv_quant_type="none"):
+def serve_and_check(ckpt, device, quant_type, n_blocks, prompts, n_steps, seed, warmup_prompts, kv_quant_type="none",
+                    label_model=""):
     """Serve blocks [0, n_blocks) of the checkpoint with ``--quant_type`` and
     ``--kv_quant_type`` through the CLI's build_server, drive concurrent
     sessions (after an optional warm-up), check the launch counters of the
@@ -2288,10 +2550,13 @@ def serve_and_check(ckpt, device, quant_type, n_blocks, prompts, n_steps, seed, 
     references, and return the server (still holding its span) and the
     measured run's launch counts."""
     from petals_tpu_torch.cli.run_server import build_parser, build_server
+    from petals_tpu_torch.ops import grouped_matmul as gm
     from petals_tpu_torch.ops import paged_flash_attention as pfa
     from petals_tpu_torch.ops import quant_matmul as qmm
 
     label = f"server (--quant_type {quant_type} --kv_quant_type {kv_quant_type}, {n_blocks} blocks)"
+    if label_model:
+        label = f"{label_model} {label}"
     args = build_parser().parse_args([
         ckpt, "--first_block", "0", "--num_blocks", str(n_blocks), "--host", "127.0.0.1", "--quant_type", quant_type,
         "--kv_quant_type", kv_quant_type, *NO_PREFIX_CACHE,
@@ -2316,6 +2581,7 @@ def serve_and_check(ckpt, device, quant_type, n_blocks, prompts, n_steps, seed, 
             before = dict(server.batcher.stats)
             pfa.reset_launch_counts()
             qmm.reset_launch_counts()
+            gm.reset_launch_counts()
             result = await drive_server(
                 server, prompts, n_steps, seed,
                 at_end=lambda: lane_kv_rows(server.batcher, [n + n_steps for n in prompts]),
@@ -2325,6 +2591,7 @@ def serve_and_check(ckpt, device, quant_type, n_blocks, prompts, n_steps, seed, 
                 "K3 decode": dict(pfa.paged_flash_attend.kv_quant_launches),
                 "K3 prefill": dict(pfa.paged_flash_prefill_attend.kv_quant_launches),
                 "decode": dict(qmm.quant_decode_matmul.launches), "prefill": dict(qmm.quant_prefill_matmul.launches),
+                "K7": gm.grouped_matmul.launches,
             }
         finally:
             await server.shutdown()
@@ -2353,17 +2620,27 @@ def serve_and_check(ckpt, device, quant_type, n_blocks, prompts, n_steps, seed, 
     if other:
         raise AssertionError(f"{label}: {other} attention launches of another pool storage's kernels")
     if quant_type != "none":
-        # 4 quantized projections a block (wqkv, wo, wgu, wd); every step
-        # (batched_steps) runs the lanes' decode rows, a mixed step also its
-        # chunk, of more than 32 rows at these prompt lengths
+        # the quantized projections of a block (Mistral's wqkv, wo, wgu, wd;
+        # Mixtral's q, k, v, o and each expert's three, run one expert at a
+        # time); every step (batched_steps) runs the lanes' decode rows, a
+        # mixed step also its chunk, of more than 32 rows at these prompt
+        # lengths
         arm = quant_type[:-2] if quant_type.endswith("+o") else quant_type
-        need_dec = stats["batched_steps"] * n_blocks * 4
-        need_pf = stats["mixed_steps"] * n_blocks * 4
+        n_proj = quantized_projections(server.backend.block_params[0])
+        need_dec = stats["batched_steps"] * n_blocks * n_proj
+        need_pf = stats["mixed_steps"] * n_blocks * n_proj
         dec, pf = launches["decode"][arm], launches["prefill"][arm]
         log(f"{label}: launches on the main path: {arm} decode kernel {dec} (>= {need_dec}), "
             f"prefill kernel {pf} (>= {need_pf}); all kinds: decode {launches['decode']}, prefill {launches['prefill']}")
         if dec < need_dec or pf < need_pf:
             raise AssertionError(f"{label}: the main path did not run the dequant-matmul kernels on every projection")
+    if server.family.name == "mixtral" and quant_type == "none":
+        # K7: a mixed step's chunk (padded to a bucket of >= 8 rows) takes the
+        # sparse experts, three grouped products a block
+        need = 3 * stats["mixed_steps"] * n_blocks
+        log(f"{label}: launches on the main path: K7 {launches['K7']} (>= {need})")
+        if launches["K7"] < need:
+            raise AssertionError(f"{label}: the main path did not run K7 on every chunk's block")
     decode_compute = [m["compute_s"] for ms in metas for m in ms[1:]]
     prefill_compute = sum(ms[0]["compute_s"] for ms in metas)
     log(f"{label}: main path: prefill {sum(prompts) / timing['prefill_wall_s']:.1f} tokens/s over {sum(prompts)} "
@@ -2386,11 +2663,22 @@ def serve_and_check(ckpt, device, quant_type, n_blocks, prompts, n_steps, seed, 
     return server, launches
 
 
+def quantized_projections(params) -> int:
+    """The dequant-matmul calls one block makes a step: a quantized leaf
+    each, an expert stack [E, ...] one per expert."""
+    from petals_tpu_torch.ops.quant import QUANTIZED_TYPES
+
+    leaves = [getattr(leaf, "inner", leaf) for leaf in params.values() if isinstance(leaf, QUANTIZED_TYPES)]
+    return sum(leaf.data.shape[0] if leaf.data.dim() == 3 else 1 for leaf in leaves)
+
+
 def _launch_counts():
     from petals_tpu_torch.ops import flash_attention as fa
+    from petals_tpu_torch.ops import grouped_matmul as gm
     from petals_tpu_torch.ops import paged_flash_attention as pfa
 
     return {
+        "K7": gm.grouped_matmul.launches,
         "K4": fa.flash_attend.launches, "K1": pfa.paged_flash_attend.launches,
         "K2": pfa.paged_flash_prefill_attend.launches,
         "K3": sum(pfa.paged_flash_attend.kv_quant_launches.values())
@@ -2400,9 +2688,11 @@ def _launch_counts():
 
 def _reset_launch_counts():
     from petals_tpu_torch.ops import flash_attention as fa
+    from petals_tpu_torch.ops import grouped_matmul as gm
     from petals_tpu_torch.ops import paged_flash_attention as pfa
     from petals_tpu_torch.ops import quant_matmul as qmm
 
+    gm.reset_launch_counts()
     fa.reset_launch_counts()
     pfa.reset_launch_counts()
     qmm.reset_launch_counts()
@@ -2855,12 +3145,48 @@ class ClientRecorder:
         model.embed, model._host_logits, model.generate = timed_embed, timed_host_logits, timed_generate
 
 
+class _NormedRows:
+    """A BLOOM checkpoint's embeddings as its client sends them: rows of the
+    table in float32 through word_embeddings_layernorm (the port's
+    layer_norm on the card, as the client runs it, call by call), indexed
+    like a table; on the host."""
+
+    def __init__(self, table, weight, bias, eps, device):
+        self.table, self.eps = table.to(device), eps
+        self.weight, self.bias = weight.to(device, torch.float32), bias.to(device, torch.float32)
+
+    def __getitem__(self, ids):
+        from petals_tpu_torch.models.common import layer_norm
+
+        rows = self.table[torch.as_tensor(ids).to(self.table.device)].float()
+        return layer_norm(rows, self.weight, self.bias, self.eps).cpu()
+
+
 def _reference_head(ckpt, device):
-    """The checkpoint's embeddings (bf16, host), and its final norm then
-    float32 head on the card: hidden [b, h] -> logits [b, vocab]."""
+    """The checkpoint's embeddings (bf16, host; BLOOM's through their
+    LayerNorm, _NormedRows), and its final norm then float32 head on the
+    card: hidden [b, h] -> logits [b, vocab]. Llama-layout checkpoints
+    (Mistral, Qwen2, Mixtral) have an RMSNorm and their own head; BLOOM and
+    Falcon ``ln_f`` (a LayerNorm) and the head tied to the embeddings."""
     from petals_tpu_torch.server.from_pretrained import get_block_config, load_tensors_with_prefixes
 
-    _, cfg = get_block_config(ckpt)
+    family, cfg = get_block_config(ckpt)
+    if family.name in ("bloom", "falcon"):
+        from petals_tpu_torch.models.common import layer_norm
+
+        t = load_tensors_with_prefixes(ckpt, ("transformer.",), keep_full_names=True)
+        table = t["transformer.word_embeddings.weight"]
+        head = table.to(device, torch.float32)
+        ln_w, ln_b = (t[f"transformer.ln_f.{k}"].to(device, torch.float32) for k in ("weight", "bias"))
+
+        def ln_logits(h):
+            return layer_norm(h.to(device, torch.float32), ln_w, ln_b, cfg.layer_norm_epsilon) @ head.t()
+
+        if family.name == "falcon":
+            return table, ln_logits
+        emb = _NormedRows(table, t["transformer.word_embeddings_layernorm.weight"],
+                          t["transformer.word_embeddings_layernorm.bias"], cfg.layer_norm_epsilon, device)
+        return emb, ln_logits
     t = load_tensors_with_prefixes(ckpt, ("model.embed_tokens.", "model.norm.", "lm_head."), keep_full_names=True)
     head = t.get("lm_head.weight", t["model.embed_tokens.weight"]).to(device, torch.float32)
     norm = t["model.norm.weight"].to(device, torch.float32)
@@ -2886,10 +3212,16 @@ def _client_input_faults(tag, steps, hypos, got, tokens, prompt_len, embed):
     if not torch.equal(steps[0], embed[prompt_ids].float().expand(steps[0].shape)):
         faults.append("the client's prompt hidden states are not the checkpoint's embeddings")
     if tag != "beam":
-        sent = torch.cat(steps, dim=1)
+        # step by step, each over the tokens it carries (as the client
+        # embedded them: call by call)
         ids = torch.as_tensor(tokens[:, : tokens.shape[1] - 1])
-        if sent.shape[:2] != ids.shape or not torch.equal(sent, embed[ids].float()):
-            faults.append(f"the client's steps {tuple(sent.shape[:2])} are not the embeddings of its tokens "
+        sent = sum(step.shape[1] for step in steps)
+        ok, start = sent == ids.shape[1], 0
+        for step in steps:
+            ok = ok and torch.equal(step, embed[ids[:, start : start + step.shape[1]]].float())
+            start += step.shape[1]
+        if not ok:
+            faults.append(f"the client's steps ({sent} tokens) are not the embeddings of its tokens "
                           f"{tuple(ids.shape)} but the last")
         return faults
     lanes = steps[0].shape[0]  # the smoke's beam streams are batch 1: a lane a beam
@@ -3146,6 +3478,152 @@ def serve_qwen2_and_check(root, device, smi):
     if failed:
         raise AssertionError("; ".join(failed))
     return counts, launches
+
+
+def _family_tensors(cfg, block: int, gen, device) -> dict:
+    """One block's tensors in its family's HF layout (names with the full
+    model's prefix, torch's [out, in]), random bf16 from ``gen``: weights and
+    biases std 0.02 (a zero bias would hide a missing one), LayerNorm
+    weights 1 and RMSNorm weights 1."""
+    def w(*shape, std=0.02):
+        return (torch.randn(shape, generator=gen, device=device) * std).to(torch.bfloat16)
+
+    def ones(n):
+        return torch.ones(n, dtype=torch.bfloat16, device=device)
+
+    h = cfg["hidden_size"]
+    if cfg["model_type"] == "bloom":
+        p = f"transformer.h.{block}."
+        return {
+            p + "input_layernorm.weight": ones(h), p + "input_layernorm.bias": w(h),
+            p + "self_attention.query_key_value.weight": w(3 * h, h), p + "self_attention.query_key_value.bias": w(3 * h),
+            p + "self_attention.dense.weight": w(h, h), p + "self_attention.dense.bias": w(h),
+            p + "post_attention_layernorm.weight": ones(h), p + "post_attention_layernorm.bias": w(h),
+            p + "mlp.dense_h_to_4h.weight": w(4 * h, h), p + "mlp.dense_h_to_4h.bias": w(4 * h),
+            p + "mlp.dense_4h_to_h.weight": w(h, 4 * h), p + "mlp.dense_4h_to_h.bias": w(h),
+        }
+    if cfg["model_type"] == "falcon":  # falcon-7b: multi-query, parallel attention, no bias
+        p, hq = f"transformer.h.{block}.", cfg["num_attention_heads"]
+        d = h // hq
+        return {
+            p + "input_layernorm.weight": ones(h), p + "input_layernorm.bias": w(h),
+            p + "self_attention.query_key_value.weight": w((hq + 2) * d, h),
+            p + "self_attention.dense.weight": w(h, h),
+            p + "mlp.dense_h_to_4h.weight": w(4 * h, h), p + "mlp.dense_4h_to_h.weight": w(h, 4 * h),
+        }
+    p, m, E = f"model.layers.{block}.", cfg["intermediate_size"], cfg["num_local_experts"]
+    hq, hkv = cfg["num_attention_heads"], cfg["num_key_value_heads"]
+    d = h // hq
+    out = {
+        p + "input_layernorm.weight": ones(h), p + "post_attention_layernorm.weight": ones(h),
+        p + "self_attn.q_proj.weight": w(hq * d, h), p + "self_attn.k_proj.weight": w(hkv * d, h),
+        p + "self_attn.v_proj.weight": w(hkv * d, h), p + "self_attn.o_proj.weight": w(h, hq * d),
+        p + "block_sparse_moe.gate.weight": w(E, h),
+    }
+    # the experts share a base and differ by MIXTRAL_EXPERT_SPREAD of it;
+    # w2 is drawn at MIXTRAL_W2_SCALE of HF's std (see the constants)
+    base = {"w1": w(m, h), "w2": w(h, m), "w3": w(m, h)}
+    for e in range(E):
+        q = f"{p}block_sparse_moe.experts.{e}."
+        for name, b in base.items():
+            own = b.float() + MIXTRAL_EXPERT_SPREAD * w(*b.shape).float()
+            out[q + name + ".weight"] = (own * (MIXTRAL_W2_SCALE if name == "w2" else 1.0)).to(torch.bfloat16)
+    return out
+
+
+def write_family_checkpoint(path: str, device, cfg: dict, n_blocks: int) -> None:
+    """A seeded checkpoint of ``n_blocks`` blocks of a BLOOM, Falcon or
+    Mixtral config at its full width (the config says ``n_blocks`` layers),
+    one shard a block plus one of the client's tensors, written with the
+    port's safetensors writer (write_checkpoint's layout)."""
+    from petals_tpu_torch.utils.safetensors_io import save_file
+
+    gen = torch.Generator(device=device).manual_seed(SEED + 22)
+    weight_map = {}
+
+    def save(fname, tensors):
+        save_file(tensors, os.path.join(path, fname), metadata={"format": "pt"})
+        weight_map.update({name: fname for name in tensors})
+
+    for i in range(n_blocks):
+        save(f"model-{i + 1:05d}-of-{n_blocks:05d}.safetensors", _family_tensors(cfg, i, gen, device))
+    h, vocab = cfg["hidden_size"], cfg["vocab_size"]
+    embed = (torch.randn(vocab, h, generator=gen, device=device) * 0.02).to(torch.bfloat16)
+    if cfg["model_type"] == "mixtral":
+        client = {"model.embed_tokens.weight": embed, "model.norm.weight": torch.ones(h, dtype=torch.bfloat16),
+                  "lm_head.weight": (torch.randn(vocab, h, generator=gen, device=device) * 0.02).to(torch.bfloat16)}
+    else:  # the head tied to the embeddings
+        client = {"transformer.word_embeddings.weight": embed,
+                  "transformer.ln_f.weight": torch.ones(h, dtype=torch.bfloat16),
+                  "transformer.ln_f.bias": (torch.randn(h, generator=gen, device=device) * 0.02).to(torch.bfloat16)}
+        if cfg["model_type"] == "bloom":
+            client["transformer.word_embeddings_layernorm.weight"] = torch.ones(h, dtype=torch.bfloat16)
+            client["transformer.word_embeddings_layernorm.bias"] = (
+                torch.randn(h, generator=gen, device=device) * 0.02).to(torch.bfloat16)
+    save("model-client.safetensors", client)
+    del client, embed
+    with open(os.path.join(path, "model.safetensors.index.json"), "w") as f:
+        json.dump({"metadata": {}, "weight_map": weight_map}, f)
+    with open(os.path.join(path, "config.json"), "w") as f:
+        json.dump(dict(cfg, num_hidden_layers=n_blocks, n_layer=n_blocks), f)
+
+
+def serve_families_and_check(root, device, smi) -> dict:
+    """Phase 22 (b): each family's span at a published config's full width,
+    served by one port server built by the CLI (its defaults: --quant_type
+    none, --page_size 64, --kv_quant_type none) to FAMILY_PROMPTS and
+    FAMILY_STEPS decode steps and checked as phase 3 checks (replies and
+    K/V rows against the dense references, K1 and K2 on every block of every
+    step, K7 on every Mixtral chunk's block, every batched step a replay and
+    no capture after warm-up); Mixtral again with --quant_type nf4a at
+    FAMILY_QUANT_BLOCKS blocks, one session, as phase 6 checks (K5 on every
+    projection, an expert's three each); then one greedy stream a family
+    through the port's client (drive_client), held as phase 13 holds its
+    streams. Returns the launch counts of each run."""
+    counts = {}
+    t_phase = time.perf_counter()
+    for name, (cfg, n_blocks) in FAMILY_RUNS.items():
+        model = f"{cfg['architectures'][0].removesuffix('ForCausalLM')} ({name}, {n_blocks} blocks)"
+        ckpt = os.path.join(root, name)
+        os.makedirs(ckpt)
+        t0 = time.perf_counter()
+        write_family_checkpoint(ckpt, device, cfg, n_blocks)
+        log(f"checkpoint: {n_blocks} {name} blocks at full width and the client's tensors written in "
+            f"{time.perf_counter() - t0:.1f} s")
+        server, counts[name] = serve_and_check(ckpt, device, "none", n_blocks, FAMILY_PROMPTS, FAMILY_STEPS,
+                                               SEED + 22, None, label_model=model)
+        del server
+        free_card()
+        if name == "mixtral":
+            server, counts["mixtral_nf4a"] = serve_and_check(
+                ckpt, device, "nf4a", FAMILY_QUANT_BLOCKS, FAMILY_PROMPTS[1:2], FAMILY_STEPS, SEED + 23, None,
+                label_model=model)
+            del server
+            free_card()
+        label = f"client ({model}, one port server, bf16)"
+        gen = torch.Generator().manual_seed(SEED + 24)
+
+        def runs(model, rec, vocab=cfg["vocab_size"]):
+            prompt = torch.randint(0, vocab, (1, CLIENT_PROMPT), generator=gen).numpy()
+            out = model.generate(prompt, max_new_tokens=FAMILY_NEW)
+            return [(rec.sessions[-1], "greedy", out, CLIENT_PROMPT)]
+
+        rec, streams, launches, params = drive_client(
+            label, ckpt, device, smi,
+            [("--first_block", "0", "--num_blocks", str(n_blocks), "--no_server_side_generation")], runs)
+        _client_timing_line(label, rec, streams[0][0], smi)
+        log(f"{label}: launches during the client's run {launches}")
+        if not (launches["K1"] > 0 and launches["K2"] > 0 and (name != "mixtral" or launches["K7"] > 0)):
+            raise AssertionError(f"{label}: K1, K2 (or K7) never ran on the client's path ({launches})")
+        failed = check_client_streams(label, streams, params, ckpt, device)
+        if failed:
+            raise AssertionError("; ".join(failed))
+        counts[f"{name}_client"] = launches
+        del params
+        free_card()
+        shutil.rmtree(ckpt)
+    log(f"families: phase done in {time.perf_counter() - t_phase:.1f} s")
+    return counts
 
 
 def _gen_vectors(vocab, n_lanes, generating, seed):
@@ -5254,6 +5732,9 @@ def main() -> int:
                                  time_all=False, model="Qwen2.5-7B"):
         next(e for e in quant_kernels if e["name"] == q["name"])["qwen2_5_7b"] = {
             k: q[k] for k in ("shape", "ms", "plain_ms", "library_ms", "bound_ms", "bound_by", "max_abs_err")}
+    # phase 22 (a): the wide-group and ALiBi arms of K1-K4 at the families'
+    # shapes, and K7
+    family_kernels, grouped_kernel = check_family_kernels(device, timer)
     log(f"kernel phases done at {time.perf_counter() - t_start:.1f} s")
 
     os.makedirs(os.path.join(REPO, "build"), exist_ok=True)
@@ -5345,6 +5826,9 @@ def main() -> int:
         # the stateless forward, the probe and the telemetry plane
         fwd = serve_forward_telemetry_and_check(ckpt, device, smi)
         free_card()
+        # phase 22 (b): BLOOM, Falcon and Mixtral served at full width
+        fam = serve_families_and_check(ckpt, device, smi)
+        free_card()
     flash_kernel["launches"] = private_launches["K4"]
     # the launches on moved (imported, adopted) caches, phase 19
     kernels[0]["migration_launches"], kernels[1]["migration_launches"] = moved["K1"], moved["K2"]
@@ -5372,6 +5856,18 @@ def main() -> int:
             entry["draft_launches"] = spec["k5"][phase]
             if phase == "prefill":  # phase 21's nf4a forwards
                 entry["forward_launches"] = fwd["K5 prefill"]
+    # phase 22: each kernel's cases at the families' shapes, and its
+    # launches on their served runs (K4 runs on none of them: the paged pool)
+    for entry in kernels + kv_kernels + [flash_kernel]:
+        entry["families"] = dict(family_kernels[entry["name"]])
+    for entry, k in zip(kernels, ("K1", "K2")):
+        entry["families"]["launches"] = {name: fam[name][k] for name in FAMILY_RUNS}
+    grouped_kernel["launches"] = fam["mixtral"]["K7"]
+    grouped_kernel["client_launches"] = fam["mixtral_client"]["K7"]
+    for entry in quant_kernels:
+        if entry["name"].endswith("[nf4a]"):
+            phase = "decode" if entry["name"].startswith("quant_decode") else "prefill"
+            entry["families"] = {"mixtral_launches": fam["mixtral_nf4a"][phase]["nf4a"]}
     from petals_tpu_torch.telemetry.observatory import get_observatory
 
     digest = get_observatory().compile_stats()
@@ -5379,7 +5875,7 @@ def main() -> int:
     if digest["anomalies"]:
         raise AssertionError(f"{digest['anomalies']} step-program captures after warm-up")
     log(f"done at {time.perf_counter() - t_start:.1f} s")
-    log(json.dumps({"kernels": kernels + kv_kernels + [flash_kernel] + quant_kernels}))
+    log(json.dumps({"kernels": kernels + kv_kernels + [flash_kernel] + quant_kernels + [grouped_kernel]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),
     }}))

@@ -47,6 +47,7 @@ import signal
 import torch
 
 from petals_tpu_torch.server.from_pretrained import get_block_config
+from petals_tpu_torch.models.registry import num_kv_heads
 from petals_tpu_torch.server.server import Server
 from petals_tpu_torch.utils.convert_block import QuantType
 
@@ -190,7 +191,7 @@ def attn_cache_bytes_for(args: argparse.Namespace) -> int:
     bytes, whatever ``--kv_quant_type``."""
     _, cfg = get_block_config(args.model)
     return (
-        2 * args.attn_cache_tokens * cfg.num_key_value_heads * cfg.head_dim
+        2 * args.attn_cache_tokens * num_kv_heads(cfg) * cfg.head_dim
         * DTYPES[args.dtype].itemsize * (parse_block_range(args)[1] or cfg.num_hidden_layers)
     )
 

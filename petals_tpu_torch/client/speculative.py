@@ -83,6 +83,7 @@ def make_local_draft_fn(model_path: str, *, dtype: torch.dtype = torch.float32, 
     (``device``: the CUDA card unless the CPU is asked for), re-running the
     context for each proposed token."""
     from petals_tpu_torch.client.from_pretrained import load_client_params
+    from petals_tpu_torch.models.registry import num_kv_heads
     from petals_tpu_torch.server.from_pretrained import get_block_config, load_block_params
     from petals_tpu_torch.utils.device import resolve_device
 
@@ -91,7 +92,7 @@ def make_local_draft_fn(model_path: str, *, dtype: torch.dtype = torch.float32, 
     client_params = load_client_params(model_path, dtype=dtype, device=device, family=family, cfg=cfg)
     blocks = [load_block_params(model_path, i, dtype=dtype, device=device, family=family, cfg=cfg)
               for i in range(cfg.num_hidden_layers)]
-    kv_shape = (cfg.num_key_value_heads, cfg.head_dim)
+    kv_shape = (num_kv_heads(cfg), cfg.head_dim)
 
     @torch.no_grad()
     def draft(context: np.ndarray, k: int) -> np.ndarray:

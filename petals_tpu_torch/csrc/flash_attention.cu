@@ -63,7 +63,7 @@
 
 namespace {
 
-using namespace hopper;  // the wgmma layout, descriptors and products
+using namespace hopper;  // the wgmma layout, descriptors and products; group_tiles
 
 constexpr float NEG_INF = -0.7f * 3.4028234663852886e38f;  // DEFAULT_MASK_VALUE
 
@@ -266,12 +266,15 @@ __global__ void __launch_bounds__(NT) flash_attention_kernel(
 
 // ---------------------------------------------------------------------------
 // bf16: wgmma. One warpgroup (128 threads) owns a block of 64 "rows": QP =
-// 64 / group query positions x the group's query heads of one kv head (row
-// m = position * group + head; 64 - QP * group rows idle when the group does
-// not divide 64), so each K/V tile is loaded once into shared memory and read
-// by the whole GQA group. Grid (hkv, batch, n_q_tiles), the query tile taken
-// in reverse (the tiles with the most KV under the causal frontier start
-// first).
+// 64 / tile query positions x the query heads of one group tile of one kv
+// head (row m = position * tile + head; 64 - QP * tile rows idle when the
+// tile does not divide 64), so each K/V tile is loaded once into shared
+// memory and read by the whole group tile. A group of at most 16 is one tile;
+// a wider one (Falcon-7B's 71) is cut by group_tiles (hopper_wgmma.cuh) into
+// tiles of at most 16 heads, one grid index each over the same kv head, the
+// ragged last tile's idle heads masked like idle rows. Grid (hkv * group
+// tiles, batch, n_q_tiles), the query tile taken in reverse (the tiles with
+// the most KV under the causal frontier start first).
 //
 // Shared memory, 1024-byte aligned: Q [64 rows x D], then STAGES stages of
 // K and V tiles [64 kv rows x D]. Every tile is stored as D / 64 column
@@ -365,9 +368,12 @@ __global__ void __launch_bounds__(WG_THREADS, 2) flash_wgmma_kernel(
   const uint32_t raw_base = smem_u32(wg_smem_raw);
   const uint32_t base = (raw_base + 1023) & ~1023u;
 
-  const int group = hq / hkv;
+  const GroupTiles gt_of = group_tiles(hq / hkv);
+  const int group = gt_of.size;    // heads of a (full) group tile: the row packing's stride
   const int qp = WG_ROWS / group;  // query positions of a block
-  const int kvh = blockIdx.x, b = blockIdx.y;
+  const int kvh = blockIdx.x / gt_of.n, b = blockIdx.y;
+  const int h0 = kvh * (hq / hkv) + blockIdx.x % gt_of.n * group;  // this tile's first query head
+  const int heads = min(group, hq / hkv - blockIdx.x % gt_of.n * group);  // the ragged last tile's real heads
   const int tile = gridDim.z - 1 - blockIdx.z;  // heaviest first
   const int pos0 = tile * qp;                   // the block's first position in the chunk
   const int tid = threadIdx.x, warp = tid / WARP, lane = tid % WARP;
@@ -380,12 +386,13 @@ __global__ void __launch_bounds__(WG_THREADS, 2) flash_wgmma_kernel(
   const int kv_lo = window > 0 ? max(0, p_first - window + 1) : 0;
   const int n_tiles = kv_hi > kv_lo ? (kv_hi - kv_lo + WG_KV - 1) / WG_KV : 0;
 
-  // Q: row m = position * group + head; idle rows and rows past q_len zero-fill
+  // Q: row m = position * group + head; idle rows, a ragged tile's idle
+  // heads and rows past q_len zero-fill
   for (int e = tid; e < WG_ROWS * CH; e += WG_THREADS) {
     const int m = e / CH, c = e % CH;
     const int pos = m / group, h = m % group;
-    const bool ok = pos < qp && pos0 + pos < q_len;
-    const __nv_bfloat16* src = ok ? q + b * q_sb + (long)(pos0 + pos) * q_ss + (long)(kvh * group + h) * q_sh + c * 8 : q;
+    const bool ok = pos < qp && pos0 + pos < q_len && h < heads;
+    const __nv_bfloat16* src = ok ? q + b * q_sb + (long)(pos0 + pos) * q_ss + (long)(h0 + h) * q_sh + c * 8 : q;
     cp_async16(base + (c / 8) * ATOM_BYTES + m * 128 + (((c % 8) ^ (m % 8)) * 16), src, ok);
   }
   asm volatile("cp.async.commit_group;\n" ::: "memory");
@@ -417,9 +424,9 @@ __global__ void __launch_bounds__(WG_THREADS, 2) flash_wgmma_kernel(
     const int m = 16 * warp + lane / 4 + 8 * j;
     const int pos = m / group;
     head[j] = m % group;
-    real[j] = pos < qp && pos0 + pos < q_len;
+    real[j] = pos < qp && pos0 + pos < q_len && head[j] < heads;
     q_pos[j] = p_first + pos;
-    slope[j] = slopes != nullptr ? slopes[kvh * group + head[j]] * LOG2E : 0.f;
+    slope[j] = slopes != nullptr && head[j] < heads ? slopes[h0 + head[j]] * LOG2E : 0.f;
   }
   const float qk_scale = scale * LOG2E;
   const int col0 = 2 * (lane % 4);
@@ -499,7 +506,7 @@ __global__ void __launch_bounds__(WG_THREADS, 2) flash_wgmma_kernel(
 #pragma unroll
   for (int j = 0; j < 2; ++j) {
     if (!real[j]) continue;
-    __nv_bfloat16* row = out + (((long)b * q_len + (q_pos[j] - q_offset)) * hq + kvh * group + head[j]) * D;
+    __nv_bfloat16* row = out + (((long)b * q_len + (q_pos[j] - q_offset)) * hq + h0 + head[j]) * D;
 #pragma unroll
     for (int i = 2 * j; i < D / 2; i += 4) {
       *reinterpret_cast<__nv_bfloat162*>(row + 8 * (i / 4) + col0) =
@@ -540,8 +547,7 @@ int launch_wgmma(const void* q, const void* k, const void* v, const float* slope
                  int kv_buf_len, int window, float scale, cudaStream_t stream) {
   constexpr int kMaxDevices = 64;
   static bool configured[kMaxDevices] = {};  // the shared-memory attribute, per device
-  const int group = hq / hkv;
-  if (group > WG_ROWS) return (int)cudaErrorInvalidValue;
+  const GroupTiles gt = group_tiles(hq / hkv);
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return (int)err;
@@ -551,8 +557,8 @@ int launch_wgmma(const void* q, const void* k, const void* v, const float* slope
     if (err != cudaSuccess) return (int)err;
     if (dev < kMaxDevices) configured[dev] = true;
   }
-  const int qp = WG_ROWS / group;
-  flash_wgmma_kernel<D><<<dim3(hkv, batch, (q_len + qp - 1) / qp), WG_THREADS, WgmmaSmem<D>::BYTES, stream>>>(
+  const int qp = WG_ROWS / gt.size;
+  flash_wgmma_kernel<D><<<dim3(hkv * gt.n, batch, (q_len + qp - 1) / qp), WG_THREADS, WgmmaSmem<D>::BYTES, stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), slopes, static_cast<__nv_bfloat16*>(out), q_len, hq, hkv, q_sb,
       q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, q_offset, kv_length, kv_buf_len, window, scale);

@@ -2,7 +2,8 @@
 // layout, descriptors and products the port's wgmma kernels share
 // (flash_attention.cu's flash_wgmma_kernel, paged_attention.cu's
 // paged_prefill_wgmma_kernel, quant_matmul.cu's quant_prefill_kernel, which
-// also takes smem_u32 and pack_bf16 for its decode kernel).
+// also takes smem_u32 and pack_bf16 for its decode kernel), and the attention
+// kernels' rule for tiling a wide GQA group (group_tiles).
 //
 // Tiles live in shared memory as column atoms of [64 rows x 128 bytes]
 // (64 bf16 values a row, 8 KB an atom) in wgmma's 128-byte swizzle: 16-byte
@@ -19,6 +20,25 @@
 #include <stdint.h>
 
 namespace hopper {
+
+// The wide-group arm of the attention kernels. A GQA group of more than
+// GROUP_TILE query heads (Falcon-7B attends 71 over one kv head, Falcon-180B
+// 29 a kv head) is cut into n = ceil(group / GROUP_TILE) tiles of size =
+// ceil(group / n) heads; each tile is one more grid index over the same kv
+// head, and the last tile is ragged (group - (n - 1) * size heads; 71 and 29
+// are prime), its idle rows masked. A group of at most GROUP_TILE is one
+// tile, as before. petals_tpu_torch/ops/attention.py group_tiles is the same
+// rule on the host.
+constexpr int GROUP_TILE = 16;
+
+struct GroupTiles {
+  int n, size;
+};
+
+__host__ __device__ inline GroupTiles group_tiles(int group) {
+  const int n = (group + GROUP_TILE - 1) / GROUP_TILE;
+  return {n, (group + n - 1) / n};
+}
 
 constexpr int WG_THREADS = 128;       // a warpgroup: four warps
 constexpr int ATOM_BYTES = 64 * 128;  // one [64 rows x 64 bf16] swizzled atom

@@ -83,7 +83,9 @@ namespace {
 
 constexpr float NEG_INF = -0.7f * 3.4028234663852886e38f;  // DEFAULT_MASK_VALUE
 constexpr int WARP = 32;
-constexpr int MAX_GROUP = 16;  // query heads per kv head
+using hopper::group_tiles;
+using hopper::GroupTiles;
+constexpr int MAX_GROUP = hopper::GROUP_TILE;  // query heads of a decode block (a group tile)
 
 // pool storage: floating point (the query's type), int8 codes, nf4a bytes
 constexpr int KV_FP = 0;
@@ -185,7 +187,11 @@ __device__ __forceinline__ void cp_async_wait() {
 }
 
 // ---------------------------------------------------------------------------
-// decode: grid (n_lanes, hkv, n_splits), DEC_THREADS threads. The slots a
+// decode: grid (n_lanes, hkv * group tiles, n_splits), DEC_THREADS threads.
+// Block (lane, kvh * n_tiles + gt, split) computes group tile gt of kv head
+// kvh: its gn <= GMAX query heads (group_tiles; a group of at most 16 is one
+// tile, the last tile of a wider one ragged), reading the kv head's pages
+// once for them (a wider group reads them once a tile). The slots a
 // lane needs, [max(0, kv_len - window), kv_len) within its table, are cut
 // into n_splits contiguous runs of the same length, rounded up to
 // SPLIT_ROWS (the last run shorter, trailing runs empty on a short lane):
@@ -305,22 +311,27 @@ __global__ void __launch_bounds__(DEC_THREADS) paged_decode_kernel(
     const int* __restrict__ positions,   // [n_lanes]; kv_len = position + 1
     const float* __restrict__ slopes,    // [hq] ALiBi slopes or nullptr
     T* __restrict__ out,                 // [n_lanes, hq, D]
-    float2* __restrict__ part_ml,        // [n_lanes, hkv, n_splits, group] (m, l); n_splits > 1
-    float* __restrict__ part_acc,        // [n_lanes, hkv, n_splits, group, D]
-    unsigned* __restrict__ tickets,      // [n_lanes * hkv], all 0 between launches
+    float2* __restrict__ part_ml,        // [n_lanes, hkv * n_tiles, n_splits, tile] (m, l); n_splits > 1
+    float* __restrict__ part_acc,        // [n_lanes, hkv * n_tiles, n_splits, tile, D]
+    unsigned* __restrict__ tickets,      // [n_lanes * hkv * n_tiles], all 0 between launches
     int hq, int hkv, int n_pages, int page_size, int max_pages, int window, float scale) {
   using S = DecodeShape<T, D, KV>;
   constexpr int TR = S::TR, TPR = S::TPR, PITCH = S::PITCH, NCH = S::NCH, STAGES = S::STAGES;
   constexpr int CN = chunk_values<T, KV>();
   constexpr int RUN = KV == KV_NF4A ? CN / 2 : CN;  // contiguous dims of a chunk's first run
-  const int lane_idx = blockIdx.x, kvh = blockIdx.y, split = blockIdx.z, n_splits = gridDim.z;
-  const int group = hq / hkv;
+  const int lane_idx = blockIdx.x, split = blockIdx.z, n_splits = gridDim.z;
+  const GroupTiles gt_of = group_tiles(hq / hkv);
+  // this block's group tile: kv head kvh's query heads [h0, h0 + group)
+  const int vh = blockIdx.y, kvh = vh / gt_of.n, gt = vh % gt_of.n, n_vh = hkv * gt_of.n;
+  const int h0 = kvh * (hq / hkv) + gt * gt_of.size;
+  const int group = min(gt_of.size, hq / hkv - gt * gt_of.size);  // the ragged last tile's idle rows are never touched
+  const int tile = gt_of.size;  // the partials' row stride
   const int tid = threadIdx.x, warp = tid / WARP, wl = tid % WARP;
 
   extern __shared__ __align__(16) char smem[];
   float* q_s = reinterpret_cast<float*>(smem + S::RING_BYTES);  // [group][D]
-  float* p_s = q_s + group * D;                                 // [group][TR]
-  float* m_s = p_s + group * TR;                                // [GMAX] running max
+  float* p_s = q_s + tile * D;                                  // [group][TR]
+  float* m_s = p_s + tile * TR;                                 // [GMAX] running max
   float* l_s = m_s + GMAX;                                      // [GMAX] running sum
   float* a_s = l_s + GMAX;                                      // [GMAX] this tile's rescale
   float* sl_s = a_s + GMAX;                                     // [GMAX] ALiBi slopes
@@ -345,12 +356,12 @@ __global__ void __launch_bounds__(DEC_THREADS) paged_decode_kernel(
 
   for (int i = tid; i < group * D; i += DEC_THREADS) {
     const int g = i / D, d = i - g * D;
-    q_s[i] = to_f32(q[((long)lane_idx * hq + kvh * group + g) * D + d]);
+    q_s[i] = to_f32(q[((long)lane_idx * hq + h0 + g) * D + d]);
   }
   if (tid < group) {
     m_s[tid] = NEG_INF;
     l_s[tid] = 0.f;
-    sl_s[tid] = slopes != nullptr ? slopes[kvh * group + tid] : 0.f;
+    sl_s[tid] = slopes != nullptr ? slopes[h0 + tid] : 0.f;
   }
 
   // issue tile i's copies into its stage: rows past `hi` or on a hole
@@ -522,11 +533,11 @@ __global__ void __launch_bounds__(DEC_THREADS) paged_decode_kernel(
         if (n_splits == 1) {
           // a lane with no needed slot keeps l == 0 and writes exact zeros
           const float inv = 1.f / fmaxf(l_s[g], 1e-30f);
-          T* o = out + ((long)lane_idx * hq + kvh * group + g) * D;
+          T* o = out + ((long)lane_idx * hq + h0 + g) * D;
           o[dims.x] = from_f32<T>(acc[g][0] * inv);
           o[dims.y] = from_f32<T>(acc[g][1] * inv);
         } else {
-          float* pa = part_acc + ((((long)lane_idx * hkv + kvh) * n_splits + split) * group + g) * D;
+          float* pa = part_acc + ((((long)lane_idx * n_vh + vh) * n_splits + split) * tile + g) * D;
           pa[dims.x] = acc[g][0];
           pa[dims.y] = acc[g][1];
         }
@@ -534,13 +545,13 @@ __global__ void __launch_bounds__(DEC_THREADS) paged_decode_kernel(
     }
   }
   if (n_splits == 1) return;
-  const long ml0 = ((long)lane_idx * hkv + kvh) * n_splits * group;  // this (lane, kvh)'s first partial
-  if (tid < group) part_ml[ml0 + (long)split * group + tid] = make_float2(m_s[tid], l_s[tid]);
+  const long ml0 = ((long)lane_idx * n_vh + vh) * n_splits * tile;  // this (lane, group tile)'s first partial
+  if (tid < group) part_ml[ml0 + (long)split * tile + tid] = make_float2(m_s[tid], l_s[tid]);
 
   // the last block of this (lane, kvh) to arrive merges every split
   __threadfence();  // this thread's partial is visible device-wide before the ticket
   __syncthreads();
-  if (tid == 0) last = atomicAdd(tickets + (long)lane_idx * hkv + kvh, 1u) == (unsigned)n_splits - 1;
+  if (tid == 0) last = atomicAdd(tickets + (long)lane_idx * n_vh + vh, 1u) == (unsigned)n_splits - 1;
   __syncthreads();
   if (!last) return;
   __threadfence();
@@ -549,19 +560,20 @@ __global__ void __launch_bounds__(DEC_THREADS) paged_decode_kernel(
   // per query row the weights w[s] = exp(m_s - M) of the splits that saw
   // something (written over m_s) and the merged denominator L; then every
   // output element, in split order, its loads independent of each other
-  float2* ml_s = reinterpret_cast<float2*>(smem);  // [n_splits][group], inside the ring
+  float2* ml_s = reinterpret_cast<float2*>(smem);  // [n_splits][tile], inside the ring
   float* big_l = p_s;                              // [group]
-  for (int e = tid; e < n_splits * group; e += DEC_THREADS) ml_s[e] = __ldcg(part_ml + ml0 + e);
+  for (int e = tid; e < n_splits * tile; e += DEC_THREADS)
+    if (e % tile < group) ml_s[e] = __ldcg(part_ml + ml0 + e);  // a ragged tile's idle rows were never written
   __syncthreads();
   if (tid < group) {
     float mx = NEG_INF;
     for (int s = 0; s < n_splits; ++s)
-      if (ml_s[s * group + tid].y > 0.f) mx = fmaxf(mx, ml_s[s * group + tid].x);
+      if (ml_s[s * tile + tid].y > 0.f) mx = fmaxf(mx, ml_s[s * tile + tid].x);
     float l = 0.f;
     for (int s = 0; s < n_splits; ++s) {
-      const float2 ml = ml_s[s * group + tid];
+      const float2 ml = ml_s[s * tile + tid];
       const float w = ml.y > 0.f ? expf(ml.x - mx) : 0.f;
-      ml_s[s * group + tid].x = w;
+      ml_s[s * tile + tid].x = w;
       l += w * ml.y;
     }
     big_l[tid] = l;
@@ -572,10 +584,10 @@ __global__ void __launch_bounds__(DEC_THREADS) paged_decode_kernel(
     const int g = e / D, d = e - g * D;
     float o = 0.f;
 #pragma unroll 4
-    for (int s = 0; s < n_splits; ++s) o += ml_s[s * group + g].x * __ldcg(pa0 + ((long)s * group + g) * D + d);
-    out[((long)lane_idx * hq + kvh * group + g) * D + d] = from_f32<T>(o / fmaxf(big_l[g], 1e-30f));
+    for (int s = 0; s < n_splits; ++s) o += ml_s[s * tile + g].x * __ldcg(pa0 + ((long)s * tile + g) * D + d);
+    out[((long)lane_idx * hq + h0 + g) * D + d] = from_f32<T>(o / fmaxf(big_l[g], 1e-30f));
   }
-  if (tid == 0) tickets[(long)lane_idx * hkv + kvh] = 0u;  // ready for the next launch
+  if (tid == 0) tickets[(long)lane_idx * n_vh + vh] = 0u;  // ready for the next launch
 }
 
 // ---------------------------------------------------------------------------
@@ -802,13 +814,17 @@ __global__ void __launch_bounds__(NT) paged_prefill_kernel(
 // chunked prefill, bf16 queries: wgmma (K2, and K3's prefill arms on int8 /
 // nf4a pools). K4's design (flash_attention.cu flash_wgmma_kernel) over one
 // lane's pages. A block has PF_WARPGROUPS (two) consumer warpgroups; each
-// owns 64 "rows": qp = 64 / group query positions x the group's query heads
-// of one kv head (row m = position * group + head; 64 - qp * group rows idle
-// when the group does not divide 64), so each K/V tile is loaded (and, from a
-// quantized pool, decoded) once into shared memory and read by every query
-// head of the kv head in both warpgroups. Grid (hkv, query tiles of 2 * qp
-// positions), the query tiles taken in reverse: the tiles with the most KV
-// under the causal frontier start first.
+// owns 64 "rows": qp = 64 / tile query positions x the query heads of one
+// group tile of one kv head (row m = position * tile + head; 64 - qp * tile
+// rows idle when the tile does not divide 64), so each K/V tile is loaded
+// (and, from a quantized pool, decoded) once into shared memory and read by
+// every query head of the group tile in both warpgroups. A group of at most
+// 16 is one tile (qp >= 4); a wider one is cut by group_tiles into tiles of
+// at most 16 heads, one grid index each, so qp stays >= 4 and a group of 71
+// is not squeezed into one position a warpgroup; the ragged last tile's idle
+// heads are masked like idle rows. Grid (hkv * group tiles, query tiles of
+// 2 * qp positions), the query tiles taken in reverse: the tiles with the
+// most KV under the causal frontier start first.
 //
 // A block reads the slots [kv_lo, kv_hi): from the first one the window
 // leaves its first position (rounded down to a tile) to the causal frontier
@@ -1000,9 +1016,12 @@ __global__ void __launch_bounds__(PF_THREADS, 1)
   const uint32_t base = (raw_base + 1023) & ~1023u;
   unsigned char* const smem = pf_smem_raw + (base - raw_base);  // the aligned base, generic
 
-  const int group = hq / hkv;
+  const GroupTiles gt_of = group_tiles(hq / hkv);
+  const int group = gt_of.size;  // heads of a (full) group tile: the row packing's stride
   const int qp = PF_ROWS / group;  // query positions of a warpgroup
-  const int kvh = blockIdx.x;
+  const int kvh = blockIdx.x / gt_of.n, gt = blockIdx.x % gt_of.n;
+  const int h0 = kvh * (hq / hkv) + gt * group;  // this tile's first query head
+  const int heads = min(group, hq / hkv - gt * group);  // the ragged last tile's real heads
   // read from the device, so one captured launch serves every chunk position
   const int chunk_pos = *chunk_pos_p, kv_len = chunk_pos + *n_valid_p;
   const int pos0 = (gridDim.y - 1 - blockIdx.y) * NWG * qp;  // the block's first position; heaviest first
@@ -1019,12 +1038,12 @@ __global__ void __launch_bounds__(PF_THREADS, 1)
   const int n_tiles = kv_hi > kv_lo ? (kv_hi - kv_lo + PF_KV - 1) / PF_KV : 0;
 
   // Q of each warpgroup w: row m = (position w * qp + m / group, head m %
-  // group); idle rows and rows past q_len zero-fill
+  // group); idle rows, a ragged tile's idle heads and rows past q_len zero-fill
   for (int e = tid; e < NWG * PF_ROWS * CH; e += NT) {
     const int w = e / (PF_ROWS * CH), m = e / CH % PF_ROWS, c = e % CH;
     const int pos = m / group, row = pos0 + w * qp + pos;
-    const bool ok = pos < qp && row < q_len;
-    const __nv_bfloat16* src = ok ? q + ((long)row * hq + kvh * group + m % group) * D + c * 8 : q;
+    const bool ok = pos < qp && row < q_len && m % group < heads;
+    const __nv_bfloat16* src = ok ? q + ((long)row * hq + h0 + m % group) * D + c * 8 : q;
     hopper::cp_async16(base + S::Q_OFF + w * S::TILE + sw128(m, c), src, ok);
   }
   cp_async_commit();
@@ -1084,9 +1103,9 @@ __global__ void __launch_bounds__(PF_THREADS, 1)
     const int m = 16 * warp + lane / 4 + 8 * j;
     const int pos = m / group, row = pos0 + wg * qp + pos;
     head[j] = m % group;
-    real[j] = pos < qp && row < q_len;
+    real[j] = pos < qp && row < q_len && head[j] < heads;
     q_pos[j] = chunk_pos + row;
-    slope[j] = slopes != nullptr ? slopes[kvh * group + head[j]] * LOG2E : 0.f;
+    slope[j] = slopes != nullptr && head[j] < heads ? slopes[h0 + head[j]] * LOG2E : 0.f;
   }
   // the warpgroup's first and last real positions, for the interior test
   const int wg_first = p_first + wg * qp;
@@ -1247,7 +1266,7 @@ __global__ void __launch_bounds__(PF_THREADS, 1)
 #pragma unroll
   for (int j = 0; j < 2; ++j) {
     if (!real[j]) continue;
-    __nv_bfloat16* row = out + ((long)(q_pos[j] - chunk_pos) * hq + kvh * group + head[j]) * D;
+    __nv_bfloat16* row = out + ((long)(q_pos[j] - chunk_pos) * hq + h0 + head[j]) * D;
 #pragma unroll
     for (int i = 2 * j; i < D / 2; i += 4) {
       *reinterpret_cast<__nv_bfloat162*>(row + 8 * (i / 4) + col0) =
@@ -1280,10 +1299,10 @@ int launch_decode(const void* q, const void* k_pool, const void* v_pool, const f
                   int n_lanes, int hq, int hkv, int n_pages, int page_size, int max_pages,
                   int n_splits, int window, float scale, cudaStream_t stream) {
   using S = DecodeShape<T, D, KV>;
-  const int group = hq / hkv;
+  const GroupTiles gt = group_tiles(hq / hkv);
   // the merge stages (m, l) per (query row, split) inside the ring
-  if (n_splits > 1 && ((size_t)group * n_splits * 2 * sizeof(float) > (size_t)S::RING_BYTES ||
-                       part_ml == nullptr || part_acc == nullptr || tickets == nullptr))
+  if (gt.size > GMAX || (n_splits > 1 && ((size_t)gt.size * n_splits * 2 * sizeof(float) > (size_t)S::RING_BYTES ||
+                                          part_ml == nullptr || part_acc == nullptr || tickets == nullptr)))
     return (int)cudaErrorInvalidValue;
   auto smem_for = [](int g) {
     return (size_t)S::RING_BYTES + ((size_t)g * D + (size_t)g * S::TR + 4 * GMAX) * sizeof(float);
@@ -1292,7 +1311,7 @@ int launch_decode(const void* q, const void* k_pool, const void* v_pool, const f
   static size_t configured[kMaxDevices] = {};
   cudaError_t err = allow_smem_once(kernel, smem_for(GMAX), configured);
   if (err != cudaSuccess) return (int)err;
-  kernel<<<dim3(n_lanes, hkv, n_splits), DEC_THREADS, smem_for(group), stream>>>(
+  kernel<<<dim3(n_lanes, hkv * gt.n, n_splits), DEC_THREADS, smem_for(gt.size), stream>>>(
       static_cast<const T*>(q), static_cast<const char*>(k_pool), static_cast<const char*>(v_pool),
       k_scales, v_scales, tables, positions, slopes, static_cast<T*>(out),
       static_cast<float2*>(part_ml), static_cast<float*>(part_acc), static_cast<unsigned*>(tickets),
@@ -1330,8 +1349,9 @@ int launch_prefill_wgmma(const void* q, const void* k_pool, const void* v_pool, 
   static size_t configured[kMaxDevices] = {};
   cudaError_t err = allow_smem_once(kernel, S::BYTES, configured);
   if (err != cudaSuccess) return (int)err;
-  const int per_block = S::NWG * (PF_ROWS / (hq / hkv));  // query positions of a block
-  kernel<<<dim3(hkv, (q_len + per_block - 1) / per_block), S::THREADS, S::BYTES, stream>>>(
+  const GroupTiles gt = group_tiles(hq / hkv);
+  const int per_block = S::NWG * (PF_ROWS / gt.size);  // query positions of a block
+  kernel<<<dim3(hkv * gt.n, (q_len + per_block - 1) / per_block), S::THREADS, S::BYTES, stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const char*>(k_pool), static_cast<const char*>(v_pool),
       k_scales, v_scales, table_row, chunk_pos, n_valid, slopes, static_cast<__nv_bfloat16*>(out), q_len, hq,
       hkv, n_pages, page_size, max_pages, window, scale);
@@ -1375,9 +1395,10 @@ int launch_prefill_any(int dtype, int kv, const void* q, const void* k_pool, con
 extern "C" {
 
 // Decode with each lane's needed slots cut into n_splits runs: with
-// n_splits > 1, part_ml is float32 scratch of [n_lanes, hkv, n_splits,
-// group, 2], part_acc of [n_lanes, hkv, n_splits, group, head_dim], and
-// tickets [n_lanes * hkv] uint32 zeros that the kernel leaves at zero.
+// n_splits > 1, part_ml is float32 scratch of [n_lanes, hkv * tiles,
+// n_splits, tile, 2], part_acc of [n_lanes, hkv * tiles, n_splits, tile,
+// head_dim], and tickets [n_lanes * hkv * tiles] uint32 zeros that the kernel
+// leaves at zero (tiles, tile: group_tiles of the GQA group).
 int ptt_paged_decode_attention(const void* q, const void* k_pool, const void* v_pool,
                                const void* k_scales, const void* v_scales, const void* tables,
                                const void* positions, const void* slopes, void* out, void* part_ml,
@@ -1392,9 +1413,9 @@ int ptt_paged_decode_attention(const void* q, const void* k_pool, const void* v_
   const float* sl = static_cast<const float*>(slopes);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (n_splits < 1 || (long)(n_splits - 1) * SPLIT_ROWS >= (long)max_pages * page_size ||
-      hkv < 1 || hq % hkv || hq / hkv > MAX_GROUP)
+      hkv < 1 || hq % hkv)
     return (int)cudaErrorInvalidValue;
-  const int gmax = hq / hkv <= 4 ? 4 : MAX_GROUP;
+  const int gmax = group_tiles(hq / hkv).size <= 4 ? 4 : MAX_GROUP;
 #define PTT_DECODE_KV(T, D, KV, G)                                                              \
   return launch_decode<T, D, KV, G>(q, k_pool, v_pool, ks, vs, t, p, sl, out, part_ml, part_acc, \
                                     tickets, n_lanes, hq, hkv, n_pages, page_size, max_pages,    \
@@ -1429,7 +1450,7 @@ int ptt_paged_prefill_attention(const void* q, const void* k_pool, const void* v
   const int* nv = static_cast<const int*>(n_valid);
   const float* sl = static_cast<const float*>(slopes);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (hkv < 1 || hq % hkv || hq / hkv > MAX_GROUP) return (int)cudaErrorInvalidValue;
+  if (hkv < 1 || hq % hkv) return (int)cudaErrorInvalidValue;
   if (head_dim == 64)
     return launch_prefill_any<64>(dtype, kv, q, k_pool, v_pool, ks, vs, t, cp, nv, sl, out, q_len, hq, hkv,
                                   n_pages, page_size, max_pages, window, scale, s);

@@ -1,5 +1,9 @@
-"""Model families served by the port: llama, mistral and qwen2."""
+"""Model families served by the port: llama, mistral and qwen2 (the llama
+block), bloom, falcon and mixtral."""
 
+import petals_tpu_torch.models.bloom  # noqa: F401  (registers "bloom")
+import petals_tpu_torch.models.falcon  # noqa: F401  (registers "falcon")
 import petals_tpu_torch.models.llama  # noqa: F401  (registers "llama")
 import petals_tpu_torch.models.mistral  # noqa: F401  (registers "mistral")
+import petals_tpu_torch.models.mixtral  # noqa: F401  (registers "mixtral")
 import petals_tpu_torch.models.qwen2  # noqa: F401  (registers "qwen2")

@@ -1,6 +1,7 @@
 """The client's embeddings, final norm and LM head for llama-layout
 families (``model.embed_tokens`` / ``model.norm`` / ``lm_head``, RMSNorm,
-optional weight tying), the port of petals_tpu/models/client_common.py:1-41.
+optional weight tying), the port of petals_tpu/models/client_common.py:1-41,
+and what the bloom and falcon client pieces share.
 The classification heads wait for A13 (ROADMAP.md)."""
 
 from __future__ import annotations
@@ -12,6 +13,15 @@ import torch
 from petals_tpu_torch.models.common import rms_norm
 
 LLAMA_STYLE_CLIENT_PREFIXES = ("model.embed_tokens.", "model.norm.", "lm_head.")
+
+
+def pick_tensor(tensors: dict, *names: str):
+    """The first of ``names`` the checkpoint holds (a full model's prefixed
+    name, or a bare model's)."""
+    for name in names:
+        if name in tensors:
+            return tensors[name]
+    raise KeyError(f"None of {names} found in checkpoint")
 
 
 def llama_style_hf_to_client_params(tensors: dict, cfg) -> dict:

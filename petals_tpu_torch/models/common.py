@@ -16,12 +16,32 @@ def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float) -> torch.Tensor:
     return (out * weight.float()).to(x.dtype)
 
 
+def layer_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor, eps: float) -> torch.Tensor:
+    xf = x.float()
+    mean = xf.mean(dim=-1, keepdim=True)
+    var = ((xf - mean) ** 2).mean(dim=-1, keepdim=True)
+    out = (xf - mean) * torch.rsqrt(var + eps)
+    return (out * weight.float() + bias.float()).to(x.dtype)
+
+
+def gelu_tanh(x: torch.Tensor) -> torch.Tensor:
+    """BLOOM's GeLU, the tanh approximation (HF BloomGelu)."""
+    xf = x.float()
+    out = 0.5 * xf * (1.0 + torch.tanh(0.79788456 * xf * (1.0 + 0.044715 * xf * xf)))
+    return out.to(x.dtype)
+
+
 def silu(x: torch.Tensor) -> torch.Tensor:
     xf = x.float()
     return (xf * torch.sigmoid(xf)).to(x.dtype)
 
 
-ACTIVATIONS = {"silu": silu}
+def gelu_exact(x: torch.Tensor) -> torch.Tensor:
+    """The exact (erf) GeLU, HF's ACT2FN["gelu"]."""
+    return torch.nn.functional.gelu(x.float()).to(x.dtype)
+
+
+ACTIVATIONS = {"silu": silu, "gelu_tanh": gelu_tanh, "gelu": gelu_exact}
 
 
 def mm(x: torch.Tensor, w) -> torch.Tensor:

@@ -1,0 +1,28 @@
+"""The mixtral family with its client fields: llama's embeddings, final
+RMSNorm and LM head (petals_tpu/models/mixtral/model.py, through
+models/client_common.py)."""
+
+from __future__ import annotations
+
+import dataclasses
+
+from petals_tpu_torch.models.client_common import (
+    LLAMA_STYLE_CLIENT_PREFIXES,
+    llama_style_client_embed,
+    llama_style_client_head,
+    llama_style_client_norm,
+    llama_style_hf_to_client_params,
+)
+from petals_tpu_torch.models.mixtral.block import FAMILY as BLOCK_FAMILY
+from petals_tpu_torch.models.registry import register_family
+
+FAMILY = register_family(
+    dataclasses.replace(
+        BLOCK_FAMILY,
+        hf_client_prefixes=LLAMA_STYLE_CLIENT_PREFIXES,
+        hf_to_client_params=llama_style_hf_to_client_params,
+        client_embed=llama_style_client_embed,
+        client_head=llama_style_client_head,
+        client_norm=llama_style_client_norm,
+    )
+)

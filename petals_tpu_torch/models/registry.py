@@ -32,6 +32,12 @@ class ModelFamily:
     client_norm: Optional[Callable] = None  # (params, hidden, cfg) -> final-norm'd hidden
 
 
+def num_kv_heads(cfg) -> int:
+    """The kv heads of a block config; a family without GQA (bloom) has no
+    ``num_key_value_heads`` and keeps one a query head, as petals_tpu reads it."""
+    return getattr(cfg, "num_key_value_heads", None) or cfg.num_attention_heads
+
+
 def register_family(family: ModelFamily) -> ModelFamily:
     _FAMILIES[family.name] = family
     return family

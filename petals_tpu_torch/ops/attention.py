@@ -13,11 +13,23 @@ slopes[h] * j.
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
 DEFAULT_MASK_VALUE = -0.7 * float(torch.finfo(torch.float32).max)
+# the attention kernels' wide-group arm: a GQA group of more than GROUP_TILE
+# query heads is cut into tiles, each one more grid index over its kv head
+# (csrc/hopper_wgmma.cuh group_tiles, the same rule)
+GROUP_TILE = 16
+
+
+def group_tiles(group: int) -> Tuple[int, int]:
+    """(n, size): a GQA group cut into n = ceil(group / GROUP_TILE) tiles of
+    ceil(group / n) query heads, the last one ragged (71 -> 5 tiles of 15,
+    the last of 11; 29 -> 2 of 15, the last of 14; 16 -> one of 16)."""
+    n = -(-group // GROUP_TILE)
+    return n, -(-group // n)
 
 
 def attend(
@@ -40,8 +52,10 @@ def attend(
     8) goes to the flash-attention kernel (ops/flash_attention.py), which
     launches on CUDA tensors or raises. Decode shapes and per-lane (vector)
     positions take ``attend_reference``, the port of the JAX package's XLA
-    path. Not ported: ``causal=False``, ``logit_softcap``, ``tp_mesh`` and
-    ring attention (no served family of the port needs them yet)."""
+    path. ALiBi slopes (BLOOM, Falcon-RW) and GQA groups of up to 71 query
+    heads a kv head (Falcon-7B; ``group_tiles``) reach every kernel. Not
+    ported: ``causal=False``, ``logit_softcap`` (gemma2, A12b), ``tp_mesh``
+    and ring attention."""
     from petals_tpu_torch.ops.paged_attention import PagedKV
 
     if isinstance(k, PagedKV):

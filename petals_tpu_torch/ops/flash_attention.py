@@ -45,9 +45,11 @@ from petals_tpu_torch.telemetry.observatory import count_launch
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (64, 128)
 MIN_FLASH_Q_LEN = 8  # below this a step is a decode shape: plain attention
-# rows of one bf16 block: 64 // group query positions x the GQA group's heads,
-# so a K/V tile in shared memory serves every query head of its kv head
-_WGMMA_ROWS = 64
+# the widest GQA group the bf16 (wgmma) kernel is tested at on the card:
+# Falcon-7B's 71 query heads over one kv head. A block packs 64 rows of query
+# positions x the heads of a group tile (ops/attention.py group_tiles: a
+# group of more than 16 is cut into tiles, one grid index each)
+_MAX_GROUP = 71
 _LIB: Optional[ctypes.CDLL] = None
 
 
@@ -203,9 +205,9 @@ def flash_attend(
     kv_buf_len, hkv = k.shape[1], k.shape[2]
     if hkv == 0 or hq % hkv:
         raise ValueError(f"query heads {hq} not a multiple of kv heads {hkv}")
-    if q.dtype == torch.bfloat16 and hq // hkv > _WGMMA_ROWS:
-        raise ValueError(f"{hq} query heads over {hkv} kv heads: the bf16 kernel packs a group into "
-                         f"{_WGMMA_ROWS} rows, so it takes a group of at most {_WGMMA_ROWS}")
+    if q.dtype == torch.bfloat16 and hq // hkv > _MAX_GROUP:
+        raise ValueError(f"{hq} query heads over {hkv} kv heads: the bf16 kernel is tested at a group of "
+                         f"at most {_MAX_GROUP}")
     if alibi_slopes is not None:
         if alibi_slopes.dtype != torch.float32 or tuple(alibi_slopes.shape) != (hq,) or not alibi_slopes.is_contiguous():
             raise ValueError(f"alibi_slopes must be contiguous float32 [{hq}], got {alibi_slopes.dtype} {tuple(alibi_slopes.shape)}")

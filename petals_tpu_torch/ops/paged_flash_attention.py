@@ -18,7 +18,11 @@ petals_tpu/ops/paged_flash_attention.py, with their quantized arms
 (``_quant_k_scores``, ``_quant_pv``); the source says what bounds them and
 how their design answers that. A bf16 prefill call runs
 ``paged_prefill_wgmma_kernel`` (tensor cores), a float32 one the CUDA-core
-``paged_prefill_kernel``; both skip holes, as the TPU kernels do.
+``paged_prefill_kernel``; both skip holes, as the TPU kernels do. A GQA
+group of more than 16 query heads (Falcon-7B's 71 over one kv head) is cut
+into tiles of at most 16 heads (ops/attention.py ``group_tiles``), each one
+more grid index over its kv head; the wrappers take groups up to
+``_MAX_GROUP``, the widest the kernels are tested at on the card.
 """
 
 from __future__ import annotations
@@ -28,6 +32,7 @@ from typing import Optional
 
 import torch
 
+from petals_tpu_torch.ops.attention import group_tiles
 from petals_tpu_torch.ops.paged_attention import PagedPool, kv_quant_kind_of, paged_attend, paged_prefill_attend
 from petals_tpu_torch.telemetry.observatory import count_launch
 
@@ -35,7 +40,9 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _KV_CODES = {"int8": 1, "nf4a": 2}  # 0: a floating-point pool
 _CODES_DTYPES = {"int8": torch.int8, "nf4a": torch.uint8}
 _HEAD_DIMS = (64, 128)
-_MAX_GROUP = 16
+# the widest GQA group the kernels are tested at on the card: Falcon-7B's 71
+# query heads over one kv head (five group tiles, the last of 11 heads)
+_MAX_GROUP = 71
 _MAX_PAGE_SIZE = 128
 _LIB: Optional[ctypes.CDLL] = None
 
@@ -61,19 +68,23 @@ def kernel_library() -> ctypes.CDLL:
 SPLIT_ROWS = 64  # a decode split's slots are a multiple of this (csrc SPLIT_ROWS)
 
 
-def decode_split_plan(n_lanes: int, hkv: int, max_rows: int, n_sm: int) -> int:
+def decode_split_plan(n_lanes: int, hkv: int, max_rows: int, n_sm: int, group: int = 1) -> int:
     """How many splits the decode kernel cuts each lane's needed slots into,
-    so that the grid (n_lanes x hkv x n_splits blocks, two resident on an
-    SM) covers the card: as many as keep the grid within 2 * n_sm blocks,
+    so that the grid (n_lanes x hkv x group tiles x n_splits blocks, two
+    resident on an SM; a GQA ``group`` of more than 16 query heads is cut
+    into ``group_tiles``, each a block of its own) covers the card: as many
+    as keep the grid within 2 * n_sm blocks,
     at most one per SPLIT_ROWS of ``max_rows`` (the most slots a lane can
     need: its table's capacity, or the window if that is shorter), and one
     (output written directly, no merge) where the lanes alone fill it. The
     kernel cuts each lane's own range [max(0, kv_len - window), kv_len),
     which lives on the card, into that many runs of equal length rounded up
     to SPLIT_ROWS. Pure: the same arguments give the same count."""
-    if n_lanes < 1 or hkv < 1 or max_rows < 1 or n_sm < 1:
-        raise ValueError(f"bad decode shape: {n_lanes} lanes, {hkv} kv heads, {max_rows} rows, {n_sm} SMs")
-    return min(-(-max_rows // SPLIT_ROWS), max(1, (2 * n_sm) // (n_lanes * hkv)))
+    if n_lanes < 1 or hkv < 1 or max_rows < 1 or n_sm < 1 or group < 1:
+        raise ValueError(f"bad decode shape: {n_lanes} lanes, {hkv} kv heads, {max_rows} rows, {n_sm} SMs, "
+                         f"group {group}")
+    heads = hkv * group_tiles(group)[0]
+    return min(-(-max_rows // SPLIT_ROWS), max(1, (2 * n_sm) // (n_lanes * heads)))
 
 
 _SM_COUNT = {}
@@ -268,12 +279,14 @@ def paged_flash_attend(
     if n_lanes == 0 or max_pages == 0:
         return out.zero_().reshape(n_lanes // q_len, q_len, hq, d)
     max_rows = max_pages * page_size if sliding_window is None else min(max_pages * page_size, int(sliding_window))
-    n_splits = decode_split_plan(n_lanes, hkv, max_rows, _sm_count(q.device))
+    n_splits = decode_split_plan(n_lanes, hkv, max_rows, _sm_count(q.device), hq // hkv)
     scratch = (None, None, None)
     if n_splits > 1:  # float32 partials (m, l) and acc of every split, and the merge's counters
-        part_ml = torch.empty((n_lanes, hkv, n_splits, hq // hkv, 2), dtype=torch.float32, device=q.device)
-        part_acc = torch.empty((n_lanes, hkv, n_splits, hq // hkv, d), dtype=torch.float32, device=q.device)
-        scratch = (part_ml.data_ptr(), part_acc.data_ptr(), merge_tickets(q.device, n_lanes * hkv).data_ptr())
+        n_tiles, tile = group_tiles(hq // hkv)
+        heads = hkv * n_tiles  # a (kv head, group tile) each
+        part_ml = torch.empty((n_lanes, heads, n_splits, tile, 2), dtype=torch.float32, device=q.device)
+        part_acc = torch.empty((n_lanes, heads, n_splits, tile, d), dtype=torch.float32, device=q.device)
+        scratch = (part_ml.data_ptr(), part_acc.data_ptr(), merge_tickets(q.device, n_lanes * heads).data_ptr())
     lib = kernel_library()
     with torch.cuda.device(q.device):
         err = lib.ptt_paged_decode_attention(

@@ -120,7 +120,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from petals_tpu_torch.models.registry import ModelFamily
+from petals_tpu_torch.models.registry import ModelFamily, num_kv_heads
 from petals_tpu_torch.ops import fingerprint as fp_ops
 from petals_tpu_torch.ops.paged_attention import (
     KV_QUANT_KINDS,
@@ -274,7 +274,7 @@ class TransformerBackend:
         self.use_flash = self.device.type == "cuda" if use_flash is None else bool(use_flash)
         self.compute_dtype = compute_dtype
         self.max_chunk_size_bytes = max_chunk_size_bytes
-        self.num_kv_heads = cfg.num_key_value_heads
+        self.num_kv_heads = num_kv_heads(cfg)
         self.head_dim = cfg.head_dim
         self.hidden_size = cfg.hidden_size
         # the step programs (CUDA graphs, on a card only); every graph of
@@ -1229,7 +1229,8 @@ class TransformerBackend:
         """The longest chunk whose activations fit ``max_chunk_size_bytes``
         (the linear sizing of ``chunk_plan``)."""
         per_token = batch * self.compute_dtype.itemsize * (
-            2 * self.hidden_size + self.cfg.intermediate_size + self.cfg.num_attention_heads * self.head_dim
+            2 * self.hidden_size + getattr(self.cfg, "intermediate_size", 4 * self.hidden_size)
+            + self.cfg.num_attention_heads * self.head_dim
         )
         return max(self.max_chunk_size_bytes // max(per_token, 1), 1)
 

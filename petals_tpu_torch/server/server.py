@@ -111,8 +111,9 @@ from petals_tpu_torch.data_structures import ServerInfo, ServerState
 from petals_tpu_torch.dht.identity import Identity
 from petals_tpu_torch.dht.node import DHTNode, dht_time
 from petals_tpu_torch.dht.routing import PeerAddr
+from petals_tpu_torch.models.registry import num_kv_heads
 from petals_tpu_torch.ops import fingerprint as fp_ops
-from petals_tpu_torch.ops import flash_attention, paged_flash_attention, quant_matmul
+from petals_tpu_torch.ops import flash_attention, grouped_matmul, paged_flash_attention, quant_matmul
 from petals_tpu_torch.ops.paged_attention import KV_QUANT_KINDS
 from petals_tpu_torch.rpc.serialization import CompressionType
 from petals_tpu_torch.rpc.server import RpcServer
@@ -273,7 +274,7 @@ class Server:
         self.compression = CompressionType(compression)
         self.memory_cache = MemoryCache(attn_cache_bytes, max_alloc_timeout)
         if inference_max_length is None:
-            hq, hkv = self.cfg.num_attention_heads, self.cfg.num_key_value_heads
+            hq, hkv = self.cfg.num_attention_heads, num_kv_heads(self.cfg)
             inference_max_length = 8192 if hkv < hq else 2048
         self.inference_max_length = inference_max_length
         self.session_timeout, self.step_timeout = session_timeout, step_timeout
@@ -455,6 +456,8 @@ class Server:
             await asyncio.to_thread(flash_attention.kernel_library)
             if self.quant_type != QuantType.NONE.value:
                 await asyncio.to_thread(quant_matmul.kernel_library)
+            if self.family.block_arch == "mixtral":  # its sparse experts' grouped product
+                await asyncio.to_thread(grouped_matmul.kernel_library)
         if self._throughput_spec == "auto":
             network_mbps = await self._resolve_network_mbps()
             self._rps_info = await asyncio.to_thread(

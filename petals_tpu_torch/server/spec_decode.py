@@ -44,6 +44,7 @@ import numpy as np
 import torch
 
 from petals_tpu_torch.telemetry.observatory import CudaGraphCapture, TrackedGraph
+from petals_tpu_torch.models.registry import num_kv_heads
 
 logger = logging.getLogger(__name__)
 
@@ -81,7 +82,7 @@ class DraftModel:
         self.window = int(window)
         self.compute_dtype = compute_dtype
         self.device = torch.device(device) if device is not None else client_params["embed"].device
-        self.num_kv_heads = cfg.num_key_value_heads
+        self.num_kv_heads = num_kv_heads(cfg)
         self.head_dim = cfg.head_dim
         self._program = None
         if self.device.type == "cuda":

@@ -86,8 +86,8 @@ def get_server_throughput(
         {
             "family": family.name,
             "hidden": cfg.hidden_size,
-            "intermediate": cfg.intermediate_size,
-            "kv_heads": cfg.num_key_value_heads,
+            "intermediate": getattr(cfg, "intermediate_size", None),
+            "kv_heads": getattr(cfg, "num_key_value_heads", None),
             "head_dim": cfg.head_dim,
             "layers_probed": 1,
             "dtype": str(compute_dtype).removeprefix("torch."),

@@ -10,6 +10,7 @@ from typing import Dict, Set
 import torch
 
 from petals_tpu_torch.ops.quant import QUANTIZED_TYPES, quantize
+from petals_tpu_torch.utils.convert import _stack
 
 
 class QuantType(str, enum.Enum):
@@ -23,12 +24,18 @@ class QuantType(str, enum.Enum):
     INT4_O = "int4+o"
 
 
-# The matmul weights of each block architecture (norms and biases stay dense).
+# The matmul weights of each block architecture (norms, biases and
+# Mixtral's router stay dense). Mixtral's expert stacks (3-D leaves [E, in,
+# out]) are quantized expert by expert.
 QUANTIZABLE_LEAVES: Dict[str, Set[str]] = {
     "llama": {"wq", "wk", "wv", "wo", "wg", "wu", "wd"},
+    "bloom": {"wq", "wk", "wv", "wo", "w_up", "w_down"},
+    "falcon": {"wq", "wk", "wv", "wo", "w_up", "w_down"},
+    "mixtral": {"wq", "wk", "wv", "wo", "w1", "w2", "w3"},
 }
 
-# Leaves fused into one matmul each: fewer kernel launches per block. Fusion
+# Leaves fused into one matmul each: fewer kernel launches per block (none
+# for bloom, falcon and mixtral, as in the JAX package). Fusion
 # happens on the DENSE weights before quantization; every kind's scales are
 # per output column, so the fused leaf quantizes to the same bytes as the
 # parts side by side.
@@ -81,6 +88,12 @@ def convert_block_params(params: dict, family_name: str, quant_type, *, fuse: bo
         leaf = params.pop(name)
         if name in quantizable and leaf.dim() == 2:
             out[name] = quantize(leaf, quant_type.value)
+            n_quantized += 1
+        elif name in quantizable and leaf.dim() == 3:  # expert stacks [E, in, out]
+            # the BASE kind: the mixtral block slices experts itself, and
+            # the outlier side-arrays do not ride that path
+            base = quant_type.value.removesuffix("+o")
+            out[name] = _stack([quantize(leaf[e], base) for e in range(leaf.shape[0])])
             n_quantized += 1
         else:
             out[name] = leaf
