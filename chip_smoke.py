@@ -418,21 +418,30 @@
    group 71 and with ALiBi (32 heads) at a 512-row chunk, bf16 and float32;
    K7, the grouped product of Mixtral's sparse experts, at Mixtral-8x7B's
    widths (1024 assignment rows over 8 experts of [4096, 14336] and [14336,
-   4096], GROUPED_SIZES: one expert empty, one with half the rows) against
-   its plain version row by row within OUT_REL_TOL, timed beside
-   torch._grouped_mm where the card's torch has it (timed here only) and the
-   bound. (b) Each family's span at a published config's full width
-   (FAMILY_RUNS: bigscience/bloom-7b1 and tiiuae/falcon-7b at 8 blocks,
-   mistralai/Mixtral-8x7B-v0.1 at 4), seeded bf16 weights written by the
-   port's writer in HF's layout, served by one port server built by the
+   4096], GROUPED_SIZES: one expert empty, one with half the rows): its
+   bf16 arm (wgmma, TMA ring) against its plain version row by row within
+   OUT_REL_TOL at every routing of GROUPED_ROUTINGS (skewed, uniform, one
+   expert, the tile edges, one row, an 8-row and a 64-row chunk) and after
+   in-place rewrites of the group sizes under one captured launch
+   (GROUPED_REPLAYS), its float32 arm (CUDA cores) at a narrow case, timed
+   beside torch._grouped_mm where the card's torch has it (timed here only)
+   and the bound; the weight traffic its block order implies is printed
+   as a model (grouped_weight_traffic), not measured. (b) Each family's
+   span at a published config's full width (FAMILY_RUNS:
+   bigscience/bloom-7b1 and tiiuae/falcon-7b at 8 blocks, mistralai/Mixtral-8x7B-v0.1 at 4), seeded
+   bf16 weights written by the port's writer in HF's layout, served by one
+   port server built by the
    CLI with its defaults to 3 sessions (600, 300 and 64 tokens, then 16
    decode steps) and checked as phase 3 checks (replies and K/V rows, K1
-   and K2 on every block of every step, K7 on every Mixtral chunk's block,
-   check_graph_stats); the references take the plain grouped product
-   (plain_grouped_products). Mixtral again with --quant_type nf4a at 2
-   blocks, one session (K5 on every projection, each expert's three). One
-   greedy stream a family through the port's client, held as phase 13
-   holds its streams (BLOOM's embeddings through their LayerNorm).
+   and K2 on every block of every step, K7's bf16 arm on every Mixtral
+   chunk's block, check_graph_stats); the references take the plain grouped
+   product (plain_grouped_products); the Mixtral span's steps profiled as
+   phase 4 profiles Mistral's, with the replayed mixed step's device busy
+   split into K7, the MoE glue and the rest (profile_moe_step). Mixtral
+   again with --quant_type nf4a at 2 blocks, one session (K5 on every
+   projection, each expert's three). One greedy stream a family through
+   the port's client, held as phase 13 holds its streams (BLOOM's
+   embeddings through their LayerNorm).
 
 float32 matmuls run in full float32: TF32 is switched off for matmuls and
 convolutions. Exits non-zero on any failure. The last line is the JSON
@@ -727,6 +736,22 @@ FAMILY_ALIBI = {"alibi_32": 32, "alibi_112": 112}
 # K7's case: a 512-row chunk at top-2 over Mixtral's 8 experts, skewed: one
 # expert empty, one taking half the rows
 GROUPED_SIZES = (512, 0, 160, 96, 64, 96, 48, 48)
+# K7's bf16 arm is held to its plain version at these routings too, at both
+# projections: the 512-row chunk's 1024 assignments uniform, all on one
+# expert, and at the 128-row tile's edges; one row on one expert; the small
+# chunks the sparse dispatch takes (8 rows: 16 assignments; 64 rows: 128)
+GROUPED_ROUTINGS = {
+    "skewed": GROUPED_SIZES,
+    "uniform": (128,) * 8,
+    "one expert": (0, 0, 0, 1024, 0, 0, 0, 0),
+    "tile edges": (63, 64, 65, 127, 128, 129, 191, 257),
+    "one row": (0, 0, 0, 0, 0, 1, 0, 0),
+    "8-row chunk": (3, 0, 2, 4, 1, 0, 5, 1),
+    "64-row chunk": (40, 7, 0, 21, 18, 9, 33, 0),
+}
+# one captured launch at the skewed routing, replayed after the group sizes
+# were rewritten in place with these
+GROUPED_REPLAYS = ("uniform", "tile edges")
 
 # K5/K6 at the four projections of a Mistral-7B block as the port serves
 # them (qkv and gate+up fused), at decode batches (1, 4, 8 and 32 rows: one
@@ -783,9 +808,15 @@ DENSE_STEP_CHUNKS = ((8, 0), (5, 8), (64, 13), (40, 77), (512, 117), (300, 629))
 DENSE_WARM_CHUNK = 64
 STEADY_DENSE_PROGRAMS = ("_dense_decode_program", "_lane_program")  # the dense pool's, captured when it opens
 DENSE_PROFILE_POSITION = 1000  # the profiled private decode step's position in its PRIVATE_MAX_LENGTH cache
+# the MoE glue of a Mixtral mixed step, by a piece of its kernels' profile
+# names (ATen's: sortKeyValueInplace's and cub's sorts, indexSelect*,
+# _scatter_gather_elementwise_kernel, indexFunc* for index_add_)
+MOE_GLUE = {"sort": ("sort", "Sort"), "gather": ("indexSelect",), "scatter-add": ("scatter_gather",),
+            "index_add_": ("indexFunc",)}
 # the port's kernels, by the name each has in a profile
 PORT_KERNELS = ("paged_decode_kernel", "paged_prefill_wgmma_kernel", "paged_prefill_kernel", "flash_attention_kernel",
-                "flash_wgmma_kernel", "quant_decode_ring_kernel", "quant_prefill_kernel", "split_reduce_kernel")
+                "flash_wgmma_kernel", "quant_decode_ring_kernel", "quant_prefill_kernel", "split_reduce_kernel",
+                "grouped_matmul_wgmma_kernel", "grouped_matmul_kernel")
 # K1 at long contexts (phase 2), Mistral-7B's window: (lanes, position of
 # each, tokens of each lane's table). The last is the common state of a
 # long-context server: short lanes on tables sized for --batch_max_length 8192.
@@ -1494,16 +1525,43 @@ def check_flash_case(device, timer, hq, hkv, d, alibi=None):
     return out
 
 
+def grouped_weight_traffic(sizes, k_in: int, k_out: int) -> dict:
+    """The weight bytes a K7 launch at these group sizes would move, by
+    block order: a model worked out from the group sizes, which assumes the
+    L2 reuse each order allows; no byte counter of the card is read. With
+    the row tiles fastest (both arms' order: an expert's tiles of one column
+    slice are resident together, so its slice would come from HBM once and
+    its other tiles read it from L2) and with the column tiles fastest (the
+    first kernel's order: each of an expert's 64-row tiles streams the whole
+    slice from HBM). "l2_to_sm" is what the bf16 arm's 128-row tiles read
+    (one slice a tile). Printed only, never part of the kernels line."""
+    from petals_tpu_torch.ops.grouped_matmul import TILE_ROWS
+
+    per_expert = 2 * k_in * k_out
+    return {
+        "hbm_row_tiles_fastest": per_expert * sum(1 for g in sizes if g),
+        "hbm_column_tiles_fastest": per_expert * sum(-(-g // 64) for g in sizes),
+        "l2_to_sm": per_expert * sum(-(-g // TILE_ROWS["wgmma"]) for g in sizes),
+    }
+
+
 def check_grouped_matmul(device, timer):
     """K7 at Mixtral-8x7B's widths: a 512-row chunk at top-2 is 1024
     assignment rows over 8 experts, in GROUPED_SIZES (one expert empty, one
     taking half the rows), through w1 [8, 4096, 14336] and w2 [8, 14336,
-    4096] (seeded bf16), against its plain version (the same rows through
-    each expert's weight in float32, rounded once to bf16: the kernel sums
-    in float32 in another order and rounds once, so row by row within
-    OUT_REL_TOL of the row's largest output, as K1's lanes). Timed beside
-    torch._grouped_mm where the card's torch has it (timed here only) and
-    the bound; returns the report entry (without main-path launches)."""
+    4096] (seeded bf16). The bf16 arm (wgmma) against its plain version (the
+    same rows through each expert's weight in float32, rounded once to bf16:
+    the kernel sums in float32 in another order and rounds once, so row by
+    row within OUT_REL_TOL of the row's largest output, as K1's lanes) at
+    every routing of GROUPED_ROUTINGS and at both projections, then one
+    launch captured in a CUDA graph at GROUPED_SIZES and replayed after the
+    sizes were rewritten in place with each of GROUPED_REPLAYS; the float32
+    arm (CUDA cores) against its plain version at a narrow case (within
+    F32_KERNEL_TOL of each row's largest output). Timed at GROUPED_SIZES
+    beside torch._grouped_mm where the card's torch has it (timed here only)
+    and the bound, with the weight traffic the block order implies printed
+    on its own line (a model, not measured); returns the report entry
+    (without main-path launches)."""
     from petals_tpu_torch.ops.grouped_matmul import grouped_matmul, grouped_matmul_reference
 
     gen = torch.Generator(device=device).manual_seed(SEED + 23)
@@ -1516,14 +1574,33 @@ def check_grouped_matmul(device, timer):
     for proj, (k_in, k_out) in (("w1", (h, m)), ("w2", (m, h))):
         x = (torch.randn(n, k_in, generator=gen, device=device) * 0.5).to(torch.bfloat16)
         w = (torch.randn(E, k_in, k_out, generator=gen, device=device) * 0.02).to(torch.bfloat16)
-        got = grouped_matmul(x, w, sizes)
-        torch.cuda.synchronize()
-        want = grouped_matmul_reference(x, w, sizes).float()
-        worst = max(worst, _check_relative(f"K7 {proj} [{E}, {k_in}, {k_out}] over {GROUPED_SIZES}", got, want,
-                                           OUT_REL_TOL, "row"))
+        for routing, groups in GROUPED_ROUTINGS.items():
+            g = torch.tensor(groups, dtype=torch.int32, device=device)
+            xr = x[: sum(groups)]
+            got = grouped_matmul(xr, w, g)
+            torch.cuda.synchronize()
+            err = _check_relative(f"K7 bf16 (wgmma) {proj} [{E}, {k_in}, {k_out}] at {routing} {list(groups)}",
+                                  got, grouped_matmul_reference(xr, w, g).float(), OUT_REL_TOL, "row")
+            worst = max(worst, err)
+        # one captured launch serves any routing of the same rows: the sizes
+        # are rewritten in place between replays
+        graph_sizes = sizes.clone()
+        grouped_matmul(x, w, graph_sizes)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            graph_out = grouped_matmul(x, w, graph_sizes)
+        for routing in GROUPED_REPLAYS:
+            graph_sizes.copy_(torch.tensor(GROUPED_ROUTINGS[routing], dtype=torch.int32))
+            graph.replay()
+            torch.cuda.synchronize()
+            worst = max(worst, _check_relative(
+                f"K7 bf16 {proj}, one launch captured at {list(GROUPED_SIZES)} replayed at {routing}", graph_out,
+                grouped_matmul_reference(x, w, graph_sizes).float(), OUT_REL_TOL, "row"))
+        del graph, graph_out
         used = sum(1 for g in GROUPED_SIZES if g)
         nbytes = 2 * n * k_in + 2 * used * k_in * k_out + 2 * n * k_out
         bound, by = bound_ms(nbytes, 2 * n * k_in * k_out)
+        want = grouped_matmul_reference(x, w, sizes).float()
         offs = torch.cumsum(sizes, 0, dtype=torch.int32)
         library_ms, why = None, "torch._grouped_mm is not in this torch"
         if hasattr(torch, "_grouped_mm"):
@@ -1540,14 +1617,28 @@ def check_grouped_matmul(device, timer):
         timed = {"ms": timer(lambda: grouped_matmul(x, w, sizes)),
                  "plain_ms": timer(lambda: grouped_matmul_reference(x, w, sizes)),
                  "library_ms": library_ms, "bound_ms": bound, "bound_by": by}
-        log(f"K7 {proj}: {timed['ms']:.4f} ms kernel, {timed['plain_ms']:.4f} ms plain, library "
+        log(f"K7 {proj}: {timed['ms']:.4f} ms kernel (bf16, wgmma), {timed['plain_ms']:.4f} ms plain, library "
             f"{'%.4f ms' % library_ms if library_ms is not None else 'none'} ({why}), bound {bound:.4f} ms ({by}, "
             f"{nbytes / 1e6:.1f} MB, {2 * n * k_in * k_out / 1e9:.1f} GFLOP)")
+        model = grouped_weight_traffic(GROUPED_SIZES, k_in, k_out)
+        traffic = ", ".join(f"{k} {v / 1e9:.3f} GB" for k, v in model.items())
+        log(f"K7 {proj}: weight traffic the block order implies (a model from the group sizes, not read from the "
+            f"card): {traffic}")
         if proj == "w1":
             entry.update(timed, shape=f"x [{n}, {k_in}] over w [{E}, {k_in}, {k_out}], groups {list(GROUPED_SIZES)}")
         else:
             entry["w2"] = timed
-        del x, w
+        del x, w, want
+    # the float32 arm (CUDA cores) at a narrow case
+    groups = (70, 0, 130, 56)
+    g = torch.tensor(groups, dtype=torch.int32, device=device)
+    x = torch.randn(sum(groups), 256, generator=gen, device=device) * 0.5
+    w = torch.randn(len(groups), 256, 384, generator=gen, device=device) * 0.02
+    got = grouped_matmul(x, w, g)
+    torch.cuda.synchronize()
+    entry["float32_max_abs_err"] = _check_relative(
+        f"K7 float32 (CUDA cores) [{len(groups)}, 256, 384] at {list(groups)}", got,
+        grouped_matmul_reference(x, w, g), F32_KERNEL_TOL, "row")
     entry["max_abs_err"] = worst
     return entry
 
@@ -2276,7 +2367,7 @@ def profile_dense_steps(backend, device, smi) -> dict:
         step_ms = times[f"{what}, replayed"]["device_busy_ms"]
         log(f"dense profile: B6 (plain decode attention) takes {b6_ms:.3f} ms of the replayed {what}'s "
             f"{step_ms:.3f} ms device busy ({b6_ms / step_ms:.3f}) ({smi})")
-    rows = {label: {k: round(v, 4) for k, v in t.items()} for label, t in times.items()}
+    rows = {label: {k: round(v, 4) for k, v in t.items() if k != "kernels"} for label, t in times.items()}
     log(f"dense profile rows: {json.dumps(rows)}")
     return times
 
@@ -2419,7 +2510,7 @@ def check_graph_stats(label, stats) -> None:
         raise AssertionError(f"{label}: served steps did not all replay step programs without a late capture: {stats}")
 
 
-def profile_steps(backend, device, gen_params=None, smi="") -> None:
+def profile_steps(backend, device, gen_params=None, smi="") -> dict:
     """Where a step's time goes, beside the served span's backend (its
     weights, on a sibling backend, called directly, no RPC): a paged decode
     step at PROFILE_LANES lanes and a mixed step that also carries a
@@ -2473,6 +2564,31 @@ def profile_steps(backend, device, gen_params=None, smi="") -> None:
             f"{gen['device_busy_ms']:.3f} ms beside the decode step's {dec['device_busy_ms']:.3f} ms: the embedding, "
             f"float32 head and sampling take {share:.3f} of it ({gen['device_busy_ms'] - dec['device_busy_ms']:.3f} ms); "
             f"host wall {gen['host_wall_ms']:.3f} vs {dec['host_wall_ms']:.3f} ms ({smi})")
+    return times
+
+
+def profile_moe_step(backend, device, smi) -> dict:
+    """Where a Mixtral mixed step's device time goes (phase 22 (b)): the
+    profile phase's steps on the served Mixtral span (profile_steps), then
+    the replayed mixed step's device busy split into K7, the MoE glue
+    (MOE_GLUE: the kernels of the routing and assignment sorts, the gather
+    of the assignment rows, the group sizes' scatter-add and the combine's
+    index_add_, by a piece of each kernel's profile name) and the rest.
+    Returns {part: ms a step} with the device busy."""
+    times = profile_steps(backend, device)
+    t = times[f"mixed step ({PROFILE_CHUNK}-token chunk), replayed"]
+    busy, kernels = t["device_busy_ms"], t["kernels"]
+    parts = {"K7": {k: v for k, v in kernels.items() if "grouped_matmul" in k}}
+    for part, pieces in MOE_GLUE.items():
+        parts[part] = {k: v for k, v in kernels.items() if any(p in k for p in pieces) and "grouped_matmul" not in k}
+    split = {part: sum(found.values()) for part, found in parts.items()}
+    glue = sum(v for part, v in split.items() if part != "K7")
+    log(f"Mixtral mixed step ({backend.n_blocks} blocks, a {PROFILE_CHUNK}-token chunk + {PROFILE_LANES - 1} decode "
+        f"rows, replayed): device busy {busy:.3f} ms; K7 {split['K7']:.3f} ms ({split['K7'] / busy:.3f} of it); MoE glue "
+        f"{glue:.3f} ms ({glue / busy:.3f}): " + ", ".join(f"{p} {split[p]:.3f} ms" for p in MOE_GLUE) + f" ({smi})")
+    for part, found in parts.items():
+        log(f"Mixtral mixed step: {part} kernels: " + "; ".join(f"{k[:90]} {v:.4f} ms" for k, v in found.items()))
+    return {"device_busy_ms": busy, **split}
 
 
 def profile_calls(steps: dict) -> dict:
@@ -2482,7 +2598,8 @@ def profile_calls(steps: dict) -> dict:
     then from torch.profiler over PROFILE_CALLS further calls the device
     busy time, the kernel and graph launches and the top operations, with
     the idle share 1 - busy / wall. Returns {label: {host_wall_ms,
-    device_span_ms, device_busy_ms, idle_share, launches, graph_launches}}."""
+    device_span_ms, device_busy_ms, idle_share, launches, graph_launches,
+    kernels: {device event name: ms a call}}}."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -2515,7 +2632,9 @@ def profile_calls(steps: dict) -> dict:
         span = statistics.median(spans)
         times[label] = {"host_wall_ms": statistics.median(walls), "device_span_ms": span, "device_busy_ms": busy,
                         "idle_share": 1 - busy / prof_wall, "launches": launches / PROFILE_CALLS,
-                        "graph_launches": graph_launches / PROFILE_CALLS}
+                        "graph_launches": graph_launches / PROFILE_CALLS,
+                        "kernels": {e.key: e.self_device_time_total / 1e3 / PROFILE_CALLS for e in events
+                                    if e.device_type == DeviceType.CUDA}}
         log(f"{label}: host wall {statistics.median(walls):.3f} ms (median of {PROFILE_REPS}; device span "
             f"{span:.3f} ms, CUDA events around the call); profiled, per call over "
             f"{PROFILE_CALLS}: host wall {prof_wall:.3f} ms, device busy {busy:.3f} ms, idle share "
@@ -2591,7 +2710,7 @@ def serve_and_check(ckpt, device, quant_type, n_blocks, prompts, n_steps, seed, 
                 "K3 decode": dict(pfa.paged_flash_attend.kv_quant_launches),
                 "K3 prefill": dict(pfa.paged_flash_prefill_attend.kv_quant_launches),
                 "decode": dict(qmm.quant_decode_matmul.launches), "prefill": dict(qmm.quant_prefill_matmul.launches),
-                "K7": gm.grouped_matmul.launches,
+                "K7": gm.grouped_matmul.launches, "K7 arms": dict(gm.grouped_matmul.arm_launches),
             }
         finally:
             await server.shutdown()
@@ -2636,11 +2755,13 @@ def serve_and_check(ckpt, device, quant_type, n_blocks, prompts, n_steps, seed, 
             raise AssertionError(f"{label}: the main path did not run the dequant-matmul kernels on every projection")
     if server.family.name == "mixtral" and quant_type == "none":
         # K7: a mixed step's chunk (padded to a bucket of >= 8 rows) takes the
-        # sparse experts, three grouped products a block
+        # sparse experts, three grouped products a block, all on the bf16 arm
+        # (wgmma): the served weights are bf16
         need = 3 * stats["mixed_steps"] * n_blocks
-        log(f"{label}: launches on the main path: K7 {launches['K7']} (>= {need})")
-        if launches["K7"] < need:
-            raise AssertionError(f"{label}: the main path did not run K7 on every chunk's block")
+        arms = launches["K7 arms"]
+        log(f"{label}: launches on the main path: K7 {launches['K7']} (>= {need}), by arm {arms}")
+        if launches["K7"] < need or arms["wgmma"] != launches["K7"]:
+            raise AssertionError(f"{label}: the main path did not run K7's bf16 arm on every chunk's block")
     decode_compute = [m["compute_s"] for ms in metas for m in ms[1:]]
     prefill_compute = sum(ms[0]["compute_s"] for ms in metas)
     log(f"{label}: main path: prefill {sum(prompts) / timing['prefill_wall_s']:.1f} tokens/s over {sum(prompts)} "
@@ -3592,6 +3713,8 @@ def serve_families_and_check(root, device, smi) -> dict:
             f"{time.perf_counter() - t0:.1f} s")
         server, counts[name] = serve_and_check(ckpt, device, "none", n_blocks, FAMILY_PROMPTS, FAMILY_STEPS,
                                                SEED + 22, None, label_model=model)
+        if name == "mixtral":
+            counts["mixtral_profile"] = profile_moe_step(server.backend, device, smi)
         del server
         free_card()
         if name == "mixtral":
@@ -5863,7 +5986,9 @@ def main() -> int:
     for entry, k in zip(kernels, ("K1", "K2")):
         entry["families"]["launches"] = {name: fam[name][k] for name in FAMILY_RUNS}
     grouped_kernel["launches"] = fam["mixtral"]["K7"]
+    grouped_kernel["arm_launches"] = fam["mixtral"]["K7 arms"]
     grouped_kernel["client_launches"] = fam["mixtral_client"]["K7"]
+    grouped_kernel["mixtral_mixed_step"] = fam["mixtral_profile"]
     for entry in quant_kernels:
         if entry["name"].endswith("[nf4a]"):
             phase = "decode" if entry["name"].startswith("quant_decode") else "prefill"

@@ -18,20 +18,30 @@ every assignment once); the plain version checks that, the kernel cannot
 without a host sync. Tensors on the CPU go to the plain version; tensors on
 a CUDA device launch the kernel or raise. There is no fallback from one to
 the other. ``grouped_matmul.launches`` (a plain int) counts the kernel's
-launches (telemetry/observatory.py ``count_launch``: a launch inside a
-capture is counted by each replay).
+launches, ``grouped_matmul.arm_launches`` each arm's (telemetry/observatory.py
+``count_launch``: a launch inside a capture is counted by each replay).
+
+The kernel has two arms, chosen by x's dtype (``kernel_arm``): bfloat16 runs
+``grouped_matmul_wgmma_kernel`` (wgmma fed by a TMA ring, 128-row tiles),
+every served Mixtral prefill chunk; float32 runs ``grouped_matmul_kernel``
+(CUDA-core FMAs, 64-row tiles), the references and float32 drafts, since
+TF32 is not float32. ``grouped_tiles`` is the kernels' walk of the group
+sizes on the host.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 
 from petals_tpu_torch.telemetry.observatory import count_launch
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+# the arm each dtype runs, and the rows of its tiles
+ARMS = {torch.bfloat16: "wgmma", torch.float32: "cuda_cores"}
+TILE_ROWS = {"wgmma": 128, "cuda_cores": 64}
 _LIB: Optional[ctypes.CDLL] = None
 
 
@@ -52,8 +62,34 @@ def kernel_library() -> ctypes.CDLL:
 
 
 def reset_launch_counts() -> None:
-    """Zero the kernel's launch counter (K7)."""
+    """Zero the kernel's launch counters (K7: the total and each arm's)."""
     grouped_matmul.launches = 0
+    grouped_matmul.arm_launches = {arm: 0 for arm in TILE_ROWS}
+
+
+def kernel_arm(dtype: torch.dtype) -> str:
+    """The arm of K7 that runs for x's dtype: "wgmma" for bfloat16 (tensor
+    cores), "cuda_cores" for float32 (TF32 is not float32)."""
+    if dtype not in ARMS:
+        raise TypeError(f"the grouped matmul kernel takes float32 or bfloat16, got {dtype}")
+    return ARMS[dtype]
+
+
+def grouped_tiles(group_sizes: Sequence[int], bm: int) -> List[Optional[Tuple[int, int, int]]]:
+    """The kernels' walk of the group sizes (csrc/grouped_matmul.cu
+    ``tile_slot``): for each of the grid's ceil(n / bm) + E row-tile slots,
+    in block order, the (expert, first row, rows) of its tile, or None for
+    a slot past the last expert's tiles. Expert e's group gives
+    ceil(size_e / bm) tiles of bm rows, the last one ragged."""
+    sizes = [max(int(g), 0) for g in group_sizes]
+    n = sum(sizes)
+    tiles = []
+    start = 0
+    for e, size in enumerate(sizes):
+        tiles += [(e, start + t * bm, min(bm, size - t * bm)) for t in range(-(-size // bm))]
+        start += size
+    n_slots = -(-n // bm) + len(sizes)
+    return tiles + [None] * (n_slots - len(tiles))
 
 
 def grouped_matmul_reference(x: torch.Tensor, w: torch.Tensor, group_sizes: torch.Tensor) -> torch.Tensor:
@@ -91,6 +127,7 @@ def grouped_matmul(x: torch.Tensor, w: torch.Tensor, group_sizes: torch.Tensor) 
         raise ValueError(f"in ({k}) and out ({n_out}) must be multiples of {per_16}")
     if not (x.is_contiguous() and w.is_contiguous()) or x.data_ptr() % 16 or w.data_ptr() % 16:
         raise ValueError("x and w must be contiguous and 16-byte aligned")
+    arm = kernel_arm(x.dtype)
     sizes = group_sizes.to(torch.int32).contiguous()
     out = torch.empty((n_rows, n_out), dtype=x.dtype, device=x.device)
     if n_rows == 0:
@@ -106,6 +143,7 @@ def grouped_matmul(x: torch.Tensor, w: torch.Tensor, group_sizes: torch.Tensor) 
         msg = lib.ptt_grouped_error_string(err).decode()
         raise RuntimeError(f"grouped matmul kernel launch failed: CUDA error {err} ({msg})")
     count_launch(grouped_matmul, "launches")
+    count_launch(grouped_matmul, "arm_launches", arm)
     return out
 
 

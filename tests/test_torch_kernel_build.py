@@ -8,8 +8,9 @@ on the CPU: no nvcc is needed to name a library or its compiler command.
 - The compiler command puts csrc on the include path, so a modified copy of
   a source built elsewhere (the ablation and fault scripts) finds the
   headers.
-- The attention sources and the dequant-matmul source share one copy of
-  the wgmma helpers: the header's.
+- The attention sources, the dequant-matmul source and the grouped-matmul
+  source share one copy of the wgmma helpers, and the two ring kernels'
+  sources one copy of the mbarrier, TMA and launch helpers: the header's.
 - The ablation and fault scripts find, once each, the source lines they
   edit (a script whose line moved would measure or plant nothing)."""
 
@@ -22,7 +23,7 @@ import pytest
 
 from petals_tpu_torch.kernels import build as kbuild
 
-SOURCES = ("paged_attention", "flash_attention", "quant_matmul")
+SOURCES = ("paged_attention", "flash_attention", "quant_matmul", "grouped_matmul")
 
 
 @pytest.fixture
@@ -84,10 +85,26 @@ def test_quant_source_shares_the_wgmma_helpers():
     src = (kbuild.CSRC_DIR / "quant_matmul.cu").read_text()
     assert '#include "hopper_wgmma.cuh"' in src
     for helper in ("smem_u32", "cp_async16", "desc_k_major", "wgmma_fence", "wgmma_commit", "wgmma_wait0",
-                   "fence_regs", "pack_bf16", "sw128_desc", "fence_acc"):
-        assert not re.search(rf"(void|uint64_t|uint32_t) {helper}\(", src), helper
+                   "fence_regs", "pack_bf16", "sw128_desc", "fence_acc") + RING_HELPERS:
+        assert not re.search(rf"{DEFINED}{helper}\(", src), helper
     assert "quant_matmul.cu" in (kbuild.CSRC_DIR / "hopper_wgmma.cuh").read_text()  # its note names who includes it
 
+
+def test_grouped_source_shares_the_ring_and_wgmma_helpers():
+    src = (kbuild.CSRC_DIR / "grouped_matmul.cu").read_text()
+    header = (kbuild.CSRC_DIR / "hopper_wgmma.cuh").read_text()
+    assert '#include "hopper_wgmma.cuh"' in src
+    for helper in RING_HELPERS + ("tma_load_3d", "desc_k_major", "desc_mn_major", "wgmma_fence", "wgmma_commit",
+                                  "wgmma_wait1", "wgmma_m64n256k16_ss_tb"):
+        assert re.search(rf"{DEFINED}{helper}\(", header), helper
+        assert not re.search(rf"{DEFINED}{helper}\(", src), helper
+    assert "grouped_matmul.cu" in header  # its note names who includes it
+
+
+# the mbarrier, TMA and launch helpers the ring kernels share through the header
+RING_HELPERS = ("mbar_init", "mbar_expect_tx", "mbar_arrive", "mbar_wait", "tma_load_2d", "encode_tiled",
+                "allow_smem")
+DEFINED = r"(void|uint64_t|uint32_t|EncodeTiled|cudaError_t) "
 
 SCRIPTS = Path(__file__).resolve().parent.parent / "scripts"
 
@@ -102,12 +119,27 @@ def _script(name):
 @pytest.mark.parametrize("name,source", [
     ("ablate_quant_prefill", "quant_matmul"), ("ablate_quant_decode", "quant_matmul"),
     ("ablate_paged_decode", "paged_attention"), ("ablate_paged_prefill", "paged_attention"),
+    ("ablate_grouped_matmul", "grouped_matmul"),
 ])
 def test_ablation_scripts_find_their_lines(name, source):
     src = (kbuild.CSRC_DIR / f"{source}.cu").read_text()
     variants = _script(name).ablated_sources(src)  # raises SystemExit when a line is missing
     assert variants["kernel"] == src
     assert all(text != src for variant, text in variants.items() if variant != "kernel")
+
+
+def test_grouped_ablation_writes_the_header_product():
+    # the 128-column product the grouped ablation writes into its copies is
+    # the header's 256-column one at another width
+    def norm(text):
+        return re.sub(r"\s+", "", text).replace('""', "")
+
+    header = (kbuild.CSRC_DIR / "hopper_wgmma.cuh").read_text()
+    start = header.index("__device__ __forceinline__ void wgmma_m64n256k16_ss_tb(")
+    script = _script("ablate_grouped_matmul")
+    assert norm(script.product_source(256)) == norm(header[start : header.index("\n}\n", start) + 3])
+    variant = script.ablated_sources((kbuild.CSRC_DIR / "grouped_matmul.cu").read_text())
+    assert "wgmma_m64n128k16_ss_tb(acc, " in variant["ring 128x4"] and "m64n256" not in variant["ring 128x4"]
 
 
 def test_fault_scripts_find_their_lines():

@@ -1,5 +1,5 @@
-"""The CUDA kernels (paged attention, dense flash attention, dequant-matmul)
-against their plain PyTorch versions on the card. Every test needs an NVIDIA GPU with nvcc and skips without one.
+"""The CUDA kernels (paged attention, dense flash attention, dequant-matmul,
+the grouped expert product) against their plain PyTorch versions on the card. Every test needs an NVIDIA GPU with nvcc and skips without one.
 This file imports neither jax nor petals_tpu, so it also runs where only the
 port's dependencies are installed:
 
@@ -24,6 +24,7 @@ import pytest
 import torch
 
 from petals_tpu_torch.ops import flash_attention as fa
+from petals_tpu_torch.ops import grouped_matmul as gm
 from petals_tpu_torch.ops import paged_flash_attention as pfa
 from petals_tpu_torch.ops import quant_matmul as qmm
 from petals_tpu_torch.ops.quant import dequantize, quantize
@@ -1155,3 +1156,46 @@ def test_spec_verify_program_replays_bit_equal_to_the_eager_loop(cuda_device, kv
     assert backend.step_program_stats() == {"graph_captures": 1, "graph_replays": 3, "graph_anomalies": 0}
     k1 = pfa.paged_flash_attend.launches + sum(pfa.paged_flash_attend.kv_quant_launches.values())
     assert k1 == 2 * (3 + 3 + 1), k1  # eager and replayed steps, and the capture's warm-up
+
+
+@pytest.mark.parametrize("sizes", [(300, 0, 41, 1, 128, 129, 63, 2), (0, 0, 0, 9), (1,), (3, 0, 2, 4, 1, 0, 5, 1)])
+def test_grouped_kernel_bf16_arm_matches_plain(cuda_device, sizes):
+    # K7's wgmma arm row by row within 2**-7 of each row's largest output
+    # (chip_smoke.py OUT_REL_TOL: one bf16 rounding and summation order), at
+    # widths past one tile in K and N and a ragged last column tile
+    rng = np.random.default_rng(sum(sizes))
+    n, k, m = sum(sizes), 320, 392
+    x, w = _on(cuda_device, torch.bfloat16, rng.standard_normal((n, k)) * 0.5,
+               rng.standard_normal((len(sizes), k, m)) * 0.05)
+    (g,) = _on(cuda_device, torch.int32, np.asarray(sizes))
+    gm.reset_launch_counts()
+    got = gm.grouped_matmul(x, w, g)
+    torch.cuda.synchronize()
+    assert gm.grouped_matmul.launches == 1 and gm.grouped_matmul.arm_launches == {"wgmma": 1, "cuda_cores": 0}
+    want = gm.grouped_matmul_reference(x, w, g).float()
+    err = (got.float() - want).abs().amax(dim=-1)
+    assert (err <= 2**-7 * want.abs().amax(dim=-1)).all(), err.max().item()
+
+
+def test_grouped_kernel_float32_arm_and_a_captured_launch(cuda_device):
+    rng = np.random.default_rng(7)
+    sizes = (70, 0, 130, 56)
+    x, w = _on(cuda_device, torch.float32, rng.standard_normal((256, 96)), rng.standard_normal((4, 96, 136)))
+    (g,) = _on(cuda_device, torch.int32, np.asarray(sizes))
+    gm.reset_launch_counts()
+    got = gm.grouped_matmul(x, w, g)
+    torch.cuda.synchronize()
+    assert gm.grouped_matmul.arm_launches == {"wgmma": 0, "cuda_cores": 1}
+    torch.testing.assert_close(got, gm.grouped_matmul_reference(x, w, g), atol=CUDA_TOL[torch.float32], rtol=0)
+    # one captured bf16 launch replays any routing of its rows
+    xb, wb = x.to(torch.bfloat16), w.to(torch.bfloat16)
+    gm.grouped_matmul(xb, wb, g)  # the first launch sets the kernel's shared-memory limit: not inside a capture
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = gm.grouped_matmul(xb, wb, g)
+    for routing in ((0, 256, 0, 0), (1, 127, 1, 127), sizes):
+        g.copy_(torch.tensor(routing, dtype=torch.int32))
+        graph.replay()
+        torch.cuda.synchronize()
+        want = gm.grouped_matmul_reference(xb, wb, g).float()
+        assert ((out.float() - want).abs().amax(dim=-1) <= 2**-7 * want.abs().amax(dim=-1)).all(), routing
