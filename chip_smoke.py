@@ -39,8 +39,8 @@
    the same bf16 values; the kernels accumulate in float32 and round once to
    bf16, so outputs of magnitude < 4 differ by at most half a bf16 ulp
    (2**-7) plus summation order: max abs error <= KERNEL_TOL = 2e-2 (for
-   K3 the plain version decodes the pool to bf16 values, the kernel to
-   float32, within the same bound). K1 on a bf16 pool is held tighter,
+   K3 the plain version decodes the pool to float32, as the Pallas kernel
+   and the card's kernels do: plain_pool). K1 on a bf16 pool is held tighter,
    lane by lane: within OUT_REL_TOL = 2**-7 (twice its output's bf16
    rounding) of the lane's largest output magnitude, so a lost split
    fails where outputs are small (scripts/plant_attention_faults.py). K2
@@ -260,7 +260,7 @@
    leaves. At the end the observatory's digest must count no capture after
    warm-up.
 16. Server-side generation (serve_gen_and_check, after phase 14): the
-   8-layer cut of the checkpoint served whole by one port server built by
+   GEN_SPAN-layer cut of the checkpoint served whole by one port server built by
    the CLI (so it loads the client's float32 leaves and announces
    server_gen), in bf16 and then with --quant_type nf4a, GEN_LANES lanes.
    The port client takes its fast path (chunks of up to 32 tokens a round
@@ -428,7 +428,7 @@
    and the bound; the weight traffic its block order implies is printed
    as a model (grouped_weight_traffic), not measured. (b) Each family's
    span at a published config's full width (FAMILY_RUNS:
-   bigscience/bloom-7b1 and tiiuae/falcon-7b at 8 blocks, mistralai/Mixtral-8x7B-v0.1 at 4), seeded
+   bigscience/bloom-7b1, tiiuae/falcon-7b and mistralai/Mixtral-8x7B-v0.1 at 4), seeded
    bf16 weights written by the port's writer in HF's layout, served by one
    port server built by the
    CLI with its defaults to 3 sessions (600, 300 and 64 tokens, then 16
@@ -442,13 +442,37 @@
    projection, each expert's three). One greedy stream a family through
    the port's client, held as phase 13 holds its streams (BLOOM's
    embeddings through their LayerNorm).
+23. Gemma, Gemma-2 and Phi-3 (alone: scripts/smoke_gemma_phi3.py). (a)
+   check_gemma_phi3_kernels, right after phase 22's kernel cases: K1, K2,
+   K3's int8 and nf4a arms and K4 at head_dim 256 and 96 (GEMMA_PHI3_CASES:
+   Gemma-7B's 16 / 16 heads, Gemma-2B's 8 / 1, Gemma-2-9B's 16 / 8 with its
+   attention softcap of 50 at window 4096 and at none, the same without the
+   cap, Phi-3-mini's 32 / 32 of 96), each against its plain version (every
+   arm of the capped cases on queries scaled so the cap bends the scores,
+   and then also far from the uncapped plain version), timed beside
+   its library call (none with a softcap: SDPA has none) and the bound. (b)
+   serve_gemma_phi3_and_check: each family's span at its published widths
+   (GEMMA_PHI3_RUNS, random bf16 weights, Gemma's zero-centred norms drawn
+   small so the (1 + w) fold is exercised, Phi-3's LongRoPE with seeded
+   factor lists of the published length) served and checked as phase 22
+   serves its families (Gemma-2's 4600-token session crosses its sliding
+   window; Phi-3's 4090-token session crosses 4096 while it decodes);
+   Gemma-2-9B again at --quant_type nf4a and on an nf4a pool (2 blocks);
+   then each family's client: a greedy per-token stream (Phi-3's crossing
+   4096 as it decodes), Phi-3's server-side generation of a 4300-token
+   prompt (its known length selects the long factors from the first chunk;
+   teacher-forced step by step, check_gen_tokens), Gemma-2's stateless
+   forward at eight lengths (K4 at head_dim 256 with the softcap; the
+   forward's graphs at most one a bucket, C12) and Phi-3's at 3000 and 4200
+   tokens (K4 at head_dim 96; LongRoPE's short and long factors), every
+   forward held to the dense references.
 
 float32 matmuls run in full float32: TF32 is switched off for matmuls and
 convolutions. Exits non-zero on any failure. The last line is the JSON
 object ``{"ok": true, "device": {...}}``; the line before it lists the
 kernels with their times, bounds and main-path launch counts, each with
 ``families`` (phase 22's cases and, for K1/K2, launches on each family's
-served run), K7 last (its launches from the Mixtral run) (K1/K2 from
+served run) and ``gemma_phi3`` (phase 23's cases and launches), K7 last (its launches from the Mixtral run) (K1/K2 from
 the bf16 run, K3's nf4a arms from the nf4a-pool run and its int8 arms from
 the short int8-pool run, K5's nf4a arm from the nf4a run, its nf4 and int4
 arms and K6 from their short runs, K4 from the private sessions' run), and
@@ -474,6 +498,7 @@ import tempfile
 import threading
 import time
 
+import numpy as np
 import torch
 
 REPO = os.path.dirname(os.path.abspath(__file__))
@@ -514,11 +539,14 @@ OUT_REL_TOL = 2**-7
 # a row by at most 2**-9 of its largest output; P's moves output d by
 # sum_j delta_j p_j v_jd / l with independent |delta_j| <= 2**-9, about
 # 2**-9 of the row's largest output too, up to ~3x where a row's few visible
-# values cancel. Two roundings, doubled: ROW_REL_TOL. A quantized pool puts two
-# more bf16 roundings of every K and V value between the two sides (the
-# kernel's of nf4a's unscaled cubic, the plain version's of each decoded
-# value), K's moving the scores and so every probability: four roundings,
-# K's twice, KV_ROW_REL_TOL. At 4000 visible positions the outputs are
+# values cancel. Two roundings, doubled: ROW_REL_TOL. K3 prefill keeps
+# KV_ROW_REL_TOL, four roundings with K's twice, from when its plain
+# version decoded to bf16 and the kernel rounded nf4a's cubic once: two
+# more roundings of every K and V value, K's moving the scores and so
+# every probability. The plain version now decodes to float32
+# (plain_pool) and the kernel's nf4a K to a bf16 pair (its V rounds
+# once, as P does), so the rows sit well inside it. At 4000
+# visible positions the outputs are
 # ~0.02-0.08 and a dropped 64-slot tile moves them by ~2e-3, several times
 # ROW_REL_TOL; KERNEL_TOL would pass it (scripts/plant_attention_faults.py;
 # tests/test_torch_prefill_model.py holds a model of the kernel's arithmetic
@@ -529,9 +557,8 @@ KV_ROW_REL_TOL = 2**-5
 # same arithmetic in another order, 3.7e-7 at most on an H100; inputs
 # rounded to bf16 would read ~1e-3
 F32_KERNEL_TOL = 1e-5
-# K3 against its plain version on the same quantized pool: the plain version
-# decodes to bf16 values, the kernel to float32 registers, so every K/V value
-# may differ by half a bf16 ulp as well; the same KERNEL_TOL covers it
+# K3 against its plain version on the same quantized pool, decoded to
+# float32 (plain_pool) as the kernels decode it: the same KERNEL_TOL
 KV_QUANT_KINDS = ("int8", "nf4a")
 # a decoded pool row may differ from the row as computed by this share of the
 # row's absmax (per kv head): half the widest code gap plus rounding slack
@@ -586,7 +613,8 @@ QWEN2_5_7B = {
 }
 QWEN_SPAN = 4
 QWEN_NEW = 16
-# phase 16: server-side generation over one port server of the 8-block cut
+# phase 16: server-side generation over one port server of a GEN_SPAN-block cut
+GEN_SPAN = 4  # the whole-model cut served (its depth cut to keep the smoke's time)
 GEN_PROMPT = 300
 GEN_NEW = 32
 GEN_SAMPLING = dict(do_sample=True, temperature=0.8, top_k=50, top_p=0.9, seed=1234)
@@ -722,7 +750,8 @@ MIXTRAL_8X7B = {
 MIXTRAL_EXPERT_SPREAD = 0.15
 MIXTRAL_W2_SCALE = 0.25
 # (config, blocks served) of each family's run
-FAMILY_RUNS = {"bloom": (BLOOM_7B1, 8), "falcon": (FALCON_7B, 8), "mixtral": (MIXTRAL_8X7B, 4)}
+# (BLOOM's and Falcon's depth cut to 4 blocks, as Mixtral's, to keep the smoke's time)
+FAMILY_RUNS = {"bloom": (BLOOM_7B1, 4), "falcon": (FALCON_7B, 4), "mixtral": (MIXTRAL_8X7B, 4)}
 FAMILY_PROMPTS = (600, 300, 64)  # 600 > the 512-token prefill budget: a continuation chunk
 FAMILY_STEPS = 16
 FAMILY_NEW = 16  # the client's greedy tokens a family
@@ -733,6 +762,72 @@ FAMILY_QUANT_BLOCKS = 2  # Mixtral again at --quant_type nf4a: K5 per expert
 # 112, head_dim 128
 FAMILY_GROUPS = {"group_71": (71, 1, 64), "group_29": (232, 8, 64), "group_16": (128, 8, 64)}
 FAMILY_ALIBI = {"alibi_32": 32, "alibi_112": 112}
+# phase 23: Gemma, Gemma-2 and Phi-3. Each published config.json at full
+# width, depth cut to the span served, random bf16 weights from SEED (the
+# zero-centred Gemma norms drawn small, so the (1 + w) fold is exercised).
+# google/gemma-7b: 16 query heads over 16 at head_dim 256 (16 x 256 = 4096 >
+# hidden 3072), the exact GeLU its config.json names, a tied head
+GEMMA_7B = {
+    "model_type": "gemma", "architectures": ["GemmaForCausalLM"], "hidden_size": 3072, "intermediate_size": 24576,
+    "num_attention_heads": 16, "num_key_value_heads": 16, "head_dim": 256, "num_hidden_layers": 28,
+    "rms_norm_eps": 1e-6, "rope_theta": 10000.0, "vocab_size": 256000, "hidden_act": "gelu",
+    "max_position_embeddings": 8192,
+}
+# google/gemma-2-9b: 16 over 8 at 256, sliding window 4096 on the even
+# layers (its config.json has no layer_types) and full attention on the odd,
+# attention / final logit softcaps 50 / 30, query_pre_attn_scalar 256
+GEMMA2_9B = {
+    "model_type": "gemma2", "architectures": ["Gemma2ForCausalLM"], "hidden_size": 3584, "intermediate_size": 14336,
+    "num_attention_heads": 16, "num_key_value_heads": 8, "head_dim": 256, "num_hidden_layers": 42,
+    "rms_norm_eps": 1e-6, "rope_theta": 10000.0, "vocab_size": 256000, "hidden_activation": "gelu_pytorch_tanh",
+    "sliding_window": 4096, "attn_logit_softcapping": 50.0, "final_logit_softcapping": 30.0,
+    "query_pre_attn_scalar": 256, "max_position_embeddings": 8192,
+}
+# microsoft/Phi-3-mini-128k-instruct: 32 over 32 at head_dim 96, fused
+# qkv_proj / gate_up_proj, LongRoPE from 4096 to 131072 positions. Its
+# published factor lists cannot be carried into the repository (nothing is
+# downloaded): these are seeded lists of the published length (48 each),
+# short near 1 and long growing along the head dim as the published ones do
+_PHI3_RNG = np.random.default_rng(SEED + 23)
+PHI3_MINI_128K = {
+    "model_type": "phi3", "architectures": ["Phi3ForCausalLM"], "hidden_size": 3072, "intermediate_size": 8192,
+    "num_attention_heads": 32, "num_key_value_heads": 32, "num_hidden_layers": 32, "rms_norm_eps": 1e-5,
+    "rope_theta": 10000.0, "vocab_size": 32064, "hidden_act": "silu", "max_position_embeddings": 131072,
+    "original_max_position_embeddings": 4096, "sliding_window": 262144, "tie_word_embeddings": False,
+    "rope_scaling": {"type": "longrope",
+                     "short_factor": [float(x) for x in 1.0 + np.sort(_PHI3_RNG.uniform(0.0, 0.1, 48))],
+                     "long_factor": [float(x) for x in 1.0 + np.sort(_PHI3_RNG.uniform(0.0, 60.0, 48))]},
+}
+# (config, blocks served, prompts of serve_and_check) of each family's run.
+# Gemma-2's 4600-token prompt, chunked at the 512-token budget, crosses the
+# sliding window; Phi-3's 4090-token prompt crosses 4096 during its decode
+# steps, so the long factors take over mid-session (cached rows keep theirs)
+GEMMA_PHI3_RUNS = {"gemma": (GEMMA_7B, 4, (600, 300, 64)), "gemma2": (GEMMA2_9B, 8, (4600, 300, 64)),
+                   "phi3": (PHI3_MINI_128K, 4, (4090, 300, 64))}
+# lanes past 4600 tokens (an MHA server's sessions stop at 2048 tokens by default)
+GEMMA_PHI3_LONG = ("--batch_max_length", "5120", "--attn_cache_tokens", "40960", "--inference_max_length", "8192")
+PHI3_GEN_PROMPT = 4300  # server-side generation: chunks of a prompt whose known length crosses 4096
+PHI3_DECODE_PROMPT = 4090  # the client's per-token stream crosses 4096 while it decodes
+GEMMA_PHI3_QUANT_BLOCKS = 2  # Gemma-2-9B again at --quant_type nf4a, then on an nf4a pool
+# the kernel cases: (query heads, kv heads, head_dim, softcap, timed window,
+# query scale). Gemma-2-9B's queries are scaled by 8 (scores of std 8, the
+# largest ~30) so that its cap of 50 bends them: the uncapped plain version
+# is then ~0.5 away from the capped one (the served run holds the published
+# scores)
+GEMMA_PHI3_CASES = {
+    "gemma_7b": (16, 16, 256, None, None, 1.0), "gemma_2b": (8, 1, 256, None, None, 1.0),
+    "gemma2_9b_window": (16, 8, 256, 50.0, 4096, 8.0), "gemma2_9b_full": (16, 8, 256, 50.0, None, 8.0),
+    "gemma2_9b_uncapped": (16, 8, 256, None, None, 8.0),  # the softcap's cost: the same call without it
+    "phi3_mini": (32, 32, 96, None, None, 1.0),
+}
+GEMMA_PHI3_FWD_LENGTHS = (96, 160, 224, 288, 352, 416, 480, 544)  # C12: eight forward lengths, four buckets
+# Phi-3's forwards (K4 at head_dim 96): 3000 tokens pad to the 4096 bucket,
+# which LongRoPE counts as short (not past 4096), and 4200 take the long
+# factors and pad to 8192. A forward's positions start at 0 and its buckets
+# are powers of two up to 4096, so at the published boundary no real length
+# on the short factors pads past it: the CPU tests hold n_valid's choice at
+# a boundary inside a bucket
+PHI3_FWD_LENGTHS = (3000, 4200)
 # K7's case: a 512-row chunk at top-2 over Mixtral's 8 experts, skewed: one
 # expert empty, one taking half the rows
 GROUPED_SIZES = (512, 0, 160, 96, 64, 96, 48, 48)
@@ -947,12 +1042,13 @@ def build() -> None:
                 log(f"  {line.strip()}")
 
 
-def attention_cases(device, hq=32, hkv=8, d=128):
+def attention_cases(device, hq=32, hkv=8, d=128, q_scale=1.0):
     """The seeded inputs of the attention kernels at Mistral-7B widths (or
     ``hq`` query heads over ``hkv`` kv heads of ``d``): K1's 8 lanes (ragged
     positions up to 1023 on permuted tables with holes past each frontier,
     one lane idle at the sentinel) and K2's lane (a 512-row chunk at 0 and
-    its 188-row continuation), bf16 pools."""
+    its 188-row continuation), bf16 pools; the queries times ``q_scale``
+    (scores of that size: a softcap's case, where the cap must bend them)."""
     gen = torch.Generator(device=device).manual_seed(SEED + 1)
     n_lanes, max_pages = 8, 1024 // PAGE
     max_len = max_pages * PAGE
@@ -967,13 +1063,13 @@ def attention_cases(device, hq=32, hkv=8, d=128):
         cursor += used
     kp = torch.randn(n_pages, PAGE, hkv, d, generator=gen, device=device).to(torch.bfloat16)
     vp = torch.randn(n_pages, PAGE, hkv, d, generator=gen, device=device).to(torch.bfloat16)
-    q = torch.randn(n_lanes, 1, hq, d, generator=gen, device=device).to(torch.bfloat16)
+    q = (torch.randn(n_lanes, 1, hq, d, generator=gen, device=device) * q_scale).to(torch.bfloat16)
     window = MISTRAL_7B["sliding_window"]
     kv_lens = [min(p + 1, max_len) for p in positions.tolist()]
     decode = {
         "q": q, "kp": kp, "vp": vp, "tables": tables.to(device), "positions": positions.to(device),
         "active": slice(0, n_lanes - 1),  # the sentinel lane's output is never read
-        "rows": sum(_visible(kl - 1, kl, window) for kl in kv_lens),  # kv rows read at window 4096
+        "kv_lens": kv_lens,  # each lane's kv rows (the bound counts those its window leaves it)
     }
     max_pages2 = 1024 // PAGE
     n_pages2 = max_pages2 + 8
@@ -982,7 +1078,7 @@ def attention_cases(device, hq=32, hkv=8, d=128):
     table_row[: -(-(512 + 188) // PAGE)] = perm2[: -(-(512 + 188) // PAGE)].to(torch.int32)
     kp2 = torch.randn(n_pages2, PAGE, hkv, d, generator=gen, device=device).to(torch.bfloat16)
     vp2 = torch.randn(n_pages2, PAGE, hkv, d, generator=gen, device=device).to(torch.bfloat16)
-    chunks = {pos: torch.randn(1, n, hq, d, generator=gen, device=device).to(torch.bfloat16)
+    chunks = {pos: (torch.randn(1, n, hq, d, generator=gen, device=device) * q_scale).to(torch.bfloat16)
               for pos, n in ((0, 512), (512, 188))}
     prefill = {"kp": kp2, "vp": vp2, "table_row": table_row.to(device), "chunks": chunks}
     return decode, prefill
@@ -1011,7 +1107,7 @@ def _library_decode(case, kp, vp, window, alibi=None):
     v = gather_pages(vp, tables).transpose(1, 2)
     kv_pos = torch.arange(k.shape[2], device=q.device)
     pos = positions[:, None].long()
-    mask = (kv_pos[None, :] <= pos) & (kv_pos[None, :] > pos - window)
+    mask = (kv_pos[None, :] <= pos) & (kv_pos[None, :] > pos - (window or k.shape[2]))
     mask = _alibi_mask(mask[:, None, :], alibi, kv_pos)  # [lanes, 1, kv] or [lanes, hq, 1, kv]
     return _sdpa(q.transpose(1, 2), k, v, mask if alibi is not None else mask[:, None]).transpose(1, 2)
 
@@ -1027,7 +1123,7 @@ def _library_prefill(kp, vp, table_row, qc, chunk_pos, window, alibi=None):
     v = gather_pages(vp, table_row[None])[:, :kv_len].transpose(1, 2)
     kv_pos = torch.arange(kv_len, device=qc.device)
     q_pos = chunk_pos + torch.arange(qc.shape[1], device=qc.device)
-    mask = (kv_pos[None, :] <= q_pos[:, None]) & (kv_pos[None, :] > q_pos[:, None] - window)
+    mask = (kv_pos[None, :] <= q_pos[:, None]) & (kv_pos[None, :] > q_pos[:, None] - (window or kv_len))
     mask &= slot_valid(kp, table_row[None])[0, :kv_len][None, :]
     return _sdpa(qc.transpose(1, 2), k, v, _alibi_mask(mask, alibi, kv_pos)).transpose(1, 2)
 
@@ -1039,17 +1135,48 @@ def _prefill_work(table_row, n_pages, chunk_pos, n, window):
     valid = valid.cpu().repeat_interleave(PAGE)[: chunk_pos + n].long()
     seen = torch.cumsum(torch.cat([torch.zeros(1, dtype=torch.long), valid]), 0)  # seen[i] = valid slots < i
     q_pos = chunk_pos + torch.arange(n)
-    lo = (q_pos - window + 1).clamp_min(0)
+    lo = (q_pos - (window or chunk_pos + n) + 1).clamp_min(0)
     pairs = int((seen[q_pos + 1] - seen[lo]).sum())
     return int(seen[-1] - seen[int(lo[0])]), pairs
 
 
-def check_attention_kernels(device, timer, dec, pf, kind="none", long=True, alibi=None):
+def library_yardstick(timer, library, softcap, kernel_ms, what):
+    """The library call beside a kernel: (ms, log text) of one PyTorch call
+    ``library`` that computes the kernel's function, timed; (None, "no
+    library call") where a ``softcap`` is set, since SDPA has none."""
+    if softcap is not None:
+        return None, "no library call (SDPA has no softcap)"
+    ms = timer(library)
+    return ms, f"{ms:.4f} ms {what} (kernel {kernel_ms / ms:.3f}x)"
+
+
+def plain_pool(pool):
+    """A pool as the plain versions here read it, in float32: bf16 rows
+    widened, a quantized pool decoded to float32 rows as the Pallas kernels
+    decode it (``_quant_k_scores``). The plain wrappers decode a quantized
+    pool to bfloat16, as petals_tpu's XLA twin does, which rounds each value
+    the kernels keep in float32: at a softcap case's scores of ~30 that
+    rounding alone moves an output past KERNEL_TOL."""
+    from petals_tpu_torch.ops.paged_attention import PagedPool, dequantize_kv
+
+    if isinstance(pool, PagedPool):
+        return dequantize_kv(pool.codes, pool.scales, pool.kind, torch.float32)
+    return pool.float()
+
+
+def check_attention_kernels(device, timer, dec, pf, kind="none", long=True, alibi=None,
+                            window=MISTRAL_7B["sliding_window"], softcap=None):
     """The decode and prefill kernels at one pool storage, against their
-    plain versions: K1/K2 on the cases' bf16 pools, or K3's ``kind`` arms on
-    pools quantized on the card from them; ``long`` adds the long contexts
-    and chunks; ``alibi`` (slopes [hq]) passes ALiBi slopes to every call.
-    Returns the two report entries (without main-path launch counts)."""
+    plain versions in float32 (``plain_pool``): K1/K2 on the cases' bf16
+    pools, or K3's ``kind`` arms on pools quantized on the card from them;
+    ``long`` adds the long contexts and chunks; ``alibi`` (slopes [hq])
+    passes ALiBi slopes to every call; ``window`` (None: full attention)
+    is the timed calls' window; ``softcap`` passes Gemma-2's logit
+    softcap to every call, and then no library call computes the same
+    function (``library_ms`` None), and the kernels (on cases whose queries
+    are scaled) must also disagree with the uncapped plain version: the cap
+    bends their scores. Returns the two report entries (without main-path
+    launch counts)."""
     from petals_tpu_torch.ops import paged_flash_attention as pfa
     from petals_tpu_torch.ops.paged_attention import (
         PagedPool,
@@ -1060,20 +1187,20 @@ def check_attention_kernels(device, timer, dec, pf, kind="none", long=True, alib
     )
 
     hq, hkv, d = dec["q"].shape[2], dec["kp"].shape[2], dec["kp"].shape[3]
-    window = MISTRAL_7B["sliding_window"]
     if kind == "none":
         kp, vp, kp2, vp2 = dec["kp"], dec["vp"], pf["kp"], pf["vp"]
-        plain_pool = lambda pool: pool.float()  # noqa: E731  (the plain version in float32)
         label, names, where = "", ("K1", "K2"), ("220", "488")
     else:
         kp, vp, kp2, vp2 = (PagedPool(*quantize_kv_rows(p, kind)) for p in (dec["kp"], dec["vp"], pf["kp"], pf["vp"]))
-        plain_pool = lambda pool: pool  # noqa: E731  (a PagedPool: the plain version decodes it)
         label, names, where = f"[kv_{kind}]", (f"K3 {kind} decode", f"K3 {kind} prefill"), ("150", "150")
     if hq // hkv != 4:  # not Mistral-7B's group
         names = tuple(f"{name} at group {hq // hkv}" for name in names)
     if alibi is not None:
         names = tuple(f"{name} with ALiBi ({hq} heads, head_dim {d})" for name in names)
-    ab = dict(alibi_slopes=alibi)
+    if d not in (64, 128) or softcap is not None:
+        names = tuple(f"{name} at {hq} / {hkv} heads of {d}" + (f", softcap {softcap:g}, window {window}"
+                                                                  if softcap is not None else "") for name in names)
+    ab = dict(alibi_slopes=alibi, softcap=softcap)
     side_bytes = kv_wire_bytes_per_token(hkv, d, kind)  # one token row of k (or v) of one block
 
     # ---- decode
@@ -1093,12 +1220,16 @@ def check_attention_kernels(device, timer, dec, pf, kind="none", long=True, alib
             if err > KERNEL_TOL:
                 raise AssertionError(f"{names[0]} disagrees with its plain version: {err} > {KERNEL_TOL}")
         dec_err = max(dec_err, err)
-    rows = dec["rows"]
+        if softcap is not None:
+            uncapped = paged_attend(q.float(), plain_pool(kp), plain_pool(vp), tables, positions, sliding_window=w,
+                                    alibi_slopes=alibi)
+            off = (got[active].float() - uncapped[active]).abs().max().item()
+            log(f"{names[0]}, window={w}: the uncapped plain version is {off:.3e} away")
+            if off <= 10 * KERNEL_TOL:
+                raise AssertionError(f"{names[0]} window={w}: the softcap does not bend these scores ({off:.3e})")
+    rows = sum(_visible(kl - 1, kl, window) for kl in dec["kv_lens"])
     dec_bytes = 2 * rows * side_bytes + 2 * q.numel() * 2 + tables.numel() * 4 + positions.numel() * 4
     dec_bound, dec_by = bound_ms(dec_bytes, 4 * hq * d * rows)
-    lib_err = (_library_decode(dec, kp, vp, window, alibi)[active].float() - paged_attend(
-        q.float(), plain_pool(kp), plain_pool(vp), tables, positions, sliding_window=window, **ab)[active]
-    ).abs().max().item()
     decode = {
         "name": f"paged_decode_attention{label}", "route": "cuda",
         "source": "petals_tpu_torch/csrc/paged_attention.cu",
@@ -1107,13 +1238,20 @@ def check_attention_kernels(device, timer, dec, pf, kind="none", long=True, alib
         "ms": timer(lambda: pfa.paged_flash_attend(q, kp, vp, tables, positions, sliding_window=window, **ab)),
         "plain_ms": timer(lambda: paged_attend(q, kp, vp, tables, positions, sliding_window=window, **ab)),
         "bound_ms": dec_bound, "bound_by": dec_by,
-        "library_ms": timer(lambda: _library_decode(dec, kp, vp, window, alibi)),
     }
-    decode["library_factor"] = decode["ms"] / decode["library_ms"]
-    log(f"{names[0]} at 8 lanes, window 4096: {decode['ms']:.4f} ms kernel, {decode['plain_ms']:.4f} ms plain, "
-        f"{decode['library_ms']:.4f} ms gather+SDPA (its err {lib_err:.3e}; kernel {decode['library_factor']:.3f}x), "
-        f"bound {dec_bound:.4f} ms ({dec_by}, {dec_bytes / 1e6:.2f} MB), "
-        f"{pfa.decode_split_plan(q.shape[0], hkv, tables.shape[1] * PAGE, _sm_count(device), hq // hkv)} splits")
+    library = lambda: _library_decode(dec, kp, vp, window, alibi)  # noqa: E731
+    lib_err = float("nan") if softcap is not None else (library()[active].float() - paged_attend(
+        q.float(), plain_pool(kp), plain_pool(vp), tables, positions, sliding_window=window, **ab)[active]
+    ).abs().max().item()
+    decode["library_ms"], yardstick = library_yardstick(timer, library, softcap, decode["ms"],
+                                                        f"gather+SDPA, its err {lib_err:.3e}")
+    decode["library_factor"] = None if softcap is not None else decode["ms"] / decode["library_ms"]
+    kv_code = 0 if kind == "none" else pfa._KV_CODES[kind]
+    per_sm = pfa.decode_blocks_per_sm(device, q.dtype, kv_code, hq, hkv, d)
+    splits = pfa.decode_split_plan(q.shape[0], hkv, tables.shape[1] * PAGE, _sm_count(device), hq // hkv, per_sm)
+    log(f"{names[0]} at 8 lanes, window {window}: {decode['ms']:.4f} ms kernel, {decode['plain_ms']:.4f} ms plain, "
+        f"{yardstick}, bound {dec_bound:.4f} ms ({dec_by}, {dec_bytes / 1e6:.2f} MB), {splits} splits "
+        f"({per_sm} blocks an SM)")
     # the split merge is deterministic: the same bits whichever block merges
     first = pfa.paged_flash_attend(q, kp, vp, tables, positions, sliding_window=window, **ab)
     for _ in range(DECODE_REPEATS):
@@ -1138,6 +1276,13 @@ def check_attention_kernels(device, timer, dec, pf, kind="none", long=True, alib
             qc.float(), plain_pool(kp2), plain_pool(vp2), table_row, chunk_pos, n, sliding_window=window, **ab
         )
         pf_err = max(pf_err, check_rows(f"{names[1]}, chunk_pos={chunk_pos}, {n} rows", got, want, rel_tol))
+        if softcap is not None:
+            uncapped = paged_prefill_attend(qc.float(), plain_pool(kp2), plain_pool(vp2), table_row, chunk_pos, n,
+                                            sliding_window=window, alibi_slopes=alibi)
+            off = (got.float() - uncapped).abs().max().item()
+            log(f"{names[1]}, chunk_pos={chunk_pos}: the uncapped plain version is {off:.3e} away")
+            if off <= 10 * KERNEL_TOL:
+                raise AssertionError(f"{names[1]}: the softcap does not bend these scores ({off:.3e})")
     qc, qc2 = pf["chunks"][0], pf["chunks"][512]
     n = qc.shape[1]
     at0, at512 = pfa.chunk_scalars(0, n, device), pfa.chunk_scalars(512, 188, device)
@@ -1152,16 +1297,19 @@ def check_attention_kernels(device, timer, dec, pf, kind="none", long=True, alib
         "ms": timer(lambda: pfa.paged_flash_prefill_attend(qc, kp2, vp2, table_row, *at0, sliding_window=window, **ab)),
         "plain_ms": timer(lambda: paged_prefill_attend(qc, kp2, vp2, table_row, 0, n, sliding_window=window, **ab)),
         "bound_ms": pf_bound, "bound_by": pf_by,
-        "library_ms": timer(lambda: _library_prefill(kp2, vp2, table_row, qc, 0, window, alibi)),
     }
-    prefill["library_factor"] = prefill["ms"] / prefill["library_ms"]
+    prefill["library_ms"], yardstick = library_yardstick(
+        timer, lambda: _library_prefill(kp2, vp2, table_row, qc, 0, window, alibi), softcap, prefill["ms"],
+        "gather+SDPA")
+    prefill["library_factor"] = None if softcap is not None else prefill["ms"] / prefill["library_ms"]
     cont_ms = timer(lambda: pfa.paged_flash_prefill_attend(qc2, kp2, vp2, table_row, *at512, sliding_window=window,
                                                            **ab))
-    cont_lib_ms = timer(lambda: _library_prefill(kp2, vp2, table_row, qc2, 512, window, alibi))
+    cont_lib_ms, cont_yard = library_yardstick(
+        timer, lambda: _library_prefill(kp2, vp2, table_row, qc2, 512, window, alibi), softcap, cont_ms,
+        "gather+SDPA")
     log(f"{names[1]} at a 512-row chunk: {prefill['ms']:.4f} ms kernel, {prefill['plain_ms']:.4f} ms plain, "
-        f"{prefill['library_ms']:.4f} ms gather+SDPA (kernel {prefill['library_factor']:.3f}x), "
-        f"bound {pf_bound:.4f} ms ({pf_by}); 188-row continuation at 512: {cont_ms:.4f} ms kernel, "
-        f"{cont_lib_ms:.4f} ms gather+SDPA")
+        f"{yardstick}, bound {pf_bound:.4f} ms ({pf_by}); 188-row continuation at 512: {cont_ms:.4f} ms kernel, "
+        f"{cont_yard}")
     prefill["continuation"] = {"ms": cont_ms, "library_ms": cont_lib_ms}
     if long:
         prefill["long_chunks"] = [check_long_prefill(device, timer, kind, *case) for case in LONG_PREFILL]
@@ -1242,7 +1390,7 @@ def check_long_prefill(device, timer, kind, chunk_pos, table_tokens):
     scalars = pfa.chunk_scalars(chunk_pos, n, device)  # on the card, as the served step passes them
     got = pfa.paged_flash_prefill_attend(q, kp, vp, table_row, *scalars, sliding_window=window)
     torch.cuda.synchronize()
-    plain = (kp.float(), vp.float()) if kind == "none" else (kp, vp)
+    plain = (plain_pool(kp), plain_pool(vp))
     want = paged_prefill_attend(q.float(), *plain, table_row, chunk_pos, n, sliding_window=window)
     err = check_rows(label, got, want, ROW_REL_TOL if kind == "none" else KV_ROW_REL_TOL)
     lib_err = (_library_prefill(kp, vp, table_row, q, chunk_pos, window).float() - want).abs().max().item()
@@ -1474,30 +1622,40 @@ def check_flash_kernel(device, timer):
     }
 
 
-def check_flash_case(device, timer, hq, hkv, d, alibi=None):
+def check_flash_case(device, timer, hq, hkv, d, alibi=None, softcap=None, window=None, q_scale=1.0):
     """K4 at a 512-row chunk at offset 0 over a 1024-row buffer (a session's
     cache), bf16 (wgmma) and float32 (CUDA cores) on the same values, against
     its plain version (KERNEL_TOL, F32_KERNEL_TOL, as phase 9), timed beside
-    SDPA with a mask (ALiBi added) and the bound; returns the timings."""
+    SDPA with a mask (ALiBi added) and the bound; returns the timings. With a
+    ``softcap`` (the queries times ``q_scale``, so that it bends the scores)
+    the kernel must also disagree with the uncapped plain version, and no
+    library call computes the function (``library_ms`` None)."""
     from petals_tpu_torch.ops import flash_attention as fa
 
     gen = torch.Generator(device=device).manual_seed(SEED + 22)
     q_len, buf = 512, 1024
-    q = torch.randn(1, q_len, hq, d, generator=gen, device=device).to(torch.bfloat16)
+    q = (torch.randn(1, q_len, hq, d, generator=gen, device=device) * q_scale).to(torch.bfloat16)
     k, v = (torch.randn(1, buf, hkv, d, generator=gen, device=device).to(torch.bfloat16) for _ in range(2))
     scalars = torch.tensor([0, q_len], dtype=torch.int32, device=device)
-    kw = dict(q_offset=0, kv_length=q_len, alibi_slopes=alibi)
-    kw_dev = dict(q_offset=scalars[0], kv_length=scalars[1], alibi_slopes=alibi)
+    kw = dict(q_offset=0, kv_length=q_len, alibi_slopes=alibi, softcap=softcap, sliding_window=window)
+    kw_dev = dict(q_offset=scalars[0], kv_length=scalars[1], alibi_slopes=alibi, softcap=softcap,
+                  sliding_window=window)
     name = f"K4 at group {hq // hkv} ({hq} heads over {hkv}, head_dim {d}){' with ALiBi' if alibi is not None else ''}"
+    if softcap is not None:
+        name += f", softcap {softcap:g}, window {window}"
     got = fa.flash_attend(q, k, v, **kw_dev)
     torch.cuda.synchronize()
     want = fa.flash_attend_reference(q.float(), k, v, **kw)
     if got.shape != q.shape or not torch.isfinite(got).all():
         raise AssertionError(f"{name}: output {tuple(got.shape)} or non-finite")
     err = (got.float() - want).abs().max().item()
-    got32 = fa.flash_attend(q.float(), k.float(), v.float(), **kw_dev)
+    # float32 on unscaled queries: at q_scale's scores a float32 ulp of the
+    # largest one moves a peaked softmax past phase 9's limit (the card
+    # tests hold the float32 arm to a cap that bends its scores)
+    q32 = q.float() / q_scale
+    got32 = fa.flash_attend(q32, k.float(), v.float(), **kw_dev)
     torch.cuda.synchronize()
-    err32 = (got32 - fa.flash_attend_reference(q.float(), k.float(), v.float(), **kw)).abs().max().item()
+    err32 = (got32 - fa.flash_attend_reference(q32, k.float(), v.float(), **kw)).abs().max().item()
     # with ALiBi a score reaches slope x j (~255 at 32 heads over a 512-row
     # chunk), where a float32 ulp is ~3e-5: the kernel and its plain version
     # add the bias in another order, so a score may differ by an ulp of the
@@ -1509,19 +1667,25 @@ def check_flash_case(device, timer, hq, hkv, d, alibi=None):
         f"tol {tol32:.3e})")
     if err > KERNEL_TOL or err32 > tol32:
         raise AssertionError(f"{name} disagrees with its plain version: bf16 {err}, float32 {err32}")
+    if softcap is not None:
+        off = (got.float() - fa.flash_attend_reference(q.float(), k, v, **dict(kw, softcap=None))).abs().max().item()
+        log(f"{name}: the uncapped plain version is {off:.3e} away")
+        if off <= 10 * KERNEL_TOL:
+            raise AssertionError(f"{name}: the softcap does not bend these scores ({off:.3e})")
 
     def library():
         kv_pos = torch.arange(q_len, device=device)
-        mask = _alibi_mask(kv_pos[None, :] <= kv_pos[:, None], alibi, kv_pos)
+        mask = (kv_pos[None, :] <= kv_pos[:, None]) & (kv_pos[None, :] > kv_pos[:, None] - (window or q_len))
+        mask = _alibi_mask(mask, alibi, kv_pos)
         return _sdpa(q.transpose(1, 2), k[:, :q_len].transpose(1, 2), v[:, :q_len].transpose(1, 2), mask)
 
     nbytes = 2 * q.numel() * 2 + 2 * q_len * hkv * d * 2
-    bound, by = bound_ms(nbytes, 4 * hq * d * _visible_pairs(q_len, 0, q_len, None))
+    bound, by = bound_ms(nbytes, 4 * hq * d * _visible_pairs(q_len, 0, q_len, window))
     out = {"ms": timer(lambda: fa.flash_attend(q, k, v, **kw_dev)),
-           "plain_ms": timer(lambda: fa.flash_attend_reference(q, k, v, **kw)),
-           "library_ms": timer(library), "bound_ms": bound, "bound_by": by, "max_abs_err": err}
-    log(f"{name}: {out['ms']:.4f} ms kernel, {out['plain_ms']:.4f} ms plain, {out['library_ms']:.4f} ms SDPA with "
-        f"a mask, bound {bound:.4f} ms ({by})")
+           "plain_ms": timer(lambda: fa.flash_attend_reference(q, k, v, **kw)), "bound_ms": bound, "bound_by": by,
+           "max_abs_err": err}
+    out["library_ms"], yardstick = library_yardstick(timer, library, softcap, out["ms"], "SDPA with a mask")
+    log(f"{name}: {out['ms']:.4f} ms kernel, {out['plain_ms']:.4f} ms plain, {yardstick}, bound {bound:.4f} ms ({by})")
     return out
 
 
@@ -1667,6 +1831,26 @@ def check_family_kernels(device, timer):
     families["flash_attention"]["alibi_32"] = check_flash_case(device, timer, 32, 32, 128,
                                                                build_alibi_slopes(32, device))
     return dict(families), check_grouped_matmul(device, timer)
+
+
+def check_gemma_phi3_kernels(device, timer):
+    """Phase 23 (a): the attention kernels' head_dim 256 and 96 arms and
+    Gemma-2's softcap at the families' heads (GEMMA_PHI3_CASES): K1 and K2,
+    K3's int8 and nf4a arms (decode and prefill) and K4, each against its
+    plain version, timed beside its library call (none with a softcap) and
+    the bound. Returns {entry name: {case: numbers}}."""
+    keys = ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by", "max_abs_err")
+    cases = collections.defaultdict(dict)
+    for case, (hq, hkv, d, softcap, window, q_scale) in GEMMA_PHI3_CASES.items():
+        dec, pf = attention_cases(device, hq, hkv, d, q_scale)
+        for kind in ("none",) + KV_QUANT_KINDS:
+            for entry in check_attention_kernels(device, timer, dec, pf, kind, long=False, window=window,
+                                                 softcap=softcap):
+                cases[entry["name"]][case] = {k: entry[k] for k in keys}
+        del dec, pf
+        cases["flash_attention"][case] = check_flash_case(device, timer, hq, hkv, d, softcap=softcap, window=window,
+                                                          q_scale=q_scale)
+    return dict(cases)
 
 
 def write_checkpoint(path: str, device, cfg=None, n_blocks: int = SPAN) -> None:
@@ -2651,17 +2835,23 @@ def profile_calls(steps: dict) -> dict:
 
 def dense_reference_params(block_params, dtype):
     """The served blocks with every quantized leaf dequantized (to bf16,
-    the kernels' weights), then cast to ``dtype``."""
+    the kernels' weights), then cast to ``dtype``; a leaf the server keeps
+    in float32 (Gemma's folded norms) stays float32, and a host int (Gemma-2's
+    window) as it is."""
     from petals_tpu_torch.ops.quant import QUANTIZED_TYPES, dequantize
 
-    return [
-        {k: (dequantize(v, torch.bfloat16) if isinstance(v, QUANTIZED_TYPES) else v).to(dtype) for k, v in p.items()}
-        for p in block_params
-    ]
+    def leaf(v):
+        if isinstance(v, QUANTIZED_TYPES):
+            return dequantize(v, torch.bfloat16).to(dtype)
+        if not isinstance(v, torch.Tensor):
+            return v
+        return v if v.dtype == torch.float32 else v.to(dtype)
+
+    return [{k: leaf(v) for k, v in p.items()} for p in block_params]
 
 
 def serve_and_check(ckpt, device, quant_type, n_blocks, prompts, n_steps, seed, warmup_prompts, kv_quant_type="none",
-                    label_model=""):
+                    label_model="", extra_args=()):
     """Serve blocks [0, n_blocks) of the checkpoint with ``--quant_type`` and
     ``--kv_quant_type`` through the CLI's build_server, drive concurrent
     sessions (after an optional warm-up), check the launch counters of the
@@ -2678,7 +2868,7 @@ def serve_and_check(ckpt, device, quant_type, n_blocks, prompts, n_steps, seed, 
         label = f"{label_model} {label}"
     args = build_parser().parse_args([
         ckpt, "--first_block", "0", "--num_blocks", str(n_blocks), "--host", "127.0.0.1", "--quant_type", quant_type,
-        "--kv_quant_type", kv_quant_type, *NO_PREFIX_CACHE,
+        "--kv_quant_type", kv_quant_type, *NO_PREFIX_CACHE, *extra_args,
     ])
     server = build_server(args)
 
@@ -3283,12 +3473,27 @@ class _NormedRows:
         return layer_norm(rows, self.weight, self.bias, self.eps).cpu()
 
 
+class _ScaledRows:
+    """A Gemma checkpoint's embeddings as its client sends them: rows of the
+    table in float32 times sqrt(hidden) (HF's normalizer, rounded to the
+    float32 client's dtype), indexed like a table; on the host."""
+
+    def __init__(self, table, hidden: int):
+        self.table, self.scale = table, torch.tensor(hidden**0.5, dtype=torch.float32)
+
+    def __getitem__(self, ids):
+        return self.table[torch.as_tensor(ids)].float() * self.scale
+
+
 def _reference_head(ckpt, device):
     """The checkpoint's embeddings (bf16, host; BLOOM's through their
     LayerNorm, _NormedRows), and its final norm then float32 head on the
     card: hidden [b, h] -> logits [b, vocab]. Llama-layout checkpoints
-    (Mistral, Qwen2, Mixtral) have an RMSNorm and their own head; BLOOM and
-    Falcon ``ln_f`` (a LayerNorm) and the head tied to the embeddings."""
+    (Mistral, Qwen2, Mixtral, Phi-3) have an RMSNorm and their own head;
+    BLOOM and Falcon ``ln_f`` (a LayerNorm) and the head tied to the
+    embeddings; Gemma's a (1 + w) RMSNorm, the tied head and embeddings
+    scaled by sqrt(hidden) (_ScaledRows), Gemma-2's head its final logit
+    softcap too."""
     from petals_tpu_torch.server.from_pretrained import get_block_config, load_tensors_with_prefixes
 
     family, cfg = get_block_config(ckpt)
@@ -3311,11 +3516,18 @@ def _reference_head(ckpt, device):
     t = load_tensors_with_prefixes(ckpt, ("model.embed_tokens.", "model.norm.", "lm_head."), keep_full_names=True)
     head = t.get("lm_head.weight", t["model.embed_tokens.weight"]).to(device, torch.float32)
     norm = t["model.norm.weight"].to(device, torch.float32)
+    gemma = family.name in ("gemma", "gemma2")
+    if gemma:
+        norm = norm + 1.0  # HF's Gemma RMSNorm: x * (1 + w)
+    cap = getattr(cfg, "final_logit_softcapping", None)
 
     def logits(h):
         h = h.to(device, torch.float32)
-        return (h * torch.rsqrt((h * h).mean(-1, keepdim=True) + cfg.rms_norm_eps) * norm) @ head.t()
+        out = (h * torch.rsqrt((h * h).mean(-1, keepdim=True) + cfg.rms_norm_eps) * norm) @ head.t()
+        return torch.tanh(out / cap) * cap if cap else out
 
+    if gemma:
+        return _ScaledRows(t["model.embed_tokens.weight"], cfg.hidden_size), logits
     return t["model.embed_tokens.weight"], logits
 
 
@@ -3632,6 +3844,8 @@ def _family_tensors(cfg, block: int, gen, device) -> dict:
             p + "self_attention.dense.weight": w(h, h),
             p + "mlp.dense_h_to_4h.weight": w(4 * h, h), p + "mlp.dense_4h_to_h.weight": w(h, 4 * h),
         }
+    if cfg["model_type"] in ("gemma", "gemma2", "phi3"):
+        return _gemma_phi3_tensors(cfg, block, w, ones)
     p, m, E = f"model.layers.{block}.", cfg["intermediate_size"], cfg["num_local_experts"]
     hq, hkv = cfg["num_attention_heads"], cfg["num_key_value_heads"]
     d = h // hq
@@ -3652,9 +3866,38 @@ def _family_tensors(cfg, block: int, gen, device) -> dict:
     return out
 
 
+def _gemma_phi3_tensors(cfg, block: int, w, ones) -> dict:
+    """One Gemma, Gemma-2 or Phi-3 block in its HF layout (``w``, ``ones``:
+    _family_tensors' draws). Gemma's RMSNorm weights are zero-centred (the
+    block computes x * (1 + w)): drawn at std 0.02 around 0, so the load's
+    fold gives weights near 1 and a wrong fold moves every reply; Phi-3's
+    are ones and ship its fused qkv_proj and gate_up_proj."""
+    h, m = cfg["hidden_size"], cfg["intermediate_size"]
+    hq, hkv = cfg["num_attention_heads"], cfg["num_key_value_heads"]
+    d = cfg.get("head_dim") or h // hq
+    p = f"model.layers.{block}."
+    if cfg["model_type"] == "phi3":
+        return {
+            p + "input_layernorm.weight": ones(h), p + "post_attention_layernorm.weight": ones(h),
+            p + "self_attn.qkv_proj.weight": w((hq + 2 * hkv) * d, h), p + "self_attn.o_proj.weight": w(h, hq * d),
+            p + "mlp.gate_up_proj.weight": w(2 * m, h), p + "mlp.down_proj.weight": w(h, m),
+        }
+    norms = ("input_layernorm", "post_attention_layernorm")
+    if cfg["model_type"] == "gemma2":
+        norms += ("pre_feedforward_layernorm", "post_feedforward_layernorm")
+    out = {p + f"{n}.weight": w(h) for n in norms}
+    out.update({
+        p + "self_attn.q_proj.weight": w(hq * d, h), p + "self_attn.k_proj.weight": w(hkv * d, h),
+        p + "self_attn.v_proj.weight": w(hkv * d, h), p + "self_attn.o_proj.weight": w(h, hq * d),
+        p + "mlp.gate_proj.weight": w(m, h), p + "mlp.up_proj.weight": w(m, h), p + "mlp.down_proj.weight": w(h, m),
+    })
+    return out
+
+
 def write_family_checkpoint(path: str, device, cfg: dict, n_blocks: int) -> None:
-    """A seeded checkpoint of ``n_blocks`` blocks of a BLOOM, Falcon or
-    Mixtral config at its full width (the config says ``n_blocks`` layers),
+    """A seeded checkpoint of ``n_blocks`` blocks of a BLOOM, Falcon,
+    Mixtral, Gemma, Gemma-2 or Phi-3 config at its full width (the config
+    says ``n_blocks`` layers),
     one shard a block plus one of the client's tensors, written with the
     port's safetensors writer (write_checkpoint's layout)."""
     from petals_tpu_torch.utils.safetensors_io import save_file
@@ -3670,9 +3913,12 @@ def write_family_checkpoint(path: str, device, cfg: dict, n_blocks: int) -> None
         save(f"model-{i + 1:05d}-of-{n_blocks:05d}.safetensors", _family_tensors(cfg, i, gen, device))
     h, vocab = cfg["hidden_size"], cfg["vocab_size"]
     embed = (torch.randn(vocab, h, generator=gen, device=device) * 0.02).to(torch.bfloat16)
-    if cfg["model_type"] == "mixtral":
+    if cfg["model_type"] in ("mixtral", "phi3"):
         client = {"model.embed_tokens.weight": embed, "model.norm.weight": torch.ones(h, dtype=torch.bfloat16),
                   "lm_head.weight": (torch.randn(vocab, h, generator=gen, device=device) * 0.02).to(torch.bfloat16)}
+    elif cfg["model_type"] in ("gemma", "gemma2"):  # the head tied to the embeddings; a zero-centred norm
+        client = {"model.embed_tokens.weight": embed,
+                  "model.norm.weight": (torch.randn(h, generator=gen, device=device) * 0.02).to(torch.bfloat16)}
     else:  # the head tied to the embeddings
         client = {"transformer.word_embeddings.weight": embed,
                   "transformer.ln_f.weight": torch.ones(h, dtype=torch.bfloat16),
@@ -3746,6 +3992,148 @@ def serve_families_and_check(root, device, smi) -> dict:
         free_card()
         shutil.rmtree(ckpt)
     log(f"families: phase done in {time.perf_counter() - t_phase:.1f} s")
+    return counts
+
+
+def check_gen_tokens(label, entry, tokens, block_params, ckpt, device) -> list:
+    """A server-side greedy generation (one ``generate_remote`` call's
+    record: the prompt's hidden states and the tokens the server picked)
+    teacher-forced through the dense references STEP BY STEP, as the server
+    ran it: the prompt, then each token but the last one row at a time (a
+    length-dependent rotary, Phi-3's LongRoPE, then switches where the
+    server's did). Each token's float32 reference logit must lie within
+    REPLY_NOISE_FACTOR times the bf16 reference's largest logit error of the
+    float32 reference's largest logit, as check_client_streams holds greedy
+    tokens. Returns the list of what failed."""
+    from petals_tpu_torch.server.from_pretrained import get_block_config
+
+    family, cfg = get_block_config(ckpt)
+    embed, ref_logits = _reference_head(ckpt, device)
+    tokens = torch.as_tensor(tokens).reshape(1, -1)
+    steps = [embed[tokens[:, i : i + 1]].float() for i in range(tokens.shape[1] - 1)]
+    want = [[ref_logits(o[:, -1]).cpu()
+             for o in reference_session(dense_reference_params(block_params, dtype), family, cfg, entry["hidden"],
+                                        steps, device, dtype)[0]]
+            for dtype in (torch.bfloat16, torch.float32)]
+    tol = REPLY_NOISE_FACTOR * max((b - f).abs().max().item() for b, f in zip(*want))
+    gap = max((f.max(-1).values - f[:, int(tokens[0, i])]).max().item() for i, f in enumerate(want[1]))
+    log(f"{label}: {tokens.shape[1]} server-generated tokens after a {entry['hidden'].shape[1]}-token prompt, "
+        f"teacher-forced step by step: each token's float32 reference logit at most {gap:.3e} below its max "
+        f"(tol {tol:.3e})")
+    return [f"{label}: a generated token's reference logit is {gap:.3e} below the max (> {tol:.3e})"] if gap > tol else []
+
+
+def serve_gemma_phi3_and_check(root, device, smi) -> dict:
+    """Phase 23 (b): Gemma-7B, Gemma-2-9B and Phi-3-mini-128k spans at their
+    published widths (GEMMA_PHI3_RUNS), each served by one port server built
+    by the CLI to its prompts and FAMILY_STEPS decode steps and checked as
+    phase 3 checks (replies and K/V rows against the dense references, K1
+    and K2 on every block of every step, every batched step a replay, no
+    capture after warm-up); Gemma-2-9B again with --quant_type nf4a and on
+    an nf4a pool (GEMMA_PHI3_QUANT_BLOCKS blocks: K5, K3); then each family
+    through the port's client: a greedy per-token stream held as phase 13
+    holds its streams; Gemma-2-9B's client also runs the stateless forward
+    (K4 at head_dim 256 with the softcap) at GEMMA_PHI3_FWD_LENGTHS and
+    counts its graphs (C12: at most one a bucket), Phi-3's (K4 at head_dim
+    96, LongRoPE) at PHI3_FWD_LENGTHS, every forward held to the dense
+    references; Phi-3's client also runs a per-token stream whose decode
+    crosses 4096 and a server-side generation whose prompt's known length
+    does (check_gen_tokens). Returns the launch counts of each run."""
+    from petals_tpu_torch.server.backend import bucket_length
+
+    counts = {}
+    t_phase = time.perf_counter()
+    fwd_lengths = {"gemma2": GEMMA_PHI3_FWD_LENGTHS, "phi3": PHI3_FWD_LENGTHS}
+    for name, (cfg, n_blocks, prompts) in GEMMA_PHI3_RUNS.items():
+        model = f"{cfg['architectures'][0].removesuffix('ForCausalLM')} ({name}, {n_blocks} blocks)"
+        ckpt = os.path.join(root, name)
+        os.makedirs(ckpt)
+        t0 = time.perf_counter()
+        write_family_checkpoint(ckpt, device, cfg, n_blocks)
+        log(f"checkpoint: {n_blocks} {name} blocks at full width and the client's tensors written in "
+            f"{time.perf_counter() - t0:.1f} s")
+        long = GEMMA_PHI3_LONG if max(prompts) > 1024 else ()
+        server, counts[name] = serve_and_check(ckpt, device, "none", n_blocks, prompts, FAMILY_STEPS, SEED + 30,
+                                               None, label_model=model, extra_args=long)
+        del server
+        free_card()
+        if name == "gemma2":
+            for quant_type, kv in (("nf4a", "none"), ("none", "nf4a")):
+                server, counts[f"gemma2_{quant_type}_{kv}"] = serve_and_check(
+                    ckpt, device, quant_type, GEMMA_PHI3_QUANT_BLOCKS, FAMILY_PROMPTS[:2], FAMILY_STEPS, SEED + 31,
+                    None, kv, label_model=model)
+                del server
+                free_card()
+        label = f"client ({model}, one port server, bf16)"
+        gen = torch.Generator().manual_seed(SEED + 32)
+        vocab, entries, extra = cfg["vocab_size"], [], {}
+
+        def runs(model, rec):
+            passthrough = [lambda ids, scores: scores]  # keeps the per-token path on a server-gen server
+            n = PHI3_DECODE_PROMPT if name == "phi3" else CLIENT_PROMPT
+            prompt = torch.randint(0, vocab, (1, n), generator=gen).numpy()
+            out = model.generate(prompt, max_new_tokens=FAMILY_NEW, logits_processor=passthrough)
+            streams = [(rec.sessions[-1], "greedy", out, n)]
+            if name == "phi3":
+                prompt = torch.randint(0, vocab, (1, PHI3_GEN_PROMPT), generator=gen).numpy()
+                out = model.generate(prompt, max_new_tokens=FAMILY_NEW)
+                session = rec.sessions[-1]
+                if not session["gen"] or session["steps"]:
+                    raise AssertionError(f"{label}: the {PHI3_GEN_PROMPT}-token generation did not run on the server")
+                extra["gen"] = (session["gen"][0], out[0, PHI3_GEN_PROMPT:])
+            extra["forward"] = []
+            for n in fwd_lengths.get(name, ()):
+                hidden = torch.randn(1, n, cfg["hidden_size"], generator=gen).to(torch.bfloat16)
+                extra["forward"].append((hidden, model.remote.forward(hidden), model.remote.forward(hidden)))
+            return streams
+
+        def after(servers):
+            if name == "gemma2":
+                prog = servers[0].backend._forward_program  # None on the CPU (a rehearsal): no graphs
+                buckets = {bucket_length(n) for n in GEMMA_PHI3_FWD_LENGTHS}
+                extra["graphs"] = (len(getattr(prog, "_entries", ())), len(buckets))
+
+        server_args = ["--first_block", "0", "--num_blocks", str(n_blocks), *long]
+        if name != "phi3":
+            server_args.append("--no_server_side_generation")
+        rec, streams, launches, params = drive_client(label, ckpt, device, smi, [tuple(server_args)], runs,
+                                                      after_runs=after)
+        _client_timing_line(label, rec, streams[0][0], smi)
+        log(f"{label}: launches during the client's runs {launches}")
+        if not (launches["K1"] > 0 and launches["K2"] > 0 and (name not in fwd_lengths or launches["K4"] > 0)):
+            raise AssertionError(f"{label}: K1, K2 (or K4) never ran on the client's path ({launches})")
+        failed = check_client_streams(label, streams, params, ckpt, device)
+        if name == "phi3":
+            failed += check_gen_tokens(f"{label}: server-side generation", *extra["gen"], params, ckpt, device)
+        if extra["forward"]:
+            from petals_tpu_torch.server.from_pretrained import get_block_config
+
+            family, fcfg = get_block_config(ckpt)
+            params_bf16 = dense_reference_params(params, torch.bfloat16)
+            params_f32 = dense_reference_params(params, torch.float32)
+            for hidden, first, second in extra["forward"]:
+                if not torch.equal(first, second):
+                    failed.append(f"{label}: two forwards of {hidden.shape[1]} tokens differ")
+                refs = [reference_forward(p, family, fcfg, hidden, None, device, dt)
+                        for p, dt in ((params_bf16, torch.bfloat16), (params_f32, torch.float32))]
+                failed += check_session([second], None, ([refs[0]], ()), ([refs[1]], ()),
+                                        f"{label}: forward of {hidden.shape[1]} tokens")
+            del params_bf16, params_f32
+        if name == "gemma2":
+            graphs, n_buckets = extra["graphs"]
+            log(f"{label}: C12: {graphs} forward graphs over {len(GEMMA_PHI3_FWD_LENGTHS)} distinct lengths "
+                f"({n_buckets} buckets)")
+            counts["forward_graphs"] = {"graphs": graphs, "lengths": len(GEMMA_PHI3_FWD_LENGTHS),
+                                        "buckets": n_buckets}
+            if graphs > n_buckets:
+                failed.append(f"{label}: {graphs} forward graphs for {n_buckets} buckets")
+        if failed:
+            raise AssertionError("; ".join(failed))
+        counts[f"{name}_client"] = launches
+        del params
+        free_card()
+        shutil.rmtree(ckpt)
+    log(f"gemma and phi3: phase done in {time.perf_counter() - t_phase:.1f} s")
     return counts
 
 
@@ -3983,7 +4371,7 @@ def _server_logits(model, tokens, prompt_len, max_length=None):
 
 def serve_gen_and_check(ckpt, device, smi, quant_type) -> None:
     """Phase 16: server-side generation on the card. One port server built
-    by the CLI serves every block of the 8-layer cut of the checkpoint (a
+    by the CLI serves every block of the GEN_SPAN-layer cut of the checkpoint (a
     whole model, cut in depth), with ``--quant_type``, GEN_LANES lanes in
     a GEN_CACHE_TOKENS budget; the port client runs, through its fast path:
     greedy GEN_NEW tokens from a GEN_PROMPT-token prompt; seeded sampling
@@ -4009,9 +4397,9 @@ def serve_gen_and_check(ckpt, device, smi, quant_type) -> None:
     from petals_tpu_torch.ops import paged_flash_attention as pfa
     from petals_tpu_torch.ops import quant_matmul as qmm
 
-    label = f"server-side generation (one port server, --quant_type {quant_type}, {SPAN} Mistral-7B blocks)"
-    dst = os.path.join(ckpt, f"mistral-7b-{SPAN}-layers-gen-{quant_type}")
-    cut = cut_checkpoint(ckpt, dst, SPAN)
+    label = f"server-side generation (one port server, --quant_type {quant_type}, {GEN_SPAN} Mistral-7B blocks)"
+    dst = os.path.join(ckpt, f"mistral-7b-{GEN_SPAN}-layers-gen-{quant_type}")
+    cut = cut_checkpoint(ckpt, dst, GEN_SPAN)
     held, per_call, mixed_beside_gen, private_calls = [], [], [], []
     step_walls = {"_run_batch_gen": [], "_run_batch": []}  # the batcher's step bodies, host wall in ms
 
@@ -4138,15 +4526,15 @@ def serve_gen_and_check(ckpt, device, smi, quant_type) -> None:
     t0 = time.perf_counter()
     rec, result, launches, params = drive_client(
         label, cut, device, smi,
-        [("--first_block", "0", "--num_blocks", str(SPAN), "--quant_type", quant_type, "--batch_lanes",
+        [("--first_block", "0", "--num_blocks", str(GEN_SPAN), "--quant_type", quant_type, "--batch_lanes",
           str(GEN_LANES), "--attn_cache_tokens", str(GEN_CACHE_TOKENS))],
         runs, place_check=place, after_runs=after,
     )
     calls = result["calls"]
-    k5_each = 4 * SPAN if quant_type == "nf4a" else 0
-    bad = [c for c in calls if c != (SPAN, k5_each, 0, 1)]
+    k5_each = 4 * GEN_SPAN if quant_type == "nf4a" else 0
+    bad = [c for c in calls if c != (GEN_SPAN, k5_each, 0, 1)]
     log(f"{label}: {len(calls)} generation steps during the runs, each (K1, K5 decode nf4a, captures, replays) "
-        f"= {(SPAN, k5_each, 0, 1)} but {len(bad)}; launches during the runs {launches}; prefill chunks riding a mixed "
+        f"= {(GEN_SPAN, k5_each, 0, 1)} but {len(bad)}; launches during the runs {launches}; prefill chunks riding a mixed "
         f"step beside generating lanes: {sum(n > 0 for n in mixed_beside_gen)}")
     if not calls or bad:
         raise AssertionError(f"{label}: generation steps that were not one replay running K1 on every block"
@@ -5630,7 +6018,9 @@ def serve_forward_telemetry_and_check(ckpt, device, smi) -> dict:
             }
             gaps = {name: _digest_gap(first["fp"], fp_ops.fingerprint_output(ref.numpy(), hsz))
                     for name, ref in refs.items()}
-            want_k4 = 3 * (blocks[1] - blocks[0]) if tokens >= 8 else 0
+            # every forward is padded to its bucket (>= 8 rows, C12), so even
+            # a 4-token probe runs K4 on every block
+            want_k4 = 3 * (blocks[1] - blocks[0])
             log(f"{what}: probe of {tokens} tokens: digest gap from the float32 reference "
                 f"{gaps['float32 reference']:.3e}, from the bf16 plain path {gaps['bf16 plain path']:.3e}; "
                 f"tolerance_for('none') {tol:g}; K4 launches {k4} (want {want_k4}); same seed twice: bit-equal ({smi})")
@@ -5858,6 +6248,8 @@ def main() -> int:
     # phase 22 (a): the wide-group and ALiBi arms of K1-K4 at the families'
     # shapes, and K7
     family_kernels, grouped_kernel = check_family_kernels(device, timer)
+    # phase 23 (a): K1-K4 at head_dim 256 and 96 and with Gemma-2's softcap
+    gemma_phi3_kernels = check_gemma_phi3_kernels(device, timer)
     log(f"kernel phases done at {time.perf_counter() - t_start:.1f} s")
 
     os.makedirs(os.path.join(REPO, "build"), exist_ok=True)
@@ -5930,7 +6322,7 @@ def main() -> int:
         # Qwen2.5-7B's widths: served in bf16 and nf4a, then the client
         serve_qwen2_and_check(ckpt, device, smi)
         free_card()
-        # server-side generation: one port server of the 8-block cut, bf16 then nf4a
+        # server-side generation: one port server of the GEN_SPAN-block cut, bf16 then nf4a
         for quant_type in ("none", "nf4a"):
             serve_gen_and_check(ckpt, device, smi, quant_type)
             free_card()
@@ -5951,6 +6343,9 @@ def main() -> int:
         free_card()
         # phase 22 (b): BLOOM, Falcon and Mixtral served at full width
         fam = serve_families_and_check(ckpt, device, smi)
+        free_card()
+        # phase 23 (b): Gemma-7B, Gemma-2-9B and Phi-3-mini served at full width
+        gp = serve_gemma_phi3_and_check(ckpt, device, smi)
         free_card()
     flash_kernel["launches"] = private_launches["K4"]
     # the launches on moved (imported, adopted) caches, phase 19
@@ -5993,6 +6388,28 @@ def main() -> int:
         if entry["name"].endswith("[nf4a]"):
             phase = "decode" if entry["name"].startswith("quant_decode") else "prefill"
             entry["families"] = {"mixtral_launches": fam["mixtral_nf4a"][phase]["nf4a"]}
+    # phase 23: each kernel's cases at Gemma's and Phi-3's heads, and its
+    # launches on their served runs (K3's nf4a arms on Gemma-2's nf4a pool,
+    # K4 on Gemma-2's and Phi-3's clients' forwards, K5 nf4a on its nf4a
+    # weights)
+    for entry in kernels + kv_kernels + [flash_kernel]:
+        entry["gemma_phi3"] = dict(gemma_phi3_kernels[entry["name"]])
+    for entry, k in zip(kernels, ("K1", "K2")):
+        entry["gemma_phi3"]["launches"] = {name: gp[name][k] for name in GEMMA_PHI3_RUNS}
+    for entry in kv_kernels:
+        if entry["name"].endswith("[kv_nf4a]"):
+            phase = "K3 decode" if entry["name"].startswith("paged_decode") else "K3 prefill"
+            entry["gemma_phi3"]["launches"] = {"gemma2": gp["gemma2_none_nf4a"][phase]["nf4a"]}
+    flash_kernel["gemma_phi3"]["launches"] = {name: gp[name]["K4"] for name in ("gemma2_client", "phi3_client")}
+    for entry in quant_kernels:
+        if entry["name"].endswith("[nf4a]"):
+            phase = "decode" if entry["name"].startswith("quant_decode") else "prefill"
+            entry["gemma_phi3"] = {"gemma2_launches": gp["gemma2_nf4a_none"][phase]["nf4a"]}
+    log(f"phase 23 launches: K1 {kernels[0]['gemma_phi3']['launches']}, K2 {kernels[1]['gemma_phi3']['launches']}, "
+        f"K3 nf4a decode / prefill {gp['gemma2_none_nf4a']['K3 decode']['nf4a']} / "
+        f"{gp['gemma2_none_nf4a']['K3 prefill']['nf4a']}, K4 {flash_kernel['gemma_phi3']['launches']}, K5 nf4a decode / prefill "
+        f"{gp['gemma2_nf4a_none']['decode']['nf4a']} / {gp['gemma2_nf4a_none']['prefill']['nf4a']}; C12 "
+        f"{gp['forward_graphs']}")
     from petals_tpu_torch.telemetry.observatory import get_observatory
 
     digest = get_observatory().compile_stats()

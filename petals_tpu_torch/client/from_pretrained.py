@@ -10,14 +10,16 @@ from petals_tpu_torch.server.from_pretrained import get_block_config, load_tenso
 from petals_tpu_torch.utils.device import resolve_device
 
 
-def cast_client_params(params: dict, device, dtype: torch.dtype) -> dict:
-    """Floating leaves cast to the client's ``dtype`` on ``device``. The head
-    is then held in float32 whatever ``dtype`` is (the float32 of the
-    ``dtype``-rounded values, as petals_tpu's head computes in float32), so
-    no call casts it; a tied head stays a view of the embeddings when that
-    is already float32."""
+def cast_client_params(params: dict, device, dtype: torch.dtype, family=None) -> dict:
+    """Floating leaves cast to the client's ``dtype`` on ``device``, but for
+    the ``family``'s cast-exempt leaves (gemma's folded final norm stays
+    float32). The head is then held in float32 whatever ``dtype`` is (the
+    float32 of the ``dtype``-rounded values, as petals_tpu's head computes
+    in float32), so no call casts it; a tied head stays a view of the
+    embeddings when that is already float32."""
+    exempt = family.cast_exempt if family is not None else ()
     out = {
-        name: t.to(device=device, dtype=dtype if t.is_floating_point() else t.dtype)
+        name: t.to(device=device, dtype=dtype if t.is_floating_point() and name not in exempt else t.dtype)
         for name, t in params.items()
         if name != "head"
     }
@@ -41,4 +43,4 @@ def load_client_params(path: str, *, dtype: torch.dtype = torch.float32, device=
     if family.hf_to_client_params is None:
         raise NotImplementedError(f"{family.name} has no client mapping")
     tensors = load_tensors_with_prefixes(path, family.hf_client_prefixes, keep_full_names=True)
-    return cast_client_params(family.hf_to_client_params(tensors, cfg), device, dtype)
+    return cast_client_params(family.hf_to_client_params(tensors, cfg), device, dtype, family)

@@ -49,6 +49,12 @@
 // register tiles, K/V tiles staged with cp.async into padded shared rows, the
 // KV range between the window's and the causal frontier, every tile masked.
 //
+// Head widths 64, 96, 128 and 256: the wgmma kernel pads a 96-wide tile to
+// 128 columns in shared memory (S = Q K^T over the real columns, V's padded
+// columns zeros written once, the padded outputs dropped; the cache is read
+// as it is). Gemma-2's attention logit softcap is a launch argument (0:
+// off): cap * tanhf(s / cap) on the scaled score, before ALiBi and the mask.
+//
 // Masked probabilities are selected to exactly 0, never left to
 // exp(NEG_INF - m): while every score so far was masked, m itself is NEG_INF
 // and that exponential is 1. A row that sees nothing (kv_length 0, or a
@@ -123,7 +129,7 @@ __global__ void __launch_bounds__(NT) flash_attention_kernel(
     long k_sb, long k_ss, long k_sh,
     long v_sb, long v_ss, long v_sh,
     const int* __restrict__ q_offset_p, const int* __restrict__ kv_length_p, int kv_buf_len,
-    int window, float scale) {
+    int window, float scale, float softcap) {
   const int q_offset = *q_offset_p;
   const int kv_length = min(max(*kv_length_p, 0), kv_buf_len);
   constexpr int RB = D * (int)sizeof(T);  // bytes of one K/V row of one head
@@ -209,7 +215,7 @@ __global__ void __launch_bounds__(NT) flash_attention_kernel(
         const int kv_pos = t0 + col;
         ok[c] = col < tile && kv_pos <= q_pos && kv_pos < kv_length &&
                 (window <= 0 || kv_pos > q_pos - window);
-        s[i][c] = s[i][c] * scale + slope * (float)kv_pos;
+        s[i][c] = softcapped(s[i][c] * scale, softcap) + slope * (float)kv_pos;
         if (ok[c]) mx = fmaxf(mx, s[i][c]);
       }
       // the 8 threads of a row are 8 neighbouring lanes of one warp
@@ -307,9 +313,10 @@ constexpr int WG_STAGES = 2;     // K/V tiles in the ring
 
 template <int D>
 struct WgmmaSmem {
-  static constexpr int TILE = D / 64 * ATOM_BYTES;  // Q, K or V
-  static constexpr int K_OFFSET = TILE;             // Q first
-  static constexpr int STAGE = 2 * TILE;            // K then V
+  static constexpr int DP = padded_dim(D);          // the tiles' width: head_dim 96 pads to 128
+  static constexpr int TILE = DP / 64 * ATOM_BYTES;  // Q, K or V
+  static constexpr int K_OFFSET = TILE;              // Q first
+  static constexpr int STAGE = 2 * TILE;             // K then V
   static constexpr int BYTES = TILE + WG_STAGES * STAGE + 1024;  // + slack to align the base
 };
 
@@ -359,8 +366,9 @@ __global__ void __launch_bounds__(WG_THREADS, 2) flash_wgmma_kernel(
     __nv_bfloat16* __restrict__ out,      // [batch, q_len, hq, D], contiguous
     int q_len, int hq, int hkv, long q_sb, long q_ss, long q_sh, long k_sb, long k_ss, long k_sh,
     long v_sb, long v_ss, long v_sh, const int* __restrict__ q_offset_p, const int* __restrict__ kv_length_p,
-    int kv_buf_len, int window, float scale) {
+    int kv_buf_len, int window, float scale, float softcap) {
   using S = WgmmaSmem<D>;
+  constexpr int DP = S::DP;
   const int q_offset = *q_offset_p;
   const int kv_length = min(max(*kv_length_p, 0), kv_buf_len);
   constexpr int CH = D / 8;  // 16-byte chunks of a row
@@ -396,6 +404,18 @@ __global__ void __launch_bounds__(WG_THREADS, 2) flash_wgmma_kernel(
     cp_async16(base + (c / 8) * ATOM_BYTES + m * 128 + (((c % 8) ^ (m % 8)) * 16), src, ok);
   }
   asm volatile("cp.async.commit_group;\n" ::: "memory");
+  // a padded width (head_dim 96): the V tiles' columns past D are zeros, so
+  // the PV product's padded output columns (dropped) stay finite; the
+  // copies below fill columns < D only
+  if constexpr (DP != D) {
+    constexpr int PAD = (DP - D) / 8;
+    unsigned char* aligned = wg_smem_raw + (base - raw_base);
+    for (int e = tid; e < WG_STAGES * WG_KV * PAD; e += WG_THREADS) {
+      const int st = e / (WG_KV * PAD), r = e / PAD % WG_KV, c = CH + e % PAD;
+      *reinterpret_cast<uint4*>(aligned + S::K_OFFSET + st * S::STAGE + S::TILE + sw128(r, c)) =
+          make_uint4(0u, 0u, 0u, 0u);
+    }
+  }
 
   const __nv_bfloat16* k_base = k + b * k_sb + kvh * k_sh;
   const __nv_bfloat16* v_base = v + b * v_sb + kvh * v_sh;
@@ -428,12 +448,15 @@ __global__ void __launch_bounds__(WG_THREADS, 2) flash_wgmma_kernel(
     q_pos[j] = p_first + pos;
     slope[j] = slopes != nullptr && head[j] < heads ? slopes[h0 + head[j]] * LOG2E : 0.f;
   }
-  const float qk_scale = scale * LOG2E;
+  // scores in the log2 domain; with a softcap the cap takes the natural
+  // score and the log2e factor comes after it
+  const float qk_scale = softcap > 0.f ? scale : scale * LOG2E;
+  const float post_cap = softcap > 0.f ? LOG2E : 1.f;
   const int col0 = 2 * (lane % 4);
 
-  float o[D / 2];
+  float o[DP / 2];
 #pragma unroll
-  for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+  for (int i = 0; i < DP / 2; ++i) o[i] = 0.f;
   float m_run[2] = {NEG_INF, NEG_INF}, l_run[2] = {0.f, 0.f};
 
   for (int j = 0; j < n_tiles; ++j) {
@@ -462,7 +485,7 @@ __global__ void __launch_bounds__(WG_THREADS, 2) flash_wgmma_kernel(
 #pragma unroll
     for (int i = 0; i < 32; ++i) {
       const int kv = t0 + col0 + 8 * (i / 4) + (i & 1);
-      s[i] = s[i] * qk_scale + slope[(i >> 1) & 1] * (float)kv;
+      s[i] = softcapped(s[i] * qk_scale, softcap) * post_cap + slope[(i >> 1) & 1] * (float)kv;
     }
     // interior: every row of the block sees every column of the tile
     const bool interior = t0 + WG_KV - 1 <= p_first && t0 + WG_KV <= kv_length &&
@@ -474,7 +497,7 @@ __global__ void __launch_bounds__(WG_THREADS, 2) flash_wgmma_kernel(
       softmax_tile<true>(s, m_run, l_run, alpha, q_pos, t0, col0, kv_length, window);
     }
 #pragma unroll
-    for (int i = 0; i < D / 2; ++i) o[i] *= alpha[(i >> 1) & 1];
+    for (int i = 0; i < DP / 2; ++i) o[i] *= alpha[(i >> 1) & 1];
 
     // P as the A fragments of the four k16 steps; the PV products
     uint32_t a[4][4];
@@ -485,7 +508,7 @@ __global__ void __launch_bounds__(WG_THREADS, 2) flash_wgmma_kernel(
     }
     wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk) wgmma_pv<D>(o, a[kk], desc_mn_major(vs + kk * 2048));
+    for (int kk = 0; kk < 4; ++kk) wgmma_pv<DP>(o, a[kk], desc_mn_major(vs + kk * 2048));
     wgmma_commit();
     fence_regs(o);
     wgmma_wait0();
@@ -508,7 +531,8 @@ __global__ void __launch_bounds__(WG_THREADS, 2) flash_wgmma_kernel(
     if (!real[j]) continue;
     __nv_bfloat16* row = out + (((long)b * q_len + (q_pos[j] - q_offset)) * hq + h0 + head[j]) * D;
 #pragma unroll
-    for (int i = 2 * j; i < D / 2; i += 4) {
+    for (int i = 2 * j; i < DP / 2; i += 4) {
+      if (8 * (i / 4) >= D) continue;  // a padded column (head_dim 96)
       *reinterpret_cast<__nv_bfloat162*>(row + 8 * (i / 4) + col0) =
           __floats2bfloat162_rn(o[i] * inv[j], o[i + 1] * inv[j]);
     }
@@ -519,7 +543,7 @@ template <typename T, int D>
 int launch(const void* q, const void* k, const void* v, const float* slopes, void* out, int batch,
            int q_len, int hq, int hkv, long q_sb, long q_ss, long q_sh, long k_sb, long k_ss,
            long k_sh, long v_sb, long v_ss, long v_sh, const int* q_offset, const int* kv_length,
-           int kv_buf_len, int window, float scale, cudaStream_t stream) {
+           int kv_buf_len, int window, float scale, float softcap, cudaStream_t stream) {
   constexpr int kMaxDevices = 64;
   static bool configured[kMaxDevices] = {};  // the shared-memory attribute, per device
   const size_t smem = 2 * (size_t)BKV * kv_pitch<T, D>() * sizeof(T) +
@@ -536,7 +560,7 @@ int launch(const void* q, const void* k, const void* v, const float* slopes, voi
   kernel<<<dim3((q_len + BQ - 1) / BQ, hq, batch), NT, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), slopes,
       static_cast<T*>(out), q_len, hq, hkv, q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh,
-      q_offset, kv_length, kv_buf_len, window, scale);
+      q_offset, kv_length, kv_buf_len, window, scale, softcap);
   return (int)cudaGetLastError();
 }
 
@@ -544,7 +568,7 @@ template <int D>
 int launch_wgmma(const void* q, const void* k, const void* v, const float* slopes, void* out, int batch,
                  int q_len, int hq, int hkv, long q_sb, long q_ss, long q_sh, long k_sb, long k_ss,
                  long k_sh, long v_sb, long v_ss, long v_sh, const int* q_offset, const int* kv_length,
-                 int kv_buf_len, int window, float scale, cudaStream_t stream) {
+                 int kv_buf_len, int window, float scale, float softcap, cudaStream_t stream) {
   constexpr int kMaxDevices = 64;
   static bool configured[kMaxDevices] = {};  // the shared-memory attribute, per device
   const GroupTiles gt = group_tiles(hq / hkv);
@@ -561,7 +585,7 @@ int launch_wgmma(const void* q, const void* k, const void* v, const float* slope
   flash_wgmma_kernel<D><<<dim3(hkv * gt.n, batch, (q_len + qp - 1) / qp), WG_THREADS, WgmmaSmem<D>::BYTES, stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), slopes, static_cast<__nv_bfloat16*>(out), q_len, hq, hkv, q_sb,
-      q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, q_offset, kv_length, kv_buf_len, window, scale);
+      q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, q_offset, kv_length, kv_buf_len, window, scale, softcap);
   return (int)cudaGetLastError();
 }
 
@@ -581,18 +605,22 @@ int ptt_flash_attention(const void* q, const void* k, const void* v, const void*
                         long long q_sb, long long q_ss, long long q_sh, long long k_sb,
                         long long k_ss, long long k_sh, long long v_sb, long long v_ss,
                         long long v_sh, const void* q_offset, const void* kv_length, int kv_buf_len,
-                        int window, float scale, void* stream) {
+                        int window, float scale, float softcap, void* stream) {
   const float* sl = static_cast<const float*>(slopes);
   const int* qo = static_cast<const int*>(q_offset);
   const int* kl = static_cast<const int*>(kv_length);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define PTT_FLASH(LAUNCH)                                                                   \
   return LAUNCH(q, k, v, sl, out, batch, q_len, hq, hkv, q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, \
-                v_sb, v_ss, v_sh, qo, kl, kv_buf_len, window, scale, s)
+                v_sb, v_ss, v_sh, qo, kl, kv_buf_len, window, scale, softcap, s)
   if (dtype == 0 && head_dim == 64) PTT_FLASH((launch<float, 64>));
+  if (dtype == 0 && head_dim == 96) PTT_FLASH((launch<float, 96>));
   if (dtype == 0 && head_dim == 128) PTT_FLASH((launch<float, 128>));
+  if (dtype == 0 && head_dim == 256) PTT_FLASH((launch<float, 256>));
   if (dtype == 1 && head_dim == 64) PTT_FLASH(launch_wgmma<64>);
+  if (dtype == 1 && head_dim == 96) PTT_FLASH(launch_wgmma<96>);
   if (dtype == 1 && head_dim == 128) PTT_FLASH(launch_wgmma<128>);
+  if (dtype == 1 && head_dim == 256) PTT_FLASH(launch_wgmma<256>);
 #undef PTT_FLASH
   return (int)cudaErrorInvalidValue;
 }

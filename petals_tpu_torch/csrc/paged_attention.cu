@@ -70,6 +70,21 @@
 // ring and loops; bf16 prefill decodes each staged tile once into bf16
 // swizzled tiles for wgmma, float32 prefill into float32 shared memory, and
 // each then runs its fp arm's products unchanged.
+//
+// Head widths and the softcap (Gemma's and Gemma-2's 256, Phi-3's 96). Every
+// kernel is built at head_dim 64, 96, 128 and 256. The decode kernel's PV
+// sets are DEC_THREADS / (D / 2) (five at 96; its last 16 threads sit the
+// PV product out); at 256 its ring is two 576-byte-pitch stages (148 KB in
+// bf16), so one block an SM, which decode_split_plan counts
+// (ptt_paged_decode_blocks_per_sm). The wgmma prefill pads a 96-wide tile
+// to 128 columns in shared memory (hopper::padded_dim): S = Q K^T steps
+// over the real columns only, V's padded columns are zeros written once,
+// and the padded output columns are dropped; the pool is never padded. At
+// 256 its quantized arm keeps one decoded K/V pair (two pairs and the two Q
+// tiles would leave the ring one stage) and decodes tile j once tile j - 1's
+// products are done. Gemma-2's attention logit softcap is a launch argument
+// (0: off): cap * tanhf(s / cap) on the scaled natural-log score, before
+// ALiBi and the mask (the prefill kernel's log2 domain takes log2e after).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -238,8 +253,11 @@ struct DecodeShape {
   // at head_dim 128: 80 KB), so that two blocks share an SM
   static constexpr int STAGES = 3 * STAGE_BYTES <= 80 * 1024 ? 3 : 2;
   static constexpr int RING_BYTES = (STAGES * STAGE_BYTES + 15) / 16 * 16;
-  static constexpr int PAIRS = D / 2;               // output dim pairs
-  static constexpr int NSET = DEC_THREADS / PAIRS;  // PV token sets
+  static constexpr int PAIRS = D / 2;  // output dim pairs
+  // PV token sets; where PAIRS does not divide the block (head_dim 96: 48
+  // pairs, 5 sets) the last DEC_THREADS - NSET * PAIRS threads sit the PV
+  // product out
+  static constexpr int NSET = DEC_THREADS / PAIRS;
 };
 
 // Values per staged 16-byte chunk as the score product takes them.
@@ -314,8 +332,10 @@ __global__ void __launch_bounds__(DEC_THREADS) paged_decode_kernel(
     float2* __restrict__ part_ml,        // [n_lanes, hkv * n_tiles, n_splits, tile] (m, l); n_splits > 1
     float* __restrict__ part_acc,        // [n_lanes, hkv * n_tiles, n_splits, tile, D]
     unsigned* __restrict__ tickets,      // [n_lanes * hkv * n_tiles], all 0 between launches
-    int hq, int hkv, int n_pages, int page_size, int max_pages, int window, float scale) {
+    int hq, int hkv, int n_pages, int page_size, int max_pages, int window, float scale, float softcap) {
   using S = DecodeShape<T, D, KV>;
+  // the token sets' partial sums meet in the (idle) ring after the loop
+  static_assert((S::NSET - 1) * GMAX * S::PAIRS * 2 * (int)sizeof(float) <= S::RING_BYTES, "PV sets overflow the ring");
   constexpr int TR = S::TR, TPR = S::TPR, PITCH = S::PITCH, NCH = S::NCH, STAGES = S::STAGES;
   constexpr int CN = chunk_values<T, KV>();
   constexpr int RUN = KV == KV_NF4A ? CN / 2 : CN;  // contiguous dims of a chunk's first run
@@ -394,7 +414,7 @@ __global__ void __launch_bounds__(DEC_THREADS) paged_decode_kernel(
   float acc[GMAX][2];
 #pragma unroll
   for (int g = 0; g < GMAX; ++g) acc[g][0] = acc[g][1] = 0.f;
-  const int pair = tid % S::PAIRS, set = tid / S::PAIRS;
+  const int pair = tid % S::PAIRS, set = tid / S::PAIRS;  // set >= NSET: no PV share
 
 #pragma unroll
   for (int i = 0; i < STAGES - 1; ++i) load_tile(i);
@@ -449,7 +469,7 @@ __global__ void __launch_bounds__(DEC_THREADS) paged_decode_kernel(
         const float kv_pos = (float)(lo + i * TR + r);
 #pragma unroll
         for (int g = 0; g < GMAX; ++g)
-          if (g < group) p_s[g * TR + r] = part[g] * row_scale + sl_s[g] * kv_pos;
+          if (g < group) p_s[g * TR + r] = hopper::softcapped(part[g] * row_scale, softcap) + sl_s[g] * kv_pos;
       }
     }
     __syncthreads();
@@ -490,7 +510,7 @@ __global__ void __launch_bounds__(DEC_THREADS) paged_decode_kernel(
           acc[g][1] *= a_s[g];
         }
       }
-      for (int r = set; r < TR; r += S::NSET) {
+      for (int r = set; set < S::NSET && r < TR; r += S::NSET) {
         const float2 vv = v_pair<T, KV>(vs + r * PITCH, pair);
 #pragma unroll
         for (int g = 0; g < GMAX; ++g) {
@@ -509,7 +529,7 @@ __global__ void __launch_bounds__(DEC_THREADS) paged_decode_kernel(
 
   // the token sets add up in set order, through the (idle) ring memory
   float* red = reinterpret_cast<float*>(smem);  // [NSET - 1][GMAX][PAIRS][2]
-  if (set > 0) {
+  if (set > 0 && set < S::NSET) {
 #pragma unroll
     for (int g = 0; g < GMAX; ++g) {
       if (g < group) {
@@ -647,7 +667,8 @@ __global__ void __launch_bounds__(NT) paged_prefill_kernel(
     const int* __restrict__ n_valid_p,    // and its real rows (kv_len = chunk_pos + n_valid)
     const float* __restrict__ slopes,  // [hq] or nullptr
     T* __restrict__ out,               // [q_len, hq, D]
-    int q_len, int hq, int hkv, int n_pages, int page_size, int max_pages, int window, float scale) {
+    int q_len, int hq, int hkv, int n_pages, int page_size, int max_pages, int window, float scale,
+    float softcap) {
   // a quantized tile is decoded once into float32 shared memory; the loops
   // below then read it exactly as they read a floating-point tile
   using KT = typename std::conditional<KV == KV_FP, T, float>::type;
@@ -755,7 +776,7 @@ __global__ void __launch_bounds__(NT) paged_prefill_kernel(
           ok[c] = col < tile && kv_pos <= q_pos && kv_pos < kv_len &&
                   (window <= 0 || kv_pos > q_pos - window);
           if constexpr (KV != KV_FP) s[i][c] *= k_row[c];
-          s[i][c] = s[i][c] * scale + slope * (float)kv_pos;
+          s[i][c] = hopper::softcapped(s[i][c] * scale, softcap) + slope * (float)kv_pos;
           if (ok[c]) mx = fmaxf(mx, s[i][c]);
         }
         // the 8 threads of a row are 8 neighbouring lanes of one warp
@@ -855,8 +876,15 @@ __global__ void __launch_bounds__(NT) paged_prefill_kernel(
 //     m64nDk16, V read as an MN-major B straight from its tile).
 // Quantized pools (K3): a stage holds the raw code rows and their float32
 // scales; all threads decode it once into a bf16 K tile and a bf16 V tile in
-// the swizzle (int8 codes are exact in bf16; nf4a's unscaled cubic
-// dl*(A/B + dl^2) rounds to bf16) and the products run on those. The decoded
+// the swizzle and the products run on those. int8 codes are exact in bf16;
+// nf4a's unscaled cubic dl*(A/B + dl^2) is not. The TPU kernel decodes to
+// float32, and at scores of ~30 (a softcap's case) one bf16 rounding of K
+// moves an output past the limit its plain version is held to, so nf4a's
+// K decodes to two bf16 tiles, the cubic rounded and its rounding error
+// rounded (their sum holds the float32 cubic to about 2^-17), and the
+// scores run on both into one accumulator. V keeps one rounding: its
+// error in an output is the size of P's own rounding, which no score
+// amplifies. The decoded
 // tiles come in two pairs, by tile parity: tile j + 1's K is decoded while
 // tile j's scores run on the tensor cores, its V while tile j's PV product
 // runs. The TPU kernel's factoring stays: the score row is multiplied by the
@@ -893,31 +921,48 @@ template <int D, int KV>
 struct PrefillSmem {
   static constexpr int NWG = PF_WARPGROUPS;
   static constexpr int THREADS = PF_THREADS;
-  static constexpr int TILE = D / 64 * ATOM_BYTES;  // a swizzled [64 x D] bf16 tile
+  static constexpr int DP = hopper::padded_dim(D);    // the tiles' width: head_dim 96 pads to 128
+  static constexpr int TILE = DP / 64 * ATOM_BYTES;  // a swizzled [64 x DP] bf16 tile
   static constexpr int RB = row_bytes<__nv_bfloat16, D, KV>();
   static constexpr int SIDE = KV == KV_FP ? TILE : PF_KV * RB;  // K (or V) of a stage
-  // Q, then (quantized) a pair of decoded K and V tiles for each parity of j
-  static constexpr int FIXED = NWG * TILE + (KV == KV_FP ? 0 : 4 * TILE);
+  // decoded K and V tile pairs (quantized pools): one for each parity of j,
+  // so that tile j + 1 decodes while tile j's products run; at head_dim 256
+  // two pairs and the two Q tiles (192 KB) would leave the ring one stage,
+  // so that arm keeps one pair and decodes tile j after tile j - 1's products
+  static constexpr int PAIRS = KV == KV_FP ? 0 : D > 128 ? 1 : 2;
+  // a decoded pair: K's tiles (nf4a: the rounded cubic, then its rounding
+  // error), then V's
+  static constexpr int K_PARTS = KV == KV_NF4A ? 2 : 1;
+  static constexpr int V_OFF = K_PARTS * TILE;
+  static constexpr int PAIR = V_OFF + TILE;
+  static constexpr int FIXED = NWG * TILE + PAIRS * PAIR;  // Q, then the decoded pairs
   // per stage: the K and V scales (quantized), then a valid flag per row
   static constexpr int SCALES = KV == KV_FP ? 0 : 2 * PF_KV * 4;
   static constexpr int META = SCALES + PF_KV;
   // as many stages as a block's 227 KB hold, at most 4 (tiles j + 1 to j + 3
-  // in flight while tile j computes); a quantized pool's loop needs three
+  // in flight while tile j computes); the two-pair loop needs three
   static constexpr int FIT = (227 * 1024 - 1024 - FIXED) / (2 * SIDE + META);
   static constexpr int STAGES = FIT < 4 ? FIT : 4;
-  static_assert(STAGES >= (KV == KV_FP ? 2 : 3), "too few stages for the ring");
+  static_assert(STAGES >= (PAIRS == 2 ? 3 : 2), "too few stages for the ring");
   static constexpr int Q_OFF = 0;
   static constexpr int RING_OFF = FIXED;  // stage s: K at RING_OFF + 2 s SIDE, V SIDE further
   static constexpr int META_OFF = RING_OFF + STAGES * 2 * SIDE;
   static constexpr int BYTES = META_OFF + STAGES * META + 1024;  // + slack to align the base
 };
 
+// The bf16 pair of what rounding (x, y) to the bf16 pair hi left off.
+__device__ __forceinline__ uint32_t bf16_rest(float x, float y, uint32_t hi) {
+  const float2 h = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&hi));
+  return pack_bf16(x - h.x, y - h.y);
+}
+
 // Decode one side (K or V) of a stage, its raw code rows [64 x RB], into a
 // bf16 tile at dst in the 128-byte swizzle: int8 codes as they are; nf4a
 // bytes as the unscaled cubic of each nibble (byte j: dim j low, dim j + D/2
-// high), rounded to bf16. Rows that are not valid decode from their zero
-// bytes and are masked.
-template <int D, int KV, int NT>
+// high), rounded to bf16, and with PARTS 2 what that rounding left off into
+// the next tile. Rows that are not valid decode from their zero bytes and
+// are masked.
+template <int D, int KV, int NT, int PARTS>
 __device__ __forceinline__ void decode_side(unsigned char* tile, const unsigned char* src) {
   constexpr int RB = row_bytes<__nv_bfloat16, D, KV>(), RCH = RB / 16;
   for (int e = threadIdx.x; e < PF_KV * RCH; e += NT) {
@@ -939,17 +984,28 @@ __device__ __forceinline__ void decode_side(unsigned char* tile, const unsigned 
       *reinterpret_cast<uint4*>(tile + sw128(r, 2 * c + 1)) = make_uint4(p[4], p[5], p[6], p[7]);
     } else {
       // low nibbles: dims 16c .. (chunks 2c, 2c + 1); high: dims D/2 + 16c ..
-      uint32_t lo[8], hi[8];
+      unsigned char* const rest = tile + PrefillSmem<D, KV>::TILE;
+      uint32_t lo[8], hi[8], lo_rest[8], hi_rest[8];
 #pragma unroll
       for (int i = 0; i < 8; ++i) {
         const uint32_t pair = words[i / 2] >> (16 * (i % 2));
-        lo[i] = pack_bf16(nf4a_poly(pair & 0xFu), nf4a_poly((pair >> 8) & 0xFu));
-        hi[i] = pack_bf16(nf4a_poly((pair >> 4) & 0xFu), nf4a_poly((pair >> 12) & 0xFu));
+        const float a0 = nf4a_poly(pair & 0xFu), a1 = nf4a_poly((pair >> 8) & 0xFu);
+        const float b0 = nf4a_poly((pair >> 4) & 0xFu), b1 = nf4a_poly((pair >> 12) & 0xFu);
+        lo[i] = pack_bf16(a0, a1);
+        hi[i] = pack_bf16(b0, b1);
+        lo_rest[i] = bf16_rest(a0, a1, lo[i]);
+        hi_rest[i] = bf16_rest(b0, b1, hi[i]);
       }
-      *reinterpret_cast<uint4*>(tile + sw128(r, 2 * c)) = make_uint4(lo[0], lo[1], lo[2], lo[3]);
-      *reinterpret_cast<uint4*>(tile + sw128(r, 2 * c + 1)) = make_uint4(lo[4], lo[5], lo[6], lo[7]);
-      *reinterpret_cast<uint4*>(tile + sw128(r, D / 16 + 2 * c)) = make_uint4(hi[0], hi[1], hi[2], hi[3]);
-      *reinterpret_cast<uint4*>(tile + sw128(r, D / 16 + 2 * c + 1)) = make_uint4(hi[4], hi[5], hi[6], hi[7]);
+#pragma unroll
+      for (int part = 0; part < PARTS; ++part) {
+        unsigned char* const t = part == 0 ? tile : rest;
+        const uint32_t* const l = part == 0 ? lo : lo_rest;
+        const uint32_t* const h = part == 0 ? hi : hi_rest;
+        *reinterpret_cast<uint4*>(t + sw128(r, 2 * c)) = make_uint4(l[0], l[1], l[2], l[3]);
+        *reinterpret_cast<uint4*>(t + sw128(r, 2 * c + 1)) = make_uint4(l[4], l[5], l[6], l[7]);
+        *reinterpret_cast<uint4*>(t + sw128(r, D / 16 + 2 * c)) = make_uint4(h[0], h[1], h[2], h[3]);
+        *reinterpret_cast<uint4*>(t + sw128(r, D / 16 + 2 * c + 1)) = make_uint4(h[4], h[5], h[6], h[7]);
+      }
     }
   }
 }
@@ -1006,9 +1062,9 @@ __global__ void __launch_bounds__(PF_THREADS, 1)
                                const float* __restrict__ slopes,   // [hq] or nullptr
                                __nv_bfloat16* __restrict__ out,    // [q_len, hq, D]
                                int q_len, int hq, int hkv, int n_pages, int page_size, int max_pages,
-                               int window, float scale) {
+                               int window, float scale, float softcap) {
   using S = PrefillSmem<D, KV>;
-  constexpr int NWG = S::NWG, NT = S::THREADS, STAGES = S::STAGES, RB = S::RB;
+  constexpr int NWG = S::NWG, NT = S::THREADS, STAGES = S::STAGES, RB = S::RB, DP = S::DP;
   constexpr int CH = D / 8;     // 16-byte chunks of a bf16 row
   constexpr int RCH = RB / 16;  // 16-byte chunks of a stored row
   extern __shared__ __align__(16) unsigned char pf_smem_raw[];
@@ -1047,6 +1103,19 @@ __global__ void __launch_bounds__(PF_THREADS, 1)
     hopper::cp_async16(base + S::Q_OFF + w * S::TILE + sw128(m, c), src, ok);
   }
   cp_async_commit();
+  // a padded width (head_dim 96): the V tiles' columns past D are zeros, so
+  // the PV product's padded output columns (dropped) stay finite. Nothing
+  // else writes them: the ring's copies and the decode fill columns < D
+  if constexpr (DP != D) {
+    constexpr int PAD = (DP - D) / 8;  // padded 16-byte chunks of a row
+    constexpr int N_V = KV == KV_FP ? STAGES : S::PAIRS;
+    for (int e = tid; e < N_V * PF_KV * PAD; e += NT) {
+      const int t = e / (PF_KV * PAD), r = e / PAD % PF_KV, c = CH + e % PAD;
+      const uint32_t v_tile = KV == KV_FP ? S::RING_OFF + (2 * t + 1) * S::SIDE
+                                          : S::Q_OFF + NWG * S::TILE + t * S::PAIR + S::V_OFF;
+      *reinterpret_cast<uint4*>(smem + v_tile + sw128(r, c)) = make_uint4(0u, 0u, 0u, 0u);
+    }
+  }
 
   // stage st: K and V (swizzled bf16 tiles, or raw code rows), and its meta:
   // [K scales | V scales] (quantized), then a valid flag per row
@@ -1110,24 +1179,30 @@ __global__ void __launch_bounds__(PF_THREADS, 1)
   // the warpgroup's first and last real positions, for the interior test
   const int wg_first = p_first + wg * qp;
   const int wg_last = chunk_pos + min(q_len, pos0 + (wg + 1) * qp) - 1;
-  const float qk_scale = scale * LOG2E;
+  // scores in the log2 domain; with a softcap the cap takes the natural
+  // score and the log2e factor comes after it
+  const float qk_scale = softcap > 0.f ? scale : scale * LOG2E;
   const int col0 = 2 * (lane % 4);
   const uint32_t q_tile = base + S::Q_OFF + wg * S::TILE;
 
-  float o[D / 2];
+  float o[DP / 2];
 #pragma unroll
-  for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+  for (int i = 0; i < DP / 2; ++i) o[i] = 0.f;
   float m_run[2] = {NEG_INF, NEG_INF}, l_run[2] = {0.f, 0.f};
 
   // tile j's scores S = Q K^T, issued (not waited) from the K tile at ks
+  // (and nf4a's rest, the next tile)
   auto issue_scores = [&](float(&acc)[32], uint32_t ks) {
 #pragma unroll
     for (int i = 0; i < 32; ++i) acc[i] = 0.f;
     wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      const uint32_t off = (kk / 4) * ATOM_BYTES + (kk % 4) * 32;
-      wgmma_m64n64k16_ss(acc, desc_k_major(q_tile + off), desc_k_major(ks + off), kk > 0);
+    for (int part = 0; part < S::K_PARTS; ++part, ks += S::TILE) {
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        const uint32_t off = (kk / 4) * ATOM_BYTES + (kk % 4) * 32;
+        wgmma_m64n64k16_ss(acc, desc_k_major(q_tile + off), desc_k_major(ks + off), part + kk > 0);
+      }
     }
     wgmma_commit();
     fence_regs(acc);
@@ -1145,6 +1220,10 @@ __global__ void __launch_bounds__(PF_THREADS, 1)
       float sc = qk_scale;
       if constexpr (KV != KV_FP) sc *= k_scale[col0 + 8 * (i / 4) + (i & 1)] * scale_factor<KV>();
       scores[i] *= sc;
+    }
+    if (softcap > 0.f) {
+#pragma unroll
+      for (int i = 0; i < 32; ++i) scores[i] = hopper::softcapped(scores[i], softcap) * LOG2E;
     }
     if (slopes != nullptr) {
 #pragma unroll
@@ -1167,7 +1246,7 @@ __global__ void __launch_bounds__(PF_THREADS, 1)
       prefill_softmax<true>(scores, m_run, l_run, alpha, q_pos, t0, col0, kv_len, window, ok_col);
     }
 #pragma unroll
-    for (int i = 0; i < D / 2; ++i) o[i] *= alpha[(i >> 1) & 1];
+    for (int i = 0; i < DP / 2; ++i) o[i] *= alpha[(i >> 1) & 1];
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk) {
 #pragma unroll
@@ -1185,7 +1264,7 @@ __global__ void __launch_bounds__(PF_THREADS, 1)
   auto issue_pv = [&](const uint32_t (&a)[4][4], uint32_t vs) {
     wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk) wgmma_pv<D>(o, a[kk], desc_mn_major(vs + kk * 2048));
+    for (int kk = 0; kk < 4; ++kk) wgmma_pv<DP>(o, a[kk], desc_mn_major(vs + kk * 2048));
     wgmma_commit();
     fence_regs(o);
   };
@@ -1209,18 +1288,38 @@ __global__ void __launch_bounds__(PF_THREADS, 1)
       wgmma_wait0();
       fence_regs(o);
     }
+  } else if constexpr (S::PAIRS == 1) {
+    // one decoded pair (head_dim 256): tile j is decoded once every thread
+    // is done with tile j - 1's products, then its products run
+    constexpr int DEC = S::Q_OFF + NWG * S::TILE;
+    for (int j = 0; j < n_tiles; ++j) {
+      cp_async_wait<STAGES - 2>();  // Q and tile j landed
+      __syncthreads();  // ... for all; every thread is done with tile j - 1 and the decoded pair
+      load_tile(j + STAGES - 1);  // into tile j - 1's stage
+      decode_side<D, KV, NT, S::K_PARTS>(smem + DEC, smem + (side_addr(j % STAGES, 0) - base));
+      decode_side<D, KV, NT, 1>(smem + DEC + S::V_OFF, smem + (side_addr(j % STAGES, 1) - base));
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+      __syncthreads();  // the decoded pair visible to all
+      issue_scores(s, base + DEC);
+      wgmma_wait0();
+      fence_regs(s);
+      softmax_to_p(s, a, j);
+      issue_pv(a, base + DEC + S::V_OFF);
+      wgmma_wait0();
+      fence_regs(o);
+    }
   } else {
     // decoded tiles: a K and V pair for each parity of j. Tile j + 1 is
     // decoded while tile j's products run: its K under the scores, its V
     // under the PV product.
     constexpr int DEC = S::Q_OFF + NWG * S::TILE;
-    auto dec_k = [&](int j) { return DEC + (j & 1) * 2 * S::TILE; };  // byte offsets from the base
+    auto dec_k = [&](int j) { return DEC + (j & 1) * S::PAIR; };  // byte offsets from the base
     auto raw = [&](int j, int side) { return smem + (side_addr(j % STAGES, side) - base); };
     if (n_tiles > 0) {
       cp_async_wait<STAGES - 2>();  // Q and tile 0 landed
       __syncthreads();
-      decode_side<D, KV, NT>(smem + dec_k(0), raw(0, 0));
-      decode_side<D, KV, NT>(smem + dec_k(0) + S::TILE, raw(0, 1));
+      decode_side<D, KV, NT, S::K_PARTS>(smem + dec_k(0), raw(0, 0));
+      decode_side<D, KV, NT, 1>(smem + dec_k(0) + S::V_OFF, raw(0, 1));
       asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
       __syncthreads();
     }
@@ -1231,13 +1330,13 @@ __global__ void __launch_bounds__(PF_THREADS, 1)
         cp_async_wait<STAGES - 3>();  // tile j + 1 landed
         __syncthreads();  // ... for all; every thread is done with tile j - 1
         load_tile(j + STAGES - 1);  // into tile j - 1's stage
-        decode_side<D, KV, NT>(smem + dec_k(j + 1), raw(j + 1, 0));
+        decode_side<D, KV, NT, S::K_PARTS>(smem + dec_k(j + 1), raw(j + 1, 0));
       }
       wgmma_wait0();
       fence_regs(s);
       softmax_to_p(s, a, j);
-      issue_pv(a, base + dec_k(j) + S::TILE);
-      if (next) decode_side<D, KV, NT>(smem + dec_k(j + 1) + S::TILE, raw(j + 1, 1));
+      issue_pv(a, base + dec_k(j) + S::V_OFF);
+      if (next) decode_side<D, KV, NT, 1>(smem + dec_k(j + 1) + S::V_OFF, raw(j + 1, 1));
       asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
       wgmma_wait0();
       fence_regs(o);
@@ -1268,7 +1367,8 @@ __global__ void __launch_bounds__(PF_THREADS, 1)
     if (!real[j]) continue;
     __nv_bfloat16* row = out + ((long)(q_pos[j] - chunk_pos) * hq + h0 + head[j]) * D;
 #pragma unroll
-    for (int i = 2 * j; i < D / 2; i += 4) {
+    for (int i = 2 * j; i < DP / 2; i += 4) {
+      if (8 * (i / 4) >= D) continue;  // a padded column (head_dim 96)
       *reinterpret_cast<__nv_bfloat162*>(row + 8 * (i / 4) + col0) =
           __floats2bfloat162_rn(o[i] * inv[j], o[i + 1] * inv[j]);
     }
@@ -1292,38 +1392,64 @@ cudaError_t allow_smem_once(Kernel kernel, size_t smem, size_t (&configured)[kMa
   return err;
 }
 
+// the decode kernel's dynamic shared memory at a group tile of g query heads
+template <typename T, int D, int KV, int GMAX>
+size_t decode_smem(int g) {
+  using S = DecodeShape<T, D, KV>;
+  return (size_t)S::RING_BYTES + ((size_t)g * D + (size_t)g * S::TR + 4 * GMAX) * sizeof(float);
+}
+
+template <typename T, int D, int KV, int GMAX>
+cudaError_t allow_decode_smem() {
+  static size_t configured[kMaxDevices] = {};
+  return allow_smem_once(paged_decode_kernel<T, D, KV, GMAX>, decode_smem<T, D, KV, GMAX>(GMAX), configured);
+}
+
 template <typename T, int D, int KV, int GMAX>
 int launch_decode(const void* q, const void* k_pool, const void* v_pool, const float* k_scales,
                   const float* v_scales, const int* tables, const int* positions,
                   const float* slopes, void* out, void* part_ml, void* part_acc, void* tickets,
                   int n_lanes, int hq, int hkv, int n_pages, int page_size, int max_pages,
-                  int n_splits, int window, float scale, cudaStream_t stream) {
+                  int n_splits, int window, float scale, float softcap, cudaStream_t stream) {
   using S = DecodeShape<T, D, KV>;
   const GroupTiles gt = group_tiles(hq / hkv);
   // the merge stages (m, l) per (query row, split) inside the ring
   if (gt.size > GMAX || (n_splits > 1 && ((size_t)gt.size * n_splits * 2 * sizeof(float) > (size_t)S::RING_BYTES ||
                                           part_ml == nullptr || part_acc == nullptr || tickets == nullptr)))
     return (int)cudaErrorInvalidValue;
-  auto smem_for = [](int g) {
-    return (size_t)S::RING_BYTES + ((size_t)g * D + (size_t)g * S::TR + 4 * GMAX) * sizeof(float);
-  };
   auto kernel = paged_decode_kernel<T, D, KV, GMAX>;
-  static size_t configured[kMaxDevices] = {};
-  cudaError_t err = allow_smem_once(kernel, smem_for(GMAX), configured);
+  cudaError_t err = allow_decode_smem<T, D, KV, GMAX>();
   if (err != cudaSuccess) return (int)err;
-  kernel<<<dim3(n_lanes, hkv * gt.n, n_splits), DEC_THREADS, smem_for(gt.size), stream>>>(
+  kernel<<<dim3(n_lanes, hkv * gt.n, n_splits), DEC_THREADS, decode_smem<T, D, KV, GMAX>(gt.size), stream>>>(
       static_cast<const T*>(q), static_cast<const char*>(k_pool), static_cast<const char*>(v_pool),
       k_scales, v_scales, tables, positions, slopes, static_cast<T*>(out),
       static_cast<float2*>(part_ml), static_cast<float*>(part_acc), static_cast<unsigned*>(tickets),
-      hq, hkv, n_pages, page_size, max_pages, window, scale);
+      hq, hkv, n_pages, page_size, max_pages, window, scale, softcap);
   return (int)cudaGetLastError();
+}
+
+// How many blocks of the decode kernel an SM's shared memory holds at a
+// group tile of `size` query heads: decode_split_plan sizes its grid by it
+// (two at most, its design's count). Two at head_dim 128 in bf16 (an 80 KB
+// ring each); one at 256, whose ring of two 576-byte-pitch stages is 148 KB.
+template <typename T, int D, int KV, int GMAX>
+int decode_blocks_per_sm(int hq, int hkv, int* blocks) {
+  const GroupTiles gt = group_tiles(hq / hkv);
+  if (gt.size > GMAX) return (int)cudaErrorInvalidValue;
+  int dev = 0, per_sm = 0, reserved = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&per_sm, cudaDevAttrMaxSharedMemoryPerMultiprocessor, dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&reserved, cudaDevAttrReservedSharedMemoryPerBlock, dev);
+  if (err != cudaSuccess) return (int)err;
+  *blocks = per_sm / (int)(decode_smem<T, D, KV, GMAX>(gt.size) + reserved);
+  return (int)cudaSuccess;
 }
 
 template <typename T, int D, int KV>
 int launch_prefill(const void* q, const void* k_pool, const void* v_pool, const float* k_scales,
                    const float* v_scales, const int* table_row, const int* chunk_pos, const int* n_valid,
                    const float* slopes, void* out, int q_len, int hq, int hkv, int n_pages, int page_size,
-                   int max_pages, int window, float scale, cudaStream_t stream) {
+                   int max_pages, int window, float scale, float softcap, cudaStream_t stream) {
   using KT = typename std::conditional<KV == KV_FP, T, float>::type;
   const size_t smem = 2 * (size_t)BKV * kv_pitch<KT, D>() * sizeof(KT) +
                       (size_t)BQ * (D + 4) * sizeof(float) + (size_t)BQ * (BKV + 1) * sizeof(float) +
@@ -1335,7 +1461,7 @@ int launch_prefill(const void* q, const void* k_pool, const void* v_pool, const 
   kernel<<<dim3((q_len + BQ - 1) / BQ, hq), NT, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const char*>(k_pool), static_cast<const char*>(v_pool),
       k_scales, v_scales, table_row, chunk_pos, n_valid, slopes, static_cast<T*>(out), q_len, hq, hkv,
-      n_pages, page_size, max_pages, window, scale);
+      n_pages, page_size, max_pages, window, scale, softcap);
   return (int)cudaGetLastError();
 }
 
@@ -1343,7 +1469,7 @@ template <int D, int KV>
 int launch_prefill_wgmma(const void* q, const void* k_pool, const void* v_pool, const float* k_scales,
                          const float* v_scales, const int* table_row, const int* chunk_pos, const int* n_valid,
                          const float* slopes, void* out, int q_len, int hq, int hkv, int n_pages, int page_size,
-                         int max_pages, int window, float scale, cudaStream_t stream) {
+                         int max_pages, int window, float scale, float softcap, cudaStream_t stream) {
   using S = PrefillSmem<D, KV>;
   auto kernel = paged_prefill_wgmma_kernel<D, KV>;
   static size_t configured[kMaxDevices] = {};
@@ -1354,7 +1480,7 @@ int launch_prefill_wgmma(const void* q, const void* k_pool, const void* v_pool, 
   kernel<<<dim3(hkv * gt.n, (q_len + per_block - 1) / per_block), S::THREADS, S::BYTES, stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const char*>(k_pool), static_cast<const char*>(v_pool),
       k_scales, v_scales, table_row, chunk_pos, n_valid, slopes, static_cast<__nv_bfloat16*>(out), q_len, hq,
-      hkv, n_pages, page_size, max_pages, window, scale);
+      hkv, n_pages, page_size, max_pages, window, scale, softcap);
   return (int)cudaGetLastError();
 }
 
@@ -1364,10 +1490,11 @@ template <int D>
 int launch_prefill_any(int dtype, int kv, const void* q, const void* k_pool, const void* v_pool,
                        const float* k_scales, const float* v_scales, const int* table_row, const int* chunk_pos,
                        const int* n_valid, const float* slopes, void* out, int q_len, int hq, int hkv,
-                       int n_pages, int page_size, int max_pages, int window, float scale, cudaStream_t stream) {
+                       int n_pages, int page_size, int max_pages, int window, float scale, float softcap,
+                       cudaStream_t stream) {
 #define PTT_PREFILL_ARGS                                                                                  \
   q, k_pool, v_pool, k_scales, v_scales, table_row, chunk_pos, n_valid, slopes, out, q_len, hq, hkv, n_pages, \
-      page_size, max_pages, window, scale, stream
+      page_size, max_pages, window, scale, softcap, stream
   if (dtype == 1 && kv == KV_FP) return launch_prefill_wgmma<D, KV_FP>(PTT_PREFILL_ARGS);
   if (dtype == 1 && kv == KV_INT8) return launch_prefill_wgmma<D, KV_INT8>(PTT_PREFILL_ARGS);
   if (dtype == 1 && kv == KV_NF4A) return launch_prefill_wgmma<D, KV_NF4A>(PTT_PREFILL_ARGS);
@@ -1386,11 +1513,15 @@ int launch_prefill_any(int dtype, int kv, const void* q, const void* k_pool, con
 // its float32 scales, a floating-point pool null. The wrappers in
 // petals_tpu_torch/ops/paged_flash_attention.py validate every argument; an
 // unsupported (dtype, kv, head_dim) triple returns cudaErrorInvalidValue.
-#define PTT_DISPATCH(LAUNCH)                              \
-  if (dtype == 0 && head_dim == 64) LAUNCH(float, 64);    \
-  if (dtype == 0 && head_dim == 128) LAUNCH(float, 128);  \
-  if (dtype == 1 && head_dim == 64) LAUNCH(__nv_bfloat16, 64); \
-  if (dtype == 1 && head_dim == 128) LAUNCH(__nv_bfloat16, 128);
+#define PTT_DISPATCH(LAUNCH)                                   \
+  if (dtype == 0 && head_dim == 64) LAUNCH(float, 64);         \
+  if (dtype == 0 && head_dim == 96) LAUNCH(float, 96);         \
+  if (dtype == 0 && head_dim == 128) LAUNCH(float, 128);       \
+  if (dtype == 0 && head_dim == 256) LAUNCH(float, 256);       \
+  if (dtype == 1 && head_dim == 64) LAUNCH(__nv_bfloat16, 64);   \
+  if (dtype == 1 && head_dim == 96) LAUNCH(__nv_bfloat16, 96);   \
+  if (dtype == 1 && head_dim == 128) LAUNCH(__nv_bfloat16, 128); \
+  if (dtype == 1 && head_dim == 256) LAUNCH(__nv_bfloat16, 256);
 
 extern "C" {
 
@@ -1404,7 +1535,7 @@ int ptt_paged_decode_attention(const void* q, const void* k_pool, const void* v_
                                const void* positions, const void* slopes, void* out, void* part_ml,
                                void* part_acc, void* tickets, int dtype, int kv, int n_lanes, int hq,
                                int hkv, int head_dim, int n_pages, int page_size, int max_pages,
-                               int n_splits, int window, float scale,
+                               int n_splits, int window, float scale, float softcap,
                                void* stream) {
   const float* ks = static_cast<const float*>(k_scales);
   const float* vs = static_cast<const float*>(v_scales);
@@ -1419,7 +1550,7 @@ int ptt_paged_decode_attention(const void* q, const void* k_pool, const void* v_
 #define PTT_DECODE_KV(T, D, KV, G)                                                              \
   return launch_decode<T, D, KV, G>(q, k_pool, v_pool, ks, vs, t, p, sl, out, part_ml, part_acc, \
                                     tickets, n_lanes, hq, hkv, n_pages, page_size, max_pages,    \
-                                    n_splits, window, scale, s)
+                                    n_splits, window, scale, softcap, s)
 #define PTT_DECODE(T, D)                                    \
   {                                                         \
     if (kv == KV_FP && gmax == 4) PTT_DECODE_KV(T, D, KV_FP, 4);           \
@@ -1435,6 +1566,28 @@ int ptt_paged_decode_attention(const void* q, const void* k_pool, const void* v_
   return (int)cudaErrorInvalidValue;
 }
 
+// The decode kernel's blocks an SM's shared memory holds for this (dtype,
+// kv, head_dim) and GQA group, into *blocks (decode_split_plan's per-SM
+// count).
+int ptt_paged_decode_blocks_per_sm(int dtype, int kv, int hq, int hkv, int head_dim, int* blocks) {
+  if (hkv < 1 || hq % hkv) return (int)cudaErrorInvalidValue;
+  const int gmax = group_tiles(hq / hkv).size <= 4 ? 4 : MAX_GROUP;
+#define PTT_OCC_KV(T, D, KV, G) return decode_blocks_per_sm<T, D, KV, G>(hq, hkv, blocks)
+#define PTT_OCC(T, D)                                      \
+  {                                                        \
+    if (kv == KV_FP && gmax == 4) PTT_OCC_KV(T, D, KV_FP, 4);         \
+    if (kv == KV_FP) PTT_OCC_KV(T, D, KV_FP, MAX_GROUP);              \
+    if (kv == KV_INT8 && gmax == 4) PTT_OCC_KV(T, D, KV_INT8, 4);     \
+    if (kv == KV_INT8) PTT_OCC_KV(T, D, KV_INT8, MAX_GROUP);          \
+    if (kv == KV_NF4A && gmax == 4) PTT_OCC_KV(T, D, KV_NF4A, 4);     \
+    if (kv == KV_NF4A) PTT_OCC_KV(T, D, KV_NF4A, MAX_GROUP);          \
+  }
+  PTT_DISPATCH(PTT_OCC)
+#undef PTT_OCC
+#undef PTT_OCC_KV
+  return (int)cudaErrorInvalidValue;
+}
+
 // chunk_pos and n_valid point at int32 scalars on the device, read by the
 // kernel: the launch's arguments do not change with the chunk's position,
 // so a captured launch (a CUDA graph) serves every chunk of its length.
@@ -1442,7 +1595,8 @@ int ptt_paged_prefill_attention(const void* q, const void* k_pool, const void* v
                                 const void* k_scales, const void* v_scales, const void* table_row,
                                 const void* chunk_pos, const void* n_valid, const void* slopes, void* out,
                                 int dtype, int kv, int q_len, int hq, int hkv, int head_dim, int n_pages,
-                                int page_size, int max_pages, int window, float scale, void* stream) {
+                                int page_size, int max_pages, int window, float scale, float softcap,
+                                void* stream) {
   const float* ks = static_cast<const float*>(k_scales);
   const float* vs = static_cast<const float*>(v_scales);
   const int* t = static_cast<const int*>(table_row);
@@ -1451,12 +1605,15 @@ int ptt_paged_prefill_attention(const void* q, const void* k_pool, const void* v
   const float* sl = static_cast<const float*>(slopes);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (hkv < 1 || hq % hkv) return (int)cudaErrorInvalidValue;
-  if (head_dim == 64)
-    return launch_prefill_any<64>(dtype, kv, q, k_pool, v_pool, ks, vs, t, cp, nv, sl, out, q_len, hq, hkv,
-                                  n_pages, page_size, max_pages, window, scale, s);
-  if (head_dim == 128)
-    return launch_prefill_any<128>(dtype, kv, q, k_pool, v_pool, ks, vs, t, cp, nv, sl, out, q_len, hq, hkv,
-                                   n_pages, page_size, max_pages, window, scale, s);
+#define PTT_PREFILL_D(D)                                                                                     \
+  if (head_dim == D)                                                                                         \
+    return launch_prefill_any<D>(dtype, kv, q, k_pool, v_pool, ks, vs, t, cp, nv, sl, out, q_len, hq, hkv, \
+                                 n_pages, page_size, max_pages, window, scale, softcap, s);
+  PTT_PREFILL_D(64)
+  PTT_PREFILL_D(96)
+  PTT_PREFILL_D(128)
+  PTT_PREFILL_D(256)
+#undef PTT_PREFILL_D
   return (int)cudaErrorInvalidValue;
 }
 

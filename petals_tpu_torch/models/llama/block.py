@@ -28,6 +28,7 @@ def block_apply(
     cfg: LlamaBlockConfig,
     *,
     n_valid=None,  # count of real (non-padding) rows in this chunk
+    n_total=None,  # the final sequence length when known up front (longrope's factor choice)
     use_flash: bool = False,  # dense buffers: route chunks of >= 8 rows to the flash kernel
 ):
     """One block over ``hidden_states``; returns (hidden, (k_all, v_all))."""
@@ -56,7 +57,11 @@ def block_apply(
     v = v.reshape(batch, seq, hkv, d)
 
     positions = absolute_positions(position, batch, seq, hidden_states.device)
-    cos, sin = rotary_tables(positions, d, theta=cfg.rope_theta, rope_scaling=cfg.rope_scaling_dict)
+    cos, sin = rotary_tables(
+        positions, d, theta=cfg.rope_theta, rope_scaling=cfg.rope_scaling_dict,
+        n_valid=n_valid,  # longrope's switch sees the REAL chunk length
+        n_total=n_total,  # ...or the full prompt length when it is known up front
+    )
     q = apply_rotary(q, cos, sin)
     k = apply_rotary(k, cos, sin)
 

@@ -1,12 +1,15 @@
 """Llama family block config (the fields of petals_tpu/models/llama/config.py
-that the llama, mistral and qwen2 families use)."""
+that the llama, mistral, qwen2, gemma and phi3 families use)."""
 
 from __future__ import annotations
 
 import dataclasses
 from typing import Optional, Tuple
 
-_HF_ACT_NAMES = {"silu": "silu"}
+# HF activation names -> models/common.py ACTIVATIONS (petals_tpu's table:
+# gemma's checkpoints name the tanh GeLU gelu_pytorch_tanh, gemma-7b's
+# config.json says gelu, read as the exact GeLU, as petals_tpu reads it)
+_HF_ACT_NAMES = {"silu": "silu", "gelu_pytorch_tanh": "gelu_tanh", "gelu": "gelu"}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -26,6 +29,8 @@ class LlamaBlockConfig:
     mlp_bias: bool = False
     # all-layer sliding window (HF mistral convention); None = full attention
     sliding_window: Optional[int] = None
+    # MLP activation by name (models/common.py ACTIVATIONS): silu, or gemma's
+    # tanh-approximate / exact GeLU
     hidden_act: str = "silu"
     vocab_size: int = 32000
     tie_word_embeddings: bool = False
@@ -45,7 +50,7 @@ class LlamaBlockConfig:
         )
         act = getattr(hf_config, "hidden_act", "silu")
         if act not in _HF_ACT_NAMES:
-            raise NotImplementedError(f"hidden_act {act!r} is not supported by this port yet")
+            raise NotImplementedError(f"hidden_act {act!r} is not in models/common.py ACTIVATIONS")
         return cls(
             hidden_size=hf_config.hidden_size,
             num_attention_heads=hf_config.num_attention_heads,

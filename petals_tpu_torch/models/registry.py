@@ -17,12 +17,19 @@ class ModelFamily:
     config_from_hf: Callable[[Any], Any]  # config.json namespace -> block config
     block_apply: Callable  # (params, hidden, kv, position, cfg, ...) -> (hidden, kv)
     hf_block_prefixes: tuple  # checkpoint prefixes of block i, with {i} placeholder
-    hf_to_block_params: Callable  # (dict[str, Tensor], cfg) -> params dict
+    # (dict[str, Tensor], cfg) -> params dict; a family whose blocks differ
+    # by index (gemma2's windows) also takes ``block_index``
+    hf_to_block_params: Callable
     block_param_shapes: Callable  # (cfg, dtype) -> dict of meta tensors
     # the block architecture ("" -> same as name): families derived with
     # dataclasses.replace (mistral over llama) inherit it, so tables keyed
     # by architecture (utils/convert_block.py) resolve for them too
     block_arch: str = ""
+    # leaf NAMES whose loaded dtype the loaders keep through the cast to the
+    # serving dtype (gemma's (1 + w)-folded norms stay float32: rounding
+    # 1 + w to bf16 loses what the unfolded form keeps; rms_norm upcasts
+    # anyway) and non-tensor leaves (gemma2's per-block window, a host int)
+    cast_exempt: tuple = ()
     # client side (embeddings + final norm + LM head), filled by model.py
     # modules; server-only code never reads them
     hf_client_prefixes: tuple = ()  # checkpoint prefixes of client-held tensors

@@ -42,6 +42,7 @@ def attend(
     alibi_slopes: Optional[torch.Tensor] = None,
     sliding_window: Optional[int] = None,
     scale: Optional[float] = None,
+    logit_softcap: Optional[float] = None,
     use_flash: bool = False,
 ) -> torch.Tensor:
     """Causal multi-head attention (petals_tpu/ops/attention.py ``attend``).
@@ -52,10 +53,11 @@ def attend(
     8) goes to the flash-attention kernel (ops/flash_attention.py), which
     launches on CUDA tensors or raises. Decode shapes and per-lane (vector)
     positions take ``attend_reference``, the port of the JAX package's XLA
-    path. ALiBi slopes (BLOOM, Falcon-RW) and GQA groups of up to 71 query
-    heads a kv head (Falcon-7B; ``group_tiles``) reach every kernel. Not
-    ported: ``causal=False``, ``logit_softcap`` (gemma2, A12b), ``tp_mesh``
-    and ring attention."""
+    path. ALiBi slopes (BLOOM, Falcon-RW), GQA groups of up to 71 query
+    heads a kv head (Falcon-7B; ``group_tiles``) and Gemma-2's
+    ``logit_softcap`` (cap * tanh(logits / cap) after the scale, before
+    ALiBi and the mask) reach every kernel. Not ported: ``causal=False``
+    (no family of petals_tpu calls it), ``tp_mesh`` and ring attention."""
     from petals_tpu_torch.ops.paged_attention import PagedKV
 
     if isinstance(k, PagedKV):
@@ -63,7 +65,7 @@ def attend(
 
         return paged_attend_dispatch(
             q, k, v, q_offset=q_offset, kv_length=kv_length,
-            alibi_slopes=alibi_slopes, sliding_window=sliding_window, scale=scale,
+            alibi_slopes=alibi_slopes, sliding_window=sliding_window, scale=scale, softcap=logit_softcap,
         )
     vector_pos = any(isinstance(p, torch.Tensor) and p.dim() > 0 for p in (q_offset, kv_length))
     if use_flash and not vector_pos:
@@ -72,11 +74,11 @@ def attend(
         if flash_supported(q, k, v, sliding_window=sliding_window):
             return flash_attend(
                 q, k, v, q_offset=q_offset, kv_length=kv_length,
-                alibi_slopes=alibi_slopes, sliding_window=sliding_window, scale=scale,
+                alibi_slopes=alibi_slopes, sliding_window=sliding_window, scale=scale, softcap=logit_softcap,
             )
     return attend_reference(
         q, k, v, q_offset=q_offset, kv_length=kv_length,
-        alibi_slopes=alibi_slopes, sliding_window=sliding_window, scale=scale,
+        alibi_slopes=alibi_slopes, sliding_window=sliding_window, scale=scale, logit_softcap=logit_softcap,
     )
 
 
@@ -90,12 +92,15 @@ def attend_reference(
     alibi_slopes: Optional[torch.Tensor] = None,
     sliding_window: Optional[int] = None,
     scale: Optional[float] = None,
+    logit_softcap: Optional[float] = None,
     kv_valid: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Plain attention in float32. ``q_offset``/``kv_length`` are scalars (one
     shared history length) or [batch] tensors (per-lane positions).
-    ``kv_valid`` [batch, kv_len] bool, where given, hides the positions it
-    marks False from every query (a paged cache's holes)."""
+    ``logit_softcap`` (Gemma-2) caps the scaled logits as petals_tpu does,
+    tanh(l / cap) * cap before ALiBi and the mask. ``kv_valid`` [batch,
+    kv_len] bool, where given, hides the positions it marks False from every
+    query (a paged cache's holes)."""
     batch, q_len, num_q_heads, head_dim = q.shape
     _, kv_buf_len, num_kv_heads, _ = k.shape
     if num_q_heads % num_kv_heads:
@@ -111,6 +116,8 @@ def attend_reference(
     qg = qf.reshape(batch, q_len, num_kv_heads, group, head_dim)
     logits = torch.einsum("bqkgd,bskd->bkgqs", qg, kf) * scale
     logits = logits.reshape(batch, num_q_heads, q_len, kv_buf_len)
+    if logit_softcap is not None:
+        logits = torch.tanh(logits / logit_softcap) * logit_softcap
 
     kv_pos = torch.arange(kv_buf_len, dtype=torch.int32, device=device)
     if alibi_slopes is not None:

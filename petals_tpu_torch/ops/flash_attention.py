@@ -8,7 +8,8 @@ q_len, hq, d]; k, v [batch, kv_buf_len, hkv, d] of which the first
 ``q_offset + i`` and sees kv position j when ``j <= q_offset + i``,
 ``j < kv_length`` and, with a sliding window, ``j > q_offset + i - window``.
 ``q_offset`` and ``kv_length`` are scalars shared by the batch. GQA, optional
-ALiBi, float32 softmax; a row that sees nothing gives exact zeros.
+ALiBi, Gemma-2's logit softcap, float32 softmax; a row that sees nothing
+gives exact zeros. head_dim 64, 96, 128 or 256.
 
 ``q_offset`` and ``kv_length`` are host integers or 0-dim integer tensors on
 the device (a captured step's chunk position and real length): the kernel
@@ -43,7 +44,7 @@ from petals_tpu_torch.ops.attention import DEFAULT_MASK_VALUE
 from petals_tpu_torch.telemetry.observatory import count_launch
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-_HEAD_DIMS = (64, 128)
+_HEAD_DIMS = (64, 96, 128, 256)  # the wgmma tiles pad 96 to 128 columns in shared memory
 MIN_FLASH_Q_LEN = 8  # below this a step is a decode shape: plain attention
 # the widest GQA group the bf16 (wgmma) kernel is tested at on the card:
 # Falcon-7B's 71 query heads over one kv head. A block packs 64 rows of query
@@ -61,7 +62,7 @@ def kernel_library() -> ctypes.CDLL:
 
         lib = load("flash_attention")
         p, i, s, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
-        lib.ptt_flash_attention.argtypes = [p] * 5 + [i] * 6 + [s] * 9 + [p] * 2 + [i] * 2 + [f, p]
+        lib.ptt_flash_attention.argtypes = [p] * 5 + [i] * 6 + [s] * 9 + [p] * 2 + [i] * 2 + [f, f, p]
         lib.ptt_flash_attention.restype = i
         lib.ptt_flash_error_string.argtypes = [i]
         lib.ptt_flash_error_string.restype = ctypes.c_char_p
@@ -78,7 +79,8 @@ def flash_supported(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     sliding_window: Optional[int] = None) -> bool:
     """Whether ``attend(use_flash=True)`` sends these shapes to the kernel:
     anything above a decode shape. Unlike the TPU kernel's rule, the buffer
-    length is free (the kernel masks the ragged edge itself)."""
+    length is free (the kernel masks the ragged edge itself), and a logit
+    softcap rides along (the kernel applies it)."""
     if sliding_window is not None and sliding_window <= 0:
         return False
     return q.shape[1] >= MIN_FLASH_Q_LEN
@@ -94,9 +96,10 @@ def flash_attend_reference(
     alibi_slopes: Optional[torch.Tensor] = None,
     sliding_window: Optional[int] = None,
     scale: Optional[float] = None,
+    softcap: Optional[float] = None,
 ) -> torch.Tensor:
-    """Plain version of the kernel, with its arithmetic: float32 scores and
-    softmax, the unnormalised probabilities rounded to the storage type for
+    """Plain version of the kernel, with its arithmetic: float32 scores (a
+    ``softcap`` caps them after the scale, before ALiBi) and softmax, the unnormalised probabilities rounded to the storage type for
     the PV product, a float32 sum divided by ``max(l, 1e-30)`` (l summed
     unrounded) and rounded once to ``q.dtype``. In float32 it is
     ``attend_reference`` up to the order of the division. ``q_offset`` and
@@ -116,6 +119,8 @@ def flash_attend_reference(
     qg = q.float().reshape(batch, q_len, hkv, group, d)
     logits = torch.einsum("bqkgd,bskd->bkgqs", qg, k.float()) * scale
     logits = logits.reshape(batch, hq, q_len, kv_buf_len)
+    if softcap is not None:
+        logits = torch.tanh(logits / softcap) * softcap
     kv_pos = torch.arange(kv_buf_len, dtype=torch.int32, device=device)
     if alibi_slopes is not None:
         logits = logits + alibi_slopes.float()[None, :, None, None] * kv_pos.float()
@@ -177,6 +182,7 @@ def flash_attend(
     alibi_slopes: Optional[torch.Tensor] = None,
     sliding_window: Optional[int] = None,
     scale: Optional[float] = None,
+    softcap: Optional[float] = None,
 ) -> torch.Tensor:
     """Dense-buffer causal flash attention (module docstring). q, k and v may
     be strided views whose head dim is contiguous; the output is a new
@@ -186,7 +192,7 @@ def flash_attend(
     if all(dev.type == "cpu" for dev in devices):
         return flash_attend_reference(
             q, k, v, q_offset=q_offset, kv_length=kv_length,
-            alibi_slopes=alibi_slopes, sliding_window=sliding_window, scale=scale,
+            alibi_slopes=alibi_slopes, sliding_window=sliding_window, scale=scale, softcap=softcap,
         )
     if len(devices) != 1 or next(iter(devices)).type != "cuda":
         raise ValueError(f"flash attention needs all tensors on one CUDA device, got {devices}")
@@ -213,6 +219,8 @@ def flash_attend(
             raise ValueError(f"alibi_slopes must be contiguous float32 [{hq}], got {alibi_slopes.dtype} {tuple(alibi_slopes.shape)}")
     if sliding_window is not None and int(sliding_window) < 1:
         raise ValueError(f"sliding_window must be >= 1 or None, got {sliding_window}")
+    if softcap is not None and not float(softcap) > 0:
+        raise ValueError(f"softcap must be > 0 or None, got {softcap}")
     q_off_t, kv_len_t = _device_scalars(q_offset, kv_length, kv_buf_len, q.device)
     out = torch.empty((batch, q_len, hq, d), dtype=q.dtype, device=q.device)
     if out.numel() == 0:
@@ -225,7 +233,7 @@ def flash_attend(
             _DTYPE_CODES[q.dtype], batch, q_len, hq, hkv, d,
             *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
             q_off_t.data_ptr(), kv_len_t.data_ptr(), kv_buf_len, int(sliding_window or 0),
-            d**-0.5 if scale is None else float(scale),
+            d**-0.5 if scale is None else float(scale), float(softcap or 0.0),
             torch.cuda.current_stream(q.device).cuda_stream,
         )
     if err:

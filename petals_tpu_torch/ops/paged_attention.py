@@ -466,6 +466,7 @@ def paged_attend(
     alibi_slopes: Optional[torch.Tensor] = None,
     sliding_window: Optional[int] = None,
     scale: Optional[float] = None,
+    softcap: Optional[float] = None,
 ) -> torch.Tensor:
     """Plain version of the paged DECODE kernel: gather each lane's pages into
     a dense view and attend with ragged lengths (kv_length = position +
@@ -474,13 +475,14 @@ def paged_attend(
     speculative verify: row j of a lane sits at position + j and sees the
     slots up to it. On ``PagedPool``s it is the plain
     version of the quantized arm too: pages dequantize to bfloat16 first.
-    Holes are seen by no query (``slot_valid``)."""
+    Holes are seen by no query (``slot_valid``). ``softcap`` is Gemma-2's
+    attention logit softcap (``attend_reference``'s ``logit_softcap``)."""
     k = gather_pages(k_pool, tables)
     v = gather_pages(v_pool, tables)
     return attend_reference(
         q, k, v, q_offset=positions, kv_length=positions + q.shape[1],
         alibi_slopes=alibi_slopes, sliding_window=sliding_window, scale=scale,
-        kv_valid=slot_valid(k_pool, tables),
+        logit_softcap=softcap, kv_valid=slot_valid(k_pool, tables),
     )
 
 
@@ -495,6 +497,7 @@ def paged_prefill_attend(
     alibi_slopes: Optional[torch.Tensor] = None,
     sliding_window: Optional[int] = None,
     scale: Optional[float] = None,
+    softcap: Optional[float] = None,
 ) -> torch.Tensor:
     """Plain version of the paged CHUNKED-PREFILL kernel: causal attention for
     one lane's chunk q [1, chunk, hq, d] starting at absolute position
@@ -502,11 +505,11 @@ def paged_prefill_attend(
     ``chunk_pos`` and ``n_valid`` are host integers or 0-dim integer tensors
     on q's device, with identical results. Rows past n_valid give finite
     values that no caller reads; holes are seen by no query (``slot_valid``).
-    Takes ``PagedPool``s as ``paged_attend`` does."""
+    Takes ``PagedPool``s and ``softcap`` as ``paged_attend`` does."""
     k = gather_pages(k_pool, table_row[None])
     v = gather_pages(v_pool, table_row[None])
     return attend_reference(
         q, k, v, q_offset=chunk_pos, kv_length=chunk_pos + n_valid,
         alibi_slopes=alibi_slopes, sliding_window=sliding_window, scale=scale,
-        kv_valid=slot_valid(k_pool, table_row[None]),
+        logit_softcap=softcap, kv_valid=slot_valid(k_pool, table_row[None]),
     )

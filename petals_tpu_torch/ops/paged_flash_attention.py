@@ -22,7 +22,11 @@ how their design answers that. A bf16 prefill call runs
 group of more than 16 query heads (Falcon-7B's 71 over one kv head) is cut
 into tiles of at most 16 heads (ops/attention.py ``group_tiles``), each one
 more grid index over its kv head; the wrappers take groups up to
-``_MAX_GROUP``, the widest the kernels are tested at on the card.
+``_MAX_GROUP``, the widest the kernels are tested at on the card. Every
+kernel takes head_dim 64, 96, 128 and 256 (``_HEAD_DIMS``) and Gemma-2's
+attention logit softcap (``softcap``: cap * tanh(score / cap) on the scaled
+score, before ALiBi and the mask; a launch argument, so a captured step
+keeps it).
 """
 
 from __future__ import annotations
@@ -39,7 +43,9 @@ from petals_tpu_torch.telemetry.observatory import count_launch
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _KV_CODES = {"int8": 1, "nf4a": 2}  # 0: a floating-point pool
 _CODES_DTYPES = {"int8": torch.int8, "nf4a": torch.uint8}
-_HEAD_DIMS = (64, 128)
+# the head widths the kernels are built for: Mistral's 128 and 64, Phi-3's
+# 96 and Gemma's 256 (the wgmma tiles pad 96 to 128 columns in shared memory)
+_HEAD_DIMS = (64, 96, 128, 256)
 # the widest GQA group the kernels are tested at on the card: Falcon-7B's 71
 # query heads over one kv head (five group tiles, the last of 11 heads)
 _MAX_GROUP = 71
@@ -55,10 +61,12 @@ def kernel_library() -> ctypes.CDLL:
 
         lib = load("paged_attention")
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.ptt_paged_decode_attention.argtypes = [p] * 12 + [i] * 11 + [f, p]
+        lib.ptt_paged_decode_attention.argtypes = [p] * 12 + [i] * 11 + [f, f, p]
         lib.ptt_paged_decode_attention.restype = i
-        lib.ptt_paged_prefill_attention.argtypes = [p] * 10 + [i] * 10 + [f, p]
+        lib.ptt_paged_prefill_attention.argtypes = [p] * 10 + [i] * 10 + [f, f, p]
         lib.ptt_paged_prefill_attention.restype = i
+        lib.ptt_paged_decode_blocks_per_sm.argtypes = [i] * 5 + [ctypes.POINTER(i)]
+        lib.ptt_paged_decode_blocks_per_sm.restype = i
         lib.ptt_error_string.argtypes = [i]
         lib.ptt_error_string.restype = ctypes.c_char_p
         _LIB = lib
@@ -68,23 +76,45 @@ def kernel_library() -> ctypes.CDLL:
 SPLIT_ROWS = 64  # a decode split's slots are a multiple of this (csrc SPLIT_ROWS)
 
 
-def decode_split_plan(n_lanes: int, hkv: int, max_rows: int, n_sm: int, group: int = 1) -> int:
+def decode_split_plan(n_lanes: int, hkv: int, max_rows: int, n_sm: int, group: int = 1, per_sm: int = 2) -> int:
     """How many splits the decode kernel cuts each lane's needed slots into,
-    so that the grid (n_lanes x hkv x group tiles x n_splits blocks, two
-    resident on an SM; a GQA ``group`` of more than 16 query heads is cut
-    into ``group_tiles``, each a block of its own) covers the card: as many
-    as keep the grid within 2 * n_sm blocks,
+    so that the grid (n_lanes x hkv x group tiles x n_splits blocks,
+    ``per_sm`` of them sharing an SM: two at head_dim 128 in bf16, one at
+    256, as ``decode_blocks_per_sm`` counts them on the card; a GQA ``group`` of
+    more than 16 query heads is cut into ``group_tiles``, each a block of
+    its own) covers the card: as many as keep the grid within per_sm * n_sm
+    blocks,
     at most one per SPLIT_ROWS of ``max_rows`` (the most slots a lane can
     need: its table's capacity, or the window if that is shorter), and one
     (output written directly, no merge) where the lanes alone fill it. The
     kernel cuts each lane's own range [max(0, kv_len - window), kv_len),
     which lives on the card, into that many runs of equal length rounded up
     to SPLIT_ROWS. Pure: the same arguments give the same count."""
-    if n_lanes < 1 or hkv < 1 or max_rows < 1 or n_sm < 1 or group < 1:
+    if n_lanes < 1 or hkv < 1 or max_rows < 1 or n_sm < 1 or group < 1 or per_sm < 1:
         raise ValueError(f"bad decode shape: {n_lanes} lanes, {hkv} kv heads, {max_rows} rows, {n_sm} SMs, "
-                         f"group {group}")
+                         f"group {group}, {per_sm} blocks an SM")
     heads = hkv * group_tiles(group)[0]
-    return min(-(-max_rows // SPLIT_ROWS), max(1, (2 * n_sm) // (n_lanes * heads)))
+    return min(-(-max_rows // SPLIT_ROWS), max(1, (per_sm * n_sm) // (n_lanes * heads)))
+
+
+_BLOCKS_PER_SM = {}
+
+
+def decode_blocks_per_sm(device: torch.device, dtype: torch.dtype, kv_code: int, hq: int, hkv: int, d: int) -> int:
+    """How many blocks of the decode kernel instance that serves these
+    shapes share one SM of ``device``: as many as its shared memory holds,
+    at most two (the split plan's design count); cached per instance."""
+    key = (device.index, dtype, kv_code, hq, hkv, d)
+    if key not in _BLOCKS_PER_SM:
+        blocks = ctypes.c_int(0)
+        with torch.cuda.device(device):
+            err = kernel_library().ptt_paged_decode_blocks_per_sm(_DTYPE_CODES[dtype], kv_code, hq, hkv, d,
+                                                                  ctypes.byref(blocks))
+        _raise_on(err, "paged decode occupancy")
+        if blocks.value < 1:
+            raise RuntimeError(f"the paged decode kernel does not fit on an SM at {dtype}, head_dim {d}")
+        _BLOCKS_PER_SM[key] = min(2, blocks.value)
+    return _BLOCKS_PER_SM[key]
 
 
 _SM_COUNT = {}
@@ -182,7 +212,7 @@ def _check_pools(q, k_pool, v_pool):
     return kv_code, ptrs
 
 
-def _check_common(q, k_pool, v_pool, alibi_slopes, sliding_window):
+def _check_common(q, k_pool, v_pool, alibi_slopes, sliding_window, softcap):
     if q.dtype not in _DTYPE_CODES:
         raise TypeError(f"paged attention kernels take float32 or bfloat16, got {q.dtype}")
     _check("q", q, q.dtype, 4)
@@ -204,6 +234,8 @@ def _check_common(q, k_pool, v_pool, alibi_slopes, sliding_window):
             raise ValueError(f"alibi_slopes must be [{hq}], got {tuple(alibi_slopes.shape)}")
     if sliding_window is not None and int(sliding_window) < 1:
         raise ValueError(f"sliding_window must be >= 1 or None, got {sliding_window}")
+    if softcap is not None and not float(softcap) > 0:
+        raise ValueError(f"softcap must be > 0 or None, got {softcap}")
     return (n_pages, page_size, hkv, d), kv_code, ptrs
 
 
@@ -238,6 +270,7 @@ def paged_flash_attend(
     alibi_slopes: Optional[torch.Tensor] = None,
     sliding_window: Optional[int] = None,
     scale: Optional[float] = None,
+    softcap: Optional[float] = None,
 ) -> torch.Tensor:
     """Ragged paged DECODE attention: the contract of ``paged_attend``. q
     [n_lanes, q_len, hq, d]; pools [n_pages, page_size, hkv, d] (q's dtype)
@@ -256,9 +289,10 @@ def paged_flash_attend(
     if _on_cpu(q, k_pool, v_pool, tables, positions, alibi_slopes):
         return paged_attend(
             q, k_pool, v_pool, tables, positions,
-            alibi_slopes=alibi_slopes, sliding_window=sliding_window, scale=scale,
+            alibi_slopes=alibi_slopes, sliding_window=sliding_window, scale=scale, softcap=softcap,
         )
-    (n_pages, page_size, hkv, d), kv_code, ptrs = _check_common(q, k_pool, v_pool, alibi_slopes, sliding_window)
+    (n_pages, page_size, hkv, d), kv_code, ptrs = _check_common(q, k_pool, v_pool, alibi_slopes, sliding_window,
+                                                                softcap)
     n_lanes, q_len, hq, _ = q.shape
     _check("tables", tables, torch.int32, 2)
     _check("positions", positions, torch.int32, 1)
@@ -279,7 +313,8 @@ def paged_flash_attend(
     if n_lanes == 0 or max_pages == 0:
         return out.zero_().reshape(n_lanes // q_len, q_len, hq, d)
     max_rows = max_pages * page_size if sliding_window is None else min(max_pages * page_size, int(sliding_window))
-    n_splits = decode_split_plan(n_lanes, hkv, max_rows, _sm_count(q.device), hq // hkv)
+    per_sm = decode_blocks_per_sm(q.device, q.dtype, kv_code, hq, hkv, d)
+    n_splits = decode_split_plan(n_lanes, hkv, max_rows, _sm_count(q.device), hq // hkv, per_sm)
     scratch = (None, None, None)
     if n_splits > 1:  # float32 partials (m, l) and acc of every split, and the merge's counters
         n_tiles, tile = group_tiles(hq // hkv)
@@ -294,7 +329,7 @@ def paged_flash_attend(
             positions.data_ptr(), alibi_slopes.data_ptr() if alibi_slopes is not None else None,
             out.data_ptr(), *scratch, _DTYPE_CODES[q.dtype], kv_code, n_lanes, hq, hkv, d, n_pages, page_size,
             max_pages, n_splits, int(sliding_window or 0),
-            d**-0.5 if scale is None else float(scale),
+            d**-0.5 if scale is None else float(scale), float(softcap or 0.0),
             torch.cuda.current_stream(q.device).cuda_stream,
         )
     _raise_on(err, "paged decode")
@@ -328,6 +363,7 @@ def paged_flash_prefill_attend(
     alibi_slopes: Optional[torch.Tensor] = None,
     sliding_window: Optional[int] = None,
     scale: Optional[float] = None,
+    softcap: Optional[float] = None,
 ) -> torch.Tensor:
     """Ragged paged CHUNKED-PREFILL attention: the contract of
     ``paged_prefill_attend``. q [1, chunk, hq, d]; table_row [max_pages]
@@ -341,9 +377,10 @@ def paged_flash_prefill_attend(
     if _on_cpu(q, k_pool, v_pool, table_row, alibi_slopes):
         return paged_prefill_attend(
             q, k_pool, v_pool, table_row, chunk_pos, n_valid,
-            alibi_slopes=alibi_slopes, sliding_window=sliding_window, scale=scale,
+            alibi_slopes=alibi_slopes, sliding_window=sliding_window, scale=scale, softcap=softcap,
         )
-    (n_pages, page_size, hkv, d), kv_code, ptrs = _check_common(q, k_pool, v_pool, alibi_slopes, sliding_window)
+    (n_pages, page_size, hkv, d), kv_code, ptrs = _check_common(q, k_pool, v_pool, alibi_slopes, sliding_window,
+                                                                softcap)
     batch, q_len, hq, _ = q.shape
     if batch != 1:
         raise ValueError(f"the prefill kernel serves one lane's chunk, got batch={batch}")
@@ -360,7 +397,7 @@ def paged_flash_prefill_attend(
             q.data_ptr(), *ptrs, table_row.data_ptr(), chunk_pos.data_ptr(), n_valid.data_ptr(),
             alibi_slopes.data_ptr() if alibi_slopes is not None else None, out.data_ptr(),
             _DTYPE_CODES[q.dtype], kv_code, q_len, hq, hkv, d, n_pages, page_size, table_row.shape[0],
-            int(sliding_window or 0), d**-0.5 if scale is None else float(scale),
+            int(sliding_window or 0), d**-0.5 if scale is None else float(scale), float(softcap or 0.0),
             torch.cuda.current_stream(q.device).cuda_stream,
         )
     _raise_on(err, "paged prefill")
@@ -381,6 +418,7 @@ def paged_attend_dispatch(
     alibi_slopes: Optional[torch.Tensor] = None,
     sliding_window: Optional[int] = None,
     scale: Optional[float] = None,
+    softcap: Optional[float] = None,
 ) -> torch.Tensor:
     """Route a PagedKV attention call (from ``attend``) to the decode or the
     prefill wrapper, its pools (plain or ``PagedPool``) passed as they are. A
@@ -391,10 +429,10 @@ def paged_attend_dispatch(
     if isinstance(q_offset, torch.Tensor) and q_offset.dim() == 1:
         return paged_flash_attend(
             q, k_kv.pool, v_kv.pool, k_kv.tables, q_offset,
-            alibi_slopes=alibi_slopes, sliding_window=sliding_window, scale=scale,
+            alibi_slopes=alibi_slopes, sliding_window=sliding_window, scale=scale, softcap=softcap,
         )
     # a scalar position: host ints, or 0-dim device tensors (a captured step)
     return paged_flash_prefill_attend(
         q, k_kv.pool, v_kv.pool, k_kv.tables[0], q_offset, kv_length - q_offset,
-        alibi_slopes=alibi_slopes, sliding_window=sliding_window, scale=scale,
+        alibi_slopes=alibi_slopes, sliding_window=sliding_window, scale=scale, softcap=softcap,
     )

@@ -112,6 +112,7 @@ them to the batcher after the step.
 
 from __future__ import annotations
 
+import inspect
 import logging
 import math
 from typing import Dict, List, Optional, Sequence, Union
@@ -275,6 +276,10 @@ class TransformerBackend:
         self.compute_dtype = compute_dtype
         self.max_chunk_size_bytes = max_chunk_size_bytes
         self.num_kv_heads = num_kv_heads(cfg)
+        # a block whose rotary tables depend on the final length (phi3's
+        # longrope, through the llama block) takes n_total; others are not
+        # passed it (petals_tpu's backend checks the same signature)
+        self._takes_n_total = "n_total" in inspect.signature(family.block_apply).parameters
         self.head_dim = cfg.head_dim
         self.hidden_size = cfg.hidden_size
         # the step programs (CUDA graphs, on a card only); every graph of
@@ -369,8 +374,9 @@ class TransformerBackend:
           hypo_ids: [batch] beam reorder: cache row b continues row
             hypo_ids[b]; applied in place by the first chunk.
           n_total: the final sequence length, for callers that already
-            chunked the prompt; only length-dependent rotary variants read
-            it, and no family of the port has one, so it is only validated.
+            chunked the prompt (default: this step's own end); every chunk
+            passes it to the blocks, so longrope (phi3) picks its factors
+            from the whole prompt's length, as one forward over it would.
 
         Returns (out [batch, seq, hidden] on the device, kv).
         """
@@ -403,17 +409,20 @@ class TransformerBackend:
             # here, where the ids still lie on the host
             if hypo.device.type == "cpu" and bool(((hypo < 0) | (hypo >= batch)).any()):
                 raise ValueError(f"hypo_ids {hypo.tolist()} out of range for batch {batch}")
+        if n_total is None:
+            n_total = position + total_seq
         outputs, offset = [], 0
         for chunk_len in self.chunk_plan(batch, total_seq):
             outputs.append(self._dense_chunk(
                 h[:, offset : offset + chunk_len], (k_stack, v_stack), position + offset, prompts,
-                hypo if offset == 0 else None,
+                hypo if offset == 0 else None, n_total=n_total,
             ))
             offset += chunk_len
         out = outputs[0] if len(outputs) == 1 else torch.cat(outputs, dim=1)
         return out, (k_stack, v_stack)
 
-    def _dense_chunk(self, chunk, kv, position: int, prompts=None, hypo=None, n_valid: Optional[int] = None):
+    def _dense_chunk(self, chunk, kv, position: int, prompts=None, hypo=None, n_valid: Optional[int] = None,
+                     n_total: Optional[int] = None):
         """One chunk of a dense step through every block: the JAX package's
         ``_step_once``. A chunk of more than one token is padded to
         ``bucket_length(seq)`` rows with ``n_valid = seq`` (a decode token is
@@ -423,19 +432,22 @@ class TransformerBackend:
         on a lane view) or a private step program, keyed by
         ``dense_program_key``; on the CPU it runs the block loop.
         ``n_valid`` overrides the real length (the pool's warm-up writes
-        nothing). Returns [batch, seq, hidden] on the device."""
+        nothing); ``n_total`` (default: the chunk's own end) rides beside
+        position and n_valid. Returns [batch, seq, hidden] on the device."""
         k_stack, v_stack = kv
         batch, seq = chunk.shape[:2]
         bucket = 0 if seq == 1 else bucket_length(seq)
         if bucket > seq:
             chunk = F.pad(chunk, (0, 0, 0, bucket - seq))
-        scalars = torch.tensor([position, seq if n_valid is None else n_valid], dtype=torch.int32)
+        n_valid = seq if n_valid is None else n_valid
+        scalars = torch.tensor([position, n_valid, position + n_valid if n_total is None else n_total],
+                               dtype=torch.int32)
         extra = tuple(x for x in (hypo, prompts) if x is not None)
         with_hypo = hypo is not None
 
         def step(h, sc, *extra):
             return self._dense_step_eager(h, k_stack, v_stack, sc[0], sc[1], extra[0] if with_hypo else None,
-                                          extra[-1] if prompts is not None else None)
+                                          extra[-1] if prompts is not None else None, n_total=sc[2])
 
         plain = not extra and (k_stack.data_ptr(), v_stack.data_ptr()) in self._lane_views
         key = dense_program_key("dense", bucket, self.quant_type, kv, with_hypo,
@@ -443,11 +455,12 @@ class TransformerBackend:
         (out,) = _replay(self._lane_program if plain else self._private_program, key, step, (chunk, scalars, *extra))
         return out[:, :seq]
 
-    def _dense_step_eager(self, hidden, k_stack, v_stack, position, n_valid, hypo=None, prompts=None):
+    def _dense_step_eager(self, hidden, k_stack, v_stack, position, n_valid, hypo=None, prompts=None, n_total=None):
         """The dense step's block loop, launched op by op: what the CPU
         runs, and what a step program captures. ``hidden`` [batch, bucket,
-        hidden] is already padded; ``position`` and ``n_valid`` are 0-dim
-        integer tensors (or host integers), read on the device. ``hypo``
+        hidden] is already padded; ``position``, ``n_valid`` and ``n_total``
+        (None: the chunk's own end) are 0-dim integer tensors (or host
+        integers), read on the device. ``hypo``
         reorders the caches' rows in place first; ``prompts`` are added in
         the JAX package's masked form (each row's prompt row gathered at its
         clipped position, kept where the position lies under ``pre_seq``),
@@ -471,21 +484,28 @@ class TransformerBackend:
                 h = h + torch.where(prompt_mask, prompts[i].index_select(1, idx), 0).to(h.dtype)
             h, _ = self.family.block_apply(
                 p_block, h, (k_stack[i], v_stack[i]), position, self.cfg, n_valid=n_valid,
-                use_flash=self.use_flash,
+                use_flash=self.use_flash, **self._n_total_arg(n_total),
             )
         return (h,)
+
+    def _n_total_arg(self, n_total) -> dict:
+        """``block_apply``'s n_total keyword, for a block that takes it."""
+        return {"n_total": n_total} if self._takes_n_total and n_total is not None else {}
 
     @torch.no_grad()
     def forward(self, hidden, prompts=None) -> torch.Tensor:
         """A stateless forward over the span, with no KV cache (petals_tpu's
         backend ``forward``): each block attends causally over the chunk
-        itself, through a K/V buffer of the chunk's length that block
-        after block overwrites. Attention goes through the flash-attention
-        wrapper (ops/flash_attention.py): the CUDA kernel on the card, its
-        plain version on the CPU (a chunk under 8 rows takes plain attention).
-        On a CUDA device a step program, one graph per (batch, seq, pre_seq)
-        as the JAX package jits one program per shape: its K/V buffer comes
-        from the graph's pool.
+        itself, through a K/V buffer that block after block overwrites. The
+        chunk is padded to ``bucket_length(seq)`` rows, as the mixed and
+        dense steps pad theirs, with ``n_valid = seq``: the padded rows' K/V
+        writes drop and their outputs are cut off, and attention is causal,
+        so no real row sees them (and longrope picks its factors from the
+        real length). Attention goes through the flash-attention wrapper
+        (ops/flash_attention.py): the CUDA kernel on the card, its plain
+        version on the CPU. On a CUDA device a step program, one graph per
+        (batch, bucket, pre_seq): its K/V buffer comes from the graph's
+        pool, and the real length rides as an int32 read on the device.
 
         Args:
           hidden: [batch, seq, hidden].
@@ -498,36 +518,44 @@ class TransformerBackend:
             prompts = _as_tensor(prompts, None, self.compute_dtype)
             if prompts.shape[2] == 0:
                 prompts = None
-        inputs = (h,) if prompts is None else (h, prompts)
+        batch, seq = h.shape[:2]
+        bucket = bucket_length(seq)
+        h = F.pad(h, (0, 0, 0, bucket - seq))
+        n_valid = torch.tensor(seq, dtype=torch.int32)  # read on the device by the step
+        inputs = (h, n_valid) if prompts is None else (h, n_valid, prompts)
 
-        def step(h, *p):
-            return self._forward_eager(h, p[0] if p else None)
+        def step(h, n, *p):
+            return self._forward_eager(h, n, p[0] if p else None)
 
-        # step_program_key's layout, with no cache: (batch, seq, pre_seq)
-        key = ("forward", h.shape[0], h.shape[1], 0 if prompts is None else prompts.shape[2], self.quant_type,
-               "none", ())
+        # step_program_key's layout, with no cache: (batch, bucket, pre_seq)
+        key = ("forward", batch, bucket, 0 if prompts is None else prompts.shape[2], self.quant_type, "none", ())
         (out,) = _replay(self._forward_program, key, step, inputs)
-        return out
+        return out[:, :seq]
 
-    def _forward_eager(self, hidden, prompts=None):
+    def _forward_eager(self, hidden, n_valid, prompts=None):
         """The stateless forward's block loop (what the CPU runs, and what
-        its program captures). The buffer's position rides as a 0-dim tensor
-        on the device, as a captured step needs it. Returns (out,)."""
+        its program captures) over a chunk padded to its bucket, of which
+        ``n_valid`` (a 0-dim integer tensor or an int) rows are real. The
+        buffer's position and n_valid ride as 0-dim tensors on the device,
+        as a captured step needs them. The K/V buffer starts at zeros: the
+        padded rows' slots are never written, and a zero row is finite.
+        Returns (out,)."""
         h = _as_tensor(hidden, self.device, self.compute_dtype)
-        batch, seq, _ = h.shape
+        batch, bucket, _ = h.shape
         if prompts is not None:
             prompts = _as_tensor(prompts, self.device, self.compute_dtype)
-        shape = (batch, seq, self.num_kv_heads, self.head_dim)
+        shape = (batch, bucket, self.num_kv_heads, self.head_dim)
         kv_buf = (
-            torch.empty(shape, dtype=self.compute_dtype, device=self.device),
-            torch.empty(shape, dtype=self.compute_dtype, device=self.device),
+            torch.zeros(shape, dtype=self.compute_dtype, device=self.device),
+            torch.zeros(shape, dtype=self.compute_dtype, device=self.device),
         )
         position = torch.zeros((), dtype=torch.int32, device=self.device)
+        n_valid = torch.as_tensor(n_valid).to(self.device, torch.int32)
         for i, p_block in enumerate(self.block_params):
             if prompts is not None:
                 pre = prompts.shape[2]
                 h = torch.cat([h[:, :pre] + prompts[i], h[:, pre:]], dim=1)
-            h, _ = self.family.block_apply(p_block, h, kv_buf, position, self.cfg, use_flash=True)
+            h, _ = self.family.block_apply(p_block, h, kv_buf, position, self.cfg, n_valid=n_valid, use_flash=True)
         return (h,)
 
     @torch.no_grad()
@@ -797,7 +825,7 @@ class TransformerBackend:
 
     @torch.no_grad()
     def paged_mixed_step(self, hidden, pool_kv, positions, tables,
-                         chunk_hidden, chunk_lane: int, chunk_pos: int):
+                         chunk_hidden, chunk_lane: int, chunk_pos: int, *, n_total: Optional[int] = None):
         """One mixed step: every decode lane (one token each) plus ONE
         prefill chunk for ``chunk_lane``, block by block. The chunk is padded
         to ``bucket_length(seq)`` rows with ``n_valid = seq``, as the JAX
@@ -815,6 +843,9 @@ class TransformerBackend:
           chunk_lane / chunk_pos: which lane, and the chunk's first absolute
             token position (host integers, checked here: the step reads them
             on the device).
+          n_total: the lane's final sequence length when known up front (a
+            prompt prefilled chunk by chunk; longrope's factor choice);
+            defaults to chunk_pos + seq. Read on the device too.
 
         Returns (decode_out [n_lanes, 1, h], chunk_out [1, seq, h], pool_kv).
         """
@@ -831,8 +862,8 @@ class TransformerBackend:
             )
         bucket = bucket_length(seq)
         chunk = F.pad(chunk, (0, 0, 0, bucket - seq))
-        # {chunk_lane, chunk_pos, n_valid}: read on the device by the step
-        scalars = torch.tensor([lane, pos, seq], dtype=torch.int32)
+        # {chunk_lane, chunk_pos, n_valid, n_total}: read on the device by the step
+        scalars = torch.tensor([lane, pos, seq, pos + seq if n_total is None else int(n_total)], dtype=torch.int32)
         inputs = (_as_tensor(hidden, None, self.compute_dtype), _as_tensor(positions, None, torch.int32), tables_t,
                   chunk, scalars)
 
@@ -840,7 +871,7 @@ class TransformerBackend:
         proj = self._fp_proj(with_fp)
 
         def step(h, pos_t, tab, c, sc):
-            dec, chunk_out = self._paged_mixed_eager(h, pool_kv, pos_t, tab, c, sc[0:1], sc[1], sc[2])[:2]
+            dec, chunk_out = self._paged_mixed_eager(h, pool_kv, pos_t, tab, c, sc[0:1], sc[1], sc[2], sc[3])[:2]
             if proj is None:
                 return dec, chunk_out
             # the chunk's digest is of its LAST VALID row, the last one the
@@ -854,12 +885,14 @@ class TransformerBackend:
         dec, chunk_out = self._keep_fp(_replay(self._mixed_program, key, step, inputs), 2, chunk=True)
         return dec, chunk_out[:, :seq], pool_kv
 
-    def _paged_mixed_eager(self, hidden, pool_kv, positions, tables, chunk_hidden, chunk_lane, chunk_pos, n_valid):
+    def _paged_mixed_eager(self, hidden, pool_kv, positions, tables, chunk_hidden, chunk_lane, chunk_pos, n_valid,
+                           n_total=None):
         """The mixed step's block loop, launched op by op (what the CPU runs,
         and what a step program captures). ``chunk_hidden`` [1, bucket,
         hidden] is already padded; ``chunk_lane`` ([1] or a scalar),
-        ``chunk_pos`` and ``n_valid`` are integer tensors on the device (or
-        host integers), read there: no value of theirs reaches the host."""
+        ``chunk_pos``, ``n_valid`` and ``n_total`` (None: the chunk's own
+        end) are integer tensors on the device (or host integers), read
+        there: no value of theirs reaches the host."""
         k_pool, v_pool = pool_kv
         h_dec = _as_tensor(hidden, self.device, self.compute_dtype)
         h_pf = _as_tensor(chunk_hidden, self.device, self.compute_dtype)
@@ -873,7 +906,7 @@ class TransformerBackend:
             h_dec, _ = self.family.block_apply(p_block, h_dec, kv, positions, self.cfg)
             kv_pf = (PagedKV(k_blk, table_row), PagedKV(v_blk, table_row))
             h_pf, _ = self.family.block_apply(
-                p_block, h_pf, kv_pf, chunk_pos, self.cfg, n_valid=n_valid
+                p_block, h_pf, kv_pf, chunk_pos, self.cfg, n_valid=n_valid, **self._n_total_arg(n_total)
             )
         return h_dec, h_pf, (k_pool, v_pool)
 

@@ -158,6 +158,9 @@ class _LanePrefillState:
     offset: int  # tokens already fed
     cap: int  # per-step chunk cap (chunk_plan byte sizing)
     outs: List[torch.Tensor]
+    # the lane's length once the prefill is in (longrope's factor choice);
+    # None: each chunk's own end
+    n_total: Optional[int] = None
     enqueued: float = 0.0  # time.perf_counter() at admission
     queue_s: float = 0.0  # admission -> first chunk
     compute_s: float = 0.0  # summed mixed-step wall across chunks
@@ -1188,6 +1191,7 @@ class DecodeBatcher:
                 position=position,
                 offset=0,
                 cap=int(max(plan)),
+                n_total=position + total,
                 outs=[],
                 enqueued=time.perf_counter(),
             )
@@ -1619,7 +1623,7 @@ class DecodeBatcher:
         chunk = st.hidden[:, st.offset : st.offset + take]
         out, chunk_out, _ = self.backend.paged_mixed_step(
             hidden, self._buffers(), positions, self._tables.copy(),
-            chunk, st.lane, st.position,
+            chunk, st.lane, st.position, n_total=st.n_total,
         )
         host_out, host_chunk = out.cpu(), chunk_out.cpu()
         with self._reset_lock:

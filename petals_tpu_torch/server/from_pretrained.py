@@ -5,6 +5,7 @@
 
 from __future__ import annotations
 
+import inspect
 import json
 import os
 import types
@@ -81,8 +82,11 @@ def load_block_params(
     cfg=None,
 ) -> Dict[str, torch.Tensor]:
     """Block ``block_index``'s parameter dict (weights [in, out]), floating
-    tensors cast to ``dtype``, on ``device`` (default: the CUDA card; the
-    CPU only when asked for)."""
+    tensors cast to ``dtype`` but for the family's ``cast_exempt`` leaves
+    (gemma's float32 folded norms), on ``device`` (default: the CUDA card;
+    the CPU only when asked for). A family whose blocks differ by index
+    (gemma2's windows) gets ``block_index``, as petals_tpu's loader passes
+    it; a non-tensor leaf (that window, a host int) stays as it is."""
     device = resolve_device(device)
     if family is None or cfg is None:
         family, cfg = get_block_config(path)
@@ -91,8 +95,15 @@ def load_block_params(
     if not tensors:
         raise KeyError(f"Block {block_index} not found in {path} under prefixes {list(prefixes)}")
     # moved first, so the [out, in] -> [in, out] transposes run on the device
-    params = family.hf_to_block_params({k: t.to(device) for k, t in tensors.items()}, cfg)
-    return {
-        name: t.to(dtype=dtype if t.is_floating_point() else t.dtype).contiguous()
-        for name, t in params.items()
-    }
+    tensors = {k: t.to(device) for k, t in tensors.items()}
+    if "block_index" in inspect.signature(family.hf_to_block_params).parameters:
+        params = family.hf_to_block_params(tensors, cfg, block_index=block_index)
+    else:
+        params = family.hf_to_block_params(tensors, cfg)
+    out = {}
+    for name, t in params.items():
+        if isinstance(t, torch.Tensor):
+            keep = name in family.cast_exempt or not t.is_floating_point()
+            t = t.to(dtype=t.dtype if keep else dtype).contiguous()
+        out[name] = t
+    return out

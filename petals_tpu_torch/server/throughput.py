@@ -133,10 +133,13 @@ def _random_block(family, cfg, device, dtype, quant_type: str) -> dict:
     from petals_tpu_torch.utils.convert_block import convert_block_params
 
     gen = torch.Generator(device=device).manual_seed(0)
-    params = {
-        name: (torch.randn(meta.shape, generator=gen, device=device) * 0.02).to(dtype)
-        for name, meta in sorted(family.block_param_shapes(cfg, dtype).items())
-    }
+    params = {}
+    for name, meta in sorted(family.block_param_shapes(cfg, dtype).items()):
+        if not meta.dtype.is_floating_point:  # a host-int leaf (gemma2's window): 0, full attention
+            params[name] = 0
+            continue
+        keep = meta.dtype if name in family.cast_exempt else dtype
+        params[name] = (torch.randn(meta.shape, generator=gen, device=device) * 0.02).to(keep)
     return convert_block_params(params, family.name, quant_type, fuse=True)
 
 

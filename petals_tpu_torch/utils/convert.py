@@ -51,20 +51,30 @@ def quant_leaf_from_numpy(
     return OutlierQuantLinear(inner, keep(idx), keep(w_out))
 
 
-def _leaf_to(leaf, device, dtype: torch.dtype):
+def _leaf_to(leaf, device, dtype: Optional[torch.dtype]):
     if isinstance(leaf, QUANTIZED_TYPES):
         return leaf.to(device)
+    arr = np.asarray(leaf)
+    if arr.ndim == 0 and np.issubdtype(arr.dtype, np.integer):
+        # an int32 scalar leaf (gemma2's per-block window) is a host int in
+        # the port: each block's launches bake it in, never a read on the card
+        return int(arr)
     return tensor_from_numpy(leaf, device, dtype)
 
 
-def block_params_from_numpy(params: Dict[str, object], device, dtype: torch.dtype) -> Dict[str, object]:
+def block_params_from_numpy(params: Dict[str, object], device, dtype: torch.dtype, family=None) -> Dict[str, object]:
     """One block's parameter dict: numpy arrays (floating ones cast to
-    ``dtype``) and port quantized leaves (moved to ``device`` as they are)."""
-    return {name: _leaf_to(leaf, device, dtype) for name, leaf in params.items()}
+    ``dtype``, but for the ``family``'s cast-exempt leaves, which keep
+    theirs: gemma's float32 folded norms), port quantized leaves (moved to
+    ``device`` as they are) and integer scalars as host ints."""
+    exempt = family.cast_exempt if family is not None else ()
+    return {name: _leaf_to(leaf, device, None if name in exempt else dtype) for name, leaf in params.items()}
 
 
 def _stack(leaves):
     first = leaves[0]
+    if isinstance(first, int):  # host-int leaves: one a block
+        return list(leaves)
     if isinstance(first, OutlierQuantLinear):
         return OutlierQuantLinear(
             _stack([leaf.inner for leaf in leaves]),
@@ -78,11 +88,15 @@ def _stack(leaves):
     return torch.stack(leaves)
 
 
-def stacked_from_numpy(blocks: Sequence[Dict[str, object]], device, dtype: torch.dtype) -> Dict[str, object]:
+def stacked_from_numpy(blocks: Sequence[Dict[str, object]], device, dtype: torch.dtype,
+                       family=None) -> Dict[str, object]:
     """A span: per-block parameter dicts stacked along a leading block axis
     (the layout ``TransformerBackend`` takes); a quantized leaf stacks its
-    pieces."""
-    return {name: _stack([_leaf_to(b[name], device, dtype) for b in blocks]) for name in blocks[0]}
+    pieces, a host-int leaf is a list of them; ``family``'s cast-exempt
+    leaves keep their dtype (``block_params_from_numpy``)."""
+    exempt = family.cast_exempt if family is not None else ()
+    return {name: _stack([_leaf_to(b[name], device, None if name in exempt else dtype) for b in blocks])
+            for name in blocks[0]}
 
 
 def dense_cache_from_numpy(kv, device, dtype: Optional[torch.dtype] = None):
@@ -96,10 +110,13 @@ def dense_cache_from_numpy(kv, device, dtype: Optional[torch.dtype] = None):
     return tensor_from_numpy(k_stack, device, dtype), tensor_from_numpy(v_stack, device, dtype)
 
 
-def client_params_from_numpy(params: Dict[str, np.ndarray], device, dtype: torch.dtype = torch.float32) -> Dict[str, torch.Tensor]:
+def client_params_from_numpy(params: Dict[str, np.ndarray], device, dtype: torch.dtype = torch.float32,
+                             family=None) -> Dict[str, torch.Tensor]:
     """The JAX client's parameters (``{"embed", "norm", "head"}`` numpy
     arrays, the head [hidden, vocab]) as the port client holds them: floating
-    leaves in ``dtype``, the head in float32 (client/from_pretrained.py)."""
+    leaves in ``dtype`` but for ``family``'s cast-exempt ones, the head in
+    float32 (client/from_pretrained.py)."""
     from petals_tpu_torch.client.from_pretrained import cast_client_params
 
-    return cast_client_params({name: tensor_from_numpy(arr, "cpu", None) for name, arr in params.items()}, device, dtype)
+    return cast_client_params({name: tensor_from_numpy(arr, "cpu", None) for name, arr in params.items()}, device,
+                              dtype, family)

@@ -32,15 +32,20 @@ QUANTIZABLE_LEAVES: Dict[str, Set[str]] = {
     "bloom": {"wq", "wk", "wv", "wo", "w_up", "w_down"},
     "falcon": {"wq", "wk", "wv", "wo", "w_up", "w_down"},
     "mixtral": {"wq", "wk", "wv", "wo", "w1", "w2", "w3"},
+    "gemma2": {"wq", "wk", "wv", "wo", "wg", "wu", "wd"},
 }
 
 # Leaves fused into one matmul each: fewer kernel launches per block (none
-# for bloom, falcon and mixtral, as in the JAX package). Fusion
+# for bloom, falcon and mixtral, as in the JAX package; gemma2's as llama's). Fusion
 # happens on the DENSE weights before quantization; every kind's scales are
 # per output column, so the fused leaf quantizes to the same bytes as the
 # parts side by side.
 _FUSE_GROUPS: Dict[str, tuple] = {
     "llama": (
+        ("wqkv", ("wq", "wk", "wv"), "bqkv", ("bq", "bk", "bv")),
+        ("wgu", ("wg", "wu"), "bgu", ("bg", "bu")),
+    ),
+    "gemma2": (
         ("wqkv", ("wq", "wk", "wv"), "bqkv", ("bq", "bk", "bv")),
         ("wgu", ("wg", "wu"), "bgu", ("bg", "bu")),
     ),
@@ -86,7 +91,9 @@ def convert_block_params(params: dict, family_name: str, quant_type, *, fuse: bo
     n_quantized = 0
     for name in list(params):
         leaf = params.pop(name)
-        if name in quantizable and leaf.dim() == 2:
+        if not isinstance(leaf, torch.Tensor):  # a host-int leaf (gemma2's window)
+            out[name] = leaf
+        elif name in quantizable and leaf.dim() == 2:
             out[name] = quantize(leaf, quant_type.value)
             n_quantized += 1
         elif name in quantizable and leaf.dim() == 3:  # expert stacks [E, in, out]
@@ -110,4 +117,5 @@ def block_size_bytes(params: dict) -> int:
     return sum(
         leaf.nbytes if isinstance(leaf, QUANTIZED_TYPES) else leaf.numel() * leaf.element_size()
         for leaf in params.values()
+        if isinstance(leaf, (torch.Tensor, *QUANTIZED_TYPES))
     )

@@ -25,7 +25,7 @@ import torch
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SCORES = "      for (int c = sub; c < NCH; c += TPR) {"
-PV = "      for (int r = set; r < TR; r += S::NSET) {"
+PV = "      for (int r = set; set < S::NSET && r < TR; r += S::NSET) {"
 MERGE = "  if (!last) return;"
 
 

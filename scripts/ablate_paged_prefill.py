@@ -36,8 +36,8 @@ import sys
 import torch
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-SCORES = "      wgmma_m64n64k16_ss(acc, desc_k_major(q_tile + off), desc_k_major(ks + off), kk > 0);\n"
-PV = "    for (int kk = 0; kk < 4; ++kk) wgmma_pv<D>(o, a[kk], desc_mn_major(vs + kk * 2048));\n"
+SCORES = "        wgmma_m64n64k16_ss(acc, desc_k_major(q_tile + off), desc_k_major(ks + off), part + kk > 0);\n"
+PV = "    for (int kk = 0; kk < 4; ++kk) wgmma_pv<DP>(o, a[kk], desc_mn_major(vs + kk * 2048));\n"
 SOFTMAX = """    if (interior) {
       prefill_softmax<false>(scores, m_run, l_run, alpha, q_pos, t0, col0, kv_len, window, ok_col);
     } else {
@@ -47,7 +47,7 @@ SOFTMAX = """    if (interior) {
 NO_SOFTMAX = "    alpha[0] = alpha[1] = 1.f;\n"
 DECODE = "  for (int e = threadIdx.x; e < PF_KV * RCH; e += NT) {\n"  # decode_side's loop
 QUANT_SCORES = "      issue_scores(s, base + dec_k(j));\n"
-QUANT_PV = "      issue_pv(a, base + dec_k(j) + S::TILE);\n"
+QUANT_PV = "      issue_pv(a, base + dec_k(j) + S::V_OFF);\n"
 
 
 def ablated_sources(src: str) -> dict:

@@ -52,6 +52,9 @@ CASES = {
     "window_beyond_length": (1, 128, 128, 4, 2, 64, {"sliding_window": 1000}),
     "alibi_5_heads": (1, 128, 128, 5, 5, 64, {"alibi": True}),
     "alibi_gqa_window": (2, 70, 128, 8, 2, 64, {"kv_length": 70, "alibi": True, "sliding_window": 48}),
+    # Gemma's head_dim 256 and Phi-3's 96
+    "gemma_d256_gqa2_window": (1, 136, 256, 4, 2, 256, {"kv_length": 136, "sliding_window": 40}),
+    "phi3_d96_continuation": (2, 60, 256, 4, 4, 96, {"q_offset": 100, "kv_length": 160}),
 }
 
 
@@ -94,6 +97,22 @@ def test_plain_version_matches_port_attend_reference(name):
         tkw["alibi_slopes"] = torch.from_numpy(tkw["alibi_slopes"])
     want = attend_reference(*(torch.from_numpy(x) for x in (q, k, v)), **tkw)
     np.testing.assert_allclose(_port(q, k, v, **kw).numpy(), want.numpy(), atol=ATOL, rtol=RTOL)
+
+
+@pytest.mark.parametrize("d", [256, 96])
+def test_softcap_matches_jax_reference(d):
+    """Gemma-2's attention logit softcap (petals_tpu's flash kernel has no
+    rule for it: its ``attend_reference`` is the reference), with ALiBi and
+    a window, on scores the cap bends."""
+    rng = np.random.RandomState(12)
+    q, k, v = (rng.randn(1, 136, 4, d) * 3).astype(np.float32), *(rng.randn(2, 1, 256, 2, d).astype(np.float32))
+    slopes = (rng.randn(4) * 0.1).astype(np.float32)
+    kw = dict(q_offset=10, kv_length=146, sliding_window=40)
+    want = jax_reference(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), alibi_slopes=jnp.asarray(slopes),
+                         logit_softcap=2.0, **kw)
+    got = _port(q, k, v, alibi_slopes=slopes, softcap=2.0, **kw)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATOL, rtol=RTOL)
+    assert np.abs(_port(q, k, v, alibi_slopes=slopes, **kw).numpy() - np.asarray(want)).max() > 100 * ATOL
 
 
 @pytest.mark.parametrize("buf,q_len", [(100, 100), (77, 13), (200, 9)])

@@ -232,3 +232,71 @@ def test_cli_takes_the_new_flags(model_path, tmp_path):
         "--trace_dir", str(tmp_path),
     ]))
     assert (server.request_timeout, server.metrics_port, server.trace_dir) == (7.0, 0, str(tmp_path))
+
+
+# ------------------------------------------------------------------ the forward's length buckets
+
+
+def _tiny_phi3_short_window(root):
+    """Phi-3 with LongRoPE whose original window (48) lies inside a bucket
+    (64): a 40-token forward pads to 64 rows, whose last position would take
+    the long factors if the padding counted as real."""
+    import os
+
+    from transformers import Phi3Config, Phi3ForCausalLM
+
+    cfg = Phi3Config(
+        vocab_size=128, hidden_size=64, intermediate_size=128, num_hidden_layers=2, num_attention_heads=4,
+        num_key_value_heads=2, max_position_embeddings=192, original_max_position_embeddings=48, rms_norm_eps=1e-6,
+        rope_scaling={"type": "longrope", "short_factor": [1.0 + 0.05 * i for i in range(8)],
+                      "long_factor": [2.0 + 0.3 * i for i in range(8)]},
+        tie_word_embeddings=False, pad_token_id=0,
+    )
+    torch.manual_seed(12)
+    path = os.path.join(root, "tiny-phi3-window-48")
+    Phi3ForCausalLM(cfg).eval().save_pretrained(path, safe_serialization=True)
+    return path
+
+
+@pytest.fixture(scope="module")
+def bucket_backends(model_path, tmp_path_factory):
+    from tests.test_torch_dense_programs import _backends
+
+    phi3 = _tiny_phi3_short_window(str(tmp_path_factory.mktemp("phi3")))
+    return {"llama": _backends(model_path, span=(0, N_LAYERS)), "phi3": _backends(phi3, span=(0, 2))}
+
+
+# (model, lengths, deep-prompt rows): lengths of 3 to 30 fall in buckets
+# 8, 16 and 32; phi3's 40 and 44 pad to 64 rows past its window of 48
+BUCKET_CASES = [("llama", (3, 5, 8, 9, 12, 16, 20, 30), 0), ("llama", (6, 11, 14, 25), 4),
+                ("phi3", (40, 44, 30, 52), 0)]
+
+
+@pytest.mark.parametrize("name,lengths,pre_seq", BUCKET_CASES, ids=["llama", "llama-prompts", "phi3"])
+def test_forward_is_bucketed_and_equals_petals_tpu(bucket_backends, name, lengths, pre_seq):
+    """C12: the stateless forward pads each call to its length's bucket, so
+    N distinct lengths leave at most one graph a bucket (a deep prompt's
+    pre_seq stays in the key), and every reply still equals petals_tpu's
+    ``forward`` at the exact length (rtol / atol 1e-5): the padded tail
+    changes no real row, nor longrope's factors (phi3 at 40 and 44 rows,
+    inside its window of 48 while their bucket of 64 is not)."""
+    from petals_tpu_torch.server.backend import bucket_length
+    from tests.test_torch_dense_programs import _counts, _stubbed
+
+    jax_backend, backend = bucket_backends[name]
+    stub, _ = _stubbed(backend)
+    rng = np.random.default_rng(13)
+    hsz = backend.hidden_size
+    for n in lengths:
+        hidden = (rng.standard_normal((2, n, hsz)) * 0.1).astype(np.float32)
+        prompts = (rng.standard_normal((backend.n_blocks, 2, pre_seq, hsz)) * 0.1).astype(np.float32) \
+            if pre_seq else None
+        want = np.asarray(jax_backend.forward(hidden, prompts=prompts))
+        for _ in range(2):  # the bucket's first call runs eagerly, its second captures (or replays)
+            got = stub.forward(torch.from_numpy(hidden), prompts=None if prompts is None else torch.from_numpy(prompts))
+            assert got.shape == (2, n, hsz)
+            np.testing.assert_allclose(got.numpy(), want, rtol=RTOL, atol=ATOL, err_msg=f"{name} forward of {n}")
+    buckets = {bucket_length(n) for n in lengths}
+    assert len(stub._forward_program._entries) == _counts(stub, "_forward_program")["captures"] <= len(buckets)
+    assert {key[2] for key in stub._forward_program._entries} <= buckets
+    assert all(key[3] == pre_seq for key in stub._forward_program._entries)

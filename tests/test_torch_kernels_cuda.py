@@ -28,7 +28,13 @@ from petals_tpu_torch.ops import grouped_matmul as gm
 from petals_tpu_torch.ops import paged_flash_attention as pfa
 from petals_tpu_torch.ops import quant_matmul as qmm
 from petals_tpu_torch.ops.quant import dequantize, quantize
-from petals_tpu_torch.ops.paged_attention import PagedPool, paged_attend, paged_prefill_attend, quantize_kv_rows
+from petals_tpu_torch.ops.paged_attention import (
+    PagedPool,
+    dequantize_kv,
+    paged_attend,
+    paged_prefill_attend,
+    quantize_kv_rows,
+)
 
 pytestmark = pytest.mark.cuda
 
@@ -143,8 +149,8 @@ def test_prefill_kernel_matches_plain(cuda_device, dtype, holes, group, d, ps, c
 
 
 def test_wrappers_refuse_what_the_kernels_do_not_take(cuda_device):
-    q = torch.zeros(2, 1, 8, 96, device=cuda_device, dtype=torch.bfloat16)  # head_dim 96
-    pool = torch.zeros(4, 64, 2, 96, device=cuda_device, dtype=torch.bfloat16)
+    q = torch.zeros(2, 1, 8, 80, device=cuda_device, dtype=torch.bfloat16)  # head_dim 80
+    pool = torch.zeros(4, 64, 2, 80, device=cuda_device, dtype=torch.bfloat16)
     tables = torch.zeros(2, 2, dtype=torch.int32, device=cuda_device)
     pos = torch.zeros(2, dtype=torch.int32, device=cuda_device)
     with pytest.raises(ValueError):
@@ -159,6 +165,10 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(cuda_device):
         pfa.paged_flash_attend(q, pool, pool, tables, pos)
     with pytest.raises(ValueError):  # a CUDA tensor never falls back to the CPU version
         pfa.paged_flash_attend(q.float().cpu(), pool.float(), pool.float(), tables, pos)
+    q = torch.zeros(2, 1, 8, 128, device=cuda_device, dtype=torch.bfloat16)
+    pool = torch.zeros(4, 64, 2, 128, device=cuda_device, dtype=torch.bfloat16)
+    with pytest.raises(ValueError):  # a softcap of 0
+        pfa.paged_flash_attend(q, pool, pool, tables, pos, softcap=0.0)
 
 
 KV_QUANT_TOL = 2e-2
@@ -688,8 +698,10 @@ def test_flash_wrapper_refuses_what_the_kernel_does_not_take(cuda_device):
     def z(*shape, dtype=torch.bfloat16):
         return torch.zeros(*shape, device=cuda_device, dtype=dtype)
 
-    with pytest.raises(ValueError):  # head_dim 96
-        fa.flash_attend(z(1, 8, 4, 96), z(1, 16, 2, 96), z(1, 16, 2, 96))
+    with pytest.raises(ValueError):  # head_dim 80
+        fa.flash_attend(z(1, 8, 4, 80), z(1, 16, 2, 80), z(1, 16, 2, 80))
+    with pytest.raises(ValueError):  # a negative softcap
+        fa.flash_attend(z(1, 8, 4, 128), z(1, 16, 2, 128), z(1, 16, 2, 128), softcap=-1.0)
     with pytest.raises(TypeError):  # float16
         fa.flash_attend(z(1, 8, 4, 128, dtype=torch.float16), z(1, 16, 2, 128, dtype=torch.float16), z(1, 16, 2, 128, dtype=torch.float16))
     with pytest.raises(TypeError):  # a cache of another type than q
@@ -707,6 +719,125 @@ def test_flash_wrapper_refuses_what_the_kernel_does_not_take(cuda_device):
     before = fa.flash_attend.launches
     assert fa.flash_attend(z(1, 0, 4, 128), z(1, 16, 2, 128), z(1, 16, 2, 128)).shape == (1, 0, 4, 128)
     assert fa.flash_attend.launches == before  # nothing to launch
+
+
+# ------------------------------------------------------------------ Gemma's and Phi-3's heads, the softcap
+
+# (GQA group, head_dim, softcap) at the widths of Gemma-7B (16 over 16 at
+# 256), Gemma-2B (8 over 1), Gemma-2-9B (16 over 8, with its attention
+# softcap) and Phi-3-mini (32 over 32 at 96). The tests' softcap is 1.5, not
+# the published 50: at these scores' size the cap then bends every score,
+# so a kernel that dropped it would fail by far more than the tolerance.
+WIDE_CASES = [(1, 256, None), (8, 256, None), (2, 256, 1.5), (1, 96, None), (2, 96, 1.5)]
+
+
+def _wide_inputs(device, kind, dtype, group, d, n_pages, ps, q_shape, seed):
+    """q (scaled so scores reach a few units: a softcap of 1.5 bends them)
+    and a (k, v) pool pair: bf16 / float32 rows or quantized PagedPools
+    encoded on the card."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    q = (torch.randn(*q_shape, generator=gen, device=device) * 2.0).to(dtype)
+    if kind == "none":
+        pools = tuple(torch.randn(n_pages, ps, 2, d, generator=gen, device=device).to(dtype) for _ in range(2))
+    else:
+        pools = _quant_pools(device, kind, n_pages, ps, 2, d, seed + 1)
+    return q, pools
+
+
+def _plain_pool(pool):
+    """The plain version's pool in float32: a quantized pool decoded to
+    float32 rows, as the Pallas kernels decode it (``_quant_k_scores``).
+    The plain wrappers decode to bfloat16, as petals_tpu's XLA twin does,
+    which rounds each value the kernels keep."""
+    if isinstance(pool, torch.Tensor):
+        return pool.float()
+    return dequantize_kv(pool.codes, pool.scales, pool.kind, torch.float32)
+
+
+@pytest.mark.parametrize("kind", ["none", "int8", "nf4a"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("window", [None, 40])
+@pytest.mark.parametrize("group,d,softcap", WIDE_CASES)
+def test_decode_kernel_at_wide_heads(cuda_device, kind, dtype, window, group, d, softcap):
+    """K1 / K3 decode at head_dim 256 (one block an SM in bf16: the split
+    plan counts it) and 96 (48 output pairs, which do not divide the
+    block's 256 threads), with and without the softcap."""
+    rng = np.random.default_rng(70)
+    n_lanes, ps = 5, 64
+    max_pages = 384 // ps
+    n_pages = n_lanes * max_pages + 10
+    q, (kp, vp) = _wide_inputs(cuda_device, kind, dtype, group, d, n_pages, ps, (n_lanes, 1, 2 * group, d), 71)
+    pos = np.array([0, 63, 64, 300, max_pages * ps], np.int32)
+    used = [min(max_pages, -(-int(p + 1) // ps)) for p in pos]
+    tables, positions = _on(cuda_device, torch.int32, _holey_permuted(rng, n_lanes, max_pages, n_pages, used), pos)
+    got = pfa.paged_flash_attend(q, kp, vp, tables, positions, sliding_window=window, softcap=softcap)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and torch.isfinite(got).all()
+    want = paged_attend(q.float(), _plain_pool(kp), _plain_pool(vp), tables, positions, sliding_window=window,
+                        softcap=softcap)
+    tol = CUDA_TOL[dtype] if kind == "none" else KV_QUANT_TOL
+    err = (got.float() - want)[:4].abs().max().item()
+    assert err <= tol, err
+    if softcap is not None:  # the cap bends these scores: leaving it out is far off
+        uncapped = paged_attend(q.float(), _plain_pool(kp), _plain_pool(vp), tables, positions, sliding_window=window)
+        assert (uncapped - want)[:4].abs().max().item() > 10 * tol
+
+
+@pytest.mark.parametrize("kind", ["none", "int8", "nf4a"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("group,d,softcap", WIDE_CASES)
+@pytest.mark.parametrize("chunk_pos,n_valid,window", [(0, 130, None), (70, 90, 50)])
+def test_prefill_kernel_at_wide_heads(cuda_device, kind, dtype, group, d, softcap, chunk_pos, n_valid, window):
+    """K2 / K3 prefill at head_dim 256 (the quantized wgmma arm keeps one
+    decoded tile pair) and 96 (tiles padded to 128 columns in shared
+    memory; nf4a's nibbles split at 48), holes where the rows look."""
+    rng = np.random.default_rng(72)
+    ps, chunk = 16, 130
+    max_pages = 320 // ps
+    n_pages = 2 * max_pages + 4
+    q, (kp, vp) = _wide_inputs(cuda_device, kind, dtype, group, d, n_pages, ps, (1, chunk, 2 * group, d), 73)
+    (tables,) = _on(cuda_device, torch.int32, _prefill_table(rng, ps, max_pages, n_pages, chunk_pos + n_valid, True))
+    row = tables[1]
+    got = pfa.paged_flash_prefill_attend(q, kp, vp, row, chunk_pos, n_valid, sliding_window=window, softcap=softcap)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and torch.isfinite(got).all()
+    want = paged_prefill_attend(q.float(), _plain_pool(kp), _plain_pool(vp), row, chunk_pos, n_valid,
+                                sliding_window=window, softcap=softcap)
+    tol = CUDA_TOL[dtype] if kind == "none" else KV_QUANT_TOL
+    err = (got.float() - want)[:, :n_valid].abs().max().item()
+    assert err <= tol, err
+    assert not got[:, :n_valid][_blind_rows(want, n_valid)].any()
+    if softcap is not None:  # the cap bends these scores: leaving it out is far off
+        uncapped = paged_prefill_attend(q.float(), _plain_pool(kp), _plain_pool(vp), row, chunk_pos, n_valid,
+                                        sliding_window=window)
+        assert (uncapped - want)[:, :n_valid].abs().max().item() > 10 * tol
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("group,d,softcap", WIDE_CASES)
+@pytest.mark.parametrize("batch,q_len,buf,q_offset,window", [(1, 130, 256, 0, None), (2, 200, 333, 40, 50)])
+def test_flash_kernel_at_wide_heads(cuda_device, dtype, group, d, softcap, batch, q_len, buf, q_offset, window):
+    """K4 at head_dim 256 and 96 on strided cache views, with and without
+    the softcap."""
+    rng = np.random.default_rng(74)
+    k_stack, v_stack = _stacked_cache(rng, cuda_device, dtype, 2, batch, buf, 2, d)
+    scale = 2.0 if softcap else 1.0
+    (q,) = _on(cuda_device, dtype, scale * rng.standard_normal((batch, q_len, 2 * group, d)).astype(np.float32))
+    k, v = k_stack[1], v_stack[1]
+    kv_length = q_offset + q_len
+    got = fa.flash_attend(q, k, v, q_offset=q_offset, kv_length=kv_length, sliding_window=window, softcap=softcap)
+    torch.cuda.synchronize()
+    assert got.shape == q.shape and torch.isfinite(got).all()
+    want = fa.flash_attend_reference(q, k, v, q_offset=q_offset, kv_length=kv_length, sliding_window=window,
+                                     softcap=softcap)
+    err = (got.float() - want.float()).abs().max().item()
+    assert err <= CUDA_TOL[dtype], err
+
+
+def test_decode_plan_counts_the_blocks_that_fit(cuda_device):
+    """Two decode blocks share an SM at head_dim 128 in bf16, one at 256."""
+    assert pfa.decode_blocks_per_sm(cuda_device, torch.bfloat16, 0, 32, 8, 128) == 2
+    assert pfa.decode_blocks_per_sm(cuda_device, torch.bfloat16, 0, 16, 8, 256) == 1
 
 
 # ------------------------------------------------------------------ step programs (CUDA graphs)

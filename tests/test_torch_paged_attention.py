@@ -178,3 +178,100 @@ def test_wrappers_refuse_mixed_devices():
     pool = torch.zeros(2, 8, 2, 16, device="meta")
     with pytest.raises(ValueError):
         pfa.paged_flash_attend(q, pool, pool, torch.zeros(1, 2, dtype=torch.int32), torch.zeros(1, dtype=torch.int32))
+
+
+# ------------------------------------------------------------------ Gemma's and Phi-3's heads, the softcap
+
+
+def _wide_pools(rng, kind, n_pages, ps, hkv, d):
+    """(JAX pool, port pool) pairs for k and v: float32 rows, or int8 / nf4a
+    codes encoded by the JAX package's jitted encoder (a JAX server's
+    bytes)."""
+    import jax
+
+    from petals_tpu.ops import paged_attention as J
+    from petals_tpu_torch.ops.paged_attention import PagedPool
+
+    out = []
+    for rows in _rand_pool(rng, n_pages, ps, hkv, d):
+        if kind == "none":
+            out.append((jnp.asarray(rows), t(rows)))
+            continue
+        codes, scales = jax.jit(J.quantize_kv_rows, static_argnums=1)(jnp.asarray(rows), kind)
+        out.append((J.PagedPool(codes, scales), PagedPool(t(np.array(codes)), t(np.array(scales)))))
+    return out
+
+
+# the Pallas kernels decode codes to float32 registers, the plain versions
+# to bf16: a quantized pool's values differ by up to a bf16 rounding
+# (tests/test_torch_kv_quant.py KERNEL_TOL)
+WIDE_TOL = {"none": TOL, "int8": 2e-2, "nf4a": 2e-2}
+
+
+@pytest.mark.parametrize("kind", ["none", "int8", "nf4a"])
+@pytest.mark.parametrize("d,group", [(256, 2), (96, 1)])
+def test_decode_at_wide_heads_matches_pallas_interpret(kind, d, group):
+    """Gemma's head_dim 256 and Phi-3's 96: the plain decode against
+    petals_tpu's Pallas decode kernel in interpret mode (nf4a splits its
+    nibbles at d / 2: 48 at 96), a window that cuts the deep lane."""
+    rng = np.random.default_rng(7)
+    n_lanes, max_pages, ps, hkv = 3, 4, 8, 2
+    (jk, tk), (jv, tv) = _wide_pools(rng, kind, 16, ps, hkv, d)
+    q = rng.standard_normal((n_lanes, 1, hkv * group, d)).astype(np.float32)
+    pos = np.array([0, 2 * ps - 1, 4 * ps - 1], np.int32)
+    tables = _holey_permuted(rng, n_lanes, max_pages, 16, [-(-int(p + 1) // ps) for p in pos])
+    for window in (None, 9):
+        want = jax_decode(jnp.asarray(q), jk, jv, jnp.asarray(tables), jnp.asarray(pos), sliding_window=window,
+                          interpret=True)
+        got = paged_attend(t(q), tk, tv, t(tables), t(pos), sliding_window=window)
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=WIDE_TOL[kind], rtol=0)
+
+
+@pytest.mark.parametrize("kind", ["none", "int8", "nf4a"])
+@pytest.mark.parametrize("d,group", [(256, 2), (96, 1)])
+def test_prefill_at_wide_heads_matches_pallas_interpret(kind, d, group):
+    rng = np.random.default_rng(8)
+    max_pages, ps, hkv, chunk, chunk_pos, n_valid = 6, 8, 2, 24, 8, 17
+    (jk, tk), (jv, tv) = _wide_pools(rng, kind, 12, ps, hkv, d)
+    q = rng.standard_normal((1, chunk, hkv * group, d)).astype(np.float32)
+    trow = _holey_permuted(rng, 1, max_pages, 12, [4])[0]
+    want = jax_prefill(jnp.asarray(q), jk, jv, jnp.asarray(trow), jnp.int32(chunk_pos), jnp.int32(n_valid),
+                       sliding_window=9, interpret=True)
+    got = paged_prefill_attend(t(q), tk, tv, t(trow), chunk_pos, n_valid, sliding_window=9)
+    np.testing.assert_allclose(got.numpy()[:, :n_valid], np.asarray(want)[:, :n_valid], atol=2 * WIDE_TOL[kind],
+                               rtol=0)
+
+
+@pytest.mark.parametrize("kind", ["none", "int8", "nf4a"])
+@pytest.mark.parametrize("d", [256, 96])
+def test_softcap_matches_petals_tpu_xla_path(kind, d):
+    """Gemma-2's attention softcap: petals_tpu has no kernel rule for it and
+    composes the pages' gather with ``attend_reference`` (its
+    ``paged_attend_dispatch`` forces that path); the plain decode and
+    prefill with ``softcap`` equal it, with ALiBi and a window, on float32
+    and quantized pools (both sides decode the same codes to bf16)."""
+    from petals_tpu.ops.paged_attention import PagedKV as JaxPagedKV
+    from petals_tpu.ops.paged_flash_attention import paged_attend_dispatch
+
+    rng = np.random.default_rng(9)
+    n_lanes, max_pages, ps, hkv, group, cap = 2, 4, 8, 2, 2, 1.5
+    (jk, tk), (jv, tv) = _wide_pools(rng, kind, 10, ps, hkv, d)
+    slopes = (rng.standard_normal(hkv * group) * 0.1).astype(np.float32)
+    tables = rng.permutation(10)[:8].astype(np.int32).reshape(n_lanes, max_pages)
+    q = (rng.standard_normal((n_lanes, 1, hkv * group, d)) * 3).astype(np.float32)
+    pos = np.array([11, 2 * ps + 3], np.int32)
+    jkv = (JaxPagedKV(jk, jnp.asarray(tables)), JaxPagedKV(jv, jnp.asarray(tables)))
+    want = paged_attend_dispatch(q=jnp.asarray(q), k_kv=jkv[0], v_kv=jkv[1], q_offset=jnp.asarray(pos),
+                                 kv_length=jnp.asarray(pos + 1), alibi_slopes=jnp.asarray(slopes), sliding_window=6,
+                                 logit_softcap=cap)
+    got = paged_attend(t(q), tk, tv, t(tables), t(pos), alibi_slopes=t(slopes), sliding_window=6, softcap=cap)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=TOL, rtol=0)
+    uncapped = paged_attend(t(q), tk, tv, t(tables), t(pos), alibi_slopes=t(slopes), sliding_window=6)
+    assert (uncapped - got).abs().max() > 100 * TOL  # the cap bends these scores
+    # one lane's chunk: 5 real rows of 8 at position 12
+    qc = (rng.standard_normal((1, 8, hkv * group, d)) * 3).astype(np.float32)
+    jkv = (JaxPagedKV(jk, jnp.asarray(tables[:1])), JaxPagedKV(jv, jnp.asarray(tables[:1])))
+    want = paged_attend_dispatch(q=jnp.asarray(qc), k_kv=jkv[0], v_kv=jkv[1], q_offset=jnp.int32(12),
+                                 kv_length=jnp.int32(17), sliding_window=6, logit_softcap=cap)
+    got = paged_prefill_attend(t(qc), tk, tv, t(tables[0]), 12, 5, sliding_window=6, softcap=cap)
+    np.testing.assert_allclose(got.numpy()[:, :5], np.asarray(want)[:, :5], atol=TOL, rtol=0)

@@ -15,8 +15,9 @@ left unmasked (the model asserts the mask would change nothing there); the
 online softmax in the log2 domain; a quantized pool's K scale on the score
 row and its V scale folded into P after l has summed it. With the kernel's
 roundings (``exact=False``) a quantized tile is decoded to bf16 (int8 codes
-exactly, nf4a's unscaled cubic rounded) and P is rounded to bf16 before the
-PV product; with ``exact=True`` neither is rounded.
+exactly, nf4a's unscaled cubic rounded, but nf4a's K as the kernel's bf16
+pair: the rounded cubic plus its rounding error rounded) and P is rounded
+to bf16 before the PV product; with ``exact=True`` none is rounded.
 
 The cases cover floating-point, int8 and nf4a pools; groups 1, 3, 4 and 16;
 pages of 8, 16, 64 and 128 slots; holes inside the visible range; chunks at
@@ -38,9 +39,9 @@ Tolerances:
   independent |delta_j| <= 2**-9: about 2**-9 of the row's largest output
   too, up to ~3x that in a row whose few visible values cancel. Two
   roundings, doubled: 2**-7.
-- KV_ROW_REL_TOL = 2**-5, the same on a quantized pool: two more bf16
-  roundings of every K and V value lie between the two sides (the kernel's
-  of nf4a's unscaled cubic, the plain version's of each decoded value), and a
+- KV_ROW_REL_TOL = 2**-5, the same on a quantized pool: up to two more bf16
+  roundings of every K and V value lie between the two sides (the plain
+  version's of each decoded value, the kernel's of nf4a's V cubic), and a
   K value's moves its scores, so every probability, by up to the same
   share. Four roundings, each up to ~3x 2**-9 in a row whose values cancel,
   and K's twice (the score, then the probability): 2**-5.
@@ -74,12 +75,14 @@ def _bf16(x: np.ndarray) -> np.ndarray:
     return torch.from_numpy(x).bfloat16().float().numpy()
 
 
-def _tile_rows(pool, flat, kv_head, exact):
+def _tile_rows(pool, flat, kv_head, exact, pair=False):
     """(values [64, d] as the products take them, scale [64] they are
     multiplied by) of pool rows ``flat`` of one kv head: a floating-point
     pool's values with scale 1; a quantized pool's raw int8 codes or unscaled
-    nf4a cubic (rounded to bf16 unless ``exact``) with the row's scale times
-    NF4A_B for nf4a. ``flat`` rows of holes were zero-filled: index -1."""
+    nf4a cubic (rounded to bf16 unless ``exact``; with ``pair``, K's bf16
+    pair, the rounded cubic plus its rounding error rounded) with the row's
+    scale times NF4A_B for nf4a. ``flat`` rows of holes were zero-filled:
+    index -1."""
     ok = flat >= 0
     idx = flat.clamp_min(0)
     if not isinstance(pool, T.PagedPool):
@@ -96,7 +99,12 @@ def _tile_rows(pool, flat, kv_head, exact):
         return dl * (T.NF4A_A / T.NF4A_B + dl * dl)
 
     vals = torch.cat([poly(c & 0xF), poly(c >> 4)], dim=-1)
-    return (vals if exact else vals.bfloat16().float()), scales * T.NF4A_B
+    if exact:
+        return vals, scales * T.NF4A_B
+    rounded = vals.bfloat16().float()
+    if pair:
+        rounded = rounded + (vals - rounded).bfloat16().float()
+    return rounded, scales * T.NF4A_B
 
 
 def wgmma_prefill_model(q, k_pool, v_pool, table_row, chunk_pos, n_valid, *, alibi_slopes=None,
@@ -137,7 +145,7 @@ def wgmma_prefill_model(q, k_pool, v_pool, table_row, chunk_pos, n_valid, *, ali
                     page = torch.where(slots < kv_hi, table_row[(slots // ps).clamp_max(max_pages - 1)].long(), -1)
                     ok = (page >= 0) & (page < n_pages)
                     flat = torch.where(ok, page * ps + slots % ps, -1)
-                    kv, ks = _tile_rows(k_pool, flat, kvh, exact)
+                    kv, ks = _tile_rows(k_pool, flat, kvh, exact, pair=True)
                     vv, vs = _tile_rows(v_pool, flat, kvh, exact)
                     s = (rows @ kv.T) * (scale * LOG2E * ks)[None] + slope[:, None] * slots.float()[None]
                     seen = ok[None] & (slots[None] <= q_pos[:, None]) & (slots[None] < kv_len)
