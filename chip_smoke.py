@@ -466,6 +466,30 @@
    forward's graphs at most one a bucket, C12) and Phi-3's at 3000 and 4200
    tokens (K4 at head_dim 96; LongRoPE's short and long factors), every
    forward held to the dense references.
+24. Training and adapters (serve_training_and_check, last; alone:
+   scripts/smoke_training.py). (a) The 8-block bf16 span served by the CLI:
+   a port client's forward and ptu.backward of TRAIN_BATCH x TRAIN_SEQ
+   tokens with TRAIN_PRE deep-prompt rows, grad_hidden and grad_prompts
+   held to a float32 autograd reference over the plain blocks on the card
+   (check_to_f32: within REPLY_NOISE_FACTOR times the bf16 reference's own
+   distance from it); the backward's host wall, device busy (torch.profiler)
+   and peak memory, and the shares of its plain pieces, the dequant-
+   transpose and the attention backward (profile_backward). (c) Over the
+   same server the port's client trains deep_ptune prompts TRAIN_STEPS SGD
+   steps (the loss falls at each), its first step's grads held to the
+   float32 reference of the whole pipeline, then one step of a classifier
+   (a seeded score head of CLS_LABELS labels on the same blocks). (b) A
+   TRAIN_SHORT-block cut at --quant_type nf4a and int8: the backward held
+   to the dequantized references, K5 / K6 launched inside it, each
+   projection's dequant-transpose timed. (d) Two seeded PEFT adapters
+   written by the port's writer (rank ADAPTER_RANK on ADAPTER_TARGETS; rank
+   8 on other projections) served with --adapters on the TRAIN_SHORT-block
+   cut in bf16 and nf4a (QLoRA): the announce lists them, the span loads
+   unfused, an adapter's forward and backward held to the references with
+   the deltas merged, the other adapter's and the base's replies apart from
+   it, switching between them after warm-up captures nothing, and an
+   adapter session's greedy stream (server-side generation on a private
+   cache, no lane) held as phase 16 holds greedy tokens.
 
 float32 matmuls run in full float32: TF32 is switched off for matmuls and
 convolutions. Exits non-zero on any failure. The last line is the JSON
@@ -478,8 +502,10 @@ the short int8-pool run, K5's nf4a arm from the nf4a run, its nf4 and int4
 arms and K6 from their short runs, K4 from the private sessions' run), and
 ``migration_launches``: K1, K2, K3's nf4a arms and K4 on phase 19's moved
 caches; ``forward_launches``: K4 and K5's nf4a prefill kernel on phase
-21's stateless forwards. Every run prints its lanes, pages and
-pool bytes.
+21's stateless forwards; ``training``: K4, K5 and K6 on phase 24's
+forwards, backwards and adapter sessions (with the backward's profile on
+K4's entry and the quantized spans' on K5 nf4a's and K6's prefill entries).
+Every run prints its lanes, pages and pool bytes.
 """
 
 from __future__ import annotations
@@ -689,11 +715,18 @@ MIGRATE_HOLD_ROWS = 8  # the seeded caches' kernel holds: a chunk of this many r
 # Each run: SPEC_SESSIONS concurrent sessions of SPEC_PROMPT-token prompts
 # and SPEC_NEW generated tokens (two greedy, two sampled at SPEC_SAMPLING
 # with fixed seeds), then the same sessions with the draft detached.
-# Contexts stay within SPEC_WINDOW, so the draft sees exact positions.
+# Run a's contexts stay within SPEC_WINDOW, so the draft sees exact
+# positions. Run b's sampled streams draw SPEC_SAMPLED_NEW tokens each: the
+# rule that at least half of a stream's draws are the float32 reference's
+# sits near its mean there (about 62% agree at random nf4a-pool weights,
+# ROADMAP C14), so 32 draws fail a correct kernel about one time in
+# eighteen (binomial), 128 about one in 550; a wrong uniform stream (about
+# one draw in ten) fails more surely.
 SPEC_K = 4
 SPEC_WINDOW = 64
 SPEC_PROMPT = 24
 SPEC_NEW = 32
+SPEC_SAMPLED_NEW = 128
 SPEC_SESSIONS = 4
 SPEC_SAMPLING = dict(do_sample=True, temperature=0.8, top_k=10)
 SPEC_SEEDS = (11, 12)
@@ -828,6 +861,26 @@ GEMMA_PHI3_FWD_LENGTHS = (96, 160, 224, 288, 352, 416, 480, 544)  # C12: eight f
 # on the short factors pads past it: the CPU tests hold n_valid's choice at
 # a boundary inside a bucket
 PHI3_FWD_LENGTHS = (3000, 4200)
+# phase 24: training and adapters on the smoke's Mistral-7B checkpoint. (a)
+# ptu.backward on the 8-block bf16 span: TRAIN_BATCH x TRAIN_SEQ tokens with
+# TRAIN_PRE deep-prompt rows; (b) the same on TRAIN_SHORT blocks with nf4a
+# and int8 weights; (c) the port's client trains TRAIN_PRE deep prompts on
+# TRAIN_CLIENT_SEQ-token rows for TRAIN_STEPS SGD steps, each moving the
+# largest prompt entry by TRAIN_STEP_SIZE, and takes one step of a
+# classifier of CLS_LABELS labels; (d) two seeded PEFT adapters (rank
+# ADAPTER_RANK on ADAPTER_TARGETS, the second rank 8 on other projections)
+# served on TRAIN_SHORT blocks in bf16 and nf4a (QLoRA), an adapter session
+# generating ADAPTER_NEW greedy tokens
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_PRE = 2, 512, 16
+TRAIN_SHORT = 2
+TRAIN_CLIENT_SEQ = 128
+TRAIN_STEPS = 3
+TRAIN_STEP_SIZE = 1e-2
+CLS_LABELS = 3
+ADAPTER_RANK = 16
+ADAPTER_TARGETS = ("self_attn.q_proj", "self_attn.v_proj", "mlp.down_proj")
+ADAPTER_NEW = 16
+ADAPTER_PROMPT = 64
 # K7's case: a 512-row chunk at top-2 over Mixtral's 8 experts, skewed: one
 # expert empty, one taking half the rows
 GROUPED_SIZES = (512, 0, 160, 96, 64, 96, 48, 48)
@@ -3431,9 +3484,9 @@ class ClientRecorder:
             session.generate_remote = timed_generate_remote
             return session
 
-        def timed_embed(ids):
+        def timed_embed(ids, **kwargs):
             t0 = time.perf_counter()
-            out = embed(ids)
+            out = embed(ids, **kwargs)
             torch.cuda.synchronize()
             self.embed_s.append(time.perf_counter() - t0)
             return out
@@ -5611,11 +5664,13 @@ def check_verify_arm(device, timer, kind) -> dict:
     return entry
 
 
-def _spec_run(label, ckpt, n_blocks, device, smi, server_args, kv_quant):
+def _spec_run(label, ckpt, n_blocks, device, smi, server_args, kv_quant, sampled_new=SPEC_NEW):
     """One run of phase 20: a whole-model port server of ``ckpt`` built by
     the CLI with ``server_args`` (its draft among them) and the port client;
     SPEC_SESSIONS concurrent generate() calls with the draft, then the same
-    with the draft detached. Returns what the phase checks and prints."""
+    with the draft detached; the greedy streams generate SPEC_NEW tokens,
+    the sampled ones ``sampled_new``. Returns what the phase checks and
+    prints."""
     import concurrent.futures
 
     import numpy as np
@@ -5670,6 +5725,7 @@ def _spec_run(label, ckpt, n_blocks, device, smi, server_args, kv_quant):
     prompts = [torch.randint(0, MISTRAL_7B["vocab_size"], (1, SPEC_PROMPT), generator=gen).numpy()
                for _ in range(SPEC_SESSIONS)]
     kwargs = [{}, {}] + [dict(SPEC_SAMPLING, seed=s) for s in SPEC_SEEDS]
+    new_tokens = [sampled_new if kw.get("do_sample") else SPEC_NEW for kw in kwargs]
 
     def runs(model, rec):
         def own_session():
@@ -5677,7 +5733,7 @@ def _spec_run(label, ckpt, n_blocks, device, smi, server_args, kv_quant):
 
         def stream(i):
             t0 = time.perf_counter()
-            out = model.generate(prompts[i], max_new_tokens=SPEC_NEW, **kwargs[i])
+            out = model.generate(prompts[i], max_new_tokens=new_tokens[i], **kwargs[i])
             return (own_session(), out, SPEC_PROMPT, kwargs[i]), time.perf_counter() - t0
 
         def together():
@@ -5780,10 +5836,11 @@ def _spec_run(label, ckpt, n_blocks, device, smi, server_args, kv_quant):
         f"token")
 
     def per_token(entries):
-        return statistics.median(s / SPEC_NEW * 1e3 for _, s in entries)
+        return statistics.median(s / (e[1].shape[1] - SPEC_PROMPT) * 1e3 for e, s in entries)
 
     log(f"{label}: client time per generated token ({SPEC_SESSIONS} concurrent sessions, a generate() call's wall "
-        f"over its {SPEC_NEW} tokens, median): {per_token(result['spec']):.3f} ms with the draft, "
+        f"over its {'/'.join(map(str, sorted(set(new_tokens))))} tokens, median): {per_token(result['spec']):.3f} ms "
+        f"with the draft, "
         f"{per_token(result['plain']):.3f} ms without; the batcher's step bodies (host wall on the compute thread, "
         f"median): spec tick {statistics.median(walls['spec']):.3f} ms over {len(walls['spec'])}, generation "
         f"step {statistics.median(walls['gen']) if walls['gen'] else float('nan'):.3f} ms over "
@@ -5869,7 +5926,7 @@ def serve_spec_and_check(ckpt, device, smi, timer) -> dict:
     free_card()
     b = _spec_run(f"speculative decoding b (nf4a self-draft, {SPEC_DRAFT_BLOCKS} Mistral-7B blocks, nf4a pool)",
                   small, SPEC_DRAFT_BLOCKS, device, smi,
-                  ("--draft_model", small, "--kv_quant_type", "nf4a", *common), "nf4a")
+                  ("--draft_model", small, "--kv_quant_type", "nf4a", *common), "nf4a", SPEC_SAMPLED_NEW)
     b.pop("server")
     free_card()
     if not (b["k5"]["decode"] and b["k5"]["prefill"]):
@@ -6201,6 +6258,510 @@ def serve_forward_telemetry_and_check(ckpt, device, smi) -> dict:
     return result
 
 
+def reference_backward(block_params, family, cfg, hidden, prompts, grad, device, dtype):
+    """The gradients of the span at its input and at the deep prompts, by
+    autograd through the port's block functions over the whole span at
+    once, plain attention over a fresh dense K/V buffer per block, in
+    ``dtype`` (the server recomputes block by block instead). Returns a
+    list of float32 tensors on the host: [grad_hidden] or [grad_hidden,
+    grad_prompts]."""
+    h0 = hidden.to(device, dtype).requires_grad_(True)
+    p0 = prompts.to(device, dtype).requires_grad_(True) if prompts is not None else None
+    shape = (h0.shape[0], h0.shape[1], cfg.num_key_value_heads, cfg.head_dim)
+    with torch.enable_grad():
+        h = h0
+        for i, params in enumerate(block_params):
+            if p0 is not None:
+                pre = p0.shape[2]
+                h = torch.cat([h[:, :pre] + p0[i], h[:, pre:]], dim=1)
+            kv = (torch.zeros(shape, dtype=dtype, device=device), torch.zeros(shape, dtype=dtype, device=device))
+            h, _ = family.block_apply(params, h, kv, 0, cfg)
+        grads = torch.autograd.grad(h, [h0] if p0 is None else [h0, p0], grad.to(device, dtype))
+    return [g.float().cpu() for g in grads]
+
+
+def merged_reference_params(block_params, adapter, dtype):
+    """The served blocks dequantized as ``dense_reference_params`` gives
+    them, with a LoRA adapter's deltas (its per-block (A, B) as the server
+    holds them, and its scaling) merged into the weights in float32, then
+    cast to ``dtype``: the dense reference of an adapter's replies."""
+    per_block, scaling = adapter
+    merged = dense_reference_params(block_params, torch.float32)
+    for params, deltas in zip(merged, per_block):
+        for leaf, (a, b) in deltas.items():
+            params[leaf] = params[leaf] + (a.float() @ b.float()) * scaling
+    return [{k: v.to(dtype) if isinstance(v, torch.Tensor) else v for k, v in p.items()} for p in merged]
+
+
+def check_to_f32(label, got, ref_bf16, ref_f32):
+    """Phase 24's rule: each of ``got`` within REPLY_NOISE_FACTOR times the
+    bf16 reference's own distance from the float32 reference (max-rel and
+    mean-rel, the worst over the list). Returns what failed."""
+    srv, noise = _rel_errors(got, ref_f32), _rel_errors(ref_bf16, ref_f32)
+    log(f"{label}: vs float32 reference max-rel {srv[0]:.3e} mean-rel {srv[1]:.3e}; bf16 reference vs float32 "
+        f"max-rel {noise[0]:.3e} mean-rel {noise[1]:.3e} (bound {REPLY_NOISE_FACTOR:g}x)")
+    if srv[0] > REPLY_NOISE_FACTOR * noise[0] or srv[1] > REPLY_NOISE_FACTOR * noise[1]:
+        return [f"{label}: beyond {REPLY_NOISE_FACTOR:g}x the bf16 reference's distance from float32"]
+    return []
+
+
+def write_adapter(root, name, seed, device, rank=ADAPTER_RANK, targets=ADAPTER_TARGETS, n_blocks=SPAN):
+    """A seeded PEFT checkpoint at Mistral-7B's widths, written with the
+    port's safetensors writer: lora_A [rank, in] and lora_B [out, rank] of
+    ``targets`` in every block (std 0.02 each: at Mistral-7B's widths a
+    delta about a fifth of the base projection, so a reply moves beyond
+    rounding), alpha 2 x rank."""
+    from petals_tpu_torch.utils.safetensors_io import save_file
+
+    h, m, hq, hkv, d = (MISTRAL_7B[k] for k in ("hidden_size", "intermediate_size", "num_attention_heads",
+                                                "num_key_value_heads", "head_dim"))
+    dims = {"self_attn.q_proj": (h, hq * d), "self_attn.k_proj": (h, hkv * d), "self_attn.v_proj": (h, hkv * d),
+            "self_attn.o_proj": (hq * d, h), "mlp.gate_proj": (h, m), "mlp.up_proj": (h, m), "mlp.down_proj": (m, h)}
+    gen = torch.Generator(device=device).manual_seed(seed)
+    tensors = {}
+    for i in range(n_blocks):
+        for proj in targets:
+            n_in, n_out = dims[proj]
+            base = f"base_model.model.model.layers.{i}.{proj}"
+            tensors[f"{base}.lora_A.weight"] = (torch.randn(rank, n_in, generator=gen, device=device) * 0.02).cpu()
+            tensors[f"{base}.lora_B.weight"] = (torch.randn(n_out, rank, generator=gen, device=device) * 0.02).cpu()
+    path = os.path.join(root, name)
+    os.makedirs(path, exist_ok=True)
+    save_file(tensors, os.path.join(path, "adapter_model.safetensors"))
+    with open(os.path.join(path, "adapter_config.json"), "w") as f:
+        json.dump({"r": rank, "lora_alpha": 2 * rank, "peft_type": "LORA",
+                   "target_modules": [t.split(".")[-1] for t in targets]}, f)
+    return path
+
+
+def write_cls_checkpoint(src, dst, device):
+    """A Mistral-7B sequence-classification checkpoint beside ``src``: its
+    shards linked, a seeded ``score.weight`` [CLS_LABELS, hidden] in a shard
+    of its own, and config.json naming the labels and the pad token."""
+    from petals_tpu_torch.utils.safetensors_io import save_file
+
+    cut_checkpoint(src, dst, SPAN)
+    gen = torch.Generator(device=device).manual_seed(SEED + 24)
+    score = (torch.randn(CLS_LABELS, MISTRAL_7B["hidden_size"], generator=gen, device=device) * 0.02)
+    save_file({"score.weight": score.to(torch.bfloat16).cpu()}, os.path.join(dst, "model-score.safetensors"))
+    index_path = os.path.join(dst, "model.safetensors.index.json")
+    with open(index_path) as f:
+        index = json.load(f)
+    index["weight_map"]["score.weight"] = "model-score.safetensors"
+    with open(index_path, "w") as f:
+        json.dump(index, f)
+    with open(os.path.join(dst, "config.json")) as f:
+        cfg = json.load(f)
+    cfg.update(architectures=["MistralForSequenceClassification"], pad_token_id=0,
+               id2label={str(i): f"LABEL_{i}" for i in range(CLS_LABELS)})
+    with open(os.path.join(dst, "config.json"), "w") as f:
+        json.dump(cfg, f)
+    return dst
+
+
+def _quant_counts():
+    """K5/K6 launches so far: {"<decode|prefill> <kind>": n}."""
+    from petals_tpu_torch.ops import quant_matmul as qmm
+
+    return {f"{phase} {kind}": n
+            for phase, fn in (("decode", qmm.quant_decode_matmul), ("prefill", qmm.quant_prefill_matmul))
+            for kind, n in fn.launches.items()}
+
+
+def _delta(after: dict, before: dict) -> dict:
+    return {k: after[k] - before.get(k, 0) for k in after if after[k] - before.get(k, 0)}
+
+
+def _train_inputs(hsz, n_blocks, seed, pre):
+    """Seeded bf16 (hidden, grad at the output, deep prompts or None) of
+    TRAIN_BATCH x TRAIN_SEQ tokens."""
+    gen = torch.Generator().manual_seed(seed)
+    hidden = torch.randn(TRAIN_BATCH, TRAIN_SEQ, hsz, generator=gen).to(torch.bfloat16)
+    grad = (torch.randn(TRAIN_BATCH, TRAIN_SEQ, hsz, generator=gen) * 1e-2).to(torch.bfloat16)
+    prompts = (torch.randn(n_blocks, TRAIN_BATCH, pre, hsz, generator=gen) * 0.1).to(torch.bfloat16) if pre else None
+    return hidden, grad, prompts
+
+
+def check_wire_backward(label, server, remote, device, seed, adapter=None, pre=None):
+    """A forward and ptu.backward through ``remote`` (the port client's
+    RemoteSequential over ``server``'s blocks), the gradients held to the
+    float32 autograd reference over the served blocks (dequantized; with
+    ``adapter``'s deltas merged) by ``check_to_f32``. Returns (what failed,
+    the backward's client wall in seconds, the K5/K6 launches inside it, the
+    inputs)."""
+    backend = server.backend
+    n = backend.n_blocks
+    pre = TRAIN_PRE if pre is None else pre
+    hidden, grad, prompts = _train_inputs(server.cfg.hidden_size, n, seed, pre)
+    out, histories, spans = remote.forward_with_state(hidden, prompts)
+    before = _quant_counts()
+    t0 = time.perf_counter()
+    got = remote.backward(grad, histories, spans, prompts=prompts)
+    wall = time.perf_counter() - t0
+    quant = _delta(_quant_counts(), before)
+    got = [g for g in got if g is not None]
+    if adapter is None:
+        refs = {dt: dense_reference_params(backend.block_params, dt) for dt in (torch.bfloat16, torch.float32)}
+    else:
+        refs = {dt: merged_reference_params(backend.block_params, backend.adapters[adapter], dt)
+                for dt in (torch.bfloat16, torch.float32)}
+    want = {dt: reference_backward(p, server.family, server.cfg, hidden, prompts, grad, device, dt)
+            for dt, p in refs.items()}
+    del refs
+    if len(got) != len(want[torch.float32]):
+        return [f"{label}: {len(got)} gradients came back for {len(want[torch.float32])}"], wall, quant, None
+    failed = []
+    for name, g, w16, w32 in zip(("grad_hidden", "grad_prompts"), got, want[torch.bfloat16], want[torch.float32]):
+        if tuple(g.shape) != tuple(w32.shape) or not torch.isfinite(g.float()).all():
+            failed.append(f"{label}: {name} {tuple(g.shape)} (want {tuple(w32.shape)}) or non-finite")
+            continue
+        failed += check_to_f32(f"{label}: {name} {tuple(g.shape)}", [g], [w16], [w32])
+    log(f"{label}: ptu.backward of {TRAIN_BATCH} x {TRAIN_SEQ} tokens"
+        + (f" (+{pre}-row deep prompts)" if pre else "") + f" over {n} blocks: client wall {wall * 1e3:.1f} ms; "
+        f"K5/K6 launches inside it {quant or 'none'}")
+    return failed, wall, quant, (hidden, grad, prompts)
+
+
+def _events_ms(fn, reps: int = 20) -> float:
+    """The device time of ``fn`` a call between CUDA events around ``reps``
+    back-to-back calls, after three warm-up calls (not ``Timer``: the plain
+    pieces of the backward copy small tensors from the host, a sync that
+    outlasts ``Timer``'s spin)."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def profile_backward(label, server, device, inputs, smi):
+    """The backward's device busy (torch.profiler), peak memory above what
+    was allocated before it, and the shares of its two plain pieces: the
+    quantized products' dequant-transpose (each quantized leaf of the span
+    at the recompute's rows) and the attention
+    backward (plain attention's forward and backward on one block's q, k, v
+    minus its forward, times the blocks), each timed with CUDA events
+    (``_events_ms``). Returns the numbers."""
+    from petals_tpu_torch.ops.attention import attend_reference
+    from petals_tpu_torch.ops.quant import QUANTIZED_TYPES, OutlierQuantLinear, dequant_transpose_matmul
+
+    backend = server.backend
+    hidden, grad, prompts = inputs
+    rows = hidden.shape[0] * hidden.shape[1]
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated(device)
+    torch.cuda.reset_peak_memory_stats(device)
+    backend.backward(hidden, grad, prompts)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated(device) - base
+    times = profile_calls({f"{label}: backend.backward": lambda: backend.backward(hidden, grad, prompts)})
+    t = next(iter(times.values()))
+    dq_ms = 0.0  # every block's leaves are block 0's shapes
+    for name, leaf in backend.block_params[0].items():
+        if isinstance(leaf, QUANTIZED_TYPES):
+            inner = leaf.inner if isinstance(leaf, OutlierQuantLinear) else leaf
+            g = torch.randn(rows, inner.out_features, device=device).to(torch.bfloat16)
+            ms = _events_ms(lambda: dequant_transpose_matmul(g, inner))
+            log(f"{label}: dequant-transpose of {name} ({inner.kind}) [{rows}, {inner.out_features}] x "
+                f"[{inner.out_features}, {inner.in_features}]: {ms:.4f} ms ({smi})")
+            dq_ms += ms * backend.n_blocks
+    cfg = server.cfg
+    q = torch.randn(hidden.shape[0], hidden.shape[1], cfg.num_attention_heads, cfg.head_dim, device=device)
+    k = torch.randn(hidden.shape[0], hidden.shape[1], cfg.num_key_value_heads, cfg.head_dim, device=device)
+    q, k = q.to(torch.bfloat16).requires_grad_(True), k.to(torch.bfloat16).requires_grad_(True)
+    v = k.detach().clone().requires_grad_(True)
+    go = torch.randn_like(q)
+
+    def attn_fwd():
+        with torch.no_grad():
+            attend_reference(q, k, v, sliding_window=cfg.sliding_window)
+
+    def attn_fwd_bwd():
+        out = attend_reference(q, k, v, sliding_window=cfg.sliding_window)
+        torch.autograd.grad(out, (q, k, v), go)
+
+    attn_ms = max(_events_ms(attn_fwd_bwd) - _events_ms(attn_fwd), 0.0) * backend.n_blocks
+    busy = t["device_busy_ms"]
+    result = {"host_wall_ms": t["host_wall_ms"], "device_busy_ms": busy, "idle_share": t["idle_share"],
+              "peak_bytes": peak, "dequant_transpose_ms": dq_ms, "attention_backward_ms": attn_ms}
+    log(f"{label}: backward host wall {t['host_wall_ms']:.3f} ms, device busy {busy:.3f} ms (idle share "
+        f"{t['idle_share']:.3f}), peak {peak / 2**30:.3f} GiB above the resident {base / 2**30:.3f} GiB; plain pieces: "
+        f"dequant-transpose {dq_ms:.3f} ms ({dq_ms / busy:.3f} of busy), attention backward {attn_ms:.3f} ms "
+        f"({attn_ms / busy:.3f} of busy) ({smi})")
+    return result
+
+
+def _greedy_against(label, tokens, prompt_len, ref_params, ckpt, device):
+    """A greedy stream held to the dense references: each new token's
+    float32 reference logit within REPLY_NOISE_FACTOR times the stream's
+    largest |bf16 - float32| reference logit gap of the maximum (phase 16's
+    rule). Returns what failed."""
+    from petals_tpu_torch.server.from_pretrained import get_block_config
+
+    family, cfg = get_block_config(ckpt)
+    embed, ref_logits = _reference_head(ckpt, device)
+    x = embed[torch.as_tensor(tokens[:, :-1])].float()
+    logits = {dt: ref_logits(reference_forward(p, family, cfg, x, None, device, dt)[0, prompt_len - 1:]).double().cpu()
+              for dt, p in ref_params.items()}
+    eps = REPLY_NOISE_FACTOR * (logits[torch.bfloat16] - logits[torch.float32]).abs().max().item()
+    z = logits[torch.float32]
+    new = torch.as_tensor(tokens[0, prompt_len:]).long()
+    gap = (z.max(dim=-1).values - z[torch.arange(len(new)), new]).max().item()
+    log(f"{label}: {len(new)} greedy tokens: each float32 reference logit at most {gap:.3e} below the max "
+        f"(tol {eps:.3e})")
+    return [f"{label}: a greedy token's reference logit is {gap:.3e} below the max"] if gap > eps else []
+
+
+def serve_training_and_check(ckpt, device, smi) -> dict:
+    """Phase 24: training and adapters on the card (alone:
+    scripts/smoke_training.py). Returns the K4 / K5 / K6 launches of the
+    phase's forwards, backwards and adapter sessions, and its backward
+    profiles."""
+    from petals_tpu_torch.cli.run_server import build_parser, build_server
+    from petals_tpu_torch.client import PTuneConfig
+    from petals_tpu_torch.client.config import ClientConfig
+    from petals_tpu_torch.client.model import (
+        AutoDistributedModelForCausalLM,
+        AutoDistributedModelForSequenceClassification,
+    )
+    from petals_tpu_torch.client.remote_sequential import RemoteSequential
+    from petals_tpu_torch.client.runtime import SwarmRuntime
+    from petals_tpu_torch.client.training import compute_cls_loss_and_grads, compute_loss_and_grads, sgd_step
+    from petals_tpu_torch.data_structures import ServerState, make_uid
+    from petals_tpu_torch.ops import flash_attention as fa
+
+    t_phase = time.perf_counter()
+    cut = cut_checkpoint(ckpt, os.path.join(ckpt, f"mistral-7b-{SPAN}-layers-train"), SPAN)
+    short = cut_checkpoint(ckpt, os.path.join(ckpt, f"mistral-7b-{TRAIN_SHORT}-layers-train"), TRAIN_SHORT)
+    cls_ckpt = write_cls_checkpoint(ckpt, os.path.join(ckpt, f"mistral-7b-{SPAN}-layers-cls"), device)
+    adapter_root = os.path.join(ckpt, "adapters")
+    adapters = (write_adapter(adapter_root, "lora-a", SEED + 31, device),
+                write_adapter(adapter_root, "lora-b", SEED + 32, device, rank=8,
+                              targets=("self_attn.k_proj", "self_attn.o_proj", "mlp.up_proj")))
+    loop = SwarmRuntime()
+    failed, result, live = [], {"K4": 0, "quant": {}}, []
+
+    def start(path, *args):
+        server = build_server(build_parser().parse_args([
+            path, "--host", "127.0.0.1", "--throughput", "1", *NO_PREFIX_CACHE, *args]))
+        t0 = time.perf_counter()
+        loop.run(server.start(), LOOP_TIMEOUT_S)
+        live.append(server)
+        log(f"training: server of {path.rsplit('/', 1)[-1]} (--quant_type {server.quant_type}"
+            f"{', adapters ' + str(sorted(server.backend.adapters)) if server.backend.adapters else ''}) started in "
+            f"{time.perf_counter() - t0:.1f} s")
+        return server
+
+    def stop(server):
+        loop.run(server.shutdown(), LOOP_TIMEOUT_S)
+        live.remove(server)
+        free_card()
+
+    def peers(server):
+        return [server.dht.own_addr.to_string()]
+
+    def count(k4_before, quant_before):
+        result["K4"] += fa.flash_attend.launches - k4_before
+        for key, n in _delta(_quant_counts(), quant_before).items():
+            result["quant"][key] = result["quant"].get(key, 0) + n
+
+    try:
+        # (a) the backward on the 8-block bf16 span, over the wire
+        server = start(cut, "--first_block", "0", "--num_blocks", str(SPAN))
+        uids = [make_uid(server.dht_prefix, i) for i in range(SPAN)]
+        remote = RemoteSequential(ClientConfig(initial_peers=peers(server)), uids)
+        k4, q0 = fa.flash_attend.launches, _quant_counts()
+        label = f"training a (bf16, {SPAN} Mistral-7B blocks)"
+        bad, wall, _, inputs = check_wire_backward(label, server, remote, device, SEED + 24)
+        failed += bad
+        count(k4, q0)
+        remote.close()
+        result["backward_bf16"] = dict(profile_backward(label, server, device, inputs, smi), client_wall_ms=wall * 1e3)
+
+        # (c) the port's client trains deep prompts over the same server, then a classifier
+        label = f"training c (the port's client, deep_ptune, {SPAN} blocks)"
+        k4, q0 = fa.flash_attend.launches, _quant_counts()
+        model = AutoDistributedModelForCausalLM.from_pretrained(cut, initial_peers=peers(server),
+                                                                ptune=PTuneConfig(TRAIN_PRE, "deep_ptune"))
+        try:
+            gen = torch.Generator().manual_seed(SEED + 25)
+            ids = torch.randint(0, MISTRAL_7B["vocab_size"], (TRAIN_BATCH, TRAIN_CLIENT_SEQ), generator=gen).numpy()
+            start_params = {k: v.detach().clone() for k, v in model.trainable_params().items()}
+            losses, first = [], None
+            for step in range(TRAIN_STEPS):
+                t0 = time.perf_counter()
+                loss, grads = compute_loss_and_grads(model, ids, ids)
+                wall = time.perf_counter() - t0
+                first = first or grads
+                top = max(float(g.abs().max()) for g in grads.values())
+                if not (np.isfinite(loss) and top > 0 and all(torch.isfinite(g).all() for g in grads.values())):
+                    failed.append(f"{label}: step {step}: loss {loss} or non-finite / zero grads")
+                    break
+                losses.append(loss)
+                sgd_step(model, grads, TRAIN_STEP_SIZE / top)
+                log(f"{label}: step {step}: loss {loss:.6f}, largest grad {top:.3e}, client wall {wall * 1e3:.1f} ms")
+            losses.append(compute_loss_and_grads(model, ids, ids)[0])
+            log(f"{label}: losses {', '.join(f'{x:.6f}' for x in losses)}")
+            if not all(b < a for a, b in zip(losses, losses[1:])):
+                failed.append(f"{label}: the loss did not fall at every step: {losses}")
+            # the first step's grads against the float32 reference: the same
+            # client pieces, the blocks dense on the card, autograd end to end
+            backend = server.backend
+            refs = {}
+            for dt in (torch.bfloat16, torch.float32):
+                params = dense_reference_params(backend.block_params, dt)
+                prompt = start_params["prompt_embeddings"].requires_grad_(True)
+                deep = start_params["deep_prompt_embeddings"].requires_grad_(True)
+                with torch.enable_grad():
+                    x = model.family.client_embed(model.client_params, torch.as_tensor(ids, device=device), model.cfg)
+                    h = torch.cat([prompt[None].expand(TRAIN_BATCH, -1, -1), x], dim=1).to(dt)
+                    shape = (TRAIN_BATCH, h.shape[1], backend.num_kv_heads, backend.head_dim)
+                    for i, p in enumerate(params):
+                        h = torch.cat([h[:, :TRAIN_PRE] + deep[i].to(dt)[None], h[:, TRAIN_PRE:]], dim=1)
+                        kv = (torch.zeros(shape, dtype=dt, device=device), torch.zeros(shape, dtype=dt, device=device))
+                        h, _ = model.family.block_apply(p, h, kv, 0, model.cfg)
+                    logits = model.family.client_head(model.client_params, h.float(), model.cfg)
+                    labels = np.concatenate([np.full((TRAIN_BATCH, TRAIN_PRE), -100), ids], axis=1)
+                    from petals_tpu_torch.client.training import cross_entropy
+
+                    ref_loss = cross_entropy(logits[:, :-1], labels[:, 1:])
+                    refs[dt] = [g.float().cpu() for g in torch.autograd.grad(ref_loss, [prompt, deep])]
+                del params
+            got = [first["prompt_embeddings"].float().cpu(), first["deep_prompt_embeddings"].float().cpu()]
+            failed += check_to_f32(f"{label}: the first step's grads", got, refs[torch.bfloat16], refs[torch.float32])
+        finally:
+            model.close()
+        # one classification step (the same blocks, a score head of CLS_LABELS)
+        label = f"training c (classification, {CLS_LABELS} labels, {SPAN} blocks)"
+        cls_model = AutoDistributedModelForSequenceClassification.from_pretrained(
+            cls_ckpt, initial_peers=peers(server), dht_prefix=server.dht_prefix,
+            ptune=PTuneConfig(TRAIN_PRE, "deep_ptune"))
+        try:
+            cls_ids = ids.copy()
+            cls_ids[0, -8:] = 0  # a padded tail: row 0 pools before it
+            labels = np.array([1, 2])
+            loss, grads = compute_cls_loss_and_grads(cls_model, cls_ids, labels)
+            top = max(float(g.abs().max()) for g in grads.values())
+            sgd_step(cls_model, grads, TRAIN_STEP_SIZE / max(top, 1e-30))
+            after, _ = compute_cls_loss_and_grads(cls_model, cls_ids, labels)
+            logits = cls_model.forward(cls_ids)
+            log(f"{label}: loss {loss:.6f} -> {after:.6f} after one step; pooled at {cls_model.pool_positions(cls_ids)}; "
+                f"logits {tuple(logits.shape)}")
+            if not (np.isfinite(loss) and after < loss and tuple(logits.shape) == (TRAIN_BATCH, CLS_LABELS)):
+                failed.append(f"{label}: loss {loss} -> {after} or logits {tuple(logits.shape)}")
+        finally:
+            cls_model.close()
+        count(k4, q0)
+        stop(server)
+        del server
+
+        # (b) and (d): TRAIN_SHORT blocks, bf16 and nf4a hosting two adapters, then int8
+        for quant in ("none", "nf4a", "int8"):
+            with_adapters = quant != "int8"
+            server = start(short, "--first_block", "0", "--num_blocks", str(TRAIN_SHORT), "--quant_type", quant,
+                           *(("--adapters", *adapters) if with_adapters else ()))
+            uids = [make_uid(server.dht_prefix, i) for i in range(TRAIN_SHORT)]
+            k4, q0 = fa.flash_attend.launches, _quant_counts()
+            tag = f"--quant_type {quant}, {TRAIN_SHORT} blocks"
+            if with_adapters and server._server_info(ServerState.ONLINE).adapters != ("lora-a", "lora-b"):
+                failed.append(f"training ({tag}): the announce lists {server._server_info(ServerState.ONLINE).adapters}")
+            if with_adapters and any(k in p for p in server.backend.block_params for k in ("wqkv", "wgu")):
+                failed.append(f"training ({tag}): a span with adapters loaded fused leaves")
+            remote = RemoteSequential(ClientConfig(initial_peers=peers(server)), uids)
+            label = f"training b ({tag})"
+            bad, wall, quant_in, inputs = check_wire_backward(label, server, remote, device, SEED + 26)
+            failed += bad
+            if quant != "none":
+                n = sum(quant_in.values())
+                if not n:
+                    failed.append(f"{label}: no K5/K6 launch inside the backward")
+                result[f"backward_{quant}"] = dict(profile_backward(label, server, device, inputs, smi),
+                                                   client_wall_ms=wall * 1e3, launches=quant_in)
+            remote.close()
+            if with_adapters:
+                label = f"training d (adapters, {tag})"
+                remotes = {name: RemoteSequential(ClientConfig(initial_peers=peers(server), active_adapter=name), uids)
+                           for name in ("lora-a", "lora-b", None)}
+                try:
+                    bad, _, _, _ = check_wire_backward(f"{label}: lora-a", server, remotes["lora-a"], device,
+                                                       SEED + 27, adapter="lora-a", pre=0)
+                    failed += bad
+                    gen = torch.Generator().manual_seed(SEED + 28)
+                    x = torch.randn(TRAIN_BATCH, 256, server.cfg.hidden_size, generator=gen).to(torch.bfloat16)
+                    prog = server.backend._forward_program
+                    outs = {}
+                    for name, r in remotes.items():  # each twice: the eager call, then the capture
+                        r.forward(x)
+                        outs[name] = r.forward(x)
+                    captures = prog.counts.captures
+                    for name in ("lora-b", None, "lora-a"):  # switching back: replays
+                        if not torch.equal(remotes[name].forward(x), outs[name]):
+                            failed.append(f"{label}: a replay of {name or 'the base'}'s forward differs")
+                    late = prog.counts.captures - captures
+                    refs = {dt: merged_reference_params(server.backend.block_params, server.backend.adapters["lora-a"],
+                                                        dt) for dt in (torch.bfloat16, torch.float32)}
+                    want = {dt: reference_forward(p, server.family, server.cfg, x, None, device, dt)
+                            for dt, p in refs.items()}
+                    failed += check_to_f32(f"{label}: lora-a's forward {tuple(x.shape)}", [outs["lora-a"]],
+                                           [want[torch.bfloat16]], [want[torch.float32]])
+                    # apart by the span's contribution (output - input): the
+                    # residual's rounding would swamp a reply's difference
+                    xf = x.float()
+                    noise = _rel_errors([want[torch.bfloat16] - xf], [want[torch.float32] - xf])[1]
+                    apart = {name: _rel_errors([outs[name].float() - xf], [outs["lora-a"].float() - xf])[1]
+                             for name in ("lora-b", None)}
+                    log(f"{label}: the span's contribution, mean-rel from lora-a's: lora-b {apart['lora-b']:.3e}, the "
+                        f"base {apart[None]:.3e} (the references' noise {noise:.3e}); forward captures after switching "
+                        f"back: {late}")
+                    if late or min(apart.values()) <= REPLY_NOISE_FACTOR * noise:
+                        failed.append(f"{label}: {late} captures after warm-up, or adapters' replies not apart")
+                    # an adapter session's greedy stream (server-side generation on a private cache)
+                    model = AutoDistributedModelForCausalLM.from_pretrained(short, initial_peers=peers(server),
+                                                                            active_adapter="lora-a")
+                    acquire, acquired = server.batcher.acquire_lane, []
+
+                    async def counted_acquire(*args, **kwargs):
+                        acquired.append(1)
+                        return await acquire(*args, **kwargs)
+
+                    try:
+                        prompt = torch.randint(0, MISTRAL_7B["vocab_size"], (1, ADAPTER_PROMPT), generator=gen).numpy()
+                        server.batcher.acquire_lane = counted_acquire
+                        tokens = model.generate(prompt, max_new_tokens=ADAPTER_NEW)
+                        failed += _greedy_against(f"{label}: lora-a's session", tokens, ADAPTER_PROMPT, refs, short,
+                                                  device)
+                        if acquired:
+                            failed.append(f"{label}: the adapter session asked for a lane")
+                    finally:
+                        server.batcher.acquire_lane = acquire
+                        model.close()
+                    del refs, want
+                finally:
+                    for r in remotes.values():
+                        r.close()
+            count(k4, q0)
+            stop(server)
+            del server
+    finally:
+        for server in list(live):
+            loop.run(server.shutdown(), LOOP_TIMEOUT_S)
+        loop.shutdown()
+    log(f"training: K4 launches {result['K4']}, K5/K6 launches {result['quant']} on the phase's forwards, "
+        f"backwards and adapter sessions")
+    if failed:
+        raise AssertionError("; ".join(failed))
+    if not result["K4"] or not any(k.endswith(" nf4a") for k in result["quant"]) or not any(
+            k.endswith(" int8") for k in result["quant"]):
+        raise AssertionError(f"training: K4, K5 nf4a or K6 never launched: {result}")
+    log(f"training: phase done in {time.perf_counter() - t_phase:.1f} s")
+    return result
+
+
 def free_card() -> None:
     """Free what a dropped server held on the card before the next one loads
     (its event-loop objects hold reference cycles, so collect them)."""
@@ -6347,6 +6908,9 @@ def main() -> int:
         # phase 23 (b): Gemma-7B, Gemma-2-9B and Phi-3-mini served at full width
         gp = serve_gemma_phi3_and_check(ckpt, device, smi)
         free_card()
+        # phase 24: training and adapters (the backward, the client's training, LoRA)
+        train = serve_training_and_check(ckpt, device, smi)
+        free_card()
     flash_kernel["launches"] = private_launches["K4"]
     # the launches on moved (imported, adopted) caches, phase 19
     kernels[0]["migration_launches"], kernels[1]["migration_launches"] = moved["K1"], moved["K2"]
@@ -6410,6 +6974,15 @@ def main() -> int:
         f"{gp['gemma2_none_nf4a']['K3 prefill']['nf4a']}, K4 {flash_kernel['gemma_phi3']['launches']}, K5 nf4a decode / prefill "
         f"{gp['gemma2_nf4a_none']['decode']['nf4a']} / {gp['gemma2_nf4a_none']['prefill']['nf4a']}; C12 "
         f"{gp['forward_graphs']}")
+    # phase 24: K4 / K5 / K6 launches on the training phase's forwards,
+    # backwards and adapter sessions, and the backward's profile beside them
+    flash_kernel["training"] = {"launches": train["K4"], "backward_bf16": train["backward_bf16"]}
+    for entry in quant_kernels:
+        phase = "decode" if entry["name"].startswith("quant_decode") else "prefill"
+        arm = entry["name"].split("[")[1].rstrip("]")
+        entry["training"] = {"launches": train["quant"].get(f"{phase} {arm}", 0)}
+        if phase == "prefill" and f"backward_{arm}" in train:
+            entry["training"]["backward"] = train[f"backward_{arm}"]
     from petals_tpu_torch.telemetry.observatory import get_observatory
 
     digest = get_observatory().compile_stats()

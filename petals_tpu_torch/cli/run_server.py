@@ -34,7 +34,9 @@ one paged step; the tokens are plain decode's.
 ``--metrics_port N`` serves ``/metrics``, ``/journal`` and ``/ledger`` on a
 local HTTP port (0: ephemeral), ``--trace_dir DIR`` writes a torch.profiler
 Chrome trace of the first ``PETALS_TPU_TRACE_SECONDS`` (60) of serving, and
-``--request_timeout`` (180 s) bounds a stateless forward or probe.
+``--request_timeout`` (180 s) bounds a stateless forward, backward or
+probe. ``--adapters DIR ...`` hosts PEFT LoRA adapters (loaded for the
+span, announced by name; requests pick one with ``active_adapter``).
 """
 
 from __future__ import annotations
@@ -88,6 +90,9 @@ def build_parser() -> argparse.ArgumentParser:
                         help="Quantize the paged KV pool in place: int8 (per-row absmax) or packed "
                              "nf4a; the same cache budget then holds about 2x or 4x the pages, and "
                              "attention decodes the pages inside its kernels")
+    parser.add_argument("--adapters", nargs="*", default=[],
+                        help="PEFT adapter checkpoint dirs to host (multi-tenant LoRA); requests "
+                             "pick one by name with active_adapter")
     parser.add_argument("--attn_cache_tokens", type=int, default=8192,
                         help="KV-cache budget in tokens (converted to bytes for the allocator)")
     parser.add_argument("--max_chunk_size_bytes", type=int, default=256 * 1024 * 1024,
@@ -247,6 +252,7 @@ def build_server(args: argparse.Namespace) -> Server:
         spec_k=args.spec_k,
         draft_window=args.draft_window,
         draft_quant_type=args.draft_quant_type,
+        adapters=args.adapters,
     )
 
 

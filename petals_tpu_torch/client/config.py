@@ -1,8 +1,9 @@
 """Client configuration, every field of petals_tpu/client/config.py:11-102.
 
-Every field takes petals_tpu's default and works as there, except
-``active_adapter`` (adapters, A13), which is refused at construction when
-set."""
+Every field takes petals_tpu's default and works as there.
+``active_adapter`` names a LoRA adapter the servers host: routing keeps to
+servers that announce it, and every forward, backward and session asks
+for it."""
 
 from __future__ import annotations
 
@@ -38,7 +39,7 @@ class ClientConfig:
     # the client's budget (seconds) for the server's lane-admission wait at
     # session open; None = the server's default (30 s)
     alloc_timeout: Optional[float] = None
-    active_adapter: Optional[str] = None  # A13
+    active_adapter: Optional[str] = None  # a LoRA adapter the servers host (by name)
 
     use_server_to_server: bool = True  # each server pushes its output to the next one
 
@@ -78,8 +79,6 @@ class ClientConfig:
             raise ValueError(f"handoff_timeout must be positive, got {self.handoff_timeout}")
         if self.kv_export_timeout <= 0:
             raise ValueError(f"kv_export_timeout must be positive, got {self.kv_export_timeout}")
-        if self.active_adapter is not None:
-            raise NotImplementedError("active_adapter (adapters) waits for A13 in this port")
         if self.max_retries is None:
             env = os.environ.get("PETALS_TPU_MAX_RETRIES")
             self.max_retries = int(env) if env else None

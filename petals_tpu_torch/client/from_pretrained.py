@@ -1,6 +1,8 @@
 """The client's weights: embeddings, final norm and head only
-(petals_tpu/client/from_pretrained.py:19-36), read from a local checkpoint
-through the server's loader; no ``model.layers.*`` tensor is read."""
+(petals_tpu/client/from_pretrained.py), read from a local checkpoint
+through the server's loader; no ``model.layers.*`` tensor is read. A
+classification checkpoint's client holds the ``score`` head in place of
+the LM head (``load_cls_client_params``)."""
 
 from __future__ import annotations
 
@@ -44,3 +46,19 @@ def load_client_params(path: str, *, dtype: torch.dtype = torch.float32, device=
         raise NotImplementedError(f"{family.name} has no client mapping")
     tensors = load_tensors_with_prefixes(path, family.hf_client_prefixes, keep_full_names=True)
     return cast_client_params(family.hf_to_client_params(tensors, cfg), device, dtype, family)
+
+
+def load_cls_client_params(path: str, *, dtype: torch.dtype = torch.float32, device=None, family=None,
+                           cfg=None) -> dict:
+    """The sequence-classification client's parameters (embeddings, final
+    norm, the ``score`` head [hidden, num_labels]) of a local checkpoint,
+    through the family's ``hf_to_cls_params``; floating leaves in ``dtype``
+    on ``device`` (default: the CUDA card), the family's cast-exempt ones
+    kept."""
+    device = resolve_device(device)
+    if family is None or cfg is None:
+        family, cfg = get_block_config(path)
+    if family.hf_to_cls_params is None:
+        raise NotImplementedError(f"{family.name} has no sequence-classification client mapping")
+    tensors = load_tensors_with_prefixes(path, family.hf_cls_prefixes, keep_full_names=True)
+    return cast_client_params(family.hf_to_cls_params(tensors, cfg), device, dtype, family)

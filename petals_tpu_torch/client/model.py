@@ -15,11 +15,16 @@ local draft, verified by the swarm (client/speculative.py).
 
 ``forward(input_ids)`` is a stateless forward over the swarm (the
 servers' ``rpc_forward``): the causal LM returns float32 logits, the bare
-model its last hidden state after the final norm.
+model its last hidden state after the final norm, the classifier
+(``DistributedModelForSequenceClassification``: embeddings, final norm and
+the ``score`` head local) each row's logits at its last non-pad token.
 
-Waiting, each raising with its slice named: trained prompts
-(``PTuneMixin``, ``ptune=``, A13) and
-``DistributedModelForSequenceClassification`` (A13).
+Training (client/training.py): ``ptune=PTuneConfig(pre_seq_len, "ptune" |
+"deep_ptune")`` gives the model trainable prompts (client/ptune.py),
+``nn.Parameter``s on its device. ``forward`` differentiates through the
+swarm (``RemoteSequentialFunction``: the servers' ``ptu.backward``), so a
+loss on its output reaches them by ``loss.backward()``, and a torch
+optimizer over ``model.parameters()`` trains them.
 """
 
 from __future__ import annotations
@@ -28,27 +33,33 @@ from typing import Optional, Sequence
 
 import torch
 
+import numpy as np
+
 from petals_tpu_torch.client.config import ClientConfig
-from petals_tpu_torch.client.from_pretrained import load_client_params
+from petals_tpu_torch.client.from_pretrained import load_client_params, load_cls_client_params
+from petals_tpu_torch.client.ptune import PTuneConfig, PTuneMixin
 from petals_tpu_torch.client.remote_generation import RemoteGenerationMixin
 from petals_tpu_torch.client.remote_sequential import RemoteSequential
 from petals_tpu_torch.data_structures import make_uid
-from petals_tpu_torch.server.from_pretrained import get_block_config
+from petals_tpu_torch.server.from_pretrained import get_block_config, load_hf_config
 from petals_tpu_torch.server.server import default_dht_prefix
 from petals_tpu_torch.utils.device import resolve_device
 
 
-class _DistributedModelBase:
-    """Local embeddings (and norm/head), remote blocks."""
+class _DistributedModelBase(PTuneMixin):
+    """Local embeddings (and norm/head), remote blocks, trainable prompts
+    under ``ptune``."""
 
     _drop_head = False  # the bare model never projects to the vocabulary
 
-    def __init__(self, family, cfg, client_params: dict, remote: RemoteSequential):
+    def __init__(self, family, cfg, client_params: dict, remote: RemoteSequential, *,
+                 ptune: Optional[PTuneConfig] = None):
         self.family = family
         self.cfg = cfg
         self.client_params = client_params
         self.remote = remote
         self.device = client_params["embed"].device
+        self.init_ptune(ptune)
 
     @classmethod
     def from_pretrained(
@@ -60,36 +71,43 @@ class _DistributedModelBase:
         dht_prefix: Optional[str] = None,
         dtype: torch.dtype = torch.float32,
         device=None,
-        ptune=None,
+        ptune: Optional[PTuneConfig] = None,
         **config_overrides,
     ):
         """``device``: where the client's parameters and its embed / head
         compute live (default: the CUDA card; the CPU only when asked for).
         ``model_name_or_path`` is a local checkpoint directory."""
-        if ptune is not None:
-            raise NotImplementedError("trained prompts (PTune) wait for A13 in this port")
         device = resolve_device(device)  # before touching the swarm
         family, cfg = get_block_config(model_name_or_path)
         client_params = load_client_params(model_name_or_path, dtype=dtype, device=device, family=family, cfg=cfg)
         if cls._drop_head:
             client_params.pop("head", None)
+        remote = cls._build_remote(model_name_or_path, initial_peers, config, dht_prefix, config_overrides, cfg)
+        return cls(family, cfg, client_params, remote, ptune=ptune)
+
+    @staticmethod
+    def _build_remote(model_name_or_path, initial_peers, config, dht_prefix, config_overrides, cfg) -> RemoteSequential:
         if config is None:
             config = ClientConfig(initial_peers=list(initial_peers), **config_overrides)
         prefix = dht_prefix or config.dht_prefix or default_dht_prefix(model_name_or_path)
         block_uids = [make_uid(prefix, i) for i in range(cfg.num_hidden_layers)]
-        return cls(family, cfg, client_params, RemoteSequential(config, block_uids))
+        return RemoteSequential(config, block_uids)
 
-    @torch.no_grad()
-    def embed(self, input_ids) -> torch.Tensor:
-        """Input embeddings [batch, seq, hidden] on the client's device."""
+    def embed(self, input_ids, *, with_prompts: bool = True) -> torch.Tensor:
+        """Input embeddings [batch, seq, hidden] on the client's device,
+        with the shallow prompts prepended unless ``with_prompts`` is off
+        (the embeddings carry no gradient; the prompts do)."""
         ids = torch.as_tensor(input_ids, dtype=torch.long).to(self.device)
-        return self.family.client_embed(self.client_params, ids, self.cfg)
+        with torch.no_grad():
+            hidden = self.family.client_embed(self.client_params, ids, self.cfg)
+        return self.apply_shallow_prompts(hidden) if with_prompts else hidden
 
     def _remote_hidden(self, input_ids) -> torch.Tensor:
-        """The last block's output for ``input_ids`` (a stateless forward),
-        on the client's device."""
+        """The last block's output for ``input_ids`` (a stateless forward,
+        differentiable in the prompts), on the client's device."""
         hidden = self.embed(input_ids)
-        return self.remote.forward(hidden.cpu()).to(self.device)
+        out = self.remote.forward(hidden, self.deep_prompts_for_batch(hidden.shape[0]))
+        return out.to(self.device)
 
     def close(self) -> None:
         self.remote.close()
@@ -106,8 +124,9 @@ class DistributedModelForCausalLM(RemoteGenerationMixin, _DistributedModelBase):
 
     def forward(self, input_ids) -> torch.Tensor:
         """float32 logits [batch, seq, vocab] of a whole sequence through a
-        stateless swarm forward."""
-        return self.lm_logits(self._remote_hidden(input_ids))
+        stateless swarm forward (the shallow prompts' positions cut off)."""
+        hidden = self._remote_hidden(input_ids)
+        return self.strip_shallow_prompt_logits(self.family.client_head(self.client_params, hidden, self.cfg))
 
     __call__ = forward
 
@@ -117,10 +136,10 @@ class DistributedModel(_DistributedModelBase):
 
     _drop_head = True
 
-    def __init__(self, family, cfg, client_params, remote):
+    def __init__(self, family, cfg, client_params, remote, *, ptune: Optional[PTuneConfig] = None):
         if family.client_norm is None:
             raise NotImplementedError(f"{family.name} has no client_norm hook")
-        super().__init__(family, cfg, client_params, remote)
+        super().__init__(family, cfg, client_params, remote, ptune=ptune)
 
     @torch.no_grad()
     def final_norm(self, hidden) -> torch.Tensor:
@@ -131,15 +150,72 @@ class DistributedModel(_DistributedModelBase):
     def forward(self, input_ids) -> torch.Tensor:
         """last_hidden_state [batch, seq, hidden] after the final norm, as
         HF's *Model forward returns it."""
-        return self.final_norm(self._remote_hidden(input_ids))
+        hidden = self._remote_hidden(input_ids)
+        return self.strip_shallow_prompt_logits(self.family.client_norm(self.client_params, hidden, self.cfg))
 
     __call__ = forward
 
 
-class DistributedModelForSequenceClassification:
+class DistributedModelForSequenceClassification(_DistributedModelBase):
+    """Sequence classification over the swarm (petals_tpu/client/model.py
+    :150-245): embeddings, final norm and the ``score`` head local, blocks
+    remote; each row is pooled at its last non-pad token, as HF's
+    *ForSequenceClassification pools it."""
+
+    def __init__(self, family, cfg, client_params: dict, remote: RemoteSequential, *, num_labels: int,
+                 pad_token_id: Optional[int] = None, ptune: Optional[PTuneConfig] = None):
+        if family.cls_head is None:
+            raise NotImplementedError(f"{family.name} has no sequence-classification head")
+        super().__init__(family, cfg, client_params, remote, ptune=ptune)
+        self.num_labels = num_labels
+        self.pad_token_id = pad_token_id
+
     @classmethod
-    def from_pretrained(cls, *args, **kwargs):
-        raise NotImplementedError("sequence classification waits for A13 in this port")
+    def from_pretrained(cls, model_name_or_path: str, *, initial_peers: Sequence[str],
+                        config: Optional[ClientConfig] = None, dht_prefix: Optional[str] = None,
+                        dtype: torch.dtype = torch.float32, device=None, ptune: Optional[PTuneConfig] = None,
+                        **config_overrides) -> "DistributedModelForSequenceClassification":
+        """As the causal LM's, with the checkpoint's ``score`` head; the
+        label count comes from its ``id2label`` (HF's ``num_labels``)."""
+        device = resolve_device(device)
+        family, cfg = get_block_config(model_name_or_path)
+        hf_config = load_hf_config(model_name_or_path)
+        client_params = load_cls_client_params(model_name_or_path, dtype=dtype, device=device, family=family, cfg=cfg)
+        remote = cls._build_remote(model_name_or_path, initial_peers, config, dht_prefix, config_overrides, cfg)
+        id2label = getattr(hf_config, "id2label", None)
+        num_labels = len(id2label) if id2label else getattr(hf_config, "num_labels", 2)
+        return cls(family, cfg, client_params, remote, num_labels=num_labels,
+                   pad_token_id=getattr(hf_config, "pad_token_id", None), ptune=ptune)
+
+    def cls_logits(self, hidden) -> torch.Tensor:
+        """Per-position float32 [batch, seq, num_labels] logits (norm + score)."""
+        return self.family.cls_head(self.client_params, torch.as_tensor(hidden).to(self.device), self.cfg)
+
+    def pool_positions(self, input_ids) -> np.ndarray:
+        """Each row's pooled position in the (prompt-prefixed) sequence:
+        its LAST non-pad token, as HF pools."""
+        input_ids = np.asarray(input_ids)
+        batch, seq = input_ids.shape
+        pre_seq = self.ptune.pre_seq_len if self.ptune.tuning_mode else 0
+        if self.pad_token_id is None:
+            if batch > 1:
+                raise ValueError(
+                    "Cannot handle batch sizes > 1 without a pad token "
+                    "(set pad_token_id, matching HF *ForSequenceClassification)"
+                )
+            return np.asarray([pre_seq + seq - 1])
+        non_pad = (input_ids != self.pad_token_id).astype(np.int64)
+        last = (np.arange(seq)[None, :] * non_pad).argmax(axis=-1)
+        return pre_seq + last
+
+    def forward(self, input_ids) -> torch.Tensor:
+        """Pooled float32 classification logits [batch, num_labels]."""
+        input_ids = np.asarray(input_ids)
+        logits = self.cls_logits(self._remote_hidden(input_ids))
+        pos = torch.as_tensor(self.pool_positions(input_ids), device=logits.device)
+        return logits[torch.arange(input_ids.shape[0], device=logits.device), pos]
+
+    __call__ = forward
 
 
 class DistributedModelForSpeculativeGeneration:
@@ -188,3 +264,11 @@ class AutoDistributedModel:
     @classmethod
     def from_pretrained(cls, model_name_or_path: str, **kwargs) -> DistributedModel:
         return DistributedModel.from_pretrained(model_name_or_path, **kwargs)
+
+
+class AutoDistributedModelForSequenceClassification:
+    """Dispatch on a classification checkpoint's model_type."""
+
+    @classmethod
+    def from_pretrained(cls, model_name_or_path: str, **kwargs) -> DistributedModelForSequenceClassification:
+        return DistributedModelForSequenceClassification.from_pretrained(model_name_or_path, **kwargs)

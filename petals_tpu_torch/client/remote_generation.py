@@ -20,6 +20,12 @@ trip each (``_server_side_greedy``; sampling and the repetition penalty in
 one). A sampled stream draws by inverse-CDF from ``uniform_for_draw(seed,
 i)``, petals_tpu's Threefry contract (ops/threefry.py), so a stream cut
 mid-chunk is finished per token on the same draws.
+
+Prompt tuning (client/ptune.py): a model with trained prompts prepends its
+shallow prompts to the first feed of a session only, sizes the session for
+them, and sends its deep prompts (or the caller's ``prompts``) with every
+step; a stream with deep prompts keeps the per-token path, as petals_tpu's
+does.
 """
 
 from __future__ import annotations
@@ -197,6 +203,10 @@ class RemoteGenerationMixin:
 
     _active_session = None
 
+    def _embed_tokens(self, tokens) -> torch.Tensor:
+        """Generated tokens' embeddings: never with the shallow prompts."""
+        return self.embed(tokens, with_prompts=False)
+
     def _host_logits(self, out_hidden: torch.Tensor) -> np.ndarray:
         """The last position's float32 logits [batch, vocab], on the host."""
         return self.lm_logits(out_hidden[:, -1:])[:, 0].cpu().numpy()
@@ -251,8 +261,6 @@ class RemoteGenerationMixin:
     ) -> np.ndarray:
         """Generated ids [batch * num_return_sequences, seq + new] (numpy
         int64), the prompt included."""
-        if prompts is not None:
-            raise NotImplementedError("deep prompts (PTune) wait for A13 in this port")
         if num_return_sequences < 1:
             raise ValueError("num_return_sequences must be >= 1")
         if num_return_sequences > 1 and num_beams == 1 and not do_sample:
@@ -275,6 +283,7 @@ class RemoteGenerationMixin:
                 max_new_tokens=max_new_tokens,
                 num_beams=num_beams,
                 session=session if session is not None else self._active_session,
+                prompts=prompts,
                 do_sample=do_sample,
                 temperature=temperature,
                 top_k=top_k,
@@ -295,14 +304,19 @@ class RemoteGenerationMixin:
             # HF sampling semantics: each return sequence is an independent
             # draw, so every batch row expands into num_return_sequences lanes
             input_ids = np.repeat(input_ids, num_return_sequences, axis=0)
+            if prompts is not None:
+                prompts = torch.repeat_interleave(torch.as_tensor(prompts).detach(), num_return_sequences, dim=1)
         batch, prompt_len = input_ids.shape
         rng = np.random.RandomState(seed) if seed is not None else np.random.RandomState()
+
+        ptune = getattr(self, "ptune", None)
+        pre_seq = ptune.pre_seq_len if (ptune and ptune.tuning_mode) else 0
 
         own_session = False
         if session is None:
             session = self._active_session
         if session is None:
-            total = max_length if max_length is not None else prompt_len + max_new_tokens
+            total = max_length if max_length is not None else pre_seq + prompt_len + max_new_tokens
             session = self.remote.inference_session(max_length=total, batch_size=batch)
             own_session = True
         else:
@@ -316,13 +330,18 @@ class RemoteGenerationMixin:
                     f"generate() manage the session"
                 )
             if max_length is None:
-                # the cache holds the prompt and every token but the last sampled one
-                max_new_tokens = min(max_new_tokens, session.max_length - prompt_len + 1)
+                # the cache holds the prompts, the prompt and every token but the last sampled one
+                max_new_tokens = min(max_new_tokens, session.max_length - pre_seq - prompt_len + 1)
 
         try:
             generated = input_ids
-            # resume: only feed the tokens the session has not seen yet
-            seen_tokens = session.position
+            if prompts is None and hasattr(self, "deep_prompts_for_batch"):
+                prompts = self.deep_prompts_for_batch(batch)
+            if prompts is not None:
+                prompts = torch.as_tensor(prompts).detach()
+            # resume: only feed the tokens the session has not seen yet (its
+            # position counts the shallow prompts too)
+            seen_tokens = max(session.position - pre_seq, 0) if session.position else 0
             new_tokens = input_ids[:, seen_tokens:]
             if new_tokens.shape[1] == 0:
                 raise ValueError(
@@ -332,7 +351,7 @@ class RemoteGenerationMixin:
                 )
             if streamer is not None:
                 streamer.put(input_ids)  # HF: the prompt goes first
-            hidden = self.embed(new_tokens)
+            hidden = self.embed(new_tokens, with_prompts=session.position == 0)
 
             # the server-side fast paths: chunks of tokens generated on a
             # whole-model server, one round trip a chunk; what needs the
@@ -344,6 +363,7 @@ class RemoteGenerationMixin:
                 and not no_repeat_ngram_size
                 and (min_new_tokens or 0) == 0
                 and batch == 1
+                and prompts is None
                 and hasattr(session, "generate_remote")
             )
             rep = 1.0 if repetition_penalty is None else float(repetition_penalty)
@@ -369,7 +389,7 @@ class RemoteGenerationMixin:
                 if result is not None:
                     return result
 
-            out_hidden = session.step(hidden)
+            out_hidden = session.step(hidden, prompts=prompts)
             logits = self._host_logits(out_hidden)
 
             finished = np.zeros(batch, dtype=bool)
@@ -404,7 +424,7 @@ class RemoteGenerationMixin:
                 if session.position + 1 > session.max_length:
                     logger.warning("Session max_length reached; stopping generation")
                     break
-                out_hidden = session.step(self.embed(next_token[:, None]))
+                out_hidden = session.step(self.embed(next_token[:, None], with_prompts=False), prompts=prompts)
                 logits = self._host_logits(out_hidden)
             if streamer is not None:
                 streamer.end()
@@ -433,11 +453,11 @@ class RemoteGenerationMixin:
             # defaults are argmax no-ops) and gives a server's draft model
             # its window
             sampling = {"context": [int(t) for t in generated[0]]} if with_context else None
-            tokens = session.generate_remote(pending_hidden, want, self.embed, sampling=sampling)
+            tokens = session.generate_remote(pending_hidden, want, self._embed_tokens, sampling=sampling)
             if tokens is None and first and with_context:
                 # a route announcing server_gen without server_gen_sampling
                 with_context = False
-                tokens = session.generate_remote(pending_hidden, want, self.embed)
+                tokens = session.generate_remote(pending_hidden, want, self._embed_tokens)
             if tokens is None:
                 if first:
                     return None
@@ -462,7 +482,7 @@ class RemoteGenerationMixin:
                 if streamer is not None:
                     streamer.end()
                 return generated
-            pending_hidden = self.embed(generated[:, -1:])  # the next chunk feeds the last token
+            pending_hidden = self._embed_tokens(generated[:, -1:])  # the next chunk feeds the last token
 
         # a failure mid-stream: plain per-token greedy for the tail
         while remaining > 0:
@@ -475,7 +495,7 @@ class RemoteGenerationMixin:
             if eos_token_id is not None and int(next_token[0]) == eos_token_id:
                 break
             if remaining > 0:
-                pending_hidden = self.embed(generated[:, -1:])
+                pending_hidden = self._embed_tokens(generated[:, -1:])
         if streamer is not None:
             streamer.end()
         return generated
@@ -508,7 +528,7 @@ class RemoteGenerationMixin:
             # the penalty's seen set (tokens drawn inside a chunk are added
             # on the server)
             sampling = dict(base, offset=draws, context=[int(t) for t in generated[0]])
-            tokens = session.generate_remote(pending_hidden, want, self.embed, sampling=sampling)
+            tokens = session.generate_remote(pending_hidden, want, self._embed_tokens, sampling=sampling)
             if tokens is None:
                 if first:
                     return None
@@ -532,7 +552,7 @@ class RemoteGenerationMixin:
                 if streamer is not None:
                     streamer.end()
                 return generated
-            pending_hidden = self.embed(generated[:, -1:])
+            pending_hidden = self._embed_tokens(generated[:, -1:])
 
         # a failure mid-stream: per-token sampling on the stream's own draws
         while remaining > 0:
@@ -550,7 +570,7 @@ class RemoteGenerationMixin:
             if eos_token_id is not None and int(next_token[0]) == eos_token_id:
                 break
             if remaining > 0:
-                pending_hidden = self.embed(generated[:, -1:])
+                pending_hidden = self._embed_tokens(generated[:, -1:])
         if streamer is not None:
             streamer.end()
         return generated
@@ -562,6 +582,7 @@ class RemoteGenerationMixin:
         max_new_tokens: int,
         num_beams: int,
         session=None,
+        prompts=None,
         do_sample: bool = False,
         temperature: float = 1.0,
         top_k: Optional[int] = None,
@@ -606,9 +627,16 @@ class RemoteGenerationMixin:
         lanes = batch * num_beams
         rng = np.random.RandomState(seed) if seed is not None else np.random.RandomState()
 
+        ptune = getattr(self, "ptune", None)
+        pre_seq = ptune.pre_seq_len if (ptune and ptune.tuning_mode) else 0
+        if prompts is None and hasattr(self, "deep_prompts_for_batch"):
+            prompts = self.deep_prompts_for_batch(lanes)
+        if prompts is not None:
+            prompts = torch.as_tensor(prompts).detach()
+
         own_session = False
         if session is None:
-            session = self.remote.inference_session(max_length=max_length, batch_size=lanes)
+            session = self.remote.inference_session(max_length=pre_seq + max_length, batch_size=lanes)
             own_session = True
         else:
             if session.batch_size != lanes:
@@ -625,13 +653,13 @@ class RemoteGenerationMixin:
                     "generate()"
                 )
             # the final chosen token is never fed, so the cache needs
-            # prompt_len + max_new_tokens - 1 positions; clamp like
+            # pre_seq + prompt_len + max_new_tokens - 1 positions; clamp like
             # the sampling path instead of dying mid-beam on a short session
-            budget = session.max_length - prompt_len + 1
+            budget = session.max_length - pre_seq - prompt_len + 1
             if budget <= 0:
                 raise ValueError(
                     f"session max_length {session.max_length} cannot hold the "
-                    f"{prompt_len}-token prompt (+1 generated); open a "
+                    f"{pre_seq + prompt_len}-token prompt (+1 generated); open a "
                     f"larger session"
                 )
             if max_new_tokens > budget:
@@ -650,7 +678,7 @@ class RemoteGenerationMixin:
         sequences = np.repeat(input_ids, num_beams, axis=0)  # [lanes, seq]
 
         try:
-            out = session.step(self.embed(sequences))
+            out = session.step(self.embed(sequences, with_prompts=pre_seq > 0), prompts=prompts)
             hypo_ids = None
             for _step in range(max_new_tokens):
                 logits = self._host_logits(out)  # [lanes, vocab]
@@ -749,7 +777,8 @@ class RemoteGenerationMixin:
                     break
                 if _step + 1 == max_new_tokens:
                     break
-                out = session.step(self.embed(sequences[:, -1:]), hypo_ids=hypo_ids)
+                out = session.step(self.embed(sequences[:, -1:], with_prompts=False), prompts=prompts,
+                                   hypo_ids=hypo_ids)
         finally:
             if own_session:
                 session.close()

@@ -1,19 +1,26 @@
 """RemoteSequential: the chain of remote blocks as one object with a
 synchronous API (petals_tpu/client/remote_sequential.py): inference
-sessions and the stateless, fault-tolerant ``forward`` over the servers'
-``rpc_forward`` (client/sequential_autograd.py). ``backward`` needs the
-servers' ``rpc_backward``, which waits for A13."""
+sessions, and the stateless, fault-tolerant ``forward`` and ``backward``
+over the servers' ``ptu.forward`` / ``ptu.backward``
+(client/sequential_autograd.py). ``forward`` on a tensor that requires a
+gradient (or deep prompts that do) goes through
+``RemoteSequentialFunction``, so a loss computed from its output
+differentiates through the swarm."""
 
 from __future__ import annotations
 
-from typing import Optional, Sequence
+from typing import List, Optional, Sequence
 
 import torch
 
 from petals_tpu_torch.client.config import ClientConfig
 from petals_tpu_torch.client.inference_session import InferenceSession
 from petals_tpu_torch.client.routing.sequence_manager import RemoteSequenceManager
-from petals_tpu_torch.client.sequential_autograd import sequential_forward_batched
+from petals_tpu_torch.client.sequential_autograd import (
+    RemoteSequentialFunction,
+    sequential_backward_batched,
+    sequential_forward_batched,
+)
 from petals_tpu_torch.client.runtime import SwarmRuntime
 from petals_tpu_torch.data_structures import ModuleUID
 
@@ -70,7 +77,15 @@ class RemoteSequential:
         """A stateless forward of ``hidden`` [batch, seq, hidden] (deep
         ``prompts`` [n_blocks, batch, pre_seq, hidden]) through every block,
         no server-side state; retried and re-routed on failure. Returns the
-        output on the host."""
+        output on the host; with grad enabled and an input that requires a
+        gradient, through ``RemoteSequentialFunction`` (on the host), in the
+        input's dtype on its device."""
+        needs_grad = torch.is_grad_enabled() and any(
+            isinstance(t, torch.Tensor) and t.requires_grad for t in (hidden, prompts))
+        if needs_grad:
+            host_prompts = torch.as_tensor(prompts).cpu() if prompts is not None else None
+            out = RemoteSequentialFunction.apply(hidden.cpu(), host_prompts, self.sequence_manager, self.runtime)
+            return out.to(hidden.device)
         out, _, _ = self.runtime.run(sequential_forward_batched(self.sequence_manager, hidden, prompts))
         return out
 
@@ -81,8 +96,12 @@ class RemoteSequential:
         backward."""
         return self.runtime.run(sequential_forward_batched(self.sequence_manager, hidden, prompts))
 
-    def backward(self, *args, **kwargs):
-        raise NotImplementedError("backward needs the servers' rpc_backward, which waits for A13")
+    def backward(self, grad_out, histories: List, spans: List, prompts=None):
+        """The gradients at the input and at the deep prompts (or None) of a
+        ``forward_with_state`` whose output got ``grad_out``."""
+        return self.runtime.run(
+            sequential_backward_batched(self.sequence_manager, grad_out, histories, spans, prompts)
+        )
 
     def inference_session(self, max_length: int, batch_size: int = 1) -> "SyncInferenceSession":
         return SyncInferenceSession(InferenceSession(self.sequence_manager, max_length, batch_size), self.runtime)

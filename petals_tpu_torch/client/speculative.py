@@ -39,7 +39,7 @@ def speculative_generate(model, draft_fn: DraftFn, input_ids, *, max_new_tokens:
         # prefill all but the last token: it rides with the drafts
         generated = input_ids
         if input_ids.shape[1] > 1:
-            session.step(model.embed(input_ids[:, :-1]))
+            session.step(model.embed(input_ids[:, :-1], with_prompts=False))
         while generated.shape[1] - input_ids.shape[1] < max_new_tokens:
             budget = max_new_tokens - (generated.shape[1] - input_ids.shape[1])
             n_draft = min(k, max(budget - 1, 0))
@@ -49,7 +49,7 @@ def speculative_generate(model, draft_fn: DraftFn, input_ids, *, max_new_tokens:
             # one verification step: [last pending token, d1 .. d_{n-1}]
             chunk = np.concatenate([generated[0, -1:], drafts[:-1]]) if len(drafts) else generated[0, -1:]
             base_position = session.position
-            out_hidden = session.step(model.embed(chunk[None].astype(np.int64)))
+            out_hidden = session.step(model.embed(chunk[None].astype(np.int64), with_prompts=False))
             targets = model.lm_logits(out_hidden)[0].argmax(dim=-1).cpu().numpy()  # g_1 .. g_len
             accepted = 0
             while accepted < len(drafts) and drafts[accepted] == targets[accepted]:

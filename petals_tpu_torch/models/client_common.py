@@ -1,8 +1,9 @@
 """The client's embeddings, final norm and LM head for llama-layout
 families (``model.embed_tokens`` / ``model.norm`` / ``lm_head``, RMSNorm,
-optional weight tying), the port of petals_tpu/models/client_common.py:1-41,
-and what the bloom and falcon client pieces share.
-The classification heads wait for A13 (ROADMAP.md)."""
+optional weight tying), the port of petals_tpu/models/client_common.py,
+and what the bloom and falcon client pieces share, the sequence
+classification heads among them (the ``score`` linear over the final
+norm's output, float32)."""
 
 from __future__ import annotations
 
@@ -10,7 +11,7 @@ import contextlib
 
 import torch
 
-from petals_tpu_torch.models.common import rms_norm
+from petals_tpu_torch.models.common import layer_norm, rms_norm
 
 LLAMA_STYLE_CLIENT_PREFIXES = ("model.embed_tokens.", "model.norm.", "lm_head.")
 
@@ -66,3 +67,38 @@ def llama_style_client_head(params: dict, hidden: torch.Tensor, cfg) -> torch.Te
     normed = rms_norm(hidden.to(head.device), params["norm"], cfg.rms_norm_eps).float()
     with full_float32_matmuls():
         return torch.matmul(normed, head.float())
+
+
+# sequence classification (HF *ForSequenceClassification): embeddings, the
+# final norm and the ``score`` linear on the client, the blocks remote
+
+LLAMA_STYLE_CLS_PREFIXES = ("model.embed_tokens.", "model.norm.", "score.")
+
+
+def score_matrix(tensors: dict) -> torch.Tensor:
+    """HF stores ``score`` [num_labels, hidden]; the client keeps [hidden, num_labels]."""
+    return tensors["score.weight"].t().contiguous()
+
+
+def llama_style_hf_to_cls_params(tensors: dict, cfg) -> dict:
+    return {"embed": tensors["model.embed_tokens.weight"], "norm": tensors["model.norm.weight"],
+            "score": score_matrix(tensors)}
+
+
+def _score(normed: torch.Tensor, score: torch.Tensor) -> torch.Tensor:
+    with full_float32_matmuls():
+        return torch.matmul(normed.float(), score.float())
+
+
+def llama_style_cls_head(params: dict, hidden: torch.Tensor, cfg) -> torch.Tensor:
+    """Per-position float32 label logits: the final RMSNorm, then ``score``
+    (the model pools them: it needs the input ids)."""
+    score = params["score"]
+    return _score(rms_norm(hidden.to(score.device), params["norm"], cfg.rms_norm_eps), score)
+
+
+def ln_f_cls_head(params: dict, hidden: torch.Tensor, eps: float) -> torch.Tensor:
+    """Label logits of a family whose final norm is the LayerNorm ``ln_f``
+    (bloom, falcon): ``ln_f``, then ``score``."""
+    score = params["score"]
+    return _score(layer_norm(hidden.to(score.device), params["ln_f_w"], params["ln_f_b"], eps), score)

@@ -45,9 +45,16 @@ ACTIVATIONS = {"silu": silu, "gelu_tanh": gelu_tanh, "gelu": gelu_exact}
 
 
 def mm(x: torch.Tensor, w) -> torch.Tensor:
-    """Matmul against a weight stored [in, out]: dense, or quantized
+    """Matmul against a weight stored [in, out]: dense, quantized
     (QuantizedLinear / OutlierQuantLinear, through ops/quant.py
-    quant_matmul)."""
+    quant_matmul), or a LoRA-wrapped one of either (utils/peft.py
+    LoraLinear: ``base + (x @ A) @ B * scaling``)."""
+    from petals_tpu_torch.utils.peft import LoraLinear
+
+    if isinstance(w, LoraLinear):
+        base = mm(x, w.base)
+        delta = (x @ w.lora_a.to(x.dtype)) @ w.lora_b.to(x.dtype)
+        return base + delta * w.scaling
     if isinstance(w, QUANTIZED_TYPES):
         return quant_matmul(x, w)
     return x @ w

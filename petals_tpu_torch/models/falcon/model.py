@@ -1,7 +1,7 @@
 """The falcon family with its client fields (petals_tpu/models/falcon/model.py):
 the word embeddings, ``ln_f``, and the LM head, tied to the embeddings
-unless the checkpoint unties it. The sequence-classification head waits for
-A13 (ROADMAP.md)."""
+unless the checkpoint unties it; and the sequence-classification head,
+``score`` over ``ln_f``."""
 
 from __future__ import annotations
 
@@ -10,7 +10,7 @@ import dataclasses
 import torch
 
 from petals_tpu_torch.models.bloom.model import client_head, client_norm
-from petals_tpu_torch.models.client_common import pick_tensor
+from petals_tpu_torch.models.client_common import ln_f_cls_head, pick_tensor, score_matrix
 from petals_tpu_torch.models.falcon.block import FAMILY as BLOCK_FAMILY
 from petals_tpu_torch.models.registry import register_family
 
@@ -44,6 +44,20 @@ def client_embed(params: dict, input_ids, cfg) -> torch.Tensor:
     return embed[torch.as_tensor(input_ids, dtype=torch.long, device=embed.device)]
 
 
+CLS_PREFIXES = tuple(p for p in CLIENT_PREFIXES if p != "lm_head.") + ("score.",)
+
+
+def hf_to_cls_params(tensors: dict, cfg) -> dict:
+    params = hf_to_client_params(tensors, cfg)
+    params.pop("head")
+    params["score"] = score_matrix(tensors)
+    return params
+
+
+def cls_head(params: dict, hidden: torch.Tensor, cfg) -> torch.Tensor:
+    return ln_f_cls_head(params, hidden, cfg.layer_norm_epsilon)
+
+
 FAMILY = register_family(
     dataclasses.replace(
         BLOCK_FAMILY,
@@ -52,5 +66,8 @@ FAMILY = register_family(
         client_embed=client_embed,
         client_head=client_head,  # ln_f, then the float32 head: BLOOM's
         client_norm=client_norm,
+        hf_cls_prefixes=CLS_PREFIXES,
+        hf_to_cls_params=hf_to_cls_params,
+        cls_head=cls_head,
     )
 )

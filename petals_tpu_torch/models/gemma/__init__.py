@@ -10,8 +10,8 @@ with four deltas, none of them a new block.
   the embedding's dtype first, as HF's normalizer is.
 - The head is tied to the embeddings (HF GemmaConfig's default).
 
-The sequence-classification head (``hf_to_cls_params``) waits for the
-port's classification surface (A13)."""
+The sequence-classification client folds its final norm the same way
+(``hf_to_cls_params``)."""
 
 from __future__ import annotations
 
@@ -20,7 +20,11 @@ import math
 
 import torch
 
-from petals_tpu_torch.models.client_common import llama_style_client_embed, llama_style_hf_to_client_params
+from petals_tpu_torch.models.client_common import (
+    llama_style_client_embed,
+    llama_style_hf_to_client_params,
+    llama_style_hf_to_cls_params,
+)
 from petals_tpu_torch.models.llama.block import hf_to_block_params as llama_block_params
 from petals_tpu_torch.models.llama.config import LlamaBlockConfig
 from petals_tpu_torch.models.llama.model import FAMILY as LLAMA_FAMILY
@@ -67,6 +71,13 @@ def hf_to_client_params(tensors: dict, cfg) -> dict:
     return params
 
 
+def hf_to_cls_params(tensors: dict, cfg) -> dict:
+    # the classifier runs the same final norm: folded here too
+    params = llama_style_hf_to_cls_params(tensors, cfg)
+    params["norm"] = fold_norm(params["norm"])
+    return params
+
+
 def client_embed(params: dict, input_ids, cfg) -> torch.Tensor:
     h = llama_style_client_embed(params, input_ids, cfg)
     # HF casts the sqrt(hidden) normalizer to the embedding's dtype first
@@ -80,6 +91,7 @@ FAMILY = register_family(
         config_from_hf=config_from_hf,
         hf_to_block_params=hf_to_block_params,
         hf_to_client_params=hf_to_client_params,
+        hf_to_cls_params=hf_to_cls_params,
         client_embed=client_embed,
         cast_exempt=("ln1", "ln2", "norm"),
     )

@@ -132,7 +132,10 @@ def block_apply(
 
     residual = hidden_states
     x = rms_norm(hidden_states, params["ln2"], cfg.rms_norm_eps)
-    hidden_states = residual + moe_apply(params, x, cfg, sparse=seq >= SPARSE_MIN_SEQ)
+    # under autograd (a server's backward recompute) the dense path: K7
+    # has no backward, and the dense einsums differentiate as they stand
+    sparse = seq >= SPARSE_MIN_SEQ and not torch.is_grad_enabled()
+    hidden_states = residual + moe_apply(params, x, cfg, sparse=sparse)
     return hidden_states, (k_all, v_all)
 
 

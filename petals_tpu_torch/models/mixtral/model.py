@@ -8,10 +8,13 @@ import dataclasses
 
 from petals_tpu_torch.models.client_common import (
     LLAMA_STYLE_CLIENT_PREFIXES,
+    LLAMA_STYLE_CLS_PREFIXES,
     llama_style_client_embed,
     llama_style_client_head,
     llama_style_client_norm,
+    llama_style_cls_head,
     llama_style_hf_to_client_params,
+    llama_style_hf_to_cls_params,
 )
 from petals_tpu_torch.models.mixtral.block import FAMILY as BLOCK_FAMILY
 from petals_tpu_torch.models.registry import register_family
@@ -24,5 +27,8 @@ FAMILY = register_family(
         client_embed=llama_style_client_embed,
         client_head=llama_style_client_head,
         client_norm=llama_style_client_norm,
+        hf_cls_prefixes=LLAMA_STYLE_CLS_PREFIXES,
+        hf_to_cls_params=llama_style_hf_to_cls_params,
+        cls_head=llama_style_cls_head,
     )
 )

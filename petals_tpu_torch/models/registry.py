@@ -37,6 +37,11 @@ class ModelFamily:
     client_embed: Optional[Callable] = None  # (params, input_ids, cfg) -> hidden
     client_head: Optional[Callable] = None  # (params, hidden, cfg) -> float32 logits
     client_norm: Optional[Callable] = None  # (params, hidden, cfg) -> final-norm'd hidden
+    # sequence classification (HF *ForSequenceClassification): embeddings,
+    # final norm and the ``score`` head on the client
+    hf_cls_prefixes: tuple = ()  # checkpoint prefixes with the score head
+    hf_to_cls_params: Optional[Callable] = None  # (dict of full names, cfg) -> params dict
+    cls_head: Optional[Callable] = None  # (params, hidden, cfg) -> float32 per-position label logits
 
 
 def num_kv_heads(cfg) -> int:

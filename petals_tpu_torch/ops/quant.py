@@ -24,6 +24,15 @@ tensor to ``dequant_matmul_reference``, the plain version: x rounded to
 bf16 against ``dequantize(w, bf16)``, summed in float32 and rounded once
 to bf16, then cast to x's dtype, as the JAX package's XLA path computes it.
 
+Under autograd (``torch.is_grad_enabled()``: the server's backward
+recompute) the product goes through ``QuantMatmulFn``, the counterpart of
+the JAX package's ``_make_quant_mm`` custom_vjp: the same forward (the
+kernels on the card), and the gradient in x only, ``g`` rounded to bf16
+against the transposed ``dequantize(w, bf16)`` with one rounding to bf16;
+the weights are frozen and get none. The served and captured paths run
+under ``no_grad`` and never see the Function. An ``OutlierQuantLinear``'s
+side term is a gather and a matmul, differentiable as it stands.
+
 Not ported, on purpose:
 
 - ``StackedQuantLinear`` and the backend's ``_split_quant`` /
@@ -34,8 +43,6 @@ Not ported, on purpose:
   has not been ported.
 - ``maybe_autotune_nf4_decode`` / ``set_nf4_decode_path``: on the card the
   port always takes its kernel.
-- the ``custom_vjp`` backward (dequant-transpose): it belongs to the
-  training slice.
 """
 
 from __future__ import annotations
@@ -304,12 +311,20 @@ def quantize(w: torch.Tensor, kind: str):
 # ----------------------------------------------------------------------------------
 
 
+_CODE_TABLES: dict = {}  # (kind, device) -> the levels on that device
+
+
 def code_table(kind: str, device=None) -> torch.Tensor:
-    """The 16 float32 levels of a 4-bit kind (int4: code - 8)."""
-    table = {"nf4": NF4_CODE, "nf4a": NF4A_CODE}.get(kind)
-    if table is None:
-        table = np.arange(16, dtype=np.float32) - 8.0
-    return torch.from_numpy(table).to(device)
+    """The 16 float32 levels of a 4-bit kind (int4: code - 8), copied to
+    ``device`` once (a per-call copy from the host would sync every
+    dequantize on a card). Callers only read it."""
+    key = (kind, torch.device(device) if device is not None else torch.device("cpu"))
+    if key not in _CODE_TABLES:
+        table = {"nf4": NF4_CODE, "nf4a": NF4A_CODE}.get(kind)
+        if table is None:
+            table = np.arange(16, dtype=np.float32) - 8.0
+        _CODE_TABLES[key] = torch.from_numpy(table).to(key[1])
+    return _CODE_TABLES[key]
 
 
 def dequantize(q, dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
@@ -345,10 +360,42 @@ def dequant_matmul_reference(x2d: torch.Tensor, w: QuantizedLinear) -> torch.Ten
     return out.to(torch.bfloat16).to(x2d.dtype)
 
 
+def dequant_transpose_matmul(g2d: torch.Tensor, w: QuantizedLinear) -> torch.Tensor:
+    """g [M, out] @ dequantize(w, bf16).T, the quantized product's
+    gradient in x: g rounded to bf16, summed in float32 and rounded once to
+    bf16 (the JAX package's ``(g.bf16 @ deq.T)``), then cast to g's dtype.
+    A bf16 cuBLAS product on the card (float32 sums, one rounding); the
+    same values in float32 on the CPU."""
+    deq = dequantize(w, torch.bfloat16)
+    gb = g2d.to(torch.bfloat16)
+    if gb.is_cuda:
+        return (gb @ deq.t()).to(g2d.dtype)
+    return (gb.float() @ deq.float().t()).to(torch.bfloat16).to(g2d.dtype)
+
+
+class QuantMatmulFn(torch.autograd.Function):
+    """x2d [M, in] @ dequant(w) with a gradient in x2d only (the JAX
+    package's ``_make_quant_mm``): the forward is ``dequant_matmul`` (the
+    kernels on a CUDA tensor, the plain version on the CPU), the backward
+    ``dequant_transpose_matmul``."""
+
+    @staticmethod
+    def forward(ctx, x2d: torch.Tensor, w: QuantizedLinear) -> torch.Tensor:
+        from petals_tpu_torch.ops.quant_matmul import dequant_matmul
+
+        ctx.w = w
+        return dequant_matmul(x2d, w)
+
+    @staticmethod
+    def backward(ctx, g: torch.Tensor):
+        return dequant_transpose_matmul(g, ctx.w), None
+
+
 def quant_matmul(x: torch.Tensor, w) -> torch.Tensor:
     """x @ w where w is dense, a QuantizedLinear or an OutlierQuantLinear.
     A quantized weight on a CUDA tensor goes to the dequant-matmul kernels,
-    on a CPU tensor to the plain version."""
+    on a CPU tensor to the plain version; with grad enabled, through
+    ``QuantMatmulFn``."""
     if isinstance(w, OutlierQuantLinear):
         # the packed stream plus the dense outlier side term x[..., idx] @
         # w_out, in bf16 with float32 sums (a torch gather and matmul: the
@@ -361,7 +408,8 @@ def quant_matmul(x: torch.Tensor, w) -> torch.Tensor:
     from petals_tpu_torch.ops.quant_matmul import dequant_matmul
 
     lead = x.shape[:-1]
-    out = dequant_matmul(x.reshape(-1, w.in_features), w)
+    x2d = x.reshape(-1, w.in_features)
+    out = QuantMatmulFn.apply(x2d, w) if torch.is_grad_enabled() else dequant_matmul(x2d, w)
     return out.reshape(*lead, w.out_features)
 
 

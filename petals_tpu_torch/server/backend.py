@@ -1,9 +1,9 @@
 """TransformerBackend: the compute engine for a span of blocks: paged
 decode and mixed prefill+decode steps, the dense-cache steps of private
 sessions and the dense lane pool, server-side generation, and the
-stateless forward the throughput probe times, and the speculative-decoding
-verify step (petals_tpu/server/backend.py without the backward, adapters
-and meshes).
+stateless forward the throughput probe times, the speculative-decoding
+verify step, the training backward and per-request LoRA adapters
+(petals_tpu/server/backend.py without the meshes).
 
 Where the JAX backend runs the span as one jitted ``lax.scan`` over stacked
 parameters and donated pools, this one is a Python loop over blocks that
@@ -95,6 +95,30 @@ and the leading matches of drafts and sampled tokens decide how many
 tokens a lane emits. A fourth paged program ("paged_spec_verify", keyed by
 ``step_program_key("spec_verify", ...)`` with S as its bucket), captured
 when the pool opens on a batcher that holds a draft.
+
+LoRA adapters (utils/peft.py): ``adapters`` maps a name to the span's
+per-block (A, B) pairs and the scaling; ``params_for(name)`` is the span's
+parameters with those leaves wrapped in ``LoraLinear``, which
+``models.common.mm`` applies. ``forward``, ``backward``,
+``inference_step`` and ``generate_tokens`` take ``active_adapter``; the
+adapter's name is part of each program's key (the graph addresses the
+adapter's tensors), so one adapter never replays another's graph, and an
+adapter seen before replays its own. Adapter sessions never reach the
+batched steps: the handler gives them private caches.
+
+The backward (petals_tpu/server/backend.py:1725-1744): ``backward(hidden,
+grad_out, prompts)`` returns the gradients at the span's input and at the
+deep prompts. A no-grad pass keeps each block's input; then, block by
+block in reverse, one block is recomputed from its input under
+``enable_grad`` and ``torch.autograd.grad`` gives the gradient at that
+input (after the deep prompt's add, which is the prompt's gradient over
+its rows). The peak holds one block's graph; the products are those of
+the JAX package's whole-span ``jax.vjp``. Attention in the recompute is
+``attend(..., use_flash=False)`` on a fresh dense K/V buffer (plain
+attention: the JAX training path never uses its flash kernel); quantized
+products go through ``ops/quant.py QuantMatmulFn`` (K5/K6 forward on the
+card, dequant-transpose backward). The backward runs eagerly, on the card
+too.
 
 Fused fingerprints (ops/fingerprint.py), built only when
 ``fingerprint.enabled()``: the batched steps (paged decode, mixed,
@@ -269,6 +293,8 @@ class TransformerBackend:
         if len(params) != n_blocks:
             raise ValueError(f"got parameters for {len(params)} blocks, expected {n_blocks}")
         self.block_params: List[Dict[str, object]] = list(params)
+        # adapter name -> (per-block {leaf: (A, B)}, scaling); see utils/peft.py
+        self.adapters: Dict[str, tuple] = {}
         self.first_block = first_block
         self.n_blocks = n_blocks
         self.device = torch.device(device)
@@ -355,11 +381,24 @@ class TransformerBackend:
         """The parameters of blocks [start, end) of this span (views, no copy)."""
         return self.block_params[start:end]
 
+    def params_for(self, active_adapter: Optional[str]) -> List[Dict[str, object]]:
+        """The span's per-block parameters with the requested LoRA adapter
+        applied (the same base tensors); the plain ones without. Raises
+        KeyError for an adapter this backend does not hold."""
+        if not active_adapter:
+            return self.block_params
+        if active_adapter not in self.adapters:
+            raise KeyError(f"Adapter {active_adapter!r} is not loaded on this server")
+        from petals_tpu_torch.utils.peft import apply_adapter
+
+        per_block, scaling = self.adapters[active_adapter]
+        return apply_adapter(self.block_params, per_block, scaling)
+
     # ------------------------------------------------------------- dense steps
 
     @torch.no_grad()
     def inference_step(self, hidden, kv, position: int, *, prompts=None, hypo_ids=None,
-                       n_total: Optional[int] = None):
+                       n_total: Optional[int] = None, active_adapter: Optional[str] = None):
         """One (chunked-as-needed) inference step over the whole span on a
         DENSE cache: each chunk is one call of the dense step (``_dense_chunk``:
         on a CUDA device a step program, on the CPU the block loop).
@@ -377,9 +416,11 @@ class TransformerBackend:
             chunked the prompt (default: this step's own end); every chunk
             passes it to the blocks, so longrope (phi3) picks its factors
             from the whole prompt's length, as one forward over it would.
+          active_adapter: a LoRA adapter of ``adapters`` to apply.
 
         Returns (out [batch, seq, hidden] on the device, kv).
         """
+        self.params_for(active_adapter)  # an unknown adapter fails before any write
         k_stack, v_stack = kv
         max_length = k_stack.shape[2]
         h = _as_tensor(hidden, None, self.compute_dtype)
@@ -415,14 +456,14 @@ class TransformerBackend:
         for chunk_len in self.chunk_plan(batch, total_seq):
             outputs.append(self._dense_chunk(
                 h[:, offset : offset + chunk_len], (k_stack, v_stack), position + offset, prompts,
-                hypo if offset == 0 else None, n_total=n_total,
+                hypo if offset == 0 else None, n_total=n_total, active_adapter=active_adapter,
             ))
             offset += chunk_len
         out = outputs[0] if len(outputs) == 1 else torch.cat(outputs, dim=1)
         return out, (k_stack, v_stack)
 
     def _dense_chunk(self, chunk, kv, position: int, prompts=None, hypo=None, n_valid: Optional[int] = None,
-                     n_total: Optional[int] = None):
+                     n_total: Optional[int] = None, active_adapter: Optional[str] = None):
         """One chunk of a dense step through every block: the JAX package's
         ``_step_once``. A chunk of more than one token is padded to
         ``bucket_length(seq)`` rows with ``n_valid = seq`` (a decode token is
@@ -433,7 +474,9 @@ class TransformerBackend:
         ``dense_program_key``; on the CPU it runs the block loop.
         ``n_valid`` overrides the real length (the pool's warm-up writes
         nothing); ``n_total`` (default: the chunk's own end) rides beside
-        position and n_valid. Returns [batch, seq, hidden] on the device."""
+        position and n_valid; ``active_adapter`` names the LoRA adapter
+        applied (part of the key). Returns [batch, seq, hidden] on the
+        device."""
         k_stack, v_stack = kv
         batch, seq = chunk.shape[:2]
         bucket = 0 if seq == 1 else bucket_length(seq)
@@ -447,15 +490,17 @@ class TransformerBackend:
 
         def step(h, sc, *extra):
             return self._dense_step_eager(h, k_stack, v_stack, sc[0], sc[1], extra[0] if with_hypo else None,
-                                          extra[-1] if prompts is not None else None, n_total=sc[2])
+                                          extra[-1] if prompts is not None else None, n_total=sc[2],
+                                          params=self.params_for(active_adapter))
 
-        plain = not extra and (k_stack.data_ptr(), v_stack.data_ptr()) in self._lane_views
+        plain = not extra and active_adapter is None and (k_stack.data_ptr(), v_stack.data_ptr()) in self._lane_views
         key = dense_program_key("dense", bucket, self.quant_type, kv, with_hypo,
-                                0 if prompts is None else prompts.shape[2])
+                                0 if prompts is None else prompts.shape[2], active_adapter)
         (out,) = _replay(self._lane_program if plain else self._private_program, key, step, (chunk, scalars, *extra))
         return out[:, :seq]
 
-    def _dense_step_eager(self, hidden, k_stack, v_stack, position, n_valid, hypo=None, prompts=None, n_total=None):
+    def _dense_step_eager(self, hidden, k_stack, v_stack, position, n_valid, hypo=None, prompts=None, n_total=None,
+                          params=None):
         """The dense step's block loop, launched op by op: what the CPU
         runs, and what a step program captures. ``hidden`` [batch, bucket,
         hidden] is already padded; ``position``, ``n_valid`` and ``n_total``
@@ -464,7 +509,8 @@ class TransformerBackend:
         reorders the caches' rows in place first; ``prompts`` are added in
         the JAX package's masked form (each row's prompt row gathered at its
         clipped position, kept where the position lies under ``pre_seq``),
-        so no value of the position reaches the host. Returns (out,)."""
+        so no value of the position reaches the host. ``params``: the
+        per-block parameters (default: the span's own). Returns (out,)."""
         h = _as_tensor(hidden, self.device, self.compute_dtype)
         position = torch.as_tensor(position).to(self.device, torch.int32)
         if hypo is not None:
@@ -479,7 +525,7 @@ class TransformerBackend:
             pos_in_chunk = position + torch.arange(h.shape[1], dtype=torch.int32, device=self.device)
             prompt_mask = (pos_in_chunk < pre_seq)[None, :, None]
             idx = pos_in_chunk.clamp(0, pre_seq - 1).long()
-        for i, p_block in enumerate(self.block_params):
+        for i, p_block in enumerate(self.block_params if params is None else params):
             if prompts is not None:
                 h = h + torch.where(prompt_mask, prompts[i].index_select(1, idx), 0).to(h.dtype)
             h, _ = self.family.block_apply(
@@ -493,7 +539,7 @@ class TransformerBackend:
         return {"n_total": n_total} if self._takes_n_total and n_total is not None else {}
 
     @torch.no_grad()
-    def forward(self, hidden, prompts=None) -> torch.Tensor:
+    def forward(self, hidden, prompts=None, active_adapter: Optional[str] = None) -> torch.Tensor:
         """A stateless forward over the span, with no KV cache (petals_tpu's
         backend ``forward``): each block attends causally over the chunk
         itself, through a K/V buffer that block after block overwrites. The
@@ -511,8 +557,11 @@ class TransformerBackend:
           hidden: [batch, seq, hidden].
           prompts: deep prompts [n_blocks, batch, pre_seq, hidden], added to
             each block's input over positions [0, pre_seq).
+          active_adapter: a LoRA adapter of ``adapters`` to apply (part of
+            the program's key).
 
         Returns out [batch, seq, hidden] on the device."""
+        params = self.params_for(active_adapter)
         h = _as_tensor(hidden, None, self.compute_dtype)
         if prompts is not None:
             prompts = _as_tensor(prompts, None, self.compute_dtype)
@@ -525,20 +574,22 @@ class TransformerBackend:
         inputs = (h, n_valid) if prompts is None else (h, n_valid, prompts)
 
         def step(h, n, *p):
-            return self._forward_eager(h, n, p[0] if p else None)
+            return self._forward_eager(h, n, p[0] if p else None, params=params)
 
-        # step_program_key's layout, with no cache: (batch, bucket, pre_seq)
-        key = ("forward", batch, bucket, 0 if prompts is None else prompts.shape[2], self.quant_type, "none", ())
+        # step_program_key's layout, with no cache: (batch, bucket, pre_seq), then the adapter
+        key = ("forward", batch, bucket, 0 if prompts is None else prompts.shape[2], self.quant_type, "none", (),
+               active_adapter)
         (out,) = _replay(self._forward_program, key, step, inputs)
         return out[:, :seq]
 
-    def _forward_eager(self, hidden, n_valid, prompts=None):
+    def _forward_eager(self, hidden, n_valid, prompts=None, params=None):
         """The stateless forward's block loop (what the CPU runs, and what
         its program captures) over a chunk padded to its bucket, of which
         ``n_valid`` (a 0-dim integer tensor or an int) rows are real. The
         buffer's position and n_valid ride as 0-dim tensors on the device,
         as a captured step needs them. The K/V buffer starts at zeros: the
         padded rows' slots are never written, and a zero row is finite.
+        ``params``: the per-block parameters (default: the span's own).
         Returns (out,)."""
         h = _as_tensor(hidden, self.device, self.compute_dtype)
         batch, bucket, _ = h.shape
@@ -551,12 +602,67 @@ class TransformerBackend:
         )
         position = torch.zeros((), dtype=torch.int32, device=self.device)
         n_valid = torch.as_tensor(n_valid).to(self.device, torch.int32)
-        for i, p_block in enumerate(self.block_params):
+        for i, p_block in enumerate(self.block_params if params is None else params):
             if prompts is not None:
                 pre = prompts.shape[2]
                 h = torch.cat([h[:, :pre] + prompts[i], h[:, pre:]], dim=1)
             h, _ = self.family.block_apply(p_block, h, kv_buf, position, self.cfg, n_valid=n_valid, use_flash=True)
         return (h,)
+
+    def backward(self, hidden, grad_out, prompts=None, active_adapter: Optional[str] = None):
+        """The gradients of the span's output, weighted by ``grad_out``, at
+        its input and at the deep prompts (petals_tpu's ``backward``): a
+        no-grad pass keeps each block's input (after its prompt's add), then
+        each block, last first, is recomputed from its input under autograd
+        (``_train_block``) and ``torch.autograd.grad`` carries the gradient
+        back through it. Weights get no gradient.
+
+        Args:
+          hidden: [batch, seq, hidden], the span's input.
+          grad_out: [batch, seq, hidden], the gradient at its output.
+          prompts: deep prompts [n_blocks, batch, pre_seq, hidden], added to
+            each block's input over positions [0, pre_seq).
+          active_adapter: a LoRA adapter of ``adapters`` to apply.
+
+        Returns (grad_hidden [batch, seq, hidden], grad_prompts [n_blocks,
+        batch, pre_seq, hidden] or None), in the compute dtype on the
+        device."""
+        params = self.params_for(active_adapter)
+        h = _as_tensor(hidden, self.device, self.compute_dtype)
+        g = _as_tensor(grad_out, self.device, self.compute_dtype)
+        if tuple(g.shape) != tuple(h.shape):
+            raise ValueError(f"grad_out {tuple(g.shape)} does not match hidden {tuple(h.shape)}")
+        pre = 0
+        if prompts is not None:
+            prompts = _as_tensor(prompts, self.device, self.compute_dtype)
+            pre = prompts.shape[2]
+        inputs = []
+        with torch.no_grad():
+            for i, p_block in enumerate(params):
+                if pre:
+                    h = torch.cat([h[:, :pre] + prompts[i], h[:, pre:]], dim=1)
+                inputs.append(h)
+                h = self._train_block(p_block, h)
+        grad_prompts = torch.zeros_like(prompts) if prompts is not None else None
+        for i in reversed(range(len(params))):
+            x = inputs[i].detach().requires_grad_(True)
+            with torch.enable_grad():
+                out = self._train_block(params[i], x)
+                (g,) = torch.autograd.grad(out, x, g)
+            inputs[i] = None  # the block's input is spent: free it
+            if pre:
+                grad_prompts[i] = g[:, :pre]
+        return g, grad_prompts
+
+    def _train_block(self, p_block: dict, h: torch.Tensor) -> torch.Tensor:
+        """One block on the training path, as the JAX package's ``_forward_fn``
+        runs it: causal attention over the chunk itself, in plain attention
+        (``use_flash=False``) on a fresh dense K/V buffer, position 0."""
+        shape = (h.shape[0], h.shape[1], self.num_kv_heads, self.head_dim)
+        kv_buf = (torch.zeros(shape, dtype=self.compute_dtype, device=self.device),
+                  torch.zeros(shape, dtype=self.compute_dtype, device=self.device))
+        out, _ = self.family.block_apply(p_block, h, kv_buf, 0, self.cfg, use_flash=False)
+        return out
 
     @torch.no_grad()
     def batched_decode_step(self, hidden, pool_kv, positions):
@@ -1176,7 +1282,7 @@ class TransformerBackend:
 
     @torch.no_grad()
     def generate_tokens(self, gen_params: dict, last_hidden, kv, position: int, n_tokens: int, *,
-                        sampling: Optional[dict] = None):
+                        sampling: Optional[dict] = None, active_adapter: Optional[str] = None):
         """Generate ``n_tokens`` on a private DENSE cache from
         ``last_hidden`` (the span output of the last fed token): greedy, or
         sampled under a validated ``sampling`` dict. The first token comes
@@ -1189,8 +1295,10 @@ class TransformerBackend:
         (the JAX package's ``server_gen``), keyed like the private decode
         step. The previous token and the seen-token mask come from the last
         step's outputs on the card; the uniforms (computed on the host) are
-        an input; one sync at the end. Returns (tokens [batch, n_tokens]
+        an input; one sync at the end. ``active_adapter`` names the LoRA
+        adapter applied (part of the key). Returns (tokens [batch, n_tokens]
         int32 on the host, kv)."""
+        params = self.params_for(active_adapter)
         k_stack, v_stack = kv
         batch, n_tokens, position = k_stack.shape[1], int(n_tokens), int(position)
         if position + n_tokens - 1 > k_stack.shape[2]:
@@ -1216,9 +1324,9 @@ class TransformerBackend:
         tokens = [tok]
 
         def step(tok, pos, *state):
-            return self._private_gen_eager(gen_params, (k_stack, v_stack), tok, pos, state)
+            return self._private_gen_eager(gen_params, (k_stack, v_stack), tok, pos, state, params=params)
 
-        key = dense_program_key("server_gen", 0, self.quant_type, (k_stack, v_stack), sampled,
+        key = dense_program_key("server_gen", 0, self.quant_type, (k_stack, v_stack), sampled, active_adapter,
                                 extra=tuple(gen_params.values()))
         for i in range(1, n_tokens):
             pos = torch.tensor(position + i - 1, dtype=torch.int32)
@@ -1233,7 +1341,7 @@ class TransformerBackend:
             tokens.append(tok)
         return torch.stack(tokens, dim=1).to(torch.int32).cpu().numpy(), kv
 
-    def _private_gen_eager(self, gen_params: dict, kv, tok, position, state=()):
+    def _private_gen_eager(self, gen_params: dict, kv, tok, position, state=(), params=None):
         """One private generation step, launched op by op (what the CPU
         runs, and what its program captures): the previous token's float32
         embedding cast to the cache's type, the dense decode step at
@@ -1245,7 +1353,7 @@ class TransformerBackend:
         k_stack, v_stack = kv
         tok = _as_tensor(tok, self.device, torch.long)
         h = self.family.client_embed(gen_params, tok[:, None], self.cfg).to(k_stack.dtype)
-        (h,) = self._dense_step_eager(h, k_stack, v_stack, position, 1)
+        (h,) = self._dense_step_eager(h, k_stack, v_stack, position, 1, params=params)
         if not state:
             logits = self.family.client_head(gen_params, h[:, -1:], self.cfg)[:, -1, :]
             return (torch.argmax(logits, dim=-1),)

@@ -1,8 +1,8 @@
 """RPC surface of a port server: ``ptu.inference`` sessions, the stateless
-``ptu.forward``, the integrity probe ``ptu.probe`` and ``ptu.info`` (the
-subset of petals_tpu/server/handler.py this port serves). The frames and
-tensor encodings are those of a petals_tpu server, so petals_tpu clients
-drive it unchanged.
+``ptu.forward`` and its ``ptu.backward``, the integrity probe ``ptu.probe``
+and ``ptu.info`` (the subset of petals_tpu/server/handler.py this port
+serves). The frames and tensor encodings are those of a petals_tpu server,
+so petals_tpu clients drive it unchanged.
 
 The stateless forward (petals_tpu/server/handler.py:1253-1281): ``{uids,
 tensors: {hidden, prompts?}, compression?}`` runs the span's ``forward``
@@ -11,6 +11,22 @@ tensors: {hidden, prompts?}, compression?}`` runs the span's ``forward``
 replies ``{tensors: {hidden}}`` in the reply codec. A step that timed out
 still finishes on the compute thread (a running step cannot be cancelled)
 and its result is dropped.
+
+The backward (petals_tpu/server/handler.py:1283-1320): ``{uids, tensors:
+{hidden, grad_out, prompts?}, compression?, active_adapter?}`` runs the
+span's ``backward`` (the blocks recomputed under autograd) on the task
+queue at ``PRIORITY_TRAINING`` under ``request_timeout`` and replies
+``{tensors: {grad_hidden, grad_prompts?}}`` in the reply codec, with
+petals_tpu's shape checks and texts.
+
+LoRA adapters (utils/peft.py): ``ptu.forward``, ``ptu.backward`` and the
+inference open take ``active_adapter``, the name of one of the adapters
+the server hosts; an unknown name is refused up front with petals_tpu's
+KeyError text. An adapter session never takes a lane of the shared pool
+(its graphs would address the pool's weights without the adapter's) and
+never reads or writes the prefix cache (its rows are the adapter's own):
+it gets a private cache, and its steps and generated tokens apply the
+adapter.
 
 The integrity probe (:1362-1404): a caller-seeded golden input
 (``RandomState(seed & 0x7FFFFFFF)``, scaled by 0.02, 1 to 16 tokens) runs
@@ -105,8 +121,6 @@ step's reply also go to the next server's session (``ptu.push``), which
 serves whichever copy of a ``step_id`` comes first and skips the other; a
 step with deep prompts is not pushed. A draining server refuses new
 sessions and every further step.
-
-Refused with a clear error: adapters.
 """
 
 from __future__ import annotations
@@ -237,6 +251,7 @@ class TransformerHandler:
     def register(self, server: RpcServer) -> None:
         server.add_unary_handler("ptu.info", self.rpc_info)
         server.add_unary_handler("ptu.forward", self.rpc_forward)
+        server.add_unary_handler("ptu.backward", self.rpc_backward)
         server.add_unary_handler("ptu.probe", self.rpc_probe)
         server.add_unary_handler("ptu.push", self.rpc_push)
         server.add_unary_handler("ptu.session_export", self.rpc_session_export)
@@ -294,7 +309,12 @@ class TransformerHandler:
                 compute_dtype=b.compute_dtype, max_chunk_size_bytes=b.max_chunk_size_bytes,
                 quant_type=b.quant_type, use_flash=b.use_flash,
             )
-        return self._sub_backends[key]
+        sub = self._sub_backends[key]
+        # the adapters' blocks of the slice, as the span's own (loaded or
+        # replaced after the slice was made)
+        sub.adapters = {name: (per_block[start:end], scaling)
+                        for name, (per_block, scaling) in self.backend.adapters.items()}
+        return sub
 
     def _validate_step_tensors(self, hidden, prompts, hypo_ids, batch_size: int, n_blocks: int) -> None:
         """Reject malformed step tensors with a clean error instead of an
@@ -339,8 +359,8 @@ class TransformerHandler:
     async def rpc_forward(self, payload, ctx: RpcContext):
         """A stateless forward of ``hidden`` [batch, seq, hidden] (and deep
         ``prompts`` [n_blocks, batch, pre_seq, hidden]) through the asked
-        blocks: petals_tpu's ``rpc_forward``, adapters refused as the
-        inference open refuses them."""
+        blocks, with the ``active_adapter`` if one is named: petals_tpu's
+        ``rpc_forward``."""
         start, end = self._parse_chain(payload["uids"])
         reply_comp = self._reply_compression(payload)  # a bad codec is refused up front
         hidden = self._get_tensor(payload, "hidden")
@@ -351,20 +371,59 @@ class TransformerHandler:
                 f"rpc_forward expects a [batch, seq, hidden={hsz}] "
                 f"tensor, got {None if hidden is None else tuple(hidden.shape)}"
             )
-        if payload.get("active_adapter") is not None:
-            raise ValueError("adapters are not supported by this server yet")
         backend = self._sub_backend(start, end)
+        adapter = payload.get("active_adapter")
+        backend.params_for(adapter)  # an unknown adapter is refused up front
         size = hidden.shape[0] * hidden.shape[1]
 
         def run_forward():
             with device_annotation("rpc_forward"):  # on the compute thread
-                return backend.forward(hidden, prompts=prompts).cpu()
+                return backend.forward(hidden, prompts=prompts, active_adapter=adapter).cpu()
 
         with get_tracer().span("rpc_forward", annotate=False, blocks=end - start, tokens=size):
             out = await asyncio.wait_for(
                 self.queue.submit(run_forward, priority=PRIORITY_TRAINING, size=size), self.request_timeout
             )
         return {"tensors": {"hidden": serialize_array(out, reply_comp)}}
+
+    async def rpc_backward(self, payload, ctx: RpcContext):
+        """The gradients of the asked blocks' output, weighted by
+        ``grad_out``, at their input ``hidden`` and at the deep ``prompts``:
+        petals_tpu's ``rpc_backward`` (the blocks recomputed from ``hidden``
+        under autograd, ``backend.backward``)."""
+        start, end = self._parse_chain(payload["uids"])
+        reply_comp = self._reply_compression(payload)  # a bad codec is refused up front
+        hidden = self._get_tensor(payload, "hidden")
+        grad_out = self._get_tensor(payload, "grad_out")
+        prompts = self._get_tensor(payload, "prompts")
+        if hidden is None or grad_out is None:
+            raise ValueError("rpc_backward expects hidden and grad_out tensors")
+        hsz = self.backend.hidden_size
+        if hidden.dim() != 3 or hidden.shape[2] != hsz:
+            raise ValueError(
+                f"rpc_backward expects a [batch, seq, hidden={hsz}] tensor, got {tuple(hidden.shape)}"
+            )
+        if grad_out.shape != hidden.shape:
+            raise ValueError(f"grad_out shape {tuple(grad_out.shape)} != hidden shape {tuple(hidden.shape)}")
+        backend = self._sub_backend(start, end)
+        adapter = payload.get("active_adapter")
+        backend.params_for(adapter)  # an unknown adapter is refused up front
+        size = hidden.shape[0] * hidden.shape[1]
+
+        def run_backward():
+            with device_annotation("rpc_backward"):  # on the compute thread
+                grad_hidden, grad_prompts = backend.backward(hidden, grad_out, prompts=prompts,
+                                                             active_adapter=adapter)
+                return grad_hidden.cpu(), None if grad_prompts is None else grad_prompts.cpu()
+
+        with get_tracer().span("rpc_backward", annotate=False, blocks=end - start, tokens=size):
+            grad_hidden, grad_prompts = await asyncio.wait_for(
+                self.queue.submit(run_backward, priority=PRIORITY_TRAINING, size=size), self.request_timeout
+            )
+        tensors = {"grad_hidden": serialize_array(grad_hidden, reply_comp)}
+        if grad_prompts is not None:
+            tensors["grad_prompts"] = serialize_array(grad_prompts, reply_comp)
+        return {"tensors": tensors}
 
     async def rpc_probe(self, payload, ctx: RpcContext):
         """The integrity canary probe: a caller-seeded golden input through
@@ -456,8 +515,7 @@ class TransformerHandler:
             )
         batch_size = int(open_msg.get("batch_size", 1))
         reply_comp = self._reply_compression(open_msg)
-        if open_msg.get("active_adapter") is not None:
-            raise ValueError("adapters are not supported by this server yet")
+        active_adapter = open_msg.get("active_adapter")
         trace_id = normalize_trace_id(open_msg.get("trace_id")) or new_trace_id()
         t_session = time.perf_counter()  # TTFT runs from here to the first content reply
         session_id = open_msg.get("session_id")
@@ -473,11 +531,13 @@ class TransformerHandler:
             hint = open_msg.get("peer_hint")
             peer = str(hint)[:64] if hint else None
         backend = self._sub_backend(start, end)
+        backend.params_for(active_adapter)  # an unknown adapter is refused up front
         batcher = self.batcher
         alloc_timeout = open_msg.get("alloc_timeout")
         lane: Optional[int] = None
         t_open = time.perf_counter()
-        if batch_size == 1 and (start, end) == (0, self.backend.n_blocks) and max_length <= batcher.max_length:
+        if (batch_size == 1 and active_adapter is None and (start, end) == (0, self.backend.n_blocks)
+                and max_length <= batcher.max_length):
             try:
                 lane = await batcher.acquire_lane(
                     timeout=30.0 if alloc_timeout is None else alloc_timeout,
@@ -566,7 +626,7 @@ class TransformerHandler:
                         continue
                     position, reply, pending_store = await self._serve_step(
                         step, t_recv, ctx, backend, batcher, lane, kv, (start, end), batch_size, max_length,
-                        position, reply_comp, peer, push_to,
+                        position, reply_comp, peer, push_to, active_adapter,
                     )
                     if reg is not None:
                         reg["position"] = position
@@ -633,11 +693,12 @@ class TransformerHandler:
         return next_step, cleanup
 
     async def _serve_step(self, step, t_recv, ctx, backend, batcher, lane, kv, span, batch_size, max_length,
-                          position, reply_comp, peer, push_to=None):
+                          position, reply_comp, peer, push_to=None, active_adapter=None):
         """One step of a session: returns (the new position, the reply, the
         prefix store it started or None). A reply of hidden states to a step
         without deep prompts is also pushed to ``push_to``, after it is
-        serialized and off its path."""
+        serialized and off its path. An adapter session's steps apply
+        ``active_adapter`` and skip the prefix cache."""
         start, end = span
         start_from = step.get("start_from_position")
         if start_from is not None:
@@ -658,7 +719,7 @@ class TransformerHandler:
         keys, n_hit, prefix_out = None, 0, None
         if (
             self.prefix_cache is not None and position == 0 and batch_size == 1 and prompts is None
-            and hypo_ids is None and seq >= SEGMENT_TOKENS
+            and hypo_ids is None and active_adapter is None and seq >= SEGMENT_TOKENS
             # "peer" scope isolates clients by their proven identity: a client
             # without one is not cached at all (a shared salt would merge them
             # back into one timing-observable pool)
@@ -682,7 +743,7 @@ class TransformerHandler:
             with get_tracer().span("inference_step", annotate=False, blocks=end - start, batch=batch_size, seq=seq):
                 out, variant, timing, step_fp = await asyncio.wait_for(
                     self._run_step(backend, batcher, lane, kv, hidden[:, hit_len:], position + hit_len, prompts,
-                                   hypo_ids),
+                                   hypo_ids, active_adapter),
                     self.step_timeout,
                 )
             if prefix_out is not None:  # the cached outputs ahead of the tail's
@@ -696,7 +757,8 @@ class TransformerHandler:
         if gen_n:
             t_gen = time.perf_counter()
             tokens, gen_timing = await asyncio.wait_for(
-                self._generate(backend, batcher, lane, kv, out[:, -1:], position, gen_n, gen_sampling),
+                self._generate(backend, batcher, lane, kv, out[:, -1:], position, gen_n, gen_sampling,
+                               active_adapter),
                 self.step_timeout,
             )
             if lane is not None:
@@ -1386,18 +1448,20 @@ class TransformerHandler:
             raise ValueError(f"Generating {gen_n} tokens at position {position} exceeds max_length {max_length}")
         return gen_n, sampling
 
-    async def _generate(self, backend, batcher, lane, kv, last_hidden, position: int, gen_n: int, sampling):
+    async def _generate(self, backend, batcher, lane, kv, last_hidden, position: int, gen_n: int, sampling,
+                        active_adapter=None):
         """``gen_n`` tokens from ``last_hidden`` [1, 1, hidden]: a pooled
         session's through the batcher's generation steps, a private one's
-        through ``generate_tokens`` on the task queue. Returns (tokens [1,
-        gen_n], the batcher's queue/compute split or None)."""
+        (an adapter session's among them) through ``generate_tokens`` on the
+        task queue. Returns (tokens [1, gen_n], the batcher's queue/compute
+        split or None)."""
         if lane is not None:
             tokens = await batcher.generate_lane(lane, last_hidden, position, gen_n, sampling=sampling)
             return tokens, batcher.pop_step_timing(lane)
 
         def run_gen():
             tokens, _ = backend.generate_tokens(self.server_gen_params, last_hidden, kv, position, gen_n,
-                                                sampling=sampling)
+                                                sampling=sampling, active_adapter=active_adapter)
             return tokens
 
         return await self.queue.submit(run_gen, priority=PRIORITY_INFERENCE, size=gen_n), None
@@ -1424,7 +1488,8 @@ class TransformerHandler:
         finally:
             batcher.release_lane(lane)
 
-    async def _run_step(self, backend, batcher, lane, kv, hidden, position: int, prompts, hypo_ids):
+    async def _run_step(self, backend, batcher, lane, kv, hidden, position: int, prompts, hypo_ids,
+                        active_adapter=None):
         """One step on the path its session and shape select; returns (out
         on the host, the step_meta variant, the batcher's queue/compute split
         or None, the step program's fused fingerprint of the last row or
@@ -1473,7 +1538,8 @@ class TransformerHandler:
             return out, "exclusive", None, None
 
         def run_step():
-            out, _ = backend.inference_step(hidden, kv, position, prompts=prompts, hypo_ids=hypo_ids)
+            out, _ = backend.inference_step(hidden, kv, position, prompts=prompts, hypo_ids=hypo_ids,
+                                            active_adapter=active_adapter)
             return out.cpu()  # waits for the step to finish on the device
 
         out = await self.queue.submit(run_step, priority=PRIORITY_INFERENCE, size=batch_size * seq)

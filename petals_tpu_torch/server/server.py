@@ -1,7 +1,7 @@
 """The port's server entry point: host a span of blocks of one local
 checkpoint, serve ``ptu.inference`` / ``ptu.info`` on ``host:port``, and take
 part in a petals_tpu swarm (petals_tpu/server/server.py without the
-rebalance loop and adapters).
+rebalance loop).
 
 ``start()`` runs the swarm life cycle in petals_tpu's order: it makes the
 node's identity (``identity_seed``), listens with it, joins the DHT on the
@@ -88,6 +88,13 @@ digest is reused by later ones: a span's weights do not change while it
 serves, and the chaos plane's ``integrity.corrupt`` site, the one thing
 petals_tpu re-probes every announce for, is not ported (ROADMAP A15).
 ``request_timeout`` bounds a stateless forward or probe.
+
+LoRA adapters (petals_tpu/server/server.py:851-861): ``adapters`` lists
+PEFT checkpoint directories; each is loaded for the span's blocks
+(utils/peft.py) when the span loads, kept per block in the compute dtype
+on the device, and announced by name (sorted); requests pick one with
+``active_adapter``. A span with adapters loads unfused, as petals_tpu's
+does: the adapters target the separate projections.
 
 Runs on the CUDA card unless the caller passes ``device="cpu"``; a missing
 card raises instead of drifting to the CPU.
@@ -216,6 +223,7 @@ class Server:
         spec_k: int = 4,  # drafts verified per lane per tick when draft_model is set
         draft_window: Optional[int] = None,  # the draft's context window in tokens; None: 64
         draft_quant_type: str = "nf4a",  # the draft's block quantization
+        adapters: Sequence[str] = (),  # PEFT checkpoint dirs to host (utils/peft.py)
     ):
         if phase_tier not in PHASE_TIERS:
             raise ValueError(f"phase_tier must be one of {PHASE_TIERS}, got {phase_tier!r}")
@@ -309,6 +317,7 @@ class Server:
         self.draft_window = draft_window
         self.draft_quant_type = draft_quant_type
         self._draft_model = None  # loaded with the span (_load_draft_model)
+        self.adapter_paths = list(adapters)
         self.identity: Optional[Identity] = None
 
         self.queue = PriorityTaskQueue()
@@ -329,14 +338,15 @@ class Server:
         """Load blocks [first_block, first_block + num_blocks) and build the
         backend, the batcher and the handler over them. One block at a time:
         its dense weights are freed once quantized (fused qkv / gate+up, as
-        the JAX server fuses on one device)."""
+        the JAX server fuses on one device, unless adapters target the
+        separate projections)."""
         first, n = self.first_block, self.num_blocks
         params = [
             convert_block_params(
                 load_block_params(
                     self.model_path, i, dtype=self.compute_dtype, device=self.device, family=self.family, cfg=self.cfg
                 ),
-                self.family.name, self.quant_type, fuse=True,
+                self.family.name, self.quant_type, fuse=not self.adapter_paths,
             )
             for i in range(first, first + n)
         ]
@@ -346,6 +356,7 @@ class Server:
             max_chunk_size_bytes=self.max_chunk_size_bytes, quant_type=self.quant_type,
             kv_quant_type=self.kv_quant_type,
         )
+        self._install_adapters(self.backend)
         self.server_gen_params = self._load_server_gen_params()
         draft = self._load_draft_model()
         spec_k = self.spec_k if self.draft_model_path else None
@@ -382,6 +393,20 @@ class Server:
             prefix_device_bytes=self.prefix_device_bytes, prefix_cache_policy=self.prefix_cache_policy,
             identity=self.identity,
         )
+
+    def _install_adapters(self, backend: TransformerBackend) -> None:
+        """Load every adapter of ``adapter_paths`` for the span's blocks onto
+        ``backend``, keyed by name."""
+        if not self.adapter_paths:
+            return
+        from petals_tpu_torch.utils.peft import load_adapter, stack_adapter
+
+        block_range = range(self.first_block, self.first_block + self.num_blocks)
+        for path in self.adapter_paths:
+            adapter = load_adapter(path, self.family.name, block_range=block_range)
+            per_block = stack_adapter(adapter, self.first_block, self.num_blocks, self.compute_dtype, self.device)
+            backend.adapters[adapter.name] = (per_block, adapter.scaling)
+        logger.info(f"Hosting adapters: {sorted(backend.adapters)}")
 
     def _load_draft_model(self):
         """The speculative-decoding draft (server/spec_decode.py), loaded
@@ -673,7 +698,7 @@ class Server:
             version=petals_tpu_torch.__version__,
             compute_dtype=str(self.compute_dtype).removeprefix("torch."),
             quant_type=self.quant_type,
-            adapters=(),
+            adapters=tuple(sorted(self.backend.adapters) if self.backend is not None else ()),
             cache_tokens_left=cache_tokens_left,
             next_pings=dict(self._next_pings) or None,
             # a whole-model server holding the client's leaves generates,

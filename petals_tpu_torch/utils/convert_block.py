@@ -1,6 +1,8 @@
 """Turn a block's dense parameters into the served form: quantized matmul
 weights, with qkv and gate+up fused for single-card serving (the port of
-petals_tpu/utils/convert_block.py; LoRA adapters wait for their slice)."""
+petals_tpu/utils/convert_block.py). A span that hosts LoRA adapters
+loads unfused: the adapters target the separate projections
+(utils/peft.py)."""
 
 from __future__ import annotations
 

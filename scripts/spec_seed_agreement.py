@@ -9,7 +9,8 @@ token (the rule "at least half of a stream's draws", ROADMAP C14):
 this repository), for example a parent commit unpacked with git archive.
 Builds that tree's kernels, writes chip_smoke.py's seeded checkpoint once
 under the tree's build/ and reuses it, then runs the two sampled streams
-at SEED_A and SEED_B (and the two greedy ones) with the checks and prints
+at SEED_A and SEED_B (SPEC_SAMPLED_NEW draws each, as the smoke's run b;
+and the two greedy ones) with the checks and prints
 of the smoke, each stream's line naming its agreement count. The last
 line is "RESULT PASS" or "RESULT FAIL" with what failed. Run one process
 per seed pair.
@@ -60,7 +61,8 @@ def main() -> int:
     label = f"run b at seeds {args.seeds[0]}, {args.seeds[1]}"
     try:
         smoke._spec_run(label, small, smoke.SPEC_DRAFT_BLOCKS, device, smi,
-                        ("--draft_model", small, "--kv_quant_type", "nf4a", *common), "nf4a")
+                        ("--draft_model", small, "--kv_quant_type", "nf4a", *common), "nf4a",
+                        smoke.SPEC_SAMPLED_NEW)
         print("RESULT PASS", flush=True)
     except AssertionError as e:
         print("RESULT FAIL", e, flush=True)

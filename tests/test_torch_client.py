@@ -291,12 +291,14 @@ def test_waiting_parts_raise_with_their_slice(port_route):
     assert tuple(port_model.forward(_ids(1, (1, 4))).shape) == (1, 4, port_model.cfg.vocab_size)
     hsz = port_model.cfg.hidden_size
     assert tuple(port_model.remote.forward(torch.zeros(1, 4, hsz)).shape) == (1, 4, hsz)
-    with pytest.raises(NotImplementedError, match="A13"):
-        port_model.remote.backward(torch.zeros(1, 4, hsz))
-    with pytest.raises(NotImplementedError, match="A13"):
-        port_model.generate(_ids(1, (1, 4)), max_new_tokens=2, prompts=np.zeros((4, 1, 2, 64), np.float32))
-    with pytest.raises(NotImplementedError, match="A13"):
-        ClientConfig(active_adapter="lora")
+    # the training slice (A13) is ported: backward answers, deep prompts
+    # generate, and an adapter name is taken
+    out, histories, spans = port_model.remote.forward_with_state(torch.zeros(1, 4, hsz))
+    grad_in, grad_prompts = port_model.remote.backward(torch.ones(1, 4, hsz), histories, spans)
+    assert tuple(grad_in.shape) == (1, 4, hsz) and grad_prompts is None
+    got = port_model.generate(_ids(1, (1, 4)), max_new_tokens=2, prompts=np.zeros((4, 1, 2, 64), np.float32))
+    assert got.shape == (1, 6)
+    assert ClientConfig(active_adapter="lora").active_adapter == "lora"
     assert ClientConfig(compression="qint8").compression == "qint8"  # the codec is ported
     # the KV-migration knobs are ported: petals_tpu's defaults, any value taken
     assert ClientConfig().use_server_to_server and ClientConfig().disagg_handoff

@@ -565,7 +565,7 @@ def test_dense_pool_prefill_interleaves_chunks(model_path):
 
 
 def test_adapters_refused_and_server_gen_limited_to_whole_model_batch_1(model_path):
-    """Adapters are refused; server-side generation is served to a
+    """An adapter the server does not host is refused; server-side generation is served to a
     whole-model session of batch 1 only (tests/test_torch_server_gen.py),
     so a batch-2 session's ``gen_tokens`` gets petals_tpu's refusal; a step
     of the wrong batch is refused by the step validation."""
@@ -578,7 +578,7 @@ def test_adapters_refused_and_server_gen_limited_to_whole_model_batch_1(model_pa
             base = {"uids": _uids(model_path), "max_length": 64, "batch_size": 2}
             stream = await client.open_stream("ptu.inference")
             await stream.send({**base, "active_adapter": "lora"})
-            with pytest.raises(RpcError, match="not supported by this server yet"):
+            with pytest.raises(RpcError, match="Adapter 'lora' is not loaded on this server"):
                 await stream.recv(timeout=60)
             stream = await client.open_stream("ptu.inference")
             await stream.send(base)

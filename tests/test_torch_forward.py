@@ -9,8 +9,8 @@
   equal their outputs over two petals_tpu servers; the port's client gives
   the JAX client's logits over the same chain, and splits a batch of more
   than ``MAX_TOKENS_IN_BATCH`` tokens as the JAX client does.
-- An ``active_adapter`` is refused as the inference open refuses it, and a
-  malformed hidden with petals_tpu's text; a forward that outlives
+- An ``active_adapter`` the server does not host is refused as the
+  inference open refuses it, and a malformed hidden, with petals_tpu's text; a forward that outlives
   ``request_timeout`` times out, and the next one is served.
 
 Every wait is bounded."""
@@ -121,7 +121,7 @@ def test_forward_refusals_match_petals_tpu(pair, model_path):
     assert all(want in t for t in texts), texts
     adapter = {"uids": uids, "tensors": {"hidden": serialize_array(np.zeros((1, 3, hsz), np.float32))},
                "active_adapter": "lora-x"}
-    with pytest.raises(Exception, match="adapters are not supported by this server yet"):
+    with pytest.raises(Exception, match="Adapter 'lora-x' is not loaded on this server"):
         pair.forward("port", adapter)
 
     async def open_with_adapter():
@@ -129,7 +129,7 @@ def test_forward_refusals_match_petals_tpu(pair, model_path):
         await stream.send({"uids": uids, "max_length": 16, "batch_size": 1, "active_adapter": "lora-x"})
         return await stream.recv(timeout=30)
 
-    with pytest.raises(Exception, match="adapters are not supported by this server yet"):
+    with pytest.raises(Exception, match="Adapter 'lora-x' is not loaded on this server"):
         pair.loop.run(open_with_adapter())
 
 

@@ -154,7 +154,7 @@ def test_concurrent_prefill_and_decode_match_jax(model_path):
 
 
 def test_unsupported_steps_get_a_clear_error(model_path):
-    """Adapters are refused as not supported yet, a KV import without its
+    """An adapter the server does not host is refused by name, a KV import without its
     tensors with petals_tpu's error, and a push_to naming no reachable peer
     does not hold the step's reply back,
     and server-side generation outside a whole-model session (a sub-span)
@@ -192,7 +192,8 @@ def test_unsupported_steps_get_a_clear_error(model_path):
             await stream.send({"tensors": {"hidden": hidden}, "push_to": {"addr": "x", "session_id": "y"}})
             assert (await stream.recv(timeout=60))["position"] == 2
             await stream.end()
-            await expect_refusal(client, {**good, "active_adapter": "lora"})
+            await expect_refusal(client, {**good, "active_adapter": "lora"},
+                                 match="Adapter 'lora' is not loaded on this server")
             for open_msg in ({**good, "batch_size": 2}, {**good, "uids": _uids(model_path).split(" ")[0]}):
                 stream = await client.open_stream("ptu.inference")
                 await stream.send(open_msg)
