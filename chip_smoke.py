@@ -466,7 +466,7 @@
    forward's graphs at most one a bucket, C12) and Phi-3's at 3000 and 4200
    tokens (K4 at head_dim 96; LongRoPE's short and long factors), every
    forward held to the dense references.
-24. Training and adapters (serve_training_and_check, last; alone:
+24. Training and adapters (serve_training_and_check; alone:
    scripts/smoke_training.py). (a) The 8-block bf16 span served by the CLI:
    a port client's forward and ptu.backward of TRAIN_BATCH x TRAIN_SEQ
    tokens with TRAIN_PRE deep-prompt rows, grad_hidden and grad_prompts
@@ -490,6 +490,36 @@
    it, switching between them after warm-up captures nothing, and an
    adapter session's greedy stream (server-side generation on a private
    cache, no lane) held as phase 16 holds greedy tokens.
+25. Swarm operations (serve_swarm_ops_and_check, last; alone:
+   scripts/smoke_swarm_ops.py), servers built by the CLI on one loop
+   thread with a port DHT bootstrap. (a) An nf4a server of OPS_SPAN
+   blocks started twice over one --cache_dir under build/: the cold start
+   quantizes on the card and writes the quantized-block cache, the warm
+   start reads it (every block a hit, the same bits); each start's session
+   (a 300-token prompt, 8 steps) held to the references over the
+   dequantized weights, K5 launched on both; both load walls printed. (b)
+   Two bf16 servers at [0, 4) of the 8-block cut, one with
+   --mean_balance_check_period: its balance loop must move it to [4, 8)
+   (the move is waited for; a failed check only logs), its old span freed,
+   its reload wall split into the load and the new pool's step programs; a
+   session through the chain held to the references; then a third server
+   at [0, 4) and the port's client: a greedy stream whose first server is
+   resized to [4, 8) mid-stream (its KV pushed to the replica, the client
+   adopting it there), the stream equal to the same prompt's undisturbed
+   one (or, where two streams part, each held to the dense references:
+   _same_or_tied). (c) A fourth server at [4, 8); a seeded chaos spec
+   drops one stream open, fails one step, drops one announce and corrupts
+   one replica's probe: the stream equals the unperturbed one, the plane's
+   log and petals_chaos_injections_total count each rule once, and the
+   quorum over three replicas names the corrupted one. (d) A seeded
+   TrafficConfig (two tenants with shared prefixes, the clock time-scaled)
+   replayed open-loop by run_schedule against a batched and a --no_batching
+   server of the 4-block cut: every session completes, the two servers'
+   streams equal (or tied), TTFT p50 / p99 and tokens/s printed beside the
+   card. (e) The Autoscaler over HealthMonitor snapshots of (b)'s servers
+   with the in-process server_actuator: its decision journal printed, its
+   resize carried out by Server.resize. The kernels line carries the
+   phase's launches of K1, K2, K4 and K5's nf4a arms (swarm_ops_launches).
 
 float32 matmuls run in full float32: TF32 is switched off for matmuls and
 convolutions. Exits non-zero on any failure. The last line is the JSON
@@ -504,7 +534,9 @@ arms and K6 from their short runs, K4 from the private sessions' run), and
 caches; ``forward_launches``: K4 and K5's nf4a prefill kernel on phase
 21's stateless forwards; ``training``: K4, K5 and K6 on phase 24's
 forwards, backwards and adapter sessions (with the backward's profile on
-K4's entry and the quantized spans' on K5 nf4a's and K6's prefill entries).
+K4's entry and the quantized spans' on K5 nf4a's and K6's prefill entries);
+``swarm_ops_launches``: K1, K2, K4 and K5's nf4a arms on phase 25's swarm
+operations.
 Every run prints its lanes, pages and pool bytes.
 """
 
@@ -513,6 +545,7 @@ from __future__ import annotations
 import asyncio
 import collections
 import contextlib
+import dataclasses
 import gc
 import json
 import os
@@ -660,6 +693,9 @@ DENSE_CHUNK_TOKENS = 512  # the dense pool's chunk bound, in tokens of activatio
 # the earlier phases count kernels, steps and chunks of traffic that would hit
 # the prefix cache (warm-ups, repeated prompts): their servers run without it
 NO_PREFIX_CACHE = ("--prefix_cache_bytes", "0")
+# no periodic announce inside a phase whose launch counts are exact: each
+# announce runs the self-probe, whose forward launches K4 on every block
+QUIET_ANNOUNCES = ("--update_period", "600")
 # phase 17: the prefix cache. Sessions share a PREFIX_SHARED-token prompt (8
 # segments of 128 tokens, 16 pages of 64) with tails of PREFIX_TAILS tokens;
 # an exact match of it decodes PREFIX_EXACT_STEPS tokens; a session that hit
@@ -739,6 +775,7 @@ FWD_SHAPES = ((1, 512, 0), (2, 300, 16), (3, 500, 0))  # (batch, seq, deep-promp
 FWD_LENGTHS = (96, 160, 224, 288, 352, 416, 480, 544)  # distinct lengths a swarm client may send
 FWD_SUB_SPAN = (4, 8)  # the nf4a server's blocks
 PROBE_TOKENS = (4, 16)
+SELF_PROBE_TOKENS = 4  # a server's self-probe at each announce (server.py _refresh_integrity)
 PROBE_SEEDS = (101, 202)
 TRACE_SECONDS = 8.0  # the --trace_dir capture's window from startup
 SPEC_VERIFY_POSITIONS = (100, 400, 700, 1000)
@@ -881,6 +918,19 @@ ADAPTER_RANK = 16
 ADAPTER_TARGETS = ("self_attn.q_proj", "self_attn.v_proj", "mlp.down_proj")
 ADAPTER_NEW = 16
 ADAPTER_PROMPT = 64
+# phase 25: swarm operations
+OPS_SPAN = 4  # each server's blocks: the 8-block cut holds two spans
+OPS_PROMPT = 300
+OPS_STEPS = 8
+OPS_NEW = 12  # the client's greedy tokens a stream
+OPS_CUT_AT = 4  # tokens of a stream generated before its server moves
+OPS_BALANCE_PERIOD = 1.0  # the moving server's --mean_balance_check_period
+OPS_MOVE_WAIT_S = 60.0  # the longest wait for the balance loop's move
+OPS_THROUGHPUT = {"A": 10.0, "B": 10.0, "C": 1.0, "D": 10.0, "E": 1.0}
+OPS_TRAFFIC = dict(seed=SEED + 25, duration_s=8.0, base_rate=2.0, wave_period_s=8.0, tenants=2, prompt_prefix_len=48,
+                   prompt_suffix_len=16, min_new_tokens=4, max_new_tokens=16)  # the model's vocabulary
+OPS_TIME_SCALE = 0.5  # the schedule's 8 s replayed in 4 s
+OPS_PROBE_SEED = 303
 # K7's case: a 512-row chunk at top-2 over Mixtral's 8 experts, skewed: one
 # expert empty, one taking half the rows
 GROUPED_SIZES = (512, 0, 160, 96, 64, 96, 48, 48)
@@ -3116,7 +3166,8 @@ def serve_private_and_check(ckpt, device, smi):
 
     label = "private sessions (bf16, 8 blocks)"
     server = build_server(build_parser().parse_args(
-        [ckpt, "--first_block", "0", "--num_blocks", str(SPAN), "--host", "127.0.0.1", *NO_PREFIX_CACHE]))
+        [ckpt, "--first_block", "0", "--num_blocks", str(SPAN), "--host", "127.0.0.1", *NO_PREFIX_CACHE,
+         *QUIET_ANNOUNCES]))
     sessions = (
         ("batch 2, whole span", (0, SPAN), PRIVATE_BATCH, PRIVATE_MAX_LENGTH, PRIVATE_STEPS),
         (f"sub-span [{SUB_SPAN[0]}, {SUB_SPAN[1]}), batch 1", SUB_SPAN, 1, 1024, SUB_SPAN_STEPS),
@@ -3190,7 +3241,7 @@ def serve_dense_pool_and_check(ckpt, device):
     per_token = 2 * (2 * cfg["hidden_size"] + cfg["intermediate_size"] + cfg["num_attention_heads"] * cfg["head_dim"])
     server = build_server(build_parser().parse_args([
         ckpt, "--first_block", "0", "--num_blocks", str(SPAN), "--host", "127.0.0.1", "--page_size", "0",
-        "--max_chunk_size_bytes", str(DENSE_CHUNK_TOKENS * per_token), *NO_PREFIX_CACHE,
+        "--max_chunk_size_bytes", str(DENSE_CHUNK_TOKENS * per_token), *NO_PREFIX_CACHE, *QUIET_ANNOUNCES,
     ]))
 
     async def serve():
@@ -4143,7 +4194,9 @@ def serve_gemma_phi3_and_check(root, device, smi) -> dict:
         def after(servers):
             if name == "gemma2":
                 prog = servers[0].backend._forward_program  # None on the CPU (a rehearsal): no graphs
-                buckets = {bucket_length(n) for n in GEMMA_PHI3_FWD_LENGTHS}
+                # and the self-probe's bucket: a server probes itself at every
+                # announce, through the same forward program
+                buckets = {bucket_length(n) for n in GEMMA_PHI3_FWD_LENGTHS} | {bucket_length(SELF_PROBE_TOKENS)}
                 extra["graphs"] = (len(getattr(prog, "_entries", ())), len(buckets))
 
         server_args = ["--first_block", "0", "--num_blocks", str(n_blocks), *long]
@@ -4175,7 +4228,7 @@ def serve_gemma_phi3_and_check(root, device, smi) -> dict:
         if name == "gemma2":
             graphs, n_buckets = extra["graphs"]
             log(f"{label}: C12: {graphs} forward graphs over {len(GEMMA_PHI3_FWD_LENGTHS)} distinct lengths "
-                f"({n_buckets} buckets)")
+                f"and the self-probe's ({n_buckets} buckets)")
             counts["forward_graphs"] = {"graphs": graphs, "lengths": len(GEMMA_PHI3_FWD_LENGTHS),
                                         "buckets": n_buckets}
             if graphs > n_buckets:
@@ -4668,7 +4721,8 @@ def serve_prefix_and_check(ckpt, device, smi, label, n_blocks, extra_args, priva
     from petals_tpu_torch.rpc import RpcClient
 
     server = build_server(build_parser().parse_args([
-        ckpt, "--first_block", "0", "--num_blocks", str(n_blocks), "--host", "127.0.0.1", *extra_args]))
+        ckpt, "--first_block", "0", "--num_blocks", str(n_blocks), "--host", "127.0.0.1", *QUIET_ANNOUNCES,
+        *extra_args]))
     hsz = server.cfg.hidden_size
     gen = torch.Generator().manual_seed(SEED + 17)
 
@@ -6762,6 +6816,384 @@ def serve_training_and_check(ckpt, device, smi) -> dict:
     return result
 
 
+class _FirstTokenClock:
+    """An HF streamer that notes the time from its creation to the first
+    put() after the prompt's: the client's time to its first new token."""
+
+    def __init__(self):
+        self.t0, self.first, self._puts = time.perf_counter(), None, 0
+
+    def put(self, value) -> None:
+        self._puts += 1
+        if self._puts == 2:
+            self.first = time.perf_counter() - self.t0
+
+    def end(self) -> None:
+        pass
+
+
+def _tensor_leaves(x) -> list:
+    """The tensors of a parameter leaf, a quantized one's pieces included."""
+    if isinstance(x, torch.Tensor):
+        return [x]
+    if dataclasses.is_dataclass(x):
+        return [t for f in dataclasses.fields(x) for t in _tensor_leaves(getattr(x, f.name))]
+    return []
+
+
+def _same_bits(params_a, params_b) -> bool:
+    """Whether two spans' parameters hold the same dtypes and bits."""
+    if len(params_a) != len(params_b):
+        return False
+    for pa, pb in zip(params_a, params_b):
+        for name in pa:
+            la, lb = _tensor_leaves(pa[name]), _tensor_leaves(pb[name])
+            if len(la) != len(lb) or not all(a.dtype == b.dtype and torch.equal(a, b) for a, b in zip(la, lb)):
+                return False
+    return True
+
+
+def _same_or_tied(label, got, want, prompt_len, block_params, ckpt, device):
+    """Two greedy streams of one prompt: equal, or, where they part, each
+    held to the dense references (_greedy_against: a near-tie both ways).
+    Returns what failed."""
+    got, want = np.asarray(got), np.asarray(want)
+    if got.shape == want.shape and (got == want).all():
+        return []
+    part = int(np.argmax(got[0] != want[0])) if got.shape == want.shape else -1
+    log(f"{label}: the streams part at position {part}: holding both to the dense references")
+    ref = {dt: dense_reference_params(block_params, dt) for dt in (torch.bfloat16, torch.float32)}
+    return (_greedy_against(f"{label} (this stream)", got, prompt_len, ref, ckpt, device)
+            + _greedy_against(f"{label} (the other)", want, prompt_len, ref, ckpt, device))
+
+
+async def _announced_online(peers, server, n_blocks) -> bool:
+    """Whether the directory reads ``server`` ONLINE on each block of its span."""
+    from petals_tpu_torch.data_structures import ServerState
+
+    infos, _ = await _read_directory(peers, server.dht_prefix, n_blocks)
+    return all(
+        infos[i] is not None and server.dht.peer_id in infos[i].servers
+        and infos[i].servers[server.dht.peer_id].state == ServerState.ONLINE
+        for i in range(server.first_block, server.first_block + server.num_blocks)
+    )
+
+
+async def _cancel_task(task) -> None:
+    task.cancel()
+    with contextlib.suppress(asyncio.CancelledError):
+        await task
+
+
+def serve_swarm_ops_and_check(ckpt, device, smi) -> dict:
+    """Phase 25: swarm operations on the card (alone: scripts/smoke_swarm_ops.py).
+    (a) an nf4a server started twice over one --cache_dir: the cold start
+    quantizes and writes the cache, the warm start reads it (the same bits),
+    each start's session held to the references; (b) two bf16 servers at
+    [0, 4) of the 8-block cut, the balance loop of one moving it to [4, 8),
+    a session through the chain held to the references, then a resize of a
+    server under a live client session (its KV pushed to a replica, the
+    stream going on equal); (c) the chaos plane: a dropped stream open, a
+    failed step, a dropped announce and one replica's corrupted probe, the
+    stream equal to the unperturbed one, each firing counted once and the
+    quorum naming the corrupted replica; (d) a seeded traffic schedule
+    against a batched and a --no_batching server of the 4-block cut,
+    every session completed, the streams equal, TTFT and tokens/s printed;
+    (e) the autoscaler over HealthMonitor snapshots of (b)'s servers, its
+    resize carried out by Server.resize. Returns the phase's launches of K1,
+    K2, K4 and K5's nf4a arms (the counters set to 0 as it starts)."""
+    import weakref
+
+    from petals_tpu_torch import chaos
+    from petals_tpu_torch.cli.run_server import build_parser, build_server
+    from petals_tpu_torch.client import AutoDistributedModelForCausalLM
+    from petals_tpu_torch.client.runtime import SwarmRuntime
+    from petals_tpu_torch.data_structures import CHAIN_DELIMITER, ServerState, make_uid
+    from petals_tpu_torch.dht import DHTNode
+    from petals_tpu_torch.ops import flash_attention as fa
+    from petals_tpu_torch.ops import fingerprint as fp_ops
+    from petals_tpu_torch.ops import paged_flash_attention as pfa
+    from petals_tpu_torch.rpc import RpcClient
+    from petals_tpu_torch.swarm import Autoscaler, PolicyConfig, server_actuator
+    from petals_tpu_torch.swarm.policy import snapshot_from_health
+    from petals_tpu_torch.telemetry import instruments as tm
+    from petals_tpu_torch.telemetry.integrity import quorum_outliers
+    from petals_tpu_torch.traffic import TrafficConfig, TrafficGenerator, run_schedule
+    from petals_tpu_torch.utils.health import HealthMonitor
+
+    t_phase = time.perf_counter()
+    cut = cut_checkpoint(ckpt, os.path.join(ckpt, f"mistral-7b-{SPAN}-layers-ops"), SPAN)
+    whole = cut_checkpoint(ckpt, os.path.join(ckpt, f"mistral-7b-{OPS_SPAN}-layers-ops"), OPS_SPAN)
+    os.makedirs(os.path.join(REPO, "build"), exist_ok=True)
+    cache_dir = tempfile.mkdtemp(prefix="quant-cache-", dir=os.path.join(REPO, "build"))
+    loop = SwarmRuntime()  # the servers' loop thread; the client runs its own
+    failed, live, models = [], [], []
+    boot = loop.run(DHTNode.create(host="127.0.0.1"), LOOP_TIMEOUT_S)
+    peers = [boot.own_addr.to_string()]
+
+    def start(path, *args):
+        server = build_server(build_parser().parse_args([
+            # every announce inside the phase is the phase's own
+            path, "--host", "127.0.0.1", "--initial_peers", *peers, *QUIET_ANNOUNCES, *NO_PREFIX_CACHE, *args]))
+        t0 = time.perf_counter()
+        loop.run(server.start(), LOOP_TIMEOUT_S)
+        live.append(server)
+        return server, time.perf_counter() - t0
+
+    def stop(server):
+        loop.run(server.shutdown(), LOOP_TIMEOUT_S)
+        live.remove(server)
+
+    def client(path):
+        # short bans and backoffs: a faulted hop is retried within the phase's time
+        model = AutoDistributedModelForCausalLM.from_pretrained(path, initial_peers=peers, min_backoff=0.1,
+                                                                max_backoff=1.0, ban_timeout=1.0)
+        models.append(model)
+        return model
+
+    def span_of(server):
+        return f"[{server.first_block}, {server.first_block + server.num_blocks})"
+
+    def reload_line(server):
+        st = server.load_stats
+        return (f"reload wall {st['load_s'] + st['warm_s']:.2f} s: the span's load {st['load_s']:.2f} s, the new "
+                f"pool's step programs {st['warm_s']:.2f} s")
+
+    _reset_launch_counts()  # the phase's main path: every launch from here on
+    try:
+        # (a) the quantized-block cache: the cold start writes it, the warm start reads it
+        label = f"swarm ops a (--quant_type nf4a, {OPS_SPAN} blocks, --cache_dir)"
+        runs = {}
+        for kind in ("cold", "warm"):
+            q0 = _quant_counts()
+            server, start_s = start(cut, "--block_indices", f"0:{OPS_SPAN}", "--quant_type", "nf4a",
+                                    "--cache_dir", cache_dir, "--throughput", "1")
+            inputs, replies, _, _, _ = loop.run(
+                drive_server(server, (OPS_PROMPT,), OPS_STEPS, SEED + 25), LOOP_TIMEOUT_S)
+            runs[kind] = dict(start_s=start_s, replies=replies[0], params=server.backend.block_params,
+                              stats=dict(server.load_stats), k5=_delta(_quant_counts(), q0), family=server.family,
+                              cfg=server.cfg)
+            st = runs[kind]["stats"]
+            log(f"{label}: {kind} start {start_s:.2f} s, of which the span's load {st['load_s']:.2f} s "
+                f"({st['cache_hits']} cache hits, {st['cache_misses']} misses); K5 launches {runs[kind]['k5']} ({smi})")
+            stop(server)
+            del server
+            free_card()
+        cold, warm = runs["cold"], runs["warm"]
+        if cold["stats"]["cache_misses"] != OPS_SPAN or warm["stats"]["cache_hits"] != OPS_SPAN:
+            failed.append(f"{label}: cache misses / hits {cold['stats']} / {warm['stats']}")
+        if not all(r["k5"].get("decode nf4a") and r["k5"].get("prefill nf4a") for r in runs.values()):
+            failed.append(f"{label}: K5's nf4a kernels did not run on both starts: {cold['k5']} / {warm['k5']}")
+        if not _same_bits(cold["params"], warm["params"]):
+            failed.append(f"{label}: the warm start's weights are not the cold start's bits")
+        (prompt, steps), = inputs
+        refs = [reference_session(dense_reference_params(warm["params"], dt), warm["family"], warm["cfg"], prompt,
+                                  steps, device, dt) for dt in (torch.bfloat16, torch.float32)]
+        for kind, run in runs.items():
+            failed += check_session(run["replies"], None, *refs, f"{label}: the {kind} start's session")
+        gap = max((a - b).abs().max().item() for a, b in zip(cold["replies"], warm["replies"]))
+        log(f"{label}: warm against cold start: load {warm['stats']['load_s']:.2f} s against "
+            f"{cold['stats']['load_s']:.2f} s; replies' largest difference {gap:.3e} ({smi})")
+        del runs, cold, warm, refs
+        free_card()
+
+        # (b) the balance loop moves one of two servers, then a resize under a live session
+        label = f"swarm ops b (bf16, two servers at [0, {OPS_SPAN}) of the {SPAN}-block cut)"
+        a, _ = start(cut, "--block_indices", f"0:{OPS_SPAN}", "--throughput", str(OPS_THROUGHPUT["A"]))
+        t_b = time.perf_counter()
+        b, _ = start(cut, "--block_indices", f"0:{OPS_SPAN}", "--throughput", str(OPS_THROUGHPUT["B"]),
+                     "--mean_balance_check_period", str(OPS_BALANCE_PERIOD))
+        old_backend = weakref.ref(b.backend)
+        deadline = time.perf_counter() + OPS_MOVE_WAIT_S
+        while not (b.first_block == OPS_SPAN and loop.run(_announced_online(peers, b, SPAN), LOOP_TIMEOUT_S)):
+            if time.perf_counter() > deadline:
+                raise AssertionError(f"{label}: B's balance loop did not move it in {OPS_MOVE_WAIT_S} s "
+                                     f"(it serves {span_of(b)}; the loop logs a failed check)")
+            time.sleep(0.1)
+        loop.run(_cancel_task(b._balancer_task), LOOP_TIMEOUT_S)  # no further move while the sessions run
+        log(f"{label}: B moved itself to {span_of(b)} {time.perf_counter() - t_b:.1f} s after its start; "
+            f"{reload_line(b)} ({smi})")
+        gc.collect()
+        if old_backend() is not None:
+            failed.append(f"{label}: B's old span (its backend and weights) outlived the move")
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+            log(f"{label}: {torch.cuda.memory_allocated(device) / 2**30:.2f} GiB allocated on the card after "
+                f"B's move (servers A and B, {OPS_SPAN} bf16 blocks each)")
+        if a.first_block != 0 or b.batcher._handles is None:
+            failed.append(f"{label}: A at {span_of(a)}, B's new pool open: {b.batcher._handles is not None}")
+        stubs = [loop.run(RpcClient.connect("127.0.0.1", s.rpc_server.port), LOOP_TIMEOUT_S) for s in (a, b)]
+        chain = [(stub, CHAIN_DELIMITER.join(make_uid(s.dht_prefix, i) for i in range(s.first_block,
+                                                                                           s.first_block + s.num_blocks)))
+                 for stub, s in zip(stubs, (a, b))]
+        before = _launch_counts()
+        inputs, outs, _ = loop.run(_drive_chain(chain, (OPS_PROMPT,), OPS_STEPS, SEED + 26, a.cfg.hidden_size),
+                                   LOOP_TIMEOUT_S)
+        launches = _delta(_launch_counts(), before)
+        for stub in stubs:
+            loop.run(stub.close(), LOOP_TIMEOUT_S)
+        log(f"{label}: a session through A {span_of(a)} -> B {span_of(b)}: launches {launches}")
+        if launches.get("K1", 0) < OPS_STEPS * SPAN or launches.get("K2", 0) < SPAN:
+            failed.append(f"{label}: the chain did not run K1 / K2 on every block: {launches}")
+        (prompt, steps), = inputs
+        block_params = a.backend.block_params + b.backend.block_params
+        refs = [reference_session(dense_reference_params(block_params, dt), a.family, a.cfg, prompt, steps, device, dt)
+                for dt in (torch.bfloat16, torch.float32)]
+        failed += check_session(outs[0], None, *refs, f"{label}: the session over B's new span")
+        del refs
+
+        label = f"swarm ops b (resize under a live session, {SPAN}-block cut)"
+        c, _ = start(cut, "--block_indices", f"0:{OPS_SPAN}", "--throughput", str(OPS_THROUGHPUT["C"]))
+        model = client(cut)
+        gen = torch.Generator().manual_seed(SEED + 27)
+        vocab = a.cfg.vocab_size
+        ids = torch.randint(0, vocab, (1, 64), generator=gen).numpy()
+        expected = model.generate(ids, max_new_tokens=OPS_NEW)
+        with model.remote.inference_session(max_length=ids.shape[1] + OPS_NEW, batch_size=1) as session:
+            first = model.generate(ids, max_new_tokens=OPS_CUT_AT, session=session)
+            front = session._session._sessions[0].span.peer_id.to_string()
+            if front != a.identity.peer_id.to_string():
+                raise AssertionError(f"{label}: the session did not start on A (throughput {OPS_THROUGHPUT['A']})")
+            if not loop.run(a.resize(OPS_SPAN), LOOP_TIMEOUT_S):
+                raise AssertionError(f"{label}: A's resize to [{OPS_SPAN}, {SPAN}) did nothing")
+            final = model.generate(first, max_new_tokens=OPS_NEW - OPS_CUT_AT, session=session)
+            after = session._session._sessions[0].span.peer_id.to_string()
+        pushes = a.handler.migration_stats["pushes"]
+        log(f"{label}: A resized to {span_of(a)} with a live session: {reload_line(a)}; KV pushes {pushes}, the "
+            f"session's first hop now {'C' if after == c.identity.peer_id.to_string() else after} ({smi})")
+        if a.first_block != OPS_SPAN or pushes != 1 or after != c.identity.peer_id.to_string():
+            failed.append(f"{label}: A at {span_of(a)}, {pushes} pushes, the session's first hop {after}")
+        ref_params = c.backend.block_params + b.backend.block_params
+        failed += _same_or_tied(label, final, expected, ids.shape[1], ref_params, cut, device)
+
+        # (c) chaos: each fault once, the stream as without them
+        label = "swarm ops c (chaos: a stream open, a step, an announce, a probe)"
+        # three replicas of [4, 8) for the quorum, two of [0, 4) so that a
+        # dropped stream open leaves the client a route
+        d, _ = start(cut, "--block_indices", f"{OPS_SPAN}:{SPAN}", "--throughput", str(OPS_THROUGHPUT["D"]))
+        e, _ = start(cut, "--block_indices", f"0:{OPS_SPAN}", "--throughput", str(OPS_THROUGHPUT["E"]))
+        ids = torch.randint(0, vocab, (1, 64), generator=gen).numpy()
+        unperturbed = model.generate(ids, max_new_tokens=OPS_NEW)
+        a_peer = a.identity.peer_id.to_string()
+        rules = [chaos.ChaosRule(chaos.SITE_RPC_STREAM, "drop", max_count=1),
+                 chaos.ChaosRule(chaos.SITE_HANDLER_STEP, "drop", max_count=1),
+                 chaos.ChaosRule(chaos.SITE_ANNOUNCE, "drop", max_count=1),
+                 chaos.ChaosRule(chaos.SITE_INTEGRITY_CORRUPT, "corrupt", match=f"{a_peer}:probe", max_count=1)]
+        counters = [tm.CHAOS_INJECTIONS.labels(site=r.site, action=r.action) for r in rules]
+        counted = [ctr.value for ctr in counters]
+        plane = chaos.configure(seed=SEED + 25, rules=rules)
+        try:
+            perturbed = model.generate(ids, max_new_tokens=OPS_NEW)
+            loop.run(d._announce(ServerState.ONLINE), LOOP_TIMEOUT_S)  # the announce the plane drops
+            digests = {name: np.asarray(loop.run(s.handler.rpc_probe({"seed": OPS_PROBE_SEED, "tokens": 4}, None),
+                                                 LOOP_TIMEOUT_S)["fp"], np.float32)
+                       for name, s in (("A", a), ("B", b), ("D", d))}
+            fired = plane.fired()
+        finally:
+            chaos.disable()
+        counted = [ctr.value - n for ctr, n in zip(counters, counted)]
+        outliers, majority = quorum_outliers(digests, rtol=fp_ops.tolerance_for("none", "none"))
+        clean = np.asarray(loop.run(a.handler.rpc_probe({"seed": OPS_PROBE_SEED, "tokens": 4}, None),
+                                    LOOP_TIMEOUT_S)["fp"], np.float32)
+        log(f"{label}: fired {[(e['site'], e['action']) for e in fired]}; petals_chaos_injections_total by rule "
+            f"{counted}; quorum over [{OPS_SPAN}, {SPAN}): outliers {outliers}, majority {majority}; A's probe after "
+            f"the plane is off agrees with B's: {fp_ops.fp_close(clean, digests['B'], rtol=fp_ops.tolerance_for('none', 'none'))}")
+        if sorted(e["site"] for e in fired) != sorted(r.site for r in rules) or counted != [1] * len(rules):
+            failed.append(f"{label}: the plane fired {fired}, counted {counted}: not each rule once")
+        if outliers != ["A"]:
+            failed.append(f"{label}: the quorum named {outliers}, not the corrupted replica A")
+        failed += _same_or_tied(label, perturbed, unperturbed, ids.shape[1], ref_params, cut, device)
+
+        # (d) seeded traffic against a batched and a --no_batching server
+        label = f"swarm ops d (traffic, the {OPS_SPAN}-block cut served whole)"
+        plans = TrafficGenerator(TrafficConfig(**dict(OPS_TRAFFIC, vocab_size=a.cfg.vocab_size))).schedule()
+        streams, whole_params = {}, None
+        for mode, args in (("batched", ()), ("--no_batching", ("--no_batching",))):
+            server, _ = start(whole, "--throughput", "1", *args)
+            whole_params = server.backend.block_params
+            m = client(whole)
+            m.generate(np.asarray([plans[0].prompt]), max_new_tokens=2)  # warm-up
+
+            def session_fn(plan, m=m):
+                clock = _FirstTokenClock()
+                out = m.generate(np.asarray([plan.prompt]), max_new_tokens=plan.new_tokens, streamer=clock)
+                return out, clock.first
+
+            before = _launch_counts()
+            t0 = time.perf_counter()
+            results = run_schedule(plans, session_fn, time_scale=OPS_TIME_SCALE, join_timeout_s=LOOP_TIMEOUT_S)
+            wall = time.perf_counter() - t0
+            launches = _delta(_launch_counts(), before)
+            lost = [r for r in results if not r.ok]
+            ttft = [r.value[1] * 1e3 for r in results if r.ok and r.value[1] is not None]
+            new = sum(p.new_tokens for p in plans)
+            log(f"{label}, {mode}: {len(plans)} sessions of {len({p.tenant for p in plans})} tenants, "
+                f"{len(results) - len(lost)} completed; TTFT p50 {np.percentile(ttft, 50):.1f} ms, p99 "
+                f"{np.percentile(ttft, 99):.1f} ms; {new / wall:.1f} new tokens/s over {wall:.2f} s; launches "
+                f"{launches} ({smi})")
+            if lost or len(ttft) != len(plans):
+                failed.append(f"{label}, {mode}: sessions lost {[r.error for r in lost]}")
+            need = ("K4",) if args else ("K1", "K2")
+            if not all(launches.get(k) for k in need):
+                failed.append(f"{label}, {mode}: {need} did not run: {launches}")
+            streams[mode] = [r.value[0] if r.ok else None for r in results]
+            models.remove(m)
+            m.close()
+            stop(server)
+        for plan, got, want in zip(plans, streams["--no_batching"], streams["batched"]):
+            if got is not None and want is not None:
+                failed += _same_or_tied(f"{label}: session {plan.index}", got, want, len(plan.prompt), whole_params,
+                                        whole, device)
+
+        # (e) the autoscaler over HealthMonitor snapshots, its resize carried out
+        label = "swarm ops e (the autoscaler over (b)'s servers)"
+        monitor = HealthMonitor(peers)
+        monitor.dht = loop.run(DHTNode.create(initial_peers=peers, client_mode=True), LOOP_TIMEOUT_S)
+        try:
+            async def snapshot(tick):
+                await monitor.refresh()
+                return snapshot_from_health(monitor._state["models"][a.dht_prefix], tick=tick)
+
+            config = PolicyConfig(ttft_p99_ms=1e9, sustain_in=100, cooldown_resize=0)
+            scaler = Autoscaler(snapshot, actuator=server_actuator(live), config=config, interval_s=0.0)
+            spans_before = {s.identity.peer_id.to_string(): span_of(s) for s in (a, b, c, d, e)}
+            for _ in range(3):
+                loop.run(scaler.run_once(), LOOP_TIMEOUT_S)
+                if scaler.decisions:
+                    break
+        finally:
+            loop.run(monitor.dht.shutdown(), LOOP_TIMEOUT_S)
+        log(f"{label}: spans {spans_before}; decision journal: {scaler.policy.journal_jsonl() or '(empty)'}")
+        resized = [(dec, ok) for dec, ok in scaler.applied if dec.action == "resize"]
+        if not resized or not resized[0][1]:
+            failed.append(f"{label}: no resize decision carried out: {scaler.applied}")
+        else:
+            dec = resized[0][0]
+            mover = next(s for s in (a, b, c, d, e) if s.identity.peer_id.to_string() == dec.target)
+            log(f"{label}: {dec.target[:12]}... moved {dec.evidence['old_span']} -> {span_of(mover)}; "
+                f"{reload_line(mover)} ({smi})")
+            if (mover.first_block, mover.first_block + mover.num_blocks) != tuple(dec.span):
+                failed.append(f"{label}: the resize decision {dec.span} was not carried out ({span_of(mover)})")
+    finally:
+        chaos.disable()
+        for model in models:
+            model.close()
+        for server in list(live):
+            stop(server)
+        loop.run(boot.shutdown(), LOOP_TIMEOUT_S)
+        loop.shutdown()
+        shutil.rmtree(cache_dir, ignore_errors=True)
+    counts = _launch_counts()
+    result = {"K1": counts["K1"], "K2": counts["K2"], "K4": counts["K4"],
+              **{k: n for k, n in _quant_counts().items() if k.endswith("nf4a")}}
+    log(f"swarm ops: phase launches {result}; phase done in {time.perf_counter() - t_phase:.1f} s")
+    if not all(result.get(k) for k in ("K1", "K2", "K4", "decode nf4a", "prefill nf4a")):
+        failed.append(f"swarm ops: a kernel of the path never launched: {result}")
+    if failed:
+        raise AssertionError("; ".join(failed))
+    return result
+
+
 def free_card() -> None:
     """Free what a dropped server held on the card before the next one loads
     (its event-loop objects hold reference cycles, so collect them)."""
@@ -6911,6 +7343,9 @@ def main() -> int:
         # phase 24: training and adapters (the backward, the client's training, LoRA)
         train = serve_training_and_check(ckpt, device, smi)
         free_card()
+        # phase 25: swarm operations (the quant cache, the span moves, chaos, traffic, the autoscaler)
+        ops = serve_swarm_ops_and_check(ckpt, device, smi)
+        free_card()
     flash_kernel["launches"] = private_launches["K4"]
     # the launches on moved (imported, adopted) caches, phase 19
     kernels[0]["migration_launches"], kernels[1]["migration_launches"] = moved["K1"], moved["K2"]
@@ -6983,6 +7418,13 @@ def main() -> int:
         entry["training"] = {"launches": train["quant"].get(f"{phase} {arm}", 0)}
         if phase == "prefill" and f"backward_{arm}" in train:
             entry["training"]["backward"] = train[f"backward_{arm}"]
+    # phase 25: the launches of the swarm operations' main path
+    kernels[0]["swarm_ops_launches"], kernels[1]["swarm_ops_launches"] = ops["K1"], ops["K2"]
+    flash_kernel["swarm_ops_launches"] = ops["K4"]
+    for entry in quant_kernels:
+        if entry["name"].endswith("[nf4a]"):
+            phase = "decode" if entry["name"].startswith("quant_decode") else "prefill"
+            entry["swarm_ops_launches"] = ops[f"{phase} nf4a"]
     from petals_tpu_torch.telemetry.observatory import get_observatory
 
     digest = get_observatory().compile_stats()

@@ -37,6 +37,15 @@ Chrome trace of the first ``PETALS_TPU_TRACE_SECONDS`` (60) of serving, and
 ``--request_timeout`` (180 s) bounds a stateless forward, backward or
 probe. ``--adapters DIR ...`` hosts PEFT LoRA adapters (loaded for the
 span, announced by name; requests pick one with ``active_adapter``).
+``--mean_balance_check_period S`` moves the span when the swarm's quality
+falls under ``--balance_quality`` (0.75), its live sessions pushed to
+replicas first; ``--no_batching`` serves every session from a private
+cache, with no lane pool. A quantized span is kept in the disk cache of
+quantized blocks (``--cache_dir``, default ``$PETALS_TPU_TORCH_CACHE``;
+``--no_quant_weight_cache`` turns it off), which the next start reads. A
+model that is no local directory is a Hub repo id, streamed at
+``--revision`` from ``PETALS_TPU_HUB_ENDPOINT`` (or ``HF_ENDPOINT``) with
+``--token``, only the span's shards, under ``--max_disk_space`` (LRU).
 """
 
 from __future__ import annotations
@@ -44,6 +53,7 @@ from __future__ import annotations
 import argparse
 import asyncio
 import logging
+import os
 import signal
 
 import torch
@@ -52,6 +62,7 @@ from petals_tpu_torch.server.from_pretrained import get_block_config
 from petals_tpu_torch.models.registry import num_kv_heads
 from petals_tpu_torch.server.server import Server
 from petals_tpu_torch.utils.convert_block import QuantType
+from petals_tpu_torch.utils.hub import parse_size
 
 DTYPES = {"bfloat16": torch.bfloat16, "float16": torch.float16, "float32": torch.float32}
 
@@ -174,6 +185,25 @@ def build_parser() -> argparse.ArgumentParser:
                              "replicas soak heavy prompt processing and hand the finished KV "
                              "to a 'decode' replica over the server-to-server page-push path; "
                              "'generalist' (default) serves both phases")
+    parser.add_argument("--mean_balance_check_period", type=float, default=0.0,
+                        help=">0: periodically consider moving to under-served blocks (seconds)")
+    parser.add_argument("--balance_quality", type=float, default=0.75,
+                        help="Rebalance only when the swarm's quality falls below this fraction "
+                             "of the post-move optimum")
+    parser.add_argument("--no_batching", action="store_true",
+                        help="Disable continuous batching of concurrent decode sessions")
+    parser.add_argument("--no_quant_weight_cache", action="store_true",
+                        help="Re-quantize at every start instead of persisting packed "
+                             "quantized blocks in the disk cache (utils/quant_cache.py)")
+    parser.add_argument("--cache_dir", default=None,
+                        help="Hub download and quantized-block cache directory "
+                             "(default: $PETALS_TPU_TORCH_CACHE, else ~/.cache/petals_tpu_torch)")
+    parser.add_argument("--max_disk_space", default=None,
+                        help="Hub/checkpoint cache budget, e.g. 300GB (LRU-evicted)")
+    parser.add_argument("--revision", default="main",
+                        help="Hub revision (branch/tag/commit) for weight streaming")
+    parser.add_argument("--token", default=None,
+                        help="HF Hub access token for gated/private repos (or set HF_TOKEN)")
     parser.add_argument("--prefix_share_scope", choices=["swarm", "peer"], default="swarm",
                         help="'swarm' shares cached prefixes across all clients (fastest; a client "
                              "can time-probe whether a prompt prefix was recently served); 'peer' "
@@ -194,7 +224,7 @@ def attn_cache_bytes_for(args: argparse.Namespace) -> int:
     """``--attn_cache_tokens`` in bytes for the span (the whole model when
     its size is not given), as petals_tpu's CLI converts it: floating-point
     bytes, whatever ``--kv_quant_type``."""
-    _, cfg = get_block_config(args.model)
+    _, cfg = get_block_config(args.model, revision=args.revision, cache_dir=args.cache_dir)
     return (
         2 * args.attn_cache_tokens * num_kv_heads(cfg) * cfg.head_dim
         * DTYPES[args.dtype].itemsize * (parse_block_range(args)[1] or cfg.num_hidden_layers)
@@ -253,12 +283,29 @@ def build_server(args: argparse.Namespace) -> Server:
         draft_window=args.draft_window,
         draft_quant_type=args.draft_quant_type,
         adapters=args.adapters,
+        mean_balance_check_period=args.mean_balance_check_period,
+        balance_quality=args.balance_quality,
+        revision=args.revision,
+        cache_dir=args.cache_dir,
+        quant_weight_cache=not args.no_quant_weight_cache,
+        batching=not args.no_batching,
     )
 
 
 def main(argv=None) -> None:
     logging.basicConfig(level=logging.INFO, format="%(asctime)s %(levelname)s %(name)s: %(message)s")
     args = build_parser().parse_args(argv)
+    # the Hub fetcher reads these when it runs
+    if args.max_disk_space:
+        try:
+            parse_size(args.max_disk_space)  # fail fast, with the flag named
+        except ValueError:
+            build_parser().error(
+                f"--max_disk_space: cannot parse {args.max_disk_space!r} (expected e.g. 300GB, 512MB, or bytes)"
+            )
+        os.environ["PETALS_TPU_MAX_DISK_SPACE"] = args.max_disk_space
+    if args.token:
+        os.environ["HF_TOKEN"] = args.token
     server = build_server(args)
 
     async def run():

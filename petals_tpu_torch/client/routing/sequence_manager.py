@@ -40,6 +40,7 @@ from petals_tpu_torch.rpc.pool import ConnectionPool
 from petals_tpu_torch.telemetry import instruments as tm
 from petals_tpu_torch.utils.dht_utils import ModuleDirectory
 from petals_tpu_torch.utils.ping import PingAggregator
+from petals_tpu_torch.utils.random_utils import sample_up_to
 from petals_tpu_torch.utils.version import incompatibility_error, is_compatible
 
 logger = logging.getLogger(__name__)
@@ -226,8 +227,7 @@ class RemoteSequenceManager:
             addr = self.directory.addr_of(span.peer_id)
             if addr is not None:
                 candidates.append(addr)
-        if len(candidates) > self.config.max_pinged:
-            candidates = random.sample(candidates, self.config.max_pinged)
+        candidates = sample_up_to(candidates, self.config.max_pinged)
         if candidates:
             try:
                 await asyncio.wait_for(self.ping_aggregator.ping(candidates), 10.0)

@@ -17,6 +17,7 @@ import logging
 import secrets
 from typing import Any, AsyncIterator, Optional
 
+from petals_tpu_torch import chaos
 from petals_tpu_torch.data_structures import PeerID
 from petals_tpu_torch.rpc.protocol import read_frame, write_frame
 from petals_tpu_torch.rpc.server import RpcError
@@ -29,9 +30,10 @@ _END = object()
 class StreamCall:
     """A bidirectional stream: ``send``/``end`` feed the server, ``recv`` reads."""
 
-    def __init__(self, client: "RpcClient", call_id: int):
+    def __init__(self, client: "RpcClient", call_id: int, method: Optional[str] = None):
         self._client = client
         self._call_id = call_id
+        self._method = method  # the chaos plane's detail at rpc.stream_recv
         self._inbound: asyncio.Queue = asyncio.Queue()
         self._closed = False
 
@@ -46,6 +48,8 @@ class StreamCall:
 
     async def recv(self, timeout: Optional[float] = None) -> Any:
         """Next response item; raises StopAsyncIteration at end of stream."""
+        if chaos.ENABLED:
+            await chaos.inject(chaos.SITE_RPC_STREAM_RECV, detail=self._method)
         item = await asyncio.wait_for(self._inbound.get(), timeout)
         if item is _END:
             self._closed = True
@@ -168,6 +172,8 @@ class RpcClient:
         await write_frame(self._writer, message, self._write_lock)
 
     async def call(self, method: str, payload: Any = None, timeout: Optional[float] = None) -> Any:
+        if chaos.ENABLED:
+            await chaos.inject(chaos.SITE_RPC_CALL, detail=method)
         call_id = next(self._call_ids)
         future: asyncio.Future = asyncio.get_running_loop().create_future()
         self._pending[call_id] = future
@@ -185,8 +191,10 @@ class RpcClient:
             self._pending.pop(call_id, None)
 
     async def open_stream(self, method: str) -> StreamCall:
+        if chaos.ENABLED:
+            await chaos.inject(chaos.SITE_RPC_STREAM, detail=method)
         call_id = next(self._call_ids)
-        stream = StreamCall(self, call_id)
+        stream = StreamCall(self, call_id, method)
         self._streams[call_id] = stream
         await self._send({"t": "sopen", "id": call_id, "method": method})
         return stream

@@ -29,6 +29,8 @@ from typing import Any, Dict
 import numpy as np
 import torch
 
+from petals_tpu_torch.utils.misc import is_dummy  # noqa: F401 (the wire's placeholder test)
+
 _DTYPES = {
     "float64": torch.float64, "float32": torch.float32, "float16": torch.float16,
     "bfloat16": torch.bfloat16, "int64": torch.int64, "int32": torch.int32,
@@ -152,6 +154,3 @@ def _dtype(name: str) -> torch.dtype:
     return _DTYPES[name]
 
 
-def is_dummy(t) -> bool:
-    """A 1-D empty tensor stands for "no tensor here" in fixed-arity payloads."""
-    return t.dim() == 1 and t.shape[0] == 0

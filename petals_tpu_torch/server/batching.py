@@ -139,6 +139,7 @@ from petals_tpu_torch.server.task_queue import PRIORITY_INFERENCE, PriorityTaskQ
 from petals_tpu_torch.telemetry import instruments as tm
 from petals_tpu_torch.telemetry.journal import get_journal
 from petals_tpu_torch.telemetry.ledger import derive_efficiency, get_ledger
+from petals_tpu_torch.utils.asyncio_utils import shield_and_wait
 from petals_tpu_torch.utils.locks import AsyncTryLock
 
 logger = logging.getLogger(__name__)
@@ -353,7 +354,10 @@ class DecodeBatcher:
     # ------------------------------------------------------------------ pool
 
     async def ensure_open(self, timeout: Optional[float] = None) -> None:
-        """Reserve the pool on first use (budgeted through MemoryCache)."""
+        """Reserve the pool on first use (budgeted through MemoryCache) and,
+        on a card, capture its step programs. The pool is published only
+        once they are warm: a warm-up that fails or is cancelled releases
+        the pool, so the next call opens it and warms it again."""
         async with self._open_lock:
             if self._handles is not None or self._closed:
                 return
@@ -375,6 +379,14 @@ class DecodeBatcher:
             except BaseException:
                 await stack.aclose()
                 raise
+            bufs = self.memory_cache.get_buffers(*handles)
+            try:
+                await self._warm_programs(self._pool_pair(bufs))
+            except BaseException:
+                # not published: drop what the warm-up captured (queued behind
+                # it, so after it ends on the compute thread) and free the pool
+                await shield_and_wait(self._release_unpublished(stack, bufs))
+                raise
             self._pool_stack = stack
             self._handles = handles
             self._free_lanes = list(range(self.n_lanes))
@@ -384,11 +396,6 @@ class DecodeBatcher:
                     f"Continuous-batching pool open: {self.n_lanes} lanes x "
                     f"{self.max_length} tokens for blocks {span}"
                 )
-                if self.backend.device.type == "cuda":
-                    await self.queue.submit(
-                        self.backend.warm_dense_programs, self._buffers(), self.n_lanes, self.max_length,
-                        self.backend.longest_chunk(1), self.gen_params,
-                    )
                 return
             self._pages = PageAllocator(self.n_pages)
             self._tables = np.full((self.n_lanes, self.max_pages), -1, np.int32)
@@ -396,16 +403,37 @@ class DecodeBatcher:
                 f"Paged-batching pool open: {self.n_pages} pages x {self.page_size} tokens "
                 f"({self.n_lanes} lanes x {self.max_pages} table slots) for blocks {span}"
             )
-            if self.backend.device.type == "cuda":
-                # capture every step program on the open pool now, so that
-                # serving replays and captures nothing
-                await self.queue.submit(
-                    self.backend.warm_step_programs, self._buffers(), self.n_lanes, self.max_pages,
-                    self.max_chunk(), self.gen_params, self.spec_k if self.draft is not None else 0,
-                )
+
+    async def _warm_programs(self, pool_kv) -> None:
+        """On a card, capture every step program on the pool about to open,
+        so that serving replays and captures nothing: the dense pool's
+        batched steps and each lane view's chunks, or the paged pool's
+        decode, generation, verify and mixed steps. A no-op on the CPU."""
+        if self.backend.device.type != "cuda":
+            return
+        if self.page_size is None:
+            await self.queue.submit(
+                self.backend.warm_dense_programs, pool_kv, self.n_lanes, self.max_length,
+                self.backend.longest_chunk(1), self.gen_params,
+            )
+        else:
+            await self.queue.submit(
+                self.backend.warm_step_programs, pool_kv, self.n_lanes, self.max_pages,
+                self.max_chunk(), self.gen_params, self.spec_k if self.draft is not None else 0,
+            )
+
+    async def _release_unpublished(self, stack: contextlib.AsyncExitStack, bufs) -> None:
+        await self.queue.submit(self.backend.drop_cache_programs, bufs)
+        await stack.aclose()
 
     async def close(self) -> None:
         self._closed = True
+        with self._reset_lock:
+            # every lane's KV goes with the pool: a session's next step, or a
+            # step still pending, fails loudly and its client repairs
+            self._generation += 1
+            if self._pages is not None:
+                self._pages.freed_event.set()  # wake the page waiters
         for w in self._lane_waiters:
             if not w.fut.done():
                 w.fut.set_exception(AllocationFailed("Batcher is shutting down"))
@@ -427,10 +455,13 @@ class DecodeBatcher:
             self._handles = None
 
     def _buffers(self):
-        """The (k_pool, v_pool) pair every step consumes and mutates. A
-        quantized pool rides as 4 buffers (codes x2, scales x2) and is
+        """The (k_pool, v_pool) pair every step consumes and mutates."""
+        return self._pool_pair(self.memory_cache.get_buffers(*self._handles))
+
+    @staticmethod
+    def _pool_pair(bufs):
+        """A quantized pool rides as 4 buffers (codes x2, scales x2) and is
         wrapped back into a pair of PagedPools here."""
-        bufs = self.memory_cache.get_buffers(*self._handles)
         if len(bufs) == 4:
             return PagedPool(bufs[0], bufs[2]), PagedPool(bufs[1], bufs[3])
         return tuple(bufs)
@@ -611,7 +642,7 @@ class DecodeBatcher:
     def _check_lane(self, lane: int) -> None:
         if self._lane_generation.get(lane) != self._generation:
             raise AllocationFailed(
-                "Lane pool was reset after a failed device step: this session's "
+                "Lane pool was reset after a failed device step, or closed: this session's "
                 "KV is gone; the client must re-open the session"
             )
 
@@ -745,7 +776,8 @@ class DecodeBatcher:
         if any(p < 0 for p in pages):
             return None
         for page in pages:
-            self._pages.incref(page)  # the refs belong to the caller (the prefix cache)
+            # swarmlint: disable=paired-refcount — ownership transfer: the refs belong to the caller (the prefix cache), released through unpin_pages; no code below this loop can raise
+            self._pages.incref(page)
         self._ledger_sync()  # refcounts moved: the lane's share of those pages shrank
         return pages
 

@@ -32,8 +32,8 @@ The integrity probe (:1362-1404): a caller-seeded golden input
 (``RandomState(seed & 0x7FFFFFFF)``, scaled by 0.02, 1 to 16 tokens) runs
 through the span's forward, and the reply carries the fingerprint of its
 last row (ops/fingerprint.py) with the seed, the token count and the span.
-The ``integrity.corrupt`` chaos site of petals_tpu's probe is not ported:
-it comes with the chaos plane (ROADMAP A15).
+Its output passes the chaos plane's ``integrity.corrupt`` site, as a
+session's replies do (chaos/), so an injected corruption shows in the probe.
 
 Telemetry (telemetry/): every site where petals_tpu's handler records,
 this one records, into the port's registry and journal: TTFT on a
@@ -121,6 +121,15 @@ step's reply also go to the next server's session (``ptu.push``), which
 serves whichever copy of a ``step_id`` comes first and skips the other; a
 step with deep prompts is not pushed. A draining server refuses new
 sessions and every further step.
+
+With no batcher (``--no_batching``, petals_tpu/server/handler.py:155)
+every session gets a private cache, and ``ptu.info`` has no pool fields. A
+span move hands the handler a new backend and pool (``swap_backend``);
+sessions opened before it keep the backend they opened on. The chaos plane
+(chaos/) fires at the step boundary (``handler.step``, before the step is
+queued), in a migration or handoff push (inside its deadline), and on the
+host copy of a probe's or a session's reply (``integrity.corrupt``,
+matched by this server's peer id).
 """
 
 from __future__ import annotations
@@ -129,11 +138,13 @@ import asyncio
 import contextlib
 import logging
 import time
+import zlib
 from typing import Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
 
+from petals_tpu_torch import chaos
 from petals_tpu_torch.data_structures import CHAIN_DELIMITER, parse_session_priority, parse_uid
 from petals_tpu_torch.dht.routing import PeerAddr
 from petals_tpu_torch.ops.paged_attention import KV_QUANT_KINDS, dequantize_kv_np, quantize_kv_rows_np
@@ -152,6 +163,7 @@ from petals_tpu_torch.telemetry.flight import flight_from_env
 from petals_tpu_torch.telemetry.journal import get_journal
 from petals_tpu_torch.telemetry.observatory import get_observatory
 from petals_tpu_torch.telemetry.trace import new_trace_id, normalize_trace_id, reset_trace_id, set_trace_id
+from petals_tpu_torch.utils.asyncio_utils import log_exception_callback
 from petals_tpu_torch.utils.tracing import device_annotation, get_tracer
 from petals_tpu_torch.utils.version import incompatibility_error, is_compatible
 
@@ -170,6 +182,9 @@ class TransformerHandler:
         batcher,
         *,
         dht_prefix: str,
+        memory_cache=None,  # with no batcher: the private caches' budget
+        queue=None,  # with no batcher: the compute thread's queue
+        ledger=None,  # with no batcher: the resource ledger the prefix cache bills
         compression: CompressionType = CompressionType.NONE,
         inference_max_length: Optional[int] = None,
         session_timeout: float = 30 * 60,
@@ -188,10 +203,12 @@ class TransformerHandler:
         self.backend = backend
         self.server_gen_params = server_gen_params
         self.server_info_fn = server_info_fn
+        # None serves every session from a private cache (--no_batching);
+        # else private sessions share the batcher's budget and compute thread
         self.batcher = batcher
-        # private sessions share the batcher's budget and compute thread
-        self.memory_cache = batcher.memory_cache
-        self.queue = batcher.queue
+        self.memory_cache = batcher.memory_cache if batcher is not None else memory_cache
+        self.queue = batcher.queue if batcher is not None else queue
+        self.ledger = batcher.ledger if batcher is not None else ledger
         self._sub_backends = {}
         self.dht_prefix = dht_prefix
         self.compression = CompressionType(compression)
@@ -205,19 +222,25 @@ class TransformerHandler:
             # the swapped tier shares the batcher's swap budget (one budget
             # with session preemption), and eviction ranks tenants by the
             # ledger's dominant share, which also bills their residency
+            # (a server with no batcher has no swap pool: demotion evicts)
             self.prefix_cache = PrefixCache(
                 prefix_cache_bytes, device_max_bytes=prefix_device_bytes, policy=prefix_cache_policy,
-                device=backend.device, swap_pool=batcher.swap_pool,
-                usage_fn=batcher.ledger.peer_dominant_share, ledger=batcher.ledger,
+                device=backend.device, swap_pool=batcher.swap_pool if batcher is not None else None,
+                usage_fn=self.ledger.peer_dominant_share, ledger=self.ledger,
             )
             # a pinned page run is sliced at segment boundaries, so segments
             # must tile exactly into pages
-            if batcher.page_size is not None and SEGMENT_TOKENS % batcher.page_size:
+            if batcher is not None and batcher.page_size is not None and SEGMENT_TOKENS % batcher.page_size:
                 raise ValueError(
                     f"page_size={batcher.page_size} must divide the prefix-cache segment size "
                     f"({SEGMENT_TOKENS} tokens)"
                 )
         self._promotions: set = set()  # in-flight device-tier promotions (strong refs)
+        # this server's peer id, the detail of its integrity.corrupt firings:
+        # a swarm in one process shares one chaos plane, whose rules single
+        # out a replica by matching it
+        self._peer_str = identity.peer_id.to_string() if identity is not None else ""
+        self._corrupt_seed = zlib.crc32(self._peer_str.encode("utf-8"))
         # server-to-server push: session_id -> the queue of pushed steps
         self._push_queues: Dict[str, asyncio.Queue] = {}
         self._push_pool = ConnectionPool(identity=identity)
@@ -258,6 +281,36 @@ class TransformerHandler:
         server.add_unary_handler("ptu.session_migrate", self.rpc_session_migrate)
         server.add_unary_handler("ptu.session_handoff", self.rpc_session_handoff)
         server.add_stream_handler("ptu.inference", self.rpc_inference)
+
+    def _occupancy(self) -> Optional[dict]:
+        """The pool's occupancy for a journal event; None with no batcher."""
+        return self.batcher.occupancy_info() if self.batcher is not None else None
+
+    async def swap_backend(self, backend, batcher=None) -> None:
+        """Serve a new span (a rebalance or a resize): ``backend`` over its
+        weights and ``batcher``, a pool over it (None: no batching). The old
+        pool closes first, its step programs dropped with it, so the budget
+        holds one pool; its sessions fail at their next step and the clients
+        repair, as after a pool reset. A private session opened on the old
+        span keeps its backend, and so the old span's weights and graphs,
+        until it closes. The new pool opens, its step programs captured on a
+        card, before this returns. The prefix cache starts empty: its
+        entries name the old span's blocks and pin the old pool's pages."""
+        old = self.batcher
+        if old is not None:
+            await old.close()
+        self.backend = backend
+        self._sub_backends = {}
+        self.batcher = batcher
+        if self.prefix_cache is not None:
+            self.prefix_cache = PrefixCache(
+                self.prefix_cache.max_bytes, device_max_bytes=self.prefix_cache.device_max_bytes,
+                policy=self.prefix_cache.policy, device=backend.device,
+                swap_pool=batcher.swap_pool if batcher is not None else None,
+                usage_fn=self.ledger.peer_dominant_share, ledger=self.ledger,
+            )
+        if batcher is not None:
+            await batcher.ensure_open()
 
     def abort_migrations(self) -> None:
         """In-flight migration pushes give up at once (the shutdown path):
@@ -447,6 +500,8 @@ class TransformerHandler:
             out = await asyncio.wait_for(
                 self.queue.submit(run_probe, priority=PRIORITY_TRAINING, size=n_tokens), self.request_timeout
             )
+        if chaos.ENABLED and chaos.fire(chaos.SITE_INTEGRITY_CORRUPT, detail=f"{self._peer_str}:probe") == "corrupt":
+            out = chaos.corrupt_array(out, site_seed=self._corrupt_seed, position=n_tokens)
         fp = fp_ops.fingerprint_output(out, hsz)
         return {
             "fp": fp_ops.fp_list(fp),
@@ -458,7 +513,6 @@ class TransformerHandler:
         }
 
     async def rpc_info(self, payload, ctx: RpcContext):
-        b = self.batcher
         info = dict(self.server_info_fn()) if self.server_info_fn is not None else {}
         info |= {
             "first_block": self.backend.first_block,
@@ -476,9 +530,12 @@ class TransformerHandler:
             # petals_tpu's rpc_info answers; the announce's cache_tokens_left
             # counts stored bytes (server.py)
             "cache_tokens_available": max(
-                b.memory_cache.bytes_left // max(self.backend.cache_bytes_per_token(), 1), 0
+                self.memory_cache.bytes_left // max(self.backend.cache_bytes_per_token(), 1), 0
             ),
-            "continuous_batching": {
+        }
+        b = self.batcher
+        if b is not None:  # petals_tpu answers without these under --no_batching
+            info["continuous_batching"] = {
                 "lanes": b.n_lanes,
                 "max_length": b.max_length,
                 "page_size": b.page_size,
@@ -486,14 +543,13 @@ class TransformerHandler:
                 "prefill_token_budget": b.prefill_token_budget,
                 **b.pool_info(),
                 **b.stats,
-            },
-        }
-        paged = b.paged_summary()
-        if paged is not None:
-            info["continuous_batching"]["paged"] = paged
-        # lanes, pages, suspended sessions, swap bytes, preemptions: the dict
-        # ServerInfo.pool carries too
-        info["pool"] = b.occupancy_info()
+            }
+            paged = b.paged_summary()
+            if paged is not None:
+                info["continuous_batching"]["paged"] = paged
+            # lanes, pages, suspended sessions, swap bytes, preemptions: the
+            # dict ServerInfo.pool carries too
+            info["pool"] = b.occupancy_info()
         if self.prefix_cache is not None:
             info["prefix_cache"] = self.prefix_cache.summary()
         return info
@@ -536,8 +592,8 @@ class TransformerHandler:
         alloc_timeout = open_msg.get("alloc_timeout")
         lane: Optional[int] = None
         t_open = time.perf_counter()
-        if (batch_size == 1 and active_adapter is None and (start, end) == (0, self.backend.n_blocks)
-                and max_length <= batcher.max_length):
+        if (batcher is not None and batch_size == 1 and active_adapter is None
+                and (start, end) == (0, self.backend.n_blocks) and max_length <= batcher.max_length):
             try:
                 lane = await batcher.acquire_lane(
                     timeout=30.0 if alloc_timeout is None else alloc_timeout,
@@ -593,6 +649,11 @@ class TransformerHandler:
                         pending_store = None
                     if step is None:
                         break
+                    if chaos.ENABLED:
+                        # a fault at the step boundary, before the step is
+                        # queued: the stream dies where a session's KV is
+                        # most exposed
+                        await chaos.inject(chaos.SITE_HANDLER_STEP, detail=session_id)
                     if self.draining:
                         # fail fast, so that the client repairs its chain while
                         # the parked export is still served
@@ -626,7 +687,7 @@ class TransformerHandler:
                         continue
                     position, reply, pending_store = await self._serve_step(
                         step, t_recv, ctx, backend, batcher, lane, kv, (start, end), batch_size, max_length,
-                        position, reply_comp, peer, push_to, active_adapter,
+                        position, reply_comp, peer, push_to, active_adapter, session_id,
                     )
                     if reg is not None:
                         reg["position"] = position
@@ -693,7 +754,7 @@ class TransformerHandler:
         return next_step, cleanup
 
     async def _serve_step(self, step, t_recv, ctx, backend, batcher, lane, kv, span, batch_size, max_length,
-                          position, reply_comp, peer, push_to=None, active_adapter=None):
+                          position, reply_comp, peer, push_to=None, active_adapter=None, session_id=None):
         """One step of a session: returns (the new position, the reply, the
         prefix store it started or None). A reply of hidden states to a step
         without deep prompts is also pushed to ``push_to``, after it is
@@ -734,6 +795,7 @@ class TransformerHandler:
             n_hit = self.prefix_cache.probe(keys)
             if n_hit:
                 entries = self.prefix_cache.get_entries(keys, n_hit)
+                # swarmlint: disable=paired-refcount — ownership transfer: the pages _seed_prefix adopts belong to the lane's table row; release_lane / copy-on-write decref them
                 prefix_out = await self._seed_prefix(backend, batcher, lane, kv, keys, entries)
         hit_len = n_hit * SEGMENT_TOKENS
         if hit_len == seq:
@@ -782,6 +844,13 @@ class TransformerHandler:
             self._lane_meta(step_meta, batcher, lane)
             return position, {"tokens": [int(t) for t in tokens[0]], "position": position,
                               "step_meta": step_meta}, pending_store
+        if chaos.ENABLED and chaos.fire(
+            chaos.SITE_INTEGRITY_CORRUPT, detail=f"{self._peer_str}:{session_id or 'anon'}"
+        ) == "corrupt":
+            # seeded corruption of the host copy at the reply boundary: the
+            # wire output then disagrees with the fused fingerprint of its
+            # own step_meta, which is what the client's cross-check catches
+            out = chaos.corrupt_array(out, site_seed=self._corrupt_seed, position=position)
         t_ser = time.perf_counter()
         wire_out = serialize_array(out, reply_comp)
         ser_s = time.perf_counter() - t_ser
@@ -1039,7 +1108,7 @@ class TransformerHandler:
         tm.MIGRATIONS.labels(direction="in", outcome="ok").inc()
         tm.MIGRATION_BYTES.labels(direction="in").inc(nbytes)
         get_journal().event(
-            "migrate_in", trace_id=trace_id, occupancy=self.batcher.occupancy_info(),
+            "migrate_in", trace_id=trace_id, occupancy=self._occupancy(),
             session_id=session_id, position=position, nbytes=nbytes, start=src_start, end=src_end,
         )
         return {"ok": True, "position": position}
@@ -1106,6 +1175,9 @@ class TransformerHandler:
         async def push() -> None:
             if budget_bytes is not None and nbytes > budget_bytes:
                 raise RuntimeError(f"session KV ({nbytes}B) exceeds the migration budget ({budget_bytes}B)")
+            if chaos.ENABLED:  # inside the push's deadline
+                await chaos.inject(chaos.SITE_HANDOFF_PUSH if handoff else chaos.SITE_MIGRATE_PUSH,
+                                   detail=session_id)
             tensors = await asyncio.to_thread(lambda: {
                 name: serialize_array(arr, self.compression if name in ("k", "v") else CompressionType.NONE)
                 for name, arr in packed.items()
@@ -1167,11 +1239,11 @@ class TransformerHandler:
         stats["push_s"] += time.perf_counter() - t0
         # the parked session's ledger session already closed (a handoff
         # source keeps its own bill): the bytes go to the owning peer's rollup
-        self.batcher.ledger.note_migrated(None, nbytes, peer_id=snap.get("peer"))
+        self.ledger.note_migrated(None, nbytes, peer_id=snap.get("peer"))
         note_outcome("ok", nbytes)
         get_journal().event(
             "handoff_out" if handoff else "migrate_out", trace_id=trace_id,
-            occupancy=self.batcher.occupancy_info(), session_id=session_id, dest=peer_id, nbytes=nbytes,
+            occupancy=self._occupancy(), session_id=session_id, dest=peer_id, nbytes=nbytes,
             position=snap["position"], elapsed_s=time.perf_counter() - t0,
         )
         return True
@@ -1266,7 +1338,7 @@ class TransformerHandler:
         stats["adopt_bytes"] += wire_nbytes
         stats["adopt_s"] += time.perf_counter() - t0
         get_journal().event(
-            "migrate_adopt", trace_id=entry.get("trace_id"), occupancy=self.batcher.occupancy_info(),
+            "migrate_adopt", trace_id=entry.get("trace_id"), occupancy=self._occupancy(),
             session_id=src_sid, position=cut, nbytes=wire_nbytes,
         )
         return cut
@@ -1297,6 +1369,7 @@ class TransformerHandler:
             ):
                 # the refs now belong to the lane's table row: release_lane or
                 # a copy-on-write fork drops them
+                # swarmlint: disable=paired-refcount — ownership transfer: adopted refs belong to the lane's table row; release_lane / copy-on-write decref them
                 batcher.adopt_pages(lane, [p for e in entries for p in e["pages"]])
                 pc.stats["page_hits"] = pc.stats.get("page_hits", 0) + 1
                 return await asyncio.to_thread(torch.cat, outs, 1)
@@ -1548,9 +1621,4 @@ class TransformerHandler:
 
 def _log_failure(what: str):
     """A done-callback that logs a background task's failure."""
-
-    def callback(task: asyncio.Task) -> None:
-        if not task.cancelled() and task.exception() is not None:
-            logger.warning(f"{what} failed", exc_info=task.exception())
-
-    return callback
+    return log_exception_callback(logger, what)

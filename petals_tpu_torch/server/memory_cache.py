@@ -36,6 +36,7 @@ from typing import Dict, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from petals_tpu_torch import chaos
 from petals_tpu_torch.data_structures import Handle
 
 logger = logging.getLogger(__name__)
@@ -218,6 +219,10 @@ class HostSwapPool:
         nbytes = int(nbytes)
         if nbytes < 0:
             raise ValueError(f"cannot reserve {nbytes} bytes")
+        if chaos.ENABLED and chaos.fire(chaos.SITE_SWAP_RESERVE) is not None:
+            # an injected pressure spike: exactly a full budget's answer
+            self.stats["rejected" if kind == "session" else "cache_rejected"] += 1
+            return False
         if nbytes > self.bytes_left:
             self.stats["rejected" if kind == "session" else "cache_rejected"] += 1
             return False

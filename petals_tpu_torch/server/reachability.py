@@ -9,13 +9,13 @@ from __future__ import annotations
 
 import asyncio
 import logging
-import random
 from typing import Optional, Sequence
 
 from petals_tpu_torch.dht.node import DHTNode
 from petals_tpu_torch.dht.routing import PeerAddr
 from petals_tpu_torch.rpc.client import RpcClient
 from petals_tpu_torch.rpc.server import RpcContext, RpcServer
+from petals_tpu_torch.utils.random_utils import sample_up_to
 
 logger = logging.getLogger(__name__)
 
@@ -69,8 +69,7 @@ async def check_direct_reachability(
     if own is None:
         return None
     peers: Sequence[PeerAddr] = dht.table.all_peers()
-    if len(peers) > max_peers:
-        peers = random.sample(peers, max_peers)
+    peers = sample_up_to(peers, max_peers)
     if not peers:
         return None
     results = []

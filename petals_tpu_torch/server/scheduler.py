@@ -163,6 +163,7 @@ class SessionScheduler:
         slot = self.lanes.pop(lane, None)
         if slot is not None and slot.swap is not None:
             self.swap_pool.free(slot.swap.nbytes)
+            # swarmlint: disable=lane-typestate — the slot is already popped from lanes: unreachable to new transitions, and a swap-out racing this release aborts on its post-gather re-registration check
             slot.swap = None
 
     def touch(self, lane: int) -> None:
@@ -177,9 +178,11 @@ class SessionScheduler:
         through the normal lane-generation check instead of scattering stale
         KV into the rebuilt pool."""
         for slot in self.lanes.values():
+            # swarmlint: disable=lane-typestate — pool-wide reset: callers (the batcher's close, a failed step's reset) invalidate every lane wholesale; racing swap paths fail on the generation check, and per-lane locking here would deadlock against them
             slot.suspending = False
             if slot.swap is not None:
                 self.swap_pool.free(slot.swap.nbytes)
+                # swarmlint: disable=lane-typestate — same pool-wide reset as the suspending flag above: dead-generation entries are dropped wholesale
                 slot.swap = None
                 self.stats["swap_dropped_on_reset"] += 1
 

@@ -1,7 +1,6 @@
 """The port's server entry point: host a span of blocks of one local
 checkpoint, serve ``ptu.inference`` / ``ptu.info`` on ``host:port``, and take
-part in a petals_tpu swarm (petals_tpu/server/server.py without the
-rebalance loop).
+part in a petals_tpu swarm (petals_tpu/server/server.py, single-host).
 
 ``start()`` runs the swarm life cycle in petals_tpu's order: it makes the
 node's identity (``identity_seed``), listens with it, joins the DHT on the
@@ -16,13 +15,31 @@ OFFLINE for 60 seconds. The backend, batcher and handler exist once
 ``start()`` returns.
 
 ``quant_type`` serves the span with quantized weights: each block is
-loaded, fused and quantized on the device, one block at a time (the JAX
-server's disk cache of quantized blocks is not ported). ``kv_quant_type``
+loaded, fused and quantized on the device, one block at a time, and kept in
+the disk cache of quantized blocks (utils/quant_cache.py, under
+``cache_dir``; ``quant_weight_cache=False`` turns it off), whose entries
+the next start reads instead of quantizing again; the layout is
+petals_tpu's, so either package reads the other's entries. A
+``model_path`` that is no local directory is a Hub repo id, streamed at
+``revision`` into ``cache_dir`` (utils/hub.py), only the span's shards.
+``kv_quant_type``
 (int8, nf4a) keeps the paged KV pool quantized, which fits more lanes in the
 same cache budget; it combines with every ``quant_type``. ``page_size=0``
 selects the dense lane pool in place of the paged one. Sessions that fit no
 lane (batch > 1, a sub-span, a longer ``max_length``) are served from
-private dense caches out of the same budget.
+private dense caches out of the same budget; ``batching=False``
+(``--no_batching``) serves every session so, with no pool at all.
+
+The span moves (petals_tpu/server/server.py:1034-1160, the single-host
+arm): with ``mean_balance_check_period`` > 0 a loop looks at the swarm
+every period (times 0.5 to 1.5) and moves the span when
+``should_choose_other_blocks`` finds the swarm's quality under
+``balance_quality``; ``resize(first_block)`` moves it on demand (the
+autoscaler's actuator, swarm/). A move announces the old blocks OFFLINE,
+the new ones JOINING, parks the live sessions and pushes them to replicas
+of the old span, loads the new span, hands the handler a new backend and
+pool (``swap_backend``: the old pool closes, the new one opens and captures
+its step programs), and announces ONLINE.
 
 A server that hosts the whole model (``server_side_generation``, the
 default) also loads the client's leaves (embeddings, final norm, head) in
@@ -83,11 +100,11 @@ capture that cannot start fails the start). The announce carries
 ``telemetry`` (``telemetry_digest``, size-capped), ``compile_stats`` (the
 step-program observatory), ``integrity`` (the digest of a self-probe
 through ``ptu.probe`` with the server's quarantine flag) and
-``metrics_port``. The self-probe runs at the first ONLINE announce and its
-digest is reused by later ones: a span's weights do not change while it
-serves, and the chaos plane's ``integrity.corrupt`` site, the one thing
-petals_tpu re-probes every announce for, is not ported (ROADMAP A15).
-``request_timeout`` bounds a stateless forward or probe.
+``metrics_port``. The self-probe runs at every announce but OFFLINE, as
+petals_tpu's does: it goes through the chaos plane's ``integrity.corrupt``
+site, and a moved span probes its new blocks. ``request_timeout`` bounds a
+stateless forward or probe. The chaos plane (chaos/) may drop an announce
+(``dht.announce``).
 
 LoRA adapters (petals_tpu/server/server.py:851-861): ``adapters`` lists
 PEFT checkpoint directories; each is loaded for the span's blocks
@@ -108,12 +125,14 @@ import logging
 import math
 import random
 import re
+import time
 from typing import Optional, Sequence
 
 import numpy as np
 import torch
 
 import petals_tpu_torch
+from petals_tpu_torch import chaos
 from petals_tpu_torch.data_structures import ServerInfo, ServerState
 from petals_tpu_torch.dht.identity import Identity
 from petals_tpu_torch.dht.node import DHTNode, dht_time
@@ -126,9 +145,13 @@ from petals_tpu_torch.rpc.serialization import CompressionType
 from petals_tpu_torch.rpc.server import RpcServer
 from petals_tpu_torch.server.backend import TransformerBackend
 from petals_tpu_torch.server.batching import DecodeBatcher
-from petals_tpu_torch.server.block_selection import choose_best_start, compute_throughputs
+from petals_tpu_torch.server.block_selection import (
+    choose_best_start,
+    compute_throughputs,
+    should_choose_other_blocks,
+)
 from petals_tpu_torch.server.block_utils import choose_num_blocks
-from petals_tpu_torch.server.from_pretrained import get_block_config, load_block_params
+from petals_tpu_torch.server.from_pretrained import get_block_config, load_block_params, resolve_model_path
 from petals_tpu_torch.server.handler import TransformerHandler, _log_failure
 from petals_tpu_torch.server.memory_cache import MemoryCache
 from petals_tpu_torch.server.prefix_cache import resolve_device_bytes
@@ -141,7 +164,8 @@ from petals_tpu_torch.telemetry.exposition import MetricsServer, telemetry_diges
 from petals_tpu_torch.telemetry.integrity import cap_announce_payload, get_quarantine
 from petals_tpu_torch.telemetry.journal import get_journal
 from petals_tpu_torch.telemetry.observatory import get_observatory
-from petals_tpu_torch.utils import tracing
+from petals_tpu_torch.utils import quant_cache, tracing
+from petals_tpu_torch.utils.asyncio_utils import log_exception_callback
 from petals_tpu_torch.utils.bandwidth import probe_swarm_bandwidth_mbps
 from petals_tpu_torch.utils.convert_block import QuantType, convert_block_params
 from petals_tpu_torch.utils.device import resolve_device
@@ -153,11 +177,12 @@ from petals_tpu_torch.utils.dht_utils import (
     module_uids,
 )
 from petals_tpu_torch.utils.ping import PingAggregator
+from petals_tpu_torch.utils.random_utils import sample_up_to
 
 logger = logging.getLogger(__name__)
 
 DEFAULT_UPDATE_PERIOD = 30.0
-OFFLINE_EXPIRATION = 60.0  # how long the final OFFLINE announce stays readable
+OFFLINE_EXPIRATION = 60.0  # how long the final OFFLINE announce stays readable, at least
 # disaggregated serving tiers: generalists serve both phases; a prefill-tier
 # replica hands finished prefills to a decode-tier one (handler.rpc_session_handoff)
 PHASE_TIERS = ("generalist", "prefill", "decode")
@@ -224,6 +249,12 @@ class Server:
         draft_window: Optional[int] = None,  # the draft's context window in tokens; None: 64
         draft_quant_type: str = "nf4a",  # the draft's block quantization
         adapters: Sequence[str] = (),  # PEFT checkpoint dirs to host (utils/peft.py)
+        mean_balance_check_period: float = 0.0,  # > 0: look for a better span this often (seconds)
+        balance_quality: float = 0.75,  # move when the swarm's quality falls under this
+        revision: str = "main",  # the Hub revision a repo id streams from (utils/hub.py)
+        cache_dir=None,  # the Hub's and the quantized blocks' disk cache; None: utils/disk_cache.py's
+        quant_weight_cache: bool = True,  # keep quantized blocks across restarts (utils/quant_cache.py)
+        batching: bool = True,  # False: no lane pool, every session on a private cache
     ):
         if phase_tier not in PHASE_TIERS:
             raise ValueError(f"phase_tier must be one of {PHASE_TIERS}, got {phase_tier!r}")
@@ -246,7 +277,10 @@ class Server:
         self.quant_type = QuantType(quant_type).value
         self.kv_quant_type = kv_quant_type
         self.model_path = model_path
-        self.family, self.cfg = get_block_config(model_path)
+        self.revision, self.cache_dir = revision, cache_dir
+        self.quant_weight_cache = quant_weight_cache
+        # the same revision and cache as the weights, or the shapes could differ
+        self.family, self.cfg = get_block_config(model_path, revision=revision, cache_dir=cache_dir)
         total = self.cfg.num_hidden_layers
         # PETALS_TPU_RADIX_DEVICE_FRAC retunes the prefix cache's HBM/host
         # split as a fraction of prefix_cache_bytes
@@ -318,11 +352,13 @@ class Server:
         self.draft_quant_type = draft_quant_type
         self._draft_model = None  # loaded with the span (_load_draft_model)
         self.adapter_paths = list(adapters)
+        self.mean_balance_check_period = mean_balance_check_period
+        self.balance_quality = balance_quality
+        self.batching = batching
         self.identity: Optional[Identity] = None
 
         self.queue = PriorityTaskQueue()
         self.backend: Optional[TransformerBackend] = None
-        self.batcher: Optional[DecodeBatcher] = None
         self.handler: Optional[TransformerHandler] = None
         self.rpc_server: Optional[RpcServer] = None
         self.dht: Optional[DHTNode] = None
@@ -331,58 +367,28 @@ class Server:
         self._next_pings: dict = {}  # successor peer id hex -> RTT seconds
         self._ping_aggregator: Optional[PingAggregator] = None
         self._announcer_task: Optional[asyncio.Task] = None
+        self._balancer_task: Optional[asyncio.Task] = None
+        # what each span load took (seconds): the weights, then the pool's
+        # step programs; and the quantized-block cache's hits and misses
+        self.load_stats = {"load_s": 0.0, "warm_s": 0.0, "cache_hits": 0, "cache_misses": 0}
 
     # ------------------------------------------------------------------ the span
 
+    @property
+    def batcher(self) -> Optional[DecodeBatcher]:
+        """The lane pool the handler serves from (None under
+        ``batching=False``); a span move replaces it."""
+        return self.handler.batcher if self.handler is not None else None
+
     def _load_span(self) -> None:
-        """Load blocks [first_block, first_block + num_blocks) and build the
-        backend, the batcher and the handler over them. One block at a time:
-        its dense weights are freed once quantized (fused qkv / gate+up, as
-        the JAX server fuses on one device, unless adapters target the
-        separate projections)."""
-        first, n = self.first_block, self.num_blocks
-        params = [
-            convert_block_params(
-                load_block_params(
-                    self.model_path, i, dtype=self.compute_dtype, device=self.device, family=self.family, cfg=self.cfg
-                ),
-                self.family.name, self.quant_type, fuse=not self.adapter_paths,
-            )
-            for i in range(first, first + n)
-        ]
-        self.backend = TransformerBackend(
-            self.family, self.cfg, params,
-            first_block=first, n_blocks=n, device=self.device, compute_dtype=self.compute_dtype,
-            max_chunk_size_bytes=self.max_chunk_size_bytes, quant_type=self.quant_type,
-            kv_quant_type=self.kv_quant_type,
-        )
-        self._install_adapters(self.backend)
+        """Load the span and build the backend, the batcher and the handler
+        over it."""
+        self.backend = self._build_backend(self._load_span_params(self.first_block, self.num_blocks))
         self.server_gen_params = self._load_server_gen_params()
-        draft = self._load_draft_model()
-        spec_k = self.spec_k if self.draft_model_path else None
-        batch_lanes = self.batch_lanes
-        if batch_lanes is None:
-            # lanes cost their full length: cap the pool at half the cache
-            # budget, as petals_tpu does (the other half serves private
-            # sessions); a quantized pool's pages cost their stored bytes
-            lane_bytes = self.backend.kv_bytes_per_token() * self.batch_max_length
-            batch_lanes = min(8, int(self.memory_cache.max_size_bytes // 2 // max(lane_bytes, 1)))
-        if batch_lanes < 1:
-            raise ValueError(
-                f"the cache budget of {self.memory_cache.max_size_bytes} bytes affords no lane of "
-                f"{self.batch_max_length} tokens"
-            )
-        self.batcher = DecodeBatcher(
-            self.backend, self.memory_cache, self.queue,
-            n_lanes=batch_lanes, max_length=self.batch_max_length, page_size=self.page_size or None,
-            n_pages=self.n_pages, prefill_token_budget=self.prefill_token_budget,
-            alloc_timeout=self.max_alloc_timeout, gen_params=self.server_gen_params,
-            swap_host_bytes=self.swap_host_bytes, preemption_policy=self.preemption_policy, ledger=self.ledger,
-            draft_model=draft, spec_k=spec_k,
-        )
         self.handler = TransformerHandler(
-            self.backend, self.batcher,
+            self.backend, self._make_batcher(self.backend),
             dht_prefix=self.dht_prefix, compression=self.compression,
+            memory_cache=self.memory_cache, queue=self.queue, ledger=self.ledger,
             inference_max_length=self.inference_max_length,
             session_timeout=self.session_timeout, step_timeout=self.step_timeout,
             request_timeout=self.request_timeout,
@@ -392,6 +398,84 @@ class Server:
             prefix_cache_bytes=self.prefix_cache_bytes, prefix_share_scope=self.prefix_share_scope,
             prefix_device_bytes=self.prefix_device_bytes, prefix_cache_policy=self.prefix_cache_policy,
             identity=self.identity,
+        )
+
+    def _load_span_params(self, first: int, n: int) -> list:
+        """Blocks [first, first + n), one at a time: its dense weights are
+        freed once quantized (fused qkv / gate+up, as the JAX server fuses
+        on one device, unless adapters target the separate projections)."""
+        t0 = time.perf_counter()
+        params = [self._load_block_converted(i, fuse=not self.adapter_paths) for i in range(first, first + n)]
+        # the host's wall: a device-wide synchronize here would break another
+        # server's capture in the same process
+        self.load_stats["load_s"] = time.perf_counter() - t0
+        return params
+
+    def _load_block_converted(self, block_index: int, *, fuse: bool) -> dict:
+        """One block, quantized per ``quant_type``. A quantized block is a
+        pure function of (checkpoint, kind, fuse), so it is read from the
+        disk cache (utils/quant_cache.py) when an earlier start of either
+        package wrote it, and written there otherwise
+        (petals_tpu/server/server.py:818-846)."""
+        use_cache = self.quant_weight_cache and self.quant_type != QuantType.NONE.value
+        if use_cache:
+            path = quant_cache.cache_path(
+                self.model_path, block_index, self.quant_type, fuse=fuse, revision=self.revision,
+                cache_dir=self.cache_dir, dtype_tag=str(self.compute_dtype).removeprefix("torch."),
+            )
+            cached = quant_cache.load_quantized_block(path, device=self.device)
+            if cached is not None:
+                self.load_stats["cache_hits"] += 1
+                return cached
+            self.load_stats["cache_misses"] += 1
+        params = convert_block_params(
+            load_block_params(
+                self.model_path, block_index, dtype=self.compute_dtype, device=self.device, family=self.family,
+                cfg=self.cfg, revision=self.revision, cache_dir=self.cache_dir,
+            ),
+            self.family.name, self.quant_type, fuse=fuse,
+        )
+        if use_cache:
+            try:
+                quant_cache.save_quantized_block(path, params)
+            except OSError as e:
+                logger.warning(f"Could not cache quantized block {block_index}: {e!r}")
+        return params
+
+    def _build_backend(self, params: list) -> TransformerBackend:
+        backend = TransformerBackend(
+            self.family, self.cfg, params,
+            first_block=self.first_block, n_blocks=self.num_blocks, device=self.device,
+            compute_dtype=self.compute_dtype, max_chunk_size_bytes=self.max_chunk_size_bytes,
+            quant_type=self.quant_type, kv_quant_type=self.kv_quant_type,
+        )
+        self._install_adapters(backend)
+        return backend
+
+    def _make_batcher(self, backend: TransformerBackend) -> Optional[DecodeBatcher]:
+        """The lane pool over ``backend``, None under ``batching=False``."""
+        if not self.batching:
+            return None
+        batch_lanes = self.batch_lanes
+        if batch_lanes is None:
+            # lanes cost their full length: cap the pool at half the cache
+            # budget, as petals_tpu does (the other half serves private
+            # sessions); a quantized pool's pages cost their stored bytes
+            lane_bytes = backend.kv_bytes_per_token() * self.batch_max_length
+            batch_lanes = min(8, int(self.memory_cache.max_size_bytes // 2 // max(lane_bytes, 1)))
+        if batch_lanes < 1:
+            raise ValueError(
+                f"the cache budget of {self.memory_cache.max_size_bytes} bytes affords no lane of "
+                f"{self.batch_max_length} tokens"
+            )
+        draft = self._load_draft_model()
+        return DecodeBatcher(
+            backend, self.memory_cache, self.queue,
+            n_lanes=batch_lanes, max_length=self.batch_max_length, page_size=self.page_size or None,
+            n_pages=self.n_pages, prefill_token_budget=self.prefill_token_budget,
+            alloc_timeout=self.max_alloc_timeout, gen_params=self.server_gen_params,
+            swap_host_bytes=self.swap_host_bytes, preemption_policy=self.preemption_policy, ledger=self.ledger,
+            draft_model=draft, spec_k=self.spec_k if self.draft_model_path else None,
         )
 
     def _install_adapters(self, backend: TransformerBackend) -> None:
@@ -449,8 +533,12 @@ class Server:
         # here, not at the top: the client package imports this module
         from petals_tpu_torch.client.from_pretrained import load_client_params
 
+        path = resolve_model_path(
+            self.model_path, prefixes=tuple(self.family.hf_client_prefixes), revision=self.revision,
+            cache_dir=self.cache_dir,
+        )
         params = load_client_params(
-            self.model_path, dtype=torch.float32, device=self.device, family=self.family, cfg=self.cfg,
+            path, dtype=torch.float32, device=self.device, family=self.family, cfg=self.cfg,
         )
         nbytes = sum(t.numel() * t.element_size() for t in {t.data_ptr(): t for t in params.values()}.values())
         logger.info(
@@ -517,9 +605,14 @@ class Server:
                 logger.info(f"Prometheus /metrics on port {self._metrics_server.port}")
             except OSError as e:  # the port is taken: serve without the scrape endpoint
                 logger.warning(f"Could not bind metrics port {self.metrics_port}: {e}")
+        await self._warm_self_probe()
         self._state = ServerState.ONLINE
         await self._announce(ServerState.ONLINE)
         self._announcer_task = asyncio.create_task(self._announce_loop())
+        self._announcer_task.add_done_callback(log_exception_callback(logger, "announce loop"))
+        if self.mean_balance_check_period > 0:
+            self._balancer_task = asyncio.create_task(self._balance_loop())
+            self._balancer_task.add_done_callback(log_exception_callback(logger, "balance loop"))
         logger.info(
             f"Serving blocks [{self.first_block}, {self.first_block + self.num_blocks}) of "
             f"{self.model_path} at {self.contact_addr.to_string()} ({self.device}, quant={self.quant_type}, "
@@ -575,7 +668,7 @@ class Server:
         self._state = ServerState.OFFLINE
         if self.dht is not None and self.module_uids:
             try:
-                await self._announce(ServerState.OFFLINE, expiration=dht_time() + OFFLINE_EXPIRATION)
+                await self._announce(ServerState.OFFLINE, expiration=self._offline_expiration())
             except Exception as e:  # best effort: the records expire on their own
                 logger.debug(f"OFFLINE announce during drain failed: {e!r}")
         if parked:
@@ -644,16 +737,17 @@ class Server:
             # a drain-to-migrate push racing shutdown must not hang teardown
             # on a slow peer: the aborted sessions stay parked
             self.handler.abort_migrations()
-        if self._announcer_task is not None:
-            self._announcer_task.cancel()
-            try:
-                await self._announcer_task
-            except asyncio.CancelledError:
-                pass
+        for task in (self._balancer_task, self._announcer_task):
+            if task is not None:
+                task.cancel()
+                try:
+                    await task
+                except asyncio.CancelledError:
+                    pass
         if self.dht is not None and self.module_uids:
             self._state = ServerState.OFFLINE
             try:
-                await self._announce(ServerState.OFFLINE, expiration=dht_time() + OFFLINE_EXPIRATION)
+                await self._announce(ServerState.OFFLINE, expiration=self._offline_expiration())
             except Exception as e:  # best effort: the records expire on their own
                 logger.debug(f"OFFLINE announce during shutdown failed: {e!r}")
         if self.dht is not None:
@@ -684,7 +778,7 @@ class Server:
             # the announce counts a token's stored bytes, as petals_tpu's does
             # (rpc_info counts its logical bytes)
             cache_tokens_left = int(self.memory_cache.bytes_left // max(self.backend.kv_bytes_per_token(), 1))
-            pool = self.batcher.occupancy_info()
+            pool = self.batcher.occupancy_info() if self.batcher is not None else None
         rps = self._rps_info or {}
         return ServerInfo(
             state=state,
@@ -731,28 +825,45 @@ class Server:
 
     async def _refresh_integrity(self) -> None:
         """The announce's integrity view: the digest of a self-probe through
-        ``ptu.probe`` (taken once, see the module docstring) and this
+        ``ptu.probe``, the path an external canary prober takes (so an
+        injected ``integrity.corrupt`` shows in the announce too), and this
         server's quarantine flag in the process's registry. A failure
         leaves the previous view in place."""
         if self.handler is None:
             return
         try:
-            if self._integrity_info is None:
-                reply = await self.handler.rpc_probe({"tokens": 4}, None)
-                self._integrity_info = {
-                    "self_digest": fp_ops.digest_hex(np.asarray(reply["fp"], dtype=np.float32)),
-                    "fp_seed": int(reply["fp_seed"]),
-                    "span": f"{reply['first_block']}:{reply['first_block'] + reply['n_blocks']}",
-                    "quarantined": False,
-                }
+            reply = await self.handler.rpc_probe({"tokens": 4}, None)
             peer = self.identity.peer_id.to_string() if self.identity is not None else ""
-            self._integrity_info = cap_announce_payload(
-                {**self._integrity_info, "quarantined": bool(peer and get_quarantine().is_quarantined(peer))}
-            )
+            self._integrity_info = cap_announce_payload({
+                "self_digest": fp_ops.digest_hex(np.asarray(reply["fp"], dtype=np.float32)),
+                "fp_seed": int(reply["fp_seed"]),
+                "span": f"{reply['first_block']}:{reply['first_block'] + reply['n_blocks']}",
+                "quarantined": bool(peer and get_quarantine().is_quarantined(peer)),
+            })
         except Exception as e:
             logger.debug(f"integrity digest refresh failed: {e!r}")
 
+    async def _warm_self_probe(self) -> None:
+        """On a card the self-probe's forward program runs eagerly on its
+        first call and captures on its second: the ONLINE announce's probe
+        is the second, so the capture happens while the span comes up, never
+        at a later announce while the card serves."""
+        if self.device.type == "cuda":
+            await self._refresh_integrity()
+
+    def _offline_expiration(self) -> float:
+        """An OFFLINE record's expiration: OFFLINE_EXPIRATION from now, and
+        never before the last announce's, since a DHT store keeps the value
+        that expires last (an update period over 30 s would otherwise leave
+        the ONLINE record standing)."""
+        return max(dht_time() + OFFLINE_EXPIRATION, default_expiration(self.update_period))
+
     async def _announce(self, state: ServerState, expiration: Optional[float] = None) -> None:
+        if chaos.ENABLED and chaos.fire(chaos.SITE_ANNOUNCE) is not None:
+            # an injected announce loss: the record ages out, as if the store
+            # never reached the network
+            logger.warning(f"chaos: dropping the DHT announce ({state})")
+            return
         expiration = expiration or default_expiration(self.update_period)
         if state != ServerState.OFFLINE:
             # the ServerInfo below carries this period's integrity view
@@ -778,12 +889,85 @@ class Server:
             except Exception as e:
                 logger.warning(f"Announce failed: {e!r}")
 
-    async def _choose_start_block(self) -> int:
+    async def _choose_start_block(self, throughputs=None) -> int:
         """The start of the span over the swarm's weakest blocks."""
-        uids = module_uids(self.dht_prefix, range(self.cfg.num_hidden_layers))
-        infos, _ = await get_remote_module_infos(self.dht, uids)
-        throughputs = compute_throughputs(infos, exclude_peer=self.dht.peer_id)
+        if throughputs is None:
+            uids = module_uids(self.dht_prefix, range(self.cfg.num_hidden_layers))
+            infos, _ = await get_remote_module_infos(self.dht, uids)
+            throughputs = compute_throughputs(infos, exclude_peer=self.dht.peer_id)
         return choose_best_start(np.asarray(throughputs), self.num_blocks)
+
+    async def _balance_loop(self) -> None:
+        """Every ``mean_balance_check_period`` (times 0.5 to 1.5), move the
+        span when the swarm would gain (petals_tpu/server/server.py:1034). A
+        failed check is logged and the loop goes on."""
+        uids = module_uids(self.dht_prefix, range(self.cfg.num_hidden_layers))
+        while True:
+            await asyncio.sleep(self.mean_balance_check_period * (0.5 + random.random()))
+            try:
+                infos, _ = await get_remote_module_infos(self.dht, uids)
+                if should_choose_other_blocks(
+                    self.dht.peer_id, infos, self.num_blocks, balance_quality=self.balance_quality
+                ):
+                    throughputs = compute_throughputs(infos, exclude_peer=self.dht.peer_id)
+                    new_start = await self._choose_start_block(throughputs)
+                    if new_start != self.first_block:
+                        logger.info(f"Rebalancing: moving the span to start at block {new_start}")
+                        await self._reload_span(new_start)
+            except Exception as e:
+                logger.warning(f"Balance check failed: {e!r}")
+
+    async def resize(self, new_first_block: int) -> bool:
+        """The autoscaler's actuator: move the span (of the same length) to
+        start at ``new_first_block``, its live sessions pushed to replicas
+        first. False when it is there already; an out-of-range target
+        raises ValueError, so a bad decision fails loudly rather than
+        announcing blocks that do not exist."""
+        last = self.cfg.num_hidden_layers - self.num_blocks
+        if not 0 <= new_first_block <= last:
+            raise ValueError(f"resize target {new_first_block} outside [0, {last}]")
+        if new_first_block == self.first_block:
+            return False
+        logger.info(f"Resize: moving the span to start at block {new_first_block}")
+        await self._reload_span(new_first_block)
+        return True
+
+    async def _reload_span(self, new_first_block: int) -> None:
+        """Move to a new span: OFFLINE on the old blocks, JOINING on the new
+        ones, the live sessions parked and pushed to replicas of the old
+        span, the new span loaded off the loop, the handler given a new
+        backend and pool (whose step programs are captured before it
+        returns), then ONLINE. Private sessions keep the old backend until
+        they close; the pooled ones were pushed or fail over."""
+        try:
+            await declare_active_modules(
+                self.dht, self.module_uids, self._server_info(ServerState.OFFLINE), self._offline_expiration(),
+                contact_addr=self._contact_addr,
+            )
+        except Exception as e:  # best effort: stale records expire
+            logger.debug(f"OFFLINE announce before the span move failed: {e!r}")
+        self.first_block = new_first_block
+        self.module_uids = module_uids(self.dht_prefix, range(self.first_block, self.first_block + self.num_blocks))
+        self._state = ServerState.JOINING  # the announce loop must not say ONLINE yet
+        await self._announce(ServerState.JOINING)
+        try:
+            # before the old pool closes: the sessions' KV goes to replicas
+            # of the old span, and the clients adopt it there
+            if await self.handler.park_sessions(ttl=60.0):
+                await self._migrate_parked_sessions()
+        except Exception as e:
+            logger.warning(f"Span-move migration failed (the sessions will replay): {e!r}")
+        self.backend = self._build_backend(
+            await asyncio.to_thread(self._load_span_params, self.first_block, self.num_blocks)
+        )
+        t0 = time.perf_counter()
+        await self.handler.swap_backend(self.backend, self._make_batcher(self.backend))
+        self.load_stats["warm_s"] = time.perf_counter() - t0
+        await self._warm_self_probe()
+        # measured for the old span's successor: the loop measures again
+        self._next_pings = {}
+        self._state = ServerState.ONLINE
+        await self._announce(ServerState.ONLINE)
 
     async def _measure_next_pings(self) -> None:
         """Ping the servers that could follow us in a chain (those serving
@@ -802,7 +986,7 @@ class Server:
             addr_book[pid] for pid, si in infos[0].servers.items()
             if pid != self.dht.peer_id and pid in addr_book and si.state == ServerState.ONLINE
         ]
-        candidates = random.sample(candidates, min(len(candidates), MAX_PINGED_SUCCESSORS))
+        candidates = sample_up_to(candidates, MAX_PINGED_SUCCESSORS)
         if candidates:
             await asyncio.wait_for(self._ping_aggregator.ping(candidates), 10.0)
         candidate_ids = {addr.peer_id for addr in candidates}

@@ -1,1 +1,3 @@
-"""Helpers: device choice, safetensors I/O, numpy weight conversion."""
+"""Helpers: device choice, safetensors I/O, numpy weight conversion, the
+disk caches (quantized blocks, the Hub fetcher's shards), and petals_tpu's
+small utilities (logging, asyncio, packaging, sampling)."""

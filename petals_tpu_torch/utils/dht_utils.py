@@ -11,6 +11,7 @@ import asyncio
 import logging
 from typing import Dict, List, Optional, Sequence
 
+from petals_tpu_torch import chaos
 from petals_tpu_torch.data_structures import (
     ModuleUID,
     PeerID,
@@ -56,6 +57,8 @@ async def get_remote_module_infos(dht: DHTNode, uids: Sequence[ModuleUID], *, ac
 
     Returns (infos, addr_book): infos[i] is a RemoteModuleInfo or None, and
     addr_book maps peer ids to their announced contact addresses."""
+    if chaos.ENABLED:
+        await chaos.inject(chaos.SITE_DHT_LOOKUP, detail=str(uids[0]) if uids else None)
     records = await asyncio.gather(*(dht.get(uid) for uid in uids))
     out: List[Optional[RemoteModuleInfo]] = []
     addr_book: Dict[PeerID, PeerAddr] = {}

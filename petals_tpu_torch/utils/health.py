@@ -38,19 +38,10 @@ from petals_tpu_torch.dht.node import DHTNode
 from petals_tpu_torch.ops import fingerprint as fp_ops
 from petals_tpu_torch.telemetry.flight import FlightRecorder
 from petals_tpu_torch.telemetry.integrity import CanaryProber, get_quarantine
+from petals_tpu_torch.utils.asyncio_utils import log_exception_callback
 from petals_tpu_torch.utils.dht_utils import compute_spans, get_remote_module_infos, list_models
 
 logger = logging.getLogger(__name__)
-
-
-def log_exception_callback(log: logging.Logger, what: str):
-    """A done-callback that logs a background task's failure."""
-
-    def callback(task: asyncio.Task) -> None:
-        if not task.cancelled() and task.exception() is not None:
-            log.warning(f"{what} failed", exc_info=task.exception())
-
-    return callback
 
 
 def _f(value, default: float = 0.0) -> float:

@@ -40,6 +40,13 @@ def test_importing_every_module_loads_no_jax():
             "server.scheduler", "telemetry.ledger", "analysis.sanitizer", "utils.locks", "rpc.relay",
             "server.reachability")}
         assert swap_wire <= set(names), sorted(swap_wire - set(names))
+        # the swarm operations: chaos, the autoscaler, traffic, the caches
+        swarm_ops = {"petals_tpu_torch." + m for m in (
+            "constants", "chaos", "chaos.plane", "swarm", "swarm.policy", "swarm.autoscaler",
+            "cli.run_autoscaler", "traffic", "traffic.generator", "traffic.runner", "utils.logging",
+            "utils.misc", "utils.random_utils", "utils.asyncio_utils", "utils.packaging", "utils.disk_cache",
+            "utils.quant_cache", "utils.hub")}
+        assert swarm_ops <= set(names), sorted(swarm_ops - set(names))
         print(len(names), bad)
         assert not bad, bad
         """
