@@ -428,7 +428,7 @@
    and the bound; the weight traffic its block order implies is printed
    as a model (grouped_weight_traffic), not measured. (b) Each family's
    span at a published config's full width (FAMILY_RUNS:
-   bigscience/bloom-7b1, tiiuae/falcon-7b and mistralai/Mixtral-8x7B-v0.1 at 4), seeded
+   bigscience/bloom-7b1, tiiuae/falcon-7b and mistralai/Mixtral-8x7B-v0.1 at 2), seeded
    bf16 weights written by the port's writer in HF's layout, served by one
    port server built by the
    CLI with its defaults to 3 sessions (600, 300 and 64 tokens, then 16
@@ -520,6 +520,26 @@
    with the in-process server_actuator: its decision journal printed, its
    resize carried out by Server.resize. The kernels line carries the
    phase's launches of K1, K2, K4 and K5's nf4a arms (swarm_ops_launches).
+26. Tensor parallelism on one card (serve_tensor_parallel_and_check, last;
+   alone: scripts/smoke_tensor_parallel.py). (a) K4 at a shard's heads (16
+   query over 4 kv heads) and K5 nf4a / K6 at a shard's projections of a
+   Llama-3-8B block at tp=2 (TP_QUANT_SHAPES) against their plain versions,
+   timed beside their bounds and yardsticks. (b) LLAMA3_8B's config over
+   the smoke checkpoint's 8 blocks (linked) and client tensors of its own
+   128256-token vocabulary, served by a tp=1 port server (--page_size 0)
+   and a ``Server(num_tp_devices=2, tp_devices=[cuda:0, cuda:0])``, in bf16
+   at 8 blocks, nf4a at 4 and int8 at 2 (each cut served whole); each gets
+   a private batch-2 session (a 512-token prompt, 4 decode steps), 4 pooled
+   sessions at once on the dense lane pool, a stateless forward and a
+   ptu.backward of 512 tokens, and the bf16 tp server a server-side greedy
+   generation. Every reply, the private cache's K/V rows, the forward and
+   the gradient lie within REPLY_NOISE_FACTOR times the tp=1 server's
+   distance from the float32 reference (_tp_within); the generation is
+   teacher-forced (check_gen_tokens). The tp server pages nothing, keeps every shard on
+   the card, captures no step program, reduces twice a block call, and
+   launches K4, K5 nf4a and K6; the bf16 servers' decode step and 512-row
+   chunk are profiled side by side (profile_tp_steps), and the throughput
+   probe times the tp server's own kind of span.
 
 float32 matmuls run in full float32: TF32 is switched off for matmuls and
 convolutions. Exits non-zero on any failure. The last line is the JSON
@@ -536,7 +556,8 @@ caches; ``forward_launches``: K4 and K5's nf4a prefill kernel on phase
 forwards, backwards and adapter sessions (with the backward's profile on
 K4's entry and the quantized spans' on K5 nf4a's and K6's prefill entries);
 ``swarm_ops_launches``: K1, K2, K4 and K5's nf4a arms on phase 25's swarm
-operations.
+operations; ``tp_launches`` and ``tp``: K4, K5's nf4a arms and K6 on phase
+26's tensor-parallel servers, and each one's case at a shard's shapes.
 Every run prints its lanes, pages and pool bytes.
 """
 
@@ -819,9 +840,9 @@ MIXTRAL_8X7B = {
 # (a)).
 MIXTRAL_EXPERT_SPREAD = 0.15
 MIXTRAL_W2_SCALE = 0.25
-# (config, blocks served) of each family's run
-# (BLOOM's and Falcon's depth cut to 4 blocks, as Mixtral's, to keep the smoke's time)
-FAMILY_RUNS = {"bloom": (BLOOM_7B1, 4), "falcon": (FALCON_7B, 4), "mixtral": (MIXTRAL_8X7B, 4)}
+# (config, blocks served) of each family's run: the depth cut to 2 blocks
+# to keep the smoke's time (4 until phase 26 joined the run)
+FAMILY_RUNS = {"bloom": (BLOOM_7B1, 2), "falcon": (FALCON_7B, 2), "mixtral": (MIXTRAL_8X7B, 2)}
 FAMILY_PROMPTS = (600, 300, 64)  # 600 > the 512-token prefill budget: a continuation chunk
 FAMILY_STEPS = 16
 FAMILY_NEW = 16  # the client's greedy tokens a family
@@ -931,6 +952,33 @@ OPS_TRAFFIC = dict(seed=SEED + 25, duration_s=8.0, base_rate=2.0, wave_period_s=
                    prompt_suffix_len=16, min_new_tokens=4, max_new_tokens=16)  # the model's vocabulary
 OPS_TIME_SCALE = 0.5  # the schedule's 8 s replayed in 4 s
 OPS_PROBE_SEED = 303
+# phase 26: tensor parallelism, two shards of the one card. Meta-Llama-3-8B
+# config.json (meta-llama/Meta-Llama-3-8B), depth cut to the TP_SPAN blocks
+# served: its blocks are Mistral-7B's widths (the smoke checkpoint's block
+# shards are linked), its own vocabulary and rope_theta; weights random
+TP_SPAN = 8
+LLAMA3_8B = {
+    "model_type": "llama", "architectures": ["LlamaForCausalLM"],
+    "hidden_size": 4096, "intermediate_size": 14336, "num_attention_heads": 32,
+    "num_key_value_heads": 8, "head_dim": 128, "num_hidden_layers": TP_SPAN,
+    "rms_norm_eps": 1e-5, "rope_theta": 500000.0, "vocab_size": 128256, "hidden_act": "silu",
+    "max_position_embeddings": 8192, "tie_word_embeddings": False, "torch_dtype": "bfloat16",
+    "attention_bias": False, "mlp_bias": False,
+}
+TP = 2
+TP_PROMPT = 512
+TP_STEPS = 4  # decode steps after each prompt
+TP_LANES = 4
+TP_BATCH = 2  # the private session's batch
+TP_MAX_LENGTH = 1024
+TP_GEN_NEW = 8
+TP_KINDS = (("none", TP_SPAN), ("nf4a", 4), ("int8", 2))  # each kind's depth cut, served whole
+# K5 / K6 at the shards' shapes of a Llama-3-8B block at tp=2 (unfused:
+# the columns of wq / wk / wv / wg / wu and the rows of wo / wd halved)
+TP_QUANT_SHAPES = {"wq": (4096, 2048), "wk": (4096, 512), "wo": (2048, 4096), "wg": (4096, 7168),
+                   "wd": (7168, 4096)}
+TP_QUANT_ROWS = (4, 512)  # the pool's 4 decode lanes, a 512-token prompt
+TP_QUANT_REPORT = ("wg", (4, 512))
 # K7's case: a 512-row chunk at top-2 over Mixtral's 8 experts, skewed: one
 # expert empty, one taking half the rows
 GROUPED_SIZES = (512, 0, 160, 96, 64, 96, 48, 48)
@@ -3114,10 +3162,12 @@ def _reset_launch_counts():
 
 def _private_kv(server, n_tokens):
     """The K/V rows of the one open private session, read from its cache
-    [n_blocks, batch, max_length, hkv, d]: (k, v) of [n_blocks * batch,
+    [n_blocks, batch, max_length, hkv, d] (a tensor-parallel server's
+    shards joined along the head axis): (k, v) of [n_blocks * batch,
     n_tokens, hkv, d]."""
     torch.cuda.synchronize()
-    return tuple(buf[:, :, :n_tokens].flatten(0, 1).clone() for buf in _private_buffers(server))
+    return tuple((buf.join() if hasattr(buf, "join") else buf)[:, :, :n_tokens].flatten(0, 1).clone()
+                 for buf in _private_buffers(server))
 
 
 async def _drive_private(server, blocks, batch, max_length, step_lens, seed):
@@ -7194,6 +7244,306 @@ def serve_swarm_ops_and_check(ckpt, device, smi) -> dict:
     return result
 
 
+def llama3_checkpoint(src: str, dst: str, device) -> str:
+    """A checkpoint of LLAMA3_8B's config beside ``src`` (write_checkpoint's
+    8 Mistral-7B-width blocks, which are a Llama-3-8B block's widths): the
+    block shards linked, not copied, and the client's tensors at Llama-3's
+    128256-token vocabulary, random bf16 from SEED + 26. One made already is
+    reused."""
+    from petals_tpu_torch.utils.safetensors_io import save_file
+
+    if os.path.isdir(dst):
+        return dst
+    os.makedirs(dst)
+    with open(os.path.join(src, "model.safetensors.index.json")) as f:
+        blocks = {name: fname for name, fname in json.load(f)["weight_map"].items() if name.startswith("model.layers.")}
+    for fname in set(blocks.values()):
+        os.symlink(os.path.join(src, fname), os.path.join(dst, fname))
+    h, vocab = LLAMA3_8B["hidden_size"], LLAMA3_8B["vocab_size"]
+    gen = torch.Generator(device=device).manual_seed(SEED + 26)
+    client = {name: (torch.randn(vocab, h, generator=gen, device=device) * 0.02).to(torch.bfloat16)
+              for name in ("model.embed_tokens.weight", "lm_head.weight")}
+    client["model.norm.weight"] = torch.ones(h, dtype=torch.bfloat16)
+    save_file(client, os.path.join(dst, "model-client.safetensors"), metadata={"format": "pt"})
+    weight_map = dict(blocks, **{name: "model-client.safetensors" for name in client})
+    del client
+    with open(os.path.join(dst, "model.safetensors.index.json"), "w") as f:
+        json.dump({"metadata": {}, "weight_map": weight_map}, f)
+    with open(os.path.join(dst, "config.json"), "w") as f:
+        json.dump(LLAMA3_8B, f)
+    return dst
+
+
+def _tp_server(root, device, quant_type, tp, throughput=1.0, generate=False):
+    """A port server of the whole of ``root`` on the dense lane pool: tp=1
+    on ``device`` (``--page_size 0``), or ``tp`` shards all on ``device``
+    (``num_tp_devices`` with ``tp_devices``, the keyword for callers: the
+    CLI takes the host's first devices, and this host has one card), with
+    server-side generation when ``generate`` (its client leaves take 4.2 GB
+    in float32 at Llama-3's vocabulary). The tp server asks for the default
+    paged pool, which tensor parallelism turns into the dense lane pool."""
+    from petals_tpu_torch.server.server import Server
+
+    return Server(
+        root, first_block=0, host="127.0.0.1", device=device,
+        num_tp_devices=tp if tp > 1 else None, tp_devices=[device] * tp if tp > 1 else None,
+        quant_type=quant_type, page_size=PAGE if tp > 1 else 0, batch_lanes=TP_LANES,
+        batch_max_length=TP_MAX_LENGTH, inference_max_length=2 * TP_MAX_LENGTH, attn_cache_bytes=2 << 30,
+        prefix_cache_bytes=0, update_period=600.0, throughput=throughput, quant_weight_cache=False,
+        server_side_generation=generate,
+    )
+
+
+async def _drive_tp(server, n_blocks, seed, embed):
+    """One server's phase-26 traffic, the same seeded inputs for every
+    server: a private TP_BATCH-row session (a TP_PROMPT-token prompt, then
+    TP_STEPS decode steps) with its cache's K/V rows, TP_LANES pooled
+    sessions of the same shape at once, a stateless forward and a
+    ptu.backward of TP_PROMPT tokens, and on a server that generates a
+    server-side greedy generation of TP_GEN_NEW tokens after a
+    TP_PROMPT-token prompt (``embed``: the checkpoint's embeddings)."""
+    from petals_tpu_torch.data_structures import CHAIN_DELIMITER, make_uid
+    from petals_tpu_torch.rpc import RpcClient
+    from petals_tpu_torch.rpc.serialization import deserialize_array, serialize_array
+
+    out = {"private": await _drive_private(server, (0, n_blocks), TP_BATCH, TP_MAX_LENGTH,
+                                           (TP_PROMPT,) + (1,) * TP_STEPS, seed)}
+    inputs, outs, metas, _, _ = await drive_server(server, (TP_PROMPT,) * TP_LANES, TP_STEPS, seed + 1)
+    out["lanes"] = (inputs, outs, metas)
+    gen = torch.Generator().manual_seed(seed + 2)
+    hsz = server.cfg.hidden_size
+    hidden = torch.randn(1, TP_PROMPT, hsz, generator=gen).to(torch.bfloat16)
+    grad = (torch.randn(1, TP_PROMPT, hsz, generator=gen) * 1e-2).to(torch.bfloat16)
+    uids = CHAIN_DELIMITER.join(make_uid(server.dht_prefix, i) for i in range(n_blocks))
+    client = await RpcClient.connect("127.0.0.1", server.rpc_server.port)
+    try:
+        fwd = await client.call("ptu.forward", {"uids": uids, "tensors": {"hidden": serialize_array(hidden)}},
+                                timeout=300)
+        bwd = await client.call("ptu.backward", {"uids": uids, "tensors": {
+            "hidden": serialize_array(hidden), "grad_out": serialize_array(grad)}}, timeout=300)
+        out["forward"] = (hidden, deserialize_array(fwd["tensors"]["hidden"]))
+        out["backward"] = (hidden, grad, deserialize_array(bwd["tensors"]["grad_hidden"]))
+        if server.server_gen_params is not None:
+            ids = torch.randint(0, server.cfg.vocab_size, (1, TP_PROMPT), generator=gen)
+            prompt = embed[ids].to(torch.bfloat16)
+            stream = await client.open_stream("ptu.inference")
+            await stream.send({"uids": uids, "max_length": TP_MAX_LENGTH, "batch_size": 1})
+            if not (await stream.recv(timeout=120))["session_open"]:
+                raise AssertionError("the generating session did not open")
+            await stream.send({"tensors": {"hidden": serialize_array(prompt)}, "gen_tokens": TP_GEN_NEW})
+            reply = await stream.recv(timeout=300)
+            out["gen"] = ({"hidden": prompt}, torch.as_tensor(reply["tokens"]))
+            await stream.end()
+    finally:
+        await client.close()
+    return out
+
+
+def _tp_within(label, got_tp, got_one, want_f32) -> list:
+    """The tp server's replies against the tp=1 server's, both measured from
+    the float32 reference: each of ``_rel_errors``' two distances (the
+    worst max-rel and mean-rel over the replies) within REPLY_NOISE_FACTOR
+    times tp=1's. Returns what failed."""
+    tp, one = _rel_errors(got_tp, want_f32), _rel_errors(got_one, want_f32)
+    log(f"{label}: vs float32 max-rel {tp[0]:.3e} mean-rel {tp[1]:.3e}; tp=1 {one[0]:.3e} / {one[1]:.3e} "
+        f"(ratio {tp[0] / one[0]:.3f} / {tp[1] / one[1]:.3f}, tol {REPLY_NOISE_FACTOR:g})")
+    if tp[0] > REPLY_NOISE_FACTOR * one[0] or tp[1] > REPLY_NOISE_FACTOR * one[1]:
+        return [f"{label}: further from the float32 reference than {REPLY_NOISE_FACTOR:g}x tp=1's"]
+    return []
+
+
+def _shard_bytes(backend) -> list:
+    """Each shard's weight bytes across the span (a leaf both shards share,
+    a replicated norm on one device, counted once a shard)."""
+    from petals_tpu_torch.ops.quant import QUANTIZED_TYPES
+
+    def nbytes(leaf):
+        if isinstance(leaf, QUANTIZED_TYPES):
+            return leaf.nbytes
+        return leaf.numel() * leaf.element_size() if isinstance(leaf, torch.Tensor) else 0
+
+    return [sum(nbytes(leaf) for block in backend.block_params for leaf in block[s].values())
+            for s in range(backend.tp_size)]
+
+
+def profile_tp_steps(one, two, device, smi) -> dict:
+    """Where a tensor-parallel step's time goes beside tp=1's, by
+    ``profile_calls``: the dense pool's decode step at TP_LANES lanes of
+    TP_MAX_LENGTH tokens (positions spread over the lanes, as the dense
+    profile's) and a TP_PROMPT-row chunk on a private cache of
+    TP_MAX_LENGTH tokens: tp=1 eager (an ``eager_sibling``) and replayed (a
+    sibling whose programs warm first), and the tp server eager, the only
+    way its steps run."""
+    sib, ref = sibling_backend(one), eager_sibling(one)
+    gen = torch.Generator().manual_seed(SEED + 27)
+    hsz = one.hidden_size
+    h_pool = torch.randn(TP_LANES, 1, hsz, generator=gen).to(torch.bfloat16)
+    chunk = torch.randn(1, TP_PROMPT, hsz, generator=gen).to(torch.bfloat16)
+    positions = torch.linspace(64, TP_MAX_LENGTH - 64, TP_LANES).to(torch.int32)
+
+    def zeros(b, batch):
+        return tuple(d.make_zeros() for d in b.cache_descriptors(batch, TP_MAX_LENGTH, 0, b.n_blocks))
+
+    pools = {b: zeros(b, TP_LANES) for b in (sib, ref, two)}
+    caches = {b: zeros(b, 1) for b in (sib, ref, two)}
+    sib.warm_dense_programs(pools[sib], TP_LANES, TP_MAX_LENGTH, 8)
+    pooled = f"dense pool decode step ({TP_LANES} lanes of {TP_MAX_LENGTH} tokens)"
+    private = f"{TP_PROMPT}-row chunk on a private cache"
+    steps = {}
+    for name, b in (("tp=1 eager", ref), ("tp=1 replayed", sib), (f"tp={two.tp_size} eager", two)):
+        steps[f"{pooled}, {name}"] = lambda b=b: b.batched_decode_step(h_pool, pools[b], positions)
+        steps[f"{private}, {name}"] = lambda b=b: b.inference_step(chunk, caches[b], 0)
+    log(f"tensor-parallel profile (--quant_type {one.quant_type}): {one.n_blocks} blocks ({smi})")
+    times = profile_calls(steps)
+    for what in (pooled, private):
+        rows = {name: times[f"{what}, {name}"] for name in ("tp=1 eager", "tp=1 replayed", f"tp={two.tp_size} eager")}
+        log(f"tensor-parallel profile: {what}: " + "; ".join(
+            f"{name} host wall {t['host_wall_ms']:.3f} ms, device busy {t['device_busy_ms']:.3f} ms, idle "
+            f"{t['idle_share']:.3f}, {t['launches']:g} launches" for name, t in rows.items()) + f" ({smi})")
+    return {label: {k: round(v, 4) for k, v in t.items() if k != "kernels"} for label, t in times.items()}
+
+
+def serve_tensor_parallel_and_check(ckpt, device, smi, timer=None) -> dict:
+    """Phase 26: tensor parallelism on the one card (alone:
+    scripts/smoke_tensor_parallel.py). (a) With a ``timer`` (the card), K4
+    at a shard's heads (16 query over 4 kv heads of 128) and K5 nf4a / K6
+    at a shard's projections (TP_QUANT_SHAPES) against their plain
+    versions. (b) A Llama-3-8B-config checkpoint of TP_SPAN blocks
+    (``llama3_checkpoint``) served by a tp=1 port server and by a tp=TP one
+    whose shards all lie on ``device``, in bf16 at TP_SPAN blocks, nf4a at
+    4 and int8 at 2 (``cut_checkpoint``: each cut served whole), each
+    driven by ``_drive_tp`` with the same inputs. Every reply, the private session's K/V rows (joined across the
+    shards), the forward and the backward's gradient are held to the
+    float32 reference over the served weights (dequantized) with
+    ``_tp_within``: the tp server's distance from it within
+    REPLY_NOISE_FACTOR times the tp=1 server's. The bf16 tp server's greedy
+    generation is teacher-forced (``check_gen_tokens``): summing two bf16
+    partials rounds otherwise than one product, so its stream may part from
+    a tp=1 server's. On the tp server: paging off, every shard on the card, no step
+    program captured, two reductions a block call (llama), and K4, K5 nf4a
+    and K6 launched. The bf16 servers' steps profiled side by side
+    (``profile_tp_steps``). Returns the tp servers' launches (K4, and K5 /
+    K6 by arm), the reductions, the kernel cases and the profile."""
+    from petals_tpu_torch.models.llama import block as llama_block
+    from petals_tpu_torch.parallel import collectives
+
+    label = f"tensor parallel (Llama-3-8B, tp={TP} on one card)"
+    t_phase = time.perf_counter()
+    result = {"K4": 0, "quant": {}, "reductions": 0}
+    if timer is not None:
+        heads = (LLAMA3_8B["num_attention_heads"] // TP, LLAMA3_8B["num_key_value_heads"] // TP)
+        result["flash_tp"] = check_flash_case(device, timer, *heads, LLAMA3_8B["head_dim"])
+        result["quant_tp"] = check_quant_kernels(device, timer, TP_QUANT_SHAPES, TP_QUANT_ROWS, ("nf4a", "int8"),
+                                                 TP_QUANT_REPORT, time_all=False, model=f"Llama-3-8B shard (tp={TP})")
+    t0 = time.perf_counter()
+    root = llama3_checkpoint(ckpt, os.path.join(ckpt, "llama3-8b"), device)
+    log(f"{label}: checkpoint (the blocks linked, the client's tensors written) in {time.perf_counter() - t0:.1f} s")
+    embed, _ = _reference_head(root, device)
+    calls = [0]
+    block_shards = llama_block.block_shards
+
+    def counting(params, kv):
+        calls[0] += isinstance(params, (list, tuple))
+        return block_shards(params, kv)
+
+    failed = []
+    for quant_type, n_blocks in TP_KINDS:
+        kind = f"--quant_type {quant_type}, {n_blocks} blocks"
+        cut = root if n_blocks == TP_SPAN else cut_checkpoint(root, f"{root}-{n_blocks}", n_blocks)
+        runs, servers = {}, {}
+        for tp in (1, TP):
+            bf16_tp = tp > 1 and quant_type == "none"  # the probe's TP arm and the generation
+            server = _tp_server(cut, device, quant_type, tp, throughput="auto" if bf16_tp else 1.0, generate=bf16_tp)
+
+            async def serve():
+                await server.start()
+                # counted from here: the start's probes are not the traffic
+                _reset_launch_counts()
+                t_start, before, reductions = time.perf_counter(), _quant_counts(), collectives.reduction_count()
+                calls[0] = 0
+                llama_block.block_shards = counting
+                try:
+                    out = await _drive_tp(server, n_blocks, SEED + 40, embed)
+                    n_red = collectives.reduction_count() - reductions
+                finally:
+                    llama_block.block_shards = block_shards
+                    await server.shutdown()
+                return out, time.perf_counter() - t_start, _delta(_quant_counts(), before), n_red
+
+            t0 = time.perf_counter()
+            runs[tp], wall, quant, n_red = asyncio.run(serve())
+            servers[tp] = server
+            backend, batcher = server.backend, server.batcher
+            launches = _launch_counts()
+            log(f"{label}: tp={tp} ({kind}): started and served in {time.perf_counter() - t0:.1f} s (traffic "
+                f"{wall:.1f} s); launches K4 {launches['K4']}, K5/K6 {quant or 'none'}; pool "
+                f"{'paged' if batcher.page_size else 'dense'}, {batcher.n_lanes} lanes of {batcher.max_length}"
+                + (f"; throughput {server._rps_info}" if server._rps_info else ""))
+            if tp == 1:
+                continue
+            log(f"{label}: tp={tp} ({kind}): {calls[0]} sharded block calls, {n_red} reductions (2 a call); shard "
+                f"weight bytes {_shard_bytes(backend)}; step programs {backend.step_program_stats()}")
+            # every shard's weights on the card: no path runs on the host
+            for shard in (shard for block in backend.block_params for shard in block):
+                for leaf in shard.values():
+                    where = (leaf.data if hasattr(leaf, "kind") else leaf).device
+                    if where != device:
+                        raise AssertionError(f"{label}: a shard's weight lies on {where}")
+            if batcher.page_size is not None or backend.tp_size != TP:
+                raise AssertionError(f"{label}: the tp server pages ({batcher.page_size}) or is not split in {TP}")
+            if backend.step_program_stats()["graph_captures"]:
+                raise AssertionError(f"{label}: the tp server captured step programs")
+            if not calls[0] or n_red != 2 * calls[0]:
+                raise AssertionError(f"{label}: {n_red} reductions over {calls[0]} sharded block calls, not 2 each")
+            result["reductions"] += n_red
+            result["K4"] += launches["K4"]
+            for key, n in quant.items():
+                result["quant"][key] = result["quant"].get(key, 0) + n
+            if not launches["K4"] or (quant_type != "none" and not (
+                    quant.get(f"decode {quant_type}") and quant.get(f"prefill {quant_type}"))):
+                raise AssertionError(f"{label}: tp={tp} ({kind}): a kernel never ran (K4 {launches['K4']}, {quant})")
+        one, two = runs[1], runs[TP]
+        params = dense_reference_params(servers[1].backend.block_params, torch.float32)
+        family, cfg = servers[1].family, servers[1].cfg
+        inputs = one["private"][0]
+        ref_out, ref_kv = reference_session(params, family, cfg, inputs[0], inputs[1:], device, torch.float32)
+        failed += _tp_within(f"{label}: private batch-{TP_BATCH} session ({kind})", two["private"][1],
+                             one["private"][1], ref_out)
+        for name, got_tp, got_one, want in zip("KV", two["private"][3], one["private"][3], ref_kv):
+            err_tp, err_one = _row_rel_error(got_tp, want), _row_rel_error(got_one, want)
+            log(f"{label}: private session's written {name} rows ({kind}), worst row max-rel vs float32 "
+                f"{err_tp:.3e}; tp=1 {err_one:.3e}")
+            if err_tp > REPLY_NOISE_FACTOR * err_one:
+                failed.append(f"{label}: written {name} rows ({kind}) further from float32 than 2x tp=1's")
+        variants = sorted({m["variant"] for metas in two["lanes"][2] for m in metas})
+        if variants != ["decode", "dense_prefill"]:
+            raise AssertionError(f"{label}: pooled sessions took {variants}, not the dense lane pool's steps")
+        for i, (prompt, steps) in enumerate(one["lanes"][0]):
+            want, _ = reference_session(params, family, cfg, prompt, steps, device, torch.float32)
+            failed += _tp_within(f"{label}: pooled session {i} ({kind})", two["lanes"][1][i], one["lanes"][1][i], want)
+        hidden = one["forward"][0]
+        failed += _tp_within(f"{label}: stateless forward of {TP_PROMPT} tokens ({kind})", [two["forward"][1]],
+                             [one["forward"][1]], [reference_forward(params, family, cfg, hidden, None, device,
+                                                                     torch.float32)])
+        hidden, grad, _ = one["backward"]
+        (want,) = reference_backward(params, family, cfg, hidden, None, grad, device, torch.float32)
+        failed += _tp_within(f"{label}: ptu.backward's grad_hidden ({kind})", [two["backward"][2]],
+                             [one["backward"][2]], [want])
+        del params
+        if "gen" in two:
+            failed += check_gen_tokens(f"{label}: tp={TP} server-side generation ({kind})", *two["gen"],
+                                       servers[1].backend.block_params, cut, device)
+        if quant_type == "none" and timer is not None:
+            result["profile"] = profile_tp_steps(servers[1].backend, servers[TP].backend, device, smi)
+        del runs, servers, one, two
+        free_card()
+    if failed:
+        raise AssertionError("; ".join(failed))
+    log(f"{label}: launches on the tp servers K4 {result['K4']}, K5/K6 {result['quant']}; "
+        f"{result['reductions']} reductions; phase 26 took {time.perf_counter() - t_phase:.1f} s")
+    return result
+
+
 def free_card() -> None:
     """Free what a dropped server held on the card before the next one loads
     (its event-loop objects hold reference cycles, so collect them)."""
@@ -7346,6 +7696,9 @@ def main() -> int:
         # phase 25: swarm operations (the quant cache, the span moves, chaos, traffic, the autoscaler)
         ops = serve_swarm_ops_and_check(ckpt, device, smi)
         free_card()
+        # phase 26: tensor parallelism, two shards of the one card (Llama-3-8B widths)
+        tp = serve_tensor_parallel_and_check(ckpt, device, smi, timer)
+        free_card()
     flash_kernel["launches"] = private_launches["K4"]
     # the launches on moved (imported, adopted) caches, phase 19
     kernels[0]["migration_launches"], kernels[1]["migration_launches"] = moved["K1"], moved["K2"]
@@ -7425,6 +7778,19 @@ def main() -> int:
         if entry["name"].endswith("[nf4a]"):
             phase = "decode" if entry["name"].startswith("quant_decode") else "prefill"
             entry["swarm_ops_launches"] = ops[f"{phase} nf4a"]
+    # phase 26: the launches on the tensor-parallel servers' shards and
+    # each kernel's case at a shard's shapes
+    case_keys = ("shape", "ms", "plain_ms", "library_ms", "bound_ms", "bound_by", "max_abs_err")
+    flash_kernel["tp_launches"] = tp["K4"]
+    flash_kernel["tp"] = dict({k: tp["flash_tp"][k] for k in case_keys[1:]},
+                              shape=f"{TP_PROMPT} rows, 16 / 4 heads of 128 (a shard at tp={TP})")
+    for entry in quant_kernels:
+        phase = "decode" if entry["name"].startswith("quant_decode") else "prefill"
+        arm = entry["name"].split("[")[1].rstrip("]")
+        shard_case = next((q for q in tp["quant_tp"] if q["name"] == entry["name"]), None)
+        if shard_case is not None:
+            entry["tp_launches"] = tp["quant"].get(f"{phase} {arm}", 0)
+            entry["tp"] = {k: shard_case[k] for k in case_keys}
     from petals_tpu_torch.telemetry.observatory import get_observatory
 
     digest = get_observatory().compile_stats()

@@ -42,7 +42,10 @@ falls under ``--balance_quality`` (0.75), its live sessions pushed to
 replicas first; ``--no_batching`` serves every session from a private
 cache, with no lane pool. A quantized span is kept in the disk cache of
 quantized blocks (``--cache_dir``, default ``$PETALS_TPU_TORCH_CACHE``;
-``--no_quant_weight_cache`` turns it off), which the next start reads. A
+``--no_quant_weight_cache`` turns it off), which the next start reads.
+``--num_tp_devices N`` splits the span over the first N CUDA devices of
+the host, tensor parallel in this one process (the dense lane pool; no
+``--kv_quant_type``, no ``+o`` kinds, no adapters). A
 model that is no local directory is a Hub repo id, streamed at
 ``--revision`` from ``PETALS_TPU_HUB_ENDPOINT`` (or ``HF_ENDPOINT``) with
 ``--token``, only the span's shards, under ``--max_disk_space`` (LRU).
@@ -101,6 +104,8 @@ def build_parser() -> argparse.ArgumentParser:
                         help="Quantize the paged KV pool in place: int8 (per-row absmax) or packed "
                              "nf4a; the same cache budget then holds about 2x or 4x the pages, and "
                              "attention decodes the pages inside its kernels")
+    parser.add_argument("--num_tp_devices", type=int, default=None,
+                        help="Tensor-parallel over this many of the host's CUDA devices (one process)")
     parser.add_argument("--adapters", nargs="*", default=[],
                         help="PEFT adapter checkpoint dirs to host (multi-tenant LoRA); requests "
                              "pick one by name with active_adapter")
@@ -251,6 +256,7 @@ def build_server(args: argparse.Namespace) -> Server:
         public_name=args.public_name,
         network_mbps=args.network_mbps,
         device=args.device,
+        num_tp_devices=args.num_tp_devices,
         compute_dtype=DTYPES[args.dtype],
         attn_cache_bytes=attn_cache_bytes_for(args),
         max_chunk_size_bytes=args.max_chunk_size_bytes,

@@ -14,41 +14,54 @@ from petals_tpu_torch.models.common import gelu_tanh, layer_norm, mm, update_kv_
 from petals_tpu_torch.models.registry import ModelFamily, register_family
 from petals_tpu_torch.ops.alibi import build_alibi_slopes
 from petals_tpu_torch.ops.attention import attend
+from petals_tpu_torch.parallel.collectives import per_copy, reduce_shards
+from petals_tpu_torch.parallel.tp import block_shards
 
 
 def block_apply(
-    params: dict,
+    params,  # one dict, or a list of shard dicts (parallel/tp.py)
     hidden_states: torch.Tensor,  # [batch, seq, hidden]
-    kv,  # (k, v): dense buffers or PagedKVs, written in place
+    kv,  # (k, v): dense buffers, PagedKVs or ShardedCaches, written in place
     position,  # int (tokens already cached) or [batch] tensor (per-lane decode)
     cfg: BloomBlockConfig,
     *,
     n_valid=None,
     use_flash: bool = False,
 ):
-    """One block over ``hidden_states``; returns (hidden, (k_all, v_all))."""
-    batch, seq, _ = hidden_states.shape
-    h, d = cfg.num_attention_heads, cfg.head_dim
+    """One block over ``hidden_states``; returns (hidden, (k_all, v_all)).
+    Tensor parallel as the llama block (models/llama/block.py): each shard
+    attends its own heads with those heads' ALiBi slopes, and ``bo`` /
+    ``b_down`` are added after the sums across the shards."""
+    shards, shard_kv = block_shards(params, kv)
+    n = len(shards)
+    h, d = cfg.num_attention_heads // n, cfg.head_dim
+    eps = cfg.layer_norm_epsilon
+    post_ln = cfg.apply_residual_connection_post_layernorm
+    hs = [hidden_states.to(p["ln1_w"].device) for p in shards]
+    lns = per_copy(lambda x, w, b: layer_norm(x, w, b, eps), hs, [p["ln1_w"] for p in shards],
+                   [p["ln1_b"] for p in shards])
+    parts, kv_out = [], []
+    for rank, (p, ln1, kv_s) in enumerate(zip(shards, lns, shard_kv)):
+        batch, seq, _ = ln1.shape
+        q = (mm(ln1, p["wq"]) + p["bq"]).reshape(batch, seq, h, d)
+        k = (mm(ln1, p["wk"]) + p["bk"]).reshape(batch, seq, h, d)
+        v = (mm(ln1, p["wv"]) + p["bv"]).reshape(batch, seq, h, d)
+        k_all, v_all, kv_length = update_kv_cache(kv_s, k, v, position, n_valid)
+        attn = attend(
+            q, k_all, v_all, q_offset=position, kv_length=kv_length,
+            alibi_slopes=build_alibi_slopes(cfg.num_attention_heads, ln1.device)[rank * h : (rank + 1) * h],
+            use_flash=use_flash,
+        )
+        parts.append(mm(attn.reshape(batch, seq, h * d), p["wo"]))
+        kv_out.append((k_all, v_all))
+    attn = per_copy(torch.add, reduce_shards(parts), [p["bo"] for p in shards])
+    hs = per_copy(torch.add, attn, lns if post_ln else hs)
 
-    ln1 = layer_norm(hidden_states, params["ln1_w"], params["ln1_b"], cfg.layer_norm_epsilon)
-    residual = ln1 if cfg.apply_residual_connection_post_layernorm else hidden_states
-
-    q = (mm(ln1, params["wq"]) + params["bq"]).reshape(batch, seq, h, d)
-    k = (mm(ln1, params["wk"]) + params["bk"]).reshape(batch, seq, h, d)
-    v = (mm(ln1, params["wv"]) + params["bv"]).reshape(batch, seq, h, d)
-
-    k_all, v_all, kv_length = update_kv_cache(kv, k, v, position, n_valid)
-    attn = attend(
-        q, k_all, v_all, q_offset=position, kv_length=kv_length,
-        alibi_slopes=build_alibi_slopes(h, hidden_states.device), use_flash=use_flash,
-    )
-    attn = mm(attn.reshape(batch, seq, h * d), params["wo"]) + params["bo"]
-    hidden_states = attn + residual
-
-    ln2 = layer_norm(hidden_states, params["ln2_w"], params["ln2_b"], cfg.layer_norm_epsilon)
-    residual = ln2 if cfg.apply_residual_connection_post_layernorm else hidden_states
-    mlp = mm(gelu_tanh(mm(ln2, params["w_up"]) + params["b_up"]), params["w_down"]) + params["b_down"]
-    return mlp + residual, (k_all, v_all)
+    lns = per_copy(lambda x, w, b: layer_norm(x, w, b, eps), hs, [p["ln2_w"] for p in shards],
+                   [p["ln2_b"] for p in shards])
+    mlp = reduce_shards([mm(gelu_tanh(mm(ln2, p["w_up"]) + p["b_up"]), p["w_down"]) for p, ln2 in zip(shards, lns)])
+    out = mlp[0] + shards[0]["b_down"] + (lns[0] if post_ln else hs[0])
+    return out, (kv_out if n > 1 else kv_out[0])
 
 
 # BLOOM checkpoints ship blocks as "h.{i}." (bare) or "transformer.h.{i}." (full model)

@@ -16,6 +16,8 @@ from petals_tpu_torch.models.registry import ModelFamily, register_family
 from petals_tpu_torch.ops.alibi import build_alibi_slopes
 from petals_tpu_torch.ops.attention import attend
 from petals_tpu_torch.ops.rotary import apply_rotary, rotary_tables
+from petals_tpu_torch.parallel.collectives import per_copy, reduce_shards
+from petals_tpu_torch.parallel.tp import block_shards
 
 
 def _activation(x: torch.Tensor, name: str) -> torch.Tensor:
@@ -35,34 +37,84 @@ def _dual_ln(cfg: FalconBlockConfig) -> bool:
 
 
 def block_apply(
-    params: dict,
+    params,  # one dict, or a list of shard dicts (parallel/tp.py)
     hidden_states: torch.Tensor,  # [batch, seq, hidden]
-    kv,  # (k, v): dense buffers or PagedKVs, written in place
+    kv,  # (k, v): dense buffers, PagedKVs or ShardedCaches, written in place
     position,  # int (tokens already cached) or [batch] tensor (per-lane decode)
     cfg: FalconBlockConfig,
     *,
     n_valid=None,
     use_flash: bool = False,
 ):
-    """One block over ``hidden_states``; returns (hidden, (k_all, v_all))."""
-    batch, seq, _ = hidden_states.shape
-    hq, hkv, d = cfg.num_attention_heads, cfg.num_kv_heads, cfg.head_dim
-    residual = hidden_states
+    """One block over ``hidden_states``; returns (hidden, (k_all, v_all)).
+    Tensor parallel as the llama block (models/llama/block.py): each shard
+    attends its own heads (with those heads' ALiBi slopes on falcon-rw).
+    The parallel layouts (falcon-7b, the new architecture) sum each shard's
+    attention and MLP partials in ONE reduction; the serial layout
+    (falcon-rw) reduces after the attention and again after the MLP; ``bo``
+    and ``b_down`` are added after the sums."""
+    shards, shard_kv = block_shards(params, kv)
+    n = len(shards)
+    serial = not cfg.new_decoder_architecture and not cfg.parallel_attn
+    hs = [hidden_states.to(_device(p, cfg)) for p in shards]
+    names = _norm_names(cfg)
+    norms = per_copy(lambda x, *w: _norms(dict(zip(names, w)), x, cfg), hs, *[[p[k] for p in shards] for k in names])
+    attn_parts, kv_out = [], []
+    for rank, (p, (attn_ln, _), kv_s) in enumerate(zip(shards, norms, shard_kv)):
+        attn, k_v = _attention(p, attn_ln, kv_s, position, cfg, n, rank, n_valid=n_valid, use_flash=use_flash)
+        attn_parts.append(attn)
+        kv_out.append(k_v)
+    if serial:
+        # the serial residual applies to old-architecture checkpoints only
+        # (HF skips it when new_decoder_architecture is set)
+        attn = _with_bias(reduce_shards(attn_parts), shards, "bo", cfg)
+        hs = per_copy(torch.add, hs, attn)
+        mlp_lns = per_copy(lambda x, w, b: layer_norm(x, w, b, cfg.layer_norm_epsilon), hs,
+                           [p["ln2_w"] for p in shards], [p["ln2_b"] for p in shards])
+        mlp = _with_bias(reduce_shards([_mlp(p, ln, cfg) for p, ln in zip(shards, mlp_lns)]), shards, "b_down", cfg)
+        return mlp[0] + hs[0], (kv_out if n > 1 else kv_out[0])
+    # parallel attention: mlp + attn, one sum across the shards
+    both = reduce_shards([_mlp(p, mlp_ln, cfg) + a for p, (_, mlp_ln), a in zip(shards, norms, attn_parts)])
+    both = _with_bias(_with_bias(both, shards, "b_down", cfg), shards, "bo", cfg)
+    return both[0] + hs[0], (kv_out if n > 1 else kv_out[0])
 
+
+def _device(p: dict, cfg: FalconBlockConfig) -> torch.device:
+    return p["ln_attn_w" if _dual_ln(cfg) else "ln1_w"].device
+
+
+def _with_bias(xs, shards, name: str, cfg: FalconBlockConfig):
+    """The replicated bias ``name`` added to each shard's copy of a sum."""
+    return per_copy(torch.add, xs, [p[name] for p in shards]) if cfg.bias else xs
+
+
+def _norm_names(cfg: FalconBlockConfig) -> tuple:
+    return ("ln_attn_w", "ln_attn_b", "ln_mlp_w", "ln_mlp_b") if _dual_ln(cfg) else ("ln1_w", "ln1_b")
+
+
+def _norms(p: dict, x, cfg: FalconBlockConfig):
+    """(attention input, MLP input) of the layout's norms; the serial
+    layout's MLP input is recomputed after the attention's residual."""
+    eps = cfg.layer_norm_epsilon
     if _dual_ln(cfg):
-        attn_ln = layer_norm(hidden_states, params["ln_attn_w"], params["ln_attn_b"], cfg.layer_norm_epsilon)
-        mlp_ln = layer_norm(hidden_states, params["ln_mlp_w"], params["ln_mlp_b"], cfg.layer_norm_epsilon)
-    else:
-        attn_ln = layer_norm(hidden_states, params["ln1_w"], params["ln1_b"], cfg.layer_norm_epsilon)
-        mlp_ln = attn_ln  # parallel single-LN; the serial layout overwrites it below
+        return (layer_norm(x, p["ln_attn_w"], p["ln_attn_b"], eps), layer_norm(x, p["ln_mlp_w"], p["ln_mlp_b"], eps))
+    ln = layer_norm(x, p["ln1_w"], p["ln1_b"], eps)
+    return ln, ln
 
-    q = mm(attn_ln, params["wq"])
-    k = mm(attn_ln, params["wk"])
-    v = mm(attn_ln, params["wv"])
+
+def _attention(p: dict, attn_ln, kv, position, cfg: FalconBlockConfig, n_shards: int, rank: int, *, n_valid,
+               use_flash):
+    """One shard's attention over its heads, up to its partial of the output
+    projection (no ``bo``); returns (partial, (k_all, v_all))."""
+    batch, seq, _ = attn_ln.shape
+    hq, hkv, d = cfg.num_attention_heads // n_shards, cfg.num_kv_heads // n_shards, cfg.head_dim
+    q = mm(attn_ln, p["wq"])
+    k = mm(attn_ln, p["wk"])
+    v = mm(attn_ln, p["wv"])
     if cfg.bias:
-        q = q + params["bq"]
-        k = k + params["bk"]
-        v = v + params["bv"]
+        q = q + p["bq"]
+        k = k + p["bk"]
+        v = v + p["bv"]
     q = q.reshape(batch, seq, hq, d)
     k = k.reshape(batch, seq, hkv, d)
     v = v.reshape(batch, seq, hkv, d)
@@ -71,9 +123,10 @@ def block_apply(
     if cfg.alibi:
         # Falcon scales (scores + alibi) jointly by 1/sqrt(d), where BLOOM
         # adds the bias unscaled: so the slopes are pre-scaled here
-        alibi_slopes = build_alibi_slopes(hq, hidden_states.device) * (d**-0.5)
+        slopes = build_alibi_slopes(cfg.num_attention_heads, attn_ln.device) * (d**-0.5)
+        alibi_slopes = slopes[rank * hq : (rank + 1) * hq]
     else:
-        positions = absolute_positions(position, batch, seq, hidden_states.device)
+        positions = absolute_positions(position, batch, seq, attn_ln.device)
         cos, sin = rotary_tables(positions, d, theta=cfg.rope_theta)
         q = apply_rotary(q, cos, sin)
         k = apply_rotary(k, cos, sin)
@@ -83,26 +136,17 @@ def block_apply(
         q, k_all, v_all, q_offset=position, kv_length=kv_length,
         alibi_slopes=alibi_slopes, use_flash=use_flash,
     )
-    attn = mm(attn.reshape(batch, seq, hq * d), params["wo"])
-    if cfg.bias:
-        attn = attn + params["bo"]
+    return mm(attn.reshape(batch, seq, hq * d), p["wo"]), (k_all, v_all)
 
-    # the serial residual applies to old-architecture checkpoints only (HF
-    # skips it when new_decoder_architecture is set)
-    if not cfg.new_decoder_architecture and not cfg.parallel_attn:
-        residual = residual + attn
-        mlp_ln = layer_norm(residual, params["ln2_w"], params["ln2_b"], cfg.layer_norm_epsilon)
 
-    # HF FalconMLP: dense_h_to_4h -> ACT2FN[config.activation] -> dense_4h_to_h
-    mlp = mm(mlp_ln, params["w_up"])
+def _mlp(p: dict, mlp_ln, cfg: FalconBlockConfig):
+    """HF FalconMLP (dense_h_to_4h -> ACT2FN[config.activation] ->
+    dense_4h_to_h) over the shard's columns, up to its partial of the down
+    projection (no ``b_down``)."""
+    mlp = mm(mlp_ln, p["w_up"])
     if cfg.bias:
-        mlp = mlp + params["b_up"]
-    mlp = mm(_activation(mlp, cfg.activation), params["w_down"])
-    if cfg.bias:
-        mlp = mlp + params["b_down"]
-    if cfg.new_decoder_architecture or cfg.parallel_attn:
-        mlp = mlp + attn
-    return mlp + residual, (k_all, v_all)
+        mlp = mlp + p["b_up"]
+    return mm(_activation(mlp, cfg.activation), p["w_down"])
 
 
 _HF_BLOCK_PREFIXES = ("transformer.h.{i}.", "h.{i}.")

@@ -18,12 +18,14 @@ from petals_tpu_torch.models.llama.config import LlamaBlockConfig
 from petals_tpu_torch.models.registry import ModelFamily, register_family
 from petals_tpu_torch.ops.attention import attend
 from petals_tpu_torch.ops.rotary import apply_rotary, rotary_tables
+from petals_tpu_torch.parallel.collectives import per_copy, reduce_shards
+from petals_tpu_torch.parallel.tp import block_shards
 
 
 def block_apply(
-    params: dict,
+    params,  # one dict, or a list of shard dicts (parallel/tp.py)
     hidden_states: torch.Tensor,  # [batch, seq, hidden]
-    kv,  # (k, v): dense buffers or PagedKVs, written in place
+    kv,  # (k, v): dense buffers, PagedKVs or ShardedCaches, written in place
     position,  # int (tokens already cached) or [batch] tensor (per-lane decode)
     cfg: LlamaBlockConfig,
     *,
@@ -31,32 +33,63 @@ def block_apply(
     n_total=None,  # the final sequence length when known up front (longrope's factor choice)
     use_flash: bool = False,  # dense buffers: route chunks of >= 8 rows to the flash kernel
 ):
-    """One block over ``hidden_states``; returns (hidden, (k_all, v_all))."""
-    batch, seq, _ = hidden_states.shape
-    hq, hkv, d = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim
+    """One block over ``hidden_states``; returns (hidden, (k_all, v_all)).
 
-    residual = hidden_states
-    x = rms_norm(hidden_states, params["ln1"], cfg.rms_norm_eps)
-    if "wqkv" in params:  # fused quantized serving (utils/convert_block.py _FUSE_GROUPS)
-        qkv = mm(x, params["wqkv"])
+    Tensor parallel when ``params`` is a list of shard dicts: each shard
+    computes its heads and FFN columns on its own device from its copy of
+    the residual stream, the partial outputs of the attention output
+    projection and of the down projection are summed across the shards
+    (``reduce_shards``), and the replicated biases are added after each sum.
+    One shard is the unsharded block. Returns hidden on shard 0's device and
+    each shard's (k_all, v_all) as a list when sharded."""
+    shards, shard_kv = block_shards(params, kv)
+    n = len(shards)
+    eps = cfg.rms_norm_eps
+    hs = [hidden_states.to(p["ln1"].device) for p in shards]  # the residual stream, one copy a device
+    parts, kv_out = [], []
+    for p, x, kv_s in zip(shards, per_copy(lambda h, w: rms_norm(h, w, eps), hs, [p["ln1"] for p in shards]),
+                          shard_kv):
+        attn, k_v = _attention(p, x, kv_s, position, cfg, n, n_valid=n_valid, n_total=n_total, use_flash=use_flash)
+        parts.append(attn)
+        kv_out.append(k_v)
+    attn = reduce_shards(parts)
+    if cfg.attention_bias:
+        attn = per_copy(torch.add, attn, [p["bo"] for p in shards])
+    hs = per_copy(torch.add, hs, attn)
+    normed = per_copy(lambda h, w: rms_norm(h, w, eps), hs, [p["ln2"] for p in shards])
+    mlp = reduce_shards([_mlp(p, x, cfg) for p, x in zip(shards, normed)])
+    if cfg.mlp_bias:
+        mlp = per_copy(torch.add, mlp, [p["bd"] for p in shards])
+    out = hs[0] + mlp[0]
+    return out, (kv_out if n > 1 else kv_out[0])
+
+
+def _attention(p: dict, x, kv, position, cfg: LlamaBlockConfig, n_shards: int, *, n_valid, n_total, use_flash):
+    """One shard's attention over its hq / N query and hkv / N kv heads, up
+    to its partial of the output projection (no ``bo``); returns (partial,
+    (k_all, v_all))."""
+    batch, seq, _ = x.shape
+    hq, hkv, d = cfg.num_attention_heads // n_shards, cfg.num_key_value_heads // n_shards, cfg.head_dim
+    if "wqkv" in p:  # fused quantized serving (utils/convert_block.py _FUSE_GROUPS), one shard only
+        qkv = mm(x, p["wqkv"])
         if cfg.attention_bias or cfg.qkv_bias:
-            qkv = qkv + params["bqkv"]
+            qkv = qkv + p["bqkv"]
         q = qkv[..., : hq * d]
         k = qkv[..., hq * d : (hq + hkv) * d]
         v = qkv[..., (hq + hkv) * d :]
     else:
-        q = mm(x, params["wq"])
-        k = mm(x, params["wk"])
-        v = mm(x, params["wv"])
+        q = mm(x, p["wq"])
+        k = mm(x, p["wk"])
+        v = mm(x, p["wv"])
         if cfg.attention_bias or cfg.qkv_bias:
-            q = q + params["bq"]
-            k = k + params["bk"]
-            v = v + params["bv"]
+            q = q + p["bq"]
+            k = k + p["bk"]
+            v = v + p["bv"]
     q = q.reshape(batch, seq, hq, d)
     k = k.reshape(batch, seq, hkv, d)
     v = v.reshape(batch, seq, hkv, d)
 
-    positions = absolute_positions(position, batch, seq, hidden_states.device)
+    positions = absolute_positions(position, batch, seq, x.device)
     cos, sin = rotary_tables(
         positions, d, theta=cfg.rope_theta, rope_scaling=cfg.rope_scaling_dict,
         n_valid=n_valid,  # longrope's switch sees the REAL chunk length
@@ -71,29 +104,25 @@ def block_apply(
         sliding_window=cfg.sliding_window,  # mistral; None for llama
         use_flash=use_flash,
     )
-    attn = mm(attn.reshape(batch, seq, hq * d), params["wo"])
-    if cfg.attention_bias:
-        attn = attn + params["bo"]
-    hidden_states = residual + attn
+    return mm(attn.reshape(batch, seq, hq * d), p["wo"]), (k_all, v_all)
 
-    residual = hidden_states
-    x = rms_norm(hidden_states, params["ln2"], cfg.rms_norm_eps)
-    if "wgu" in params:  # fused quantized serving
-        gu = mm(x, params["wgu"])
+
+def _mlp(p: dict, x, cfg: LlamaBlockConfig):
+    """One shard's MLP over its FFN columns, up to its partial of the down
+    projection (no ``bd``)."""
+    if "wgu" in p:  # fused quantized serving, one shard only
+        gu = mm(x, p["wgu"])
         if cfg.mlp_bias:
-            gu = gu + params["bgu"]
-        gate = gu[..., : cfg.intermediate_size]
-        up = gu[..., cfg.intermediate_size :]
+            gu = gu + p["bgu"]
+        half = gu.shape[-1] // 2
+        gate, up = gu[..., :half], gu[..., half:]
     else:
-        gate = mm(x, params["wg"])
-        up = mm(x, params["wu"])
+        gate = mm(x, p["wg"])
+        up = mm(x, p["wu"])
         if cfg.mlp_bias:
-            gate = gate + params["bg"]
-            up = up + params["bu"]
-    mlp = mm(ACTIVATIONS[cfg.hidden_act](gate) * up, params["wd"])
-    if cfg.mlp_bias:
-        mlp = mlp + params["bd"]
-    return residual + mlp, (k_all, v_all)
+            gate = gate + p["bg"]
+            up = up + p["bu"]
+    return mm(ACTIVATIONS[cfg.hidden_act](gate) * up, p["wd"])
 
 
 # HF checkpoints store weights torch-style [out, in]; blocks keep [in, out]

@@ -29,6 +29,8 @@ from petals_tpu_torch.ops.attention import attend
 from petals_tpu_torch.ops.grouped_matmul import grouped_matmul
 from petals_tpu_torch.ops.quant import QuantizedLinear
 from petals_tpu_torch.ops.rotary import apply_rotary, rotary_tables
+from petals_tpu_torch.parallel.collectives import per_copy, reduce_shards
+from petals_tpu_torch.parallel.tp import block_shards
 
 # chunks of at least this many rows (padded) take the sparse dispatch
 SPARSE_MIN_SEQ = 8
@@ -74,23 +76,31 @@ def _expert(w: QuantizedLinear, e: int) -> QuantizedLinear:
     return QuantizedLinear(w.kind, w.data[e], w.scales[e], w.in_features, w.out_features)
 
 
-def moe_apply(params: dict, x: torch.Tensor, cfg: MixtralBlockConfig, *, sparse: bool = False) -> torch.Tensor:
-    """x [batch, seq, hidden] -> the mixture of its top-k experts."""
+def moe_apply(params: dict, x: torch.Tensor, cfg: MixtralBlockConfig, *, sparse: bool = False,
+              n_shards: int = 1, rank: int = 0) -> torch.Tensor:
+    """x [batch, seq, hidden] -> the mixture of its top-k experts. A shard
+    of a tensor-parallel block (``rank`` of ``n_shards``) holds experts
+    [rank * E / N, (rank + 1) * E / N) and returns their part of the
+    mixture, dense: the router is replicated, and the other shards' experts
+    weigh nothing here."""
     top_probs, top_idx = route(x, params["gate"], cfg.num_experts_per_tok)
     w1, w2, w3 = params["w1"], params["w2"], params["w3"]
     quantized = isinstance(w1, QuantizedLinear)
-    if sparse and not quantized:
+    if sparse and not quantized and n_shards == 1:
         return _moe_sparse(x, w1, w2, w3, top_idx, top_probs, cfg)
 
     # each expert's combine weight [b, s, E] (the top-k's probabilities,
     # zero elsewhere), rounded to x's dtype as the reference rounds it
-    combine = torch.zeros((*x.shape[:2], cfg.num_local_experts), dtype=torch.float32, device=x.device)
+    E = cfg.num_local_experts
+    combine = torch.zeros((*x.shape[:2], E), dtype=torch.float32, device=x.device)
     combine = combine.scatter_add_(-1, top_idx, top_probs).to(x.dtype)
+    local = E // n_shards
+    combine = combine[..., rank * local : (rank + 1) * local]
     if quantized:
         expert_out = torch.stack([
             mm(silu(mm(x, _expert(w1, e))) * mm(x, _expert(w3, e)), _expert(w2, e))
-            for e in range(cfg.num_local_experts)
-        ])  # [E, b, s, h]
+            for e in range(local)
+        ])  # [E / N, b, s, h]
     else:
         gate_out = torch.einsum("bsh,ehm->ebsm", x, w1)
         up = torch.einsum("bsh,ehm->ebsm", x, w3)
@@ -99,44 +109,54 @@ def moe_apply(params: dict, x: torch.Tensor, cfg: MixtralBlockConfig, *, sparse:
 
 
 def block_apply(
-    params: dict,
+    params,  # one dict, or a list of shard dicts (parallel/tp.py)
     hidden_states: torch.Tensor,  # [batch, seq, hidden]
-    kv,  # (k, v): dense buffers or PagedKVs, written in place
+    kv,  # (k, v): dense buffers, PagedKVs or ShardedCaches, written in place
     position,  # int (tokens already cached) or [batch] tensor (per-lane decode)
     cfg: MixtralBlockConfig,
     *,
     n_valid=None,
     use_flash: bool = False,
 ):
-    """One block over ``hidden_states``; returns (hidden, (k_all, v_all))."""
-    batch, seq, _ = hidden_states.shape
-    hq, hkv, d = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim
+    """One block over ``hidden_states``; returns (hidden, (k_all, v_all)).
+    Tensor parallel as the llama block (models/llama/block.py) for the
+    attention; the experts split over the shards (expert parallelism, as
+    the JAX package's spec) and take the dense dispatch at every length, as
+    the JAX package's do under a mesh."""
+    shards, shard_kv = block_shards(params, kv)
+    n = len(shards)
+    hq, hkv, d = cfg.num_attention_heads // n, cfg.num_key_value_heads // n, cfg.head_dim
+    eps = cfg.rms_norm_eps
+    hs = [hidden_states.to(p["ln1"].device) for p in shards]
+    parts, kv_out = [], []
+    for p, x, kv_s in zip(shards, per_copy(lambda h, w: rms_norm(h, w, eps), hs, [p["ln1"] for p in shards]),
+                          shard_kv):
+        batch, seq, _ = x.shape
+        q = mm(x, p["wq"]).reshape(batch, seq, hq, d)
+        k = mm(x, p["wk"]).reshape(batch, seq, hkv, d)
+        v = mm(x, p["wv"]).reshape(batch, seq, hkv, d)
 
-    residual = hidden_states
-    x = rms_norm(hidden_states, params["ln1"], cfg.rms_norm_eps)
-    q = mm(x, params["wq"]).reshape(batch, seq, hq, d)
-    k = mm(x, params["wk"]).reshape(batch, seq, hkv, d)
-    v = mm(x, params["wv"]).reshape(batch, seq, hkv, d)
+        positions = absolute_positions(position, batch, seq, x.device)
+        cos, sin = rotary_tables(positions, d, theta=cfg.rope_theta)
+        q = apply_rotary(q, cos, sin)
+        k = apply_rotary(k, cos, sin)
 
-    positions = absolute_positions(position, batch, seq, hidden_states.device)
-    cos, sin = rotary_tables(positions, d, theta=cfg.rope_theta)
-    q = apply_rotary(q, cos, sin)
-    k = apply_rotary(k, cos, sin)
+        k_all, v_all, kv_length = update_kv_cache(kv_s, k, v, position, n_valid)
+        attn = attend(
+            q, k_all, v_all, q_offset=position, kv_length=kv_length,
+            sliding_window=cfg.sliding_window, use_flash=use_flash,
+        )
+        parts.append(mm(attn.reshape(batch, seq, hq * d), p["wo"]))
+        kv_out.append((k_all, v_all))
+    hs = per_copy(torch.add, hs, reduce_shards(parts))
 
-    k_all, v_all, kv_length = update_kv_cache(kv, k, v, position, n_valid)
-    attn = attend(
-        q, k_all, v_all, q_offset=position, kv_length=kv_length,
-        sliding_window=cfg.sliding_window, use_flash=use_flash,
-    )
-    hidden_states = residual + mm(attn.reshape(batch, seq, hq * d), params["wo"])
-
-    residual = hidden_states
-    x = rms_norm(hidden_states, params["ln2"], cfg.rms_norm_eps)
     # under autograd (a server's backward recompute) the dense path: K7
     # has no backward, and the dense einsums differentiate as they stand
-    sparse = seq >= SPARSE_MIN_SEQ and not torch.is_grad_enabled()
-    hidden_states = residual + moe_apply(params, x, cfg, sparse=sparse)
-    return hidden_states, (k_all, v_all)
+    sparse = hs[0].shape[1] >= SPARSE_MIN_SEQ and not torch.is_grad_enabled()
+    normed = per_copy(lambda h, w: rms_norm(h, w, eps), hs, [p["ln2"] for p in shards])
+    moe = reduce_shards([moe_apply(p, x, cfg, sparse=sparse, n_shards=n, rank=rank)
+                         for rank, (p, x) in enumerate(zip(shards, normed))])
+    return hs[0] + moe[0], (kv_out if n > 1 else kv_out[0])
 
 
 _HF_BLOCK_PREFIXES = ("model.layers.{i}.",)

@@ -120,6 +120,20 @@ products go through ``ops/quant.py QuantMatmulFn`` (K5/K6 forward on the
 card, dequant-transpose backward). The backward runs eagerly, on the card
 too.
 
+Tensor parallelism (petals_tpu's backend under a ("tp",) mesh):
+``tp_devices`` lists one device a shard (parallel/mesh.py). Each block's
+parameters are split Megatron-style (parallel/tp.py shard_span_params) and
+its block function runs the shards in turn and sums their partial outputs
+(parallel/collectives.py); a dense cache is a ``ShardedCache`` a side, its
+kv heads split over the shards, built from ``cache_descriptors`` and
+joined along the head axis wherever it is read out, so its bytes are an
+unsharded server's. Only the dense paths serve such a span, as in the JAX
+package: the batcher keeps the dense lane pool (no paging, so no quantized
+pool), and its steps run eagerly, block by block, with no step program
+(``step_program_stats`` stays at zero). The flash-attention kernel runs on
+each shard's heads, and quantized products on each shard's slice. LoRA
+adapters are not served on a sharded span.
+
 Fused fingerprints (ops/fingerprint.py), built only when
 ``fingerprint.enabled()``: the batched steps (paged decode, mixed,
 generation, verify, and the dense pool's decode and generation steps) then
@@ -159,6 +173,7 @@ from petals_tpu_torch.ops.paged_attention import (
 from petals_tpu_torch.ops.quant import OutlierQuantLinear, QuantizedLinear
 from petals_tpu_torch.ops.sampling import sample_tokens, sampling_tensors, sampling_uniforms, sampling_vectors
 from petals_tpu_torch.ops.threefry import uniform_for_draw
+from petals_tpu_torch.parallel.tp import ShardedDescriptor, is_sharded, shard_span_params
 from petals_tpu_torch.server.memory_cache import TensorDescriptor
 from petals_tpu_torch.telemetry.observatory import CudaGraphCapture, TrackedGraph
 
@@ -270,6 +285,7 @@ class TransformerBackend:
         quant_type: str = "none",
         kv_quant_type: str = "none",
         use_flash: Optional[bool] = None,
+        tp_devices: Optional[Sequence] = None,
     ):
         """``params`` is a list of per-block dicts, or one dict whose leaves
         are stacked along a leading block axis (utils/convert.py
@@ -279,9 +295,15 @@ class TransformerBackend:
         weights were quantized (utils/convert_block.py QuantType);
         ``kv_quant_type`` (none, int8, nf4a) how the KV pool stores rows.
         ``use_flash`` sends dense-cache chunks to the flash-attention kernel
-        (None: on when the device is a CUDA card)."""
+        (None: on when the device is a CUDA card). ``tp_devices`` (more than
+        one) makes the span tensor parallel, one shard a listed device:
+        unsharded blocks are split here (or come split, a list of shard
+        dicts a block), and ``device`` is then the first entry."""
         if kv_quant_type not in KV_QUANT_KINDS:
             raise ValueError(f"kv_quant_type must be one of {KV_QUANT_KINDS}, got {kv_quant_type!r}")
+        tp_devices = [torch.device(d) for d in tp_devices] if tp_devices else [torch.device(device)]
+        if kv_quant_type != "none" and len(tp_devices) > 1:
+            raise ValueError("kv_quant_type requires a mesh-less server (paged pool only)")
         if kv_quant_type == "nf4a" and cfg.head_dim % 2:
             raise ValueError(f"nf4a KV packing needs an even head_dim, got {cfg.head_dim}")
         self.family = family
@@ -292,7 +314,15 @@ class TransformerBackend:
             params = [{name: _block_view(t, i) for name, t in params.items()} for i in range(n_blocks)]
         if len(params) != n_blocks:
             raise ValueError(f"got parameters for {len(params)} blocks, expected {n_blocks}")
-        self.block_params: List[Dict[str, object]] = list(params)
+        self.tp_devices: List[torch.device] = tp_devices
+        self.tp_size = len(tp_devices)
+        if self.tp_size > 1:
+            device = tp_devices[0]
+            if not is_sharded(params[0]):
+                params = shard_span_params(params, tp_devices, family.name, cfg)
+        # a block's parameters: one dict, or under tensor parallelism a list
+        # of one dict a shard
+        self.block_params: List[object] = list(params)
         # adapter name -> (per-block {leaf: (A, B)}, scaling); see utils/peft.py
         self.adapters: Dict[str, tuple] = {}
         self.first_block = first_block
@@ -319,7 +349,8 @@ class TransformerBackend:
         # the last batched step's fused fingerprints, on the device
         self._last_step_fp: Optional[torch.Tensor] = None  # [n_lanes, FP_DIM]
         self._last_chunk_fp: Optional[torch.Tensor] = None  # [FP_DIM], a mixed step's chunk
-        if self.device.type == "cuda":
+        # a tensor-parallel span steps eagerly (no step programs)
+        if self.device.type == "cuda" and self.tp_size == 1:
             capture = CudaGraphCapture(self.device)
             self._decode_program = TrackedGraph("paged_decode", capture)
             self._mixed_program = TrackedGraph("paged_mixed_step", capture)
@@ -340,6 +371,11 @@ class TransformerBackend:
         device (a private session's cache, or the dense lane pool with
         batch_size = n_lanes)."""
         shape = (end - start, batch_size, max_length, self.num_kv_heads, self.head_dim)
+        if self.tp_size > 1:  # one part of the kv heads a shard
+            return (
+                ShardedDescriptor(shape, self.compute_dtype, self.tp_devices),
+                ShardedDescriptor(shape, self.compute_dtype, self.tp_devices),
+            )
         return (
             TensorDescriptor(shape, self.compute_dtype, self.device),
             TensorDescriptor(shape, self.compute_dtype, self.device),
@@ -352,6 +388,8 @@ class TransformerBackend:
         v_scales), the codes int8 [..., d] or uint8 [..., d // 2] (two
         split-half codes a byte, nf4a) and float32 scales [n, n_pages,
         page_size, hkv]."""
+        if self.tp_size > 1:
+            raise ValueError("a tensor-parallel span serves the dense lane pool, not a paged one")
         n = end - start
         shape = (n, n_pages, page_size, self.num_kv_heads, self.head_dim)
         if self.kv_quant_type == "none":
@@ -389,6 +427,8 @@ class TransformerBackend:
             return self.block_params
         if active_adapter not in self.adapters:
             raise KeyError(f"Adapter {active_adapter!r} is not loaded on this server")
+        if self.tp_size > 1:
+            raise ValueError("LoRA adapters are not served on a tensor-parallel span")
         from petals_tpu_torch.utils.peft import apply_adapter
 
         per_block, scaling = self.adapters[active_adapter]
@@ -595,11 +635,7 @@ class TransformerBackend:
         batch, bucket, _ = h.shape
         if prompts is not None:
             prompts = _as_tensor(prompts, self.device, self.compute_dtype)
-        shape = (batch, bucket, self.num_kv_heads, self.head_dim)
-        kv_buf = (
-            torch.zeros(shape, dtype=self.compute_dtype, device=self.device),
-            torch.zeros(shape, dtype=self.compute_dtype, device=self.device),
-        )
+        kv_buf = self._scratch_kv(batch, bucket)
         position = torch.zeros((), dtype=torch.int32, device=self.device)
         n_valid = torch.as_tensor(n_valid).to(self.device, torch.int32)
         for i, p_block in enumerate(self.block_params if params is None else params):
@@ -658,11 +694,15 @@ class TransformerBackend:
         """One block on the training path, as the JAX package's ``_forward_fn``
         runs it: causal attention over the chunk itself, in plain attention
         (``use_flash=False``) on a fresh dense K/V buffer, position 0."""
-        shape = (h.shape[0], h.shape[1], self.num_kv_heads, self.head_dim)
-        kv_buf = (torch.zeros(shape, dtype=self.compute_dtype, device=self.device),
-                  torch.zeros(shape, dtype=self.compute_dtype, device=self.device))
-        out, _ = self.family.block_apply(p_block, h, kv_buf, 0, self.cfg, use_flash=False)
+        out, _ = self.family.block_apply(p_block, h, self._scratch_kv(h.shape[0], h.shape[1]), 0, self.cfg,
+                                         use_flash=False)
         return out
+
+    def _scratch_kv(self, batch: int, length: int):
+        """A fresh zero (k, v) buffer [batch, length, hkv, d] for one block
+        of a pass with no cache (a ShardedCache pair under tensor
+        parallelism)."""
+        return tuple(d.make_zeros()[0] for d in self.cache_descriptors(batch, length, 0, 1))
 
     @torch.no_grad()
     def batched_decode_step(self, hidden, pool_kv, positions):

@@ -35,8 +35,9 @@ decode tokens, and one prefill chunk, into one step per tick
   ``PETALS_TPU_SPEC_COOLDOWN`` ticks. The verify rows spend the tick's
   prefill budget as chunk rows do.
 
-- Dense mode (``page_size`` None or 0): the pool is [n_blocks, n_lanes,
-  max_length, hkv, d] x2 and a lane is its row. Decode steps coalesce the
+- Dense mode (``page_size`` None or 0, and always over a tensor-parallel
+  backend, whose pool is a ShardedCache pair): the pool is [n_blocks,
+  n_lanes, max_length, hkv, d] x2 and a lane is its row. Decode steps coalesce the
   same way (``batched_decode_step``); work the batched step does not cover
   (a prefill, deep prompts, hypo_ids) runs on the lane's session-shaped
   VIEW of the pool (``dense_lane_view``, written in place) as queue tasks of
@@ -244,7 +245,9 @@ class DecodeBatcher:
         self.memory_cache = memory_cache
         self.queue = queue
         self.n_lanes = n_lanes
-        if page_size:
+        # a tensor-parallel span keeps the dense lane pool, as petals_tpu's
+        # batcher gates paging off under a mesh
+        if page_size and getattr(backend, "tp_size", 1) == 1:
             self.page_size: Optional[int] = int(page_size)
             # round the lane capacity UP to whole pages so tables tile exactly
             self.max_pages = max_pages_for(max_length, self.page_size)

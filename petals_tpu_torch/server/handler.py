@@ -360,7 +360,7 @@ class TransformerHandler:
                 b.family, b.cfg, b._slice_params(start, end),
                 first_block=b.first_block + start, n_blocks=end - start, device=b.device,
                 compute_dtype=b.compute_dtype, max_chunk_size_bytes=b.max_chunk_size_bytes,
-                quant_type=b.quant_type, use_flash=b.use_flash,
+                quant_type=b.quant_type, use_flash=b.use_flash, tp_devices=b.tp_devices,
             )
         sub = self._sub_backends[key]
         # the adapters' blocks of the slice, as the span's own (loaded or
@@ -1373,7 +1373,7 @@ class TransformerHandler:
                 batcher.adopt_pages(lane, [p for e in entries for p in e["pages"]])
                 pc.stats["page_hits"] = pc.stats.get("page_hits", 0) + 1
                 return await asyncio.to_thread(torch.cat, outs, 1)
-        if all(x is not None for x in kd):
+        if all(x is not None for x in kd) and _device_tier(backend):
             # the whole prefix on the device: no host-to-device transfer
             pc.stats["device_hits"] = pc.stats.get("device_hits", 0) + 1
             prefix_out = await asyncio.to_thread(torch.cat, outs, 1)
@@ -1381,7 +1381,7 @@ class TransformerHandler:
             return prefix_out
         k, v, prefix_out = await asyncio.to_thread(pc.concat_entries, entries)
         await self._seed_kv(backend, batcher, lane, kv, [k], [v])
-        if pc.device_max_bytes > 0:
+        if pc.device_max_bytes > 0 and _device_tier(backend):
             promo = asyncio.create_task(asyncio.to_thread(pc.maybe_promote_device, keys, len(entries)))
             self._promotions.add(promo)
             promo.add_done_callback(self._promotions.discard)
@@ -1430,24 +1430,27 @@ class TransformerHandler:
             + SEGMENT_TOKENS * backend.hidden_size * out.element_size()
         )
         paged = lane is not None and batcher.page_size is not None
-        if not pc.worth_storing(keys, n_hit, seg_bytes, device_capable=pc.device_max_bytes > 0 and not paged,
+        device_capable = pc.device_max_bytes > 0 and not paged and _device_tier(backend)
+        if not pc.worth_storing(keys, n_hit, seg_bytes, device_capable=device_capable,
                                 pages_pool=batcher if paged else None):
             return None
         task = asyncio.create_task(self._store_prefix_async(
             keys, n_hit, len(keys) * SEGMENT_TOKENS, batcher, lane, kv, out, n_blocks, peer,
+            device=_device_tier(backend),
         ))
         task.add_done_callback(_log_failure("prefix store"))
         return task
 
     async def _store_prefix_async(self, keys, n_hit: int, boundary: int, batcher, lane, kv, out_full,
-                                  n_blocks: int, peer: Optional[str] = None) -> None:
+                                  n_blocks: int, peer: Optional[str] = None, device: bool = True) -> None:
         """Snapshot KV rows [0, boundary) and store the fresh segments. Runs
         as a task after the prefill's reply; the session awaits it before
         its next step, so the stored rows match the content hash. A paged
         lane pins the fresh segments' pages; a dense lane's or a private
         cache's rows are also copied to the device tier. A lane preempted
         since its prefill is read from its swap entry (nothing pins then:
-        its pages are gone). ``peer`` is the tenant the segments bill to."""
+        its pages are gone). ``peer`` is the tenant the segments bill to;
+        ``device=False`` (a tensor-parallel span) keeps host copies only."""
         pc = self.prefix_cache
         first = n_hit * SEGMENT_TOKENS
         pages, epoch = None, 0
@@ -1460,7 +1463,7 @@ class TransformerHandler:
                     if seg_end > first:
                         epoch = batcher.page_epoch
                         pages = batcher.pin_lane_pages(lane, first, seg_end)
-                return_device = pc.device_max_bytes > 0 and batcher.page_size is None
+                return_device = device and pc.device_max_bytes > 0 and batcher.page_size is None
                 # a suspended lane: its swap entry holds the rows already
                 snap = None if return_device else await batcher.snapshot_from_swap(lane, boundary, 0, n_blocks)
                 if snap is None:
@@ -1469,7 +1472,7 @@ class TransformerHandler:
                 def read():
                     k, v = (t[:, :, :boundary] for t in kv)
                     host = (k.cpu(), v.cpu())
-                    if pc.device_max_bytes <= 0:
+                    if pc.device_max_bytes <= 0 or not device:
                         return host
                     return (*host, k[:, :, first:].clone(), v[:, :, first:].clone())
 
@@ -1617,6 +1620,13 @@ class TransformerHandler:
 
         out = await self.queue.submit(run_step, priority=PRIORITY_INFERENCE, size=batch_size * seq)
         return out, "private", None, None
+
+
+def _device_tier(backend) -> bool:
+    """Whether the prefix cache may keep device copies for ``backend``'s
+    sessions: not under tensor parallelism, whose caches are split over the
+    shards (the JAX package stores host-only entries under a mesh)."""
+    return getattr(backend, "tp_size", 1) == 1
 
 
 def _log_failure(what: str):

@@ -32,7 +32,8 @@ scheduling decision, in two layers:
 This module holds POLICY and accounting only (victim ordering, fair share,
 swap-entry bookkeeping, stats); the MECHANICS — device gather/scatter, table
 mutation, page refcounts, the suspend/resume locking — live in
-server/batching.py, which owns those structures. The dense lane pool keeps
+server/batching.py, which owns those structures. The dense lane pool, and
+so a tensor-parallel span (the batcher gates paging off there), keeps
 priority/fair-share ADMISSION but never preempts: it has no relocatable
 pages to swap, so its exhaustion stays on the waiter backpressure path.
 """

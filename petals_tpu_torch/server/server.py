@@ -113,6 +113,17 @@ on the device, and announced by name (sorted); requests pick one with
 ``active_adapter``. A span with adapters loads unfused, as petals_tpu's
 does: the adapters target the separate projections.
 
+Tensor parallelism (petals_tpu/server/server.py's ``num_tp_devices``, one
+host): ``num_tp_devices`` > 1 splits the span over that many devices, the
+first of ``tp_devices`` (default: the visible CUDA devices; with
+``device="cpu"``, that many CPU shards), in this one process
+(server/backend.py). Blocks load unfused and are split as each loads; the
+batcher keeps the dense lane pool, the prefix cache keeps host copies only,
+no draft is loaded, and the throughput probe times a span split the same
+way. ``kv_quant_type`` and adapters are refused with it; the ``+o`` kinds
+and the families without a split (parallel/tp.py) fail at load, as in the
+JAX package.
+
 Runs on the CUDA card unless the caller passes ``device="cpu"``; a missing
 card raises instead of drifting to the CPU.
 """
@@ -141,6 +152,8 @@ from petals_tpu_torch.models.registry import num_kv_heads
 from petals_tpu_torch.ops import fingerprint as fp_ops
 from petals_tpu_torch.ops import flash_attention, grouped_matmul, paged_flash_attention, quant_matmul
 from petals_tpu_torch.ops.paged_attention import KV_QUANT_KINDS
+from petals_tpu_torch.parallel.mesh import tp_devices as parallel_devices
+from petals_tpu_torch.parallel.tp import shard_span_params
 from petals_tpu_torch.rpc.serialization import CompressionType
 from petals_tpu_torch.rpc.server import RpcServer
 from petals_tpu_torch.server.backend import TransformerBackend
@@ -212,6 +225,8 @@ class Server:
         initial_peers: Sequence = (),  # bootstrap peers (host:port/peer_id or PeerAddr)
         identity_seed: Optional[bytes] = None,  # a deterministic peer id
         device=None,  # None: the current CUDA device
+        num_tp_devices: Optional[int] = None,  # > 1: split the span over this many devices (tensor parallel)
+        tp_devices: Optional[Sequence] = None,  # the shards' devices (default: the visible CUDA devices)
         compute_dtype: torch.dtype = torch.bfloat16,
         attn_cache_bytes: Optional[int] = None,  # None: 15% of the card's memory
         max_chunk_size_bytes: int = 256 * 1024 * 1024,
@@ -274,6 +289,18 @@ class Server:
         if not isinstance(throughput, (int, float)) and throughput != "auto":
             raise ValueError(f'throughput must be a number or "auto", got {throughput!r}')
         self.device = resolve_device(device)
+        self.num_tp_devices = num_tp_devices
+        self.tp_devices = None
+        if (num_tp_devices or 1) > 1:
+            if kv_quant_type != "none":
+                raise ValueError("kv_quant_type requires a mesh-less server (paged pool only)")
+            if adapters:
+                raise ValueError("LoRA adapters are not served on a tensor-parallel span")
+            # on the CPU every shard is a CPU shard unless the caller lists them
+            pool = tp_devices if tp_devices is not None else (
+                [self.device] * num_tp_devices if self.device.type == "cpu" else None)
+            self.tp_devices = parallel_devices(num_tp_devices, pool)
+            self.device = self.tp_devices[0]
         self.quant_type = QuantType(quant_type).value
         self.kv_quant_type = kv_quant_type
         self.model_path = model_path
@@ -403,9 +430,18 @@ class Server:
     def _load_span_params(self, first: int, n: int) -> list:
         """Blocks [first, first + n), one at a time: its dense weights are
         freed once quantized (fused qkv / gate+up, as the JAX server fuses
-        on one device, unless adapters target the separate projections)."""
+        on one device, unless adapters target the separate projections) or,
+        under tensor parallelism, once split over the shards (unfused: a
+        fused qkv's parts are not head-aligned)."""
         t0 = time.perf_counter()
-        params = [self._load_block_converted(i, fuse=not self.adapter_paths) for i in range(first, first + n)]
+        if self.tp_devices is not None:
+            params = [
+                shard_span_params([self._load_block_converted(i, fuse=False)], self.tp_devices, self.family.name,
+                                  self.cfg)[0]
+                for i in range(first, first + n)
+            ]
+        else:
+            params = [self._load_block_converted(i, fuse=not self.adapter_paths) for i in range(first, first + n)]
         # the host's wall: a device-wide synchronize here would break another
         # server's capture in the same process
         self.load_stats["load_s"] = time.perf_counter() - t0
@@ -447,7 +483,7 @@ class Server:
             self.family, self.cfg, params,
             first_block=self.first_block, n_blocks=self.num_blocks, device=self.device,
             compute_dtype=self.compute_dtype, max_chunk_size_bytes=self.max_chunk_size_bytes,
-            quant_type=self.quant_type, kv_quant_type=self.kv_quant_type,
+            quant_type=self.quant_type, kv_quant_type=self.kv_quant_type, tp_devices=self.tp_devices,
         )
         self._install_adapters(backend)
         return backend
@@ -502,7 +538,7 @@ class Server:
         float32, as petals_tpu's does, whatever the span's dtype."""
         if not self.draft_model_path or self.spec_k < 1:
             return None
-        if self.server_gen_params is None or not self.page_size:
+        if self.server_gen_params is None or not self.page_size or self.tp_devices is not None:
             logger.warning(
                 "Speculative decoding disabled: --draft_model needs a full-span single-host server with "
                 "server-side generation and a paged lane pool"
@@ -577,7 +613,7 @@ class Server:
                 get_server_throughput, self.family, self.cfg, device=self.device,
                 compute_dtype=self.compute_dtype, quant_type=self.quant_type, kv_quant_type=self.kv_quant_type,
                 page_size=self.page_size, network_mbps=network_mbps, num_blocks=self.num_blocks,
-                using_relay=self.relay_via is not None,
+                using_relay=self.relay_via is not None, tp_devices=self.tp_devices,
             )
             self.throughput = self._rps_info["throughput"]
         if self.first_block is None:
@@ -615,7 +651,9 @@ class Server:
             self._balancer_task.add_done_callback(log_exception_callback(logger, "balance loop"))
         logger.info(
             f"Serving blocks [{self.first_block}, {self.first_block + self.num_blocks}) of "
-            f"{self.model_path} at {self.contact_addr.to_string()} ({self.device}, quant={self.quant_type}, "
+            f"{self.model_path} at {self.contact_addr.to_string()} "
+            f"({self.device if self.tp_devices is None else 'tp=' + ','.join(map(str, self.tp_devices))}, "
+            f"quant={self.quant_type}, "
             f"kv_quant={self.kv_quant_type}, throughput={self.throughput:.1f})"
         )
 

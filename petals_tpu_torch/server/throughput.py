@@ -16,6 +16,10 @@ backend on the device that will serve, with the same quantization:
   section 5).
 - forward_rps: tokens a second of ``forward`` at 1024 tokens, on a card
   replays of its step program as well.
+- A tensor-parallel server (``tp_devices``, petals_tpu's ``num_devices``)
+  times its own kind of span: the block split over the same devices, the
+  dense ``inference_step`` (it serves the dense lane pool) and the forward,
+  both run eagerly, as its steps are.
 - network_rps: the requests a second the wire carries, from the swarm
   bandwidth probe (utils/bandwidth.py), ``network_mbps`` or, alone, a
   loopback serialization and framing probe, times ``RELAY_PENALTY`` for a
@@ -72,11 +76,15 @@ def get_server_throughput(
     num_blocks: int = 1,
     using_relay: bool = False,
     cache_dir: Optional[Path] = None,
+    tp_devices=None,
 ) -> dict:
     """Returns {"throughput", "inference_rps", "forward_rps", "network_rps"}:
     ``throughput`` is the smaller of the compute rate spread over the hosted
     blocks and the network rate (cut by ``RELAY_PENALTY`` behind a relay)."""
     device = torch.device(device)
+    tp = len(tp_devices) if tp_devices else 1
+    if tp > 1:
+        page_size, kv_quant_type = 0, "none"  # the dense lane pool serves it
     cache_dir = Path(cache_dir or default_cache_dir())
     cache_dir.mkdir(parents=True, exist_ok=True)
     cache_path = cache_dir / THROUGHPUT_FILE
@@ -96,8 +104,9 @@ def get_server_throughput(
             # every step on a card replays a CUDA graph (the dense decode
             # step and the forward too): a number timed on the eager block
             # loop is not reused for it
-            "step": "cuda_graph" if device.type == "cuda" else "eager",
-            "forward": "cuda_graph" if device.type == "cuda" else "eager",
+            "step": "cuda_graph" if device.type == "cuda" and tp == 1 else "eager",
+            "forward": "cuda_graph" if device.type == "cuda" and tp == 1 else "eager",
+            "tp": [str(d) for d in tp_devices] if tp > 1 else 1,
             "version": petals_tpu_torch.__version__,
             "backend": device.type,
             "device_name": _device_name(device),
@@ -111,7 +120,7 @@ def get_server_throughput(
     else:
         info = measure_compute_rps(
             family, cfg, device=device, compute_dtype=compute_dtype, quant_type=quant_type,
-            kv_quant_type=kv_quant_type, page_size=page_size,
+            kv_quant_type=kv_quant_type, page_size=page_size, tp_devices=tp_devices if tp > 1 else None,
         )
         cache[cache_key] = info
         _write_cache(cache_path, cache)
@@ -127,9 +136,9 @@ def get_server_throughput(
     }
 
 
-def _random_block(family, cfg, device, dtype, quant_type: str) -> dict:
-    """One block of seeded random weights, quantized and fused as the server
-    serves it."""
+def _random_block(family, cfg, device, dtype, quant_type: str, fuse: bool = True) -> dict:
+    """One block of seeded random weights, quantized and fused (unless
+    ``fuse`` is off: a tensor-parallel span) as the server serves it."""
     from petals_tpu_torch.utils.convert_block import convert_block_params
 
     gen = torch.Generator(device=device).manual_seed(0)
@@ -140,28 +149,32 @@ def _random_block(family, cfg, device, dtype, quant_type: str) -> dict:
             continue
         keep = meta.dtype if name in family.cast_exempt else dtype
         params[name] = (torch.randn(meta.shape, generator=gen, device=device) * 0.02).to(keep)
-    return convert_block_params(params, family.name, quant_type, fuse=True)
+    return convert_block_params(params, family.name, quant_type, fuse=fuse)
 
 
-def _sync(device: torch.device) -> None:
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
+def _sync(devices) -> None:
+    for device in dict.fromkeys(devices):
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
 
 
 @torch.no_grad()
 def measure_compute_rps(
     family, cfg, *, device, compute_dtype: torch.dtype = torch.bfloat16, quant_type: str = "none",
     kv_quant_type: str = "none", page_size: int = 64, n_steps_inference: int = 50, n_steps_forward: int = 5,
+    tp_devices=None,
 ) -> dict:
-    """Time one block through the port's serving backend on ``device``."""
+    """Time one block through the port's serving backend on ``device``, or
+    split over ``tp_devices``."""
     from petals_tpu_torch.ops.paged_attention import PagedPool
     from petals_tpu_torch.server.backend import TransformerBackend
 
     device = torch.device(device)
+    devices = [torch.device(d) for d in tp_devices] if tp_devices else [device]
     backend = TransformerBackend(
-        family, cfg, [_random_block(family, cfg, device, compute_dtype, quant_type)],
+        family, cfg, [_random_block(family, cfg, device, compute_dtype, quant_type, fuse=len(devices) == 1)],
         first_block=0, n_blocks=1, device=device, compute_dtype=compute_dtype,
-        quant_type=quant_type, kv_quant_type=kv_quant_type,
+        quant_type=quant_type, kv_quant_type=kv_quant_type, tp_devices=tp_devices,
     )
     token = torch.zeros(1, 1, cfg.hidden_size, dtype=compute_dtype, device=device)
     if page_size:
@@ -183,25 +196,26 @@ def measure_compute_rps(
     # calls: both stay off the clock
     for i in range(2):
         out, pool = step(i, pool)
-    _sync(device)
+    _sync(devices)
     t0 = time.perf_counter()
     for i in range(n_steps_inference):
         out, pool = step(i + 2, pool)
-    _sync(device)
+    _sync(devices)
     inference_rps = n_steps_inference / (time.perf_counter() - t0)
 
     batch = torch.zeros(1, FORWARD_TOKENS, cfg.hidden_size, dtype=compute_dtype, device=device)
     for _ in range(2):
         backend.forward(batch)
-    _sync(device)
+    _sync(devices)
     t0 = time.perf_counter()
     for _ in range(n_steps_forward):
         out = backend.forward(batch)
-    _sync(device)
+    _sync(devices)
     forward_rps = n_steps_forward * FORWARD_TOKENS / (time.perf_counter() - t0)
     logger.info(
         f"Measured compute on {_device_name(device)}: inference {inference_rps:.1f} steps/s "
         f"({'paged' if page_size else 'dense'} decode), forward {forward_rps:.0f} tokens/s per block"
+        + (f" (tp={len(devices)})" if len(devices) > 1 else "")
     )
     return {"inference_rps": inference_rps, "forward_rps": forward_rps}
 

@@ -1,13 +1,13 @@
 """The port's ``run_server`` takes every flag of petals_tpu's, with the same
-default, but the four that belong to multi-host and multi-chip serving
-(ROADMAP A14); the port's own extra is ``--device``."""
+default, but the three that belong to sequence parallelism and multi-host
+serving (ROADMAP A14b / A14c); the port's own extra is ``--device``."""
 
 import pytest
 
 from petals_tpu.cli.run_server import build_parser as jax_parser
 from petals_tpu_torch.cli.run_server import build_parser as port_parser
 
-A14_FLAGS = {"coordinator_address", "num_hosts", "num_tp_devices", "num_sp_devices"}
+A14_FLAGS = {"coordinator_address", "num_hosts", "num_sp_devices"}
 
 
 def _actions(parser):

@@ -55,6 +55,25 @@ def _wait(pred, timeout=30.0):
         time.sleep(0.05)
 
 
+def _listed_online(route, reader, server, first, n) -> bool:
+    """Whether a lookup through ``reader``'s DHT node finds ``server`` ONLINE
+    on every block of [first, first + n). A server flips its state before
+    its ONLINE announce is stored, so a client that looks up blocks as soon
+    as the state reads ONLINE may find nobody there yet."""
+    from petals_tpu_torch.data_structures import ServerState
+    from petals_tpu_torch.utils.dht_utils import get_remote_module_infos, module_uids
+
+    uids = module_uids(server.dht_prefix, range(first, first + n))
+    infos, _ = route.loop.run(get_remote_module_infos(reader.dht, uids))
+    me = server.dht.peer_id.to_string()
+    return all(
+        info is not None and any(
+            peer.to_string() == me and si.state == ServerState.ONLINE for peer, si in info.servers.items()
+        )
+        for info in infos
+    )
+
+
 def test_balance_loop_then_resize_with_a_live_session(model_path, tmp_path, monkeypatch, expected):
     route = Route(
         model_path,
@@ -66,7 +85,7 @@ def test_balance_loop_then_resize_with_a_live_session(model_path, tmp_path, monk
     old_backend, old_batcher = weakref.ref(b.backend), b.batcher
     try:
         # the loop sees blocks [2, 4) uncovered and moves b there
-        _wait(lambda: b.first_block == HALF and b._state.name == "ONLINE")
+        _wait(lambda: b.first_block == HALF and _listed_online(route, a, b, HALF, HALF))
         b._balancer_task.cancel()  # no further moves while the sessions run
         assert a.first_block == 0
         assert b.backend.first_block == HALF and b.handler.backend is b.backend
@@ -87,6 +106,7 @@ def test_balance_loop_then_resize_with_a_live_session(model_path, tmp_path, monk
             # a replica of [0, 2) for a's session, then a moves under it
             route.loop.run(_add_server(route, model_path, 0, HALF, throughput=1.0))
             c = route.servers[-1]
+            _wait(lambda: _listed_online(route, a, c, 0, HALF))
             adopts, imports, replays = spy_repair_paths(monkeypatch)
             ids = PROMPTS[2]
             with model.remote.inference_session(max_length=16, batch_size=1) as session:
@@ -95,6 +115,7 @@ def test_balance_loop_then_resize_with_a_live_session(model_path, tmp_path, monk
                 assert same_peer(session._session._sessions[0].span.peer_id, a.dht.peer_id)
                 assert route.loop.run(a.resize(HALF)) is True
                 assert a.first_block == HALF and a.handler.migration_stats["pushes"] == 1
+                _wait(lambda: _listed_online(route, c, a, HALF, HALF))
                 final = model.generate(first, max_new_tokens=3, session=session)
                 assert same_peer(session._session._sessions[0].span.peer_id, c.dht.peer_id)
             np.testing.assert_array_equal(final, expected[2])
