@@ -222,7 +222,7 @@
    the card's name and power limit.
 14. Qwen2: a checkpoint at Qwen2.5-7B's widths (QWEN2_5_7B: 28 query heads
    over 4 kv heads, a GQA group of 7; q/k/v biases drawn with std 0.1;
-   vocabulary 152064, untied), depth cut to 4 blocks; served by one port
+   vocabulary 152064, untied), depth cut to 2 blocks; served by one port
    server in bf16 and then with --quant_type nf4a to two sessions (300 and
    64 tokens, 16 decode steps), checked as phase 3 checks them; then the
    port client generates 16 greedy tokens over an nf4a server, held as in
@@ -467,7 +467,7 @@
    tokens (K4 at head_dim 96; LongRoPE's short and long factors), every
    forward held to the dense references.
 24. Training and adapters (serve_training_and_check; alone:
-   scripts/smoke_training.py). (a) The 8-block bf16 span served by the CLI:
+   scripts/smoke_training.py). (a) The TRAIN_SPAN-block bf16 span served by the CLI:
    a port client's forward and ptu.backward of TRAIN_BATCH x TRAIN_SEQ
    tokens with TRAIN_PRE deep-prompt rows, grad_hidden and grad_prompts
    held to a float32 autograd reference over the plain blocks on the card
@@ -528,7 +528,7 @@
    the smoke checkpoint's 8 blocks (linked) and client tensors of its own
    128256-token vocabulary, served by a tp=1 port server (--page_size 0)
    and a ``Server(num_tp_devices=2, tp_devices=[cuda:0, cuda:0])``, in bf16
-   at 8 blocks, nf4a at 4 and int8 at 2 (each cut served whole); each gets
+   at 4 blocks, nf4a and int8 at 2 (each cut served whole); each gets
    a private batch-2 session (a 512-token prompt, 4 decode steps), 4 pooled
    sessions at once on the dense lane pool, a stateless forward and a
    ptu.backward of 512 tokens, and the bf16 tp server a server-side greedy
@@ -540,6 +540,27 @@
    launches K4, K5 nf4a and K6; the bf16 servers' decode step and 512-row
    chunk are profiled side by side (profile_tp_steps), and the throughput
    probe times the tp server's own kind of span.
+27. Sequence parallelism on one card (serve_sequence_parallel_and_check,
+   last; alone: scripts/smoke_sequence_parallel.py). K4 on the query
+   shards' shapes (1024 rows at 1024 of 2048 and 256 at 256 of 512, at 32
+   / 8 and 16 / 4 heads) and K5 nf4a / K6 prefill at a rank's 256 rows of a
+   tp=2 shard's projections against their plain versions. Phase 26's
+   checkpoint served by an unsharded port server beside (a) a
+   ``num_sp_devices=2`` one (both ranks on cuda:0) at 8 blocks in bf16: a
+   private 2048-token prompt and 8 decode steps, two pooled 1024-token
+   prompts, a 4096-token forward (the ring) and a 2048-token ptu.backward;
+   (b) a tp=2 x sp=2 one (four shards on cuda:0) at 2 blocks in bf16, nf4a
+   and int8: a 512-token private session, forward and backward; (c) a tp=2
+   one with a LoRA adapter (ROADMAP A14d) beside an unsharded one with the
+   same adapter. Every reply, private K/V row, forward and gradient within
+   REPLY_NOISE_FACTOR times the unsharded server's distance from float32;
+   on each mesh server the dense lane pool, no step program, every weight
+   on the card, tp x sp x sp folds a ring block call and K4 (K5 / K6 on
+   quantized weights) launched; (a)'s distinct weight and KV pool bytes
+   no more than sp=1's, its eager steps profiled beside sp=1's; a Gemma-2
+   server at sp=2 and an sp-only nf4a span refused. Each phase prints its
+   seconds ("phase seconds: ...") as it ends, and all of them before the
+   kernels line.
 
 float32 matmuls run in full float32: TF32 is switched off for matmuls and
 convolutions. Exits non-zero on any failure. The last line is the JSON
@@ -557,7 +578,9 @@ forwards, backwards and adapter sessions (with the backward's profile on
 K4's entry and the quantized spans' on K5 nf4a's and K6's prefill entries);
 ``swarm_ops_launches``: K1, K2, K4 and K5's nf4a arms on phase 25's swarm
 operations; ``tp_launches`` and ``tp``: K4, K5's nf4a arms and K6 on phase
-26's tensor-parallel servers, and each one's case at a shard's shapes.
+26's tensor-parallel servers, and each one's case at a shard's shapes;
+``sp_launches`` and ``sp``: the same on phase 27's sequence-parallel
+servers, at a query shard's and a rank's rows' shapes.
 Every run prints its lanes, pages and pool bytes.
 """
 
@@ -568,6 +591,7 @@ import collections
 import contextlib
 import dataclasses
 import gc
+import itertools
 import json
 import os
 import shutil
@@ -691,10 +715,10 @@ QWEN2_5_7B = {
     "use_sliding_window": False, "tie_word_embeddings": False, "bos_token_id": 151643, "eos_token_id": 151643,
     "torch_dtype": "bfloat16",
 }
-QWEN_SPAN = 4
+QWEN_SPAN = 2  # cut in depth from 4 to keep the smoke inside its limit
 QWEN_NEW = 16
 # phase 16: server-side generation over one port server of a GEN_SPAN-block cut
-GEN_SPAN = 4  # the whole-model cut served (its depth cut to keep the smoke's time)
+GEN_SPAN = 2  # the whole-model cut served (its depth cut from 4 to keep the smoke's time)
 GEN_PROMPT = 300
 GEN_NEW = 32
 GEN_SAMPLING = dict(do_sample=True, temperature=0.8, top_k=50, top_p=0.9, seed=1234)
@@ -842,11 +866,12 @@ MIXTRAL_EXPERT_SPREAD = 0.15
 MIXTRAL_W2_SCALE = 0.25
 # (config, blocks served) of each family's run: the depth cut to 2 blocks
 # to keep the smoke's time (4 until phase 26 joined the run)
-FAMILY_RUNS = {"bloom": (BLOOM_7B1, 2), "falcon": (FALCON_7B, 2), "mixtral": (MIXTRAL_8X7B, 2)}
+# depth cut from 2 blocks (4 before that) to keep the smoke inside its limit
+FAMILY_RUNS = {"bloom": (BLOOM_7B1, 1), "falcon": (FALCON_7B, 1), "mixtral": (MIXTRAL_8X7B, 1)}
 FAMILY_PROMPTS = (600, 300, 64)  # 600 > the 512-token prefill budget: a continuation chunk
 FAMILY_STEPS = 16
 FAMILY_NEW = 16  # the client's greedy tokens a family
-FAMILY_QUANT_BLOCKS = 2  # Mixtral again at --quant_type nf4a: K5 per expert
+FAMILY_QUANT_BLOCKS = 1  # Mixtral again at --quant_type nf4a: K5 per expert (cut from 2)
 # the kernel cases: (query heads, kv heads, head_dim) at Falcon's GQA groups
 # (Falcon-7B's 71 over 1, Falcon-180B's 232 over 8 = 29, Falcon-40B's 128
 # over 8 = 16), head_dim 64; ALiBi at BLOOM-7b1's 32 heads and BLOOM-176B's
@@ -893,8 +918,10 @@ PHI3_MINI_128K = {
 # Gemma-2's 4600-token prompt, chunked at the 512-token budget, crosses the
 # sliding window; Phi-3's 4090-token prompt crosses 4096 during its decode
 # steps, so the long factors take over mid-session (cached rows keep theirs)
-GEMMA_PHI3_RUNS = {"gemma": (GEMMA_7B, 4, (600, 300, 64)), "gemma2": (GEMMA2_9B, 8, (4600, 300, 64)),
-                   "phi3": (PHI3_MINI_128K, 4, (4090, 300, 64))}
+# depth cut to keep the smoke inside its limit: Gemma-2's 2 blocks still
+# hold a sliding and a full layer (cut from 4 / 8 / 4 blocks)
+GEMMA_PHI3_RUNS = {"gemma": (GEMMA_7B, 1, (600, 300, 64)), "gemma2": (GEMMA2_9B, 2, (4600, 300, 64)),
+                   "phi3": (PHI3_MINI_128K, 1, (4090, 300, 64))}
 # lanes past 4600 tokens (an MHA server's sessions stop at 2048 tokens by default)
 GEMMA_PHI3_LONG = ("--batch_max_length", "5120", "--attn_cache_tokens", "40960", "--inference_max_length", "8192")
 PHI3_GEN_PROMPT = 4300  # server-side generation: chunks of a prompt whose known length crosses 4096
@@ -920,7 +947,7 @@ GEMMA_PHI3_FWD_LENGTHS = (96, 160, 224, 288, 352, 416, 480, 544)  # C12: eight f
 # a boundary inside a bucket
 PHI3_FWD_LENGTHS = (3000, 4200)
 # phase 24: training and adapters on the smoke's Mistral-7B checkpoint. (a)
-# ptu.backward on the 8-block bf16 span: TRAIN_BATCH x TRAIN_SEQ tokens with
+# ptu.backward on the TRAIN_SPAN-block bf16 span: TRAIN_BATCH x TRAIN_SEQ tokens with
 # TRAIN_PRE deep-prompt rows; (b) the same on TRAIN_SHORT blocks with nf4a
 # and int8 weights; (c) the port's client trains TRAIN_PRE deep prompts on
 # TRAIN_CLIENT_SEQ-token rows for TRAIN_STEPS SGD steps, each moving the
@@ -930,6 +957,7 @@ PHI3_FWD_LENGTHS = (3000, 4200)
 # served on TRAIN_SHORT blocks in bf16 and nf4a (QLoRA), an adapter session
 # generating ADAPTER_NEW greedy tokens
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_PRE = 2, 512, 16
+TRAIN_SPAN = 4  # (a) and (c)'s span: depth cut from the 8-block cut to keep the smoke inside its limit
 TRAIN_SHORT = 2
 TRAIN_CLIENT_SEQ = 128
 TRAIN_STEPS = 3
@@ -972,13 +1000,43 @@ TP_LANES = 4
 TP_BATCH = 2  # the private session's batch
 TP_MAX_LENGTH = 1024
 TP_GEN_NEW = 8
-TP_KINDS = (("none", TP_SPAN), ("nf4a", 4), ("int8", 2))  # each kind's depth cut, served whole
+# each kind's depth cut, served whole (cut from 8 / 4 / 2 for the smoke's time)
+TP_KINDS = (("none", 4), ("nf4a", 2), ("int8", 2))
 # K5 / K6 at the shards' shapes of a Llama-3-8B block at tp=2 (unfused:
 # the columns of wq / wk / wv / wg / wu and the rows of wo / wd halved)
 TP_QUANT_SHAPES = {"wq": (4096, 2048), "wk": (4096, 512), "wo": (2048, 4096), "wg": (4096, 7168),
                    "wd": (7168, 4096)}
 TP_QUANT_ROWS = (4, 512)  # the pool's 4 decode lanes, a 512-token prompt
 TP_QUANT_REPORT = ("wg", (4, 512))
+# phase 27: sequence parallelism on the one card, over phase 26's
+# Llama-3-8B checkpoint. (a) sp=2 at SP_SPAN blocks, bf16: a private session
+# of an SP_PRIVATE-token prompt and SP_PRIVATE_STEPS decode steps, two pooled
+# sessions of SP_LANE_PROMPT tokens, a forward of SP_FORWARD tokens (the
+# ring) and a ptu.backward of SP_BACKWARD; (b) tp=2 x sp=2 at SP_GRID_SPAN
+# blocks in each of SP_GRID_KINDS: a private session of SP_GRID_PROMPT
+# tokens, a forward and a backward of as many; (c) LoRA on a tp=2 span
+# (A14d) at SP_LORA_SPAN blocks: an adapter session, forward and backward
+SP = 2
+SP_SPAN = 8
+SP_PRIVATE = 2048
+SP_PRIVATE_STEPS = 8
+SP_MAX_LENGTH = 4096  # the private cache, and the servers' inference_max_length
+SP_LANES = 2
+SP_LANE_PROMPT = 1024
+SP_LANE_STEPS = 4
+SP_LANE_LENGTH = 2048
+SP_FORWARD = 4096
+SP_BACKWARD = 2048
+SP_GRID_SPAN = 2
+SP_GRID_KINDS = ("none", "nf4a", "int8")
+SP_GRID_PROMPT = 512
+SP_GRID_STEPS = 4
+SP_LORA_SPAN = 2
+# K4 on a query shard: (rows, offset) of the 2048-token prompt's rank 1 and
+# of the 512-token one's, at a whole block's heads and a tp=2 shard's
+SP_FLASH_CASES = ((1024, 1024), (256, 256))
+SP_FLASH_HEADS = ((32, 8), (16, 4))
+SP_QUANT_ROWS = (256,)  # a 512-token chunk's rank rows, on a tp=2 shard's projections
 # K7's case: a 512-row chunk at top-2 over Mixtral's 8 experts, skewed: one
 # expert empty, one taking half the rows
 GROUPED_SIZES = (512, 0, 160, 96, 64, 96, 48, 48)
@@ -1773,9 +1831,12 @@ def check_flash_kernel(device, timer):
     }
 
 
-def check_flash_case(device, timer, hq, hkv, d, alibi=None, softcap=None, window=None, q_scale=1.0):
-    """K4 at a 512-row chunk at offset 0 over a 1024-row buffer (a session's
-    cache), bf16 (wgmma) and float32 (CUDA cores) on the same values, against
+def check_flash_case(device, timer, hq, hkv, d, alibi=None, softcap=None, window=None, q_scale=1.0, q_len=512,
+                     q_offset=0):
+    """K4 at a ``q_len``-row chunk at ``q_offset`` (default 512 rows at 0)
+    over a buffer of at least 1024 rows (a session's cache; a query shard of
+    sequence parallelism starts past row 0), bf16 (wgmma) and float32 (CUDA
+    cores) on the same values, against
     its plain version (KERNEL_TOL, F32_KERNEL_TOL, as phase 9), timed beside
     SDPA with a mask (ALiBi added) and the bound; returns the timings. With a
     ``softcap`` (the queries times ``q_scale``, so that it bends the scores)
@@ -1784,14 +1845,17 @@ def check_flash_case(device, timer, hq, hkv, d, alibi=None, softcap=None, window
     from petals_tpu_torch.ops import flash_attention as fa
 
     gen = torch.Generator(device=device).manual_seed(SEED + 22)
-    q_len, buf = 512, 1024
+    kv_length = q_offset + q_len
+    buf = max(1024, kv_length)
     q = (torch.randn(1, q_len, hq, d, generator=gen, device=device) * q_scale).to(torch.bfloat16)
     k, v = (torch.randn(1, buf, hkv, d, generator=gen, device=device).to(torch.bfloat16) for _ in range(2))
-    scalars = torch.tensor([0, q_len], dtype=torch.int32, device=device)
-    kw = dict(q_offset=0, kv_length=q_len, alibi_slopes=alibi, softcap=softcap, sliding_window=window)
+    scalars = torch.tensor([q_offset, kv_length], dtype=torch.int32, device=device)
+    kw = dict(q_offset=q_offset, kv_length=kv_length, alibi_slopes=alibi, softcap=softcap, sliding_window=window)
     kw_dev = dict(q_offset=scalars[0], kv_length=scalars[1], alibi_slopes=alibi, softcap=softcap,
                   sliding_window=window)
     name = f"K4 at group {hq // hkv} ({hq} heads over {hkv}, head_dim {d}){' with ALiBi' if alibi is not None else ''}"
+    if q_offset:
+        name += f", {q_len} rows at {q_offset} of {kv_length}"
     if softcap is not None:
         name += f", softcap {softcap:g}, window {window}"
     got = fa.flash_attend(q, k, v, **kw_dev)
@@ -1813,7 +1877,7 @@ def check_flash_case(device, timer, hq, hkv, d, alibi=None, softcap=None, window
     # largest one; the limit adds two such ulps to phase 9's
     tol32 = F32_KERNEL_TOL
     if alibi is not None:
-        tol32 += 2 * torch.finfo(torch.float32).eps * alibi.abs().max().item() * (q_len - 1)
+        tol32 += 2 * torch.finfo(torch.float32).eps * alibi.abs().max().item() * (kv_length - 1)
     log(f"{name}: max abs err {err:.3e} bf16 (wgmma, tol {KERNEL_TOL}), {err32:.3e} float32 (CUDA cores, "
         f"tol {tol32:.3e})")
     if err > KERNEL_TOL or err32 > tol32:
@@ -1825,13 +1889,14 @@ def check_flash_case(device, timer, hq, hkv, d, alibi=None, softcap=None, window
             raise AssertionError(f"{name}: the softcap does not bend these scores ({off:.3e})")
 
     def library():
-        kv_pos = torch.arange(q_len, device=device)
-        mask = (kv_pos[None, :] <= kv_pos[:, None]) & (kv_pos[None, :] > kv_pos[:, None] - (window or q_len))
+        kv_pos = torch.arange(kv_length, device=device)
+        q_pos = q_offset + torch.arange(q_len, device=device)
+        mask = (kv_pos[None, :] <= q_pos[:, None]) & (kv_pos[None, :] > q_pos[:, None] - (window or kv_length))
         mask = _alibi_mask(mask, alibi, kv_pos)
-        return _sdpa(q.transpose(1, 2), k[:, :q_len].transpose(1, 2), v[:, :q_len].transpose(1, 2), mask)
+        return _sdpa(q.transpose(1, 2), k[:, :kv_length].transpose(1, 2), v[:, :kv_length].transpose(1, 2), mask)
 
-    nbytes = 2 * q.numel() * 2 + 2 * q_len * hkv * d * 2
-    bound, by = bound_ms(nbytes, 4 * hq * d * _visible_pairs(q_len, 0, q_len, window))
+    nbytes = 2 * q.numel() * 2 + 2 * kv_length * hkv * d * 2
+    bound, by = bound_ms(nbytes, 4 * hq * d * _visible_pairs(q_len, q_offset, kv_length, window))
     out = {"ms": timer(lambda: fa.flash_attend(q, k, v, **kw_dev)),
            "plain_ms": timer(lambda: fa.flash_attend_reference(q, k, v, **kw)), "bound_ms": bound, "bound_by": by,
            "max_abs_err": err}
@@ -2175,6 +2240,8 @@ def quantized_kv_writes(family, kind, written):
     from petals_tpu_torch.ops.paged_attention import dequantize_kv, quantize_kv_rows
 
     module = sys.modules[family.block_apply.__module__]
+    if not hasattr(module, "update_kv_cache"):  # its block writes through ops/attention.py attend_maybe_ring
+        module = sys.modules["petals_tpu_torch.models.common"]
     original = module.update_kv_cache
 
     def write(kv, k_new, v_new, position, n_valid=None):
@@ -3170,10 +3237,11 @@ def _private_kv(server, n_tokens):
                  for buf in _private_buffers(server))
 
 
-async def _drive_private(server, blocks, batch, max_length, step_lens, seed):
-    """One private session over blocks [blocks[0], blocks[1]) at ``batch``:
-    steps of ``step_lens`` tokens each. Returns the inputs, the replies, each
-    reply's step_meta and the cache's K/V rows read before the stream ends."""
+async def _drive_private(server, blocks, batch, max_length, step_lens, seed, adapter=None):
+    """One private session over blocks [blocks[0], blocks[1]) at ``batch``
+    (with the LoRA ``adapter`` active, if named): steps of ``step_lens``
+    tokens each. Returns the inputs, the replies, each reply's step_meta
+    and the cache's K/V rows read before the stream ends."""
     from petals_tpu_torch.data_structures import CHAIN_DELIMITER, make_uid
     from petals_tpu_torch.rpc import RpcClient
     from petals_tpu_torch.rpc.serialization import deserialize_array, serialize_array
@@ -3184,7 +3252,7 @@ async def _drive_private(server, blocks, batch, max_length, step_lens, seed):
     client = await RpcClient.connect("127.0.0.1", server.rpc_server.port)
     try:
         stream = await client.open_stream("ptu.inference")
-        await stream.send({"uids": uids, "max_length": max_length, "batch_size": batch})
+        await stream.send({"uids": uids, "max_length": max_length, "batch_size": batch, "active_adapter": adapter})
         if not (await stream.recv(timeout=120))["session_open"]:
             raise AssertionError("private session did not open")
         outs, metas, position = [], [], 0
@@ -6438,13 +6506,14 @@ def write_adapter(root, name, seed, device, rank=ADAPTER_RANK, targets=ADAPTER_T
     return path
 
 
-def write_cls_checkpoint(src, dst, device):
-    """A Mistral-7B sequence-classification checkpoint beside ``src``: its
-    shards linked, a seeded ``score.weight`` [CLS_LABELS, hidden] in a shard
-    of its own, and config.json naming the labels and the pad token."""
+def write_cls_checkpoint(src, dst, device, n_layers=SPAN):
+    """A Mistral-7B sequence-classification checkpoint of ``n_layers``
+    layers beside ``src``: its shards linked, a seeded ``score.weight``
+    [CLS_LABELS, hidden] in a shard of its own, and config.json naming the
+    labels and the pad token."""
     from petals_tpu_torch.utils.safetensors_io import save_file
 
-    cut_checkpoint(src, dst, SPAN)
+    cut_checkpoint(src, dst, n_layers)
     gen = torch.Generator(device=device).manual_seed(SEED + 24)
     score = (torch.randn(CLS_LABELS, MISTRAL_7B["hidden_size"], generator=gen, device=device) * 0.02)
     save_file({"score.weight": score.to(torch.bfloat16).cpu()}, os.path.join(dst, "model-score.safetensors"))
@@ -6640,9 +6709,10 @@ def serve_training_and_check(ckpt, device, smi) -> dict:
     from petals_tpu_torch.ops import flash_attention as fa
 
     t_phase = time.perf_counter()
-    cut = cut_checkpoint(ckpt, os.path.join(ckpt, f"mistral-7b-{SPAN}-layers-train"), SPAN)
+    cut = cut_checkpoint(ckpt, os.path.join(ckpt, f"mistral-7b-{TRAIN_SPAN}-layers-train"), TRAIN_SPAN)
     short = cut_checkpoint(ckpt, os.path.join(ckpt, f"mistral-7b-{TRAIN_SHORT}-layers-train"), TRAIN_SHORT)
-    cls_ckpt = write_cls_checkpoint(ckpt, os.path.join(ckpt, f"mistral-7b-{SPAN}-layers-cls"), device)
+    cls_ckpt = write_cls_checkpoint(ckpt, os.path.join(ckpt, f"mistral-7b-{TRAIN_SPAN}-layers-cls"), device,
+                                    TRAIN_SPAN)
     adapter_root = os.path.join(ckpt, "adapters")
     adapters = (write_adapter(adapter_root, "lora-a", SEED + 31, device),
                 write_adapter(adapter_root, "lora-b", SEED + 32, device, rank=8,
@@ -6676,11 +6746,11 @@ def serve_training_and_check(ckpt, device, smi) -> dict:
 
     try:
         # (a) the backward on the 8-block bf16 span, over the wire
-        server = start(cut, "--first_block", "0", "--num_blocks", str(SPAN))
-        uids = [make_uid(server.dht_prefix, i) for i in range(SPAN)]
+        server = start(cut, "--first_block", "0", "--num_blocks", str(TRAIN_SPAN))
+        uids = [make_uid(server.dht_prefix, i) for i in range(TRAIN_SPAN)]
         remote = RemoteSequential(ClientConfig(initial_peers=peers(server)), uids)
         k4, q0 = fa.flash_attend.launches, _quant_counts()
-        label = f"training a (bf16, {SPAN} Mistral-7B blocks)"
+        label = f"training a (bf16, {TRAIN_SPAN} Mistral-7B blocks)"
         bad, wall, _, inputs = check_wire_backward(label, server, remote, device, SEED + 24)
         failed += bad
         count(k4, q0)
@@ -6688,7 +6758,7 @@ def serve_training_and_check(ckpt, device, smi) -> dict:
         result["backward_bf16"] = dict(profile_backward(label, server, device, inputs, smi), client_wall_ms=wall * 1e3)
 
         # (c) the port's client trains deep prompts over the same server, then a classifier
-        label = f"training c (the port's client, deep_ptune, {SPAN} blocks)"
+        label = f"training c (the port's client, deep_ptune, {TRAIN_SPAN} blocks)"
         k4, q0 = fa.flash_attend.launches, _quant_counts()
         model = AutoDistributedModelForCausalLM.from_pretrained(cut, initial_peers=peers(server),
                                                                 ptune=PTuneConfig(TRAIN_PRE, "deep_ptune"))
@@ -6741,7 +6811,7 @@ def serve_training_and_check(ckpt, device, smi) -> dict:
         finally:
             model.close()
         # one classification step (the same blocks, a score head of CLS_LABELS)
-        label = f"training c (classification, {CLS_LABELS} labels, {SPAN} blocks)"
+        label = f"training c (classification, {CLS_LABELS} labels, {TRAIN_SPAN} blocks)"
         cls_model = AutoDistributedModelForSequenceClassification.from_pretrained(
             cls_ckpt, initial_peers=peers(server), dht_prefix=server.dht_prefix,
             ptune=PTuneConfig(TRAIN_PRE, "deep_ptune"))
@@ -7339,16 +7409,16 @@ async def _drive_tp(server, n_blocks, seed, embed):
     return out
 
 
-def _tp_within(label, got_tp, got_one, want_f32) -> list:
-    """The tp server's replies against the tp=1 server's, both measured from
-    the float32 reference: each of ``_rel_errors``' two distances (the
-    worst max-rel and mean-rel over the replies) within REPLY_NOISE_FACTOR
-    times tp=1's. Returns what failed."""
+def _tp_within(label, got_tp, got_one, want_f32, base="tp=1") -> list:
+    """The mesh server's replies against the unsharded (``base``) server's,
+    both measured from the float32 reference: each of ``_rel_errors``' two
+    distances (the worst max-rel and mean-rel over the replies) within
+    REPLY_NOISE_FACTOR times the unsharded one's. Returns what failed."""
     tp, one = _rel_errors(got_tp, want_f32), _rel_errors(got_one, want_f32)
-    log(f"{label}: vs float32 max-rel {tp[0]:.3e} mean-rel {tp[1]:.3e}; tp=1 {one[0]:.3e} / {one[1]:.3e} "
+    log(f"{label}: vs float32 max-rel {tp[0]:.3e} mean-rel {tp[1]:.3e}; {base} {one[0]:.3e} / {one[1]:.3e} "
         f"(ratio {tp[0] / one[0]:.3f} / {tp[1] / one[1]:.3f}, tol {REPLY_NOISE_FACTOR:g})")
     if tp[0] > REPLY_NOISE_FACTOR * one[0] or tp[1] > REPLY_NOISE_FACTOR * one[1]:
-        return [f"{label}: further from the float32 reference than {REPLY_NOISE_FACTOR:g}x tp=1's"]
+        return [f"{label}: further from the float32 reference than {REPLY_NOISE_FACTOR:g}x {base}'s"]
     return []
 
 
@@ -7366,40 +7436,48 @@ def _shard_bytes(backend) -> list:
             for s in range(backend.tp_size)]
 
 
-def profile_tp_steps(one, two, device, smi) -> dict:
-    """Where a tensor-parallel step's time goes beside tp=1's, by
-    ``profile_calls``: the dense pool's decode step at TP_LANES lanes of
-    TP_MAX_LENGTH tokens (positions spread over the lanes, as the dense
-    profile's) and a TP_PROMPT-row chunk on a private cache of
-    TP_MAX_LENGTH tokens: tp=1 eager (an ``eager_sibling``) and replayed (a
-    sibling whose programs warm first), and the tp server eager, the only
+def _grid_name(backend) -> str:
+    """tp=2, sp=2 or tp=2 x sp=2: the grid a backend spans."""
+    tp, sp = backend.tp_size, getattr(backend, "sp_size", 1)
+    return " x ".join(part for part in (f"tp={tp}" if tp > 1 else "", f"sp={sp}" if sp > 1 else "") if part)
+
+
+def profile_tp_steps(one, two, device, smi, lanes=TP_LANES, max_length=TP_MAX_LENGTH, rows=TP_PROMPT,
+                     what="tensor-parallel") -> dict:
+    """Where a step over a mesh spends its time beside the unsharded one's,
+    by ``profile_calls``: the dense pool's decode step at ``lanes`` lanes of
+    ``max_length`` tokens (positions spread over the lanes, as the dense
+    profile's) and a ``rows``-row chunk on a private cache of
+    ``max_length`` tokens: tp=1 eager (an ``eager_sibling``) and replayed (a
+    sibling whose programs warm first), and the mesh server eager, the only
     way its steps run."""
     sib, ref = sibling_backend(one), eager_sibling(one)
     gen = torch.Generator().manual_seed(SEED + 27)
     hsz = one.hidden_size
-    h_pool = torch.randn(TP_LANES, 1, hsz, generator=gen).to(torch.bfloat16)
-    chunk = torch.randn(1, TP_PROMPT, hsz, generator=gen).to(torch.bfloat16)
-    positions = torch.linspace(64, TP_MAX_LENGTH - 64, TP_LANES).to(torch.int32)
+    h_pool = torch.randn(lanes, 1, hsz, generator=gen).to(torch.bfloat16)
+    chunk = torch.randn(1, rows, hsz, generator=gen).to(torch.bfloat16)
+    positions = torch.linspace(64, max_length - 64, lanes).to(torch.int32)
 
     def zeros(b, batch):
-        return tuple(d.make_zeros() for d in b.cache_descriptors(batch, TP_MAX_LENGTH, 0, b.n_blocks))
+        return tuple(d.make_zeros() for d in b.cache_descriptors(batch, max_length, 0, b.n_blocks))
 
-    pools = {b: zeros(b, TP_LANES) for b in (sib, ref, two)}
+    pools = {b: zeros(b, lanes) for b in (sib, ref, two)}
     caches = {b: zeros(b, 1) for b in (sib, ref, two)}
-    sib.warm_dense_programs(pools[sib], TP_LANES, TP_MAX_LENGTH, 8)
-    pooled = f"dense pool decode step ({TP_LANES} lanes of {TP_MAX_LENGTH} tokens)"
-    private = f"{TP_PROMPT}-row chunk on a private cache"
+    sib.warm_dense_programs(pools[sib], lanes, max_length, 8)
+    pooled = f"dense pool decode step ({lanes} lanes of {max_length} tokens)"
+    private = f"{rows}-row chunk on a private cache"
+    grid = f"{_grid_name(two)} eager"
     steps = {}
-    for name, b in (("tp=1 eager", ref), ("tp=1 replayed", sib), (f"tp={two.tp_size} eager", two)):
+    for name, b in (("tp=1 eager", ref), ("tp=1 replayed", sib), (grid, two)):
         steps[f"{pooled}, {name}"] = lambda b=b: b.batched_decode_step(h_pool, pools[b], positions)
         steps[f"{private}, {name}"] = lambda b=b: b.inference_step(chunk, caches[b], 0)
-    log(f"tensor-parallel profile (--quant_type {one.quant_type}): {one.n_blocks} blocks ({smi})")
+    log(f"{what} profile (--quant_type {one.quant_type}): {one.n_blocks} blocks ({smi})")
     times = profile_calls(steps)
-    for what in (pooled, private):
-        rows = {name: times[f"{what}, {name}"] for name in ("tp=1 eager", "tp=1 replayed", f"tp={two.tp_size} eager")}
-        log(f"tensor-parallel profile: {what}: " + "; ".join(
+    for what_step in (pooled, private):
+        rows_ = {name: times[f"{what_step}, {name}"] for name in ("tp=1 eager", "tp=1 replayed", grid)}
+        log(f"{what} profile: {what_step}: " + "; ".join(
             f"{name} host wall {t['host_wall_ms']:.3f} ms, device busy {t['device_busy_ms']:.3f} ms, idle "
-            f"{t['idle_share']:.3f}, {t['launches']:g} launches" for name, t in rows.items()) + f" ({smi})")
+            f"{t['idle_share']:.3f}, {t['launches']:g} launches" for name, t in rows_.items()) + f" ({smi})")
     return {label: {k: round(v, 4) for k, v in t.items() if k != "kernels"} for label, t in times.items()}
 
 
@@ -7410,8 +7488,8 @@ def serve_tensor_parallel_and_check(ckpt, device, smi, timer=None) -> dict:
     at a shard's projections (TP_QUANT_SHAPES) against their plain
     versions. (b) A Llama-3-8B-config checkpoint of TP_SPAN blocks
     (``llama3_checkpoint``) served by a tp=1 port server and by a tp=TP one
-    whose shards all lie on ``device``, in bf16 at TP_SPAN blocks, nf4a at
-    4 and int8 at 2 (``cut_checkpoint``: each cut served whole), each
+    whose shards all lie on ``device``, in bf16 at 4 blocks, nf4a and int8
+    at 2 (TP_KINDS; ``cut_checkpoint``: each cut served whole), each
     driven by ``_drive_tp`` with the same inputs. Every reply, the private session's K/V rows (joined across the
     shards), the forward and the backward's gradient are held to the
     float32 reference over the served weights (dequantized) with
@@ -7440,11 +7518,11 @@ def serve_tensor_parallel_and_check(ckpt, device, smi, timer=None) -> dict:
     log(f"{label}: checkpoint (the blocks linked, the client's tensors written) in {time.perf_counter() - t0:.1f} s")
     embed, _ = _reference_head(root, device)
     calls = [0]
-    block_shards = llama_block.block_shards
+    block_grid = llama_block.block_grid
 
     def counting(params, kv):
         calls[0] += isinstance(params, (list, tuple))
-        return block_shards(params, kv)
+        return block_grid(params, kv)
 
     failed = []
     for quant_type, n_blocks in TP_KINDS:
@@ -7461,12 +7539,12 @@ def serve_tensor_parallel_and_check(ckpt, device, smi, timer=None) -> dict:
                 _reset_launch_counts()
                 t_start, before, reductions = time.perf_counter(), _quant_counts(), collectives.reduction_count()
                 calls[0] = 0
-                llama_block.block_shards = counting
+                llama_block.block_grid = counting
                 try:
                     out = await _drive_tp(server, n_blocks, SEED + 40, embed)
                     n_red = collectives.reduction_count() - reductions
                 finally:
-                    llama_block.block_shards = block_shards
+                    llama_block.block_grid = block_grid
                     await server.shutdown()
                 return out, time.perf_counter() - t_start, _delta(_quant_counts(), before), n_red
 
@@ -7544,6 +7622,357 @@ def serve_tensor_parallel_and_check(ckpt, device, smi, timer=None) -> dict:
     return result
 
 
+def _sp_server(root, device, quant_type, tp, sp, adapters=()):
+    """A port server of the whole of ``root`` for phase 27: unsharded on
+    ``device`` with the dense lane pool (``--page_size 0``), or over a tp x
+    sp grid whose every entry is ``device`` (``num_tp_devices`` /
+    ``num_sp_devices`` with ``tp_devices``, the caller's keyword: this host
+    has one card), which asks for the default paged pool and gets the
+    dense lane pool, as any mesh does."""
+    from petals_tpu_torch.server.server import Server
+
+    mesh = tp * sp > 1
+    return Server(
+        root, first_block=0, host="127.0.0.1", device=device, num_tp_devices=tp if tp > 1 else None,
+        num_sp_devices=sp if sp > 1 else None, tp_devices=[device] * (tp * sp) if mesh else None,
+        quant_type=quant_type, page_size=PAGE if mesh else 0, batch_lanes=SP_LANES, batch_max_length=SP_LANE_LENGTH,
+        inference_max_length=SP_MAX_LENGTH, attn_cache_bytes=2 << 30, prefix_cache_bytes=0, update_period=600.0,
+        throughput=1.0, quant_weight_cache=False, server_side_generation=False, adapters=list(adapters),
+    )
+
+
+async def _drive_mesh(server, n_blocks, seed, private, lanes, n_forward, n_backward, adapter=None):
+    """One server's phase-27 traffic, the same seeded inputs for every
+    server: a private batch-1 session (``private``: its max length and step
+    lengths) with its cache's K/V rows, ``lanes`` (prompt lengths) pooled
+    sessions at once with SP_LANE_STEPS decode steps, a stateless forward
+    of ``n_forward`` tokens and a ptu.backward of ``n_backward``, all with
+    the LoRA ``adapter`` active if one is named."""
+    from petals_tpu_torch.data_structures import CHAIN_DELIMITER, make_uid
+    from petals_tpu_torch.rpc import RpcClient
+    from petals_tpu_torch.rpc.serialization import deserialize_array, serialize_array
+
+    max_length, steps = private
+    out = {"private": await _drive_private(server, (0, n_blocks), 1, max_length, steps, seed, adapter=adapter)}
+    if lanes:
+        inputs, outs, metas, _, _ = await drive_server(server, lanes, SP_LANE_STEPS, seed + 1)
+        out["lanes"] = (inputs, outs, metas)
+    gen = torch.Generator().manual_seed(seed + 2)
+    hsz = server.cfg.hidden_size
+    fwd_hidden = torch.randn(1, n_forward, hsz, generator=gen).to(torch.bfloat16)
+    hidden = torch.randn(1, n_backward, hsz, generator=gen).to(torch.bfloat16)
+    grad = (torch.randn(1, n_backward, hsz, generator=gen) * 1e-2).to(torch.bfloat16)
+    uids = CHAIN_DELIMITER.join(make_uid(server.dht_prefix, i) for i in range(n_blocks))
+    client = await RpcClient.connect("127.0.0.1", server.rpc_server.port)
+    try:
+        fwd = await client.call("ptu.forward", {"uids": uids, "active_adapter": adapter,
+                                                "tensors": {"hidden": serialize_array(fwd_hidden)}}, timeout=600)
+        bwd = await client.call("ptu.backward", {"uids": uids, "active_adapter": adapter, "tensors": {
+            "hidden": serialize_array(hidden), "grad_out": serialize_array(grad)}}, timeout=600)
+        out["forward"] = (fwd_hidden, deserialize_array(fwd["tensors"]["hidden"]))
+        out["backward"] = (hidden, grad, deserialize_array(bwd["tensors"]["grad_hidden"]))
+    finally:
+        await client.close()
+    return out
+
+
+def _distinct_bytes(x) -> int:
+    """The bytes of the distinct tensors under ``x`` (a backend's block
+    parameters, a ShardedCache pool or a tensor): what the device holds,
+    each storage counted once however many shards or ranks share it."""
+    from petals_tpu_torch.ops.quant import QuantizedLinear
+    from petals_tpu_torch.parallel.sp import GridParams
+    from petals_tpu_torch.parallel.tp import ShardedCache
+
+    seen = {}
+
+    def walk(v):
+        if isinstance(v, torch.Tensor):
+            seen[(v.device, v.data_ptr())] = v.numel() * v.element_size()
+        elif isinstance(v, QuantizedLinear):
+            walk(v.data)
+            walk(v.scales)
+        elif isinstance(v, ShardedCache):
+            for t in v.distinct():
+                walk(t)
+        elif isinstance(v, GridParams):
+            walk(v.distinct())
+        elif isinstance(v, dict):
+            for leaf in v.values():
+                walk(leaf)
+        elif isinstance(v, (list, tuple)):
+            for item in v:
+                walk(item)
+
+    walk(x)
+    return sum(seen.values())
+
+
+def _check_mesh_runs(label, runs, servers, mesh_key, kind, failed):
+    """Phase 27's rule for one pair of servers (the unsharded one under key
+    1, the mesh one under ``mesh_key``): every reply of the private session
+    and its K/V rows, every pooled session's, the forward and the
+    backward's gradient, within REPLY_NOISE_FACTOR times the unsharded
+    server's distance from the float32 reference over the served weights
+    (dequantized; an adapter's deltas merged)."""
+    one, two = runs[1], runs[mesh_key]
+    backend = servers[1].backend
+    adapter = next(iter(backend.adapters.values()), None)
+    params = (dense_reference_params(backend.block_params, torch.float32) if adapter is None
+              else merged_reference_params(backend.block_params, adapter, torch.float32))
+    family, cfg = servers[1].family, servers[1].cfg
+    base = "unsharded"
+    inputs = one["private"][0]
+    ref_out, ref_kv = reference_session(params, family, cfg, inputs[0], inputs[1:], servers[1].device, torch.float32)
+    failed += _tp_within(f"{label}: private session ({kind})", two["private"][1], one["private"][1], ref_out, base)
+    for name, got_two, got_one, want in zip("KV", two["private"][3], one["private"][3], ref_kv):
+        err_two, err_one = _row_rel_error(got_two, want), _row_rel_error(got_one, want)
+        log(f"{label}: private session's written {name} rows ({kind}), worst row max-rel vs float32 "
+            f"{err_two:.3e}; {base} {err_one:.3e}")
+        if err_two > REPLY_NOISE_FACTOR * err_one:
+            failed.append(f"{label}: written {name} rows ({kind}) further from float32 than 2x {base}'s")
+    del ref_out, ref_kv
+    if "lanes" in two:
+        variants = sorted({m["variant"] for metas in two["lanes"][2] for m in metas})
+        if variants != ["decode", "dense_prefill"]:
+            raise AssertionError(f"{label}: pooled sessions took {variants}, not the dense lane pool's steps")
+        for i, (prompt, steps) in enumerate(one["lanes"][0]):
+            want, _ = reference_session(params, family, cfg, prompt, steps, servers[1].device, torch.float32)
+            failed += _tp_within(f"{label}: pooled session {i} ({kind})", two["lanes"][1][i], one["lanes"][1][i],
+                                 want, base)
+    hidden = one["forward"][0]
+    failed += _tp_within(f"{label}: stateless forward of {hidden.shape[1]} tokens ({kind})", [two["forward"][1]],
+                         [one["forward"][1]], [reference_forward(params, family, cfg, hidden, None, servers[1].device,
+                                                                 torch.float32)], base)
+    hidden, grad, _ = one["backward"]
+    (want,) = reference_backward(params, family, cfg, hidden, None, grad, servers[1].device, torch.float32)
+    failed += _tp_within(f"{label}: ptu.backward's grad_hidden of {hidden.shape[1]} tokens ({kind})",
+                         [two["backward"][2]], [one["backward"][2]], [want], base)
+    del params
+
+
+def _serve_mesh_pair(label, root, device, quant_type, grid, plan, calls, result, adapters=(), on_pair=None):
+    """Phase 27's two servers of ``root`` (unsharded, then over ``grid`` =
+    (tp, sp) on ``device``), each started, driven by ``_drive_mesh`` with
+    ``plan`` and shut down; on the mesh server the launches, the ring's
+    folds and its block calls are counted from after its start. Returns
+    (runs, servers, the mesh server's counts)."""
+    from petals_tpu_torch.models.llama import block as llama_block
+    from petals_tpu_torch.ops import ring_attention
+
+    runs, servers, counts, pool_bytes = {}, {}, {}, {}
+    block_grid = llama_block.block_grid
+
+    def counting(params, kv):
+        calls["ring" if kv is None else "cached"] += 1
+        return block_grid(params, kv)
+
+    for key, (tp, sp) in ((1, (1, 1)), (grid, grid)):
+        server = _sp_server(root, device, quant_type, tp, sp, adapters)
+
+        async def serve():
+            await server.start()
+            _reset_launch_counts()
+            ring_attention.reset_fold_count()
+            t_start, before = time.perf_counter(), _quant_counts()
+            calls.update(ring=0, cached=0)
+            llama_block.block_grid = counting
+            try:
+                out = await _drive_mesh(server, server.num_blocks, SEED + 41, **plan)
+                if plan["lanes"]:  # the lane pool opened
+                    pool_bytes[key] = _distinct_bytes(server.batcher._buffers())
+            finally:
+                llama_block.block_grid = block_grid
+                await server.shutdown()
+            return out, time.perf_counter() - t_start, _delta(_quant_counts(), before)
+
+        t0 = time.perf_counter()
+        runs[key], wall, quant = asyncio.run(serve())
+        servers[key] = server
+        launches = _launch_counts()
+        name = "unsharded" if key == 1 else _grid_name(server.backend)
+        log(f"{label}: {name} (--quant_type {quant_type}, {server.num_blocks} blocks): started and served in "
+            f"{time.perf_counter() - t0:.1f} s (traffic {wall:.1f} s); launches K4 {launches['K4']}, K5/K6 "
+            f"{quant or 'none'}; pool {'paged' if server.batcher.page_size else 'dense'}, {server.batcher.n_lanes} "
+            f"lanes of {server.batcher.max_length}")
+        if key == 1:
+            continue
+        backend = server.backend
+        folds = ring_attention.fold_count()
+        counts = {"K4": launches["K4"], "quant": quant, "folds": folds, "ring_calls": calls["ring"],
+                  "cached_calls": calls["cached"]}
+        want_folds = backend.tp_size * backend.sp_size * backend.sp_size
+        log(f"{label}: {name}: {calls['ring']} ring block calls, {folds} folds ({folds / max(calls['ring'], 1):g} a "
+            f"call, {want_folds} wanted), {calls['cached']} cached block calls; step programs "
+            f"{backend.step_program_stats()}")
+        for params in backend.block_params:
+            for shard in params.distinct() if hasattr(params, "distinct") else params:
+                for leaf in shard.values():
+                    where = getattr(leaf, "data", leaf).device
+                    if where != device:
+                        raise AssertionError(f"{label}: a shard's weight lies on {where}")
+        if server.batcher.page_size is not None or (backend.tp_size, backend.sp_size) != grid:
+            raise AssertionError(f"{label}: the mesh server pages ({server.batcher.page_size}) or is not {grid}")
+        if backend.step_program_stats()["graph_captures"]:
+            raise AssertionError(f"{label}: the mesh server captured step programs")
+        if not calls["ring"] or folds != want_folds * calls["ring"]:
+            raise AssertionError(f"{label}: {folds} folds over {calls['ring']} ring block calls, not {want_folds} each")
+        if not launches["K4"] or (quant_type != "none" and not (
+                quant.get(f"decode {quant_type}") and quant.get(f"prefill {quant_type}"))):
+            raise AssertionError(f"{label}: {name} ({quant_type}): a kernel never ran (K4 {launches['K4']}, {quant})")
+        result["K4"] += launches["K4"]
+        for k, n in quant.items():
+            result["quant"][k] = result["quant"].get(k, 0) + n
+    if on_pair is not None:
+        on_pair(servers, pool_bytes)
+    return runs, servers, counts
+
+
+def serve_sequence_parallel_and_check(ckpt, device, smi, timer=None) -> dict:
+    """Phase 27: sequence parallelism on the one card (alone:
+    scripts/smoke_sequence_parallel.py). With a ``timer`` (the card), K4 at
+    the query shards' shapes (SP_FLASH_CASES: a query block past row 0 of
+    its cache, at 32 / 8 and 16 / 4 heads) and K5 nf4a / K6 prefill at
+    SP_QUANT_ROWS rows of a tp=2 shard's projections, against their plain
+    versions. Then phase 26's Llama-3-8B checkpoint served by an unsharded
+    port server and a mesh server whose every shard and rank lies on
+    ``device``, the same seeded traffic for both (``_drive_mesh``): (a) sp=2
+    at SP_SPAN blocks, bf16; (b) tp=2 x sp=2 at SP_GRID_SPAN blocks in
+    bf16, nf4a and int8; (c) a tp=2 span with a LoRA adapter (A14d), held
+    to an unsharded server with the same adapter. Every reply, private K/V
+    row, forward and gradient within REPLY_NOISE_FACTOR times the unsharded
+    server's distance from the float32 reference (``_check_mesh_runs``).
+    On each mesh server: the dense lane pool, no step program, every
+    weight on the card, the ring's folds tp x sp x sp a ring block call,
+    and K4 (and K5 / K6 on quantized weights) launched. Prints (a)'s
+    distinct weight and KV pool bytes beside sp=1's (one card: equal) and
+    its eager steps' host wall and busy beside sp=1's
+    (``profile_tp_steps``). Gemma-2 and an sp-only nf4a span are refused.
+    Returns the mesh servers' launches (K4; K5 / K6 by arm, on (a) and
+    (b)), the kernel cases and the profile."""
+    label = f"sequence parallel (Llama-3-8B, sp={SP} on one card)"
+    t_phase = time.perf_counter()
+    result = {"K4": 0, "quant": {}}
+    if timer is not None:
+        result["flash_sp"] = {}
+        for (rows, offset), (hq, hkv) in itertools.product(SP_FLASH_CASES, SP_FLASH_HEADS):
+            case = f"{rows} rows at {offset} of {rows + offset}, {hq} / {hkv} heads of {LLAMA3_8B['head_dim']}"
+            result["flash_sp"][case] = check_flash_case(device, timer, hq, hkv, LLAMA3_8B["head_dim"], q_len=rows,
+                                                        q_offset=offset)
+        result["quant_sp"] = check_quant_kernels(device, timer, TP_QUANT_SHAPES, SP_QUANT_ROWS, ("nf4a", "int8"),
+                                                 ("wg", SP_QUANT_ROWS), time_all=False,
+                                                 model=f"Llama-3-8B shard (tp={TP}), a rank's rows (sp={SP})")
+    t0 = time.perf_counter()
+    root = llama3_checkpoint(ckpt, os.path.join(ckpt, "llama3-8b"), device)
+    log(f"{label}: checkpoint in {time.perf_counter() - t0:.1f} s")
+    calls = {"ring": 0, "cached": 0}
+    failed = []
+
+    # (a) sp=2, bf16, the whole cut
+    private = (SP_MAX_LENGTH, (SP_PRIVATE,) + (1,) * SP_PRIVATE_STEPS)
+    plan = dict(private=private, lanes=(SP_LANE_PROMPT,) * SP_LANES, n_forward=SP_FORWARD, n_backward=SP_BACKWARD)
+
+    def bytes_and_profile(servers, pool_bytes):
+        one, two = servers[1].backend, servers[(1, SP)].backend
+        weights = (_distinct_bytes(one.block_params), _distinct_bytes(two.block_params))
+        pools = (pool_bytes[1], pool_bytes[(1, SP)])
+        log(f"{label}: bytes on {device} (the one distinct device): weights sp=1 {weights[0]} / sp={SP} "
+            f"{weights[1]}; KV lane pool sp=1 {pools[0]} / sp={SP} {pools[1]}")
+        if weights[1] > weights[0] or pools[1] > pools[0]:
+            raise AssertionError(f"{label}: sp={SP} holds more bytes on the card than sp=1 ({weights}, {pools})")
+        result["bytes"] = {"weights": weights, "kv_pool": pools}
+        if timer is not None:
+            result["profile"] = profile_tp_steps(one, two, device, smi, lanes=SP_LANES, max_length=SP_MAX_LENGTH,
+                                                 rows=SP_PRIVATE, what="sequence-parallel")
+
+    runs, servers, counts = _serve_mesh_pair(label, root, device, "none", (1, SP), plan, calls, result,
+                                             on_pair=bytes_and_profile)
+    result["sp"] = counts
+    _check_mesh_runs(label, runs, servers, (1, SP), f"--quant_type none, {SP_SPAN} blocks", failed)
+    del runs, servers
+    free_card()
+
+    # (b) tp=2 x sp=2 at 2 blocks: bf16, nf4a, int8
+    cut = cut_checkpoint(root, f"{root}-{SP_GRID_SPAN}", SP_GRID_SPAN)
+    grid_plan = dict(private=(SP_MAX_LENGTH, (SP_GRID_PROMPT,) + (1,) * SP_GRID_STEPS), lanes=(),
+                     n_forward=SP_GRID_PROMPT, n_backward=SP_GRID_PROMPT)
+    grid_label = f"sequence parallel (Llama-3-8B, tp={TP} x sp={SP} on one card)"
+    for quant_type in SP_GRID_KINDS:
+        runs, servers, _ = _serve_mesh_pair(grid_label, cut, device, quant_type, (TP, SP), grid_plan, calls, result)
+        _check_mesh_runs(grid_label, runs, servers, (TP, SP), f"--quant_type {quant_type}, {SP_GRID_SPAN} blocks",
+                         failed)
+        del runs, servers
+        free_card()
+
+    # (c) A14d: a LoRA adapter on a tp=2 span
+    lora_root = os.path.join(ckpt, "sp-adapters")
+    adapter = write_adapter(lora_root, "lora-tp", SEED + 33, device, n_blocks=SP_LORA_SPAN)
+    lora_label = f"LoRA on a tensor-parallel span (Llama-3-8B, tp={TP})"
+    lora_plan = dict(grid_plan, adapter="lora-tp")
+    runs, servers = {}, {}
+    for key, tp in ((1, 1), ((TP, 1), TP)):
+        server = _sp_server(cut, device, "none", tp, 1, adapters=(adapter,))
+
+        async def serve():
+            await server.start()
+            try:
+                return await _drive_mesh(server, server.num_blocks, SEED + 42, **lora_plan)
+            finally:
+                await server.shutdown()
+
+        runs[key] = asyncio.run(serve())
+        servers[key] = server
+    if servers[(TP, 1)].backend.tp_size != TP or sorted(servers[(TP, 1)].backend.adapters) != ["lora-tp"]:
+        raise AssertionError(f"{lora_label}: the tp server is not split in {TP} or lacks the adapter")
+    _check_mesh_runs(lora_label, runs, servers, (TP, 1), f"adapter lora-tp, {SP_LORA_SPAN} blocks", failed)
+    del runs, servers
+    free_card()
+
+    # the refusals
+    from petals_tpu_torch.server.server import Server
+
+    gemma2 = os.path.join(ckpt, "gemma-2-9b-config")
+    os.makedirs(gemma2, exist_ok=True)
+    with open(os.path.join(gemma2, "config.json"), "w") as f:
+        json.dump(dict(GEMMA2_9B, num_hidden_layers=2), f)
+    try:
+        Server(gemma2, first_block=0, num_blocks=2, device=device, num_sp_devices=SP, tp_devices=[device] * SP)
+    except ValueError as e:
+        log(f"{label}: Gemma-2 at sp={SP} refused: {e}")
+    else:
+        raise AssertionError(f"{label}: a Gemma-2 server at sp={SP} was not refused")
+    refused = Server(cut, first_block=0, num_blocks=SP_GRID_SPAN, device=device, num_sp_devices=SP,
+                     tp_devices=[device] * SP, quant_type="nf4a", quant_weight_cache=False)
+    try:
+        refused._load_span_params(0, 1)
+    except KeyError as e:
+        log(f"{label}: an nf4a span at sp={SP} alone (fused) refused at load: KeyError {e}")
+    else:
+        raise AssertionError(f"{label}: an nf4a span at sp={SP} alone loaded")
+    del refused
+    free_card()
+    if failed:
+        raise AssertionError("; ".join(failed))
+    log(f"{label}: launches on the mesh servers K4 {result['K4']}, K5/K6 {result['quant']}; phase 27 took "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    return result
+
+
+class PhaseClock:
+    """Each phase's seconds since the one before, printed on a line of its
+    own as the phase ends (``lap``), and all of them at the end."""
+
+    def __init__(self):
+        self.seconds = {}
+        self._t = time.perf_counter()
+
+    def lap(self, name: str) -> None:
+        now = time.perf_counter()
+        self.seconds[name] = now - self._t
+        self._t = now
+        log(f"phase seconds: {name}: {self.seconds[name]:.1f} s")
+
+
 def free_card() -> None:
     """Free what a dropped server held on the card before the next one loads
     (its event-loop objects hold reference cycles, so collect them)."""
@@ -7571,7 +8000,9 @@ def main() -> int:
     # it here, inside the checkout
     os.environ.setdefault("PETALS_TPU_TORCH_CACHE", os.path.join(REPO, "build", "throughput-cache"))
     t_start = time.perf_counter()
+    clock = PhaseClock()
     build()
+    clock.lap("1 build")
     timer = Timer(device)
     dec_case, pf_case = attention_cases(device)
     kernels = check_attention_kernels(device, timer, dec_case, pf_case)
@@ -7594,6 +8025,7 @@ def main() -> int:
     # phase 23 (a): K1-K4 at head_dim 256 and 96 and with Gemma-2's softcap
     gemma_phi3_kernels = check_gemma_phi3_kernels(device, timer)
     log(f"kernel phases done at {time.perf_counter() - t_start:.1f} s")
+    clock.lap("2, 9, 22a, 23a kernels")
 
     os.makedirs(os.path.join(REPO, "build"), exist_ok=True)
     with tempfile.TemporaryDirectory(prefix="smoke-ckpt-", dir=os.path.join(REPO, "build")) as ckpt:
@@ -7605,9 +8037,13 @@ def main() -> int:
         server, bf16_launches = serve_and_check(ckpt, device, "none", SPAN, PROMPTS, DECODE_STEPS, SEED + 4, WARMUP_PROMPTS)
         # phase 15: the step programs against the eager loop, a bf16 pool
         # and both quantized pools over the served bf16 weights
-        for kv in ("none",) + KV_QUANT_KINDS:
-            check_step_programs(sibling_backend(server.backend, kv), device,
-                                f"step programs (--quant_type none --kv_quant_type {kv}, {SPAN} blocks)")
+        # (the quantized pools on SHORT_SPAN of the blocks: a depth cut that
+        # keeps the smoke inside its limit)
+        check_step_programs(sibling_backend(server.backend), device,
+                            f"step programs (--quant_type none --kv_quant_type none, {SPAN} blocks)")
+        for kv in KV_QUANT_KINDS:
+            check_step_programs(sibling_backend(sub_span_backend(server.backend, SHORT_SPAN), kv), device,
+                                f"step programs (--quant_type none --kv_quant_type {kv}, {SHORT_SPAN} blocks)")
         measure_graph_pool(server.backend, server.batcher, device, f"graph pool (--quant_type none, {SPAN} blocks)")
         profile_steps(server.backend, device)
         del server
@@ -7629,6 +8065,7 @@ def main() -> int:
         del server
         free_card()
         log(f"main paths done at {time.perf_counter() - t_start:.1f} s")
+        clock.lap("3-8, 15 main paths (bf16, nf4a, nf4a pool)")
 
         # every other arm, and K6, on the served path: 2 blocks, one session each
         arm_launches = {"nf4a": nf4a_launches}
@@ -7650,55 +8087,76 @@ def main() -> int:
             free_card()
             kv_arm_launches.setdefault(kv_quant_type, launches)
         log(f"earlier paths done at {time.perf_counter() - t_start:.1f} s")
+        clock.lap("3, 15 the other arms at 2 blocks")
 
         # dense caches: private sessions, then the dense lane pool
         private_launches = serve_private_and_check(ckpt, device, smi)
         free_card()
+        clock.lap("10 private sessions")
         serve_dense_pool_and_check(ckpt, device)
         free_card()
+        clock.lap("11 dense lane pool")
         # the swarm: two port servers, placed through the DHT, as one chain
         serve_swarm_and_check(ckpt, device, smi)
         free_card()
+        clock.lap("12 swarm")
         # the port's client over a chain of two port servers
         serve_client_and_check(ckpt, device, smi)
         free_card()
+        clock.lap("13 client")
         # Qwen2.5-7B's widths: served in bf16 and nf4a, then the client
         serve_qwen2_and_check(ckpt, device, smi)
         free_card()
+        clock.lap("14 Qwen2.5-7B")
         # server-side generation: one port server of the GEN_SPAN-block cut, bf16 then nf4a
         for quant_type in ("none", "nf4a"):
             serve_gen_and_check(ckpt, device, smi, quant_type)
             free_card()
+            clock.lap(f"16 server-side generation ({quant_type})")
         # the prefix cache at its defaults
         serve_prefix_runs(ckpt, device, smi)
         free_card()
+        clock.lap("17 prefix cache")
         # preemption to host memory, qint8 replies and the relay
         serve_swap_runs(ckpt, device, smi)
         free_card()
+        clock.lap("18 swap, qint8, relay")
         # KV migration: export/import, drain-to-migrate, the handoff, the push chain
         moved = serve_migration_and_check(ckpt, device, smi)
         free_card()
+        clock.lap("19 migration")
         # speculative decoding: a cooperative draft, then an nf4a self-draft on an nf4a pool
         spec = serve_spec_and_check(ckpt, device, smi, timer)
         free_card()
+        clock.lap("20 speculative decoding")
         # the stateless forward, the probe and the telemetry plane
         fwd = serve_forward_telemetry_and_check(ckpt, device, smi)
         free_card()
+        clock.lap("21 forward and telemetry")
         # phase 22 (b): BLOOM, Falcon and Mixtral served at full width
         fam = serve_families_and_check(ckpt, device, smi)
         free_card()
+        clock.lap("22b families")
         # phase 23 (b): Gemma-7B, Gemma-2-9B and Phi-3-mini served at full width
         gp = serve_gemma_phi3_and_check(ckpt, device, smi)
         free_card()
+        clock.lap("23b Gemma, Gemma-2, Phi-3")
         # phase 24: training and adapters (the backward, the client's training, LoRA)
         train = serve_training_and_check(ckpt, device, smi)
         free_card()
+        clock.lap("24 training and adapters")
         # phase 25: swarm operations (the quant cache, the span moves, chaos, traffic, the autoscaler)
         ops = serve_swarm_ops_and_check(ckpt, device, smi)
         free_card()
+        clock.lap("25 swarm operations")
         # phase 26: tensor parallelism, two shards of the one card (Llama-3-8B widths)
         tp = serve_tensor_parallel_and_check(ckpt, device, smi, timer)
         free_card()
+        clock.lap("26 tensor parallelism")
+        # phase 27: sequence parallelism, two ranks of the one card (and tp=2 x sp=2, and A14d)
+        sp = serve_sequence_parallel_and_check(ckpt, device, smi, timer)
+        free_card()
+        clock.lap("27 sequence parallelism")
     flash_kernel["launches"] = private_launches["K4"]
     # the launches on moved (imported, adopted) caches, phase 19
     kernels[0]["migration_launches"], kernels[1]["migration_launches"] = moved["K1"], moved["K2"]
@@ -7791,12 +8249,29 @@ def main() -> int:
         if shard_case is not None:
             entry["tp_launches"] = tp["quant"].get(f"{phase} {arm}", 0)
             entry["tp"] = {k: shard_case[k] for k in case_keys}
+    # phase 27: the launches on the sequence-parallel servers' shards and
+    # ranks, and each kernel's case at a query shard's shapes
+    flash_kernel["sp_launches"] = sp["K4"]
+    flash_kernel["sp"] = {name: {k: case[k] for k in case_keys[1:]} for name, case in sp["flash_sp"].items()}
+    for entry in quant_kernels:
+        phase = "decode" if entry["name"].startswith("quant_decode") else "prefill"
+        arm = entry["name"].split("[")[1].rstrip("]")
+        if arm in ("nf4a", "int8"):
+            entry["sp_launches"] = sp["quant"].get(f"{phase} {arm}", 0)
+        shard_case = next((q for q in sp["quant_sp"] if q["name"] == entry["name"]), None)
+        if shard_case is not None:
+            entry["sp"] = {k: shard_case[k] for k in case_keys}
+    if not flash_kernel["sp_launches"] or not all(
+            entry.get("sp_launches") for entry in quant_kernels if entry["name"].endswith(("[nf4a]", "[int8]"))):
+        raise AssertionError("phase 27: K4, K5 nf4a or K6 never launched on the sequence-parallel shards")
+    log(f"phase 27 launches on the sp shards: K4 {flash_kernel['sp_launches']}, K5/K6 {sp['quant']}")
     from petals_tpu_torch.telemetry.observatory import get_observatory
 
     digest = get_observatory().compile_stats()
     log(f"step-program observatory: {digest}; by program {get_observatory().functions()}")
     if digest["anomalies"]:
         raise AssertionError(f"{digest['anomalies']} step-program captures after warm-up")
+    log("phase seconds, all: " + json.dumps({name: round(t, 1) for name, t in clock.seconds.items()}))
     log(f"done at {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": kernels + kv_kernels + [flash_kernel] + quant_kernels + [grouped_kernel]}))
     log(json.dumps({"ok": True, "device": {

@@ -45,7 +45,10 @@ quantized blocks (``--cache_dir``, default ``$PETALS_TPU_TORCH_CACHE``;
 ``--no_quant_weight_cache`` turns it off), which the next start reads.
 ``--num_tp_devices N`` splits the span over the first N CUDA devices of
 the host, tensor parallel in this one process (the dense lane pool; no
-``--kv_quant_type``, no ``+o`` kinds, no adapters). A
+``--kv_quant_type``, no ``+o`` kinds); ``--num_sp_devices M`` adds M
+sequence-parallel ranks over the next devices (tp x sp of them, grid
+order: ring attention on the stateless forward and backward, query-sharded
+cached prefill; not for Gemma-2). A
 model that is no local directory is a Hub repo id, streamed at
 ``--revision`` from ``PETALS_TPU_HUB_ENDPOINT`` (or ``HF_ENDPOINT``) with
 ``--token``, only the span's shards, under ``--max_disk_space`` (LRU).
@@ -106,6 +109,9 @@ def build_parser() -> argparse.ArgumentParser:
                              "attention decodes the pages inside its kernels")
     parser.add_argument("--num_tp_devices", type=int, default=None,
                         help="Tensor-parallel over this many of the host's CUDA devices (one process)")
+    parser.add_argument("--num_sp_devices", type=int, default=None,
+                        help=">1: sequence parallel over this many ranks (ring attention on the "
+                             "stateless forward/backward, query-sharded cached prefill), tp x sp devices")
     parser.add_argument("--adapters", nargs="*", default=[],
                         help="PEFT adapter checkpoint dirs to host (multi-tenant LoRA); requests "
                              "pick one by name with active_adapter")
@@ -257,6 +263,7 @@ def build_server(args: argparse.Namespace) -> Server:
         network_mbps=args.network_mbps,
         device=args.device,
         num_tp_devices=args.num_tp_devices,
+        num_sp_devices=args.num_sp_devices,
         compute_dtype=DTYPES[args.dtype],
         attn_cache_bytes=attn_cache_bytes_for(args),
         max_chunk_size_bytes=args.max_chunk_size_bytes,

@@ -10,18 +10,17 @@ from __future__ import annotations
 import torch
 
 from petals_tpu_torch.models.bloom.config import BloomBlockConfig
-from petals_tpu_torch.models.common import gelu_tanh, layer_norm, mm, update_kv_cache
+from petals_tpu_torch.models.common import gelu_tanh, layer_norm, mm
 from petals_tpu_torch.models.registry import ModelFamily, register_family
 from petals_tpu_torch.ops.alibi import build_alibi_slopes
-from petals_tpu_torch.ops.attention import attend
 from petals_tpu_torch.parallel.collectives import per_copy, reduce_shards
-from petals_tpu_torch.parallel.tp import block_shards
+from petals_tpu_torch.parallel.sp import attend_shards, block_grid, join_rows, rank_rows, seq_ranks
 
 
 def block_apply(
-    params,  # one dict, or a list of shard dicts (parallel/tp.py)
+    params,  # one dict, a list of tp shard dicts, or GridParams (parallel/tp.py, parallel/sp.py)
     hidden_states: torch.Tensor,  # [batch, seq, hidden]
-    kv,  # (k, v): dense buffers, PagedKVs or ShardedCaches, written in place
+    kv,  # (k, v): dense buffers, PagedKVs or ShardedCaches, written in place; None: stateless
     position,  # int (tokens already cached) or [batch] tensor (per-lane decode)
     cfg: BloomBlockConfig,
     *,
@@ -29,39 +28,44 @@ def block_apply(
     use_flash: bool = False,
 ):
     """One block over ``hidden_states``; returns (hidden, (k_all, v_all)).
-    Tensor parallel as the llama block (models/llama/block.py): each shard
-    attends its own heads with those heads' ALiBi slopes, and ``bo`` /
-    ``b_down`` are added after the sums across the shards."""
-    shards, shard_kv = block_shards(params, kv)
-    n = len(shards)
+    Tensor and sequence parallel as the llama block (models/llama/block.py):
+    each shard attends its own heads with those heads' ALiBi slopes (on
+    global positions in the ring), and ``bo`` / ``b_down`` are added after
+    the sums across the shards."""
+    grid, grid_kv = block_grid(params, kv)
+    n = len(grid[0])
     h, d = cfg.num_attention_heads // n, cfg.head_dim
     eps = cfg.layer_norm_epsilon
     post_ln = cfg.apply_residual_connection_post_layernorm
-    hs = [hidden_states.to(p["ln1_w"].device) for p in shards]
-    lns = per_copy(lambda x, w, b: layer_norm(x, w, b, eps), hs, [p["ln1_w"] for p in shards],
-                   [p["ln1_b"] for p in shards])
-    parts, kv_out = [], []
-    for rank, (p, ln1, kv_s) in enumerate(zip(shards, lns, shard_kv)):
-        batch, seq, _ = ln1.shape
-        q = (mm(ln1, p["wq"]) + p["bq"]).reshape(batch, seq, h, d)
-        k = (mm(ln1, p["wk"]) + p["bk"]).reshape(batch, seq, h, d)
-        v = (mm(ln1, p["wv"]) + p["bv"]).reshape(batch, seq, h, d)
-        k_all, v_all, kv_length = update_kv_cache(kv_s, k, v, position, n_valid)
-        attn = attend(
-            q, k_all, v_all, q_offset=position, kv_length=kv_length,
-            alibi_slopes=build_alibi_slopes(cfg.num_attention_heads, ln1.device)[rank * h : (rank + 1) * h],
-            use_flash=use_flash,
-        )
-        parts.append(mm(attn.reshape(batch, seq, h * d), p["wo"]))
-        kv_out.append((k_all, v_all))
-    attn = per_copy(torch.add, reduce_shards(parts), [p["bo"] for p in shards])
-    hs = per_copy(torch.add, attn, lns if post_ln else hs)
+    batch = hidden_states.shape[0]
+    n_ranks = seq_ranks(len(grid), hidden_states.shape[1], kv, position, n_valid)
+    streams, qkv = [], []
+    for shards, x in zip(grid, rank_rows(hidden_states, n_ranks)):
+        hs = [x.to(p["ln1_w"].device) for p in shards]
+        lns = per_copy(lambda x, w, b: layer_norm(x, w, b, eps), hs, [p["ln1_w"] for p in shards],
+                       [p["ln1_b"] for p in shards])
+        streams.append((hs, lns))
+        rows = x.shape[1]
+        qkv.append([tuple((mm(ln1, p[w]) + p[b]).reshape(batch, rows, h, d) for w, b in WQKV)
+                    for p, ln1 in zip(shards, lns)])
+    slopes = build_alibi_slopes(cfg.num_attention_heads, hidden_states.device)
+    attn, kv_out = attend_shards(qkv, grid_kv, position, n_valid, use_flash, None,
+                                 [slopes[t * h : (t + 1) * h] for t in range(n)])
+    outs = []
+    for shards, (hs, lns), heads in zip(grid, streams, attn):
+        rows = hs[0].shape[1]
+        a = reduce_shards([mm(o.reshape(batch, rows, h * d), p["wo"]) for p, o in zip(shards, heads)])
+        a = per_copy(torch.add, a, [p["bo"] for p in shards])
+        hs = per_copy(torch.add, a, lns if post_ln else hs)
+        lns = per_copy(lambda x, w, b: layer_norm(x, w, b, eps), hs, [p["ln2_w"] for p in shards],
+                       [p["ln2_b"] for p in shards])
+        mlp = reduce_shards([mm(gelu_tanh(mm(ln2, p["w_up"]) + p["b_up"]), p["w_down"])
+                             for p, ln2 in zip(shards, lns)])
+        outs.append(mlp[0] + shards[0]["b_down"] + (lns[0] if post_ln else hs[0]))
+    return join_rows(outs), (kv_out if n > 1 else kv_out[0])
 
-    lns = per_copy(lambda x, w, b: layer_norm(x, w, b, eps), hs, [p["ln2_w"] for p in shards],
-                   [p["ln2_b"] for p in shards])
-    mlp = reduce_shards([mm(gelu_tanh(mm(ln2, p["w_up"]) + p["b_up"]), p["w_down"]) for p, ln2 in zip(shards, lns)])
-    out = mlp[0] + shards[0]["b_down"] + (lns[0] if post_ln else hs[0])
-    return out, (kv_out if n > 1 else kv_out[0])
+
+WQKV = (("wq", "bq"), ("wk", "bk"), ("wv", "bv"))
 
 
 # BLOOM checkpoints ship blocks as "h.{i}." (bare) or "transformer.h.{i}." (full model)
@@ -119,5 +123,6 @@ FAMILY = register_family(
         hf_block_prefixes=_HF_BLOCK_PREFIXES,
         hf_to_block_params=hf_to_block_params,
         block_param_shapes=block_param_shapes,
+        supports_ring_attention=True,
     )
 )

@@ -10,14 +10,13 @@ from __future__ import annotations
 
 import torch
 
-from petals_tpu_torch.models.common import absolute_positions, layer_norm, mm, update_kv_cache
+from petals_tpu_torch.models.common import absolute_positions, layer_norm, mm
 from petals_tpu_torch.models.falcon.config import FalconBlockConfig
 from petals_tpu_torch.models.registry import ModelFamily, register_family
 from petals_tpu_torch.ops.alibi import build_alibi_slopes
-from petals_tpu_torch.ops.attention import attend
 from petals_tpu_torch.ops.rotary import apply_rotary, rotary_tables
 from petals_tpu_torch.parallel.collectives import per_copy, reduce_shards
-from petals_tpu_torch.parallel.tp import block_shards
+from petals_tpu_torch.parallel.sp import attend_shards, block_grid, join_rows, rank_rows, seq_ranks
 
 
 def _activation(x: torch.Tensor, name: str) -> torch.Tensor:
@@ -37,9 +36,9 @@ def _dual_ln(cfg: FalconBlockConfig) -> bool:
 
 
 def block_apply(
-    params,  # one dict, or a list of shard dicts (parallel/tp.py)
+    params,  # one dict, a list of tp shard dicts, or GridParams (parallel/tp.py, parallel/sp.py)
     hidden_states: torch.Tensor,  # [batch, seq, hidden]
-    kv,  # (k, v): dense buffers, PagedKVs or ShardedCaches, written in place
+    kv,  # (k, v): dense buffers, PagedKVs or ShardedCaches, written in place; None: stateless
     position,  # int (tokens already cached) or [batch] tensor (per-lane decode)
     cfg: FalconBlockConfig,
     *,
@@ -47,36 +46,58 @@ def block_apply(
     use_flash: bool = False,
 ):
     """One block over ``hidden_states``; returns (hidden, (k_all, v_all)).
-    Tensor parallel as the llama block (models/llama/block.py): each shard
-    attends its own heads (with those heads' ALiBi slopes on falcon-rw).
-    The parallel layouts (falcon-7b, the new architecture) sum each shard's
-    attention and MLP partials in ONE reduction; the serial layout
-    (falcon-rw) reduces after the attention and again after the MLP; ``bo``
-    and ``b_down`` are added after the sums."""
-    shards, shard_kv = block_shards(params, kv)
-    n = len(shards)
+    Tensor and sequence parallel as the llama block (models/llama/block.py):
+    each shard attends its own heads (with those heads' ALiBi slopes on
+    falcon-rw). The parallel layouts (falcon-7b, the new architecture) sum
+    each shard's attention and MLP partials in ONE reduction; the serial
+    layout (falcon-rw) reduces after the attention and again after the MLP;
+    ``bo`` and ``b_down`` are added after the sums."""
+    grid, grid_kv = block_grid(params, kv)
+    n = len(grid[0])
     serial = not cfg.new_decoder_architecture and not cfg.parallel_attn
-    hs = [hidden_states.to(_device(p, cfg)) for p in shards]
+    batch, seq, _ = hidden_states.shape
+    n_ranks = seq_ranks(len(grid), seq, kv, position, n_valid)
     names = _norm_names(cfg)
-    norms = per_copy(lambda x, *w: _norms(dict(zip(names, w)), x, cfg), hs, *[[p[k] for p in shards] for k in names])
-    attn_parts, kv_out = [], []
-    for rank, (p, (attn_ln, _), kv_s) in enumerate(zip(shards, norms, shard_kv)):
-        attn, k_v = _attention(p, attn_ln, kv_s, position, cfg, n, rank, n_valid=n_valid, use_flash=use_flash)
-        attn_parts.append(attn)
-        kv_out.append(k_v)
-    if serial:
-        # the serial residual applies to old-architecture checkpoints only
-        # (HF skips it when new_decoder_architecture is set)
-        attn = _with_bias(reduce_shards(attn_parts), shards, "bo", cfg)
-        hs = per_copy(torch.add, hs, attn)
-        mlp_lns = per_copy(lambda x, w, b: layer_norm(x, w, b, cfg.layer_norm_epsilon), hs,
-                           [p["ln2_w"] for p in shards], [p["ln2_b"] for p in shards])
-        mlp = _with_bias(reduce_shards([_mlp(p, ln, cfg) for p, ln in zip(shards, mlp_lns)]), shards, "b_down", cfg)
-        return mlp[0] + hs[0], (kv_out if n > 1 else kv_out[0])
-    # parallel attention: mlp + attn, one sum across the shards
-    both = reduce_shards([_mlp(p, mlp_ln, cfg) + a for p, (_, mlp_ln), a in zip(shards, norms, attn_parts)])
-    both = _with_bias(_with_bias(both, shards, "b_down", cfg), shards, "bo", cfg)
-    return both[0] + hs[0], (kv_out if n > 1 else kv_out[0])
+    d = cfg.head_dim
+    slopes = rotary = None
+    if cfg.alibi:
+        # Falcon scales (scores + alibi) jointly by 1/sqrt(d), where BLOOM
+        # adds the bias unscaled: so the slopes are pre-scaled here
+        hq = cfg.num_attention_heads // n
+        scaled = build_alibi_slopes(cfg.num_attention_heads, hidden_states.device) * (d**-0.5)
+        slopes = [scaled[t * hq : (t + 1) * hq] for t in range(n)]
+    else:
+        positions = absolute_positions(position, batch, seq, hidden_states.device)
+        rotary = rotary_tables(positions, d, theta=cfg.rope_theta)
+    rank_tables = zip(*(rank_rows(t, n_ranks) for t in rotary)) if rotary else [None] * n_ranks
+    streams, qkv = [], []
+    for shards, x, tables in zip(grid, rank_rows(hidden_states, n_ranks), rank_tables):
+        hs = [x.to(_device(p, cfg)) for p in shards]
+        norms = per_copy(lambda x, *w: _norms(dict(zip(names, w)), x, cfg), hs,
+                         *[[p[k] for p in shards] for k in names])
+        streams.append((hs, norms))
+        qkv.append([_qkv(p, attn_ln, tables, cfg, n) for p, (attn_ln, _) in zip(shards, norms)])
+    attn, kv_out = attend_shards(qkv, grid_kv, position, n_valid, use_flash, None, slopes)
+    outs = []
+    for shards, (hs, norms), heads in zip(grid, streams, attn):
+        rows = hs[0].shape[1]
+        attn_parts = [mm(o.reshape(batch, rows, -1), p["wo"]) for p, o in zip(shards, heads)]
+        if serial:
+            # the serial residual applies to old-architecture checkpoints only
+            # (HF skips it when new_decoder_architecture is set)
+            a = _with_bias(reduce_shards(attn_parts), shards, "bo", cfg)
+            hs = per_copy(torch.add, hs, a)
+            mlp_lns = per_copy(lambda x, w, b: layer_norm(x, w, b, cfg.layer_norm_epsilon), hs,
+                               [p["ln2_w"] for p in shards], [p["ln2_b"] for p in shards])
+            mlp = _with_bias(reduce_shards([_mlp(p, ln, cfg) for p, ln in zip(shards, mlp_lns)]), shards,
+                             "b_down", cfg)
+            outs.append(mlp[0] + hs[0])
+            continue
+        # parallel attention: mlp + attn, one sum across the shards
+        both = reduce_shards([_mlp(p, mlp_ln, cfg) + a for p, (_, mlp_ln), a in zip(shards, norms, attn_parts)])
+        both = _with_bias(_with_bias(both, shards, "b_down", cfg), shards, "bo", cfg)
+        outs.append(both[0] + hs[0])
+    return join_rows(outs), (kv_out if n > 1 else kv_out[0])
 
 
 def _device(p: dict, cfg: FalconBlockConfig) -> torch.device:
@@ -102,10 +123,9 @@ def _norms(p: dict, x, cfg: FalconBlockConfig):
     return ln, ln
 
 
-def _attention(p: dict, attn_ln, kv, position, cfg: FalconBlockConfig, n_shards: int, rank: int, *, n_valid,
-               use_flash):
-    """One shard's attention over its heads, up to its partial of the output
-    projection (no ``bo``); returns (partial, (k_all, v_all))."""
+def _qkv(p: dict, attn_ln, rotary, cfg: FalconBlockConfig, n_shards: int):
+    """One shard's queries, keys and values over its heads, rotated with the
+    rows' (cos, sin) unless the layout takes ALiBi (``rotary`` None)."""
     batch, seq, _ = attn_ln.shape
     hq, hkv, d = cfg.num_attention_heads // n_shards, cfg.num_kv_heads // n_shards, cfg.head_dim
     q = mm(attn_ln, p["wq"])
@@ -117,26 +137,11 @@ def _attention(p: dict, attn_ln, kv, position, cfg: FalconBlockConfig, n_shards:
         v = v + p["bv"]
     q = q.reshape(batch, seq, hq, d)
     k = k.reshape(batch, seq, hkv, d)
-    v = v.reshape(batch, seq, hkv, d)
-
-    alibi_slopes = None
-    if cfg.alibi:
-        # Falcon scales (scores + alibi) jointly by 1/sqrt(d), where BLOOM
-        # adds the bias unscaled: so the slopes are pre-scaled here
-        slopes = build_alibi_slopes(cfg.num_attention_heads, attn_ln.device) * (d**-0.5)
-        alibi_slopes = slopes[rank * hq : (rank + 1) * hq]
-    else:
-        positions = absolute_positions(position, batch, seq, attn_ln.device)
-        cos, sin = rotary_tables(positions, d, theta=cfg.rope_theta)
+    if rotary is not None:
+        cos, sin = (t.to(attn_ln.device) for t in rotary)
         q = apply_rotary(q, cos, sin)
         k = apply_rotary(k, cos, sin)
-
-    k_all, v_all, kv_length = update_kv_cache(kv, k, v, position, n_valid)
-    attn = attend(
-        q, k_all, v_all, q_offset=position, kv_length=kv_length,
-        alibi_slopes=alibi_slopes, use_flash=use_flash,
-    )
-    return mm(attn.reshape(batch, seq, hq * d), p["wo"]), (k_all, v_all)
+    return q, k, v.reshape(batch, seq, hkv, d)
 
 
 def _mlp(p: dict, mlp_ln, cfg: FalconBlockConfig):
@@ -226,5 +231,6 @@ FAMILY = register_family(
         hf_block_prefixes=_HF_BLOCK_PREFIXES,
         hf_to_block_params=hf_to_block_params,
         block_param_shapes=block_param_shapes,
+        supports_ring_attention=True,
     )
 )

@@ -12,20 +12,18 @@ from petals_tpu_torch.models.common import (
     absolute_positions,
     mm,
     rms_norm,
-    update_kv_cache,
 )
 from petals_tpu_torch.models.llama.config import LlamaBlockConfig
 from petals_tpu_torch.models.registry import ModelFamily, register_family
-from petals_tpu_torch.ops.attention import attend
 from petals_tpu_torch.ops.rotary import apply_rotary, rotary_tables
 from petals_tpu_torch.parallel.collectives import per_copy, reduce_shards
-from petals_tpu_torch.parallel.tp import block_shards
+from petals_tpu_torch.parallel.sp import attend_shards, block_grid, join_rows, rank_rows, seq_ranks
 
 
 def block_apply(
-    params,  # one dict, or a list of shard dicts (parallel/tp.py)
+    params,  # one dict, a list of tp shard dicts, or GridParams (parallel/tp.py, parallel/sp.py)
     hidden_states: torch.Tensor,  # [batch, seq, hidden]
-    kv,  # (k, v): dense buffers, PagedKVs or ShardedCaches, written in place
+    kv,  # (k, v): dense buffers, PagedKVs or ShardedCaches, written in place; None: stateless
     position,  # int (tokens already cached) or [batch] tensor (per-lane decode)
     cfg: LlamaBlockConfig,
     *,
@@ -40,34 +38,49 @@ def block_apply(
     the residual stream, the partial outputs of the attention output
     projection and of the down projection are summed across the shards
     (``reduce_shards``), and the replicated biases are added after each sum.
-    One shard is the unsharded block. Returns hidden on shard 0's device and
-    each shard's (k_all, v_all) as a list when sharded."""
-    shards, shard_kv = block_shards(params, kv)
-    n = len(shards)
+    Sequence parallel over ``GridParams``' sp ranks: the chunk's rows split
+    over the ranks (``seq_ranks``), each rank runs the shards on its rows,
+    and the ranks meet in attention (``attend_maybe_ring``). One rank of one
+    shard is the unsharded block. Returns hidden on rank 0's first device
+    and each shard's (k_all, v_all) as a list when sharded (None without a
+    cache)."""
+    grid, grid_kv = block_grid(params, kv)
+    n = len(grid[0])
     eps = cfg.rms_norm_eps
-    hs = [hidden_states.to(p["ln1"].device) for p in shards]  # the residual stream, one copy a device
-    parts, kv_out = [], []
-    for p, x, kv_s in zip(shards, per_copy(lambda h, w: rms_norm(h, w, eps), hs, [p["ln1"] for p in shards]),
-                          shard_kv):
-        attn, k_v = _attention(p, x, kv_s, position, cfg, n, n_valid=n_valid, n_total=n_total, use_flash=use_flash)
-        parts.append(attn)
-        kv_out.append(k_v)
-    attn = reduce_shards(parts)
-    if cfg.attention_bias:
-        attn = per_copy(torch.add, attn, [p["bo"] for p in shards])
-    hs = per_copy(torch.add, hs, attn)
-    normed = per_copy(lambda h, w: rms_norm(h, w, eps), hs, [p["ln2"] for p in shards])
-    mlp = reduce_shards([_mlp(p, x, cfg) for p, x in zip(shards, normed)])
-    if cfg.mlp_bias:
-        mlp = per_copy(torch.add, mlp, [p["bd"] for p in shards])
-    out = hs[0] + mlp[0]
-    return out, (kv_out if n > 1 else kv_out[0])
+    batch, seq, _ = hidden_states.shape
+    n_ranks = seq_ranks(len(grid), seq, kv, position, n_valid)
+    positions = absolute_positions(position, batch, seq, hidden_states.device)
+    cos, sin = rotary_tables(
+        positions, cfg.head_dim, theta=cfg.rope_theta, rope_scaling=cfg.rope_scaling_dict,
+        n_valid=n_valid,  # longrope's switch sees the REAL chunk length
+        n_total=n_total,  # ...or the full prompt length when it is known up front
+    )
+    streams, qkv = [], []
+    for shards, x, c, s in zip(grid, rank_rows(hidden_states, n_ranks), rank_rows(cos, n_ranks),
+                               rank_rows(sin, n_ranks)):
+        hs = [x.to(p["ln1"].device) for p in shards]  # the residual stream, one copy a device
+        normed = per_copy(lambda h, w: rms_norm(h, w, eps), hs, [p["ln1"] for p in shards])
+        streams.append(hs)
+        qkv.append([_qkv(p, y, c, s, cfg, n) for p, y in zip(shards, normed)])
+    attn, kv_out = attend_shards(qkv, grid_kv, position, n_valid, use_flash, cfg.sliding_window)
+    outs = []
+    for shards, hs, heads in zip(grid, streams, attn):
+        rows = hs[0].shape[1]
+        a = reduce_shards([mm(o.reshape(batch, rows, -1), p["wo"]) for p, o in zip(shards, heads)])
+        if cfg.attention_bias:
+            a = per_copy(torch.add, a, [p["bo"] for p in shards])
+        hs = per_copy(torch.add, hs, a)
+        normed = per_copy(lambda h, w: rms_norm(h, w, eps), hs, [p["ln2"] for p in shards])
+        mlp = reduce_shards([_mlp(p, x, cfg) for p, x in zip(shards, normed)])
+        if cfg.mlp_bias:
+            mlp = per_copy(torch.add, mlp, [p["bd"] for p in shards])
+        outs.append(hs[0] + mlp[0])
+    return join_rows(outs), (kv_out if n > 1 else kv_out[0])
 
 
-def _attention(p: dict, x, kv, position, cfg: LlamaBlockConfig, n_shards: int, *, n_valid, n_total, use_flash):
-    """One shard's attention over its hq / N query and hkv / N kv heads, up
-    to its partial of the output projection (no ``bo``); returns (partial,
-    (k_all, v_all))."""
+def _qkv(p: dict, x, cos, sin, cfg: LlamaBlockConfig, n_shards: int):
+    """One shard's queries, keys and values over its hq / N query and hkv /
+    N kv heads, rotated with the rows' ``cos`` / ``sin``."""
     batch, seq, _ = x.shape
     hq, hkv, d = cfg.num_attention_heads // n_shards, cfg.num_key_value_heads // n_shards, cfg.head_dim
     if "wqkv" in p:  # fused quantized serving (utils/convert_block.py _FUSE_GROUPS), one shard only
@@ -85,26 +98,10 @@ def _attention(p: dict, x, kv, position, cfg: LlamaBlockConfig, n_shards: int, *
             q = q + p["bq"]
             k = k + p["bk"]
             v = v + p["bv"]
-    q = q.reshape(batch, seq, hq, d)
-    k = k.reshape(batch, seq, hkv, d)
-    v = v.reshape(batch, seq, hkv, d)
-
-    positions = absolute_positions(position, batch, seq, x.device)
-    cos, sin = rotary_tables(
-        positions, d, theta=cfg.rope_theta, rope_scaling=cfg.rope_scaling_dict,
-        n_valid=n_valid,  # longrope's switch sees the REAL chunk length
-        n_total=n_total,  # ...or the full prompt length when it is known up front
-    )
-    q = apply_rotary(q, cos, sin)
-    k = apply_rotary(k, cos, sin)
-
-    k_all, v_all, kv_length = update_kv_cache(kv, k, v, position, n_valid)
-    attn = attend(
-        q, k_all, v_all, q_offset=position, kv_length=kv_length,
-        sliding_window=cfg.sliding_window,  # mistral; None for llama
-        use_flash=use_flash,
-    )
-    return mm(attn.reshape(batch, seq, hq * d), p["wo"]), (k_all, v_all)
+    cos, sin = cos.to(x.device), sin.to(x.device)
+    q = apply_rotary(q.reshape(batch, seq, hq, d), cos, sin)
+    k = apply_rotary(k.reshape(batch, seq, hkv, d), cos, sin)
+    return q, k, v.reshape(batch, seq, hkv, d)
 
 
 def _mlp(p: dict, x, cfg: LlamaBlockConfig):
@@ -185,5 +182,6 @@ FAMILY = register_family(
         hf_block_prefixes=_HF_BLOCK_PREFIXES,
         hf_to_block_params=hf_to_block_params,
         block_param_shapes=block_param_shapes,
+        supports_ring_attention=True,
     )
 )

@@ -22,15 +22,14 @@ from __future__ import annotations
 
 import torch
 
-from petals_tpu_torch.models.common import absolute_positions, mm, rms_norm, silu, update_kv_cache
+from petals_tpu_torch.models.common import absolute_positions, mm, rms_norm, silu
 from petals_tpu_torch.models.mixtral.config import MixtralBlockConfig
 from petals_tpu_torch.models.registry import ModelFamily, register_family
-from petals_tpu_torch.ops.attention import attend
 from petals_tpu_torch.ops.grouped_matmul import grouped_matmul
 from petals_tpu_torch.ops.quant import QuantizedLinear
 from petals_tpu_torch.ops.rotary import apply_rotary, rotary_tables
 from petals_tpu_torch.parallel.collectives import per_copy, reduce_shards
-from petals_tpu_torch.parallel.tp import block_shards
+from petals_tpu_torch.parallel.sp import GridParams, attend_shards, block_grid, join_rows, rank_rows, seq_ranks
 
 # chunks of at least this many rows (padded) take the sparse dispatch
 SPARSE_MIN_SEQ = 8
@@ -109,9 +108,9 @@ def moe_apply(params: dict, x: torch.Tensor, cfg: MixtralBlockConfig, *, sparse:
 
 
 def block_apply(
-    params,  # one dict, or a list of shard dicts (parallel/tp.py)
+    params,  # one dict, a list of tp shard dicts, or GridParams (parallel/tp.py, parallel/sp.py)
     hidden_states: torch.Tensor,  # [batch, seq, hidden]
-    kv,  # (k, v): dense buffers, PagedKVs or ShardedCaches, written in place
+    kv,  # (k, v): dense buffers, PagedKVs or ShardedCaches, written in place; None: stateless
     position,  # int (tokens already cached) or [batch] tensor (per-lane decode)
     cfg: MixtralBlockConfig,
     *,
@@ -119,44 +118,49 @@ def block_apply(
     use_flash: bool = False,
 ):
     """One block over ``hidden_states``; returns (hidden, (k_all, v_all)).
-    Tensor parallel as the llama block (models/llama/block.py) for the
-    attention; the experts split over the shards (expert parallelism, as
-    the JAX package's spec) and take the dense dispatch at every length, as
-    the JAX package's do under a mesh."""
-    shards, shard_kv = block_shards(params, kv)
-    n = len(shards)
-    hq, hkv, d = cfg.num_attention_heads // n, cfg.num_key_value_heads // n, cfg.head_dim
+    Tensor and sequence parallel as the llama block (models/llama/block.py)
+    for the attention; the experts split over the tp shards (expert
+    parallelism, as the JAX package's spec) and take the dense dispatch at
+    every length under any mesh, as the JAX package's do."""
+    grid, grid_kv = block_grid(params, kv)
+    n = len(grid[0])
+    meshed = n > 1 or isinstance(params, GridParams)
     eps = cfg.rms_norm_eps
-    hs = [hidden_states.to(p["ln1"].device) for p in shards]
-    parts, kv_out = [], []
-    for p, x, kv_s in zip(shards, per_copy(lambda h, w: rms_norm(h, w, eps), hs, [p["ln1"] for p in shards]),
-                          shard_kv):
-        batch, seq, _ = x.shape
-        q = mm(x, p["wq"]).reshape(batch, seq, hq, d)
-        k = mm(x, p["wk"]).reshape(batch, seq, hkv, d)
-        v = mm(x, p["wv"]).reshape(batch, seq, hkv, d)
+    batch, seq, _ = hidden_states.shape
+    n_ranks = seq_ranks(len(grid), seq, kv, position, n_valid)
+    positions = absolute_positions(position, batch, seq, hidden_states.device)
+    cos, sin = rotary_tables(positions, cfg.head_dim, theta=cfg.rope_theta)
+    streams, qkv = [], []
+    for shards, x, c, s in zip(grid, rank_rows(hidden_states, n_ranks), rank_rows(cos, n_ranks),
+                               rank_rows(sin, n_ranks)):
+        hs = [x.to(p["ln1"].device) for p in shards]
+        normed = per_copy(lambda h, w: rms_norm(h, w, eps), hs, [p["ln1"] for p in shards])
+        streams.append(hs)
+        qkv.append([_qkv(p, y, c, s, cfg, n) for p, y in zip(shards, normed)])
+    attn, kv_out = attend_shards(qkv, grid_kv, position, n_valid, use_flash, cfg.sliding_window)
+    outs = []
+    for shards, hs, heads in zip(grid, streams, attn):
+        rows = hs[0].shape[1]
+        hs = per_copy(torch.add, hs, reduce_shards([mm(o.reshape(batch, rows, -1), p["wo"])
+                                                    for p, o in zip(shards, heads)]))
+        # under autograd (a server's backward recompute) the dense path: K7
+        # has no backward, and the dense einsums differentiate as they stand
+        sparse = rows >= SPARSE_MIN_SEQ and not torch.is_grad_enabled() and not meshed
+        normed = per_copy(lambda h, w: rms_norm(h, w, eps), hs, [p["ln2"] for p in shards])
+        moe = reduce_shards([moe_apply(p, x, cfg, sparse=sparse, n_shards=n, rank=t)
+                             for t, (p, x) in enumerate(zip(shards, normed))])
+        outs.append(hs[0] + moe[0])
+    return join_rows(outs), (kv_out if n > 1 else kv_out[0])
 
-        positions = absolute_positions(position, batch, seq, x.device)
-        cos, sin = rotary_tables(positions, d, theta=cfg.rope_theta)
-        q = apply_rotary(q, cos, sin)
-        k = apply_rotary(k, cos, sin)
 
-        k_all, v_all, kv_length = update_kv_cache(kv_s, k, v, position, n_valid)
-        attn = attend(
-            q, k_all, v_all, q_offset=position, kv_length=kv_length,
-            sliding_window=cfg.sliding_window, use_flash=use_flash,
-        )
-        parts.append(mm(attn.reshape(batch, seq, hq * d), p["wo"]))
-        kv_out.append((k_all, v_all))
-    hs = per_copy(torch.add, hs, reduce_shards(parts))
-
-    # under autograd (a server's backward recompute) the dense path: K7
-    # has no backward, and the dense einsums differentiate as they stand
-    sparse = hs[0].shape[1] >= SPARSE_MIN_SEQ and not torch.is_grad_enabled()
-    normed = per_copy(lambda h, w: rms_norm(h, w, eps), hs, [p["ln2"] for p in shards])
-    moe = reduce_shards([moe_apply(p, x, cfg, sparse=sparse, n_shards=n, rank=rank)
-                         for rank, (p, x) in enumerate(zip(shards, normed))])
-    return hs[0] + moe[0], (kv_out if n > 1 else kv_out[0])
+def _qkv(p: dict, x, cos, sin, cfg: MixtralBlockConfig, n_shards: int):
+    """One shard's rotated queries, keys and values over its heads."""
+    batch, seq, _ = x.shape
+    hq, hkv, d = cfg.num_attention_heads // n_shards, cfg.num_key_value_heads // n_shards, cfg.head_dim
+    cos, sin = cos.to(x.device), sin.to(x.device)
+    q = apply_rotary(mm(x, p["wq"]).reshape(batch, seq, hq, d), cos, sin)
+    k = apply_rotary(mm(x, p["wk"]).reshape(batch, seq, hkv, d), cos, sin)
+    return q, k, mm(x, p["wv"]).reshape(batch, seq, hkv, d)
 
 
 _HF_BLOCK_PREFIXES = ("model.layers.{i}.",)
@@ -206,5 +210,6 @@ FAMILY = register_family(
         hf_block_prefixes=_HF_BLOCK_PREFIXES,
         hf_to_block_params=hf_to_block_params,
         block_param_shapes=block_param_shapes,
+        supports_ring_attention=True,
     )
 )

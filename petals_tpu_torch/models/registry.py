@@ -25,6 +25,11 @@ class ModelFamily:
     # dataclasses.replace (mistral over llama) inherit it, so tables keyed
     # by architecture (utils/convert_block.py) resolve for them too
     block_arch: str = ""
+    # whether sequence parallelism may serve the family (ring attention on
+    # the stateless path, query sharding on the cached one): petals_tpu's
+    # flag, True for llama, bloom, falcon, mixtral and the families derived
+    # from llama; gemma2's softcap has no ring
+    supports_ring_attention: bool = False
     # leaf NAMES whose loaded dtype the loaders keep through the cast to the
     # serving dtype (gemma's (1 + w)-folded norms stay float32: rounding
     # 1 + w to bf16 loses what the unfolded form keeps; rms_norm upcasts

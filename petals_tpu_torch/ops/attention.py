@@ -57,7 +57,8 @@ def attend(
     heads a kv head (Falcon-7B; ``group_tiles``) and Gemma-2's
     ``logit_softcap`` (cap * tanh(logits / cap) after the scale, before
     ALiBi and the mask) reach every kernel. Not ported: ``causal=False``
-    (no family of petals_tpu calls it), ``tp_mesh`` and ring attention."""
+    (no family of petals_tpu calls it). Tensor and sequence parallelism
+    call this on each shard's heads (``attend_maybe_ring``)."""
     from petals_tpu_torch.ops.paged_attention import PagedKV
 
     if isinstance(k, PagedKV):
@@ -80,6 +81,83 @@ def attend(
         q, k, v, q_offset=q_offset, kv_length=kv_length,
         alibi_slopes=alibi_slopes, sliding_window=sliding_window, scale=scale, logit_softcap=logit_softcap,
     )
+
+
+def attend_maybe_ring(
+    q,  # one [b, rows, hq, d] query block a computing sp rank, in rank order
+    k,  # the same ranks' new K rows, [b, rows, hkv, d] each
+    v,
+    *,
+    kv,  # None (the stateless path), else one (k_buf, v_buf) a sp rank: the replicated cache's copies
+    position,
+    n_valid=None,
+    use_flash: bool = False,
+    alibi_slopes: Optional[torch.Tensor] = None,
+    sliding_window: Optional[int] = None,
+):
+    """The attention every family block calls (petals_tpu/ops/attention.py
+    ``attend_maybe_ring``), on one tp shard's heads; the ranks that compute
+    come from ``parallel.sp.seq_ranks``. Returns (one output a computing
+    rank, rank 0's (k_all, v_all), or None on the stateless path).
+
+    - Stateless, several ranks: the ring (ops/ring_attention.py) over the
+      chunk's K/V blocks, float32, never the flash kernel.
+    - Stateless, one rank: causal attention of the chunk over itself.
+    - Cached: every rank's K/V rows are written into every distinct copy
+      of the cache (rank r's at ``position + r * rows``, its real rows only
+      where ``n_valid`` marks padding), then each rank attends its query
+      rows against its own copy with ``q_offset = position + r * rows`` and
+      the chunk's whole ``kv_length``: the flash kernel on each query shard
+      when ``use_flash``. One computing rank is the tp-only path (a decode
+      step, a chunk that does not split), whose rows still reach every
+      copy."""
+    from petals_tpu_torch.models.common import update_kv_cache
+    from petals_tpu_torch.parallel.sp import rank_n_valid
+
+    n = len(q)
+    if kv is None:
+        if n > 1:
+            from petals_tpu_torch.ops.ring_attention import ring_attend
+
+            return ring_attend(q, k, v, alibi_slopes=alibi_slopes, sliding_window=sliding_window), None
+        return [attend(q[0], k[0], v[0], q_offset=position, alibi_slopes=_on(alibi_slopes, q[0]),
+                       sliding_window=sliding_window, use_flash=use_flash)], None
+    rows = q[0].shape[1]
+    written = {}
+    for k_buf, v_buf in kv:
+        if id(k_buf) in written:
+            continue
+        for r in range(n):
+            real = rank_n_valid(n_valid, r, rows) if n > 1 else n_valid
+            if r and not isinstance(real, torch.Tensor) and real == 0:
+                continue  # padding alone: nothing to write (its position may lie past the buffer)
+            out = update_kv_cache((k_buf, v_buf), _beside(k[r], k_buf), _beside(v[r], v_buf),
+                                  position + r * rows if r else position, real)
+            if not r:
+                written[id(k_buf)] = out[2]
+    if n == 1:
+        kv_length = written[id(kv[0][0])]
+    else:
+        kv_length = position + (n * rows if n_valid is None else n_valid)
+    outs = []
+    for r in range(n):
+        k_buf, v_buf = kv[r]
+        length = kv_length.to(q[r].device) if isinstance(kv_length, torch.Tensor) else kv_length
+        outs.append(attend(
+            q[r], k_buf, v_buf, q_offset=position + r * rows if r else position, kv_length=length,
+            alibi_slopes=_on(alibi_slopes, q[r]), sliding_window=sliding_window, use_flash=use_flash,
+        ))
+    return outs, kv[0]
+
+
+def _beside(rows: torch.Tensor, buf) -> torch.Tensor:
+    """``rows`` on a dense buffer's device (a paged cache, never replicated,
+    takes them where they are)."""
+    return rows.to(buf.device) if isinstance(buf, torch.Tensor) else rows
+
+
+def _on(slopes: Optional[torch.Tensor], like: torch.Tensor) -> Optional[torch.Tensor]:
+    return None if slopes is None else slopes.to(like.device)
 
 
 def attend_reference(

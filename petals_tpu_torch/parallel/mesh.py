@@ -35,3 +35,25 @@ def tp_devices(
             raise RuntimeError("CUDA is not available; pass CPU devices to run on the CPU explicitly")
     return [torch.device("cuda", torch.cuda.current_device()) if d.type == "cuda" and d.index is None else d
             for d in out]
+
+
+def serving_devices(
+    num_tp: int = 1,
+    num_sp: int = 1,
+    devices: Optional[Sequence[Union[str, torch.device]]] = None,
+) -> List[torch.device]:
+    """The devices of a tp x sp serving grid (petals_tpu's ``serving_mesh``):
+    the first ``num_tp * num_sp`` of ``devices`` in ``make_mesh``'s order,
+    the (tp, sp) grid flattened row by row, so entry ``t * num_sp + s`` holds
+    tp shard t of sp rank s. Heads and FFN columns split over tp; the
+    parameters and the dense KV cache are replicated over sp. Refuses too
+    few devices as ``make_mesh`` does."""
+    num_tp, num_sp = int(num_tp), int(num_sp)
+    if num_tp < 1 or num_sp < 1:
+        raise ValueError(f"num_tp and num_sp must be >= 1, got {num_tp} x {num_sp}")
+    if devices is None:
+        devices = [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+    n = num_tp * num_sp
+    if n > len(devices):
+        raise ValueError(f"Mesh of {(num_tp, num_sp)} needs {n} devices, have {len(devices)}")
+    return tp_devices(n, devices)

@@ -16,10 +16,13 @@ leaf a contiguous copy of its part on its shard's device.
 
 ``ShardedCache`` is a dense KV buffer [..., hkv, d] held as one tensor a
 shard, each with its hkv / N heads on its shard's device (the JAX
-package's ``kv_cache_pspec``). Indexing the leading axes indexes every
-shard; reading it to the host or copying it out joins the shards along the
-head axis, and writing a whole tensor into it splits that tensor: a
-tensor-parallel session's KV bytes are an unsharded server's.
+package's ``kv_cache_pspec``), and under sequence parallelism one such
+split a sp rank, a tensor shared where ranks share a device (replicated
+over "sp"). Indexing the leading axes indexes every shard; reading it to
+the host or copying it out joins the shards along the head axis, and
+writing a whole tensor into it splits that tensor into every copy: a
+tensor- or sequence-parallel session's KV bytes are an unsharded
+server's.
 """
 
 from __future__ import annotations
@@ -182,29 +185,44 @@ def is_sharded(params) -> bool:
     return isinstance(params, (list, tuple))
 
 
-def block_shards(params, kv) -> tuple:
-    """(shard dicts, shard caches) of one block's call: a plain dict and a
-    (k, v) pair are one shard; a list of dicts goes with a pair of
-    ``ShardedCache`` (or a list of (k, v) pairs), one a shard."""
-    if not is_sharded(params):
-        return [params], [kv]
-    if isinstance(kv, list):
-        return list(params), kv
-    k, v = kv
-    return list(params), list(zip(k.shards, v.shards))
-
-
 class ShardedCache:
     """A dense KV buffer [..., hkv, d] split over shards along the head axis:
     ``shards[s]`` holds heads [s * hkv / N, (s + 1) * hkv / N) on its own
-    device. It answers the handful of tensor operations the serving path
-    applies to a dense cache: indexing of the leading axes (every shard,
-    views), ``clone``, ``zero_``, ``copy_`` of a whole tensor (split) or of
-    another ShardedCache, ``index_select`` on a leading axis, and reads out
-    (``cpu``, ``to``, ``join``) that join the shards."""
+    device. Under sequence parallelism the buffer is also replicated over
+    the sp ranks: ``ranks[r]`` is rank r's list of shard tensors, on that
+    rank's devices, and ``shards`` is rank 0's. Ranks whose shard lies on one
+    device share that tensor (one copy a distinct device: on one card the
+    ranks hold one buffer); every distinct copy holds the same bytes. It
+    answers the handful of tensor operations the serving path applies to a
+    dense cache: indexing of the leading axes (every copy, views),
+    ``clone``, ``zero_``, ``copy_`` of a whole tensor (split, into every
+    copy) or of another ShardedCache, ``index_select`` on a leading axis,
+    and reads out (``cpu``, ``to``, ``join``) that join rank 0's shards."""
 
-    def __init__(self, shards: Sequence[torch.Tensor]):
-        self.shards = list(shards)
+    def __init__(self, shards: Optional[Sequence[torch.Tensor]] = None,
+                 ranks: Optional[Sequence[Sequence[torch.Tensor]]] = None):
+        self.ranks = [list(r) for r in ranks] if ranks is not None else [list(shards)]
+
+    @property
+    def shards(self) -> List[torch.Tensor]:
+        return self.ranks[0]
+
+    def distinct(self) -> List[torch.Tensor]:
+        """Every distinct tensor of the copies, once each."""
+        seen = {}
+        for r in self.ranks:
+            for t in r:
+                seen.setdefault(id(t), t)
+        return list(seen.values())
+
+    def _map(self, fn) -> "ShardedCache":
+        """``fn`` of each distinct tensor, computed once, the sharing kept."""
+        done = {}
+        for r in self.ranks:
+            for t in r:
+                if id(t) not in done:
+                    done[id(t)] = fn(t)
+        return ShardedCache(ranks=[[done[id(t)] for t in r] for r in self.ranks])
 
     @property
     def shape(self) -> torch.Size:
@@ -236,41 +254,42 @@ class ShardedCache:
         n_idx = len(idx) if isinstance(idx, tuple) else 1
         if n_idx > self.dim() - 2 or idx is Ellipsis or (isinstance(idx, tuple) and Ellipsis in idx):
             raise IndexError("a ShardedCache indexes its leading axes only, never the head or head-dim axes")
-        return ShardedCache([t[idx] for t in self.shards])
+        return self._map(lambda t: t[idx])
 
     def clone(self) -> "ShardedCache":
-        return ShardedCache([t.clone() for t in self.shards])
+        return self._map(torch.Tensor.clone)
 
     def zero_(self) -> "ShardedCache":
-        for t in self.shards:
+        for t in self.distinct():
             t.zero_()
         return self
 
     def index_select(self, dim: int, index: torch.Tensor) -> "ShardedCache":
         if dim % self.dim() >= self.dim() - 2:
             raise IndexError("index_select on the head or head-dim axis of a ShardedCache")
-        return ShardedCache([t.index_select(dim, index.to(t.device)) for t in self.shards])
-
-    def _offsets(self):
-        off = 0
-        for t in self.shards:
-            yield off, t
-            off += t.shape[HEAD_AXIS]
+        return self._map(lambda t: t.index_select(dim, index.to(t.device)))
 
     def copy_(self, src) -> "ShardedCache":
-        """Write ``src`` (a ShardedCache of the same split, or a tensor of
-        this logical shape) into the shards."""
-        if isinstance(src, ShardedCache):
-            for t, s in zip(self.shards, src.shards):
-                t.copy_(s.to(t.device))
-            return self
-        for off, t in self._offsets():
-            t.copy_(src.narrow(HEAD_AXIS, off, t.shape[HEAD_AXIS]).to(t.device))
+        """Write ``src`` (a ShardedCache of the same head split, or a tensor
+        of this logical shape) into every distinct copy; a ShardedCache of
+        as many ranks is copied rank to rank, else from its rank 0."""
+        done = set()
+        for r, shards in enumerate(self.ranks):
+            off = 0
+            for s, t in enumerate(shards):
+                if id(t) not in done:
+                    done.add(id(t))
+                    if isinstance(src, ShardedCache):
+                        part = (src.ranks[r] if len(src.ranks) == len(self.ranks) else src.shards)[s]
+                    else:
+                        part = src.narrow(HEAD_AXIS, off, t.shape[HEAD_AXIS])
+                    t.copy_(part.to(t.device))
+                off += t.shape[HEAD_AXIS]
         return self
 
     def join(self, device=None) -> torch.Tensor:
-        """The logical tensor, the shards concatenated along the head axis,
-        on ``device`` (default: shard 0's)."""
+        """The logical tensor, rank 0's shards concatenated along the head
+        axis, on ``device`` (default: shard 0's)."""
         device = self.device if device is None else torch.device(device)
         return torch.cat([t.to(device) for t in self.shards], dim=HEAD_AXIS)
 
@@ -288,13 +307,21 @@ class ShardedCache:
 
 class ShardedDescriptor:
     """A ``TensorDescriptor`` of a ShardedCache: the logical shape, budgeted
-    at its whole bytes, made as one zero tensor a shard."""
+    at its whole bytes, made as one zero tensor a shard and a distinct
+    device. ``devices`` lists the shards' devices; with ``num_sp`` > 1 it is
+    the tp x sp grid in ``serving_devices``' order (entry t * num_sp + r:
+    shard t of rank r), and a shard whose ranks share a device is one
+    tensor."""
 
-    def __init__(self, shape, dtype: torch.dtype, devices: Sequence[torch.device]):
-        n = len(devices)
+    def __init__(self, shape, dtype: torch.dtype, devices: Sequence[torch.device], num_sp: int = 1):
+        devices = [torch.device(d) for d in devices]
+        n = len(devices) // num_sp
         if shape[HEAD_AXIS] % n:
             raise ValueError(f"{shape[HEAD_AXIS]} kv heads do not split over {n} shards")
-        self.shape, self.dtype, self.devices = tuple(shape), dtype, [torch.device(d) for d in devices]
+        self.shape, self.dtype, self.num_sp = tuple(shape), dtype, num_sp
+        # grid[r][t]: shard t's device on rank r
+        self.grid = [[devices[t * num_sp + r] for t in range(n)] for r in range(num_sp)]
+        self.devices = self.grid[0]
 
     @property
     def device(self) -> torch.device:
@@ -307,4 +334,9 @@ class ShardedDescriptor:
     def make_zeros(self) -> ShardedCache:
         part = list(self.shape)
         part[HEAD_AXIS] //= len(self.devices)
-        return ShardedCache([torch.zeros(part, dtype=self.dtype, device=d) for d in self.devices])
+        made = {}
+        for row in self.grid:
+            for t, d in enumerate(row):
+                if (t, d) not in made:
+                    made[(t, d)] = torch.zeros(part, dtype=self.dtype, device=d)
+        return ShardedCache(ranks=[[made[(t, d)] for t, d in enumerate(row)] for row in self.grid])

@@ -131,8 +131,23 @@ unsharded server's. Only the dense paths serve such a span, as in the JAX
 package: the batcher keeps the dense lane pool (no paging, so no quantized
 pool), and its steps run eagerly, block by block, with no step program
 (``step_program_stats`` stays at zero). The flash-attention kernel runs on
-each shard's heads, and quantized products on each shard's slice. LoRA
-adapters are not served on a sharded span.
+each shard's heads, and quantized products on each shard's slice. A LoRA
+adapter's pairs are split with the leaves they wrap (utils/peft.py
+``shard_adapter``).
+
+Sequence parallelism (petals_tpu's backend under a ("tp", "sp") mesh):
+``num_sp_devices`` sp ranks over a tp x sp grid (``tp_devices`` lists the
+grid, ``mesh_devices``); each block's shards are replicated over the
+ranks (``GridParams``, one copy a distinct device) and so is the dense
+cache (a ShardedCache with ranks). A stateless ``forward`` or
+``backward`` whose rows divide over the ranks runs the ring (each block
+with no cache, ops/ring_attention.py; eagerly, float32 attention, never
+the flash kernel), other lengths the tp-only path; a cached chunk of more
+than one row that divides (a padded bucket too) splits its queries over
+the ranks, each attending through the flash kernel against its copy of
+the cache with its own offset; decode steps and chunks that do not
+divide run on rank 0 and write every copy. The steps run eagerly, as
+under tensor parallelism.
 
 Fused fingerprints (ops/fingerprint.py), built only when
 ``fingerprint.enabled()``: the batched steps (paged decode, mixed,
@@ -173,7 +188,8 @@ from petals_tpu_torch.ops.paged_attention import (
 from petals_tpu_torch.ops.quant import OutlierQuantLinear, QuantizedLinear
 from petals_tpu_torch.ops.sampling import sample_tokens, sampling_tensors, sampling_uniforms, sampling_vectors
 from petals_tpu_torch.ops.threefry import uniform_for_draw
-from petals_tpu_torch.parallel.tp import ShardedDescriptor, is_sharded, shard_span_params
+from petals_tpu_torch.parallel.sp import GridParams, replicate_over_sp
+from petals_tpu_torch.parallel.tp import ShardedDescriptor, is_sharded, shard_span_params, span_param_specs
 from petals_tpu_torch.server.memory_cache import TensorDescriptor
 from petals_tpu_torch.telemetry.observatory import CudaGraphCapture, TrackedGraph
 
@@ -286,6 +302,7 @@ class TransformerBackend:
         kv_quant_type: str = "none",
         use_flash: Optional[bool] = None,
         tp_devices: Optional[Sequence] = None,
+        num_sp_devices: int = 1,
     ):
         """``params`` is a list of per-block dicts, or one dict whose leaves
         are stacked along a leading block axis (utils/convert.py
@@ -298,11 +315,18 @@ class TransformerBackend:
         (None: on when the device is a CUDA card). ``tp_devices`` (more than
         one) makes the span tensor parallel, one shard a listed device:
         unsharded blocks are split here (or come split, a list of shard
-        dicts a block), and ``device`` is then the first entry."""
+        dicts a block), and ``device`` is then the first entry. With
+        ``num_sp_devices`` > 1 it lists the tp x sp grid in
+        ``parallel.mesh.serving_devices``' order (entry t * sp + r: shard t
+        of sp rank r), and the shards are replicated over the ranks
+        (``GridParams``, one copy a distinct device)."""
         if kv_quant_type not in KV_QUANT_KINDS:
             raise ValueError(f"kv_quant_type must be one of {KV_QUANT_KINDS}, got {kv_quant_type!r}")
-        tp_devices = [torch.device(d) for d in tp_devices] if tp_devices else [torch.device(device)]
-        if kv_quant_type != "none" and len(tp_devices) > 1:
+        mesh = [torch.device(d) for d in tp_devices] if tp_devices else [torch.device(device)]
+        num_sp = int(num_sp_devices or 1)
+        if num_sp < 1 or len(mesh) % num_sp:
+            raise ValueError(f"{len(mesh)} devices do not form a grid of {num_sp} sp ranks")
+        if kv_quant_type != "none" and len(mesh) > 1:
             raise ValueError("kv_quant_type requires a mesh-less server (paged pool only)")
         if kv_quant_type == "nf4a" and cfg.head_dim % 2:
             raise ValueError(f"nf4a KV packing needs an even head_dim, got {cfg.head_dim}")
@@ -314,14 +338,23 @@ class TransformerBackend:
             params = [{name: _block_view(t, i) for name, t in params.items()} for i in range(n_blocks)]
         if len(params) != n_blocks:
             raise ValueError(f"got parameters for {len(params)} blocks, expected {n_blocks}")
-        self.tp_devices: List[torch.device] = tp_devices
-        self.tp_size = len(tp_devices)
-        if self.tp_size > 1:
-            device = tp_devices[0]
-            if not is_sharded(params[0]):
-                params = shard_span_params(params, tp_devices, family.name, cfg)
-        # a block's parameters: one dict, or under tensor parallelism a list
-        # of one dict a shard
+        # the whole grid, rank 0's shards' devices, and its sizes
+        self.mesh_devices: List[torch.device] = mesh
+        self.sp_size = num_sp
+        self.tp_devices: List[torch.device] = mesh[::num_sp]
+        self.tp_size = len(self.tp_devices)
+        self.mesh_size = len(mesh)
+        if self.mesh_size > 1:
+            device = mesh[0]
+            # any mesh splits the parameters (petals_tpu's span_param_pspecs):
+            # a family without a spec, or a fused leaf, raises KeyError at sp
+            # alone too
+            if not (is_sharded(params[0]) or isinstance(params[0], GridParams)):
+                params = shard_span_params(params, self.tp_devices, family.name, cfg)
+            if num_sp > 1 and not isinstance(params[0], GridParams):
+                params = [replicate_over_sp(shards, mesh, num_sp) for shards in params]
+        # a block's parameters: one dict, under tensor parallelism a list of
+        # one dict a shard, under sequence parallelism GridParams
         self.block_params: List[object] = list(params)
         # adapter name -> (per-block {leaf: (A, B)}, scaling); see utils/peft.py
         self.adapters: Dict[str, tuple] = {}
@@ -349,8 +382,8 @@ class TransformerBackend:
         # the last batched step's fused fingerprints, on the device
         self._last_step_fp: Optional[torch.Tensor] = None  # [n_lanes, FP_DIM]
         self._last_chunk_fp: Optional[torch.Tensor] = None  # [FP_DIM], a mixed step's chunk
-        # a tensor-parallel span steps eagerly (no step programs)
-        if self.device.type == "cuda" and self.tp_size == 1:
+        # a span over a mesh steps eagerly (no step programs)
+        if self.device.type == "cuda" and self.mesh_size == 1:
             capture = CudaGraphCapture(self.device)
             self._decode_program = TrackedGraph("paged_decode", capture)
             self._mixed_program = TrackedGraph("paged_mixed_step", capture)
@@ -371,10 +404,10 @@ class TransformerBackend:
         device (a private session's cache, or the dense lane pool with
         batch_size = n_lanes)."""
         shape = (end - start, batch_size, max_length, self.num_kv_heads, self.head_dim)
-        if self.tp_size > 1:  # one part of the kv heads a shard
+        if self.mesh_size > 1:  # one part of the kv heads a shard, one copy a distinct device over sp
             return (
-                ShardedDescriptor(shape, self.compute_dtype, self.tp_devices),
-                ShardedDescriptor(shape, self.compute_dtype, self.tp_devices),
+                ShardedDescriptor(shape, self.compute_dtype, self.mesh_devices, self.sp_size),
+                ShardedDescriptor(shape, self.compute_dtype, self.mesh_devices, self.sp_size),
             )
         return (
             TensorDescriptor(shape, self.compute_dtype, self.device),
@@ -388,8 +421,8 @@ class TransformerBackend:
         v_scales), the codes int8 [..., d] or uint8 [..., d // 2] (two
         split-half codes a byte, nf4a) and float32 scales [n, n_pages,
         page_size, hkv]."""
-        if self.tp_size > 1:
-            raise ValueError("a tensor-parallel span serves the dense lane pool, not a paged one")
+        if self.mesh_size > 1:
+            raise ValueError("a span over a mesh serves the dense lane pool, not a paged one")
         n = end - start
         shape = (n, n_pages, page_size, self.num_kv_heads, self.head_dim)
         if self.kv_quant_type == "none":
@@ -427,12 +460,13 @@ class TransformerBackend:
             return self.block_params
         if active_adapter not in self.adapters:
             raise KeyError(f"Adapter {active_adapter!r} is not loaded on this server")
-        if self.tp_size > 1:
-            raise ValueError("LoRA adapters are not served on a tensor-parallel span")
         from petals_tpu_torch.utils.peft import apply_adapter
 
         per_block, scaling = self.adapters[active_adapter]
-        return apply_adapter(self.block_params, per_block, scaling)
+        # under a mesh each shard takes its part of A or B (utils/peft.py
+        # shard_adapter): its leaves' split axes
+        specs = span_param_specs(self.family.name, self.cfg) if self.mesh_size > 1 else None
+        return apply_adapter(self.block_params, per_block, scaling, specs=specs, n_shards=self.tp_size)
 
     # ------------------------------------------------------------- dense steps
 
@@ -608,6 +642,8 @@ class TransformerBackend:
             if prompts.shape[2] == 0:
                 prompts = None
         batch, seq = h.shape[:2]
+        if self._rides_ring(seq):
+            return self._ring_forward(h, prompts, params)
         bucket = bucket_length(seq)
         h = F.pad(h, (0, 0, 0, bucket - seq))
         n_valid = torch.tensor(seq, dtype=torch.int32)  # read on the device by the step
@@ -644,6 +680,25 @@ class TransformerBackend:
                 h = torch.cat([h[:, :pre] + prompts[i], h[:, pre:]], dim=1)
             h, _ = self.family.block_apply(p_block, h, kv_buf, position, self.cfg, n_valid=n_valid, use_flash=True)
         return (h,)
+
+    def _rides_ring(self, seq: int) -> bool:
+        """Whether a stateless pass of ``seq`` rows runs the ring: sequence
+        parallel, and the rows split over the sp ranks (petals_tpu's
+        ``_forward_fn``: other lengths take the tp-only path)."""
+        return self.sp_size > 1 and seq % self.sp_size == 0
+
+    def _ring_forward(self, h, prompts, params):
+        """The stateless forward under sequence parallelism: each block's
+        rows split over the sp ranks, attention a ring over them (no cache,
+        no padding, no flash kernel: petals_tpu's ``_forward_fn`` under an
+        "sp" mesh), eager. Returns out [batch, seq, hidden] on the device."""
+        h = _as_tensor(h, self.device, self.compute_dtype)
+        pre = 0 if prompts is None else prompts.shape[2]
+        for i, p_block in enumerate(params):
+            if pre:
+                h = torch.cat([h[:, :pre] + prompts[i].to(h.device), h[:, pre:]], dim=1)
+            h, _ = self.family.block_apply(p_block, h, None, 0, self.cfg, use_flash=False)
+        return h
 
     def backward(self, hidden, grad_out, prompts=None, active_adapter: Optional[str] = None):
         """The gradients of the span's output, weighted by ``grad_out``, at
@@ -693,16 +748,20 @@ class TransformerBackend:
     def _train_block(self, p_block: dict, h: torch.Tensor) -> torch.Tensor:
         """One block on the training path, as the JAX package's ``_forward_fn``
         runs it: causal attention over the chunk itself, in plain attention
-        (``use_flash=False``) on a fresh dense K/V buffer, position 0."""
-        out, _ = self.family.block_apply(p_block, h, self._scratch_kv(h.shape[0], h.shape[1]), 0, self.cfg,
-                                         use_flash=False)
+        (``use_flash=False``) on a fresh dense K/V buffer, position 0; under
+        sequence parallelism with rows that split, the ring (no buffer)."""
+        kv = None if self._rides_ring(h.shape[1]) else self._scratch_kv(h.shape[0], h.shape[1])
+        out, _ = self.family.block_apply(p_block, h, kv, 0, self.cfg, use_flash=False)
         return out
 
     def _scratch_kv(self, batch: int, length: int):
         """A fresh zero (k, v) buffer [batch, length, hkv, d] for one block
-        of a pass with no cache (a ShardedCache pair under tensor
-        parallelism)."""
-        return tuple(d.make_zeros()[0] for d in self.cache_descriptors(batch, length, 0, 1))
+        of a pass with no cache (a ShardedCache pair under a mesh, on sp
+        rank 0 alone: a pass that does not ride the ring is tp-only)."""
+        if self.mesh_size == 1:
+            return tuple(d.make_zeros()[0] for d in self.cache_descriptors(batch, length, 0, 1))
+        shape = (1, batch, length, self.num_kv_heads, self.head_dim)
+        return tuple(ShardedDescriptor(shape, self.compute_dtype, self.tp_devices).make_zeros()[0] for _ in "kv")
 
     @torch.no_grad()
     def batched_decode_step(self, hidden, pool_kv, positions):

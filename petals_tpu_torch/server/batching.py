@@ -245,9 +245,9 @@ class DecodeBatcher:
         self.memory_cache = memory_cache
         self.queue = queue
         self.n_lanes = n_lanes
-        # a tensor-parallel span keeps the dense lane pool, as petals_tpu's
-        # batcher gates paging off under a mesh
-        if page_size and getattr(backend, "tp_size", 1) == 1:
+        # a span over a mesh (tensor or sequence parallel) keeps the dense
+        # lane pool, as petals_tpu's batcher gates paging off under a mesh
+        if page_size and getattr(backend, "mesh_size", 1) == 1:
             self.page_size: Optional[int] = int(page_size)
             # round the lane capacity UP to whole pages so tables tile exactly
             self.max_pages = max_pages_for(max_length, self.page_size)

@@ -360,7 +360,8 @@ class TransformerHandler:
                 b.family, b.cfg, b._slice_params(start, end),
                 first_block=b.first_block + start, n_blocks=end - start, device=b.device,
                 compute_dtype=b.compute_dtype, max_chunk_size_bytes=b.max_chunk_size_bytes,
-                quant_type=b.quant_type, use_flash=b.use_flash, tp_devices=b.tp_devices,
+                quant_type=b.quant_type, use_flash=b.use_flash, tp_devices=b.mesh_devices,
+                num_sp_devices=b.sp_size,
             )
         sub = self._sub_backends[key]
         # the adapters' blocks of the slice, as the span's own (loaded or
@@ -1624,9 +1625,10 @@ class TransformerHandler:
 
 def _device_tier(backend) -> bool:
     """Whether the prefix cache may keep device copies for ``backend``'s
-    sessions: not under tensor parallelism, whose caches are split over the
-    shards (the JAX package stores host-only entries under a mesh)."""
-    return getattr(backend, "tp_size", 1) == 1
+    sessions: not under a mesh, whose caches are split over the shards and
+    replicated over the sp ranks (the JAX package stores host-only entries
+    under a mesh)."""
+    return getattr(backend, "mesh_size", 1) == 1
 
 
 def _log_failure(what: str):

@@ -113,16 +113,24 @@ on the device, and announced by name (sorted); requests pick one with
 ``active_adapter``. A span with adapters loads unfused, as petals_tpu's
 does: the adapters target the separate projections.
 
-Tensor parallelism (petals_tpu/server/server.py's ``num_tp_devices``, one
-host): ``num_tp_devices`` > 1 splits the span over that many devices, the
-first of ``tp_devices`` (default: the visible CUDA devices; with
-``device="cpu"``, that many CPU shards), in this one process
-(server/backend.py). Blocks load unfused and are split as each loads; the
-batcher keeps the dense lane pool, the prefix cache keeps host copies only,
-no draft is loaded, and the throughput probe times a span split the same
-way. ``kv_quant_type`` and adapters are refused with it; the ``+o`` kinds
-and the families without a split (parallel/tp.py) fail at load, as in the
-JAX package.
+Tensor and sequence parallelism (petals_tpu/server/server.py's
+``num_tp_devices`` and ``num_sp_devices``, one host): ``num_tp_devices`` > 1
+splits the span over that many devices, ``num_sp_devices`` > 1 replicates
+it over that many sp ranks (ring attention on the stateless forward and
+backward, query-sharded cached prefill), over the first tp x sp of
+``tp_devices`` in grid order (parallel/mesh.py ``serving_devices``;
+default: the visible CUDA devices; with ``device="cpu"``, that many CPU
+shards), in this one process (server/backend.py). Blocks load unfused
+under tp > 1 or with adapters, as the JAX server's do (a quantized span
+at sp alone stays fused, and its split fails at load with the JAX
+package's KeyError), and are split as each loads; the batcher keeps the
+dense lane pool, the prefix cache keeps host copies only, no draft is
+loaded, and the throughput probe times a span split over tp alone (it
+ignores sp, as petals_tpu's does). ``kv_quant_type`` is refused with a
+mesh, and sp > 1 for a family without ring attention (Gemma-2), with
+ValueError; the ``+o`` kinds and the families without a split
+(parallel/tp.py) fail at load, as in the JAX package. LoRA adapters are
+served on a mesh: each shard takes its part of A or B.
 
 Runs on the CUDA card unless the caller passes ``device="cpu"``; a missing
 card raises instead of drifting to the CPU.
@@ -152,7 +160,8 @@ from petals_tpu_torch.models.registry import num_kv_heads
 from petals_tpu_torch.ops import fingerprint as fp_ops
 from petals_tpu_torch.ops import flash_attention, grouped_matmul, paged_flash_attention, quant_matmul
 from petals_tpu_torch.ops.paged_attention import KV_QUANT_KINDS
-from petals_tpu_torch.parallel.mesh import tp_devices as parallel_devices
+from petals_tpu_torch.parallel.mesh import serving_devices
+from petals_tpu_torch.parallel.sp import replicate_over_sp
 from petals_tpu_torch.parallel.tp import shard_span_params
 from petals_tpu_torch.rpc.serialization import CompressionType
 from petals_tpu_torch.rpc.server import RpcServer
@@ -226,7 +235,8 @@ class Server:
         identity_seed: Optional[bytes] = None,  # a deterministic peer id
         device=None,  # None: the current CUDA device
         num_tp_devices: Optional[int] = None,  # > 1: split the span over this many devices (tensor parallel)
-        tp_devices: Optional[Sequence] = None,  # the shards' devices (default: the visible CUDA devices)
+        num_sp_devices: Optional[int] = None,  # > 1: sequence parallel over this many ranks
+        tp_devices: Optional[Sequence] = None,  # the grid's devices, tp x sp (default: the visible CUDA devices)
         compute_dtype: torch.dtype = torch.bfloat16,
         attn_cache_bytes: Optional[int] = None,  # None: 15% of the card's memory
         max_chunk_size_bytes: int = 256 * 1024 * 1024,
@@ -289,18 +299,20 @@ class Server:
         if not isinstance(throughput, (int, float)) and throughput != "auto":
             raise ValueError(f'throughput must be a number or "auto", got {throughput!r}')
         self.device = resolve_device(device)
-        self.num_tp_devices = num_tp_devices
-        self.tp_devices = None
-        if (num_tp_devices or 1) > 1:
+        self.num_tp_devices, self.num_sp_devices = num_tp_devices, num_sp_devices
+        tp, sp = num_tp_devices or 1, num_sp_devices or 1
+        # the grid (tp x sp, grid order), and sp rank 0's shards' devices
+        self.mesh_devices = self.tp_devices = None
+        if tp * sp > 1:
             if kv_quant_type != "none":
                 raise ValueError("kv_quant_type requires a mesh-less server (paged pool only)")
-            if adapters:
-                raise ValueError("LoRA adapters are not served on a tensor-parallel span")
             # on the CPU every shard is a CPU shard unless the caller lists them
             pool = tp_devices if tp_devices is not None else (
-                [self.device] * num_tp_devices if self.device.type == "cpu" else None)
-            self.tp_devices = parallel_devices(num_tp_devices, pool)
-            self.device = self.tp_devices[0]
+                [self.device] * (tp * sp) if self.device.type == "cpu" else None)
+            self.mesh_devices = serving_devices(tp, sp, pool)
+            self.device = self.mesh_devices[0]
+            if tp > 1:
+                self.tp_devices = self.mesh_devices[::sp]
         self.quant_type = QuantType(quant_type).value
         self.kv_quant_type = kv_quant_type
         self.model_path = model_path
@@ -308,6 +320,12 @@ class Server:
         self.quant_weight_cache = quant_weight_cache
         # the same revision and cache as the weights, or the shapes could differ
         self.family, self.cfg = get_block_config(model_path, revision=revision, cache_dir=cache_dir)
+        if sp > 1 and not self.family.supports_ring_attention:
+            raise ValueError(
+                f"num_sp_devices>1 needs ring attention, which {self.family.name} "
+                f"does not support (plain causal only) — the sp devices would "
+                f"sit idle holding replicated parameters"
+            )
         total = self.cfg.num_hidden_layers
         # PETALS_TPU_RADIX_DEVICE_FRAC retunes the prefix cache's HBM/host
         # split as a fraction of prefix_cache_bytes
@@ -429,23 +447,27 @@ class Server:
 
     def _load_span_params(self, first: int, n: int) -> list:
         """Blocks [first, first + n), one at a time: its dense weights are
-        freed once quantized (fused qkv / gate+up, as the JAX server fuses
-        on one device, unless adapters target the separate projections) or,
-        under tensor parallelism, once split over the shards (unfused: a
-        fused qkv's parts are not head-aligned)."""
+        freed once quantized (fused qkv / gate+up, as the JAX server fuses,
+        unless adapters target the separate projections or tensor
+        parallelism splits them: a fused qkv's parts are not head-aligned)
+        or, under a mesh, once split over the shards and replicated over
+        the sp ranks."""
         t0 = time.perf_counter()
-        if self.tp_devices is not None:
-            params = [
-                shard_span_params([self._load_block_converted(i, fuse=False)], self.tp_devices, self.family.name,
-                                  self.cfg)[0]
-                for i in range(first, first + n)
-            ]
-        else:
-            params = [self._load_block_converted(i, fuse=not self.adapter_paths) for i in range(first, first + n)]
+        fuse = (self.num_tp_devices or 1) <= 1 and not self.adapter_paths
+        params = [self._load_mesh_block(self._load_block_converted(i, fuse=fuse)) for i in range(first, first + n)]
         # the host's wall: a device-wide synchronize here would break another
         # server's capture in the same process
         self.load_stats["load_s"] = time.perf_counter() - t0
         return params
+
+    def _load_mesh_block(self, block: dict):
+        """One loaded block split over the mesh's tp shards and replicated
+        over its sp ranks (the block itself without a mesh)."""
+        if self.mesh_devices is None:
+            return block
+        sp = self.num_sp_devices or 1
+        shards = shard_span_params([block], self.mesh_devices[::sp], self.family.name, self.cfg)[0]
+        return replicate_over_sp(shards, self.mesh_devices, sp) if sp > 1 else shards
 
     def _load_block_converted(self, block_index: int, *, fuse: bool) -> dict:
         """One block, quantized per ``quant_type``. A quantized block is a
@@ -483,7 +505,8 @@ class Server:
             self.family, self.cfg, params,
             first_block=self.first_block, n_blocks=self.num_blocks, device=self.device,
             compute_dtype=self.compute_dtype, max_chunk_size_bytes=self.max_chunk_size_bytes,
-            quant_type=self.quant_type, kv_quant_type=self.kv_quant_type, tp_devices=self.tp_devices,
+            quant_type=self.quant_type, kv_quant_type=self.kv_quant_type, tp_devices=self.mesh_devices,
+            num_sp_devices=self.num_sp_devices or 1,
         )
         self._install_adapters(backend)
         return backend
@@ -514,6 +537,10 @@ class Server:
             draft_model=draft, spec_k=self.spec_k if self.draft_model_path else None,
         )
 
+    def _grid_label(self) -> str:
+        return (f"tp={self.num_tp_devices or 1} x sp={self.num_sp_devices or 1} over "
+                + ",".join(map(str, self.mesh_devices)))
+
     def _install_adapters(self, backend: TransformerBackend) -> None:
         """Load every adapter of ``adapter_paths`` for the span's blocks onto
         ``backend``, keyed by name."""
@@ -538,7 +565,7 @@ class Server:
         float32, as petals_tpu's does, whatever the span's dtype."""
         if not self.draft_model_path or self.spec_k < 1:
             return None
-        if self.server_gen_params is None or not self.page_size or self.tp_devices is not None:
+        if self.server_gen_params is None or not self.page_size or self.mesh_devices is not None:
             logger.warning(
                 "Speculative decoding disabled: --draft_model needs a full-span single-host server with "
                 "server-side generation and a paged lane pool"
@@ -612,8 +639,10 @@ class Server:
             self._rps_info = await asyncio.to_thread(
                 get_server_throughput, self.family, self.cfg, device=self.device,
                 compute_dtype=self.compute_dtype, quant_type=self.quant_type, kv_quant_type=self.kv_quant_type,
-                page_size=self.page_size, network_mbps=network_mbps, num_blocks=self.num_blocks,
-                using_relay=self.relay_via is not None, tp_devices=self.tp_devices,
+                # a mesh serves the dense lane pool; the probe splits over tp
+                # alone and ignores sp, as petals_tpu's does
+                page_size=0 if self.mesh_devices is not None else self.page_size, network_mbps=network_mbps,
+                num_blocks=self.num_blocks, using_relay=self.relay_via is not None, tp_devices=self.tp_devices,
             )
             self.throughput = self._rps_info["throughput"]
         if self.first_block is None:
@@ -652,7 +681,7 @@ class Server:
         logger.info(
             f"Serving blocks [{self.first_block}, {self.first_block + self.num_blocks}) of "
             f"{self.model_path} at {self.contact_addr.to_string()} "
-            f"({self.device if self.tp_devices is None else 'tp=' + ','.join(map(str, self.tp_devices))}, "
+            f"({self.device if self.mesh_devices is None else self._grid_label()}, "
             f"quant={self.quant_type}, "
             f"kv_quant={self.kv_quant_type}, throughput={self.throughput:.1f})"
         )

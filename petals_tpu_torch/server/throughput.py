@@ -19,7 +19,9 @@ backend on the device that will serve, with the same quantization:
 - A tensor-parallel server (``tp_devices``, petals_tpu's ``num_devices``)
   times its own kind of span: the block split over the same devices, the
   dense ``inference_step`` (it serves the dense lane pool) and the forward,
-  both run eagerly, as its steps are.
+  both run eagerly, as its steps are. Sequence parallelism is not timed:
+  a tp x sp server passes its tp shards alone, as petals_tpu's probe
+  times a ``tp_mesh(num_tp_devices)`` backend.
 - network_rps: the requests a second the wire carries, from the swarm
   bandwidth probe (utils/bandwidth.py), ``network_mbps`` or, alone, a
   loopback serialization and framing probe, times ``RELAY_PENALTY`` for a

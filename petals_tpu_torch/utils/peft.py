@@ -150,16 +150,48 @@ def stack_adapter(adapter: LoadedAdapter, first_block: int, n_blocks: int, dtype
     return out
 
 
-def apply_adapter(block_params: List[dict], per_block: List[Dict[str, tuple]], scaling: float) -> List[dict]:
-    """The span's per-block dicts with the adapter's leaves wrapped in
-    ``LoraLinear`` (the same base tensors, no copy)."""
-    out = []
-    for params, deltas in zip(block_params, per_block):
+def shard_adapter(deltas: Dict[str, tuple], specs: Dict[str, Optional[int]], rank: int, n: int,
+                  device) -> Dict[str, tuple]:
+    """Tensor-parallel shard ``rank`` of ``n`` of one block's {leaf: (A, B)}
+    on ``device``, split along each leaf's axis (parallel/tp.py
+    ``span_param_specs``): an output-split leaf keeps A [in, r] whole and
+    takes its part of B's columns; an input-split leaf takes its part of
+    A's rows and keeps B [r, out] whole, so its ``(x @ A) @ B`` is a partial
+    that sums across the shards with the base product's (``reduce_shards``).
+    A replicated leaf keeps both whole."""
+    out = {}
+    for leaf, (a, b) in deltas.items():
+        axis = specs.get(leaf)
+        if axis == -1:
+            size = b.shape[-1] // n
+            b = b.narrow(-1, rank * size, size)
+        elif axis == -2:
+            size = a.shape[-2] // n
+            a = a.narrow(-2, rank * size, size)
+        out[leaf] = (a.to(device), b.to(device))
+    return out
+
+
+def apply_adapter(block_params: List[object], per_block: List[Dict[str, tuple]], scaling: float, *,
+                  specs: Optional[Dict[str, Optional[int]]] = None, n_shards: int = 1) -> List[object]:
+    """The span's blocks with the adapter's leaves wrapped in ``LoraLinear``
+    (the same base tensors, no copy). A block is a dict, or under a mesh a
+    list of tp shard dicts or ``GridParams`` (parallel/sp.py): each shard
+    then wraps its part of the pairs (``shard_adapter`` along ``specs``) on
+    its own device."""
+    from petals_tpu_torch.parallel.sp import map_shards
+
+    def wrap(params: dict, rank: int, deltas: Dict[str, tuple]) -> dict:
+        if specs is not None:
+            leaf = next(iter(params.values()))  # every leaf of a shard lies on its device
+            deltas = shard_adapter(deltas, specs, rank, n_shards, getattr(leaf, "data", leaf).device)
         params = dict(params)
         for leaf, (a, b) in deltas.items():
             if leaf not in params:
                 logger.warning(f"Adapter targets unknown leaf {leaf!r}; skipping")
                 continue
             params[leaf] = LoraLinear(params[leaf], a, b, scaling)
-        out.append(params)
-    return out
+        return params
+
+    return [map_shards(params, lambda p, t, d=deltas: wrap(p, t, d))
+            for params, deltas in zip(block_params, per_block)]

@@ -47,9 +47,11 @@ def test_importing_every_module_loads_no_jax():
             "utils.misc", "utils.random_utils", "utils.asyncio_utils", "utils.packaging", "utils.disk_cache",
             "utils.quant_cache", "utils.hub")}
         assert swarm_ops <= set(names), sorted(swarm_ops - set(names))
-        # tensor parallelism: the devices, the splits and the reduction
+        # tensor and sequence parallelism: the devices, the splits, the
+        # reduction, the sp grid and the ring
         parallel = {"petals_tpu_torch." + m for m in (
-            "parallel", "parallel.mesh", "parallel.tp", "parallel.collectives")}
+            "parallel", "parallel.mesh", "parallel.tp", "parallel.collectives", "parallel.sp",
+            "ops.ring_attention")}
         assert parallel <= set(names), sorted(parallel - set(names))
         print(len(names), bad)
         assert not bad, bad
