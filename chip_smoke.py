@@ -527,8 +527,8 @@
    timed beside their bounds and yardsticks. (b) LLAMA3_8B's config over
    the smoke checkpoint's 8 blocks (linked) and client tensors of its own
    128256-token vocabulary, served by a tp=1 port server (--page_size 0)
-   and a ``Server(num_tp_devices=2, tp_devices=[cuda:0, cuda:0])``, in bf16
-   at 4 blocks, nf4a and int8 at 2 (each cut served whole); each gets
+   and a ``Server(num_tp_devices=2, tp_devices=[cuda:0, cuda:0])``, in bf16,
+   nf4a and int8 at 2 blocks (each cut served whole); each gets
    a private batch-2 session (a 512-token prompt, 4 decode steps), 4 pooled
    sessions at once on the dense lane pool, a stateless forward and a
    ptu.backward of 512 tokens, and the bf16 tp server a server-side greedy
@@ -540,13 +540,13 @@
    launches K4, K5 nf4a and K6; the bf16 servers' decode step and 512-row
    chunk are profiled side by side (profile_tp_steps), and the throughput
    probe times the tp server's own kind of span.
-27. Sequence parallelism on one card (serve_sequence_parallel_and_check,
-   last; alone: scripts/smoke_sequence_parallel.py). K4 on the query
+27. Sequence parallelism on one card (serve_sequence_parallel_and_check;
+   alone: scripts/smoke_sequence_parallel.py). K4 on the query
    shards' shapes (1024 rows at 1024 of 2048 and 256 at 256 of 512, at 32
    / 8 and 16 / 4 heads) and K5 nf4a / K6 prefill at a rank's 256 rows of a
    tp=2 shard's projections against their plain versions. Phase 26's
    checkpoint served by an unsharded port server beside (a) a
-   ``num_sp_devices=2`` one (both ranks on cuda:0) at 8 blocks in bf16: a
+   ``num_sp_devices=2`` one (both ranks on cuda:0) at 4 blocks in bf16: a
    private 2048-token prompt and 8 decode steps, two pooled 1024-token
    prompts, a 4096-token forward (the ring) and a 2048-token ptu.backward;
    (b) a tp=2 x sp=2 one (four shards on cuda:0) at 2 blocks in bf16, nf4a
@@ -558,9 +558,26 @@
    on the card, tp x sp x sp folds a ring block call and K4 (K5 / K6 on
    quantized weights) launched; (a)'s distinct weight and KV pool bytes
    no more than sp=1's, its eager steps profiled beside sp=1's; a Gemma-2
-   server at sp=2 and an sp-only nf4a span refused. Each phase prints its
-   seconds ("phase seconds: ...") as it ends, and all of them before the
-   kernels line.
+   server at sp=2 and an sp-only nf4a span refused.
+28. Multi-host lockstep on one card (serve_multihost_and_check, last;
+   alone: scripts/smoke_multihost.py). Phase 26's checkpoint cut to 2
+   blocks, served by an unsharded port server and by a two-process group:
+   this process's ``Server(num_hosts=2)`` (the leader) and one ``python -m
+   petals_tpu_torch.cli.run_worker --device cuda:0`` process, the data
+   group on gloo (two processes on one card), for tp=2 in bf16, nf4a and
+   int8 and for sp=2 in bf16: a private 512-token session and 4 decode
+   steps (its K/V rows gathered from both processes), 2 pooled sessions
+   (tp=2 bf16), a 512-token forward (2048 through the ring at sp=2) and a
+   512-token ptu.backward. Every reply, K/V row and gradient within
+   REPLY_NOISE_FACTOR times the unsharded server's distance from float32;
+   K4, K5 and K6 launched on both processes (the worker's counts read from
+   the file it writes after each op); the host wall of a 512-row chunk and
+   a decode step on the group beside the unsharded and one-process tp=2
+   backends'; then the worker killed, the leader's next op raising
+   MultihostDegraded, the leader re-formed single-host, and its private
+   session held to the unsharded server's. Each phase prints its seconds
+   ("phase seconds: ...") as it ends, and all of them before the kernels
+   line.
 
 float32 matmuls run in full float32: TF32 is switched off for matmuls and
 convolutions. Exits non-zero on any failure. The last line is the JSON
@@ -580,7 +597,9 @@ K4's entry and the quantized spans' on K5 nf4a's and K6's prefill entries);
 operations; ``tp_launches`` and ``tp``: K4, K5's nf4a arms and K6 on phase
 26's tensor-parallel servers, and each one's case at a shard's shapes;
 ``sp_launches`` and ``sp``: the same on phase 27's sequence-parallel
-servers, at a query shard's and a rank's rows' shapes.
+servers, at a query shard's and a rank's rows' shapes; ``mh_launches``:
+K4, K5's nf4a arms and K6 on phase 28's groups, on the leader and on the
+worker.
 Every run prints its lanes, pages and pool bytes.
 """
 
@@ -957,7 +976,7 @@ PHI3_FWD_LENGTHS = (3000, 4200)
 # served on TRAIN_SHORT blocks in bf16 and nf4a (QLoRA), an adapter session
 # generating ADAPTER_NEW greedy tokens
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_PRE = 2, 512, 16
-TRAIN_SPAN = 4  # (a) and (c)'s span: depth cut from the 8-block cut to keep the smoke inside its limit
+TRAIN_SPAN = 2  # (a) and (c)'s span: depth cut from the 8-block cut to keep the smoke inside its limit
 TRAIN_SHORT = 2
 TRAIN_CLIENT_SEQ = 128
 TRAIN_STEPS = 3
@@ -1001,7 +1020,7 @@ TP_BATCH = 2  # the private session's batch
 TP_MAX_LENGTH = 1024
 TP_GEN_NEW = 8
 # each kind's depth cut, served whole (cut from 8 / 4 / 2 for the smoke's time)
-TP_KINDS = (("none", 4), ("nf4a", 2), ("int8", 2))
+TP_KINDS = (("none", 2), ("nf4a", 2), ("int8", 2))
 # K5 / K6 at the shards' shapes of a Llama-3-8B block at tp=2 (unfused:
 # the columns of wq / wk / wv / wg / wu and the rows of wo / wd halved)
 TP_QUANT_SHAPES = {"wq": (4096, 2048), "wk": (4096, 512), "wo": (2048, 4096), "wg": (4096, 7168),
@@ -1017,7 +1036,7 @@ TP_QUANT_REPORT = ("wg", (4, 512))
 # tokens, a forward and a backward of as many; (c) LoRA on a tp=2 span
 # (A14d) at SP_LORA_SPAN blocks: an adapter session, forward and backward
 SP = 2
-SP_SPAN = 8
+SP_SPAN = 4  # (a)'s cut, served whole (cut from 8 for the smoke's time)
 SP_PRIVATE = 2048
 SP_PRIVATE_STEPS = 8
 SP_MAX_LENGTH = 4096  # the private cache, and the servers' inference_max_length
@@ -1037,6 +1056,17 @@ SP_LORA_SPAN = 2
 SP_FLASH_CASES = ((1024, 1024), (256, 256))
 SP_FLASH_HEADS = ((32, 8), (16, 4))
 SP_QUANT_ROWS = (256,)  # a 512-token chunk's rank rows, on a tp=2 shard's projections
+# phase 28: multi-host lockstep serving, a leader (this process) and one
+# run_worker process sharing the card over gloo, at 2 blocks of Llama-3-8B:
+# tp=2 in bf16 (then the worker killed and the leader re-formed
+# single-host), nf4a and int8; sp=2 in bf16
+MH_SPAN = 2
+MH_PROMPT = 512
+MH_STEPS = 4
+MH_LANES = 2
+MH_SP_FORWARD = 2048
+MH_RUNS = (("none", 2, 1), ("nf4a", 2, 1), ("int8", 2, 1), ("none", 1, 2))  # (quant, tp, sp)
+MH_TIMING_REPS = 20
 # K7's case: a 512-row chunk at top-2 over Mixtral's 8 experts, skewed: one
 # expert empty, one taking half the rows
 GROUPED_SIZES = (512, 0, 160, 96, 64, 96, 48, 48)
@@ -3230,9 +3260,14 @@ def _reset_launch_counts():
 def _private_kv(server, n_tokens):
     """The K/V rows of the one open private session, read from its cache
     [n_blocks, batch, max_length, hkv, d] (a tensor-parallel server's
-    shards joined along the head axis): (k, v) of [n_blocks * batch,
+    shards joined along the head axis; a multi-host leader's gathered from
+    every process by the group's export): (k, v) of [n_blocks * batch,
     n_tokens, hkv, d]."""
     torch.cuda.synchronize()
+    if getattr(server.backend, "is_lockstep", False):
+        bufs = _private_buffers(server)
+        k, v = server.backend.export_kv(bufs, 0, bufs[0].shape[0], n_tokens)
+        return tuple(t.flatten(0, 1).to(server.device) for t in (k, v))
     return tuple((buf.join() if hasattr(buf, "join") else buf)[:, :, :n_tokens].flatten(0, 1).clone()
                  for buf in _private_buffers(server))
 
@@ -7885,7 +7920,8 @@ def serve_sequence_parallel_and_check(ckpt, device, smi, timer=None) -> dict:
             result["profile"] = profile_tp_steps(one, two, device, smi, lanes=SP_LANES, max_length=SP_MAX_LENGTH,
                                                  rows=SP_PRIVATE, what="sequence-parallel")
 
-    runs, servers, counts = _serve_mesh_pair(label, root, device, "none", (1, SP), plan, calls, result,
+    span_root = root if SP_SPAN == TP_SPAN else cut_checkpoint(root, f"{root}-{SP_SPAN}", SP_SPAN)
+    runs, servers, counts = _serve_mesh_pair(label, span_root, device, "none", (1, SP), plan, calls, result,
                                              on_pair=bytes_and_profile)
     result["sp"] = counts
     _check_mesh_runs(label, runs, servers, (1, SP), f"--quant_type none, {SP_SPAN} blocks", failed)
@@ -7956,6 +7992,282 @@ def serve_sequence_parallel_and_check(ckpt, device, smi, timer=None) -> dict:
     log(f"{label}: launches on the mesh servers K4 {result['K4']}, K5/K6 {result['quant']}; phase 27 took "
         f"{time.perf_counter() - t_phase:.1f} s")
     return result
+
+
+def _mh_leader(root, device, quant_type, tp, sp, coord):
+    """Phase 28's leader: a port server of the whole of ``root`` over a tp x
+    sp grid of two processes (this one and one run_worker), each holding
+    its entries on ``device``; the pool and budgets of ``_sp_server``."""
+    from petals_tpu_torch.server.server import Server
+
+    return Server(
+        root, first_block=0, num_blocks=MH_SPAN, host="127.0.0.1", device=device, tp_devices=[device],
+        num_tp_devices=tp if tp > 1 else None, num_sp_devices=sp if sp > 1 else None, num_hosts=2,
+        coordinator_address=coord, quant_type=quant_type, page_size=PAGE, batch_lanes=SP_LANES,
+        batch_max_length=SP_LANE_LENGTH, inference_max_length=SP_MAX_LENGTH, attn_cache_bytes=2 << 30,
+        prefix_cache_bytes=0, update_period=600.0, throughput=1.0, quant_weight_cache=False,
+        server_side_generation=False,
+    )
+
+
+# the worker's command before its flags (scripts/smoke_multihost.py's CPU
+# rehearsal puts its own wrapper here)
+MH_WORKER_CMD = [sys.executable, "-m", "petals_tpu_torch.cli.run_worker"]
+
+
+def _mh_worker(root, device, quant_type, tp, sp, coord, counts_path, log_path):
+    """``python -m petals_tpu_torch.cli.run_worker`` as process 1 of the
+    group on ``device``, writing its kernel launch counts to
+    ``counts_path`` after every op."""
+    env = dict(os.environ, PYTHONPATH=REPO, PETALS_TPU_WORKER_COUNTS=counts_path)
+    cmd = [*MH_WORKER_CMD, root, "--coordinator_address", coord,
+           "--num_hosts", "2", "--host_index", "1", "--first_block", "0", "--num_blocks", str(MH_SPAN),
+           "--num_tp_devices", str(tp), "--num_sp_devices", str(sp), "--quant_type", quant_type,
+           "--torch_dtype", "bfloat16", "--device", str(device), "--no_quant_weight_cache"]
+    return subprocess.Popen(cmd, cwd=REPO, env=env, stdout=open(log_path, "w"), stderr=subprocess.STDOUT)
+
+
+def _worker_counts(path, timeout: float = 60.0) -> dict:
+    """The worker's launch counts once it has finished every op this
+    process (its leader) has sent: it writes them after each op with the
+    number of op headers it has received (cli/run_worker.py)."""
+    from petals_tpu_torch.parallel.multihost import ops_broadcast
+
+    sent, deadline = ops_broadcast(), time.monotonic() + timeout
+    while True:
+        try:
+            with open(path) as f:
+                got = json.load(f)
+            if got["ops"] >= sent:
+                return got["launches"]
+        except (OSError, ValueError):
+            pass  # not written yet
+        if time.monotonic() > deadline:
+            raise AssertionError(f"phase 28: the worker's counts did not reach op {sent} in {timeout} s")
+        time.sleep(0.01)
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def _time_ops(backend, kv, hsz) -> dict:
+    """The host wall (median of ``reps``, launch to synchronize) of a
+    MH_PROMPT-row chunk at position 0 and of one decode step after it on
+    the private cache ``kv``, through ``backend`` (a lockstep one broadcasts
+    and its worker mirrors every call), MH_TIMING_REPS calls each."""
+    gen = torch.Generator().manual_seed(SEED + 28)
+    chunk = torch.randn(1, MH_PROMPT, hsz, generator=gen).to(torch.bfloat16)
+    token = torch.randn(1, 1, hsz, generator=gen).to(torch.bfloat16)
+    out = {}
+    for name, fn in ((f"{MH_PROMPT}-row chunk", lambda: backend.inference_step(chunk, kv, 0)),
+                     ("decode step", lambda: backend.inference_step(token, kv, MH_PROMPT))):
+        fn()
+        walls = []
+        for _ in range(MH_TIMING_REPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) * 1e3)
+        out[name] = statistics.median(walls)
+    return out
+
+
+def serve_multihost_and_check(ckpt, device, smi) -> dict:
+    """Phase 28: multi-host lockstep serving on the one card (alone:
+    scripts/smoke_multihost.py). Phase 26's Llama-3-8B checkpoint cut to
+    MH_SPAN blocks, served for each of MH_RUNS by an unsharded port server
+    and by a two-process group: this process's ``Server(num_hosts=2)``
+    (the leader) and a ``cli/run_worker`` process, both on ``device``, the
+    data group on gloo, the same seeded traffic for both (``_drive_mesh``):
+    a private MH_PROMPT-token session with MH_STEPS decode steps (its K/V
+    rows gathered from both processes), MH_LANES pooled sessions on the
+    tp=2 bf16 run, a MH_PROMPT-token forward (MH_SP_FORWARD through the
+    ring at sp=2) and a backward. Every reply, K/V row and gradient within
+    REPLY_NOISE_FACTOR times the unsharded server's distance from the
+    float32 reference (``_check_mesh_runs``). K4, K5 and K6 launches are
+    counted on both processes (the worker's from its counts file), and a
+    kernel that never launched on either fails the phase. On the bf16 tp=2
+    run the host wall of a MH_PROMPT-row chunk and of a decode step on the
+    group is timed beside an unsharded and a one-process tp=2 backend's;
+    then the worker is killed, the leader's next op must raise
+    MultihostDegraded, its health check re-forms it single-host, and the
+    re-formed server's private session is held to the unsharded server's.
+    Returns the launches on both processes, the timings and the
+    degradation's seconds."""
+    from petals_tpu_torch.ops import ring_attention
+    from petals_tpu_torch.parallel import collectives, multihost
+    from petals_tpu_torch.server.backend import TransformerBackend
+
+    label = "multi-host lockstep (Llama-3-8B, 2 processes on one card, gloo)"
+    t_phase = time.perf_counter()
+    result = {"leader": {"K4": 0, "quant": {}}, "worker": {"K4": 0, "quant": {}}, "timing": {}}
+    root = llama3_checkpoint(ckpt, os.path.join(ckpt, "llama3-8b"), device)
+    cut = cut_checkpoint(root, f"{root}-{MH_SPAN}", MH_SPAN)
+    logs = os.path.join(REPO, "build", "multihost")
+    os.makedirs(logs, exist_ok=True)
+    failed = []
+    private = (SP_MAX_LENGTH, (MH_PROMPT,) + (1,) * MH_STEPS)
+    for quant_type, tp, sp in MH_RUNS:
+        grid = f"tp={tp}" if sp == 1 else f"sp={sp}"
+        kind = f"--quant_type {quant_type}, {grid}, {MH_SPAN} blocks"
+        main_run = (quant_type, tp, sp) == MH_RUNS[0]
+        plan = dict(private=private, lanes=(MH_PROMPT,) * MH_LANES if main_run else (),
+                    n_forward=MH_SP_FORWARD if sp > 1 else MH_PROMPT, n_backward=MH_PROMPT)
+        runs, servers = {}, {}
+        coord = f"127.0.0.1:{_free_port()}"
+        counts_path = os.path.join(logs, f"worker-counts-{quant_type}-{grid}.json")
+        log_path = os.path.join(logs, f"worker-{quant_type}-{grid}.log")
+        # the worker starts first: it imports, reaches the card and waits to
+        # join while the unsharded server runs
+        worker = _mh_worker(cut, device, quant_type, tp, sp, coord, counts_path, log_path)
+        try:
+            one = _sp_server(cut, device, quant_type, 1, 1)
+
+            async def serve_one():
+                await one.start()
+                try:
+                    out = await _drive_mesh(one, MH_SPAN, SEED + 43, **plan)
+                    if main_run:
+                        async with one.memory_cache.allocate_cache(*one.backend.cache_descriptors(
+                                1, SP_MAX_LENGTH, 0, MH_SPAN)) as handles:
+                            kv = tuple(one.memory_cache.get_buffers(*handles))
+                            result["timing"]["unsharded (one process, step programs)"] = _time_ops(
+                                one.backend, kv, one.cfg.hidden_size)
+                            tp2 = TransformerBackend(one.family, one.cfg, one.backend.block_params, first_block=0,
+                                                     n_blocks=MH_SPAN, device=device, tp_devices=[device] * 2)
+                            kv2 = tuple(d.make_zeros() for d in tp2.cache_descriptors(1, SP_MAX_LENGTH, 0, MH_SPAN))
+                            result["timing"]["tp=2 one process (phase 26's arm, eager)"] = _time_ops(
+                                tp2, kv2, one.cfg.hidden_size)
+                            del tp2, kv2
+                    return out
+                finally:
+                    await one.shutdown()
+
+            runs[1] = asyncio.run(serve_one())
+            servers[1] = one
+            free_card()
+            if worker.poll() is not None:
+                raise AssertionError(f"{label}: the worker exited ({worker.returncode}) before the group formed: "
+                                     + open(log_path).read()[-2000:])
+            t0 = time.perf_counter()
+            leader = _mh_leader(cut, device, quant_type, tp, sp, coord)
+            stamps = {"built": time.perf_counter() - t0}
+            started = {}
+
+            async def serve_group():
+                await leader.start()
+                stamps["started"] = time.perf_counter() - t0
+                started["backend"] = leader.backend
+                _reset_launch_counts()
+                ring_attention.reset_fold_count()
+                collectives.reset_reduction_count()
+                before, w_before = _quant_counts(), _worker_counts(counts_path)
+                t_start = time.perf_counter()
+                out = await _drive_mesh(leader, MH_SPAN, SEED + 43, **plan)
+                wall = time.perf_counter() - t_start
+                counts = {"K4": _launch_counts()["K4"], "quant": _delta(_quant_counts(), before),
+                          "folds": ring_attention.fold_count(), "crossings": dict(collectives.CROSSINGS),
+                          "backend": multihost.data_backend()}
+                w_after = _worker_counts(counts_path)
+                w_counts = {"K4": w_after["K4"] - w_before["K4"],
+                            "quant": _delta({k: v for k, v in w_after.items() if k != "K4"}, w_before)}
+                extra = {}
+                if main_run:
+                    async with leader.memory_cache.allocate_cache(*leader.backend.cache_descriptors(
+                            1, SP_MAX_LENGTH, 0, MH_SPAN)) as handles:
+                        kv = tuple(leader.memory_cache.get_buffers(*handles))
+                        result["timing"]["tp=2 two processes (gloo)"] = \
+                            _time_ops(leader.backend, kv, leader.cfg.hidden_size)
+                    extra = await _degrade_and_reform(leader, worker, plan)
+                stamps["served"] = time.perf_counter() - t0
+                await leader.shutdown()
+                stamps["shut down"] = time.perf_counter() - t0
+                return out, wall, counts, w_counts, extra
+
+            runs[(tp, sp)], wall, counts, w_counts, extra = asyncio.run(serve_group())
+        finally:
+            if worker.poll() is None:
+                worker.kill()
+            worker.wait(timeout=60)
+            multihost.shutdown_multihost()
+        stamps["worker gone"] = time.perf_counter() - t0
+        servers[(tp, sp)] = leader
+        backend = started["backend"]
+        log(f"{label}: {kind}: group started and served in {time.perf_counter() - t0:.1f} s (traffic {wall:.1f} s; "
+            + ", ".join(f"{k} at {v:.1f} s" for k, v in stamps.items()) + "); "
+            f"leader launches K4 {counts['K4']}, K5/K6 {counts['quant'] or 'none'}; worker K4 {w_counts['K4']}, "
+            f"K5/K6 {w_counts['quant'] or 'none'}; ring folds on the leader {counts['folds']}; data-group "
+            f"collectives on the leader {counts['crossings']} (data group on {counts['backend']})")
+        if (backend.tp_size, backend.sp_size) != (tp, sp) or leader.batcher is None:
+            raise AssertionError(f"{label}: the leader's backend is not tp={tp} x sp={sp}")
+        for side, c in (("leader", counts), ("worker", w_counts)):
+            if not c["K4"] or (quant_type != "none" and not (
+                    c["quant"].get(f"decode {quant_type}") and c["quant"].get(f"prefill {quant_type}"))):
+                raise AssertionError(f"{label}: {kind}: a kernel never ran on the {side} (K4 {c['K4']}, "
+                                     f"{c['quant']})")
+            result[side]["K4"] += c["K4"]
+            for k, n in c["quant"].items():
+                result[side]["quant"][k] = result[side]["quant"].get(k, 0) + n
+        if sp > 1 and not counts["crossings"]["ring"]:
+            raise AssertionError(f"{label}: {kind}: no K/V block crossed the processes on the ring")
+        _check_mesh_runs(label, runs, servers, (tp, sp), kind, failed)
+        if extra:
+            result["degraded_s"], result["reform_s"] = extra["degraded_s"], extra["reform_s"]
+            ref_private = runs[1]["private"]
+            inputs = ref_private[0]
+            params = dense_reference_params(one.backend.block_params, torch.float32)
+            ref_out, _ = reference_session(params, one.family, one.cfg, inputs[0], inputs[1:], device, torch.float32)
+            del params
+            failed += _tp_within(f"{label}: the re-formed single-host server's private session", extra["private"][1],
+                                 ref_private[1], ref_out, "unsharded")
+            same = all(torch.equal(a, b) for a, b in zip(extra["private"][1], ref_private[1]))
+            log(f"{label}: re-formed single-host replies {'bit-equal to' if same else 'differ from'} the unsharded "
+                f"server's")
+        del runs, servers
+        free_card()
+    for name, t in result["timing"].items():
+        log(f"{label}: host wall, {name}: " + "; ".join(f"{k} {v:.3f} ms" for k, v in t.items()) + f" ({smi})")
+    if failed:
+        raise AssertionError("; ".join(failed))
+    log(f"{label}: launches on the leader K4 {result['leader']['K4']}, K5/K6 {result['leader']['quant']}; on the "
+        f"worker K4 {result['worker']['K4']}, K5/K6 {result['worker']['quant']}; phase 28 took "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    return result
+
+
+async def _degrade_and_reform(leader, worker, plan) -> dict:
+    """Phase 28 (d): the worker killed, the leader's next op raising
+    MultihostDegraded (its seconds), the health check's single-host
+    re-formation (its seconds), then a private session on the re-formed
+    server (``plan``'s, the same seed as the unsharded server's)."""
+    from petals_tpu_torch.parallel.multihost import MultihostDegraded
+
+    worker.kill()
+    worker.wait(timeout=60)
+    hidden = torch.zeros(1, 8, leader.cfg.hidden_size, dtype=torch.bfloat16)
+    t0 = time.perf_counter()
+    try:
+        leader.backend.forward(hidden)
+    except MultihostDegraded as e:
+        degraded_s = time.perf_counter() - t0
+        log(f"phase 28: the leader's op after the worker died raised MultihostDegraded in {degraded_s:.3f} s: "
+            f"{str(e)[:200]}")
+    else:
+        raise AssertionError("phase 28: the leader's op after the worker died did not raise MultihostDegraded")
+    t0 = time.perf_counter()
+    if await leader._check_group_health() or leader.num_hosts != 1 or leader.backend.mesh_size != 1:
+        raise AssertionError("phase 28: the leader did not re-form single-host")
+    reform_s = time.perf_counter() - t0
+    log(f"phase 28: re-formed single-host in {reform_s:.1f} s: blocks [{leader.first_block}, "
+        f"{leader.first_block + leader.num_blocks}) on {leader.device}, throughput {leader.throughput}")
+    private = await _drive_private(leader, (0, MH_SPAN), 1, *plan["private"], SEED + 43)
+    return {"degraded_s": degraded_s, "reform_s": reform_s, "private": private}
 
 
 class PhaseClock:
@@ -8157,6 +8469,10 @@ def main() -> int:
         sp = serve_sequence_parallel_and_check(ckpt, device, smi, timer)
         free_card()
         clock.lap("27 sequence parallelism")
+        # phase 28: multi-host lockstep, a leader and a run_worker process sharing the card
+        mh = serve_multihost_and_check(ckpt, device, smi)
+        free_card()
+        clock.lap("28 multi-host lockstep")
     flash_kernel["launches"] = private_launches["K4"]
     # the launches on moved (imported, adopted) caches, phase 19
     kernels[0]["migration_launches"], kernels[1]["migration_launches"] = moved["K1"], moved["K2"]
@@ -8265,6 +8581,18 @@ def main() -> int:
             entry.get("sp_launches") for entry in quant_kernels if entry["name"].endswith(("[nf4a]", "[int8]"))):
         raise AssertionError("phase 27: K4, K5 nf4a or K6 never launched on the sequence-parallel shards")
     log(f"phase 27 launches on the sp shards: K4 {flash_kernel['sp_launches']}, K5/K6 {sp['quant']}")
+    # phase 28: the launches on both processes of the multi-host groups
+    flash_kernel["mh_launches"] = {side: mh[side]["K4"] for side in ("leader", "worker")}
+    for entry in quant_kernels:
+        phase = "decode" if entry["name"].startswith("quant_decode") else "prefill"
+        arm = entry["name"].split("[")[1].rstrip("]")
+        if arm in ("nf4a", "int8"):
+            entry["mh_launches"] = {side: mh[side]["quant"].get(f"{phase} {arm}", 0) for side in ("leader", "worker")}
+    if not all(flash_kernel["mh_launches"].values()) or not all(
+            all(entry["mh_launches"].values()) for entry in quant_kernels if "mh_launches" in entry):
+        raise AssertionError("phase 28: K4, K5 nf4a or K6 never launched on one of the multi-host processes")
+    log(f"phase 28 launches: K4 {flash_kernel['mh_launches']}, K5/K6 leader {mh['leader']['quant']}, worker "
+        f"{mh['worker']['quant']}; op host walls {mh['timing']}")
     from petals_tpu_torch.telemetry.observatory import get_observatory
 
     digest = get_observatory().compile_stats()

@@ -48,7 +48,13 @@ the host, tensor parallel in this one process (the dense lane pool; no
 ``--kv_quant_type``, no ``+o`` kinds); ``--num_sp_devices M`` adds M
 sequence-parallel ranks over the next devices (tp x sp of them, grid
 order: ring attention on the stateless forward and backward, query-sharded
-cached prefill; not for Gemma-2). A
+cached prefill; not for Gemma-2). ``--num_hosts H
+--coordinator_address host:port`` makes this process the leader of a
+multi-host span over H processes (``python -m
+petals_tpu_torch.cli.run_worker`` runs the others, with the same model,
+span, quantization and dtype): the grid lies over every process's devices
+(``--device``, a comma-separated list for several), and the span must be
+given. A
 model that is no local directory is a Hub repo id, streamed at
 ``--revision`` from ``PETALS_TPU_HUB_ENDPOINT`` (or ``HF_ENDPOINT``) with
 ``--token``, only the span's shards, under ``--max_disk_space`` (LRU).
@@ -96,7 +102,9 @@ def build_parser() -> argparse.ArgumentParser:
                         help="Known network budget in Mbit/s (default: probe the bootstrap peers; "
                              "the loopback stack probe when alone)")
     parser.add_argument("--dht_prefix", default=None, help="Swarm namespace (default: derived from model name)")
-    parser.add_argument("--device", default=None, help="torch device (default: the current CUDA device)")
+    parser.add_argument("--device", default=None,
+                        help="torch device (default: the current CUDA device); a comma-separated list "
+                             "names this process's devices of a tp x sp grid")
     parser.add_argument("--torch_dtype", "--dtype", dest="dtype", default="bfloat16",
                         choices=sorted(DTYPES), help="Compute dtype")
     parser.add_argument("--quant_type", default="none", choices=[q.value for q in QuantType],
@@ -112,6 +120,11 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--num_sp_devices", type=int, default=None,
                         help=">1: sequence parallel over this many ranks (ring attention on the "
                              "stateless forward/backward, query-sharded cached prefill), tp x sp devices")
+    parser.add_argument("--coordinator_address", default=None,
+                        help="multi-host serving: the group's rendezvous (host:port) for torch.distributed; "
+                             "start num_hosts-1 run_worker processes with the same flags")
+    parser.add_argument("--num_hosts", type=int, default=1,
+                        help="multi-host serving: total processes incl. this leader")
     parser.add_argument("--adapters", nargs="*", default=[],
                         help="PEFT adapter checkpoint dirs to host (multi-tenant LoRA); requests "
                              "pick one by name with active_adapter")
@@ -244,6 +257,7 @@ def attn_cache_bytes_for(args: argparse.Namespace) -> int:
 
 def build_server(args: argparse.Namespace) -> Server:
     first_block, num_blocks = parse_block_range(args)
+    devices = args.device.split(",") if args.device and "," in args.device else None
     try:
         throughput = float(args.throughput)
     except ValueError:
@@ -261,9 +275,12 @@ def build_server(args: argparse.Namespace) -> Server:
         update_period=args.update_period,
         public_name=args.public_name,
         network_mbps=args.network_mbps,
-        device=args.device,
+        device=devices[0] if devices else args.device,
+        tp_devices=devices,
         num_tp_devices=args.num_tp_devices,
         num_sp_devices=args.num_sp_devices,
+        num_hosts=args.num_hosts,
+        coordinator_address=args.coordinator_address,
         compute_dtype=DTYPES[args.dtype],
         attn_cache_bytes=attn_cache_bytes_for(args),
         max_chunk_size_bytes=args.max_chunk_size_bytes,

@@ -13,8 +13,8 @@ from petals_tpu_torch.models.bloom.config import BloomBlockConfig
 from petals_tpu_torch.models.common import gelu_tanh, layer_norm, mm
 from petals_tpu_torch.models.registry import ModelFamily, register_family
 from petals_tpu_torch.ops.alibi import build_alibi_slopes
-from petals_tpu_torch.parallel.collectives import per_copy, reduce_shards
-from petals_tpu_torch.parallel.sp import attend_shards, block_grid, join_rows, rank_rows, seq_ranks
+from petals_tpu_torch.parallel.collectives import enter_tp, grid_layout, per_copy, reduce_shards
+from petals_tpu_torch.parallel.sp import attend_shards, block_grid, block_sizes, join_rows, rank_rows, seq_ranks
 
 
 def block_apply(
@@ -33,36 +33,37 @@ def block_apply(
     global positions in the ring), and ``bo`` / ``b_down`` are added after
     the sums across the shards."""
     grid, grid_kv = block_grid(params, kv)
-    n = len(grid[0])
+    lay = grid_layout(params)
+    n, shard_ts, n_sp = block_sizes(params, grid, kv)
     h, d = cfg.num_attention_heads // n, cfg.head_dim
     eps = cfg.layer_norm_epsilon
     post_ln = cfg.apply_residual_connection_post_layernorm
     batch = hidden_states.shape[0]
-    n_ranks = seq_ranks(len(grid), hidden_states.shape[1], kv, position, n_valid)
+    n_ranks = seq_ranks(n_sp, hidden_states.shape[1], kv, position, n_valid)
     streams, qkv = [], []
-    for shards, x in zip(grid, rank_rows(hidden_states, n_ranks)):
+    for shards, x in zip(grid, rank_rows(hidden_states, n_ranks, lay)):
         hs = [x.to(p["ln1_w"].device) for p in shards]
         lns = per_copy(lambda x, w, b: layer_norm(x, w, b, eps), hs, [p["ln1_w"] for p in shards],
                        [p["ln1_b"] for p in shards])
         streams.append((hs, lns))
         rows = x.shape[1]
-        qkv.append([tuple((mm(ln1, p[w]) + p[b]).reshape(batch, rows, h, d) for w, b in WQKV)
-                    for p, ln1 in zip(shards, lns)])
+        qkv.append([tuple((mm(x1, p[w]) + p[b]).reshape(batch, rows, h, d) for w, b in WQKV)
+                    for p, x1 in ((p, enter_tp(ln1, lay, n)) for p, ln1 in zip(shards, lns))])
     slopes = build_alibi_slopes(cfg.num_attention_heads, hidden_states.device)
     attn, kv_out = attend_shards(qkv, grid_kv, position, n_valid, use_flash, None,
-                                 [slopes[t * h : (t + 1) * h] for t in range(n)])
+                                 [slopes[t * h : (t + 1) * h] for t in shard_ts], n_ranks=n_ranks, layout=lay)
     outs = []
     for shards, (hs, lns), heads in zip(grid, streams, attn):
         rows = hs[0].shape[1]
-        a = reduce_shards([mm(o.reshape(batch, rows, h * d), p["wo"]) for p, o in zip(shards, heads)])
+        a = reduce_shards([mm(o.reshape(batch, rows, h * d), p["wo"]) for p, o in zip(shards, heads)], lay)
         a = per_copy(torch.add, a, [p["bo"] for p in shards])
         hs = per_copy(torch.add, a, lns if post_ln else hs)
         lns = per_copy(lambda x, w, b: layer_norm(x, w, b, eps), hs, [p["ln2_w"] for p in shards],
                        [p["ln2_b"] for p in shards])
-        mlp = reduce_shards([mm(gelu_tanh(mm(ln2, p["w_up"]) + p["b_up"]), p["w_down"])
-                             for p, ln2 in zip(shards, lns)])
+        mlp = reduce_shards([mm(gelu_tanh(mm(enter_tp(ln2, lay, n), p["w_up"]) + p["b_up"]), p["w_down"])
+                             for p, ln2 in zip(shards, lns)], lay)
         outs.append(mlp[0] + shards[0]["b_down"] + (lns[0] if post_ln else hs[0]))
-    return join_rows(outs), (kv_out if n > 1 else kv_out[0])
+    return join_rows(outs, n_ranks, lay), (kv_out if len(kv_out) > 1 else kv_out[0])
 
 
 WQKV = (("wq", "bq"), ("wk", "bk"), ("wv", "bv"))

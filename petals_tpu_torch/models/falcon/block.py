@@ -15,8 +15,8 @@ from petals_tpu_torch.models.falcon.config import FalconBlockConfig
 from petals_tpu_torch.models.registry import ModelFamily, register_family
 from petals_tpu_torch.ops.alibi import build_alibi_slopes
 from petals_tpu_torch.ops.rotary import apply_rotary, rotary_tables
-from petals_tpu_torch.parallel.collectives import per_copy, reduce_shards
-from petals_tpu_torch.parallel.sp import attend_shards, block_grid, join_rows, rank_rows, seq_ranks
+from petals_tpu_torch.parallel.collectives import enter_tp, grid_layout, per_copy, reduce_shards
+from petals_tpu_torch.parallel.sp import attend_shards, block_grid, block_sizes, join_rows, rank_rows, seq_ranks
 
 
 def _activation(x: torch.Tensor, name: str) -> torch.Tensor:
@@ -53,10 +53,11 @@ def block_apply(
     layout (falcon-rw) reduces after the attention and again after the MLP;
     ``bo`` and ``b_down`` are added after the sums."""
     grid, grid_kv = block_grid(params, kv)
-    n = len(grid[0])
+    lay = grid_layout(params)
+    n, shard_ts, n_sp = block_sizes(params, grid, kv)
     serial = not cfg.new_decoder_architecture and not cfg.parallel_attn
     batch, seq, _ = hidden_states.shape
-    n_ranks = seq_ranks(len(grid), seq, kv, position, n_valid)
+    n_ranks = seq_ranks(n_sp, seq, kv, position, n_valid)
     names = _norm_names(cfg)
     d = cfg.head_dim
     slopes = rotary = None
@@ -65,19 +66,20 @@ def block_apply(
         # adds the bias unscaled: so the slopes are pre-scaled here
         hq = cfg.num_attention_heads // n
         scaled = build_alibi_slopes(cfg.num_attention_heads, hidden_states.device) * (d**-0.5)
-        slopes = [scaled[t * hq : (t + 1) * hq] for t in range(n)]
+        slopes = [scaled[t * hq : (t + 1) * hq] for t in shard_ts]
     else:
         positions = absolute_positions(position, batch, seq, hidden_states.device)
         rotary = rotary_tables(positions, d, theta=cfg.rope_theta)
-    rank_tables = zip(*(rank_rows(t, n_ranks) for t in rotary)) if rotary else [None] * n_ranks
+    rank_tables = zip(*(rank_rows(t, n_ranks, lay) for t in rotary)) if rotary else [None] * len(grid)
     streams, qkv = [], []
-    for shards, x, tables in zip(grid, rank_rows(hidden_states, n_ranks), rank_tables):
+    for shards, x, tables in zip(grid, rank_rows(hidden_states, n_ranks, lay), rank_tables):
         hs = [x.to(_device(p, cfg)) for p in shards]
         norms = per_copy(lambda x, *w: _norms(dict(zip(names, w)), x, cfg), hs,
                          *[[p[k] for p in shards] for k in names])
         streams.append((hs, norms))
-        qkv.append([_qkv(p, attn_ln, tables, cfg, n) for p, (attn_ln, _) in zip(shards, norms)])
-    attn, kv_out = attend_shards(qkv, grid_kv, position, n_valid, use_flash, None, slopes)
+        qkv.append([_qkv(p, enter_tp(attn_ln, lay, n), tables, cfg, n) for p, (attn_ln, _) in zip(shards, norms)])
+    attn, kv_out = attend_shards(qkv, grid_kv, position, n_valid, use_flash, None, slopes, n_ranks=n_ranks,
+                                 layout=lay)
     outs = []
     for shards, (hs, norms), heads in zip(grid, streams, attn):
         rows = hs[0].shape[1]
@@ -85,19 +87,20 @@ def block_apply(
         if serial:
             # the serial residual applies to old-architecture checkpoints only
             # (HF skips it when new_decoder_architecture is set)
-            a = _with_bias(reduce_shards(attn_parts), shards, "bo", cfg)
+            a = _with_bias(reduce_shards(attn_parts, lay), shards, "bo", cfg)
             hs = per_copy(torch.add, hs, a)
             mlp_lns = per_copy(lambda x, w, b: layer_norm(x, w, b, cfg.layer_norm_epsilon), hs,
                                [p["ln2_w"] for p in shards], [p["ln2_b"] for p in shards])
-            mlp = _with_bias(reduce_shards([_mlp(p, ln, cfg) for p, ln in zip(shards, mlp_lns)]), shards,
-                             "b_down", cfg)
+            mlp = _with_bias(reduce_shards([_mlp(p, enter_tp(ln, lay, n), cfg) for p, ln in zip(shards, mlp_lns)], lay),
+                             shards, "b_down", cfg)
             outs.append(mlp[0] + hs[0])
             continue
         # parallel attention: mlp + attn, one sum across the shards
-        both = reduce_shards([_mlp(p, mlp_ln, cfg) + a for p, (_, mlp_ln), a in zip(shards, norms, attn_parts)])
+        both = reduce_shards([_mlp(p, enter_tp(mlp_ln, lay, n), cfg) + a
+                              for p, (_, mlp_ln), a in zip(shards, norms, attn_parts)], lay)
         both = _with_bias(_with_bias(both, shards, "b_down", cfg), shards, "bo", cfg)
         outs.append(both[0] + hs[0])
-    return join_rows(outs), (kv_out if n > 1 else kv_out[0])
+    return join_rows(outs, n_ranks, lay), (kv_out if len(kv_out) > 1 else kv_out[0])
 
 
 def _device(p: dict, cfg: FalconBlockConfig) -> torch.device:

@@ -16,8 +16,8 @@ from petals_tpu_torch.models.common import (
 from petals_tpu_torch.models.llama.config import LlamaBlockConfig
 from petals_tpu_torch.models.registry import ModelFamily, register_family
 from petals_tpu_torch.ops.rotary import apply_rotary, rotary_tables
-from petals_tpu_torch.parallel.collectives import per_copy, reduce_shards
-from petals_tpu_torch.parallel.sp import attend_shards, block_grid, join_rows, rank_rows, seq_ranks
+from petals_tpu_torch.parallel.collectives import enter_tp, grid_layout, per_copy, reduce_shards
+from petals_tpu_torch.parallel.sp import attend_shards, block_grid, block_sizes, join_rows, rank_rows, seq_ranks
 
 
 def block_apply(
@@ -43,12 +43,15 @@ def block_apply(
     and the ranks meet in attention (``attend_maybe_ring``). One rank of one
     shard is the unsharded block. Returns hidden on rank 0's first device
     and each shard's (k_all, v_all) as a list when sharded (None without a
-    cache)."""
+    cache). Across processes (``GridParams`` with a layout) the shards and
+    ranks are this process's, and the sums and attention meet the others'
+    (parallel/collectives.py)."""
     grid, grid_kv = block_grid(params, kv)
-    n = len(grid[0])
+    lay = grid_layout(params)
+    n, _, n_sp = block_sizes(params, grid, kv)
     eps = cfg.rms_norm_eps
     batch, seq, _ = hidden_states.shape
-    n_ranks = seq_ranks(len(grid), seq, kv, position, n_valid)
+    n_ranks = seq_ranks(n_sp, seq, kv, position, n_valid)
     positions = absolute_positions(position, batch, seq, hidden_states.device)
     cos, sin = rotary_tables(
         positions, cfg.head_dim, theta=cfg.rope_theta, rope_scaling=cfg.rope_scaling_dict,
@@ -56,26 +59,27 @@ def block_apply(
         n_total=n_total,  # ...or the full prompt length when it is known up front
     )
     streams, qkv = [], []
-    for shards, x, c, s in zip(grid, rank_rows(hidden_states, n_ranks), rank_rows(cos, n_ranks),
-                               rank_rows(sin, n_ranks)):
+    for shards, x, c, s in zip(grid, rank_rows(hidden_states, n_ranks, lay), rank_rows(cos, n_ranks, lay),
+                               rank_rows(sin, n_ranks, lay)):
         hs = [x.to(p["ln1"].device) for p in shards]  # the residual stream, one copy a device
         normed = per_copy(lambda h, w: rms_norm(h, w, eps), hs, [p["ln1"] for p in shards])
         streams.append(hs)
-        qkv.append([_qkv(p, y, c, s, cfg, n) for p, y in zip(shards, normed)])
-    attn, kv_out = attend_shards(qkv, grid_kv, position, n_valid, use_flash, cfg.sliding_window)
+        qkv.append([_qkv(p, enter_tp(y, lay, n), c, s, cfg, n) for p, y in zip(shards, normed)])
+    attn, kv_out = attend_shards(qkv, grid_kv, position, n_valid, use_flash, cfg.sliding_window, n_ranks=n_ranks,
+                                 layout=lay)
     outs = []
     for shards, hs, heads in zip(grid, streams, attn):
         rows = hs[0].shape[1]
-        a = reduce_shards([mm(o.reshape(batch, rows, -1), p["wo"]) for p, o in zip(shards, heads)])
+        a = reduce_shards([mm(o.reshape(batch, rows, -1), p["wo"]) for p, o in zip(shards, heads)], lay)
         if cfg.attention_bias:
             a = per_copy(torch.add, a, [p["bo"] for p in shards])
         hs = per_copy(torch.add, hs, a)
         normed = per_copy(lambda h, w: rms_norm(h, w, eps), hs, [p["ln2"] for p in shards])
-        mlp = reduce_shards([_mlp(p, x, cfg) for p, x in zip(shards, normed)])
+        mlp = reduce_shards([_mlp(p, enter_tp(x, lay, n), cfg) for p, x in zip(shards, normed)], lay)
         if cfg.mlp_bias:
             mlp = per_copy(torch.add, mlp, [p["bd"] for p in shards])
         outs.append(hs[0] + mlp[0])
-    return join_rows(outs), (kv_out if n > 1 else kv_out[0])
+    return join_rows(outs, n_ranks, lay), (kv_out if len(kv_out) > 1 else kv_out[0])
 
 
 def _qkv(p: dict, x, cos, sin, cfg: LlamaBlockConfig, n_shards: int):

@@ -28,8 +28,16 @@ from petals_tpu_torch.models.registry import ModelFamily, register_family
 from petals_tpu_torch.ops.grouped_matmul import grouped_matmul
 from petals_tpu_torch.ops.quant import QuantizedLinear
 from petals_tpu_torch.ops.rotary import apply_rotary, rotary_tables
-from petals_tpu_torch.parallel.collectives import per_copy, reduce_shards
-from petals_tpu_torch.parallel.sp import GridParams, attend_shards, block_grid, join_rows, rank_rows, seq_ranks
+from petals_tpu_torch.parallel.collectives import enter_tp, grid_layout, per_copy, reduce_shards
+from petals_tpu_torch.parallel.sp import (
+    GridParams,
+    attend_shards,
+    block_grid,
+    block_sizes,
+    join_rows,
+    rank_rows,
+    seq_ranks,
+)
 
 # chunks of at least this many rows (padded) take the sparse dispatch
 SPARSE_MIN_SEQ = 8
@@ -123,34 +131,36 @@ def block_apply(
     parallelism, as the JAX package's spec) and take the dense dispatch at
     every length under any mesh, as the JAX package's do."""
     grid, grid_kv = block_grid(params, kv)
-    n = len(grid[0])
+    lay = grid_layout(params)
+    n, shard_ts, n_sp = block_sizes(params, grid, kv)
     meshed = n > 1 or isinstance(params, GridParams)
     eps = cfg.rms_norm_eps
     batch, seq, _ = hidden_states.shape
-    n_ranks = seq_ranks(len(grid), seq, kv, position, n_valid)
+    n_ranks = seq_ranks(n_sp, seq, kv, position, n_valid)
     positions = absolute_positions(position, batch, seq, hidden_states.device)
     cos, sin = rotary_tables(positions, cfg.head_dim, theta=cfg.rope_theta)
     streams, qkv = [], []
-    for shards, x, c, s in zip(grid, rank_rows(hidden_states, n_ranks), rank_rows(cos, n_ranks),
-                               rank_rows(sin, n_ranks)):
+    for shards, x, c, s in zip(grid, rank_rows(hidden_states, n_ranks, lay), rank_rows(cos, n_ranks, lay),
+                               rank_rows(sin, n_ranks, lay)):
         hs = [x.to(p["ln1"].device) for p in shards]
         normed = per_copy(lambda h, w: rms_norm(h, w, eps), hs, [p["ln1"] for p in shards])
         streams.append(hs)
-        qkv.append([_qkv(p, y, c, s, cfg, n) for p, y in zip(shards, normed)])
-    attn, kv_out = attend_shards(qkv, grid_kv, position, n_valid, use_flash, cfg.sliding_window)
+        qkv.append([_qkv(p, enter_tp(y, lay, n), c, s, cfg, n) for p, y in zip(shards, normed)])
+    attn, kv_out = attend_shards(qkv, grid_kv, position, n_valid, use_flash, cfg.sliding_window, n_ranks=n_ranks,
+                                 layout=lay)
     outs = []
     for shards, hs, heads in zip(grid, streams, attn):
         rows = hs[0].shape[1]
         hs = per_copy(torch.add, hs, reduce_shards([mm(o.reshape(batch, rows, -1), p["wo"])
-                                                    for p, o in zip(shards, heads)]))
+                                                    for p, o in zip(shards, heads)], lay))
         # under autograd (a server's backward recompute) the dense path: K7
         # has no backward, and the dense einsums differentiate as they stand
         sparse = rows >= SPARSE_MIN_SEQ and not torch.is_grad_enabled() and not meshed
         normed = per_copy(lambda h, w: rms_norm(h, w, eps), hs, [p["ln2"] for p in shards])
-        moe = reduce_shards([moe_apply(p, x, cfg, sparse=sparse, n_shards=n, rank=t)
-                             for t, (p, x) in enumerate(zip(shards, normed))])
+        moe = reduce_shards([moe_apply(p, enter_tp(x, lay, n), cfg, sparse=sparse, n_shards=n, rank=t)
+                             for t, p, x in zip(shard_ts, shards, normed)], lay)
         outs.append(hs[0] + moe[0])
-    return join_rows(outs), (kv_out if n > 1 else kv_out[0])
+    return join_rows(outs, n_ranks, lay), (kv_out if len(kv_out) > 1 else kv_out[0])
 
 
 def _qkv(p: dict, x, cos, sin, cfg: MixtralBlockConfig, n_shards: int):

@@ -94,11 +94,16 @@ def attend_maybe_ring(
     use_flash: bool = False,
     alibi_slopes: Optional[torch.Tensor] = None,
     sliding_window: Optional[int] = None,
+    layout=None,  # a GroupLayout when the computing ranks span processes (this process's ranks given)
 ):
     """The attention every family block calls (petals_tpu/ops/attention.py
     ``attend_maybe_ring``), on one tp shard's heads; the ranks that compute
     come from ``parallel.sp.seq_ranks``. Returns (one output a computing
-    rank, rank 0's (k_all, v_all), or None on the stateless path).
+    rank, rank 0's (k_all, v_all), or None on the stateless path). Under a
+    ``layout`` the ranks given are this process's ranks [s0, s0 + n_s) of
+    the layout's sp: the ring steps between processes, and the cached path
+    gathers every rank's K/V rows first, so every process writes the whole
+    chunk into its copies.
 
     - Stateless, several ranks: the ring (ops/ring_attention.py) over the
       chunk's K/V blocks, float32, never the flash kernel.
@@ -114,15 +119,18 @@ def attend_maybe_ring(
     from petals_tpu_torch.models.common import update_kv_cache
     from petals_tpu_torch.parallel.sp import rank_n_valid
 
-    n = len(q)
+    n, first = (len(q), 0) if layout is None else (layout.sp, layout.s0)
     if kv is None:
         if n > 1:
             from petals_tpu_torch.ops.ring_attention import ring_attend
 
-            return ring_attend(q, k, v, alibi_slopes=alibi_slopes, sliding_window=sliding_window), None
+            return ring_attend(q, k, v, alibi_slopes=alibi_slopes, sliding_window=sliding_window,
+                               layout=layout), None
         return [attend(q[0], k[0], v[0], q_offset=position, alibi_slopes=_on(alibi_slopes, q[0]),
                        sliding_window=sliding_window, use_flash=use_flash)], None
     rows = q[0].shape[1]
+    if layout is not None:
+        k, v = (_gather_ranks(x, layout) for x in (k, v))
     written = {}
     for k_buf, v_buf in kv:
         if id(k_buf) in written:
@@ -140,14 +148,23 @@ def attend_maybe_ring(
     else:
         kv_length = position + (n * rows if n_valid is None else n_valid)
     outs = []
-    for r in range(n):
-        k_buf, v_buf = kv[r]
-        length = kv_length.to(q[r].device) if isinstance(kv_length, torch.Tensor) else kv_length
+    for i, qi in enumerate(q):
+        r = first + i
+        k_buf, v_buf = kv[i]
+        length = kv_length.to(qi.device) if isinstance(kv_length, torch.Tensor) else kv_length
         outs.append(attend(
-            q[r], k_buf, v_buf, q_offset=position + r * rows if r else position, kv_length=length,
-            alibi_slopes=_on(alibi_slopes, q[r]), sliding_window=sliding_window, use_flash=use_flash,
+            qi, k_buf, v_buf, q_offset=position + r * rows if r else position, kv_length=length,
+            alibi_slopes=_on(alibi_slopes, qi), sliding_window=sliding_window, use_flash=use_flash,
         ))
     return outs, kv[0]
+
+
+def _gather_ranks(parts, layout):
+    """Every sp rank's rows of one shard, in rank order, from this
+    process's ranks' ``parts``: a gather over the sp group."""
+    from petals_tpu_torch.parallel.collectives import gather_rows
+
+    return list(gather_rows(torch.cat(list(parts), dim=1), layout).split(parts[0].shape[1], dim=1))
 
 
 def _beside(rows: torch.Tensor, buf) -> torch.Tensor:

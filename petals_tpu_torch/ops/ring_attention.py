@@ -11,6 +11,13 @@ Causality, ALiBi and a sliding window are taken on GLOBAL positions, so
 every family's attention can ride the ring. The JAX package's ring is plain
 jnp, no Pallas kernel, and so is this one. ``FOLDS`` counts the blocks
 folded (a ring of n ranks folds n * n per call).
+
+Across processes (parallel/multihost.py) each process holds a run of
+consecutive ranks: a rotation moves blocks within the run, and its last
+rank's block to the next process's first rank (``collectives.ring_pass``,
+send and receive at once; its backward goes round the other way). Each
+process folds its own ranks' n blocks a rank, so the ``FOLDS`` of all the
+processes sum to n * n a call.
 """
 
 from __future__ import annotations
@@ -39,12 +46,13 @@ def ring_attend(
     scale: Optional[float] = None,
     alibi_slopes: Optional[torch.Tensor] = None,  # [hq] BLOOM-style slopes of these heads
     sliding_window: Optional[int] = None,  # on global positions
+    layout=None,  # a GroupLayout: the ranks given are this process's [s0, s0 + n_s) of its sp
 ) -> List[torch.Tensor]:
     """Causal attention of every rank's queries over the whole sequence;
     returns one [b, rows, hq, d] output a rank, on its queries' device, in
     their dtype. Rank r's rows sit at global positions [r * rows, (r + 1) *
     rows)."""
-    n = len(q)
+    n, first = (len(q), 0) if layout is None else (layout.sp, layout.s0)
     batch, rows, hq, d = q[0].shape
     hkv = k[0].shape[2]
     group = hq // hkv
@@ -59,12 +67,20 @@ def ring_attend(
             torch.zeros((batch, hq, rows, d), dtype=torch.float32, device=dev),
         ))
     blocks = list(zip(k, v))
+    local = len(q)
     for i in range(n):
-        for r in range(n):
-            state[r] = _fold(q[r].float(), blocks[r], state[r], r, (r - i) % n, rows, scale, group,
+        for j in range(local):
+            r = first + j
+            state[j] = _fold(q[j].float(), blocks[j], state[j], r, (r - i) % n, rows, scale, group,
                              alibi_slopes, sliding_window)
         if i < n - 1:  # rotate: each rank receives the previous rank's block
-            blocks = [tuple(t.to(q[r].device) for t in blocks[(r - 1) % n]) for r in range(n)]
+            if layout is None:
+                blocks = [tuple(t.to(q[r].device) for t in blocks[(r - 1) % n]) for r in range(n)]
+            else:
+                from petals_tpu_torch.parallel.collectives import ring_pass
+
+                incoming = tuple(ring_pass(t, layout).to(q[0].device) for t in blocks[-1])
+                blocks = [incoming] + [tuple(t.to(q[j].device) for t in blocks[j - 1]) for j in range(1, local)]
     return [(acc / l.clamp_min(1e-30)[..., None]).transpose(1, 2).to(qr.dtype)
             for (_, l, acc), qr in zip(state, q)]
 

@@ -15,6 +15,16 @@ replicated cache on the cached path. A chunk that does not split (a decode
 step, an indivisible length) runs on rank 0 alone, and its K/V rows are
 written into every rank's copy. One rank is the tp-only block, and one
 rank of one shard the unsharded block.
+
+Across processes (parallel/multihost.py) ``GridParams`` holds this
+process's entries of the global grid only and carries their
+``GroupLayout`` (parallel/collectives.py): ``block_sizes`` gives the
+global tp and sp sizes and the global index of each local shard,
+``rank_rows`` this process's ranks' rows, ``join_rows`` gathers every
+process's rows, and attention meets the other processes' ranks
+(``attend_maybe_ring``: a ring step between processes, or a gather of the
+chunk's K/V rows on the cached path). A chunk that does not split runs on
+every process's first rank alike.
 """
 
 from __future__ import annotations
@@ -25,15 +35,18 @@ import torch
 
 from petals_tpu_torch.ops.attention import attend_maybe_ring
 from petals_tpu_torch.ops.quant import QuantizedLinear
+from petals_tpu_torch.parallel.collectives import gather_rows, grid_layout
 from petals_tpu_torch.parallel.tp import ShardedCache, is_sharded
 
 
 class GridParams:
     """One block's parameters over a tp x sp grid: ``ranks[r][t]`` is tp
-    shard t's dict on sp rank r's device for that shard."""
+    shard t's dict on sp rank r's device for that shard. Across processes
+    ``layout`` (a ``GroupLayout``) places these entries in the global grid."""
 
-    def __init__(self, ranks: Sequence[Sequence[dict]]):
+    def __init__(self, ranks: Sequence[Sequence[dict]], layout=None):
         self.ranks = [list(r) for r in ranks]
+        self.layout = layout
 
     def distinct(self) -> List[dict]:
         """Every distinct shard dict, once each."""
@@ -69,15 +82,16 @@ def replicate_over_sp(shards: Sequence[dict], devices: Sequence[torch.device], n
 
 def map_shards(params, fn):
     """``params`` (a dict, a list of tp shard dicts or ``GridParams``) with
-    ``fn(shard_dict, t)`` applied to each distinct shard dict (t: its tp
-    rank), once each, the structure and its sharing kept."""
+    ``fn(shard_dict, t)`` applied to each distinct shard dict (t: its global
+    tp rank), once each, the structure, its sharing and its layout kept."""
     if isinstance(params, GridParams):
+        t0 = params.layout.t0 if params.layout is not None else 0
         done = {}
         for r in params.ranks:
             for t, p in enumerate(r):
                 if id(p) not in done:
-                    done[id(p)] = fn(p, t)
-        return GridParams([[done[id(p)] for p in r] for r in params.ranks])
+                    done[id(p)] = fn(p, t0 + t)
+        return GridParams([[done[id(p)] for p in r] for r in params.ranks], params.layout)
     if is_sharded(params):
         return [fn(p, t) for t, p in enumerate(params)]
     return fn(params, 0)
@@ -110,6 +124,19 @@ def block_grid(params, kv) -> tuple:
     return ranks[: len(rank_kv)], rank_kv
 
 
+def block_sizes(params, grid, kv) -> tuple:
+    """(n_tp, shard_ts, n_sp) of one block's call: the global tp size, the
+    global tp index of each of ``grid``'s local shards (``block_grid``'s
+    ranks), and how many sp ranks the call may split over: the global sp
+    on the stateless path, the ranks its cache is replicated over on the
+    cached path (one for the tp-only scratch buffer)."""
+    lay = grid_layout(params)
+    if lay is None:
+        return len(grid[0]), range(len(grid[0])), len(grid)
+    n_sp = lay.sp if kv is None else (getattr(kv[0], "n_sp", None) or 1)
+    return lay.tp, range(lay.t0, lay.t0 + lay.n_t), n_sp
+
+
 def seq_ranks(n_ranks: int, seq: int, kv, position, n_valid) -> int:
     """How many ranks split a chunk of ``seq`` rows (petals_tpu's
     ``attend_maybe_ring`` preconditions): on the stateless path (``kv``
@@ -132,19 +159,25 @@ def seq_ranks(n_ranks: int, seq: int, kv, position, n_valid) -> int:
     return n_ranks if seq > 1 and seq % n_ranks == 0 else 1
 
 
-def rank_rows(hidden: torch.Tensor, n: int) -> List[torch.Tensor]:
+def _split_over(layout, n: int) -> bool:
+    """Whether a chunk split over ``n`` ranks crosses processes."""
+    return layout is not None and n > 1 and layout.sp_group is not None
+
+
+def rank_rows(hidden: torch.Tensor, n: int, layout=None) -> List[torch.Tensor]:
     """``hidden`` [batch, seq, ...]'s rows cut into ``n`` equal parts, in
-    rank order (views)."""
+    rank order (views); across processes this process's ranks' parts."""
     rows = hidden.shape[1] // n
-    return [hidden.narrow(1, r * rows, rows) for r in range(n)]
+    ranks = range(layout.s0, layout.s0 + layout.n_s) if _split_over(layout, n) else range(n)
+    return [hidden.narrow(1, r * rows, rows) for r in ranks]
 
 
-def join_rows(parts: Sequence[torch.Tensor]) -> torch.Tensor:
+def join_rows(parts: Sequence[torch.Tensor], n: int = 1, layout=None) -> torch.Tensor:
     """The ranks' row parts as one [batch, seq, ...] tensor on rank 0's
-    device (one part is returned as it is)."""
-    if len(parts) == 1:
-        return parts[0]
-    return torch.cat([p.to(parts[0].device) for p in parts], dim=1)
+    device (one part is returned as it is); a chunk split over ``n`` ranks
+    across processes gathers every process's rows."""
+    out = parts[0] if len(parts) == 1 else torch.cat([p.to(parts[0].device) for p in parts], dim=1)
+    return gather_rows(out, layout) if _split_over(layout, n) else out
 
 
 def rank_n_valid(n_valid, r: int, rows: int):
@@ -158,11 +191,15 @@ def rank_n_valid(n_valid, r: int, rows: int):
     return min(max(int(n_valid) - r * rows, 0), rows)
 
 
-def attend_shards(qkv, grid_kv, position, n_valid, use_flash, sliding_window, slopes=None):
+def attend_shards(qkv, grid_kv, position, n_valid, use_flash, sliding_window, slopes=None, *, n_ranks: int = 1,
+                  layout=None):
     """Attention of each tp shard's heads across the computing ranks:
     ``qkv[r][t]`` is rank r's (q, k, v) on shard t, ``grid_kv`` the ranks'
-    caches (None: stateless), ``slopes`` each shard's ALiBi slopes. Returns
-    (``out[r][t]``, each shard's rank-0 (k_all, v_all) or None)."""
+    caches (None: stateless), ``slopes`` each shard's ALiBi slopes. Under a
+    layout whose sp ranks span processes, a chunk split over ``n_ranks``
+    meets the other processes' ranks. Returns (``out[r][t]``, each shard's
+    rank-0 (k_all, v_all) or None)."""
+    cross = layout if _split_over(layout, n_ranks) else None
     n_ranks, n = len(qkv), len(qkv[0])
     out = [[None] * n for _ in range(n_ranks)]
     kv_out = []
@@ -171,7 +208,7 @@ def attend_shards(qkv, grid_kv, position, n_valid, use_flash, sliding_window, sl
         res, k_v = attend_maybe_ring(
             q, k, v, kv=None if grid_kv is None else [ranks[t] for ranks in grid_kv], position=position,
             n_valid=n_valid, use_flash=use_flash, sliding_window=sliding_window,
-            alibi_slopes=None if slopes is None else slopes[t],
+            alibi_slopes=None if slopes is None else slopes[t], layout=cross,
         )
         for r in range(n_ranks):
             out[r][t] = res[r]
@@ -179,5 +216,5 @@ def attend_shards(qkv, grid_kv, position, n_valid, use_flash, sliding_window, sl
     return out, kv_out
 
 
-__all__ = ["GridParams", "replicate_over_sp", "map_shards", "block_grid", "seq_ranks", "rank_rows",
+__all__ = ["GridParams", "replicate_over_sp", "map_shards", "block_grid", "block_sizes", "seq_ranks", "rank_rows",
            "join_rows", "rank_n_valid", "attend_shards"]

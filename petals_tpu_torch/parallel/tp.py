@@ -160,12 +160,13 @@ def _shard_leaf(leaf, axis: Optional[int], rank: int, n: int, device: torch.devi
 
 
 def shard_span_params(blocks: Sequence[dict], devices: Sequence[torch.device], family_name: str,
-                      cfg) -> List[List[dict]]:
+                      cfg, *, n_shards: Optional[int] = None, first: int = 0) -> List[List[dict]]:
     """One dict a shard for each block of ``blocks`` (per-block dicts):
     ``out[i][s]`` is block i's part on ``devices[s]``. Refuses the outlier
     kinds (their side arrays have no split) with NotImplementedError and,
     before anything is copied, any split that is not whole
-    (``validate_tp_divisibility``)."""
+    (``validate_tp_divisibility``). Across processes ``devices`` holds
+    shards [first, first + len(devices)) of a split into ``n_shards``."""
     if any(isinstance(leaf, OutlierQuantLinear) for b in blocks for leaf in b.values()):
         raise NotImplementedError(
             "outlier-augmented quantization ('+o' kinds) does not compose "
@@ -173,10 +174,10 @@ def shard_span_params(blocks: Sequence[dict], devices: Sequence[torch.device], f
             "no PartitionSpecs; use the base kind (nf4a/int4) under TP"
         )
     specs = span_param_specs(family_name, cfg)
-    n = len(devices)
+    n = len(devices) if n_shards is None else int(n_shards)
     validate_tp_divisibility(blocks, n, specs,
                              num_kv_heads=getattr(cfg, "num_key_value_heads", cfg.num_attention_heads))
-    return [[{name: _shard_leaf(leaf, specs[name], s, n, torch.device(dev)) for name, leaf in b.items()}
+    return [[{name: _shard_leaf(leaf, specs[name], first + s, n, torch.device(dev)) for name, leaf in b.items()}
              for s, dev in enumerate(devices)] for b in blocks]
 
 
@@ -197,11 +198,20 @@ class ShardedCache:
     dense cache: indexing of the leading axes (every copy, views),
     ``clone``, ``zero_``, ``copy_`` of a whole tensor (split, into every
     copy) or of another ShardedCache, ``index_select`` on a leading axis,
-    and reads out (``cpu``, ``to``, ``join``) that join rank 0's shards."""
+    and reads out (``cpu``, ``to``, ``join``) that join rank 0's shards.
+    Across processes it holds this process's shards only: heads
+    [head_offset, head_offset + local heads) of ``total_heads``; ``shape``
+    is the logical buffer's, a whole tensor written in gives each shard its
+    own heads, and a read out joins the local heads (the whole buffer is
+    gathered by parallel/multihost.py's export)."""
 
     def __init__(self, shards: Optional[Sequence[torch.Tensor]] = None,
-                 ranks: Optional[Sequence[Sequence[torch.Tensor]]] = None):
+                 ranks: Optional[Sequence[Sequence[torch.Tensor]]] = None, *, total_heads: Optional[int] = None,
+                 head_offset: int = 0, n_sp: Optional[int] = None):
         self.ranks = [list(r) for r in ranks] if ranks is not None else [list(shards)]
+        # across processes: the global heads, where this process's start,
+        # and how many sp ranks of the global grid the buffer is replicated over
+        self.total_heads, self.head_offset, self.n_sp = total_heads, head_offset, n_sp
 
     @property
     def shards(self) -> List[torch.Tensor]:
@@ -222,12 +232,13 @@ class ShardedCache:
             for t in r:
                 if id(t) not in done:
                     done[id(t)] = fn(t)
-        return ShardedCache(ranks=[[done[id(t)] for t in r] for r in self.ranks])
+        return ShardedCache(ranks=[[done[id(t)] for t in r] for r in self.ranks], total_heads=self.total_heads,
+                            head_offset=self.head_offset, n_sp=self.n_sp)
 
     @property
     def shape(self) -> torch.Size:
         s = list(self.shards[0].shape)
-        s[HEAD_AXIS] = sum(t.shape[HEAD_AXIS] for t in self.shards)
+        s[HEAD_AXIS] = self.total_heads or sum(t.shape[HEAD_AXIS] for t in self.shards)
         return torch.Size(s)
 
     @property
@@ -275,7 +286,7 @@ class ShardedCache:
         as many ranks is copied rank to rank, else from its rank 0."""
         done = set()
         for r, shards in enumerate(self.ranks):
-            off = 0
+            off = self.head_offset
             for s, t in enumerate(shards):
                 if id(t) not in done:
                     done.add(id(t))
@@ -313,11 +324,17 @@ class ShardedDescriptor:
     shard t of rank r), and a shard whose ranks share a device is one
     tensor."""
 
-    def __init__(self, shape, dtype: torch.dtype, devices: Sequence[torch.device], num_sp: int = 1):
+    def __init__(self, shape, dtype: torch.dtype, devices: Sequence[torch.device], num_sp: int = 1, *,
+                 n_shards: Optional[int] = None, first: int = 0, total_sp: Optional[int] = None):
+        """Across processes ``devices`` holds shards [first, first + n_t) of
+        a split of the heads into ``n_shards``, and the buffer is replicated
+        over ``total_sp`` ranks of the global grid."""
         devices = [torch.device(d) for d in devices]
         n = len(devices) // num_sp
-        if shape[HEAD_AXIS] % n:
-            raise ValueError(f"{shape[HEAD_AXIS]} kv heads do not split over {n} shards")
+        self.n_shards = n if n_shards is None else int(n_shards)
+        if shape[HEAD_AXIS] % self.n_shards:
+            raise ValueError(f"{shape[HEAD_AXIS]} kv heads do not split over {self.n_shards} shards")
+        self.first, self.total_sp = first, total_sp
         self.shape, self.dtype, self.num_sp = tuple(shape), dtype, num_sp
         # grid[r][t]: shard t's device on rank r
         self.grid = [[devices[t * num_sp + r] for t in range(n)] for r in range(num_sp)]
@@ -333,10 +350,14 @@ class ShardedDescriptor:
 
     def make_zeros(self) -> ShardedCache:
         part = list(self.shape)
-        part[HEAD_AXIS] //= len(self.devices)
+        part[HEAD_AXIS] //= self.n_shards
         made = {}
         for row in self.grid:
             for t, d in enumerate(row):
                 if (t, d) not in made:
                     made[(t, d)] = torch.zeros(part, dtype=self.dtype, device=d)
-        return ShardedCache(ranks=[[made[(t, d)] for t, d in enumerate(row)] for row in self.grid])
+        ranks = [[made[(t, d)] for t, d in enumerate(row)] for row in self.grid]
+        if self.total_sp is None:
+            return ShardedCache(ranks=ranks)
+        return ShardedCache(ranks=ranks, total_heads=self.shape[HEAD_AXIS], head_offset=self.first * part[HEAD_AXIS],
+                            n_sp=self.total_sp)

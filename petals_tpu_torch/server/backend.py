@@ -303,6 +303,7 @@ class TransformerBackend:
         use_flash: Optional[bool] = None,
         tp_devices: Optional[Sequence] = None,
         num_sp_devices: int = 1,
+        layout=None,
     ):
         """``params`` is a list of per-block dicts, or one dict whose leaves
         are stacked along a leading block axis (utils/convert.py
@@ -319,14 +320,22 @@ class TransformerBackend:
         ``num_sp_devices`` > 1 it lists the tp x sp grid in
         ``parallel.mesh.serving_devices``' order (entry t * sp + r: shard t
         of sp rank r), and the shards are replicated over the ranks
-        (``GridParams``, one copy a distinct device)."""
+        (``GridParams``, one copy a distinct device). Across processes
+        (parallel/multihost.py) ``layout`` (a ``GroupLayout``) places this
+        process's entries in the global grid: ``tp_devices`` then lists this
+        process's n_t x n_s entries in the same order, ``num_sp_devices`` is
+        its n_s, unsharded blocks keep its shards only, and ``tp_size`` /
+        ``sp_size`` / ``mesh_size`` are the global grid's."""
         if kv_quant_type not in KV_QUANT_KINDS:
             raise ValueError(f"kv_quant_type must be one of {KV_QUANT_KINDS}, got {kv_quant_type!r}")
         mesh = [torch.device(d) for d in tp_devices] if tp_devices else [torch.device(device)]
         num_sp = int(num_sp_devices or 1)
         if num_sp < 1 or len(mesh) % num_sp:
             raise ValueError(f"{len(mesh)} devices do not form a grid of {num_sp} sp ranks")
-        if kv_quant_type != "none" and len(mesh) > 1:
+        if layout is not None and (layout.n_t * layout.n_s, layout.n_s) != (len(mesh), num_sp):
+            raise ValueError(f"{len(mesh)} devices of {num_sp} sp ranks are not the layout's "
+                             f"{layout.n_t} x {layout.n_s} entries")
+        if kv_quant_type != "none" and (len(mesh) > 1 or layout is not None):
             raise ValueError("kv_quant_type requires a mesh-less server (paged pool only)")
         if kv_quant_type == "nf4a" and cfg.head_dim % 2:
             raise ValueError(f"nf4a KV packing needs an even head_dim, got {cfg.head_dim}")
@@ -339,20 +348,25 @@ class TransformerBackend:
         if len(params) != n_blocks:
             raise ValueError(f"got parameters for {len(params)} blocks, expected {n_blocks}")
         # the whole grid, rank 0's shards' devices, and its sizes
+        # (across processes: this process's entries, the global sizes)
+        self.layout = layout
         self.mesh_devices: List[torch.device] = mesh
-        self.sp_size = num_sp
         self.tp_devices: List[torch.device] = mesh[::num_sp]
-        self.tp_size = len(self.tp_devices)
-        self.mesh_size = len(mesh)
+        self.sp_size = num_sp if layout is None else layout.sp
+        self.tp_size = len(self.tp_devices) if layout is None else layout.tp
+        self.mesh_size = self.tp_size * self.sp_size
         if self.mesh_size > 1:
             device = mesh[0]
             # any mesh splits the parameters (petals_tpu's span_param_pspecs):
             # a family without a spec, or a fused leaf, raises KeyError at sp
             # alone too
             if not (is_sharded(params[0]) or isinstance(params[0], GridParams)):
-                params = shard_span_params(params, self.tp_devices, family.name, cfg)
+                params = shard_span_params(params, self.tp_devices, family.name, cfg, n_shards=self.tp_size,
+                                           first=0 if layout is None else layout.t0)
             if num_sp > 1 and not isinstance(params[0], GridParams):
                 params = [replicate_over_sp(shards, mesh, num_sp) for shards in params]
+            if layout is not None:
+                params = [GridParams(p.ranks if isinstance(p, GridParams) else [p], layout) for p in params]
         # a block's parameters: one dict, under tensor parallelism a list of
         # one dict a shard, under sequence parallelism GridParams
         self.block_params: List[object] = list(params)
@@ -405,10 +419,9 @@ class TransformerBackend:
         batch_size = n_lanes)."""
         shape = (end - start, batch_size, max_length, self.num_kv_heads, self.head_dim)
         if self.mesh_size > 1:  # one part of the kv heads a shard, one copy a distinct device over sp
-            return (
-                ShardedDescriptor(shape, self.compute_dtype, self.mesh_devices, self.sp_size),
-                ShardedDescriptor(shape, self.compute_dtype, self.mesh_devices, self.sp_size),
-            )
+            local_sp = len(self.mesh_devices) // len(self.tp_devices)
+            return tuple(ShardedDescriptor(shape, self.compute_dtype, self.mesh_devices, local_sp,
+                                           **self._head_split(self.sp_size)) for _ in "kv")
         return (
             TensorDescriptor(shape, self.compute_dtype, self.device),
             TensorDescriptor(shape, self.compute_dtype, self.device),
@@ -740,6 +753,7 @@ class TransformerBackend:
             with torch.enable_grad():
                 out = self._train_block(params[i], x)
                 (g,) = torch.autograd.grad(out, x, g)
+            g = self._sp_rows_joined(g)
             inputs[i] = None  # the block's input is spent: free it
             if pre:
                 grad_prompts[i] = g[:, :pre]
@@ -761,7 +775,38 @@ class TransformerBackend:
         if self.mesh_size == 1:
             return tuple(d.make_zeros()[0] for d in self.cache_descriptors(batch, length, 0, 1))
         shape = (1, batch, length, self.num_kv_heads, self.head_dim)
-        return tuple(ShardedDescriptor(shape, self.compute_dtype, self.tp_devices).make_zeros()[0] for _ in "kv")
+        return tuple(ShardedDescriptor(shape, self.compute_dtype, self.tp_devices, **self._head_split(1))
+                     .make_zeros()[0] for _ in "kv")
+
+    def _head_split(self, n_sp: int) -> dict:
+        """A ShardedDescriptor's split across processes: this process's
+        shards of the global tp split of the kv heads, replicated over
+        ``n_sp`` ranks of the global grid."""
+        if self.layout is None:
+            return {}
+        return {"n_shards": self.tp_size, "first": self.layout.t0, "total_sp": n_sp}
+
+    def sub_backend(self, start: int, end: int) -> "TransformerBackend":
+        """A backend over blocks [start, end) of this span: the same weights
+        (views, no copy), devices, settings and layout; no adapters."""
+        return TransformerBackend(
+            self.family, self.cfg, self._slice_params(start, end),
+            first_block=self.first_block + start, n_blocks=end - start, device=self.device,
+            compute_dtype=self.compute_dtype, max_chunk_size_bytes=self.max_chunk_size_bytes,
+            quant_type=self.quant_type, use_flash=self.use_flash, tp_devices=self.mesh_devices,
+            num_sp_devices=len(self.mesh_devices) // len(self.tp_devices), layout=self.layout,
+        )
+
+    def _sp_rows_joined(self, g: torch.Tensor) -> torch.Tensor:
+        """A block input's gradient on the ring across processes holds this
+        process's rows only (every other row's part reached its own
+        process round the ring): the rows of every process, gathered."""
+        lay = self.layout
+        if lay is None or lay.sp_group is None or not self._rides_ring(g.shape[1]):
+            return g
+        from petals_tpu_torch.parallel.collectives import gather_rows, own_rows
+
+        return gather_rows(own_rows(g, lay), lay)
 
     @torch.no_grad()
     def batched_decode_step(self, hidden, pool_kv, positions):

@@ -110,7 +110,16 @@ fused digest of each lane's last row (server/backend.py ``pop_step_fp``),
 which ``_capture_step_fp`` stashes per lane for the handler's reply
 (``pop_step_fp``); a mixed step's chunk lane takes its chunk's digest.
 
-Not ported yet: multi-host lockstep (its mirrored temp handles).
+Multi-host lockstep (parallel/multihost.py; a ``LockstepBackend``): the
+pool is the dense one, mirrored on every worker by handle; the batched
+decode step broadcasts. Work the batched step does not cover checks a lane
+out under a synthetic negative handle minted here (``_new_temp``; the
+backend's ``lane_extract`` registers every process's view of the lane under
+it) and back in (``lane_insert``); a check-out that is not inserted back (a
+failed op, a read-only snapshot) is released (``_release_temp``), and
+``snapshot_lane`` reads a lane through the group's export. A failed step
+under lockstep degrades the group rather than resetting the pool: the
+workers' mirrors would desync.
 """
 
 from __future__ import annotations
@@ -298,6 +307,10 @@ class DecodeBatcher:
         self._handles = None
         # bumped by a pool reset: every outstanding lane is invalidated
         self._generation = 0
+        # multi-host lockstep: lane check-outs live on the workers under
+        # synthetic NEGATIVE handles (never a MemoryCache handle)
+        self._lockstep = bool(getattr(backend, "is_lockstep", False))
+        self._temp_ids = itertools.count(-2, -1)
         # makes the compute thread's post-step generation check atomic with
         # respect to a reset (check-then-act alone is a race)
         self._reset_lock = make_thread_lock("batching._reset_lock")
@@ -1583,6 +1596,14 @@ class DecodeBatcher:
         own lanes' frontiers."""
         if self._handles is None or not isinstance(error, RuntimeError):
             return
+        if self._lockstep:
+            # under lockstep a failed op degraded the group (multihost
+            # _degrade_on_failure): a leader-local reset would desync the
+            # workers' mirrors; the outstanding sessions are invalidated
+            with self._reset_lock:
+                self._generation += 1
+            logger.warning(f"Lockstep pool step failed ({error!r}): invalidating outstanding pooled sessions")
+            return
         logger.warning(f"Pool step failed on the device ({error!r}): resetting the lane pool")
         with self._reset_lock:
             self._generation += 1
@@ -1841,19 +1862,37 @@ class DecodeBatcher:
 
     # ------------------------------------------------------- non-batchable ops
 
-    def _extract_lane(self, lane: int):
+    def _new_temp(self) -> Optional[int]:
+        """A synthetic mirror handle for a lane check-out under lockstep
+        (None otherwise)."""
+        return next(self._temp_ids) if self._lockstep else None
+
+    def _release_temp(self, temp: Optional[int]) -> None:
+        """Drop a check-out's mirror that will NOT be inserted back (a failed
+        op, a read-only snapshot), or every worker keeps it."""
+        if temp is None:
+            return
+        try:
+            self.backend.release_temp(temp)
+        except Exception as e:  # a degraded group dropped the mirrors with its workers
+            logger.debug(f"releasing lockstep check-out {temp} failed: {e!r}")
+
+    def _extract_lane(self, lane: int, temp: Optional[int] = None):
         """Compute-thread body: the lane as session-shaped [n_blocks, 1,
         max_length, hkv, d] buffers, so the functions that run on it need
         not know the mode: a dense lane's view of the pool (its address
         never changes, so its step programs stay valid), a paged lane
         gathered through its table row into a copy (a quantized pool
-        decoded)."""
+        decoded). Under lockstep (``temp``) every process checks its view
+        out under the synthetic handle."""
         k_pool, v_pool = self._buffers()
+        if temp is not None:
+            return self.backend.lane_extract(k_pool, v_pool, lane, pool_handle=self._handles[0], temp_handle=temp)
         if self.page_size is not None:
             return self.backend.paged_lane_gather(k_pool, v_pool, self._tables[lane].copy())
         return self.backend.dense_lane_view(k_pool, v_pool, lane)
 
-    def _insert_lane(self, lane: int, kv_lane) -> None:
+    def _insert_lane(self, lane: int, kv_lane, temp: Optional[int] = None) -> None:
         """Compute-thread body: the lane checked back IN, under the reset
         lock: a reset landing mid-way must never be followed by a write of
         pre-reset content into the zeroed pool. The lane check raises before
@@ -1864,7 +1903,10 @@ class DecodeBatcher:
         k2, v2 = kv_lane
         with self._reset_lock:
             self._check_lane(lane)
-            if self.page_size is not None:
+            if temp is not None:
+                self.backend.lane_insert(*self._buffers(), kv_lane, lane, pool_handle=self._handles[0],
+                                         temp_handle=temp)
+            elif self.page_size is not None:
                 k_pool, v_pool = self._buffers()
                 # unallocated (-1) slots drop: content past the session's
                 # resident pages never lands anywhere
@@ -1897,8 +1939,13 @@ class DecodeBatcher:
             def run():
                 self._check_lane(lane)  # re-check: a reset may have raced the queue
                 t_run = time.perf_counter()
-                result, kv_lane = fn(self._extract_lane(lane) if extract else None)
-                self._insert_lane(lane, kv_lane)
+                temp = self._new_temp()
+                try:
+                    result, kv_lane = fn(self._extract_lane(lane, temp) if extract else None)
+                    self._insert_lane(lane, kv_lane, temp)
+                except BaseException:
+                    self._release_temp(temp)
+                    raise
                 if ledger_key is not None:
                     self._ledger.note_compute([ledger_key], time.perf_counter() - t_run)
                 return result
@@ -1924,6 +1971,15 @@ class DecodeBatcher:
 
             def run():
                 self._check_lane(lane)  # re-check: a reset may have raced the queue
+                temp = self._new_temp()
+                if temp is not None:
+                    # a read-only check-out: the group's export, then the release
+                    view = self._extract_lane(lane, temp)
+                    try:
+                        k, v = self.backend.export_kv(view, b0, b1, position)
+                    finally:
+                        self._release_temp(temp)
+                    return (k, v, None, None) if return_device else (k, v)
                 k, v = self._extract_lane(lane)
                 kd, vd = k[b0:b1, :, :position].clone(), v[b0:b1, :, :position].clone()
                 host = (kd.cpu(), vd.cpu())
@@ -1958,12 +2014,18 @@ class DecodeBatcher:
 
             def extract():
                 self._check_lane(lane)
-                state["kv"] = self._extract_lane(lane)
+                state["temp"] = self._new_temp()
+                state["kv"] = self._extract_lane(lane, state["temp"])
 
             def insert():
-                self._insert_lane(lane, state["kv"])  # checks the lane first
+                self._insert_lane(lane, state["kv"], state.get("temp"))  # checks the lane first
 
-            await self.queue.submit(extract, priority=PRIORITY_INFERENCE, size=0)
+            try:
+                await self.queue.submit(extract, priority=PRIORITY_INFERENCE, size=0)
+            except BaseException:
+                # a failure after the check-out's broadcast leaves the workers' mirror
+                self._release_temp(state.get("temp"))
+                raise
             results = []
             try:
                 for fn in chunk_fns:
@@ -1985,13 +2047,18 @@ class DecodeBatcher:
                         raise
             finally:
                 if "kv" in state:
+                    inserted = False
                     try:
                         await self.queue.submit(insert, priority=PRIORITY_INFERENCE, size=0)
+                        inserted = True
                     except AllocationFailed:
                         pass  # lane invalidated mid-prefill: nothing to check in
                     except BaseException as e:
                         self._maybe_reset_pool(e)
                         raise
+                    finally:
+                        if not inserted:  # the workers' check-out is never consumed
+                            self._release_temp(state.get("temp"))
             return results
 
     async def snapshot_from_swap(self, lane: int, position: int, b0: int, b1: int):

@@ -350,24 +350,23 @@ class TransformerHandler:
     def _sub_backend(self, start: int, end: int) -> TransformerBackend:
         """The backend serving blocks [start, end) of the span: the span's own
         for the whole of it, else one over a slice of its parameters (views,
-        no copy), cached per (start, end)."""
+        no copy), cached per (start, end). Under multi-host lockstep the
+        slice is wrapped in a view that the workers execute over the same
+        slice (``sub_view``)."""
         if start == 0 and end == self.backend.n_blocks:
             return self.backend
         key = (start, end)
         if key not in self._sub_backends:
-            b = self.backend
-            self._sub_backends[key] = TransformerBackend(
-                b.family, b.cfg, b._slice_params(start, end),
-                first_block=b.first_block + start, n_blocks=end - start, device=b.device,
-                compute_dtype=b.compute_dtype, max_chunk_size_bytes=b.max_chunk_size_bytes,
-                quant_type=b.quant_type, use_flash=b.use_flash, tp_devices=b.mesh_devices,
-                num_sp_devices=b.sp_size,
-            )
+            sub = self.backend.sub_backend(start, end)
+            if getattr(self.backend, "is_lockstep", False):
+                sub = self.backend.sub_view(sub, start, end)
+            self._sub_backends[key] = sub
         sub = self._sub_backends[key]
         # the adapters' blocks of the slice, as the span's own (loaded or
         # replaced after the slice was made)
-        sub.adapters = {name: (per_block[start:end], scaling)
-                        for name, (per_block, scaling) in self.backend.adapters.items()}
+        getattr(sub, "_backend", sub).adapters = {
+            name: (per_block[start:end], scaling) for name, (per_block, scaling) in self.backend.adapters.items()
+        }
         return sub
 
     def _validate_step_tensors(self, hidden, prompts, hypo_ids, batch_size: int, n_blocks: int) -> None:
@@ -940,6 +939,9 @@ class TransformerHandler:
                 pair = await batcher.snapshot_lane(reg["lane"], position, b0, b1)
         else:
             def read():
+                if getattr(self.backend, "is_lockstep", False):
+                    # the shards live on every process: the group's export
+                    return self.backend.export_kv(reg["kv"], b0, b1, position)
                 return tuple(t[b0:b1, :, :position].to("cpu", copy=True) for t in reg["kv"])
 
             pair = await self.queue.submit(read, priority=PRIORITY_INFERENCE, size=0)
@@ -1471,6 +1473,8 @@ class TransformerHandler:
                     snap = await batcher.snapshot_lane(lane, boundary, 0, n_blocks, return_device=return_device)
             else:
                 def read():
+                    if getattr(self.backend, "is_lockstep", False):  # host copies only, through the export
+                        return self.backend.export_kv(kv, 0, n_blocks, boundary)
                     k, v = (t[:, :, :boundary] for t in kv)
                     host = (k.cpu(), v.cpu())
                     if pc.device_max_bytes <= 0 or not device:

@@ -132,6 +132,26 @@ ValueError; the ``+o`` kinds and the families without a split
 (parallel/tp.py) fail at load, as in the JAX package. LoRA adapters are
 served on a mesh: each shard takes its part of A or B.
 
+Multi-host lockstep serving (petals_tpu/server/server.py's ``num_hosts``
+and ``coordinator_address``; parallel/multihost.py): with ``num_hosts`` > 1
+this server is the LEADER, process 0 of a ``torch.distributed`` group of
+``num_hosts`` processes; the other processes run ``cli/run_worker.py`` with
+the same model, span, quantization and dtype. The tp x sp grid lies over
+every process's devices (this process's: ``tp_devices``, else ``device``),
+the span loads unfused with each process's shards only, and every compute
+op, allocation and free is broadcast so the workers enter it with their
+shards. The span must be given (``first_block`` and ``num_blocks``);
+server-side generation and the draft are off, as in the JAX package.
+Auto-throughput is probed on the lockstep backend itself. A live span move
+parks and pushes the sessions, barriers the task queue
+(``PRIORITY_BARRIER``) and rebuilds every process in lockstep. The announce
+loop checks the group's health: once an op has failed
+(``MultihostDegraded``) the server drains, goes OFFLINE and re-forms as a
+single-host server over this process's devices (a shorter span if they
+cannot hold it), then announces ONLINE at the same address. Shutdown
+releases the workers. ``num_hosts`` 1 is the ordinary server, with no
+process group.
+
 Runs on the CUDA card unless the caller passes ``device="cpu"``; a missing
 card raises instead of drifting to the CPU.
 """
@@ -179,7 +199,7 @@ from petals_tpu_torch.server.memory_cache import MemoryCache
 from petals_tpu_torch.server.prefix_cache import resolve_device_bytes
 from petals_tpu_torch.server.reachability import ReachabilityProtocol
 from petals_tpu_torch.server.scheduler import PREEMPTION_POLICIES
-from petals_tpu_torch.server.task_queue import PriorityTaskQueue
+from petals_tpu_torch.server.task_queue import PRIORITY_BARRIER, PriorityTaskQueue
 from petals_tpu_torch.telemetry.ledger import get_ledger
 from petals_tpu_torch.server.throughput import get_server_throughput
 from petals_tpu_torch.telemetry.exposition import MetricsServer, telemetry_digest
@@ -209,6 +229,43 @@ OFFLINE_EXPIRATION = 60.0  # how long the final OFFLINE announce stays readable,
 # replica hands finished prefills to a decode-tier one (handler.rpc_session_handoff)
 PHASE_TIERS = ("generalist", "prefill", "decode")
 MAX_PINGED_SUCCESSORS = 10
+
+
+def load_converted_block(model_path: str, block_index: int, *, family, cfg, quant_type: str, fuse: bool,
+                         compute_dtype: torch.dtype, device, revision: str = "main", cache_dir=None,
+                         quant_weight_cache: bool = True, load_stats: Optional[dict] = None) -> dict:
+    """One block, quantized per ``quant_type``. A quantized block is a pure
+    function of (checkpoint, kind, fuse), so it is read from the disk cache
+    (utils/quant_cache.py) when an earlier start of either package wrote it,
+    and written there otherwise (petals_tpu/server/server.py:818-846). The
+    server and ``cli/run_worker.py`` load through this, so a lockstep
+    group's processes hold the same bytes."""
+    use_cache = quant_weight_cache and quant_type != QuantType.NONE.value
+    if use_cache:
+        path = quant_cache.cache_path(
+            model_path, block_index, quant_type, fuse=fuse, revision=revision, cache_dir=cache_dir,
+            dtype_tag=str(compute_dtype).removeprefix("torch."),
+        )
+        cached = quant_cache.load_quantized_block(path, device=device)
+        if cached is not None:
+            if load_stats is not None:
+                load_stats["cache_hits"] += 1
+            return cached
+        if load_stats is not None:
+            load_stats["cache_misses"] += 1
+    params = convert_block_params(
+        load_block_params(
+            model_path, block_index, dtype=compute_dtype, device=device, family=family, cfg=cfg, revision=revision,
+            cache_dir=cache_dir,
+        ),
+        family.name, quant_type, fuse=fuse,
+    )
+    if use_cache:
+        try:
+            quant_cache.save_quantized_block(path, params)
+        except OSError as e:
+            logger.warning(f"Could not cache quantized block {block_index}: {e!r}")
+    return params
 
 
 def default_dht_prefix(model_name: str) -> str:
@@ -280,6 +337,8 @@ class Server:
         cache_dir=None,  # the Hub's and the quantized blocks' disk cache; None: utils/disk_cache.py's
         quant_weight_cache: bool = True,  # keep quantized blocks across restarts (utils/quant_cache.py)
         batching: bool = True,  # False: no lane pool, every session on a private cache
+        num_hosts: int = 1,  # multi-host: total processes (this leader + run_worker peers)
+        coordinator_address: Optional[str] = None,  # multi-host: host:port of the group's rendezvous
     ):
         if phase_tier not in PHASE_TIERS:
             raise ValueError(f"phase_tier must be one of {PHASE_TIERS}, got {phase_tier!r}")
@@ -301,9 +360,30 @@ class Server:
         self.device = resolve_device(device)
         self.num_tp_devices, self.num_sp_devices = num_tp_devices, num_sp_devices
         tp, sp = num_tp_devices or 1, num_sp_devices or 1
-        # the grid (tp x sp, grid order), and sp rank 0's shards' devices
-        self.mesh_devices = self.tp_devices = None
-        if tp * sp > 1:
+        self.num_hosts = int(num_hosts or 1)
+        self.coordinator_address = coordinator_address
+        # the grid (tp x sp, grid order), and sp rank 0's shards' devices;
+        # across processes this process's entries and their GroupLayout
+        self.mesh_devices = self.tp_devices = self.layout = None
+        if self.num_hosts > 1:
+            if not coordinator_address:
+                raise ValueError("num_hosts > 1 requires coordinator_address")
+            if first_block is None or num_blocks is None:
+                raise ValueError(
+                    "multi-host serving needs an explicit --first_block/--num_blocks "
+                    "(workers load the identical span; auto-placement would desync them)"
+                )
+            if kv_quant_type != "none":
+                raise ValueError("kv_quant_type requires a mesh-less server (paged pool only)")
+            from petals_tpu_torch.parallel.multihost import init_multihost, multihost_layout
+
+            init_multihost(coordinator_address, self.num_hosts, 0,
+                           devices=list(tp_devices) if tp_devices is not None else [self.device])
+            # tp (x sp) over every process's devices; num_tp_devices None: all of them over sp
+            self.layout, self.mesh_devices = multihost_layout(num_tp_devices, sp)
+            self.device = self.mesh_devices[0]
+            self.tp_devices = self.mesh_devices[:: self.layout.n_s]
+        elif tp * sp > 1:
             if kv_quant_type != "none":
                 raise ValueError("kv_quant_type requires a mesh-less server (paged pool only)")
             # on the CPU every shard is a CPU shard unless the caller lists them
@@ -360,6 +440,13 @@ class Server:
         self.max_alloc_timeout = max_alloc_timeout
         self.compression = CompressionType(compression)
         self.memory_cache = MemoryCache(attn_cache_bytes, max_alloc_timeout)
+        self.attn_cache_bytes = attn_cache_bytes
+        if self.num_hosts > 1:
+            from petals_tpu_torch.parallel.multihost import LockstepMemoryCache
+
+            # reservation and free broadcast ALLOC/FREE, so the workers mirror
+            # every session's KV buffers by handle
+            self.memory_cache = LockstepMemoryCache(self.memory_cache)
         if inference_max_length is None:
             hq, hkv = self.cfg.num_attention_heads, num_kv_heads(self.cfg)
             inference_max_length = 8192 if hkv < hq else 2048
@@ -453,7 +540,7 @@ class Server:
         or, under a mesh, once split over the shards and replicated over
         the sp ranks."""
         t0 = time.perf_counter()
-        fuse = (self.num_tp_devices or 1) <= 1 and not self.adapter_paths
+        fuse = (self.num_tp_devices or 1) <= 1 and not self.adapter_paths and self.num_hosts == 1
         params = [self._load_mesh_block(self._load_block_converted(i, fuse=fuse)) for i in range(first, first + n)]
         # the host's wall: a device-wide synchronize here would break another
         # server's capture in the same process
@@ -465,48 +552,41 @@ class Server:
         over its sp ranks (the block itself without a mesh)."""
         if self.mesh_devices is None:
             return block
-        sp = self.num_sp_devices or 1
-        shards = shard_span_params([block], self.mesh_devices[::sp], self.family.name, self.cfg)[0]
+        sp = self._local_sp()
+        # across processes: this process's shards of the global split
+        split = {} if self.layout is None else {"n_shards": self.layout.tp, "first": self.layout.t0}
+        shards = shard_span_params([block], self.mesh_devices[::sp], self.family.name, self.cfg, **split)[0]
         return replicate_over_sp(shards, self.mesh_devices, sp) if sp > 1 else shards
 
+    def _local_sp(self) -> int:
+        """The sp ranks this process holds."""
+        return self.layout.n_s if self.layout is not None else (self.num_sp_devices or 1)
+
     def _load_block_converted(self, block_index: int, *, fuse: bool) -> dict:
-        """One block, quantized per ``quant_type``. A quantized block is a
-        pure function of (checkpoint, kind, fuse), so it is read from the
-        disk cache (utils/quant_cache.py) when an earlier start of either
-        package wrote it, and written there otherwise
-        (petals_tpu/server/server.py:818-846)."""
-        use_cache = self.quant_weight_cache and self.quant_type != QuantType.NONE.value
-        if use_cache:
-            path = quant_cache.cache_path(
-                self.model_path, block_index, self.quant_type, fuse=fuse, revision=self.revision,
-                cache_dir=self.cache_dir, dtype_tag=str(self.compute_dtype).removeprefix("torch."),
-            )
-            cached = quant_cache.load_quantized_block(path, device=self.device)
-            if cached is not None:
-                self.load_stats["cache_hits"] += 1
-                return cached
-            self.load_stats["cache_misses"] += 1
-        params = convert_block_params(
-            load_block_params(
-                self.model_path, block_index, dtype=self.compute_dtype, device=self.device, family=self.family,
-                cfg=self.cfg, revision=self.revision, cache_dir=self.cache_dir,
-            ),
-            self.family.name, self.quant_type, fuse=fuse,
+        """One block, quantized per ``quant_type`` (``load_converted_block``)."""
+        return load_converted_block(
+            self.model_path, block_index, family=self.family, cfg=self.cfg, quant_type=self.quant_type, fuse=fuse,
+            compute_dtype=self.compute_dtype, device=self.device, revision=self.revision, cache_dir=self.cache_dir,
+            quant_weight_cache=self.quant_weight_cache, load_stats=self.load_stats,
         )
-        if use_cache:
-            try:
-                quant_cache.save_quantized_block(path, params)
-            except OSError as e:
-                logger.warning(f"Could not cache quantized block {block_index}: {e!r}")
-        return params
 
     def _build_backend(self, params: list) -> TransformerBackend:
+        backend = self._build_raw_backend(params)
+        if self.num_hosts > 1:
+            from petals_tpu_torch.parallel.multihost import LockstepBackend
+
+            backend = LockstepBackend(backend)
+        return backend
+
+    def _build_raw_backend(self, params: list) -> TransformerBackend:
+        """The backend over this process's part of the span, its adapters
+        installed (under lockstep, before the wrap)."""
         backend = TransformerBackend(
             self.family, self.cfg, params,
             first_block=self.first_block, n_blocks=self.num_blocks, device=self.device,
             compute_dtype=self.compute_dtype, max_chunk_size_bytes=self.max_chunk_size_bytes,
             quant_type=self.quant_type, kv_quant_type=self.kv_quant_type, tp_devices=self.mesh_devices,
-            num_sp_devices=self.num_sp_devices or 1,
+            num_sp_devices=self._local_sp(), layout=self.layout,
         )
         self._install_adapters(backend)
         return backend
@@ -593,6 +673,8 @@ class Server:
         generated token's logits are the client's own). None otherwise."""
         if not self.server_side_generation or (self.first_block, self.num_blocks) != (0, self.cfg.num_hidden_layers):
             return None
+        if self.num_hosts > 1:  # the generation loop would need broadcast ops, as in the JAX package
+            return None
         # here, not at the top: the client package imports this module
         from petals_tpu_torch.client.from_pretrained import load_client_params
 
@@ -634,7 +716,7 @@ class Server:
                 await asyncio.to_thread(quant_matmul.kernel_library)
             if self.family.block_arch == "mixtral":  # its sparse experts' grouped product
                 await asyncio.to_thread(grouped_matmul.kernel_library)
-        if self._throughput_spec == "auto":
+        if self._throughput_spec == "auto" and self.num_hosts == 1:
             network_mbps = await self._resolve_network_mbps()
             self._rps_info = await asyncio.to_thread(
                 get_server_throughput, self.family, self.cfg, device=self.device,
@@ -653,6 +735,8 @@ class Server:
         await self._announce(ServerState.JOINING)
         # off the event loop: the node keeps answering peers meanwhile
         await asyncio.to_thread(self._load_span)
+        if self._throughput_spec == "auto" and self.num_hosts > 1:
+            await self._measure_multihost_throughput()
         self.queue.start()
         self.handler.register(self.rpc_server)
         if tracing.start_trace(self.trace_dir) is not None:
@@ -827,6 +911,16 @@ class Server:
             await self.handler.close()
         if self.batcher is not None:
             await self.batcher.close()
+        if self.num_hosts > 1 and self.backend is not None:
+            # release the lockstep workers (they wait in a broadcast) once the
+            # pool's FREE has reached them
+            try:
+                self.backend.shutdown_workers()
+            except Exception as e:
+                logger.warning(f"multihost worker shutdown broadcast failed: {e!r}")
+            from petals_tpu_torch.parallel.multihost import shutdown_multihost
+
+            shutdown_multihost()  # this process leaves the group
         self.queue.shutdown()
         if self._trace_flush_task is not None:
             self._trace_flush_task.cancel()
@@ -948,6 +1042,11 @@ class Server:
         while True:
             await asyncio.sleep(self.update_period)
             try:
+                if self.num_hosts > 1 and await self._check_group_health():
+                    return  # degraded for good: the final OFFLINE announce went out
+            except Exception as e:
+                logger.warning(f"Group health check failed: {e!r}")
+            try:
                 await self._measure_next_pings()
             except Exception as e:  # the announce goes out without fresh pings
                 logger.debug(f"next_pings round failed: {e!r}")
@@ -1024,17 +1123,171 @@ class Server:
                 await self._migrate_parked_sessions()
         except Exception as e:
             logger.warning(f"Span-move migration failed (the sessions will replay): {e!r}")
-        self.backend = self._build_backend(
-            await asyncio.to_thread(self._load_span_params, self.first_block, self.num_blocks)
-        )
-        t0 = time.perf_counter()
-        await self.handler.swap_backend(self.backend, self._make_batcher(self.backend))
-        self.load_stats["warm_s"] = time.perf_counter() - t0
+        if self.num_hosts > 1:
+            # a live span move for a lockstep group: refuse new sessions,
+            # barrier the task queue so every in-flight op's broadcasts are
+            # done, then one OP_RELOAD_SPAN rebuilds leader and workers from
+            # the checkpoint while the broadcast lock keeps any other
+            # collective out; the old wrapper is retired, so a straggler op
+            # fails per request
+            try:
+                self.handler.draining = True
+                await self.queue.submit(lambda: None, priority=PRIORITY_BARRIER, size=0)
+                old = self.backend
+
+                def build_raw():
+                    return self._build_raw_backend(self._load_span_params(self.first_block, self.num_blocks))
+
+                self.backend = await asyncio.to_thread(old.reload_span, self.first_block, build_raw)
+                t0 = time.perf_counter()
+                await self.handler.swap_backend(self.backend, self._make_batcher(self.backend))
+                self.load_stats["warm_s"] = time.perf_counter() - t0
+            finally:
+                # never leave the server refusing sessions: a failed move has
+                # degraded the group, and its ops fail with a clear error
+                self.handler.draining = False
+        else:
+            self.backend = self._build_backend(
+                await asyncio.to_thread(self._load_span_params, self.first_block, self.num_blocks)
+            )
+            t0 = time.perf_counter()
+            await self.handler.swap_backend(self.backend, self._make_batcher(self.backend))
+            self.load_stats["warm_s"] = time.perf_counter() - t0
         await self._warm_self_probe()
         # measured for the old span's successor: the loop measures again
         self._next_pings = {}
         self._state = ServerState.ONLINE
         await self._announce(ServerState.ONLINE)
+
+    async def _check_group_health(self) -> bool:
+        """Worker-death detection for a lockstep group: once an op has
+        degraded it (a member died mid-collective), stop taking sessions and
+        go OFFLINE so clients fail over now (in-flight sessions already got
+        MultihostDegraded from their steps), then re-form single-host
+        (``_reform_single_host``). True when the group is degraded and the
+        re-formation failed: the announce loop then stops."""
+        from petals_tpu_torch.parallel.multihost import group_degraded
+
+        err = group_degraded()
+        if err is None:
+            return False
+        logger.error(f"multihost group degraded ({err!r}): draining, going OFFLINE, then re-forming single-host")
+        if self.handler is not None:
+            self.handler.draining = True
+        self._state = ServerState.OFFLINE
+        await self._announce(ServerState.OFFLINE)
+        try:
+            await self._reform_single_host()
+        except Exception as e:
+            logger.exception(f"single-host re-formation failed ({e!r}); staying OFFLINE — restart the leader and "
+                             f"workers to re-form the group")
+            self._state = ServerState.OFFLINE
+            try:
+                await self._announce(ServerState.OFFLINE, expiration=self._offline_expiration())
+            except Exception as e2:
+                logger.debug(f"OFFLINE announce after a failed re-formation failed: {e2!r}")
+            return True
+        return False  # num_hosts is 1 now: the check disarms itself
+
+    async def _reform_single_host(self) -> None:
+        """Re-form after losing a lockstep member: the old backend's shards
+        and mirrors are gone with the group, so this process rebuilds a
+        LOCAL backend from the checkpoint over its own devices (tensor
+        parallel over them where the kv heads divide; a shorter span if they
+        cannot hold the group's), with a fresh memory budget, batcher and
+        handler on the SAME RPC server, and re-announces at the same
+        address. The sp axis spanned the group, so locally it is gone."""
+        from petals_tpu_torch.parallel.multihost import shutdown_multihost
+
+        local = list(self.mesh_devices)
+        group_devices = max(self.layout.tp * self.layout.sp, 1) if self.layout is not None else 1
+        n_local = len(dict.fromkeys(local)) if local[0].type == "cuda" else 1
+        local_tp = n_local if n_local > 1 and num_kv_heads(self.cfg) % n_local == 0 else 1
+        self.num_hosts, self.layout = 1, None
+        self.num_sp_devices = None
+        self.num_tp_devices = local_tp if local_tp > 1 else None
+        self.mesh_devices = self.tp_devices = None
+        self.device = local[0]
+        if local_tp > 1:
+            self.mesh_devices = self.tp_devices = list(dict.fromkeys(local))[:local_tp]
+        old_num = self.num_blocks
+        try:
+            max_local = choose_num_blocks(
+                self.family, self.cfg, quant_type=self.quant_type, attn_cache_bytes=self.attn_cache_bytes or 0,
+                device=self.device,
+            ) * local_tp
+        except Exception as e:
+            logger.warning(f"Local capacity estimate failed, keeping the span's size: {e!r}")
+            max_local = old_num
+        self.num_blocks = max(1, min(old_num, max_local))
+        self.module_uids = module_uids(self.dht_prefix, range(self.first_block, self.first_block + self.num_blocks))
+        if self.num_blocks != old_num:
+            logger.warning(f"re-formation shrinks the span to [{self.first_block}, "
+                           f"{self.first_block + self.num_blocks}): one host cannot hold the group's {old_num} blocks")
+        self._state = ServerState.JOINING
+        await self._announce(ServerState.JOINING)
+        old_handler = self.handler
+        if old_handler is not None:
+            # the old pool's buffers die with the old handler: its FREEs
+            # skip the broadcast on the degraded group
+            await old_handler.close()
+            if old_handler.batcher is not None:
+                await old_handler.batcher.close()
+        shutdown_multihost()  # this process leaves the dead group
+        # a fresh budget: the old (lockstep-wrapped) cache's mirrors died with the workers
+        self.memory_cache = MemoryCache(self.attn_cache_bytes, self.max_alloc_timeout)
+        await asyncio.to_thread(self._load_span)
+        self.handler.register(self.rpc_server)  # replaces the old handler's methods
+        self._next_pings = {}
+        # the announced throughput was the group's: rescaled by the width kept
+        if group_devices > local_tp:
+            self.throughput = self.throughput * local_tp / group_devices
+            logger.info(f"throughput rescaled {group_devices}->{local_tp} devices: {self.throughput:.2f}")
+        self._state = ServerState.ONLINE
+        try:
+            await self._announce(ServerState.ONLINE)
+        except Exception as e:
+            logger.warning(f"post-reform ONLINE announce failed ({e!r}); the announce loop will retry")
+        logger.info(f"re-formed single-host: serving {self.module_uids} at {self.contact_addr.to_string()}")
+
+    async def _measure_multihost_throughput(self) -> None:
+        """Auto-throughput of a lockstep span: the probe runs on the lockstep
+        backend itself, so the workers mirror it as they mirror serving
+        (20 decode steps and 3 forwards of 1024 tokens, the single-host
+        probe's basis); never disk-cached, the number belongs to this group."""
+        from petals_tpu_torch.server.throughput import RELAY_PENALTY, measure_network_rps
+
+        cfg = self.cfg
+        rng = np.random.RandomState(0)
+        step_h = torch.from_numpy(rng.randn(1, 1, cfg.hidden_size).astype(np.float32) * 0.01)
+        fwd_h = torch.from_numpy(rng.randn(1, 1024, cfg.hidden_size).astype(np.float32) * 0.01)
+        descriptors = self.backend.cache_descriptors(1, 64, 0, self.num_blocks)
+        async with self.memory_cache.allocate_cache(*descriptors) as handles:
+            kv = tuple(self.memory_cache.get_buffers(*handles))
+
+            def probe():
+                out, _ = self.backend.inference_step(step_h, kv, 0)
+                out.cpu()
+                t0 = time.perf_counter()
+                for pos in range(1, 21):
+                    out, _ = self.backend.inference_step(step_h, kv, pos)
+                out.cpu()
+                inference_rps = 20 / (time.perf_counter() - t0)
+                self.backend.forward(fwd_h).cpu()  # warm
+                t0 = time.perf_counter()
+                for _ in range(3):
+                    self.backend.forward(fwd_h).cpu()
+                return inference_rps, 3 * fwd_h.shape[1] / (time.perf_counter() - t0)
+
+            # lockstep ops block on collectives: off the event loop
+            inference_rps, forward_rps = await asyncio.to_thread(probe)
+        network_rps = measure_network_rps(cfg.hidden_size, network_mbps=await self._resolve_network_mbps())
+        if self.relay_via is not None:
+            network_rps *= RELAY_PENALTY
+        self.throughput = min(forward_rps, network_rps)
+        self._rps_info = {"throughput": self.throughput, "inference_rps": inference_rps,
+                          "forward_rps": forward_rps, "network_rps": network_rps}
+        logger.info(f"multihost auto-throughput: {self._rps_info}")
 
     async def _measure_next_pings(self) -> None:
         """Ping the servers that could follow us in a chain (those serving

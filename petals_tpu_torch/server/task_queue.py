@@ -13,6 +13,7 @@ from typing import Any, Callable, Optional
 
 PRIORITY_INFERENCE = 1.0
 PRIORITY_TRAINING = 2.0  # stateless forwards and probes: after every inference step
+PRIORITY_BARRIER = 10.0  # quiesce sentinel: runs after everything pending (a lockstep span move)
 
 
 class TaskRejected(Exception):

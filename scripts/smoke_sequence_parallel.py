@@ -8,7 +8,7 @@ Mistral-7B-width checkpoint and the Llama-3-8B-config sibling over its
 blocks, then runs ``serve_sequence_parallel_and_check``: K4 at the query
 shards' shapes and K5 nf4a / K6 prefill at a rank's rows of a tp=2
 shard's projections against their plain versions; an unsharded port
-server beside a ``num_sp_devices=2`` one (8 blocks, bf16), then beside a
+server beside a ``num_sp_devices=2`` one (4 blocks, bf16), then beside a
 tp=2 x sp=2 one (2 blocks; bf16, nf4a, int8), then beside a tp=2 one with
 a LoRA adapter, every shard and rank on the card; every reply, private
 K/V row, forward and gradient held to the float32 reference within twice

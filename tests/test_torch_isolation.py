@@ -48,10 +48,11 @@ def test_importing_every_module_loads_no_jax():
             "utils.quant_cache", "utils.hub")}
         assert swarm_ops <= set(names), sorted(swarm_ops - set(names))
         # tensor and sequence parallelism: the devices, the splits, the
-        # reduction, the sp grid and the ring
+        # reduction, the sp grid and the ring; multi-host lockstep, its
+        # worker and the pipeline schedule
         parallel = {"petals_tpu_torch." + m for m in (
             "parallel", "parallel.mesh", "parallel.tp", "parallel.collectives", "parallel.sp",
-            "ops.ring_attention")}
+            "ops.ring_attention", "parallel.multihost", "parallel.pipeline", "cli.run_worker")}
         assert parallel <= set(names), sorted(parallel - set(names))
         print(len(names), bad)
         assert not bad, bad
