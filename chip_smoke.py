@@ -578,6 +578,27 @@
    session held to the unsharded server's. Each phase prints its seconds
    ("phase seconds: ...") as it ends, and all of them before the kernels
    line.
+29. The step-program observatory's records and costs (folded into the
+   phases that capture these programs; alone: scripts/smoke_observatory.py).
+   (a) In phase 4's profile of the bf16 span, the nf4a span and the nf4a
+   pool (check_step_costs): the replayed decode program's recorded flops at
+   least 2 x lanes x the span's projection weights and within
+   STEP_FLOPS_BAND of the analytic count (the projections and K1's two
+   products over every lane's table at capacity), its bytes at least the
+   span's weight bytes. (b) ``roofline`` of the replayed decode and mixed
+   steps at their device span, PETALS_TPU_PEAK_TFLOPS set to the bf16
+   peak: the utilization in (0, 1.05]; the achieved GFLOP/s and recorded
+   bytes a second beside HBM_BYTES_PER_S printed. (c) In phases 2, 9, 22a
+   and 23a (check_kernel_cost): at each timed case, one more call of the
+   wrapper with costs counted, whose reported flops and bytes must equal
+   the smoke's own count at capacity. (d) In phase 15 (check_counting):
+   phase 15's steps on a sibling counting costs at capture and on one not,
+   every output and pool byte bit-equal, the capture seconds of both
+   printed; then a new shape on the counting sibling's warmed decode
+   program (a real CUDA graph): one compile_anomaly event and one
+   recompile flight entry. (e) In phase 21: ``/compile`` (and
+   ``?analyze=memory``, ``?fn=``) lists every program with a cost, some
+   with temp_bytes > 0.
 
 float32 matmuls run in full float32: TF32 is switched off for matmuls and
 convolutions. Exits non-zero on any failure. The last line is the JSON
@@ -1161,6 +1182,10 @@ LONG_DECODE = ((1, 4095, 4096), (8, 4095, 4096), (4, 1000, 8192))
 # --batch_max_length 8192. Three pages inside each visible range are holes.
 LONG_PREFILL = ((3584, 4096), (4608, 8192))
 PREFILL_ROWS = 512
+# phase 29 (a): a decode step's recorded flops over its analytic count (the
+# projections and K1's products at capacity): the glue (norms, rotary, SiLU,
+# residuals, casts) adds about 0.04% at Mistral-7B's widths
+STEP_FLOPS_BAND = 1.01
 DECODE_REPEATS = 5  # K1's split merge must give bit-equal outputs on repeats
 
 
@@ -1234,6 +1259,27 @@ def quant_bytes_and_flops(m: int, w):
     k, n = w.in_features, w.out_features
     weight = k * n + 4 * n if w.kind == "int8" else k * n // 2 + 2 * (k // 64) * n
     return 2 * m * k + weight + 2 * m * n, 2 * m * k * n
+
+
+# phase 29 (c): the wrappers' reported costs checked against the smoke's own
+# counts, by the name each is counted under
+COST_CHECKS = collections.Counter()
+
+
+def check_kernel_cost(label: str, name: str, call, flops: int, nbytes: int) -> None:
+    """Phase 29 (c): one more call of a kernel wrapper with costs counted
+    (telemetry/observatory.py ``counting``); the flops and bytes the wrapper
+    reports under ``name`` (its formula, from the launch's shapes, at
+    capacity) must equal the smoke's own count of the same work."""
+    from petals_tpu_torch.telemetry.observatory import counting
+
+    with counting() as cost:
+        call()
+    got = cost.part(name)
+    if (got["flops"], got["bytes_accessed"]) != (float(flops), float(nbytes)):
+        raise AssertionError(f"{label}: the wrapper reports {got} under {name!r}, the smoke counts "
+                             f"{flops} flops, {nbytes} bytes")
+    COST_CHECKS[name] += 1
 
 
 def _visible(q_pos: int, kv_len: int, window) -> int:
@@ -1497,6 +1543,14 @@ def check_attention_kernels(device, timer, dec, pf, kind="none", long=True, alib
         if not torch.equal(pfa.paged_flash_attend(q, kp, vp, tables, positions, sliding_window=window, **ab), first):
             raise AssertionError(f"{names[0]}: the split merge is not bit-equal on repeats")
     log(f"{names[0]}: bit-equal over {DECODE_REPEATS} repeats")
+    # phase 29 (c): the wrapper's cost, counted at capacity (every lane at its table's length)
+    alibi_bytes = 4 * hq if alibi is not None else 0
+    cap = tables.shape[1] * PAGE
+    cap_rows = sum(_visible(cap - 1, cap, window) for _ in range(q.shape[0]))
+    check_kernel_cost(names[0], f"paged_decode_attention{label}",
+                      lambda: pfa.paged_flash_attend(q, kp, vp, tables, positions, sliding_window=window, **ab),
+                      4 * hq * d * cap_rows, 2 * cap_rows * side_bytes + 2 * q.numel() * 2 + tables.numel() * 4
+                      + positions.numel() * 4 + alibi_bytes)
     if kind == "none" and long:
         decode["long_context"] = [check_long_decode(device, timer, *case) for case in LONG_DECODE]
 
@@ -1550,6 +1604,14 @@ def check_attention_kernels(device, timer, dec, pf, kind="none", long=True, alib
         f"{yardstick}, bound {pf_bound:.4f} ms ({pf_by}); 188-row continuation at 512: {cont_ms:.4f} ms kernel, "
         f"{cont_yard}")
     prefill["continuation"] = {"ms": cont_ms, "library_ms": cont_lib_ms}
+    # phase 29 (c): at capacity, the chunk at the last rows of a table every page of which is valid
+    cap = table_row.shape[0] * PAGE
+    seen_cap, pairs_cap = _prefill_work(torch.zeros_like(table_row), kp2.shape[0], cap - n, n, window)
+    check_kernel_cost(names[1], f"paged_prefill_attention{label}",
+                      lambda: pfa.paged_flash_prefill_attend(qc, kp2, vp2, table_row, *at0, sliding_window=window,
+                                                             **ab),
+                      4 * hq * d * pairs_cap, 2 * seen_cap * side_bytes + 2 * qc.numel() * 2
+                      + table_row.numel() * 4 + 8 + alibi_bytes)  # 8: the chunk's two int32 scalars
     if long:
         prefill["long_chunks"] = [check_long_prefill(device, timer, kind, *case) for case in LONG_PREFILL]
     return [decode, prefill]
@@ -1741,6 +1803,8 @@ def check_quant_kernels(device, timer, shapes=QUANT_SHAPES, rows=QUANT_ROWS, kin
                     "max_abs_err": 0.0,
                 })
                 entry["max_abs_err"] = max(entry["max_abs_err"], err)
+                nbytes, flops = quant_bytes_and_flops(m, w)
+                check_kernel_cost(label, name, lambda: fn(x, w), flops, nbytes)  # phase 29 (c)
                 report = shape_name == report_at[0] and m in report_at[1]
                 if not (time_all or report):
                     log(f"{label}: max abs err {err:.3e}, rel {err / scale:.3e} (tol {QUANT_REL_TOL})"
@@ -1748,7 +1812,6 @@ def check_quant_kernels(device, timer, shapes=QUANT_SHAPES, rows=QUANT_ROWS, kin
                     continue
                 ms = timer(lambda: fn(x, w))
                 plain_ms = timer(lambda: dequant_matmul_reference(x, w)) if report else None
-                nbytes, flops = quant_bytes_and_flops(m, w)
                 bound, by = bound_ms(nbytes, flops)
                 plan = " plan {}".format(tuple(qmm.decode_plan(m, k, n, n_sm, kind) if decode
                                                else qmm.prefill_plan(m, k, n, n_sm)))
@@ -1841,6 +1904,12 @@ def check_flash_kernel(device, timer):
         first_seen = max(0, q_offset - w + 1)  # the first kv row any query row sees
         nbytes = 2 * q.numel() * 2 + 2 * batch * (kv_length - first_seen) * hkv * d * 2
         bound, by = bound_ms(nbytes, 4 * batch * hq * d * _visible_pairs(q_len, q_offset, kv_length, w))
+        # phase 29 (c): at capacity, the queries at the last rows of the buffer
+        cap_offset = rows - q_len
+        cap_seen = rows - max(0, cap_offset - w + 1)
+        check_kernel_cost(f"K4 {name}", "flash_attention", lambda: fa.flash_attend(q, k, v, **kw_dev),
+                          4 * batch * hq * d * _visible_pairs(q_len, cap_offset, rows, w),
+                          2 * q.numel() * 2 + 2 * batch * cap_seen * hkv * d * 2 + 8)
         timed[name] = {
             "ms": timer(lambda: fa.flash_attend(q, k, v, **kw_dev)),
             "plain_ms": timer(lambda: fa.flash_attend_reference(q, k, v, **kw)),
@@ -2030,6 +2099,10 @@ def check_grouped_matmul(device, timer):
         log(f"K7 {proj}: {timed['ms']:.4f} ms kernel (bf16, wgmma), {timed['plain_ms']:.4f} ms plain, library "
             f"{'%.4f ms' % library_ms if library_ms is not None else 'none'} ({why}), bound {bound:.4f} ms ({by}, "
             f"{nbytes / 1e6:.1f} MB, {2 * n * k_in * k_out / 1e9:.1f} GFLOP)")
+        # phase 29 (c): at capacity, every expert's weight read (GROUPED_SIZES leaves one empty)
+        check_kernel_cost(f"K7 {proj}", "grouped_matmul", lambda: grouped_matmul(x, w, sizes), 2 * n * k_in * k_out,
+                          2 * n * k_in + grouped_weight_traffic([1] * E, k_in, k_out)["hbm_row_tiles_fastest"]
+                          + 2 * n * k_out + 4 * E)
         model = grouped_weight_traffic(GROUPED_SIZES, k_in, k_out)
         traffic = ", ".join(f"{k} {v / 1e9:.3f} GB" for k, v in model.items())
         log(f"K7 {proj}: weight traffic the block order implies (a model from the group sizes, not read from the "
@@ -2556,6 +2629,154 @@ def check_step_programs(backend, device, label) -> dict:
     return stats
 
 
+def observed_sibling(backend, observatory, kv_quant_type=None):
+    """A sibling of ``backend`` whose paged decode and mixed programs count
+    into ``observatory`` (phase 29), on a capture pool of their own."""
+    from petals_tpu_torch.telemetry.observatory import CudaGraphCapture, TrackedGraph
+
+    sib = sibling_backend(backend, kv_quant_type)
+    capture = CudaGraphCapture(sib.device)
+    sib._decode_program = TrackedGraph("paged_decode", capture, observatory=observatory)
+    sib._mixed_program = TrackedGraph("paged_mixed_step", capture, observatory=observatory)
+    return sib
+
+
+def span_projections(backend):
+    """(weight elements of the span's projections, their stored bytes): each
+    leaf of two or more dims (a [in, out] weight, an expert stack), a
+    quantized leaf by its logical shape and its codes and scales."""
+    from petals_tpu_torch.ops.quant import QUANTIZED_TYPES
+
+    elements = stored = 0
+    for params in backend.block_params:
+        for leaf in params.values():
+            if isinstance(leaf, QUANTIZED_TYPES):
+                leaf = getattr(leaf, "inner", leaf)  # an outlier-split leaf's quantized part
+                elements += int(np.prod(leaf.shape))
+                stored += leaf.data.numel() * leaf.data.element_size() + leaf.scales.numel() * leaf.scales.element_size()
+            elif isinstance(leaf, torch.Tensor) and leaf.dim() >= 2:
+                elements += leaf.numel()
+                stored += leaf.numel() * leaf.element_size()
+    return elements, stored
+
+
+def check_step_costs(sib, obs, times, max_len, smi) -> dict:
+    """Phase 29 (a) and (b), on the profile's replayed steps (a sibling
+    whose programs count into ``obs``): the decode program's recorded flops
+    at least 2 x lanes x the span's projection weights, and within
+    STEP_FLOPS_BAND of the analytic count (the projections, and K1's two
+    products over every lane's table at capacity, max_len rows or the
+    window); its bytes at least the span's weight bytes (a decode step reads
+    every weight). Then ``roofline`` of the replayed decode and mixed steps
+    at their device span (CUDA events), the peak declared as the card's
+    bf16 rate (PETALS_TPU_PEAK_TFLOPS): the utilization in (0, 1.05]; the
+    achieved GFLOP/s and bytes a second beside HBM_BYTES_PER_S printed."""
+    cfg = sib.cfg
+    label = f"phase 29 (--quant_type {sib.quant_type} --kv_quant_type {sib.kv_quant_type}, {sib.n_blocks} blocks)"
+    proj, weight_bytes = span_projections(sib)
+    (decode,) = [r for r in obs.programs() if r.fn == "paged_decode"]
+    cost = obs.analyze(decode).cost
+    window = getattr(cfg, "sliding_window", None)
+    attention = sib.n_blocks * PROFILE_LANES * 4 * cfg.num_attention_heads * cfg.head_dim * _visible(
+        max_len - 1, max_len, window)
+    analytic = 2 * PROFILE_LANES * proj + attention
+    ratio = cost["flops"] / analytic
+    log(f"{label}: paged_decode records {cost['flops']:.6e} flops, {cost['bytes_accessed']:.6e} bytes, "
+        f"{cost['transcendentals']:.6e} transcendentals; analytic {analytic:.6e} flops ({PROFILE_LANES} lanes x 2 x "
+        f"{proj} projection weights + K1 at capacity {attention:.6e}): {ratio:.6f}x; weight bytes {weight_bytes} "
+        f"({cost['bytes_accessed'] / weight_bytes:.4f}x); by source {decode.counted.parts}")
+    if cost["flops"] < 2 * PROFILE_LANES * proj or not 1.0 <= ratio <= STEP_FLOPS_BAND:
+        raise AssertionError(f"{label}: the decode step's flops {cost['flops']} are off the analytic {analytic}")
+    if cost["bytes_accessed"] < weight_bytes:
+        raise AssertionError(f"{label}: the decode step's bytes {cost['bytes_accessed']} are under the span's "
+                             f"weights' {weight_bytes}")
+    os.environ["PETALS_TPU_PEAK_TFLOPS"] = repr(BF16_FLOP_PER_S / 1e12)
+    result = {"decode_flops": cost["flops"], "decode_bytes": cost["bytes_accessed"], "analytic_ratio": ratio}
+    for fn, step in (("paged_decode", "decode step, replayed"),
+                     ("paged_mixed_step", f"mixed step ({PROFILE_CHUNK}-token chunk), replayed")):
+        if step not in times:
+            continue
+        span_s = times[step]["device_span_ms"] / 1e3
+        roof = obs.roofline(fn, span_s)
+        nbytes = max(obs.analyze(r).cost["bytes_accessed"] for r in obs.programs() if r.fn == fn)
+        log(f"{label}: {step}: {roof['achieved_gflops']:.3f} GFLOP/s achieved over its {span_s * 1e3:.3f} ms device "
+            f"span, utilization {roof['utilization']} of {BF16_FLOP_PER_S / 1e12:g} TFLOP/s bf16; "
+            f"{nbytes / span_s / 1e9:.3f} GB/s of recorded bytes, {nbytes / span_s / HBM_BYTES_PER_S:.4f} of "
+            f"HBM's {HBM_BYTES_PER_S / 1e12:g} TB/s ({smi})")
+        if not 0 < roof["utilization"] <= 1.05:
+            raise AssertionError(f"{label}: {step}'s utilization {roof['utilization']} is outside (0, 1.05]")
+        result[fn] = dict(roof, bytes_per_s=nbytes / span_s)
+    return result
+
+
+def check_counting(backend, device, label) -> dict:
+    """Phase 29 (d) and the counting's cost: two siblings of the served
+    backend, one counting costs at capture and one not (each with an
+    observatory of its own), step through phase 15's decode and mixed steps
+    (STEP_CHUNKS) on clones of one seeded pool, in turns; every output and
+    pool byte bit-equal between them; their capture seconds printed side by
+    side. Then, on the counting sibling (warm-up 2, a flight recorder of its
+    own), a warmed steady decode program captures a forced new shape (one
+    lane fewer): exactly one compile_anomaly event and one recompile entry,
+    whose journal evidence holds compile events."""
+    from petals_tpu_torch.telemetry.flight import FlightRecorder
+    from petals_tpu_torch.telemetry.journal import get_journal
+    from petals_tpu_torch.telemetry.observatory import Observatory, clear_block_costs
+
+    # as a fresh process counts them: no block's cost known from an earlier capture
+    forgotten = clear_block_costs()
+    obs = {"on": Observatory(warmup_calls=2), "off": Observatory(warmup_calls=2, count_costs=False)}
+    flight = FlightRecorder(cooldown_s=0.0)
+    obs["on"].attach_flight(flight)
+    sibs = {k: observed_sibling(backend, o) for k, o in obs.items()}
+    cfg, max_pages = backend.cfg, 1024 // PAGE
+    pools = {"on": _random_pools(sibs["on"], device, PROFILE_LANES * max_pages, SEED + 29)}
+    pools["off"] = _clone_pools(pools["on"])
+    tables = torch.arange(PROFILE_LANES * max_pages, dtype=torch.int32).reshape(PROFILE_LANES, max_pages)
+    positions = torch.tensor([64, 362, 661, 960], dtype=torch.int32)[:PROFILE_LANES]
+    gen = torch.Generator().manual_seed(SEED + 29)
+    for step in [None, None, None] + list(STEP_CHUNKS):
+        hidden = torch.randn(PROFILE_LANES, 1, cfg.hidden_size, generator=gen)
+        got = {}
+        for k in ("off", "on"):
+            if step is None:
+                got[k] = sibs[k].paged_decode_step(hidden, pools[k], positions, tables)[:1]
+            else:
+                seq, lane, chunk_pos = step
+                mixed = positions.clone()
+                mixed[lane] = max_pages * PAGE
+                chunk = torch.randn(1, seq, cfg.hidden_size, generator=torch.Generator().manual_seed(seq))
+                got[k] = sibs[k].paged_mixed_step(hidden, pools[k], mixed, tables, chunk, lane, chunk_pos)[:2]
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, b) for a, b in zip(got["on"], got["off"])) or not all(
+                torch.equal(a, b) for a, b in zip(_pool_tensors(pools["on"]), _pool_tensors(pools["off"]))):
+            raise AssertionError(f"{label}: a replay with costs counted at capture differs from one without, step "
+                                 f"{step}")
+        positions = positions + 1
+    seconds = {k: {f["fn"]: f["capture_s"] for f in o.functions()} for k, o in obs.items()}
+    captures = {k: o.compile_stats()["programs"] for k, o in obs.items()}
+    on_s, off_s = sum(seconds["on"].values()), sum(seconds["off"].values())
+    log(f"{label}: replays bit-equal with costs counted at capture and without ({len(STEP_CHUNKS) + 3} steps, "
+        f"{captures['on']} captures each); capture seconds counted {seconds['on']} ({on_s:.4f} s), not counted "
+        f"{seconds['off']} ({off_s:.4f} s): counting adds {on_s - off_s:.4f} s, {(on_s - off_s) / off_s:.3f} of "
+        f"capture_s ({forgotten} block costs known before were forgotten first)")
+    seq0 = get_journal().seq
+    sibs["on"].paged_decode_step(torch.zeros(PROFILE_LANES - 1, 1, cfg.hidden_size), pools["on"], positions[1:],
+                                 tables[1:])
+    torch.cuda.synchronize()
+    anomalies = get_journal().events(kind="compile_anomaly", since_seq=seq0)
+    recompiles = flight.entries(kind="recompile")
+    evidence = recompiles[0]["server_journal"] if recompiles else None
+    log(f"{label}: a new shape on the warmed decode program (warm-up 2): {len(anomalies)} compile_anomaly events "
+        f"({[a['avals'][:1] for a in anomalies]}), {len(recompiles)} recompile entries with "
+        f"{len(evidence or [])} compile events of evidence; the digest {obs['on'].compile_stats()}")
+    if len(anomalies) != 1 or len(recompiles) != 1 or not evidence or any(
+            e["kind"] != "compile" for e in evidence) or obs["on"].compile_stats()["anomalies"] != 1:
+        raise AssertionError(f"{label}: expected one compile_anomaly and one recompile entry with compile events, "
+                             f"got {anomalies}, {recompiles}")
+    return {"capture_s_counted": on_s, "capture_s_not_counted": off_s, "captures": captures["on"]}
+
+
 def eager_sibling(backend):
     """A sibling of ``backend`` with no step programs: its steps run the
     eager block loop on the card (the same methods, the same padding and
@@ -2942,7 +3163,7 @@ def check_graph_stats(label, stats) -> None:
         raise AssertionError(f"{label}: served steps did not all replay step programs without a late capture: {stats}")
 
 
-def profile_steps(backend, device, gen_params=None, smi="") -> dict:
+def profile_steps(backend, device, gen_params=None, smi="", check_costs=False) -> dict:
     """Where a step's time goes, beside the served span's backend (its
     weights, on a sibling backend, called directly, no RPC): a paged decode
     step at PROFILE_LANES lanes and a mixed step that also carries a
@@ -2952,8 +3173,14 @@ def profile_steps(backend, device, gen_params=None, smi="") -> dict:
     With the client's leaves (``gen_params``), the generation step (every
     lane generating, sampled) beside the decode step in place of the mixed
     step, and the head and sampling's share of its device time: the
-    generation step's busy time less the decode step's, over the former."""
-    sib = sibling_backend(backend)
+    generation step's busy time less the decode step's, over the former.
+    The sibling's decode and mixed programs count into an observatory of
+    their own; with ``check_costs``, phase 29 (a) and (b) on them
+    (check_step_costs)."""
+    from petals_tpu_torch.telemetry.observatory import Observatory
+
+    obs = Observatory()
+    sib = observed_sibling(backend, obs)
     cfg, max_len = sib.cfg, 1024
     max_pages = max_len // PAGE
     pools = _random_pools(sib, device, PROFILE_LANES * max_pages, SEED + 6)
@@ -2989,6 +3216,8 @@ def profile_steps(backend, device, gen_params=None, smi="") -> dict:
     log(f"profile (--quant_type {sib.quant_type} --kv_quant_type {sib.kv_quant_type}): "
         f"{sib.n_blocks} blocks, {PROFILE_LANES} lanes at positions {positions.tolist()}")
     times = profile_calls(steps)
+    if check_costs:
+        times["costs"] = check_step_costs(sib, obs, times, max_len, smi)
     if gen_params is not None:
         gen, dec = times["generation step, replayed"], times["decode step, replayed"]
         share = (gen["device_busy_ms"] - dec["device_busy_ms"]) / gen["device_busy_ms"]
@@ -6393,6 +6622,19 @@ def serve_forward_telemetry_and_check(ckpt, device, smi) -> dict:
         log(f"{label}: /metrics {len(metrics)} bytes, /journal {sum(kinds.values())} events {dict(kinds)}")
         if want_line not in metrics or kinds["admission"] < len(PROMPTS):
             raise AssertionError(f"{label}: /metrics lacks {want_line!r}, or /journal its admissions")
+        # phase 29 (e): /compile's program records, with the cost each capture counted and what it measured
+        view = json.loads(_http_get(mport, "/compile?analyze=memory"))
+        programs = view["programs"]
+        mixed = json.loads(_http_get(mport, "/compile?fn=paged_mixed_step"))["programs"]
+        costed = [p for p in programs if p.get("cost", {}).get("flops", 0) > 0]
+        grown = [p for p in programs if (p.get("memory") or {}).get("temp_bytes") or 0]
+        log(f"{label}: /compile: warmup_calls {view['warmup_calls']}, {len(programs)} programs "
+            f"({view['dropped_programs']} dropped), {len(costed)} with a cost, {len(grown)} with temp_bytes > 0, "
+            f"?fn=paged_mixed_step {len(mixed)}; stats {view['stats']}; the last: {json.dumps(programs[-1])}")
+        if (set(view) != {"warmup_calls", "stats", "functions", "programs", "dropped_programs"} or not programs
+                or len(costed) != len(programs) or not grown or not mixed
+                or any(p["fn"] != "paged_mixed_step" for p in mixed)):
+            raise AssertionError(f"{label}: /compile lacks costed programs or a temp_bytes > 0: {view['stats']}")
         info = server._server_info(ServerState.ONLINE)
         announce = {k: getattr(info, k) for k in ("telemetry", "compile_stats", "integrity", "metrics_port")}
         log(f"{label}: the announce's telemetry plane: {json.dumps(announce, default=str)}")
@@ -8336,6 +8578,15 @@ def main() -> int:
     family_kernels, grouped_kernel = check_family_kernels(device, timer)
     # phase 23 (a): K1-K4 at head_dim 256 and 96 and with Gemma-2's softcap
     gemma_phi3_kernels = check_gemma_phi3_kernels(device, timer)
+    # phase 29 (c): every kernel wrapper's reported cost held to the smoke's count at each timed case
+    log(f"phase 29 (c): wrapper costs equal to the smoke's counts: {dict(COST_CHECKS)}")
+    missing = [name for name in ("paged_decode_attention", "paged_prefill_attention", "flash_attention",
+                                 "grouped_matmul") + tuple(f"paged_{p}_attention[kv_{k}]" for p in ("decode", "prefill")
+                                                           for k in KV_QUANT_KINDS)
+               + tuple(f"quant_{p}_matmul[{k}]" for p in ("decode", "prefill") for k in QUANT_KINDS)
+               if not COST_CHECKS[name]]
+    if missing:
+        raise AssertionError(f"phase 29 (c): no cost checked for {missing}")
     log(f"kernel phases done at {time.perf_counter() - t_start:.1f} s")
     clock.lap("2, 9, 22a, 23a kernels")
 
@@ -8357,7 +8608,9 @@ def main() -> int:
             check_step_programs(sibling_backend(sub_span_backend(server.backend, SHORT_SPAN), kv), device,
                                 f"step programs (--quant_type none --kv_quant_type {kv}, {SHORT_SPAN} blocks)")
         measure_graph_pool(server.backend, server.batcher, device, f"graph pool (--quant_type none, {SPAN} blocks)")
-        profile_steps(server.backend, device)
+        # phase 29 (d): replays with costs counted and not, the counting's share of capture_s, an anomaly
+        counting = check_counting(server.backend, device, f"phase 29 (--quant_type none, {SPAN} blocks)")
+        step_costs = {"bf16": profile_steps(server.backend, device, smi=smi, check_costs=True)["costs"]}
         del server
         free_card()
         server, nf4a_launches = serve_and_check(ckpt, device, "nf4a", SPAN, PROMPTS, DECODE_STEPS, SEED + 4, WARMUP_PROMPTS)
@@ -8366,14 +8619,15 @@ def main() -> int:
         check_dense_programs(sub_span_backend(server.backend, SHORT_SPAN), device,
                              f"dense programs (--quant_type nf4a, {SHORT_SPAN} blocks)", full=False)
         measure_graph_pool(server.backend, server.batcher, device, f"graph pool (--quant_type nf4a, {SPAN} blocks)")
-        profile_steps(server.backend, device)
+        step_costs["nf4a"] = profile_steps(server.backend, device, smi=smi, check_costs=True)["costs"]
         del server
         free_card()
         # the bf16-weight span again, its KV pool quantized to nf4a
         server, kv_nf4a_launches = serve_and_check(
             ckpt, device, "none", SPAN, PROMPTS, DECODE_STEPS, SEED + 4, WARMUP_PROMPTS, "nf4a",
         )
-        profile_steps(server.backend, device)
+        step_costs["nf4a pool"] = profile_steps(server.backend, device, smi=smi, check_costs=True)["costs"]
+        log(f"phase 29: step costs {json.dumps(step_costs)}; counting {json.dumps(counting)} ({smi})")
         del server
         free_card()
         log(f"main paths done at {time.perf_counter() - t_start:.1f} s")

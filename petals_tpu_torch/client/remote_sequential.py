@@ -144,6 +144,12 @@ class SyncInferenceSession:
     def batch_size(self) -> int:
         return self._session.batch_size
 
+    @property
+    def integrity(self):
+        """The session's fingerprint cross-check monitor (divergence counts,
+        digest continuity ring): telemetry/integrity.py."""
+        return self._session.integrity
+
     def usage_report(self) -> dict:
         return self._session.usage_report()
 

@@ -32,6 +32,24 @@ def group_tiles(group: int) -> Tuple[int, int]:
     return n, -(-group // n)
 
 
+def causal_work(first: int, n: int, kv_len: int, window: Optional[int] = None) -> Tuple[int, int]:
+    """(kv rows some query row sees, visible (query, kv) pairs) of ``n``
+    query rows at positions first..first + n - 1 over ``kv_len`` kv rows,
+    causal and, with a window, windowed: row p sees
+    [max(0, p - window + 1), min(p + 1, kv_len)). In closed form for rows
+    within the kv rows (first + n <= kv_len), the kernels' work at capacity."""
+    if n <= 0:
+        return 0, 0
+    if first + n > kv_len:
+        raise ValueError(f"rows {first}..{first + n - 1} pass the {kv_len} kv rows")
+    w = kv_len if window is None else min(int(window), kv_len)
+
+    def upto(x: int) -> int:  # sum of min(j, w) for j = 1..x
+        return x * (x + 1) // 2 if x <= w else w * (w + 1) // 2 + (x - w) * w
+
+    return first + n - max(0, first - w + 1), upto(first + n) - upto(first)
+
+
 def attend(
     q: torch.Tensor,
     k,

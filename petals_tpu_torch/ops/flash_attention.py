@@ -23,7 +23,8 @@ the kernel or raise. There is no fallback from one to the other.
 ``flash_attend.launches`` (a plain int) counts the kernel's launches
 (telemetry/observatory.py ``count_launch``: a launch inside a capture is
 counted by each replay), so a run can show that its main path went through
-the kernel.
+the kernel. Each launch also reports the work of the function it computes
+to a capture that counts its cost (``count_cost``, ``flash_cost``).
 
 The kernel replaces ``_kernel`` of petals_tpu/ops/flash_attention.py; the
 source says what bounds it and how its design answers that. It reads q, k and
@@ -40,8 +41,8 @@ from typing import Optional
 
 import torch
 
-from petals_tpu_torch.ops.attention import DEFAULT_MASK_VALUE
-from petals_tpu_torch.telemetry.observatory import count_launch
+from petals_tpu_torch.ops.attention import DEFAULT_MASK_VALUE, causal_work
+from petals_tpu_torch.telemetry.observatory import count_cost, count_launch
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (64, 96, 128, 256)  # the wgmma tiles pad 96 to 128 columns in shared memory
@@ -73,6 +74,21 @@ def kernel_library() -> ctypes.CDLL:
 def reset_launch_counts() -> None:
     """Zero the kernel's launch counter (K4)."""
     flash_attend.launches = 0
+
+
+def flash_cost(batch: int, q_len: int, hq: int, hkv: int, d: int, kv_buf_len: int, itemsize: int,
+               sliding_window: Optional[int] = None, softcap: Optional[float] = None, alibi: bool = False):
+    """(flops, bytes, transcendentals) of one launch (K4), from its shapes
+    alone, at capacity (telemetry/op_cost.py): each batch row's queries at
+    the last ``q_len`` positions of its buffer, every buffer row valid,
+    causal and windowed. Per visible (query, kv) pair a score and a P.V
+    product, 2 * d flops each, and one exp (a tanh more under a softcap);
+    bytes: q read and the output written, the K/V rows some row sees, the
+    two int32 position scalars and the ALiBi slopes."""
+    kv_len = max(kv_buf_len, q_len)
+    seen, pairs = causal_work(kv_len - q_len, q_len, kv_len, sliding_window)
+    nbytes = batch * (2 * q_len * hq * d + 2 * seen * hkv * d) * itemsize + 8 + (4 * hq if alibi else 0)
+    return 4 * batch * hq * d * pairs, nbytes, batch * hq * pairs * (2 if softcap else 1)
 
 
 def flash_supported(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -240,6 +256,8 @@ def flash_attend(
         msg = lib.ptt_flash_error_string(err).decode()
         raise RuntimeError(f"flash attention kernel launch failed: CUDA error {err} ({msg})")
     count_launch(flash_attend, "launches")
+    count_cost("flash_attention", flash_cost, batch, q_len, hq, hkv, d, kv_buf_len, q.element_size(),
+               sliding_window, softcap, alibi_slopes is not None)
     return out
 
 

@@ -19,7 +19,9 @@ without a host sync. Tensors on the CPU go to the plain version; tensors on
 a CUDA device launch the kernel or raise. There is no fallback from one to
 the other. ``grouped_matmul.launches`` (a plain int) counts the kernel's
 launches, ``grouped_matmul.arm_launches`` each arm's (telemetry/observatory.py
-``count_launch``: a launch inside a capture is counted by each replay).
+``count_launch``: a launch inside a capture is counted by each replay),
+and each launch reports the work of the function it computes to a capture
+that counts its cost (``count_cost``, ``grouped_matmul_cost``).
 
 The kernel has two arms, chosen by x's dtype (``kernel_arm``): bfloat16 runs
 ``grouped_matmul_wgmma_kernel`` (wgmma fed by a TMA ring, 128-row tiles),
@@ -36,7 +38,7 @@ from typing import List, Optional, Sequence, Tuple
 
 import torch
 
-from petals_tpu_torch.telemetry.observatory import count_launch
+from petals_tpu_torch.telemetry.observatory import count_cost, count_launch
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 # the arm each dtype runs, and the rows of its tiles
@@ -65,6 +67,16 @@ def reset_launch_counts() -> None:
     """Zero the kernel's launch counters (K7: the total and each arm's)."""
     grouped_matmul.launches = 0
     grouped_matmul.arm_launches = {arm: 0 for arm in TILE_ROWS}
+
+
+def grouped_matmul_cost(n_rows: int, k: int, n_out: int, n_experts: int, itemsize: int):
+    """(flops, bytes, transcendentals) of one launch (K7) from its shapes
+    alone, at capacity (telemetry/op_cost.py): each of the n rows through one
+    expert's [k, n_out] weight, 2 * n * k * n_out flops whatever the
+    routing; x read and the output written once, every expert's weight read
+    once (the group sizes, on the card, may leave an expert empty), the
+    group sizes read."""
+    return 2 * n_rows * k * n_out, itemsize * (n_rows * k + n_experts * k * n_out + n_rows * n_out) + 4 * n_experts, 0
 
 
 def kernel_arm(dtype: torch.dtype) -> str:
@@ -144,6 +156,7 @@ def grouped_matmul(x: torch.Tensor, w: torch.Tensor, group_sizes: torch.Tensor) 
         raise RuntimeError(f"grouped matmul kernel launch failed: CUDA error {err} ({msg})")
     count_launch(grouped_matmul, "launches")
     count_launch(grouped_matmul, "arm_launches", arm)
+    count_cost("grouped_matmul", grouped_matmul_cost, n_rows, k, n_out, n_experts, x.element_size())
     return out
 
 

@@ -11,7 +11,10 @@ main path went through the kernels: ``<wrapper>.launches`` (a plain int)
 counts the floating-point arm (K1, K2), ``<wrapper>.kv_quant_launches[kind]``
 the quantized arm of each kind (K3). A launch inside a CUDA graph capture
 is counted by each replay of the graph instead
-(telemetry/observatory.py ``count_launch``).
+(telemetry/observatory.py ``count_launch``). Each launch also reports the
+work of the function it computes to a capture that counts its cost
+(``count_cost``): ``decode_cost`` and ``prefill_cost``, from the launch's
+shapes and arm alone.
 
 The kernels replace ``_decode_kernel`` and ``_prefill_kernel`` of
 petals_tpu/ops/paged_flash_attention.py, with their quantized arms
@@ -36,9 +39,15 @@ from typing import Optional
 
 import torch
 
-from petals_tpu_torch.ops.attention import group_tiles
-from petals_tpu_torch.ops.paged_attention import PagedPool, kv_quant_kind_of, paged_attend, paged_prefill_attend
-from petals_tpu_torch.telemetry.observatory import count_launch
+from petals_tpu_torch.ops.attention import causal_work, group_tiles
+from petals_tpu_torch.ops.paged_attention import (
+    PagedPool,
+    kv_quant_kind_of,
+    kv_wire_bytes_per_token,
+    paged_attend,
+    paged_prefill_attend,
+)
+from petals_tpu_torch.telemetry.observatory import count_cost, count_launch
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _KV_CODES = {"int8": 1, "nf4a": 2}  # 0: a floating-point pool
@@ -247,6 +256,47 @@ def _count(wrapper, k_pool) -> None:
         count_launch(wrapper, "kv_quant_launches", kind)
 
 
+def _cost_name(kernel: str, kind: str) -> str:
+    """The name a launch's cost is counted under: the kernels line's."""
+    return kernel if kind == "none" else f"{kernel}[kv_{kind}]"
+
+
+def decode_cost(n_lanes: int, hq: int, hkv: int, d: int, page_size: int, max_pages: int, itemsize: int,
+                kind: str = "none", sliding_window: Optional[int] = None, softcap: Optional[float] = None,
+                alibi: bool = False):
+    """(flops, bytes, transcendentals) of one decode launch (K1, K3) over
+    ``n_lanes`` lanes (a verify's virtual lanes), from its shapes alone, at
+    capacity: every lane at its table's full length, max_pages * page_size
+    kv rows, or the window if shorter (telemetry/op_cost.py). Per (query
+    head, kv row): a score and a P.V product, 2 * d flops each, and one exp
+    (a tanh more under a softcap); the softmax's few flops a score are not
+    counted. Bytes: each lane's K/V rows read once (codes and scales of a
+    quantized pool), q read and the output written (``itemsize`` each), the
+    tables and positions read, and the ALiBi slopes."""
+    cap = max_pages * page_size
+    seen, _ = causal_work(cap - 1, 1, cap, sliding_window)
+    rows = n_lanes * seen
+    nbytes = (2 * rows * kv_wire_bytes_per_token(hkv, d, kind, itemsize) + 2 * n_lanes * hq * d * itemsize
+              + 4 * n_lanes * max_pages + 4 * n_lanes + (4 * hq if alibi else 0))
+    return 4 * hq * d * rows, nbytes, hq * rows * (2 if softcap else 1)
+
+
+def prefill_cost(q_len: int, hq: int, hkv: int, d: int, page_size: int, max_pages: int, itemsize: int,
+                 kind: str = "none", sliding_window: Optional[int] = None, softcap: Optional[float] = None,
+                 alibi: bool = False):
+    """(flops, bytes, transcendentals) of one chunked-prefill launch (K2,
+    K3) of ``q_len`` rows (a padded chunk's whole length), at capacity: the
+    chunk at the last rows of its table (max_pages * page_size), causal and
+    windowed. As ``decode_cost`` per visible (query, kv) pair; bytes: the
+    K/V rows some row sees, q and the output, the table row, the chunk's two
+    int32 scalars and the ALiBi slopes."""
+    kv_len = max(max_pages * page_size, q_len)
+    seen, pairs = causal_work(kv_len - q_len, q_len, kv_len, sliding_window)
+    nbytes = (2 * seen * kv_wire_bytes_per_token(hkv, d, kind, itemsize) + 2 * q_len * hq * d * itemsize
+              + 4 * max_pages + 8 + (4 * hq if alibi else 0))
+    return 4 * hq * d * pairs, nbytes, hq * pairs * (2 if softcap else 1)
+
+
 def reset_launch_counts() -> None:
     """Zero every paged-attention launch counter (K1, K2 and K3's arms)."""
     for wrapper in (paged_flash_attend, paged_flash_prefill_attend):
@@ -334,6 +384,9 @@ def paged_flash_attend(
         )
     _raise_on(err, "paged decode")
     _count(paged_flash_attend, k_pool)
+    kind = kv_quant_kind_of(k_pool)
+    count_cost(_cost_name("paged_decode_attention", kind), decode_cost, n_lanes, hq, hkv, d, page_size, max_pages,
+               q.element_size(), kind, sliding_window, softcap, alibi_slopes is not None)
     return out.reshape(n_lanes // q_len, q_len, hq, d)
 
 
@@ -402,6 +455,9 @@ def paged_flash_prefill_attend(
         )
     _raise_on(err, "paged prefill")
     _count(paged_flash_prefill_attend, k_pool)
+    kind = kv_quant_kind_of(k_pool)
+    count_cost(_cost_name("paged_prefill_attention", kind), prefill_cost, q_len, hq, hkv, d, page_size,
+               table_row.shape[0], q.element_size(), kind, sliding_window, softcap, alibi_slopes is not None)
     return out
 
 

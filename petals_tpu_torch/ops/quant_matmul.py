@@ -18,7 +18,9 @@ the kernel or raise. There is no fallback from one to the other. Each
 wrapper counts its launches per weight kind in ``<wrapper>.launches`` (a
 dict of ints), so a run can show that its main path went through the
 kernels; a launch inside a CUDA graph capture is counted by each replay of
-the graph instead (telemetry/observatory.py ``count_launch``).
+the graph instead (telemetry/observatory.py ``count_launch``), and reports
+the work of the function it computes to a capture that counts its cost
+(``count_cost``, ``quant_matmul_cost``).
 
 The kernels replace ``_packed4_decode_kernel``, ``_packed4_kernel`` and
 ``_int8_kernel`` of petals_tpu/ops/quant.py; the source says what bounds
@@ -34,7 +36,7 @@ import torch
 
 from petals_tpu_torch.ops.paged_flash_attention import merge_tickets
 from petals_tpu_torch.ops.quant import NF4_BLOCK, QuantizedLinear, dequant_matmul_reference
-from petals_tpu_torch.telemetry.observatory import count_launch
+from petals_tpu_torch.telemetry.observatory import count_cost, count_launch
 
 _NF4_DECODE_MAX_M = 32  # the decode/prefill split, as in the JAX package
 _FORMAT_CODES = {"nf4": 0, "nf4a": 1, "int4": 2, "int8": 3}
@@ -211,6 +213,18 @@ def _check_cuda(x2d: torch.Tensor, w: QuantizedLinear) -> torch.Tensor:
     return xb
 
 
+def quant_matmul_cost(m: int, k: int, n: int, kind: str):
+    """(flops, bytes, transcendentals) of one dequant-matmul launch (K5,
+    K6) of x [m, k] by a ``kind`` weight [k, n]: 2 * m * k * n flops; x read
+    once (bf16), the weight bytes and scales its k loop reaches read once
+    (int8: a byte an element and a float32 scale a column; 4-bit: half a
+    byte an element and a bf16 scale a 64-row block of a column), the
+    output written once (bf16). The split merge's float32 partials are the
+    kernel's own traffic, not the function's."""
+    weight = k * n + 4 * n if kind == "int8" else k * n // 2 + 2 * (k // NF4_BLOCK) * n
+    return 2 * m * k * n, 2 * m * k + weight + 2 * m * n, 0
+
+
 def _raise_on(err: int, what: str) -> None:
     if err:
         msg = kernel_library().ptt_quant_error_string(err).decode()
@@ -239,6 +253,7 @@ def quant_decode_matmul(x2d: torch.Tensor, w: QuantizedLinear) -> torch.Tensor:
         )
     _raise_on(err, "quant decode matmul")
     count_launch(quant_decode_matmul, "launches", w.kind)
+    count_cost(f"quant_decode_matmul[{w.kind}]", quant_matmul_cost, m, k, n, w.kind)
     return out.to(x2d.dtype)
 
 
@@ -267,6 +282,7 @@ def quant_prefill_matmul(x2d: torch.Tensor, w: QuantizedLinear) -> torch.Tensor:
         )
     _raise_on(err, "quant prefill matmul")
     count_launch(quant_prefill_matmul, "launches", w.kind)
+    count_cost(f"quant_prefill_matmul[{w.kind}]", quant_matmul_cost, m, k, n, w.kind)
     return out.to(x2d.dtype)
 
 

@@ -191,7 +191,7 @@ from petals_tpu_torch.ops.threefry import uniform_for_draw
 from petals_tpu_torch.parallel.sp import GridParams, replicate_over_sp
 from petals_tpu_torch.parallel.tp import ShardedDescriptor, is_sharded, shard_span_params, span_param_specs
 from petals_tpu_torch.server.memory_cache import TensorDescriptor
-from petals_tpu_torch.telemetry.observatory import CudaGraphCapture, TrackedGraph
+from petals_tpu_torch.telemetry.observatory import CudaGraphCapture, TrackedGraph, counted_once
 
 logger = logging.getLogger(__name__)
 
@@ -383,6 +383,8 @@ class TransformerBackend:
         # longrope, through the llama block) takes n_total; others are not
         # passed it (petals_tpu's backend checks the same signature)
         self._takes_n_total = "n_total" in inspect.signature(family.block_apply).parameters
+        # a capture counts a step's cost op by op once a distinct block (telemetry/observatory.py)
+        self._block_apply = counted_once(family.block_apply)
         self.head_dim = cfg.head_dim
         self.hidden_size = cfg.hidden_size
         # the step programs (CUDA graphs, on a card only); every graph of
@@ -615,7 +617,7 @@ class TransformerBackend:
         for i, p_block in enumerate(self.block_params if params is None else params):
             if prompts is not None:
                 h = h + torch.where(prompt_mask, prompts[i].index_select(1, idx), 0).to(h.dtype)
-            h, _ = self.family.block_apply(
+            h, _ = self._block_apply(
                 p_block, h, (k_stack[i], v_stack[i]), position, self.cfg, n_valid=n_valid,
                 use_flash=self.use_flash, **self._n_total_arg(n_total),
             )
@@ -691,7 +693,7 @@ class TransformerBackend:
             if prompts is not None:
                 pre = prompts.shape[2]
                 h = torch.cat([h[:, :pre] + prompts[i], h[:, pre:]], dim=1)
-            h, _ = self.family.block_apply(p_block, h, kv_buf, position, self.cfg, n_valid=n_valid, use_flash=True)
+            h, _ = self._block_apply(p_block, h, kv_buf, position, self.cfg, n_valid=n_valid, use_flash=True)
         return (h,)
 
     def _rides_ring(self, seq: int) -> bool:
@@ -710,7 +712,7 @@ class TransformerBackend:
         for i, p_block in enumerate(params):
             if pre:
                 h = torch.cat([h[:, :pre] + prompts[i].to(h.device), h[:, pre:]], dim=1)
-            h, _ = self.family.block_apply(p_block, h, None, 0, self.cfg, use_flash=False)
+            h, _ = self._block_apply(p_block, h, None, 0, self.cfg, use_flash=False)
         return h
 
     def backward(self, hidden, grad_out, prompts=None, active_adapter: Optional[str] = None):
@@ -765,7 +767,7 @@ class TransformerBackend:
         (``use_flash=False``) on a fresh dense K/V buffer, position 0; under
         sequence parallelism with rows that split, the ring (no buffer)."""
         kv = None if self._rides_ring(h.shape[1]) else self._scratch_kv(h.shape[0], h.shape[1])
-        out, _ = self.family.block_apply(p_block, h, kv, 0, self.cfg, use_flash=False)
+        out, _ = self._block_apply(p_block, h, kv, 0, self.cfg, use_flash=False)
         return out
 
     def _scratch_kv(self, batch: int, length: int):
@@ -844,7 +846,7 @@ class TransformerBackend:
         h = _as_tensor(hidden, self.device, k_pool.dtype)
         positions = _as_tensor(positions, self.device, torch.int32)
         for i, p_block in enumerate(self.block_params):
-            h, _ = self.family.block_apply(
+            h, _ = self._block_apply(
                 p_block, h, (k_pool[i], v_pool[i]), positions, self.cfg, use_flash=False
             )
         return h, (k_pool, v_pool)
@@ -1070,7 +1072,7 @@ class TransformerBackend:
         tables = _as_tensor(tables, self.device, torch.int32)
         for i, p_block in enumerate(self.block_params):
             kv = (PagedKV(pool_block(k_pool, i), tables), PagedKV(pool_block(v_pool, i), tables))
-            h, _ = self.family.block_apply(p_block, h, kv, positions, self.cfg)
+            h, _ = self._block_apply(p_block, h, kv, positions, self.cfg)
         return h, (k_pool, v_pool)
 
     @torch.no_grad()
@@ -1153,9 +1155,9 @@ class TransformerBackend:
         for i, p_block in enumerate(self.block_params):
             k_blk, v_blk = pool_block(k_pool, i), pool_block(v_pool, i)
             kv = (PagedKV(k_blk, tables), PagedKV(v_blk, tables))
-            h_dec, _ = self.family.block_apply(p_block, h_dec, kv, positions, self.cfg)
+            h_dec, _ = self._block_apply(p_block, h_dec, kv, positions, self.cfg)
             kv_pf = (PagedKV(k_blk, table_row), PagedKV(v_blk, table_row))
-            h_pf, _ = self.family.block_apply(
+            h_pf, _ = self._block_apply(
                 p_block, h_pf, kv_pf, chunk_pos, self.cfg, n_valid=n_valid, **self._n_total_arg(n_total)
             )
         return h_dec, h_pf, (k_pool, v_pool)

@@ -43,7 +43,7 @@ from typing import List, Optional, Sequence
 import numpy as np
 import torch
 
-from petals_tpu_torch.telemetry.observatory import CudaGraphCapture, TrackedGraph
+from petals_tpu_torch.telemetry.observatory import CudaGraphCapture, TrackedGraph, counted_once
 from petals_tpu_torch.models.registry import num_kv_heads
 
 logger = logging.getLogger(__name__)
@@ -134,10 +134,12 @@ class DraftModel:
         caches = [(torch.zeros(shape, dtype=dtype, device=self.device),
                    torch.zeros(shape, dtype=dtype, device=self.device)) for _ in self.block_params]
 
+        block_apply = counted_once(family.block_apply)  # a capture counts one block of each shape
+
         def run(hidden, position):
             h = hidden.to(dtype)
             for p_block, kv in zip(self.block_params, caches):
-                h, _ = family.block_apply(p_block, h, kv, position, cfg, use_flash=False)
+                h, _ = block_apply(p_block, h, kv, position, cfg, use_flash=False)
             return h
 
         # the window at position 0: rows past a lane's length are garbage, but

@@ -202,14 +202,26 @@ class _MetricsHandler(BaseHTTPRequestHandler):
             body = (get_journal().to_jsonl(**filters) + "\n").encode()
             ctype = "application/x-ndjson"
         elif path == "/compile":
-            # the step-program observatory: captures, replays and capture
-            # seconds per program (a capture stands for a compile)
+            # the step-program observatory (a capture stands for a compile):
+            # per-program records with the cost each capture counted;
+            # ?analyze=memory (or 1) attaches what each capture measured,
+            # ?fn= scopes the table to one program name
             import json as _json
+            import urllib.parse
 
             from petals_tpu_torch.telemetry.observatory import get_observatory
 
+            params = urllib.parse.parse_qs(query)
+            want_memory = params.get("analyze", [""])[0] in ("memory", "1")
+            fn_filter = params.get("fn", [""])[0] or None
             obs = get_observatory()
-            view = {"stats": obs.compile_stats(), "functions": obs.functions()}
+            view = {
+                "warmup_calls": obs.warmup_calls,
+                "stats": obs.compile_stats(),
+                "functions": obs.functions(),
+                "programs": obs.cost_table(memory=want_memory, fn=fn_filter),
+                "dropped_programs": obs.dropped_programs,
+            }
             body = (_json.dumps(view, default=str) + "\n").encode()
             ctype = "application/json"
         elif path == "/integrity":
